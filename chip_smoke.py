@@ -5,19 +5,34 @@
 
 Phases (any failed check exits nonzero and prints no result):
 
-1. Build the CUDA kernels from ``neural_ode_features_tpu_torch/csrc``.
+1. Build the CUDA kernels from ``neural_ode_features_tpu_torch/csrc``, one
+   ``nvcc`` per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (B = 256, 7×7×64), and the fused step also at a ragged
-   B = 5.
-3. Run the main path, ``entry(device="cuda", batch=256)`` (CIFAR-10 ODE-Net,
-   per-sample dopri5 at tol 1e-3, full width, random weights), with the
-   launch counters set to 0 just before: the ODEfunc kernel must launch
-   twice (f0 and the initial-step probe), the fused step once per attempt.
-   TF32 must be off.  The plain path (no kernels) runs on the same card and
-   inputs; per-sample NFE and logits must agree.
-4. Time each kernel, its plain version and the library yardstick (one f
+   main paths' shapes (B = 256 for inference, B = 128 for training,
+   7×7×64), the fused step and the backward kernel also at a ragged B = 5.
+   The backward kernel is held against its plain version in float64 (the
+   f32 plain version's cuDNN weight gradients are less exact than the
+   kernel); two backward launches must give bit-identical dθ.
+3. The inference path, ``entry(device="cuda", batch=256)`` (CIFAR-10
+   ODE-Net, per-sample dopri5 at tol 1e-3, full width, random weights),
+   with the launch counters set to 0 just before: the ODEfunc kernel must
+   launch twice (f0 and the initial-step probe), the fused step once per
+   attempt.  TF32 must be off.  The plain path (no kernels) runs on the
+   same card and inputs; per-sample NFE and logits must agree.
+4. Training-path parity: the adjoint loss and parameter gradients through
+   the kernels against the plain path (``odefunc_plain`` under autograd) on
+   the card, B = 16, tol 1e-5, global control, augment off.
+5. The training path, ``train_entry(device="cuda", batch=128)`` (the JAX
+   ``TrainConfig`` defaults on ``synthetic-cifar10``, augment on): 5
+   ``train_batch`` steps, the counters set to 0 before each.  Per step the
+   ODEfunc kernel must launch 2 + 6·(forward attempts) + nfe_b times, the
+   backward kernel nfe_b − 1 times, the fused step never; loss and every
+   gradient finite.
+6. Time each kernel, its plain version and the library yardstick (one f
    through cuDNN: ``F.group_norm``/``F.conv2d`` on NCHW with the t channel
-   concatenated), and the whole solve in img/s.
+   concatenated; for the backward, ``torch.autograd.grad`` through it), the
+   whole inference solve in img/s, and the train step in img/s split into
+   the forward and the backward solve.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -25,6 +40,7 @@ and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -34,9 +50,11 @@ import time
 import numpy as np
 
 B, HH, WW, C, G = 256, 7, 7, 64, 32
+B_TRAIN = 128                            # the JAX TrainConfig batch size
 TOL = 1e-3
 STATE_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: f32 reassociation
 RATIO_TOL = dict(rtol=2e-3, atol=1e-6)   # error ratio: a sum of squares
+DP_TOL = dict(rtol=3e-4, atol=3e-4)      # dθ: sums over B·H·W products
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
 
@@ -77,6 +95,30 @@ def time_ms(fn, reps: int = 10, blocks: int = 5) -> float:
     return statistics.median(means)
 
 
+def leaves(tree) -> list:
+    """A param tree's leaves in a fixed (sorted-key) order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree]
+
+
+def flat(tree):
+    """A param tree's leaves, concatenated."""
+    import torch
+
+    return torch.cat([x.reshape(-1) for x in leaves(tree)])
+
+
+def gradient_bar(name, got, want):
+    """tests/test_pallas.py:142-145: rel-L2 < 1e-2 and cosine > 0.9999."""
+    got, want = got.double(), want.double()
+    rel = float((got - want).norm() / want.norm())
+    cos = float(got @ want / (got.norm() * want.norm()))
+    if not (rel < 1e-2 and cos > 0.9999):
+        fail(f"{name}: rel-L2 {rel:.3e}, cosine {cos:.7f}")
+    return rel, cos
+
+
 def main() -> int:
     import torch
 
@@ -85,19 +127,36 @@ def main() -> int:
         return 1
     import torch.nn.functional as F
 
-    from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry
+    from neural_ode_features_tpu_torch.entry import (
+        ENTRY_CONFIG,
+        entry,
+        train_entry,
+    )
     from neural_ode_features_tpu_torch.kernels import _build
     from neural_ode_features_tpu_torch.kernels.odefunc import (
         odefunc,
         odefunc_plain,
         prepare,
     )
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        odefunc_bwd,
+        odefunc_bwd_plain,
+    )
     from neural_ode_features_tpu_torch.kernels.rk_step import (
         dopri5_step,
         dopri5_step_plain,
     )
-    from neural_ode_features_tpu_torch.models import head_apply, stem_apply
-    from neural_ode_features_tpu_torch.solver import DOPRI5, odeint
+    from neural_ode_features_tpu_torch.models import (
+        head_apply,
+        odenet_logits,
+        stem_apply,
+    )
+    from neural_ode_features_tpu_torch.ops import normalize
+    from neural_ode_features_tpu_torch.solver import (
+        DOPRI5,
+        odeint,
+        odeint_adjoint,
+    )
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -146,6 +205,38 @@ def main() -> int:
     print(f"[check] odefunc max abs err {err_k1:.3e}; rk_step max abs err "
           f"{err_k2:.3e} (B={B} and B=5)")
 
+    # The backward kernel against its plain version evaluated in float64 on
+    # the same (upcast) inputs: in f32 the plain version's cuDNN
+    # weight-gradient convs are themselves up to ~1e-2 off at B = 128, an
+    # order of magnitude further from the f64 result than the kernel.
+    hb = h[:B_TRAIN].contiguous()
+    tb = t[:B_TRAIN].contiguous()
+    gb = torch.from_numpy((rng.normal(size=hb.shape)).astype(np.float32)).to(dev)
+    w64 = type(w)(*(x.double() for x in w))
+    err_k4 = 0.0
+    for nb in (B_TRAIN, 5):  # 5: a ragged batch
+        args = (tb[:nb].contiguous(), hb[:nb].contiguous(),
+                gb[:nb].contiguous())
+        dp, dtk, dh = odefunc_bwd(w, *args, groups=G)
+        dp2 = odefunc_bwd(w, *args, groups=G)[0]
+        dp_p, dt_p, dh_p = odefunc_bwd_plain(w64, *(a.double() for a in args),
+                                             G)
+        dp_32 = odefunc_bwd_plain(w, *args, G)[0]
+        err_k4 = max(err_k4, close(f"odefunc_bwd dh B={nb}", dh.double(),
+                                   dh_p, **STATE_TOL))
+        close(f"odefunc_bwd dt B={nb}", dtk.double(), dt_p, **STATE_TOL)
+        err_dp = close(f"odefunc_bwd dθ B={nb}", flat(dp).double(),
+                       flat(dp_p), **DP_TOL)
+        err_32 = float((flat(dp_32).double() - flat(dp_p)).abs().max())
+        if not torch.equal(flat(dp), flat(dp2)):
+            fail(f"odefunc_bwd dθ B={nb}: two launches differ")
+        print(f"[check] odefunc_bwd B={nb} vs the f64 plain version: dθ max "
+              f"abs err {err_dp:.3e} (the f32 plain version's: {err_32:.3e})")
+    torch.cuda.synchronize()
+    print(f"[check] odefunc_bwd dh max abs err {err_k4:.3e}; dt and dθ "
+          f"within tolerance; dθ bit-identical across two launches "
+          f"(B={B_TRAIN} and B=5)")
+
     # 3. Main path, counters from 0.
     odefunc.launches = 0
     dopri5_step.launches = 0
@@ -193,10 +284,68 @@ def main() -> int:
         fail(f"logits differ from the plain path: max abs err {logit_err:.3e}")
     print(f"[main] logits vs plain path: max abs err {logit_err:.3e}")
 
-    # 4. Times.
+    # 4. Training-path parity: kernels against the plain path on the card.
+    trainer, (images, labels) = train_entry(device="cuda", batch=B_TRAIN)
+    tp = trainer.params
+    mcfg = dataclasses.replace(trainer.model_cfg, tol=1e-5,
+                               error_control="global", max_steps=512)
+    xs = normalize(torch.from_numpy(images[:16]).to(dev), trainer.cfg.dataset)
+    ys = torch.from_numpy(labels[:16]).to(dev)
+    def adjoint_grads(logits):
+        loss = F.cross_entropy(logits, ys)
+        grads = torch.autograd.grad(loss, leaves(tp))
+        return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads])
+
+    loss_k, grads_k = adjoint_grads(odenet_logits(tp, xs, mcfg,
+                                                  adjoint=True)[0])
+    h0 = stem_apply(tp["stem"], xs, mcfg)
+    traj, _ = odeint_adjoint(
+        lambda p, tt, y: odefunc_plain(prepare(p, (HH, WW)), tt, y, G),
+        tp["odefunc"], h0, torch.tensor([0.0, 1.0], device=dev),
+        rtol=mcfg.tol, atol=mcfg.tol, error_control="global",
+        max_steps=mcfg.max_steps)
+    loss_p, grads_p = adjoint_grads(head_apply(tp["head"], traj[-1], mcfg))
+    if not np.isclose(loss_k, loss_p, rtol=1e-5, atol=0):
+        fail(f"adjoint loss {loss_k} (kernels) vs {loss_p} (plain)")
+    rel, cos = gradient_bar("adjoint gradients vs plain", grads_k, grads_p)
+    print(f"[train] parity B=16 tol 1e-5 global: loss {loss_k:.7f} vs "
+          f"{loss_p:.7f} plain; gradients rel-L2 {rel:.3e}, cosine {cos:.8f}")
+
+    # 5. The training path at full width, counters from 0 before each step.
+    train_launches, nfe_f, nfe_b = [], [], []
+    for step in range(5):
+        odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        m = trainer.train_batch(images, labels)
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t_s
+        got = {"odefunc": odefunc.launches, "odefunc_bwd": odefunc_bwd.launches,
+               "rk_step": dopri5_step.launches}
+        attempts = int(((trainer.last_stats.nfe - 2) // 6).max())
+        nb_ = int(m["nfe_b"])
+        print(f"[train] step {step}: {t_s:.3f} s, loss {m['loss']:.5f}, "
+              f"NFE-f mean {m['nfe']:.2f}, NFE-b {nb_}, attempts {attempts}, "
+              f"launches {got}")
+        want = {"odefunc": 2 + 6 * attempts + nb_, "odefunc_bwd": nb_ - 1,
+                "rk_step": 0}
+        if got != want or nb_ < 2:
+            fail(f"train step {step}: launches {got}, expected {want}")
+        if not np.isfinite(m["loss"]):
+            fail(f"train step {step}: loss {m['loss']}")
+        if not all(bool(torch.isfinite(p.grad).all())
+                   for p in trainer._leaves):
+            fail(f"train step {step}: a gradient is not finite")
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            fail("TF32 is on")
+        train_launches.append(got)
+        nfe_f.append(m["nfe"])
+        nfe_b.append(nb_)
+
+    # 6. Times.
     wt = params["odefunc"]
 
-    def library_f():
+    def library_f(h=h, t=t, wt=wt):
         xn = h.permute(0, 3, 1, 2)
         tmap = t.view(-1, 1, 1, 1).expand(-1, 1, HH, WW)
         out = F.relu(F.group_norm(xn, G, wt["norm1"]["scale"],
@@ -214,6 +363,21 @@ def main() -> int:
 
     lib_err = float((library_f() - odefunc_plain(w, t, h, G)).abs().max())
     print(f"[time] library f vs plain f: max abs err {lib_err:.3e}")
+
+    # The backward yardstick: autograd through the cuDNN f, w.r.t. the raw
+    # weights, t and h (its forward included, as the kernel recomputes it).
+    wlib = {k: {kk: v.detach().requires_grad_() for kk, v in d.items()}
+            for k, d in wt.items()}
+    hlib = hb.detach().requires_grad_()
+    tlib = tb.detach().requires_grad_()
+    lib_leaves = [hlib, tlib] + leaves(wlib)
+
+    def library_bwd():
+        return torch.autograd.grad(library_f(hlib, tlib, wlib), lib_leaves, gb)
+
+    lib_dh = library_bwd()[0]
+    print(f"[time] library f backward vs plain backward: dh max abs err "
+          f"{float((lib_dh - odefunc_bwd_plain(w, tb, hb, gb, G)[2]).abs().max()):.3e}")
     ms = {
         "odefunc": time_ms(lambda: odefunc(w, t, h, groups=G)),
         "odefunc_plain": time_ms(lambda: odefunc_plain(w, t, h, G)),
@@ -222,6 +386,10 @@ def main() -> int:
                                                **step_kw)),
         "rk_step_plain": time_ms(lambda: dopri5_step_plain(
             w, DOPRI5, t0, dt, y0, f0, **step_kw)),
+        "odefunc_bwd": time_ms(lambda: odefunc_bwd(w, tb, hb, gb, groups=G)),
+        "odefunc_bwd_plain": time_ms(lambda: odefunc_bwd_plain(w, tb, hb,
+                                                               gb, G)),
+        "odefunc_bwd_library": time_ms(library_bwd),
     }
     solve_s = []
     for _ in range(5):
@@ -242,9 +410,76 @@ def main() -> int:
           f"{B / statistics.median(plain_s):.1f} img/s plain "
           f"(median of {plain_s})")
 
+    # The train step, warm: whole steps, then the forward and the backward
+    # solve apart (the same work as train_batch, without the update).
+    step_s, fwd_s, bwd_s = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        trainer.train_batch(images, labels)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t_s)
+    for _ in range(5):
+        x_t = trainer._preprocess(images, train=True)
+        y_t = trainer._labels(labels)
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        loss, _, _, _ = trainer._loss_and_logits(trainer.params, x_t, y_t)
+        torch.cuda.synchronize()
+        t_m = time.perf_counter()
+        torch.autograd.grad(loss, trainer._leaves)
+        torch.cuda.synchronize()
+        fwd_s.append(t_m - t_s)
+        bwd_s.append(time.perf_counter() - t_m)
+    # Where a warm step's time goes: one step under torch.profiler, device
+    # time by kernel (the profiler's own cost is in the wall time).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_s = time.perf_counter()
+        trainer.train_batch(images, labels)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t_s
+    groups = {"odefunc": "odefunc_kernel", "odefunc_bwd": "bwd_",
+              "rk_step": "rk_step_kernel"}
+    dev_ms = dict.fromkeys([*groups, "other"], 0.0)
+    others = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # a host op: its kernels
+            continue                           # are entries of their own
+        ms_ = ev.self_device_time_total / 1e3
+        name = next((g for g, key in groups.items() if key in ev.key),
+                    "other")
+        dev_ms[name] += ms_
+        if name == "other" and ms_ > 0:
+            others.append((ms_, ev.count, ev.key[:60]))
+    busy = sum(dev_ms.values())
+    print(f"[profile] one train step B={B_TRAIN} under torch.profiler: wall "
+          f"{1e3 * prof_wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / (1e3 * prof_wall):.1f}%), idle "
+          f"{100 * (1 - busy / (1e3 * prof_wall)):.1f}%; device ms by "
+          f"kernel {json.dumps({k: round(v, 3) for k, v in dev_ms.items()})}")
+    for ms_, count, key in sorted(others, reverse=True)[:8]:
+        print(f"[profile]   other: {ms_:.3f} ms in {count} calls: {key}")
+
+    med = statistics.median
+    print(f"[time] train step B={B_TRAIN}: {B_TRAIN / med(step_s):.1f} img/s "
+          f"(median of {step_s}); forward solve {1e3 * med(fwd_s):.2f} ms "
+          f"(median of {fwd_s}), backward solve {1e3 * med(bwd_s):.2f} ms "
+          f"(median of {bwd_s}); over the 5 checked steps NFE-f mean "
+          f"{statistics.mean(nfe_f):.2f}, NFE-b mean {statistics.mean(nfe_b):.1f}")
+
     n = HH * WW * C
     conv_flops = 2 * 2 * HH * WW * 9 * C * C * B      # two 3×3 convs, per f
     weight_bytes = 4 * (2 * 9 * C * C + 2 * n + 8 * C)
+    # Backward: six 3×3-conv equivalents per sample (forward recompute,
+    # input gradients, weight gradients); reads h, g, t, the laid-out
+    # weights, writes dh, dt and the raw dθ once each.
+    bwd_flops = 6 * 2 * HH * WW * 9 * C * C * B_TRAIN
+    bwd_bytes = (4 * (3 * B_TRAIN * n + 2 * B_TRAIN) + weight_bytes
+                 + 4 * (2 * 9 * (C + 1) * C + 8 * C))
 
     def bound(flops, nbytes):
         by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -253,6 +488,7 @@ def main() -> int:
 
     b1, by1 = bound(conv_flops, 4 * (2 * B * n + B) + weight_bytes)
     b2, by2 = bound(6 * conv_flops, 4 * (5 * B * n + 3 * B) + weight_bytes)
+    b4, by4 = bound(bwd_flops, bwd_bytes)
     kernels = [
         {"name": "odefunc", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/odefunc.cu",
@@ -267,6 +503,13 @@ def main() -> int:
          "launches": launches["rk_step"], "max_abs_err": err_k2,
          "ms": ms["rk_step"], "plain_ms": ms["rk_step_plain"],
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
+        {"name": "odefunc_bwd", "route": "cuda",
+         "source": "neural_ode_features_tpu_torch/csrc/odefunc_bwd.cu",
+         "replaces": "neural_ode_features_tpu/kernels/odefunc_bwd_rows.py:305",
+         "launches": train_launches[-1]["odefunc_bwd"], "max_abs_err": err_k4,
+         "ms": ms["odefunc_bwd"], "plain_ms": ms["odefunc_bwd_plain"],
+         "bound_ms": b4, "bound_by": by4,
+         "library_ms": ms["odefunc_bwd_library"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

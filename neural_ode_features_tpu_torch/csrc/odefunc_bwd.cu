@@ -1,0 +1,372 @@
+// Fused ODEfunc backward (the VJP of f): (dtheta, dt, dh) for a batch
+// (sm_90a).
+//
+// Replaces the TPU kernel neural_ode_features_tpu/kernels/odefunc_bwd_rows.py
+// (odefunc_bwd_rows -> _bwd_rows_kernel).  Wrapper and plain PyTorch
+// version: kernels/odefunc_bwd.py.
+//
+// The TPU kernel sums the parameter gradients over the batch by
+// read-modify-write into output blocks that every grid step revisits; that
+// is race-free only because a TPU grid runs in order.  CTAs run
+// concurrently, so the work is split into three launches, with no atomics
+// and every sum in a fixed order (two launches on the same inputs give
+// bit-identical dtheta):
+//
+//   1. bwd_sample_kernel, one CTA per sample (512 threads): recompute the
+//      forward (odefunc_common.cuh helpers: split ConcatConv, centred-variance
+//      GroupNorm), then GN3 backward, conv2 input gradient (a 3x3 conv of the
+//      cotangent with the tap-flipped, transposed weights w2bt), ReLU2 + GN2
+//      backward, conv1 input gradient, ReLU1 + GN1 backward.  Writes dh, the
+//      per-sample dt = sum(gv*M2) + sum(gu*M1), the per-sample partial sums
+//      of the GroupNorm scales/biases, conv biases and time-column kernels
+//      (dWt[k] = t * sum of gv over the pixels where tap k is inside the
+//      map: the tap-validity contraction), and the activations r1, r2 and
+//      cotangents gu, gv that the weight gradients need.
+//   2. bwd_weight_kernel: dW[conv][k] (C x C per tap) = sum over (b, p) of
+//      r[b, p + off_k] (x) g[b, p]; one CTA per (conv, tap, row chunk), a
+//      64x64 output tile with a 4x4 register tile per thread.
+//   3. bwd_reduce_kernel: one thread per output sums the row chunks and the
+//      per-sample partials, and writes dtheta in the raw layout: conv kernels
+//      (3, 3, C+1, C) with the time channel first, and the eight (C,) vectors.
+//
+// Bound (H100 SXM, 700 W; 67 TFLOP/s f32 outside the tensor cores,
+// 3.35 TB/s): two forward convs, two input-gradient convs and two
+// weight-gradient contractions are six 3x3-conv equivalents,
+// 6 * 2*49*9*64*64 = 21.7 MFLOP per sample, 2.77 GFLOP at B = 128 (about
+// 41 us); the bytes (h, g, dh in and out, the weights) are about 5 MB.  So it
+// is bound by operations.  Strict f32 FFMA throughout: no TF32, no tensor
+// cores.
+#include "odefunc_common.cuh"
+
+namespace nodef {
+
+constexpr int kParts = 26;       // per-sample partial rows, see bwd_sample_kernel
+constexpr int kRedThreads = 256; // weight-gradient CTA: 16 x 16 threads, 4x4 each
+constexpr int kTile = 64;        // weight-gradient output tile (ci and co)
+constexpr int kRowTile = 32;     // rows staged per step in the weight-gradient CTA
+constexpr int kSplit = 8;        // row chunks per (conv, tap)
+
+// Shared memory of bwd_sample_kernel: the forward's layout (carve), then
+//   su    [H*W*C]   conv1 output u (GN2's input)
+//   sred2 [kThreads] a second per-(pixel group, channel) partial sum
+//   st    [6*G]     mean/inv of GN1, GN2, GN3
+//   chan  [4*C]     per-channel sums and group means
+// kernels/odefunc_bwd.py (bwd_smem_bytes) mirrors this formula.
+inline size_t bwd_smem_bytes(int H, int W, int C, int G) {
+  return odefunc_smem_bytes(H, W, C, G) +
+         sizeof(float) * ((size_t)H * W * C + kThreads + 6 * (size_t)G + 4 * (size_t)C);
+}
+
+inline bool bwd_shape_ok(int H, int W, int C, int G) {
+  return shape_ok(H, W, C, G) && C % kTile == 0 && bwd_smem_bytes(H, W, C, G) <= kMaxSmem;
+}
+
+__device__ __forceinline__ int pad_index(const Shape& s, int e) {
+  const int c = e % s.C, q = e / s.C;
+  return ((q / s.W + 1) * (s.W + 2) + q % s.W + 1) * s.C + c;
+}
+
+// GroupNorm backward for one sample.  x: the GN input, mean/inv: its
+// statistics, dyf(e): the cotangent of the GN output at element e.
+// Writes dscale = sum_p dy * x-hat and dbias = sum_p dy (per channel), then
+// hands dx = inv * (dy*scale - mean_g(dy*scale) - x-hat * mean_g(dy*scale*x-hat))
+// to out(e, dx).  Caller synchronises before; ends unsynchronised.
+template <class Dy, class Out>
+__device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shape& s,
+                            const float* x, const float* mean, const float* inv,
+                            const float* __restrict__ scale, Dy dyf,
+                            float* dscale, float* dbias, Out out) {
+  const int tid = threadIdx.x, C = s.C, c = tid % C, pg = tid / C;
+  const int npg = kThreads / C, hw = s.H * s.W, gs = C / s.G;
+  float a1 = 0.f, a2 = 0.f;
+  for (int p = pg; p < hw; p += npg) {
+    const int e = p * C + c;
+    const float dy = dyf(e);
+    a1 = fmaf(dy, gn_hat(s, x, mean, inv, e), a1);
+    a2 += dy;
+  }
+  m.sred[tid] = a1;
+  sred2[tid] = a2;
+  __syncthreads();
+  if (tid < C) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int q = 0; q < npg; ++q) {
+      s1 += m.sred[q * C + tid];
+      s2 += sred2[q * C + tid];
+    }
+    chan[tid] = s1;
+    chan[C + tid] = s2;
+    dscale[tid] = s1;
+    dbias[tid] = s2;
+  }
+  __syncthreads();
+  if (tid < s.G) {
+    const float n = (float)(hw * gs);
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < gs; ++j) {
+      const int cc = tid * gs + j;
+      s1 = fmaf(scale[cc], chan[cc], s1);
+      s2 = fmaf(scale[cc], chan[C + cc], s2);
+    }
+    chan[2 * C + tid] = s2 / n;  // mean_g(dy * scale)
+    chan[3 * C + tid] = s1 / n;  // mean_g(dy * scale * x-hat)
+  }
+  __syncthreads();
+  const int n = hw * C;
+  for (int e = tid; e < n; e += kThreads) {
+    const int cc = e % C, g = cc / gs;
+    const float xh = gn_hat(s, x, mean, inv, e);
+    out(e, inv[g] * (dyf(e) * scale[cc] - chan[2 * C + g] - xh * chan[3 * C + g]));
+  }
+}
+
+// Bias, time-column and t gradients of one ConcatConv from its output
+// cotangent, which lies in the spad interior (caller synchronised):
+// db[c] = sum_p g, dwt[k*C + c] = t * sum of g over the pixels where tap k
+// reads inside the map, and the returned sum_p,c g * M (valid in thread 0).
+// Ends synchronised.
+__device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, const Shape& s,
+                                  const float* __restrict__ tmap, float t, float* db,
+                                  float* dwt) {
+  const int tid = threadIdx.x, C = s.C, c = tid % C, pg = tid / C;
+  const int npg = kThreads / C, hw = s.H * s.W, Wp = s.W + 2;
+  float a1 = 0.f, a2 = 0.f;
+  for (int p = pg; p < hw; p += npg) {
+    const float v = m.spad[pad_index(s, p * C + c)];
+    a1 += v;
+    a2 = fmaf(v, tmap[p * C + c], a2);
+  }
+  m.sred[tid] = a1;
+  sred2[tid] = a2;
+  for (int e = tid; e < 9 * C; e += kThreads) {
+    const int k = e / C, cc = e % C, ky = k / 3, kx = k % 3;
+    const int y0 = max(0, 1 - ky), y1 = min(s.H, s.H + 1 - ky);
+    const int x0 = max(0, 1 - kx), x1 = min(s.W, s.W + 1 - kx);
+    float acc = 0.f;
+    for (int y = y0; y < y1; ++y)
+      for (int x = x0; x < x1; ++x) acc += m.spad[((y + 1) * Wp + x + 1) * C + cc];
+    dwt[e] = t * acc;
+  }
+  __syncthreads();
+  if (tid < C) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int q = 0; q < npg; ++q) {
+      s1 += m.sred[q * C + tid];
+      s2 += sred2[q * C + tid];
+    }
+    db[tid] = s1;
+    chan[tid] = s2;
+  }
+  __syncthreads();
+  float dt = 0.f;
+  if (tid == 0)
+    for (int cc = 0; cc < C; ++cc) dt += chan[cc];
+  __syncthreads();
+  return dt;
+}
+
+// Per-sample partial rows (kParts x C): 0 dn1s, 1 dn1b, 2 dn2s, 3 dn2b,
+// 4 dn3s, 5 dn3b, 6 db1, 7 db2, 8..16 dwt1 (tap-major), 17..25 dwt2.
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
+                  const float* __restrict__ g, Odefunc p,
+                  const float* __restrict__ w1bt, const float* __restrict__ w2bt, Shape s,
+                  float* __restrict__ dh, float* __restrict__ dt,
+                  float* __restrict__ r1, float* __restrict__ r2,
+                  float* __restrict__ gu, float* __restrict__ gv,
+                  float* __restrict__ part) {
+  extern __shared__ float4 smem_raw[];
+  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
+  const int C = s.C, G = s.G, n = s.H * s.W * C, tid = threadIdx.x;
+  float* su = m.sinv + G;
+  float* sred2 = su + n;
+  float* st = sred2 + kThreads;
+  float* chan = st + 6 * G;
+  const size_t off = (size_t)blockIdx.x * n;
+  const float tb = t[blockIdx.x];
+  const float* hb = h + off;
+  const float* gb = g + off;
+  float* pb = part + (size_t)blockIdx.x * kParts * C;
+  float *mean1 = st, *inv1 = st + G, *mean2 = st + 2 * G, *inv2 = st + 3 * G;
+  float *mean3 = st + 4 * G, *inv3 = st + 5 * G;
+
+  // Forward recompute: r1 = relu(GN1(h)), u = conv1(r1), r2 = relu(GN2(u)),
+  // v = conv2(r2) in sx.
+  zero_pad(m, s);
+  for (int e = tid; e < n; e += kThreads) m.sx[e] = hb[e];
+  __syncthreads();
+  gn_stats(m, s, m.sx, mean1, inv1);
+  gn_relu_to_pad(m, s, m.sx, mean1, inv1, p.n1s, p.n1b);
+  __syncthreads();
+  for (int e = tid; e < n; e += kThreads) r1[off + e] = m.spad[pad_index(s, e)];
+  {
+    const float b = p.b1[tid % C];
+    conv3x3(m, s, p.w1, [&](int q, int co, float acc) {
+      su[q * C + co] = (acc + b) + tb * p.m1[q * C + co];
+    });
+  }
+  __syncthreads();
+  gn_stats(m, s, su, mean2, inv2);
+  gn_relu_to_pad(m, s, su, mean2, inv2, p.n2s, p.n2b);
+  __syncthreads();
+  for (int e = tid; e < n; e += kThreads) r2[off + e] = m.spad[pad_index(s, e)];
+  conv3x3_to_sx(m, s, p.w2, p.b2, p.m2, tb);
+  __syncthreads();
+  gn_stats(m, s, m.sx, mean3, inv3);
+
+  // GN3: gv = dL/dv into gv and the spad interior (the border stays zero).
+  gn_backward(m, sred2, chan, s, m.sx, mean3, inv3, p.n3s,
+              [&](int e) { return gb[e]; }, pb + 4 * C, pb + 5 * C,
+              [&](int e, float v) { gv[off + e] = v; m.spad[pad_index(s, e)] = v; });
+  __syncthreads();
+  float dt_acc = conv_param_grads(m, sred2, chan, s, p.m2, tb, pb + 7 * C, pb + 17 * C);
+
+  // conv2 input gradient: sx = conv3x3(pad(gv), w2bt).
+  conv3x3(m, s, w2bt, [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; });
+  __syncthreads();
+
+  // ReLU2 + GN2: gu = dL/du.
+  gn_backward(m, sred2, chan, s, su, mean2, inv2, p.n2s,
+              [&](int e) {
+                const int c = e % C;
+                const float y = gn_hat(s, su, mean2, inv2, e) * p.n2s[c] + p.n2b[c];
+                return y > 0.f ? m.sx[e] : 0.f;
+              },
+              pb + 2 * C, pb + 3 * C,
+              [&](int e, float v) { gu[off + e] = v; m.spad[pad_index(s, e)] = v; });
+  __syncthreads();
+  dt_acc += conv_param_grads(m, sred2, chan, s, p.m1, tb, pb + 6 * C, pb + 8 * C);
+
+  // conv1 input gradient: sx = conv3x3(pad(gu), w1bt).
+  conv3x3(m, s, w1bt, [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; });
+  __syncthreads();
+
+  // ReLU1 + GN1: dh.
+  gn_backward(m, sred2, chan, s, hb, mean1, inv1, p.n1s,
+              [&](int e) {
+                const int c = e % C;
+                const float y = gn_hat(s, hb, mean1, inv1, e) * p.n1s[c] + p.n1b[c];
+                return y > 0.f ? m.sx[e] : 0.f;
+              },
+              pb, pb + C, [&](int e, float v) { dh[off + e] = v; });
+  if (tid == 0) dt[blockIdx.x] = dt_acc;
+}
+
+// wpart[split][conv][tap][ci][co] = sum over the split's rows (b, p) of
+// r[b, p + off_tap, ci] * g[b, p, co] (zero where the tap leaves the map).
+__global__ void __launch_bounds__(kRedThreads)
+bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
+                  const float* __restrict__ gu, const float* __restrict__ gv, Shape s,
+                  int B, float* __restrict__ wpart) {
+  __shared__ float4 sr[kRowTile][kTile / 4];
+  __shared__ float4 sg[kRowTile][kTile / 4];
+  const int conv = blockIdx.x / (9 * kSplit), tap = (blockIdx.x / kSplit) % 9;
+  const int split = blockIdx.x % kSplit, C = s.C;
+  const int ci0 = blockIdx.y * kTile, co0 = blockIdx.z * kTile;
+  const float* r = conv == 0 ? r1 : r2;
+  const float* g = conv == 0 ? gu : gv;
+  const int hw = s.H * s.W, dy = tap / 3 - 1, dx = tap % 3 - 1;
+  const long nrows = (long)B * hw;
+  const long lo = nrows * split / kSplit, hi = nrows * (split + 1) / kSplit;
+  const int tid = threadIdx.x, tci = tid / (kTile / 4), tco = tid % (kTile / 4);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (long row0 = lo; row0 < hi; row0 += kRowTile) {
+    for (int i = tid; i < kRowTile * (kTile / 4); i += kRedThreads) {
+      const int rr = i / (kTile / 4), q = i % (kTile / 4);
+      const long row = row0 + rr;
+      float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vg = vr;
+      if (row < hi) {
+        const long b = row / hw;
+        const int pix = (int)(row % hw), y = pix / s.W + dy, x = pix % s.W + dx;
+        vg = *reinterpret_cast<const float4*>(g + row * C + co0 + 4 * q);
+        if (y >= 0 && y < s.H && x >= 0 && x < s.W)
+          vr = *reinterpret_cast<const float4*>(r + ((b * hw + y * s.W + x) * C) + ci0 + 4 * q);
+      }
+      sr[rr][q] = vr;
+      sg[rr][q] = vg;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int rr = 0; rr < kRowTile; ++rr) {
+      const float4 a = sr[rr][tci], b = sg[rr][tco];
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* out = wpart + (((size_t)split * 2 + conv) * 9 + tap) * C * C;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ci = ci0 + 4 * tci + i;
+    *reinterpret_cast<float4*>(out + (size_t)ci * C + co0 + 4 * tco) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// dk1, dk2: (9, C+1, C) raw conv-kernel gradients (channel 0: time);
+// dvec: (8, C) in the order of the partial rows 0..7.
+__global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
+                                  const float* __restrict__ part, Shape s, int B,
+                                  float* __restrict__ dk1, float* __restrict__ dk2,
+                                  float* __restrict__ dvec) {
+  const int C = s.C, nk = 9 * (C + 1) * C;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  float acc = 0.f;
+  if (idx < 2 * nk) {
+    const int conv = idx / nk, rem = idx % nk;
+    const int tap = rem / ((C + 1) * C), row = (rem / C) % (C + 1), co = rem % C;
+    if (row == 0) {
+      for (int b = 0; b < B; ++b) acc += part[((size_t)b * kParts + 8 + 9 * conv + tap) * C + co];
+    } else {
+      for (int sp = 0; sp < kSplit; ++sp)
+        acc += wpart[((((size_t)sp * 2 + conv) * 9 + tap) * C + row - 1) * C + co];
+    }
+    (conv == 0 ? dk1 : dk2)[rem] = acc;
+  } else if (idx < 2 * nk + 8 * C) {
+    const int j = idx - 2 * nk;
+    for (int b = 0; b < B; ++b) acc += part[(size_t)b * kParts * C + j];
+    dvec[j] = acc;
+  }
+}
+
+}  // namespace nodef
+
+// Scratch, allocated by the wrapper: r1, r2, gu, gv (B, H*W*C) each, part
+// (B, 26, C), wpart (8, 2, 9, C, C).
+extern "C" int odefunc_backward(
+    const float* t, const float* h, const float* g,
+    const float* n1s, const float* n1b, const float* w1, const float* b1, const float* m1,
+    const float* n2s, const float* n2b, const float* w2, const float* b2, const float* m2,
+    const float* n3s, const float* n3b, const float* w1bt, const float* w2bt,
+    float* dh, float* dt, float* r1, float* r2, float* gu, float* gv, float* part,
+    float* wpart, float* dk1, float* dk2, float* dvec,
+    int B, int H, int W, int C, int G, void* stream) {
+  using namespace nodef;
+  if (!bwd_shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(H, W, C, G);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
+  const Shape s{H, W, C, G};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bwd_sample_kernel<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, dh, dt, r1, r2,
+                                               gu, gv, part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 wgrid(2 * 9 * kSplit, C / kTile, C / kTile);
+  bwd_weight_kernel<<<wgrid, kRedThreads, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int total = 2 * 9 * (C + 1) * C + 8 * C;
+  bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(wpart, part, s, B, dk1, dk2, dvec);
+  return (int)cudaGetLastError();
+}

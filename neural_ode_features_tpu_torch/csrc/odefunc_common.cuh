@@ -3,8 +3,9 @@
 //     GN -> ReLU -> [conv3x3(h, W1) + b1 + t*M1] -> GN -> ReLU
 //        -> [conv3x3(h, W2) + b2 + t*M2] -> GN
 //
-// Shared by csrc/odefunc.cu (one f per launch) and csrc/rk_step.cu (six f
-// per launch inside one dopri5 attempt).  ConcatConv uses the split form of
+// Shared by csrc/odefunc.cu (one f per launch), csrc/rk_step.cu (six f
+// per launch inside one dopri5 attempt) and csrc/odefunc_bwd.cu (the forward
+// recompute, and the input-gradient convs through conv3x3).  ConcatConv uses the split form of
 // ops/layers.py: the time channel contributes t*M, with the border-aware map
 // M = conv(ones, W[:, :, :1, :]) precomputed in strict f32 by the wrapper,
 // so the contraction here is a clean C -> C 3x3 conv.
@@ -105,29 +106,31 @@ __device__ __forceinline__ void zero_pad(const Smem& m, const Shape& s) {
   for (int i = threadIdx.x; i < n; i += kThreads) m.spad[i] = 0.f;
 }
 
-// Group mean and 1/sqrt(var + eps) of sx into smean/sinv (centred variance).
-// Starts reading sx (the caller has synchronised) and ends synchronised.
-__device__ void gn_stats(const Smem& m, const Shape& s) {
+// Group mean and 1/sqrt(var + eps) of x (H*W*C, NHWC) into mean/inv
+// (centred variance).  Starts reading x (the caller has synchronised) and
+// ends synchronised.
+__device__ void gn_stats(const Smem& m, const Shape& s, const float* x,
+                         float* mean, float* inv) {
   const int tid = threadIdx.x, C = s.C, c = tid % C, pg = tid / C;
   const int npg = kThreads / C, hw = s.H * s.W, gs = C / s.G;
   const float n = (float)(hw * gs);
 
   float acc = 0.f;
-  for (int p = pg; p < hw; p += npg) acc += m.sx[p * C + c];
+  for (int p = pg; p < hw; p += npg) acc += x[p * C + c];
   m.sred[tid] = acc;  // tid == pg * C + c
   __syncthreads();
   if (tid < s.G) {
     float tot = 0.f;
     for (int q = 0; q < npg; ++q)
       for (int j = 0; j < gs; ++j) tot += m.sred[q * C + tid * gs + j];
-    m.smean[tid] = tot / n;
+    mean[tid] = tot / n;
   }
   __syncthreads();
 
-  const float mu = m.smean[c / gs];
+  const float mu = mean[c / gs];
   acc = 0.f;
   for (int p = pg; p < hw; p += npg) {
-    const float d = m.sx[p * C + c] - mu;
+    const float d = x[p * C + c] - mu;
     acc = fmaf(d, d, acc);
   }
   m.sred[tid] = acc;
@@ -136,28 +139,37 @@ __device__ void gn_stats(const Smem& m, const Shape& s) {
     float tot = 0.f;
     for (int q = 0; q < npg; ++q)
       for (int j = 0; j < gs; ++j) tot += m.sred[q * C + tid * gs + j];
-    m.sinv[tid] = 1.0f / sqrtf(tot / n + kEps);
+    inv[tid] = 1.0f / sqrtf(tot / n + kEps);
   }
   __syncthreads();
 }
 
-// GroupNorm output at element e of sx (after gn_stats).
+// Normalised value x-hat at element e of x, from gn_stats' mean/inv.
+__device__ __forceinline__ float gn_hat(const Shape& s, const float* x,
+                                        const float* mean, const float* inv, int e) {
+  const int g = (e % s.C) / (s.C / s.G);
+  return (x[e] - mean[g]) * inv[g];
+}
+
+// GroupNorm output at element e of sx (after gn_stats into smean/sinv).
 __device__ __forceinline__ float gn_value(const Smem& m, const Shape& s,
                                           const float* __restrict__ scale,
                                           const float* __restrict__ bias, int e) {
-  const int c = e % s.C, g = c / (s.C / s.G);
-  return ((m.sx[e] - m.smean[g]) * m.sinv[g]) * scale[c] + bias[c];
+  const int c = e % s.C;
+  return gn_hat(s, m.sx, m.smean, m.sinv, e) * scale[c] + bias[c];
 }
 
-// spad interior = relu(GN(sx)).  NaN passes through, as in torch.relu.
-__device__ void gn_relu_to_pad(const Smem& m, const Shape& s,
+// spad interior = relu(GN(x)) with x's statistics in mean/inv.  NaN passes
+// through, as in torch.relu.
+__device__ void gn_relu_to_pad(const Smem& m, const Shape& s, const float* x,
+                               const float* mean, const float* inv,
                                const float* __restrict__ scale,
                                const float* __restrict__ bias) {
   const int n = s.H * s.W * s.C, Wp = s.W + 2;
   for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int c = e % s.C, p = e / s.C, y = p / s.W, x = p % s.W;
-    const float v = gn_value(m, s, scale, bias, e);
-    m.spad[((y + 1) * Wp + x + 1) * s.C + c] = v < 0.f ? 0.f : v;
+    const int c = e % s.C, p = e / s.C, y = p / s.W, xx = p % s.W;
+    const float v = gn_hat(s, x, mean, inv, e) * scale[c] + bias[c];
+    m.spad[((y + 1) * Wp + xx + 1) * s.C + c] = v < 0.f ? 0.f : v;
   }
 }
 
@@ -166,13 +178,12 @@ __device__ __forceinline__ void load_tap(float* dst, const float* __restrict__ s
   cp_async_commit();
 }
 
-// 3x3 SAME conv of spad with w (9, C, C); then
-// sx[p, co] = (conv + bias[co]) + t * M[p, co].  Caller synchronises before
-// (spad written) and after (sx written).
-__device__ void conv3x3_to_sx(const Smem& m, const Shape& s,
-                              const float* __restrict__ w,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ tmap, float t) {
+// 3x3 SAME conv of spad with w (9, C, C); the sum at output pixel p and
+// channel co is handed to epi(p, co, acc).  Caller synchronises before (spad
+// written) and after (whatever epi wrote).
+template <class Epi>
+__device__ void conv3x3(const Smem& m, const Shape& s, const float* __restrict__ w,
+                        Epi epi) {
   const int tid = threadIdx.x, C = s.C, co = tid % C, pg = tid / C;
   const int npg = kThreads / C, hw = s.H * s.W, Wp = s.W + 2, cc = C * C;
   const int np = (hw + npg - 1) / npg;  // pixel slots per thread (<= kMaxPix)
@@ -210,12 +221,23 @@ __device__ void conv3x3_to_sx(const Smem& m, const Shape& s,
     }
   }
 
-  const float b = bias[co];
 #pragma unroll
   for (int k = 0; k < kMaxPix; ++k) {
     const int p = pg + k * npg;
-    if (k < np && p < hw) m.sx[p * C + co] = (acc[k] + b) + t * tmap[p * C + co];
+    if (k < np && p < hw) epi(p, co, acc[k]);
   }
+}
+
+// sx[p, co] = (conv3x3(spad, w) + bias[co]) + t * M[p, co].
+__device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
+                                              const float* __restrict__ w,
+                                              const float* __restrict__ bias,
+                                              const float* __restrict__ tmap, float t) {
+  const int C = s.C;
+  const float b = bias[threadIdx.x % C];
+  conv3x3(m, s, w, [&](int p, int co, float acc) {
+    m.sx[p * C + co] = (acc + b) + t * tmap[p * C + co];
+  });
 }
 
 // f(t, sx) for one sample.  sx holds the input state and the caller has
@@ -225,17 +247,17 @@ __device__ void conv3x3_to_sx(const Smem& m, const Shape& s,
 template <class Out>
 __device__ void odefunc_eval(const Smem& m, const Shape& s, const Odefunc& p,
                              float t, Out out) {
-  gn_stats(m, s);
-  gn_relu_to_pad(m, s, p.n1s, p.n1b);
+  gn_stats(m, s, m.sx, m.smean, m.sinv);
+  gn_relu_to_pad(m, s, m.sx, m.smean, m.sinv, p.n1s, p.n1b);
   __syncthreads();
   conv3x3_to_sx(m, s, p.w1, p.b1, p.m1, t);
   __syncthreads();
-  gn_stats(m, s);
-  gn_relu_to_pad(m, s, p.n2s, p.n2b);
+  gn_stats(m, s, m.sx, m.smean, m.sinv);
+  gn_relu_to_pad(m, s, m.sx, m.smean, m.sinv, p.n2s, p.n2b);
   __syncthreads();
   conv3x3_to_sx(m, s, p.w2, p.b2, p.m2, t);
   __syncthreads();
-  gn_stats(m, s);
+  gn_stats(m, s, m.sx, m.smean, m.sinv);
   const int n = s.H * s.W * s.C;
   for (int e = threadIdx.x; e < n; e += kThreads) out(e, gn_value(m, s, p.n3s, p.n3b, e));
 }

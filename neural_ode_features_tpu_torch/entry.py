@@ -1,36 +1,71 @@
-"""The port's counterpart of ``__graft_entry__.entry()``: CIFAR-10 ODE-Net
-inference with per-sample adaptive dopri5 at rtol = atol = 1e-3.
+"""The port's entry points.
 
-The configuration is the JAX entry's with the JAX kernel opt-ins switched
-on (``use_pallas=use_fused_rk=True``), i.e. the configuration whose path the
+``entry``: the counterpart of ``__graft_entry__.entry()``, CIFAR-10 ODE-Net
+inference with per-sample adaptive dopri5 at rtol = atol = 1e-3.  The
+configuration is the JAX entry's with the JAX kernel opt-ins switched on
+(``use_pallas=use_fused_rk=True``), i.e. the configuration whose path the
 TPU kernels carried; the port runs its CUDA kernels on the card regardless.
+
+``train_entry``: the adjoint training step at the JAX ``TrainConfig``
+defaults on ``synthetic-cifar10``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
+from .data import dataset_spec, load_dataset
 from .models import ModelConfig, init_odenet, odenet_logits
+from .training import TrainConfig, Trainer
 
-__all__ = ["entry", "ENTRY_CONFIG"]
+__all__ = ["entry", "ENTRY_CONFIG", "train_entry", "TRAIN_CONFIG"]
 
 ENTRY_CONFIG = ModelConfig(in_channels=3, tol=1e-3, error_control="per_sample",
                            use_pallas=True, use_fused_rk=True)
 
 
-def entry(device="cuda", batch: int = 16):
-    """Return ``(fwd, (params, x))``: ``fwd(params, x) -> (logits, nfe)``
-    on random weights (seed 7) and a (batch, 32, 32, 3) f32 NHWC input
-    drawn with numpy from seed 0.
+# The JAX TrainConfig defaults (hidden 64, groups 32, B = 128, tol 1e-3,
+# dopri5 with per-sample forward error control, reintegrating adjoint
+# without seminorm, SGD lr 0.1 momentum 0.9, augment on) on the in-repo
+# CIFAR-10 twin.
+TRAIN_CONFIG = TrainConfig(dataset="synthetic-cifar10")
 
-    Sets strict f32 on the card (no TF32 in cuDNN convs or cuBLAS matmuls):
-    TF32 is the H100 twin of the TPU's bf16 default, which the JAX package
-    had to pin away from its solver-side contractions."""
+
+def _strict_f32(device) -> torch.device:
+    """Resolve ``device`` and turn TF32 off in cuDNN convs and cuBLAS
+    matmuls: TF32 is the H100 twin of the TPU's bf16 default, which the JAX
+    package had to pin away from its solver-side contractions."""
     dev = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def train_entry(device="cuda", batch: int = 128):
+    """Return ``(trainer, (images_u8, labels))``: a :class:`Trainer` at
+    :data:`TRAIN_CONFIG` with ``batch_size=batch`` (random weights from
+    ``cfg.seed``; the learning-rate boundaries of the full 50,000-image
+    epoch) and one fixed ``synthetic-cifar10`` batch, (batch, 32, 32, 3)
+    uint8 and (batch,) int64.  ``trainer.train_batch(images_u8, labels)``
+    takes one step.  Sets strict f32 on the card, as :func:`entry`."""
+    dev = _strict_f32(device)
+    cfg = dataclasses.replace(TRAIN_CONFIG, batch_size=batch)
+    images, labels = load_dataset(cfg.dataset, "train", limit=batch)
+    steps = dataset_spec(cfg.dataset)["n_train"] // batch
+    trainer = Trainer(cfg, steps_per_epoch=steps, device=dev)
+    return trainer, (images, labels.astype(np.int64))
+
+
+def entry(device="cuda", batch: int = 16):
+    """Return ``(fwd, (params, x))``: ``fwd(params, x) -> (logits, nfe)``
+    on random weights (seed 7) and a (batch, 32, 32, 3) f32 NHWC input
+    drawn with numpy from seed 0.  Sets strict f32 on the card (no TF32 in
+    cuDNN convs or cuBLAS matmuls)."""
+    dev = _strict_f32(device)
     cfg = ENTRY_CONFIG
     params = init_odenet(7, cfg, device=dev)
     x = torch.from_numpy(

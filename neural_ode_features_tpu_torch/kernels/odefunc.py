@@ -18,6 +18,12 @@ cores; those are later work (ROADMAP.md).
 ``odefunc`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``odefunc_plain`` (which the tests hold against the JAX package); a CUDA
 tensor launches the kernel or raises.  ``odefunc.launches`` counts launches.
+
+The VJP pair (the counterpart of the JAX ``odefunc_pallas_vjp``):
+``odefunc_autograd`` is a ``torch.autograd.Function`` whose forward is this
+kernel and whose backward is the fused backward kernel
+(``kernels/odefunc_bwd.py``); ``odefunc_vjp`` gives ``(f, dθ, dt, dh)`` in
+one call, for the adjoint's augmented dynamics.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from ..ops.layers import conv2d, group_norm, time_map
 from . import _build
 
 __all__ = ["OdefuncWeights", "prepare", "supported", "smem_bytes",
-           "odefunc", "odefunc_plain"]
+           "odefunc", "odefunc_plain", "odefunc_autograd", "odefunc_vjp"]
 
 # Mirrors csrc/odefunc_common.cuh (kThreads, kMaxPix, kMaxSmem).
 THREADS = 512
@@ -149,6 +155,15 @@ def check_cuda_inputs(w: OdefuncWeights, states: dict, hw, c: int,
                              f"{tuple(x.shape)}")
 
 
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if it is contiguous and 16-byte aligned (what the
+    kernels take), else a copy that is: a view into the middle of a flat
+    solver state (the adjoint's augmented state) may start anywhere."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def weight_pointers(w: OdefuncWeights) -> list[ctypes.c_void_p]:
     return [ptr(x) for x in w]
 
@@ -189,3 +204,70 @@ def odefunc(params, t, h: torch.Tensor, *, groups: int = 32) -> torch.Tensor:
 
 
 odefunc.launches = 0
+
+
+# The raw ODEfunc parameter leaves, in the order the VJP pair passes them.
+PARAM_KEYS = (("norm1", "scale"), ("norm1", "bias"), ("conv1", "kernel"),
+              ("conv1", "bias"), ("norm2", "scale"), ("norm2", "bias"),
+              ("conv2", "kernel"), ("conv2", "bias"), ("norm3", "scale"),
+              ("norm3", "bias"))
+
+
+def _dt_like(dt_b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The per-sample t cotangent in ``t``'s own shape: the forward
+    broadcasts a scalar or (1,) ``t`` to (B,), so its cotangent is the sum
+    (JAX ``_vjp_bwd``)."""
+    if t.numel() == 1:
+        return dt_b.sum().reshape(t.shape).to(t.dtype)
+    return dt_b.reshape(t.shape).to(t.dtype)
+
+
+class _OdefuncVJP(torch.autograd.Function):
+    """Forward: the ODEfunc kernel on the laid-out weights ``w``.  Backward:
+    the fused backward kernel, which recomputes the forward, so the
+    residuals are only ``(params, t, h)``.  The gradients go to the raw
+    parameter leaves that ``w`` was laid out from."""
+
+    @staticmethod
+    def forward(ctx, w, groups, t, h, *leaves):
+        ctx.w, ctx.groups = w, groups
+        ctx.save_for_backward(t, h)
+        return odefunc(w, t, h, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .odefunc_bwd import odefunc_bwd
+
+        t, h = ctx.saved_tensors
+        dparams, dt_b, dh = odefunc_bwd(ctx.w, t, h, g.contiguous(),
+                                        groups=ctx.groups)
+        return (None, None, _dt_like(dt_b, t), dh,
+                *(dparams[a][b] for a, b in PARAM_KEYS))
+
+
+def odefunc_autograd(params, t, h: torch.Tensor, *, groups: int = 32,
+                     weights: OdefuncWeights | None = None) -> torch.Tensor:
+    """f(t, h), differentiable in the raw ``params`` (an ODEfunc param
+    dict), ``t`` and ``h`` through the kernel pair.  ``weights``: ``params``
+    already laid out by :func:`prepare` (once per solve), else laid out
+    here."""
+    if weights is None:
+        with torch.no_grad():
+            weights = prepare(params, tuple(h.shape[1:3]))
+    t = torch.as_tensor(t, dtype=h.dtype, device=h.device)
+    return _OdefuncVJP.apply(weights, groups, t, h,
+                             *(params[a][b] for a, b in PARAM_KEYS))
+
+
+def odefunc_vjp(params, t, h: torch.Tensor, a: torch.Tensor, *,
+                groups: int = 32):
+    """``(f, dparams, dt, dh)``: f(t, h) and its VJP against ``a``, with
+    ``dparams`` in the raw layout and ``dt`` in ``t``'s shape.  Two
+    launches on the card: the ODEfunc kernel and the backward kernel."""
+    from .odefunc_bwd import odefunc_bwd
+
+    w = prepare(params, tuple(h.shape[1:3]))
+    t = torch.as_tensor(t, dtype=h.dtype, device=h.device)
+    f = odefunc(w, t, h, groups=groups)
+    dparams, dt_b, dh = odefunc_bwd(w, t, h, a, groups=groups)
+    return f, dparams, _dt_like(dt_b, t), dh

@@ -1,10 +1,13 @@
 """ODE-Net: stem → continuous ODE block → head (port of
-``neural_ode_features_tpu/models/odenet.py``, inference path).
+``neural_ode_features_tpu/models/odenet.py``: inference and the adjoint
+training path).
 
 On a CUDA tensor the dynamics always run the fused ODEfunc kernel and, when
-the configuration is eligible, every dopri5 attempt runs the fused step
-kernel; on a CPU tensor both run their plain PyTorch versions.  The JAX
-opt-ins ``cfg.use_pallas``/``cfg.use_fused_rk`` are not read.
+the configuration is eligible, every dopri5 attempt of an inference solve
+runs the fused step kernel; the adjoint path's augmented dynamics run the
+ODEfunc kernel pair (forward and fused backward).  On a CPU tensor every
+kernel runs its plain PyTorch version.  The JAX opt-ins
+``cfg.use_pallas``/``cfg.use_fused_rk`` are not read.
 """
 
 from __future__ import annotations
@@ -12,10 +15,17 @@ from __future__ import annotations
 import torch
 
 from .._device import resolve_device
-from ..kernels.odefunc import odefunc, prepare
+from ..kernels.odefunc import aligned, odefunc, odefunc_vjp, prepare
 from ..kernels.rk_step import make_fused_dopri5_step
 from ..ops.layers import concat_conv2d, group_norm, init_conv, init_group_norm
-from ..solver import ADAPTIVE_TABLEAUS, SolveStats, odeint
+from ..solver import (
+    ADAPTIVE_TABLEAUS,
+    AdjointStats,
+    SolveStats,
+    check_adjoint_options,
+    odeint,
+    odeint_adjoint,
+)
 from .common import ModelConfig, head_apply, init_head, init_stem, stem_apply
 
 __all__ = ["init_odefunc", "init_odenet", "odefunc_apply",
@@ -105,16 +115,49 @@ def _solve(params, h0: torch.Tensor, ts: torch.Tensor, cfg: ModelConfig):
                   fused_step=fused_step, controller=cfg.controller)
 
 
+def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
+                   cfg: ModelConfig):
+    """The ODE block under ``odeint_adjoint`` (JAX ``_solve(adjoint=True)``):
+    differentiable in ``params["odefunc"]`` and ``h0``.  The forward takes
+    no fused step, as in JAX, so it evaluates f once per stage; the
+    augmented dynamics take f and its VJP from the kernel pair.  The weights
+    are laid out once per solve from the same tensors that ``odeint_adjoint``
+    receives as ``params``, so ``dyn`` and ``vjp`` close over them.  The
+    states handed to the kernels are views into the flat augmented state,
+    hence ``aligned``."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "the adjoint path computes in float32 only (ROADMAP.md)")
+    g = cfg.groups
+    with torch.no_grad():
+        w = prepare(params["odefunc"], tuple(h0.shape[1:3]))
+
+    def dyn(p, t, y):
+        return odefunc(w, t, aligned(y), groups=g)
+
+    def vjp(p, t, y, a):
+        return odefunc_vjp(w, t, aligned(y), aligned(a), groups=g)
+
+    return odeint_adjoint(
+        dyn, params["odefunc"], h0, ts, rtol=cfg.tol, atol=cfg.tol,
+        method=cfg.method, error_control=cfg.error_control,
+        max_steps=cfg.max_steps, controller=cfg.controller,
+        adjoint_seminorm=cfg.adjoint_seminorm, adjoint_mode=cfg.adjoint_mode,
+        vjp=vjp)
+
+
 def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
                   adjoint: bool | None = None
-                  ) -> tuple[torch.Tensor, SolveStats]:
+                  ) -> tuple[torch.Tensor, SolveStats | AdjointStats]:
     """Classification forward: solve h over [0, 1], head on h(1).  ``x``:
-    (B, H, W, C_in) NHWC.  The adjoint (training) path is not ported yet."""
+    (B, H, W, C_in) NHWC.  ``adjoint`` overrides ``cfg.adjoint``: the
+    adjoint path (training) returns :class:`AdjointStats`, whose ``nfe_b``
+    ``.backward()`` fills in."""
     adjoint = cfg.adjoint if adjoint is None else adjoint
     if adjoint:
-        raise NotImplementedError(
-            "the adjoint path is not ported yet (ROADMAP.md, Queue 1 item 4)")
+        check_adjoint_options(cfg.adjoint_seminorm, cfg.adjoint_mode)
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
-    traj, stats = _solve(params, h0, ts, cfg)
+    solve = _solve_adjoint if adjoint else _solve
+    traj, stats = solve(params, h0, ts, cfg)
     return head_apply(params["head"], traj[-1], cfg), stats

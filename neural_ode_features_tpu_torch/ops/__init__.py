@@ -9,7 +9,13 @@ from .layers import (
     linear,
     time_map,
 )
-from .preprocess import NORM_STATS, normalize
+from .preprocess import (
+    NORM_STATS,
+    augment,
+    crop_and_flip,
+    normalize,
+    normalized_black,
+)
 
 __all__ = [
     "concat_conv2d",
@@ -22,5 +28,8 @@ __all__ = [
     "linear",
     "time_map",
     "NORM_STATS",
+    "augment",
+    "crop_and_flip",
     "normalize",
+    "normalized_black",
 ]

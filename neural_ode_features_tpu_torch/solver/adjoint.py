@@ -1,0 +1,226 @@
+"""Adjoint-method gradients through ``odeint`` (port of
+``neural_ode_features_tpu/solver/adjoint.py``, ``adjoint_mode='reintegrate'``).
+
+``odeint_adjoint`` is a ``torch.autograd.Function``:
+
+  * forward: the port's :func:`~.odeint.odeint` under ``torch.no_grad()``
+    (no fused step, as in JAX), keeping only ``(params, ts, ys)``;
+  * backward: the interval loop of the JAX ``_bwd``.  For i = T-1 … 1 it
+    adds the cotangent g_i to a_y, takes the observation-time gradient
+    dL/dt_i = g_i · f(t_i, y_i), and integrates the augmented state
+    ``(y, a_y, a_θ, a_t)`` from t_i back to t_{i-1} with batch-global error
+    control, restarting y from the stored observation.  The vector–Jacobian
+    products a_y·∂f/∂{θ,t,y} come from ``vjp`` (default: ``torch.autograd``
+    through ``func``; the ODE-Net passes its fused kernel pair).
+
+The backward dynamics evaluations are counted as the JAX ``nfe_b_sum`` (the
+augmented solves' NFE plus one f per observation interval, T-1) and written
+into the returned stats' ``nfe_b`` tensor during ``.backward()``.  A failed
+backward solve poisons the gradients with NaN.  The seminorm and
+interpolated adjoints are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from .odeint import odeint
+
+__all__ = ["odeint_adjoint", "AdjointStats", "check_adjoint_options"]
+
+_MODES = ("reintegrate", "interpolated")
+
+
+class AdjointStats(NamedTuple):
+    """The forward solve's per-sample accounting, plus ``nfe_b``: a 0-d
+    int64 tensor on the solve's device that ``.backward()`` fills with the
+    total backward dynamics evaluations (0 until then)."""
+
+    nfe: torch.Tensor
+    naccept: torch.Tensor
+    nreject: torch.Tensor
+    success: torch.Tensor
+    nfe_b: torch.Tensor
+
+
+def check_adjoint_options(adjoint_seminorm: bool, adjoint_mode: str) -> None:
+    """Raise for the adjoint variants the port does not run."""
+    if adjoint_mode not in _MODES:
+        raise ValueError(f"unknown adjoint_mode {adjoint_mode!r}; {_MODES}")
+    if adjoint_seminorm:
+        raise NotImplementedError(
+            "adjoint_seminorm=True is not ported yet: the port's solver has "
+            "no error_mask (ROADMAP.md, Queue 1 item 4)")
+    if adjoint_mode == "interpolated":
+        raise NotImplementedError(
+            "adjoint_mode='interpolated' is not ported yet: it needs "
+            "solver/dense.py (ROADMAP.md, Queue 1 item 4)")
+
+
+def _autograd_vjp(func):
+    """``vjp(params, t, y, a) -> (f, dparams, dt, dy)`` by
+    ``torch.autograd.grad`` through ``func``."""
+
+    def vjp(params, t, y, a):
+        leaves, spec = pytree.tree_flatten(params)
+        with torch.enable_grad():
+            ps = [p.detach().requires_grad_() for p in leaves]
+            tt = t.detach().requires_grad_()
+            yy = y.detach().requires_grad_()
+            f = func(pytree.tree_unflatten(ps, spec), tt, yy)
+            grads = torch.autograd.grad(f, [*ps, tt, yy], a,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(x) if gr is None else gr
+                 for gr, x in zip(grads, [*ps, tt, yy])]
+        return (f.detach(), pytree.tree_unflatten(grads[:-2], spec),
+                grads[-2], grads[-1])
+
+    return vjp
+
+
+@dataclasses.dataclass
+class _Spec:
+    func: Callable
+    vjp: Callable
+    treedef: Any
+    paths: list
+    fwd_kw: dict
+    bwd_kw: dict
+    per_sample: bool
+    nfe_b: torch.Tensor
+
+
+def _leaves_like(tree, paths) -> list[torch.Tensor]:
+    """The leaves of ``tree`` at ``paths`` (so that a gradient tree whose
+    dicts list their keys in another order still lines up)."""
+    found = dict(pytree.tree_flatten_with_path(tree)[0])
+    return [found[p] for p in paths]
+
+
+class _Adjoint(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, spec: _Spec, y0, ts, *leaves):
+        params = pytree.tree_unflatten(list(leaves), spec.treedef)
+        ys, stats = odeint(lambda t, y: spec.func(params, t, y), y0, ts,
+                           **spec.fwd_kw)
+        ctx.spec = spec
+        ctx.save_for_backward(ts, ys, *leaves)
+        ctx.mark_non_differentiable(*stats)
+        return (ys, *stats)
+
+    @staticmethod
+    def backward(ctx, g_ys, *_):
+        spec = ctx.spec
+        ts, ys, *leaves = ctx.saved_tensors
+        params = pytree.tree_unflatten(leaves, spec.treedef)
+        n_times, batch, dev = ts.shape[0], ys.shape[1], ys.device
+
+        def t_arg(t):
+            # The forward's time-argument contract holds in the backward
+            # too: with per-sample control func always sees t of shape (B,).
+            return t.expand(batch) if spec.per_sample else t
+
+        def aug_dynamics(t, aug):
+            f, v_p, v_t, v_y = spec.vjp(params, t_arg(t), aug["y"],
+                                        aug["a_y"])
+            return {"y": f, "a_y": -v_y,
+                    "a_p": [-v for v in _leaves_like(v_p, spec.paths)],
+                    "a_t": -v_t.reshape(-1).sum()}
+
+        a_y = torch.zeros_like(ys[0])
+        a_p = [torch.zeros_like(p) for p in leaves]
+        a_t = torch.zeros((), dtype=ts.dtype, device=dev)
+        grad_ts = torch.zeros_like(ts)
+        nfe_b = torch.zeros((), dtype=torch.int64, device=dev)
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        for i in range(n_times - 1, 0, -1):
+            a_y = a_y + g_ys[i]
+            # dL/dt_i from shifting the i-th observation time: an explicit
+            # f32 multiply-and-sum (no matmul, so TF32 cannot touch it).
+            f_i = spec.func(params, t_arg(ts[i]), ys[i])
+            g_t_i = (g_ys[i] * f_i).sum().to(ts.dtype)
+            grad_ts[i] = g_t_i
+            a_t = a_t - g_t_i
+            aug0 = {"y": ys[i], "a_y": a_y, "a_p": a_p, "a_t": a_t}
+            traj, st = odeint(aug_dynamics, aug0,
+                              torch.stack([ts[i], ts[i - 1]]), **spec.bwd_kw)
+            a_y, a_t = traj["a_y"][-1], traj["a_t"][-1]
+            a_p = [x[-1] for x in traj["a_p"]]
+            nfe_b = nfe_b + st.nfe[0]
+            ok = ok & st.success[0]
+        a_y = a_y + g_ys[0]
+        grad_ts[0] = a_t
+        spec.nfe_b.copy_(nfe_b + (n_times - 1))
+
+        # A failed backward solve must not pass for zero gradients.
+        def poison(g):
+            return torch.where(ok, g, torch.full_like(g, float("nan")))
+
+        return (None, poison(a_y), poison(grad_ts),
+                *(poison(g) for g in a_p))
+
+
+def odeint_adjoint(
+    func: Callable[[Any, Any, Any], torch.Tensor],
+    params: Any,
+    y0: torch.Tensor,
+    ts,
+    *,
+    rtol: float = 1e-7,
+    atol: float = 1e-9,
+    method: str = "dopri5",
+    error_control: str = "global",
+    max_steps: int = 2**14,
+    controller: str = "i",
+    adjoint_rtol: float | None = None,
+    adjoint_atol: float | None = None,
+    adjoint_max_steps: int | None = None,
+    adjoint_seminorm: bool = False,
+    adjoint_mode: str = "reintegrate",
+    vjp: Callable | None = None,
+) -> tuple[torch.Tensor, AdjointStats]:
+    """Like :func:`~.odeint.odeint`, differentiable in ``params`` (a tree of
+    tensors), ``y0`` (a tensor) and ``ts`` through the augmented reverse-time
+    adjoint ODE.
+
+    ``func(params, t, y)`` must be a pure function of its explicit
+    arguments.  ``adjoint_{rtol,atol,max_steps}`` override the backward
+    solve's settings (default: the forward's).  ``controller`` applies to
+    both solves.  With ``error_control='per_sample'`` ``func`` receives t of
+    shape (B,) in the forward and the backward.  ``vjp(params, t, y, a) ->
+    (f, dparams, dt, dy)`` replaces autograd through ``func`` in the
+    augmented dynamics (``dt`` in ``t``'s shape, ``dparams`` a tree like
+    ``params``).
+
+    Returns ``(ys, AdjointStats)``; ``stats.nfe_b`` is filled in by
+    ``.backward()``."""
+    check_adjoint_options(adjoint_seminorm, adjoint_mode)
+    if not isinstance(y0, torch.Tensor):
+        raise TypeError("odeint_adjoint takes a tensor state y0")
+    ts = torch.as_tensor(ts, device=y0.device)
+    with_paths, treedef = pytree.tree_flatten_with_path(params)
+    paths = [p for p, _ in with_paths]
+    leaves = [x for _, x in with_paths]
+    fwd_kw = dict(rtol=rtol, atol=atol, method=method,
+                  error_control=error_control, max_steps=max_steps,
+                  controller=controller)
+    # The augmented state couples every sample through the shared a_θ, so
+    # the backward solve always uses batch-global error control.
+    bwd_kw = dict(
+        rtol=rtol if adjoint_rtol is None else adjoint_rtol,
+        atol=atol if adjoint_atol is None else adjoint_atol,
+        method=method, error_control="global",
+        max_steps=max_steps if adjoint_max_steps is None
+        else adjoint_max_steps,
+        controller=controller)
+    nfe_b = torch.zeros((), dtype=torch.int64, device=y0.device)
+    spec = _Spec(func=func, vjp=vjp or _autograd_vjp(func), treedef=treedef,
+                 paths=paths, fwd_kw=fwd_kw, bwd_kw=bwd_kw,
+                 per_sample=error_control == "per_sample", nfe_b=nfe_b)
+    ys, *stats = _Adjoint.apply(spec, y0, ts, *leaves)
+    return ys, AdjointStats(*stats, nfe_b=nfe_b)

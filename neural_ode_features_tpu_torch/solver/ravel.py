@@ -53,7 +53,7 @@ def _splitter(tree, shapes, splits):
     def unravel(mat: torch.Tensor) -> Any:
         lead = mat.shape[:-1]
         parts = torch.tensor_split(mat, splits, dim=-1)
-        return _unflatten(tree, [p.reshape(*lead, *s)
+        return _unflatten(tree, [p.reshape((*lead, *s))
                                  for p, s in zip(parts, shapes, strict=True)])
     return unravel
 

@@ -12,11 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry
+from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry, train_entry
 from neural_ode_features_tpu_torch.kernels.odefunc import (
+    PARAM_KEYS,
     odefunc,
     odefunc_plain,
     prepare,
+)
+from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+    odefunc_bwd,
+    odefunc_bwd_plain,
 )
 from neural_ode_features_tpu_torch.kernels.rk_step import (
     dopri5_step,
@@ -109,3 +114,49 @@ def test_refusals(dev):
     h = torch.zeros((2, 7, 7, 64), device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         odefunc(params, 0.5, h.transpose(1, 2))
+
+
+DP_TOL = dict(rtol=3e-4, atol=3e-4)  # dθ sums B·H·W products (test_pallas.py)
+
+
+def _flat(dp):
+    return torch.cat([dp[a][b].reshape(-1) for a, b in PARAM_KEYS])
+
+
+@pytest.mark.parametrize("batch,side", [(16, 7), (5, 7), (1, 7), (9, 6)])
+def test_backward_kernel_matches_plain(dev, batch, side):
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], (side, side))
+    h, t, _ = _inputs(dev, batch, side)
+    g = torch.randn(h.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+    before = odefunc_bwd.launches
+    dp, dt, dh = odefunc_bwd(w, t, h, g, groups=32)
+    assert odefunc_bwd.launches == before + 1
+    # The plain version in float64: in f32 its cuDNN weight-gradient convs
+    # are further from the exact result than the kernel (PERF.md).
+    w64 = type(w)(*(x.double() for x in w))
+    dp_p, dt_p, dh_p = odefunc_bwd_plain(w64, t.double(), h.double(),
+                                         g.double(), 32)
+    np.testing.assert_allclose(dh.cpu().numpy(), dh_p.cpu().numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(dt.cpu().numpy(), dt_p.cpu().numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(_flat(dp).cpu().numpy(),
+                               _flat(dp_p).cpu().numpy(), **DP_TOL)
+    # No atomics: a second launch gives the same bits.
+    assert torch.equal(_flat(odefunc_bwd(w, t, h, g, groups=32)[0]), _flat(dp))
+
+
+def test_training_step_runs_the_kernels(dev):
+    """The adjoint forward takes no fused step (2 + 6 per attempt ODEfunc
+    launches); each augmented eval is one ODEfunc and one backward launch,
+    and the observation-time gradient one more ODEfunc launch."""
+    trainer, (images, labels) = train_entry(device="cuda", batch=8)
+    trainer.train_batch(images, labels)  # builds and warms up
+    odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+    m = trainer.train_batch(images, labels)
+    attempts = int(((trainer.last_stats.nfe - 2) // 6).max())
+    assert dopri5_step.launches == 0
+    assert odefunc_bwd.launches == m["nfe_b"] - 1
+    assert odefunc.launches == 2 + 6 * attempts + m["nfe_b"]
+    assert np.isfinite(m["loss"])

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import neural_ode_features_tpu_torch as port
-from neural_ode_features_tpu_torch.entry import entry
+from neural_ode_features_tpu_torch.entry import entry, train_entry
 from neural_ode_features_tpu_torch.models import ModelConfig, init_odenet
 from neural_ode_features_tpu_torch.utils import from_jax_params
 
@@ -64,6 +64,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_odenet(0, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         from_jax_params({"w": np.zeros(2, np.float32)})
@@ -73,3 +75,5 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
                            device="cpu")["w"].dtype == torch.float32
     fwd, (params, x) = entry(device="cpu", batch=1)
     assert x.device.type == "cpu"
+    trainer, (images, labels) = train_entry(device="cpu", batch=2)
+    assert trainer.device.type == "cpu" and images.shape == (2, 32, 32, 3)

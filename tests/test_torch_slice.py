@@ -26,6 +26,7 @@ from neural_ode_features_tpu_torch.models import (
     fused_rk_eligible,
     odenet_logits,
 )
+from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
 from neural_ode_features_tpu_torch.utils import from_jax_params
 
 torch.set_num_threads(2)
@@ -76,8 +77,15 @@ def test_fused_eligibility_and_refusals():
         assert not fused_rk_eligible(dataclasses.replace(cfg, **change),
                                      (4, 7, 7, 64), torch.float32)
     params = {"stem": {}, "odefunc": {}, "head": {}}
-    with pytest.raises(NotImplementedError, match="adjoint"):
-        odenet_logits(params, torch.zeros(1, 32, 32, 3), cfg, adjoint=True)
+    x = torch.zeros(1, 32, 32, 3)
+    with pytest.raises(NotImplementedError, match="seminorm.*ROADMAP"):
+        odenet_logits(params, x, dataclasses.replace(cfg,
+                                                     adjoint_seminorm=True),
+                      adjoint=True)
+    with pytest.raises(NotImplementedError, match="interpolated.*ROADMAP"):
+        odenet_logits(params, x, dataclasses.replace(
+            cfg, adjoint_mode="interpolated"), adjoint=True)
+    with pytest.raises(NotImplementedError, match="resnet.*ROADMAP"):
+        Trainer(TrainConfig(model="resnet"), steps_per_epoch=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odenet_logits(params, torch.zeros(1, 32, 32, 3),
-                      dataclasses.replace(cfg, downsampling="res"))
+        odenet_logits(params, x, dataclasses.replace(cfg, downsampling="res"))
