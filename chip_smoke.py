@@ -12,7 +12,11 @@ Phases (any failed check exits nonzero and prints no result):
    7×7×64), the fused step and the backward kernel also at a ragged B = 5.
    The backward kernel is held against its plain version in float64 (the
    f32 plain version's cuDNN weight gradients are less exact than the
-   kernel); two backward launches must give bit-identical dθ.
+   kernel); two backward launches must give bit-identical dθ.  The two conv
+   probe kernels (``tap9``, ``im2col``) are held against ``conv3x3_plain``
+   at B = 256, a ragged B = 5 and a 6×6 map, in f32 and in float64.  Then
+   the probe's own path, ``probes.conv_probe.main`` at B = 256, with the
+   conv counter set to 0 just before.
 3. The inference path, ``entry(device="cuda", batch=256)`` (CIFAR-10
    ODE-Net, per-sample dopri5 at tol 1e-3, full width, random weights),
    with the launch counters set to 0 just before: the ODEfunc kernel must
@@ -28,11 +32,23 @@ Phases (any failed check exits nonzero and prints no result):
    ODEfunc kernel must launch 2 + 6·(forward attempts) + nfe_b times, the
    backward kernel nfe_b − 1 times, the fused step never; loss and every
    gradient finite.
-6. Time each kernel, its plain version and the library yardstick (one f
+6. The extraction path: the trained parameters → ``save_checkpoint`` →
+   ``load_checkpoint`` → ``extract_features`` over the whole
+   ``synthetic-cifar10`` test split (10,000 images, B = 256, T = 11) with
+   the counters set to 0 just before: two ODEfunc launches per batch, one
+   fused step per attempt, the backward kernel never.  The features' ends
+   against the pooled stem output and the pooled state of the T = 2 solve,
+   the first batch against the plain path, the ragged last batch against
+   the same images in a full batch, ``nfe_sort`` against the unsorted run,
+   ``odeint_dense`` at a small step budget against the trajectory; then
+   ``save_features`` (.npz) → ``evaluate_features`` per t on the card.
+7. Time each kernel, its plain version and the library yardstick (one f
    through cuDNN: ``F.group_norm``/``F.conv2d`` on NCHW with the t channel
-   concatenated; for the backward, ``torch.autograd.grad`` through it), the
-   whole inference solve in img/s, and the train step in img/s split into
-   the forward and the backward solve.
+   concatenated; for the backward, ``torch.autograd.grad`` through it; for
+   the conv probe, ``F.conv2d``), the whole inference solve in img/s, the
+   train step in img/s split into the forward and the backward solve, and
+   one extraction batch through ``extract_entry`` at T = 11 beside T = 2;
+   one train step and one extraction batch under ``torch.profiler``.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -45,7 +61,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -55,6 +73,8 @@ TOL = 1e-3
 STATE_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: f32 reassociation
 RATIO_TOL = dict(rtol=2e-3, atol=1e-6)   # error ratio: a sum of squares
 DP_TOL = dict(rtol=3e-4, atol=3e-4)      # dθ: sums over B·H·W products
+CONV_TOL = dict(rtol=1e-4, atol=1e-5)    # one conv: sums of 576 products
+T_OUT = 11                               # extract's default --timestamps
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
 
@@ -127,12 +147,27 @@ def main() -> int:
         return 1
     import torch.nn.functional as F
 
+    from neural_ode_features_tpu_torch.data import load_dataset
     from neural_ode_features_tpu_torch.entry import (
         ENTRY_CONFIG,
         entry,
+        extract_entry,
         train_entry,
     )
+    from neural_ode_features_tpu_torch.evaluation import evaluate_features
+    from neural_ode_features_tpu_torch.extract import extract_features
+    from neural_ode_features_tpu_torch.features_io import (
+        load_features,
+        save_features,
+    )
     from neural_ode_features_tpu_torch.kernels import _build
+    from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+        STRATEGIES,
+        conv3x3,
+        conv3x3_plain,
+        conv_bytes,
+        conv_flops,
+    )
     from neural_ode_features_tpu_torch.kernels.odefunc import (
         odefunc,
         odefunc_plain,
@@ -149,13 +184,21 @@ def main() -> int:
     from neural_ode_features_tpu_torch.models import (
         head_apply,
         odenet_logits,
+        odenet_trajectory,
+        pool_features,
         stem_apply,
     )
     from neural_ode_features_tpu_torch.ops import normalize
+    from neural_ode_features_tpu_torch.probes import conv_probe
     from neural_ode_features_tpu_torch.solver import (
         DOPRI5,
         odeint,
         odeint_adjoint,
+        odeint_dense,
+    )
+    from neural_ode_features_tpu_torch.utils import (
+        load_checkpoint,
+        save_checkpoint,
     )
 
     dev = torch.device("cuda")
@@ -236,6 +279,34 @@ def main() -> int:
     print(f"[check] odefunc_bwd dh max abs err {err_k4:.3e}; dt and dθ "
           f"within tolerance; dθ bit-identical across two launches "
           f"(B={B_TRAIN} and B=5)")
+
+    # The conv probe kernels against the plain version, in f32 and in
+    # float64 on the same inputs (upcast).
+    err_k5 = 0.0
+    for nb, hw in ((B, (HH, WW)), (5, (HH, WW)), (B, (6, 6))):
+        xc, wc = conv_probe.probe_inputs(nb, dev, hw)
+        plain = conv3x3_plain(xc, wc)
+        plain64 = conv3x3_plain(xc.double(), wc.double())
+        for strategy in STRATEGIES:
+            got = conv3x3(xc, wc, strategy)
+            tag = f"conv_probe {strategy} B={nb} {hw[0]}x{hw[1]}"
+            err = close(tag, got, plain, **CONV_TOL)
+            err64 = close(f"{tag} (f64 plain)", got.double(), plain64,
+                          **CONV_TOL)
+            err_k5 = max(err_k5, err)
+            print(f"[check] {tag}: max abs err {err:.3e} vs plain, "
+                  f"{err64:.3e} vs the f64 plain version (the f32 plain "
+                  f"version's: "
+                  f"{float((plain.double() - plain64).abs().max()):.3e})")
+    torch.cuda.synchronize()
+
+    # The probe's own path, counter from 0.
+    conv3x3.launches = 0
+    probe = conv_probe.main(["--batch", str(B)])
+    probe_launches = conv3x3.launches
+    print(f"[probe] conv3x3 launches {probe_launches}")
+    if probe_launches < 2 * len(STRATEGIES):
+        fail(f"the probe launched the conv kernels {probe_launches} times")
 
     # 3. Main path, counters from 0.
     odefunc.launches = 0
@@ -342,7 +413,177 @@ def main() -> int:
         nfe_f.append(m["nfe"])
         nfe_b.append(nb_)
 
-    # 6. Times.
+    # 6. The extraction path on the trained parameters, counters from 0.
+    dataset = trainer.cfg.dataset
+    ecfg = trainer.model_cfg
+    t_s = time.perf_counter()
+    test_images, test_labels = load_dataset(dataset, "test")
+    print(f"[extract] {dataset} test split: {len(test_images)} images "
+          f"generated in {time.perf_counter() - t_s:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "ckpt_best.pt"
+        save_checkpoint(ckpt, trainer.params, ecfg,
+                        {"model": "odenet", "train": {"dataset": dataset}})
+        eparams, ecfg_l, extra = load_checkpoint(ckpt)
+    if ecfg_l != ecfg or extra["train"]["dataset"] != dataset:
+        fail("the checkpoint's sidecar did not round-trip")
+    for a, b_ in zip(leaves(eparams), leaves(trainer.params)):
+        if a.device.type != "cuda" or not torch.equal(a, b_.detach()):
+            fail("the checkpoint's parameters did not round-trip")
+    ekw = dict(dataset=dataset, timestamps=T_OUT, batch_size=B)
+
+    def counted(fn):
+        odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t_s, {
+            "odefunc": odefunc.launches, "odefunc_bwd": odefunc_bwd.launches,
+            "rk_step": dopri5_step.launches}
+
+    def batch_attempts(nfe):
+        return int(((nfe - 2) // 6).max())
+
+    # One full batch: the counters exactly.
+    first, _, got = counted(lambda: extract_features(
+        eparams, ecfg, test_images[:B], test_labels[:B], **ekw))
+    want = {"odefunc": 2, "odefunc_bwd": 0,
+            "rk_step": batch_attempts(first["nfe"])}
+    print(f"[extract] first batch B={B} T={T_OUT}: launches {got}")
+    if got != want or want["rk_step"] < 1:
+        fail(f"extraction batch: launches {got}, expected {want}")
+
+    # The whole split.
+    feats, t_all, got = counted(lambda: extract_features(
+        eparams, ecfg, test_images, test_labels, **ekw))
+    n_img = len(test_images)
+    n_batches = -(-n_img // B)
+    n_full = n_img // B
+    full_attempts = sum(batch_attempts(feats["nfe"][i * B:(i + 1) * B])
+                        for i in range(n_full))
+    last_attempts = got["rk_step"] - full_attempts
+    print(f"[extract] {n_img} images, {n_batches} batches of {B} (last: "
+          f"{n_img - n_full * B} valid), T={T_OUT}: {t_all:.2f} s, "
+          f"{n_img / t_all:.1f} img/s with loading and copies; launches "
+          f"{got}; NFE mean {feats['nfe'].mean():.2f} min "
+          f"{feats['nfe'].min()} max {feats['nfe'].max()}")
+    if got["odefunc"] != 2 * n_batches or got["odefunc_bwd"] != 0:
+        fail(f"extraction: launches {got} over {n_batches} batches")
+    if n_full < n_batches and last_attempts < batch_attempts(
+            feats["nfe"][n_full * B:]):
+        fail(f"extraction: {got['rk_step']} fused steps, of which "
+             f"{full_attempts} in the full batches")
+    if n_full == n_batches and last_attempts != 0:
+        fail(f"extraction: {got['rk_step']} fused steps for "
+             f"{full_attempts} attempts")
+    if (feats["features"].shape != (T_OUT, n_img, C)
+            or not np.isfinite(feats["features"]).all()
+            or not np.array_equal(feats["labels"], test_labels)
+            or not np.array_equal(feats["features"][:, :B],
+                                  first["features"])):
+        fail("extraction: features are not finite (T, N, C) in dataset order")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on")
+
+    # The ends of the trajectory, and the plain path, on the first batch.
+    with torch.no_grad():
+        x0 = normalize(torch.from_numpy(test_images[:B]).to(dev), dataset)
+        h0 = stem_apply(eparams["stem"], x0, ecfg)
+        ends, _ = odenet_trajectory(eparams, x0, [0.0, 1.0], ecfg)
+        we = prepare(eparams["odefunc"], (HH, WW))
+        traj_p, stats_p = odeint(
+            lambda tt, y: odefunc_plain(we, tt, y, G), h0,
+            torch.from_numpy(feats["t"]).to(dev), rtol=ecfg.tol,
+            atol=ecfg.tol, method="dopri5", error_control="per_sample",
+            max_steps=ecfg.max_steps)
+        feats_p = pool_features(traj_p).cpu().numpy()
+    fb = feats["features"][:, :B]
+    err_0 = float(np.abs(fb[0] - pool_features(h0).cpu().numpy()).max())
+    err_1 = float(np.abs(fb[-1] - pool_features(ends[-1]).cpu().numpy()).max())
+    same = feats["nfe"][:B] == stats_p.nfe.cpu().numpy()
+    err_p = float(np.abs(fb[:, same] - feats_p[:, same]).max())
+    print(f"[extract] features[0] vs pooled stem output: max abs err "
+          f"{err_0:.3e}; features[-1] vs the pooled T=2 state: {err_1:.3e}; "
+          f"vs the plain path: NFE equal on {same.mean():.4f} of samples, "
+          f"features max abs err {err_p:.3e}")
+    if err_0 > 1e-5 or err_1 > 1e-5:
+        fail("extraction: the trajectory's ends are off")
+    if same.mean() < 0.99 or not np.allclose(fb[:, same], feats_p[:, same],
+                                             rtol=1e-3, atol=1e-3):
+        fail("extraction: features differ from the plain path")
+
+    # The ragged last batch against the same images inside a full batch.
+    tail = n_img - n_full * B
+    if tail:
+        full = extract_features(eparams, ecfg, test_images[-B:],
+                                test_labels[-B:], **ekw)
+        err_t = float(np.abs(full["features"][:, -tail:]
+                             - feats["features"][:, -tail:]).max())
+        print(f"[extract] last batch ({tail} valid of {B}) vs the same "
+              f"images in a full batch: max abs err {err_t:.3e}")
+        if err_t > 1e-6 or not np.array_equal(full["nfe"][-tail:],
+                                              feats["nfe"][-tail:]):
+            fail("extraction: a padded batch changes its valid rows")
+
+    # nfe_sort gives the same file in the dataset's order.
+    sorted_, t_sort, _ = counted(lambda: extract_features(
+        eparams, ecfg, test_images, test_labels, nfe_sort=True, **ekw))
+    err_s = float(np.abs(sorted_["features"] - feats["features"]).max())
+    print(f"[extract] nfe_sort: {t_sort:.2f} s, max abs err {err_s:.3e} "
+          f"against the unsorted run")
+    if (err_s > 1e-6 or not np.array_equal(sorted_["nfe"], feats["nfe"])
+            or not np.array_equal(sorted_["labels"], feats["labels"])):
+        fail("extraction: nfe_sort changes the file")
+
+    # The solve-once, query-any-t API on the card at a small step budget
+    # (the coefficient buffer is 16 MB per step slot at B = 256): the
+    # ODEfunc kernel per stage, no fused step; y(t) against the trajectory.
+    with torch.no_grad():
+        odefunc.launches = dopri5_step.launches = 0
+        y_at, dstats = odeint_dense(
+            lambda tt, y: odefunc(we, tt, y, groups=G), h0, 0.0, 1.0,
+            rtol=ecfg.tol, atol=ecfg.tol, error_control="per_sample",
+            max_steps=16)
+        feats_d = pool_features(
+            y_at(torch.from_numpy(feats["t"]).to(dev))).cpu().numpy()
+    sol = y_at.__wrapped_sol__
+    err_d = float(np.abs(feats_d - fb).max())
+    print(f"[dense] odeint_dense B={B} max_steps=16: coefficient buffer "
+          f"{sol.coeffs.numel() * 4 / 1e6:.0f} MB, accepted steps "
+          f"{int(dstats.naccept.min())}..{int(dstats.naccept.max())}, "
+          f"launches odefunc {odefunc.launches} rk_step "
+          f"{dopri5_step.launches}; features at {T_OUT} times vs the "
+          f"trajectory: max abs err {err_d:.3e}")
+    if (not bool(dstats.success.all()) or dopri5_step.launches != 0
+            or odefunc.launches != 2 + 6 * int((dstats.naccept
+                                                + dstats.nreject).max())
+            or not np.allclose(feats_d, fb, rtol=1e-3, atol=1e-3)):
+        fail("odeint_dense on the card disagrees with the trajectory")
+
+    # The feature file, and the metrics per t on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_features(Path(tmp) / "features_test.npz", **feats,
+                             dataset=dataset, model="odenet", tol=ecfg.tol)
+        size = path.stat().st_size
+        loaded = load_features(path)
+    if (not np.array_equal(loaded["features"], feats["features"])
+            or loaded["attrs"]["dataset"] != dataset):
+        fail("the feature file did not round-trip")
+    t_s = time.perf_counter()
+    for i, t_i in enumerate(loaded["t"]):
+        m = evaluate_features(None, None, loaded["features"][i],
+                              loaded["labels"])
+        print(f"[extract] t={float(t_i):.1f} | " + " | ".join(
+            f"{k}={v:.4f}" for k, v in m.items()))
+        if set(m) != {"linear_acc", "knn_acc", "retrieval_map"} or not all(
+                0.0 <= v <= 1.0 for v in m.values()):
+            fail(f"evaluate_features at t={t_i}: {m}")
+    print(f"[extract] feature file {size / 1e6:.1f} MB; metrics at "
+          f"{len(loaded['t'])} times over {n_img} samples in "
+          f"{time.perf_counter() - t_s:.1f} s")
+
+    # 7. Times.
     wt = params["odefunc"]
 
     def library_f(h=h, t=t, wt=wt):
@@ -391,6 +632,41 @@ def main() -> int:
                                                                gb, G)),
         "odefunc_bwd_library": time_ms(library_bwd),
     }
+    xc, wc = conv_probe.probe_inputs(B, dev)
+    for strategy in STRATEGIES:
+        ms[f"conv_{strategy}"] = time_ms(
+            lambda s_=strategy: conv3x3(xc, wc, s_), reps=100)
+    ms["conv_plain"] = time_ms(lambda: conv3x3_plain(xc, wc), reps=100)
+    ms["conv_library"] = time_ms(lambda: conv_probe.library_conv(xc, wc),
+                                 reps=100)
+    print("[time] one 3x3 conv B=%d: " % B + ", ".join(
+        f"{k[5:]} {1e3 * ms[k]:.1f} us" for k in ms if k.startswith("conv_"))
+        + f" (the probe's own readings: tap9 {probe['tap9']['us']:.1f}, "
+        f"im2col {probe['im2col']['us']:.1f}, F.conv2d "
+        f"{probe['library_us']:.1f} us)")
+
+    # One extraction batch through extract_entry, warm: T = 11 beside T = 2
+    # in turns (the same solve; the difference is the dense write and the
+    # pooling).
+    handles = {n_t: extract_entry(device="cuda", batch=B, timestamps=n_t)
+               for n_t in (T_OUT, 2)}
+    extract_s = {n_t: [] for n_t in handles}
+    for rep in range(6):  # the first turn warms up and is dropped
+        for n_t, (efwd, ep, ex) in handles.items():
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            efeats, estats = efwd(ep, ex)
+            torch.cuda.synchronize()
+            if rep:
+                extract_s[n_t].append(time.perf_counter() - t_s)
+            if tuple(efeats.shape) != (n_t, B, C):
+                fail(f"extract_entry: features {tuple(efeats.shape)}")
+    med_e = {k: statistics.median(v) for k, v in extract_s.items()}
+    print(f"[time] extraction batch B={B}: T={T_OUT} "
+          f"{B / med_e[T_OUT]:.1f} img/s ({1e3 * med_e[T_OUT]:.2f} ms, "
+          f"median of {extract_s[T_OUT]}); T=2 {B / med_e[2]:.1f} img/s "
+          f"({1e3 * med_e[2]:.2f} ms, median of {extract_s[2]}); attempts "
+          f"{int(((estats.nfe - 2) // 6).max())}")
     solve_s = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -431,38 +707,46 @@ def main() -> int:
         torch.cuda.synchronize()
         fwd_s.append(t_m - t_s)
         bwd_s.append(time.perf_counter() - t_m)
-    # Where a warm step's time goes: one step under torch.profiler, device
-    # time by kernel (the profiler's own cost is in the wall time).
+    # Where the time goes: one warm train step and one warm extraction batch
+    # under torch.profiler, device time by kernel (the profiler's own cost
+    # is in the wall time).
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_s = time.perf_counter()
-        trainer.train_batch(images, labels)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t_s
-    groups = {"odefunc": "odefunc_kernel", "odefunc_bwd": "bwd_",
-              "rk_step": "rk_step_kernel"}
-    dev_ms = dict.fromkeys([*groups, "other"], 0.0)
-    others = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # a host op: its kernels
-            continue                           # are entries of their own
-        ms_ = ev.self_device_time_total / 1e3
-        name = next((g for g, key in groups.items() if key in ev.key),
-                    "other")
-        dev_ms[name] += ms_
-        if name == "other" and ms_ > 0:
-            others.append((ms_, ev.count, ev.key[:60]))
-    busy = sum(dev_ms.values())
-    print(f"[profile] one train step B={B_TRAIN} under torch.profiler: wall "
-          f"{1e3 * prof_wall:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / (1e3 * prof_wall):.1f}%), idle "
-          f"{100 * (1 - busy / (1e3 * prof_wall)):.1f}%; device ms by "
-          f"kernel {json.dumps({k: round(v, 3) for k, v in dev_ms.items()})}")
-    for ms_, count, key in sorted(others, reverse=True)[:8]:
-        print(f"[profile]   other: {ms_:.3f} ms in {count} calls: {key}")
+    def device_profile(label, fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_s = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t_s
+        groups = {"odefunc": "odefunc_kernel", "odefunc_bwd": "bwd_",
+                  "rk_step": "rk_step_kernel"}
+        dev_ms = dict.fromkeys([*groups, "other"], 0.0)
+        others = []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:  # a host op: its kernels
+                continue                           # are entries of their own
+            ms_ = ev.self_device_time_total / 1e3
+            name = next((g for g, key in groups.items() if key in ev.key),
+                        "other")
+            dev_ms[name] += ms_
+            if name == "other" and ms_ > 0:
+                others.append((ms_, ev.count, ev.key[:60]))
+        busy = sum(dev_ms.values())
+        print(f"[profile] {label} under torch.profiler: wall "
+              f"{1e3 * prof_wall:.2f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / (1e3 * prof_wall):.1f}%), idle "
+              f"{100 * (1 - busy / (1e3 * prof_wall)):.1f}%; device ms by "
+              f"kernel "
+              f"{json.dumps({k: round(v, 3) for k, v in dev_ms.items()})}")
+        for ms_, count, key in sorted(others, reverse=True)[:8]:
+            print(f"[profile]   other: {ms_:.3f} ms in {count} calls: {key}")
+
+    device_profile(f"one train step B={B_TRAIN}",
+                   lambda: trainer.train_batch(images, labels))
+    device_profile(f"one extraction batch B={B} T={T_OUT}",
+                   lambda: handles[T_OUT][0](*handles[T_OUT][1:]))
 
     med = statistics.median
     print(f"[time] train step B={B_TRAIN}: {B_TRAIN / med(step_s):.1f} img/s "
@@ -472,7 +756,7 @@ def main() -> int:
           f"{statistics.mean(nfe_f):.2f}, NFE-b mean {statistics.mean(nfe_b):.1f}")
 
     n = HH * WW * C
-    conv_flops = 2 * 2 * HH * WW * 9 * C * C * B      # two 3×3 convs, per f
+    f_flops = 2 * 2 * HH * WW * 9 * C * C * B         # two 3×3 convs, per f
     weight_bytes = 4 * (2 * 9 * C * C + 2 * n + 8 * C)
     # Backward: six 3×3-conv equivalents per sample (forward recompute,
     # input gradients, weight gradients); reads h, g, t, the laid-out
@@ -486,9 +770,10 @@ def main() -> int:
         return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                              else "bytes")
 
-    b1, by1 = bound(conv_flops, 4 * (2 * B * n + B) + weight_bytes)
-    b2, by2 = bound(6 * conv_flops, 4 * (5 * B * n + 3 * B) + weight_bytes)
+    b1, by1 = bound(f_flops, 4 * (2 * B * n + B) + weight_bytes)
+    b2, by2 = bound(6 * f_flops, 4 * (5 * B * n + 3 * B) + weight_bytes)
     b4, by4 = bound(bwd_flops, bwd_bytes)
+    b5, by5 = bound(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C))
     kernels = [
         {"name": "odefunc", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/odefunc.cu",
@@ -510,6 +795,13 @@ def main() -> int:
          "ms": ms["odefunc_bwd"], "plain_ms": ms["odefunc_bwd_plain"],
          "bound_ms": b4, "bound_by": by4,
          "library_ms": ms["odefunc_bwd_library"]},
+        {"name": "conv_probe", "route": "cuda",
+         "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
+         "replaces": "probes/conv_probe.py:254",
+         "launches": probe_launches, "max_abs_err": err_k5,
+         "ms": ms["conv_tap9"], "plain_ms": ms["conv_plain"],
+         "bound_ms": b5, "bound_by": by5, "library_ms": ms["conv_library"],
+         "strategy_ms": {s_: ms[f"conv_{s_}"] for s_ in STRATEGIES}},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,13 @@ the module of the same name there, with the same public NHWC/HWIO layouts so
 that tests compare like with like.  This package imports ``torch`` and never
 ``jax`` nor anything of the JAX package.
 
-Entry points (``entry.entry``, ``models.init_odenet``,
-``utils.checkpoint.from_jax_params``) default to ``device="cuda"`` and raise
-when CUDA is absent; pass ``device="cpu"`` to run the plain PyTorch versions
-of the kernels on the CPU.  On a CUDA tensor the hand-written kernels in
+Entry points (``entry.entry``, ``entry.train_entry``, ``entry.extract_entry``,
+``models.init_odenet``, ``utils.checkpoint.load_checkpoint``,
+``extract.extract_features``, ``evaluation.evaluate_features`` …) default to
+``device="cuda"`` and raise when CUDA is absent; pass ``device="cpu"`` (the
+CLIs: ``--cpu``) to run the plain PyTorch versions of the kernels on the CPU.
+Command lines: ``python -m neural_ode_features_tpu_torch.extract``,
+``.evaluate`` and ``.probes.conv_probe``.  On a CUDA tensor the hand-written kernels in
 ``kernels/`` (sources in ``csrc/``) always run.
 """
 

@@ -1,0 +1,187 @@
+// The 3x3 conv probe: y = conv3x3_same(x, w) alone, one CTA per sample
+// (sm_90a), under two strategies, so that the conv stage of the fused kernels
+// can be timed and redesigned in isolation.
+//
+// Replaces the TPU kernels of probes/conv_probe.py: pallas_conv_2d (kernels
+// from make_roll_kernel) and pallas_conv (make_kernel, make_scratch_kernel).
+// Wrapper and plain PyTorch version: kernels/conv3x3.py; entry point:
+// probes/conv_probe.py in the package.
+//
+//   x (B, H, W, C) f32 NHWC, w (3, 3, C, C) f32 HWIO = (9, C, C) as (tap,
+//   input channel, output channel), y (B, H, W, C) f32.  No bias and no time
+//   map: the split ConcatConv adds those outside the contraction.
+//
+//   tap9    nodef::conv3x3 of odefunc_common.cuh on a zero-bordered copy of x
+//           in shared memory: nine shifted taps accumulated in registers, one
+//           output channel x up to 8 pixels per thread.  This is the conv
+//           stage of odefunc.cu, rk_step.cu and odefunc_bwd.cu itself, so its
+//           time is what those kernels pay per conv.  The counterpart of the
+//           TPU strategies seq9, tree9, fori9 and roll9.
+//   im2col  the CTA gathers the (H*W, 9C) patch matrix of its sample into
+//           shared memory once (border entries zero) and computes one
+//           (H*W, 9C) @ (9C, C) product from it, each thread a register tile
+//           of 4 output channels x up to 4 pixels.  The counterpart of im2col,
+//           im2colS and rollS.  The TPU kernels build the patch by rolls and
+//           masks because Mosaic cannot reshape 4D tiles; here it is a gather.
+//
+// Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s): at
+// B = 256, 7x7x64 the conv is 2*256*49*576*64 = 0.925 GFLOP, 13.8 us of FFMA,
+// against 6.6 MB moved, 2.0 us.  So it is bound by operations, and what
+// decides a design is how many FFMA it issues per shared-memory load: tap9
+// does 32 per 4 scalar + 8 vector loads, im2col 64 per 8 vector loads.
+// Strict f32 FFMA; both sum over (tap, input channel) in the same order.
+#include "odefunc_common.cuh"
+
+namespace nodef {
+
+__global__ void __launch_bounds__(kThreads, 2)
+tap9_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
+            float* __restrict__ y) {
+  extern __shared__ float4 smem_raw[];
+  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
+  const int n = s.H * s.W * s.C, Wp = s.W + 2;
+  const float* xb = x + (size_t)blockIdx.x * n;
+  float* yb = y + (size_t)blockIdx.x * n;
+
+  zero_pad(m, s);
+  __syncthreads();
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const int c = e % s.C, p = e / s.C;
+    m.spad[((p / s.W + 1) * Wp + p % s.W + 1) * s.C + c] = xb[e];
+  }
+  __syncthreads();
+  conv3x3(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
+}
+
+constexpr int kI2cThreads = 256;  // threads per CTA of the im2col kernel
+constexpr int kI2cPix = 4;        // output pixels per thread (x 4 channels)
+// Floats appended to each patch row: rows then start 4 banks apart, so the
+// two pixel groups of a warp read their float4s without a bank conflict.
+constexpr int kI2cPad = 4;
+
+// Dynamic shared memory of the im2col kernel: the patch matrix and one conv
+// tap's (C, C) weights, double-buffered.  kernels/conv3x3.py mirrors it.
+inline size_t im2col_smem_bytes(int H, int W, int C) {
+  return sizeof(float) * ((size_t)H * W * (9 * C + kI2cPad) + 2 * (size_t)C * C);
+}
+
+inline bool im2col_shape_ok(int H, int W, int C) {
+  if (!shape_ok(H, W, C, 1) || kI2cThreads % (C / 4)) return false;
+  const int npg = kI2cThreads / (C / 4);
+  return (H * W + npg - 1) / npg <= kI2cPix && im2col_smem_bytes(H, W, C) <= kMaxSmem;
+}
+
+__device__ __forceinline__ void i2c_load_tap(float* dst, const float* __restrict__ src, int cc) {
+  for (int i = threadIdx.x * 4; i < cc; i += kI2cThreads * 4) cp_async16(dst + i, src + i);
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kI2cThreads, 1)
+im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
+              float* __restrict__ y) {
+  extern __shared__ float4 smem_raw[];
+  const int tid = threadIdx.x, C = s.C, hw = s.H * s.W, cc = C * C;
+  const int ld = 9 * C + kI2cPad;  // patch row stride, a multiple of 4 floats
+  float* patch = reinterpret_cast<float*>(smem_raw);
+  float* sw = patch + hw * ld;
+  const float* xb = x + (size_t)blockIdx.x * hw * C;
+  float* yb = y + (size_t)blockIdx.x * hw * C;
+
+  i2c_load_tap(sw, w, cc);
+
+  // patch[p, tap*C + ci] = x[y + ky - 1, x + kx - 1, ci], zero off the map.
+  const int c4 = C / 4, nvec = hw * 9 * c4;
+  for (int i = tid; i < nvec; i += kI2cThreads) {
+    const int ci4 = i % c4, tap = (i / c4) % 9, p = i / (9 * c4);
+    const int sy = p / s.W + tap / 3 - 1, sx = p % s.W + tap % 3 - 1;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (sy >= 0 && sy < s.H && sx >= 0 && sx < s.W)
+      v = __ldg(reinterpret_cast<const float4*>(xb + (sy * s.W + sx) * C) + ci4);
+    *reinterpret_cast<float4*>(patch + p * ld + tap * C + ci4 * 4) = v;
+  }
+
+  // Thread -> (4 output channels cg*4.., pixels pg, pg + npg, ...).
+  const int cg = tid % c4, pg = tid / c4, npg = kI2cThreads / c4;
+  const int np = (hw + npg - 1) / npg;  // pixel slots per thread (<= kI2cPix)
+  float acc[kI2cPix][4];
+  int row[kI2cPix];
+#pragma unroll
+  for (int k = 0; k < kI2cPix; ++k) {
+    int p = pg + k * npg;
+    if (p >= hw) p = 0;  // idle slot: computes pixel 0, result dropped
+    row[k] = p * ld;
+    acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
+  }
+
+  for (int tap = 0; tap < 9; ++tap) {
+    cp_async_wait_all();
+    __syncthreads();  // tap's weights (and, first, the patch) visible; other buffer free
+    if (tap < 8) i2c_load_tap(sw + ((tap + 1) & 1) * cc, w + (size_t)(tap + 1) * cc, cc);
+    const float* wt = sw + (tap & 1) * cc + cg * 4;
+    const float* in = patch + tap * C;
+    for (int ci = 0; ci < C; ci += 4) {
+      const float4 w0 = *reinterpret_cast<const float4*>(wt + (ci + 0) * C);
+      const float4 w1 = *reinterpret_cast<const float4*>(wt + (ci + 1) * C);
+      const float4 w2 = *reinterpret_cast<const float4*>(wt + (ci + 2) * C);
+      const float4 w3 = *reinterpret_cast<const float4*>(wt + (ci + 3) * C);
+#pragma unroll
+      for (int k = 0; k < kI2cPix; ++k) {
+        if (k < np) {
+          const float4 a = *reinterpret_cast<const float4*>(in + row[k] + ci);
+          acc[k][0] = fmaf(a.x, w0.x, acc[k][0]);
+          acc[k][1] = fmaf(a.x, w0.y, acc[k][1]);
+          acc[k][2] = fmaf(a.x, w0.z, acc[k][2]);
+          acc[k][3] = fmaf(a.x, w0.w, acc[k][3]);
+          acc[k][0] = fmaf(a.y, w1.x, acc[k][0]);
+          acc[k][1] = fmaf(a.y, w1.y, acc[k][1]);
+          acc[k][2] = fmaf(a.y, w1.z, acc[k][2]);
+          acc[k][3] = fmaf(a.y, w1.w, acc[k][3]);
+          acc[k][0] = fmaf(a.z, w2.x, acc[k][0]);
+          acc[k][1] = fmaf(a.z, w2.y, acc[k][1]);
+          acc[k][2] = fmaf(a.z, w2.z, acc[k][2]);
+          acc[k][3] = fmaf(a.z, w2.w, acc[k][3]);
+          acc[k][0] = fmaf(a.w, w3.x, acc[k][0]);
+          acc[k][1] = fmaf(a.w, w3.y, acc[k][1]);
+          acc[k][2] = fmaf(a.w, w3.z, acc[k][2]);
+          acc[k][3] = fmaf(a.w, w3.w, acc[k][3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kI2cPix; ++k) {
+    const int p = pg + k * npg;
+    if (k < np && p < hw)
+      *reinterpret_cast<float4*>(yb + p * C + cg * 4) =
+          make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+  }
+}
+
+}  // namespace nodef
+
+extern "C" int conv_probe_tap9(const float* x, const float* w, float* y,
+                               int B, int H, int W, int C, void* stream) {
+  using namespace nodef;
+  if (!shape_ok(H, W, C, 1) || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = odefunc_smem_bytes(H, W, C, 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      tap9_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Shape s{H, W, C, 1};
+  tap9_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int conv_probe_im2col(const float* x, const float* w, float* y,
+                                 int B, int H, int W, int C, void* stream) {
+  using namespace nodef;
+  if (!im2col_shape_ok(H, W, C) || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = im2col_smem_bytes(H, W, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      im2col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Shape s{H, W, C, 1};
+  im2col_kernel<<<B, kI2cThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
+  return (int)cudaGetLastError();
+}

@@ -23,7 +23,7 @@ __all__ = ["KERNELS", "build_all", "load", "check"]
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-KERNELS = ("odefunc", "rk_step", "odefunc_bwd")
+KERNELS = ("odefunc", "rk_step", "odefunc_bwd", "conv_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

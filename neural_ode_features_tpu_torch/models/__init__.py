@@ -1,3 +1,4 @@
+from .api import ODEBlock, ODENet, ResNet
 from .common import (
     ModelConfig,
     head_apply,
@@ -12,7 +13,9 @@ from .odenet import (
     init_odenet,
     odefunc_apply,
     odenet_logits,
+    odenet_trajectory,
 )
+from .resnet import init_resnet, resnet_block_states, resnet_logits
 
 __all__ = [
     "ModelConfig",
@@ -26,4 +29,11 @@ __all__ = [
     "init_odenet",
     "odefunc_apply",
     "odenet_logits",
+    "odenet_trajectory",
+    "init_resnet",
+    "resnet_block_states",
+    "resnet_logits",
+    "ODENet",
+    "ODEBlock",
+    "ResNet",
 ]

@@ -56,14 +56,15 @@ class ModelConfig:
                 else torch.float32)
 
 
-def _res_not_ported():
-    raise NotImplementedError(
-        "downsampling='res' is not ported yet (ROADMAP.md, Queue 1 item 1)")
-
-
 def init_stem(gen: torch.Generator, cfg: ModelConfig):
-    """Downsampling stem, 28×28 → 6×6 (MNIST) / 32×32 → 7×7 (CIFAR):
-    conv(in→h, 3×3, VALID) then 2 × [GN, ReLU, conv(h→h, 4×4, s2, p1)]."""
+    """Downsampling stem, 28×28 → 6×6 (MNIST) / 32×32 → 7×7 (CIFAR).
+
+    ``cfg.downsampling``:
+      * 'conv' (default): conv(in→h, 3×3, VALID) then
+        2 × [GN, ReLU, conv(h→h, 4×4, s2, p1)].
+      * 'res': conv(in→h, 3×3, VALID) then 2 × stride-2 residual blocks
+        (1×1 s2 shortcut).
+    """
     h = cfg.hidden
     if cfg.downsampling == "conv":
         return {
@@ -74,14 +75,38 @@ def init_stem(gen: torch.Generator, cfg: ModelConfig):
             "conv2": init_conv(gen, 4, 4, h, h),
         }
     if cfg.downsampling == "res":
-        _res_not_ported()
+        def res_block():
+            return {
+                "norm1": init_group_norm(h),
+                "conv1": init_conv(gen, 3, 3, h, h),
+                "norm2": init_group_norm(h),
+                "conv2": init_conv(gen, 3, 3, h, h),
+                "shortcut": init_conv(gen, 1, 1, h, h),
+            }
+        return {
+            "conv0": init_conv(gen, 3, 3, cfg.in_channels, h),
+            "block1": res_block(),
+            "block2": res_block(),
+        }
     raise ValueError(f"unknown downsampling {cfg.downsampling!r}")
 
 
+def _res_down_block(params, x: torch.Tensor, g: int) -> torch.Tensor:
+    """Stride-2 pre-activation residual block with a 1×1 s2 shortcut."""
+    out = torch.relu(group_norm(params["norm1"], x, groups=g))
+    shortcut = conv2d(params["shortcut"], out, stride=2, padding="VALID")
+    out = conv2d(params["conv1"], out, stride=2, padding=1)
+    out = torch.relu(group_norm(params["norm2"], out, groups=g))
+    out = conv2d(params["conv2"], out, padding=1)
+    return shortcut + out
+
+
 def stem_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.downsampling == "res":
-        _res_not_ported()
     g = cfg.groups
+    if cfg.downsampling == "res":
+        x = conv2d(params["conv0"], x, padding="VALID")
+        x = _res_down_block(params["block1"], x, g)
+        return _res_down_block(params["block2"], x, g)
     x = conv2d(params["conv0"], x, padding="VALID")
     x = torch.relu(group_norm(params["norm1"], x, groups=g))
     x = conv2d(params["conv1"], x, stride=2, padding=1)

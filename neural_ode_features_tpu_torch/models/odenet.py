@@ -1,6 +1,6 @@
 """ODE-Net: stem → continuous ODE block → head (port of
-``neural_ode_features_tpu/models/odenet.py``: inference and the adjoint
-training path).
+``neural_ode_features_tpu/models/odenet.py``: inference, the adjoint
+training path, and the trajectory at any output times from one solve).
 
 On a CUDA tensor the dynamics always run the fused ODEfunc kernel and, when
 the configuration is eligible, every dopri5 attempt of an inference solve
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, tree_to
 from ..kernels.odefunc import aligned, odefunc, odefunc_vjp, prepare
 from ..kernels.rk_step import make_fused_dopri5_step
 from ..ops.layers import concat_conv2d, group_norm, init_conv, init_group_norm
@@ -29,7 +29,7 @@ from ..solver import (
 from .common import ModelConfig, head_apply, init_head, init_stem, stem_apply
 
 __all__ = ["init_odefunc", "init_odenet", "odefunc_apply",
-           "fused_rk_eligible", "odenet_logits"]
+           "fused_rk_eligible", "odenet_logits", "odenet_trajectory"]
 
 
 def init_odefunc(gen: torch.Generator, cfg: ModelConfig):
@@ -56,13 +56,7 @@ def init_odenet(seed: int, cfg: ModelConfig, *, device="cuda"):
         "odefunc": init_odefunc(gen, cfg),
         "head": init_head(gen, cfg),
     }
-    return _to(params, dev)
-
-
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree_to(params, dev)
 
 
 def odefunc_apply(params, t, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -161,3 +155,17 @@ def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
     solve = _solve_adjoint if adjoint else _solve
     traj, stats = solve(params, h0, ts, cfg)
     return head_apply(params["head"], traj[-1], cfg), stats
+
+
+def odenet_trajectory(params, x: torch.Tensor, ts,
+                      cfg: ModelConfig) -> tuple[torch.Tensor, SolveStats]:
+    """Feature-extraction forward: the state trajectory h(t) at every
+    requested t from ONE solve (dense output).  On the card every attempt is
+    one fused-step launch, whose ``y_mid`` feeds the quartic fit of the
+    dense write.
+
+    Returns ((T, B, H, W, C) states, stats); pool with
+    :func:`..models.common.pool_features` for (T, B, C) features."""
+    h0 = stem_apply(params["stem"], x, cfg)
+    ts = torch.as_tensor(ts).to(device=h0.device, dtype=h0.dtype)
+    return _solve(params, h0, ts, cfg)

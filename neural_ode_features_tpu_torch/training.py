@@ -11,9 +11,10 @@ and NFE-backward come back with every step; ``nfe_b`` is what the adjoint's
 
 The JAX step is one compiled device program; here it is eager PyTorch with
 host loops in the solver (one device→host sync per attempt).  Not ported yet
-(each raises ``NotImplementedError`` naming ROADMAP.md): the ResNet model, a
-device mesh (``num_devices``/``model_shards`` > 1), bfloat16 compute, and the
-msgpack/orbax training-state files.
+(each raises ``NotImplementedError`` naming ROADMAP.md): training the ResNet
+model, a device mesh (``num_devices``/``model_shards`` > 1), bfloat16
+compute, and the orbax training-state directory.  The training state file
+is a ``torch.save`` of one flat dict of tensors (``save_state``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from .models import (
 )
 from .ops.preprocess import augment, normalize, normalized_black
 from .solver import odeint
+from .utils.checkpoint import from_torch_state_dict, to_torch_state_dict
 
 __all__ = ["TrainConfig", "Trainer"]
 
@@ -280,10 +282,35 @@ class Trainer:
                 "nfe": total["nfe_sum"] / count}
 
     def save_state(self, path) -> None:
-        _not_ported("the msgpack training state", "Queue 1 item 5")
+        """Full training state for a resume, as one flat ``dict[str,
+        Tensor]`` under ``torch.save``: ``params.<name>`` (the 'internal'
+        state dict of ``utils/checkpoint.py``), ``opt.<i>.<key>`` (the
+        optimizer's tensors for parameter leaf i) and ``step_count``."""
+        state = {f"params.{k}": v
+                 for k, v in to_torch_state_dict(self.params).items()}
+        for i, p in enumerate(self._leaves):
+            for key, val in self.optimizer.state.get(p, {}).items():
+                if isinstance(val, torch.Tensor):
+                    state[f"opt.{i}.{key}"] = val.detach().cpu()
+        state["step_count"] = torch.tensor(self.step_count)
+        torch.save(state, path)
 
     def load_state(self, path) -> None:
-        _not_ported("the msgpack training state", "Queue 1 item 5")
+        """Restore what :meth:`save_state` wrote, in place: the parameter
+        leaves keep their identity, so the optimizer goes on owning them."""
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        loaded = from_torch_state_dict(
+            self.params, {k[len("params."):]: v for k, v in state.items()
+                          if k.startswith("params.")})
+        with torch.no_grad():
+            for p, q in zip(self._leaves, pytree.tree_leaves(loaded)):
+                p.copy_(q)
+        for i, p in enumerate(self._leaves):
+            prefix = f"opt.{i}."
+            self.optimizer.state[p] = {
+                k[len(prefix):]: v.to(p.device if v.ndim else v.device)
+                for k, v in state.items() if k.startswith(prefix)}
+        self.step_count = int(state["step_count"])
 
     def save_state_orbax(self, path) -> None:
         _not_ported("the orbax training state", "Queue 1 item 5")

@@ -1,5 +1,13 @@
-from .checkpoint import from_jax_params, from_torch_state_dict, to_torch_state_dict
+from .checkpoint import (
+    from_jax_params,
+    from_torch_state_dict,
+    load_checkpoint,
+    resolve_checkpoint,
+    save_checkpoint,
+    to_torch_state_dict,
+)
 from .meters import AverageMeter, RunningAverageMeter, count_parameters
 
 __all__ = ["from_jax_params", "from_torch_state_dict", "to_torch_state_dict",
+           "save_checkpoint", "load_checkpoint", "resolve_checkpoint",
            "AverageMeter", "RunningAverageMeter", "count_parameters"]

@@ -1,5 +1,14 @@
-"""Weights across the two packages: JAX param dicts → port params, and the
-torch-convention state dict in both naming styles.
+"""Checkpoints and weights across the two packages: the port's ``.pt``
+checkpoint files, JAX param dicts → port params, and the torch-convention
+state dict in both naming styles.
+
+The port's native checkpoint is ``<path>`` (``ckpt_*.pt``), a ``torch.save``
+of the ``'internal'``-style state dict (a flat ``dict[str, Tensor]``: OIHW
+convs, (out, in) linears, dotted names), beside the same ``<path>.json``
+sidecar (``config``, ``extra``) as the JAX writer.  That state dict is the
+JAX package's own documented torch surface, so its ``from_torch_state_dict``
+reads a ``.pt`` back, and a ``.pt`` written from its ``to_torch_state_dict``
+loads here.
 
 The port's own copy of the name and layout map of the JAX package's
 ``utils/checkpoint.py`` (HWIO → OIHW convs, (in, out) → (out, in) linears,
@@ -22,20 +31,87 @@ array against the JAX converter.  Styles:
   head.fc              fc_layers.4
   blocks.K.*           feature_layers.K.*            (ResNet)
 
-The msgpack checkpoint read and write are not ported yet (ROADMAP.md,
-Queue 1 item 5).
+Reading a JAX ``.msgpack`` checkpoint is not ported (ROADMAP.md, Queue 1
+item 5): convert it with the JAX package's ``to_torch_state_dict`` and
+``torch.save`` the result.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.common import ModelConfig
 
-__all__ = ["from_jax_params", "to_torch_state_dict", "from_torch_state_dict"]
+__all__ = ["save_checkpoint", "load_checkpoint", "resolve_checkpoint",
+           "from_jax_params", "to_torch_state_dict", "from_torch_state_dict"]
+
+
+def _sidecar(path: Path) -> Path:
+    return path.with_suffix(path.suffix + ".json")
+
+
+def _refuse_msgpack(path: Path) -> None:
+    if path.suffix == ".msgpack":
+        raise NotImplementedError(
+            f"{path}: reading or writing a JAX .msgpack checkpoint is not "
+            "ported (ROADMAP.md, Queue 1 item 5); the port's checkpoints "
+            "are .pt files")
+
+
+def resolve_checkpoint(path: str | Path, name: str = "ckpt_best.pt") -> Path:
+    """Resolve a CLI ``--run`` argument to a checkpoint file: a checkpoint
+    file is returned as it is; inside a run directory prefer ``name`` and
+    fall back to ``ckpt_last.pt`` when it is missing (a run interrupted
+    before its first eval never wrote a "best")."""
+    p = Path(path)
+    if p.is_dir():
+        ckpt = p / name
+        if not ckpt.exists():
+            ckpt = p / "ckpt_last.pt"
+        return ckpt
+    return p
+
+
+def save_checkpoint(path: str | Path, params: Any, cfg: ModelConfig,
+                    extra: dict | None = None) -> None:
+    """Write ``<path>`` (the 'internal' state dict of ``params``) and
+    ``<path>.json`` (config + extra)."""
+    path = Path(path)
+    _refuse_msgpack(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(to_torch_state_dict(params), path)
+    meta = {"config": dataclasses.asdict(cfg), "extra": extra or {}}
+    _sidecar(path).write_text(json.dumps(meta, indent=2))
+
+
+def load_checkpoint(path: str | Path, init_fn=None, *,
+                    device="cuda") -> tuple[Any, ModelConfig, dict]:
+    """Read ``(params, cfg, extra)``, the params on ``device``.
+    ``init_fn(seed, cfg, device=...) -> template`` defaults to the
+    initialiser of the persisted ``extra['model']`` family.  The sidecar's
+    ``config`` may be the JAX package's: the two dataclasses share every
+    field, and the port does not read the TPU opt-ins."""
+    dev = resolve_device(device)
+    path = Path(path)
+    _refuse_msgpack(path)
+    meta = json.loads(_sidecar(path).read_text())
+    cfg = ModelConfig(**meta["config"])
+    extra = meta.get("extra", {})
+    if init_fn is None:
+        from ..models import init_odenet, init_resnet
+
+        init_fn = (init_resnet if extra.get("model", "odenet") == "resnet"
+                   else init_odenet)
+    template = init_fn(0, cfg, device=dev)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return from_torch_state_dict(template, state), cfg, extra
 
 
 def from_jax_params(params: Any, *, device="cuda") -> Any:

@@ -12,7 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry, train_entry
+from neural_ode_features_tpu_torch.entry import (
+    ENTRY_CONFIG,
+    entry,
+    extract_entry,
+    train_entry,
+)
+from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+    STRATEGIES,
+    conv3x3,
+    conv3x3_plain,
+)
 from neural_ode_features_tpu_torch.kernels.odefunc import (
     PARAM_KEYS,
     odefunc,
@@ -27,7 +37,15 @@ from neural_ode_features_tpu_torch.kernels.rk_step import (
     dopri5_step,
     dopri5_step_plain,
 )
-from neural_ode_features_tpu_torch.models import head_apply, init_odenet, stem_apply
+from neural_ode_features_tpu_torch.models import (
+    head_apply,
+    init_odenet,
+    odenet_trajectory,
+    pool_features,
+    stem_apply,
+)
+from neural_ode_features_tpu_torch.ops import normalize
+from neural_ode_features_tpu_torch.probes.conv_probe import probe_inputs
 from neural_ode_features_tpu_torch.solver import DOPRI5, odeint
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +178,72 @@ def test_training_step_runs_the_kernels(dev):
     assert odefunc_bwd.launches == m["nfe_b"] - 1
     assert odefunc.launches == 2 + 6 * attempts + m["nfe_b"]
     assert np.isfinite(m["loss"])
+
+
+CONV_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 9·C products, reordered
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("batch,side", [(1, 7), (5, 7), (256, 7), (1, 6),
+                                        (5, 6), (256, 6)])
+def test_conv_kernels_match_plain(dev, strategy, batch, side):
+    x, w = probe_inputs(batch, dev, (side, side))
+    before = conv3x3.launches
+    got = conv3x3(x, w, strategy)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               conv3x3_plain(x, w).cpu().numpy(), **CONV_TOL)
+    # ... and the plain version in float64 on the same inputs.
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        conv3x3_plain(x.double(), w.double()).cpu().numpy(), **CONV_TOL)
+
+
+def test_conv_kernel_refusals(dev):
+    x, w = probe_inputs(2, dev)
+    with pytest.raises(ValueError, match="does not take"):
+        conv3x3(torch.zeros((2, 28, 28, 64), device=dev), w)
+    with pytest.raises(ValueError, match="float32"):
+        conv3x3(x.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="float32 on"):
+        conv3x3(x, w.cpu())
+
+
+def test_extraction_path_runs_the_kernels(dev):
+    """One extraction batch: two ODEfunc launches, one fused step per
+    attempt whatever the number of output times, the backward kernel never;
+    the features' ends are the pooled stem output and the pooled state the
+    classifier's solve reaches."""
+    fwd, params, x_u8 = extract_entry(device="cuda", batch=16, timestamps=11)
+    fwd(params, x_u8)  # builds and warms up
+    odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+    feats, stats = fwd(params, x_u8)
+    assert tuple(feats.shape) == (11, 16, 64)
+    assert odefunc.launches == 2 and odefunc_bwd.launches == 0
+    assert dopri5_step.launches == int(((stats.nfe - 2) // 6).max())
+
+    cfg = ENTRY_CONFIG
+    x = normalize(x_u8, "synthetic-cifar10")
+    h0 = stem_apply(params["stem"], x, cfg)
+    np.testing.assert_allclose(feats[0].cpu().numpy(),
+                               pool_features(h0).cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    ends, stats2 = odenet_trajectory(params, x, [0.0, 1.0], cfg)
+    np.testing.assert_array_equal(stats.nfe.cpu().numpy(),
+                                  stats2.nfe.cpu().numpy())
+    np.testing.assert_allclose(feats[-1].cpu().numpy(),
+                               pool_features(ends[-1]).cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    # Against the plain path on the card.
+    w = prepare(params["odefunc"], (7, 7))
+    traj, stats_p = odeint(lambda t, y: odefunc_plain(w, t, y, 32), h0,
+                           torch.linspace(0, 1, 11, device=dev), rtol=TOL,
+                           atol=TOL, error_control="per_sample")
+    np.testing.assert_array_equal(stats.nfe.cpu().numpy(),
+                                  stats_p.nfe.cpu().numpy())
+    np.testing.assert_allclose(feats.cpu().numpy(),
+                               pool_features(traj).cpu().numpy(), rtol=1e-3,
+                               atol=1e-3)

@@ -13,9 +13,26 @@ import pytest
 import torch
 
 import neural_ode_features_tpu_torch as port
-from neural_ode_features_tpu_torch.entry import entry, train_entry
-from neural_ode_features_tpu_torch.models import ModelConfig, init_odenet
-from neural_ode_features_tpu_torch.utils import from_jax_params
+from neural_ode_features_tpu_torch import evaluate, extract
+from neural_ode_features_tpu_torch.entry import (
+    entry,
+    extract_entry,
+    train_entry,
+)
+from neural_ode_features_tpu_torch.evaluation import evaluate_features
+from neural_ode_features_tpu_torch.models import (
+    ModelConfig,
+    ODENet,
+    ResNet,
+    init_odenet,
+    init_resnet,
+)
+from neural_ode_features_tpu_torch.probes import conv_probe
+from neural_ode_features_tpu_torch.utils import (
+    from_jax_params,
+    load_checkpoint,
+    save_checkpoint,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = Path(port.__file__).parent
@@ -28,7 +45,11 @@ def _modules():
 
 def test_imports_with_jax_blocked():
     mods = _modules()
-    assert len(mods) >= 15
+    assert len(mods) >= 37
+    for name in ("extract", "evaluate", "features_io", "solver.dense",
+                 "models.resnet", "models.api", "evaluation.probes",
+                 "kernels.conv3x3", "probes.conv_probe", "utils.checkpoint"):
+        assert f"{port.__name__}.{name}" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -52,7 +73,7 @@ _FORBIDDEN = re.compile(
 
 def test_no_jax_references_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 15
+    assert len(files) >= 38
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"
@@ -77,3 +98,37 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     assert x.device.type == "cpu"
     trainer, (images, labels) = train_entry(device="cpu", batch=2)
     assert trainer.device.type == "cpu" and images.shape == (2, 32, 32, 3)
+
+
+def test_new_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
+    """Every entry point of the extraction slice defaults to the card and
+    raises without one; none carries on on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(in_channels=3, hidden=8, groups=4)
+    params = init_odenet(0, cfg, device="cpu")
+    ckpt = tmp_path / "ckpt_best.pt"
+    save_checkpoint(ckpt, params, cfg,
+                    {"train": {"dataset": "synthetic-cifar10"}})
+    feats = np.zeros((8, 4), np.float32)
+    labels = np.arange(8) % 2
+    images = np.zeros((2, 32, 32, 3), np.uint8)
+    calls = [
+        lambda: extract_entry(),
+        lambda: init_resnet(0, cfg),
+        lambda: ODENet.create(0, cfg),
+        lambda: ResNet.create(0, cfg),
+        lambda: load_checkpoint(ckpt),
+        lambda: evaluate_features(None, None, feats, labels),
+        lambda: extract.extract_features(params, cfg, images, labels[:2],
+                                         dataset="synthetic-cifar10"),
+        lambda: extract.main(["--run", str(tmp_path), "--limit", "2"]),
+        lambda: evaluate.main(["--features", str(tmp_path / "f.npz")]),
+        lambda: conv_probe.main(["--batch", "1"]),
+    ]
+    out = extract.main(["--run", str(tmp_path), "--limit", "2", "--cpu",
+                        "--timestamps", "2", "--output",
+                        str(tmp_path / "f.npz")])
+    assert out == tmp_path / "f.npz"
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -24,6 +24,7 @@ from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry
 from neural_ode_features_tpu_torch.models import (
     ModelConfig,
     fused_rk_eligible,
+    init_odenet,
     odenet_logits,
 )
 from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
@@ -87,5 +88,6 @@ def test_fused_eligibility_and_refusals():
             cfg, adjoint_mode="interpolated"), adjoint=True)
     with pytest.raises(NotImplementedError, match="resnet.*ROADMAP"):
         Trainer(TrainConfig(model="resnet"), steps_per_epoch=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odenet_logits(params, x, dataclasses.replace(cfg, downsampling="res"))
+    with pytest.raises(ValueError, match="unknown downsampling"):
+        init_odenet(0, dataclasses.replace(cfg, downsampling="pool"),
+                    device="cpu")
