@@ -12,11 +12,16 @@ Phases (any failed check exits nonzero and prints no result):
    7×7×64), the fused step and the backward kernel also at a ragged B = 5.
    The backward kernel is held against its plain version in float64 (the
    f32 plain version's cuDNN weight gradients are less exact than the
-   kernel); two backward launches must give bit-identical dθ.  The two conv
-   probe kernels (``tap9``, ``im2col``) are held against ``conv3x3_plain``
-   at B = 256, a ragged B = 5 and a 6×6 map, in f32 and in float64.  Then
-   the probe's own path, ``probes.conv_probe.main`` at B = 256, with the
-   conv counter set to 0 just before.
+   kernel), its f output against the ODEfunc kernel's; two backward
+   launches must give bit-identical dθ.  The backward call's device time is
+   split by kernel name.  The four conv probe kernels (``tap9``, ``im2col``
+   and the tensor-core ``mma3``, ``mma1``) are held against
+   ``conv3x3_plain`` at B = 256, a ragged B = 5 and a 6×6 map, in f32 and in
+   float64 (``mma1``, plain TF32, at its own looser tolerance), and
+   ``mma3``'s error against the f64 plain version is printed beside
+   ``tap9``'s.  Then the probe's own path, ``probes.conv_probe.main``, the
+   four-strategy race at B = 256 and B = 128, with the conv counter set to
+   0 just before.
 3. The inference path, ``entry(device="cuda", batch=256)`` (CIFAR-10
    ODE-Net, per-sample dopri5 at tol 1e-3, full width, random weights),
    with the launch counters set to 0 just before: the ODEfunc kernel must
@@ -29,9 +34,10 @@ Phases (any failed check exits nonzero and prints no result):
 5. The training path, ``train_entry(device="cuda", batch=128)`` (the JAX
    ``TrainConfig`` defaults on ``synthetic-cifar10``, augment on): 5
    ``train_batch`` steps, the counters set to 0 before each.  Per step the
-   ODEfunc kernel must launch 2 + 6·(forward attempts) + nfe_b times, the
-   backward kernel nfe_b − 1 times, the fused step never; loss and every
-   gradient finite.
+   ODEfunc kernel must launch 2 + 6·(forward attempts) + 1 times (the last
+   for the observation-time gradient), the backward kernel nfe_b − 1 times
+   (one call per augmented evaluation: it writes f itself), the fused step
+   never; loss and every gradient finite.
 6. The extraction path: the trained parameters → ``save_checkpoint`` →
    ``load_checkpoint`` → ``extract_features`` over the whole
    ``synthetic-cifar10`` test split (10,000 images, B = 256, T = 11) with
@@ -50,8 +56,13 @@ Phases (any failed check exits nonzero and prints no result):
    one extraction batch through ``extract_entry`` at T = 11 beside T = 2;
    one train step and one extraction batch under ``torch.profiler``.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(per kernel: the conv stage it ran; ``ms``, the device time of its kernels
+by name under ``torch.profiler``; ``call_ms``, CUDA events around
+back-to-back calls of its wrapper, which the host's cost of a launch bounds
+from below; ``bound_ms`` with the tensor cores and ``ffma_bound_ms`` on the
+CUDA cores), and last ``{"ok": true, "device": {...}}``.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -74,8 +85,10 @@ STATE_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: f32 reassociation
 RATIO_TOL = dict(rtol=2e-3, atol=1e-6)   # error ratio: a sum of squares
 DP_TOL = dict(rtol=3e-4, atol=3e-4)      # dθ: sums over B·H·W products
 CONV_TOL = dict(rtol=1e-4, atol=1e-5)    # one conv: sums of 576 products
+TF32_TOL = dict(rtol=2e-3, atol=2e-4)    # mma1 alone: plain TF32, 11-bit operands
 T_OUT = 11                               # extract's default --timestamps
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
+PEAK_TF32_FLOPS = 495e12                 # H100 SXM, TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
 
 
@@ -171,7 +184,9 @@ def main() -> int:
     from neural_ode_features_tpu_torch.kernels.odefunc import (
         odefunc,
         odefunc_plain,
+        odefunc_vjp,
         prepare,
+        stage,
     )
     from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
         odefunc_bwd,
@@ -200,6 +215,12 @@ def main() -> int:
         load_checkpoint,
         save_checkpoint,
     )
+
+    def device_ms_by_kernel(fn, keys, reps: int = 20) -> dict:
+        """Mean device ms per call of ``fn`` in the kernels named by each
+        of ``keys`` (``torch.profiler`` over ``reps`` warm calls)."""
+        return {k: v / 1e3
+                for k, v in conv_probe.device_us(fn, keys, reps).items()}
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -260,8 +281,10 @@ def main() -> int:
     for nb in (B_TRAIN, 5):  # 5: a ragged batch
         args = (tb[:nb].contiguous(), hb[:nb].contiguous(),
                 gb[:nb].contiguous())
-        dp, dtk, dh = odefunc_bwd(w, *args, groups=G)
+        dp, dtk, dh, f_b = odefunc_bwd(w, *args, groups=G, with_f=True)
         dp2 = odefunc_bwd(w, *args, groups=G)[0]
+        if not torch.equal(f_b, odefunc(w, args[0], args[1], groups=G)):
+            fail(f"odefunc_bwd f B={nb}: differs from the ODEfunc kernel's")
         dp_p, dt_p, dh_p = odefunc_bwd_plain(w64, *(a.double() for a in args),
                                              G)
         dp_32 = odefunc_bwd_plain(w, *args, G)[0]
@@ -277,8 +300,26 @@ def main() -> int:
               f"abs err {err_dp:.3e} (the f32 plain version's: {err_32:.3e})")
     torch.cuda.synchronize()
     print(f"[check] odefunc_bwd dh max abs err {err_k4:.3e}; dt and dθ "
-          f"within tolerance; dθ bit-identical across two launches "
-          f"(B={B_TRAIN} and B=5)")
+          f"within tolerance; f bit-identical to the ODEfunc kernel's; dθ "
+          f"bit-identical across two launches (B={B_TRAIN} and B=5)")
+
+    # One augmented evaluation of the adjoint is one backward call.
+    odefunc.launches = odefunc_bwd.launches = 0
+    f_v = odefunc_vjp(w, tb, hb, gb, groups=G)[0]
+    if (odefunc.launches, odefunc_bwd.launches) != (0, 1):
+        fail(f"odefunc_vjp launched odefunc {odefunc.launches} and "
+             f"odefunc_bwd {odefunc_bwd.launches} times, not 0 and 1")
+    close("odefunc_vjp f", f_v, odefunc_plain(w, tb, hb, G), **STATE_TOL)
+
+    # Where the backward call's time goes, by kernel (device time).
+    bwd_keys = ("bwd_sample_kernel", "bwd_weight_kernel", "bwd_reduce_kernel")
+    bwd_split = device_ms_by_kernel(
+        lambda: odefunc_bwd(w, tb, hb, gb, groups=G), bwd_keys)
+    bwd_dev = sum(bwd_split.values())
+    print(f"[split] odefunc_bwd B={B_TRAIN}: device ms by kernel "
+          + ", ".join(f"{k} {v:.4f} ({100 * v / bwd_dev:.0f}%)"
+                      for k, v in bwd_split.items())
+          + f"; sum {bwd_dev:.4f}")
 
     # The conv probe kernels against the plain version, in f32 and in
     # float64 on the same inputs (upcast).
@@ -287,26 +328,41 @@ def main() -> int:
         xc, wc = conv_probe.probe_inputs(nb, dev, hw)
         plain = conv3x3_plain(xc, wc)
         plain64 = conv3x3_plain(xc.double(), wc.double())
+        errs64 = {}
         for strategy in STRATEGIES:
+            tol = TF32_TOL if strategy == "mma1" else CONV_TOL
             got = conv3x3(xc, wc, strategy)
             tag = f"conv_probe {strategy} B={nb} {hw[0]}x{hw[1]}"
-            err = close(tag, got, plain, **CONV_TOL)
-            err64 = close(f"{tag} (f64 plain)", got.double(), plain64,
-                          **CONV_TOL)
-            err_k5 = max(err_k5, err)
+            err = close(tag, got, plain, **tol)
+            errs64[strategy] = close(f"{tag} (f64 plain)", got.double(),
+                                     plain64, **tol)
+            if strategy != "mma1":
+                err_k5 = max(err_k5, err)
             print(f"[check] {tag}: max abs err {err:.3e} vs plain, "
-                  f"{err64:.3e} vs the f64 plain version (the f32 plain "
-                  f"version's: "
+                  f"{errs64[strategy]:.3e} vs the f64 plain version (the f32 "
+                  f"plain version's: "
                   f"{float((plain.double() - plain64).abs().max()):.3e})")
+        print(f"[check] conv B={nb} {hw[0]}x{hw[1]} vs the f64 plain version: "
+              f"mma3 {errs64['mma3']:.3e} beside tap9 {errs64['tap9']:.3e} "
+              f"(both within rtol {CONV_TOL['rtol']}, atol "
+              f"{CONV_TOL['atol']}); mma1 {errs64['mma1']:.3e} (plain TF32, "
+              f"rtol {TF32_TOL['rtol']}, atol {TF32_TOL['atol']})")
     torch.cuda.synchronize()
 
-    # The probe's own path, counter from 0.
+    # The probe's own path, the four-strategy race at B = 256 and B = 128,
+    # counter from 0.
     conv3x3.launches = 0
-    probe = conv_probe.main(["--batch", str(B)])
+    probe = conv_probe.main(["--batch", f"{B},{B_TRAIN}"])
     probe_launches = conv3x3.launches
     print(f"[probe] conv3x3 launches {probe_launches}")
-    if probe_launches < 2 * len(STRATEGIES):
+    if probe_launches < 2 * 2 * len(STRATEGIES):
         fail(f"the probe launched the conv kernels {probe_launches} times")
+    for nb, res in probe["batches"].items():
+        if not (res["mma3"]["device_us"] < res["tap9"]["device_us"]
+                and res["mma3"]["device_us"] < res["library_us"]):
+            fail(f"the probe at B={nb}: mma3 {res['mma3']['device_us']:.1f} us "
+                 f"is not below tap9 {res['tap9']['device_us']:.1f} us and "
+                 f"F.conv2d {res['library_us']:.1f} us")
 
     # 3. Main path, counters from 0.
     odefunc.launches = 0
@@ -398,7 +454,7 @@ def main() -> int:
         print(f"[train] step {step}: {t_s:.3f} s, loss {m['loss']:.5f}, "
               f"NFE-f mean {m['nfe']:.2f}, NFE-b {nb_}, attempts {attempts}, "
               f"launches {got}")
-        want = {"odefunc": 2 + 6 * attempts + nb_, "odefunc_bwd": nb_ - 1,
+        want = {"odefunc": 2 + 6 * attempts + 1, "odefunc_bwd": nb_ - 1,
                 "rk_step": 0}
         if got != want or nb_ < 2:
             fail(f"train step {step}: launches {got}, expected {want}")
@@ -632,18 +688,38 @@ def main() -> int:
                                                                gb, G)),
         "odefunc_bwd_library": time_ms(library_bwd),
     }
+    # Device time of each kernel by name (the events above time the
+    # wrapper's calls, which cannot go below the host's cost of a launch).
+    dev_ms = {
+        "odefunc": device_ms_by_kernel(
+            lambda: odefunc(w, t, h, groups=G), ("odefunc_kernel",)),
+        "rk_step": device_ms_by_kernel(
+            lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0, **step_kw),
+            ("rk_step_kernel",)),
+        "odefunc_bwd": device_ms_by_kernel(
+            lambda: odefunc_bwd(w, tb, hb, gb, groups=G), bwd_keys),
+    }
+    dev_ms = {k: sum(v.values()) for k, v in dev_ms.items()}
+    print("[time] kernels, ms: " + ", ".join(
+        f"{k} device {dev_ms[k]:.4f} (call {ms[k]:.4f})" for k in dev_ms))
     xc, wc = conv_probe.probe_inputs(B, dev)
+    conv_dev_ms = {}
     for strategy in STRATEGIES:
         ms[f"conv_{strategy}"] = time_ms(
             lambda s_=strategy: conv3x3(xc, wc, s_), reps=100)
+        name = conv_probe.KERNEL_NAMES[strategy]
+        conv_dev_ms[strategy] = device_ms_by_kernel(
+            lambda s_=strategy: conv3x3(xc, wc, s_), (name,), reps=100)[name]
     ms["conv_plain"] = time_ms(lambda: conv3x3_plain(xc, wc), reps=100)
     ms["conv_library"] = time_ms(lambda: conv_probe.library_conv(xc, wc),
                                  reps=100)
-    print("[time] one 3x3 conv B=%d: " % B + ", ".join(
+    print("[time] one 3x3 conv B=%d, calls: " % B + ", ".join(
         f"{k[5:]} {1e3 * ms[k]:.1f} us" for k in ms if k.startswith("conv_"))
-        + f" (the probe's own readings: tap9 {probe['tap9']['us']:.1f}, "
-        f"im2col {probe['im2col']['us']:.1f}, F.conv2d "
-        f"{probe['library_us']:.1f} us)")
+        + "; device: " + ", ".join(
+            f"{k} {1e3 * v:.1f} us" for k, v in conv_dev_ms.items())
+        + " (the probe's own device readings: " + ", ".join(
+            f"{k} {probe[k]['device_us']:.1f}" for k in STRATEGIES)
+        + f", F.conv2d {probe['library_us']:.1f} us)")
 
     # One extraction batch through extract_entry, warm: T = 11 beside T = 2
     # in turns (the same solve; the difference is the dense write and the
@@ -761,47 +837,58 @@ def main() -> int:
     # Backward: six 3×3-conv equivalents per sample (forward recompute,
     # input gradients, weight gradients); reads h, g, t, the laid-out
     # weights, writes dh, dt and the raw dθ once each.
+    # ... and f once more: the recomputed forward that the kernel writes.
     bwd_flops = 6 * 2 * HH * WW * 9 * C * C * B_TRAIN
-    bwd_bytes = (4 * (3 * B_TRAIN * n + 2 * B_TRAIN) + weight_bytes
+    bwd_bytes = (4 * (4 * B_TRAIN * n + 2 * B_TRAIN) + weight_bytes
                  + 4 * (2 * 9 * (C + 1) * C + 8 * C))
 
-    def bound(flops, nbytes):
-        by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        return 1e3 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
-                                             else "bytes")
+    def bounds(flops, nbytes):
+        """The card's least time with the tensor cores (the operations
+        counted once, at the TF32 rate) and on the CUDA cores (f32 FFMA),
+        each the larger of its operations time and the bytes time."""
+        out = {}
+        for key, peak in (("", PEAK_TF32_FLOPS), ("ffma_", PEAK_F32_FLOPS)):
+            by_ops, by_bytes = flops / peak, nbytes / PEAK_BYTES
+            out[key + "bound_ms"] = 1e3 * max(by_ops, by_bytes)
+            out[key + "bound_by"] = ("operations" if by_ops >= by_bytes
+                                     else "bytes")
+        return out
 
-    b1, by1 = bound(f_flops, 4 * (2 * B * n + B) + weight_bytes)
-    b2, by2 = bound(6 * f_flops, 4 * (5 * B * n + 3 * B) + weight_bytes)
-    b4, by4 = bound(bwd_flops, bwd_bytes)
-    b5, by5 = bound(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C))
+    fused_stage = stage((HH, WW), C)
     kernels = [
         {"name": "odefunc", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/odefunc.cu",
          "replaces": "neural_ode_features_tpu/kernels/odefunc_pallas.py:219",
          "launches": launches["odefunc"], "max_abs_err": err_k1,
-         "ms": ms["odefunc"], "plain_ms": ms["odefunc_plain"],
-         "bound_ms": b1, "bound_by": by1,
-         "library_ms": ms["odefunc_library"]},
+         "ms": dev_ms["odefunc"], "plain_ms": ms["odefunc_plain"],
+         **bounds(f_flops, 4 * (2 * B * n + B) + weight_bytes),
+         "library_ms": ms["odefunc_library"], "stage": fused_stage,
+         "call_ms": ms["odefunc"]},
         {"name": "rk_step", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/rk_step.cu",
          "replaces": "neural_ode_features_tpu/kernels/rk_step_pallas.py:586",
          "launches": launches["rk_step"], "max_abs_err": err_k2,
-         "ms": ms["rk_step"], "plain_ms": ms["rk_step_plain"],
-         "bound_ms": b2, "bound_by": by2, "library_ms": None},
+         "ms": dev_ms["rk_step"], "plain_ms": ms["rk_step_plain"],
+         **bounds(6 * f_flops, 4 * (5 * B * n + 3 * B) + weight_bytes),
+         "library_ms": None, "stage": fused_stage,
+         "call_ms": ms["rk_step"]},
         {"name": "odefunc_bwd", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/odefunc_bwd.cu",
          "replaces": "neural_ode_features_tpu/kernels/odefunc_bwd_rows.py:305",
          "launches": train_launches[-1]["odefunc_bwd"], "max_abs_err": err_k4,
-         "ms": ms["odefunc_bwd"], "plain_ms": ms["odefunc_bwd_plain"],
-         "bound_ms": b4, "bound_by": by4,
-         "library_ms": ms["odefunc_bwd_library"]},
+         "ms": dev_ms["odefunc_bwd"], "plain_ms": ms["odefunc_bwd_plain"],
+         **bounds(bwd_flops, bwd_bytes),
+         "library_ms": ms["odefunc_bwd_library"], "stage": fused_stage,
+         "call_ms": ms["odefunc_bwd"], "ms_by_kernel": bwd_split},
         {"name": "conv_probe", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
          "replaces": "probes/conv_probe.py:254",
          "launches": probe_launches, "max_abs_err": err_k5,
-         "ms": ms["conv_tap9"], "plain_ms": ms["conv_plain"],
-         "bound_ms": b5, "bound_by": by5, "library_ms": ms["conv_library"],
-         "strategy_ms": {s_: ms[f"conv_{s_}"] for s_ in STRATEGIES}},
+         "ms": conv_dev_ms["mma3"], "plain_ms": ms["conv_plain"],
+         **bounds(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C)),
+         "library_ms": ms["conv_library"], "stage": "mma3",
+         "call_ms": ms["conv_mma3"], "strategy_ms": conv_dev_ms,
+         "strategy_call_ms": {s_: ms[f"conv_{s_}"] for s_ in STRATEGIES}},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

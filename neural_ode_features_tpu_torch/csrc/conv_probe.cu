@@ -1,6 +1,6 @@
 // The 3x3 conv probe: y = conv3x3_same(x, w) alone, one CTA per sample
-// (sm_90a), under two strategies, so that the conv stage of the fused kernels
-// can be timed and redesigned in isolation.
+// (sm_90a), under four strategies, so that the conv stage of the fused
+// kernels can be timed and redesigned in isolation.
 //
 // Replaces the TPU kernels of probes/conv_probe.py: pallas_conv_2d (kernels
 // from make_roll_kernel) and pallas_conv (make_kernel, make_scratch_kernel).
@@ -11,12 +11,20 @@
 //   input channel, output channel), y (B, H, W, C) f32.  No bias and no time
 //   map: the split ConcatConv adds those outside the contraction.
 //
-//   tap9    nodef::conv3x3 of odefunc_common.cuh on a zero-bordered copy of x
-//           in shared memory: nine shifted taps accumulated in registers, one
-//           output channel x up to 8 pixels per thread.  This is the conv
-//           stage of odefunc.cu, rk_step.cu and odefunc_bwd.cu itself, so its
-//           time is what those kernels pay per conv.  The counterpart of the
-//           TPU strategies seq9, tree9, fori9 and roll9.
+//   mma3    nodef::conv3x3_mma<3> of odefunc_common.cuh on a zero-bordered
+//           copy of x in shared memory: the implicit GEMM over padded-pitch
+//           positions on the tensor cores, mma.sync TF32 with 3xTF32 error
+//           compensation (f32-grade).  This is the conv stage of odefunc.cu,
+//           rk_step.cu and odefunc_bwd.cu itself at 7x7x64 and 6x6x64, so its
+//           time is what those kernels pay per conv.
+//   mma1    the same kernel with the two tail products compiled out: plain
+//           TF32, about three decimal digits.  A reading of what f32-grade
+//           costs; nothing on a path uses it.
+//   tap9    nodef::conv3x3 of odefunc_common.cuh (f32 FFMA): nine shifted
+//           taps accumulated in registers, one output channel x up to 8
+//           pixels per thread.  The fused kernels' stage at every other
+//           shape, and the baseline of the race.  The counterpart of the TPU
+//           strategies seq9, tree9, fori9 and roll9.
 //   im2col  the CTA gathers the (H*W, 9C) patch matrix of its sample into
 //           shared memory once (border entries zero) and computes one
 //           (H*W, 9C) @ (9C, C) product from it, each thread a register tile
@@ -24,12 +32,14 @@
 //           im2colS and rollS.  The TPU kernels build the patch by rolls and
 //           masks because Mosaic cannot reshape 4D tiles; here it is a gather.
 //
-// Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s): at
-// B = 256, 7x7x64 the conv is 2*256*49*576*64 = 0.925 GFLOP, 13.8 us of FFMA,
-// against 6.6 MB moved, 2.0 us.  So it is bound by operations, and what
-// decides a design is how many FFMA it issues per shared-memory load: tap9
-// does 32 per 4 scalar + 8 vector loads, im2col 64 per 8 vector loads.
-// Strict f32 FFMA; both sum over (tap, input channel) in the same order.
+// Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
+// on them, 3.35 TB/s): at B = 256, 7x7x64 the conv is 2*256*49*576*64 =
+// 0.925 GFLOP, 13.8 us of FFMA or 1.9 us of TF32 products, against 6.6 MB
+// moved, 2.0 us.  So tap9 and im2col are bound by operations (what decides
+// them is FFMA per shared-memory load: tap9 does 32 per 4 scalar + 8 vector
+// loads, im2col 64 per 8 vector loads), and on the tensor cores the conv is
+// bound by bytes; mma3 itself forms three products over a 64-row tile (49
+// real), 3.6 GFLOP, 7.3 us at the TF32 peak.
 #include "odefunc_common.cuh"
 
 namespace nodef {
@@ -39,18 +49,32 @@ tap9_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
             float* __restrict__ y) {
   extern __shared__ float4 smem_raw[];
   const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
-  const int n = s.H * s.W * s.C, Wp = s.W + 2;
+  const int n = s.H * s.W * s.C;
   const float* xb = x + (size_t)blockIdx.x * n;
   float* yb = y + (size_t)blockIdx.x * n;
 
   zero_pad(m, s);
   __syncthreads();
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int c = e % s.C, p = e / s.C;
-    m.spad[((p / s.W + 1) * Wp + p % s.W + 1) * s.C + c] = xb[e];
-  }
+  for (int e = threadIdx.x; e < n; e += kThreads) m.spad[pad_index(s, e)] = xb[e];
   __syncthreads();
   conv3x3(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
+}
+
+template <int PASSES>
+__global__ void __launch_bounds__(kThreads, 2)
+mma_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
+           float* __restrict__ y) {
+  extern __shared__ float4 smem_raw[];
+  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
+  const int n = s.H * s.W * s.C;
+  const float* xb = x + (size_t)blockIdx.x * n;
+  float* yb = y + (size_t)blockIdx.x * n;
+
+  zero_pad(m, s);
+  __syncthreads();
+  for (int e = threadIdx.x; e < n; e += kThreads) m.spad[pad_index(s, e)] = xb[e];
+  __syncthreads();
+  conv3x3_mma<PASSES, false>(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
 }
 
 constexpr int kI2cThreads = 256;  // threads per CTA of the im2col kernel
@@ -66,7 +90,7 @@ inline size_t im2col_smem_bytes(int H, int W, int C) {
 }
 
 inline bool im2col_shape_ok(int H, int W, int C) {
-  if (!shape_ok(H, W, C, 1) || kI2cThreads % (C / 4)) return false;
+  if (!layout_ok(ffma_shape(H, W, C, 1)) || kI2cThreads % (C / 4)) return false;
   const int npg = kI2cThreads / (C / 4);
   return (H * W + npg - 1) / npg <= kI2cPix && im2col_smem_bytes(H, W, C) <= kMaxSmem;
 }
@@ -163,12 +187,12 @@ im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
 extern "C" int conv_probe_tap9(const float* x, const float* w, float* y,
                                int B, int H, int W, int C, void* stream) {
   using namespace nodef;
-  if (!shape_ok(H, W, C, 1) || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = odefunc_smem_bytes(H, W, C, 1);
+  const Shape s = ffma_shape(H, W, C, 1);
+  if (!layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = odefunc_smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(
       tap9_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const Shape s{H, W, C, 1};
   tap9_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
   return (int)cudaGetLastError();
 }
@@ -181,7 +205,31 @@ extern "C" int conv_probe_im2col(const float* x, const float* w, float* y,
   cudaError_t err = cudaFuncSetAttribute(
       im2col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const Shape s{H, W, C, 1};
+  const Shape s = ffma_shape(H, W, C, 1);
   im2col_kernel<<<B, kI2cThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
   return (int)cudaGetLastError();
+}
+
+template <int PASSES>
+static int launch_mma(const float* x, const float* w, float* y,
+                      int B, int H, int W, int C, void* stream) {
+  using namespace nodef;
+  const Shape s = make_shape(H, W, C, 1);
+  if (!s.mma || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = odefunc_smem_bytes(s);
+  cudaError_t err = cudaFuncSetAttribute(
+      mma_kernel<PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mma_kernel<PASSES><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int conv_probe_mma3(const float* x, const float* w, float* y,
+                               int B, int H, int W, int C, void* stream) {
+  return launch_mma<3>(x, w, y, B, H, W, C, stream);
+}
+
+extern "C" int conv_probe_mma1(const float* x, const float* w, float* y,
+                               int B, int H, int W, int C, void* stream) {
+  return launch_mma<1>(x, w, y, B, H, W, C, stream);
 }

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel neural_ode_features_tpu/kernels/odefunc_pallas.py
 // (_odefunc_pallas -> _odefunc_kernel).  Wrapper and plain PyTorch version:
 // kernels/odefunc.py.  The per-sample work is odefunc_eval in
-// odefunc_common.cuh.
+// odefunc_common.cuh; at 7x7x64 and 6x6x64 its two convs run on the tensor
+// cores (3xTF32, f32-grade), at other shapes as f32 FFMA.
 #include "odefunc_common.cuh"
 
 namespace nodef {
@@ -33,12 +34,12 @@ extern "C" int odefunc_forward(
     float* out, int B, int H, int W, int C, int G, void* stream) {
   using namespace nodef;
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = odefunc_smem_bytes(H, W, C, G);
+  const Shape s = make_shape(H, W, C, G);
+  const size_t smem = odefunc_smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(
       odefunc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
-  const Shape s{H, W, C, G};
   odefunc_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(t, h, p, s, out);
   return (int)cudaGetLastError();
 }

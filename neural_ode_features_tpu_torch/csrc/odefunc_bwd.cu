@@ -14,9 +14,16 @@
 //
 //   1. bwd_sample_kernel, one CTA per sample (512 threads): recompute the
 //      forward (odefunc_common.cuh helpers: split ConcatConv, centred-variance
-//      GroupNorm), then GN3 backward, conv2 input gradient (a 3x3 conv of the
-//      cotangent with the tap-flipped, transposed weights w2bt), ReLU2 + GN2
-//      backward, conv1 input gradient, ReLU1 + GN1 backward.  Writes dh, the
+//      GroupNorm) and write f = GN3(v) itself, so that an augmented
+//      evaluation of the adjoint needs no launch of odefunc.cu; then GN3
+//      backward, conv2 input gradient (a 3x3 conv of the cotangent with the
+//      tap-flipped, transposed weights), ReLU2 + GN2 backward, conv1 input
+//      gradient, ReLU1 + GN1 backward.  Its four convs are the conv stage of
+//      odefunc_common.cuh: at 7x7x64 and 6x6x64 mma.sync TF32 products with
+//      3xTF32 error compensation (f32-grade); the input-gradient convs read
+//      w1, w2 themselves, taps reversed and transposed in the fragment loads
+//      (conv3x3_mma<3, true>).  Other shapes run the f32 FFMA conv3x3, the
+//      input gradients on the wrapper's w1bt, w2bt.  Writes dh, the
 //      per-sample dt = sum(gv*M2) + sum(gu*M1), the per-sample partial sums
 //      of the GroupNorm scales/biases, conv biases and time-column kernels
 //      (dWt[k] = t * sum of gv over the pixels where tap k is inside the
@@ -29,13 +36,13 @@
 //      per-sample partials, and writes dtheta in the raw layout: conv kernels
 //      (3, 3, C+1, C) with the time channel first, and the eight (C,) vectors.
 //
-// Bound (H100 SXM, 700 W; 67 TFLOP/s f32 outside the tensor cores,
-// 3.35 TB/s): two forward convs, two input-gradient convs and two
-// weight-gradient contractions are six 3x3-conv equivalents,
-// 6 * 2*49*9*64*64 = 21.7 MFLOP per sample, 2.77 GFLOP at B = 128 (about
-// 41 us); the bytes (h, g, dh in and out, the weights) are about 5 MB.  So it
-// is bound by operations.  Strict f32 FFMA throughout: no TF32, no tensor
-// cores.
+// Bound (H100 SXM, 700 W; 3.35 TB/s): two forward convs, two input-gradient
+// convs and two weight-gradient contractions are six 3x3-conv equivalents,
+// 6 * 2*49*9*64*64 = 21.7 MFLOP per sample, 2.77 GFLOP at B = 128.  On the
+// CUDA cores (67 TFLOP/s f32) that is about 41 us; on the tensor cores
+// (495 TFLOP/s TF32, the operations counted once) 5.6 us, against 1.9 us for
+// the 6.4 MB of h, g, f, dh and the weights: bound by operations either way.
+// The weight-gradient contraction (bwd_weight_kernel) is still f32 FFMA.
 #include "odefunc_common.cuh"
 
 namespace nodef {
@@ -48,22 +55,18 @@ constexpr int kSplit = 8;        // row chunks per (conv, tap)
 
 // Shared memory of bwd_sample_kernel: the forward's layout (carve), then
 //   su    [H*W*C]   conv1 output u (GN2's input)
-//   sred2 [kThreads] a second per-(pixel group, channel) partial sum
 //   st    [6*G]     mean/inv of GN1, GN2, GN3
 //   chan  [4*C]     per-channel sums and group means
+// (the second partial-sum buffer is the second half of the forward's sred).
 // kernels/odefunc_bwd.py (bwd_smem_bytes) mirrors this formula.
-inline size_t bwd_smem_bytes(int H, int W, int C, int G) {
-  return odefunc_smem_bytes(H, W, C, G) +
-         sizeof(float) * ((size_t)H * W * C + kThreads + 6 * (size_t)G + 4 * (size_t)C);
+inline size_t bwd_smem_bytes(const Shape& s) {
+  return odefunc_smem_bytes(s) +
+         sizeof(float) * ((size_t)s.H * s.W * s.C + 6 * (size_t)s.G + 4 * (size_t)s.C);
 }
 
 inline bool bwd_shape_ok(int H, int W, int C, int G) {
-  return shape_ok(H, W, C, G) && C % kTile == 0 && bwd_smem_bytes(H, W, C, G) <= kMaxSmem;
-}
-
-__device__ __forceinline__ int pad_index(const Shape& s, int e) {
-  const int c = e % s.C, q = e / s.C;
-  return ((q / s.W + 1) * (s.W + 2) + q % s.W + 1) * s.C + c;
+  return shape_ok(H, W, C, G) && C % kTile == 0 &&
+         bwd_smem_bytes(make_shape(H, W, C, G)) <= kMaxSmem;
 }
 
 // GroupNorm backward for one sample.  x: the GN input, mean/inv: its
@@ -76,8 +79,8 @@ __device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shap
                             const float* x, const float* mean, const float* inv,
                             const float* __restrict__ scale, Dy dyf,
                             float* dscale, float* dbias, Out out) {
-  const int tid = threadIdx.x, C = s.C, c = tid % C, pg = tid / C;
-  const int npg = kThreads / C, hw = s.H * s.W, gs = C / s.G;
+  const int tid = threadIdx.x, C = s.C, c = tid & (C - 1), pg = tid >> s.lc;
+  const int npg = kThreads >> s.lc, hw = s.H * s.W, gs = 1 << s.lgs;
   float a1 = 0.f, a2 = 0.f;
   for (int p = pg; p < hw; p += npg) {
     const int e = p * C + c;
@@ -113,10 +116,12 @@ __device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shap
   }
   __syncthreads();
   const int n = hw * C;
+  // Every e = tid + j * kThreads lies in the thread's channel c.
+  const int g = c >> s.lgs;
+  const float sc = scale[c], ig = inv[g], m1 = chan[2 * C + g], m2 = chan[3 * C + g];
   for (int e = tid; e < n; e += kThreads) {
-    const int cc = e % C, g = cc / gs;
     const float xh = gn_hat(s, x, mean, inv, e);
-    out(e, inv[g] * (dyf(e) * scale[cc] - chan[2 * C + g] - xh * chan[3 * C + g]));
+    out(e, ig * (dyf(e) * sc - m1 - xh * m2));
   }
 }
 
@@ -128,8 +133,8 @@ __device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shap
 __device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, const Shape& s,
                                   const float* __restrict__ tmap, float t, float* db,
                                   float* dwt) {
-  const int tid = threadIdx.x, C = s.C, c = tid % C, pg = tid / C;
-  const int npg = kThreads / C, hw = s.H * s.W, Wp = s.W + 2;
+  const int tid = threadIdx.x, C = s.C, c = tid & (C - 1), pg = tid >> s.lc;
+  const int npg = kThreads >> s.lc, hw = s.H * s.W, Wp = s.W + 2;
   float a1 = 0.f, a2 = 0.f;
   for (int p = pg; p < hw; p += npg) {
     const float v = m.spad[pad_index(s, p * C + c)];
@@ -139,12 +144,12 @@ __device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, cons
   m.sred[tid] = a1;
   sred2[tid] = a2;
   for (int e = tid; e < 9 * C; e += kThreads) {
-    const int k = e / C, cc = e % C, ky = k / 3, kx = k % 3;
+    const int k = e >> s.lc, cc = e & (C - 1), ky = k / 3, kx = k % 3;
     const int y0 = max(0, 1 - ky), y1 = min(s.H, s.H + 1 - ky);
     const int x0 = max(0, 1 - kx), x1 = min(s.W, s.W + 1 - kx);
     float acc = 0.f;
     for (int y = y0; y < y1; ++y)
-      for (int x = x0; x < x1; ++x) acc += m.spad[((y + 1) * Wp + x + 1) * C + cc];
+      for (int x = x0; x < x1; ++x) acc += m.spad[((y + 1) * Wp + x + 1) * s.P + cc];
     dwt[e] = t * acc;
   }
   __syncthreads();
@@ -171,16 +176,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
                   const float* __restrict__ g, Odefunc p,
                   const float* __restrict__ w1bt, const float* __restrict__ w2bt, Shape s,
-                  float* __restrict__ dh, float* __restrict__ dt,
-                  float* __restrict__ r1, float* __restrict__ r2,
+                  float* __restrict__ fout, float* __restrict__ dh,
+                  float* __restrict__ dt, float* __restrict__ r1, float* __restrict__ r2,
                   float* __restrict__ gu, float* __restrict__ gv,
                   float* __restrict__ part) {
   extern __shared__ float4 smem_raw[];
   const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
   const int C = s.C, G = s.G, n = s.H * s.W * C, tid = threadIdx.x;
   float* su = m.sinv + G;
-  float* sred2 = su + n;
-  float* st = sred2 + kThreads;
+  float* sred2 = m.sred + kThreads;
+  float* st = su + n;
   float* chan = st + 6 * G;
   const size_t off = (size_t)blockIdx.x * n;
   const float tb = t[blockIdx.x];
@@ -191,28 +196,31 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   float *mean3 = st + 4 * G, *inv3 = st + 5 * G;
 
   // Forward recompute: r1 = relu(GN1(h)), u = conv1(r1), r2 = relu(GN2(u)),
-  // v = conv2(r2) in sx.
+  // v = conv2(r2) in sx, f = GN3(v).
   zero_pad(m, s);
   for (int e = tid; e < n; e += kThreads) m.sx[e] = hb[e];
   __syncthreads();
-  gn_stats(m, s, m.sx, mean1, inv1);
-  gn_relu_to_pad(m, s, m.sx, mean1, inv1, p.n1s, p.n1b);
+  Stat stat = gn_stats(m, s, m.sx, mean1, inv1);
+  gn_relu_to_pad(m, s, m.sx, stat, p.n1s, p.n1b);
   __syncthreads();
   for (int e = tid; e < n; e += kThreads) r1[off + e] = m.spad[pad_index(s, e)];
-  {
-    const float b = p.b1[tid % C];
-    conv3x3(m, s, p.w1, [&](int q, int co, float acc) {
-      su[q * C + co] = (acc + b) + tb * p.m1[q * C + co];
-    });
-  }
+  conv_stage(m, s, p.w1, [&](int q, int co, float acc) {
+    su[q * C + co] = (acc + p.b1[co]) + tb * p.m1[q * C + co];
+  });
   __syncthreads();
-  gn_stats(m, s, su, mean2, inv2);
-  gn_relu_to_pad(m, s, su, mean2, inv2, p.n2s, p.n2b);
+  stat = gn_stats(m, s, su, mean2, inv2);
+  gn_relu_to_pad(m, s, su, stat, p.n2s, p.n2b);
   __syncthreads();
   for (int e = tid; e < n; e += kThreads) r2[off + e] = m.spad[pad_index(s, e)];
   conv3x3_to_sx(m, s, p.w2, p.b2, p.m2, tb);
   __syncthreads();
-  gn_stats(m, s, m.sx, mean3, inv3);
+  stat = gn_stats(m, s, m.sx, mean3, inv3);
+  {
+    const float sc = p.n3s[tid & (C - 1)], bi = p.n3b[tid & (C - 1)];
+    for (int e = tid; e < n; e += kThreads)
+      fout[off + e] = (m.sx[e] - stat.mean) * stat.inv * sc + bi;
+  }
+  __syncthreads();  // mean3, inv3 visible
 
   // GN3: gv = dL/dv into gv and the spad interior (the border stays zero).
   gn_backward(m, sred2, chan, s, m.sx, mean3, inv3, p.n3s,
@@ -222,13 +230,17 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   float dt_acc = conv_param_grads(m, sred2, chan, s, p.m2, tb, pb + 7 * C, pb + 17 * C);
 
   // conv2 input gradient: sx = conv3x3(pad(gv), w2bt).
-  conv3x3(m, s, w2bt, [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; });
+  {
+    auto to_sx = [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; };
+    if (s.mma) conv3x3_mma<3, true>(m, s, p.w2, to_sx);
+    else conv3x3(m, s, w2bt, to_sx);
+  }
   __syncthreads();
 
   // ReLU2 + GN2: gu = dL/du.
   gn_backward(m, sred2, chan, s, su, mean2, inv2, p.n2s,
               [&](int e) {
-                const int c = e % C;
+                const int c = e & (C - 1);
                 const float y = gn_hat(s, su, mean2, inv2, e) * p.n2s[c] + p.n2b[c];
                 return y > 0.f ? m.sx[e] : 0.f;
               },
@@ -238,13 +250,17 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   dt_acc += conv_param_grads(m, sred2, chan, s, p.m1, tb, pb + 6 * C, pb + 8 * C);
 
   // conv1 input gradient: sx = conv3x3(pad(gu), w1bt).
-  conv3x3(m, s, w1bt, [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; });
+  {
+    auto to_sx = [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; };
+    if (s.mma) conv3x3_mma<3, true>(m, s, p.w1, to_sx);
+    else conv3x3(m, s, w1bt, to_sx);
+  }
   __syncthreads();
 
   // ReLU1 + GN1: dh.
   gn_backward(m, sred2, chan, s, hb, mean1, inv1, p.n1s,
               [&](int e) {
-                const int c = e % C;
+                const int c = e & (C - 1);
                 const float y = gn_hat(s, hb, mean1, inv1, e) * p.n1s[c] + p.n1b[c];
                 return y > 0.f ? m.sx[e] : 0.f;
               },
@@ -342,26 +358,29 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
 }  // namespace nodef
 
 // Scratch, allocated by the wrapper: r1, r2, gu, gv (B, H*W*C) each, part
-// (B, 26, C), wpart (8, 2, 9, C, C).
+// (B, 26, C), wpart (8, 2, 9, C, C).  w1bt, w2bt (the tap-flipped,
+// transposed kernels) are read only by the FFMA stage and may be null where
+// make_shape picks the tensor-core stage.
 extern "C" int odefunc_backward(
     const float* t, const float* h, const float* g,
     const float* n1s, const float* n1b, const float* w1, const float* b1, const float* m1,
     const float* n2s, const float* n2b, const float* w2, const float* b2, const float* m2,
     const float* n3s, const float* n3b, const float* w1bt, const float* w2bt,
-    float* dh, float* dt, float* r1, float* r2, float* gu, float* gv, float* part,
+    float* f, float* dh, float* dt, float* r1, float* r2, float* gu, float* gv, float* part,
     float* wpart, float* dk1, float* dk2, float* dvec,
     int B, int H, int W, int C, int G, void* stream) {
   using namespace nodef;
   if (!bwd_shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(H, W, C, G);
+  const Shape s = make_shape(H, W, C, G);
+  if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(
       bwd_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
-  const Shape s{H, W, C, G};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bwd_sample_kernel<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, dh, dt, r1, r2,
-                                               gu, gv, part);
+  bwd_sample_kernel<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, f, dh, dt, r1,
+                                               r2, gu, gv, part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 wgrid(2 * 9 * kSplit, C / kTile, C / kTile);
   bwd_weight_kernel<<<wgrid, kRedThreads, 0, st>>>(r1, r2, gu, gv, s, B, wpart);

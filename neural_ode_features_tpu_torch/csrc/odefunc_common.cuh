@@ -4,9 +4,10 @@
 //        -> [conv3x3(h, W2) + b2 + t*M2] -> GN
 //
 // Shared by csrc/odefunc.cu (one f per launch), csrc/rk_step.cu (six f
-// per launch inside one dopri5 attempt) and csrc/odefunc_bwd.cu (the forward
-// recompute, and the input-gradient convs through conv3x3).  ConcatConv uses the split form of
-// ops/layers.py: the time channel contributes t*M, with the border-aware map
+// per launch inside one dopri5 attempt), csrc/odefunc_bwd.cu (the forward
+// recompute and the input-gradient convs) and csrc/conv_probe.cu (the conv
+// stages alone).  ConcatConv uses the split form of ops/layers.py: the time
+// channel contributes t*M, with the border-aware map
 // M = conv(ones, W[:, :, :1, :]) precomputed in strict f32 by the wrapper,
 // so the contraction here is a clean C -> C 3x3 conv.
 //
@@ -14,29 +15,57 @@
 // the same order as the port's public (B, H*W*C) solver state, so the
 // kernels read and write the solver's tensors directly.
 //
-// Arithmetic: strict f32 on the CUDA cores (FFMA); no TF32, bf16 or tensor
-// cores.  GroupNorm uses the centred variance, as the JAX package does.
+// The conv has two stages; which one a kernel runs is decided from the shape
+// alone (make_shape, mirrored by kernels/odefunc.py `stage`):
 //
-// Work split inside the CTA (kThreads threads, C | kThreads):
-//   * conv: thread -> (output channel co = tid % C, pixel group pg = tid / C);
-//     a thread accumulates its channel at pixels pg, pg + NPG, ... (at most
-//     kMaxPix of them) in registers.  Each conv tap's (C, C) weight slice is
-//     staged into shared memory by cp.async, double-buffered across taps, so
-//     every CTA reads each weight once per conv from L2.  Inputs are read
-//     as float4 over 4 input channels; all lanes of a warp share the pixel,
-//     so these are broadcasts.
-//   * GroupNorm: per-(pixel group, channel) partial sums in shared memory,
-//     then one thread per group.
+//   * conv3x3_mma (C == 64 and H*(W+2) <= 64: 7x7x64, 6x6x64): an implicit
+//     GEMM on the tensor cores, mma.sync.m16n8k8 TF32 with f32 accumulation
+//     and "3xTF32" error compensation.  Every f32 operand x is split in
+//     registers into a TF32 head hi = rna(x) (round to nearest, ties away)
+//     and a tail lo = x - hi, of which the tensor core reads the TF32 part;
+//     each operand pair contributes a_lo*b_hi, a_hi*b_lo and then a_hi*b_hi
+//     to the f32 accumulator, so a product carries an error near 2^-21
+//     (f32-grade) in place of TF32's 2^-11.  M runs over the
+//     padded-pitch positions q = y*(W+2) + x of one sample (the two border
+//     columns of each row are computed and dropped), so the A rows of tap
+//     (ky, kx) are the rows q + ky*(W+2) + kx of the zero-bordered spad:
+//     one uniform row stride and no gather.  N = C, K = 9*C tap by tap.  The
+//     16 warps tile the 64x64 output as 2 (M) x 4 (N) warps of 32x16, times
+//     2 halves of every tap's input channels; the two halves' partial sums
+//     are added through shared memory, first half + second half.  Within a k8
+//     step a thread's two k columns are (2t, 2t+1), not (t, t+4) (A and B
+//     agree, and a sum over k has no order), which makes each A fragment row
+//     one 8-byte load.  spad rows are C + 8 floats apart and weight rows 68
+//     or 72, so that no fragment load has a bank conflict.  The f32 weights
+//     of a tap are staged by cp.async through a ring of three buffers, two
+//     taps ahead of the products; they are never split in global memory.
+//   * conv3x3 (every other supported shape, and the probe's tap9 baseline):
+//     strict f32 FFMA on the CUDA cores, thread -> (output channel
+//     co = tid % C, pixel group pg = tid / C), at most kMaxPix pixels per
+//     thread, each tap's (C, C) weights double-buffered by cp.async.
+//
+// GroupNorm uses the centred variance, as the JAX package does: per-(pixel
+// group, channel) partial sums in shared memory, then every thread adds up
+// its own group's partials (in the order pixel group, then channel) and
+// keeps the statistics of its channel's group in registers.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace nodef {
 
 constexpr int kThreads = 512;  // threads per CTA, one CTA per sample
-constexpr int kMaxPix = 8;     // conv output pixels per thread
+constexpr int kMaxPix = 8;     // FFMA conv: output pixels per thread
 constexpr float kEps = 1e-5f;  // GroupNorm epsilon
+
+constexpr int kMmaC = 64;      // channels the tensor-core stage takes
+constexpr int kMmaM = 64;      // padded-pitch positions of its M tile
+constexpr int kPadA = 8;       // floats added to spad's row pitch
+constexpr int kPitchB = 68;    // weight row pitch, tap stored (ci, co)
+constexpr int kPitchBT = 72;   // weight row pitch, tap stored (co, ci)
+constexpr int kRing = 3;       // weight buffers in flight
 
 // Parameters of the ODEfunc, device pointers, all f32 and contiguous.
 struct Odefunc {
@@ -49,18 +78,68 @@ struct Odefunc {
   const float* n3s; const float* n3b;
 };
 
-struct Shape { int H, W, C, G; };
+// P: spad's row pitch in floats, R: its rows, mma: the conv stage.  C and G
+// are powers of two (C divides kThreads, G divides C): lc = log2 C,
+// lgs = log2 (C / G).  wmagic, pmagic: ceil(2^32 / W) and ceil(2^32 / (W+2)),
+// which turn the per-element divisions by the map's width into a multiply
+// (div_magic), exact for numerators below 2^16.
+struct Shape {
+  int H, W, C, G, P, R, mma;
+  int lc, lgs;
+  unsigned wmagic, pmagic;
+};
+
+inline int log2_floor(int v) {
+  int l = 0;
+  while ((2 << l) <= v) ++l;
+  return l;
+}
+
+inline unsigned magic_of(int d) {  // d == 1 has no 32-bit magic: see div_magic
+  return d > 1 ? (unsigned)(((1ull << 32) + d - 1) / d) : 0u;
+}
+
+// The shapes the tensor-core stage takes; kernels/odefunc.py (stage) is the
+// same gate in Python.
+inline bool mma_ok(int H, int W, int C) {
+  return C == kMmaC && H >= 1 && W >= 1 && H * (W + 2) <= kMmaM;
+}
+
+// spad of the tensor-core stage has slack rows at its end: the last M-tile
+// rows read up to row kMmaM - 1 + 2*(W+2) + 2.
+inline Shape ffma_shape(int H, int W, int C, int G) {
+  const int gs = G > 0 && C >= G ? C / G : 1;
+  return Shape{H, W, C, G, C, (H + 2) * (W + 2), 0, log2_floor(C > 0 ? C : 1),
+               log2_floor(gs), magic_of(W), magic_of(W + 2)};
+}
+
+inline Shape make_shape(int H, int W, int C, int G) {
+  Shape s = ffma_shape(H, W, C, G);
+  if (mma_ok(H, W, C)) {
+    s.P = C + kPadA;
+    s.R = kMmaM + 2 * (W + 2) + 2;
+    s.mma = 1;
+  }
+  return s;
+}
+
+// Floats of the weight buffers: the ring of the tensor-core stage (which
+// also holds the 64x64 partial sums of the second k half), or the FFMA
+// stage's double buffer.
+inline size_t weight_floats(const Shape& s) {
+  return s.mma ? (size_t)kRing * kMmaC * kPitchBT : 2 * (size_t)s.C * s.C;
+}
 
 // Dynamic shared memory, in floats, in this order:
-//   sx    [H*W*C]            pre-norm state of the sample
-//   spad  [(H+2)*(W+2)*C]    relu(GN(.)) with a zero border: the conv input
-//   sw    [2*C*C]            one conv tap's weights, double-buffered
-//   sred  [kThreads]         per-(pixel group, channel) partial sums
-//   smean [G], sinv [G]      group statistics
+//   sx    [H*W*C]       pre-norm state of the sample
+//   spad  [R*P]         relu(GN(.)) with a zero border: the conv input
+//   sw    [weight_floats]
+//   sred  [2*kThreads]  per-(pixel group, channel) partial sums, two buffers
+//   smean [G], sinv [G] group statistics
 // kernels/odefunc.py (smem_bytes) mirrors this formula for the gate.
-inline size_t odefunc_smem_bytes(int H, int W, int C, int G) {
-  return sizeof(float) * ((size_t)H * W * C + (size_t)(H + 2) * (W + 2) * C +
-                          2 * (size_t)C * C + kThreads + 2 * (size_t)G);
+inline size_t odefunc_smem_bytes(const Shape& s) {
+  return sizeof(float) * ((size_t)s.H * s.W * s.C + (size_t)s.R * s.P +
+                          weight_floats(s) + 2 * kThreads + 2 * (size_t)s.G);
 }
 
 // The largest dynamic shared memory one CTA may use on sm_90 (227 KB), less
@@ -68,12 +147,18 @@ inline size_t odefunc_smem_bytes(int H, int W, int C, int G) {
 constexpr size_t kMaxSmem = 232448 - 1024;
 
 // The shapes the kernels take; kernels/odefunc.py (supported) is the same
-// gate in Python.
-inline bool shape_ok(int H, int W, int C, int G) {
-  if (H < 1 || W < 1 || C < 4 || G < 1 || C % 4 || kThreads % C || C % G) return false;
-  const int npg = kThreads / C;
-  return (H * W + npg - 1) / npg <= kMaxPix && odefunc_smem_bytes(H, W, C, G) <= kMaxSmem;
+// gate in Python.  layout_ok: a shape under a given layout (make_shape's, or
+// ffma_shape's for the probe's FFMA baseline).
+inline bool layout_ok(const Shape& s) {
+  if (s.H < 1 || s.W < 1 || s.C < 4 || s.G < 1 || s.C % 4 || kThreads % s.C || s.C % s.G)
+    return false;
+  if (odefunc_smem_bytes(s) > kMaxSmem) return false;
+  if (s.mma) return true;
+  const int npg = kThreads / s.C;
+  return (s.H * s.W + npg - 1) / npg <= kMaxPix;
 }
+
+inline bool shape_ok(int H, int W, int C, int G) { return layout_ok(make_shape(H, W, C, G)); }
 
 struct Smem { float* sx; float* spad; float* sw; float* sred; float* smean; float* sinv; };
 
@@ -81,9 +166,9 @@ __device__ __forceinline__ Smem carve(float* base, const Shape& s) {
   Smem m;
   m.sx = base;
   m.spad = m.sx + s.H * s.W * s.C;
-  m.sw = m.spad + (s.H + 2) * (s.W + 2) * s.C;
-  m.sred = m.sw + 2 * s.C * s.C;
-  m.smean = m.sred + kThreads;
+  m.sw = m.spad + s.R * s.P;
+  m.sred = m.sw + (s.mma ? kRing * kMmaC * kPitchBT : 2 * s.C * s.C);
+  m.smean = m.sred + 2 * kThreads;
   m.sinv = m.smean + s.G;
   return m;
 }
@@ -98,80 +183,94 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 // Zero the padded conv input once per launch; only its interior is written
-// afterwards, so the border stays zero (SAME padding).
+// afterwards, so the border (and the slack rows) stay zero (SAME padding).
 __device__ __forceinline__ void zero_pad(const Smem& m, const Shape& s) {
-  const int n = (s.H + 2) * (s.W + 2) * s.C;
+  const int n = s.R * s.P;
   for (int i = threadIdx.x; i < n; i += kThreads) m.spad[i] = 0.f;
 }
 
-// Group mean and 1/sqrt(var + eps) of x (H*W*C, NHWC) into mean/inv
-// (centred variance).  Starts reading x (the caller has synchronised) and
-// ends synchronised.
-__device__ void gn_stats(const Smem& m, const Shape& s, const float* x,
+// q / d for 0 <= q < 2^16, with magic = ceil(2^32 / d) (0 for d == 1).
+__device__ __forceinline__ int div_magic(int q, unsigned magic) {
+  return magic ? (int)__umulhi((unsigned)q, magic) : q;
+}
+
+// Index in spad of the state element e = (y*W + x)*C + c.
+__device__ __forceinline__ int pad_index(const Shape& s, int e) {
+  const int c = e & (s.C - 1), q = e >> s.lc, y = div_magic(q, s.wmagic);
+  return ((y + 1) * (s.W + 2) + q - y * s.W + 1) * s.P + c;
+}
+
+// Mean and 1/sqrt(var + eps) of one GroupNorm group.
+struct Stat { float mean, inv; };
+
+// Group statistics of x (H*W*C, NHWC), centred variance.  Returns those of
+// the group of the thread's channel tid % C (every element e = tid + j *
+// kThreads and e = p*C + tid % C of a thread lies in that channel), and
+// writes all groups' to mean/inv.  Starts reading x (the caller has
+// synchronised); the caller synchronises before anyone reads mean/inv.
+// Sums: per (pixel group, channel) over its pixels, then over pixel groups
+// and the group's channels, in that order.
+__device__ Stat gn_stats(const Smem& m, const Shape& s, const float* x,
                          float* mean, float* inv) {
-  const int tid = threadIdx.x, C = s.C, c = tid % C, pg = tid / C;
-  const int npg = kThreads / C, hw = s.H * s.W, gs = C / s.G;
+  const int tid = threadIdx.x, C = s.C, c = tid & (C - 1), pg = tid >> s.lc;
+  const int npg = kThreads >> s.lc, hw = s.H * s.W, gs = 1 << s.lgs, g0 = (c >> s.lgs) << s.lgs;
   const float n = (float)(hw * gs);
+  float* red2 = m.sred + kThreads;
 
   float acc = 0.f;
   for (int p = pg; p < hw; p += npg) acc += x[p * C + c];
   m.sred[tid] = acc;  // tid == pg * C + c
   __syncthreads();
-  if (tid < s.G) {
-    float tot = 0.f;
-    for (int q = 0; q < npg; ++q)
-      for (int j = 0; j < gs; ++j) tot += m.sred[q * C + tid * gs + j];
-    mean[tid] = tot / n;
-  }
-  __syncthreads();
+  float tot = 0.f;
+  for (int q = 0; q < npg; ++q)
+    for (int j = 0; j < gs; ++j) tot += m.sred[q * C + g0 + j];
+  Stat st;
+  st.mean = tot / n;
 
-  const float mu = mean[c / gs];
   acc = 0.f;
   for (int p = pg; p < hw; p += npg) {
-    const float d = x[p * C + c] - mu;
+    const float d = x[p * C + c] - st.mean;
     acc = fmaf(d, d, acc);
   }
-  m.sred[tid] = acc;
+  red2[tid] = acc;
   __syncthreads();
-  if (tid < s.G) {
-    float tot = 0.f;
-    for (int q = 0; q < npg; ++q)
-      for (int j = 0; j < gs; ++j) tot += m.sred[q * C + tid * gs + j];
-    inv[tid] = 1.0f / sqrtf(tot / n + kEps);
+  tot = 0.f;
+  for (int q = 0; q < npg; ++q)
+    for (int j = 0; j < gs; ++j) tot += red2[q * C + g0 + j];
+  st.inv = 1.0f / sqrtf(tot / n + kEps);
+  if (pg == 0 && c == g0) {
+    mean[c >> s.lgs] = st.mean;
+    inv[c >> s.lgs] = st.inv;
   }
-  __syncthreads();
+  return st;
 }
 
 // Normalised value x-hat at element e of x, from gn_stats' mean/inv.
 __device__ __forceinline__ float gn_hat(const Shape& s, const float* x,
                                         const float* mean, const float* inv, int e) {
-  const int g = (e % s.C) / (s.C / s.G);
+  const int g = (e & (s.C - 1)) >> s.lgs;
   return (x[e] - mean[g]) * inv[g];
 }
 
-// GroupNorm output at element e of sx (after gn_stats into smean/sinv).
-__device__ __forceinline__ float gn_value(const Smem& m, const Shape& s,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ bias, int e) {
-  const int c = e % s.C;
-  return gn_hat(s, m.sx, m.smean, m.sinv, e) * scale[c] + bias[c];
-}
-
-// spad interior = relu(GN(x)) with x's statistics in mean/inv.  NaN passes
-// through, as in torch.relu.
-__device__ void gn_relu_to_pad(const Smem& m, const Shape& s, const float* x,
-                               const float* mean, const float* inv,
+// spad interior = relu(GN(x)) with st the statistics of the thread's
+// channel.  NaN passes through, as in torch.relu.
+__device__ void gn_relu_to_pad(const Smem& m, const Shape& s, const float* x, Stat st,
                                const float* __restrict__ scale,
                                const float* __restrict__ bias) {
-  const int n = s.H * s.W * s.C, Wp = s.W + 2;
+  const int n = s.H * s.W * s.C, c = threadIdx.x & (s.C - 1);
+  const float sc = scale[c], bi = bias[c];
   for (int e = threadIdx.x; e < n; e += kThreads) {
-    const int c = e % s.C, p = e / s.C, y = p / s.W, xx = p % s.W;
-    const float v = gn_hat(s, x, mean, inv, e) * scale[c] + bias[c];
-    m.spad[((y + 1) * Wp + xx + 1) * s.C + c] = v < 0.f ? 0.f : v;
+    const float v = (x[e] - st.mean) * st.inv * sc + bi;
+    m.spad[pad_index(s, e)] = v < 0.f ? 0.f : v;
   }
 }
+
+// ---- FFMA stage -----------------------------------------------------------
 
 __device__ __forceinline__ void load_tap(float* dst, const float* __restrict__ src, int cc) {
   for (int i = threadIdx.x * 4; i < cc; i += kThreads * 4) cp_async16(dst + i, src + i);
@@ -194,7 +293,7 @@ __device__ void conv3x3(const Smem& m, const Shape& s, const float* __restrict__
   for (int k = 0; k < kMaxPix; ++k) {
     int p = pg + k * npg;
     if (p >= hw) p = 0;  // idle slot: computes pixel 0, result dropped
-    base[k] = ((p / s.W) * Wp + p % s.W) * C;
+    base[k] = ((p / s.W) * Wp + p % s.W) * s.P;
     acc[k] = 0.f;
   }
 
@@ -204,7 +303,7 @@ __device__ void conv3x3(const Smem& m, const Shape& s, const float* __restrict__
     __syncthreads();  // tap's weights visible; previous tap's buffer free
     if (tap < 8) load_tap(m.sw + ((tap + 1) & 1) * cc, w + (size_t)(tap + 1) * cc, cc);
     const float* wt = m.sw + (tap & 1) * cc + co;
-    const float* in = m.spad + ((tap / 3) * Wp + tap % 3) * C;
+    const float* in = m.spad + ((tap / 3) * Wp + tap % 3) * s.P;
     for (int ci = 0; ci < C; ci += 4) {
       const float w0 = wt[(ci + 0) * C], w1 = wt[(ci + 1) * C];
       const float w2 = wt[(ci + 2) * C], w3 = wt[(ci + 3) * C];
@@ -228,15 +327,223 @@ __device__ void conv3x3(const Smem& m, const Shape& s, const float* __restrict__
   }
 }
 
+// ---- tensor-core stage ----------------------------------------------------
+
+// TF32 head of x: round to nearest, ties away from zero, the low 13 mantissa
+// bits zero.  The bits of cvt.rna.tf32.f32 for every finite x below the
+// overflow threshold, in two integer operations (the conversion instruction
+// runs at a fraction of their rate, and the split is what this stage
+// spends most of its instructions on).  Inf becomes NaN: both poison a state.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo exactly in f32; the tensor core reads the TF32 part of lo (it
+// ignores the low 13 mantissa bits), so the pair stands for x to within
+// 2^-21 |x|.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b: the same product onto a zero accumulator.
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const float* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float2 lds2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// Stage one tap's (64, 64) f32 weights, rows 64 floats apart in global
+// memory, into a buffer with rows `pitch` floats apart.
+__device__ __forceinline__ void load_tap_mma(float* dst, const float* __restrict__ src,
+                                             int pitch) {
+  for (int i = threadIdx.x; i < kMmaC * kMmaC / 4; i += kThreads)
+    cp_async16(dst + (i >> 4) * pitch + (i & 15) * 4, src + i * 4);
+  cp_async_commit();
+}
+
+// 3x3 SAME conv of spad on the tensor cores (see the head of this file),
+// with the contract of conv3x3: epi(p, co, sum) once per output pixel p and
+// channel co; the caller synchronises before and after.  PASSES = 3: 3xTF32,
+// f32-grade; PASSES = 1: the head product alone (plain TF32; a timing and
+// accuracy reading of the probe, on no path).  BT = false: w is (9, ci, co),
+// tap order as stored.  BT = true: the taps are read in reverse order and
+// each as (co, ci), i.e. the conv with the tap-flipped, transposed kernel
+// (the input gradient of the conv with w).
+//
+// Order of the sums: the tensor core adds one tap's products (its half of
+// the input channels, tail products first within a k8 step) onto a zero
+// accumulator; that tap sum is added to the running sum by an f32 add on the
+// CUDA cores, taps in order; last, first half + second half.  The tensor
+// core's own accumulation truncates, so a chain over all nine taps would
+// carry a bias of a few 1e-6 of the sum; a chain of one tap does not.
+template <int PASSES, bool BT, class Epi>
+__device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restrict__ w,
+                            Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp >> 3, wm = (warp >> 2) & 1, wn = warp & 3;
+  const int Wp = s.W + 2, P = s.P;
+  constexpr int pitch = BT ? kPitchBT : kPitchB, stage = kMmaC * kPitchBT;
+  auto tap_src = [&](int tap) { return w + (size_t)(BT ? 8 - tap : tap) * kMmaC * kMmaC; };
+  // Byte addresses in shared memory of this thread's first A element (row g
+  // of the warp's first m16 tile at tap (0, 0), k column 32*kg + 2t) and of
+  // its first B element in buffer 0.
+  const uint32_t a_thread = smem_addr(m.spad + (32 * wm + g) * P + 32 * kg + 2 * t);
+  const uint32_t b_thread = smem_addr(
+      BT ? m.sw + (16 * wn + g) * pitch + 32 * kg + 2 * t
+         : m.sw + (32 * kg + 2 * t) * pitch + 16 * wn + g);
+
+  float run[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) run[i][j][r] = 0.f;
+
+  load_tap_mma(m.sw, tap_src(0), pitch);
+  load_tap_mma(m.sw + stage, tap_src(1), pitch);
+  for (int tap = 0; tap < 9; ++tap) {
+    if (tap < 8) cp_async_wait_but_one(); else cp_async_wait_all();
+    __syncthreads();  // tap's weights visible; the buffer of tap - 1 is free
+    if (tap + 2 < 9) load_tap_mma(m.sw + ((tap + 2) % kRing) * stage, tap_src(tap + 2), pitch);
+    const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P);
+    const uint32_t b_tap = b_thread + 4u * ((tap % kRing) * stage);
+    float acc[2][2][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t bhi[2][2], blo[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float bv[2];
+        if (BT) {
+          const float2 v = lds2(b_tap + 4u * ((8 * j) * pitch + 8 * ks));
+          bv[0] = v.x;
+          bv[1] = v.y;
+        } else {
+          bv[0] = lds(b_tap + 4u * ((8 * ks) * pitch + 8 * j));
+          bv[1] = lds(b_tap + 4u * ((8 * ks + 1) * pitch + 8 * j));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (PASSES == 3) tf32_split(bv[r], bhi[j][r], blo[j][r]);
+          else bhi[j][r] = tf32_rna(bv[r]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // Rows g and g + 8 of the m16 tile, k columns 2t and 2t + 1.
+        const float2 r0 = lds2(a_tap + 4u * ((16 * i) * P + 8 * ks));
+        const float2 r1 = lds2(a_tap + 4u * ((16 * i + 8) * P + 8 * ks));
+        const float av[4] = {r0.x, r1.x, r0.y, r1.y};
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (PASSES == 3) tf32_split(av[r], ahi[r], alo[r]);
+          else ahi[r] = tf32_rna(av[r]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (PASSES == 3) {
+            if (ks == 0) mma_tf32_zero(acc[i][j], alo, bhi[j]);
+            else mma_tf32(acc[i][j], alo, bhi[j]);
+            mma_tf32(acc[i][j], ahi, blo[j]);
+            mma_tf32(acc[i][j], ahi, bhi[j]);
+          } else {
+            if (ks == 0) mma_tf32_zero(acc[i][j], ahi, bhi[j]);
+            else mma_tf32(acc[i][j], ahi, bhi[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) run[i][j][r] += acc[i][j][r];
+  }
+
+  // Add the two k halves: the second half's warps park their sums in the
+  // weight ring, in fragment order; the first half's add them and finish.
+  __syncthreads();  // every warp is done with the ring
+  float* red = m.sw + ((warp & 7) * 32 + lane);
+  if (kg == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) red[((i * 2 + j) * 4 + r) * 256] = run[i][j][r];
+  }
+  __syncthreads();
+  if (kg == 0) {
+    const int hq = s.H * Wp;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = 32 * wm + 16 * i + 8 * h + g, y = div_magic(q, s.pmagic), x = q - y * Wp;
+        const bool real = q < hq && x < s.W;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int l = 0; l < 2; ++l) {
+            const int r = 2 * h + l;
+            const float v = run[i][j][r] + red[((i * 2 + j) * 4 + r) * 256];
+            if (real) epi(y * s.W + x, 16 * wn + 8 * j + 2 * t + l, v);
+          }
+      }
+  }
+}
+
+// ---- both stages ----------------------------------------------------------
+
+// The conv stage of the shape: tensor cores (3xTF32) where make_shape says
+// so, else FFMA.
+template <class Epi>
+__device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
+                                           const float* __restrict__ w, Epi epi) {
+  if (s.mma) conv3x3_mma<3, false>(m, s, w, epi);
+  else conv3x3(m, s, w, epi);
+}
+
 // sx[p, co] = (conv3x3(spad, w) + bias[co]) + t * M[p, co].
 __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
                                               const float* __restrict__ w,
                                               const float* __restrict__ bias,
                                               const float* __restrict__ tmap, float t) {
   const int C = s.C;
-  const float b = bias[threadIdx.x % C];
-  conv3x3(m, s, w, [&](int p, int co, float acc) {
-    m.sx[p * C + co] = (acc + b) + t * tmap[p * C + co];
+  conv_stage(m, s, w, [&](int p, int co, float acc) {
+    m.sx[p * C + co] = (acc + bias[co]) + t * tmap[p * C + co];
   });
 }
 
@@ -247,19 +554,21 @@ __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
 template <class Out>
 __device__ void odefunc_eval(const Smem& m, const Shape& s, const Odefunc& p,
                              float t, Out out) {
-  gn_stats(m, s, m.sx, m.smean, m.sinv);
-  gn_relu_to_pad(m, s, m.sx, m.smean, m.sinv, p.n1s, p.n1b);
+  Stat st = gn_stats(m, s, m.sx, m.smean, m.sinv);
+  gn_relu_to_pad(m, s, m.sx, st, p.n1s, p.n1b);
   __syncthreads();
   conv3x3_to_sx(m, s, p.w1, p.b1, p.m1, t);
   __syncthreads();
-  gn_stats(m, s, m.sx, m.smean, m.sinv);
-  gn_relu_to_pad(m, s, m.sx, m.smean, m.sinv, p.n2s, p.n2b);
+  st = gn_stats(m, s, m.sx, m.smean, m.sinv);
+  gn_relu_to_pad(m, s, m.sx, st, p.n2s, p.n2b);
   __syncthreads();
   conv3x3_to_sx(m, s, p.w2, p.b2, p.m2, t);
   __syncthreads();
-  gn_stats(m, s, m.sx, m.smean, m.sinv);
-  const int n = s.H * s.W * s.C;
-  for (int e = threadIdx.x; e < n; e += kThreads) out(e, gn_value(m, s, p.n3s, p.n3b, e));
+  st = gn_stats(m, s, m.sx, m.smean, m.sinv);
+  const int n = s.H * s.W * s.C, c = threadIdx.x & (s.C - 1);
+  const float sc = p.n3s[c], bi = p.n3b[c];
+  for (int e = threadIdx.x; e < n; e += kThreads)
+    out(e, (m.sx[e] - st.mean) * st.inv * sc + bi);
 }
 
 }  // namespace nodef

@@ -13,6 +13,11 @@
 // The stage derivatives k2..k6 live in a global scratch tensor written and
 // read back by the same thread (same element mapping), so they stay in L1/L2
 // and shared memory holds only one eval's working set; k7 is f1.
+//
+// The twelve 3x3 convs of an attempt are the conv stage of
+// odefunc_common.cuh: at 7x7x64 and 6x6x64 mma.sync TF32 products with
+// 3xTF32 error compensation (f32-grade, so the accept/reject decisions
+// follow the f32 plain version's), at other shapes f32 FFMA.
 #include <float.h>
 
 #include "odefunc_common.cuh"
@@ -54,18 +59,25 @@ rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
 
   for (int i = 1; i < kStages; ++i) {
     // y_i = y0 + dt * sum_j a[i][j] k_j, zero terms skipped, left to right.
+    // The loads of k_1..k_i are started together, ahead of the sum, so that
+    // their L2 latencies overlap.
     for (int e = tid; e < n; e += kThreads) {
+      float kv[kStages - 1];
+#pragma unroll
+      for (int j = 0; j < kStages - 1; ++j) kv[j] = j < i ? kp(j)[e] : 0.f;
+      const float yv = y0b[e];
       float acc = 0.f;
       bool any = false;
-      for (int j = 0; j < i; ++j) {
-        const float a = st.a[i][j];
+#pragma unroll
+      for (int j = 0; j < kStages - 1; ++j) {
+        const float a = j < i ? st.a[i][j] : 0.f;
         if (a != 0.f) {
-          const float term = a * kp(j)[e];
+          const float term = a * kv[j];
           acc = any ? acc + term : term;
           any = true;
         }
       }
-      m.sx[e] = any ? y0b[e] + h * acc : y0b[e];
+      m.sx[e] = any ? yv + h * acc : yv;
     }
     __syncthreads();
     float* ki = kp(i);
@@ -74,10 +86,14 @@ rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
 
   float r2 = 0.f;
   for (int e = tid; e < n; e += kThreads) {
+    float kv[kStages];
+#pragma unroll
+    for (int j = 0; j < kStages; ++j) kv[j] = kp(j)[e];
     float sb = 0.f, se = 0.f, sm = 0.f;
     bool ab = false, ae = false, am = false;
+#pragma unroll
     for (int j = 0; j < kStages; ++j) {
-      const float k = kp(j)[e];
+      const float k = kv[j];
       if (st.b[j] != 0.f) { const float v = st.b[j] * k; sb = ab ? sb + v : v; ab = true; }
       if (st.e[j] != 0.f) { const float v = st.e[j] * k; se = ae ? se + v : v; ae = true; }
       if (st.mid[j] != 0.f) { const float v = st.mid[j] * k; sm = am ? sm + v : v; am = true; }
@@ -115,7 +131,8 @@ extern "C" int rk_step_forward(
     int B, int H, int W, int C, int G, void* stream) {
   using namespace nodef;
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = odefunc_smem_bytes(H, W, C, G);
+  const Shape s = make_shape(H, W, C, G);
+  const size_t smem = odefunc_smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(
       rk_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -128,7 +145,6 @@ extern "C" int rk_step_forward(
   for (int i = 0; i < kStages; ++i) tab.c[i] = *q++;
   for (int i = 0; i < kStages; ++i) tab.mid[i] = *q++;
   const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
-  const Shape s{H, W, C, G};
   rk_step_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       t0, dt, y0, f0, p, s, tab, rtol, atol, ks, y1, f1, ymid, ratio);
   return (int)cudaGetLastError();

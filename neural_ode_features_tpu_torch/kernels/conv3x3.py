@@ -1,5 +1,5 @@
 """The 3×3 conv probe kernels: ``y = conv3x3_same(x, w)`` alone, in one CUDA
-launch, one CTA per sample, under two strategies.
+launch, one CTA per sample, under four strategies.
 
 Replaces the TPU kernels of ``probes/conv_probe.py``: ``pallas_conv_2d``
 (kernels from ``make_roll_kernel``) and ``pallas_conv`` (``make_kernel``,
@@ -8,25 +8,42 @@ Replaces the TPU kernels of ``probes/conv_probe.py``: ``pallas_conv_2d``
 This is the split-ConcatConv contraction of the ODEfunc without bias and
 time map: x (B, H, W, C) f32 NHWC, w (3, 3, C, C) f32 HWIO.  Strategies:
 
-``'tap9'``    the shared device function ``conv3x3`` of
+``'mma3'``    the shared device function ``conv3x3_mma`` of
               ``csrc/odefunc_common.cuh`` with a store epilogue: the conv
               stage of ``odefunc.cu``, ``rk_step.cu`` and ``odefunc_bwd.cu``
-              itself (the counterpart of the TPU ``seq9``/``tree9``/
-              ``fori9``/``roll9``).
+              itself at 7×7×64 and 6×6×64.  An implicit GEMM on the tensor
+              cores (``mma.sync.m16n8k8`` TF32, f32 accumulation) over the
+              padded-pitch positions of one sample, with 3×TF32 error
+              compensation: every f32 operand is split into a TF32 head and
+              tail and each pair contributes ``a_lo·b_hi``, ``a_hi·b_lo`` and
+              then ``a_hi·b_hi``.  f32-grade: an error near 2⁻²¹ per product.
+``'mma1'``    the same kernel with the two tail products compiled out: plain
+              TF32, about three decimal digits.  A reading of what f32-grade
+              costs; nothing on a path uses it.
+``'tap9'``    the f32 FFMA ``conv3x3`` of the same header: the fused kernels'
+              stage at every other shape and the baseline of the race (the
+              counterpart of the TPU ``seq9``/``tree9``/``fori9``/``roll9``).
 ``'im2col'``  the CTA gathers its sample's (H·W, 9C) patch matrix into shared
               memory once and computes one (H·W, 9C) @ (9C, C) product, each
               thread a 4-channel × 4-pixel register tile (the counterpart of
               ``im2col``/``im2colS``/``rollS``).
 
-Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s): at
-B = 256, 7×7×64 the conv is 0.925 GFLOP, 13.8 µs of FFMA, against 6.6 MB
-moved, 2.0 µs: bound by operations.  Both kernels are strict f32 FFMA on the
-CUDA cores; a ``wgmma`` design and the ``*_bf16`` strategies are later work
-(ROADMAP.md, Queue 2 item 5).
+Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
+on them, 3.35 TB/s): at B = 256, 7×7×64 the conv is 0.925 GFLOP, 13.8 µs of
+FFMA or 1.9 µs of TF32 products, against 6.6 MB moved, 2.0 µs.  So ``tap9``
+and ``im2col`` are bound by operations, and with the tensor cores the conv
+is bound by bytes.  ``mma3`` itself forms three products over a 64-row tile
+(49 rows real): 3.6 GFLOP, 7.3 µs at the TF32 peak.  A ``wgmma`` design and
+the ``*_bf16`` strategies are later work (ROADMAP.md, Queue 2 item 5).
 
 ``conv3x3`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``conv3x3_plain``; a CUDA tensor launches the kernel or raises.
 ``conv3x3.launches`` counts launches.  No gradient: the TPU probe has none.
+
+``tf32_split``, ``conv3x3_plain(passes=3 | 1)`` and ``conv3x3_padded_pitch``
+emulate the tensor-core stage's arithmetic and its row mapping in plain
+PyTorch.  Tests and the probe's error report use them; nothing on a path
+does.
 """
 
 from __future__ import annotations
@@ -38,13 +55,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .odefunc import MAX_SMEM, ptr, stream
-from .odefunc import supported as _tap9_supported
+from .odefunc import MAX_SMEM, MMA_M, ptr, stage, stream
+from .odefunc import supported as _fused_supported
 
-__all__ = ["STRATEGIES", "conv3x3", "conv3x3_plain", "supported",
-           "smem_bytes", "conv_flops", "conv_bytes"]
+__all__ = ["STRATEGIES", "conv3x3", "conv3x3_plain", "conv3x3_padded_pitch",
+           "tf32_split", "supported", "smem_bytes", "conv_flops",
+           "conv_bytes"]
 
-STRATEGIES = ("tap9", "im2col")
+STRATEGIES = ("tap9", "im2col", "mma3", "mma1")
 
 # Mirrors csrc/conv_probe.cu (kI2cThreads, kI2cPix, kI2cPad).
 _I2C_THREADS = 256
@@ -52,18 +70,81 @@ _I2C_PIX = 4
 _I2C_PAD = 4
 
 
-def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of both kernels: nine shifted slices of the
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split float32 ``x`` into a TF32 head and a TF32 tail, ``x ≈ hi + lo``
+    to within 2⁻²¹ relative, as the tensor-core stage does: ``hi`` is ``x``
+    rounded to 10 mantissa bits, to nearest with ties away from zero (as
+    ``cvt.rna.tf32.f32``: add half a unit to the low 13 mantissa bits, then
+    clear them), and ``lo`` is the TF32 part of ``x − hi``, its low 13
+    mantissa bits cleared, which is what the tensor core reads of the f32
+    difference that the kernel hands it."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_split takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _tap_product(a: torch.Tensor, b: torch.Tensor, passes) -> torch.Tensor:
+    """One tap's (…, C) @ (C, C) product: plain (``passes=None``), or from
+    TF32 heads and tails as the tensor-core stage forms it, the tail
+    products first (3), or the head product alone (1)."""
+    if passes is None:
+        return a @ b
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be None, 1 or 3, got {passes!r}")
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
+                  passes: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernels: nine shifted slices of the
     zero-padded NHWC map, each times its (C, C) tap, summed in tap order
-    (the kernels' arithmetic, step by step), in ``x``'s dtype."""
+    (the kernels' arithmetic, step by step), in ``x``'s dtype.  ``passes=3``
+    and ``passes=1`` (float32 only) form each tap's product from TF32 heads
+    and tails as ``mma3`` and ``mma1`` do; they are an emulation for tests
+    and error reports, used by nothing on a path."""
     _, hh, ww, _ = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     out = None
     for ky in range(3):
         for kx in range(3):
-            term = xp[:, ky:ky + hh, kx:kx + ww, :] @ w[ky, kx]
+            term = _tap_product(xp[:, ky:ky + hh, kx:kx + ww, :], w[ky, kx],
+                                passes)
             out = term if out is None else out + term
     return out
+
+
+def conv3x3_padded_pitch(x: torch.Tensor, w: torch.Tensor,
+                         passes: int | None = None) -> torch.Tensor:
+    """The tensor-core stage's row mapping in plain PyTorch (a mirror of
+    ``conv3x3_mma`` for the tests): the GEMM's M runs over the padded-pitch
+    positions q = y·(W+2) + x of one sample, so the A rows of tap (ky, kx)
+    are the rows q + ky·(W+2) + kx of the zero-bordered map flattened to
+    ((H+2)·(W+2) + slack, C), one uniform shift and no gather; the two
+    border columns of each row are computed and dropped."""
+    b, hh, ww, c = x.shape
+    wp = ww + 2
+    m = -(-hh * wp // 16) * 16                       # whole 16-row tiles
+    if m > MMA_M:
+        raise ValueError(f"{hh}x{ww}: {hh * wp} padded-pitch positions do "
+                         f"not fit the {MMA_M}-row tile")
+    rows = m + 2 * wp + 2                            # slack for the last taps
+    spad = x.new_zeros((b, rows, c))
+    spad[:, :(hh + 2) * wp] = F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b, -1, c)
+    out = None
+    for tap in range(9):
+        shift = (tap // 3) * wp + tap % 3
+        term = _tap_product(spad[:, shift:shift + m], w[tap // 3, tap % 3],
+                            passes)
+        out = term if out is None else out + term
+    q = torch.arange(hh * wp, device=x.device)
+    return out[:, q[q % wp < ww]].reshape(b, hh, ww, c)
 
 
 def smem_bytes(hw: tuple[int, int], c: int) -> int:
@@ -72,11 +153,17 @@ def smem_bytes(hw: tuple[int, int], c: int) -> int:
 
 
 def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
-    """The kernels' shape gate.  ``tap9``: the gate of the fused kernels
-    (``kernels.odefunc.supported``).  ``im2col`` also needs C/4 to divide its
-    256 threads, at most 4 pixels per thread, and the patch matrix within
-    the 227 KB of shared memory.  7×7×64 and 6×6×64 pass both."""
-    if not _tap9_supported(hw, c, 1):
+    """The kernels' shape gate.  ``tap9``: the gate of the fused kernels'
+    FFMA stage (``kernels.odefunc.supported`` with ``conv_stage='ffma'``).
+    ``im2col`` also needs C/4 to divide its 256 threads, at most 4 pixels
+    per thread, and the patch matrix within the 227 KB of shared memory.
+    ``mma3`` and ``mma1``: the tensor-core stage's gate
+    (``kernels.odefunc.stage``: C = 64 and H·(W+2) ≤ 64) and its working set
+    within shared memory.  7×7×64 and 6×6×64 pass all four."""
+    if strategy in ("mma3", "mma1"):
+        return (stage(hw, c) == "mma3"
+                and _fused_supported(hw, c, 1, "mma3"))
+    if not _fused_supported(hw, c, 1, "ffma"):
         return False
     if strategy == "tap9":
         return True
@@ -100,7 +187,8 @@ def conv_bytes(b: int, hw: tuple[int, int], c: int) -> int:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_probe")
-    for fn in (lib.conv_probe_tap9, lib.conv_probe_im2col):
+    for strategy in STRATEGIES:
+        fn = getattr(lib, f"conv_probe_{strategy}")
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])

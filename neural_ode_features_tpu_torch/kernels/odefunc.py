@@ -6,14 +6,20 @@ Replaces the TPU kernel ``neural_ode_features_tpu/kernels/odefunc_pallas.py``
 with the per-sample code in ``csrc/odefunc_common.cuh``.
 
 Bound (H100 SXM, 700 W power limit; 67 TFLOP/s f32 outside the tensor
-cores, 3.35 TB/s): the two 3×3 convs are 2 · 2·H·W·9C·C FLOP per sample,
-1.85 GFLOP at B = 256, 7×7×64, i.e. about 28 µs of FFMA; the bytes (state in
-and out, 0.3 MB of weights) are 6.7 MB, about 2 µs.  So it is bound by
-operations.  The design keeps the sample in shared memory for the whole
-chain (state, padded conv input, GroupNorm scratch), streams each conv
-tap's weights into shared memory once per CTA (cp.async, double-buffered)
-and runs the convs as register-tiled FFMA.  Strict f32: no TF32, no tensor
-cores; those are later work (ROADMAP.md).
+cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): the two 3×3 convs are
+2 · 2·H·W·9C·C FLOP per sample, 1.85 GFLOP at B = 256, 7×7×64, i.e. about
+28 µs of FFMA or 3.7 µs of TF32 products; the bytes (state in and out,
+0.3 MB of weights) are 6.7 MB, about 2 µs.  So it is bound by operations.
+The design keeps the sample in shared memory for the whole chain (state,
+padded conv input, GroupNorm scratch) and streams each conv tap's f32
+weights into shared memory once per CTA (cp.async).  The convs have two
+stages, chosen from the shape alone (:func:`stage`): at C = 64 with
+H·(W+2) ≤ 64 (7×7×64, 6×6×64) an implicit GEMM on the tensor cores,
+``mma.sync`` TF32 with 3×TF32 error compensation (each f32 operand split
+into a TF32 head and tail, three products per pair, f32 accumulation), which
+is f32-grade; at every other supported shape register-tiled f32 FFMA.
+PyTorch's own TF32 switches stay off: the kernels' TF32 is explicit and
+compensated, a library's is not.
 
 ``odefunc`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``odefunc_plain`` (which the tests hold against the JAX package); a CUDA
@@ -37,13 +43,19 @@ import torch
 from ..ops.layers import conv2d, group_norm, time_map
 from . import _build
 
-__all__ = ["OdefuncWeights", "prepare", "supported", "smem_bytes",
+__all__ = ["OdefuncWeights", "prepare", "supported", "smem_bytes", "stage",
            "odefunc", "odefunc_plain", "odefunc_autograd", "odefunc_vjp"]
 
-# Mirrors csrc/odefunc_common.cuh (kThreads, kMaxPix, kMaxSmem).
+# Mirrors csrc/odefunc_common.cuh (kThreads, kMaxPix, kMaxSmem; kMmaC, kMmaM,
+# kPadA, kPitchBT, kRing of the tensor-core conv stage).
 THREADS = 512
 MAX_PIX = 8
 MAX_SMEM = 232448 - 1024
+MMA_C = 64
+MMA_M = 64
+PAD_A = 8
+PITCH_BT = 72
+RING = 3
 
 
 class OdefuncWeights(NamedTuple):
@@ -90,23 +102,52 @@ def prepare(params, hw: tuple[int, int]) -> OdefuncWeights:
         f32(params["norm3"]["scale"]), f32(params["norm3"]["bias"]))
 
 
-def smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
-    """Dynamic shared memory per CTA (csrc/odefunc_common.cuh)."""
+def stage(hw: tuple[int, int], c: int) -> str:
+    """The conv stage the fused kernels run at this shape, decided by the
+    shape alone (csrc/odefunc_common.cuh ``mma_ok``): ``'mma3'``, the
+    tensor-core stage, takes C = 64 and maps whose H·(W+2) padded-pitch
+    positions fit its 64-row tile; everything else runs ``'ffma'``."""
     hh, ww = hw
-    return 4 * (hh * ww * c + (hh + 2) * (ww + 2) * c + 2 * c * c + THREADS
-                + 2 * groups)
+    if c == MMA_C and hh >= 1 and ww >= 1 and hh * (ww + 2) <= MMA_M:
+        return "mma3"
+    return "ffma"
 
 
-def supported(hw: tuple[int, int], c: int, groups: int) -> bool:
+def smem_bytes(hw: tuple[int, int], c: int, groups: int,
+               conv_stage: str | None = None) -> int:
+    """Dynamic shared memory per CTA (csrc/odefunc_common.cuh
+    ``odefunc_smem_bytes``) under the layout of ``conv_stage`` (default: the
+    shape's own, :func:`stage`).  The tensor-core stage pads the conv
+    input's rows by 8 floats, gives it 64 + 2(W+2) + 2 rows (slack for the
+    last tile's taps) and holds a ring of three (64, 72) weight buffers; the
+    FFMA stage holds two (C, C) buffers."""
+    hh, ww = hw
+    if (conv_stage or stage(hw, c)) == "mma3":
+        pad = (MMA_M + 2 * (ww + 2) + 2) * (c + PAD_A)
+        weights = RING * MMA_C * PITCH_BT
+    else:
+        pad = (hh + 2) * (ww + 2) * c
+        weights = 2 * c * c
+    return 4 * (hh * ww * c + pad + weights + 2 * THREADS + 2 * groups)
+
+
+def supported(hw: tuple[int, int], c: int, groups: int,
+              conv_stage: str | None = None) -> bool:
     """The kernels' shape gate: C divisible by 4 and by ``groups``, C
-    dividing the CTA's 512 threads, at most 8 conv pixels per thread, and the
-    working set within the 227 KB of shared memory.  7×7×64 (CIFAR-10) and
-    6×6×64 (MNIST) pass."""
+    dividing the CTA's 512 threads, the working set within the 227 KB of
+    shared memory and, for the FFMA stage, at most 8 conv pixels per thread.
+    7×7×64 (CIFAR-10) and 6×6×64 (MNIST) pass, on the tensor-core stage.
+    ``conv_stage='ffma'`` asks for the FFMA layout at any shape (the conv
+    probe's ``tap9``)."""
     hh, ww = hw
-    if hh < 1 or ww < 1 or c < 4 or c % 4 or THREADS % c or c % groups:
+    if (hh < 1 or ww < 1 or c < 4 or groups < 1 or c % 4 or THREADS % c
+            or c % groups):
         return False
-    return (math.ceil(hh * ww / (THREADS // c)) <= MAX_PIX
-            and smem_bytes(hw, c, groups) <= MAX_SMEM)
+    conv_stage = conv_stage or stage(hw, c)
+    if smem_bytes(hw, c, groups, conv_stage) > MAX_SMEM:
+        return False
+    return (conv_stage == "mma3"
+            or math.ceil(hh * ww / (THREADS // c)) <= MAX_PIX)
 
 
 def odefunc_plain(w: OdefuncWeights, t, h: torch.Tensor,
@@ -262,12 +303,13 @@ def odefunc_autograd(params, t, h: torch.Tensor, *, groups: int = 32,
 def odefunc_vjp(params, t, h: torch.Tensor, a: torch.Tensor, *,
                 groups: int = 32):
     """``(f, dparams, dt, dh)``: f(t, h) and its VJP against ``a``, with
-    ``dparams`` in the raw layout and ``dt`` in ``t``'s shape.  Two
-    launches on the card: the ODEfunc kernel and the backward kernel."""
+    ``dparams`` in the raw layout and ``dt`` in ``t``'s shape.  One call of
+    the backward kernel on the card, which recomputes the forward and
+    writes f itself; the ODEfunc kernel is not launched."""
     from .odefunc_bwd import odefunc_bwd
 
     w = prepare(params, tuple(h.shape[1:3]))
     t = torch.as_tensor(t, dtype=h.dtype, device=h.device)
-    f = odefunc(w, t, h, groups=groups)
-    dparams, dt_b, dh = odefunc_bwd(w, t, h, a, groups=groups)
+    dparams, dt_b, dh, f = odefunc_bwd(w, t, h, a, groups=groups,
+                                       with_f=True)
     return f, dparams, _dt_like(dt_b, t), dh

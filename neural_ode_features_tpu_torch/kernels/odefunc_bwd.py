@@ -6,7 +6,9 @@ Replaces the TPU kernel ``neural_ode_features_tpu/kernels/odefunc_bwd_rows.py``
 ``csrc/odefunc_common.cuh``).
 
 The kernel recomputes the forward from ``(params, t, h)``, as the TPU kernel
-does, so the residuals of the VJP are only those three.  The TPU kernel
+does, so the residuals of the VJP are only those three; it also writes the
+recomputed f(t, h) (``with_f=True``), so that an augmented evaluation of the
+adjoint is this one call and no launch of the ODEfunc kernel.  The TPU kernel
 summed the parameter gradients over the batch by read-modify-write into
 revisited output blocks, race-free only because a TPU grid runs in order.
 Here a per-sample pass (one CTA per sample) writes dh, dt and per-sample
@@ -14,10 +16,16 @@ partial sums, and two more launches reduce over the batch in a fixed order:
 no atomics, and two calls on the same inputs give bit-identical dθ.
 
 Bound (H100 SXM, 700 W power limit; 67 TFLOP/s f32 outside the tensor
-cores, 3.35 TB/s): six 3×3-conv equivalents (forward recompute, input
-gradients, weight gradients), 21.7 MFLOP per sample at 7×7×64, 2.77 GFLOP at
-B = 128, about 41 µs; the bytes are about 5 MB.  So it is bound by
-operations.  Strict f32 FFMA: no TF32, no tensor cores.
+cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): six 3×3-conv equivalents
+(forward recompute, input gradients, weight gradients), 21.7 MFLOP per
+sample at 7×7×64, 2.77 GFLOP at B = 128: about 41 µs of FFMA, 5.6 µs of TF32
+products; the bytes are about 6.4 MB, 1.9 µs.  So it is bound by operations.
+The per-sample pass runs its four convs (two of the forward, two input
+gradients) on the conv stage of ``kernels.odefunc.stage``: at 7×7×64 and
+6×6×64 ``mma.sync`` TF32 with 3×TF32 error compensation, f32-grade; the
+input-gradient convs read ``w1``, ``w2`` themselves, taps reversed and
+transposed in the fragment loads.  The weight-gradient contraction is f32
+FFMA (ROADMAP.md, Queue 2).
 
 ``odefunc_bwd`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``odefunc_bwd_plain`` (``torch.autograd.grad`` of ``odefunc_plain``); a CUDA
@@ -37,13 +45,13 @@ import torch.nn.functional as F
 from . import _build
 from .odefunc import (
     MAX_SMEM,
-    THREADS,
     OdefuncWeights,
     check_cuda_inputs,
     odefunc_plain,
     prepare,
     ptr,
     smem_bytes,
+    stage,
     stream,
     supported,
     weight_pointers,
@@ -62,8 +70,7 @@ def bwd_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
     """Dynamic shared memory per CTA of the per-sample pass
     (csrc/odefunc_bwd.cu ``bwd_smem_bytes``)."""
     hh, ww = hw
-    return smem_bytes(hw, c, groups) + 4 * (hh * ww * c + THREADS
-                                            + 6 * groups + 4 * c)
+    return smem_bytes(hw, c, groups) + 4 * (hh * ww * c + 6 * groups + 4 * c)
 
 
 def bwd_supported(hw: tuple[int, int], c: int, groups: int) -> bool:
@@ -106,11 +113,12 @@ def _raw_grads(d: OdefuncWeights) -> dict:
 
 
 def odefunc_bwd_plain(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
-                      groups: int):
+                      groups: int, with_f: bool = False):
     """Plain PyTorch version of the kernel: ``torch.autograd.grad`` of
     ``odefunc_plain`` at ``(w, t, h)`` against the cotangent ``g``.  Returns
-    ``(dparams raw, dt (B,), dh)``; ``dt`` is per sample even for a scalar
-    ``t``, as the kernel's."""
+    ``(dparams raw, dt (B,), dh)``, and f(t, h) as a fourth value where
+    ``with_f``; ``dt`` is per sample even for a scalar ``t``, as the
+    kernel's."""
     b = h.shape[0]
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in w]
@@ -119,29 +127,31 @@ def odefunc_bwd_plain(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
         hh = h.detach().requires_grad_()
         out = odefunc_plain(OdefuncWeights(*leaves), tb, hh, groups)
         grads = torch.autograd.grad(out, [*leaves, tb, hh], g)
-    return _raw_grads(OdefuncWeights(*grads[:-2])), grads[-2], grads[-1]
+    res = (_raw_grads(OdefuncWeights(*grads[:-2])), grads[-2], grads[-1])
+    return (*res, out.detach()) if with_f else res
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("odefunc_bwd")
     fn = lib.odefunc_backward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
 def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
-                groups: int = 32):
+                groups: int = 32, with_f: bool = False):
     """VJP of f at ``(params, t, h)`` against ``g`` (B, H, W, C):
-    ``(dparams, dt (B,), dh)`` with ``dparams`` in the raw ODEfunc layout.
+    ``(dparams, dt (B,), dh)`` with ``dparams`` in the raw ODEfunc layout,
+    and the recomputed f(t, h) as a fourth value where ``with_f``.
     ``params``: an ODEfunc param dict or :class:`OdefuncWeights`; ``t``
     scalar or (B,)."""
     b, hh, ww, c = h.shape
     w = prepare(params, (hh, ww))
     if h.device.type == "cpu":
-        return odefunc_bwd_plain(w, t, h, g, groups)
+        return odefunc_bwd_plain(w, t, h, g, groups, with_f)
     if tuple(g.shape) != tuple(h.shape):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the "
                          f"state {tuple(h.shape)}")
@@ -155,23 +165,36 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     t = t.reshape(-1).expand(b).contiguous()
     # The conv input gradient is a 3×3 conv of the cotangent with each tap's
-    # (C, C) slice transposed and the taps in reverse order.
-    w1bt, w2bt = (x.reshape(9, c, c).flip(0).transpose(1, 2).contiguous()
-                  for x in (w.w1, w.w2))
+    # (C, C) slice transposed and the taps in reverse order.  The
+    # tensor-core stage reads w1, w2 that way itself; the FFMA stage takes
+    # the rearranged copies.
+    wbt = [] if stage((hh, ww), c) == "mma3" else [
+        x.reshape(9, c, c).flip(0).transpose(1, 2).contiguous()
+        for x in (w.w1, w.w2)]
+    wbt_ptrs = [ptr(x) for x in wbt] or [None, None]
     n = hh * ww * c
+    f = torch.empty_like(h)
     dh = torch.empty_like(h)
-    dt = torch.empty((b,), dtype=torch.float32, device=dev)
-    acts = torch.empty((4, b, n), dtype=torch.float32, device=dev)
-    part = torch.empty((b, _PARTS, c), dtype=torch.float32, device=dev)
-    wpart = torch.empty((_SPLIT, 2, 9, c, c), dtype=torch.float32,
-                        device=dev)
-    dk = torch.empty((2, 3, 3, c + 1, c), dtype=torch.float32, device=dev)
-    dvec = torch.empty((8, c), dtype=torch.float32, device=dev)
+    # One allocation for the small outputs (dk, dvec, dt) and one for the
+    # scratch (r1, r2, gu, gv, part, wpart): a step of the adjoint makes
+    # dozens of these calls, and the host launches them.  Every piece is a
+    # multiple of four floats long (C is), so each stays 16-byte aligned.
+    nk = 9 * (c + 1) * c
+    outs = torch.empty((2 * nk + 8 * c + b,), dtype=torch.float32, device=dev)
+    dk = outs[:2 * nk].view(2, 3, 3, c + 1, c)
+    dvec = outs[2 * nk:2 * nk + 8 * c].view(8, c)
+    dt = outs[2 * nk + 8 * c:]
+    sizes = [b * n] * 4 + [b * _PARTS * c, _SPLIT * 2 * 9 * c * c]
+    scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    offsets = [4 * sum(sizes[:i]) for i in range(len(sizes))]
+    at = lambda base, nbytes: ctypes.c_void_p(base.data_ptr() + nbytes)
     lib = _lib()
     code = lib.odefunc_backward(
-        ptr(t), ptr(h), ptr(g), *weight_pointers(w), ptr(w1bt), ptr(w2bt),
-        ptr(dh), ptr(dt), *(ptr(a) for a in acts), ptr(part), ptr(wpart),
-        ptr(dk[0]), ptr(dk[1]), ptr(dvec), b, hh, ww, c, groups, stream())
+        ptr(t), ptr(h), ptr(g), *weight_pointers(w), *wbt_ptrs,
+        ptr(f), ptr(dh), at(outs, 4 * (2 * nk + 8 * c)),
+        *(at(scratch, o) for o in offsets),
+        at(outs, 0), at(outs, 4 * nk), at(outs, 8 * nk),
+        b, hh, ww, c, groups, stream())
     _build.check(lib, code, "odefunc_backward")
     odefunc_bwd.launches += 1
     dparams = {
@@ -181,7 +204,7 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
         "conv2": {"kernel": dk[1], "bias": dvec[7]},
         "norm3": {"scale": dvec[4], "bias": dvec[5]},
     }
-    return dparams, dt, dh
+    return (dparams, dt, dh, f) if with_f else (dparams, dt, dh)
 
 
 odefunc_bwd.launches = 0

@@ -15,15 +15,19 @@ owns one sample, so the grid is exactly B (a ragged batch needs no tile
 divisor) and no reduction crosses blocks.
 
 Bound (H100 SXM, 700 W power limit; 67 TFLOP/s f32 outside the tensor
-cores, 3.35 TB/s): 6 evaluations × 2 convs × 2·49·576·64 FLOP per sample is
-11.1 GFLOP per attempt at B = 256, 7×7×64, about 166 µs of FFMA, against
-about 5 µs for its 16 MB of state in and out.  So it is bound by operations.
-The design keeps each evaluation's working set in shared memory (one CTA per
-sample), streams conv weights tap by tap through shared memory, keeps the
-stage derivatives k2..k6 in an L2-resident scratch tensor read back by the
-thread that wrote them, and computes in strict f32 FFMA so that the
-accept/reject decisions follow the plain version's.  Tensor cores (TF32 or
-bf16 ``wgmma``) are later work (ROADMAP.md).
+cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): 6 evaluations × 2 convs ×
+2·49·576·64 FLOP per sample is 11.1 GFLOP per attempt at B = 256, 7×7×64:
+about 166 µs of FFMA, 22 µs of TF32 products, against about 5 µs for its
+16 MB of state in and out.  So it is bound by operations.  The design keeps
+each evaluation's working set in shared memory (one CTA per sample), streams
+the f32 conv weights tap by tap through shared memory, and keeps the stage
+derivatives k2..k6 in an L2-resident scratch tensor read back by the thread
+that wrote them.  Its twelve convs run on the conv stage of
+``kernels.odefunc.stage``: at 7×7×64 and 6×6×64 on the tensor cores
+(``mma.sync`` TF32) with 3×TF32 error compensation, which is f32-grade (an
+error near 2⁻²¹ per product), so that the accept/reject decisions follow
+the f32 plain version's; at other shapes as f32 FFMA.  One-pass TF32 or bf16
+products are a later opt-in mode (ROADMAP.md).
 
 ``make_fused_dopri5_step`` builds the ``fused_step`` hook of
 ``solver.runge_kutta.adaptive_odeint``.  ``dopri5_step`` is the wrapper: a
@@ -144,8 +148,9 @@ def make_fused_dopri5_step(
 
     ``params``: the ODEfunc param dict (conv kernels (3, 3, C+1, C)) on the
     solve's device.  ``conv_strategy``: any JAX value; all run one kernel.
-    ``conv_precision``: None or ``'f32'`` (the kernel's only precision;
-    ``'bf16'`` tensor-core convs are later work)."""
+    ``conv_precision``: None or ``'f32'``: f32-grade, on the tensor cores
+    with 3×TF32 error compensation where the shape allows, else f32 FFMA
+    (``'bf16'`` convs are later work)."""
     if atol <= 0.0:
         raise ValueError("fused RK step requires atol > 0 (the error norm "
                          "has no 0/0 guard)")
@@ -153,8 +158,8 @@ def make_fused_dopri5_step(
         raise ValueError(f"unknown conv strategy {conv_strategy!r}")
     if conv_precision not in (None, "f32"):
         raise NotImplementedError(
-            f"conv_precision={conv_precision!r}: the CUDA kernel computes in "
-            "f32 only (ROADMAP.md: tensor-core convs)")
+            f"conv_precision={conv_precision!r}: the CUDA kernel computes "
+            "f32-grade convs only (ROADMAP.md, Queue 2 item 5)")
     if (tableau.c_mid is None or not tableau.fsal
             or tableau.stages != _STAGES):
         raise ValueError("the fused step takes a 7-stage FSAL tableau with "

@@ -1,27 +1,38 @@
 """Race the 3×3-conv strategies of ``kernels/conv3x3.py`` on the card, in
 isolation, against the library conv and the operations bound.
 
-    python -m neural_ode_features_tpu_torch.probes.conv_probe [tap9] [im2col] [--batch 256]
+    python -m neural_ode_features_tpu_torch.probes.conv_probe [mma3] [mma1] [tap9] [im2col] [--batch 256,128]
 
 The port of ``probes/conv_probe.py``.  The three fused kernels
 (``odefunc.cu``, ``rk_step.cu``, ``odefunc_bwd.cu``) spend their time in one
-shared device function, the 3×3 conv; this probe times that conv alone
-(``tap9``) and candidate replacements (``im2col``) before a fused kernel is
-touched.  Inputs as in the JAX probe: x (B, 7, 7, 64) and w (3, 3, 64, 64)
-from numpy seed 0, scaled by 0.1 and 0.05.
+shared device function, the 3×3 conv; this probe times that conv alone:
+``mma3``, the tensor-core stage (3×TF32) that the fused kernels run at
+7×7×64 and 6×6×64, ``mma1``, the same with the error compensation compiled
+out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
+shapes) and ``im2col``, before a fused kernel is touched.  Inputs as in the
+JAX probe: x (B, 7, 7, 64) and w (3, 3, 64, 64) from numpy seed 0, scaled by
+0.1 and 0.05.
 
 Each strategy is checked against the plain version ``conv3x3_plain`` and
-against ``F.conv2d`` (TF32 off), then timed.  Timing: CUDA events around a
-few hundred back-to-back launches, median over blocks.  The JAX probe chains
-its calls in a ``lax.scan`` and takes the slope between a long and a short
-chain to cancel the cost of a dispatch; CUDA events record on the device's
-own timeline, so back-to-back launches between two events do that job here.
+against ``F.conv2d`` (TF32 off), its error against the plain version in
+float64 is printed beside that of the plain emulation of its arithmetic
+(``conv3x3_plain(passes=3 | 1)``), and it is timed at every ``--batch`` in
+turns (all strategies at the first batch, then at the second).  Two times
+per strategy: the device time of its kernel by name under
+``torch.profiler`` (``dev``), and CUDA events around a few hundred
+back-to-back calls of the wrapper (``call``), which cannot go below what
+the host needs for a launch (about 30 µs), so kernels faster than that
+are told apart by ``dev`` alone.  The JAX probe chains its calls in a
+``lax.scan`` and takes the slope between a long and a short chain to cancel
+the cost of a dispatch; the device's own timeline does that job here.
 ``F.conv2d`` is timed as the library reference in place of the JAX probe's
 ``xla_conv``.  The JAX probe's ``dotonly``, ``norollS`` and ``nomaskS`` are
-wrong-valued timing aids for its patch building; in their place the
-operations bound (67 TFLOP/s f32 outside the tensor cores) is printed.
+wrong-valued timing aids for its patch building; in their place two bounds
+are printed: operations at 67 TFLOP/s (f32 outside the tensor cores), and
+the card's least time with the tensor cores, the larger of operations at
+495 TFLOP/s (TF32) and bytes at 3.35 TB/s.
 
-Prints µs per conv, the bound, and the ratio to each; writes no file.
+Prints µs per conv, the bounds, and the ratio to each; writes no file.
 """
 
 from __future__ import annotations
@@ -43,19 +54,31 @@ from ..kernels.conv3x3 import (
     conv_flops,
 )
 
-__all__ = ["main", "probe_inputs", "library_conv", "time_us", "bound_us"]
+__all__ = ["main", "probe_inputs", "library_conv", "time_us", "device_us",
+           "bound_us", "tensor_bound_us", "KERNEL_NAMES"]
 
 H, W, C = 7, 7, 64
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 CHECK_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 576 products, reordered
+# mma1 alone: plain TF32 keeps 11 bits per operand, about 1e-3 relative per
+# product; over sums of 576 products of mixed sign 2e-3 relative, 2e-4 absolute.
+TF32_TOL = dict(rtol=2e-3, atol=2e-4)
+# A substring of each strategy's kernel name in a profile.
+KERNEL_NAMES = {"tap9": "tap9_kernel", "im2col": "im2col_kernel",
+                "mma3": "mma_kernel<3>", "mma1": "mma_kernel<1>"}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("strategies", nargs="*", default=list(STRATEGIES),
                    help=f"strategies to race (default: {' '.join(STRATEGIES)})")
-    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--batch", default=[256, 128],
+                   type=lambda v: [int(b) for b in v.split(",")],
+                   help="batch sizes to race at, in turns, separated by "
+                        "commas (default: 256,128: the inference and the "
+                        "training batch)")
     p.add_argument("--cpu", action="store_true",
                    help="run the plain version on the CPU (checks only the "
                         "control flow; its times are not the card's)")
@@ -103,46 +126,114 @@ def time_us(fn, device: torch.device, reps: int = 200,
     return statistics.median(means)
 
 
-def bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
-    """The least time the card could take for one conv, and what binds it."""
-    by_ops = conv_flops(batch, hw, c) / PEAK_F32_FLOPS
-    by_bytes = conv_bytes(batch, hw, c) / PEAK_BYTES
+def device_us(fn, names, reps: int = 100) -> dict:
+    """Mean µs of device time per call of ``fn`` in the CUDA kernels whose
+    name contains each of ``names``, from ``torch.profiler`` over ``reps``
+    warm calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    return {name: sum(ev.self_device_time_total for ev in kernels
+                      if name in ev.key) / reps for name in names}
+
+
+def _bound(flops: float, nbytes: float, peak_flops: float):
+    by_ops, by_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e6 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                          else "bytes")
 
 
+def bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
+    """The least time the card could take for one conv on the CUDA cores
+    (f32 FFMA), and what binds it."""
+    return _bound(conv_flops(batch, hw, c), conv_bytes(batch, hw, c),
+                  PEAK_F32_FLOPS)
+
+
+def tensor_bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
+    """The least time the card could take for one conv with the tensor
+    cores (the operations counted once, at the TF32 rate), and what binds
+    it."""
+    return _bound(conv_flops(batch, hw, c), conv_bytes(batch, hw, c),
+                  PEAK_TF32_FLOPS)
+
+
 def main(argv=None) -> dict:
-    """Run the probe; returns ``{"bound_us", "bound_by", "library_us",
-    "<strategy>": {"us", "err_plain", "err_library"}}``."""
+    """Run the probe; returns, for the first batch size, ``{"bound_us",
+    "bound_by", "tensor_bound_us", "tensor_bound_by", "library_us",
+    "<strategy>": {"us", "device_us", "err_plain", "err_library",
+    "err_f64"}}`` (``device_us`` is None on the CPU), and the same dict per
+    batch size under ``"batches"``."""
     args = parse_args(argv)
     dev = strict_f32("cpu" if args.cpu else "cuda")
-    x, w = probe_inputs(args.batch, dev)
-    where = (torch.cuda.get_device_name(0) if dev.type == "cuda"
+    on_card = dev.type == "cuda"
+    where = (torch.cuda.get_device_name(0) if on_card
              else "cpu (plain version; not the card's times)")
-    b_us, b_by = bound_us(args.batch)
-    print(f"=== conv probe: B={args.batch} {H}x{W}x{C} on {where} ===")
-    print(f"bound: {b_us:8.1f} us/conv by {b_by}")
-    plain = conv3x3_plain(x, w)
-    lib = library_conv(x, w)
-    lib_us = time_us(lambda: library_conv(x, w), dev)
-    print(f"F.conv2d (library reference): {lib_us:8.1f} us/conv  "
-          f"({lib_us / b_us:.2f}x bound); max|diff vs plain| = "
-          f"{float((lib - plain).abs().max()):.2e}")
-    out = {"bound_us": b_us, "bound_by": b_by, "library_us": lib_us}
-    for strategy in args.strategies:
-        got = conv3x3(x, w, strategy)
-        err_p = float((got - plain).abs().max())
-        err_l = float((got - lib).abs().max())
-        for name, ref in (("plain", plain), ("F.conv2d", lib)):
-            if not torch.allclose(got, ref, **CHECK_TOL):
-                raise SystemExit(f"{strategy}: differs from {name}: max abs "
-                                 f"err {float((got - ref).abs().max()):.3e}")
-        us = time_us(lambda s=strategy: conv3x3(x, w, s), dev)
-        print(f"{strategy:>8}: {us:8.1f} us/conv  ({us / b_us:.2f}x bound, "
-              f"{us / lib_us:.2f}x F.conv2d); max|diff| vs plain {err_p:.2e}, "
-              f"vs F.conv2d {err_l:.2e}")
-        out[strategy] = {"us": us, "err_plain": err_p, "err_library": err_l}
-    return out
+    results = {}
+    for batch in args.batch:
+        x, w = probe_inputs(batch, dev)
+        b_us, b_by = bound_us(batch)
+        tb_us, tb_by = tensor_bound_us(batch)
+        print(f"=== conv probe: B={batch} {H}x{W}x{C} on {where} ===")
+        print(f"bound: {b_us:8.1f} us/conv by {b_by} (f32 FFMA); "
+              f"{tb_us:.1f} us/conv by {tb_by} (tensor cores, TF32)")
+        plain = conv3x3_plain(x, w)
+        plain64 = conv3x3_plain(x.double(), w.double())
+        lib = library_conv(x, w)
+        lib_us = time_us(lambda: library_conv(x, w), dev)
+        print(f"F.conv2d (library reference): {lib_us:8.1f} us/conv  "
+              f"({lib_us / b_us:.2f}x bound); max|diff vs plain| = "
+              f"{float((lib - plain).abs().max()):.2e}")
+        emulated = {"mma3": conv3x3_plain(x, w, passes=3),
+                    "mma1": conv3x3_plain(x, w, passes=1)}
+        out = {"bound_us": b_us, "bound_by": b_by, "tensor_bound_us": tb_us,
+               "tensor_bound_by": tb_by, "library_us": lib_us}
+        for strategy in args.strategies:
+            got = conv3x3(x, w, strategy)
+            tol = TF32_TOL if strategy == "mma1" else CHECK_TOL
+            err_p = float((got - plain).abs().max())
+            err_l = float((got - lib).abs().max())
+            err_64 = float((got.double() - plain64).abs().max())
+            for name, ref in (("plain", plain), ("F.conv2d", lib)):
+                if not torch.allclose(got, ref, **tol):
+                    raise SystemExit(
+                        f"{strategy}: differs from {name}: max abs err "
+                        f"{float((got - ref).abs().max()):.3e}")
+            us = time_us(lambda s=strategy: conv3x3(x, w, s), dev)
+            line = f"{strategy:>8}: "
+            d_us = None
+            if on_card:
+                name = KERNEL_NAMES[strategy]
+                d_us = device_us(lambda s=strategy: conv3x3(x, w, s),
+                                 (name,))[name]
+                if d_us <= 0.0:
+                    raise SystemExit(f"{strategy}: no device time under "
+                                     f"{KERNEL_NAMES[strategy]!r} in the profile")
+                line += (f"dev {d_us:7.1f} us/conv ({d_us / b_us:.2f}x the f32 "
+                         f"bound, {d_us / tb_us:.2f}x the tensor-core bound, "
+                         f"{d_us / lib_us:.2f}x F.conv2d), ")
+            line += (f"call {us:7.1f} us ({us / lib_us:.2f}x F.conv2d); "
+                     f"max|diff| vs plain {err_p:.2e}, vs F.conv2d {err_l:.2e}, "
+                     f"vs the f64 plain version {err_64:.2e}")
+            if strategy in emulated:
+                emu = float((emulated[strategy].double() - plain64).abs().max())
+                line += f" (its plain emulation's: {emu:.2e})"
+            print(line)
+            out[strategy] = {"us": us, "device_us": d_us, "err_plain": err_p,
+                             "err_library": err_l, "err_f64": err_64}
+        results[batch] = out
+    first = dict(results[args.batch[0]])
+    first["batches"] = results
+    return first
 
 
 if __name__ == "__main__":

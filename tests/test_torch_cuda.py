@@ -5,6 +5,7 @@ CUDA card and ``nvcc`` and skips without them.  On the card:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -27,7 +28,9 @@ from neural_ode_features_tpu_torch.kernels.odefunc import (
     PARAM_KEYS,
     odefunc,
     odefunc_plain,
+    odefunc_vjp,
     prepare,
+    stage,
 )
 from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
     odefunc_bwd,
@@ -148,8 +151,10 @@ def test_backward_kernel_matches_plain(dev, batch, side):
     h, t, _ = _inputs(dev, batch, side)
     g = torch.randn(h.shape, generator=torch.Generator().manual_seed(4)).to(dev)
     before = odefunc_bwd.launches
-    dp, dt, dh = odefunc_bwd(w, t, h, g, groups=32)
+    dp, dt, dh, f = odefunc_bwd(w, t, h, g, groups=32, with_f=True)
     assert odefunc_bwd.launches == before + 1
+    # The recomputed forward it writes is the ODEfunc kernel's, bit for bit.
+    assert torch.equal(f, odefunc(w, t, h, groups=32))
     # The plain version in float64: in f32 its cuDNN weight-gradient convs
     # are further from the exact result than the kernel (PERF.md).
     w64 = type(w)(*(x.double() for x in w))
@@ -165,10 +170,27 @@ def test_backward_kernel_matches_plain(dev, batch, side):
     assert torch.equal(_flat(odefunc_bwd(w, t, h, g, groups=32)[0]), _flat(dp))
 
 
+def test_vjp_is_one_backward_call(dev):
+    """``odefunc_vjp`` on the card: one call of the backward kernel, which
+    writes f itself, and no launch of the ODEfunc kernel."""
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], (7, 7))
+    h, t, _ = _inputs(dev, 8, 7)
+    a = torch.randn(h.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    odefunc.launches = odefunc_bwd.launches = 0
+    f, dp, dt, dh = odefunc_vjp(w, t, h, a, groups=32)
+    assert (odefunc.launches, odefunc_bwd.launches) == (0, 1)
+    np.testing.assert_allclose(f.cpu().numpy(),
+                               odefunc_plain(w, t, h, 32).cpu().numpy(),
+                               **STATE_TOL)
+    assert dt.shape == t.shape and dh.shape == h.shape
+
+
 def test_training_step_runs_the_kernels(dev):
     """The adjoint forward takes no fused step (2 + 6 per attempt ODEfunc
-    launches); each augmented eval is one ODEfunc and one backward launch,
-    and the observation-time gradient one more ODEfunc launch."""
+    launches); each augmented eval is one call of the backward kernel,
+    which writes f itself, and the observation-time gradient one more
+    ODEfunc launch."""
     trainer, (images, labels) = train_entry(device="cuda", batch=8)
     trainer.train_batch(images, labels)  # builds and warms up
     odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
@@ -176,11 +198,14 @@ def test_training_step_runs_the_kernels(dev):
     attempts = int(((trainer.last_stats.nfe - 2) // 6).max())
     assert dopri5_step.launches == 0
     assert odefunc_bwd.launches == m["nfe_b"] - 1
-    assert odefunc.launches == 2 + 6 * attempts + m["nfe_b"]
+    assert odefunc.launches == 2 + 6 * attempts + 1
     assert np.isfinite(m["loss"])
 
 
 CONV_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 9·C products, reordered
+# mma1 alone: plain TF32 keeps 11 bits per operand, about 1e-3 relative per
+# product; over sums of 576 products of mixed sign 2e-3 relative, 2e-4 absolute.
+TF32_TOL = dict(rtol=2e-3, atol=2e-4)
 
 
 @pytest.mark.parametrize("strategy", STRATEGIES)
@@ -188,16 +213,17 @@ CONV_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 9·C products, reordered
                                         (5, 6), (256, 6)])
 def test_conv_kernels_match_plain(dev, strategy, batch, side):
     x, w = probe_inputs(batch, dev, (side, side))
+    tol = TF32_TOL if strategy == "mma1" else CONV_TOL
     before = conv3x3.launches
     got = conv3x3(x, w, strategy)
     torch.cuda.synchronize()
     assert conv3x3.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(),
-                               conv3x3_plain(x, w).cpu().numpy(), **CONV_TOL)
+                               conv3x3_plain(x, w).cpu().numpy(), **tol)
     # ... and the plain version in float64 on the same inputs.
     np.testing.assert_allclose(
         got.cpu().numpy(),
-        conv3x3_plain(x.double(), w.double()).cpu().numpy(), **CONV_TOL)
+        conv3x3_plain(x.double(), w.double()).cpu().numpy(), **tol)
 
 
 def test_conv_kernel_refusals(dev):
@@ -210,6 +236,44 @@ def test_conv_kernel_refusals(dev):
         conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="float32 on"):
         conv3x3(x, w.cpu())
+    # The tensor-core stage takes C = 64 and H·(W+2) <= 64 only; the FFMA
+    # kernels take these shapes.
+    for strategy in ("mma3", "mma1"):
+        with pytest.raises(ValueError, match="does not take"):
+            conv3x3(torch.zeros((2, 8, 8, 64), device=dev), w, strategy)
+        x32, w32 = probe_inputs(2, dev, (7, 7), 32)
+        with pytest.raises(ValueError, match="does not take"):
+            conv3x3(x32, w32, strategy)
+    conv3x3(torch.zeros((2, 8, 8, 64), device=dev), w, "tap9")
+
+
+def test_fused_kernels_off_the_tensor_core_stage(dev):
+    """A shape the tensor-core stage does not take (C = 32; 8×8×64) runs the
+    FFMA stage in the same kernels, decided from the shape alone."""
+    for side, c, g in ((7, 32, 16), (8, 64, 32)):
+        cfg = dataclasses.replace(ENTRY_CONFIG, hidden=c, groups=g)
+        params = init_odenet(3, cfg, device=dev)
+        w = prepare(params["odefunc"], (side, side))
+        rng = np.random.default_rng(6)
+        h = torch.from_numpy((rng.normal(size=(4, side, side, c)) * 0.3)
+                             .astype(np.float32)).to(dev)
+        t = torch.from_numpy(rng.uniform(0, 1, 4).astype(np.float32)).to(dev)
+        assert stage((side, side), c) == "ffma"
+        np.testing.assert_allclose(
+            odefunc(w, t, h, groups=g).cpu().numpy(),
+            odefunc_plain(w, t, h, g).cpu().numpy(), **STATE_TOL)
+    # The backward kernel at 8×8×64: its input-gradient convs take the
+    # rearranged weights that the wrapper builds for the FFMA stage.
+    gg = torch.from_numpy(rng.normal(size=h.shape).astype(np.float32)).to(dev)
+    dp, dt, dh, f = odefunc_bwd(w, t, h, gg, groups=g, with_f=True)
+    w64 = type(w)(*(x.double() for x in w))
+    dp_p, dt_p, dh_p = odefunc_bwd_plain(w64, t.double(), h.double(),
+                                         gg.double(), g)
+    assert torch.equal(f, odefunc(w, t, h, groups=g))
+    np.testing.assert_allclose(dh.cpu().numpy(), dh_p.cpu().numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(_flat(dp).cpu().numpy(),
+                               _flat(dp_p).cpu().numpy(), **DP_TOL)
 
 
 def test_extraction_path_runs_the_kernels(dev):

@@ -10,27 +10,49 @@ import numpy as np
 import pytest
 import torch
 
-from neural_ode_features_tpu.kernels.odefunc_pallas import odefunc_pallas
+from neural_ode_features_tpu.kernels.odefunc_pallas import (
+    odefunc_pallas,
+    odefunc_pallas_vjp,
+)
 from neural_ode_features_tpu.kernels.rk_step_pallas import (
     make_fused_dopri5_step as jax_make_fused_step,
 )
 from neural_ode_features_tpu.models import ModelConfig as JaxConfig
 from neural_ode_features_tpu.models import init_odenet as jax_init_odenet
+from neural_ode_features_tpu.models import odenet_logits as jax_logits
 from neural_ode_features_tpu.models.odenet import odefunc_apply as jax_odefunc
 from neural_ode_features_tpu.solver.runge_kutta import _error_ratio, _rk_attempt
 from neural_ode_features_tpu.solver.tableau import DOPRI5 as JAX_DOPRI5
+from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG
+from neural_ode_features_tpu_torch.kernels import odefunc as odefunc_mod
+from neural_ode_features_tpu_torch.kernels.conv3x3 import conv3x3_plain
 from neural_ode_features_tpu_torch.kernels.odefunc import (
+    MAX_SMEM,
+    PARAM_KEYS,
     odefunc,
     odefunc_plain,
+    odefunc_vjp,
     prepare,
+    smem_bytes,
+    stage,
     supported,
+)
+from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+    bwd_smem_bytes,
+    bwd_supported,
+    odefunc_bwd_plain,
 )
 from neural_ode_features_tpu_torch.kernels.rk_step import (
     CONV_STRATEGIES,
     dopri5_step_plain,
     make_fused_dopri5_step,
 )
-from neural_ode_features_tpu_torch.models import ModelConfig, odefunc_apply
+from neural_ode_features_tpu_torch.models import (
+    ModelConfig,
+    odefunc_apply,
+    odenet_logits,
+)
+from neural_ode_features_tpu_torch.ops import layers
 from neural_ode_features_tpu_torch.solver import DOPRI5
 from neural_ode_features_tpu_torch.utils import from_jax_params
 
@@ -145,3 +167,157 @@ def test_gate():
     assert not supported((7, 7), 128, 32)  # 13 conv pixels per thread
     assert not supported((7, 7), 48, 32)  # C % groups
     assert not supported((28, 28), 64, 32)  # shared memory
+
+
+# ---- the tensor-core conv stage: gates, mirrors, arithmetic, the f output --
+
+
+def test_stage_is_decided_by_the_shape():
+    assert stage((7, 7), 64) == "mma3"      # 7 * 9 = 63 padded-pitch positions
+    assert stage((6, 6), 64) == "mma3"      # 48
+    assert stage((1, 62), 64) == "mma3"     # exactly 64
+    assert stage((1, 63), 64) == "ffma"     # 65
+    assert stage((8, 8), 64) == "ffma"      # 80
+    assert stage((7, 7), 32) == "ffma" and stage((5, 5), 128) == "ffma"
+
+
+def test_smem_mirrors_by_hand():
+    # 7×7×64, 32 groups, tensor-core layout, in floats: state 49·64; conv
+    # input (64 + 2·9 + 2 = 84 rows) × (64 + 8); ring 3 × 64 × 72; two
+    # partial-sum buffers of 512; 2 × 32 statistics.
+    assert smem_bytes((7, 7), 64, 32) == 4 * (3136 + 84 * 72 + 3 * 64 * 72
+                                              + 1024 + 64) == 96384
+    # 6×6×64: 36·64; (64 + 2·8 + 2 = 82 rows) × 72.
+    assert smem_bytes((6, 6), 64, 32) == 4 * (2304 + 82 * 72 + 13824
+                                              + 1024 + 64) == 92480
+    # The FFMA layout at 7×7×64 (the probe's tap9): 81 rows × 64, two
+    # (64, 64) weight buffers.
+    assert smem_bytes((7, 7), 64, 32, "ffma") == 4 * (3136 + 81 * 64
+                                                      + 2 * 4096 + 1024
+                                                      + 64) == 70400
+    # The backward's per-sample pass adds u (49·64), 6 × 32 statistics and
+    # 4 × 64 channel sums.
+    assert bwd_smem_bytes((7, 7), 64, 32) == 96384 + 4 * (3136 + 192
+                                                          + 256) == 110720
+    # Two CTAs per SM: 228 KB of shared memory, 1 KB reserved per CTA.
+    for nbytes in (smem_bytes((7, 7), 64, 32) + 1024,  # + the static tableau
+                   bwd_smem_bytes((7, 7), 64, 32)):
+        assert 2 * (nbytes + 1024) <= 228 * 1024
+    assert supported((7, 7), 64, 32, "ffma") and supported((1, 62), 64, 32)
+
+
+def _gate_before_the_tensor_core_stage(hw, c, groups):
+    """``supported`` as it was when the kernels had the FFMA stage alone."""
+    hh, ww = hw
+    if hh < 1 or ww < 1 or c < 4 or c % 4 or 512 % c or c % groups:
+        return False, 0
+    nbytes = 4 * (hh * ww * c + (hh + 2) * (ww + 2) * c + 2 * c * c + 512
+                  + 2 * groups)
+    return -(-hh * ww // (512 // c)) <= 8 and nbytes <= MAX_SMEM, nbytes
+
+
+def test_gates_did_not_shrink():
+    """Every shape the kernels took with the FFMA stage alone they still
+    take, forward and backward."""
+    taken = taken_bwd = 0
+    sides = list(range(1, 13)) + [16, 31, 32, 62, 64, 128]
+    for c in (4, 8, 16, 32, 64, 128, 256, 512):
+        for groups in {1, 2, c // 4, c // 2, c, 32}:
+            for hh in sides:
+                for ww in sides:
+                    was, nbytes = _gate_before_the_tensor_core_stage(
+                        (hh, ww), c, groups)
+                    if not was:
+                        continue
+                    taken += 1
+                    assert supported((hh, ww), c, groups), (hh, ww, c, groups)
+                    was_bwd = (c % 64 == 0 and nbytes + 4 * (
+                        hh * ww * c + 512 + 6 * groups + 4 * c) <= MAX_SMEM)
+                    if was_bwd:
+                        taken_bwd += 1
+                        assert bwd_supported((hh, ww), c, groups), (hh, ww, c,
+                                                                    groups)
+    assert taken > 1000 and taken_bwd > 100
+
+
+def _tensor_core_conv2d(original):
+    """``ops.layers.conv2d`` with every 3×3 C → C SAME conv (the ODEfunc's
+    two) computed as the tensor-core stage computes it: three TF32 products
+    per tap (``conv3x3_plain(passes=3)``).  Everything else as it was."""
+
+    def conv2d(params, x, *, stride=1, padding="SAME"):
+        k = params["kernel"]
+        if (tuple(k.shape[:2]) == (3, 3) and k.shape[2] == k.shape[3]
+                == x.shape[-1] and stride == 1 and padding == 1
+                and x.dtype == torch.float32):
+            conv2d.calls += 1
+            return conv3x3_plain(x, k.float(), passes=3) + params["bias"]
+        return original(params, x, stride=stride, padding=padding)
+
+    conv2d.calls = 0
+    return conv2d
+
+
+def test_slice_matches_jax_under_the_tensor_core_arithmetic(monkeypatch):
+    """The slice as a whole with the ODEfunc's convs in 3×TF32: per-sample
+    NFE and the accept/reject counts equal the JAX package's exactly, logits
+    within rtol = atol = 1e-3 (the slice's existing tolerance: the solver's
+    own), on the same numpy-seeded input and JAX-initialised weights through
+    the converter."""
+    patched = _tensor_core_conv2d(layers.conv2d)
+    monkeypatch.setattr(layers, "conv2d", patched)          # odefunc_apply
+    monkeypatch.setattr(odefunc_mod, "conv2d", patched)     # odefunc_plain
+    b = 4
+    cfg_j = JaxConfig(in_channels=3, tol=1e-3, error_control="per_sample")
+    params_j = jax_init_odenet(jax.random.PRNGKey(7), cfg_j)
+    x = np.random.default_rng(0).normal(size=(b, 32, 32, 3)).astype(np.float32)
+    logits, stats = odenet_logits(from_jax_params(params_j, device="cpu"),
+                                  torch.from_numpy(x), ENTRY_CONFIG)
+    # f0, the initial-step probe and 12 convs per fused attempt.
+    assert patched.calls == 2 * 2 + 12 * int(((stats.nfe - 2) // 6).max())
+    logits_j, stats_j = jax_logits(params_j, jnp.asarray(x), cfg_j)
+    np.testing.assert_array_equal(stats.nfe.numpy(), np.asarray(stats_j.nfe))
+    np.testing.assert_array_equal(stats.naccept.numpy(),
+                                  np.asarray(stats_j.naccept))
+    np.testing.assert_array_equal(stats.nreject.numpy(),
+                                  np.asarray(stats_j.nreject))
+    assert bool(stats.success.all())
+    np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("batch,side", [(4, 7), (3, 6)])
+def test_backward_f_output_matches_jax(odefunc_params, batch, side):
+    """``odefunc_bwd_plain(with_f=True)`` and ``odefunc_vjp``: the f they
+    return against the JAX fused kernel pair's forward (interpret mode) at
+    the f(t, h) tolerance, and the VJP beside it against ``jax.grad``
+    through that pair at the tolerances of tests/test_pallas.py (dh 2e-4 /
+    2e-5, dθ 3e-4 / 3e-4: sums over B·H·W products)."""
+    cfg, pj, pt = odefunc_params
+    pj32 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), pj)
+    rng = np.random.default_rng(50 + side)
+    h = rng.normal(size=(batch, side, side, 64)).astype(np.float32)
+    g = rng.normal(size=h.shape).astype(np.float32)
+    t = rng.uniform(0.1, 0.9, batch).astype(np.float32)
+    hj, gj, tj = jnp.asarray(h), jnp.asarray(g), jnp.asarray(t)
+    f_j = odefunc_pallas_vjp(pj32, tj, hj, 32, True)
+    gp, gh = jax.grad(
+        lambda p, hh: jnp.sum(odefunc_pallas_vjp(p, tj, hh, 32, True) * gj),
+        argnums=(0, 1))(pj32, hj)
+
+    w = prepare(pt, (side, side))
+    args = (torch.from_numpy(t), torch.from_numpy(h), torch.from_numpy(g))
+    dp, dt_b, dh, f = odefunc_bwd_plain(w, *args, 32, with_f=True)
+    assert len(odefunc_bwd_plain(w, *args, 32)) == 3
+    f_v, dp_v, dt_v, dh_v = odefunc_vjp(pt, *args, groups=32)
+    assert torch.equal(f_v, f) and torch.equal(dh_v, dh)
+    assert torch.equal(f, odefunc_plain(w, args[0], args[1], 32))
+    assert not f.requires_grad and dt_v.shape == (batch,)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_j), **STATE_TOL)
+    np.testing.assert_allclose(dh.numpy(), np.asarray(gh), rtol=2e-4,
+                               atol=2e-5)
+    flat_t = np.concatenate([dp[a][b].numpy().reshape(-1)
+                             for a, b in PARAM_KEYS])
+    flat_j = np.concatenate([np.asarray(gp[a][b]).reshape(-1)
+                             for a, b in PARAM_KEYS])
+    np.testing.assert_allclose(flat_t, flat_j, rtol=3e-4, atol=3e-4)
