@@ -9,7 +9,14 @@ Phases (any failed check exits nonzero and prints no result):
    ``nvcc`` per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (B = 256 for inference, B = 128 for training,
-   7×7×64), the fused step and the backward kernel also at a ragged B = 5.
+   7×7×64), the fused step and the backward kernel also at a ragged B = 5;
+   the fused step takes its tolerances as ``(B,)`` arrays, checked at mixed
+   values against the plain version and, row by row, bit-identical to
+   launches at one float.  The ODEfunc kernel and the fused step (at the
+   sweep's four tolerances, a quarter of the rows each) also at the other
+   shapes the paths below give them: 1,024 stacked rows of 7×7×64 (the
+   fused sweep's launch) and the MNIST block's 6×6×64 at B = 128, 256 and
+   1,024; the backward kernel also at 6×6×64, B = 128.
    The backward kernel is held against its plain version in float64 (the
    f32 plain version's cuDNN weight gradients are less exact than the
    kernel), its f output against the ODEfunc kernel's; two backward
@@ -48,7 +55,34 @@ Phases (any failed check exits nonzero and prints no result):
    the same images in a full batch, ``nfe_sort`` against the unsorted run,
    ``odeint_dense`` at a small step budget against the trajectory; then
    ``save_features`` (.npz) → ``evaluate_features`` per t on the card.
-7. Time each kernel, its plain version and the library yardstick (one f
+7. The experiment CLIs at full width (hidden 64, groups 32), each through
+   its ``main``.  ``[train-cli]``: ``train`` on ``synthetic-cifar10``
+   (ODE-Net, adjoint, B = 128, ``--limit`` 1,280) for 2 epochs, then the
+   same run stopped there and launched with ``--epochs 3``, which must
+   resume at epoch 2 (``--epochs`` is part of the run identity, as in the
+   JAX CLI, so the 2-epoch directory is given the 3-epoch run's identity:
+   the state a stopped 3-epoch run is in); the run directory's name, the
+   nine-column ``log.csv``, the checkpoints, and per train step the launch
+   counts 2 + 6·attempts + 1 of the ODEfunc kernel and nfe_b − 1 of the
+   backward kernel, per evaluation batch 2 and one fused step per attempt;
+   one epoch each with ``--adjoint-seminorm`` and ``--adjoint-mode
+   interpolated`` (their gradients on one fixed batch against the
+   reintegrating adjoint's at a loss scaled by 1,000, where the seminorm
+   must also take no more backward evaluations than the full norm; its
+   epoch's mean ``nfe_b`` within 10% of the plain run's); a ResNet and a
+   fixed-grid (rk4, direct backprop) ODE-Net on ``synthetic-mnist``, and
+   that rk4 step's loss and gradients on one fixed batch through the
+   kernels against the plain path in float64.  ``[pipeline]``: ``extract``
+   and ``evaluate`` on that run directory.  ``[sweep]``: ``sweep`` on it at
+   four tolerances, B = 256, per tolerance and ``--fused`` (the grid stacked
+   on the batch axis, one fused step per attempt for all tolerances): equal
+   ``top1`` and NFE columns, NFE non-decreasing as the tolerance tightens;
+   one stacked batch of the run directory's model (7×7×64) and one of the
+   random ``synthetic-mnist`` model (6×6×64), each tolerance's rows against
+   the loop's solve (equal NFE, logits at 1e-5) and against the plain path
+   (logits at 1e-3); one tolerance on the CPU plain path against the card;
+   the random-init modes (32×32×3 noise, and ``synthetic-mnist``).
+8. Time each kernel, its plain version and the library yardstick (one f
    through cuDNN: ``F.group_norm``/``F.conv2d`` on NCHW with the t channel
    concatenated; for the backward, ``torch.autograd.grad`` through it; for
    the conv probe, ``F.conv2d``), the whole inference solve in img/s, the
@@ -67,6 +101,7 @@ JAX.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import statistics
@@ -87,6 +122,9 @@ DP_TOL = dict(rtol=3e-4, atol=3e-4)      # dθ: sums over B·H·W products
 CONV_TOL = dict(rtol=1e-4, atol=1e-5)    # one conv: sums of 576 products
 TF32_TOL = dict(rtol=2e-3, atol=2e-4)    # mma1 alone: plain TF32, 11-bit operands
 T_OUT = 11                               # extract's default --timestamps
+LOSS_SCALE = 1e3                         # adjoint variants: |a_y| well above atol
+SEMINORM_MARGIN = 0.1                    # seminorm epoch: mean nfe_b over the plain run's
+SWEEP_TOLS = (1e-1, 1e-2, 1e-3, 1e-4)    # sweep's default --tols
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
 PEAK_TF32_FLOPS = 495e12                 # H100 SXM, TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
@@ -159,7 +197,12 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import torch.nn.functional as F
+    from torch.utils import _pytree as pytree
 
+    from neural_ode_features_tpu_torch import evaluate as evaluate_cli
+    from neural_ode_features_tpu_torch import extract as extract_cli
+    from neural_ode_features_tpu_torch import sweep as sweep_cli
+    from neural_ode_features_tpu_torch import train as train_cli
     from neural_ode_features_tpu_torch.data import load_dataset
     from neural_ode_features_tpu_torch.entry import (
         ENTRY_CONFIG,
@@ -197,7 +240,9 @@ def main() -> int:
         dopri5_step_plain,
     )
     from neural_ode_features_tpu_torch.models import (
+        ModelConfig,
         head_apply,
+        init_odenet,
         odenet_logits,
         odenet_trajectory,
         pool_features,
@@ -211,8 +256,11 @@ def main() -> int:
         odeint_adjoint,
         odeint_dense,
     )
+    from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
     from neural_ode_features_tpu_torch.utils import (
+        Experiment,
         load_checkpoint,
+        resolve_checkpoint,
         save_checkpoint,
     )
 
@@ -221,6 +269,24 @@ def main() -> int:
         of ``keys`` (``torch.profiler`` over ``reps`` warm calls)."""
         return {k: v / 1e3
                 for k, v in conv_probe.device_us(fn, keys, reps).items()}
+
+    def read_counts():
+        return {"odefunc": odefunc.launches,
+                "odefunc_bwd": odefunc_bwd.launches,
+                "rk_step": dopri5_step.launches}
+
+    def counted(fn):
+        """``fn()`` with every launch counter set to 0 just before and read
+        just after: ``(result, seconds, counts)``."""
+        odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t_s, read_counts()
+
+    def batch_attempts(nfe):
+        return int(((nfe - 2) // 6).max())
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -254,18 +320,42 @@ def main() -> int:
     dt = torch.from_numpy(rng.uniform(0.05, 0.2, B).astype(np.float32)).to(dev)
     y0 = h.reshape(B, -1)
     f0 = odefunc_plain(w, t0, h, G).reshape(B, -1)
-    step_kw = dict(hw=(HH, WW), groups=G, rtol=TOL, atol=TOL)
+    # The tolerances as the kernel reads them: (B,) arrays.
+    tol_rows = torch.full((B,), TOL, device=dev)
+    step_kw = dict(hw=(HH, WW), groups=G, rtol=tol_rows, atol=tol_rows)
     err_k2 = 0.0
     for nb in (B, 5):  # 5: a ragged batch
+        kw_nb = dict(step_kw, rtol=tol_rows[:nb], atol=tol_rows[:nb])
         got = dopri5_step(w, DOPRI5, t0[:nb], dt[:nb], y0[:nb].contiguous(),
-                          f0[:nb].contiguous(), **step_kw)
+                          f0[:nb].contiguous(), **kw_nb)
         want = dopri5_step_plain(w, DOPRI5, t0[:nb], dt[:nb], y0[:nb],
-                                 f0[:nb], **step_kw)
+                                 f0[:nb], **kw_nb)
         for name, g, r in zip(("y1", "f1", "y_mid"), got[:3], want[:3]):
             err_k2 = max(err_k2, close(f"rk_step {name} B={nb}", g, r,
                                        **STATE_TOL))
         close(f"rk_step ratio B={nb}", got[3], want[3], **RATIO_TOL)
+    # Mixed per-row tolerances (the sweep's grid stacked on the batch axis):
+    # against the plain version, and every row bit-identical to a launch at
+    # that row's tolerance as one float.
+    mixed = torch.tensor(SWEEP_TOLS, device=dev).repeat_interleave(
+        B // len(SWEEP_TOLS))
+    kw_mixed = dict(step_kw, rtol=mixed, atol=mixed)
+    got = dopri5_step(w, DOPRI5, t0, dt, y0, f0, **kw_mixed)
+    want = dopri5_step_plain(w, DOPRI5, t0, dt, y0, f0, **kw_mixed)
+    for name, g, r in zip(("y1", "f1", "y_mid"), got[:3], want[:3]):
+        close(f"rk_step {name} mixed tolerances", g, r, **STATE_TOL)
+    close("rk_step ratio mixed tolerances", got[3], want[3], **RATIO_TOL)
+    for tol in SWEEP_TOLS:
+        one = dopri5_step(w, DOPRI5, t0, dt, y0, f0,
+                          **dict(step_kw, rtol=tol, atol=tol))
+        sel = mixed == torch.tensor(tol, device=dev)
+        if not all(torch.equal(a[sel], b[sel]) for a, b in zip(got, one)):
+            fail(f"rk_step: rows at tolerance {tol} of a mixed launch differ "
+                 "from a launch at that tolerance")
     torch.cuda.synchronize()
+    print(f"[check] rk_step with (B,) tolerances {SWEEP_TOLS}: within "
+          f"tolerance of the plain version; rows bit-identical to launches "
+          f"at one float")
     print(f"[check] odefunc max abs err {err_k1:.3e}; rk_step max abs err "
           f"{err_k2:.3e} (B={B} and B=5)")
 
@@ -276,32 +366,78 @@ def main() -> int:
     hb = h[:B_TRAIN].contiguous()
     tb = t[:B_TRAIN].contiguous()
     gb = torch.from_numpy((rng.normal(size=hb.shape)).astype(np.float32)).to(dev)
-    w64 = type(w)(*(x.double() for x in w))
-    err_k4 = 0.0
-    for nb in (B_TRAIN, 5):  # 5: a ragged batch
-        args = (tb[:nb].contiguous(), hb[:nb].contiguous(),
-                gb[:nb].contiguous())
-        dp, dtk, dh, f_b = odefunc_bwd(w, *args, groups=G, with_f=True)
-        dp2 = odefunc_bwd(w, *args, groups=G)[0]
-        if not torch.equal(f_b, odefunc(w, args[0], args[1], groups=G)):
-            fail(f"odefunc_bwd f B={nb}: differs from the ODEfunc kernel's")
+
+    def check_bwd(w_, args, tag):
+        """Hold one backward call against the f64 plain version; return dh's
+        max abs err."""
+        w64 = type(w_)(*(x.double() for x in w_))
+        dp, dtk, dh, f_b = odefunc_bwd(w_, *args, groups=G, with_f=True)
+        dp2 = odefunc_bwd(w_, *args, groups=G)[0]
+        if not torch.equal(f_b, odefunc(w_, args[0], args[1], groups=G)):
+            fail(f"odefunc_bwd f {tag}: differs from the ODEfunc kernel's")
         dp_p, dt_p, dh_p = odefunc_bwd_plain(w64, *(a.double() for a in args),
                                              G)
-        dp_32 = odefunc_bwd_plain(w, *args, G)[0]
-        err_k4 = max(err_k4, close(f"odefunc_bwd dh B={nb}", dh.double(),
-                                   dh_p, **STATE_TOL))
-        close(f"odefunc_bwd dt B={nb}", dtk.double(), dt_p, **STATE_TOL)
-        err_dp = close(f"odefunc_bwd dθ B={nb}", flat(dp).double(),
+        dp_32 = odefunc_bwd_plain(w_, *args, G)[0]
+        err_dh = close(f"odefunc_bwd dh {tag}", dh.double(), dh_p, **STATE_TOL)
+        close(f"odefunc_bwd dt {tag}", dtk.double(), dt_p, **STATE_TOL)
+        err_dp = close(f"odefunc_bwd dθ {tag}", flat(dp).double(),
                        flat(dp_p), **DP_TOL)
         err_32 = float((flat(dp_32).double() - flat(dp_p)).abs().max())
         if not torch.equal(flat(dp), flat(dp2)):
-            fail(f"odefunc_bwd dθ B={nb}: two launches differ")
-        print(f"[check] odefunc_bwd B={nb} vs the f64 plain version: dθ max "
+            fail(f"odefunc_bwd dθ {tag}: two launches differ")
+        print(f"[check] odefunc_bwd {tag} vs the f64 plain version: dθ max "
               f"abs err {err_dp:.3e} (the f32 plain version's: {err_32:.3e})")
+        return err_dh
+
+    err_k4 = 0.0
+    for nb in (B_TRAIN, 5):  # 5: a ragged batch
+        err_k4 = max(err_k4, check_bwd(
+            w, (tb[:nb].contiguous(), hb[:nb].contiguous(),
+                gb[:nb].contiguous()), f"B={nb}"))
     torch.cuda.synchronize()
     print(f"[check] odefunc_bwd dh max abs err {err_k4:.3e}; dt and dθ "
           f"within tolerance; f bit-identical to the ODEfunc kernel's; dθ "
           f"bit-identical across two launches (B={B_TRAIN} and B=5)")
+
+    # The other shapes that the paths below give the fused kernels: the
+    # fused sweep's launch (its grid of tolerances stacked on the batch axis,
+    # 1,024 rows) at 7×7×64, and the MNIST block's 6×6×64 at B = 128
+    # (training and its evaluation batches), B = 256 and 1,024 stacked rows
+    # (the sweep).  The fused step takes the grid's tolerances, a quarter of
+    # the rows each, as the stacked launch does; the backward kernel runs at
+    # the training batch only.
+    n_grid = len(SWEEP_TOLS)
+    for hw_, nb in (((HH, WW), n_grid * B), ((6, 6), B_TRAIN), ((6, 6), B),
+                    ((6, 6), n_grid * B)):
+        tag = f"{hw_[0]}x{hw_[1]}x{C} B={nb}"
+        w_ = prepare(params["odefunc"], hw_)
+        h_ = torch.from_numpy((rng.normal(size=(nb, *hw_, C)) * 0.3)
+                              .astype(np.float32)).to(dev)
+        t_ = torch.from_numpy(rng.uniform(0, 0.5, nb)
+                              .astype(np.float32)).to(dev)
+        dt_ = torch.from_numpy(rng.uniform(0.05, 0.2, nb)
+                               .astype(np.float32)).to(dev)
+        f_ = odefunc_plain(w_, t_, h_, G)
+        err_f = close(f"odefunc {tag}", odefunc(w_, t_, h_, groups=G), f_,
+                      **STATE_TOL)
+        tol_ = torch.tensor(SWEEP_TOLS, device=dev).repeat_interleave(
+            nb // n_grid)
+        kw_ = dict(hw=hw_, groups=G, rtol=tol_, atol=tol_)
+        y_, f0_ = h_.reshape(nb, -1), f_.reshape(nb, -1)
+        got = dopri5_step(w_, DOPRI5, t_, dt_, y_, f0_, **kw_)
+        want = dopri5_step_plain(w_, DOPRI5, t_, dt_, y_, f0_, **kw_)
+        err_s = max(close(f"rk_step {name} {tag}", g, r, **STATE_TOL)
+                    for name, g, r in zip(("y1", "f1", "y_mid"), got[:3],
+                                          want[:3]))
+        close(f"rk_step ratio {tag}", got[3], want[3], **RATIO_TOL)
+        print(f"[check] {tag}: odefunc max abs err {err_f:.3e}; rk_step at "
+              f"tolerances {SWEEP_TOLS} max abs err {err_s:.3e}, ratio within "
+              f"tolerance")
+        if nb == B_TRAIN:
+            g_ = torch.from_numpy(rng.normal(size=h_.shape)
+                                  .astype(np.float32)).to(dev)
+            check_bwd(w_, (t_, h_, g_), tag)
+    torch.cuda.synchronize()
 
     # One augmented evaluation of the adjoint is one backward call.
     odefunc.launches = odefunc_bwd.launches = 0
@@ -365,15 +501,8 @@ def main() -> int:
                  f"F.conv2d {res['library_us']:.1f} us")
 
     # 3. Main path, counters from 0.
-    odefunc.launches = 0
-    dopri5_step.launches = 0
-    torch.cuda.synchronize()
-    t_main = time.perf_counter()
-    logits, nfe = fwd(params, x)
-    torch.cuda.synchronize()
-    t_main = time.perf_counter() - t_main
-    launches = {"odefunc": odefunc.launches, "rk_step": dopri5_step.launches}
-    attempts = int(((nfe - 2) // 6).max())
+    (logits, nfe), t_main, launches = counted(lambda: fwd(params, x))
+    attempts = batch_attempts(nfe)
     print(f"[main] B={B}: {t_main:.3f} s (first call), launches {launches}, "
           f"attempts {attempts}, NFE mean {float(nfe.float().mean()):.2f} "
           f"min {int(nfe.min())} max {int(nfe.max())}")
@@ -382,6 +511,9 @@ def main() -> int:
     if launches["rk_step"] != attempts or attempts < 1:
         fail(f"rk_step kernel launched {launches['rk_step']} times for "
              f"{attempts} attempts")
+    if launches["odefunc_bwd"] != 0:
+        fail(f"odefunc_bwd launched {launches['odefunc_bwd']} times in an "
+             "inference solve")
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on")
     if tuple(logits.shape) != (B, 10) or not bool(torch.isfinite(logits).all()):
@@ -418,13 +550,14 @@ def main() -> int:
                                error_control="global", max_steps=512)
     xs = normalize(torch.from_numpy(images[:16]).to(dev), trainer.cfg.dataset)
     ys = torch.from_numpy(labels[:16]).to(dev)
-    def adjoint_grads(logits):
-        loss = F.cross_entropy(logits, ys)
+    def adjoint_grads(logits, scale=1.0):
+        loss = scale * F.cross_entropy(logits, ys)
         grads = torch.autograd.grad(loss, leaves(tp))
         return float(loss.detach()), torch.cat([g.reshape(-1) for g in grads])
 
-    loss_k, grads_k = adjoint_grads(odenet_logits(tp, xs, mcfg,
-                                                  adjoint=True)[0])
+    logits_k, stats_k = odenet_logits(tp, xs, mcfg, adjoint=True)
+    loss_k, grads_k = adjoint_grads(logits_k)
+    nfe_b_k = int(stats_k.nfe_b)
     h0 = stem_apply(tp["stem"], xs, mcfg)
     traj, _ = odeint_adjoint(
         lambda p, tt, y: odefunc_plain(prepare(p, (HH, WW)), tt, y, G),
@@ -437,6 +570,49 @@ def main() -> int:
     rel, cos = gradient_bar("adjoint gradients vs plain", grads_k, grads_p)
     print(f"[train] parity B=16 tol 1e-5 global: loss {loss_k:.7f} vs "
           f"{loss_p:.7f} plain; gradients rel-L2 {rel:.3e}, cosine {cos:.8f}")
+
+    # The other adjoint variants on the same batch against the
+    # reintegrating adjoint's gradients (before the weights are trained).
+    # Both change what the backward solve's error norm sees: the seminorm
+    # leaves a_θ out and the interpolated adjoint leaves y out, so what is
+    # left is held to atol + rtol·|a|, and at the mean loss's scale (|a_y|
+    # about 1e-4) atol = 1e-5 resolves it to a few percent only (a property
+    # of the methods at rtol = atol, the same in the JAX package).  So they
+    # are held to the bar at a loss scaled by LOSS_SCALE, where rtol
+    # governs, and the readings at the mean loss's scale are printed.
+    def variant_grads(change, scale):
+        odefunc_bwd.launches = 0
+        logits_v, stats_v = odenet_logits(
+            tp, xs, dataclasses.replace(mcfg, **change), adjoint=True)
+        loss_v, grads_v = adjoint_grads(logits_v, scale)
+        if odefunc_bwd.launches != int(stats_v.nfe_b) - 1:
+            fail(f"[train-cli] {change}: odefunc_bwd launched "
+                 f"{odefunc_bwd.launches} times for nfe_b "
+                 f"{int(stats_v.nfe_b)}")
+        return loss_v, grads_v, int(stats_v.nfe_b)
+
+    scaled = variant_grads({}, LOSS_SCALE)
+    for scale, (loss_r, grads_r, nfe_b_r) in (
+            (1.0, (loss_k, grads_k, nfe_b_k)), (LOSS_SCALE, scaled)):
+        for tag, change in (("seminorm", dict(adjoint_seminorm=True)),
+                            ("interpolated",
+                             dict(adjoint_mode="interpolated"))):
+            loss_v, grads_v, nfe_b_v = variant_grads(change, scale)
+            if scale == 1.0:
+                rel = float((grads_v - grads_r).double().norm()
+                            / grads_r.double().norm())
+                verdict = f"rel-L2 {rel:.3e} (a reading)"
+            else:
+                rel, cos = gradient_bar(f"{tag} adjoint gradients", grads_v,
+                                        grads_r)
+                verdict = f"rel-L2 {rel:.3e}, cosine {cos:.8f}"
+                if tag == "seminorm" and nfe_b_v > nfe_b_r:
+                    fail(f"seminorm nfe_b {nfe_b_v} above the full norm's "
+                         f"{nfe_b_r} on the fixed batch, loss x{scale:g}")
+            print(f"[train-cli] {tag} vs reintegrating adjoint, B=16 tol "
+                  f"1e-5 global, loss x{scale:g}: loss {loss_v:.7f} vs "
+                  f"{loss_r:.7f}; gradients {verdict}; nfe_b {nfe_b_v} vs "
+                  f"{nfe_b_r}")
 
     # 5. The training path at full width, counters from 0 before each step.
     train_launches, nfe_f, nfe_b = [], [], []
@@ -488,19 +664,6 @@ def main() -> int:
             fail("the checkpoint's parameters did not round-trip")
     ekw = dict(dataset=dataset, timestamps=T_OUT, batch_size=B)
 
-    def counted(fn):
-        odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
-        torch.cuda.synchronize()
-        t_s = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t_s, {
-            "odefunc": odefunc.launches, "odefunc_bwd": odefunc_bwd.launches,
-            "rk_step": dopri5_step.launches}
-
-    def batch_attempts(nfe):
-        return int(((nfe - 2) // 6).max())
-
     # One full batch: the counters exactly.
     first, _, got = counted(lambda: extract_features(
         eparams, ecfg, test_images[:B], test_labels[:B], **ekw))
@@ -513,6 +676,7 @@ def main() -> int:
     # The whole split.
     feats, t_all, got = counted(lambda: extract_features(
         eparams, ecfg, test_images, test_labels, **ekw))
+    extract_launches = got
     n_img = len(test_images)
     n_batches = -(-n_img // B)
     n_full = n_img // B
@@ -639,7 +803,381 @@ def main() -> int:
           f"{len(loaded['t'])} times over {n_img} samples in "
           f"{time.perf_counter() - t_s:.1f} s")
 
-    # 7. Times.
+    # 7. The experiment CLIs at full width.
+    def log_rows(run_dir):
+        with open(Path(run_dir) / "log.csv", newline="") as f:
+            return list(csv.DictReader(f))
+
+    # Every train step and evaluation batch of a CLI run, with the launches
+    # it made: the trainer's two methods are watched from here.
+    steps, evals = [], []
+    plain_train, plain_eval = Trainer.train_batch, Trainer.eval_batch
+
+    def watched_train(self, *a, **k):
+        before = read_counts()
+        m = plain_train(self, *a, **k)
+        after = read_counts()
+        stats = self.last_stats
+        steps.append({
+            "launches": {n: after[n] - before[n] for n in after},
+            "attempts": (None if stats is None or self.cfg.solver != "dopri5"
+                         else batch_attempts(stats.nfe)),
+            "nfe_b": int(m["nfe_b"]), "loss": m["loss"]})
+        return m
+
+    def watched_eval(self, *a, **k):
+        before = read_counts()
+        m = plain_eval(self, *a, **k)
+        after = read_counts()
+        evals.append({n: after[n] - before[n] for n in after})
+        return m
+
+    def run_train(argv):
+        """``train.main(argv)`` with the counters from 0; returns the run
+        directory, the counts, the steps and the evaluation batches."""
+        steps.clear()
+        evals.clear()
+        Trainer.train_batch, Trainer.eval_batch = watched_train, watched_eval
+        try:
+            run, t_run, got = counted(lambda: Path(train_cli.main(argv)))
+        finally:
+            Trainer.train_batch, Trainer.eval_batch = plain_train, plain_eval
+        return run, t_run, got, list(steps), list(evals)
+
+    columns = ["epoch", "train_loss", "train_acc", "nfe_f", "nfe_b", "time_s",
+               "test_loss", "test_acc", "test_nfe"]
+    cli_launches = {}
+    with tempfile.TemporaryDirectory() as runs:
+        base = ["--dataset", "synthetic-cifar10", "--batch-size",
+                str(B_TRAIN), "--limit", "1280", "--runs-dir", runs]
+        argv2, argv3 = [*base, "--epochs", "2"], [*base, "--epochs", "3"]
+        run2, t_run, got, st, ev = run_train(argv2)
+        cli_launches["train"] = got
+        ident2 = train_cli.run_identity(train_cli.parse_args(argv2))
+        if run2.name != Experiment.name_from_params(ident2):
+            fail(f"[train-cli] run directory {run2.name}")
+        rows = log_rows(run2)
+        print(f"[train-cli] 2 epochs, {len(st)} steps, {len(ev)} evaluation "
+              f"batches in {t_run:.1f} s; launches {got}")
+        for r in rows:
+            print("[train-cli]   " + " | ".join(f"{k}={v}"
+                                                for k, v in r.items()))
+        if len(rows) != 2 or list(rows[0]) != columns:
+            fail(f"[train-cli] log.csv: {rows}")
+        if not all(float(r["nfe_f"]) > 0 and float(r["nfe_b"]) > 0
+                   for r in rows):
+            fail("[train-cli] nfe_f or nfe_b is 0")
+        for i, s_ in enumerate(st):
+            want = {"odefunc": 2 + 6 * s_["attempts"] + 1,
+                    "odefunc_bwd": s_["nfe_b"] - 1, "rk_step": 0}
+            if s_["launches"] != want or s_["nfe_b"] < 2:
+                fail(f"[train-cli] step {i}: launches {s_['launches']}, "
+                     f"expected {want}")
+        for i, e_ in enumerate(ev):
+            if (e_["odefunc"] != 2 or e_["odefunc_bwd"] != 0
+                    or e_["rk_step"] < 1):
+                fail(f"[train-cli] evaluation batch {i}: launches {e_}")
+        if len(st) != 2 * 10 or len(ev) != 2 * 10:
+            fail(f"[train-cli] {len(st)} steps and {len(ev)} evaluation "
+                 f"batches, not 20 and 20")
+        total = {n: sum(x["launches"][n] for x in st) + sum(x[n] for x in ev)
+                 for n in got}
+        if total != got:
+            fail(f"[train-cli] launches {got}, the steps' sum {total}")
+        for name in ("ckpt_best.pt", "ckpt_best.pt.json", "ckpt_last.pt",
+                     "ckpt_last.pt.json", "train_state.pt", "params.json"):
+            if not (run2 / name).exists():
+                fail(f"[train-cli] {name} is missing")
+
+        # The same run stopped after its second epoch of three: --epochs is
+        # part of the identity, so the directory takes the 3-epoch identity.
+        ident3 = train_cli.run_identity(train_cli.parse_args(argv3))
+        run3 = Path(runs) / Experiment.name_from_params(ident3)
+        run2.rename(run3)
+        for name in ("params.json", "ckpt_last.pt", "ckpt_last.pt.json"):
+            (run3 / name).unlink()
+        Experiment(runs, ident3).create()
+        run, t_run, got, st, ev = run_train(argv3)
+        rows = log_rows(run)
+        print(f"[train-cli] launched again with --epochs 3: {len(st)} steps "
+              f"in {t_run:.1f} s; epochs logged "
+              f"{[r['epoch'] for r in rows]}; train_loss "
+              f"{[r['train_loss'] for r in rows]}")
+        if (run != run3 or [r["epoch"] for r in rows] != ["0", "1", "2"]
+                or len(st) != 10):
+            fail("[train-cli] the run did not resume at epoch 2")
+        if not float(rows[2]["train_loss"]) < float(rows[0]["train_loss"]):
+            fail("[train-cli] the loss of epoch 2 is not below epoch 0's")
+        if not (run / "ckpt_last.pt").exists():
+            fail("[train-cli] ckpt_last.pt is missing after the resume")
+        nfe_b_plain = float(rows[0]["nfe_b"])
+
+        # One epoch with each adjoint variant.
+        for tag, flags in (("seminorm", ["--adjoint-seminorm"]),
+                           ("interpolated",
+                            ["--adjoint-mode", "interpolated"])):
+            run_v, t_run, got, st, ev = run_train([*base, "--epochs", "1",
+                                                   *flags])
+            cli_launches[f"train_{tag}"] = got
+            (row,) = log_rows(run_v)
+            print(f"[train-cli] {tag}: 1 epoch in {t_run:.1f} s, launches "
+                  f"{got}; " + " | ".join(f"{k}={v}" for k, v in row.items()))
+            if not (np.isfinite(float(row["train_loss"]))
+                    and float(row["nfe_b"]) > 0):
+                fail(f"[train-cli] {tag}: {row}")
+            if any(s_["launches"]["odefunc_bwd"] != s_["nfe_b"] - 1
+                   or s_["launches"]["rk_step"] != 0 for s_ in st):
+                fail(f"[train-cli] {tag}: a step's backward launches are "
+                     "not nfe_b - 1")
+            # At tol 1e-3 the seminorm saves nothing in this epoch (equal
+            # means so far) and training is not bit-reproducible from run
+            # to run, so the epoch's mean is held within SEMINORM_MARGIN of
+            # the plain run's; the saving itself is held on the fixed batch
+            # at the scaled loss, above.
+            if (tag == "seminorm" and float(row["nfe_b"])
+                    > (1 + SEMINORM_MARGIN) * nfe_b_plain):
+                fail(f"[train-cli] seminorm nfe_b {row['nfe_b']} more than "
+                     f"{SEMINORM_MARGIN:.0%} above the plain run's "
+                     f"{nfe_b_plain}")
+
+        # A ResNet (cuDNN convs, no hand-written kernel) and a fixed-grid
+        # ODE-Net by direct backprop, on synthetic-mnist (6×6×64).
+        mnist = ["--dataset", "synthetic-mnist", "--batch-size", str(B_TRAIN),
+                 "--limit", "1280", "--runs-dir", runs, "--epochs", "1"]
+        for tag, flags in (("resnet", ["--model", "resnet"]),
+                           ("rk4 direct", ["--model", "odenet", "--solver",
+                                           "rk4", "--no-adjoint"])):
+            run_v, t_run, got, st, ev = run_train([*mnist, *flags])
+            cli_launches[f"train_{tag.split()[0]}"] = got
+            (row,) = log_rows(run_v)
+            print(f"[train-cli] {tag}: 1 epoch in {t_run:.1f} s, launches "
+                  f"{got}; " + " | ".join(f"{k}={v}" for k, v in row.items()))
+            if not (np.isfinite(float(row["train_loss"]))
+                    and np.isfinite(float(row["test_loss"]))
+                    and float(row["nfe_b"]) == 0):
+                fail(f"[train-cli] {tag}: {row}")
+            want = ({"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0}
+                    if tag == "resnet" else
+                    {"odefunc": 4 * (len(st) + len(ev)),
+                     "odefunc_bwd": 4 * len(st), "rk_step": 0})
+            if got != want:
+                fail(f"[train-cli] {tag}: launches {got}, expected {want}")
+        # That rk4 step's kernels at 6×6×64 against the plain path: the loss
+        # and the gradients of one fixed batch by direct backprop (4 ODEfunc
+        # launches forward, 4 backward launches), random weights.  Held
+        # against the plain path in float64 (in f32 its cuDNN weight
+        # gradients are the less exact side, as for the backward kernel);
+        # the f32 plain path's own distance from it is printed beside.
+        rk4 = Trainer(TrainConfig(dataset="synthetic-mnist", solver="rk4",
+                                  adjoint=False, batch_size=B_TRAIN),
+                      steps_per_epoch=10, device=dev)
+        mimg, mlab = load_dataset("synthetic-mnist", "train", limit=B_TRAIN)
+        xm, ym = rk4._preprocess(mimg, train=False), rk4._labels(mlab)
+        rcfg = rk4.model_cfg
+
+        def loss_and_grads(loss, wrt):
+            return float(loss.detach()), torch.cat(
+                [g.reshape(-1) for g in torch.autograd.grad(loss, wrt)])
+
+        def rk4_plain(dtype):
+            wrt = [p.detach().to(dtype).requires_grad_() for p in rk4._leaves]
+            rp = pytree.tree_unflatten(wrt, pytree.tree_structure(rk4.params))
+            h0m = stem_apply(rp["stem"], xm.to(dtype), rcfg)
+            if tuple(h0m.shape[1:]) != (6, 6, C):
+                fail(f"[train-cli] the MNIST block's state is "
+                     f"{tuple(h0m.shape)}")
+            traj, _ = odeint(
+                lambda tt, y: odefunc_plain(prepare(rp["odefunc"], (6, 6)),
+                                            tt, y, G),
+                h0m, torch.tensor([0.0, 1.0], device=dev, dtype=dtype),
+                method="rk4", error_control=rcfg.error_control)
+            return loss_and_grads(F.cross_entropy(
+                head_apply(rp["head"], traj[-1], rcfg), ym), wrt)
+
+        (loss_k4, grads_k4), _, got = counted(lambda: loss_and_grads(
+            rk4._loss_and_logits(rk4.params, xm, ym)[0], rk4._leaves))
+        loss_64, grads_64 = rk4_plain(torch.float64)
+        grads_32 = rk4_plain(torch.float32)[1]
+        if got != {"odefunc": 4, "odefunc_bwd": 4, "rk_step": 0}:
+            fail(f"[train-cli] rk4 direct, one batch: launches {got}")
+        if not np.isclose(loss_k4, loss_64, rtol=1e-5, atol=0):
+            fail(f"[train-cli] rk4 direct: loss {loss_k4} (kernels) vs "
+                 f"{loss_64} (f64 plain)")
+        rel, cos = gradient_bar("rk4 direct gradients vs the f64 plain path",
+                                grads_k4, grads_64)
+        rel_32 = float((grads_32.double() - grads_64).norm()
+                       / grads_64.norm())
+        print(f"[train-cli] rk4 direct, 6x6x{C} B={B_TRAIN}, kernels against "
+              f"the f64 plain path: loss {loss_k4:.7f} vs {loss_64:.7f}; "
+              f"gradients rel-L2 {rel:.3e}, cosine {cos:.8f} (the f32 plain "
+              f"path's rel-L2: {rel_32:.3e}); launches {got}")
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            fail("TF32 is on")
+
+        # [pipeline]: extract and evaluate on the run directory, no further
+        # argument but the cut of the split.
+        feats_path, t_run, got = counted(lambda: extract_cli.main(
+            ["--run", str(run), "--limit", "2560"]))
+        cli_launches["extract_cli"] = got
+        loaded = load_features(feats_path)
+        metrics_path = evaluate_cli.main(["--features", str(feats_path)])
+        with open(metrics_path, newline="") as f:
+            metric_rows = list(csv.DictReader(f))
+        print(f"[pipeline] extract: {loaded['features'].shape} features in "
+              f"{t_run:.1f} s, launches {got}; evaluate: {len(metric_rows)} "
+              f"rows, last {metric_rows[-1]}")
+        if (feats_path != run / "features_test.npz"
+                or loaded["features"].shape != (T_OUT, 2560, C)
+                or not np.isfinite(loaded["features"]).all()
+                or got["odefunc"] != 2 * 10 or got["rk_step"] < 10
+                or got["odefunc_bwd"] != 0 or len(metric_rows) != T_OUT):
+            fail("[pipeline] extract or evaluate on the run directory")
+
+        # [sweep]: the tolerance grid on the run directory, per tolerance
+        # and stacked on the batch axis.
+        tols_arg = ",".join(f"{t_:g}" for t_ in SWEEP_TOLS)
+        common = ["--run", str(run), "--tols", tols_arg, "--batch-size",
+                  str(B), "--limit", "1024"]
+        out = Path(runs) / "sweep.csv"
+        loop_rows, t_loop, got_loop = counted(lambda: sweep_cli.main(
+            [*common, "--output", str(out)]))
+        fused_rows, t_fused, got_fused = counted(lambda: sweep_cli.main(
+            [*common, "--fused", "--output", str(out)]))
+        cli_launches["sweep"], cli_launches["sweep_fused"] = got_loop, got_fused
+        exact = ("tol", "top1", "nfe_mean", "nfe_min", "nfe_max")
+        for l_, f_ in zip(loop_rows, fused_rows):
+            if any(l_[k] != f_[k] for k in exact):
+                fail(f"[sweep] --fused {f_} differs from the loop {l_}")
+        nfe_means = [r["nfe_mean"] for r in loop_rows]
+        if nfe_means != sorted(nfe_means):
+            fail(f"[sweep] NFE {nfe_means} falls as the tolerance tightens")
+        n_b = 1024 // B
+        print(f"[sweep] per tolerance: {t_loop:.2f} s with warm-ups, launches "
+              f"{got_loop}; --fused: {t_fused:.2f} s, sweep_s "
+              f"{fused_rows[0]['sweep_s']}, launches {got_fused}; loop's "
+              f"timed seconds {sum(1024 / r['ips'] for r in loop_rows):.3f}")
+        # Per batch and warm-up: 2 ODEfunc launches, once for the whole grid
+        # when fused.
+        if (got_loop["odefunc"] != 2 * (n_b + 1) * len(SWEEP_TOLS)
+                or got_fused["odefunc"] != 2 * (n_b + 1)
+                or not 0 < got_fused["rk_step"] <= got_loop["rk_step"]
+                or got_loop["odefunc_bwd"] or got_fused["odefunc_bwd"]):
+            fail(f"[sweep] launches: loop {got_loop}, fused {got_fused}")
+
+        # One stacked batch by hand: one fused step per attempt of the
+        # slowest row, for all tolerances together; each tolerance's block
+        # of rows against the loop's solve at that tolerance (NFE equal on
+        # every sample, logits at rtol = atol = 1e-5: the rows of a launch
+        # are independent, the solver's per-row sums may be ordered another
+        # way at another batch size) and against the plain path (no
+        # kernels) at rtol = atol = 1e-3 where the NFE agree, on at least
+        # 95% of the samples.
+        @torch.no_grad()
+        def check_stacked(tag, params_, cfg_, x_):
+            tol_grid = torch.tensor(SWEEP_TOLS, device=dev).repeat_interleave(
+                len(x_))
+            h0_ = stem_apply(params_["stem"], x_, cfg_)
+            hw_ = tuple(h0_.shape[1:3])
+            (logits_s, nfe_s), _, got = counted(
+                lambda: sweep_cli.stacked_logits(
+                    params_, h0_.repeat(n_grid, 1, 1, 1), cfg_, tol_grid,
+                    n_grid))
+            per_tol = [batch_attempts(n_) for n_ in nfe_s]
+            print(f"[sweep] {tag}: one stacked batch, {n_grid}·{len(x_)} rows "
+                  f"of {hw_[0]}x{hw_[1]}x{C}: launches {got}; attempts per "
+                  f"tolerance {per_tol}")
+            if got != {"odefunc": 2, "odefunc_bwd": 0,
+                       "rk_step": max(per_tol)}:
+                fail(f"[sweep] {tag}: the stacked batch's fused steps are not "
+                     "one per attempt")
+            w_ = prepare(params_["odefunc"], hw_)
+            for i, tol in enumerate(SWEEP_TOLS):
+                logits_l, stats_l = odenet_logits(params_, x_, cfg_, tol=tol)
+                err_l = float((logits_l - logits_s[i]).abs().max())
+                if not (torch.equal(stats_l.nfe, nfe_s[i]) and torch.allclose(
+                        logits_l, logits_s[i], rtol=1e-5, atol=1e-5)):
+                    fail(f"[sweep] {tag} tol {tol:g}: the stacked rows differ "
+                         f"from the loop's solve (logits max abs err "
+                         f"{err_l:.3e})")
+                traj_p, stats_p = odeint(
+                    lambda tt, y: odefunc_plain(w_, tt, y, G), h0_,
+                    torch.tensor([0.0, 1.0], device=dev), rtol=tol, atol=tol,
+                    method="dopri5", error_control="per_sample",
+                    max_steps=cfg_.max_steps)
+                logits_p = head_apply(params_["head"], traj_p[-1], cfg_)
+                same = stats_p.nfe == nfe_s[i]
+                share = float(same.float().mean())
+                err_p = float((logits_s[i][same] - logits_p[same]).abs().max())
+                print(f"[sweep] {tag} tol {tol:g}: stacked rows vs the loop's "
+                      f"solve: NFE equal, logits max abs err {err_l:.3e} "
+                      f"(bit-identical: "
+                      f"{torch.equal(logits_l, logits_s[i])}); vs the plain "
+                      f"path: NFE equal on {share:.4f} of samples, logits "
+                      f"max abs err {err_p:.3e}")
+                if share < 0.95 or not torch.allclose(
+                        logits_s[i][same], logits_p[same], rtol=1e-3,
+                        atol=1e-3):
+                    fail(f"[sweep] {tag} tol {tol:g}: the stacked rows "
+                         "disagree with the plain path")
+
+        sparams, scfg, sextra = load_checkpoint(resolve_checkpoint(run))
+        scfg = dataclasses.replace(scfg, adjoint=False)
+        simg, _ = load_dataset(sextra["train"]["dataset"], "test", limit=B)
+        sx = normalize(torch.from_numpy(simg).to(dev),
+                       sextra["train"]["dataset"])
+        check_stacked("the run directory", sparams, scfg, sx)
+        # ... and the random-init synthetic-mnist model of the last sweep
+        # below (seed 7, one input channel): the same at 6×6×64.
+        mcfg_s = dataclasses.replace(ModelConfig(in_channels=1),
+                                     error_control="per_sample",
+                                     adjoint=False)
+        mimg_s, _ = load_dataset("synthetic-mnist", "test", limit=B)
+        check_stacked("synthetic-mnist, random weights",
+                      init_odenet(7, mcfg_s, device=dev), mcfg_s,
+                      normalize(torch.from_numpy(mimg_s).to(dev),
+                                "synthetic-mnist"))
+
+        # One tolerance on the CPU plain path against the card, B = 16.
+        cparams, ccfg, _ = load_checkpoint(resolve_checkpoint(run),
+                                           device="cpu")
+        ccfg = dataclasses.replace(ccfg, tol=TOL, adjoint=False)
+        with torch.no_grad():
+            logits_c, stats_c = odenet_logits(cparams, sx[:16].cpu(), ccfg)
+            logits_g, stats_g = odenet_logits(sparams, sx[:16], ccfg)
+        same = stats_c.nfe == stats_g.nfe.cpu()
+        err_c = float((logits_c[same] - logits_g.cpu()[same]).abs().max())
+        print(f"[sweep] tol {TOL} B=16, the CPU plain path against the card: "
+              f"NFE equal on {float(same.float().mean()):.4f} of samples, "
+              f"logits max abs err {err_c:.3e}")
+        if float(same.float().mean()) < 0.9 or not torch.allclose(
+                logits_c[same], logits_g.cpu()[same], rtol=1e-3, atol=1e-3):
+            fail("[sweep] the CPU plain path disagrees with the card")
+
+        # Random init, speed only; then on synthetic-mnist (6×6×64).
+        speed = ["--tols", tols_arg, "--batch-size", str(B), "--output",
+                 str(out)]
+        speed_rows, _, got_speed = counted(lambda: sweep_cli.main(speed))
+        speed_fused, _, got_sf = counted(lambda: sweep_cli.main(
+            [*speed, "--fused"]))
+        mnist_rows, _, got_m = counted(lambda: sweep_cli.main(
+            [*speed, "--dataset", "synthetic-mnist", "--limit", "1024",
+             "--fused"]))
+        cli_launches.update(sweep_speed=got_speed, sweep_speed_fused=got_sf,
+                            sweep_mnist_fused=got_m)
+        print(f"[sweep] random init: launches loop {got_speed}, fused "
+              f"{got_sf}, synthetic-mnist fused {got_m}")
+        # (Its stem runs on the stacked inputs, so cuDNN may round another
+        # way than at B rows: NFE means within half an evaluation.)
+        if (any(abs(a_["nfe_mean"] - b_["nfe_mean"]) > 0.5
+                for a_, b_ in zip(speed_rows, speed_fused))
+                or min(g_["rk_step"] for g_ in (got_speed, got_sf, got_m)) < 1
+                or not all(0.0 <= r["top1"] <= 1.0 for r in mnist_rows)):
+            fail("[sweep] the random-init modes")
+        sweep_report = {"loop": loop_rows, "fused": fused_rows,
+                        "speed": speed_rows, "speed_fused": speed_fused,
+                        "mnist_fused": mnist_rows}
+
+    # 8. Times.
     wt = params["odefunc"]
 
     def library_f(h=h, t=t, wt=wt):
@@ -700,6 +1238,20 @@ def main() -> int:
             lambda: odefunc_bwd(w, tb, hb, gb, groups=G), bwd_keys),
     }
     dev_ms = {k: sum(v.values()) for k, v in dev_ms.items()}
+    # The fused step at the fused sweep's size: the grid of len(SWEEP_TOLS)
+    # tolerances stacked on the batch axis (every row computes its attempt
+    # whether or not its solve is done).
+    stacked_args = [a.repeat(n_grid, *([1] * (a.ndim - 1)))
+                    for a in (t0, dt, y0, f0)]
+    stacked_tol = torch.tensor(SWEEP_TOLS, device=dev).repeat_interleave(B)
+    stacked_ms = device_ms_by_kernel(
+        lambda: dopri5_step(w, DOPRI5, *stacked_args, **dict(
+            step_kw, rtol=stacked_tol, atol=stacked_tol)),
+        ("rk_step_kernel",))["rk_step_kernel"]
+    print(f"[time] rk_step at {n_grid}·{B} = {n_grid * B} rows (the fused "
+          f"sweep's launch): device {stacked_ms:.4f} ms, "
+          f"{stacked_ms / n_grid:.4f} per {B} rows against "
+          f"{dev_ms['rk_step']:.4f} at B={B}")
     print("[time] kernels, ms: " + ", ".join(
         f"{k} device {dev_ms[k]:.4f} (call {ms[k]:.4f})" for k in dev_ms))
     xc, wc = conv_probe.probe_inputs(B, dev)
@@ -869,9 +1421,11 @@ def main() -> int:
          "replaces": "neural_ode_features_tpu/kernels/rk_step_pallas.py:586",
          "launches": launches["rk_step"], "max_abs_err": err_k2,
          "ms": dev_ms["rk_step"], "plain_ms": ms["rk_step_plain"],
-         **bounds(6 * f_flops, 4 * (5 * B * n + 3 * B) + weight_bytes),
+         # t0, dt, rtol, atol in; y0, f0 in; y1, f1, y_mid, ratio out.
+         **bounds(6 * f_flops, 4 * (5 * B * n + 5 * B) + weight_bytes),
          "library_ms": None, "stage": fused_stage,
-         "call_ms": ms["rk_step"]},
+         "call_ms": ms["rk_step"], "tolerances": "(B,) arrays",
+         "stacked_rows": n_grid * B, "stacked_ms": stacked_ms},
         {"name": "odefunc_bwd", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/odefunc_bwd.cu",
          "replaces": "neural_ode_features_tpu/kernels/odefunc_bwd_rows.py:305",
@@ -890,6 +1444,21 @@ def main() -> int:
          "call_ms": ms["conv_mma3"], "strategy_ms": conv_dev_ms,
          "strategy_call_ms": {s_: ms[f"conv_{s_}"] for s_ in STRATEGIES}},
     ]
+    # The launches of every path this script drove, counters from 0 before
+    # each: the three earlier paths and this slice's CLIs.
+    by_path = {"inference": launches, "train_step": train_launches[-1],
+               "extract": extract_launches, **cli_launches}
+    for k in kernels[:3]:
+        k["launches_by_path"] = {path: got_[k["name"]]
+                                 for path, got_ in by_path.items()}
+    for name, path in (("odefunc", "train"), ("odefunc_bwd", "train"),
+                       ("rk_step", "sweep_fused")):
+        if by_path[path][name] < 1:
+            fail(f"{name} was not launched on the {path} path")
+    for mode, rows_ in sweep_report.items():
+        for r in rows_:
+            print(f"[sweep] {mode}: " + " | ".join(f"{k}={v}"
+                                                  for k, v in r.items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,8 @@ Entry points (``entry.entry``, ``entry.train_entry``, ``entry.extract_entry``,
 ``extract.extract_features``, ``evaluation.evaluate_features`` …) default to
 ``device="cuda"`` and raise when CUDA is absent; pass ``device="cpu"`` (the
 CLIs: ``--cpu``) to run the plain PyTorch versions of the kernels on the CPU.
-Command lines: ``python -m neural_ode_features_tpu_torch.extract``,
-``.evaluate`` and ``.probes.conv_probe``.  On a CUDA tensor the hand-written kernels in
+Command lines: ``python -m neural_ode_features_tpu_torch.train``,
+``.extract``, ``.evaluate``, ``.sweep`` and ``.probes.conv_probe``.  On a CUDA tensor the hand-written kernels in
 ``kernels/`` (sources in ``csrc/``) always run.
 """
 

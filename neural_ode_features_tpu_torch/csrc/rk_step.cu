@@ -10,6 +10,9 @@
 // stage sums, y1 (5th order), err (b_err), y_mid (c_mid, for the quartic
 // dense output) and the mixed-tolerance error ratio
 //     sqrt(mean((err / (atol + rtol * max(|y0|, |y1|)))^2) + FLT_MIN).
+// rtol and atol are (B,) arrays, one entry per sample, read once by the
+// sample's CTA: rows of one launch may carry different tolerances (a
+// tolerance grid stacked on the batch axis is one launch per attempt).
 // The stage derivatives k2..k6 live in a global scratch tensor written and
 // read back by the same thread (same element mapping), so they stay in L1/L2
 // and shared memory holds only one eval's working set; k7 is f1.
@@ -34,7 +37,9 @@ struct Tableau {  // f32 coefficients, zero where a term is skipped
 __global__ void __launch_bounds__(kThreads, 2)
 rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
                const float* __restrict__ y0, const float* __restrict__ f0,
-               Odefunc p, Shape s, Tableau tab, float rtol, float atol,
+               Odefunc p, Shape s, Tableau tab,
+               const float* __restrict__ rtol_b,
+               const float* __restrict__ atol_b,
                float* __restrict__ ks, float* __restrict__ y1,
                float* __restrict__ f1, float* __restrict__ ymid,
                float* __restrict__ ratio) {
@@ -44,6 +49,7 @@ rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
   const int n = s.H * s.W * s.C, tid = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * n, plane = (size_t)gridDim.x * n;
   const float tb = t0[blockIdx.x], h = dt[blockIdx.x];
+  const float rtol = rtol_b[blockIdx.x], atol = atol_b[blockIdx.x];
   const float* y0b = y0 + off;
 
   // k_j of this sample: k1 = f0, k2..k6 in scratch, k7 = f1.
@@ -127,7 +133,8 @@ extern "C" int rk_step_forward(
     const float* n2s, const float* n2b, const float* w2, const float* b2, const float* m2,
     const float* n3s, const float* n3b,
     const float* tableau,  // host: a (7x7), b, b_err, c, c_mid (7 each), f32
-    float rtol, float atol, float* ks, float* y1, float* f1, float* ymid, float* ratio,
+    const float* rtol, const float* atol,  // device: (B,) each
+    float* ks, float* y1, float* f1, float* ymid, float* ratio,
     int B, int H, int W, int C, int G, void* stream) {
   using namespace nodef;
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;

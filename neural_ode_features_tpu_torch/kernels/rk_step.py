@@ -12,7 +12,12 @@ Per sample the kernel computes the six FSAL evaluations of f, the stage
 sums, y1 (5th order), the embedded error, ``y_mid`` (the c_mid midpoint of
 the quartic dense output) and the mixed-tolerance RMS error ratio.  One CTA
 owns one sample, so the grid is exactly B (a ragged batch needs no tile
-divisor) and no reduction crosses blocks.
+divisor) and no reduction crosses blocks.  The tolerances are per sample
+too: ``rtol`` and ``atol`` reach the kernel as ``(B,)`` arrays, each CTA
+reading its own entry once (a float is broadcast by the wrapper and gives
+the bits a scalar argument gave), so rows of one launch may carry different
+tolerances: a tolerance grid stacked on the batch axis is one launch per
+attempt.
 
 Bound (H100 SXM, 700 W power limit; 67 TFLOP/s f32 outside the tensor
 cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): 6 evaluations × 2 convs ×
@@ -43,7 +48,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..solver.runge_kutta import _rk_attempt, _rms
+from ..solver.runge_kutta import _rk_attempt, _rms, _tol_column
 from ..solver.tableau import ButcherTableau
 from . import _build
 from .odefunc import (
@@ -66,10 +71,13 @@ _STAGES = 7
 
 def dopri5_step_plain(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
                       y0: torch.Tensor, f0: torch.Tensor, *, hw, groups: int,
-                      rtol: float, atol: float):
+                      rtol, atol):
     """Plain PyTorch version of the kernel: ``_rk_attempt`` with the plain
-    ODEfunc, then the RMS ratio without a zero-scale guard (atol > 0)."""
+    ODEfunc, then the RMS ratio without a zero-scale guard (atol > 0).
+    ``rtol``, ``atol``: floats or ``(B,)`` tensors, as the kernel's."""
     b, n = y0.shape
+    rtol = _tol_column(rtol, b, y0.dtype, y0.device)
+    atol = _tol_column(atol, b, y0.dtype, y0.device)
     c = n // (hw[0] * hw[1])
 
     def func(t, y):
@@ -91,18 +99,28 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rk_step")
     fn = lib.rk_step_forward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_float] * 2
-                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
+def tolerance_rows(tol, like: torch.Tensor) -> torch.Tensor:
+    """A float or ``(B,)`` tolerance as the kernel reads it: a contiguous
+    ``(B,)`` tensor of ``like``'s dtype on its device (``like``: (B, N))."""
+    col = _tol_column(tol, like.shape[0], like.dtype, like.device)
+    if isinstance(col, float):
+        return torch.full((like.shape[0],), col, dtype=like.dtype,
+                          device=like.device)
+    return col[:, 0].contiguous()
+
+
 def dopri5_step(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
                 y0: torch.Tensor, f0: torch.Tensor, *, hw, groups: int,
-                rtol: float, atol: float):
+                rtol, atol):
     """One dopri5 attempt for flat NHWC states ``y0``, ``f0`` (B, H·W·C) at
-    per-sample ``t0``, ``dt`` (B,).  Returns ``(y1, f1, y_mid, ratio)``."""
+    per-sample ``t0``, ``dt`` (B,).  ``rtol``, ``atol``: floats or ``(B,)``
+    tensors, one tolerance per row.  Returns ``(y1, f1, y_mid, ratio)``."""
     if y0.device.type == "cpu":
         return dopri5_step_plain(w, tableau, t0, dt, y0, f0, hw=hw,
                                  groups=groups, rtol=rtol, atol=atol)
@@ -114,8 +132,9 @@ def dopri5_step(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
                          f"not fold to (B, {hh}, {ww}, C)")
     if tuple(t0.shape) != (b,) or tuple(dt.shape) != (b,):
         raise ValueError("t0 and dt must have shape (B,)")
-    check_cuda_inputs(w, {"t0": t0, "dt": dt, "y0": y0, "f0": f0}, hw, c,
-                      groups)
+    rtol, atol = tolerance_rows(rtol, y0), tolerance_rows(atol, y0)
+    check_cuda_inputs(w, {"t0": t0, "dt": dt, "y0": y0, "f0": f0,
+                          "rtol": rtol, "atol": atol}, hw, c, groups)
     ks = torch.empty((_STAGES - 2, b, n), dtype=y0.dtype, device=y0.device)
     y1, f1, y_mid = (torch.empty_like(y0) for _ in range(3))
     ratio = torch.empty((b,), dtype=y0.dtype, device=y0.device)
@@ -123,7 +142,7 @@ def dopri5_step(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
     lib = _lib()
     code = lib.rk_step_forward(
         ptr(t0), ptr(dt), ptr(y0), ptr(f0), *weight_pointers(w),
-        ctypes.cast(coeffs, ctypes.c_void_p), float(rtol), float(atol),
+        ctypes.cast(coeffs, ctypes.c_void_p), ptr(rtol), ptr(atol),
         ptr(ks), ptr(y1), ptr(f1), ptr(y_mid), ptr(ratio),
         b, hh, ww, c, groups, stream())
     _build.check(lib, code, "rk_step_forward")
@@ -137,8 +156,8 @@ dopri5_step.launches = 0
 def make_fused_dopri5_step(
     params, tableau: ButcherTableau, hw: tuple[int, int], *,
     groups: int = 32,
-    rtol: float,
-    atol: float,
+    rtol,
+    atol,
     conv_strategy: str = "rollS",
     conv_precision: str | None = None,
 ):
@@ -147,11 +166,14 @@ def make_fused_dopri5_step(
     ratio)``, with the JAX signature and return contract.
 
     ``params``: the ODEfunc param dict (conv kernels (3, 3, C+1, C)) on the
-    solve's device.  ``conv_strategy``: any JAX value; all run one kernel.
+    solve's device.  ``rtol``, ``atol``: floats, or ``(B,)`` tensors with
+    one tolerance per row of the states the step will see; ``atol > 0`` is
+    required of every row.  ``conv_strategy``: any JAX value; all run one
+    kernel.
     ``conv_precision``: None or ``'f32'``: f32-grade, on the tensor cores
     with 3×TF32 error compensation where the shape allows, else f32 FFMA
     (``'bf16'`` convs are later work)."""
-    if atol <= 0.0:
+    if not bool(torch.as_tensor(atol > 0.0).all()):
         raise ValueError("fused RK step requires atol > 0 (the error norm "
                          "has no 0/0 guard)")
     if conv_strategy not in CONV_STRATEGIES:
@@ -165,9 +187,13 @@ def make_fused_dopri5_step(
         raise ValueError("the fused step takes a 7-stage FSAL tableau with "
                          "c_mid (dopri5)")
     w = prepare(params, hw)
+    rows = {}  # the tolerances as (B,) tensors, made at the first attempt
 
     def fused_step(t0, dt, y0, f0):
+        if not rows:
+            rows.update(rtol=tolerance_rows(rtol, y0),
+                        atol=tolerance_rows(atol, y0))
         return dopri5_step(w, tableau, t0, dt, y0, f0, hw=hw, groups=groups,
-                           rtol=rtol, atol=atol)
+                           **rows)
 
     return fused_step

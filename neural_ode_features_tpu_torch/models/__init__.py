@@ -13,6 +13,7 @@ from .odenet import (
     init_odenet,
     odefunc_apply,
     odenet_logits,
+    odenet_solve,
     odenet_trajectory,
 )
 from .resnet import init_resnet, resnet_block_states, resnet_logits
@@ -29,6 +30,7 @@ __all__ = [
     "init_odenet",
     "odefunc_apply",
     "odenet_logits",
+    "odenet_solve",
     "odenet_trajectory",
     "init_resnet",
     "resnet_block_states",

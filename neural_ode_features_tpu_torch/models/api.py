@@ -15,10 +15,10 @@ import torch
 from ..solver import AdjointStats, SolveStats
 from .common import ModelConfig, pool_features
 from .odenet import (
-    _solve,
     _solve_adjoint,
     init_odenet,
     odenet_logits,
+    odenet_solve,
     odenet_trajectory,
 )
 from .resnet import init_resnet, resnet_block_states, resnet_logits
@@ -71,7 +71,7 @@ class ODEBlock:
         final_only = ts is None
         ts = torch.as_tensor([0.0, 1.0] if final_only else ts).to(
             device=h0.device, dtype=h0.dtype)
-        solve = _solve_adjoint if cfg.adjoint else _solve
+        solve = _solve_adjoint if cfg.adjoint else odenet_solve
         traj, stats = solve({"odefunc": self.params}, h0, ts, cfg)
         return (traj[-1] if final_only else traj), stats
 

@@ -29,7 +29,8 @@ from ..solver import (
 from .common import ModelConfig, head_apply, init_head, init_stem, stem_apply
 
 __all__ = ["init_odefunc", "init_odenet", "odefunc_apply",
-           "fused_rk_eligible", "odenet_logits", "odenet_trajectory"]
+           "fused_rk_eligible", "odenet_solve", "odenet_logits",
+           "odenet_trajectory"]
 
 
 def init_odefunc(gen: torch.Generator, cfg: ModelConfig):
@@ -79,7 +80,7 @@ def odefunc_apply(params, t, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def fused_rk_eligible(cfg: ModelConfig, h0_shape, h0_dtype) -> bool:
-    """True iff :func:`_solve` installs the fused dopri5 step: dopri5,
+    """True iff :func:`odenet_solve` installs the fused dopri5 step: dopri5,
     per-sample error control, f32 compute and state, NHWC maps.  The
     kernel's shape gate is checked by its wrapper, which raises on the card
     rather than falling back."""
@@ -88,8 +89,21 @@ def fused_rk_eligible(cfg: ModelConfig, h0_shape, h0_dtype) -> bool:
             and h0_dtype == torch.float32 and len(h0_shape) == 4)
 
 
-def _solve(params, h0: torch.Tensor, ts: torch.Tensor, cfg: ModelConfig):
-    """Run the ODE block over ``ts``; returns ((T, B, H, W, C), stats)."""
+def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
+                 cfg: ModelConfig, *, tol=None):
+    """Run the ODE block over ``ts`` from the stem's output ``h0`` (the JAX
+    module's ``_solve``, inference path); returns ((T, B, H, W, C), stats).
+
+    ``tol`` overrides ``cfg.tol`` for this call: a float, or a ``(B,)``
+    tensor with one tolerance per row (per-sample error control), which is
+    how a tolerance grid is stacked on the batch axis and solved at once
+    (``sweep --fused``).  The fused step takes the same per-row tolerance."""
+    tol = cfg.tol if tol is None else tol
+    if isinstance(tol, torch.Tensor):
+        if cfg.error_control != "per_sample":
+            raise ValueError("a per-row tolerance needs "
+                             "error_control='per_sample'")
+        tol = tol.to(device=h0.device, dtype=h0.dtype)
     hw = tuple(h0.shape[1:3])
     # On the card, lay the ODEfunc weights out for the kernels once per
     # solve (split kernels, time maps); the CPU path mirrors the JAX jnp path.
@@ -103,8 +117,8 @@ def _solve(params, h0: torch.Tensor, ts: torch.Tensor, cfg: ModelConfig):
     if fused_rk_eligible(cfg, h0.shape, h0.dtype):
         fused_step = make_fused_dopri5_step(
             func_params, ADAPTIVE_TABLEAUS["dopri5"], hw,
-            groups=cfg.groups, rtol=cfg.tol, atol=cfg.tol)
-    return odeint(dyn, h0, ts, rtol=cfg.tol, atol=cfg.tol, method=cfg.method,
+            groups=cfg.groups, rtol=tol, atol=tol)
+    return odeint(dyn, h0, ts, rtol=tol, atol=tol, method=cfg.method,
                   error_control=cfg.error_control, max_steps=cfg.max_steps,
                   fused_step=fused_step, controller=cfg.controller)
 
@@ -137,23 +151,30 @@ def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
         method=cfg.method, error_control=cfg.error_control,
         max_steps=cfg.max_steps, controller=cfg.controller,
         adjoint_seminorm=cfg.adjoint_seminorm, adjoint_mode=cfg.adjoint_mode,
-        vjp=vjp)
+        dense_max_steps=cfg.max_steps, vjp=vjp)
 
 
 def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
-                  adjoint: bool | None = None
+                  adjoint: bool | None = None, tol=None
                   ) -> tuple[torch.Tensor, SolveStats | AdjointStats]:
     """Classification forward: solve h over [0, 1], head on h(1).  ``x``:
     (B, H, W, C_in) NHWC.  ``adjoint`` overrides ``cfg.adjoint``: the
     adjoint path (training) returns :class:`AdjointStats`, whose ``nfe_b``
-    ``.backward()`` fills in."""
+    ``.backward()`` fills in.  ``tol`` (inference path only) overrides
+    ``cfg.tol``: a float or a ``(B,)`` tensor, see :func:`odenet_solve`."""
     adjoint = cfg.adjoint if adjoint is None else adjoint
     if adjoint:
-        check_adjoint_options(cfg.adjoint_seminorm, cfg.adjoint_mode)
+        check_adjoint_options(cfg.adjoint_seminorm, cfg.adjoint_mode,
+                              cfg.method)
+        if tol is not None:
+            raise ValueError("tol= applies to the inference path; the "
+                             "adjoint path solves at cfg.tol")
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
-    solve = _solve_adjoint if adjoint else _solve
-    traj, stats = solve(params, h0, ts, cfg)
+    if adjoint:
+        traj, stats = _solve_adjoint(params, h0, ts, cfg)
+    else:
+        traj, stats = odenet_solve(params, h0, ts, cfg, tol=tol)
     return head_apply(params["head"], traj[-1], cfg), stats
 
 
@@ -168,4 +189,4 @@ def odenet_trajectory(params, x: torch.Tensor, ts,
     :func:`..models.common.pool_features` for (T, B, C) features."""
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.as_tensor(ts).to(device=h0.device, dtype=h0.dtype)
-    return _solve(params, h0, ts, cfg)
+    return odenet_solve(params, h0, ts, cfg)

@@ -8,12 +8,13 @@ a per-sample segment lookup and a Horner pass, both elementwise f32 (no
 matmul, so no TF32 on the card).
 
 The solve is a host loop over attempts, as ``adaptive_odeint``: one
-``done.all()`` sync per attempt.  The coefficient buffer is allocated once
-and written in place at each sample's own slot under the accepted mask.
+``done.all()`` sync per attempt.  The coefficient buffer is written in place
+at each sample's own slot under the accepted mask.  It starts at
+``_FIRST_SLOTS`` step slots and doubles when the attempts reach its end, up
+to ``max_steps``, so its size follows the attempts made and not the bound.
 
-Memory: O(max_steps · (order+1) · B · N) for the coefficient buffer; choose
-``max_steps`` to fit (it is also the solve-iteration bound, so about 3× the
-expected accepted steps is right).
+Memory: O(attempts · (order+1) · B · N) for the coefficient buffer, at most
+twice the attempts made (and at most ``max_steps`` slots).
 """
 
 from __future__ import annotations
@@ -35,11 +36,14 @@ from .tableau import ADAPTIVE_TABLEAUS, CUBIC_FIT, QUARTIC_FIT
 
 __all__ = ["odeint_dense", "DenseSolution"]
 
+_FIRST_SLOTS = 8  # the coefficient buffer's first size, in step slots
+
 
 class DenseSolution(NamedTuple):
     """Piecewise-polynomial continuous solution.  Fields are per accepted
     step s and sample b."""
 
+    # S: the buffer's step slots, at least max(naccept).
     t0s: torch.Tensor  # (S, B) step start times (monotonic in direction)
     dts: torch.Tensor  # (S, B) signed step sizes
     coeffs: torch.Tensor  # (S, D+1, B, N) monomial coefficients on x∈[0,1]
@@ -102,8 +106,8 @@ def odeint_dense(
     for vector ``t``.  ``y_at.__wrapped_sol__`` is the raw
     :class:`DenseSolution`.
 
-    ``max_steps`` bounds BOTH the solve iterations and the coefficient-buffer
-    size; keep it about 3× the expected accepted steps.
+    ``max_steps`` bounds the solve's attempts; the coefficient buffer grows
+    with the attempts made (see the module docstring).
     """
     if method not in ADAPTIVE_TABLEAUS:
         raise ValueError(
@@ -145,19 +149,28 @@ def odeint_dense(
                         device=dev) * direction
 
     y = flat0
-    t0s = torch.zeros((max_steps, batch), dtype=dtype, device=dev)
-    dts = torch.ones((max_steps, batch), dtype=dtype, device=dev)
-    coeffs = torch.zeros((max_steps, n_coef, batch, n), dtype=dtype,
-                         device=dev)
+    slots = min(max_steps, _FIRST_SLOTS)
+    t0s = torch.zeros((slots, batch), dtype=dtype, device=dev)
+    dts = torch.ones((slots, batch), dtype=dtype, device=dev)
+    coeffs = torch.zeros((slots, n_coef, batch, n), dtype=dtype, device=dev)
     naccept = torch.zeros((batch,), dtype=torch.int32, device=dev)
     nreject = torch.zeros_like(naccept)
     done = torch.zeros((batch,), dtype=torch.bool, device=dev)
     rprev = torch.ones((batch,), dtype=dtype, device=dev)
     bidx = torch.arange(batch, device=dev)
 
-    for _ in range(max_steps):
+    for attempt in range(max_steps):
         if bool(done.all()):  # the one host sync per attempt
             break
+        if attempt == slots:
+            # A sample has accepted at most ``attempt`` steps, so its next
+            # slot is ``attempt`` at most: double the buffer.
+            grown = min(max_steps, 2 * slots)
+            t0s = torch.cat([t0s, t0s.new_zeros((grown - slots, batch))])
+            dts = torch.cat([dts, dts.new_ones((grown - slots, batch))])
+            coeffs = torch.cat([coeffs, coeffs.new_zeros(
+                (grown - slots, n_coef, batch, n))])
+            slots = grown
         active = ~done
         y1, err, f1, new_evals, y_mid = _rk_attempt(tableau, flat_func, t, dt,
                                                    y, f)
@@ -177,7 +190,7 @@ def odeint_dense(
 
         # This step's record goes to row naccept[b] of sample b, in place,
         # where the step was accepted.
-        slot = torch.clamp(naccept, max=max_steps - 1).long()
+        slot = naccept.long()
         t0s[slot, bidx] = torch.where(accept, t, t0s[slot, bidx])
         dts[slot, bidx] = torch.where(accept, dt, dts[slot, bidx])
         coeffs[slot, :, bidx, :] = torch.where(

@@ -1,15 +1,16 @@
 """``odeint`` — the front door to ODE integration (port of
 ``neural_ode_features_tpu/solver/odeint.py``).
 
-Covers the adaptive tableau methods with both error-control modes:
+Covers the adaptive tableau methods, with both error-control modes, and the
+fixed-grid methods (``fixed_grid.py``):
 
   * ``'per_sample'``: every batch row gets its own adaptive step sequence
     and NFE count (state leaves need a common leading batch axis);
   * ``'global'``: one error norm over the whole flattened state (reference
     semantics, any state shape).
 
-``adams`` and the fixed-grid methods are not ported yet (ROADMAP.md,
-Queue 1 item 7, and item 4 for ``fixed_grid``).
+``adams`` (the variable-order multistep solver) is not ported yet
+(ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -18,15 +19,31 @@ from typing import Any, Callable
 
 import torch
 
+from .fixed_grid import FIXED_GRID_METHODS, fixed_grid_odeint
 from .ravel import ravel_batched, ravel_full
 from .runge_kutta import SolveStats, adaptive_odeint
 from .tableau import ADAPTIVE_TABLEAUS
 
 __all__ = ["odeint", "SOLVERS", "SolveStats"]
 
-# Methods the JAX front door accepts; only the adaptive tableaus run here.
-_NOT_PORTED = ("adams", "euler", "midpoint", "heun2", "rk4", "fixed_adams")
-SOLVERS: tuple[str, ...] = tuple(ADAPTIVE_TABLEAUS) + _NOT_PORTED
+# Methods the JAX front door accepts and this one does not run yet.
+_NOT_PORTED = ("adams",)
+SOLVERS: tuple[str, ...] = (tuple(ADAPTIVE_TABLEAUS) + _NOT_PORTED
+                            + FIXED_GRID_METHODS)
+
+
+def _mask_like(y0: Any, mask: Any, dtype: torch.dtype) -> Any:
+    """``mask`` (a tree like ``y0``; a scalar stands for a whole subtree)
+    broadcast to ``y0``'s leaves."""
+    if isinstance(y0, torch.Tensor):
+        return torch.as_tensor(mask, dtype=dtype, device=y0.device).expand(
+            y0.shape)
+    if isinstance(y0, dict):
+        return {k: _mask_like(v, mask[k] if isinstance(mask, dict) else mask,
+                              dtype) for k, v in y0.items()}
+    return type(y0)(
+        _mask_like(v, mask[i] if isinstance(mask, (list, tuple)) else mask,
+                   dtype) for i, v in enumerate(y0))
 
 
 def odeint(
@@ -40,6 +57,8 @@ def odeint(
     error_control: str = "global",
     max_steps: int = 2**14,
     first_step: float | None = None,
+    steps_per_interval: int = 1,
+    error_mask: Any = None,
     fused_step: Callable | None = None,
     controller: str = "i",
 ) -> tuple[Any, SolveStats]:
@@ -47,8 +66,13 @@ def odeint(
 
     With ``error_control='global'`` ``func`` receives a scalar ``t`` and the
     state unchanged; with ``'per_sample'`` it receives ``t`` of shape
-    ``(B,)``.  ``fused_step`` (adaptive tableaus only) operates on the flat
-    ``(B, N)`` state; see ``runge_kutta.adaptive_odeint``.
+    ``(B,)``.  ``rtol``/``atol``: floats, or with ``'per_sample'`` control
+    ``(B,)`` tensors, one tolerance per row.  ``steps_per_interval``:
+    substeps per ``ts`` interval (fixed-grid methods).  ``error_mask``: a
+    state-like tree of 0/1 leaves (scalars broadcast) restricting the
+    adaptive error norm to the selected entries (seminorm control).
+    ``fused_step`` (adaptive tableaus only) operates on the flat ``(B, N)``
+    state; see ``runge_kutta.adaptive_odeint``.
 
     Returns ``(ys, stats)``: ``ys`` like ``y0`` with a leading time axis,
     ``stats`` per-sample (``(B,)`` for per-sample control, ``(1,)`` for
@@ -58,7 +82,8 @@ def odeint(
         raise ValueError(f"unknown method {method!r}; available: {SOLVERS}")
     if method in _NOT_PORTED:
         raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP.md, Queue 1)")
+            f"method {method!r} is not ported yet (ROADMAP.md, Queue 1 "
+            "item 7)")
     if error_control not in ("global", "per_sample"):
         raise ValueError(f"unknown error_control {error_control!r}")
 
@@ -69,6 +94,19 @@ def odeint(
         diffs = torch.diff(ts.detach().cpu().double())
         if not (bool((diffs > 0).all()) or bool((diffs < 0).all())):
             raise ValueError("ts must be strictly monotonic (either direction)")
+        if method == "fixed_adams" and not torch.allclose(
+                diffs, diffs[0].expand_as(diffs), rtol=1e-6, atol=0.0):
+            raise ValueError(
+                "fixed_adams assumes a uniformly spaced ts grid; use "
+                "steps_per_interval on a uniform grid")
+    if error_mask is not None and method in FIXED_GRID_METHODS:
+        raise ValueError(
+            "error_mask (seminorm control) only applies to adaptive methods;"
+            f" {method!r} is fixed-grid")
+    if controller != "i" and method not in ADAPTIVE_TABLEAUS:
+        raise ValueError(
+            f"controller={controller!r} only applies to adaptive tableau "
+            f"methods ({tuple(ADAPTIVE_TABLEAUS)}), not {method!r}")
 
     if error_control == "per_sample":
         flat0, unravel, flatten = ravel_batched(y0)
@@ -81,6 +119,17 @@ def odeint(
         def flat_func(t, y_flat):
             return flatten(func(t[0], unravel(y_flat)))
 
+    flat_mask = None
+    if error_mask is not None:
+        flat_mask = flatten(_mask_like(y0, error_mask, flat0.dtype))
+        # An all-zero mask row would switch error control off (every step
+        # accepted, dt growing without bound) and still report success.
+        if not bool(flat_mask.any(dim=-1).all()):
+            raise ValueError(
+                "error_mask masks out every state component of at least one "
+                "sample: that disables error control; keep at least one "
+                "component unmasked per sample")
+
     if ts.shape[0] == 1:
         batch, dev = flat0.shape[0], flat0.device
         zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -89,9 +138,16 @@ def odeint(
                                               device=dev))
         return unravel(flat0[None]), stats
 
-    ys, stats = adaptive_odeint(
-        flat_func, flat0, ts, rtol, atol, ADAPTIVE_TABLEAUS[method],
-        max_steps=max_steps, first_step=first_step, fused_step=fused_step,
-        controller=controller,
-    )
+    if method in ADAPTIVE_TABLEAUS:
+        ys, stats = adaptive_odeint(
+            flat_func, flat0, ts, rtol, atol, ADAPTIVE_TABLEAUS[method],
+            max_steps=max_steps, first_step=first_step,
+            error_mask=flat_mask, fused_step=fused_step,
+            controller=controller)
+    elif fused_step is not None:
+        raise ValueError("fused_step only applies to adaptive tableau "
+                         f"methods, not {method!r}")
+    else:
+        ys, stats = fixed_grid_odeint(flat_func, flat0, ts, method,
+                                      steps_per_interval=steps_per_interval)
     return unravel(ys), stats

@@ -46,9 +46,28 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(x * x, dim=-1) + _tiny(x.dtype))
 
 
-def _error_ratio(err, y0, y1, rtol, atol):
+def _tol_column(tol, batch: int, dtype, device):
+    """A tolerance as the solver uses it: a float as it is; a tensor (one
+    tolerance per row, ``(B,)``) as a ``(B, 1)`` column in the state's dtype
+    that broadcasts against ``(B, N)``."""
+    if not isinstance(tol, torch.Tensor):
+        return float(tol)
+    if tol.ndim == 0:
+        tol = tol.expand(batch)
+    if tuple(tol.shape) != (batch,):
+        raise ValueError(f"a per-row tolerance must have shape ({batch},), "
+                         f"got {tuple(tol.shape)}")
+    return tol.to(device=device, dtype=dtype)[:, None]
+
+
+def _error_ratio(err, y0, y1, rtol, atol, mask=None):
     """Mixed-tolerance error norm: RMS of err scaled by
-    ``atol + rtol * max(|y0|, |y1|)``, one ratio per sample row."""
+    ``atol + rtol * max(|y0|, |y1|)``, one ratio per sample row.  ``rtol``,
+    ``atol``: floats or ``(B, 1)`` columns.
+
+    ``mask`` ((B, N) bool) restricts the norm to a subset of state columns,
+    the seminorm of Kidger et al. 2020: the mean runs over the unmasked
+    count."""
     scale = atol + rtol * torch.maximum(y0.abs(), y1.abs())
     # atol=0 with exactly-zero state entries gives scale=0: err 0 there means
     # a perfectly-resolved component (ratio 0), not 0/0 = NaN → reject-forever.
@@ -59,7 +78,14 @@ def _error_ratio(err, y0, y1, rtol, atol):
         torch.where(err == 0.0, torch.zeros_like(err),
                     torch.full_like(err, float("inf"))),
     )
-    ratio = _rms(r)
+    if mask is None:
+        ratio = _rms(r)
+    else:
+        denom = torch.clamp(mask.sum(dim=-1), min=1).to(r.dtype)
+        # Select, don't multiply: an excluded entry may hold inf (atol = 0
+        # at a zero-scale component) and inf · 0 would poison the sum.
+        r_sq = torch.where(mask, r * r, torch.zeros_like(r))
+        ratio = torch.sqrt(r_sq.sum(dim=-1) / denom + _tiny(r.dtype))
     return torch.where(torch.isfinite(ratio), ratio,
                        torch.full_like(ratio, float("inf")))
 
@@ -186,6 +212,7 @@ def adaptive_odeint(
     safety: float = 0.9,
     ifactor: float = 10.0,
     dfactor: float = 0.2,
+    error_mask: torch.Tensor | None = None,
     fused_step: Callable | None = None,
     controller: str = "i",
 ) -> tuple[torch.Tensor, SolveStats]:
@@ -195,26 +222,39 @@ def adaptive_odeint(
       func: ``(t (B,), y (B, N)) -> (B, N)``.
       y0: (B, N) initial state, floating point.
       ts: (T,) strictly monotonic output times, T >= 2.
-      rtol/atol: mixed tolerances for the per-sample error norm.
+      rtol/atol: mixed tolerances for the per-sample error norm: floats,
+        or ``(B,)`` tensors with one tolerance per row.
       tableau: embedded RK tableau (dopri5/bosh3/fehlberg2/tsit5).
       max_steps: bound on loop iterations (accept + reject attempts).
       first_step: optional fixed initial step (unsigned); default Hairer.
+      error_mask: optional 0/1 tensor broadcastable to (B, N): error control
+        restricted to these state columns (seminorm; see ``_error_ratio``).
+        Turned into a bool tensor once per solve, not per attempt.
       fused_step: optional ``(t0 (B,), dt (B,), y0 (B,N), f0 (B,N)) ->
         (y1, f1, y_mid, ratio)`` replacing ``_rk_attempt`` + the error norm
-        (``kernels/rk_step.py``).  Requires a quartic-dense FSAL tableau.
+        (``kernels/rk_step.py``).  Requires a quartic-dense FSAL tableau
+        and no ``error_mask``; the caller builds it for the same tolerances.
       controller: ``'i'`` (default, reference parity) or ``'pi'``.
 
     Returns:
       ys: (T, B, N) solution at ``ts`` (ys[0] ≡ y0).
       stats: per-sample :class:`SolveStats`.
     """
-    if fused_step is not None and (tableau.c_mid is None or not tableau.fsal):
-        raise ValueError("fused_step requires a quartic-dense FSAL tableau")
+    if fused_step is not None and (error_mask is not None
+                                   or tableau.c_mid is None
+                                   or not tableau.fsal):
+        raise ValueError("fused_step requires a quartic-dense FSAL tableau "
+                         "and no error_mask")
     if controller not in ("i", "pi"):
         raise ValueError(f"unknown controller {controller!r}; 'i' | 'pi'")
     dtype, dev = y0.dtype, y0.device
     batch, n = y0.shape
     ts = ts.to(device=dev, dtype=dtype)
+    rtol = _tol_column(rtol, batch, dtype, dev)
+    atol = _tol_column(atol, batch, dtype, dev)
+    mask = None
+    if error_mask is not None:
+        mask = torch.as_tensor(error_mask, device=dev).expand(batch, n) > 0
 
     quartic = tableau.c_mid is not None
     fit = torch.tensor(QUARTIC_FIT if quartic else CUBIC_FIT, dtype=dtype,
@@ -252,7 +292,7 @@ def adaptive_odeint(
         else:
             y1, err, f1, new_evals, y_mid = _rk_attempt(tableau, func, t, dt,
                                                        y, f)
-            ratio = _error_ratio(err, y, y1, rtol, atol)
+            ratio = _error_ratio(err, y, y1, rtol, atol, mask)
         accept = (ratio <= 1.0) & active
         t1 = t + dt
 

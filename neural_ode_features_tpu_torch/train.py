@@ -1,0 +1,353 @@
+"""Train an ODE-Net or ResNet on the synthetic twins of MNIST / CIFAR-10
+(port of the JAX CLI ``train.py``).
+
+    python -m neural_ode_features_tpu_torch.train --dataset synthetic-mnist \\
+        --model odenet --tol 1e-3 --epochs 3 --batch-size 128 --runs-dir runs
+
+Every flag of the JAX CLI is accepted under its name with its default, and
+the run identity is the same: the same command line gives the same run
+directory name and the same ``params.json`` under both packages.  The run
+directory holds ``params.json``, the per-epoch ``log.csv`` (nine fixed
+columns), ``ckpt_best.pt`` / ``ckpt_last.pt`` with their ``.json`` sidecars
+(read by ``extract``, ``evaluate`` and ``sweep`` of this package) and
+``train_state.pt`` for a resume.  A resumed epoch sees the data order and
+the augmentation draws of an uninterrupted run and, since the state file
+also carries the loss and NFE running averages, logs the same row.
+
+Runs on the card unless ``--cpu`` is given; no card is an error.  Flags
+whose machinery is not ported exit with a message naming their ROADMAP.md
+item before any run directory is made.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ._device import strict_f32
+from .data import Batches, load_dataset
+from .training import TrainConfig, Trainer, epoch_generator
+from .utils import (
+    Experiment,
+    RunningAverageMeter,
+    count_parameters,
+    save_checkpoint,
+)
+
+__all__ = ["parse_args", "main", "run_identity"]
+
+# Execution knobs, not hyperparameters: identical hyperparameters resume the
+# same directory whatever these say (the JAX CLI's list).
+_NOT_IDENTITY = ("runs_dir", "data_dir", "cpu", "eval_every", "profile",
+                 "resume", "tensorboard", "max_steps", "state_format",
+                 "seeds", "num_devices", "model_shards")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dataset", default="mnist",
+                   choices=["mnist", "cifar10", "synthetic-mnist",
+                            "synthetic-cifar10"])
+    p.add_argument("--model", default="odenet", choices=["odenet", "resnet"])
+    p.add_argument("--tol", type=float, default=1e-3,
+                   help="rtol=atol for the adaptive solver")
+    p.add_argument("--solver", default="dopri5",
+                   help="dopri5, tsit5, bosh3, fehlberg2, or a fixed-grid "
+                        "method: euler, midpoint, heun2, rk4, fixed_adams")
+    p.add_argument("--controller", default="i", choices=["i", "pi"],
+                   help="adaptive step-size controller: 'i' (integral) or "
+                        "'pi' (proportional-integral: fewer rejected steps); "
+                        "applies to the forward and the adjoint solve")
+    p.add_argument("--adjoint", action="store_true", default=True,
+                   help="adjoint gradients (default; O(1) memory)")
+    p.add_argument("--no-adjoint", dest="adjoint", action="store_false",
+                   help="direct backprop through the host-loop solve")
+    p.add_argument("--adjoint-seminorm", action="store_true",
+                   help="seminorm backward error control (Kidger et al. "
+                        "2020): fewer backward NFE, same gradient quality")
+    p.add_argument("--adjoint-mode", default="reintegrate",
+                   choices=["reintegrate", "interpolated"],
+                   help="'interpolated': the backward reads y(t) from the "
+                        "forward's dense solution (Daulbaev et al. 2020)")
+    p.add_argument("--hidden", type=int, default=64,
+                   help="ODEfunc channel width (a multiple of the GroupNorm "
+                        "group count 32)")
+    p.add_argument("--downsampling", default="conv", choices=["conv", "res"],
+                   help="stem variant")
+    p.add_argument("--error-control", default="per_sample",
+                   choices=["per_sample", "global"])
+    p.add_argument("--epochs", type=int, default=160)
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--lr-decay-epochs", default="60,100,140")
+    p.add_argument("--lr-decay-gamma", type=float, default=0.1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seeds", default=None, metavar="S0,S1,...",
+                   help="population training over these seeds: not ported "
+                        "(ROADMAP.md, Queue 1 item 8)")
+    p.add_argument("--no-augment", dest="augment", action="store_false",
+                   default=True)
+    p.add_argument("--max-steps", type=int, default=None,
+                   help="solver iteration bound (default: 1024 for the "
+                        "adjoint path, 64 for --no-adjoint)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 dynamics compute: not ported (ROADMAP.md, "
+                        "Queue 2 item 5)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="data-parallel devices; more than 1 is not ported "
+                        "(ROADMAP.md, Queue 1 item 8)")
+    p.add_argument("--model-shards", type=int, default=1,
+                   help="parameter-sharding factor; more than 1 is not "
+                        "ported (ROADMAP.md, Queue 1 item 8)")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--runs-dir", default="runs")
+    p.add_argument("--limit", type=int, default=None,
+                   help="truncate the dataset (smoke tests)")
+    p.add_argument("--eval-every", type=int, default=1)
+    p.add_argument("--no-fused-epoch", dest="fused_epoch",
+                   action="store_false", default=True,
+                   help="one train_batch call per batch from the CLI's own "
+                        "loop, in place of Trainer.train_epoch")
+    p.add_argument("--no-resume", dest="resume", action="store_false",
+                   default=True,
+                   help="ignore an existing train_state.pt in the run "
+                        "directory (default: resume it)")
+    p.add_argument("--state-format", choices=("msgpack", "orbax"),
+                   default="msgpack",
+                   help="accepted for the JAX CLI's sake: the training state "
+                        "is train_state.pt (torch.save) whatever 'msgpack' "
+                        "says; 'orbax' is not ported (ROADMAP.md, Queue 1 "
+                        "item 5)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="not ported: clu is not installed where the port "
+                        "runs")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="write a torch.profiler trace of N train steps to "
+                        "<run_dir>/profile")
+    p.add_argument("--cpu", action="store_true",
+                   help="run the plain PyTorch path on the CPU")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    """Exit, before a run directory exists, on a flag whose machinery the
+    port does not have."""
+    def stop(flag, item):
+        raise SystemExit(f"{flag} is not ported yet (ROADMAP.md, {item})")
+
+    if args.seeds is not None:
+        stop("--seeds (population training)", "Queue 1 item 8")
+    if args.num_devices not in (None, 1):
+        stop(f"--num-devices {args.num_devices}", "Queue 1 item 8")
+    if args.model_shards != 1:
+        stop(f"--model-shards {args.model_shards}", "Queue 1 item 8")
+    if args.bf16:
+        stop("--bf16", "Queue 2 item 5")
+    if args.state_format == "orbax":
+        stop("--state-format orbax", "Queue 1 item 5")
+    if args.solver == "adams":
+        stop("--solver adams", "Queue 1 item 7")
+    if args.tensorboard:
+        raise SystemExit("--tensorboard needs clu.metric_writers, which is "
+                         "not installed where the port runs; the per-epoch "
+                         "scalars are in log.csv")
+
+
+def run_identity(args) -> dict:
+    """The hyperparameters that name the run directory and fill
+    ``params.json``: every flag but the execution knobs, and the default
+    controller dropped so that run names predate that flag."""
+    exp_params = {k: v for k, v in vars(args).items()
+                  if k not in _NOT_IDENTITY}
+    if exp_params.get("controller") == "i":
+        del exp_params["controller"]
+    return exp_params
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.hidden <= 0 or args.hidden % 32 != 0:
+        raise SystemExit(
+            f"--hidden {args.hidden}: must be a positive multiple of 32 "
+            "(GroupNorm groups=32 in the reference architecture)")
+    _refuse_unported(args)
+    device = strict_f32("cpu" if args.cpu else "cuda")
+
+    cfg = TrainConfig(
+        dataset=args.dataset,
+        model=args.model,
+        tol=args.tol,
+        solver=args.solver,
+        controller=args.controller,
+        adjoint=args.adjoint,
+        adjoint_seminorm=args.adjoint_seminorm,
+        adjoint_mode=args.adjoint_mode,
+        error_control=args.error_control,
+        downsampling=args.downsampling,
+        hidden=args.hidden,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        optimizer=args.optimizer,
+        lr=args.lr,
+        momentum=args.momentum,
+        weight_decay=args.weight_decay,
+        lr_decay_epochs=tuple(
+            int(e) for e in args.lr_decay_epochs.split(",") if e),
+        lr_decay_gamma=args.lr_decay_gamma,
+        seed=args.seed,
+        augment=args.augment,
+        max_steps=args.max_steps or (1024 if args.adjoint else 64),
+    )
+    exp_params = run_identity(args)
+    exp = Experiment(args.runs_dir, exp_params).create()
+    print(f"run dir: {exp.path}")
+
+    x_train, y_train = load_dataset(args.dataset, "train", args.data_dir,
+                                    limit=args.limit)
+    x_test, y_test = load_dataset(args.dataset, "test", args.data_dir,
+                                  limit=args.limit)
+    train_b = Batches(x_train, y_train, args.batch_size, seed=args.seed)
+    test_b = Batches(x_test, y_test, args.batch_size, shuffle=False,
+                     drop_remainder=False)
+    print(f"train {len(x_train)} / test {len(x_test)} images; "
+          f"{len(train_b)} steps/epoch; device: {device}")
+
+    trainer = Trainer(cfg, steps_per_epoch=len(train_b), device=device)
+    print(f"model parameters: {count_parameters(trainer.params):,}")
+
+    start_epoch = 0
+    best_acc = 0.0
+    state_path = exp.file("train_state.pt")
+    loss_m, nfe_m = RunningAverageMeter(), RunningAverageMeter()
+    nfe_b_m = RunningAverageMeter()
+    if args.resume and state_path.exists():
+        averages = trainer.load_state(state_path)
+        for meter, key in ((loss_m, "loss_avg"), (nfe_m, "nfe_avg")):
+            if key in averages:  # the running averages go on where they were
+                meter.update(averages[key])
+        log_rows = exp.read_log()
+        start_epoch = (int(log_rows[-1]["epoch"]) + 1) if log_rows else 0
+        best_acc = max(
+            (float(r["test_acc"]) for r in log_rows if r.get("test_acc")),
+            default=0.0)
+        print(f"resumed {state_path} at epoch {start_epoch} "
+              f"(best so far {best_acc:.4f})")
+
+    # Batches keys its shuffle on its own epoch counter, which starts at 0 in
+    # a new process: align it with the true epoch, so that a resumed epoch
+    # sees the data order an uninterrupted run would have.
+    train_b.epoch = start_epoch
+
+    profiler = None
+    profile_left = args.profile
+    step_idx = 0
+    use_fused = args.fused_epoch and not args.profile
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.time()
+        nfe_b_m.reset()
+        tr_acc_sum = tr_count = 0.0
+        if use_fused:
+            em = trainer.train_epoch(x_train, y_train, epoch)
+            for i in range(len(em["loss"])):
+                loss_m.update(float(em["loss"][i]))
+                nfe_m.update(float(em["nfe"][i]))
+                nfe_b_m.update(float(em["nfe_b"][i]))
+            tr_count = args.batch_size * len(em["acc"])
+            tr_acc_sum = float(np.mean(em["acc"])) * tr_count
+        else:
+            gen = epoch_generator(args.seed, epoch)
+            for images, labels in train_b:
+                if profile_left and profiler is None and step_idx == 2:
+                    profiler = _start_profile(device)  # past the warm-up
+                m = trainer.train_batch(images, labels, gen)
+                step_idx += 1
+                if profiler is not None:
+                    profile_left -= 1
+                    if profile_left == 0:
+                        _stop_profile(profiler, exp, device)
+                        profiler = None
+                loss_m.update(m["loss"])
+                nfe_m.update(m["nfe"])
+                nfe_b_m.update(m["nfe_b"])
+                tr_acc_sum += m["acc"] * len(labels)
+                tr_count += len(labels)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        train_time = time.time() - t0
+
+        # Fixed column schema: the eval columns are always present (blank
+        # when the epoch is not evaluated), so log.csv's header holds for
+        # any --eval-every.
+        row = {
+            "epoch": epoch,
+            "train_loss": round(loss_m.avg, 6),
+            "train_acc": round(tr_acc_sum / max(tr_count, 1), 6),
+            "nfe_f": round(nfe_m.avg, 2),
+            "nfe_b": round(nfe_b_m.avg, 2),
+            "time_s": round(train_time, 2),
+            "test_loss": "",
+            "test_acc": "",
+            "test_nfe": "",
+        }
+
+        if (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1:
+            if use_fused:
+                ev = trainer.evaluate_fused(x_test, y_test)
+            else:
+                ev = trainer.evaluate(test_b)
+            row.update(test_loss=round(ev["loss"], 6),
+                       test_acc=round(ev["acc"], 6),
+                       test_nfe=round(ev["nfe"], 2))
+            if ev["acc"] >= best_acc:
+                best_acc = ev["acc"]
+                save_checkpoint(exp.file("ckpt_best.pt"), trainer.params,
+                                trainer.model_cfg,
+                                extra={"epoch": epoch, "test_acc": ev["acc"],
+                                       "train": exp_params,
+                                       "model": args.model})
+        # State first, log second: a stop between the two runs the epoch
+        # again on resume instead of resuming stale weights.
+        trainer.save_state(state_path, extra={"loss_avg": loss_m.avg,
+                                              "nfe_avg": nfe_m.avg})
+        exp.log(row)
+        print(" | ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+
+    if profiler is not None:  # the run ended before N profiled steps
+        _stop_profile(profiler, exp, device)
+    save_checkpoint(exp.file("ckpt_last.pt"), trainer.params,
+                    trainer.model_cfg,
+                    extra={"epoch": args.epochs - 1, "test_acc": best_acc,
+                           "train": exp_params, "model": args.model})
+    print(f"best test acc: {best_acc:.4f}; run dir: {exp.path}")
+    return exp.path
+
+
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, exp: Experiment, device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    prof.stop()
+    out = exp.file("profile")
+    out.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(f"profile written to {out}")
+
+
+if __name__ == "__main__":
+    main()

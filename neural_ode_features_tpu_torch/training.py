@@ -2,18 +2,21 @@
 ``neural_ode_features_tpu/training.py``).
 
 One train step: uint8 batch → ``normalize`` → ``augment`` (normalised-black
-fill) → ODE-Net logits through the adjoint (``odenet_logits(adjoint=True)``,
-whose augmented dynamics run the ODEfunc kernel pair on the card) or direct
-backprop through the host-loop solve → cross-entropy → gradients → SGD with
-momentum (or Adam) under a piecewise-constant learning rate.  NFE-forward
-and NFE-backward come back with every step; ``nfe_b`` is what the adjoint's
-``.backward()`` counted.
+fill) → logits → cross-entropy → gradients → SGD with momentum (or Adam)
+under a piecewise-constant learning rate.  The ODE-Net's logits go through
+the adjoint (``odenet_logits(adjoint=True)``, every variant of
+``solver/adjoint.py``; the augmented dynamics run the ODEfunc kernel pair on
+the card) or direct backprop through the host-loop solve (adaptive or
+fixed-grid); the ResNet's through plain autograd (cuDNN convs, no
+hand-written kernel, as the JAX ResNet reaches no Pallas kernel).
+NFE-forward and NFE-backward come back with every step; ``nfe_b`` is what
+the adjoint's ``.backward()`` counted, and both read 0 for a ResNet.
 
 The JAX step is one compiled device program; here it is eager PyTorch with
 host loops in the solver (one device→host sync per attempt).  Not ported yet
-(each raises ``NotImplementedError`` naming ROADMAP.md): training the ResNet
-model, a device mesh (``num_devices``/``model_shards`` > 1), bfloat16
-compute, and the orbax training-state directory.  The training state file
+(each raises ``NotImplementedError`` naming ROADMAP.md): a device mesh
+(``num_devices``/``model_shards`` > 1), bfloat16 compute, and the orbax
+training-state directory.  The training state file
 is a ``torch.save`` of one flat dict of tensors (``save_state``).
 """
 
@@ -27,19 +30,22 @@ import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
 from ._device import resolve_device
+from .data import Batches
 from .kernels.odefunc import odefunc_autograd, prepare
 from .models import (
     ModelConfig,
     head_apply,
     init_odenet,
+    init_resnet,
     odenet_logits,
+    resnet_logits,
     stem_apply,
 )
 from .ops.preprocess import augment, normalize, normalized_black
 from .solver import odeint
 from .utils.checkpoint import from_torch_state_dict, to_torch_state_dict
 
-__all__ = ["TrainConfig", "Trainer"]
+__all__ = ["TrainConfig", "Trainer", "epoch_generator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +54,7 @@ class TrainConfig:
     to params.json)."""
 
     dataset: str = "mnist"
-    model: str = "odenet"  # 'odenet' | 'resnet' (not ported yet)
+    model: str = "odenet"  # 'odenet' | 'resnet'
     tol: float = 1e-3
     solver: str = "dopri5"
     controller: str = "i"
@@ -110,6 +116,15 @@ def _direct_diff_logits(params, x: torch.Tensor, cfg: ModelConfig):
     return head_apply(params["head"], traj[-1], cfg), stats
 
 
+def epoch_generator(seed: int, epoch: int) -> torch.Generator:
+    """The augmentation draws of one epoch, derived from ``(seed + 1,
+    epoch)`` and from nothing an earlier epoch left behind (torch's
+    generators are stateful where the JAX keys are folded from the epoch),
+    so a resumed epoch k sees what an uninterrupted run saw."""
+    return torch.Generator().manual_seed(int(
+        np.random.default_rng((seed + 1, epoch)).integers(2**62)))
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
@@ -118,7 +133,8 @@ class Trainer:
     """Owns the parameters, the optimizer and the step.
 
     ``params``: start from these parameters (a port param tree, e.g. from
-    ``utils.from_jax_params``) instead of ``init_odenet(cfg.seed)``.
+    ``utils.from_jax_params``) instead of the model's initialiser at
+    ``cfg.seed``.
     ``device``: the card by default; ``"cpu"`` runs the plain versions of
     the kernels."""
 
@@ -128,9 +144,7 @@ class Trainer:
             raise ValueError(
                 f"steps_per_epoch={steps_per_epoch}: the training set is "
                 f"smaller than batch_size={train_cfg.batch_size}")
-        if train_cfg.model == "resnet":
-            _not_ported("model='resnet'", "Queue 1 item 6")
-        if train_cfg.model != "odenet":
+        if train_cfg.model not in ("odenet", "resnet"):
             raise ValueError(f"unknown model {train_cfg.model!r}")
         if train_cfg.num_devices not in (None, 1) or train_cfg.model_shards != 1:
             _not_ported("training on a device mesh", "Queue 1 item 8")
@@ -145,8 +159,10 @@ class Trainer:
         self.device = resolve_device(device)
 
         if params is None:
-            params = init_odenet(train_cfg.seed, self.model_cfg,
-                                 device=self.device)
+            init_fn = (init_odenet if train_cfg.model == "odenet"
+                       else init_resnet)
+            params = init_fn(train_cfg.seed, self.model_cfg,
+                             device=self.device)
         self.params = pytree.tree_map(
             lambda p: p.detach().to(self.device, torch.float32).clone()
             .requires_grad_(), params)
@@ -192,24 +208,29 @@ class Trainer:
                                                       torch.long)
 
     def _loss_and_logits(self, params, x: torch.Tensor, labels: torch.Tensor):
-        """Forward: ``(loss, logits, mean NFE, stats)``."""
+        """Forward: ``(loss, logits, mean NFE, stats)``; a ResNet has no
+        solve, so NFE 0 and no stats."""
         cfg = self.model_cfg
-        if self.cfg.adjoint:
-            logits, stats = odenet_logits(params, x, cfg, adjoint=True)
+        if self.cfg.model == "resnet":
+            logits, stats = resnet_logits(params, x, cfg), None
+            nfe = torch.zeros((), device=x.device)
         else:
-            logits, stats = _direct_diff_logits(params, x, cfg)
-        nfe = stats.nfe.float().mean()
+            if self.cfg.adjoint:
+                logits, stats = odenet_logits(params, x, cfg, adjoint=True)
+            else:
+                logits, stats = _direct_diff_logits(params, x, cfg)
+            nfe = stats.nfe.float().mean()
         loss = F.cross_entropy(logits, labels)
         return loss, logits, nfe, stats
 
     def _grads(self, params, x: torch.Tensor, labels: torch.Tensor):
         """Loss, logits, NFE, gradients (a tree like ``params``) and the
-        backward NFE (0 for direct backprop, which replays the forward's
-        graph instead of solving again)."""
+        backward NFE (0 for a ResNet and for direct backprop, which replays
+        the forward's graph instead of solving again)."""
         loss, logits, nfe, stats = self._loss_and_logits(params, x, labels)
         self.last_stats = stats
         grads = torch.autograd.grad(loss, pytree.tree_leaves(params))
-        nfe_b = (stats.nfe_b.float() if self.cfg.adjoint
+        nfe_b = (stats.nfe_b.float() if hasattr(stats, "nfe_b")
                  else torch.zeros((), device=loss.device))
         return (loss.detach(), logits.detach(), nfe,
                 pytree.tree_unflatten(list(grads), pytree.tree_structure(
@@ -243,9 +264,7 @@ class Trainer:
         steps = n // bs
         perm = np.random.default_rng((self.cfg.seed, epoch)).permutation(n)
         perm = perm[: steps * bs].reshape(steps, bs)
-        gen = torch.Generator().manual_seed(int(
-            np.random.default_rng((self.cfg.seed + 1, epoch))
-            .integers(2**62)))
+        gen = epoch_generator(self.cfg.seed, epoch)
         rows = [self.train_batch(images_u8[idx], labels[idx], gen)
                 for idx in perm]
         return {k: np.asarray([r[k] for r in rows]) for k in
@@ -258,11 +277,15 @@ class Trainer:
         x = self._preprocess(images_u8, train=False)
         y = self._labels(labels)
         v = torch.as_tensor(np.asarray(valid)).to(self.device, torch.float32)
-        logits, stats = odenet_logits(self.params, x, self.model_cfg,
-                                      adjoint=False)
-        nfe = stats.nfe.float()
-        if nfe.shape[0] != v.shape[0]:  # global control: one (1,) count
-            nfe = nfe.expand(v.shape[0])
+        if self.cfg.model == "resnet":
+            logits = resnet_logits(self.params, x, self.model_cfg)
+            nfe = torch.zeros_like(v)
+        else:
+            logits, stats = odenet_logits(self.params, x, self.model_cfg,
+                                          adjoint=False)
+            nfe = stats.nfe.float()
+            if nfe.shape[0] != v.shape[0]:  # global control: one (1,) count
+                nfe = nfe.expand(v.shape[0])
         correct = (logits.argmax(-1) == y).float() * v
         ce = F.cross_entropy(logits, y, reduction="none")
         return {"correct": float(correct.sum()), "loss_sum": float((ce * v)
@@ -281,13 +304,27 @@ class Trainer:
                 "loss": total["loss_sum"] / count,
                 "nfe": total["nfe_sum"] / count}
 
-    def save_state(self, path) -> None:
+    def evaluate_fused(self, images_u8, labels) -> dict[str, float]:
+        """Evaluate a whole split held as arrays: the tail batch zero-padded
+        and masked, so the coverage is :meth:`evaluate`'s.  (The JAX method
+        of this name folds the split into one device dispatch; eager
+        PyTorch on a local card has no per-dispatch cost to save, so this is
+        the per-batch loop.)"""
+        return self.evaluate(Batches(
+            np.asarray(images_u8), np.asarray(labels), self.cfg.batch_size,
+            shuffle=False, drop_remainder=False))
+
+    def save_state(self, path, extra: dict[str, float] | None = None) -> None:
         """Full training state for a resume, as one flat ``dict[str,
         Tensor]`` under ``torch.save``: ``params.<name>`` (the 'internal'
         state dict of ``utils/checkpoint.py``), ``opt.<i>.<key>`` (the
-        optimizer's tensors for parameter leaf i) and ``step_count``."""
+        optimizer's tensors for parameter leaf i), ``step_count`` and
+        ``extra.<key>`` (the caller's own floats, e.g. the CLI's running
+        averages, kept in float64)."""
         state = {f"params.{k}": v
                  for k, v in to_torch_state_dict(self.params).items()}
+        for key, val in (extra or {}).items():
+            state[f"extra.{key}"] = torch.tensor(val, dtype=torch.float64)
         for i, p in enumerate(self._leaves):
             for key, val in self.optimizer.state.get(p, {}).items():
                 if isinstance(val, torch.Tensor):
@@ -295,9 +332,10 @@ class Trainer:
         state["step_count"] = torch.tensor(self.step_count)
         torch.save(state, path)
 
-    def load_state(self, path) -> None:
+    def load_state(self, path) -> dict[str, float]:
         """Restore what :meth:`save_state` wrote, in place: the parameter
-        leaves keep their identity, so the optimizer goes on owning them."""
+        leaves keep their identity, so the optimizer goes on owning them.
+        Returns the ``extra`` floats."""
         state = torch.load(path, map_location="cpu", weights_only=True)
         loaded = from_torch_state_dict(
             self.params, {k[len("params."):]: v for k, v in state.items()
@@ -311,6 +349,8 @@ class Trainer:
                 k[len(prefix):]: v.to(p.device if v.ndim else v.device)
                 for k, v in state.items() if k.startswith(prefix)}
         self.step_count = int(state["step_count"])
+        return {k[len("extra."):]: float(v) for k, v in state.items()
+                if k.startswith("extra.")}
 
     def save_state_orbax(self, path) -> None:
         _not_ported("the orbax training state", "Queue 1 item 5")

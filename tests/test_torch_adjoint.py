@@ -56,6 +56,13 @@ def _torch_grads(inp, **kw):
     dict(error_control="per_sample"),
     dict(error_control="global"),
     dict(error_control="per_sample", adjoint_rtol=1e-4, adjoint_atol=1e-6),
+    dict(error_control="per_sample", adjoint_seminorm=True),
+    dict(error_control="global", adjoint_seminorm=True),
+    dict(error_control="per_sample", adjoint_mode="interpolated"),
+    dict(error_control="global", adjoint_mode="interpolated"),
+    dict(error_control="per_sample", adjoint_mode="interpolated",
+         adjoint_seminorm=True),
+    dict(error_control="per_sample", method="rk4", steps_per_interval=8),
 ])
 def test_gradients_and_backward_nfe_match_jax(kw):
     kw = dict(rtol=1e-6, atol=1e-8, **kw)
@@ -69,6 +76,64 @@ def test_gradients_and_backward_nfe_match_jax(kw):
     np.testing.assert_allclose(ts.grad.numpy(), np.asarray(gts), **GRAD_TOL)
     assert int(stats.nfe_b) == int(nfe_b) > len(TS) - 1
     assert bool(stats.success.all())
+
+
+def test_seminorm_cuts_backward_nfe():
+    """The seminorm's point: no more backward NFE than the full norm at the
+    same tolerance, and gradients within the solve's own accuracy."""
+    inp = _inputs()
+    kw = dict(rtol=1e-6, atol=1e-8, error_control="per_sample")
+    p0, y0_0, _, st0 = _torch_grads(inp, **kw)
+    p1, y0_1, _, st1 = _torch_grads(inp, adjoint_seminorm=True, **kw)
+    assert 0 < int(st1.nfe_b) <= int(st0.nfe_b)
+    for name in ("A", "b"):
+        np.testing.assert_allclose(p1[name].grad.numpy(),
+                                   p0[name].grad.numpy(), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(y0_1.grad.numpy(), y0_0.grad.numpy(),
+                               rtol=1e-4, atol=1e-6)
+
+
+def _flat_grads(inp, scale, **kw):
+    p = {"A": torch.tensor(inp["A"], requires_grad=True),
+         "b": torch.tensor(inp["b"], requires_grad=True)}
+    y0 = torch.tensor(inp["y0"], requires_grad=True)
+    ys, _ = odeint_adjoint(_torch_func, p, y0, torch.tensor(TS), **kw)
+    (scale * (ys * torch.from_numpy(inp["w"])).sum()).backward()
+    return torch.cat([p["A"].grad.reshape(-1), p["b"].grad.reshape(-1),
+                      y0.grad.reshape(-1)])
+
+
+def test_variants_lose_accuracy_at_small_cotangents():
+    """At rtol = atol the backward solve holds a_y to atol + rtol·|a_y|.
+    With O(1) cotangents every variant is within 1e-4 (rel-L2) of a tight
+    reference at tol 1e-5.  With cotangents of size 1e-3 the reintegrating
+    adjoint still is (y, O(1), keeps the steps short), while the
+    interpolated adjoint, whose error norm sees a_y alone, is more than 20
+    times further off than it was: a property of the method at rtol = atol,
+    not of its arithmetic (float64 throughout)."""
+    inp = _inputs()
+    variants = {"full": {}, "seminorm": dict(adjoint_seminorm=True),
+                "interpolated": dict(adjoint_mode="interpolated")}
+    rel = {}
+    for scale in (1.0, 1e-3):
+        ref = _flat_grads(inp, scale, rtol=1e-11, atol=1e-13 * scale)
+        for tag, kw in variants.items():
+            got = _flat_grads(inp, scale, rtol=1e-5, atol=1e-5,
+                              error_control="global", **kw)
+            rel[tag, scale] = float((got - ref).norm() / ref.norm())
+    assert all(rel[tag, 1.0] < 1e-4 for tag in variants), rel
+    assert rel["full", 1e-3] < 1e-4, rel
+    assert rel["interpolated", 1e-3] > 20 * rel["interpolated", 1.0], rel
+
+
+def test_truncated_dense_forward_poisons_gradients():
+    inp = _inputs()
+    p, y0, ts, stats = _torch_grads(inp, rtol=1e-6, atol=1e-8,
+                                    adjoint_mode="interpolated",
+                                    dense_max_steps=2)
+    assert not bool(stats.success.all())
+    for g in (p["A"].grad, p["b"].grad, y0.grad):
+        assert bool(torch.isnan(g).all())
 
 
 def test_per_sample_time_contract():
@@ -103,9 +168,11 @@ def test_failed_backward_solve_poisons_gradients():
 def test_refusals():
     p = {"A": torch.zeros((D, D))}
     y0 = torch.zeros((B, D))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odeint_adjoint(_torch_func, p, y0, TS, adjoint_seminorm=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odeint_adjoint(_torch_func, p, y0, TS, adjoint_mode="interpolated")
+    with pytest.raises(ValueError, match="fixed-grid"):
+        odeint_adjoint(_torch_func, p, y0, TS, adjoint_seminorm=True,
+                       method="rk4")
+    with pytest.raises(ValueError, match="adaptive RK methods only"):
+        odeint_adjoint(_torch_func, p, y0, TS, adjoint_mode="interpolated",
+                       method="euler")
     with pytest.raises(ValueError, match="adjoint_mode"):
         odeint_adjoint(_torch_func, p, y0, TS, adjoint_mode="nope")

@@ -311,3 +311,85 @@ def test_extraction_path_runs_the_kernels(dev):
     np.testing.assert_allclose(feats.cpu().numpy(),
                                pool_features(traj).cpu().numpy(), rtol=1e-3,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("side,c,g", [(7, 64, 32), (6, 64, 32), (8, 64, 32),
+                                      (7, 32, 16)])
+def test_rk_step_per_row_tolerance(dev, side, c, g):
+    """``rtol``/``atol`` as ``(B,)`` arrays, on the tensor-core stage (7×7×64,
+    6×6×64) and the FFMA stage: against the plain version, and every row
+    bit-identical to a launch at that row's tolerance as a float."""
+    cfg = dataclasses.replace(ENTRY_CONFIG, hidden=c, groups=g)
+    params = init_odenet(2, cfg, device=dev)
+    w = prepare(params["odefunc"], (side, side))
+    batch = 12
+    rng = np.random.default_rng(8)
+    arr = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h = arr(rng.normal(size=(batch, side, side, c)) * 0.3)
+    t0, dt = arr(rng.uniform(0.0, 0.5, batch)), arr(rng.uniform(0.05, 0.2,
+                                                                 batch))
+    y0 = h.reshape(batch, -1)
+    f0 = odefunc_plain(w, t0, h, g).reshape(batch, -1)
+    tols = arr(np.array([1e-1, 1e-2, 1e-3, 1e-4] * 3))
+    kw = dict(hw=(side, side), groups=g)
+    before = dopri5_step.launches
+    got = dopri5_step(w, DOPRI5, t0, dt, y0, f0, rtol=tols, atol=tols, **kw)
+    assert dopri5_step.launches == before + 1
+    want = dopri5_step_plain(w, DOPRI5, t0, dt, y0, f0, rtol=tols, atol=tols,
+                             **kw)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   **STATE_TOL)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               **RATIO_TOL)
+    for tol in (1e-1, 1e-2, 1e-3, 1e-4):
+        one = dopri5_step(w, DOPRI5, t0, dt, y0, f0, rtol=tol, atol=tol, **kw)
+        sel = tols == torch.tensor(tol, dtype=torch.float32, device=dev)
+        assert int(sel.sum()) == 3
+        for a, b in zip(got, one):
+            assert torch.equal(a[sel], b[sel])
+    with pytest.raises(ValueError, match="per-row tolerance"):
+        dopri5_step(w, DOPRI5, t0, dt, y0, f0, rtol=tols[:5], atol=tols, **kw)
+
+
+@pytest.mark.parametrize("variant", [
+    dict(adjoint_seminorm=True), dict(adjoint_mode="interpolated")])
+def test_adjoint_variants_match_plain(dev, variant):
+    """One seminorm and one interpolated backward through the kernel pair
+    against the plain path (``odefunc_plain`` under autograd) on the card:
+    B = 8, tol 1e-5, global control; loss at rtol 1e-5, gradients at rel-L2
+    < 1e-2 and cosine > 0.9999; the backward kernel is what ran."""
+    from neural_ode_features_tpu_torch.models import odenet_logits
+    from neural_ode_features_tpu_torch.solver import odeint_adjoint
+
+    trainer, (images, labels) = train_entry(device="cuda", batch=8)
+    tp = trainer.params
+    cfg = dataclasses.replace(trainer.model_cfg, tol=1e-5,
+                              error_control="global", max_steps=512,
+                              **variant)
+    x = normalize(torch.from_numpy(images).to(dev), trainer.cfg.dataset)
+    y = torch.from_numpy(labels).to(dev)
+    leaves = torch.utils._pytree.tree_leaves(tp)
+
+    def loss_and_grads(logits):
+        loss = torch.nn.functional.cross_entropy(logits, y)
+        grads = torch.autograd.grad(loss, leaves)
+        return (float(loss.detach()),
+                torch.cat([g.reshape(-1) for g in grads]).double())
+
+    odefunc_bwd.launches = 0
+    logits, stats = odenet_logits(tp, x, cfg, adjoint=True)
+    loss_k, grads_k = loss_and_grads(logits)
+    assert odefunc_bwd.launches == int(stats.nfe_b) - 1 > 0
+
+    h0 = stem_apply(tp["stem"], x, cfg)
+    traj, stats_p = odeint_adjoint(
+        lambda p, t, yy: odefunc_plain(prepare(p, (7, 7)), t, yy, 32),
+        tp["odefunc"], h0, torch.tensor([0.0, 1.0], device=dev),
+        rtol=cfg.tol, atol=cfg.tol, error_control="global",
+        max_steps=cfg.max_steps, **variant)
+    loss_p, grads_p = loss_and_grads(head_apply(tp["head"], traj[-1], cfg))
+    np.testing.assert_allclose(loss_k, loss_p, rtol=1e-5)
+    rel = float((grads_k - grads_p).norm() / grads_p.norm())
+    cos = float(grads_k @ grads_p / (grads_k.norm() * grads_p.norm()))
+    assert rel < 1e-2 and cos > 0.9999, (rel, cos)

@@ -55,9 +55,12 @@ def test_dense_matches_jax(problem, error_control, dtype):
         # rounding while the solutions agree; the record is held in f64.
         return
     sol, sol_j = y_at.__wrapped_sol__, y_at_j.__wrapped_sol__
+    # The port's buffer grows with the attempts; JAX's holds max_steps slots.
+    assert int(stats.naccept.max()) <= sol.t0s.shape[0] <= kw["max_steps"]
     for name in ("t0s", "dts", "coeffs"):
-        np.testing.assert_allclose(getattr(sol, name).numpy(),
-                                   np.asarray(getattr(sol_j, name)),
+        got_rec = getattr(sol, name).numpy()
+        np.testing.assert_allclose(got_rec,
+                                   np.asarray(getattr(sol_j, name))[:len(got_rec)],
                                    rtol=1e-5, atol=1e-7, err_msg=name)
 
 

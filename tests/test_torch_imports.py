@@ -45,8 +45,9 @@ def _modules():
 
 def test_imports_with_jax_blocked():
     mods = _modules()
-    assert len(mods) >= 37
-    for name in ("extract", "evaluate", "features_io", "solver.dense",
+    assert len(mods) >= 41
+    for name in ("train", "sweep", "utils.expman", "solver.fixed_grid",
+                 "extract", "evaluate", "features_io", "solver.dense",
                  "models.resnet", "models.api", "evaluation.probes",
                  "kernels.conv3x3", "probes.conv_probe", "utils.checkpoint"):
         assert f"{port.__name__}.{name}" in mods
@@ -73,7 +74,9 @@ _FORBIDDEN = re.compile(
 
 def test_no_jax_references_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 38
+    assert len(files) >= 42
+    names = {f.name for f in files}
+    assert {"train.py", "sweep.py", "expman.py", "fixed_grid.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"

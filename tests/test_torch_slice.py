@@ -79,15 +79,18 @@ def test_fused_eligibility_and_refusals():
                                      (4, 7, 7, 64), torch.float32)
     params = {"stem": {}, "odefunc": {}, "head": {}}
     x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="seminorm.*ROADMAP"):
-        odenet_logits(params, x, dataclasses.replace(cfg,
-                                                     adjoint_seminorm=True),
-                      adjoint=True)
-    with pytest.raises(NotImplementedError, match="interpolated.*ROADMAP"):
+    # The adjoint variants run now; what stays refused is a combination
+    # with no meaning, where the caller passed it.
+    with pytest.raises(ValueError, match="seminorm.*fixed-grid"):
         odenet_logits(params, x, dataclasses.replace(
-            cfg, adjoint_mode="interpolated"), adjoint=True)
-    with pytest.raises(NotImplementedError, match="resnet.*ROADMAP"):
-        Trainer(TrainConfig(model="resnet"), steps_per_epoch=1, device="cpu")
+            cfg, adjoint_seminorm=True, method="rk4"), adjoint=True)
+    with pytest.raises(ValueError, match="interpolated.*adaptive RK"):
+        odenet_logits(params, x, dataclasses.replace(
+            cfg, adjoint_mode="interpolated", method="euler"), adjoint=True)
+    with pytest.raises(ValueError, match="inference path"):
+        odenet_logits(params, x, cfg, adjoint=True, tol=1e-2)
+    assert Trainer(TrainConfig(model="resnet", hidden=32), steps_per_epoch=1,
+                   device="cpu").cfg.model == "resnet"
     with pytest.raises(ValueError, match="unknown downsampling"):
         init_odenet(0, dataclasses.replace(cfg, downsampling="pool"),
                     device="cpu")

@@ -60,6 +60,76 @@ def test_adaptive_matches_jax(tol, method, controller):
                                atol=1e-12)
 
 
+@pytest.mark.parametrize("tol", [1e-3, 1e-5])
+@pytest.mark.parametrize("mask", [[1.0, 0.0], [0.0, 1.0]])
+def test_error_mask_matches_jax(tol, mask):
+    """Seminorm control: with a 0/1 ``error_mask`` the accept/reject
+    sequence, the NFE and the solution equal the JAX solver's (float64, so
+    every decision is the same), and differ from the unmasked solve's."""
+    ts = np.linspace(0.0, 2.0, 4)
+    y0 = np.array([[1.0, 0.0], [0.0, 3.0], [1.0, 1.0]])
+    m = np.broadcast_to(np.asarray(mask), y0.shape)
+    ys_j, st_j = jax_adaptive_odeint(
+        _sine_jax, jnp.asarray(y0), jnp.asarray(ts), tol, tol,
+        jax_tableau.DOPRI5, error_mask=jnp.asarray(m))
+    ys, st = adaptive_odeint(
+        _sine_torch, torch.from_numpy(y0), torch.from_numpy(ts), tol, tol,
+        tableau.DOPRI5, error_mask=torch.from_numpy(m.copy()))
+    for name in ("nfe", "naccept", "nreject", "success"):
+        np.testing.assert_array_equal(getattr(st, name).numpy(),
+                                      np.asarray(getattr(st_j, name)), name)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), rtol=1e-10,
+                               atol=1e-12)
+    # The front door takes the mask as a state-like tree.
+    ys_f, st_f = odeint(_sine_torch, torch.from_numpy(y0),
+                        torch.from_numpy(ts), rtol=tol, atol=tol,
+                        error_control="per_sample",
+                        error_mask=torch.from_numpy(m.copy()))
+    np.testing.assert_array_equal(st_f.nfe.numpy(), st.nfe.numpy())
+    assert torch.equal(ys_f, ys)
+    with pytest.raises(ValueError, match="no error_mask"):
+        adaptive_odeint(_sine_torch, torch.from_numpy(y0),
+                        torch.from_numpy(ts), tol, tol, tableau.DOPRI5,
+                        error_mask=torch.from_numpy(m.copy()),
+                        fused_step=lambda *a: None)
+
+
+def test_masked_ratio_runs_over_the_unmasked_count():
+    err = torch.tensor([[3e-3, 7.0, 4e-3]])
+    y = torch.zeros((1, 3))
+    mask = torch.tensor([[True, False, True]])
+    r = _error_ratio(err, y, y, 0.0, 1e-3, mask)
+    np.testing.assert_allclose(r.numpy(), [np.sqrt((9 + 16) / 2)], rtol=1e-6)
+    # An excluded inf (atol = 0 at a zero-scale entry) does not poison it.
+    r0 = _error_ratio(torch.tensor([[1e-3, 1.0]]), torch.tensor([[1.0, 0.0]]),
+                      torch.tensor([[1.0, 0.0]]), 1e-3, 0.0,
+                      torch.tensor([[True, False]]))
+    np.testing.assert_allclose(r0.numpy(), [1.0], rtol=1e-6)
+
+
+def test_per_row_tolerance_equals_per_row_solves():
+    """A ``(B,)`` tolerance gives every row the solve it would have had
+    alone at its own tolerance: same NFE, the same solution to rounding
+    (rtol 1e-12: a one-row call takes the CPU's scalar code paths)."""
+    ts = torch.tensor([0.0, 1.0, 2.0], dtype=torch.float64)
+    y0 = torch.from_numpy(_Y0)
+    tols = torch.tensor([1e-2, 1e-3, 1e-4, 1e-6], dtype=torch.float64)
+    ys, st = odeint(_exp_torch, y0, ts, rtol=tols, atol=tols,
+                    error_control="per_sample")
+    for i, tol in enumerate(tols.tolist()):
+        def row(t, y, i=i):
+            return float(_LAMBDA[i]) * y
+        ys_i, st_i = odeint(row, y0[i:i + 1], ts, rtol=tol, atol=tol,
+                            error_control="per_sample")
+        assert int(st.nfe[i]) == int(st_i.nfe[0])
+        np.testing.assert_allclose(ys[:, i].numpy(), ys_i[:, 0].numpy(),
+                                   rtol=1e-12, atol=0)
+    assert int(st.nfe[0]) < int(st.nfe[-1])
+    with pytest.raises(ValueError, match="per-row tolerance"):
+        odeint(_exp_torch, y0, ts, rtol=tols[:2], atol=1e-3,
+               error_control="per_sample")
+
+
 @pytest.mark.parametrize("error_control", ["global", "per_sample"])
 def test_odeint_front_door_matches_jax(error_control):
     y0 = np.array([[1.0, 0.0], [0.0, 3.0], [1.0, 1.0]])
@@ -85,10 +155,20 @@ def test_reverse_time():
 
 
 def test_odeint_refuses():
-    y0 = torch.ones((2, 2))
-    for method in ("adams", "rk4", "euler"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]), method=method)
+    y0 = torch.ones((4, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]), method="adams")
+    for kw in (dict(error_mask=torch.ones((4, 2))), dict(controller="pi"),
+               dict(fused_step=lambda *a: None)):
+        with pytest.raises(ValueError, match="rk4|adaptive"):
+            odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]), method="rk4",
+                   error_control="per_sample", **kw)
+    with pytest.raises(ValueError, match="uniformly spaced"):
+        odeint(_exp_torch, y0, torch.tensor([0.0, 0.5, 2.0]),
+               method="fixed_adams", error_control="per_sample")
+    with pytest.raises(ValueError, match="disables error control"):
+        odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]),
+               error_control="per_sample", error_mask=torch.zeros((4, 2)))
     with pytest.raises(ValueError, match="monotonic"):
         odeint(_exp_torch, y0, torch.tensor([0.0, 1.0, 0.5]))
     with pytest.raises(ValueError, match="unknown method"):
