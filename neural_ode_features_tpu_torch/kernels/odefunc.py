@@ -177,7 +177,8 @@ def check_cuda_inputs(w: OdefuncWeights, states: dict, hw, c: int,
     if not supported(hw, c, groups):
         raise ValueError(
             f"the CUDA ODEfunc kernels do not take H×W×C = {hw[0]}×{hw[1]}×{c}"
-            f" with groups={groups} (see kernels.odefunc.supported)")
+            f" with groups={groups} (see kernels.odefunc.supported; widening "
+            "them is ROADMAP.md Queue 2 (h))")
     dev = next(iter(states.values())).device
     if dev.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {dev}")

@@ -155,12 +155,13 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     if tuple(g.shape) != tuple(h.shape):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the "
                          f"state {tuple(h.shape)}")
-    check_cuda_inputs(w, {"h": h, "g": g}, (hh, ww), c, groups)
     if not bwd_supported((hh, ww), c, groups):
         raise ValueError(
             f"the CUDA ODEfunc backward kernel does not take H×W×C = "
             f"{hh}×{ww}×{c} with groups={groups} (see "
-            "kernels.odefunc_bwd.bwd_supported)")
+            "kernels.odefunc_bwd.bwd_supported; widening it is ROADMAP.md "
+            "Queue 2 (h))")
+    check_cuda_inputs(w, {"h": h, "g": g}, (hh, ww), c, groups)
     dev = h.device
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     t = t.reshape(-1).expand(b).contiguous()

@@ -8,6 +8,7 @@ from .common import (
     stem_apply,
 )
 from .odenet import (
+    block_dynamics,
     fused_rk_eligible,
     init_odefunc,
     init_odenet,
@@ -25,6 +26,7 @@ __all__ = [
     "init_stem",
     "pool_features",
     "stem_apply",
+    "block_dynamics",
     "fused_rk_eligible",
     "init_odefunc",
     "init_odenet",

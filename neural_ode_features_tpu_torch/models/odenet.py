@@ -5,8 +5,11 @@ training path, and the trajectory at any output times from one solve).
 On a CUDA tensor the dynamics always run the fused ODEfunc kernel and, when
 the configuration is eligible, every dopri5 attempt of an inference solve
 runs the fused step kernel; the adjoint path's augmented dynamics run the
-ODEfunc kernel pair (forward and fused backward).  On a CPU tensor every
-kernel runs its plain PyTorch version.  The JAX opt-ins
+ODEfunc kernel pair (forward and fused backward).  A shape the kernels do not
+take raises on the card (``kernels.odefunc.check_cuda_inputs``; widening the
+kernels is ROADMAP.md Queue 2 (h)).  Every solver (``cfg.method``: the
+adaptive RK methods, ``adams``, the fixed-grid ones) runs on that dynamics.
+On a CPU tensor every kernel runs its plain PyTorch version.  The JAX opt-ins
 ``cfg.use_pallas``/``cfg.use_fused_rk`` are not read.
 """
 
@@ -28,9 +31,12 @@ from ..solver import (
 )
 from .common import ModelConfig, head_apply, init_head, init_stem, stem_apply
 
-__all__ = ["init_odefunc", "init_odenet", "odefunc_apply",
+__all__ = ["init_odefunc", "init_odenet", "odefunc_apply", "block_dynamics",
            "fused_rk_eligible", "odenet_solve", "odenet_logits",
            "odenet_trajectory"]
+
+# The JAX bound on the interpolated adjoint's dense forward.
+DENSE_MAX_STEPS = 256
 
 
 def init_odefunc(gen: torch.Generator, cfg: ModelConfig):
@@ -79,6 +85,28 @@ def odefunc_apply(params, t, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out.float()
 
 
+def block_dynamics(params, h0: torch.Tensor, cfg: ModelConfig):
+    """The ODE block as explicit-parameter dynamics for
+    ``solver.odeint_adjoint`` and ``solver.odeint_event_adjoint``:
+    ``(dyn(p, t, y), vjp(p, t, y, a))``.  ``params``: the ODEfunc param
+    dict, laid out for the kernels once here, so ``dyn`` and ``vjp`` close
+    over that layout (pass the same dict as the solver's ``params``).  One
+    ``odefunc`` launch per evaluation and one ``odefunc_bwd`` launch per
+    VJP, which writes f itself (on the CPU, the wrappers' plain versions).
+    The states handed to the kernels may be views into a flat solver
+    state, hence ``aligned``."""
+    g = cfg.groups
+    with torch.no_grad():
+        w = prepare(params, tuple(h0.shape[1:3]))
+
+    def dyn(p, t, y):
+        return odefunc(w, t, aligned(y), groups=g)
+
+    def vjp(p, t, y, a):
+        return odefunc_vjp(w, t, aligned(y), aligned(a), groups=g)
+    return dyn, vjp
+
+
 def fused_rk_eligible(cfg: ModelConfig, h0_shape, h0_dtype) -> bool:
     """True iff :func:`odenet_solve` installs the fused dopri5 step: dopri5,
     per-sample error control, f32 compute and state, NHWC maps.  The
@@ -124,34 +152,23 @@ def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
 
 
 def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
-                   cfg: ModelConfig):
-    """The ODE block under ``odeint_adjoint`` (JAX ``_solve(adjoint=True)``):
-    differentiable in ``params["odefunc"]`` and ``h0``.  The forward takes
-    no fused step, as in JAX, so it evaluates f once per stage; the
-    augmented dynamics take f and its VJP from the kernel pair.  The weights
-    are laid out once per solve from the same tensors that ``odeint_adjoint``
-    receives as ``params``, so ``dyn`` and ``vjp`` close over them.  The
-    states handed to the kernels are views into the flat augmented state,
-    hence ``aligned``."""
+                   cfg: ModelConfig, tol: float):
+    """The ODE block under ``odeint_adjoint`` (JAX ``_solve(adjoint=True)``)
+    at ``tol``: differentiable in ``params["odefunc"]`` and ``h0``.  The
+    forward takes no fused step, as in JAX, so it evaluates f once per stage
+    (dopri5) or twice per attempt (adams); the augmented dynamics take f and
+    its VJP from :func:`block_dynamics`.  The interpolated adjoint's dense
+    forward has the JAX bound, ``min(cfg.max_steps, 256)`` attempts."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "the adjoint path computes in float32 only (ROADMAP.md)")
-    g = cfg.groups
-    with torch.no_grad():
-        w = prepare(params["odefunc"], tuple(h0.shape[1:3]))
-
-    def dyn(p, t, y):
-        return odefunc(w, t, aligned(y), groups=g)
-
-    def vjp(p, t, y, a):
-        return odefunc_vjp(w, t, aligned(y), aligned(a), groups=g)
-
+    dyn, vjp = block_dynamics(params["odefunc"], h0, cfg)
     return odeint_adjoint(
-        dyn, params["odefunc"], h0, ts, rtol=cfg.tol, atol=cfg.tol,
+        dyn, params["odefunc"], h0, ts, rtol=tol, atol=tol,
         method=cfg.method, error_control=cfg.error_control,
         max_steps=cfg.max_steps, controller=cfg.controller,
         adjoint_seminorm=cfg.adjoint_seminorm, adjoint_mode=cfg.adjoint_mode,
-        dense_max_steps=cfg.max_steps, vjp=vjp)
+        dense_max_steps=min(cfg.max_steps, DENSE_MAX_STEPS), vjp=vjp)
 
 
 def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -160,19 +177,21 @@ def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
     """Classification forward: solve h over [0, 1], head on h(1).  ``x``:
     (B, H, W, C_in) NHWC.  ``adjoint`` overrides ``cfg.adjoint``: the
     adjoint path (training) returns :class:`AdjointStats`, whose ``nfe_b``
-    ``.backward()`` fills in.  ``tol`` (inference path only) overrides
-    ``cfg.tol``: a float or a ``(B,)`` tensor, see :func:`odenet_solve`."""
+    ``.backward()`` fills in.  ``tol`` overrides ``cfg.tol``: on the
+    inference path a float or a ``(B,)`` tensor (see :func:`odenet_solve`),
+    on the adjoint path one float, as the JAX ``_solve``."""
     adjoint = cfg.adjoint if adjoint is None else adjoint
     if adjoint:
         check_adjoint_options(cfg.adjoint_seminorm, cfg.adjoint_mode,
                               cfg.method)
-        if tol is not None:
-            raise ValueError("tol= applies to the inference path; the "
-                             "adjoint path solves at cfg.tol")
+        if isinstance(tol, torch.Tensor) and tol.ndim:
+            raise ValueError("a per-row tolerance applies to the inference "
+                             "path; the adjoint path takes one float tol")
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
     if adjoint:
-        traj, stats = _solve_adjoint(params, h0, ts, cfg)
+        traj, stats = _solve_adjoint(params, h0, ts, cfg,
+                                     float(cfg.tol if tol is None else tol))
     else:
         traj, stats = odenet_solve(params, h0, ts, cfg, tol=tol)
     return head_apply(params["head"], traj[-1], cfg), stats
@@ -181,9 +200,9 @@ def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
 def odenet_trajectory(params, x: torch.Tensor, ts,
                       cfg: ModelConfig) -> tuple[torch.Tensor, SolveStats]:
     """Feature-extraction forward: the state trajectory h(t) at every
-    requested t from ONE solve (dense output).  On the card every attempt is
-    one fused-step launch, whose ``y_mid`` feeds the quartic fit of the
-    dense write.
+    requested t from ONE solve (dense output).  On the card every dopri5
+    attempt is one fused-step launch, whose ``y_mid`` feeds the quartic fit
+    of the dense write; ``adams`` writes its order-matched interpolant.
 
     Returns ((T, B, H, W, C) states, stats); pool with
     :func:`..models.common.pool_features` for (T, B, C) features."""

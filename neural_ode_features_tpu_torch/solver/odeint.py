@@ -1,16 +1,14 @@
 """``odeint`` — the front door to ODE integration (port of
 ``neural_ode_features_tpu/solver/odeint.py``).
 
-Covers the adaptive tableau methods, with both error-control modes, and the
-fixed-grid methods (``fixed_grid.py``):
+Covers every method of the JAX front door: the adaptive tableau methods and
+the adaptive Adams solver (``adams.py``), with both error-control modes, and
+the fixed-grid methods (``fixed_grid.py``):
 
   * ``'per_sample'``: every batch row gets its own adaptive step sequence
     and NFE count (state leaves need a common leading batch axis);
   * ``'global'``: one error norm over the whole flattened state (reference
     semantics, any state shape).
-
-``adams`` (the variable-order multistep solver) is not ported yet
-(ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ from typing import Any, Callable
 
 import torch
 
+from .adams import adams_odeint
 from .fixed_grid import FIXED_GRID_METHODS, fixed_grid_odeint
 from .ravel import ravel_batched, ravel_full
 from .runge_kutta import SolveStats, adaptive_odeint
@@ -26,9 +25,7 @@ from .tableau import ADAPTIVE_TABLEAUS
 
 __all__ = ["odeint", "SOLVERS", "SolveStats"]
 
-# Methods the JAX front door accepts and this one does not run yet.
-_NOT_PORTED = ("adams",)
-SOLVERS: tuple[str, ...] = (tuple(ADAPTIVE_TABLEAUS) + _NOT_PORTED
+SOLVERS: tuple[str, ...] = (tuple(ADAPTIVE_TABLEAUS) + ("adams",)
                             + FIXED_GRID_METHODS)
 
 
@@ -59,6 +56,7 @@ def odeint(
     first_step: float | None = None,
     steps_per_interval: int = 1,
     error_mask: Any = None,
+    max_order: int = 8,
     fused_step: Callable | None = None,
     controller: str = "i",
 ) -> tuple[Any, SolveStats]:
@@ -71,8 +69,9 @@ def odeint(
     substeps per ``ts`` interval (fixed-grid methods).  ``error_mask``: a
     state-like tree of 0/1 leaves (scalars broadcast) restricting the
     adaptive error norm to the selected entries (seminorm control).
-    ``fused_step`` (adaptive tableaus only) operates on the flat ``(B, N)``
-    state; see ``runge_kutta.adaptive_odeint``.
+    ``max_order``: the order ceiling of ``method='adams'`` (2..12); other
+    methods ignore it.  ``fused_step`` (adaptive tableaus only) operates on
+    the flat ``(B, N)`` state; see ``runge_kutta.adaptive_odeint``.
 
     Returns ``(ys, stats)``: ``ys`` like ``y0`` with a leading time axis,
     ``stats`` per-sample (``(B,)`` for per-sample control, ``(1,)`` for
@@ -80,10 +79,6 @@ def odeint(
     """
     if method not in SOLVERS:
         raise ValueError(f"unknown method {method!r}; available: {SOLVERS}")
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP.md, Queue 1 "
-            "item 7)")
     if error_control not in ("global", "per_sample"):
         raise ValueError(f"unknown error_control {error_control!r}")
 
@@ -147,6 +142,10 @@ def odeint(
     elif fused_step is not None:
         raise ValueError("fused_step only applies to adaptive tableau "
                          f"methods, not {method!r}")
+    elif method == "adams":
+        ys, stats = adams_odeint(flat_func, flat0, ts, rtol, atol,
+                                 max_steps=max_steps, first_step=first_step,
+                                 error_mask=flat_mask, max_order=max_order)
     else:
         ys, stats = fixed_grid_odeint(flat_func, flat0, ts, method,
                                       steps_per_interval=steps_per_interval)

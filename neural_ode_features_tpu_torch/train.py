@@ -55,8 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--tol", type=float, default=1e-3,
                    help="rtol=atol for the adaptive solver")
     p.add_argument("--solver", default="dopri5",
-                   help="dopri5, tsit5, bosh3, fehlberg2, or a fixed-grid "
-                        "method: euler, midpoint, heun2, rk4, fixed_adams")
+                   help="dopri5, tsit5, bosh3, fehlberg2, adams (adaptive "
+                        "order), or a fixed-grid method: euler, midpoint, "
+                        "heun2, rk4, fixed_adams")
     p.add_argument("--controller", default="i", choices=["i", "pi"],
                    help="adaptive step-size controller: 'i' (integral) or "
                         "'pi' (proportional-integral: fewer rejected steps); "
@@ -151,8 +152,6 @@ def _refuse_unported(args) -> None:
         stop("--bf16", "Queue 2 item 5")
     if args.state_format == "orbax":
         stop("--state-format orbax", "Queue 1 item 5")
-    if args.solver == "adams":
-        stop("--solver adams", "Queue 1 item 7")
     if args.tensorboard:
         raise SystemExit("--tensorboard needs clu.metric_writers, which is "
                          "not installed where the port runs; the per-epoch "

@@ -22,6 +22,7 @@ is a ``torch.save`` of one flat dict of tensors (``save_state``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -125,6 +126,19 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
         np.random.default_rng((seed + 1, epoch)).integers(2**62)))
 
 
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms and no autotuning inside the block;
+    the process's own flags again after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
@@ -136,7 +150,10 @@ class Trainer:
     ``utils.from_jax_params``) instead of the model's initialiser at
     ``cfg.seed``.
     ``device``: the card by default; ``"cpu"`` runs the plain versions of
-    the kernels."""
+    the kernels.  A step runs cuDNN's deterministic algorithms (and no
+    autotuning) and restores the flags after it, so that the same run gives
+    the same bits: cuDNN's default weight-gradient convolutions of the stem
+    may sum in another order from call to call."""
 
     def __init__(self, train_cfg: TrainConfig, steps_per_epoch: int, *,
                  device="cuda", params=None):
@@ -227,9 +244,11 @@ class Trainer:
         """Loss, logits, NFE, gradients (a tree like ``params``) and the
         backward NFE (0 for a ResNet and for direct backprop, which replays
         the forward's graph instead of solving again)."""
-        loss, logits, nfe, stats = self._loss_and_logits(params, x, labels)
+        with _deterministic_cudnn():
+            loss, logits, nfe, stats = self._loss_and_logits(params, x,
+                                                             labels)
+            grads = torch.autograd.grad(loss, pytree.tree_leaves(params))
         self.last_stats = stats
-        grads = torch.autograd.grad(loss, pytree.tree_leaves(params))
         nfe_b = (stats.nfe_b.float() if hasattr(stats, "nfe_b")
                  else torch.zeros((), device=loss.device))
         return (loss.detach(), logits.detach(), nfe,

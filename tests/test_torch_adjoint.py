@@ -176,3 +176,29 @@ def test_refusals():
                        method="euler")
     with pytest.raises(ValueError, match="adjoint_mode"):
         odeint_adjoint(_torch_func, p, y0, TS, adjoint_mode="nope")
+
+
+def test_truncated_dense_forward_matches_jax():
+    """A dense forward that runs out of ``dense_max_steps`` is an
+    unsuccessful solve in both packages, and both poison the gradients."""
+    inp = _inputs()
+    kw = dict(rtol=1e-6, atol=1e-8, adjoint_mode="interpolated",
+              dense_max_steps=2, error_control="per_sample")
+
+    def loss(pj, y0j):  # the stats of the differentiated (dense) forward
+        ys, st = jax_adjoint(_jax_func, pj, y0j, jnp.asarray(TS), **kw)
+        return jnp.sum(ys * inp["w"]), st
+
+    (_, st_j), (gp, gy0) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(
+            {"A": jnp.asarray(inp["A"]), "b": jnp.asarray(inp["b"])},
+            jnp.asarray(inp["y0"]))
+    p, y0, _, stats = _torch_grads(inp, **kw)
+    np.testing.assert_array_equal(stats.success.numpy(),
+                                  np.asarray(st_j.success))
+    assert not bool(stats.success.all())
+    for got, want in ((p["A"].grad, gp["A"]), (p["b"].grad, gp["b"]),
+                      (y0.grad, gy0)):
+        np.testing.assert_array_equal(np.isfinite(got.numpy()),
+                                      np.isfinite(np.asarray(want)))
+        assert not np.isfinite(got.numpy()).any()

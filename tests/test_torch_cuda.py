@@ -393,3 +393,48 @@ def test_adjoint_variants_match_plain(dev, variant):
     rel = float((grads_k - grads_p).norm() / grads_p.norm())
     cos = float(grads_k @ grads_p / (grads_k.norm() * grads_p.norm()))
     assert rel < 1e-2 and cos > 0.9999, (rel, cos)
+
+
+def test_adams_inference_runs_the_odefunc_kernel(dev):
+    """``method='adams'`` at B = 16: one ODEfunc launch per dynamics
+    evaluation, 2 + 2·attempts, no fused step; per-sample NFE and logits
+    against the plain path on the card."""
+    from neural_ode_features_tpu_torch.models import odenet_logits
+
+    fwd, (params, x) = entry(device="cuda", batch=16)
+    cfg = dataclasses.replace(ENTRY_CONFIG, method="adams")
+    odenet_logits(params, x, cfg)  # builds and warms up
+    odefunc.launches = dopri5_step.launches = odefunc_bwd.launches = 0
+    logits, stats = odenet_logits(params, x, cfg)
+    attempts = int(((stats.nfe - 2) // 2).max())
+    assert (odefunc.launches, dopri5_step.launches,
+            odefunc_bwd.launches) == (2 + 2 * attempts, 0, 0)
+    w = prepare(params["odefunc"], (7, 7))
+    h0 = stem_apply(params["stem"], x, cfg)
+    traj, stats_p = odeint(lambda t, y: odefunc_plain(w, t, y, 32), h0,
+                           torch.tensor([0.0, 1.0], device=dev), rtol=TOL,
+                           atol=TOL, method="adams",
+                           error_control="per_sample")
+    same = stats.nfe == stats_p.nfe
+    assert float(same.float().mean()) >= 0.9
+    np.testing.assert_allclose(
+        logits[same].cpu().numpy(),
+        head_apply(params["head"], traj[-1], cfg)[same].cpu().numpy(),
+        rtol=1e-3, atol=1e-3)
+
+
+def test_hidden_128_is_refused_on_the_card(dev):
+    """7×7×128 is outside the kernels' gate: a train step on the card
+    raises before any launch, naming the ROADMAP item that would widen the
+    kernels, and does not run the plain versions in their place."""
+    from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(dataset="synthetic-cifar10", hidden=128,
+                                  batch_size=8), steps_per_epoch=1,
+                      device="cuda")
+    _, (images, labels) = train_entry(device="cuda", batch=8)
+    odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+    with pytest.raises(ValueError, match=r"do not take .*Queue 2 \(h\)"):
+        trainer.train_batch(images, labels)
+    assert (odefunc.launches, odefunc_bwd.launches,
+            dopri5_step.launches) == (0, 0, 0)

@@ -45,8 +45,9 @@ def _modules():
 
 def test_imports_with_jax_blocked():
     mods = _modules()
-    assert len(mods) >= 41
-    for name in ("train", "sweep", "utils.expman", "solver.fixed_grid",
+    assert len(mods) >= 44
+    for name in ("solver.adams", "solver.event", "solver.event_adjoint",
+                 "train", "sweep", "utils.expman", "solver.fixed_grid",
                  "extract", "evaluate", "features_io", "solver.dense",
                  "models.resnet", "models.api", "evaluation.probes",
                  "kernels.conv3x3", "probes.conv_probe", "utils.checkpoint"):
@@ -74,9 +75,10 @@ _FORBIDDEN = re.compile(
 
 def test_no_jax_references_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 42
+    assert len(files) >= 45
     names = {f.name for f in files}
-    assert {"train.py", "sweep.py", "expman.py", "fixed_grid.py"} <= names
+    assert {"train.py", "sweep.py", "expman.py", "fixed_grid.py", "adams.py",
+            "event.py", "event_adjoint.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"

@@ -21,6 +21,8 @@ from neural_ode_features_tpu.models.odenet import (
     fused_rk_eligible as jax_fused_eligible,
 )
 from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry
+from neural_ode_features_tpu_torch.kernels.odefunc import odefunc
+from neural_ode_features_tpu_torch.kernels.odefunc_bwd import odefunc_bwd
 from neural_ode_features_tpu_torch.models import (
     ModelConfig,
     fused_rk_eligible,
@@ -87,10 +89,36 @@ def test_fused_eligibility_and_refusals():
     with pytest.raises(ValueError, match="interpolated.*adaptive RK"):
         odenet_logits(params, x, dataclasses.replace(
             cfg, adjoint_mode="interpolated", method="euler"), adjoint=True)
+    # The adjoint path takes one float tol (tests/test_torch_training.py),
+    # not a per-row grid.
     with pytest.raises(ValueError, match="inference path"):
-        odenet_logits(params, x, cfg, adjoint=True, tol=1e-2)
+        odenet_logits(params, x, cfg, adjoint=True,
+                      tol=torch.tensor([1e-2, 1e-3]))
     assert Trainer(TrainConfig(model="resnet", hidden=32), steps_per_epoch=1,
                    device="cpu").cfg.model == "resnet"
     with pytest.raises(ValueError, match="unknown downsampling"):
         init_odenet(0, dataclasses.replace(cfg, downsampling="pool"),
                     device="cpu")
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_widths_outside_the_kernels_gate_are_refused(c):
+    """Off the CPU a wrapper launches its kernel or raises; a shape outside
+    the kernels' gate raises before anything is launched, naming the gate
+    and the ROADMAP item that would widen it (Queue 2 (h)).  7×7×64 passes
+    both gates, 7×7×32 only the forward's (the backward kernel needs C a
+    multiple of 64), 7×7×128 (13 conv pixels per thread) and 7×7×256 (the
+    shared memory) neither.  Meta tensors stand in for the card's: they get
+    past the CPU branch and fail the device check, so only the shape gate
+    can refuse first."""
+    cfg = ModelConfig(in_channels=3, hidden=c)
+    p = init_odenet(0, cfg, device="cpu")["odefunc"]
+    p = torch.utils._pytree.tree_map(lambda t: t.to("meta"), p)
+    h = torch.zeros(2, 7, 7, c, device="meta")
+    fwd_ok, bwd_ok = c in (32, 64), c == 64
+    with pytest.raises(ValueError, match="expected CUDA" if fwd_ok
+                       else r"kernels do not take .*Queue 2 \(h\)"):
+        odefunc(p, 0.5, h)
+    with pytest.raises(ValueError, match="expected CUDA" if bwd_ok
+                       else r"backward kernel does not take .*Queue 2 \(h\)"):
+        odefunc_bwd(p, 0.5, h, h)

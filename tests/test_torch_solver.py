@@ -156,8 +156,17 @@ def test_reverse_time():
 
 def test_odeint_refuses():
     y0 = torch.ones((4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]), method="adams")
+    # adams runs (tests/test_torch_adams.py), with the JAX front door's
+    # refusals: no PI controller, no fused step, max_order in 2..12.
+    with pytest.raises(ValueError, match="controller"):
+        odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]), method="adams",
+               controller="pi")
+    with pytest.raises(ValueError, match="fused_step"):
+        odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]), method="adams",
+               fused_step=lambda *a: None)
+    with pytest.raises(ValueError, match="max_order"):
+        odeint(_exp_torch, y0, torch.tensor([0.0, 1.0]), method="adams",
+               max_order=13)
     for kw in (dict(error_mask=torch.ones((4, 2))), dict(controller="pi"),
                dict(fused_step=lambda *a: None)):
         with pytest.raises(ValueError, match="rk4|adaptive"):

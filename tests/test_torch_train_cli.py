@@ -86,6 +86,7 @@ def test_same_command_line_same_run_identity_as_jax(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["--epochs", "5"],
+    ["--solver", "adams", "--tol", "1e-4"],
     ["--controller", "pi", "--adjoint-seminorm", "--no-augment"],
     ["--model", "resnet", "--no-adjoint", "--max-steps", "7", "--eval-every",
      "3", "--no-fused-epoch", "--no-resume", "--profile", "2"],
@@ -138,7 +139,6 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path, capsys):
     (["--model-shards", "2"], "Queue 1 item 8"),
     (["--bf16"], "Queue 2 item 5"),
     (["--state-format", "orbax"], "Queue 1 item 5"),
-    (["--solver", "adams"], "Queue 1 item 7"),
     (["--tensorboard"], "clu"),
     (["--hidden", "48"], "multiple of 32"),
 ])
@@ -252,3 +252,44 @@ def test_resnet_train_batch_matches_jax_trainer():
     ev = tt.evaluate_fused(images[:6], labels[:6])
     assert ev["nfe"] == 0.0 and 0.0 <= ev["acc"] <= 1.0
     assert jnp.isfinite(mj["loss"])
+
+
+def test_adams_trains_and_sweeps_through_the_cli(tmp_path):
+    """``train --solver adams``: the JAX CLI's run directory name and
+    ``params.json`` (``solver=adams`` in them), two evaluations per attempt
+    in the logged NFE; then ``sweep --method adams`` writes the JAX CLI's
+    columns, per tolerance and with ``--fused``, with equal rows."""
+    from neural_ode_features_tpu.utils.expman import (
+        Experiment as JaxExperiment,
+    )
+
+    argv = [*SMALL, "--epochs", "1", "--solver", "adams"]
+    run = Path(port_train.main([*argv, "--runs-dir", str(tmp_path)]))
+    ident = {k: v for k, v in vars(jax_train.parse_args(argv)).items()
+             if k not in ("runs_dir", "data_dir", "cpu", "eval_every",
+                          "profile", "resume", "tensorboard", "max_steps",
+                          "state_format", "seeds", "num_devices",
+                          "model_shards", "controller")}
+    assert run.name == JaxExperiment.name_from_params(ident)
+    assert json.loads((run / "params.json").read_text())["solver"] == "adams"
+    (row,) = _rows(run)
+    assert float(row["nfe_b"]) > 0 and np.isfinite(float(row["train_loss"]))
+    common = ["--run", str(run), "--cpu", "--limit", "32", "--batch-size",
+              "16", "--tols", "1e-1,1e-3", "--method", "adams"]
+    loop = sweep.main([*common, "--output", str(tmp_path / "loop.csv")])
+    fused = sweep.main([*common, "--fused", "--output",
+                        str(tmp_path / "fused.csv")])
+    assert list(loop[0]) == ["tol", "top1", "ips", "nfe_mean", "nfe_min",
+                             "nfe_max"]
+    for a, b in zip(loop, fused):
+        assert {k: a[k] for k in a if k != "ips"} == {
+            k: b[k] for k in b if k != "sweep_s"}
+        assert (a["nfe_min"] - 2) % 2 == 0  # two evaluations per attempt
+    assert loop[1]["nfe_mean"] > loop[0]["nfe_mean"]
+    # An Adams run directory extracts through the Adams dense output.
+    feats = extract.main(["--run", str(run), "--cpu", "--limit", "16",
+                          "--timestamps", "3"])
+    data = np.load(feats)
+    assert data["features"].shape == (3, 16, 32)
+    assert np.isfinite(data["features"]).all()
+    assert ((data["nfe"] - 2) % 2 == 0).all()

@@ -108,6 +108,31 @@ def test_direct_backprop_and_epoch():
     assert 0.0 <= ev["acc"] <= 1.0 and ev["nfe"] > 0
 
 
+def test_step_scopes_deterministic_cudnn(monkeypatch):
+    """A step runs cuDNN's deterministic algorithms with no autotuning
+    (bit-reproducible training on the card) and leaves the process's flags
+    as it found them: building a ``Trainer`` sets nothing global."""
+    cudnn = torch.backends.cudnn
+    monkeypatch.setattr(cudnn, "deterministic", False)
+    monkeypatch.setattr(cudnn, "benchmark", True)
+    trainer = Trainer(TrainConfig(dataset="synthetic-mnist", model="resnet",
+                                  hidden=32, batch_size=2),
+                      steps_per_epoch=1, device="cpu")
+    assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+    seen = []
+    inner = trainer._loss_and_logits
+
+    def watched(*args):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+        return inner(*args)
+
+    monkeypatch.setattr(trainer, "_loss_and_logits", watched)
+    images, labels = load_dataset("synthetic-mnist", "train", limit=2)
+    trainer.train_batch(images, labels)
+    assert seen == [(True, False)]
+    assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+
+
 def test_schedule_is_optax_piecewise_constant():
     trainer = Trainer(TrainConfig(dataset="synthetic-mnist", hidden=32,
                                   lr_decay_epochs=(1, 3)),

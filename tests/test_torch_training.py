@@ -110,3 +110,75 @@ def test_adjoint_gradients_match_jax_at_tight_tol(slice_inputs):
     grads_t = jax.tree.map(lambda p: p.grad, params_t)
     _assert_gradient_bar(_flat_torch(grads_t), _flat_jax(grads_j))
     assert int(stats.nfe_b) > 0
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("max_steps", [4096, 100])
+def test_interpolated_forward_has_the_jax_bound(monkeypatch, max_steps):
+    """The ODE-Net's interpolated adjoint bounds its dense forward as the
+    JAX ``_solve`` does: ``min(cfg.max_steps, 256)`` attempts."""
+    import neural_ode_features_tpu.models.odenet as jax_odenet
+    import neural_ode_features_tpu_torch.models.odenet as port_odenet
+
+    seen = {}
+    for tag, mod in (("jax", jax_odenet), ("port", port_odenet)):
+        def spy(*args, tag=tag, **kw):
+            seen[tag] = kw["dense_max_steps"]
+            raise _Stop
+        monkeypatch.setattr(mod, "odeint_adjoint", spy)
+    base = dict(in_channels=1, hidden=32, adjoint_mode="interpolated",
+                max_steps=max_steps)
+    params_j = jax_init_odenet(jax.random.PRNGKey(0),
+                               JaxTrainConfig(dataset="synthetic-mnist",
+                                              hidden=32).model_config())
+    x = np.zeros((2, 28, 28, 1), np.float32)
+    from neural_ode_features_tpu.models import ModelConfig as JaxModelConfig
+    from neural_ode_features_tpu_torch.models import ModelConfig
+    with pytest.raises(_Stop):
+        jax_logits(params_j, jnp.asarray(x), JaxModelConfig(**base),
+                   adjoint=True)
+    with pytest.raises(_Stop):
+        odenet_logits(from_jax_params(params_j, device="cpu"),
+                      torch.from_numpy(x), ModelConfig(**base), adjoint=True)
+    assert seen["port"] == seen["jax"] == min(max_steps, 256)
+
+
+def test_adjoint_path_takes_a_tol_override():
+    """``odenet_logits(adjoint=True, tol=1e-4)`` solves both directions at
+    that tolerance, as the JAX ``_solve``: the same per-sample NFE as the
+    JAX function (more than at ``cfg.tol``), the loss at rtol 1e-5 and the
+    gradients at the bar above (hidden 32, 6×6 maps, B = 4, compared in
+    float64)."""
+    base = dict(dataset="synthetic-mnist", batch_size=B, augment=False,
+                hidden=32)
+    cfg_j = JaxTrainConfig(**base).model_config()
+    cfg_t = TrainConfig(**base).model_config()
+    params_j = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32),
+                            jax_init_odenet(jax.random.PRNGKey(5), cfg_j))
+    images, labels = load_dataset("synthetic-mnist", "train", limit=B)
+    labels = labels.astype(np.int64)
+    x_j = jax_normalize(jnp.asarray(images), "synthetic-mnist")
+
+    def loss_j(p):
+        logits, stats = jax_logits(p, x_j, cfg_j, adjoint=True, tol=1e-4)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, jnp.asarray(labels)).mean(), stats
+
+    (val_j, st_j), grads_j = jax.value_and_grad(loss_j, has_aux=True)(
+        params_j)
+    params = from_jax_params(params_j, device="cpu")
+    leaves = [p.requires_grad_() for p in jax.tree.leaves(params)]
+    x = normalize(torch.from_numpy(images), "synthetic-mnist")
+    logits, stats = odenet_logits(params, x, cfg_t, adjoint=True, tol=1e-4)
+    loss = F.cross_entropy(logits, torch.from_numpy(labels))
+    loss.backward()
+    np.testing.assert_array_equal(stats.nfe.numpy(), np.asarray(st_j.nfe))
+    _, stats_default = odenet_logits(params, x, cfg_t, adjoint=True)
+    assert int(stats.nfe.sum()) > int(stats_default.nfe.sum())
+    np.testing.assert_allclose(float(loss.detach()), float(val_j), rtol=1e-5)
+    _assert_gradient_bar(_flat_torch(jax.tree.map(lambda p: p.grad, params)),
+                         _flat_jax(grads_j))
+    assert len(leaves) == len(jax.tree.leaves(params_j))
