@@ -100,6 +100,20 @@ Phases (any failed check exits nonzero and prints no result):
    the loop's solve (equal NFE, logits at 1e-5) and against the plain path
    (logits at 1e-3); one tolerance on the CPU plain path against the card;
    the random-init modes (32×32×3 noise, and ``synthetic-mnist``).
+   ``[width]``: the three fused kernels at hidden 32, 128 and 256 on the
+   7×7 and 6×6 maps against their plain versions (the backward in float64,
+   dθ bit-identical across two launches), an inference solve (B = 256) and
+   a train step (B = 128) through the entry points at each with the
+   launch rules of phases 3 and 5 and per-sample NFE against the plain
+   path; at 7×7×128 and 7×7×256 the adjoint gradients against the plain
+   path (B = 128, tol 1e-5) and the probe's ``mma3``/``mma1`` against the
+   f64 conv beside ``F.conv2d``; one epoch of ``train --hidden 128``;
+   7×7×512 refused before any launch.  ``[foreign]``: CIFAR-10 binary
+   batches and MNIST IDX files (labels gzipped) written from the synthetic
+   twins read back through ``load_dataset``; the JAX run directory
+   committed under ``tests/fixtures_torch/`` loaded on the card; ``python -m
+   neural_ode_features_tpu_torch.eval_ckpt`` on it must give the JAX tool's
+   top-1 (stored beside it) and mean NFE within 1%.
 8. Time each kernel, its plain version and the library yardstick (one f
    through cuDNN: ``F.group_norm``/``F.conv2d`` on NCHW with the t channel
    concatenated; for the backward, ``torch.autograd.grad`` through it; for
@@ -113,12 +127,13 @@ Phases (any failed check exits nonzero and prints no result):
    algorithms and with its default ones, in turns.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(per kernel: the conv stage it ran; ``ms``, the device time of its kernels
-by name under ``torch.profiler``; ``call_ms``, CUDA events around
-back-to-back calls of its wrapper, which the host's cost of a launch bounds
-from below; ``bound_ms`` with the tensor cores and ``ffma_bound_ms`` on the
-CUDA cores), and last ``{"ok": true, "device": {...}}``.  Imports nothing of
-JAX.
+(per kernel and shape: the conv stage it ran; ``ms``, its device time per
+call, CUDA events around calls queued behind a spin kernel (``device_ms``);
+``profiler_ms``, the mean of the launches ``torch.profiler`` recorded, by
+kernel name; ``call_ms``, CUDA events around back-to-back calls of its
+wrapper, which the host's cost of a launch bounds from below; ``bound_ms``
+with the tensor cores and ``ffma_bound_ms`` on the CUDA cores), and last
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -126,6 +141,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import gzip
 import json
 import statistics
 import subprocess
@@ -150,6 +166,16 @@ SWEEP_TOLS = (1e-1, 1e-2, 1e-3, 1e-4)    # sweep's default --tols
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
 PEAK_TF32_FLOPS = 495e12                 # H100 SXM, TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
+WIDTHS = (32, 128, 256)                  # [width]: the hidden sizes beside 64
+FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures_torch" / (
+    "jax_run_mnist")                     # [foreign]: a JAX run directory
+FIXTURE_EVAL = FIXTURE.with_name("jax_run_mnist.eval.json")
+REPLACES = {
+    "odefunc": "neural_ode_features_tpu/kernels/odefunc_pallas.py:219",
+    "rk_step": "neural_ode_features_tpu/kernels/rk_step_pallas.py:586",
+    "odefunc_bwd": "neural_ode_features_tpu/kernels/odefunc_bwd_rows.py:305",
+    "conv_probe": "probes/conv_probe.py:254",
+}
 
 
 def fail(msg: str) -> None:
@@ -188,6 +214,33 @@ def time_ms(fn, reps: int = 10, blocks: int = 5) -> float:
     return statistics.median(means)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls enqueued behind a spin
+    kernel, so that the card runs them back to back and the host's cost of
+    each launch is hidden, timed by CUDA events around them.  The spin is
+    lengthened until it outlasts the enqueueing (both measured).  Needs no
+    profiler: ``torch.profiler`` drops some windows' kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for spin in (10_000_000 << k for k in range(6)):  # from about 5 ms
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t_host = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t_host = 1e3 * (time.perf_counter() - t_host)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > t_host:
+            return ev[1].elapsed_time(ev[2]) / reps
+    raise RuntimeError("the calls' enqueueing outlasted every spin: does "
+                       "the wrapper wait for the card?")
+
+
 def leaves(tree) -> list:
     """A param tree's leaves in a fixed (sorted-key) order."""
     if isinstance(tree, dict):
@@ -212,6 +265,77 @@ def gradient_bar(name, got, want):
     return rel, cos
 
 
+def library_f(h, t, wt):
+    """One f through PyTorch's library calls (``F.group_norm``,
+    ``F.conv2d`` on NCHW with the t channel concatenated): the yardstick of
+    the ODEfunc kernel, which the port itself never calls.  ``wt``: the raw
+    ODEfunc params, ``h`` (B, H, W, C), ``t`` (B,)."""
+    import torch
+    import torch.nn.functional as F
+
+    xn = h.permute(0, 3, 1, 2)
+    tmap = t.view(-1, 1, 1, 1).expand(-1, 1, *h.shape[1:3])
+    out = F.relu(F.group_norm(xn, G, wt["norm1"]["scale"],
+                              wt["norm1"]["bias"], 1e-5))
+    out = F.conv2d(torch.cat([tmap, out], 1),
+                   wt["conv1"]["kernel"].permute(3, 2, 0, 1),
+                   wt["conv1"]["bias"], padding=1)
+    out = F.relu(F.group_norm(out, G, wt["norm2"]["scale"],
+                              wt["norm2"]["bias"], 1e-5))
+    out = F.conv2d(torch.cat([tmap, out], 1),
+                   wt["conv2"]["kernel"].permute(3, 2, 0, 1),
+                   wt["conv2"]["bias"], padding=1)
+    return F.group_norm(out, G, wt["norm3"]["scale"], wt["norm3"]["bias"],
+                        1e-5).permute(0, 2, 3, 1)
+
+
+def library_bwd(h, t, wt, g):
+    """The backward yardstick: ``torch.autograd.grad`` through
+    :func:`library_f` w.r.t. h, t and the raw weights (its forward
+    included, as the backward kernel recomputes it)."""
+    import torch
+
+    wl = {k: {kk: v.detach().requires_grad_() for kk, v in d.items()}
+          for k, d in wt.items()}
+    hl, tl = h.detach().requires_grad_(), t.detach().requires_grad_()
+    return torch.autograd.grad(library_f(hl, tl, wl), [hl, tl] + leaves(wl),
+                               g)
+
+
+def bounds(flops, nbytes):
+    """The card's least time with the tensor cores (the operations counted
+    once, at the TF32 rate) and on the CUDA cores (f32 FFMA), each the
+    larger of its operations time and the bytes time."""
+    out = {}
+    for key, peak in (("", PEAK_TF32_FLOPS), ("ffma_", PEAK_F32_FLOPS)):
+        by_ops, by_bytes = flops / peak, nbytes / PEAK_BYTES
+        out[key + "bound_ms"] = 1e3 * max(by_ops, by_bytes)
+        out[key + "bound_by"] = ("operations" if by_ops >= by_bytes
+                                 else "bytes")
+    return out
+
+
+def fused_bounds(hw, c, b, b_bwd):
+    """The fused kernels' bounds at H×W×C = (*hw, c): ``odefunc`` and
+    ``rk_step`` at batch ``b``, the backward at ``b_bwd``."""
+    n = hw[0] * hw[1] * c
+    conv = 2 * hw[0] * hw[1] * 9 * c * c             # one 3×3 conv, a sample
+    weight_bytes = 4 * (2 * 9 * c * c + 2 * n + 8 * c)
+    return {
+        # Two convs per f; h and t in, f out.
+        "odefunc": bounds(2 * conv * b, 4 * (2 * b * n + b) + weight_bytes),
+        # Six f; t0, dt, rtol, atol in; y0, f0 in; y1, f1, y_mid, ratio out.
+        "rk_step": bounds(12 * conv * b,
+                          4 * (5 * b * n + 5 * b) + weight_bytes),
+        # Six 3×3-conv equivalents per sample (forward recompute, input
+        # gradients, weight gradients); reads h, g, t, the laid-out
+        # weights, writes f, dh, dt and the raw dθ once each.
+        "odefunc_bwd": bounds(6 * conv * b_bwd,
+                              4 * (4 * b_bwd * n + 2 * b_bwd) + weight_bytes
+                              + 4 * (2 * 9 * (c + 1) * c + 8 * c)),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -229,6 +353,7 @@ def main() -> int:
     from neural_ode_features_tpu_torch.data import load_dataset
     from neural_ode_features_tpu_torch.entry import (
         ENTRY_CONFIG,
+        TRAIN_CONFIG,
         entry,
         extract_entry,
         train_entry,
@@ -291,8 +416,9 @@ def main() -> int:
     )
 
     def device_ms_by_kernel(fn, keys, reps: int = 20) -> dict:
-        """Mean device ms per call of ``fn`` in the kernels named by each
-        of ``keys`` (``torch.profiler`` over ``reps`` warm calls)."""
+        """Mean device ms per launch of each kernel named by one of
+        ``keys`` (``torch.profiler`` over ``reps`` warm calls,
+        ``conv_probe.device_us``)."""
         return {k: v / 1e3
                 for k, v in conv_probe.device_us(fn, keys, reps).items()}
 
@@ -1516,46 +1642,352 @@ def main() -> int:
                         "mnist_fused": mnist_rows}
 
     print(f"[CLIs] done at {time.perf_counter() - t_script:.1f} s")
+
+    # [width]: the fused kernels and the probe at hidden 32, 128 and 256 on
+    # the CIFAR-10 (7×7) and MNIST (6×6) maps.  Per shape: the three kernels
+    # against their plain versions (the backward in float64, dθ
+    # bit-identical across two launches), an inference solve at B = 256 and
+    # one train step at B = 128 through the entry points, counters from 0
+    # (the launch rules of [main] and [train]), per-sample NFE against the
+    # plain path; at 7×7×128 and 7×7×256 the adjoint gradients of that
+    # trainer's weights against the plain path (B = 128, tol 1e-5, global
+    # control), and mma3/mma1 against the f64 conv.  Then one epoch of
+    # `train --hidden 128`, and 7×7×512 refused before any launch.  Times
+    # with few repetitions: each case is one entry of the kernels line.
+    def width_phase():
+        t_ph = time.perf_counter()
+        entries = []
+        mnist_x = normalize(torch.from_numpy(load_dataset(
+            "synthetic-mnist", "test", limit=B)[0]).to(dev), "synthetic-mnist")
+        quick = dict(reps=3, blocks=3)
+        for c in WIDTHS:
+            for hw in ((HH, WW), (6, 6)):
+                cifar = hw == (HH, WW)
+                tag = f"{hw[0]}x{hw[1]}x{c}"
+                wcfg = dataclasses.replace(ENTRY_CONFIG, hidden=c,
+                                           in_channels=3 if cifar else 1)
+                wparams = init_odenet(7, wcfg, device=dev)
+                ww_ = prepare(wparams["odefunc"], hw)
+                rng_w = np.random.default_rng(c + hw[0])
+
+                def arr(a):
+                    return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+                hx = arr(rng_w.normal(size=(B, *hw, c)) * 0.3)
+                tx, t0x = arr(rng_w.uniform(0, 1, B)), arr(rng_w.uniform(
+                    0, 0.5, B))
+                dtx = arr(rng_w.uniform(0.05, 0.2, B))
+                gx = arr(rng_w.normal(size=(B_TRAIN, *hw, c)))
+                hbx, tbx = hx[:B_TRAIN].contiguous(), tx[:B_TRAIN].contiguous()
+                err_f = close(f"odefunc {tag}", odefunc(ww_, tx, hx, groups=G),
+                              odefunc_plain(ww_, tx, hx, G), **STATE_TOL)
+                yx = hx.reshape(B, -1)
+                f0x = odefunc_plain(ww_, t0x, hx, G).reshape(B, -1)
+                skw = dict(hw=hw, groups=G, rtol=TOL, atol=TOL)
+                got = dopri5_step(ww_, DOPRI5, t0x, dtx, yx, f0x, **skw)
+                want = dopri5_step_plain(ww_, DOPRI5, t0x, dtx, yx, f0x, **skw)
+                err_s = max(close(f"rk_step {n_} {tag}", g_, r_, **STATE_TOL)
+                            for n_, g_, r_ in zip(("y1", "f1", "y_mid"),
+                                                  got[:3], want[:3]))
+                close(f"rk_step ratio {tag}", got[3], want[3], **RATIO_TOL)
+                w64 = type(ww_)(*(a_.double() for a_ in ww_))
+                dp, dtk, dh, f_b = odefunc_bwd(ww_, tbx, hbx, gx, groups=G,
+                                               with_f=True)
+                if not torch.equal(f_b, odefunc(ww_, tbx, hbx, groups=G)):
+                    fail(f"odefunc_bwd f {tag}: differs from the ODEfunc "
+                         "kernel's")
+                dp_p, dt_p, dh_p = odefunc_bwd_plain(
+                    w64, tbx.double(), hbx.double(), gx.double(), G)
+                err_b = close(f"odefunc_bwd dh {tag}", dh.double(), dh_p,
+                              **STATE_TOL)
+                close(f"odefunc_bwd dt {tag}", dtk.double(), dt_p, **STATE_TOL)
+                err_dp = close(f"odefunc_bwd dθ {tag}", flat(dp).double(),
+                               flat(dp_p), **DP_TOL)
+                if not torch.equal(flat(dp), flat(odefunc_bwd(
+                        ww_, tbx, hbx, gx, groups=G)[0])):
+                    fail(f"odefunc_bwd dθ {tag}: two launches differ")
+                print(f"[width] {tag} ({stage(hw, c)}): odefunc max abs err "
+                      f"{err_f:.3e}, rk_step {err_s:.3e} (B={B}); odefunc_bwd "
+                      f"B={B_TRAIN} vs the f64 plain version: dh {err_b:.3e}, "
+                      f"dθ {err_dp:.3e}, dθ bit-identical across two launches")
+
+                # The inference path at this width, counters from 0.
+                xin = x if cifar else mnist_x
+                with torch.no_grad():
+                    (lg, st), _, got_inf = counted(
+                        lambda: odenet_logits(wparams, xin, wcfg))
+                    traj_w, st_p = odeint(
+                        lambda tt, y: odefunc_plain(ww_, tt, y, G),
+                        stem_apply(wparams["stem"], xin, wcfg), ts, rtol=TOL,
+                        atol=TOL, error_control="per_sample",
+                        max_steps=wcfg.max_steps)
+                    lg_p = head_apply(wparams["head"], traj_w[-1], wcfg)
+                att = batch_attempts(st.nfe)
+                same_w = st.nfe == st_p.nfe
+                share_w = float(same_w.float().mean())
+                err_l = float((lg[same_w] - lg_p[same_w]).abs().max())
+                want = {"odefunc": 2, "odefunc_bwd": 0, "rk_step": att}
+                print(f"[width] {tag} inference B={B}: launches {got_inf}, "
+                      f"attempts {att}, NFE mean "
+                      f"{float(st.nfe.float().mean()):.2f}; vs the plain "
+                      f"path: NFE equal on {share_w:.4f} of samples, logits "
+                      f"max abs err {err_l:.3e}")
+                if got_inf != want or share_w < 0.99 or not torch.allclose(
+                        lg[same_w], lg_p[same_w], rtol=1e-3, atol=1e-3):
+                    fail(f"[width] {tag}: the inference solve (launches "
+                         f"{got_inf}, expected {want}) or its NFE and logits")
+
+                # One train step at this width, counters from 0.
+                wtr = Trainer(dataclasses.replace(
+                    TRAIN_CONFIG, hidden=c, batch_size=B_TRAIN,
+                    dataset="synthetic-cifar10" if cifar else "synthetic-mnist"),
+                    steps_per_epoch=10, device=dev)
+                timg, tlab = load_dataset(wtr.cfg.dataset, "train",
+                                          limit=B_TRAIN)
+                m_w, t_step, got_tr = counted(lambda: wtr.train_batch(
+                    timg, tlab.astype(np.int64)))
+                att_t = batch_attempts(wtr.last_stats.nfe)
+                nfe_b_w = int(m_w["nfe_b"])
+                want = {"odefunc": 2 + 6 * att_t + 1,
+                        "odefunc_bwd": nfe_b_w - 1, "rk_step": 0}
+                print(f"[width] {tag} train step B={B_TRAIN}: {t_step:.3f} s "
+                      f"(first), loss {m_w['loss']:.5f}, NFE-f "
+                      f"{m_w['nfe']:.2f}, NFE-b {nfe_b_w}, launches {got_tr}")
+                if got_tr != want or not np.isfinite(m_w["loss"]) or not all(
+                        bool(torch.isfinite(p_.grad).all())
+                        for p_ in wtr._leaves):
+                    fail(f"[width] {tag}: train step launches {got_tr}, "
+                         f"expected {want}, or not finite")
+                if cifar and c > C:
+                    # The adjoint gradients against the plain path.
+                    wp = wtr.params
+                    xs_w = wtr._preprocess(timg, train=False)
+                    ys_w = wtr._labels(tlab)
+                    gcfg = dataclasses.replace(wtr.model_cfg, tol=1e-5,
+                                               error_control="global",
+                                               max_steps=512)
+
+                    def grads_of(logits_):
+                        loss_ = F.cross_entropy(logits_, ys_w)
+                        return float(loss_.detach()), torch.cat([
+                            g_.reshape(-1) for g_ in torch.autograd.grad(
+                                loss_, leaves(wp))])
+
+                    loss_k, grads_k = grads_of(
+                        odenet_logits(wp, xs_w, gcfg, adjoint=True)[0])
+                    traj_a, _ = odeint_adjoint(
+                        lambda p_, tt, y: odefunc_plain(prepare(p_, hw), tt,
+                                                        y, G),
+                        wp["odefunc"], stem_apply(wp["stem"], xs_w, gcfg), ts,
+                        rtol=1e-5, atol=1e-5, error_control="global",
+                        max_steps=512)
+                    loss_p, grads_p = grads_of(head_apply(wp["head"],
+                                                          traj_a[-1], gcfg))
+                    rel, cos = gradient_bar(f"[width] {tag} adjoint gradients "
+                                            "vs the plain path", grads_k,
+                                            grads_p)
+                    print(f"[width] {tag} adjoint B={B_TRAIN} tol 1e-5 "
+                          f"global: loss {loss_k:.7f} vs {loss_p:.7f} plain; "
+                          f"gradients rel-L2 {rel:.3e}, cosine {cos:.8f}")
+                    if not np.isclose(loss_k, loss_p, rtol=1e-5, atol=0):
+                        fail(f"[width] {tag}: adjoint loss {loss_k} vs "
+                             f"{loss_p}")
+
+                # Times, bounds and the kernels line.
+                fbw = fused_bounds(hw, c, B, B_TRAIN)
+                wraw = wparams["odefunc"]
+                cases = (
+                    ("odefunc", "odefunc.cu",
+                     lambda: odefunc(ww_, tx, hx, groups=G),
+                     lambda: odefunc_plain(ww_, tx, hx, G),
+                     lambda: library_f(hx, tx, wraw), got_inf, err_f),
+                    ("rk_step", "rk_step.cu",
+                     lambda: dopri5_step(ww_, DOPRI5, t0x, dtx, yx, f0x,
+                                         **skw),
+                     lambda: dopri5_step_plain(ww_, DOPRI5, t0x, dtx, yx,
+                                               f0x, **skw),
+                     None, got_inf, err_s),
+                    ("odefunc_bwd", "odefunc_bwd.cu",
+                     lambda: odefunc_bwd(ww_, tbx, hbx, gx, groups=G),
+                     lambda: odefunc_bwd_plain(ww_, tbx, hbx, gx, G),
+                     lambda: library_bwd(hbx, tbx, wraw, gx), got_tr, err_b))
+                for name, src, run_k, run_p, run_l, got_, err in cases:
+                    entries.append({
+                        "name": name, "shape": tag, "route": "cuda",
+                        "source": f"neural_ode_features_tpu_torch/csrc/{src}",
+                        "replaces": REPLACES[name],
+                        "launches": got_[name], "max_abs_err": err,
+                        "ms": device_ms(run_k, reps=10),
+                        "plain_ms": time_ms(run_p, **quick), **fbw[name],
+                        "library_ms": (None if run_l is None
+                                       else time_ms(run_l, **quick)),
+                        "stage": stage(hw, c)})
+                print(f"[width] {tag} device ms: " + ", ".join(
+                    f"{e_['name']} {e_['ms']:.4f} (bound {e_['bound_ms']:.4f},"
+                    f" f32 FFMA {e_['ffma_bound_ms']:.4f}; plain "
+                    f"{e_['plain_ms']:.3f}, library {e_['library_ms']})"
+                    for e_ in entries[-3:]))
+
+        # The probe's tensor-core kernels at 7×7×128 and 7×7×256 against
+        # the f64 conv, beside F.conv2d, the conv counter from 0.
+        for c in (128, 256):
+            conv3x3.launches = 0
+            xc_w, wc_w = conv_probe.probe_inputs(B, dev, (HH, WW), c)
+            conv64 = conv3x3_plain(xc_w.double(), wc_w.double())
+            grow = (c / C) ** 0.5  # TF32's error: the root of 9·C products
+            errs = {}
+            for strategy, tol in (("mma3", CONV_TOL), ("mma1", {
+                    k_: v_ * grow for k_, v_ in TF32_TOL.items()})):
+                errs[strategy] = close(
+                    f"conv_probe {strategy} {HH}x{WW}x{c} (f64 conv)",
+                    conv3x3(xc_w, wc_w, strategy).double(), conv64, **tol)
+            lib_err_w = float((conv_probe.library_conv(xc_w, wc_w).double()
+                               - conv64).abs().max())
+            probe_ms = {s_: device_ms(lambda s_=s_: conv3x3(xc_w, wc_w, s_))
+                        for s_ in ("mma3", "mma1")}
+            lib_ms = time_ms(lambda: conv_probe.library_conv(xc_w, wc_w),
+                             reps=20)
+            print(f"[width] conv_probe B={B} {HH}x{WW}x{c} vs the f64 conv: "
+                  f"mma3 max abs err {errs['mma3']:.3e}, mma1 "
+                  f"{errs['mma1']:.3e}, F.conv2d {lib_err_w:.3e}; device ms "
+                  f"mma3 {probe_ms['mma3']:.4f}, mma1 {probe_ms['mma1']:.4f}; "
+                  f"F.conv2d {lib_ms:.4f} ms per call")
+            entries.append({
+                "name": "conv_probe", "shape": f"{HH}x{WW}x{c}", "route": "cuda",
+                "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
+                "replaces": REPLACES["conv_probe"],
+                "launches": conv3x3.launches, "max_abs_err": errs["mma3"],
+                "ms": probe_ms["mma3"],
+                "plain_ms": time_ms(lambda: conv3x3_plain(xc_w, wc_w),
+                                    **quick),
+                **bounds(conv_flops(B, (HH, WW), c),
+                         conv_bytes(B, (HH, WW), c)),
+                "library_ms": lib_ms, "stage": "mma3",
+                "mma1_ms": probe_ms["mma1"]})
+
+        # One epoch of `train --hidden 128` at the [train-cli] size.
+        with tempfile.TemporaryDirectory() as runs_w:
+            run_w, t_run, got, st_, ev_ = run_train([
+                "--dataset", "synthetic-cifar10", "--batch-size",
+                str(B_TRAIN), "--limit", "1280", "--epochs", "1", "--hidden",
+                "128", "--runs-dir", runs_w])
+            (row,) = log_rows(run_w)
+        cli_launches["train_hidden128"] = got
+        print(f"[width] train --hidden 128: 1 epoch, {len(st_)} steps, "
+              f"{len(ev_)} evaluation batches in {t_run:.1f} s; launches "
+              f"{got}; " + " | ".join(f"{k}={v}" for k, v in row.items()))
+        if len(st_) != 10 or not np.isfinite(float(row["train_loss"])) or any(
+                s_["launches"] != {"odefunc": 2 + 6 * s_["attempts"] + 1,
+                                   "odefunc_bwd": s_["nfe_b"] - 1,
+                                   "rk_step": 0} for s_ in st_):
+            fail("[width] train --hidden 128: the epoch or its launches")
+
+        # 7×7×512 is refused before any launch.
+        p512 = init_odenet(0, dataclasses.replace(ENTRY_CONFIG, hidden=512),
+                           device=dev)["odefunc"]
+        h512 = torch.zeros((2, HH, WW, 512), device=dev)
+        odefunc.launches = odefunc_bwd.launches = 0
+        for fn in (lambda: odefunc(p512, 0.5, h512),
+                   lambda: odefunc_bwd(p512, 0.5, h512, h512)):
+            try:
+                fn()
+            except ValueError as e:
+                if "Queue 3 item 1" not in str(e):
+                    fail(f"[width] 7x7x512 refused without naming the item: "
+                         f"{e}")
+            else:
+                fail("[width] 7x7x512 was not refused")
+        if odefunc.launches or odefunc_bwd.launches:
+            fail("[width] 7x7x512: a kernel launched before the refusal")
+        print("[width] 7x7x512: refused before any launch, naming ROADMAP.md "
+              "Queue 3 item 1")
+        phase_done("width", t_ph)
+        return entries
+
+    # [foreign]: what users bring.  CIFAR-10 binary batches and MNIST IDX
+    # files (the labels gzipped) written with numpy from the synthetic
+    # twins, read back through load_dataset; the JAX run directory
+    # committed under tests/fixtures_torch/ read through load_checkpoint on
+    # the card; and `python -m ...eval_ckpt` on it and the MNIST files, on
+    # the card, which must give the JAX tool's top-1 (stored beside the
+    # fixture) and its mean NFE within 1%.
+    def foreign_phase():
+        t_ph = time.perf_counter()
+        stored = json.loads(FIXTURE_EVAL.read_text())
+        n_eval = stored["result"]["n"]
+        with tempfile.TemporaryDirectory() as data:
+            data = Path(data)
+            (data / "mnist").mkdir()
+            for split, prefix in (("train", "train"), ("test", "t10k")):
+                xm_, ym_ = load_dataset("synthetic-mnist", split, limit=n_eval)
+                (data / "mnist" / f"{prefix}-images-idx3-ubyte").write_bytes(
+                    np.array([2051, *xm_.shape[:3]], ">i4").tobytes()
+                    + xm_.tobytes())
+                with gzip.open(data / "mnist" / f"{prefix}-labels-idx1-ubyte.gz",
+                               "wb") as f:
+                    f.write(np.array([2049, len(ym_)], ">i4").tobytes()
+                            + ym_.tobytes())
+            bindir = data / "cifar-10-batches-bin"
+            bindir.mkdir()
+            for split, names in (("train", [f"data_batch_{i}.bin"
+                                            for i in range(1, 6)]),
+                                 ("test", ["test_batch.bin"])):
+                xc_, yc_ = load_dataset("synthetic-cifar10", split, limit=50)
+                rec = np.concatenate([yc_[:, None], xc_.transpose(
+                    0, 3, 1, 2).reshape(len(xc_), -1)], axis=1)
+                for name_, part in zip(names, np.array_split(rec, len(names))):
+                    (bindir / name_).write_bytes(part.tobytes())
+            for name_, twin in (("mnist", "synthetic-mnist"),
+                                ("cifar10", "synthetic-cifar10")):
+                for split in ("train", "test"):
+                    got = load_dataset(name_, split, str(data))
+                    want = load_dataset(twin, split, limit=len(got[0]))
+                    if not all(np.array_equal(a_, b_)
+                               for a_, b_ in zip(got, want)):
+                        fail(f"[foreign] the raw {name_} {split} files do not "
+                             "read back as the twin they were written from")
+            print(f"[foreign] raw files: MNIST IDX ({n_eval} images a split, "
+                  "labels .gz) and CIFAR-10 binary batches read back equal "
+                  "to the synthetic twins")
+            fparams, fcfg, fextra = load_checkpoint(resolve_checkpoint(FIXTURE))
+            if (fcfg.hidden != C or fextra.get("model") != "odenet"
+                    or not all(a_.device.type == "cuda"
+                               and bool(torch.isfinite(a_).all())
+                               for a_ in leaves(fparams))):
+                fail("[foreign] the JAX run directory did not load")
+            argv = ["--run", str(FIXTURE), "--data-dir", str(data),
+                    *stored["argv"]]
+            proc = subprocess.run(
+                [sys.executable, "-m", "neural_ode_features_tpu_torch.eval_ckpt",
+                 *argv], capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"[foreign] eval_ckpt exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+        want = stored["result"]
+        print(f"[foreign] eval_ckpt {' '.join(stored['argv'])} on the card: "
+              f"{got}; the JAX tool on the CPU: {want}")
+        if (got["top1"] != want["top1"] or got["n"] != want["n"]
+                or abs(got["mean_nfe"] - want["mean_nfe"])
+                > 0.01 * want["mean_nfe"]):
+            fail("[foreign] eval_ckpt disagrees with the JAX tool's numbers")
+        phase_done("foreign", t_ph)
+
+    width_kernels = width_phase()
+    foreign_phase()
     # 8. Times.
     wt = params["odefunc"]
-
-    def library_f(h=h, t=t, wt=wt):
-        xn = h.permute(0, 3, 1, 2)
-        tmap = t.view(-1, 1, 1, 1).expand(-1, 1, HH, WW)
-        out = F.relu(F.group_norm(xn, G, wt["norm1"]["scale"],
-                                  wt["norm1"]["bias"], 1e-5))
-        out = F.conv2d(torch.cat([tmap, out], 1),
-                       wt["conv1"]["kernel"].permute(3, 2, 0, 1),
-                       wt["conv1"]["bias"], padding=1)
-        out = F.relu(F.group_norm(out, G, wt["norm2"]["scale"],
-                                  wt["norm2"]["bias"], 1e-5))
-        out = F.conv2d(torch.cat([tmap, out], 1),
-                       wt["conv2"]["kernel"].permute(3, 2, 0, 1),
-                       wt["conv2"]["bias"], padding=1)
-        return F.group_norm(out, G, wt["norm3"]["scale"], wt["norm3"]["bias"],
-                            1e-5).permute(0, 2, 3, 1)
-
-    lib_err = float((library_f() - odefunc_plain(w, t, h, G)).abs().max())
+    lib_err = float((library_f(h, t, wt) - odefunc_plain(w, t, h, G))
+                    .abs().max())
     print(f"[time] library f vs plain f: max abs err {lib_err:.3e}")
 
-    # The backward yardstick: autograd through the cuDNN f, w.r.t. the raw
-    # weights, t and h (its forward included, as the kernel recomputes it).
-    wlib = {k: {kk: v.detach().requires_grad_() for kk, v in d.items()}
-            for k, d in wt.items()}
-    hlib = hb.detach().requires_grad_()
-    tlib = tb.detach().requires_grad_()
-    lib_leaves = [hlib, tlib] + leaves(wlib)
-
-    def library_bwd():
-        return torch.autograd.grad(library_f(hlib, tlib, wlib), lib_leaves, gb)
-
-    lib_dh = library_bwd()[0]
+    lib_dh = library_bwd(hb, tb, wt, gb)[0]
     print(f"[time] library f backward vs plain backward: dh max abs err "
           f"{float((lib_dh - odefunc_bwd_plain(w, tb, hb, gb, G)[2]).abs().max()):.3e}")
     ms = {
         "odefunc": time_ms(lambda: odefunc(w, t, h, groups=G)),
         "odefunc_plain": time_ms(lambda: odefunc_plain(w, t, h, G)),
-        "odefunc_library": time_ms(library_f),
+        "odefunc_library": time_ms(lambda: library_f(h, t, wt)),
         "rk_step": time_ms(lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0,
                                                **step_kw)),
         "rk_step_plain": time_ms(lambda: dopri5_step_plain(
@@ -1563,44 +1995,45 @@ def main() -> int:
         "odefunc_bwd": time_ms(lambda: odefunc_bwd(w, tb, hb, gb, groups=G)),
         "odefunc_bwd_plain": time_ms(lambda: odefunc_bwd_plain(w, tb, hb,
                                                                gb, G)),
-        "odefunc_bwd_library": time_ms(library_bwd),
+        "odefunc_bwd_library": time_ms(lambda: library_bwd(hb, tb, wt, gb)),
     }
-    # Device time of each kernel by name (the events above time the
-    # wrapper's calls, which cannot go below the host's cost of a launch).
-    dev_ms = {
-        "odefunc": device_ms_by_kernel(
-            lambda: odefunc(w, t, h, groups=G), ("odefunc_kernel",)),
-        "rk_step": device_ms_by_kernel(
-            lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0, **step_kw),
-            ("rk_step_kernel",)),
-        "odefunc_bwd": device_ms_by_kernel(
-            lambda: odefunc_bwd(w, tb, hb, gb, groups=G), bwd_keys),
+    # Device time of each kernel (the events above time the wrapper's
+    # calls, which cannot go below the host's cost of a launch): calls
+    # queued behind a spin (device_ms), and beside it the mean of the
+    # launches torch.profiler recorded, by kernel name.
+    runs_k = {
+        "odefunc": (lambda: odefunc(w, t, h, groups=G), ("odefunc_kernel",)),
+        "rk_step": (lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0, **step_kw),
+                    ("rk_step_kernel",)),
+        "odefunc_bwd": (lambda: odefunc_bwd(w, tb, hb, gb, groups=G),
+                        bwd_keys),
     }
-    dev_ms = {k: sum(v.values()) for k, v in dev_ms.items()}
+    dev_ms = {k: device_ms(fn) for k, (fn, _) in runs_k.items()}
+    prof_ms = {k: sum(device_ms_by_kernel(fn, keys).values())
+               for k, (fn, keys) in runs_k.items()}
     # The fused step at the fused sweep's size: the grid of len(SWEEP_TOLS)
     # tolerances stacked on the batch axis (every row computes its attempt
     # whether or not its solve is done).
     stacked_args = [a.repeat(n_grid, *([1] * (a.ndim - 1)))
                     for a in (t0, dt, y0, f0)]
     stacked_tol = torch.tensor(SWEEP_TOLS, device=dev).repeat_interleave(B)
-    stacked_ms = device_ms_by_kernel(
+    stacked_ms = device_ms(
         lambda: dopri5_step(w, DOPRI5, *stacked_args, **dict(
-            step_kw, rtol=stacked_tol, atol=stacked_tol)),
-        ("rk_step_kernel",))["rk_step_kernel"]
+            step_kw, rtol=stacked_tol, atol=stacked_tol)))
     print(f"[time] rk_step at {n_grid}·{B} = {n_grid * B} rows (the fused "
           f"sweep's launch): device {stacked_ms:.4f} ms, "
           f"{stacked_ms / n_grid:.4f} per {B} rows against "
           f"{dev_ms['rk_step']:.4f} at B={B}")
     print("[time] kernels, ms: " + ", ".join(
-        f"{k} device {dev_ms[k]:.4f} (call {ms[k]:.4f})" for k in dev_ms))
+        f"{k} device {dev_ms[k]:.4f} (profiler {prof_ms[k]:.4f}; call "
+        f"{ms[k]:.4f})" for k in dev_ms))
     xc, wc = conv_probe.probe_inputs(B, dev)
     conv_dev_ms = {}
     for strategy in STRATEGIES:
         ms[f"conv_{strategy}"] = time_ms(
             lambda s_=strategy: conv3x3(xc, wc, s_), reps=100)
-        name = conv_probe.KERNEL_NAMES[strategy]
-        conv_dev_ms[strategy] = device_ms_by_kernel(
-            lambda s_=strategy: conv3x3(xc, wc, s_), (name,), reps=100)[name]
+        conv_dev_ms[strategy] = device_ms(
+            lambda s_=strategy: conv3x3(xc, wc, s_), reps=100)
     ms["conv_plain"] = time_ms(lambda: conv3x3_plain(xc, wc), reps=100)
     ms["conv_library"] = time_ms(lambda: conv_probe.library_conv(xc, wc),
                                  reps=100)
@@ -1763,60 +2196,40 @@ def main() -> int:
           f"(median of {bwd_s}); over the 5 checked steps NFE-f mean "
           f"{statistics.mean(nfe_f):.2f}, NFE-b mean {statistics.mean(nfe_b):.1f}")
 
-    n = HH * WW * C
-    f_flops = 2 * 2 * HH * WW * 9 * C * C * B         # two 3×3 convs, per f
-    weight_bytes = 4 * (2 * 9 * C * C + 2 * n + 8 * C)
-    # Backward: six 3×3-conv equivalents per sample (forward recompute,
-    # input gradients, weight gradients); reads h, g, t, the laid-out
-    # weights, writes dh, dt and the raw dθ once each.
-    # ... and f once more: the recomputed forward that the kernel writes.
-    bwd_flops = 6 * 2 * HH * WW * 9 * C * C * B_TRAIN
-    bwd_bytes = (4 * (4 * B_TRAIN * n + 2 * B_TRAIN) + weight_bytes
-                 + 4 * (2 * 9 * (C + 1) * C + 8 * C))
-
-    def bounds(flops, nbytes):
-        """The card's least time with the tensor cores (the operations
-        counted once, at the TF32 rate) and on the CUDA cores (f32 FFMA),
-        each the larger of its operations time and the bytes time."""
-        out = {}
-        for key, peak in (("", PEAK_TF32_FLOPS), ("ffma_", PEAK_F32_FLOPS)):
-            by_ops, by_bytes = flops / peak, nbytes / PEAK_BYTES
-            out[key + "bound_ms"] = 1e3 * max(by_ops, by_bytes)
-            out[key + "bound_by"] = ("operations" if by_ops >= by_bytes
-                                     else "bytes")
-        return out
-
+    fb = fused_bounds((HH, WW), C, B, B_TRAIN)
     fused_stage = stage((HH, WW), C)
     kernels = [
-        {"name": "odefunc", "route": "cuda",
+        {"name": "odefunc", "shape": f"{HH}x{WW}x{C}", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/odefunc.cu",
-         "replaces": "neural_ode_features_tpu/kernels/odefunc_pallas.py:219",
+         "replaces": REPLACES["odefunc"],
          "launches": launches["odefunc"], "max_abs_err": err_k1,
-         "ms": dev_ms["odefunc"], "plain_ms": ms["odefunc_plain"],
-         **bounds(f_flops, 4 * (2 * B * n + B) + weight_bytes),
+         "ms": dev_ms["odefunc"], "profiler_ms": prof_ms["odefunc"],
+         "plain_ms": ms["odefunc_plain"],
+         **fb["odefunc"],
          "library_ms": ms["odefunc_library"], "stage": fused_stage,
          "call_ms": ms["odefunc"]},
-        {"name": "rk_step", "route": "cuda",
+        {"name": "rk_step", "shape": f"{HH}x{WW}x{C}", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/rk_step.cu",
-         "replaces": "neural_ode_features_tpu/kernels/rk_step_pallas.py:586",
+         "replaces": REPLACES["rk_step"],
          "launches": launches["rk_step"], "max_abs_err": err_k2,
-         "ms": dev_ms["rk_step"], "plain_ms": ms["rk_step_plain"],
-         # t0, dt, rtol, atol in; y0, f0 in; y1, f1, y_mid, ratio out.
-         **bounds(6 * f_flops, 4 * (5 * B * n + 5 * B) + weight_bytes),
+         "ms": dev_ms["rk_step"], "profiler_ms": prof_ms["rk_step"],
+         "plain_ms": ms["rk_step_plain"],
+         **fb["rk_step"],
          "library_ms": None, "stage": fused_stage,
          "call_ms": ms["rk_step"], "tolerances": "(B,) arrays",
          "stacked_rows": n_grid * B, "stacked_ms": stacked_ms},
-        {"name": "odefunc_bwd", "route": "cuda",
+        {"name": "odefunc_bwd", "shape": f"{HH}x{WW}x{C}", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/odefunc_bwd.cu",
-         "replaces": "neural_ode_features_tpu/kernels/odefunc_bwd_rows.py:305",
+         "replaces": REPLACES["odefunc_bwd"],
          "launches": train_launches[-1]["odefunc_bwd"], "max_abs_err": err_k4,
-         "ms": dev_ms["odefunc_bwd"], "plain_ms": ms["odefunc_bwd_plain"],
-         **bounds(bwd_flops, bwd_bytes),
+         "ms": dev_ms["odefunc_bwd"], "profiler_ms": prof_ms["odefunc_bwd"],
+         "plain_ms": ms["odefunc_bwd_plain"],
+         **fb["odefunc_bwd"],
          "library_ms": ms["odefunc_bwd_library"], "stage": fused_stage,
          "call_ms": ms["odefunc_bwd"], "ms_by_kernel": bwd_split},
-        {"name": "conv_probe", "route": "cuda",
+        {"name": "conv_probe", "shape": f"{HH}x{WW}x{C}", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
-         "replaces": "probes/conv_probe.py:254",
+         "replaces": REPLACES["conv_probe"],
          "launches": probe_launches, "max_abs_err": err_k5,
          "ms": conv_dev_ms["mma3"], "plain_ms": ms["conv_plain"],
          **bounds(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C)),
@@ -1837,7 +2250,8 @@ def main() -> int:
                        ("rk_step", "sweep_fused"), ("odefunc", "adams"),
                        ("odefunc", "event"), ("odefunc_bwd", "event_adjoint"),
                        ("odefunc_bwd", "train_adams"),
-                       ("odefunc", "sweep_adams_fused")):
+                       ("odefunc", "sweep_adams_fused"),
+                       ("odefunc_bwd", "train_hidden128")):
         if by_path[path][name] < 1:
             fail(f"{name} was not launched on the {path} path")
     for mode, rows_ in sweep_report.items():
@@ -1846,7 +2260,7 @@ def main() -> int:
                                                   for k, v in r.items()))
     print(f"[times] done at {time.perf_counter() - t_script:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + width_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

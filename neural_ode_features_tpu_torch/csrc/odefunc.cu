@@ -3,13 +3,15 @@
 // Replaces the TPU kernel neural_ode_features_tpu/kernels/odefunc_pallas.py
 // (_odefunc_pallas -> _odefunc_kernel).  Wrapper and plain PyTorch version:
 // kernels/odefunc.py.  The per-sample work is odefunc_eval in
-// odefunc_common.cuh; at 7x7x64 and 6x6x64 its two convs run on the tensor
-// cores (3xTF32, f32-grade), at other shapes as f32 FFMA.
+// odefunc_common.cuh; at C = 64, 128 and 256 on 7x7 and 6x6 maps its two
+// convs run on the tensor cores (3xTF32, f32-grade), at other shapes as f32
+// FFMA.  kWide: compiled for the wide stage (odefunc_common.cuh wide_shape).
 #include "odefunc_common.cuh"
 
 namespace nodef {
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 odefunc_kernel(const float* __restrict__ t, const float* __restrict__ h,
                Odefunc p, Shape s, float* __restrict__ out) {
   extern __shared__ float4 smem_raw[];
@@ -21,7 +23,7 @@ odefunc_kernel(const float* __restrict__ t, const float* __restrict__ h,
   zero_pad(m, s);
   for (int e = threadIdx.x; e < n; e += kThreads) m.sx[e] = hb[e];
   __syncthreads();
-  odefunc_eval(m, s, p, t[blockIdx.x], [&](int e, float v) { ob[e] = v; });
+  odefunc_eval<kWide>(m, s, p, t[blockIdx.x], [&](int e, float v) { ob[e] = v; });
 }
 
 }  // namespace nodef
@@ -36,10 +38,11 @@ extern "C" int odefunc_forward(
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(H, W, C, G);
   const size_t smem = odefunc_smem_bytes(s);
-  cudaError_t err = cudaFuncSetAttribute(
-      odefunc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = wide_shape(s) ? odefunc_kernel<true> : odefunc_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
-  odefunc_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(t, h, p, s, out);
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(t, h, p, s, out);
   return (int)cudaGetLastError();
 }

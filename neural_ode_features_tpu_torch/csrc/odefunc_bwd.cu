@@ -19,8 +19,9 @@
 //      backward, conv2 input gradient (a 3x3 conv of the cotangent with the
 //      tap-flipped, transposed weights), ReLU2 + GN2 backward, conv1 input
 //      gradient, ReLU1 + GN1 backward.  Its four convs are the conv stage of
-//      odefunc_common.cuh: at 7x7x64 and 6x6x64 mma.sync TF32 products with
-//      3xTF32 error compensation (f32-grade); the input-gradient convs read
+//      odefunc_common.cuh: at C = 64, 128 and 256 on 7x7 and 6x6 maps
+//      mma.sync TF32 products with 3xTF32 error compensation (f32-grade);
+//      the input-gradient convs read
 //      w1, w2 themselves, taps reversed and transposed in the fragment loads
 //      (conv3x3_mma<3, true>).  Other shapes run the f32 FFMA conv3x3, the
 //      input gradients on the wrapper's w1bt, w2bt.  Writes dh, the
@@ -28,10 +29,15 @@
 //      of the GroupNorm scales/biases, conv biases and time-column kernels
 //      (dWt[k] = t * sum of gv over the pixels where tap k is inside the
 //      map: the tap-validity contraction), and the activations r1, r2 and
-//      cotangents gu, gv that the weight gradients need.
+//      cotangents gu, gv that the weight gradients need.  The conv1 output
+//      u (GN2's input) stays in shared memory where it fits; on the wide
+//      stage at 7x7x256 it does not (the forward's working set is 194 KB of
+//      the 227), and u goes to a global scratch (B, H*W*C) beside r1 and
+//      r2, written and read back by the same CTA.
 //   2. bwd_weight_kernel: dW[conv][k] (C x C per tap) = sum over (b, p) of
-//      r[b, p + off_k] (x) g[b, p]; one CTA per (conv, tap, row chunk), a
-//      64x64 output tile with a 4x4 register tile per thread.
+//      r[b, p + off_k] (x) g[b, p]; one CTA per (conv, tap, row chunk, ci
+//      tile, co tile), a TILE x TILE output tile (64, or 32 at C = 32) with
+//      a 4x4 register tile per thread.
 //   3. bwd_reduce_kernel: one thread per output sums the row chunks and the
 //      per-sample partials, and writes dtheta in the raw layout: conv kernels
 //      (3, 3, C+1, C) with the time channel first, and the eight (C,) vectors.
@@ -48,24 +54,32 @@
 namespace nodef {
 
 constexpr int kParts = 26;       // per-sample partial rows, see bwd_sample_kernel
-constexpr int kRedThreads = 256; // weight-gradient CTA: 16 x 16 threads, 4x4 each
-constexpr int kTile = 64;        // weight-gradient output tile (ci and co)
 constexpr int kRowTile = 32;     // rows staged per step in the weight-gradient CTA
 constexpr int kSplit = 8;        // row chunks per (conv, tap)
 
+// The weight-gradient output tile (ci and co): 64, or 32 where C is 32.
+inline int weight_tile(int C) { return C % 64 == 0 ? 64 : 32; }
+
 // Shared memory of bwd_sample_kernel: the forward's layout (carve), then
-//   su    [H*W*C]   conv1 output u (GN2's input)
+//   su    [H*W*C]   conv1 output u (GN2's input), unless u_global
 //   st    [6*G]     mean/inv of GN1, GN2, GN3
 //   chan  [4*C]     per-channel sums and group means
 // (the second partial-sum buffer is the second half of the forward's sred).
-// kernels/odefunc_bwd.py (bwd_smem_bytes) mirrors this formula.
+// u_global: a wide shape whose u does not fit.  kernels/odefunc_bwd.py
+// (bwd_smem_bytes, u_global) mirrors these formulas.
+inline size_t bwd_small_bytes(const Shape& s) {
+  return odefunc_smem_bytes(s) + sizeof(float) * (6 * (size_t)s.G + 4 * (size_t)s.C);
+}
+inline bool u_global(const Shape& s) {
+  return wide_shape(s) &&
+         bwd_small_bytes(s) + sizeof(float) * (size_t)s.H * s.W * s.C > kMaxSmem;
+}
 inline size_t bwd_smem_bytes(const Shape& s) {
-  return odefunc_smem_bytes(s) +
-         sizeof(float) * ((size_t)s.H * s.W * s.C + 6 * (size_t)s.G + 4 * (size_t)s.C);
+  return bwd_small_bytes(s) + (u_global(s) ? 0 : sizeof(float) * (size_t)s.H * s.W * s.C);
 }
 
 inline bool bwd_shape_ok(int H, int W, int C, int G) {
-  return shape_ok(H, W, C, G) && C % kTile == 0 &&
+  return shape_ok(H, W, C, G) && C >= 32 && C % weight_tile(C) == 0 &&
          bwd_smem_bytes(make_shape(H, W, C, G)) <= kMaxSmem;
 }
 
@@ -172,22 +186,27 @@ __device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, cons
 
 // Per-sample partial rows (kParts x C): 0 dn1s, 1 dn1b, 2 dn2s, 3 dn2b,
 // 4 dn3s, 5 dn3b, 6 db1, 7 db2, 8..16 dwt1 (tap-major), 17..25 dwt2.
-__global__ void __launch_bounds__(kThreads, 2)
+// kWide: compiled for the wide stage (odefunc_common.cuh wide_shape); there
+// u lives in the global scratch ug, which the launcher passes where
+// u_global(s) and leaves null elsewhere.
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
                   const float* __restrict__ g, Odefunc p,
                   const float* __restrict__ w1bt, const float* __restrict__ w2bt, Shape s,
                   float* __restrict__ fout, float* __restrict__ dh,
                   float* __restrict__ dt, float* __restrict__ r1, float* __restrict__ r2,
                   float* __restrict__ gu, float* __restrict__ gv,
-                  float* __restrict__ part) {
+                  float* __restrict__ part, float* __restrict__ ug) {
   extern __shared__ float4 smem_raw[];
   const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
   const int C = s.C, G = s.G, n = s.H * s.W * C, tid = threadIdx.x;
-  float* su = m.sinv + G;
-  float* sred2 = m.sred + kThreads;
-  float* st = su + n;
-  float* chan = st + 6 * G;
   const size_t off = (size_t)blockIdx.x * n;
+  const bool ug_on = kWide && ug != nullptr;
+  float* su = ug_on ? ug + off : m.sinv + G;
+  float* sred2 = m.sred + kThreads;
+  float* st = ug_on ? m.sinv + G : su + n;
+  float* chan = st + 6 * G;
   const float tb = t[blockIdx.x];
   const float* hb = h + off;
   const float* gb = g + off;
@@ -204,7 +223,7 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   gn_relu_to_pad(m, s, m.sx, stat, p.n1s, p.n1b);
   __syncthreads();
   for (int e = tid; e < n; e += kThreads) r1[off + e] = m.spad[pad_index(s, e)];
-  conv_stage(m, s, p.w1, [&](int q, int co, float acc) {
+  conv_stage<kWide>(m, s, p.w1, [&](int q, int co, float acc) {
     su[q * C + co] = (acc + p.b1[co]) + tb * p.m1[q * C + co];
   });
   __syncthreads();
@@ -212,7 +231,7 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   gn_relu_to_pad(m, s, su, stat, p.n2s, p.n2b);
   __syncthreads();
   for (int e = tid; e < n; e += kThreads) r2[off + e] = m.spad[pad_index(s, e)];
-  conv3x3_to_sx(m, s, p.w2, p.b2, p.m2, tb);
+  conv3x3_to_sx<kWide>(m, s, p.w2, p.b2, p.m2, tb);
   __syncthreads();
   stat = gn_stats(m, s, m.sx, mean3, inv3);
   {
@@ -232,7 +251,7 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   // conv2 input gradient: sx = conv3x3(pad(gv), w2bt).
   {
     auto to_sx = [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; };
-    if (s.mma) conv3x3_mma<3, true>(m, s, p.w2, to_sx);
+    if (s.mma) conv3x3_mma<3, true, kWide>(m, s, p.w2, to_sx);
     else conv3x3(m, s, w2bt, to_sx);
   }
   __syncthreads();
@@ -252,7 +271,7 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   // conv1 input gradient: sx = conv3x3(pad(gu), w1bt).
   {
     auto to_sx = [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; };
-    if (s.mma) conv3x3_mma<3, true>(m, s, p.w1, to_sx);
+    if (s.mma) conv3x3_mma<3, true, kWide>(m, s, p.w1, to_sx);
     else conv3x3(m, s, w1bt, to_sx);
   }
   __syncthreads();
@@ -270,21 +289,24 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
 
 // wpart[split][conv][tap][ci][co] = sum over the split's rows (b, p) of
 // r[b, p + off_tap, ci] * g[b, p, co] (zero where the tap leaves the map).
-__global__ void __launch_bounds__(kRedThreads)
+// (TILE / 4)^2 threads, each a 4x4 register tile of the TILE x TILE block.
+template <int TILE>
+__global__ void __launch_bounds__((TILE / 4) * (TILE / 4))
 bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
                   const float* __restrict__ gu, const float* __restrict__ gv, Shape s,
                   int B, float* __restrict__ wpart) {
-  __shared__ float4 sr[kRowTile][kTile / 4];
-  __shared__ float4 sg[kRowTile][kTile / 4];
+  constexpr int kQ = TILE / 4, kRedThreads = kQ * kQ;
+  __shared__ float4 sr[kRowTile][kQ];
+  __shared__ float4 sg[kRowTile][kQ];
   const int conv = blockIdx.x / (9 * kSplit), tap = (blockIdx.x / kSplit) % 9;
   const int split = blockIdx.x % kSplit, C = s.C;
-  const int ci0 = blockIdx.y * kTile, co0 = blockIdx.z * kTile;
+  const int ci0 = blockIdx.y * TILE, co0 = blockIdx.z * TILE;
   const float* r = conv == 0 ? r1 : r2;
   const float* g = conv == 0 ? gu : gv;
   const int hw = s.H * s.W, dy = tap / 3 - 1, dx = tap % 3 - 1;
   const long nrows = (long)B * hw;
   const long lo = nrows * split / kSplit, hi = nrows * (split + 1) / kSplit;
-  const int tid = threadIdx.x, tci = tid / (kTile / 4), tco = tid % (kTile / 4);
+  const int tid = threadIdx.x, tci = tid / kQ, tco = tid % kQ;
 
   float acc[4][4];
 #pragma unroll
@@ -293,8 +315,8 @@ bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (long row0 = lo; row0 < hi; row0 += kRowTile) {
-    for (int i = tid; i < kRowTile * (kTile / 4); i += kRedThreads) {
-      const int rr = i / (kTile / 4), q = i % (kTile / 4);
+    for (int i = tid; i < kRowTile * kQ; i += kRedThreads) {
+      const int rr = i / kQ, q = i % kQ;
       const long row = row0 + rr;
       float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vg = vr;
       if (row < hi) {
@@ -358,32 +380,39 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
 }  // namespace nodef
 
 // Scratch, allocated by the wrapper: r1, r2, gu, gv (B, H*W*C) each, part
-// (B, 26, C), wpart (8, 2, 9, C, C).  w1bt, w2bt (the tap-flipped,
-// transposed kernels) are read only by the FFMA stage and may be null where
-// make_shape picks the tensor-core stage.
+// (B, 26, C), wpart (8, 2, 9, C, C), and u (B, H*W*C) where u_global (else
+// it may be null).  w1bt, w2bt (the tap-flipped, transposed
+// kernels) are read only by the FFMA stage and may be null where make_shape
+// picks the tensor-core stage.
 extern "C" int odefunc_backward(
     const float* t, const float* h, const float* g,
     const float* n1s, const float* n1b, const float* w1, const float* b1, const float* m1,
     const float* n2s, const float* n2b, const float* w2, const float* b2, const float* m2,
     const float* n3s, const float* n3b, const float* w1bt, const float* w2bt,
     float* f, float* dh, float* dt, float* r1, float* r2, float* gu, float* gv, float* part,
-    float* wpart, float* dk1, float* dk2, float* dvec,
+    float* wpart, float* ug, float* dk1, float* dk2, float* dvec,
     int B, int H, int W, int C, int G, void* stream) {
   using namespace nodef;
   if (!bwd_shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(H, W, C, G);
   if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
+  if (u_global(s) && ug == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(s);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto sample = wide_shape(s) ? bwd_sample_kernel<true> : bwd_sample_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(sample, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bwd_sample_kernel<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, f, dh, dt, r1,
-                                               r2, gu, gv, part);
+  sample<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, f, dh, dt, r1, r2, gu, gv,
+                                    part, u_global(s) ? ug : nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 wgrid(2 * 9 * kSplit, C / kTile, C / kTile);
-  bwd_weight_kernel<<<wgrid, kRedThreads, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
+  const int tile = weight_tile(C);
+  const dim3 wgrid(2 * 9 * kSplit, C / tile, C / tile);
+  if (tile == 64)
+    bwd_weight_kernel<64><<<wgrid, 16 * 16, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
+  else
+    bwd_weight_kernel<32><<<wgrid, 8 * 8, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int total = 2 * 9 * (C + 1) * C + 8 * C;
   bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(wpart, part, s, B, dk1, dk2, dvec);

@@ -18,8 +18,9 @@
 // The conv has two stages; which one a kernel runs is decided from the shape
 // alone (make_shape, mirrored by kernels/odefunc.py `stage`):
 //
-//   * conv3x3_mma (C == 64 and H*(W+2) <= 64: 7x7x64, 6x6x64): an implicit
-//     GEMM on the tensor cores, mma.sync.m16n8k8 TF32 with f32 accumulation
+//   * conv3x3_mma (C = 64, 128 or 256 and H*(W+2) <= 64: 7x7 and 6x6 maps):
+//     an implicit GEMM on the tensor cores, mma.sync.m16n8k8 TF32 with f32
+//     accumulation
 //     and "3xTF32" error compensation.  Every f32 operand x is split in
 //     registers into a TF32 head hi = rna(x) (round to nearest, ties away)
 //     and a tail lo = x - hi, of which the tensor core reads the TF32 part;
@@ -29,16 +30,19 @@
 //     padded-pitch positions q = y*(W+2) + x of one sample (the two border
 //     columns of each row are computed and dropped), so the A rows of tap
 //     (ky, kx) are the rows q + ky*(W+2) + kx of the zero-bordered spad:
-//     one uniform row stride and no gather.  N = C, K = 9*C tap by tap.  The
-//     16 warps tile the 64x64 output as 2 (M) x 4 (N) warps of 32x16, times
-//     2 halves of every tap's input channels; the two halves' partial sums
-//     are added through shared memory, first half + second half.  Within a k8
+//     one uniform row stride and no gather.  N = C in blocks of 64 output
+//     channels, one after the other; K = 9*C as (tap, 64-channel input
+//     block) tiles.  The 16 warps tile a 64x64 output block as 2 (M) x 4 (N)
+//     warps of 32x16, times 2 halves of every tile's input channels; the two
+//     halves' partial sums are added through shared memory, first half +
+//     second half.  Within a k8
 //     step a thread's two k columns are (2t, 2t+1), not (t, t+4) (A and B
 //     agree, and a sum over k has no order), which makes each A fragment row
 //     one 8-byte load.  spad rows are C + 8 floats apart and weight rows 68
 //     or 72, so that no fragment load has a bank conflict.  The f32 weights
-//     of a tap are staged by cp.async through a ring of three buffers, two
-//     taps ahead of the products; they are never split in global memory.
+//     of a (64, 64) tile are staged by cp.async through a ring of three
+//     buffers, two tiles ahead of the products; they are never split in
+//     global memory.
 //   * conv3x3 (every other supported shape, and the probe's tap9 baseline):
 //     strict f32 FFMA on the CUDA cores, thread -> (output channel
 //     co = tid % C, pixel group pg = tid / C), at most kMaxPix pixels per
@@ -60,7 +64,8 @@ constexpr int kThreads = 512;  // threads per CTA, one CTA per sample
 constexpr int kMaxPix = 8;     // FFMA conv: output pixels per thread
 constexpr float kEps = 1e-5f;  // GroupNorm epsilon
 
-constexpr int kMmaC = 64;      // channels the tensor-core stage takes
+constexpr int kMmaC = 64;      // channels of one block of the tensor-core stage
+constexpr int kMmaMaxC = 256;  // the widest C it takes (4 x 4 blocks)
 constexpr int kMmaM = 64;      // padded-pitch positions of its M tile
 constexpr int kPadA = 8;       // floats added to spad's row pitch
 constexpr int kPitchB = 68;    // weight row pitch, tap stored (ci, co)
@@ -99,10 +104,13 @@ inline unsigned magic_of(int d) {  // d == 1 has no 32-bit magic: see div_magic
   return d > 1 ? (unsigned)(((1ull << 32) + d - 1) / d) : 0u;
 }
 
-// The shapes the tensor-core stage takes; kernels/odefunc.py (stage) is the
-// same gate in Python.
+// The shapes the tensor-core stage takes: C a power of two from 64 to 256
+// (whole 64-channel blocks; C = 512 does not fit one CTA's shared memory),
+// and the map's padded-pitch positions within one 64-row tile.
+// kernels/odefunc.py (stage) is the same gate in Python.
 inline bool mma_ok(int H, int W, int C) {
-  return C == kMmaC && H >= 1 && W >= 1 && H * (W + 2) <= kMmaM;
+  return C >= kMmaC && C <= kMmaMaxC && (C & (C - 1)) == 0 && H >= 1 && W >= 1 &&
+         H * (W + 2) <= kMmaM;
 }
 
 // spad of the tensor-core stage has slack rows at its end: the last M-tile
@@ -145,6 +153,16 @@ inline size_t odefunc_smem_bytes(const Shape& s) {
 // The largest dynamic shared memory one CTA may use on sm_90 (227 KB), less
 // 1 KB for the rk-step kernel's static tableau.
 constexpr size_t kMaxSmem = 232448 - 1024;
+
+// Every kernel is compiled twice, by its conv stage's width (the template
+// argument kWide of each kernel; the launcher picks by wide_shape):
+//   narrow (the FFMA stage, or the tensor cores at C = 64):
+//     __launch_bounds__(kThreads, 2), at most 64 registers a thread, and the
+//     tensor-core stage's block loops folded to one block at compile time;
+//   wide (the tensor cores at C = 128 and 256, whose working set fills an
+//     SM's shared memory alone): __launch_bounds__(kThreads, 1), up to 128.
+inline bool wide_shape(const Shape& s) { return s.mma && s.C > kMmaC; }
+constexpr int min_blocks(bool wide) { return wide ? 1 : 2; }
 
 // The shapes the kernels take; kernels/odefunc.py (supported) is the same
 // gate in Python.  layout_ok: a shape under a given layout (make_shape's, or
@@ -380,12 +398,12 @@ __device__ __forceinline__ float2 lds2(uint32_t addr) {
   return v;
 }
 
-// Stage one tap's (64, 64) f32 weights, rows 64 floats apart in global
+// Stage one (64, 64) f32 weight tile, rows `ld` floats apart in global
 // memory, into a buffer with rows `pitch` floats apart.
-__device__ __forceinline__ void load_tap_mma(float* dst, const float* __restrict__ src,
-                                             int pitch) {
+__device__ __forceinline__ void load_tile_mma(float* dst, const float* __restrict__ src,
+                                              int ld, int pitch) {
   for (int i = threadIdx.x; i < kMmaC * kMmaC / 4; i += kThreads)
-    cp_async16(dst + (i >> 4) * pitch + (i & 15) * 4, src + i * 4);
+    cp_async16(dst + (i >> 4) * pitch + (i & 15) * 4, src + (i >> 4) * ld + (i & 15) * 4);
   cp_async_commit();
 }
 
@@ -396,23 +414,33 @@ __device__ __forceinline__ void load_tap_mma(float* dst, const float* __restrict
 // accuracy reading of the probe, on no path).  BT = false: w is (9, ci, co),
 // tap order as stored.  BT = true: the taps are read in reverse order and
 // each as (co, ci), i.e. the conv with the tap-flipped, transposed kernel
-// (the input gradient of the conv with w).
+// (the input gradient of the conv with w).  WIDE = false: C = 64 is known.
 //
-// Order of the sums: the tensor core adds one tap's products (its half of
-// the input channels, tail products first within a k8 step) onto a zero
-// accumulator; that tap sum is added to the running sum by an f32 add on the
-// CUDA cores, taps in order; last, first half + second half.  The tensor
-// core's own accumulation truncates, so a chain over all nine taps would
-// carry a bias of a few 1e-6 of the sum; a chain of one tap does not.
-template <int PASSES, bool BT, class Epi>
+// Loops: over the C/64 blocks of output channels nb; within one, over the
+// 9*C/64 tiles i = (tap, input block kb), tap-major, each tile's (64, 64)
+// weights w[tap][kb block][nb block] (BT: w[8 - tap][nb block][kb block]).
+// At C = 64 there is one block and the tiles are the nine taps.
+//
+// Order of the sums: the tensor core adds one tile's products (its half of
+// the tile's 64 input channels, tail products first within a k8 step) onto
+// a zero accumulator; that tile sum is added to the running sum by an f32
+// add on the CUDA cores, tiles in order; last, first half + second half.
+// The tensor core's own accumulation truncates, so a chain over all nine
+// taps would carry a bias of a few 1e-6 of the sum; a chain of one tile (32
+// channels, as at C = 64) does not, at any C.
+template <int PASSES, bool BT, bool WIDE, class Epi>
 __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restrict__ w,
                             Epi epi) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int kg = warp >> 3, wm = (warp >> 2) & 1, wn = warp & 3;
-  const int Wp = s.W + 2, P = s.P;
+  const int Wp = s.W + 2, P = s.P, C = WIDE ? s.C : kMmaC;
+  const int lkb = WIDE ? s.lc - 6 : 0, nblk = 1 << lkb, ntile = 9 << lkb;  // C = 64 << lkb
   constexpr int pitch = BT ? kPitchBT : kPitchB, stage = kMmaC * kPitchBT;
-  auto tap_src = [&](int tap) { return w + (size_t)(BT ? 8 - tap : tap) * kMmaC * kMmaC; };
+  auto tile_src = [&](int i, int nb) {
+    const int tap = i >> lkb, kb = i & (nblk - 1), rb = BT ? nb : kb, cb = BT ? kb : nb;
+    return w + (size_t)(BT ? 8 - tap : tap) * C * C + (size_t)rb * kMmaC * C + cb * kMmaC;
+  };
   // Byte addresses in shared memory of this thread's first A element (row g
   // of the warp's first m16 tile at tap (0, 0), k column 32*kg + 2t) and of
   // its first B element in buffer 0.
@@ -421,128 +449,134 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
       BT ? m.sw + (16 * wn + g) * pitch + 32 * kg + 2 * t
          : m.sw + (32 * kg + 2 * t) * pitch + 16 * wn + g);
 
-  float run[2][2][4];
+  for (int nb = 0; nb < nblk; ++nb) {
+    float run[2][2][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) run[i][j][r] = 0.f;
+        for (int r = 0; r < 4; ++r) run[i][j][r] = 0.f;
 
-  load_tap_mma(m.sw, tap_src(0), pitch);
-  load_tap_mma(m.sw + stage, tap_src(1), pitch);
-  for (int tap = 0; tap < 9; ++tap) {
-    if (tap < 8) cp_async_wait_but_one(); else cp_async_wait_all();
-    __syncthreads();  // tap's weights visible; the buffer of tap - 1 is free
-    if (tap + 2 < 9) load_tap_mma(m.sw + ((tap + 2) % kRing) * stage, tap_src(tap + 2), pitch);
-    const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P);
-    const uint32_t b_tap = b_thread + 4u * ((tap % kRing) * stage);
-    float acc[2][2][4];
+    load_tile_mma(m.sw, tile_src(0, nb), C, pitch);
+    load_tile_mma(m.sw + stage, tile_src(1, nb), C, pitch);
+    for (int tile = 0; tile < ntile; ++tile) {
+      if (tile + 1 < ntile) cp_async_wait_but_one(); else cp_async_wait_all();
+      __syncthreads();  // the tile's weights visible; the buffer of tile - 1 is free
+      if (tile + 2 < ntile)
+        load_tile_mma(m.sw + ((tile + 2) % kRing) * stage, tile_src(tile + 2, nb), C, pitch);
+      const int tap = tile >> lkb, kb = tile & (nblk - 1);
+      const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P + kb * kMmaC);
+      const uint32_t b_tap = b_thread + 4u * ((tile % kRing) * stage);
+      float acc[2][2][4];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t bhi[2][2], blo[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float bv[2];
-        if (BT) {
-          const float2 v = lds2(b_tap + 4u * ((8 * j) * pitch + 8 * ks));
-          bv[0] = v.x;
-          bv[1] = v.y;
-        } else {
-          bv[0] = lds(b_tap + 4u * ((8 * ks) * pitch + 8 * j));
-          bv[1] = lds(b_tap + 4u * ((8 * ks + 1) * pitch + 8 * j));
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          if (PASSES == 3) tf32_split(bv[r], bhi[j][r], blo[j][r]);
-          else bhi[j][r] = tf32_rna(bv[r]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // Rows g and g + 8 of the m16 tile, k columns 2t and 2t + 1.
-        const float2 r0 = lds2(a_tap + 4u * ((16 * i) * P + 8 * ks));
-        const float2 r1 = lds2(a_tap + 4u * ((16 * i + 8) * P + 8 * ks));
-        const float av[4] = {r0.x, r1.x, r0.y, r1.y};
-        uint32_t ahi[4], alo[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if (PASSES == 3) tf32_split(av[r], ahi[r], alo[r]);
-          else ahi[r] = tf32_rna(av[r]);
-        }
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t bhi[2][2], blo[2][2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          if (PASSES == 3) {
-            if (ks == 0) mma_tf32_zero(acc[i][j], alo, bhi[j]);
-            else mma_tf32(acc[i][j], alo, bhi[j]);
-            mma_tf32(acc[i][j], ahi, blo[j]);
-            mma_tf32(acc[i][j], ahi, bhi[j]);
+          float bv[2];
+          if (BT) {
+            const float2 v = lds2(b_tap + 4u * ((8 * j) * pitch + 8 * ks));
+            bv[0] = v.x;
+            bv[1] = v.y;
           } else {
-            if (ks == 0) mma_tf32_zero(acc[i][j], ahi, bhi[j]);
-            else mma_tf32(acc[i][j], ahi, bhi[j]);
+            bv[0] = lds(b_tap + 4u * ((8 * ks) * pitch + 8 * j));
+            bv[1] = lds(b_tap + 4u * ((8 * ks + 1) * pitch + 8 * j));
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (PASSES == 3) tf32_split(bv[r], bhi[j][r], blo[j][r]);
+            else bhi[j][r] = tf32_rna(bv[r]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // Rows g and g + 8 of the m16 tile, k columns 2t and 2t + 1.
+          const float2 r0 = lds2(a_tap + 4u * ((16 * i) * P + 8 * ks));
+          const float2 r1 = lds2(a_tap + 4u * ((16 * i + 8) * P + 8 * ks));
+          const float av[4] = {r0.x, r1.x, r0.y, r1.y};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (PASSES == 3) tf32_split(av[r], ahi[r], alo[r]);
+            else ahi[r] = tf32_rna(av[r]);
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (PASSES == 3) {
+              if (ks == 0) mma_tf32_zero(acc[i][j], alo, bhi[j]);
+              else mma_tf32(acc[i][j], alo, bhi[j]);
+              mma_tf32(acc[i][j], ahi, blo[j]);
+              mma_tf32(acc[i][j], ahi, bhi[j]);
+            } else {
+              if (ks == 0) mma_tf32_zero(acc[i][j], ahi, bhi[j]);
+              else mma_tf32(acc[i][j], ahi, bhi[j]);
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) run[i][j][r] += acc[i][j][r];
-  }
-
-  // Add the two k halves: the second half's warps park their sums in the
-  // weight ring, in fragment order; the first half's add them and finish.
-  __syncthreads();  // every warp is done with the ring
-  float* red = m.sw + ((warp & 7) * 32 + lane);
-  if (kg == 1) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) red[((i * 2 + j) * 4 + r) * 256] = run[i][j][r];
-  }
-  __syncthreads();
-  if (kg == 0) {
-    const int hq = s.H * Wp;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = 32 * wm + 16 * i + 8 * h + g, y = div_magic(q, s.pmagic), x = q - y * Wp;
-        const bool real = q < hq && x < s.W;
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int l = 0; l < 2; ++l) {
-            const int r = 2 * h + l;
-            const float v = run[i][j][r] + red[((i * 2 + j) * 4 + r) * 256];
-            if (real) epi(y * s.W + x, 16 * wn + 8 * j + 2 * t + l, v);
-          }
-      }
+          for (int r = 0; r < 4; ++r) run[i][j][r] += acc[i][j][r];
+    }
+
+    // Add the two k halves: the second half's warps park their sums in the
+    // weight ring, in fragment order; the first half's add them and finish.
+    __syncthreads();  // every warp is done with the ring
+    float* red = m.sw + ((warp & 7) * 32 + lane);
+    if (kg == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) red[((i * 2 + j) * 4 + r) * 256] = run[i][j][r];
+    }
+    __syncthreads();
+    if (kg == 0) {
+      const int hq = s.H * Wp;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = 32 * wm + 16 * i + 8 * h + g, y = div_magic(q, s.pmagic), x = q - y * Wp;
+          const bool real = q < hq && x < s.W;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int l = 0; l < 2; ++l) {
+              const int r = 2 * h + l;
+              const float v = run[i][j][r] + red[((i * 2 + j) * 4 + r) * 256];
+              if (real) epi(y * s.W + x, nb * kMmaC + 16 * wn + 8 * j + 2 * t + l, v);
+            }
+        }
+    }
+    if (nb + 1 < nblk) __syncthreads();  // the ring, which holds red, is free again
   }
 }
 
 // ---- both stages ----------------------------------------------------------
 
 // The conv stage of the shape: tensor cores (3xTF32) where make_shape says
-// so, else FFMA.
-template <class Epi>
+// so, else FFMA.  WIDE: wide_shape(s).
+template <bool WIDE, class Epi>
 __device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
                                            const float* __restrict__ w, Epi epi) {
-  if (s.mma) conv3x3_mma<3, false>(m, s, w, epi);
+  if (s.mma) conv3x3_mma<3, false, WIDE>(m, s, w, epi);
   else conv3x3(m, s, w, epi);
 }
 
 // sx[p, co] = (conv3x3(spad, w) + bias[co]) + t * M[p, co].
+template <bool WIDE>
 __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
                                               const float* __restrict__ w,
                                               const float* __restrict__ bias,
                                               const float* __restrict__ tmap, float t) {
   const int C = s.C;
-  conv_stage(m, s, w, [&](int p, int co, float acc) {
+  conv_stage<WIDE>(m, s, w, [&](int p, int co, float acc) {
     m.sx[p * C + co] = (acc + bias[co]) + t * tmap[p * C + co];
   });
 }
@@ -551,18 +585,18 @@ __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
 // synchronised after writing it.  The result is handed to out(e, value) for
 // e = threadIdx.x + j * kThreads, reading sx only at those e, so the caller
 // may overwrite sx[e] at the same e without another barrier.
-template <class Out>
+template <bool WIDE, class Out>
 __device__ void odefunc_eval(const Smem& m, const Shape& s, const Odefunc& p,
                              float t, Out out) {
   Stat st = gn_stats(m, s, m.sx, m.smean, m.sinv);
   gn_relu_to_pad(m, s, m.sx, st, p.n1s, p.n1b);
   __syncthreads();
-  conv3x3_to_sx(m, s, p.w1, p.b1, p.m1, t);
+  conv3x3_to_sx<WIDE>(m, s, p.w1, p.b1, p.m1, t);
   __syncthreads();
   st = gn_stats(m, s, m.sx, m.smean, m.sinv);
   gn_relu_to_pad(m, s, m.sx, st, p.n2s, p.n2b);
   __syncthreads();
-  conv3x3_to_sx(m, s, p.w2, p.b2, p.m2, t);
+  conv3x3_to_sx<WIDE>(m, s, p.w2, p.b2, p.m2, t);
   __syncthreads();
   st = gn_stats(m, s, m.sx, m.smean, m.sinv);
   const int n = s.H * s.W * s.C, c = threadIdx.x & (s.C - 1);

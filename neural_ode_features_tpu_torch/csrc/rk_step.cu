@@ -18,9 +18,11 @@
 // and shared memory holds only one eval's working set; k7 is f1.
 //
 // The twelve 3x3 convs of an attempt are the conv stage of
-// odefunc_common.cuh: at 7x7x64 and 6x6x64 mma.sync TF32 products with
-// 3xTF32 error compensation (f32-grade, so the accept/reject decisions
-// follow the f32 plain version's), at other shapes f32 FFMA.
+// odefunc_common.cuh: at C = 64, 128 and 256 on 7x7 and 6x6 maps mma.sync
+// TF32 products with 3xTF32 error compensation (f32-grade, so the
+// accept/reject decisions follow the f32 plain version's), at other shapes
+// f32 FFMA.  kWide: compiled for the wide stage (odefunc_common.cuh
+// wide_shape).
 #include <float.h>
 
 #include "odefunc_common.cuh"
@@ -34,7 +36,8 @@ struct Tableau {  // f32 coefficients, zero where a term is skipped
   float b[kStages], e[kStages], c[kStages], mid[kStages];
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
                const float* __restrict__ y0, const float* __restrict__ f0,
                Odefunc p, Shape s, Tableau tab,
@@ -87,7 +90,7 @@ rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
     }
     __syncthreads();
     float* ki = kp(i);
-    odefunc_eval(m, s, p, tb + st.c[i] * h, [&](int e, float v) { ki[e] = v; });
+    odefunc_eval<kWide>(m, s, p, tb + st.c[i] * h, [&](int e, float v) { ki[e] = v; });
   }
 
   float r2 = 0.f;
@@ -140,8 +143,9 @@ extern "C" int rk_step_forward(
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(H, W, C, G);
   const size_t smem = odefunc_smem_bytes(s);
-  cudaError_t err = cudaFuncSetAttribute(
-      rk_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = wide_shape(s) ? rk_step_kernel<true> : rk_step_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   Tableau tab;
   const float* q = tableau;
@@ -152,7 +156,7 @@ extern "C" int rk_step_forward(
   for (int i = 0; i < kStages; ++i) tab.c[i] = *q++;
   for (int i = 0; i < kStages; ++i) tab.mid[i] = *q++;
   const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
-  rk_step_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       t0, dt, y0, f0, p, s, tab, rtol, atol, ks, y1, f1, ymid, ratio);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,28 @@
-"""Datasets: the deterministic synthetic twins (port of
-``neural_ode_features_tpu/data/datasets.py``).
+"""Datasets: the raw MNIST and CIFAR-10 files and their deterministic
+synthetic twins (port of ``neural_ode_features_tpu/data/datasets.py``).
+
+The raw public formats are read directly from ``data_dir`` (default
+``./data``, overridden by ``$NODE_TPU_DATA``), with the JAX loader's search
+order and errors:
+
+  * MNIST: the IDX files (``train-images-idx3-ubyte`` …, each plain or
+    ``.gz``) under ``mnist/``, ``MNIST/raw/`` or the directory itself;
+  * CIFAR-10: the python pickles ``cifar-10-batches-py/`` or, without them,
+    the binary batches ``cifar-10-batches-bin/``.
 
 ``synthetic-mnist`` and ``synthetic-cifar10`` have the shapes, dtype and
 class count of the real datasets and are generated from fixed numpy seeds;
 this module is the port's own copy of the JAX package's generator, and the
-bytes are the same (a test holds them equal).  Reading the raw MNIST and
-CIFAR-10 files is not ported yet (ROADMAP.md, Queue 1 item 5).
+bytes are the same (a test holds them equal).
 """
 
 from __future__ import annotations
+
+import gzip
+import os
+import pickle
+import struct
+from pathlib import Path
 
 import numpy as np
 
@@ -25,6 +39,73 @@ _SPECS = {
 def dataset_spec(name: str) -> dict:
     base = name.replace("synthetic-", "")
     return dict(_SPECS[base])
+
+
+def _data_dir(data_dir: str | None) -> Path:
+    return Path(data_dir or os.environ.get("NODE_TPU_DATA", "./data"))
+
+
+def _open_maybe_gz(path: Path):
+    gz = path.with_name(path.name + ".gz")
+    if path.exists():
+        return open(path, "rb")
+    if gz.exists():
+        return gzip.open(gz, "rb")
+    raise FileNotFoundError(f"{path}(.gz) not found")
+
+
+def _read_idx(f) -> np.ndarray:
+    """One IDX array of unsigned bytes: the magic's low byte is the rank,
+    then the dimensions as big-endian int32."""
+    magic, = struct.unpack(">i", f.read(4))
+    ndim = magic & 0xFF
+    dims = struct.unpack(f">{ndim}i", f.read(4 * ndim))
+    # A copy: np.frombuffer's array is read-only, which torch.from_numpy
+    # warns about.
+    return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims).copy()
+
+
+def _load_mnist(root: Path, split: str):
+    prefix = "train" if split == "train" else "t10k"
+    for sub in (root / "mnist", root / "MNIST" / "raw", root):
+        try:
+            with _open_maybe_gz(sub / f"{prefix}-images-idx3-ubyte") as f:
+                images = _read_idx(f)
+            with _open_maybe_gz(sub / f"{prefix}-labels-idx1-ubyte") as f:
+                labels = _read_idx(f)
+            return images[..., None], labels
+        except FileNotFoundError:
+            continue
+    raise FileNotFoundError(
+        f"MNIST IDX files not found under {root} (tried mnist/, MNIST/raw/, "
+        ".). Place the standard files there, or use dataset 'synthetic-mnist'.")
+
+
+def _load_cifar10(root: Path, split: str):
+    names = ([f"data_batch_{i}" for i in range(1, 6)] if split == "train"
+             else ["test_batch"])
+    pydir = root / "cifar-10-batches-py"
+    if pydir.exists():
+        xs, ys = [], []
+        for n in names:
+            with open(pydir / n, "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xs.append(d[b"data"])
+            ys.append(np.asarray(d[b"labels"], np.uint8))
+        x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return np.ascontiguousarray(x), np.concatenate(ys)
+    bindir = root / "cifar-10-batches-bin"
+    if bindir.exists():
+        xs, ys = [], []
+        for n in names:
+            rec = np.frombuffer((bindir / f"{n}.bin").read_bytes(),
+                                np.uint8).reshape(-1, 3073)
+            ys.append(rec[:, 0].copy())
+            xs.append(rec[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+        return np.ascontiguousarray(np.concatenate(xs)), np.concatenate(ys)
+    raise FileNotFoundError(
+        f"CIFAR-10 not found under {root} (tried cifar-10-batches-py/, "
+        "cifar-10-batches-bin/). Place it there, or use 'synthetic-cifar10'.")
 
 
 def _synthetic(base: str, split: str, n_override: int | None = None):
@@ -104,17 +185,19 @@ def load_dataset(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Return ``(images uint8 NHWC, labels uint8)`` for ``split`` in
     {'train', 'test'}.  ``limit`` truncates (a synthetic twin generates
-    exactly ``limit`` samples).  ``data_dir`` is read only by the raw-file
-    loaders, which are not ported yet."""
+    exactly ``limit`` samples).  ``data_dir``: where the raw files are
+    (``mnist``, ``cifar10``); the twins do not read it."""
     if name not in DATASETS:
         raise ValueError(f"unknown dataset {name!r}; available: {DATASETS}")
     if split not in ("train", "test"):
         raise ValueError(f"split must be 'train'|'test', got {split!r}")
-    if not name.startswith("synthetic-"):
-        raise NotImplementedError(
-            f"reading the raw {name} files is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 5); use 'synthetic-{name}'")
-    x, y = _synthetic(name.replace("synthetic-", ""), split, limit)
+    root = _data_dir(data_dir)
+    if name == "mnist":
+        x, y = _load_mnist(root, split)
+    elif name == "cifar10":
+        x, y = _load_cifar10(root, split)
+    else:
+        x, y = _synthetic(name.replace("synthetic-", ""), split, limit)
     if limit is not None:
         x, y = x[:limit], y[:limit]
     return x, y

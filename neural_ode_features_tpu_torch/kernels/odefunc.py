@@ -13,11 +13,16 @@ cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): the two 3×3 convs are
 The design keeps the sample in shared memory for the whole chain (state,
 padded conv input, GroupNorm scratch) and streams each conv tap's f32
 weights into shared memory once per CTA (cp.async).  The convs have two
-stages, chosen from the shape alone (:func:`stage`): at C = 64 with
-H·(W+2) ≤ 64 (7×7×64, 6×6×64) an implicit GEMM on the tensor cores,
-``mma.sync`` TF32 with 3×TF32 error compensation (each f32 operand split
-into a TF32 head and tail, three products per pair, f32 accumulation), which
-is f32-grade; at every other supported shape register-tiled f32 FFMA.
+stages, chosen from the shape alone (:func:`stage`): at C = 64, 128 or 256
+with H·(W+2) ≤ 64 (7×7 CIFAR-10 and 6×6 MNIST maps) an implicit GEMM on the
+tensor cores, ``mma.sync`` TF32 with 3×TF32 error compensation (each f32
+operand split into a TF32 head and tail, three products per pair, f32
+accumulation), which is f32-grade, in 64-channel blocks of output and input
+channels; at every other supported shape (C = 32, say) register-tiled f32
+FFMA.  At C = 128 and 256 one CTA fills an SM's shared memory, and the
+kernels run a second build of themselves for one CTA per SM (up to 128
+registers a thread); the other shapes keep two CTAs per SM and 64
+registers.
 PyTorch's own TF32 switches stay off: the kernels' TF32 is explicit and
 compensated, a library's is not.
 
@@ -46,12 +51,13 @@ from . import _build
 __all__ = ["OdefuncWeights", "prepare", "supported", "smem_bytes", "stage",
            "odefunc", "odefunc_plain", "odefunc_autograd", "odefunc_vjp"]
 
-# Mirrors csrc/odefunc_common.cuh (kThreads, kMaxPix, kMaxSmem; kMmaC, kMmaM,
-# kPadA, kPitchBT, kRing of the tensor-core conv stage).
+# Mirrors csrc/odefunc_common.cuh (kThreads, kMaxPix, kMaxSmem; kMmaC,
+# kMmaMaxC, kMmaM, kPadA, kPitchBT, kRing of the tensor-core conv stage).
 THREADS = 512
 MAX_PIX = 8
 MAX_SMEM = 232448 - 1024
 MMA_C = 64
+MMA_MAX_C = 256
 MMA_M = 64
 PAD_A = 8
 PITCH_BT = 72
@@ -105,10 +111,12 @@ def prepare(params, hw: tuple[int, int]) -> OdefuncWeights:
 def stage(hw: tuple[int, int], c: int) -> str:
     """The conv stage the fused kernels run at this shape, decided by the
     shape alone (csrc/odefunc_common.cuh ``mma_ok``): ``'mma3'``, the
-    tensor-core stage, takes C = 64 and maps whose H·(W+2) padded-pitch
-    positions fit its 64-row tile; everything else runs ``'ffma'``."""
+    tensor-core stage, takes C a power of two from 64 to 256 (whole
+    64-channel blocks) and maps whose H·(W+2) padded-pitch positions fit its
+    64-row tile; everything else runs ``'ffma'``."""
     hh, ww = hw
-    if c == MMA_C and hh >= 1 and ww >= 1 and hh * (ww + 2) <= MMA_M:
+    if (MMA_C <= c <= MMA_MAX_C and c & (c - 1) == 0 and hh >= 1 and ww >= 1
+            and hh * (ww + 2) <= MMA_M):
         return "mma3"
     return "ffma"
 
@@ -136,9 +144,11 @@ def supported(hw: tuple[int, int], c: int, groups: int,
     """The kernels' shape gate: C divisible by 4 and by ``groups``, C
     dividing the CTA's 512 threads, the working set within the 227 KB of
     shared memory and, for the FFMA stage, at most 8 conv pixels per thread.
-    7×7×64 (CIFAR-10) and 6×6×64 (MNIST) pass, on the tensor-core stage.
-    ``conv_stage='ffma'`` asks for the FFMA layout at any shape (the conv
-    probe's ``tap9``)."""
+    On 7×7 (CIFAR-10) and 6×6 (MNIST) maps C = 64, 128 and 256 pass on the
+    tensor-core stage and C = 32 on the FFMA stage; C = 512 (over the shared
+    memory) and widths that are not a power of two (C must divide the 512
+    threads) do not.  ``conv_stage='ffma'`` asks for the FFMA layout at any
+    shape (the conv probe's ``tap9``)."""
     hh, ww = hw
     if (hh < 1 or ww < 1 or c < 4 or groups < 1 or c % 4 or THREADS % c
             or c % groups):
@@ -148,6 +158,12 @@ def supported(hw: tuple[int, int], c: int, groups: int,
         return False
     return (conv_stage == "mma3"
             or math.ceil(hh * ww / (THREADS // c)) <= MAX_PIX)
+
+
+# What a refusal says about the widths the kernels take and the rest.
+WIDTHS = ("on 7×7 and 6×6 maps they take C = 32, 64, 128 and 256; C = 512 "
+          "and widths that are not a power of two are ROADMAP.md Queue 3 "
+          "item 1")
 
 
 def odefunc_plain(w: OdefuncWeights, t, h: torch.Tensor,
@@ -177,8 +193,7 @@ def check_cuda_inputs(w: OdefuncWeights, states: dict, hw, c: int,
     if not supported(hw, c, groups):
         raise ValueError(
             f"the CUDA ODEfunc kernels do not take H×W×C = {hw[0]}×{hw[1]}×{c}"
-            f" with groups={groups} (see kernels.odefunc.supported; widening "
-            "them is ROADMAP.md Queue 2 (h))")
+            f" with groups={groups} (see kernels.odefunc.supported; {WIDTHS})")
     dev = next(iter(states.values())).device
     if dev.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {dev}")

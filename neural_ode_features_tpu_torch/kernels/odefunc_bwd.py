@@ -21,11 +21,14 @@ cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): six 3×3-conv equivalents
 sample at 7×7×64, 2.77 GFLOP at B = 128: about 41 µs of FFMA, 5.6 µs of TF32
 products; the bytes are about 6.4 MB, 1.9 µs.  So it is bound by operations.
 The per-sample pass runs its four convs (two of the forward, two input
-gradients) on the conv stage of ``kernels.odefunc.stage``: at 7×7×64 and
-6×6×64 ``mma.sync`` TF32 with 3×TF32 error compensation, f32-grade; the
-input-gradient convs read ``w1``, ``w2`` themselves, taps reversed and
-transposed in the fragment loads.  The weight-gradient contraction is f32
-FFMA (ROADMAP.md, Queue 2).
+gradients) on the conv stage of ``kernels.odefunc.stage``: at C = 64, 128
+and 256 on 7×7 and 6×6 maps ``mma.sync`` TF32 with 3×TF32 error
+compensation, f32-grade; the input-gradient convs read ``w1``, ``w2``
+themselves, taps reversed and transposed in the fragment loads.  The conv1
+output u stays in shared memory where it fits; at 7×7×256 it goes to a
+global scratch beside r1 and r2 (:func:`u_global`).  The weight-gradient
+contraction is f32 FFMA in 64×64 tiles, 32×32 at C = 32 (ROADMAP.md,
+Queue 2).
 
 ``odefunc_bwd`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``odefunc_bwd_plain`` (``torch.autograd.grad`` of ``odefunc_plain``); a CUDA
@@ -45,6 +48,8 @@ import torch.nn.functional as F
 from . import _build
 from .odefunc import (
     MAX_SMEM,
+    MMA_C,
+    WIDTHS,
     OdefuncWeights,
     check_cuda_inputs,
     odefunc_plain,
@@ -58,26 +63,47 @@ from .odefunc import (
 )
 
 __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
-           "bwd_smem_bytes", "tap_contract"]
+           "bwd_smem_bytes", "u_global", "tap_contract"]
 
-# Mirror csrc/odefunc_bwd.cu (kParts, kSplit, kTile).
+# Mirror csrc/odefunc_bwd.cu (kParts, kSplit, weight_tile).
 _PARTS = 26
 _SPLIT = 8
-_TILE = 64
+
+
+def _weight_tile(c: int) -> int:
+    return 64 if c % 64 == 0 else 32
+
+
+def _small_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
+    return smem_bytes(hw, c, groups) + 4 * (6 * groups + 4 * c)
+
+
+def u_global(hw: tuple[int, int], c: int, groups: int) -> bool:
+    """Whether the per-sample pass keeps the conv1 output u (H·W·C floats)
+    in global scratch in place of shared memory (csrc/odefunc_bwd.cu
+    ``u_global``): on the wide tensor-core stage (C > 64) where u does not
+    fit beside the forward's working set, i.e. at 7×7×256."""
+    hh, ww = hw
+    return (stage(hw, c) == "mma3" and c > MMA_C
+            and _small_bytes(hw, c, groups) + 4 * hh * ww * c > MAX_SMEM)
 
 
 def bwd_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
     """Dynamic shared memory per CTA of the per-sample pass
-    (csrc/odefunc_bwd.cu ``bwd_smem_bytes``)."""
+    (csrc/odefunc_bwd.cu ``bwd_smem_bytes``): the forward's, 6·G
+    statistics, 4·C channel sums and, unless :func:`u_global`, u."""
     hh, ww = hw
-    return smem_bytes(hw, c, groups) + 4 * (hh * ww * c + 6 * groups + 4 * c)
+    u = 0 if u_global(hw, c, groups) else 4 * hh * ww * c
+    return _small_bytes(hw, c, groups) + u
 
 
 def bwd_supported(hw: tuple[int, int], c: int, groups: int) -> bool:
-    """The backward kernel's shape gate: the forward kernel's gate, C a
-    multiple of 64 (the weight-gradient tile) and the per-sample working set
-    within the 227 KB of shared memory.  7×7×64 and 6×6×64 pass."""
-    return (supported(hw, c, groups) and c % _TILE == 0
+    """The backward kernel's shape gate: the forward kernel's gate, C at
+    least 32 and a multiple of the weight-gradient tile (64, or 32 at
+    C = 32), and the per-sample working set within the 227 KB of shared
+    memory.  On 7×7 and 6×6 maps C = 32, 64, 128 and 256 pass."""
+    return (supported(hw, c, groups) and c >= 32
+            and c % _weight_tile(c) == 0
             and bwd_smem_bytes(hw, c, groups) <= MAX_SMEM)
 
 
@@ -135,7 +161,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("odefunc_bwd")
     fn = lib.odefunc_backward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -159,8 +185,7 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
         raise ValueError(
             f"the CUDA ODEfunc backward kernel does not take H×W×C = "
             f"{hh}×{ww}×{c} with groups={groups} (see "
-            "kernels.odefunc_bwd.bwd_supported; widening it is ROADMAP.md "
-            "Queue 2 (h))")
+            f"kernels.odefunc_bwd.bwd_supported; {WIDTHS})")
     check_cuda_inputs(w, {"h": h, "g": g}, (hh, ww), c, groups)
     dev = h.device
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
@@ -177,15 +202,17 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     f = torch.empty_like(h)
     dh = torch.empty_like(h)
     # One allocation for the small outputs (dk, dvec, dt) and one for the
-    # scratch (r1, r2, gu, gv, part, wpart): a step of the adjoint makes
-    # dozens of these calls, and the host launches them.  Every piece is a
-    # multiple of four floats long (C is), so each stays 16-byte aligned.
+    # scratch (r1, r2, gu, gv, part, wpart and, where it does not fit in
+    # shared memory, u): a step of the adjoint makes dozens of these calls,
+    # and the host launches them.  Every piece is a multiple of four floats
+    # long (C is), so each stays 16-byte aligned.
     nk = 9 * (c + 1) * c
     outs = torch.empty((2 * nk + 8 * c + b,), dtype=torch.float32, device=dev)
     dk = outs[:2 * nk].view(2, 3, 3, c + 1, c)
     dvec = outs[2 * nk:2 * nk + 8 * c].view(8, c)
     dt = outs[2 * nk + 8 * c:]
-    sizes = [b * n] * 4 + [b * _PARTS * c, _SPLIT * 2 * 9 * c * c]
+    sizes = [b * n] * 4 + [b * _PARTS * c, _SPLIT * 2 * 9 * c * c,
+                           b * n if u_global((hh, ww), c, groups) else 0]
     scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     offsets = [4 * sum(sizes[:i]) for i in range(len(sizes))]
     at = lambda base, nbytes: ctypes.c_void_p(base.data_ptr() + nbytes)

@@ -7,7 +7,7 @@ The port of ``probes/conv_probe.py``.  The three fused kernels
 (``odefunc.cu``, ``rk_step.cu``, ``odefunc_bwd.cu``) spend their time in one
 shared device function, the 3×3 conv; this probe times that conv alone:
 ``mma3``, the tensor-core stage (3×TF32) that the fused kernels run at
-7×7×64 and 6×6×64, ``mma1``, the same with the error compensation compiled
+C = 64, 128 and 256 on 7×7 and 6×6 maps, ``mma1``, the same with the error compensation compiled
 out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
 shapes) and ``im2col``, before a fused kernel is touched.  Inputs as in the
 JAX probe: x (B, 7, 7, 64) and w (3, 3, 64, 64) from numpy seed 0, scaled by
@@ -67,7 +67,7 @@ CHECK_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 576 products, reordered
 TF32_TOL = dict(rtol=2e-3, atol=2e-4)
 # A substring of each strategy's kernel name in a profile.
 KERNEL_NAMES = {"tap9": "tap9_kernel", "im2col": "im2col_kernel",
-                "mma3": "mma_kernel<3>", "mma1": "mma_kernel<1>"}
+                "mma3": "mma_kernel<3,", "mma1": "mma_kernel<1,"}
 
 
 def parse_args(argv=None):
@@ -127,23 +127,38 @@ def time_us(fn, device: torch.device, reps: int = 200,
 
 
 def device_us(fn, names, reps: int = 100) -> dict:
-    """Mean µs of device time per call of ``fn`` in the CUDA kernels whose
-    name contains each of ``names``, from ``torch.profiler`` over ``reps``
-    warm calls."""
+    """Mean µs of device time per launch of each CUDA kernel whose name
+    contains one of ``names`` (each is launched once per call of ``fn``),
+    from ``torch.profiler`` over ``reps`` warm calls.  The mean is over the
+    launches the profiler recorded: on the card it drops some launches, and
+    now and then all of a short window's (a 0.05 ms kernel called five
+    times read 0), so the window starts with a pause, the sum is divided
+    by the recorded count, not by ``reps``, and a window that recorded no
+    launch of a name is run again, up to three times, before this
+    raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA]
-    return {name: sum(ev.self_device_time_total for ev in kernels
-                      if name in ev.key) / reps for name in names}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+        hits = {name: [ev for ev in kernels if name in ev.key]
+                for name in names}
+        counts = {name: sum(ev.count for ev in evs)
+                  for name, evs in hits.items()}
+        if all(counts.values()):
+            return {name: sum(ev.self_device_time_total for ev in evs)
+                    / counts[name] for name, evs in hits.items()}
+    missing = [name for name, n in counts.items() if not n]
+    raise RuntimeError(f"no launch of {missing} in three profiles")
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float):

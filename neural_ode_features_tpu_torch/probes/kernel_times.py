@@ -1,0 +1,115 @@
+"""Device time of the three fused kernels at given shapes, in a form that
+measures another checkout of the port with the same method, for comparing
+two versions on one card (parent, change, change, parent).
+
+    python -m neural_ode_features_tpu_torch.probes.kernel_times \\
+        [--shapes 7x7x64,6x6x64,7x7x128] [--reps 100]
+    # the same measurement of the checkout at <dir>:
+    PYTHONPATH=<dir> python neural_ode_features_tpu_torch/probes/kernel_times.py
+
+The kernels are imported by their absolute names, so the second form times
+the package found on ``PYTHONPATH`` (built from its own ``csrc/``).  Per
+shape H×W×C (groups 32; the :func:`entry` model's ODEfunc at that width,
+seed 7): ``odefunc`` and ``rk_step`` (tol 1e-3) at B = 256, the backward at
+B = 128, each its device ms per launch under ``torch.profiler`` (the mean
+over the launches recorded in ``--reps`` calls; the backward, its three
+kernels summed).  Prints the card's name and power limit, then one JSON line
+per shape.  Needs a CUDA card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from neural_ode_features_tpu_torch.kernels.odefunc import odefunc, prepare
+from neural_ode_features_tpu_torch.kernels.odefunc_bwd import odefunc_bwd
+from neural_ode_features_tpu_torch.kernels.rk_step import dopri5_step
+from neural_ode_features_tpu_torch.models import ModelConfig, init_odenet
+from neural_ode_features_tpu_torch.solver import DOPRI5
+
+B, B_BWD, G = 256, 128, 32
+BWD_KERNELS = ("bwd_sample_kernel", "bwd_weight_kernel", "bwd_reduce_kernel")
+
+
+def device_ms(fn, names, reps: int) -> float:
+    """Device ms per call: for each of ``names`` the mean over the recorded
+    launches of the kernel so named (one per call), summed.  The window
+    starts with a pause: the profiler can miss the first milliseconds."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for name in names:
+        hits = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and name in ev.key]
+        count = sum(ev.count for ev in hits)
+        if not count:
+            raise RuntimeError(f"no launch of {name!r} in the profile")
+        total += sum(ev.self_device_time_total for ev in hits) / count / 1e3
+    return total
+
+
+def measure(hh: int, ww: int, c: int, reps: int) -> dict:
+    dev = torch.device("cuda")
+    cfg = ModelConfig(in_channels=3, hidden=c, groups=G)
+    w = prepare(init_odenet(7, cfg, device=dev)["odefunc"], (hh, ww))
+    rng = np.random.default_rng(1)
+
+    def arr(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    h = arr(rng.normal(size=(B, hh, ww, c)) * 0.3)
+    t0, dt = arr(rng.uniform(0, 0.5, B)), arr(rng.uniform(0.05, 0.2, B))
+    y0, f0 = h.reshape(B, -1), odefunc(w, t0, h, groups=G).reshape(B, -1)
+    g = arr(rng.normal(size=(B_BWD, hh, ww, c)))
+    hb, tb = h[:B_BWD].contiguous(), t0[:B_BWD].contiguous()
+    kw = dict(hw=(hh, ww), groups=G, rtol=1e-3, atol=1e-3)
+    return {
+        "shape": f"{hh}x{ww}x{c}",
+        "odefunc_ms": device_ms(lambda: odefunc(w, t0, h, groups=G),
+                                ("odefunc_kernel",), reps),
+        "rk_step_ms": device_ms(
+            lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0, **kw),
+            ("rk_step_kernel",), reps),
+        "odefunc_bwd_ms": device_ms(
+            lambda: odefunc_bwd(w, tb, hb, g, groups=G), BWD_KERNELS, reps),
+    }
+
+
+def main(argv=None) -> list[dict]:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--shapes", default="7x7x64,6x6x64",
+                   help="comma-separated HxWxC")
+    p.add_argument("--reps", type=int, default=100)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"=== kernel_times on {smi} ===")
+    rows = []
+    for shape in args.shapes.split(","):
+        hh, ww, c = (int(v) for v in shape.split("x"))
+        rows.append(measure(hh, ww, c, args.reps))
+        print(json.dumps(rows[-1]))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

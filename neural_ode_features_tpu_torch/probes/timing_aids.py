@@ -63,20 +63,24 @@ __all__ = ["VARIANTS", "RK_VARIANTS", "patched_sources", "main"]
 
 HEADER = "odefunc_common.cuh"
 
-_PRELOAD = ("  load_tap_mma(m.sw, tap_src(0), pitch);\n"
-            "  load_tap_mma(m.sw + stage, tap_src(1), pitch);\n")
-_WAIT = ("    if (tap < 8) cp_async_wait_but_one(); else cp_async_wait_all();\n"
-         "    __syncthreads();  // tap's weights visible; the buffer of tap - 1 is free\n")
-_TAP_LOOP = "  for (int tap = 0; tap < 9; ++tap) {\n" + _WAIT
-_RELOAD = ("    if (tap + 2 < 9) load_tap_mma(m.sw + ((tap + 2) % kRing) * stage,"
-           " tap_src(tap + 2), pitch);\n")
-_B_TAP = "    const uint32_t b_tap = b_thread + 4u * ((tap % kRing) * stage);\n"
+_PRELOAD = ("    load_tile_mma(m.sw, tile_src(0, nb), C, pitch);\n"
+            "    load_tile_mma(m.sw + stage, tile_src(1, nb), C, pitch);\n")
+_WAIT = ("      if (tile + 1 < ntile) cp_async_wait_but_one();"
+         " else cp_async_wait_all();\n"
+         "      __syncthreads();  // the tile's weights visible; the buffer of"
+         " tile - 1 is free\n")
+_TAP_LOOP = "    for (int tile = 0; tile < ntile; ++tile) {\n" + _WAIT
+_RELOAD = ("      if (tile + 2 < ntile)\n"
+           "        load_tile_mma(m.sw + ((tile + 2) % kRing) * stage,"
+           " tile_src(tile + 2, nb), C, pitch);\n")
+_B_TAP = ("      const uint32_t b_tap = b_thread + 4u * ((tile % kRing) *"
+          " stage);\n")
 _RNA = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
 _CVT = ('  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
         "  return r;\n")
 _TAIL = "  lo = __float_as_uint(x - __uint_as_float(hi));\n"
 _NO_RELOAD = [(_RELOAD, ""),
-              (_B_TAP, _B_TAP.replace("tap % kRing", "tap & 1"))]
+              (_B_TAP, _B_TAP.replace("tile % kRing", "tile & 1"))]
 
 # name -> substitutions on csrc/odefunc_common.cuh.
 VARIANTS = {
@@ -85,22 +89,23 @@ VARIANTS = {
             (_TAIL, "  lo = tf32_rna(x - __uint_as_float(hi));\n")],
     "cvt_head": [(_RNA, _CVT)],
     "chain": [
-        ("            if (ks == 0) mma_tf32_zero(acc[i][j], alo, bhi[j]);\n"
-         "            else mma_tf32(acc[i][j], alo, bhi[j]);\n"
-         "            mma_tf32(acc[i][j], ahi, blo[j]);\n"
-         "            mma_tf32(acc[i][j], ahi, bhi[j]);\n",
-         "            mma_tf32(run[i][j], alo, bhi[j]);\n"
-         "            mma_tf32(run[i][j], ahi, blo[j]);\n"
-         "            mma_tf32(run[i][j], ahi, bhi[j]);\n"),
-        ("        for (int r = 0; r < 4; ++r) run[i][j][r] += acc[i][j][r];\n",
-         "        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;\n"),
+        ("              if (ks == 0) mma_tf32_zero(acc[i][j], alo, bhi[j]);\n"
+         "              else mma_tf32(acc[i][j], alo, bhi[j]);\n"
+         "              mma_tf32(acc[i][j], ahi, blo[j]);\n"
+         "              mma_tf32(acc[i][j], ahi, bhi[j]);\n",
+         "              mma_tf32(run[i][j], alo, bhi[j]);\n"
+         "              mma_tf32(run[i][j], ahi, blo[j]);\n"
+         "              mma_tf32(run[i][j], ahi, bhi[j]);\n"),
+        ("          for (int r = 0; r < 4; ++r) run[i][j][r] += acc[i][j][r];\n",
+         "          for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;\n"),
     ],
     "no_reload": _NO_RELOAD,
     "no_barrier": _NO_RELOAD + [
-        (_WAIT, "    if (tap == 0) { cp_async_wait_all(); __syncthreads(); }\n")],
-    "no_products": [(_B_TAP, _B_TAP + "    if (tap >= 0) continue;\n")],
+        (_WAIT,
+         "      if (tile == 0) { cp_async_wait_all(); __syncthreads(); }\n")],
+    "no_products": [(_B_TAP, _B_TAP + "      if (tile >= 0) continue;\n")],
     "empty": [(_PRELOAD, ""),
-              (_TAP_LOOP, _TAP_LOOP.replace("tap < 9", "tap < 0"))],
+              (_TAP_LOOP, _TAP_LOOP.replace("tile < ntile", "tile < 0"))],
 }
 
 _GN_FIRST_PASS = ("  float acc = 0.f;\n"

@@ -1,8 +1,12 @@
-"""Train an ODE-Net or ResNet on the synthetic twins of MNIST / CIFAR-10
+"""Train an ODE-Net or ResNet on MNIST / CIFAR-10 or their synthetic twins
 (port of the JAX CLI ``train.py``).
 
     python -m neural_ode_features_tpu_torch.train --dataset synthetic-mnist \\
         --model odenet --tol 1e-3 --epochs 3 --batch-size 128 --runs-dir runs
+
+``--dataset mnist|cifar10`` reads the raw files under ``--data-dir``
+(default ``./data`` or ``$NODE_TPU_DATA``; layout: ``data/datasets.py``),
+which stays outside the run identity.
 
 Every flag of the JAX CLI is accepted under its name with its default, and
 the run identity is the same: the same command line gives the same run

@@ -1,6 +1,7 @@
 """Checkpoints and weights across the two packages: the port's ``.pt``
-checkpoint files, JAX param dicts → port params, and the torch-convention
-state dict in both naming styles.
+checkpoint files, the JAX package's ``.msgpack`` checkpoints and the torch
+pickle of its converter, JAX param dicts → port params, and the
+torch-convention state dict in both naming styles.
 
 The port's native checkpoint is ``<path>`` (``ckpt_*.pt``), a ``torch.save``
 of the ``'internal'``-style state dict (a flat ``dict[str, Tensor]``: OIHW
@@ -31,9 +32,16 @@ array against the JAX converter.  Styles:
   head.fc              fc_layers.4
   blocks.K.*           feature_layers.K.*            (ResNet)
 
-Reading a JAX ``.msgpack`` checkpoint is not ported (ROADMAP.md, Queue 1
-item 5): convert it with the JAX package's ``to_torch_state_dict`` and
-``torch.save`` the result.
+:func:`load_checkpoint` also reads what the JAX package writes:
+
+* ``<path>.msgpack`` beside ``<path>.msgpack.json`` (``config``,
+  ``extra.model``: ``odenet`` or ``resnet``), flax's ``to_bytes`` of the
+  param tree, decoded by :mod:`.flax_msgpack` (no flax, no ``msgpack``);
+* the pickle of ``tools/convert_checkpoint.py to-torch``,
+  ``{"state_dict", "config", "extra"}``, its state dict in either naming
+  style.
+
+Writing ``.msgpack`` is not ported: the port writes ``.pt``.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.common import ModelConfig
+from .flax_msgpack import unpackb
 
 __all__ = ["save_checkpoint", "load_checkpoint", "resolve_checkpoint",
            "from_jax_params", "to_torch_state_dict", "from_torch_state_dict"]
@@ -57,25 +66,21 @@ def _sidecar(path: Path) -> Path:
     return path.with_suffix(path.suffix + ".json")
 
 
-def _refuse_msgpack(path: Path) -> None:
-    if path.suffix == ".msgpack":
-        raise NotImplementedError(
-            f"{path}: reading or writing a JAX .msgpack checkpoint is not "
-            "ported (ROADMAP.md, Queue 1 item 5); the port's checkpoints "
-            "are .pt files")
-
-
 def resolve_checkpoint(path: str | Path, name: str = "ckpt_best.pt") -> Path:
     """Resolve a CLI ``--run`` argument to a checkpoint file: a checkpoint
-    file is returned as it is; inside a run directory prefer ``name`` and
-    fall back to ``ckpt_last.pt`` when it is missing (a run interrupted
-    before its first eval never wrote a "best")."""
+    file is returned as it is.  Inside a run directory: the port's ``name``,
+    else ``ckpt_last.pt`` (a run interrupted before its first eval never
+    wrote a "best"); in a JAX run directory, which has neither,
+    ``ckpt_best.msgpack``, else ``ckpt_last.msgpack`` (the JAX package's
+    own policy).  With none of them, the ``ckpt_last.pt`` that is
+    missing."""
     p = Path(path)
     if p.is_dir():
-        ckpt = p / name
-        if not ckpt.exists():
-            ckpt = p / "ckpt_last.pt"
-        return ckpt
+        for cand in (name, "ckpt_last.pt", "ckpt_best.msgpack",
+                     "ckpt_last.msgpack"):
+            if (p / cand).exists():
+                return p / cand
+        return p / "ckpt_last.pt"
     return p
 
 
@@ -84,7 +89,10 @@ def save_checkpoint(path: str | Path, params: Any, cfg: ModelConfig,
     """Write ``<path>`` (the 'internal' state dict of ``params``) and
     ``<path>.json`` (config + extra)."""
     path = Path(path)
-    _refuse_msgpack(path)
+    if path.suffix == ".msgpack":
+        raise NotImplementedError(
+            f"{path}: writing a JAX .msgpack checkpoint is not ported; the "
+            "port writes .pt checkpoints (and reads .msgpack)")
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(to_torch_state_dict(params), path)
     meta = {"config": dataclasses.asdict(cfg), "extra": extra or {}}
@@ -93,15 +101,24 @@ def save_checkpoint(path: str | Path, params: Any, cfg: ModelConfig,
 
 def load_checkpoint(path: str | Path, init_fn=None, *,
                     device="cuda") -> tuple[Any, ModelConfig, dict]:
-    """Read ``(params, cfg, extra)``, the params on ``device``.
+    """Read ``(params, cfg, extra)``, the params on ``device``, from the
+    port's ``.pt`` + ``.json``, a JAX ``.msgpack`` + ``.json`` or the JAX
+    converter's ``to-torch`` pickle (config and extra inside it).
     ``init_fn(seed, cfg, device=...) -> template`` defaults to the
-    initialiser of the persisted ``extra['model']`` family.  The sidecar's
-    ``config`` may be the JAX package's: the two dataclasses share every
-    field, and the port does not read the TPU opt-ins."""
+    initialiser of the persisted ``extra['model']`` family.  The ``config``
+    may be the JAX package's: the two dataclasses share every field, and
+    the port does not read the TPU opt-ins."""
     dev = resolve_device(device)
     path = Path(path)
-    _refuse_msgpack(path)
-    meta = json.loads(_sidecar(path).read_text())
+    if path.suffix == ".msgpack":
+        state = unpackb(path.read_bytes())
+        meta = json.loads(_sidecar(path).read_text())
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if "state_dict" in state:  # tools/convert_checkpoint.py to-torch
+            meta, state = state, state["state_dict"]
+        else:
+            meta = json.loads(_sidecar(path).read_text())
     cfg = ModelConfig(**meta["config"])
     extra = meta.get("extra", {})
     if init_fn is None:
@@ -110,8 +127,37 @@ def load_checkpoint(path: str | Path, init_fn=None, *,
         init_fn = (init_resnet if extra.get("model", "odenet") == "resnet"
                    else init_odenet)
     template = init_fn(0, cfg, device=dev)
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    return from_torch_state_dict(template, state), cfg, extra
+    if path.suffix == ".msgpack":
+        params = from_jax_params(_from_state_dict(template, state),
+                                 device=dev)
+    else:
+        params = from_torch_state_dict(template, state)
+    return params, cfg, extra
+
+
+def _from_state_dict(template: Any, state: Any, name: str = "") -> Any:
+    """A flax state dict (nested dicts, a list's items under ``'0'``,
+    ``'1'``, …) as a tree of the template's structure, each array checked
+    against the template leaf's shape.  Keys must match exactly."""
+    if isinstance(template, (dict, list, tuple)):
+        keys = (list(template) if isinstance(template, dict)
+                else [str(i) for i in range(len(template))])
+        if not isinstance(state, dict) or set(state) != set(keys):
+            got = sorted(state) if isinstance(state, dict) else type(state)
+            raise ValueError(f"checkpoint tree at {name or '/'}: keys {got}, "
+                             f"expected {sorted(keys)}")
+        items = (template.items() if isinstance(template, dict)
+                 else zip(keys, template))
+        out = {k: _from_state_dict(v, state[k], f"{name}/{k}")
+               for k, v in items}
+        return out if isinstance(template, dict) else type(template)(
+            out[k] for k in keys)
+    if not isinstance(state, np.ndarray) or state.shape != tuple(
+            template.shape):
+        got = state.shape if isinstance(state, np.ndarray) else type(state)
+        raise ValueError(f"checkpoint leaf {name}: {got}, expected an array "
+                         f"of shape {tuple(template.shape)}")
+    return state
 
 
 def from_jax_params(params: Any, *, device="cuda") -> Any:

@@ -165,7 +165,17 @@ def test_resolve_checkpoint_and_msgpack_refusal(tmp_path):
     assert resolve_checkpoint(tmp_path / "x.pt") == tmp_path / "x.pt"
     # extra defaults to {} and the family to the ODE-Net
     assert load_checkpoint(tmp_path / "ckpt_best.pt", device="cpu")[2] == {}
-    for fn in (lambda p: load_checkpoint(p, device="cpu"),
-               lambda p: save_checkpoint(p, params, cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(tmp_path / "ckpt_best.msgpack")
+    # The port reads .msgpack (tests/test_torch_foreign.py) but writes .pt.
+    with pytest.raises(NotImplementedError, match="writing a JAX .msgpack"):
+        save_checkpoint(tmp_path / "ckpt_best.msgpack", params, cfg)
+    with pytest.raises(FileNotFoundError):
+        load_checkpoint(tmp_path / "ckpt_best.msgpack", device="cpu")
+    # A JAX run directory: best, else last; the port's .pt first.
+    jax_dir = tmp_path / "jax"
+    jax_dir.mkdir()
+    (jax_dir / "ckpt_last.msgpack").write_bytes(b"")
+    assert resolve_checkpoint(jax_dir) == jax_dir / "ckpt_last.msgpack"
+    (jax_dir / "ckpt_best.msgpack").write_bytes(b"")
+    assert resolve_checkpoint(jax_dir) == jax_dir / "ckpt_best.msgpack"
+    (jax_dir / "ckpt_last.pt").write_bytes(b"")
+    assert resolve_checkpoint(jax_dir) == jax_dir / "ckpt_last.pt"

@@ -236,8 +236,8 @@ def test_conv_kernel_refusals(dev):
         conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="float32 on"):
         conv3x3(x, w.cpu())
-    # The tensor-core stage takes C = 64 and H·(W+2) <= 64 only; the FFMA
-    # kernels take these shapes.
+    # The tensor-core stage takes C = 64, 128 or 256 and H·(W+2) <= 64
+    # only; the FFMA kernels take these shapes.
     for strategy in ("mma3", "mma1"):
         with pytest.raises(ValueError, match="does not take"):
             conv3x3(torch.zeros((2, 8, 8, 64), device=dev), w, strategy)
@@ -423,10 +423,73 @@ def test_adams_inference_runs_the_odefunc_kernel(dev):
         rtol=1e-3, atol=1e-3)
 
 
-def test_hidden_128_is_refused_on_the_card(dev):
-    """7×7×128 is outside the kernels' gate: a train step on the card
-    raises before any launch, naming the ROADMAP item that would widen the
-    kernels, and does not run the plain versions in their place."""
+def _width_inputs(dev, c, side, batch, seed=11):
+    cfg = dataclasses.replace(ENTRY_CONFIG, hidden=c)
+    w = prepare(init_odenet(seed, cfg, device=dev)["odefunc"], (side, side))
+    rng = np.random.default_rng(seed)
+    arr = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h = arr(rng.normal(size=(batch, side, side, c)) * 0.3)
+    return (w, h, arr(rng.uniform(0.0, 0.5, batch)),
+            arr(rng.uniform(0.05, 0.2, batch)), arr(rng.normal(size=h.shape)))
+
+
+@pytest.mark.parametrize("c", [32, 128, 256])
+@pytest.mark.parametrize("side", [7, 6])
+def test_fused_kernels_at_other_widths(dev, c, side):
+    """The three fused kernels at hidden 32 (FFMA stage; the backward's
+    32-wide weight tile), 128 and 256 (tensor-core stage, 64-channel
+    blocks; at 7×7×256 the backward keeps u in global scratch) against
+    their plain versions, the backward in float64 and bit-identical from
+    call to call."""
+    batch = 9
+    w, h, t, dt, g = _width_inputs(dev, c, side, batch)
+    assert stage((side, side), c) == ("ffma" if c == 32 else "mma3")
+    f = odefunc(w, t, h, groups=32)
+    np.testing.assert_allclose(f.cpu().numpy(),
+                               odefunc_plain(w, t, h, 32).cpu().numpy(),
+                               **STATE_TOL)
+    y0, f0 = h.reshape(batch, -1), odefunc_plain(w, t, h, 32).reshape(batch, -1)
+    kw = dict(hw=(side, side), groups=32, rtol=TOL, atol=TOL)
+    got = dopri5_step(w, DOPRI5, t, dt, y0, f0, **kw)
+    want = dopri5_step_plain(w, DOPRI5, t, dt, y0, f0, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   **STATE_TOL)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               **RATIO_TOL)
+    dp, dtk, dh, f_b = odefunc_bwd(w, t, h, g, groups=32, with_f=True)
+    assert torch.equal(f_b, f)
+    w64 = type(w)(*(x.double() for x in w))
+    dp_p, dt_p, dh_p = odefunc_bwd_plain(w64, t.double(), h.double(),
+                                         g.double(), 32)
+    np.testing.assert_allclose(dh.cpu().numpy(), dh_p.cpu().numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(dtk.cpu().numpy(), dt_p.cpu().numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(_flat(dp).cpu().numpy(),
+                               _flat(dp_p).cpu().numpy(), **DP_TOL)
+    assert torch.equal(_flat(odefunc_bwd(w, t, h, g, groups=32)[0]), _flat(dp))
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_conv_probe_tensor_cores_at_other_widths(dev, c):
+    """``mma3`` and ``mma1`` at 7×7×128 and 7×7×256 against the conv in
+    float64: ``mma3`` f32-grade, ``mma1`` plain TF32, whose error grows as
+    the root of the 9·C products it sums (TF32_TOL is for 576)."""
+    x, w = probe_inputs(16, dev, (7, 7), c)
+    want = conv3x3_plain(x.double(), w.double())
+    grow = (c / 64) ** 0.5
+    tf32 = {k: v * grow for k, v in TF32_TOL.items()}
+    for strategy, tol in (("mma3", CONV_TOL), ("mma1", tf32)):
+        got = conv3x3(x, w, strategy)
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   want.cpu().numpy(), **tol)
+
+
+def test_hidden_128_trains_on_the_card(dev):
+    """``train --hidden 128``'s step on the card runs the kernels: the
+    ODEfunc kernel 2 + 6·attempts + 1 times, the backward kernel
+    NFE-b − 1 times, the fused step never; loss and gradients finite."""
     from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
 
     trainer = Trainer(TrainConfig(dataset="synthetic-cifar10", hidden=128,
@@ -434,7 +497,26 @@ def test_hidden_128_is_refused_on_the_card(dev):
                       device="cuda")
     _, (images, labels) = train_entry(device="cuda", batch=8)
     odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
-    with pytest.raises(ValueError, match=r"do not take .*Queue 2 \(h\)"):
+    m = trainer.train_batch(images, labels)
+    attempts = int(((trainer.last_stats.nfe - 2) // 6).max())
+    assert (odefunc.launches, odefunc_bwd.launches, dopri5_step.launches) == (
+        2 + 6 * attempts + 1, m["nfe_b"] - 1, 0)
+    assert np.isfinite(m["loss"])
+    assert all(bool(torch.isfinite(p.grad).all()) for p in trainer._leaves)
+
+
+def test_hidden_512_is_refused_on_the_card(dev):
+    """7×7×512 is outside the kernels' gate: a train step on the card
+    raises before any launch, naming ROADMAP Queue 3 item 1, and does not
+    run the plain versions in their place."""
+    from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(dataset="synthetic-cifar10", hidden=512,
+                                  batch_size=8), steps_per_epoch=1,
+                      device="cuda")
+    _, (images, labels) = train_entry(device="cuda", batch=8)
+    odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+    with pytest.raises(ValueError, match=r"do not take .*Queue 3 item 1"):
         trainer.train_batch(images, labels)
     assert (odefunc.launches, odefunc_bwd.launches,
             dopri5_step.launches) == (0, 0, 0)

@@ -78,9 +78,15 @@ def test_synthetic_bytes_match_jax(name, split):
         np.testing.assert_array_equal(g, w)
 
 
-def test_raw_loaders_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset("cifar10", "train")
+def test_raw_loaders_refused(tmp_path):
+    """Without the raw files the loaders raise as the JAX loader does, with
+    the same message; the files themselves: tests/test_torch_foreign.py."""
+    for name in ("cifar10", "mnist"):
+        with pytest.raises(FileNotFoundError) as mine:
+            load_dataset(name, "train", str(tmp_path))
+        with pytest.raises(FileNotFoundError) as ref:
+            jax_load_dataset(name, "train", str(tmp_path))
+        assert str(mine.value) == str(ref.value)
     with pytest.raises(ValueError, match="unknown dataset"):
         load_dataset("imagenet", "train")
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import neural_ode_features_tpu_torch as port
-from neural_ode_features_tpu_torch import evaluate, extract
+from neural_ode_features_tpu_torch import eval_ckpt, evaluate, extract
 from neural_ode_features_tpu_torch.entry import (
     entry,
     extract_entry,
@@ -50,12 +50,14 @@ def test_imports_with_jax_blocked():
                  "train", "sweep", "utils.expman", "solver.fixed_grid",
                  "extract", "evaluate", "features_io", "solver.dense",
                  "models.resnet", "models.api", "evaluation.probes",
-                 "kernels.conv3x3", "probes.conv_probe", "utils.checkpoint"):
+                 "kernels.conv3x3", "probes.conv_probe", "utils.checkpoint",
+                 "eval_ckpt", "utils.flax_msgpack"):
         assert f"{port.__name__}.{name}" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['neural_ode_features_tpu'] = None\n"
+        "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
@@ -68,7 +70,8 @@ def test_imports_with_jax_blocked():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|neural_ode_features_tpu)\b(?!_torch)"
+    r"^\s*(import|from)\s+(jax|flax|msgpack|neural_ode_features_tpu)\b"
+    r"(?!_torch)"
     r"|neural_ode_features_tpu\.(?!_torch)|import_module\(['\"]jax",
     re.MULTILINE)
 
@@ -129,6 +132,7 @@ def test_new_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
         lambda: extract.main(["--run", str(tmp_path), "--limit", "2"]),
         lambda: evaluate.main(["--features", str(tmp_path / "f.npz")]),
         lambda: conv_probe.main(["--batch", "1"]),
+        lambda: eval_ckpt.main(["--run", str(tmp_path), "--limit", "2"]),
     ]
     out = extract.main(["--run", str(tmp_path), "--limit", "2", "--cpu",
                         "--timestamps", "2", "--output",

@@ -41,6 +41,7 @@ from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
     bwd_smem_bytes,
     bwd_supported,
     odefunc_bwd_plain,
+    u_global,
 )
 from neural_ode_features_tpu_torch.kernels.rk_step import (
     CONV_STRATEGIES,
@@ -164,7 +165,10 @@ def test_gate():
     assert supported((7, 7), 64, 32)  # CIFAR-10
     assert supported((6, 6), 64, 32)  # MNIST
     assert supported((7, 7), 32, 32)
-    assert not supported((7, 7), 128, 32)  # 13 conv pixels per thread
+    for c in (128, 256):  # the tensor-core stage, 64-channel blocks
+        assert supported((7, 7), c, 32) and supported((6, 6), c, 32)
+    assert not supported((7, 7), 512, 32)  # shared memory
+    assert not supported((7, 7), 96, 32)  # C must divide the 512 threads
     assert not supported((7, 7), 48, 32)  # C % groups
     assert not supported((28, 28), 64, 32)  # shared memory
 
@@ -178,7 +182,11 @@ def test_stage_is_decided_by_the_shape():
     assert stage((1, 62), 64) == "mma3"     # exactly 64
     assert stage((1, 63), 64) == "ffma"     # 65
     assert stage((8, 8), 64) == "ffma"      # 80
-    assert stage((7, 7), 32) == "ffma" and stage((5, 5), 128) == "ffma"
+    assert stage((7, 7), 32) == "ffma" and stage((8, 8), 128) == "ffma"
+    for c in (128, 256):
+        assert stage((7, 7), c) == stage((6, 6), c) == stage((5, 5), c) == "mma3"
+    for c in (96, 192, 512):  # not a power of two; over the 256 blocks
+        assert stage((7, 7), c) == "ffma"
 
 
 def test_smem_mirrors_by_hand():
@@ -204,6 +212,34 @@ def test_smem_mirrors_by_hand():
                    bwd_smem_bytes((7, 7), 64, 32)):
         assert 2 * (nbytes + 1024) <= 228 * 1024
     assert supported((7, 7), 64, 32, "ffma") and supported((1, 62), 64, 32)
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 512, 96])
+def test_gate_mirrors_at_every_width(c):
+    """``stage``, ``smem_bytes``, ``supported`` and ``bwd_supported`` on the
+    7×7 and 6×6 maps: C = 32 on the FFMA stage, 64, 128 and 256 on the
+    tensor cores (a (C + 8)-float conv-input pitch, the same ring); 512
+    (over the shared memory) and 96 (not a power of two) refused.  The
+    backward keeps u in global scratch at 7×7×256 only."""
+    ok = c in (32, 64, 128, 256)
+    for hw in ((7, 7), (6, 6)):
+        hh, ww = hw
+        assert stage(hw, c) == ("mma3" if c in (64, 128, 256) else "ffma")
+        assert supported(hw, c, 32) == bwd_supported(hw, c, 32) == ok
+        if stage(hw, c) == "mma3":
+            rows = 64 + 2 * (ww + 2) + 2
+            assert smem_bytes(hw, c, 32) == 4 * (
+                hh * ww * c + rows * (c + 8) + 3 * 64 * 72 + 1024 + 64)
+        assert bwd_smem_bytes(hw, c, 32) == smem_bytes(hw, c, 32) + 4 * (
+            (0 if u_global(hw, c, 32) else hh * ww * c) + 192 + 4 * c)
+        assert u_global(hw, c, 32) == (hw == (7, 7) and c == 256)
+    # By hand at 7×7×256: state 12,544 floats, conv input 84 × 264, ring
+    # 13,824, partial sums 1,024, statistics 64: 198,528 bytes; with u the
+    # backward would need 253,568, over the 231,424 a CTA may use.
+    if c == 256:
+        assert smem_bytes((7, 7), 256, 32) == 198528
+        assert bwd_smem_bytes((7, 7), 256, 32) == 198528 + 4 * (192 + 1024)
+        assert 198528 + 4 * (12544 + 192 + 1024) == 253568 > MAX_SMEM
 
 
 def _gate_before_the_tensor_core_stage(hw, c, groups):

@@ -16,6 +16,7 @@ import torch
 
 from neural_ode_features_tpu.models import ModelConfig as JaxConfig
 from neural_ode_features_tpu.models import init_odenet as jax_init_odenet
+from neural_ode_features_tpu.models import odefunc_apply as jax_odefunc
 from neural_ode_features_tpu.models import odenet_logits as jax_logits
 from neural_ode_features_tpu.models.odenet import (
     fused_rk_eligible as jax_fused_eligible,
@@ -27,6 +28,7 @@ from neural_ode_features_tpu_torch.models import (
     ModelConfig,
     fused_rk_eligible,
     init_odenet,
+    odefunc_apply,
     odenet_logits,
 )
 from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
@@ -60,6 +62,32 @@ def test_slice_matches_jax(slice_inputs, jax_kernels):
     assert bool(stats.success.all())
     np.testing.assert_allclose(logits, np.asarray(logits_j), rtol=1e-3,
                                atol=1e-3)
+
+
+def test_hidden_128_matches_jax():
+    """The widest common width the kernels newly take, on the CPU plain
+    path: hidden 128, 7×7, B = 2.  f(t, h) within 1e-5 of the JAX
+    package's; one dopri5 solve's per-sample NFE equal and logits within
+    rtol = atol = 1e-3."""
+    cfg_j = JaxConfig(in_channels=3, hidden=128, tol=1e-3,
+                      error_control="per_sample")
+    params_j = jax_init_odenet(jax.random.PRNGKey(8), cfg_j)
+    params = from_jax_params(params_j, device="cpu")
+    cfg = ModelConfig(in_channels=3, hidden=128)
+    rng = np.random.default_rng(2)
+    h = (rng.normal(size=(2, 7, 7, 128)) * 0.5).astype(np.float32)
+    t = np.float32(0.3)
+    want = np.asarray(jax_odefunc(params_j["odefunc"], jnp.float32(t),
+                                  jnp.asarray(h), cfg_j))
+    got = odefunc_apply(params["odefunc"], torch.tensor(t),
+                        torch.from_numpy(h), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    logits_j, stats_j = jax_logits(params_j, jnp.asarray(x), cfg_j)
+    logits, stats = odenet_logits(params, torch.from_numpy(x), cfg)
+    np.testing.assert_array_equal(stats.nfe.numpy(), np.asarray(stats_j.nfe))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j),
+                               rtol=1e-3, atol=1e-3)
 
 
 def test_entry_on_cpu():
@@ -101,24 +129,23 @@ def test_fused_eligibility_and_refusals():
                     device="cpu")
 
 
-@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 512, 96])
 def test_widths_outside_the_kernels_gate_are_refused(c):
     """Off the CPU a wrapper launches its kernel or raises; a shape outside
     the kernels' gate raises before anything is launched, naming the gate
-    and the ROADMAP item that would widen it (Queue 2 (h)).  7×7×64 passes
-    both gates, 7×7×32 only the forward's (the backward kernel needs C a
-    multiple of 64), 7×7×128 (13 conv pixels per thread) and 7×7×256 (the
-    shared memory) neither.  Meta tensors stand in for the card's: they get
-    past the CPU branch and fail the device check, so only the shape gate
-    can refuse first."""
+    and the ROADMAP item that would widen it (Queue 3 item 1).  Hidden 32,
+    64, 128 and 256 pass both gates on 7×7 maps; 512 (over one CTA's shared
+    memory) and 96 (not a power of two) neither.  Meta tensors stand in for
+    the card's: they get past the CPU branch and fail the device check, so
+    only the shape gate can refuse first."""
     cfg = ModelConfig(in_channels=3, hidden=c)
     p = init_odenet(0, cfg, device="cpu")["odefunc"]
     p = torch.utils._pytree.tree_map(lambda t: t.to("meta"), p)
     h = torch.zeros(2, 7, 7, c, device="meta")
-    fwd_ok, bwd_ok = c in (32, 64), c == 64
-    with pytest.raises(ValueError, match="expected CUDA" if fwd_ok
-                       else r"kernels do not take .*Queue 2 \(h\)"):
+    ok = c in (32, 64, 128, 256)
+    with pytest.raises(ValueError, match="expected CUDA" if ok
+                       else r"kernels do not take .*Queue 3 item 1"):
         odefunc(p, 0.5, h)
-    with pytest.raises(ValueError, match="expected CUDA" if bwd_ok
-                       else r"backward kernel does not take .*Queue 2 \(h\)"):
+    with pytest.raises(ValueError, match="expected CUDA" if ok
+                       else r"backward kernel does not take .*Queue 3 item 1"):
         odefunc_bwd(p, 0.5, h, h)

@@ -144,5 +144,8 @@ def test_tap_contract_is_the_adjoint_of_time_map():
 def test_backward_gate():
     assert bwd_supported((7, 7), 64, 32)  # CIFAR-10
     assert bwd_supported((6, 6), 64, 32)  # MNIST
-    assert not bwd_supported((7, 7), 32, 32)  # the 64-wide weight tile
+    for c in (32, 128, 256):  # 32: the 32-wide weight tile
+        assert bwd_supported((7, 7), c, 32) and bwd_supported((6, 6), c, 32)
+    assert not bwd_supported((7, 7), 16, 16)  # below the weight tile
+    assert not bwd_supported((7, 7), 512, 32)
     assert not bwd_supported((28, 28), 64, 32)  # shared memory
