@@ -100,20 +100,33 @@ Phases (any failed check exits nonzero and prints no result):
    the loop's solve (equal NFE, logits at 1e-5) and against the plain path
    (logits at 1e-3); one tolerance on the CPU plain path against the card;
    the random-init modes (32×32×3 noise, and ``synthetic-mnist``).
+   ``[convert]``: the run directory's checkpoint through
+   ``convert_checkpoint to-torch`` and ``from-torch``: config, extra and
+   weights bit for bit, the same logits on the card.  ``[parity]``:
+   ``parity_eval`` (the kernels on the card against the plain path on the
+   CPU, 512 images) on the committed JAX run directory and on the train
+   CLI's, exit 0.
    ``[width]``: the three fused kernels at hidden 32, 128 and 256 on the
-   7×7 and 6×6 maps against their plain versions (the backward in float64,
-   dθ bit-identical across two launches), an inference solve (B = 256) and
-   a train step (B = 128) through the entry points at each with the
-   launch rules of phases 3 and 5 and per-sample NFE against the plain
-   path; at 7×7×128 and 7×7×256 the adjoint gradients against the plain
-   path (B = 128, tol 1e-5) and the probe's ``mma3``/``mma1`` against the
-   f64 conv beside ``F.conv2d``; one epoch of ``train --hidden 128``;
-   7×7×512 refused before any launch.  ``[foreign]``: CIFAR-10 binary
+   7×7 and 6×6 maps, at 7×7×96, 7×7×192 (the tensor-core stage's padded
+   and whole blocks beyond the powers of two), 7×7×512 and 6×6×512 (the
+   state in global scratch) against their plain versions (the backward in
+   float64, dθ bit-identical across two launches), an inference solve
+   (B = 256) and a train step (B = 128) through the entry points at each
+   with the launch rules of phases 3 and 5 and per-sample NFE against the
+   plain path; at 7×7×128, 256 and 512 the adjoint gradients against the
+   plain path (B = 128, tol 1e-5) and at 7×7×128, 256, 96 and 512 the
+   probe's ``mma3``/``mma1`` against the f64 conv beside ``F.conv2d``
+   (``mma3`` within 1e-6 at 96 and 512); one epoch each of ``train
+   --hidden 128`` and ``--hidden 512``; C = 544 and C = 48 refused before
+   any launch, naming the JAX kernels' gate.  ``[foreign]``: CIFAR-10 binary
    batches and MNIST IDX files (labels gzipped) written from the synthetic
    twins read back through ``load_dataset``; the JAX run directory
    committed under ``tests/fixtures_torch/`` loaded on the card; ``python -m
    neural_ode_features_tpu_torch.eval_ckpt`` on it must give the JAX tool's
-   top-1 (stored beside it) and mean NFE within 1%.
+   top-1 (stored beside it) and mean NFE within 1%.  ``[population]``:
+   ``train --seeds 5,6`` for one epoch at the train CLI's size: two run
+   directories, member 0's name, weights, training state and ``log.csv``
+   rows (but ``time_s``) bit-identical to the solo ``--seed 5`` run's.
 8. Time each kernel, its plain version and the library yardstick (one f
    through cuDNN: ``F.group_norm``/``F.conv2d`` on NCHW with the t channel
    concatenated; for the backward, ``torch.autograd.grad`` through it; for
@@ -142,6 +155,8 @@ import contextlib
 import csv
 import dataclasses
 import gzip
+import io
+import itertools
 import json
 import statistics
 import subprocess
@@ -166,7 +181,15 @@ SWEEP_TOLS = (1e-1, 1e-2, 1e-3, 1e-4)    # sweep's default --tols
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
 PEAK_TF32_FLOPS = 495e12                 # H100 SXM, TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
-WIDTHS = (32, 128, 256)                  # [width]: the hidden sizes beside 64
+# [width]: the shapes beside 7×7×64 and 6×6×64 (H, W, C), the adjoint's
+# and the probe's widths at 7×7.  Every width the JAX kernels take runs on
+# the card; these are the powers of two, a padded and a whole-block width
+# beyond them, and the widest.
+WIDTH_SHAPES = ((7, 7, 32), (6, 6, 32), (7, 7, 128), (6, 6, 128), (7, 7, 256),
+                (6, 6, 256), (7, 7, 96), (7, 7, 192), (7, 7, 512), (6, 6, 512))
+ADJOINT_WIDTHS = (128, 256, 512)
+PROBE_WIDTHS = (128, 256, 96, 512)
+F64_CONV_BAR = 1e-6                      # mma3 vs the f64 conv at 96 and 512
 FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures_torch" / (
     "jax_run_mnist")                     # [foreign]: a JAX run directory
 FIXTURE_EVAL = FIXTURE.with_name("jax_run_mnist.eval.json")
@@ -345,8 +368,12 @@ def main() -> int:
     import torch.nn.functional as F
     from torch.utils import _pytree as pytree
 
+    from neural_ode_features_tpu_torch import (
+        convert_checkpoint as convert_cli,
+    )
     from neural_ode_features_tpu_torch import evaluate as evaluate_cli
     from neural_ode_features_tpu_torch import extract as extract_cli
+    from neural_ode_features_tpu_torch import parity_eval as parity_cli
     from neural_ode_features_tpu_torch import sweep as sweep_cli
     from neural_ode_features_tpu_torch import train as train_cli
     from neural_ode_features_tpu_torch import training as training_mod
@@ -1641,196 +1668,340 @@ def main() -> int:
                         "speed": speed_rows, "speed_fused": speed_fused,
                         "mnist_fused": mnist_rows}
 
+        # [convert]: the run directory's checkpoint through `to-torch` (the
+        # JAX converter's pickle) and back through `from-torch`: the same
+        # config, extra and weights bit for bit, and the same logits on the
+        # card.
+        t_ph = time.perf_counter()
+        src = resolve_checkpoint(run)
+        pickle_ = Path(runs) / "converted.pt"
+        back = Path(runs) / "back" / "ckpt_best.pt"
+        with contextlib.redirect_stdout(sys.stderr):
+            convert_cli.main(["to-torch", str(src), str(pickle_)])
+            convert_cli.main(["from-torch", str(pickle_), str(back)])
+        pa, ca, ea = load_checkpoint(src)
+        pb, cb, eb = load_checkpoint(back)
+        same_w = all(torch.equal(a_, b_) for a_, b_ in zip(leaves(pa),
+                                                           leaves(pb)))
+        ccfg_ = dataclasses.replace(ca, adjoint=False)
+        with torch.no_grad():
+            same_l = torch.equal(odenet_logits(pa, sx, ccfg_)[0],
+                                 odenet_logits(pb, sx, ccfg_)[0])
+        n_sd = len(torch.load(pickle_, weights_only=True)["state_dict"])
+        print(f"[convert] {src.name} -> to-torch ({n_sd} tensors) -> "
+              f"from-torch: config equal {ca == cb}, extra equal {ea == eb}, "
+              f"weights bit-identical {same_w}, logits on the card "
+              f"bit-identical {same_l}")
+        if not (ca == cb and ea == eb and same_w and same_l):
+            fail("[convert] the round trip of the run directory changed it")
+        phase_done("convert", t_ph)
+
+        # [parity]: parity_eval on the committed JAX run directory and on the
+        # train CLI's run directory: the kernels on the card against the
+        # plain path on the CPU, exit 0 (|Δtop-1| <= 0.2%).
+        t_ph = time.perf_counter()
+        for tag, rdir in (("fixture", FIXTURE), ("run", run)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc_p, _, got = counted(lambda: parity_cli.main([
+                    "--run", str(rdir), "--limit", "512", "--batch-size",
+                    str(B)]))
+            res_p = json.loads(buf.getvalue().strip().splitlines()[-1])
+            cli_launches[f"parity_{tag}"] = got
+            print(f"[parity] {tag} ({rdir.name}): exit {rc_p}; {res_p}; "
+                  f"launches {got}")
+            if (rc_p != 0 or res_p["n"] != 512 or got["odefunc"] != 2 * 2
+                    or got["rk_step"] < 2 or got["odefunc_bwd"]):
+                fail(f"[parity] {tag}: exit {rc_p}, launches {got}")
+        phase_done("parity", t_ph)
+
     print(f"[CLIs] done at {time.perf_counter() - t_script:.1f} s")
 
-    # [width]: the fused kernels and the probe at hidden 32, 128 and 256 on
-    # the CIFAR-10 (7×7) and MNIST (6×6) maps.  Per shape: the three kernels
+    # [width]: the fused kernels and the probe at the WIDTH_SHAPES on the
+    # CIFAR-10 (7×7) and MNIST (6×6) maps.  Per shape: the three kernels
     # against their plain versions (the backward in float64, dθ
     # bit-identical across two launches), an inference solve at B = 256 and
     # one train step at B = 128 through the entry points, counters from 0
     # (the launch rules of [main] and [train]), per-sample NFE against the
-    # plain path; at 7×7×128 and 7×7×256 the adjoint gradients of that
-    # trainer's weights against the plain path (B = 128, tol 1e-5, global
-    # control), and mma3/mma1 against the f64 conv.  Then one epoch of
-    # `train --hidden 128`, and 7×7×512 refused before any launch.  Times
-    # with few repetitions: each case is one entry of the kernels line.
+    # plain path; at 7×7 and the ADJOINT_WIDTHS the adjoint gradients of
+    # that trainer's weights against the plain path (B = 128, tol 1e-5,
+    # global control), and mma3/mma1 against the f64 conv at the
+    # PROBE_WIDTHS.  Then one epoch of `train --hidden 128` and of
+    # `--hidden 512`, and C = 544 and C = 48 refused before any launch,
+    # naming the JAX kernels' gate.  Times with few repetitions: each case
+    # is one entry of the kernels line.
+    # The backward kernel's reference at a ReLU tie.  Where a GroupNorm
+    # output lies within TIE of 0 in float64, f32 arithmetic (the kernel's
+    # or cuDNN's) cannot resolve its side of the ReLU, and the VJP jumps
+    # there: at 6×6×512, B = 128, one sample's GN2 output at 2.9e-7 moves
+    # dh by 0.42 (the f32 plain version on the card is 0.088 off too).  So
+    # the float64 plain version is the reference at the activation pattern
+    # of the f64 forward, except that a sample the kernel misses may take
+    # the other side at up to 4 of its tie elements: the first subset of
+    # them (by size) under which the kernel's dh is within STATE_TOL is
+    # taken, and the whole batch's (dθ, dt, dh) is then held to that
+    # reference at the unchanged tolerances.  A miss anywhere else fails.
+    TIE = 1e-5
+
+    def masked_f(w_, t_, h_, masks):
+        """``odefunc_plain`` with each ReLU as a product by its 0/1 mask
+        (relu(y) is y·[y > 0]; no masks: the ReLUs); also returns the two
+        GN outputs."""
+        from neural_ode_features_tpu_torch.ops.layers import conv2d, group_norm
+
+        def act(y_, k_):
+            return torch.relu(y_) if masks is None else y_ * masks[k_]
+
+        tt = t_.reshape(-1, 1, 1, 1)
+        y1 = group_norm({"scale": w_.n1s, "bias": w_.n1b}, h_, groups=G)
+        out = conv2d({"kernel": w_.w1, "bias": w_.b1}, act(y1, 0),
+                     padding=1) + tt * w_.m1
+        y2 = group_norm({"scale": w_.n2s, "bias": w_.n2b}, out, groups=G)
+        out = conv2d({"kernel": w_.w2, "bias": w_.b2}, act(y2, 1),
+                     padding=1) + tt * w_.m2
+        return group_norm({"scale": w_.n3s, "bias": w_.n3b}, out,
+                          groups=G), (y1, y2)
+
+    def masked_bwd(w_, t_, h_, g_, masks):
+        """(dθ raw, dt (B,), dh) of :func:`masked_f`, as
+        ``odefunc_bwd_plain`` gives them for ``odefunc_plain``."""
+        from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+            _raw_grads,
+        )
+
+        with torch.enable_grad():
+            lv = [a_.detach().requires_grad_() for a_ in w_]
+            tl = t_.detach().clone().requires_grad_()
+            hl = h_.detach().requires_grad_()
+            out, _ = masked_f(type(w_)(*lv), tl, hl, masks)
+            grads = torch.autograd.grad(out, [*lv, tl, hl], g_)
+        return _raw_grads(type(w_)(*grads[:-2])), grads[-2], grads[-1]
+
+    def tie_aware_reference(tag, w64_, t64, h64, g64, dh_k):
+        ref = odefunc_bwd_plain(w64_, t64, h64, g64, G)
+        ok = torch.isclose(dh_k.double(), ref[2], **STATE_TOL).flatten(
+            1).all(1)
+        if bool(ok.all()):
+            return ref
+        with torch.no_grad():
+            _, ys = masked_f(w64_, t64, h64, None)
+        masks = [(y_ > 0).double() for y_ in ys]
+        for b_ in torch.nonzero(~ok).flatten().tolist():
+            ties = [(k_, tuple(i_)) for k_, y_ in enumerate(ys)
+                    for i_ in torch.nonzero(y_[b_].abs() < TIE).tolist()]
+            if not 1 <= len(ties) <= 4:
+                fail(f"odefunc_bwd dh {tag}: sample {b_} misses the f64 "
+                     f"plain version with {len(ties)} ReLU ties")
+            chosen = None
+            for k_ in range(1, len(ties) + 1):
+                for sub_ in itertools.combinations(ties, k_):
+                    m_b = [m_[b_:b_ + 1].clone() for m_ in masks]
+                    for gn_, idx in sub_:
+                        m_b[gn_][(0, *idx)] = 1.0 - m_b[gn_][(0, *idx)]
+                    dh_b = masked_bwd(w64_, t64[b_:b_ + 1], h64[b_:b_ + 1],
+                                      g64[b_:b_ + 1], m_b)[2]
+                    if bool(torch.isclose(dh_k[b_:b_ + 1].double(), dh_b,
+                                          **STATE_TOL).all()):
+                        chosen = sub_
+                        break
+                if chosen:
+                    break
+            if chosen is None:
+                fail(f"odefunc_bwd dh {tag}: sample {b_} misses the f64 "
+                     f"plain version at every side of its ReLU ties {ties}")
+            for gn_, idx in chosen:
+                masks[gn_][(b_, *idx)] = 1.0 - masks[gn_][(b_, *idx)]
+                print(f"[width] {tag}: sample {b_}, GN{gn_ + 1} output at "
+                      f"{idx} is {float(ys[gn_][(b_, *idx)]):.3e} in f64: a "
+                      "ReLU tie, the kernel on its other side")
+        return masked_bwd(w64_, t64, h64, g64, masks)
+
     def width_phase():
         t_ph = time.perf_counter()
         entries = []
         mnist_x = normalize(torch.from_numpy(load_dataset(
             "synthetic-mnist", "test", limit=B)[0]).to(dev), "synthetic-mnist")
         quick = dict(reps=3, blocks=3)
-        for c in WIDTHS:
-            for hw in ((HH, WW), (6, 6)):
-                cifar = hw == (HH, WW)
-                tag = f"{hw[0]}x{hw[1]}x{c}"
-                wcfg = dataclasses.replace(ENTRY_CONFIG, hidden=c,
-                                           in_channels=3 if cifar else 1)
-                wparams = init_odenet(7, wcfg, device=dev)
-                ww_ = prepare(wparams["odefunc"], hw)
-                rng_w = np.random.default_rng(c + hw[0])
+        for hw_h, hw_w, c in WIDTH_SHAPES:
+            t_shape = time.perf_counter()
+            hw = (hw_h, hw_w)
+            cifar = hw == (HH, WW)
+            tag = f"{hw[0]}x{hw[1]}x{c}"
+            wcfg = dataclasses.replace(ENTRY_CONFIG, hidden=c,
+                                       in_channels=3 if cifar else 1)
+            wparams = init_odenet(7, wcfg, device=dev)
+            ww_ = prepare(wparams["odefunc"], hw)
+            rng_w = np.random.default_rng(c + hw[0])
 
-                def arr(a):
-                    return torch.from_numpy(a.astype(np.float32)).to(dev)
+            def arr(a):
+                return torch.from_numpy(a.astype(np.float32)).to(dev)
 
-                hx = arr(rng_w.normal(size=(B, *hw, c)) * 0.3)
-                tx, t0x = arr(rng_w.uniform(0, 1, B)), arr(rng_w.uniform(
-                    0, 0.5, B))
-                dtx = arr(rng_w.uniform(0.05, 0.2, B))
-                gx = arr(rng_w.normal(size=(B_TRAIN, *hw, c)))
-                hbx, tbx = hx[:B_TRAIN].contiguous(), tx[:B_TRAIN].contiguous()
-                err_f = close(f"odefunc {tag}", odefunc(ww_, tx, hx, groups=G),
-                              odefunc_plain(ww_, tx, hx, G), **STATE_TOL)
-                yx = hx.reshape(B, -1)
-                f0x = odefunc_plain(ww_, t0x, hx, G).reshape(B, -1)
-                skw = dict(hw=hw, groups=G, rtol=TOL, atol=TOL)
-                got = dopri5_step(ww_, DOPRI5, t0x, dtx, yx, f0x, **skw)
-                want = dopri5_step_plain(ww_, DOPRI5, t0x, dtx, yx, f0x, **skw)
-                err_s = max(close(f"rk_step {n_} {tag}", g_, r_, **STATE_TOL)
-                            for n_, g_, r_ in zip(("y1", "f1", "y_mid"),
-                                                  got[:3], want[:3]))
-                close(f"rk_step ratio {tag}", got[3], want[3], **RATIO_TOL)
-                w64 = type(ww_)(*(a_.double() for a_ in ww_))
-                dp, dtk, dh, f_b = odefunc_bwd(ww_, tbx, hbx, gx, groups=G,
-                                               with_f=True)
-                if not torch.equal(f_b, odefunc(ww_, tbx, hbx, groups=G)):
-                    fail(f"odefunc_bwd f {tag}: differs from the ODEfunc "
-                         "kernel's")
-                dp_p, dt_p, dh_p = odefunc_bwd_plain(
-                    w64, tbx.double(), hbx.double(), gx.double(), G)
-                err_b = close(f"odefunc_bwd dh {tag}", dh.double(), dh_p,
-                              **STATE_TOL)
-                close(f"odefunc_bwd dt {tag}", dtk.double(), dt_p, **STATE_TOL)
-                err_dp = close(f"odefunc_bwd dθ {tag}", flat(dp).double(),
-                               flat(dp_p), **DP_TOL)
-                if not torch.equal(flat(dp), flat(odefunc_bwd(
-                        ww_, tbx, hbx, gx, groups=G)[0])):
-                    fail(f"odefunc_bwd dθ {tag}: two launches differ")
-                print(f"[width] {tag} ({stage(hw, c)}): odefunc max abs err "
-                      f"{err_f:.3e}, rk_step {err_s:.3e} (B={B}); odefunc_bwd "
-                      f"B={B_TRAIN} vs the f64 plain version: dh {err_b:.3e}, "
-                      f"dθ {err_dp:.3e}, dθ bit-identical across two launches")
+            hx = arr(rng_w.normal(size=(B, *hw, c)) * 0.3)
+            tx, t0x = arr(rng_w.uniform(0, 1, B)), arr(rng_w.uniform(
+                0, 0.5, B))
+            dtx = arr(rng_w.uniform(0.05, 0.2, B))
+            gx = arr(rng_w.normal(size=(B_TRAIN, *hw, c)))
+            hbx, tbx = hx[:B_TRAIN].contiguous(), tx[:B_TRAIN].contiguous()
+            err_f = close(f"odefunc {tag}", odefunc(ww_, tx, hx, groups=G),
+                          odefunc_plain(ww_, tx, hx, G), **STATE_TOL)
+            yx = hx.reshape(B, -1)
+            f0x = odefunc_plain(ww_, t0x, hx, G).reshape(B, -1)
+            skw = dict(hw=hw, groups=G, rtol=TOL, atol=TOL)
+            got = dopri5_step(ww_, DOPRI5, t0x, dtx, yx, f0x, **skw)
+            want = dopri5_step_plain(ww_, DOPRI5, t0x, dtx, yx, f0x, **skw)
+            err_s = max(close(f"rk_step {n_} {tag}", g_, r_, **STATE_TOL)
+                        for n_, g_, r_ in zip(("y1", "f1", "y_mid"),
+                                              got[:3], want[:3]))
+            close(f"rk_step ratio {tag}", got[3], want[3], **RATIO_TOL)
+            w64 = type(ww_)(*(a_.double() for a_ in ww_))
+            dp, dtk, dh, f_b = odefunc_bwd(ww_, tbx, hbx, gx, groups=G,
+                                           with_f=True)
+            if not torch.equal(f_b, odefunc(ww_, tbx, hbx, groups=G)):
+                fail(f"odefunc_bwd f {tag}: differs from the ODEfunc "
+                     "kernel's")
+            dp_p, dt_p, dh_p = tie_aware_reference(
+                tag, w64, tbx.double(), hbx.double(), gx.double(), dh)
+            err_b = close(f"odefunc_bwd dh {tag}", dh.double(), dh_p,
+                          **STATE_TOL)
+            close(f"odefunc_bwd dt {tag}", dtk.double(), dt_p, **STATE_TOL)
+            worst = max(((float((dp[k1][k2].double() - dp_p[k1][k2]).abs()
+                                .max()), f"{k1}/{k2}") for k1 in dp
+                         for k2 in dp[k1]))
+            print(f"[width] {tag} dθ: largest error {worst[0]:.3e} in "
+                  f"{worst[1]}")
+            err_dp = close(f"odefunc_bwd dθ {tag}", flat(dp).double(),
+                           flat(dp_p), **DP_TOL)
+            if not torch.equal(flat(dp), flat(odefunc_bwd(
+                    ww_, tbx, hbx, gx, groups=G)[0])):
+                fail(f"odefunc_bwd dθ {tag}: two launches differ")
+            print(f"[width] {tag} ({stage(hw, c)}): odefunc max abs err "
+                  f"{err_f:.3e}, rk_step {err_s:.3e} (B={B}); odefunc_bwd "
+                  f"B={B_TRAIN} vs the f64 plain version: dh {err_b:.3e}, "
+                  f"dθ {err_dp:.3e}, dθ bit-identical across two launches")
 
-                # The inference path at this width, counters from 0.
-                xin = x if cifar else mnist_x
-                with torch.no_grad():
-                    (lg, st), _, got_inf = counted(
-                        lambda: odenet_logits(wparams, xin, wcfg))
-                    traj_w, st_p = odeint(
-                        lambda tt, y: odefunc_plain(ww_, tt, y, G),
-                        stem_apply(wparams["stem"], xin, wcfg), ts, rtol=TOL,
-                        atol=TOL, error_control="per_sample",
-                        max_steps=wcfg.max_steps)
-                    lg_p = head_apply(wparams["head"], traj_w[-1], wcfg)
-                att = batch_attempts(st.nfe)
-                same_w = st.nfe == st_p.nfe
-                share_w = float(same_w.float().mean())
-                err_l = float((lg[same_w] - lg_p[same_w]).abs().max())
-                want = {"odefunc": 2, "odefunc_bwd": 0, "rk_step": att}
-                print(f"[width] {tag} inference B={B}: launches {got_inf}, "
-                      f"attempts {att}, NFE mean "
-                      f"{float(st.nfe.float().mean()):.2f}; vs the plain "
-                      f"path: NFE equal on {share_w:.4f} of samples, logits "
-                      f"max abs err {err_l:.3e}")
-                if got_inf != want or share_w < 0.99 or not torch.allclose(
-                        lg[same_w], lg_p[same_w], rtol=1e-3, atol=1e-3):
-                    fail(f"[width] {tag}: the inference solve (launches "
-                         f"{got_inf}, expected {want}) or its NFE and logits")
+            # The inference path at this width, counters from 0.
+            xin = x if cifar else mnist_x
+            with torch.no_grad():
+                (lg, st), _, got_inf = counted(
+                    lambda: odenet_logits(wparams, xin, wcfg))
+                traj_w, st_p = odeint(
+                    lambda tt, y: odefunc_plain(ww_, tt, y, G),
+                    stem_apply(wparams["stem"], xin, wcfg), ts, rtol=TOL,
+                    atol=TOL, error_control="per_sample",
+                    max_steps=wcfg.max_steps)
+                lg_p = head_apply(wparams["head"], traj_w[-1], wcfg)
+            att = batch_attempts(st.nfe)
+            same_w = st.nfe == st_p.nfe
+            share_w = float(same_w.float().mean())
+            err_l = float((lg[same_w] - lg_p[same_w]).abs().max())
+            want = {"odefunc": 2, "odefunc_bwd": 0, "rk_step": att}
+            print(f"[width] {tag} inference B={B}: launches {got_inf}, "
+                  f"attempts {att}, NFE mean "
+                  f"{float(st.nfe.float().mean()):.2f}; vs the plain "
+                  f"path: NFE equal on {share_w:.4f} of samples, logits "
+                  f"max abs err {err_l:.3e}")
+            if got_inf != want or share_w < 0.99 or not torch.allclose(
+                    lg[same_w], lg_p[same_w], rtol=1e-3, atol=1e-3):
+                fail(f"[width] {tag}: the inference solve (launches "
+                     f"{got_inf}, expected {want}) or its NFE and logits")
 
-                # One train step at this width, counters from 0.
-                wtr = Trainer(dataclasses.replace(
-                    TRAIN_CONFIG, hidden=c, batch_size=B_TRAIN,
-                    dataset="synthetic-cifar10" if cifar else "synthetic-mnist"),
-                    steps_per_epoch=10, device=dev)
-                timg, tlab = load_dataset(wtr.cfg.dataset, "train",
-                                          limit=B_TRAIN)
-                m_w, t_step, got_tr = counted(lambda: wtr.train_batch(
-                    timg, tlab.astype(np.int64)))
-                att_t = batch_attempts(wtr.last_stats.nfe)
-                nfe_b_w = int(m_w["nfe_b"])
-                want = {"odefunc": 2 + 6 * att_t + 1,
-                        "odefunc_bwd": nfe_b_w - 1, "rk_step": 0}
-                print(f"[width] {tag} train step B={B_TRAIN}: {t_step:.3f} s "
-                      f"(first), loss {m_w['loss']:.5f}, NFE-f "
-                      f"{m_w['nfe']:.2f}, NFE-b {nfe_b_w}, launches {got_tr}")
-                if got_tr != want or not np.isfinite(m_w["loss"]) or not all(
-                        bool(torch.isfinite(p_.grad).all())
-                        for p_ in wtr._leaves):
-                    fail(f"[width] {tag}: train step launches {got_tr}, "
-                         f"expected {want}, or not finite")
-                if cifar and c > C:
-                    # The adjoint gradients against the plain path.
-                    wp = wtr.params
-                    xs_w = wtr._preprocess(timg, train=False)
-                    ys_w = wtr._labels(tlab)
-                    gcfg = dataclasses.replace(wtr.model_cfg, tol=1e-5,
-                                               error_control="global",
-                                               max_steps=512)
+            # One train step at this width, counters from 0.
+            wtr = Trainer(dataclasses.replace(
+                TRAIN_CONFIG, hidden=c, batch_size=B_TRAIN,
+                dataset="synthetic-cifar10" if cifar else "synthetic-mnist"),
+                steps_per_epoch=10, device=dev)
+            timg, tlab = load_dataset(wtr.cfg.dataset, "train",
+                                      limit=B_TRAIN)
+            m_w, t_step, got_tr = counted(lambda: wtr.train_batch(
+                timg, tlab.astype(np.int64)))
+            att_t = batch_attempts(wtr.last_stats.nfe)
+            nfe_b_w = int(m_w["nfe_b"])
+            want = {"odefunc": 2 + 6 * att_t + 1,
+                    "odefunc_bwd": nfe_b_w - 1, "rk_step": 0}
+            print(f"[width] {tag} train step B={B_TRAIN}: {t_step:.3f} s "
+                  f"(first), loss {m_w['loss']:.5f}, NFE-f "
+                  f"{m_w['nfe']:.2f}, NFE-b {nfe_b_w}, launches {got_tr}")
+            if got_tr != want or not np.isfinite(m_w["loss"]) or not all(
+                    bool(torch.isfinite(p_.grad).all())
+                    for p_ in wtr._leaves):
+                fail(f"[width] {tag}: train step launches {got_tr}, "
+                     f"expected {want}, or not finite")
+            if cifar and c in ADJOINT_WIDTHS:
+                # The adjoint gradients against the plain path.
+                wp = wtr.params
+                xs_w = wtr._preprocess(timg, train=False)
+                ys_w = wtr._labels(tlab)
+                gcfg = dataclasses.replace(wtr.model_cfg, tol=1e-5,
+                                           error_control="global",
+                                           max_steps=512)
 
-                    def grads_of(logits_):
-                        loss_ = F.cross_entropy(logits_, ys_w)
-                        return float(loss_.detach()), torch.cat([
-                            g_.reshape(-1) for g_ in torch.autograd.grad(
-                                loss_, leaves(wp))])
+                def grads_of(logits_):
+                    loss_ = F.cross_entropy(logits_, ys_w)
+                    return float(loss_.detach()), torch.cat([
+                        g_.reshape(-1) for g_ in torch.autograd.grad(
+                            loss_, leaves(wp))])
 
-                    loss_k, grads_k = grads_of(
-                        odenet_logits(wp, xs_w, gcfg, adjoint=True)[0])
-                    traj_a, _ = odeint_adjoint(
-                        lambda p_, tt, y: odefunc_plain(prepare(p_, hw), tt,
-                                                        y, G),
-                        wp["odefunc"], stem_apply(wp["stem"], xs_w, gcfg), ts,
-                        rtol=1e-5, atol=1e-5, error_control="global",
-                        max_steps=512)
-                    loss_p, grads_p = grads_of(head_apply(wp["head"],
-                                                          traj_a[-1], gcfg))
-                    rel, cos = gradient_bar(f"[width] {tag} adjoint gradients "
-                                            "vs the plain path", grads_k,
-                                            grads_p)
-                    print(f"[width] {tag} adjoint B={B_TRAIN} tol 1e-5 "
-                          f"global: loss {loss_k:.7f} vs {loss_p:.7f} plain; "
-                          f"gradients rel-L2 {rel:.3e}, cosine {cos:.8f}")
-                    if not np.isclose(loss_k, loss_p, rtol=1e-5, atol=0):
-                        fail(f"[width] {tag}: adjoint loss {loss_k} vs "
-                             f"{loss_p}")
+                loss_k, grads_k = grads_of(
+                    odenet_logits(wp, xs_w, gcfg, adjoint=True)[0])
+                traj_a, _ = odeint_adjoint(
+                    lambda p_, tt, y: odefunc_plain(prepare(p_, hw), tt,
+                                                    y, G),
+                    wp["odefunc"], stem_apply(wp["stem"], xs_w, gcfg), ts,
+                    rtol=1e-5, atol=1e-5, error_control="global",
+                    max_steps=512)
+                loss_p, grads_p = grads_of(head_apply(wp["head"],
+                                                      traj_a[-1], gcfg))
+                rel, cos = gradient_bar(f"[width] {tag} adjoint gradients "
+                                        "vs the plain path", grads_k,
+                                        grads_p)
+                print(f"[width] {tag} adjoint B={B_TRAIN} tol 1e-5 "
+                      f"global: loss {loss_k:.7f} vs {loss_p:.7f} plain; "
+                      f"gradients rel-L2 {rel:.3e}, cosine {cos:.8f}")
+                if not np.isclose(loss_k, loss_p, rtol=1e-5, atol=0):
+                    fail(f"[width] {tag}: adjoint loss {loss_k} vs "
+                         f"{loss_p}")
 
-                # Times, bounds and the kernels line.
-                fbw = fused_bounds(hw, c, B, B_TRAIN)
-                wraw = wparams["odefunc"]
-                cases = (
-                    ("odefunc", "odefunc.cu",
-                     lambda: odefunc(ww_, tx, hx, groups=G),
-                     lambda: odefunc_plain(ww_, tx, hx, G),
-                     lambda: library_f(hx, tx, wraw), got_inf, err_f),
-                    ("rk_step", "rk_step.cu",
-                     lambda: dopri5_step(ww_, DOPRI5, t0x, dtx, yx, f0x,
-                                         **skw),
-                     lambda: dopri5_step_plain(ww_, DOPRI5, t0x, dtx, yx,
-                                               f0x, **skw),
-                     None, got_inf, err_s),
-                    ("odefunc_bwd", "odefunc_bwd.cu",
-                     lambda: odefunc_bwd(ww_, tbx, hbx, gx, groups=G),
-                     lambda: odefunc_bwd_plain(ww_, tbx, hbx, gx, G),
-                     lambda: library_bwd(hbx, tbx, wraw, gx), got_tr, err_b))
-                for name, src, run_k, run_p, run_l, got_, err in cases:
-                    entries.append({
-                        "name": name, "shape": tag, "route": "cuda",
-                        "source": f"neural_ode_features_tpu_torch/csrc/{src}",
-                        "replaces": REPLACES[name],
-                        "launches": got_[name], "max_abs_err": err,
-                        "ms": device_ms(run_k, reps=10),
-                        "plain_ms": time_ms(run_p, **quick), **fbw[name],
-                        "library_ms": (None if run_l is None
-                                       else time_ms(run_l, **quick)),
-                        "stage": stage(hw, c)})
-                print(f"[width] {tag} device ms: " + ", ".join(
-                    f"{e_['name']} {e_['ms']:.4f} (bound {e_['bound_ms']:.4f},"
-                    f" f32 FFMA {e_['ffma_bound_ms']:.4f}; plain "
-                    f"{e_['plain_ms']:.3f}, library {e_['library_ms']})"
-                    for e_ in entries[-3:]))
+            # Times, bounds and the kernels line.
+            fbw = fused_bounds(hw, c, B, B_TRAIN)
+            wraw = wparams["odefunc"]
+            cases = (
+                ("odefunc", "odefunc.cu",
+                 lambda: odefunc(ww_, tx, hx, groups=G),
+                 lambda: odefunc_plain(ww_, tx, hx, G),
+                 lambda: library_f(hx, tx, wraw), got_inf, err_f),
+                ("rk_step", "rk_step.cu",
+                 lambda: dopri5_step(ww_, DOPRI5, t0x, dtx, yx, f0x,
+                                     **skw),
+                 lambda: dopri5_step_plain(ww_, DOPRI5, t0x, dtx, yx,
+                                           f0x, **skw),
+                 None, got_inf, err_s),
+                ("odefunc_bwd", "odefunc_bwd.cu",
+                 lambda: odefunc_bwd(ww_, tbx, hbx, gx, groups=G),
+                 lambda: odefunc_bwd_plain(ww_, tbx, hbx, gx, G),
+                 lambda: library_bwd(hbx, tbx, wraw, gx), got_tr, err_b))
+            for name, src, run_k, run_p, run_l, got_, err in cases:
+                entries.append({
+                    "name": name, "shape": tag, "route": "cuda",
+                    "source": f"neural_ode_features_tpu_torch/csrc/{src}",
+                    "replaces": REPLACES[name],
+                    "launches": got_[name], "max_abs_err": err,
+                    "ms": device_ms(run_k, reps=10),
+                    "plain_ms": time_ms(run_p, **quick), **fbw[name],
+                    "library_ms": (None if run_l is None
+                                   else time_ms(run_l, **quick)),
+                    "stage": stage(hw, c)})
+            print(f"[width] {tag} device ms: " + ", ".join(
+                f"{e_['name']} {e_['ms']:.4f} (bound {e_['bound_ms']:.4f},"
+                f" f32 FFMA {e_['ffma_bound_ms']:.4f}; plain "
+                f"{e_['plain_ms']:.3f}, library {e_['library_ms']})"
+                for e_ in entries[-3:]))
+            print(f"[width] {tag} took {time.perf_counter() - t_shape:.1f} s")
 
-        # The probe's tensor-core kernels at 7×7×128 and 7×7×256 against
-        # the f64 conv, beside F.conv2d, the conv counter from 0.
-        for c in (128, 256):
+        # The probe's tensor-core kernels at the PROBE_WIDTHS against the
+        # f64 conv, beside F.conv2d, the conv counter from 0: at 96 the
+        # direct check of the padded last block, at 512 of eight blocks'
+        # sums (f32-grade: within F64_CONV_BAR).
+        for c in PROBE_WIDTHS:
             conv3x3.launches = 0
             xc_w, wc_w = conv_probe.probe_inputs(B, dev, (HH, WW), c)
             conv64 = conv3x3_plain(xc_w.double(), wc_w.double())
@@ -1841,6 +2012,9 @@ def main() -> int:
                 errs[strategy] = close(
                     f"conv_probe {strategy} {HH}x{WW}x{c} (f64 conv)",
                     conv3x3(xc_w, wc_w, strategy).double(), conv64, **tol)
+            if c in (96, 512) and errs["mma3"] > F64_CONV_BAR:
+                fail(f"conv_probe mma3 {HH}x{WW}x{c}: {errs['mma3']:.3e} "
+                     f"against the f64 conv, over {F64_CONV_BAR}")
             lib_err_w = float((conv_probe.library_conv(xc_w, wc_w).double()
                                - conv64).abs().max())
             probe_ms = {s_: device_ms(lambda s_=s_: conv3x3(xc_w, wc_w, s_))
@@ -1865,42 +2039,50 @@ def main() -> int:
                 "library_ms": lib_ms, "stage": "mma3",
                 "mma1_ms": probe_ms["mma1"]})
 
-        # One epoch of `train --hidden 128` at the [train-cli] size.
-        with tempfile.TemporaryDirectory() as runs_w:
-            run_w, t_run, got, st_, ev_ = run_train([
-                "--dataset", "synthetic-cifar10", "--batch-size",
-                str(B_TRAIN), "--limit", "1280", "--epochs", "1", "--hidden",
-                "128", "--runs-dir", runs_w])
-            (row,) = log_rows(run_w)
-        cli_launches["train_hidden128"] = got
-        print(f"[width] train --hidden 128: 1 epoch, {len(st_)} steps, "
-              f"{len(ev_)} evaluation batches in {t_run:.1f} s; launches "
-              f"{got}; " + " | ".join(f"{k}={v}" for k, v in row.items()))
-        if len(st_) != 10 or not np.isfinite(float(row["train_loss"])) or any(
-                s_["launches"] != {"odefunc": 2 + 6 * s_["attempts"] + 1,
-                                   "odefunc_bwd": s_["nfe_b"] - 1,
-                                   "rk_step": 0} for s_ in st_):
-            fail("[width] train --hidden 128: the epoch or its launches")
+        # One epoch of `train --hidden 128` and of `--hidden 512` at the
+        # [train-cli] size, the launch rule on every step.
+        for hidden in (128, 512):
+            with tempfile.TemporaryDirectory() as runs_w:
+                run_w, t_run, got, st_, ev_ = run_train([
+                    "--dataset", "synthetic-cifar10", "--batch-size",
+                    str(B_TRAIN), "--limit", "1280", "--epochs", "1",
+                    "--hidden", str(hidden), "--runs-dir", runs_w])
+                (row,) = log_rows(run_w)
+            cli_launches[f"train_hidden{hidden}"] = got
+            print(f"[width] train --hidden {hidden}: 1 epoch, {len(st_)} "
+                  f"steps, {len(ev_)} evaluation batches in {t_run:.1f} s; "
+                  f"launches {got}; " + " | ".join(f"{k}={v}"
+                                                   for k, v in row.items()))
+            rule = all(s_["launches"] == {
+                "odefunc": 2 + 6 * s_["attempts"] + 1,
+                "odefunc_bwd": s_["nfe_b"] - 1, "rk_step": 0} for s_ in st_)
+            if (len(st_) != 10 or not rule
+                    or not np.isfinite(float(row["train_loss"]))):
+                fail(f"[width] train --hidden {hidden}: the epoch or its "
+                     "launches")
 
-        # 7×7×512 is refused before any launch.
-        p512 = init_odenet(0, dataclasses.replace(ENTRY_CONFIG, hidden=512),
-                           device=dev)["odefunc"]
-        h512 = torch.zeros((2, HH, WW, 512), device=dev)
-        odefunc.launches = odefunc_bwd.launches = 0
-        for fn in (lambda: odefunc(p512, 0.5, h512),
-                   lambda: odefunc_bwd(p512, 0.5, h512, h512)):
-            try:
-                fn()
-            except ValueError as e:
-                if "Queue 3 item 1" not in str(e):
-                    fail(f"[width] 7x7x512 refused without naming the item: "
-                         f"{e}")
-            else:
-                fail("[width] 7x7x512 was not refused")
-        if odefunc.launches or odefunc_bwd.launches:
-            fail("[width] 7x7x512: a kernel launched before the refusal")
-        print("[width] 7x7x512: refused before any launch, naming ROADMAP.md "
-              "Queue 3 item 1")
+        # Widths the JAX kernels refuse (C > 512; C % groups != 0) are
+        # refused before any launch, naming that gate.
+        for c_bad, clause in ((544, "C > 512"), (48, "C % groups != 0")):
+            p_bad = init_odenet(0, dataclasses.replace(ENTRY_CONFIG,
+                                                       hidden=c_bad),
+                                device=dev)["odefunc"]
+            h_bad = torch.zeros((2, HH, WW, c_bad), device=dev)
+            odefunc.launches = odefunc_bwd.launches = 0
+            for fn in (lambda: odefunc(p_bad, 0.5, h_bad),
+                       lambda: odefunc_bwd(p_bad, 0.5, h_bad, h_bad)):
+                try:
+                    fn()
+                except ValueError as e:
+                    if clause not in str(e):
+                        fail(f"[width] 7x7x{c_bad} refused without naming "
+                             f"{clause!r}: {e}")
+                else:
+                    fail(f"[width] 7x7x{c_bad} was not refused")
+            if odefunc.launches or odefunc_bwd.launches:
+                fail(f"[width] 7x7x{c_bad}: a kernel launched before the "
+                     "refusal")
+            print(f"[width] 7x7x{c_bad}: refused before any launch ({clause})")
         phase_done("width", t_ph)
         return entries
 
@@ -1973,8 +2155,42 @@ def main() -> int:
             fail("[foreign] eval_ckpt disagrees with the JAX tool's numbers")
         phase_done("foreign", t_ph)
 
+    # [population]: `train --seeds` with two seeds at the [train-cli] size,
+    # one epoch, counters from 0: two run directories, member 0's weights,
+    # training state and log rows (but time_s) bit-identical to the solo
+    # run of its seed on the card.
+    def population_phase():
+        t_ph = time.perf_counter()
+        with tempfile.TemporaryDirectory() as runs_p:
+            one = ["--dataset", "synthetic-cifar10", "--batch-size",
+                   str(B_TRAIN), "--limit", "1280", "--epochs", "1"]
+            (runs_pop, t_pop, got_pop) = counted(lambda: train_cli.main(
+                [*one, "--seeds", "5,6", "--runs-dir", f"{runs_p}/pop"]))
+            solo, t_solo, _ = counted(lambda: Path(train_cli.main(
+                [*one, "--seed", "5", "--runs-dir", f"{runs_p}/solo"])))
+            member = Path(runs_pop[0])
+            same = {"name": member.name == solo.name}
+            for name in ("ckpt_last.pt", "train_state.pt"):
+                a_, b_ = (torch.load(d_ / name, weights_only=True)
+                          for d_ in (member, solo))
+                same[name] = a_.keys() == b_.keys() and all(
+                    torch.equal(a_[k], b_[k]) for k in a_)
+            rows_m, rows_s = ([{k: v for k, v in r.items() if k != "time_s"}
+                               for r in log_rows(d_)] for d_ in (member,
+                                                                 solo))
+            same["log.csv"] = rows_m == rows_s
+            n_dirs = len(runs_pop)
+        cli_launches["population"] = got_pop
+        print(f"[population] train --seeds 5,6: {n_dirs} run directories in "
+              f"{t_pop:.1f} s (the solo --seed 5 run {t_solo:.1f} s); "
+              f"launches {got_pop}; member 0 against the solo run: {same}")
+        if n_dirs != 2 or not all(same.values()):
+            fail("[population] member 0 differs from its solo run")
+        phase_done("population", t_ph)
+
     width_kernels = width_phase()
     foreign_phase()
+    population_phase()
     # 8. Times.
     wt = params["odefunc"]
     lib_err = float((library_f(h, t, wt) - odefunc_plain(w, t, h, G))
@@ -2251,7 +2467,10 @@ def main() -> int:
                        ("odefunc", "event"), ("odefunc_bwd", "event_adjoint"),
                        ("odefunc_bwd", "train_adams"),
                        ("odefunc", "sweep_adams_fused"),
-                       ("odefunc_bwd", "train_hidden128")):
+                       ("odefunc_bwd", "train_hidden128"),
+                       ("odefunc_bwd", "train_hidden512"),
+                       ("rk_step", "parity_run"),
+                       ("odefunc_bwd", "population")):
         if by_path[path][name] < 1:
             fail(f"{name} was not launched on the {path} path")
     for mode, rows_ in sweep_report.items():

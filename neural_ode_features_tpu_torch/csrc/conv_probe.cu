@@ -15,9 +15,10 @@
 //           copy of x in shared memory: the implicit GEMM over padded-pitch
 //           positions on the tensor cores, mma.sync TF32 with 3xTF32 error
 //           compensation (f32-grade).  This is the conv stage of odefunc.cu,
-//           rk_step.cu and odefunc_bwd.cu itself at C = 64, 128 and 256 on
-//           7x7 and 6x6 maps, compiled for the same width (wide_shape), so
-//           its time is what those kernels pay per conv.
+//           rk_step.cu and odefunc_bwd.cu itself at C = 64 to 512
+//           (multiples of 32) on 7x7 and 6x6 maps, compiled for the same
+//           width (wide_shape), so its time is what those kernels pay per
+//           conv; at C % 64 == 32 it is the check of the padded last block.
 //   mma1    the same kernel with the two tail products compiled out: plain
 //           TF32, about three decimal digits.  A reading of what f32-grade
 //           costs; nothing on a path uses it.
@@ -49,7 +50,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 tap9_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
             float* __restrict__ y) {
   extern __shared__ float4 smem_raw[];
-  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
+  const Smem m = carve<false>(reinterpret_cast<float*>(smem_raw), s, nullptr);
   const int n = s.H * s.W * s.C;
   const float* xb = x + (size_t)blockIdx.x * n;
   float* yb = y + (size_t)blockIdx.x * n;
@@ -61,12 +62,14 @@ tap9_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
   conv3x3(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
 }
 
-template <int PASSES, bool kWide>
+// kXg: the layout without sx (the state's global home, which this kernel
+// does not use).
+template <int PASSES, bool kWide, bool kXg>
 __global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 mma_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
            float* __restrict__ y) {
   extern __shared__ float4 smem_raw[];
-  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
+  const Smem m = carve<kXg>(reinterpret_cast<float*>(smem_raw), s, nullptr);
   const int n = s.H * s.W * s.C;
   const float* xb = x + (size_t)blockIdx.x * n;
   float* yb = y + (size_t)blockIdx.x * n;
@@ -75,7 +78,7 @@ mma_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
   __syncthreads();
   for (int e = threadIdx.x; e < n; e += kThreads) m.spad[pad_index(s, e)] = xb[e];
   __syncthreads();
-  conv3x3_mma<PASSES, false, kWide>(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
+  mma_stage<PASSES, false, kWide>(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
 }
 
 constexpr int kI2cThreads = 256;  // threads per CTA of the im2col kernel
@@ -218,7 +221,9 @@ static int launch_mma(const float* x, const float* w, float* y,
   const Shape s = make_shape(H, W, C, 1);
   if (!s.mma || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odefunc_smem_bytes(s);
-  const auto kernel = wide_shape(s) ? mma_kernel<PASSES, true> : mma_kernel<PASSES, false>;
+  const auto kernel = !wide_shape(s) ? mma_kernel<PASSES, false, false>
+                      : s.xg        ? mma_kernel<PASSES, true, true>
+                                    : mma_kernel<PASSES, true, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

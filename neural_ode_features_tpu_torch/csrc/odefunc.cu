@@ -3,22 +3,25 @@
 // Replaces the TPU kernel neural_ode_features_tpu/kernels/odefunc_pallas.py
 // (_odefunc_pallas -> _odefunc_kernel).  Wrapper and plain PyTorch version:
 // kernels/odefunc.py.  The per-sample work is odefunc_eval in
-// odefunc_common.cuh; at C = 64, 128 and 256 on 7x7 and 6x6 maps its two
-// convs run on the tensor cores (3xTF32, f32-grade), at other shapes as f32
-// FFMA.  kWide: compiled for the wide stage (odefunc_common.cuh wide_shape).
+// odefunc_common.cuh; at C = 64 to 512 (multiples of 32) on 7x7 and 6x6
+// maps its two convs run on the tensor cores (3xTF32, f32-grade), at other
+// shapes as f32 FFMA.  kWide, kXg: the build (odefunc_common.cuh
+// wide_shape).  Where the state does not fit in shared memory beside the
+// conv's working set (fit_layout: 7x7 from C = 320), the output tensor is
+// the sample's state buffer: h is copied into it, f overwrites it.
 #include "odefunc_common.cuh"
 
 namespace nodef {
 
-template <bool kWide>
+template <bool kWide, bool kXg>
 __global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 odefunc_kernel(const float* __restrict__ t, const float* __restrict__ h,
                Odefunc p, Shape s, float* __restrict__ out) {
   extern __shared__ float4 smem_raw[];
-  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
   const int n = s.H * s.W * s.C;
   const float* hb = h + (size_t)blockIdx.x * n;
   float* ob = out + (size_t)blockIdx.x * n;
+  const Smem m = carve<kXg>(reinterpret_cast<float*>(smem_raw), s, ob);
 
   zero_pad(m, s);
   for (int e = threadIdx.x; e < n; e += kThreads) m.sx[e] = hb[e];
@@ -38,7 +41,9 @@ extern "C" int odefunc_forward(
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(H, W, C, G);
   const size_t smem = odefunc_smem_bytes(s);
-  const auto kernel = wide_shape(s) ? odefunc_kernel<true> : odefunc_kernel<false>;
+  const auto kernel = !wide_shape(s) ? odefunc_kernel<false, false>
+                      : s.xg        ? odefunc_kernel<true, true>
+                                    : odefunc_kernel<true, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

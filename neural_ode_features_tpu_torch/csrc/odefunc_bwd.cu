@@ -19,8 +19,9 @@
 //      backward, conv2 input gradient (a 3x3 conv of the cotangent with the
 //      tap-flipped, transposed weights), ReLU2 + GN2 backward, conv1 input
 //      gradient, ReLU1 + GN1 backward.  Its four convs are the conv stage of
-//      odefunc_common.cuh: at C = 64, 128 and 256 on 7x7 and 6x6 maps
-//      mma.sync TF32 products with 3xTF32 error compensation (f32-grade);
+//      odefunc_common.cuh: at C = 64 to 512 (multiples of 32) on 7x7 and 6x6
+//      maps mma.sync TF32 products with 3xTF32 error compensation
+//      (f32-grade);
 //      the input-gradient convs read
 //      w1, w2 themselves, taps reversed and transposed in the fragment loads
 //      (conv3x3_mma<3, true>).  Other shapes run the f32 FFMA conv3x3, the
@@ -31,13 +32,21 @@
 //      map: the tap-validity contraction), and the activations r1, r2 and
 //      cotangents gu, gv that the weight gradients need.  The conv1 output
 //      u (GN2's input) stays in shared memory where it fits; on the wide
-//      stage at 7x7x256 it does not (the forward's working set is 194 KB of
-//      the 227), and u goes to a global scratch (B, H*W*C) beside r1 and
-//      r2, written and read back by the same CTA.
+//      stage from 7x7x256 it does not (the forward's working set is 194 KB
+//      of the 227 there), and u goes to a global scratch (B, H*W*C) beside
+//      r1 and r2, written and read back by the same CTA; from 7x7x288 the
+//      state x goes to the dh output, which is written last, at the same
+//      elements (fit_layout).
 //   2. bwd_weight_kernel: dW[conv][k] (C x C per tap) = sum over (b, p) of
 //      r[b, p + off_k] (x) g[b, p]; one CTA per (conv, tap, row chunk, ci
-//      tile, co tile), a TILE x TILE output tile (64, or 32 at C = 32) with
-//      a 4x4 register tile per thread.
+//      tile, co tile), a TILE x TILE output tile (64, or 32 where C % 64 ==
+//      32) with a 4x4 register tile per thread.  At C = 512 its scratch
+//      wpart is 151 MB, whatever B.  On the wide build's shapes each
+//      32-row step is summed from zero and added to the running sum
+//      (TWO_LEVEL): one chain over a chunk's B*H*W/8 rows (784 at B = 128,
+//      7x7) drifts by up to 8.6e-4 from the f64 sum at 7x7x512, whose 4.7M
+//      entries have more of the tail than 7x7x64's; the narrow shapes keep
+//      one chain (their sums' order, and their time, unchanged).
 //   3. bwd_reduce_kernel: one thread per output sums the row chunks and the
 //      per-sample partials, and writes dtheta in the raw layout: conv kernels
 //      (3, 3, C+1, C) with the time channel first, and the eight (C,) vectors.
@@ -61,47 +70,65 @@ constexpr int kSplit = 8;        // row chunks per (conv, tap)
 inline int weight_tile(int C) { return C % 64 == 0 ? 64 : 32; }
 
 // Shared memory of bwd_sample_kernel: the forward's layout (carve), then
-//   su    [H*W*C]   conv1 output u (GN2's input), unless u_global
+//   su    [H*W*C]   conv1 output u (GN2's input), unless s.ug
 //   st    [6*G]     mean/inv of GN1, GN2, GN3
 //   chan  [4*C]     per-channel sums and group means
 // (the second partial-sum buffer is the second half of the forward's sred).
-// u_global: a wide shape whose u does not fit.  kernels/odefunc_bwd.py
-// (bwd_smem_bytes, u_global) mirrors these formulas.
-inline size_t bwd_small_bytes(const Shape& s) {
-  return odefunc_smem_bytes(s) + sizeof(float) * (6 * (size_t)s.G + 4 * (size_t)s.C);
-}
-inline bool u_global(const Shape& s) {
-  return wide_shape(s) &&
-         bwd_small_bytes(s) + sizeof(float) * (size_t)s.H * s.W * s.C > kMaxSmem;
-}
+// kernels/odefunc_bwd.py (bwd_smem_bytes, u_global) mirrors these formulas.
 inline size_t bwd_smem_bytes(const Shape& s) {
-  return bwd_small_bytes(s) + (u_global(s) ? 0 : sizeof(float) * (size_t)s.H * s.W * s.C);
+  return odefunc_smem_bytes(s) +
+         sizeof(float) * (6 * (size_t)s.G + 4 * (size_t)s.C +
+                          (s.ug ? 0 : (size_t)s.H * s.W * s.C));
+}
+
+// The shape under the backward's layout: fit_layout with u.
+inline Shape bwd_shape(int H, int W, int C, int G) {
+  Shape s = make_shape(H, W, C, G);
+  s.xg = 0;
+  s.ring = kRing;
+  fit_layout(s, true, bwd_smem_bytes);
+  return s;
 }
 
 inline bool bwd_shape_ok(int H, int W, int C, int G) {
-  return shape_ok(H, W, C, G) && C >= 32 && C % weight_tile(C) == 0 &&
-         bwd_smem_bytes(make_shape(H, W, C, G)) <= kMaxSmem;
+  const Shape s = bwd_shape(H, W, C, G);
+  return layout_ok(s) && C >= 32 && C % weight_tile(C) == 0 && bwd_smem_bytes(s) <= kMaxSmem;
+}
+
+// Normalised value x-hat at element e (channel c) of x, from gn_stats'
+// mean/inv.
+template <bool WIDE>
+__device__ __forceinline__ float gn_hat(const Shape& s, const float* x, const float* mean,
+                                        const float* inv, int e, int c) {
+  const int g = group_of<WIDE>(s, c);
+  return (x[e] - mean[g]) * inv[g];
 }
 
 // GroupNorm backward for one sample.  x: the GN input, mean/inv: its
-// statistics, dyf(e): the cotangent of the GN output at element e.
-// Writes dscale = sum_p dy * x-hat and dbias = sum_p dy (per channel), then
-// hands dx = inv * (dy*scale - mean_g(dy*scale) - x-hat * mean_g(dy*scale*x-hat))
-// to out(e, dx).  Caller synchronises before; ends unsynchronised.
-template <class Dy, class Out>
+// statistics, dyf(e, c): the cotangent of the GN output at element e of
+// channel c.  Writes dscale = sum_p dy * x-hat and dbias = sum_p dy (per
+// channel), then hands
+// dx = inv * (dy*scale - mean_g(dy*scale) - x-hat * mean_g(dy*scale*x-hat))
+// to out(w, dx) at the thread's elements w (Walk).  Caller synchronises
+// before; ends unsynchronised.  Thread -> (channel, pixel group) as in
+// gn_stats.
+template <bool WIDE, class Dy, class Out>
 __device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shape& s,
                             const float* x, const float* mean, const float* inv,
                             const float* __restrict__ scale, Dy dyf,
                             float* dscale, float* dbias, Out out) {
-  const int tid = threadIdx.x, C = s.C, c = tid & (C - 1), pg = tid >> s.lc;
-  const int npg = kThreads >> s.lc, hw = s.H * s.W, gs = 1 << s.lgs;
+  const int tid = threadIdx.x, C = s.C;
+  int pg, c;
+  thread_slot<WIDE>(s, pg, c);
+  const int npg = s.npg, hw = s.H * s.W, gs = s.gs;
   float a1 = 0.f, a2 = 0.f;
-  for (int p = pg; p < hw; p += npg) {
-    const int e = p * C + c;
-    const float dy = dyf(e);
-    a1 = fmaf(dy, gn_hat(s, x, mean, inv, e), a1);
-    a2 += dy;
-  }
+  if (!WIDE || pg < npg)
+    for (int p = pg; p < hw; p += npg) {
+      const int e = p * C + c;
+      const float dy = dyf(e, c);
+      a1 = fmaf(dy, gn_hat<WIDE>(s, x, mean, inv, e, c), a1);
+      a2 += dy;
+    }
   m.sred[tid] = a1;
   sred2[tid] = a2;
   __syncthreads();
@@ -130,12 +157,19 @@ __device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shap
   }
   __syncthreads();
   const int n = hw * C;
-  // Every e = tid + j * kThreads lies in the thread's channel c.
-  const int g = c >> s.lgs;
-  const float sc = scale[c], ig = inv[g], m1 = chan[2 * C + g], m2 = chan[3 * C + g];
-  for (int e = tid; e < n; e += kThreads) {
-    const float xh = gn_hat(s, x, mean, inv, e);
-    out(e, ig * (dyf(e) * sc - m1 - xh * m2));
+  if (!WIDE || s.cdiv) {  // every element lies in the channel tid % C
+    const int cc = tid & (C - 1), g = group_of<WIDE>(s, cc);
+    const float sc = scale[cc], ig = inv[g], m1 = chan[2 * C + g], m2 = chan[3 * C + g];
+    for (Walk<true> w(s); w.e < n; w.next(s)) {
+      const float xh = gn_hat<WIDE>(s, x, mean, inv, w.e, cc);
+      out(w, ig * (dyf(w.e, cc) * sc - m1 - xh * m2));
+    }
+  } else {
+    for (Walk<false> w(s); w.e < n; w.next(s)) {
+      const int cc = w.c(s), g = div_magic(cc, s.gmagic);
+      const float xh = gn_hat<WIDE>(s, x, mean, inv, w.e, cc);
+      out(w, inv[g] * (dyf(w.e, cc) * scale[cc] - chan[2 * C + g] - xh * chan[3 * C + g]));
+    }
   }
 }
 
@@ -144,21 +178,26 @@ __device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shap
 // db[c] = sum_p g, dwt[k*C + c] = t * sum of g over the pixels where tap k
 // reads inside the map, and the returned sum_p,c g * M (valid in thread 0).
 // Ends synchronised.
+template <bool WIDE>
 __device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, const Shape& s,
                                   const float* __restrict__ tmap, float t, float* db,
                                   float* dwt) {
-  const int tid = threadIdx.x, C = s.C, c = tid & (C - 1), pg = tid >> s.lc;
-  const int npg = kThreads >> s.lc, hw = s.H * s.W, Wp = s.W + 2;
+  const int tid = threadIdx.x, C = s.C;
+  int pg, c;
+  thread_slot<WIDE>(s, pg, c);
+  const int npg = s.npg, hw = s.H * s.W, Wp = s.W + 2;
   float a1 = 0.f, a2 = 0.f;
-  for (int p = pg; p < hw; p += npg) {
-    const float v = m.spad[pad_index(s, p * C + c)];
-    a1 += v;
-    a2 = fmaf(v, tmap[p * C + c], a2);
-  }
+  if (!WIDE || pg < npg)
+    for (int p = pg; p < hw; p += npg) {
+      const float v = m.spad[pad_at(s, p, c)];
+      a1 += v;
+      a2 = fmaf(v, tmap[p * C + c], a2);
+    }
   m.sred[tid] = a1;
   sred2[tid] = a2;
   for (int e = tid; e < 9 * C; e += kThreads) {
-    const int k = e >> s.lc, cc = e & (C - 1), ky = k / 3, kx = k % 3;
+    const int k = WIDE ? div_magic(e, s.cmagic) : e >> s.lc, cc = e - k * C;
+    const int ky = k / 3, kx = k % 3;
     const int y0 = max(0, 1 - ky), y1 = min(s.H, s.H + 1 - ky);
     const int x0 = max(0, 1 - kx), x1 = min(s.W, s.W + 1 - kx);
     float acc = 0.f;
@@ -186,10 +225,10 @@ __device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, cons
 
 // Per-sample partial rows (kParts x C): 0 dn1s, 1 dn1b, 2 dn2s, 3 dn2b,
 // 4 dn3s, 5 dn3b, 6 db1, 7 db2, 8..16 dwt1 (tap-major), 17..25 dwt2.
-// kWide: compiled for the wide stage (odefunc_common.cuh wide_shape); there
-// u lives in the global scratch ug, which the launcher passes where
-// u_global(s) and leaves null elsewhere.
-template <bool kWide>
+// kWide, kXg: the build (odefunc_common.cuh wide_shape); in the wide ones u
+// lives in the global scratch ug where s.ug, and with kXg the state x in dh
+// (dh is written last, by the thread that reads x at the same element).
+template <bool kWide, bool kXg>
 __global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
                   const float* __restrict__ g, Odefunc p,
@@ -199,10 +238,10 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
                   float* __restrict__ gu, float* __restrict__ gv,
                   float* __restrict__ part, float* __restrict__ ug) {
   extern __shared__ float4 smem_raw[];
-  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
   const int C = s.C, G = s.G, n = s.H * s.W * C, tid = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * n;
-  const bool ug_on = kWide && ug != nullptr;
+  const Smem m = carve<kXg>(reinterpret_cast<float*>(smem_raw), s, dh + off);
+  const bool ug_on = kWide && s.ug;
   float* su = ug_on ? ug + off : m.sinv + G;
   float* sred2 = m.sred + kThreads;
   float* st = ug_on ? m.sinv + G : su + n;
@@ -219,78 +258,87 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   zero_pad(m, s);
   for (int e = tid; e < n; e += kThreads) m.sx[e] = hb[e];
   __syncthreads();
-  Stat stat = gn_stats(m, s, m.sx, mean1, inv1);
-  gn_relu_to_pad(m, s, m.sx, stat, p.n1s, p.n1b);
+  // The GN statistics go to st (gn_apply reads them there where C does not
+  // divide kThreads), the relu(GN(.)) into the spad interior.
+  auto relu_to_pad = [&](const auto& w, float v) {
+    m.spad[pad_at(s, w.q(s), w.c(s))] = v < 0.f ? 0.f : v;
+  };
+  Stat stat = gn_stats<kWide>(m, s, m.sx, mean1, inv1);
+  gn_apply<kWide>(s, stat, mean1, inv1, p.n1s, p.n1b, m.sx, relu_to_pad);
   __syncthreads();
-  for (int e = tid; e < n; e += kThreads) r1[off + e] = m.spad[pad_index(s, e)];
+  each_element<kWide>(s, [&](const auto& w) { r1[off + w.e] = m.spad[pad_at(s, w.q(s), w.c(s))]; });
   conv_stage<kWide>(m, s, p.w1, [&](int q, int co, float acc) {
     su[q * C + co] = (acc + p.b1[co]) + tb * p.m1[q * C + co];
   });
   __syncthreads();
-  stat = gn_stats(m, s, su, mean2, inv2);
-  gn_relu_to_pad(m, s, su, stat, p.n2s, p.n2b);
+  stat = gn_stats<kWide>(m, s, su, mean2, inv2);
+  gn_apply<kWide>(s, stat, mean2, inv2, p.n2s, p.n2b, su, relu_to_pad);
   __syncthreads();
-  for (int e = tid; e < n; e += kThreads) r2[off + e] = m.spad[pad_index(s, e)];
+  each_element<kWide>(s, [&](const auto& w) { r2[off + w.e] = m.spad[pad_at(s, w.q(s), w.c(s))]; });
   conv3x3_to_sx<kWide>(m, s, p.w2, p.b2, p.m2, tb);
   __syncthreads();
-  stat = gn_stats(m, s, m.sx, mean3, inv3);
-  {
-    const float sc = p.n3s[tid & (C - 1)], bi = p.n3b[tid & (C - 1)];
-    for (int e = tid; e < n; e += kThreads)
-      fout[off + e] = (m.sx[e] - stat.mean) * stat.inv * sc + bi;
-  }
+  stat = gn_stats<kWide>(m, s, m.sx, mean3, inv3);
+  gn_apply<kWide>(s, stat, mean3, inv3, p.n3s, p.n3b, m.sx,
+                  [&](const auto& w, float v) { fout[off + w.e] = v; });
   __syncthreads();  // mean3, inv3 visible
 
   // GN3: gv = dL/dv into gv and the spad interior (the border stays zero).
-  gn_backward(m, sred2, chan, s, m.sx, mean3, inv3, p.n3s,
-              [&](int e) { return gb[e]; }, pb + 4 * C, pb + 5 * C,
-              [&](int e, float v) { gv[off + e] = v; m.spad[pad_index(s, e)] = v; });
+  gn_backward<kWide>(m, sred2, chan, s, m.sx, mean3, inv3, p.n3s,
+                     [&](int e, int) { return gb[e]; }, pb + 4 * C, pb + 5 * C,
+                     [&](const auto& w, float v) {
+                       gv[off + w.e] = v;
+                       m.spad[pad_at(s, w.q(s), w.c(s))] = v;
+                     });
   __syncthreads();
-  float dt_acc = conv_param_grads(m, sred2, chan, s, p.m2, tb, pb + 7 * C, pb + 17 * C);
+  float dt_acc = conv_param_grads<kWide>(m, sred2, chan, s, p.m2, tb, pb + 7 * C, pb + 17 * C);
 
   // conv2 input gradient: sx = conv3x3(pad(gv), w2bt).
   {
     auto to_sx = [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; };
-    if (s.mma) conv3x3_mma<3, true, kWide>(m, s, p.w2, to_sx);
+    if (s.mma) mma_stage<3, true, kWide>(m, s, p.w2, to_sx);
     else conv3x3(m, s, w2bt, to_sx);
   }
   __syncthreads();
 
   // ReLU2 + GN2: gu = dL/du.
-  gn_backward(m, sred2, chan, s, su, mean2, inv2, p.n2s,
-              [&](int e) {
-                const int c = e & (C - 1);
-                const float y = gn_hat(s, su, mean2, inv2, e) * p.n2s[c] + p.n2b[c];
-                return y > 0.f ? m.sx[e] : 0.f;
-              },
-              pb + 2 * C, pb + 3 * C,
-              [&](int e, float v) { gu[off + e] = v; m.spad[pad_index(s, e)] = v; });
+  gn_backward<kWide>(m, sred2, chan, s, su, mean2, inv2, p.n2s,
+                     [&](int e, int c) {
+                       const float y =
+                           gn_hat<kWide>(s, su, mean2, inv2, e, c) * p.n2s[c] + p.n2b[c];
+                       return y > 0.f ? m.sx[e] : 0.f;
+                     },
+                     pb + 2 * C, pb + 3 * C,
+                     [&](const auto& w, float v) {
+                       gu[off + w.e] = v;
+                       m.spad[pad_at(s, w.q(s), w.c(s))] = v;
+                     });
   __syncthreads();
-  dt_acc += conv_param_grads(m, sred2, chan, s, p.m1, tb, pb + 6 * C, pb + 8 * C);
+  dt_acc += conv_param_grads<kWide>(m, sred2, chan, s, p.m1, tb, pb + 6 * C, pb + 8 * C);
 
   // conv1 input gradient: sx = conv3x3(pad(gu), w1bt).
   {
     auto to_sx = [&](int q, int ci, float acc) { m.sx[q * C + ci] = acc; };
-    if (s.mma) conv3x3_mma<3, true, kWide>(m, s, p.w1, to_sx);
+    if (s.mma) mma_stage<3, true, kWide>(m, s, p.w1, to_sx);
     else conv3x3(m, s, w1bt, to_sx);
   }
   __syncthreads();
 
   // ReLU1 + GN1: dh.
-  gn_backward(m, sred2, chan, s, hb, mean1, inv1, p.n1s,
-              [&](int e) {
-                const int c = e & (C - 1);
-                const float y = gn_hat(s, hb, mean1, inv1, e) * p.n1s[c] + p.n1b[c];
-                return y > 0.f ? m.sx[e] : 0.f;
-              },
-              pb, pb + C, [&](int e, float v) { dh[off + e] = v; });
+  gn_backward<kWide>(m, sred2, chan, s, hb, mean1, inv1, p.n1s,
+                     [&](int e, int c) {
+                       const float y =
+                           gn_hat<kWide>(s, hb, mean1, inv1, e, c) * p.n1s[c] + p.n1b[c];
+                       return y > 0.f ? m.sx[e] : 0.f;
+                     },
+                     pb, pb + C, [&](const auto& w, float v) { dh[off + w.e] = v; });
   if (tid == 0) dt[blockIdx.x] = dt_acc;
 }
 
 // wpart[split][conv][tap][ci][co] = sum over the split's rows (b, p) of
 // r[b, p + off_tap, ci] * g[b, p, co] (zero where the tap leaves the map).
 // (TILE / 4)^2 threads, each a 4x4 register tile of the TILE x TILE block.
-template <int TILE>
+// TWO_LEVEL: the rows in steps of kRowTile, each step's sum from zero.
+template <int TILE, bool TWO_LEVEL>
 __global__ void __launch_bounds__((TILE / 4) * (TILE / 4))
 bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
                   const float* __restrict__ gu, const float* __restrict__ gv, Shape s,
@@ -330,14 +378,30 @@ bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
       sg[rr][q] = vg;
     }
     __syncthreads();
+    auto rows = [&](float (&sum)[4][4]) {
 #pragma unroll 4
-    for (int rr = 0; rr < kRowTile; ++rr) {
-      const float4 a = sr[rr][tci], b = sg[rr][tco];
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      for (int rr = 0; rr < kRowTile; ++rr) {
+        const float4 a = sr[rr][tci], b = sg[rr][tco];
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sum[i][j] = fmaf(av[i], bv[j], sum[i][j]);
+      }
+    };
+    if (TWO_LEVEL) {
+      float step[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) step[i][j] = 0.f;
+      rows(step);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += step[i][j];
+    } else {
+      rows(acc);
     }
     __syncthreads();
   }
@@ -380,8 +444,8 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
 }  // namespace nodef
 
 // Scratch, allocated by the wrapper: r1, r2, gu, gv (B, H*W*C) each, part
-// (B, 26, C), wpart (8, 2, 9, C, C), and u (B, H*W*C) where u_global (else
-// it may be null).  w1bt, w2bt (the tap-flipped, transposed
+// (B, 26, C), wpart (8, 2, 9, C, C), and u (B, H*W*C) where bwd_shape's ug
+// (else it may be null).  w1bt, w2bt (the tap-flipped, transposed
 // kernels) are read only by the FFMA stage and may be null where make_shape
 // picks the tensor-core stage.
 extern "C" int odefunc_backward(
@@ -394,25 +458,30 @@ extern "C" int odefunc_backward(
     int B, int H, int W, int C, int G, void* stream) {
   using namespace nodef;
   if (!bwd_shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(H, W, C, G);
+  const Shape s = bwd_shape(H, W, C, G);
   if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
-  if (u_global(s) && ug == nullptr) return (int)cudaErrorInvalidValue;
+  if (s.ug && ug == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(s);
-  const auto sample = wide_shape(s) ? bwd_sample_kernel<true> : bwd_sample_kernel<false>;
+  const auto sample = !wide_shape(s) ? bwd_sample_kernel<false, false>
+                      : s.xg        ? bwd_sample_kernel<true, true>
+                                    : bwd_sample_kernel<true, false>;
   cudaError_t err =
       cudaFuncSetAttribute(sample, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   sample<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, f, dh, dt, r1, r2, gu, gv,
-                                    part, u_global(s) ? ug : nullptr);
+                                    part, s.ug ? ug : nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int tile = weight_tile(C);
   const dim3 wgrid(2 * 9 * kSplit, C / tile, C / tile);
+  const bool two = wide_shape(s);
   if (tile == 64)
-    bwd_weight_kernel<64><<<wgrid, 16 * 16, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
+    (two ? bwd_weight_kernel<64, true> : bwd_weight_kernel<64, false>)
+        <<<wgrid, 16 * 16, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
   else
-    bwd_weight_kernel<32><<<wgrid, 8 * 8, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
+    (two ? bwd_weight_kernel<32, true> : bwd_weight_kernel<32, false>)
+        <<<wgrid, 8 * 8, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int total = 2 * 9 * (C + 1) * C + 8 * C;
   bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(wpart, part, s, B, dk1, dk2, dvec);

@@ -13,14 +13,17 @@
 //
 // Layout: the state of one sample is NHWC-flat, element e = (y*W + x)*C + c,
 // the same order as the port's public (B, H*W*C) solver state, so the
-// kernels read and write the solver's tensors directly.
+// kernels read and write the solver's tensors directly.  Thread tid visits
+// the elements e = tid + j*kThreads (coalesced); where C divides kThreads
+// they all lie in the channel tid % C, elsewhere (C = 96, 160, ...) the
+// channel steps along with j (Walk).
 //
 // The conv has two stages; which one a kernel runs is decided from the shape
 // alone (make_shape, mirrored by kernels/odefunc.py `stage`):
 //
-//   * conv3x3_mma (C = 64, 128 or 256 and H*(W+2) <= 64: 7x7 and 6x6 maps):
-//     an implicit GEMM on the tensor cores, mma.sync.m16n8k8 TF32 with f32
-//     accumulation
+//   * conv3x3_mma (C a multiple of 32 from 64 to 512 and H*(W+2) <= 64: 7x7
+//     and 6x6 maps): an implicit GEMM on the tensor cores, mma.sync.m16n8k8
+//     TF32 with f32 accumulation
 //     and "3xTF32" error compensation.  Every f32 operand x is split in
 //     registers into a TF32 head hi = rna(x) (round to nearest, ties away)
 //     and a tail lo = x - hi, of which the tensor core reads the TF32 part;
@@ -32,17 +35,23 @@
 //     (ky, kx) are the rows q + ky*(W+2) + kx of the zero-bordered spad:
 //     one uniform row stride and no gather.  N = C in blocks of 64 output
 //     channels, one after the other; K = 9*C as (tap, 64-channel input
-//     block) tiles.  The 16 warps tile a 64x64 output block as 2 (M) x 4 (N)
+//     block) tiles.  Where C is not a multiple of 64 the last block is
+//     padded: spad's channels C..64*nblk-1 stay zero, the weight tiles'
+//     rows and columns beyond C are zero-filled by cp.async, the k half of
+//     a tile that lies wholly beyond C is skipped (it adds exact zeros) and
+//     output channels >= C are dropped.  The 16 warps tile a 64x64 output
+//     block as 2 (M) x 4 (N)
 //     warps of 32x16, times 2 halves of every tile's input channels; the two
 //     halves' partial sums are added through shared memory, first half +
 //     second half.  Within a k8
 //     step a thread's two k columns are (2t, 2t+1), not (t, t+4) (A and B
 //     agree, and a sum over k has no order), which makes each A fragment row
-//     one 8-byte load.  spad rows are C + 8 floats apart and weight rows 68
-//     or 72, so that no fragment load has a bank conflict.  The f32 weights
-//     of a (64, 64) tile are staged by cp.async through a ring of three
-//     buffers, two tiles ahead of the products; they are never split in
-//     global memory.
+//     one 8-byte load.  spad rows are 64*nblk + 8 floats apart and weight
+//     rows 68 or 72, so that no fragment load has a bank conflict.  The f32
+//     weights of a (64, 64) tile are staged by cp.async through a ring of
+//     three buffers, two tiles ahead of the products (two buffers, one tile
+//     ahead, where shared memory is short: fit_layout); they are never
+//     split in global memory.
 //   * conv3x3 (every other supported shape, and the probe's tap9 baseline):
 //     strict f32 FFMA on the CUDA cores, thread -> (output channel
 //     co = tid % C, pixel group pg = tid / C), at most kMaxPix pixels per
@@ -61,16 +70,17 @@
 namespace nodef {
 
 constexpr int kThreads = 512;  // threads per CTA, one CTA per sample
+constexpr int kMaxC = 512;     // the widest C (the JAX kernels' gate too)
 constexpr int kMaxPix = 8;     // FFMA conv: output pixels per thread
 constexpr float kEps = 1e-5f;  // GroupNorm epsilon
 
 constexpr int kMmaC = 64;      // channels of one block of the tensor-core stage
-constexpr int kMmaMaxC = 256;  // the widest C it takes (4 x 4 blocks)
+constexpr int kMmaStep = 32;   // its C granularity: one k half of a block
 constexpr int kMmaM = 64;      // padded-pitch positions of its M tile
 constexpr int kPadA = 8;       // floats added to spad's row pitch
 constexpr int kPitchB = 68;    // weight row pitch, tap stored (ci, co)
 constexpr int kPitchBT = 72;   // weight row pitch, tap stored (co, ci)
-constexpr int kRing = 3;       // weight buffers in flight
+constexpr int kRing = 3;       // weight buffers in flight (2 where short)
 
 // Parameters of the ODEfunc, device pointers, all f32 and contiguous.
 struct Odefunc {
@@ -83,15 +93,22 @@ struct Odefunc {
   const float* n3s; const float* n3b;
 };
 
-// P: spad's row pitch in floats, R: its rows, mma: the conv stage.  C and G
-// are powers of two (C divides kThreads, G divides C): lc = log2 C,
-// lgs = log2 (C / G).  wmagic, pmagic: ceil(2^32 / W) and ceil(2^32 / (W+2)),
-// which turn the per-element divisions by the map's width into a multiply
-// (div_magic), exact for numerators below 2^16.
+// P: spad's row pitch in floats, R: its rows, mma: the conv stage, nblk: its
+// 64-channel blocks (ceil(C / 64)).  npg = kThreads / C (floor) pixel
+// groups of C threads each; gs = C / G channels per group; cdiv: C divides
+// kThreads (a power of two, as is gs then), with lc = log2 C and
+// lgs = log2 gs (the narrow build's shifts); dc = kThreads % C, the
+// channel step of Walk.  ring: weight
+// buffers of the tensor-core stage; xg (and, in the backward, ug): the
+// state x (the conv1 output u) lives in per-sample global scratch in place
+// of shared memory (fit_layout).  cmagic, gmagic, wmagic, pmagic, bmagic:
+// ceil(2^32 / d) for d = C, gs, W, W+2 and nblk, which turn the divisions
+// by them into a multiply (div_magic).
 struct Shape {
-  int H, W, C, G, P, R, mma;
-  int lc, lgs;
-  unsigned wmagic, pmagic;
+  int H, W, C, G, P, R, mma, nblk;
+  int npg, gs, cdiv, dc, lc, lgs;
+  int ring, xg, ug;
+  unsigned cmagic, gmagic, wmagic, pmagic, bmagic;
 };
 
 inline int log2_floor(int v) {
@@ -104,49 +121,41 @@ inline unsigned magic_of(int d) {  // d == 1 has no 32-bit magic: see div_magic
   return d > 1 ? (unsigned)(((1ull << 32) + d - 1) / d) : 0u;
 }
 
-// The shapes the tensor-core stage takes: C a power of two from 64 to 256
-// (whole 64-channel blocks; C = 512 does not fit one CTA's shared memory),
-// and the map's padded-pitch positions within one 64-row tile.
-// kernels/odefunc.py (stage) is the same gate in Python.
+// The shapes the tensor-core stage takes: C a multiple of 32 from 64 to 512
+// (64-channel blocks, the last one padded where C % 64 == 32), and the map's
+// padded-pitch positions within one 64-row tile.  kernels/odefunc.py
+// (stage) is the same gate in Python.
 inline bool mma_ok(int H, int W, int C) {
-  return C >= kMmaC && C <= kMmaMaxC && (C & (C - 1)) == 0 && H >= 1 && W >= 1 &&
+  return C >= kMmaC && C <= kMaxC && C % kMmaStep == 0 && H >= 1 && W >= 1 &&
          H * (W + 2) <= kMmaM;
 }
 
 // spad of the tensor-core stage has slack rows at its end: the last M-tile
 // rows read up to row kMmaM - 1 + 2*(W+2) + 2.
 inline Shape ffma_shape(int H, int W, int C, int G) {
-  const int gs = G > 0 && C >= G ? C / G : 1;
-  return Shape{H, W, C, G, C, (H + 2) * (W + 2), 0, log2_floor(C > 0 ? C : 1),
-               log2_floor(gs), magic_of(W), magic_of(W + 2)};
-}
-
-inline Shape make_shape(int H, int W, int C, int G) {
-  Shape s = ffma_shape(H, W, C, G);
-  if (mma_ok(H, W, C)) {
-    s.P = C + kPadA;
-    s.R = kMmaM + 2 * (W + 2) + 2;
-    s.mma = 1;
-  }
-  return s;
+  const int c = C > 0 ? C : 1, gs = G > 0 && C >= G ? C / G : 1;
+  return Shape{H, W, C, G, C, (H + 2) * (W + 2), 0, 1,
+               kThreads / c, gs, kThreads % c == 0, kThreads % c,
+               log2_floor(c), log2_floor(gs), kRing, 0, 0,
+               magic_of(c), magic_of(gs), magic_of(W), magic_of(W + 2), 0u};
 }
 
 // Floats of the weight buffers: the ring of the tensor-core stage (which
 // also holds the 64x64 partial sums of the second k half), or the FFMA
 // stage's double buffer.
 inline size_t weight_floats(const Shape& s) {
-  return s.mma ? (size_t)kRing * kMmaC * kPitchBT : 2 * (size_t)s.C * s.C;
+  return s.mma ? (size_t)s.ring * kMmaC * kPitchBT : 2 * (size_t)s.C * s.C;
 }
 
 // Dynamic shared memory, in floats, in this order:
-//   sx    [H*W*C]       pre-norm state of the sample
+//   sx    [H*W*C]       pre-norm state of the sample, unless xg
 //   spad  [R*P]         relu(GN(.)) with a zero border: the conv input
 //   sw    [weight_floats]
 //   sred  [2*kThreads]  per-(pixel group, channel) partial sums, two buffers
 //   smean [G], sinv [G] group statistics
-// kernels/odefunc.py (smem_bytes) mirrors this formula for the gate.
+// kernels/odefunc.py (layout) mirrors this formula for the gate.
 inline size_t odefunc_smem_bytes(const Shape& s) {
-  return sizeof(float) * ((size_t)s.H * s.W * s.C + (size_t)s.R * s.P +
+  return sizeof(float) * ((s.xg ? 0 : (size_t)s.H * s.W * s.C) + (size_t)s.R * s.P +
                           weight_floats(s) + 2 * kThreads + 2 * (size_t)s.G);
 }
 
@@ -154,38 +163,77 @@ inline size_t odefunc_smem_bytes(const Shape& s) {
 // 1 KB for the rk-step kernel's static tableau.
 constexpr size_t kMaxSmem = 232448 - 1024;
 
-// Every kernel is compiled twice, by its conv stage's width (the template
-// argument kWide of each kernel; the launcher picks by wide_shape):
+// Every kernel is compiled three times, by its conv stage's width and where
+// the state x lives (the template arguments kWide, kXg of each kernel; the
+// launcher picks by wide_shape and s.xg):
 //   narrow (the FFMA stage, or the tensor cores at C = 64):
-//     __launch_bounds__(kThreads, 2), at most 64 registers a thread, and the
-//     tensor-core stage's block loops folded to one block at compile time;
-//   wide (the tensor cores at C = 128 and 256, whose working set fills an
-//     SM's shared memory alone): __launch_bounds__(kThreads, 1), up to 128.
+//     __launch_bounds__(kThreads, 2), at most 64 registers a thread, the
+//     tensor-core stage's block loops folded to one block and its ring to
+//     three buffers at compile time, and C dividing kThreads;
+//   wide (the tensor cores at C = 96 to 512, whose working set fills an
+//     SM's shared memory alone): __launch_bounds__(kThreads, 1), up to 128;
+//   wide with x in global scratch (fit_layout's xg): the same, with x's
+//     loads and stores global ones.  x's home is known at compile time in
+//     every build, so that the others address it in shared memory.
 inline bool wide_shape(const Shape& s) { return s.mma && s.C > kMmaC; }
 constexpr int min_blocks(bool wide) { return wide ? 1 : 2; }
 
-// The shapes the kernels take; kernels/odefunc.py (supported) is the same
+// The layout of a wide shape whose working set bytes(s) does not fit: first
+// u (the backward's conv1 output, where with_u), then x move to per-sample
+// global scratch, then the weight ring drops to two buffers.  The values do
+// not depend on the layout.  kernels/odefunc.py (layout) mirrors it.
+template <class Bytes>
+inline void fit_layout(Shape& s, bool with_u, Bytes bytes) {
+  if (!wide_shape(s)) return;
+  if (with_u && bytes(s) > kMaxSmem) s.ug = 1;
+  if (bytes(s) > kMaxSmem) s.xg = 1;
+  if (bytes(s) > kMaxSmem) s.ring = 2;
+}
+
+inline Shape make_shape(int H, int W, int C, int G) {
+  Shape s = ffma_shape(H, W, C, G);
+  if (mma_ok(H, W, C)) {
+    s.nblk = (C + kMmaC - 1) / kMmaC;
+    s.P = s.nblk * kMmaC + kPadA;
+    s.R = kMmaM + 2 * (W + 2) + 2;
+    s.mma = 1;
+    s.bmagic = magic_of(s.nblk);
+  }
+  fit_layout(s, false, odefunc_smem_bytes);
+  return s;
+}
+
+// The shapes the kernels take; kernels/odefunc.py (refusal) is the same
 // gate in Python.  layout_ok: a shape under a given layout (make_shape's, or
 // ffma_shape's for the probe's FFMA baseline).
 inline bool layout_ok(const Shape& s) {
-  if (s.H < 1 || s.W < 1 || s.C < 4 || s.G < 1 || s.C % 4 || kThreads % s.C || s.C % s.G)
+  if (s.H < 1 || s.W < 1 || s.C < 4 || s.G < 1 || s.C % 4 || s.C % s.G || s.C > kMaxC)
     return false;
+  if (!s.mma && !s.cdiv) return false;  // FFMA: thread -> (channel, pixel group)
   if (odefunc_smem_bytes(s) > kMaxSmem) return false;
   if (s.mma) return true;
-  const int npg = kThreads / s.C;
-  return (s.H * s.W + npg - 1) / npg <= kMaxPix;
+  return (s.H * s.W + s.npg - 1) / s.npg <= kMaxPix;
 }
 
 inline bool shape_ok(int H, int W, int C, int G) { return layout_ok(make_shape(H, W, C, G)); }
 
 struct Smem { float* sx; float* spad; float* sw; float* sred; float* smean; float* sinv; };
 
-__device__ __forceinline__ Smem carve(float* base, const Shape& s) {
+// XG: the sample's global scratch xg (H*W*C floats) stands in for sx
+// (s.xg); written and read back by this CTA only.
+template <bool XG>
+__device__ __forceinline__ Smem carve(float* base, const Shape& s, float* xg) {
   Smem m;
-  m.sx = base;
-  m.spad = m.sx + s.H * s.W * s.C;
+  float* p = base;
+  if (XG) {
+    m.sx = xg;
+  } else {
+    m.sx = p;
+    p += s.H * s.W * s.C;
+  }
+  m.spad = p;
   m.sw = m.spad + s.R * s.P;
-  m.sred = m.sw + (s.mma ? kRing * kMmaC * kPitchBT : 2 * s.C * s.C);
+  m.sred = m.sw + (s.mma ? s.ring * kMmaC * kPitchBT : 2 * s.C * s.C);
   m.smean = m.sred + 2 * kThreads;
   m.sinv = m.smean + s.G;
   return m;
@@ -194,6 +242,13 @@ __device__ __forceinline__ Smem carve(float* base, const Shape& s) {
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+// The same copy, or 16 zero bytes where !valid (a source size of 0 reads
+// nothing).
+__device__ __forceinline__ void cp_async16_zfill(float* smem, const float* gmem, bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -205,8 +260,9 @@ __device__ __forceinline__ void cp_async_wait_but_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Zero the padded conv input once per launch; only its interior is written
-// afterwards, so the border (and the slack rows) stay zero (SAME padding).
+// Zero the padded conv input once per launch; only its interior's channels
+// < C are written afterwards, so the border, the padding channels of the
+// tensor-core stage and the slack rows stay zero (SAME padding).
 __device__ __forceinline__ void zero_pad(const Smem& m, const Shape& s) {
   const int n = s.R * s.P;
   for (int i = threadIdx.x; i < n; i += kThreads) m.spad[i] = 0.f;
@@ -217,75 +273,165 @@ __device__ __forceinline__ int div_magic(int q, unsigned magic) {
   return magic ? (int)__umulhi((unsigned)q, magic) : q;
 }
 
+// The elements e = tid + j*kThreads of one sample in order, with their
+// pixel q(s) = e / C and channel c(s) = e % C.  CDIV: C divides kThreads
+// (s.cdiv), a power of two: both by shifts of e, and c is the thread's
+// channel.  Else they are stepped along with e, without a division.
+template <bool CDIV>
+struct Walk;
+
+template <>
+struct Walk<true> {
+  int e;
+  __device__ __forceinline__ explicit Walk(const Shape&) : e(threadIdx.x) {}
+  __device__ __forceinline__ void next(const Shape&) { e += kThreads; }
+  __device__ __forceinline__ int q(const Shape& s) const { return e >> s.lc; }
+  __device__ __forceinline__ int c(const Shape& s) const { return e & (s.C - 1); }
+};
+
+template <>
+struct Walk<false> {
+  int e, q_, c_;
+  __device__ __forceinline__ explicit Walk(const Shape& s)
+      : e(threadIdx.x), q_(div_magic(threadIdx.x, s.cmagic)), c_(threadIdx.x - q_ * s.C) {}
+  __device__ __forceinline__ void next(const Shape& s) {
+    e += kThreads;
+    q_ += s.npg;
+    c_ += s.dc;
+    if (c_ >= s.C) {
+      c_ -= s.C;
+      ++q_;
+    }
+  }
+  __device__ __forceinline__ int q(const Shape&) const { return q_; }
+  __device__ __forceinline__ int c(const Shape&) const { return c_; }
+};
+
+// The thread's pixel group pg = tid / C and channel c = tid % C, and the
+// GroupNorm group of a channel: shifts in the narrow build, where C and gs
+// are powers of two.
+template <bool WIDE>
+__device__ __forceinline__ void thread_slot(const Shape& s, int& pg, int& c) {
+  const int tid = threadIdx.x;
+  pg = WIDE ? div_magic(tid, s.cmagic) : tid >> s.lc;
+  c = WIDE ? tid - pg * s.C : tid & (s.C - 1);
+}
+template <bool WIDE>
+__device__ __forceinline__ int group_of(const Shape& s, int c) {
+  return WIDE ? div_magic(c, s.gmagic) : c >> s.lgs;
+}
+
+// f(w) at every element w of the thread (Walk); the narrow build knows that
+// C divides kThreads.
+template <bool WIDE, class F>
+__device__ __forceinline__ void each_element(const Shape& s, F f) {
+  const int n = s.H * s.W * s.C;
+  if (!WIDE || s.cdiv) {
+    for (Walk<true> w(s); w.e < n; w.next(s)) f(w);
+  } else {
+    for (Walk<false> w(s); w.e < n; w.next(s)) f(w);
+  }
+}
+
+// Index in spad of pixel q, channel c.
+__device__ __forceinline__ int pad_at(const Shape& s, int q, int c) {
+  const int y = div_magic(q, s.wmagic);
+  return ((y + 1) * (s.W + 2) + q - y * s.W + 1) * s.P + c;
+}
+
 // Index in spad of the state element e = (y*W + x)*C + c.
 __device__ __forceinline__ int pad_index(const Shape& s, int e) {
-  const int c = e & (s.C - 1), q = e >> s.lc, y = div_magic(q, s.wmagic);
-  return ((y + 1) * (s.W + 2) + q - y * s.W + 1) * s.P + c;
+  const int q = div_magic(e, s.cmagic);
+  return pad_at(s, q, e - q * s.C);
 }
 
 // Mean and 1/sqrt(var + eps) of one GroupNorm group.
 struct Stat { float mean, inv; };
 
-// Group statistics of x (H*W*C, NHWC), centred variance.  Returns those of
-// the group of the thread's channel tid % C (every element e = tid + j *
-// kThreads and e = p*C + tid % C of a thread lies in that channel), and
-// writes all groups' to mean/inv.  Starts reading x (the caller has
-// synchronised); the caller synchronises before anyone reads mean/inv.
-// Sums: per (pixel group, channel) over its pixels, then over pixel groups
-// and the group's channels, in that order.
+// Group statistics of x (H*W*C, NHWC), centred variance.  Thread tid stands
+// for channel c = tid % C of pixel group tid / C; the npg*C threads of
+// whole pixel groups add, the rest (C not dividing kThreads) add nothing.
+// Returns the statistics of the group of the thread's channel (those of
+// every element the thread visits where C divides kThreads), and writes all
+// groups' to mean/inv.  Starts reading x (the caller has synchronised);
+// where C does not divide kThreads it ends synchronised (mean/inv visible),
+// else the caller synchronises before anyone reads mean/inv.  Sums: per
+// (pixel group, channel) over its pixels, then over pixel groups and the
+// group's channels, in that order.
+template <bool WIDE>
 __device__ Stat gn_stats(const Smem& m, const Shape& s, const float* x,
                          float* mean, float* inv) {
-  const int tid = threadIdx.x, C = s.C, c = tid & (C - 1), pg = tid >> s.lc;
-  const int npg = kThreads >> s.lc, hw = s.H * s.W, gs = 1 << s.lgs, g0 = (c >> s.lgs) << s.lgs;
+  const int tid = threadIdx.x, C = s.C;
+  int pg, c;
+  thread_slot<WIDE>(s, pg, c);
+  const int npg = WIDE ? s.npg : kThreads >> s.lc, hw = s.H * s.W;
+  const int gs = WIDE ? s.gs : 1 << s.lgs, grp = group_of<WIDE>(s, c);
+  const int g0 = WIDE ? grp * gs : grp << s.lgs;
+  const bool on = !WIDE || pg < npg;  // the narrow build: C divides kThreads
   const float n = (float)(hw * gs);
   float* red2 = m.sred + kThreads;
 
   float acc = 0.f;
-  for (int p = pg; p < hw; p += npg) acc += x[p * C + c];
+  if (on)
+    for (int p = pg; p < hw; p += npg) acc += x[p * C + c];
   m.sred[tid] = acc;  // tid == pg * C + c
   __syncthreads();
   float tot = 0.f;
-  for (int q = 0; q < npg; ++q)
-    for (int j = 0; j < gs; ++j) tot += m.sred[q * C + g0 + j];
+  if (on)
+    for (int q = 0; q < npg; ++q)
+      for (int j = 0; j < gs; ++j) tot += m.sred[q * C + g0 + j];
   Stat st;
   st.mean = tot / n;
 
   acc = 0.f;
-  for (int p = pg; p < hw; p += npg) {
-    const float d = x[p * C + c] - st.mean;
-    acc = fmaf(d, d, acc);
-  }
+  if (on)
+    for (int p = pg; p < hw; p += npg) {
+      const float d = x[p * C + c] - st.mean;
+      acc = fmaf(d, d, acc);
+    }
   red2[tid] = acc;
   __syncthreads();
   tot = 0.f;
-  for (int q = 0; q < npg; ++q)
-    for (int j = 0; j < gs; ++j) tot += red2[q * C + g0 + j];
+  if (on)
+    for (int q = 0; q < npg; ++q)
+      for (int j = 0; j < gs; ++j) tot += red2[q * C + g0 + j];
   st.inv = 1.0f / sqrtf(tot / n + kEps);
   if (pg == 0 && c == g0) {
-    mean[c >> s.lgs] = st.mean;
-    inv[c >> s.lgs] = st.inv;
+    mean[grp] = st.mean;
+    inv[grp] = st.inv;
   }
+  if (WIDE && !s.cdiv) __syncthreads();
   return st;
 }
 
-// Normalised value x-hat at element e of x, from gn_stats' mean/inv.
-__device__ __forceinline__ float gn_hat(const Shape& s, const float* x,
-                                        const float* mean, const float* inv, int e) {
-  const int g = (e & (s.C - 1)) >> s.lgs;
-  return (x[e] - mean[g]) * inv[g];
+// f(w, y) with y = GN(x) (scale, bias) at every element w of the thread,
+// from gn_stats' st (C dividing kThreads) or mean/inv (elsewhere).
+template <bool WIDE, class F>
+__device__ __forceinline__ void gn_apply(const Shape& s, Stat st, const float* mean,
+                                         const float* inv, const float* __restrict__ scale,
+                                         const float* __restrict__ bias, const float* x, F f) {
+  const int n = s.H * s.W * s.C;
+  if (!WIDE || s.cdiv) {  // every element lies in the channel tid % C
+    const int c = threadIdx.x & (s.C - 1);
+    const float sc = scale[c], bi = bias[c];
+    for (Walk<true> w(s); w.e < n; w.next(s)) f(w, (x[w.e] - st.mean) * st.inv * sc + bi);
+  } else {
+    for (Walk<false> w(s); w.e < n; w.next(s)) {
+      const int c = w.c(s), g = div_magic(c, s.gmagic);
+      f(w, (x[w.e] - mean[g]) * inv[g] * scale[c] + bias[c]);
+    }
+  }
 }
 
-// spad interior = relu(GN(x)) with st the statistics of the thread's
-// channel.  NaN passes through, as in torch.relu.
+// spad interior = relu(GN(x)), from gn_stats' result.  NaN passes through,
+// as in torch.relu.
+template <bool WIDE>
 __device__ void gn_relu_to_pad(const Smem& m, const Shape& s, const float* x, Stat st,
                                const float* __restrict__ scale,
                                const float* __restrict__ bias) {
-  const int n = s.H * s.W * s.C, c = threadIdx.x & (s.C - 1);
-  const float sc = scale[c], bi = bias[c];
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const float v = (x[e] - st.mean) * st.inv * sc + bi;
-    m.spad[pad_index(s, e)] = v < 0.f ? 0.f : v;
-  }
+  gn_apply<WIDE>(s, st, m.smean, m.sinv, scale, bias, x, [&](const auto& w, float v) {
+    m.spad[pad_at(s, w.q(s), w.c(s))] = v < 0.f ? 0.f : v;
+  });
 }
 
 // ---- FFMA stage -----------------------------------------------------------
@@ -399,25 +545,38 @@ __device__ __forceinline__ float2 lds2(uint32_t addr) {
 }
 
 // Stage one (64, 64) f32 weight tile, rows `ld` floats apart in global
-// memory, into a buffer with rows `pitch` floats apart.
+// memory, into a buffer with rows `pitch` floats apart.  PAD: only `rows`
+// rows and `cols` columns lie inside the weights (C is not a multiple of
+// 64); the rest is zero-filled, each 16-byte chunk wholly in or out.
+template <bool PAD>
 __device__ __forceinline__ void load_tile_mma(float* dst, const float* __restrict__ src,
-                                              int ld, int pitch) {
-  for (int i = threadIdx.x; i < kMmaC * kMmaC / 4; i += kThreads)
-    cp_async16(dst + (i >> 4) * pitch + (i & 15) * 4, src + (i >> 4) * ld + (i & 15) * 4);
+                                              int ld, int pitch, int rows, int cols) {
+  for (int i = threadIdx.x; i < kMmaC * kMmaC / 4; i += kThreads) {
+    const int r = i >> 4, c4 = (i & 15) * 4;
+    if (PAD) {
+      const bool in = r < rows && c4 < cols;
+      cp_async16_zfill(dst + r * pitch + c4, in ? src + r * ld + c4 : src, in);
+    } else {
+      cp_async16(dst + r * pitch + c4, src + r * ld + c4);
+    }
+  }
   cp_async_commit();
 }
 
 // 3x3 SAME conv of spad on the tensor cores (see the head of this file),
 // with the contract of conv3x3: epi(p, co, sum) once per output pixel p and
-// channel co; the caller synchronises before and after.  PASSES = 3: 3xTF32,
-// f32-grade; PASSES = 1: the head product alone (plain TF32; a timing and
-// accuracy reading of the probe, on no path).  BT = false: w is (9, ci, co),
-// tap order as stored.  BT = true: the taps are read in reverse order and
-// each as (co, ci), i.e. the conv with the tap-flipped, transposed kernel
-// (the input gradient of the conv with w).  WIDE = false: C = 64 is known.
+// channel co < C; the caller synchronises before and after.  PASSES = 3:
+// 3xTF32, f32-grade; PASSES = 1: the head product alone (plain TF32; a
+// timing and accuracy reading of the probe, on no path).  BT = false: w is
+// (9, ci, co), tap order as stored.  BT = true: the taps are read in reverse
+// order and each as (co, ci), i.e. the conv with the tap-flipped, transposed
+// kernel (the input gradient of the conv with w).  WIDE = false: C = 64 is
+// known.  GENERAL: the last block may be padded and the ring may hold two
+// buffers (both read from s); else the blocks are whole and the ring holds
+// kRing, known at compile time (mma_stage picks).
 //
-// Loops: over the C/64 blocks of output channels nb; within one, over the
-// 9*C/64 tiles i = (tap, input block kb), tap-major, each tile's (64, 64)
+// Loops: over the nblk blocks of output channels nb; within one, over the
+// 9*nblk tiles i = (tap, input block kb), tap-major, each tile's (64, 64)
 // weights w[tap][kb block][nb block] (BT: w[8 - tap][nb block][kb block]).
 // At C = 64 there is one block and the tiles are the nine taps.
 //
@@ -428,18 +587,23 @@ __device__ __forceinline__ void load_tile_mma(float* dst, const float* __restric
 // The tensor core's own accumulation truncates, so a chain over all nine
 // taps would carry a bias of a few 1e-6 of the sum; a chain of one tile (32
 // channels, as at C = 64) does not, at any C.
-template <int PASSES, bool BT, bool WIDE, class Epi>
+template <int PASSES, bool BT, bool WIDE, bool GENERAL, class Epi>
 __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restrict__ w,
                             Epi epi) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int kg = warp >> 3, wm = (warp >> 2) & 1, wn = warp & 3;
   const int Wp = s.W + 2, P = s.P, C = WIDE ? s.C : kMmaC;
-  const int lkb = WIDE ? s.lc - 6 : 0, nblk = 1 << lkb, ntile = 9 << lkb;  // C = 64 << lkb
+  const int nblk = WIDE ? s.nblk : 1, ntile = 9 * nblk, ring = GENERAL ? s.ring : kRing;
+  const bool pad = GENERAL && C % kMmaC != 0;  // the last block is padded
   constexpr int pitch = BT ? kPitchBT : kPitchB, stage = kMmaC * kPitchBT;
-  auto tile_src = [&](int i, int nb) {
-    const int tap = i >> lkb, kb = i & (nblk - 1), rb = BT ? nb : kb, cb = BT ? kb : nb;
-    return w + (size_t)(BT ? 8 - tap : tap) * C * C + (size_t)rb * kMmaC * C + cb * kMmaC;
+  // Tile i of output block nb into ring buffer buf.
+  auto load_tile = [&](int i, int nb, int buf) {
+    const int tap = WIDE ? div_magic(i, s.bmagic) : i, kb = i - tap * nblk;
+    const int rb = BT ? nb : kb, cb = BT ? kb : nb;
+    const float* src = w + (size_t)(BT ? 8 - tap : tap) * C * C + (size_t)rb * kMmaC * C + cb * kMmaC;
+    if (pad) load_tile_mma<true>(m.sw + buf * stage, src, C, pitch, C - rb * kMmaC, C - cb * kMmaC);
+    else load_tile_mma<false>(m.sw + buf * stage, src, C, pitch, 0, 0);
   };
   // Byte addresses in shared memory of this thread's first A element (row g
   // of the warp's first m16 tile at tap (0, 0), k column 32*kg + 2t) and of
@@ -458,16 +622,19 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
 #pragma unroll
         for (int r = 0; r < 4; ++r) run[i][j][r] = 0.f;
 
-    load_tile_mma(m.sw, tile_src(0, nb), C, pitch);
-    load_tile_mma(m.sw + stage, tile_src(1, nb), C, pitch);
-    for (int tile = 0; tile < ntile; ++tile) {
-      if (tile + 1 < ntile) cp_async_wait_but_one(); else cp_async_wait_all();
+    for (int i = 0; i < ring - 1; ++i) load_tile(i, nb, i);
+    // wbuf: the ring buffer of the tile where the ring depth is read from s
+    // (GENERAL); else tile % kRing.
+    for (int tile = 0, wbuf = 0; tile < ntile;
+         ++tile, wbuf = GENERAL && wbuf + 1 < ring ? wbuf + 1 : 0) {
+      const int buf = GENERAL ? wbuf : tile % kRing;
+      if (ring == 3 && tile + 1 < ntile) cp_async_wait_but_one(); else cp_async_wait_all();
       __syncthreads();  // the tile's weights visible; the buffer of tile - 1 is free
-      if (tile + 2 < ntile)
-        load_tile_mma(m.sw + ((tile + 2) % kRing) * stage, tile_src(tile + 2, nb), C, pitch);
-      const int tap = tile >> lkb, kb = tile & (nblk - 1);
+      if (tile + ring - 1 < ntile) load_tile(tile + ring - 1, nb, buf == 0 ? ring - 1 : buf - 1);
+      const int tap = WIDE ? div_magic(tile, s.bmagic) : tile, kb = tile - tap * nblk;
+      if (pad && kb * kMmaC + 32 * kg >= C) continue;  // a k half of zeros
       const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P + kb * kMmaC);
-      const uint32_t b_tap = b_thread + 4u * ((tile % kRing) * stage);
+      const uint32_t b_tap = b_thread + 4u * (buf * stage);
       float acc[2][2][4];
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
@@ -548,9 +715,9 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
           for (int j = 0; j < 2; ++j)
 #pragma unroll
             for (int l = 0; l < 2; ++l) {
-              const int r = 2 * h + l;
+              const int r = 2 * h + l, co = nb * kMmaC + 16 * wn + 8 * j + 2 * t + l;
               const float v = run[i][j][r] + red[((i * 2 + j) * 4 + r) * 256];
-              if (real) epi(y * s.W + x, nb * kMmaC + 16 * wn + 8 * j + 2 * t + l, v);
+              if (real && (!pad || co < C)) epi(y * s.W + x, co, v);
             }
         }
     }
@@ -560,12 +727,28 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
 
 // ---- both stages ----------------------------------------------------------
 
+// The tensor-core stage at the shape's block padding and ring depth: the
+// whole-block shapes with a ring of kRing (7x7: C = 64 to 448 in steps of
+// 64) run a tile loop that reads neither from s, the others the GENERAL
+// one.
+template <int PASSES, bool BT, bool WIDE, class Epi>
+__device__ __forceinline__ void mma_stage(const Smem& m, const Shape& s,
+                                          const float* __restrict__ w, Epi epi) {
+  if constexpr (WIDE) {
+    if (s.C % kMmaC || s.ring != kRing) {
+      conv3x3_mma<PASSES, BT, true, true>(m, s, w, epi);
+      return;
+    }
+  }
+  conv3x3_mma<PASSES, BT, WIDE, false>(m, s, w, epi);
+}
+
 // The conv stage of the shape: tensor cores (3xTF32) where make_shape says
 // so, else FFMA.  WIDE: wide_shape(s).
 template <bool WIDE, class Epi>
 __device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
                                            const float* __restrict__ w, Epi epi) {
-  if (s.mma) conv3x3_mma<3, false, WIDE>(m, s, w, epi);
+  if (s.mma) mma_stage<3, false, WIDE>(m, s, w, epi);
   else conv3x3(m, s, w, epi);
 }
 
@@ -588,21 +771,19 @@ __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
 template <bool WIDE, class Out>
 __device__ void odefunc_eval(const Smem& m, const Shape& s, const Odefunc& p,
                              float t, Out out) {
-  Stat st = gn_stats(m, s, m.sx, m.smean, m.sinv);
-  gn_relu_to_pad(m, s, m.sx, st, p.n1s, p.n1b);
+  Stat st = gn_stats<WIDE>(m, s, m.sx, m.smean, m.sinv);
+  gn_relu_to_pad<WIDE>(m, s, m.sx, st, p.n1s, p.n1b);
   __syncthreads();
   conv3x3_to_sx<WIDE>(m, s, p.w1, p.b1, p.m1, t);
   __syncthreads();
-  st = gn_stats(m, s, m.sx, m.smean, m.sinv);
-  gn_relu_to_pad(m, s, m.sx, st, p.n2s, p.n2b);
+  st = gn_stats<WIDE>(m, s, m.sx, m.smean, m.sinv);
+  gn_relu_to_pad<WIDE>(m, s, m.sx, st, p.n2s, p.n2b);
   __syncthreads();
   conv3x3_to_sx<WIDE>(m, s, p.w2, p.b2, p.m2, t);
   __syncthreads();
-  st = gn_stats(m, s, m.sx, m.smean, m.sinv);
-  const int n = s.H * s.W * s.C, c = threadIdx.x & (s.C - 1);
-  const float sc = p.n3s[c], bi = p.n3b[c];
-  for (int e = threadIdx.x; e < n; e += kThreads)
-    out(e, (m.sx[e] - st.mean) * st.inv * sc + bi);
+  st = gn_stats<WIDE>(m, s, m.sx, m.smean, m.sinv);
+  gn_apply<WIDE>(s, st, m.smean, m.sinv, p.n3s, p.n3b, m.sx,
+                 [&](const auto& w, float v) { out(w.e, v); });
 }
 
 }  // namespace nodef

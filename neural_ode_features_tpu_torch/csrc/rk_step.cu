@@ -18,11 +18,12 @@
 // and shared memory holds only one eval's working set; k7 is f1.
 //
 // The twelve 3x3 convs of an attempt are the conv stage of
-// odefunc_common.cuh: at C = 64, 128 and 256 on 7x7 and 6x6 maps mma.sync
-// TF32 products with 3xTF32 error compensation (f32-grade, so the
-// accept/reject decisions follow the f32 plain version's), at other shapes
-// f32 FFMA.  kWide: compiled for the wide stage (odefunc_common.cuh
-// wide_shape).
+// odefunc_common.cuh: at C = 64 to 512 (multiples of 32) on 7x7 and 6x6
+// maps mma.sync TF32 products with 3xTF32 error compensation (f32-grade, so
+// the accept/reject decisions follow the f32 plain version's), at other
+// shapes f32 FFMA.  kWide, kXg: the build (odefunc_common.cuh wide_shape).
+// Where the stage input y_i does not fit in shared memory (fit_layout, the
+// kXg build), the y1 output is its buffer until the last pass writes y1.
 #include <float.h>
 
 #include "odefunc_common.cuh"
@@ -36,7 +37,7 @@ struct Tableau {  // f32 coefficients, zero where a term is skipped
   float b[kStages], e[kStages], c[kStages], mid[kStages];
 };
 
-template <bool kWide>
+template <bool kWide, bool kXg>
 __global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
                const float* __restrict__ y0, const float* __restrict__ f0,
@@ -48,9 +49,9 @@ rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
                float* __restrict__ ratio) {
   extern __shared__ float4 smem_raw[];
   __shared__ Tableau st;
-  const Smem m = carve(reinterpret_cast<float*>(smem_raw), s);
   const int n = s.H * s.W * s.C, tid = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * n, plane = (size_t)gridDim.x * n;
+  const Smem m = carve<kXg>(reinterpret_cast<float*>(smem_raw), s, y1 + off);
   const float tb = t0[blockIdx.x], h = dt[blockIdx.x];
   const float rtol = rtol_b[blockIdx.x], atol = atol_b[blockIdx.x];
   const float* y0b = y0 + off;
@@ -143,7 +144,9 @@ extern "C" int rk_step_forward(
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(H, W, C, G);
   const size_t smem = odefunc_smem_bytes(s);
-  const auto kernel = wide_shape(s) ? rk_step_kernel<true> : rk_step_kernel<false>;
+  const auto kernel = !wide_shape(s) ? rk_step_kernel<false, false>
+                      : s.xg        ? rk_step_kernel<true, true>
+                                    : rk_step_kernel<true, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

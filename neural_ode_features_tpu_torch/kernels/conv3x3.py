@@ -11,7 +11,9 @@ time map: x (B, H, W, C) f32 NHWC, w (3, 3, C, C) f32 HWIO.  Strategies:
 ``'mma3'``    the shared device function ``conv3x3_mma`` of
               ``csrc/odefunc_common.cuh`` with a store epilogue: the conv
               stage of ``odefunc.cu``, ``rk_step.cu`` and ``odefunc_bwd.cu``
-              itself at C = 64, 128 and 256 on 7×7 and 6×6 maps.  An
+              itself at C = 64 to 512 (multiples of 32) on 7×7 and 6×6
+              maps; at C % 64 == 32 it is the direct check of the padded
+              last channel block.  An
               implicit GEMM on the tensor
               cores (``mma.sync.m16n8k8`` TF32, f32 accumulation) over the
               padded-pitch positions of one sample, with 3×TF32 error
@@ -159,9 +161,10 @@ def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
     ``im2col`` also needs C/4 to divide its 256 threads, at most 4 pixels
     per thread, and the patch matrix within the 227 KB of shared memory.
     ``mma3`` and ``mma1``: the tensor-core stage's gate
-    (``kernels.odefunc.stage``: C = 64, 128 or 256 and H·(W+2) ≤ 64) and its
-    working set within shared memory.  7×7×64 and 6×6×64 pass all four,
-    7×7×128 and 7×7×256 the tensor-core two."""
+    (``kernels.odefunc.stage``: C a multiple of 32 from 64 to 512 and
+    H·(W+2) ≤ 64) and its working set within shared memory
+    (``kernels.odefunc.layout``).  7×7×64 and 6×6×64 pass all four, 7×7×96
+    to 7×7×512 the tensor-core two."""
     if strategy in ("mma3", "mma1"):
         return (stage(hw, c) == "mma3"
                 and _fused_supported(hw, c, 1, "mma3"))

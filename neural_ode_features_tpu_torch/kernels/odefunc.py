@@ -13,16 +13,19 @@ cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): the two 3×3 convs are
 The design keeps the sample in shared memory for the whole chain (state,
 padded conv input, GroupNorm scratch) and streams each conv tap's f32
 weights into shared memory once per CTA (cp.async).  The convs have two
-stages, chosen from the shape alone (:func:`stage`): at C = 64, 128 or 256
-with H·(W+2) ≤ 64 (7×7 CIFAR-10 and 6×6 MNIST maps) an implicit GEMM on the
-tensor cores, ``mma.sync`` TF32 with 3×TF32 error compensation (each f32
-operand split into a TF32 head and tail, three products per pair, f32
-accumulation), which is f32-grade, in 64-channel blocks of output and input
-channels; at every other supported shape (C = 32, say) register-tiled f32
-FFMA.  At C = 128 and 256 one CTA fills an SM's shared memory, and the
+stages, chosen from the shape alone (:func:`stage`): at C a multiple of 32
+from 64 to 512 with H·(W+2) ≤ 64 (7×7 CIFAR-10 and 6×6 MNIST maps) an
+implicit GEMM on the tensor cores, ``mma.sync`` TF32 with 3×TF32 error
+compensation (each f32 operand split into a TF32 head and tail, three
+products per pair, f32 accumulation), which is f32-grade, in 64-channel
+blocks of output and input channels (the last one padded with zeros where
+C % 64 == 32); at every other supported shape (C = 32, say) register-tiled
+f32 FFMA.  From C = 96 one CTA fills an SM's shared memory, and the
 kernels run a second build of themselves for one CTA per SM (up to 128
 registers a thread); the other shapes keep two CTAs per SM and 64
-registers.
+registers.  Where a wide shape's working set outgrows the 227 KB
+(:func:`layout`), the state moves to per-sample global scratch and then the
+weight ring drops from three buffers to two: 7×7×512 runs that way.
 PyTorch's own TF32 switches stay off: the kernels' TF32 is explicit and
 compensated, a library's is not.
 
@@ -48,16 +51,18 @@ import torch
 from ..ops.layers import conv2d, group_norm, time_map
 from . import _build
 
-__all__ = ["OdefuncWeights", "prepare", "supported", "smem_bytes", "stage",
-           "odefunc", "odefunc_plain", "odefunc_autograd", "odefunc_vjp"]
+__all__ = ["OdefuncWeights", "Layout", "prepare", "supported", "refusal",
+           "layout", "smem_bytes", "stage", "odefunc", "odefunc_plain",
+           "odefunc_autograd", "odefunc_vjp"]
 
-# Mirrors csrc/odefunc_common.cuh (kThreads, kMaxPix, kMaxSmem; kMmaC,
-# kMmaMaxC, kMmaM, kPadA, kPitchBT, kRing of the tensor-core conv stage).
+# Mirrors csrc/odefunc_common.cuh (kThreads, kMaxC, kMaxPix, kMaxSmem;
+# kMmaC, kMmaStep, kMmaM, kPadA, kPitchBT, kRing of the tensor-core stage).
 THREADS = 512
+MAX_C = 512
 MAX_PIX = 8
 MAX_SMEM = 232448 - 1024
 MMA_C = 64
-MMA_MAX_C = 256
+MMA_STEP = 32
 MMA_M = 64
 PAD_A = 8
 PITCH_BT = 72
@@ -111,59 +116,113 @@ def prepare(params, hw: tuple[int, int]) -> OdefuncWeights:
 def stage(hw: tuple[int, int], c: int) -> str:
     """The conv stage the fused kernels run at this shape, decided by the
     shape alone (csrc/odefunc_common.cuh ``mma_ok``): ``'mma3'``, the
-    tensor-core stage, takes C a power of two from 64 to 256 (whole
-    64-channel blocks) and maps whose H·(W+2) padded-pitch positions fit its
-    64-row tile; everything else runs ``'ffma'``."""
+    tensor-core stage, takes C a multiple of 32 from 64 to 512 (64-channel
+    blocks, the last one padded where C % 64 == 32) and maps whose H·(W+2)
+    padded-pitch positions fit its 64-row tile; everything else runs
+    ``'ffma'``."""
     hh, ww = hw
-    if (MMA_C <= c <= MMA_MAX_C and c & (c - 1) == 0 and hh >= 1 and ww >= 1
+    if (MMA_C <= c <= MAX_C and c % MMA_STEP == 0 and hh >= 1 and ww >= 1
             and hh * (ww + 2) <= MMA_M):
         return "mma3"
     return "ffma"
 
 
-def smem_bytes(hw: tuple[int, int], c: int, groups: int,
-               conv_stage: str | None = None) -> int:
-    """Dynamic shared memory per CTA (csrc/odefunc_common.cuh
-    ``odefunc_smem_bytes``) under the layout of ``conv_stage`` (default: the
-    shape's own, :func:`stage`).  The tensor-core stage pads the conv
-    input's rows by 8 floats, gives it 64 + 2(W+2) + 2 rows (slack for the
-    last tile's taps) and holds a ring of three (64, 72) weight buffers; the
-    FFMA stage holds two (C, C) buffers."""
+class Layout(NamedTuple):
+    """Where a kernel keeps one sample's working set (csrc/odefunc_common.cuh
+    ``fit_layout``): its conv stage, the weight buffers of the tensor-core
+    stage (``ring``), whether the state x and, in the backward, the conv1
+    output u live in per-sample global scratch in place of shared memory,
+    and the dynamic shared memory in bytes."""
+
+    stage: str
+    ring: int
+    x_global: bool
+    u_global: bool
+    smem: int
+
+
+def layout(hw: tuple[int, int], c: int, groups: int,
+           conv_stage: str | None = None, backward: bool = False) -> Layout:
+    """The layout of the forward kernels (``backward=False``: ``odefunc``,
+    ``rk_step``, the probe) or of the backward's per-sample pass, under
+    ``conv_stage`` (default: the shape's own, :func:`stage`).  Shared memory
+    (``odefunc_smem_bytes``): the state x (H·W·C floats) unless
+    ``x_global``; the conv input with a zero border, whose rows the
+    tensor-core stage pads to 64·⌈C/64⌉ + 8 floats and of which it keeps
+    64 + 2(W+2) + 2 (slack for the last tile's taps); the weights, a ring of
+    (64, 72) buffers or the FFMA stage's two (C, C) buffers; 2·512 partial
+    sums and 2·G statistics.  The backward adds 6·G statistics, 4·C channel
+    sums and u unless ``u_global``.  A wide shape (tensor cores, C > 64)
+    that does not fit moves u, then x to global scratch, then drops the
+    ring to two buffers; the values do not depend on the layout."""
     hh, ww = hw
-    if (conv_stage or stage(hw, c)) == "mma3":
-        pad = (MMA_M + 2 * (ww + 2) + 2) * (c + PAD_A)
-        weights = RING * MMA_C * PITCH_BT
+    conv_stage = conv_stage or stage(hw, c)
+    hwc = hh * ww * c
+    if conv_stage == "mma3":
+        pad = (MMA_M + 2 * (ww + 2) + 2) * (MMA_C * -(-c // MMA_C) + PAD_A)
     else:
         pad = (hh + 2) * (ww + 2) * c
-        weights = 2 * c * c
-    return 4 * (hh * ww * c + pad + weights + 2 * THREADS + 2 * groups)
+
+    def nbytes(ring, xg, ug):
+        weights = ring * MMA_C * PITCH_BT if conv_stage == "mma3" else 2 * c * c
+        fwd = (0 if xg else hwc) + pad + weights + 2 * THREADS + 2 * groups
+        bwd = 6 * groups + 4 * c + (0 if ug else hwc) if backward else 0
+        return 4 * (fwd + bwd)
+
+    ring, xg, ug = RING, False, False
+    if conv_stage == "mma3" and c > MMA_C:
+        if backward and nbytes(ring, xg, ug) > MAX_SMEM:
+            ug = True
+        if nbytes(ring, xg, ug) > MAX_SMEM:
+            xg = True
+        if nbytes(ring, xg, ug) > MAX_SMEM:
+            ring = 2
+    return Layout(conv_stage, ring, xg, ug, nbytes(ring, xg, ug))
+
+
+def smem_bytes(hw: tuple[int, int], c: int, groups: int,
+               conv_stage: str | None = None) -> int:
+    """Dynamic shared memory per CTA of the forward kernels (:func:`layout`)."""
+    return layout(hw, c, groups, conv_stage).smem
+
+
+def refusal(hw: tuple[int, int], c: int, groups: int,
+            conv_stage: str | None = None) -> str | None:
+    """Why the kernels do not take this shape, or None where they do: the
+    gate of csrc/odefunc_common.cuh ``layout_ok``.  The JAX kernels' own
+    gate (``pallas_supported``: C % groups == 0 and C ≤ 512) comes first;
+    then C divisible by 4, the working set within the 227 KB of shared
+    memory and, for the FFMA stage, C dividing the CTA's 512 threads and at
+    most 8 conv pixels per thread.  On 7×7 (CIFAR-10) and 6×6 (MNIST) maps
+    with groups 32 the kernels take exactly the widths the JAX kernels take:
+    C = 32 on the FFMA stage, every multiple of 32 from 64 to 512 on the
+    tensor cores.  ``conv_stage='ffma'`` asks for the FFMA layout at any
+    shape (the conv probe's ``tap9``)."""
+    hh, ww = hw
+    if groups < 1 or c < 1 or c % groups:
+        return f"C % groups != 0 (C = {c}, groups = {groups})"
+    if c > MAX_C:
+        return f"C > {MAX_C} (C = {c})"
+    if hh < 1 or ww < 1 or c % 4:
+        return "H, W >= 1 and C a multiple of 4"
+    lay = layout(hw, c, groups, conv_stage)
+    if lay.stage == "ffma" and THREADS % c:
+        return (f"on the FFMA stage (C < {MMA_C}, not a multiple of "
+                f"{MMA_STEP}, or maps with H·(W+2) > {MMA_M}) C must divide "
+                f"{THREADS}")
+    if lay.smem > MAX_SMEM:
+        return (f"the working set ({lay.smem} B) exceeds the {MAX_SMEM} B of "
+                "shared memory")
+    if (lay.stage == "ffma"
+            and math.ceil(hh * ww / (THREADS // c)) > MAX_PIX):
+        return f"more than {MAX_PIX} conv pixels per thread on the FFMA stage"
+    return None
 
 
 def supported(hw: tuple[int, int], c: int, groups: int,
               conv_stage: str | None = None) -> bool:
-    """The kernels' shape gate: C divisible by 4 and by ``groups``, C
-    dividing the CTA's 512 threads, the working set within the 227 KB of
-    shared memory and, for the FFMA stage, at most 8 conv pixels per thread.
-    On 7×7 (CIFAR-10) and 6×6 (MNIST) maps C = 64, 128 and 256 pass on the
-    tensor-core stage and C = 32 on the FFMA stage; C = 512 (over the shared
-    memory) and widths that are not a power of two (C must divide the 512
-    threads) do not.  ``conv_stage='ffma'`` asks for the FFMA layout at any
-    shape (the conv probe's ``tap9``)."""
-    hh, ww = hw
-    if (hh < 1 or ww < 1 or c < 4 or groups < 1 or c % 4 or THREADS % c
-            or c % groups):
-        return False
-    conv_stage = conv_stage or stage(hw, c)
-    if smem_bytes(hw, c, groups, conv_stage) > MAX_SMEM:
-        return False
-    return (conv_stage == "mma3"
-            or math.ceil(hh * ww / (THREADS // c)) <= MAX_PIX)
-
-
-# What a refusal says about the widths the kernels take and the rest.
-WIDTHS = ("on 7×7 and 6×6 maps they take C = 32, 64, 128 and 256; C = 512 "
-          "and widths that are not a power of two are ROADMAP.md Queue 3 "
-          "item 1")
+    """The kernels' shape gate: :func:`refusal` finds nothing."""
+    return refusal(hw, c, groups, conv_stage) is None
 
 
 def odefunc_plain(w: OdefuncWeights, t, h: torch.Tensor,
@@ -190,10 +249,11 @@ def check_cuda_inputs(w: OdefuncWeights, states: dict, hw, c: int,
     """Validate what a kernel launch receives (``states``: name → tensor of
     the per-sample data); raise on anything the kernel does not take — there
     is no fallback on the card."""
-    if not supported(hw, c, groups):
+    why = refusal(hw, c, groups)
+    if why is not None:
         raise ValueError(
             f"the CUDA ODEfunc kernels do not take H×W×C = {hw[0]}×{hw[1]}×{c}"
-            f" with groups={groups} (see kernels.odefunc.supported; {WIDTHS})")
+            f" with groups={groups}: {why} (kernels.odefunc.refusal)")
     dev = next(iter(states.values())).device
     if dev.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {dev}")

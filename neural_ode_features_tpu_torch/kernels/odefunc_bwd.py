@@ -21,14 +21,15 @@ cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): six 3×3-conv equivalents
 sample at 7×7×64, 2.77 GFLOP at B = 128: about 41 µs of FFMA, 5.6 µs of TF32
 products; the bytes are about 6.4 MB, 1.9 µs.  So it is bound by operations.
 The per-sample pass runs its four convs (two of the forward, two input
-gradients) on the conv stage of ``kernels.odefunc.stage``: at C = 64, 128
-and 256 on 7×7 and 6×6 maps ``mma.sync`` TF32 with 3×TF32 error
+gradients) on the conv stage of ``kernels.odefunc.stage``: at C = 64 to 512
+(multiples of 32) on 7×7 and 6×6 maps ``mma.sync`` TF32 with 3×TF32 error
 compensation, f32-grade; the input-gradient convs read ``w1``, ``w2``
 themselves, taps reversed and transposed in the fragment loads.  The conv1
-output u stays in shared memory where it fits; at 7×7×256 it goes to a
-global scratch beside r1 and r2 (:func:`u_global`).  The weight-gradient
-contraction is f32 FFMA in 64×64 tiles, 32×32 at C = 32 (ROADMAP.md,
-Queue 2).
+output u stays in shared memory where it fits; from 7×7×256 it goes to a
+global scratch beside r1 and r2 (:func:`u_global`), and from 7×7×288 the
+state x to the dh output (``kernels.odefunc.layout``).  The weight-gradient
+contraction is f32 FFMA in 64×64 tiles, 32×32 where C % 64 == 32
+(ROADMAP.md, Queue 2); its scratch is (8, 2, 9, C, C), 151 MB at C = 512.
 
 ``odefunc_bwd`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``odefunc_bwd_plain`` (``torch.autograd.grad`` of ``odefunc_plain``); a CUDA
@@ -48,22 +49,20 @@ import torch.nn.functional as F
 from . import _build
 from .odefunc import (
     MAX_SMEM,
-    MMA_C,
-    WIDTHS,
     OdefuncWeights,
     check_cuda_inputs,
+    layout,
     odefunc_plain,
     prepare,
     ptr,
-    smem_bytes,
+    refusal,
     stage,
     stream,
-    supported,
     weight_pointers,
 )
 
 __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
-           "bwd_smem_bytes", "u_global", "tap_contract"]
+           "bwd_refusal", "bwd_smem_bytes", "u_global", "tap_contract"]
 
 # Mirror csrc/odefunc_bwd.cu (kParts, kSplit, weight_tile).
 _PARTS = 26
@@ -74,37 +73,42 @@ def _weight_tile(c: int) -> int:
     return 64 if c % 64 == 0 else 32
 
 
-def _small_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
-    return smem_bytes(hw, c, groups) + 4 * (6 * groups + 4 * c)
-
-
 def u_global(hw: tuple[int, int], c: int, groups: int) -> bool:
     """Whether the per-sample pass keeps the conv1 output u (H·W·C floats)
     in global scratch in place of shared memory (csrc/odefunc_bwd.cu
-    ``u_global``): on the wide tensor-core stage (C > 64) where u does not
-    fit beside the forward's working set, i.e. at 7×7×256."""
-    hh, ww = hw
-    return (stage(hw, c) == "mma3" and c > MMA_C
-            and _small_bytes(hw, c, groups) + 4 * hh * ww * c > MAX_SMEM)
+    ``bwd_shape``): on the wide tensor-core stage where u does not fit
+    beside the forward's working set, on 7×7 maps from C = 256."""
+    return layout(hw, c, groups, backward=True).u_global
 
 
 def bwd_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
     """Dynamic shared memory per CTA of the per-sample pass
     (csrc/odefunc_bwd.cu ``bwd_smem_bytes``): the forward's, 6·G
     statistics, 4·C channel sums and, unless :func:`u_global`, u."""
-    hh, ww = hw
-    u = 0 if u_global(hw, c, groups) else 4 * hh * ww * c
-    return _small_bytes(hw, c, groups) + u
+    return layout(hw, c, groups, backward=True).smem
+
+
+def bwd_refusal(hw: tuple[int, int], c: int, groups: int) -> str | None:
+    """Why the backward kernel does not take this shape, or None: the
+    forward kernels' gate under the backward's layout (``layout(...,
+    backward=True)``), C at least 32 and a multiple of the weight-gradient
+    tile (64, or 32 where C % 64 == 32).  On 7×7 and 6×6 maps with groups
+    32 every multiple of 32 up to 512 passes."""
+    why = refusal(hw, c, groups)
+    if why is not None:
+        return why
+    if c < 32 or c % _weight_tile(c):
+        return "C >= 32, a multiple of 32"
+    if bwd_smem_bytes(hw, c, groups) > MAX_SMEM:
+        return (f"the per-sample working set ({bwd_smem_bytes(hw, c, groups)}"
+                f" B) exceeds the {MAX_SMEM} B of shared memory")
+    return None
 
 
 def bwd_supported(hw: tuple[int, int], c: int, groups: int) -> bool:
-    """The backward kernel's shape gate: the forward kernel's gate, C at
-    least 32 and a multiple of the weight-gradient tile (64, or 32 at
-    C = 32), and the per-sample working set within the 227 KB of shared
-    memory.  On 7×7 and 6×6 maps C = 32, 64, 128 and 256 pass."""
-    return (supported(hw, c, groups) and c >= 32
-            and c % _weight_tile(c) == 0
-            and bwd_smem_bytes(hw, c, groups) <= MAX_SMEM)
+    """The backward kernel's shape gate: :func:`bwd_refusal` finds
+    nothing."""
+    return bwd_refusal(hw, c, groups) is None
 
 
 def tap_contract(dm: torch.Tensor, kh: int = 3, kw: int = 3,
@@ -181,11 +185,12 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     if tuple(g.shape) != tuple(h.shape):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the "
                          f"state {tuple(h.shape)}")
-    if not bwd_supported((hh, ww), c, groups):
+    why = bwd_refusal((hh, ww), c, groups)
+    if why is not None:
         raise ValueError(
             f"the CUDA ODEfunc backward kernel does not take H×W×C = "
-            f"{hh}×{ww}×{c} with groups={groups} (see "
-            f"kernels.odefunc_bwd.bwd_supported; {WIDTHS})")
+            f"{hh}×{ww}×{c} with groups={groups}: {why} "
+            "(kernels.odefunc_bwd.bwd_refusal)")
     check_cuda_inputs(w, {"h": h, "g": g}, (hh, ww), c, groups)
     dev = h.device
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)

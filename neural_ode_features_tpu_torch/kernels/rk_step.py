@@ -28,8 +28,8 @@ each evaluation's working set in shared memory (one CTA per sample), streams
 the f32 conv weights tap by tap through shared memory, and keeps the stage
 derivatives k2..k6 in an L2-resident scratch tensor read back by the thread
 that wrote them.  Its twelve convs run on the conv stage of
-``kernels.odefunc.stage``: at C = 64, 128 and 256 on 7×7 and 6×6 maps on
-the tensor cores
+``kernels.odefunc.stage``: at C = 64 to 512 (multiples of 32) on 7×7 and
+6×6 maps on the tensor cores
 (``mma.sync`` TF32) with 3×TF32 error compensation, which is f32-grade (an
 error near 2⁻²¹ per product), so that the accept/reject decisions follow
 the f32 plain version's; at other shapes as f32 FFMA.  One-pass TF32 or bf16

@@ -5,10 +5,11 @@ training path, and the trajectory at any output times from one solve).
 On a CUDA tensor the dynamics always run the fused ODEfunc kernel and, when
 the configuration is eligible, every dopri5 attempt of an inference solve
 runs the fused step kernel; the adjoint path's augmented dynamics run the
-ODEfunc kernel pair (forward and fused backward), at hidden 32, 64, 128 and
-256 on 7×7 (CIFAR-10) and 6×6 (MNIST) maps.  A shape the kernels do not
-take (hidden 512, or not a power of two) raises on the card before any
-launch (``kernels.odefunc.check_cuda_inputs``; ROADMAP.md Queue 3 item 1).  Every solver (``cfg.method``: the
+ODEfunc kernel pair (forward and fused backward), at every hidden width the
+JAX kernels take on 7×7 (CIFAR-10) and 6×6 (MNIST) maps: the multiples of
+32 up to 512.  A shape the kernels do not take raises on the card before
+any launch, naming the gate (``kernels.odefunc.check_cuda_inputs``).  Every
+solver (``cfg.method``: the
 adaptive RK methods, ``adams``, the fixed-grid ones) runs on that dynamics.
 On a CPU tensor every kernel runs its plain PyTorch version.  The JAX opt-ins
 ``cfg.use_pallas``/``cfg.use_fused_rk`` are not read.

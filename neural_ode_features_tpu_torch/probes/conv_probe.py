@@ -7,7 +7,8 @@ The port of ``probes/conv_probe.py``.  The three fused kernels
 (``odefunc.cu``, ``rk_step.cu``, ``odefunc_bwd.cu``) spend their time in one
 shared device function, the 3×3 conv; this probe times that conv alone:
 ``mma3``, the tensor-core stage (3×TF32) that the fused kernels run at
-C = 64, 128 and 256 on 7×7 and 6×6 maps, ``mma1``, the same with the error compensation compiled
+C = 64 to 512 (multiples of 32) on 7×7 and 6×6 maps, ``mma1``, the same
+with the error compensation compiled
 out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
 shapes) and ``im2col``, before a fused kernel is touched.  Inputs as in the
 JAX probe: x (B, 7, 7, 64) and w (3, 3, 64, 64) from numpy seed 0, scaled by

@@ -63,24 +63,23 @@ __all__ = ["VARIANTS", "RK_VARIANTS", "patched_sources", "main"]
 
 HEADER = "odefunc_common.cuh"
 
-_PRELOAD = ("    load_tile_mma(m.sw, tile_src(0, nb), C, pitch);\n"
-            "    load_tile_mma(m.sw + stage, tile_src(1, nb), C, pitch);\n")
-_WAIT = ("      if (tile + 1 < ntile) cp_async_wait_but_one();"
+_PRELOAD = "    for (int i = 0; i < ring - 1; ++i) load_tile(i, nb, i);\n"
+_WAIT = ("      if (ring == 3 && tile + 1 < ntile) cp_async_wait_but_one();"
          " else cp_async_wait_all();\n"
          "      __syncthreads();  // the tile's weights visible; the buffer of"
          " tile - 1 is free\n")
-_TAP_LOOP = "    for (int tile = 0; tile < ntile; ++tile) {\n" + _WAIT
-_RELOAD = ("      if (tile + 2 < ntile)\n"
-           "        load_tile_mma(m.sw + ((tile + 2) % kRing) * stage,"
-           " tile_src(tile + 2, nb), C, pitch);\n")
-_B_TAP = ("      const uint32_t b_tap = b_thread + 4u * ((tile % kRing) *"
-          " stage);\n")
+_TAP_LOOP = ("    for (int tile = 0, wbuf = 0; tile < ntile;\n"
+             "         ++tile, wbuf = GENERAL && wbuf + 1 < ring ? wbuf + 1 : 0) {\n"
+             "      const int buf = GENERAL ? wbuf : tile % kRing;\n" + _WAIT)
+_RELOAD = ("      if (tile + ring - 1 < ntile) load_tile(tile + ring - 1, nb,"
+           " buf == 0 ? ring - 1 : buf - 1);\n")
+_B_TAP = "      const uint32_t b_tap = b_thread + 4u * (buf * stage);\n"
 _RNA = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
 _CVT = ('  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
         "  return r;\n")
 _TAIL = "  lo = __float_as_uint(x - __uint_as_float(hi));\n"
 _NO_RELOAD = [(_RELOAD, ""),
-              (_B_TAP, _B_TAP.replace("tile % kRing", "tile & 1"))]
+              (_B_TAP, _B_TAP.replace("buf * stage", "(tile & 1) * stage"))]
 
 # name -> substitutions on csrc/odefunc_common.cuh.
 VARIANTS = {
@@ -109,7 +108,8 @@ VARIANTS = {
 }
 
 _GN_FIRST_PASS = ("  float acc = 0.f;\n"
-                  "  for (int p = pg; p < hw; p += npg) acc += x[p * C + c];\n")
+                  "  if (on)\n"
+                  "    for (int p = pg; p < hw; p += npg) acc += x[p * C + c];\n")
 RK_VARIANTS = {
     "shipped": [],
     "no_conv": VARIANTS["empty"],

@@ -18,6 +18,12 @@ columns), ``ckpt_best.pt`` / ``ckpt_last.pt`` with their ``.json`` sidecars
 the augmentation draws of an uninterrupted run and, since the state file
 also carries the loss and NFE running averages, logs the same row.
 
+``--seeds S0,S1,...`` trains a population (``multi.PopulationTrainer``):
+one run directory per seed, each the one a solo ``--seed S`` run makes (the
+same name, ``params.json``, ``log.csv`` rows, checkpoints and training
+state; ``seeds`` stays out of the identity), resumed when every member left
+a state at the same epoch.
+
 Runs on the card unless ``--cpu`` is given; no card is an error.  Flags
 whose machinery is not ported exit with a message naming their ROADMAP.md
 item before any run directory is made.
@@ -94,8 +100,8 @@ def parse_args(argv=None):
     p.add_argument("--lr-decay-gamma", type=float, default=0.1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--seeds", default=None, metavar="S0,S1,...",
-                   help="population training over these seeds: not ported "
-                        "(ROADMAP.md, Queue 1 item 8)")
+                   help="population training: one member (and one run "
+                        "directory) per seed, trained in turn on the card")
     p.add_argument("--no-augment", dest="augment", action="store_false",
                    default=True)
     p.add_argument("--max-steps", type=int, default=None,
@@ -146,8 +152,6 @@ def _refuse_unported(args) -> None:
     def stop(flag, item):
         raise SystemExit(f"{flag} is not ported yet (ROADMAP.md, {item})")
 
-    if args.seeds is not None:
-        stop("--seeds (population training)", "Queue 1 item 8")
     if args.num_devices not in (None, 1):
         stop(f"--num-devices {args.num_devices}", "Queue 1 item 8")
     if args.model_shards != 1:
@@ -171,6 +175,119 @@ def run_identity(args) -> dict:
     if exp_params.get("controller") == "i":
         del exp_params["controller"]
     return exp_params
+
+
+class _Record:
+    """The run directory's side of training one model: the running
+    averages, the ``log.csv`` rows, the checkpoints and the training state.
+    A solo run keeps one; ``--seeds`` one per member, so that a member's
+    directory is the one its solo run writes.  ``prefix`` starts its
+    printed lines."""
+
+    def __init__(self, exp: Experiment, exp_params: dict, model: str,
+                 prefix: str = ""):
+        self.exp, self.exp_params, self.model = exp, exp_params, model
+        self.prefix = prefix
+        self.state_path = exp.file("train_state.pt")
+        self.loss_m, self.nfe_m = RunningAverageMeter(), RunningAverageMeter()
+        self.nfe_b_m = RunningAverageMeter()
+        self.best_acc = 0.0
+        self.tr_acc_sum = self.tr_count = 0.0
+
+    def logged_epochs(self) -> int:
+        """The epoch a resume starts at: one past the last logged."""
+        rows = self.exp.read_log()
+        return (int(rows[-1]["epoch"]) + 1) if rows else 0
+
+    def resume(self, trainer: Trainer) -> int:
+        averages = trainer.load_state(self.state_path)
+        for meter, key in ((self.loss_m, "loss_avg"), (self.nfe_m, "nfe_avg")):
+            if key in averages:  # the running averages go on where they were
+                meter.update(averages[key])
+        self.best_acc = max(
+            (float(r["test_acc"]) for r in self.exp.read_log()
+             if r.get("test_acc")), default=0.0)
+        start = self.logged_epochs()
+        print(f"{self.prefix}resumed {self.state_path} at epoch {start} "
+              f"(best so far {self.best_acc:.4f})")
+        return start
+
+    def begin_epoch(self) -> None:
+        self.nfe_b_m.reset()
+        self.tr_acc_sum = self.tr_count = 0.0
+
+    def add_step(self, m: dict, n: int) -> None:
+        self.loss_m.update(m["loss"])
+        self.nfe_m.update(m["nfe"])
+        self.nfe_b_m.update(m["nfe_b"])
+        self.tr_acc_sum += m["acc"] * n
+        self.tr_count += n
+
+    def add_epoch(self, em: dict, batch_size: int) -> None:
+        """The per-step arrays of ``Trainer.train_epoch``."""
+        for i in range(len(em["loss"])):
+            self.loss_m.update(float(em["loss"][i]))
+            self.nfe_m.update(float(em["nfe"][i]))
+            self.nfe_b_m.update(float(em["nfe_b"][i]))
+        self.tr_count = batch_size * len(em["acc"])
+        self.tr_acc_sum = float(np.mean(em["acc"])) * self.tr_count
+
+    def end_epoch(self, epoch: int, trainer: Trainer, train_time: float,
+                  ev: dict | None) -> None:
+        """Log the epoch (with its evaluation ``ev`` where there was one),
+        keep the best checkpoint and the training state."""
+        # Fixed column schema: the eval columns are always present (blank
+        # when the epoch is not evaluated), so log.csv's header holds for
+        # any --eval-every.
+        row = {
+            "epoch": epoch,
+            "train_loss": round(self.loss_m.avg, 6),
+            "train_acc": round(self.tr_acc_sum / max(self.tr_count, 1), 6),
+            "nfe_f": round(self.nfe_m.avg, 2),
+            "nfe_b": round(self.nfe_b_m.avg, 2),
+            "time_s": round(train_time, 2),
+            "test_loss": "",
+            "test_acc": "",
+            "test_nfe": "",
+        }
+        if ev is not None:
+            row.update(test_loss=round(ev["loss"], 6),
+                       test_acc=round(ev["acc"], 6),
+                       test_nfe=round(ev["nfe"], 2))
+            if ev["acc"] >= self.best_acc:
+                self.best_acc = ev["acc"]
+                save_checkpoint(self.exp.file("ckpt_best.pt"), trainer.params,
+                                trainer.model_cfg,
+                                extra={"epoch": epoch, "test_acc": ev["acc"],
+                                       "train": self.exp_params,
+                                       "model": self.model})
+        # State first, log second: a stop between the two runs the epoch
+        # again on resume instead of resuming stale weights.
+        trainer.save_state(self.state_path, extra={"loss_avg": self.loss_m.avg,
+                                                   "nfe_avg": self.nfe_m.avg})
+        self.exp.log(row)
+        print(self.prefix + " | ".join(f"{k}={v}" for k, v in row.items()),
+              flush=True)
+
+    def finish(self, trainer: Trainer, epochs: int) -> None:
+        save_checkpoint(self.exp.file("ckpt_last.pt"), trainer.params,
+                        trainer.model_cfg,
+                        extra={"epoch": epochs - 1, "test_acc": self.best_acc,
+                               "train": self.exp_params, "model": self.model})
+        print(f"{self.prefix}best test acc: {self.best_acc:.4f}; run dir: "
+              f"{self.exp.path}")
+
+
+def _datasets(args):
+    x_train, y_train = load_dataset(args.dataset, "train", args.data_dir,
+                                    limit=args.limit)
+    x_test, y_test = load_dataset(args.dataset, "test", args.data_dir,
+                                  limit=args.limit)
+    return x_train, y_train, x_test, y_test
+
+
+def _evaluates(args, epoch: int) -> bool:
+    return (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1
 
 
 def main(argv=None):
@@ -208,13 +325,12 @@ def main(argv=None):
         max_steps=args.max_steps or (1024 if args.adjoint else 64),
     )
     exp_params = run_identity(args)
+    if args.seeds is not None:
+        return main_population(args, cfg, exp_params, device)
     exp = Experiment(args.runs_dir, exp_params).create()
     print(f"run dir: {exp.path}")
 
-    x_train, y_train = load_dataset(args.dataset, "train", args.data_dir,
-                                    limit=args.limit)
-    x_test, y_test = load_dataset(args.dataset, "test", args.data_dir,
-                                  limit=args.limit)
+    x_train, y_train, x_test, y_test = _datasets(args)
     train_b = Batches(x_train, y_train, args.batch_size, seed=args.seed)
     test_b = Batches(x_test, y_test, args.batch_size, shuffle=False,
                      drop_remainder=False)
@@ -224,23 +340,10 @@ def main(argv=None):
     trainer = Trainer(cfg, steps_per_epoch=len(train_b), device=device)
     print(f"model parameters: {count_parameters(trainer.params):,}")
 
+    rec = _Record(exp, exp_params, args.model)
     start_epoch = 0
-    best_acc = 0.0
-    state_path = exp.file("train_state.pt")
-    loss_m, nfe_m = RunningAverageMeter(), RunningAverageMeter()
-    nfe_b_m = RunningAverageMeter()
-    if args.resume and state_path.exists():
-        averages = trainer.load_state(state_path)
-        for meter, key in ((loss_m, "loss_avg"), (nfe_m, "nfe_avg")):
-            if key in averages:  # the running averages go on where they were
-                meter.update(averages[key])
-        log_rows = exp.read_log()
-        start_epoch = (int(log_rows[-1]["epoch"]) + 1) if log_rows else 0
-        best_acc = max(
-            (float(r["test_acc"]) for r in log_rows if r.get("test_acc")),
-            default=0.0)
-        print(f"resumed {state_path} at epoch {start_epoch} "
-              f"(best so far {best_acc:.4f})")
+    if args.resume and rec.state_path.exists():
+        start_epoch = rec.resume(trainer)
 
     # Batches keys its shuffle on its own epoch counter, which starts at 0 in
     # a new process: align it with the true epoch, so that a resumed epoch
@@ -253,16 +356,10 @@ def main(argv=None):
     use_fused = args.fused_epoch and not args.profile
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
-        nfe_b_m.reset()
-        tr_acc_sum = tr_count = 0.0
+        rec.begin_epoch()
         if use_fused:
-            em = trainer.train_epoch(x_train, y_train, epoch)
-            for i in range(len(em["loss"])):
-                loss_m.update(float(em["loss"][i]))
-                nfe_m.update(float(em["nfe"][i]))
-                nfe_b_m.update(float(em["nfe_b"][i]))
-            tr_count = args.batch_size * len(em["acc"])
-            tr_acc_sum = float(np.mean(em["acc"])) * tr_count
+            rec.add_epoch(trainer.train_epoch(x_train, y_train, epoch),
+                          args.batch_size)
         else:
             gen = epoch_generator(args.seed, epoch)
             for images, labels in train_b:
@@ -275,60 +372,88 @@ def main(argv=None):
                     if profile_left == 0:
                         _stop_profile(profiler, exp, device)
                         profiler = None
-                loss_m.update(m["loss"])
-                nfe_m.update(m["nfe"])
-                nfe_b_m.update(m["nfe_b"])
-                tr_acc_sum += m["acc"] * len(labels)
-                tr_count += len(labels)
+                rec.add_step(m, len(labels))
         if device.type == "cuda":
             torch.cuda.synchronize()
         train_time = time.time() - t0
-
-        # Fixed column schema: the eval columns are always present (blank
-        # when the epoch is not evaluated), so log.csv's header holds for
-        # any --eval-every.
-        row = {
-            "epoch": epoch,
-            "train_loss": round(loss_m.avg, 6),
-            "train_acc": round(tr_acc_sum / max(tr_count, 1), 6),
-            "nfe_f": round(nfe_m.avg, 2),
-            "nfe_b": round(nfe_b_m.avg, 2),
-            "time_s": round(train_time, 2),
-            "test_loss": "",
-            "test_acc": "",
-            "test_nfe": "",
-        }
-
-        if (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1:
-            if use_fused:
-                ev = trainer.evaluate_fused(x_test, y_test)
-            else:
-                ev = trainer.evaluate(test_b)
-            row.update(test_loss=round(ev["loss"], 6),
-                       test_acc=round(ev["acc"], 6),
-                       test_nfe=round(ev["nfe"], 2))
-            if ev["acc"] >= best_acc:
-                best_acc = ev["acc"]
-                save_checkpoint(exp.file("ckpt_best.pt"), trainer.params,
-                                trainer.model_cfg,
-                                extra={"epoch": epoch, "test_acc": ev["acc"],
-                                       "train": exp_params,
-                                       "model": args.model})
-        # State first, log second: a stop between the two runs the epoch
-        # again on resume instead of resuming stale weights.
-        trainer.save_state(state_path, extra={"loss_avg": loss_m.avg,
-                                              "nfe_avg": nfe_m.avg})
-        exp.log(row)
-        print(" | ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+        ev = None
+        if _evaluates(args, epoch):
+            ev = (trainer.evaluate_fused(x_test, y_test) if use_fused
+                  else trainer.evaluate(test_b))
+        rec.end_epoch(epoch, trainer, train_time, ev)
 
     if profiler is not None:  # the run ended before N profiled steps
         _stop_profile(profiler, exp, device)
-    save_checkpoint(exp.file("ckpt_last.pt"), trainer.params,
-                    trainer.model_cfg,
-                    extra={"epoch": args.epochs - 1, "test_acc": best_acc,
-                           "train": exp_params, "model": args.model})
-    print(f"best test acc: {best_acc:.4f}; run dir: {exp.path}")
+    rec.finish(trainer, args.epochs)
     return exp.path
+
+
+def main_population(args, cfg: TrainConfig, exp_params: dict,
+                    device: torch.device):
+    """``--seeds``: one run directory per seed, each exactly what a solo
+    ``--seed S`` run writes, the members trained in turn on ``device``
+    (``multi.PopulationTrainer``).  Returns the run directories."""
+    from .multi import PopulationTrainer
+
+    if args.profile:
+        raise SystemExit("--profile is per-run; use a solo --seed run")
+    if not args.fused_epoch:
+        raise SystemExit(
+            "--no-fused-epoch is incompatible with --seeds: a member trains "
+            "through Trainer.train_epoch, and the per-batch path has other "
+            "shuffle and augmentation streams")
+    seeds = [int(s) for s in args.seeds.split(",") if s]
+    if len(set(seeds)) != len(seeds):
+        raise SystemExit(f"duplicate seeds in --seeds {args.seeds}")
+
+    recs = []
+    for s in seeds:
+        params_s = {**exp_params, "seed": s}
+        exp = Experiment(args.runs_dir, params_s).create()
+        recs.append(_Record(exp, params_s, args.model, prefix=f"seed {s} | "))
+        print(f"run dir (seed {s}): {exp.path}")
+
+    x_train, y_train, x_test, y_test = _datasets(args)
+    steps_per_epoch = len(Batches(x_train, y_train, args.batch_size))
+    print(f"train {len(x_train)} / test {len(x_test)} images; "
+          f"{steps_per_epoch} steps/epoch; device: {device}; population: "
+          f"{len(seeds)} seeds")
+    pop = PopulationTrainer(cfg, seeds, steps_per_epoch, device=device)
+
+    # Resume only when every member left a state at the same epoch: a mixed
+    # population would train its members different step counts.
+    start_epoch = 0
+    have = [r.state_path.exists() for r in recs]
+    if args.resume and any(have):
+        if not all(have):
+            raise SystemExit(
+                "partial population state: some run dirs have "
+                "train_state.pt and some don't; finish the stragglers with "
+                "solo --seed runs or pass --no-resume")
+        starts = [r.logged_epochs() for r in recs]
+        if len(set(starts)) != 1:
+            raise SystemExit(
+                f"population members resume at different epochs {starts}; "
+                "finish them solo or --no-resume")
+        start_epoch = starts[0]
+        for r, m in zip(recs, pop.members):
+            r.resume(m)
+
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.time()
+        em = pop.train_epoch(x_train, y_train, epoch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        train_time = time.time() - t0  # the population's epoch, as in JAX
+        evs = (pop.evaluate_fused(x_test, y_test) if _evaluates(args, epoch)
+               else [None] * len(seeds))
+        for i, (r, m) in enumerate(zip(recs, pop.members)):
+            r.begin_epoch()
+            r.add_epoch({k: v[i] for k, v in em.items()}, args.batch_size)
+            r.end_epoch(epoch, m, train_time, evs[i])
+    for r, m in zip(recs, pop.members):
+        r.finish(m, args.epochs)
+    return [r.exp.path for r in recs]
 
 
 def _start_profile(device: torch.device):

@@ -208,7 +208,7 @@ def test_padded_pitch_tile_limit():
 
 
 def test_tensor_core_stage_gates():
-    # mma3 and mma1: C = 64, 128 or 256 and H * (W + 2) <= 64.
+    # mma3 and mma1: C a multiple of 32 from 64 to 512 and H * (W + 2) <= 64.
     for strategy in ("mma3", "mma1"):
         assert supported((7, 7), 64, strategy)      # 63 positions
         assert supported((6, 6), 64, strategy)      # 48
@@ -216,11 +216,11 @@ def test_tensor_core_stage_gates():
         assert not supported((8, 8), 64, strategy)  # 80
         assert not supported((7, 8), 64, strategy)  # 70
         assert not supported((7, 7), 32, strategy)
-        for c in (128, 256):
+        for c in (96, 128, 256, 512):
             assert supported((7, 7), c, strategy)
             assert supported((6, 6), c, strategy)
-        assert not supported((7, 7), 512, strategy)
-        assert not supported((7, 7), 96, strategy)
+        assert not supported((7, 7), 544, strategy)
+        assert not supported((7, 7), 80, strategy)
     # ... while the FFMA kernels still take those shapes.
     assert supported((8, 8), 64, "tap9") and supported((7, 7), 32, "tap9")
     assert set(STRATEGIES) == {"tap9", "im2col", "mma3", "mma1"}

@@ -441,6 +441,21 @@ def test_fused_kernels_at_other_widths(dev, c, side):
     blocks; at 7×7×256 the backward keeps u in global scratch) against
     their plain versions, the backward in float64 and bit-identical from
     call to call."""
+    _check_fused_kernels(dev, c, side)
+
+
+@pytest.mark.parametrize("c,side", [(96, 7), (192, 7), (512, 7), (512, 6)])
+def test_fused_kernels_at_the_jax_widths(dev, c, side):
+    """The widths the JAX kernels take beyond the powers of two: 96 and 192
+    (the tensor-core stage's last channel block padded; the backward's
+    32-wide weight tile at 96) and 512 (the state in global scratch, a ring
+    of two weight buffers at 7×7), each kernel against its plain version
+    as at the other widths."""
+    assert stage((side, side), c) == "mma3"
+    _check_fused_kernels(dev, c, side)
+
+
+def _check_fused_kernels(dev, c, side):
     batch = 9
     w, h, t, dt, g = _width_inputs(dev, c, side, batch)
     assert stage((side, side), c) == ("ffma" if c == 32 else "mma3")
@@ -471,11 +486,12 @@ def test_fused_kernels_at_other_widths(dev, c, side):
     assert torch.equal(_flat(odefunc_bwd(w, t, h, g, groups=32)[0]), _flat(dp))
 
 
-@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("c", [128, 256, 96, 512])
 def test_conv_probe_tensor_cores_at_other_widths(dev, c):
-    """``mma3`` and ``mma1`` at 7×7×128 and 7×7×256 against the conv in
-    float64: ``mma3`` f32-grade, ``mma1`` plain TF32, whose error grows as
-    the root of the 9·C products it sums (TF32_TOL is for 576)."""
+    """``mma3`` and ``mma1`` at 7×7×128, 256, 96 (the padded last block)
+    and 512 against the conv in float64: ``mma3`` f32-grade, ``mma1`` plain
+    TF32, whose error grows as the root of the 9·C products it sums
+    (TF32_TOL is for 576)."""
     x, w = probe_inputs(16, dev, (7, 7), c)
     want = conv3x3_plain(x.double(), w.double())
     grow = (c / 64) ** 0.5
@@ -490,9 +506,19 @@ def test_hidden_128_trains_on_the_card(dev):
     """``train --hidden 128``'s step on the card runs the kernels: the
     ODEfunc kernel 2 + 6·attempts + 1 times, the backward kernel
     NFE-b − 1 times, the fused step never; loss and gradients finite."""
+    _check_train_step(128)
+
+
+def test_hidden_512_trains_on_the_card(dev):
+    """``train --hidden 512``, the JAX package's widest width, under the
+    same launch rule: no plain version runs in a kernel's place."""
+    _check_train_step(512)
+
+
+def _check_train_step(hidden):
     from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
 
-    trainer = Trainer(TrainConfig(dataset="synthetic-cifar10", hidden=128,
+    trainer = Trainer(TrainConfig(dataset="synthetic-cifar10", hidden=hidden,
                                   batch_size=8), steps_per_epoch=1,
                       device="cuda")
     _, (images, labels) = train_entry(device="cuda", batch=8)
@@ -503,20 +529,3 @@ def test_hidden_128_trains_on_the_card(dev):
         2 + 6 * attempts + 1, m["nfe_b"] - 1, 0)
     assert np.isfinite(m["loss"])
     assert all(bool(torch.isfinite(p.grad).all()) for p in trainer._leaves)
-
-
-def test_hidden_512_is_refused_on_the_card(dev):
-    """7×7×512 is outside the kernels' gate: a train step on the card
-    raises before any launch, naming ROADMAP Queue 3 item 1, and does not
-    run the plain versions in their place."""
-    from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
-
-    trainer = Trainer(TrainConfig(dataset="synthetic-cifar10", hidden=512,
-                                  batch_size=8), steps_per_epoch=1,
-                      device="cuda")
-    _, (images, labels) = train_entry(device="cuda", batch=8)
-    odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
-    with pytest.raises(ValueError, match=r"do not take .*Queue 3 item 1"):
-        trainer.train_batch(images, labels)
-    assert (odefunc.launches, odefunc_bwd.launches,
-            dopri5_step.launches) == (0, 0, 0)

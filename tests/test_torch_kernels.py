@@ -32,6 +32,7 @@ from neural_ode_features_tpu_torch.kernels.odefunc import (
     odefunc,
     odefunc_plain,
     odefunc_vjp,
+    layout,
     prepare,
     smem_bytes,
     stage,
@@ -165,11 +166,13 @@ def test_gate():
     assert supported((7, 7), 64, 32)  # CIFAR-10
     assert supported((6, 6), 64, 32)  # MNIST
     assert supported((7, 7), 32, 32)
-    for c in (128, 256):  # the tensor-core stage, 64-channel blocks
+    # The tensor-core stage, 64-channel blocks (96: the last one padded;
+    # 512: the state in global scratch, a ring of two weight buffers).
+    for c in (96, 128, 256, 512):
         assert supported((7, 7), c, 32) and supported((6, 6), c, 32)
-    assert not supported((7, 7), 512, 32)  # shared memory
-    assert not supported((7, 7), 96, 32)  # C must divide the 512 threads
+    assert not supported((7, 7), 544, 32)  # C > 512, as in JAX
     assert not supported((7, 7), 48, 32)  # C % groups
+    assert not supported((7, 7), 80, 16)  # FFMA: C must divide 512 threads
     assert not supported((28, 28), 64, 32)  # shared memory
 
 
@@ -183,9 +186,9 @@ def test_stage_is_decided_by_the_shape():
     assert stage((1, 63), 64) == "ffma"     # 65
     assert stage((8, 8), 64) == "ffma"      # 80
     assert stage((7, 7), 32) == "ffma" and stage((8, 8), 128) == "ffma"
-    for c in (128, 256):
+    for c in (96, 128, 192, 256, 288, 512):  # multiples of 32 up to 512
         assert stage((7, 7), c) == stage((6, 6), c) == stage((5, 5), c) == "mma3"
-    for c in (96, 192, 512):  # not a power of two; over the 256 blocks
+    for c in (80, 544):  # not a multiple of 32; over 512
         assert stage((7, 7), c) == "ffma"
 
 
@@ -214,25 +217,51 @@ def test_smem_mirrors_by_hand():
     assert supported((7, 7), 64, 32, "ffma") and supported((1, 62), 64, 32)
 
 
-@pytest.mark.parametrize("c", [32, 64, 128, 256, 512, 96])
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 512, 96, 160, 320, 480])
 def test_gate_mirrors_at_every_width(c):
     """``stage``, ``smem_bytes``, ``supported`` and ``bwd_supported`` on the
-    7×7 and 6×6 maps: C = 32 on the FFMA stage, 64, 128 and 256 on the
-    tensor cores (a (C + 8)-float conv-input pitch, the same ring); 512
-    (over the shared memory) and 96 (not a power of two) refused.  The
-    backward keeps u in global scratch at 7×7×256 only."""
-    ok = c in (32, 64, 128, 256)
+    7×7 and 6×6 maps: C = 32 on the FFMA stage, every multiple of 32 from
+    64 to 512 on the tensor cores (a 64·⌈C/64⌉ + 8-float conv-input pitch).
+    By hand, the layout (``layout``): x in shared memory and a ring of three
+    (64, 72) weight buffers where they fit; else x in global scratch, then
+    a ring of two.  The backward first moves u to global scratch (on 7×7
+    maps from C = 224, where C % 64 == 32 pads the conv input less)."""
     for hw in ((7, 7), (6, 6)):
         hh, ww = hw
-        assert stage(hw, c) == ("mma3" if c in (64, 128, 256) else "ffma")
-        assert supported(hw, c, 32) == bwd_supported(hw, c, 32) == ok
-        if stage(hw, c) == "mma3":
-            rows = 64 + 2 * (ww + 2) + 2
-            assert smem_bytes(hw, c, 32) == 4 * (
-                hh * ww * c + rows * (c + 8) + 3 * 64 * 72 + 1024 + 64)
-        assert bwd_smem_bytes(hw, c, 32) == smem_bytes(hw, c, 32) + 4 * (
-            (0 if u_global(hw, c, 32) else hh * ww * c) + 192 + 4 * c)
-        assert u_global(hw, c, 32) == (hw == (7, 7) and c == 256)
+        hwc = hh * ww * c
+        assert stage(hw, c) == ("ffma" if c == 32 else "mma3")
+        assert supported(hw, c, 32) and bwd_supported(hw, c, 32)
+        fwd, bwd = layout(hw, c, 32), layout(hw, c, 32, backward=True)
+        assert u_global(hw, c, 32) == bwd.u_global and not fwd.u_global
+        if stage(hw, c) == "ffma":
+            conv = (hh + 2) * (ww + 2) * c + 2 * c * c
+            assert fwd == bwd[:4] + (fwd.smem,) == ("ffma", 3, False, False,
+                                                    fwd.smem)
+        else:
+            rows, pitch = 64 + 2 * (ww + 2) + 2, 64 * -(-c // 64) + 8
+            conv = rows * pitch + fwd.ring * 64 * 72
+
+            def fits(*floats):
+                return 4 * (sum(floats) + 1088) <= MAX_SMEM
+
+            assert fwd.x_global == (not fits(hwc, rows * pitch, 3 * 64 * 72))
+            assert (fwd.ring == 2) == (not fits(rows * pitch, 3 * 64 * 72))
+            extra = 192 + 4 * c
+            assert bwd.u_global == (not fits(2 * hwc, rows * pitch,
+                                             3 * 64 * 72, extra))
+            assert bwd.x_global == (not fits(hwc, rows * pitch, 3 * 64 * 72,
+                                             extra))
+            assert (bwd.ring == 2) == (not fits(rows * pitch, 3 * 64 * 72,
+                                                extra))
+        assert smem_bytes(hw, c, 32) == 4 * (
+            (0 if fwd.x_global else hwc) + conv + 1088) <= MAX_SMEM
+        bconv = conv + 64 * 72 * (bwd.ring - fwd.ring)
+        assert bwd_smem_bytes(hw, c, 32) == 4 * (
+            (0 if bwd.x_global else hwc) + bconv + 1088 + 192 + 4 * c
+            + (0 if bwd.u_global else hwc)) <= MAX_SMEM
+    assert u_global((7, 7), c, 32) == (c >= 224)
+    assert layout((7, 7), c, 32).x_global == (c >= 320)
+    assert layout((7, 7), c, 32).ring == (2 if c >= 480 else 3)
     # By hand at 7×7×256: state 12,544 floats, conv input 84 × 264, ring
     # 13,824, partial sums 1,024, statistics 64: 198,528 bytes; with u the
     # backward would need 253,568, over the 231,424 a CTA may use.

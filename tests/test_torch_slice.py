@@ -18,12 +18,22 @@ from neural_ode_features_tpu.models import ModelConfig as JaxConfig
 from neural_ode_features_tpu.models import init_odenet as jax_init_odenet
 from neural_ode_features_tpu.models import odefunc_apply as jax_odefunc
 from neural_ode_features_tpu.models import odenet_logits as jax_logits
+from neural_ode_features_tpu.kernels.odefunc_pallas import (
+    pallas_supported as jax_pallas_supported,
+)
 from neural_ode_features_tpu.models.odenet import (
     fused_rk_eligible as jax_fused_eligible,
 )
 from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry
-from neural_ode_features_tpu_torch.kernels.odefunc import odefunc
-from neural_ode_features_tpu_torch.kernels.odefunc_bwd import odefunc_bwd
+from neural_ode_features_tpu_torch.kernels.odefunc import (
+    odefunc,
+    stage,
+    supported,
+)
+from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+    bwd_supported,
+    odefunc_bwd,
+)
 from neural_ode_features_tpu_torch.models import (
     ModelConfig,
     fused_rk_eligible,
@@ -129,23 +139,34 @@ def test_fused_eligibility_and_refusals():
                     device="cpu")
 
 
-@pytest.mark.parametrize("c", [32, 64, 128, 256, 512, 96])
+@pytest.mark.parametrize("c", [*range(32, 577, 32), 16, 48, 80, 100])
 def test_widths_outside_the_kernels_gate_are_refused(c):
-    """Off the CPU a wrapper launches its kernel or raises; a shape outside
-    the kernels' gate raises before anything is launched, naming the gate
-    and the ROADMAP item that would widen it (Queue 3 item 1).  Hidden 32,
-    64, 128 and 256 pass both gates on 7×7 maps; 512 (over one CTA's shared
-    memory) and 96 (not a power of two) neither.  Meta tensors stand in for
-    the card's: they get past the CPU branch and fail the device check, so
-    only the shape gate can refuse first."""
+    """The kernels' gate is the JAX kernels' gate: on 7×7 (CIFAR-10) and
+    6×6 (MNIST) maps with groups 32, ``supported``, ``bwd_supported`` and
+    ``stage`` accept exactly the widths JAX ``pallas_supported`` accepts
+    (every multiple of 32 up to 512; C = 32 on the FFMA stage, the rest on
+    the tensor cores).  Off the CPU a wrapper launches its kernel or
+    raises; a refused shape raises before anything is launched, naming the
+    JAX gate's clause.  Meta tensors stand in for the card's: they get past
+    the CPU branch and fail the device check, so only the shape gate can
+    refuse first."""
+    for hw in ((7, 7), (6, 6)):
+        ok = jax_pallas_supported(np.zeros((2, *hw, c), np.float32), 32)
+        assert ok == (c % 32 == 0 and c <= 512)
+        assert supported(hw, c, 32) == bwd_supported(hw, c, 32) == ok
+        assert stage(hw, c) == ("mma3" if ok and c >= 64 else "ffma")
     cfg = ModelConfig(in_channels=3, hidden=c)
     p = init_odenet(0, cfg, device="cpu")["odefunc"]
     p = torch.utils._pytree.tree_map(lambda t: t.to("meta"), p)
     h = torch.zeros(2, 7, 7, c, device="meta")
-    ok = c in (32, 64, 128, 256)
-    with pytest.raises(ValueError, match="expected CUDA" if ok
-                       else r"kernels do not take .*Queue 3 item 1"):
-        odefunc(p, 0.5, h)
-    with pytest.raises(ValueError, match="expected CUDA" if ok
-                       else r"backward kernel does not take .*Queue 3 item 1"):
-        odefunc_bwd(p, 0.5, h, h)
+    clause = "C % groups != 0" if c % 32 else "C > 512"
+    for fn, what in ((lambda: odefunc(p, 0.5, h), "kernels do not take"),
+                     (lambda: odefunc_bwd(p, 0.5, h, h),
+                      "backward kernel does not take")):
+        with pytest.raises(ValueError) as err:
+            fn()
+        msg = str(err.value)
+        if ok:
+            assert "expected CUDA" in msg
+        else:
+            assert what in msg and clause in msg and "Queue" not in msg

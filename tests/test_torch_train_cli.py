@@ -134,13 +134,16 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--seeds", "0,1"], "Queue 1 item 8"),
+    (["--seeds", "0,1", "--num-devices", "2"], "Queue 1 item 8"),
     (["--num-devices", "2"], "Queue 1 item 8"),
     (["--model-shards", "2"], "Queue 1 item 8"),
     (["--bf16"], "Queue 2 item 5"),
     (["--state-format", "orbax"], "Queue 1 item 5"),
     (["--tensorboard"], "clu"),
     (["--hidden", "48"], "multiple of 32"),
+    (["--seeds", "0,1", "--model-shards", "2"], "Queue 1 item 8"),
+    (["--seeds", "3,3"], "duplicate seeds"),
+    (["--seeds", "0,1", "--no-fused-epoch"], "incompatible with --seeds"),
 ])
 def test_unported_flags_exit_before_a_run_directory(tmp_path, flags, match):
     runs = tmp_path / "runs"

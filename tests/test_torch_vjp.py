@@ -12,12 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from neural_ode_features_tpu.kernels.odefunc_pallas import odefunc_pallas_vjp
+from neural_ode_features_tpu.kernels.odefunc_pallas import (
+    _jnp_odefunc,
+    odefunc_pallas_vjp,
+)
 from neural_ode_features_tpu.models import ModelConfig as JaxConfig
 from neural_ode_features_tpu.models import init_odenet as jax_init_odenet
 from neural_ode_features_tpu.models.odenet import odefunc_apply as jax_odefunc
 from neural_ode_features_tpu_torch.kernels.odefunc import (
     PARAM_KEYS,
+    odefunc,
     odefunc_autograd,
     odefunc_vjp,
     prepare,
@@ -38,6 +42,7 @@ DH_TOL = dict(rtol=2e-4, atol=2e-5)
 DT_TOL = dict(rtol=2e-4, atol=1e-5)
 DT_PER_SAMPLE_TOL = dict(rtol=5e-3, atol=5e-5)
 DP_TOL = dict(rtol=3e-4, atol=3e-4)
+F_TOL = dict(rtol=2e-5, atol=2e-5)  # the forward, tests/test_pallas.py:29-30
 
 
 @pytest.fixture(scope="module")
@@ -108,6 +113,45 @@ def test_vjp_matches_jax(odefunc_params, batch, side, t_kind):
                                        **DP_TOL)
 
 
+@pytest.mark.parametrize("c", [96, 512])
+def test_new_widths_match_jax(c):
+    """The widths the kernels take since the tensor-core stage pads its
+    last channel block (96) and keeps the state in global scratch (512), on
+    6×6 maps, B = 2: the port's ``odefunc`` and ``odefunc_vjp`` (their plain
+    versions on the CPU) against the JAX ``odefunc_pallas`` and its VJP.
+    The Pallas pair runs in interpret mode at 96; at 512 the JAX side is
+    its ``_jnp_odefunc`` mirror, to keep the run short."""
+    cfg = JaxConfig(in_channels=1, hidden=c)
+    pj = jax_init_odenet(jax.random.PRNGKey(c), cfg)["odefunc"]
+    pj = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), pj)
+    pt = from_jax_params(pj, device="cpu")
+    rng = np.random.default_rng(c)
+    h = (rng.normal(size=(2, 6, 6, c)) * 0.5).astype(np.float32)
+    g = rng.normal(size=h.shape).astype(np.float32)
+    t = rng.uniform(0.1, 0.9, 2).astype(np.float32)
+    hj, gj, tj = jnp.asarray(h), jnp.asarray(g), jnp.asarray(t)
+
+    if c == 96:
+        def fj(p, tt, hh):
+            return odefunc_pallas_vjp(p, tt, hh, 32, True)
+    else:
+        def fj(p, tt, hh):
+            return _jnp_odefunc(p, tt, hh, 32)
+
+    f_j, pullback = jax.vjp(fj, pj, tj, hj)
+    gp, gt, gh = pullback(gj)
+    f, dp, dt, dh = odefunc_vjp(pt, torch.from_numpy(t), torch.from_numpy(h),
+                                torch.from_numpy(g), groups=32)
+    np.testing.assert_allclose(odefunc(pt, torch.from_numpy(t),
+                                       torch.from_numpy(h)).numpy(),
+                               np.asarray(f_j), **F_TOL)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_j), **F_TOL)
+    np.testing.assert_allclose(dh.numpy(), np.asarray(gh), **DH_TOL)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(gt),
+                               **DT_PER_SAMPLE_TOL)
+    np.testing.assert_allclose(_flat_torch(dp), _flat_jax(gp), **DP_TOL)
+
+
 def test_wrapper_and_vjp_take_the_plain_path_on_cpu(odefunc_params):
     _, _, pt = odefunc_params
     rng = np.random.default_rng(3)
@@ -144,8 +188,9 @@ def test_tap_contract_is_the_adjoint_of_time_map():
 def test_backward_gate():
     assert bwd_supported((7, 7), 64, 32)  # CIFAR-10
     assert bwd_supported((6, 6), 64, 32)  # MNIST
-    for c in (32, 128, 256):  # 32: the 32-wide weight tile
+    # 32, 96: the 32-wide weight tile; 512: u and x in global scratch.
+    for c in (32, 96, 128, 256, 512):
         assert bwd_supported((7, 7), c, 32) and bwd_supported((6, 6), c, 32)
     assert not bwd_supported((7, 7), 16, 16)  # below the weight tile
-    assert not bwd_supported((7, 7), 512, 32)
+    assert not bwd_supported((7, 7), 544, 32)  # C > 512, as in JAX
     assert not bwd_supported((28, 28), 64, 32)  # shared memory
