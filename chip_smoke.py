@@ -127,6 +127,23 @@ Phases (any failed check exits nonzero and prints no result):
    ``train --seeds 5,6`` for one epoch at the train CLI's size: two run
    directories, member 0's name, weights, training state and ``log.csv``
    rows (but ``time_s``) bit-identical to the solo ``--seed 5`` run's.
+   ``[serve]``: the deployment path.  The ``entry`` model (seed 7) through
+   ``export_model export-compiled`` at B = 256 (``rowwise`` must be true),
+   then the serving host in its own process (``python -m
+   neural_ode_features_tpu_torch.serve``, a cache hit of this script's
+   build): ``--selftest`` (bit-equal) and ``--bench 20``, then ``--listen``
+   on a unix socket, driven through the port's ``serving.SocketClient``:
+   one full batch (the first request after ``READY``), then 256
+   sequential full batches (latency p50 and p99) and 400 in depth-2
+   streams, in alternating turns, a burst of 64 ragged requests of 1..32
+   rows over one connection and over four, a bad length and a good request
+   after it, the shutdown frame; the host's totals read between the parts
+   (``SIGUSR1``).  Every ragged answer must equal the same rows of
+   the full batch's answer bit for bit, the full batch the plain path on
+   the CPU at 1e-3 (argmax equal); the host must exit 0, and its shutdown
+   line must show 2 ``odefunc`` launches per dispatch and one ``rk_step``
+   per attempt.  Prints img/s, dispatches, requests per dispatch and the
+   attempts of the ragged dispatches beside a full batch's.
 8. Time each kernel, its plain version and the library yardstick (one f
    through cuDNN: ``F.group_norm``/``F.conv2d`` on NCHW with the t channel
    concatenated; for the backward, ``torch.autograd.grad`` through it; for
@@ -158,10 +175,13 @@ import gzip
 import io
 import itertools
 import json
+import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -372,11 +392,13 @@ def main() -> int:
         convert_checkpoint as convert_cli,
     )
     from neural_ode_features_tpu_torch import evaluate as evaluate_cli
+    from neural_ode_features_tpu_torch import export_model
     from neural_ode_features_tpu_torch import extract as extract_cli
     from neural_ode_features_tpu_torch import parity_eval as parity_cli
     from neural_ode_features_tpu_torch import sweep as sweep_cli
     from neural_ode_features_tpu_torch import train as train_cli
     from neural_ode_features_tpu_torch import training as training_mod
+    from neural_ode_features_tpu_torch._device import tree_to
     from neural_ode_features_tpu_torch.data import load_dataset
     from neural_ode_features_tpu_torch.entry import (
         ENTRY_CONFIG,
@@ -425,7 +447,8 @@ def main() -> int:
         stem_apply,
     )
     from neural_ode_features_tpu_torch.ops import normalize
-    from neural_ode_features_tpu_torch.probes import conv_probe
+    from neural_ode_features_tpu_torch.probes import conv_probe, serve_probe
+    from neural_ode_features_tpu_torch.serving import SocketClient
     from neural_ode_features_tpu_torch.solver import (
         DOPRI5,
         odeint,
@@ -2188,9 +2211,202 @@ def main() -> int:
             fail("[population] member 0 differs from its solo run")
         phase_done("population", t_ph)
 
+    # [serve]: the deployment path.  The entry() model (seed 7) through
+    # export_model export-compiled at B = 256 (rowwise must be true), then
+    # the serving host in its own process: --selftest and --bench 20, then
+    # --listen on a unix socket, driven through the port's SocketClient: one
+    # full batch (the first request after READY), sequential full batches
+    # and depth-2 streams of them in alternating turns (serve_probe.turns:
+    # 256 sequential, 400 streamed), a burst of 64 ragged requests of 1..32
+    # rows over one connection and over four, a bad length and a good
+    # request after it, the shutdown frame.  The host's totals are read
+    # between the parts (SIGUSR1).  Every ragged answer must equal the same
+    # rows of the full batch's answer bit for bit; the full batch must agree
+    # with the plain path on the CPU; the host's shutdown line gives its
+    # launches.
+    def serve_phase():
+        t_ph = time.perf_counter()
+        cpu = torch.device("cpu")
+        sparams = init_odenet(7, ENTRY_CONFIG, device=dev)
+        with tempfile.TemporaryDirectory(prefix="srv") as tmp:
+            tmp = Path(tmp)
+            save_checkpoint(tmp / "run" / "ckpt_best.pt", sparams,
+                            ENTRY_CONFIG, {"model": "odenet"})
+            t_e = time.perf_counter()
+            art = export_model.main(
+                ["export-compiled", "--run", str(tmp / "run"), "--batch",
+                 str(B), "--out", str(tmp / "entry.npexec")])
+            t_export = time.perf_counter() - t_e
+            meta = json.loads((art / "meta.json").read_text())
+            if not meta["rowwise"] or meta["platform"] != "cuda":
+                fail(f"[serve] export-compiled: rowwise {meta['rowwise']} on "
+                     f"{meta['platform']}")
+            X = np.load(art / "sample_input.npy")
+            expected = np.load(art / "expected_logits.npy")
+            sock = serve_probe.short_addr(tmp)
+            err_path = tmp / "host.err"
+            with open(err_path, "w+b") as err_f:
+                t_h = time.perf_counter()
+                host = serve_probe.spawn_host(
+                    art, sock, "--selftest", "--bench", "20", "--deadline",
+                    "300", err_file=err_f)
+
+                def snap():
+                    return serve_probe.host_stats(host, err_path)
+
+                try:
+                    selftest = serve_probe.readline_within(host, 300)
+                    bench = json.loads(serve_probe.readline_within(host, 120))
+                    ready = serve_probe.readline_within(host, 120)
+                    t_ready = time.perf_counter() - t_h
+                    if (not selftest.startswith("SELFTEST OK max_diff=0.000e+00")
+                            or ready != f"READY {sock}"):
+                        fail(f"[serve] host: {selftest!r}, {ready!r}")
+                    client = SocketClient(sock)
+                    s_first = snap()
+                    t_r = time.perf_counter()
+                    Y = client.infer(X)
+                    first_ms = 1e3 * (time.perf_counter() - t_r)
+                    s_turns = snap()
+                    d_first = serve_probe.delta(s_first, s_turns)
+                    res = serve_probe.turns(client, X, Y, snap)
+                    offs, sizes, reqs = serve_probe.ragged_burst(X)
+                    s_b1 = snap()
+                    t_r = time.perf_counter()
+                    burst1 = client.infer_burst(reqs)
+                    t_burst1 = time.perf_counter() - t_r
+                    s_b4 = snap()
+                    clients4 = [SocketClient(sock) for _ in range(4)]
+                    burst4 = [None] * 4
+                    gate = threading.Barrier(4)
+
+                    def one(ci):
+                        gate.wait(timeout=60)
+                        burst4[ci] = clients4[ci].infer_burst(reqs[ci::4])
+
+                    threads = [threading.Thread(target=one, args=(ci,))
+                               for ci in range(4)]
+                    t_r = time.perf_counter()
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join(timeout=120)
+                    t_burst4 = time.perf_counter() - t_r
+                    if any(b_ is None for b_ in burst4):
+                        fail("[serve] a connection of the 4-way burst failed")
+                    s_end = snap()
+                    for c_ in clients4:
+                        c_.close()
+                    client._conn.sendall(struct.pack("<I", 12) + bytes(12))
+                    status = client._recv(1)[0]
+                    (n_err,) = struct.unpack("<I", client._recv(4))
+                    err_msg = client._recv(n_err)
+                    after_err = client.infer(X[5:8])
+                    client.close(shutdown_server=True)
+                    rc = host.wait(timeout=120)
+                except TimeoutError as e:
+                    fail(f"[serve] {e}")
+                finally:
+                    if host.poll() is None:
+                        host.kill()
+                        host.wait(timeout=30)
+                err_f.seek(0)
+                host_err = err_f.read().decode(errors="replace")
+        stats_line = [ln for ln in host_err.splitlines()
+                      if "listen: loop ended" in ln]
+        if rc != 0 or not stats_line:
+            fail(f"[serve] host exit {rc}: {host_err[-3000:]}")
+        stats = json.loads(stats_line[-1].split(" stats ", 1)[1])
+        got_s = stats["launches"]
+        cli_launches["serve"] = got_s
+
+        d_b1 = serve_probe.delta(s_b1, s_b4)
+        d_b4 = serve_probe.delta(s_b4, s_end)
+        d_full = serve_probe.delta(s_first, s_b1)
+        ragged_ok = (all(np.array_equal(y_, Y[o:o + r])
+                         for y_, o, r in zip(burst1, offs, sizes))
+                     and all(np.array_equal(y_, Y[o:o + r])
+                             for ci in range(4)
+                             for y_, o, r in zip(burst4[ci], offs[ci::4],
+                                                 sizes[ci::4])))
+        expected_ok = np.array_equal(Y, expected)
+        err_ok = status == 1 and b"expected" in err_msg and np.array_equal(
+            after_err, Y[5:8])
+        with torch.no_grad():
+            want, _ = odenet_logits(tree_to(sparams, cpu), torch.from_numpy(X),
+                                    ENTRY_CONFIG)
+        want = want.numpy()
+        plain_err = float(np.abs(Y - want).max())
+        plain_ok = (np.allclose(Y, want, rtol=TOL, atol=TOL)
+                    and np.array_equal(Y.argmax(-1), want.argmax(-1)))
+
+        sm = serve_probe.summary(res)
+        n_burst = int(sizes.sum())
+        print(f"[serve] export-compiled B={B}: rowwise {meta['rowwise']}, "
+              f"{t_export:.1f} s; host READY in {t_ready:.1f} s "
+              f"(selftest, bench 20, warm-up); {selftest}; bench "
+              f"{bench['native_serve_img_per_s_median']:.1f} img/s median "
+              f"({1e3 * bench['median_s']:.2f} ms per batch, best "
+              f"{bench['img_per_s_best']:.1f} img/s)")
+        print(f"[serve] {sock.split(':')[0] if sock.startswith('tcp') else 'unix'}"
+              f" socket: the first request after READY {first_ms:.2f} ms "
+              f"(solve {d_first['solve_ms']:.2f} ms); {sm['requests']} "
+              f"sequential full batches: latency p50 {sm['p50_ms']:.2f} ms, "
+              f"p99 {sm['p99_ms']:.2f} ms, max {sm['max_ms']:.2f} ms")
+        for t_ in res["turns"]:
+            print(f"[serve] turn {t_['kind']:>6}: {t_['requests']} requests, "
+                  f"{t_['img_s']:.1f} img/s, {t_['dispatches']} dispatches, "
+                  f"attempts {t_['attempts']}, solve {t_['solve_ms']:.2f} ms "
+                  "per dispatch (compute thread)")
+        print(f"[serve] img/s per turn: sequential "
+              f"{[round(v, 1) for v in sm['seq_img_s']]}, stream "
+              f"{[round(v, 1) for v in sm['stream_img_s']]}; every stream "
+              f"turn above every sequential turn: "
+              f"{sm['stream_above_seq_every_turn']}")
+        print(f"[serve] burst of 64 ragged requests ({n_burst} rows, 1..32 "
+              f"each): one connection {n_burst / t_burst1:.1f} img/s in "
+              f"{d_b1['flights']} dispatches ({64 / d_b1['flights']:.2f} "
+              f"requests per dispatch, attempts {d_b1['attempts']}); four "
+              f"connections {n_burst / t_burst4:.1f} img/s in "
+              f"{d_b4['flights']} dispatches ({64 / d_b4['flights']:.2f} "
+              f"requests per dispatch, attempts {d_b4['attempts']})")
+        print(f"[serve] host totals: {stats['requests']} requests, "
+              f"{stats['rows']} rows, {stats['flights']} dispatches, attempts "
+              f"{stats['attempts']}; launches {got_s}; ragged answers equal "
+              f"to the full batch's rows: {ragged_ok}; turns {res['equal']}; "
+              f"full batch = expected_logits.npy: {expected_ok}; bad length "
+              f"-> status {status}, next request right: {err_ok}; against "
+              f"the plain path on the CPU: max abs err {plain_err:.3e} (tol "
+              f"{TOL}), argmax equal {plain_ok}; host exit {rc}")
+        print(f"[serve] card: {smi}")
+        if not (ragged_ok and res["equal"] and expected_ok and err_ok
+                and plain_ok):
+            fail("[serve] an answer of the serving host is wrong")
+        n_att = sum(int(k) * v for k, v in stats["attempts"].items())
+        if (got_s["rk_step"] < 1 or got_s["odefunc"] != 2 * stats["flights"]
+                or got_s["rk_step"] != n_att
+                or sum(stats["attempts"].values()) != stats["flights"]
+                or d_full["requests"] != 1 + len(res["seq_latency_s"]) + sum(
+                    t_["requests"] for t_ in res["turns"]
+                    if t_["kind"] == "stream")):
+            fail(f"[serve] launches {got_s} for {stats['flights']} dispatches")
+        print("[serve] summary " + json.dumps({
+            "export_s": t_export, "ready_s": t_ready,
+            "bench_img_s": bench["native_serve_img_per_s_median"],
+            "first_ms": first_ms, **sm,
+            "burst1_img_s": n_burst / t_burst1,
+            "burst4_img_s": n_burst / t_burst4, "burst_rows": n_burst,
+            "burst1_dispatches": d_b1["flights"],
+            "burst4_dispatches": d_b4["flights"],
+            "attempts_full": d_full["attempts"],
+            "attempts_burst1": d_b1["attempts"],
+            "attempts_burst4": d_b4["attempts"]}))
+        phase_done("serve", t_ph)
+
     width_kernels = width_phase()
     foreign_phase()
     population_phase()
+    serve_phase()
     # 8. Times.
     wt = params["odefunc"]
     lib_err = float((library_f(h, t, wt) - odefunc_plain(w, t, h, G))
@@ -2470,7 +2686,8 @@ def main() -> int:
                        ("odefunc_bwd", "train_hidden128"),
                        ("odefunc_bwd", "train_hidden512"),
                        ("rk_step", "parity_run"),
-                       ("odefunc_bwd", "population")):
+                       ("odefunc_bwd", "population"),
+                       ("odefunc", "serve"), ("rk_step", "serve")):
         if by_path[path][name] < 1:
             fail(f"{name} was not launched on the {path} path")
     for mode, rows_ in sweep_report.items():

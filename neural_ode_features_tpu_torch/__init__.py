@@ -11,7 +11,9 @@ Entry points (``entry.entry``, ``entry.train_entry``, ``entry.extract_entry``,
 ``device="cuda"`` and raise when CUDA is absent; pass ``device="cpu"`` (the
 CLIs: ``--cpu``) to run the plain PyTorch versions of the kernels on the CPU.
 Command lines: ``python -m neural_ode_features_tpu_torch.train``,
-``.extract``, ``.evaluate``, ``.sweep`` and ``.probes.conv_probe``.  On a CUDA tensor the hand-written kernels in
+``.extract``, ``.evaluate``, ``.sweep``, ``.probes.conv_probe``, and for
+deployment ``.export_model`` and ``.serve`` (the serving host; clients:
+``serving.SocketClient`` and ``.serve_client``).  On a CUDA tensor the hand-written kernels in
 ``kernels/`` (sources in ``csrc/``) always run.
 """
 

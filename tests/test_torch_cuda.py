@@ -529,3 +529,61 @@ def _check_train_step(hidden):
         2 + 6 * attempts + 1, m["nfe_b"] - 1, 0)
     assert np.isfinite(m["loss"])
     assert all(bool(torch.isfinite(p.grad).all()) for p in trainer._leaves)
+
+
+def test_serving_host_on_the_card(dev, tmp_path):
+    """The serving host holds the entry() model (seed 7) on the card at
+    B = 256: its full batch runs the kernels and equals the exported
+    expected logits; a burst of ragged requests returns the same rows of
+    the full batch, bit for bit; the shutdown frame ends it with exit 0."""
+    import json
+    import re
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from neural_ode_features_tpu_torch import export_model
+    from neural_ode_features_tpu_torch.serving import SocketClient
+    from neural_ode_features_tpu_torch.utils import save_checkpoint
+
+    root = Path(__file__).resolve().parent.parent
+    save_checkpoint(tmp_path / "run" / "ckpt_best.pt",
+                    init_odenet(7, ENTRY_CONFIG, device=dev), ENTRY_CONFIG,
+                    {"model": "odenet"})
+    art = export_model.main(["export-compiled", "--run", str(tmp_path / "run"),
+                             "--batch", "256", "--out", str(tmp_path / "a")])
+    assert json.loads((art / "meta.json").read_text())["rowwise"] is True
+    x = np.load(art / "sample_input.npy")
+    sock = str(tmp_path / "s.sock")
+    if len(sock.encode()) > 100:  # AF_UNIX paths: 107 bytes at most
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            sock = f"tcp:127.0.0.1:{probe.getsockname()[1]}"
+    host = subprocess.Popen(
+        [sys.executable, "-m", "neural_ode_features_tpu_torch.serve", str(art),
+         "--listen", sock], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=root)
+    try:
+        assert host.stdout.readline().strip() == f"READY {sock}"
+        client = SocketClient(sock)
+        full = client.infer(x)
+        np.testing.assert_array_equal(full,
+                                      np.load(art / "expected_logits.npy"))
+        rng = np.random.default_rng(5)
+        spans = [(int(o), int(o) + int(r)) for r, o in
+                 ((r, rng.integers(0, 257 - r))
+                  for r in rng.integers(1, 33, size=24))]
+        outs = client.infer_burst([x[a:b] for a, b in spans])
+        for (a, b), y in zip(spans, outs):
+            np.testing.assert_array_equal(y, full[a:b])
+        client.close(shutdown_server=True)
+        assert host.wait(timeout=120) == 0
+        err = host.stderr.read()
+    finally:
+        if host.poll() is None:
+            host.kill()
+            host.wait(timeout=30)
+    launches = json.loads(re.search(r" stats (\{.*\})", err).group(1))[
+        "launches"]
+    assert launches["odefunc"] >= 2 and launches["rk_step"] >= 1

@@ -51,7 +51,9 @@ def test_imports_with_jax_blocked():
                  "extract", "evaluate", "features_io", "solver.dense",
                  "models.resnet", "models.api", "evaluation.probes",
                  "kernels.conv3x3", "probes.conv_probe", "utils.checkpoint",
-                 "eval_ckpt", "utils.flax_msgpack"):
+                 "eval_ckpt", "utils.flax_msgpack", "serving", "serve",
+                 "export_model", "serve_client", "examples.native_serving",
+                 "examples.deploy_artifact", "probes.serve_probe"):
         assert f"{port.__name__}.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -81,7 +83,9 @@ def test_no_jax_references_in_sources():
     assert len(files) >= 45
     names = {f.name for f in files}
     assert {"train.py", "sweep.py", "expman.py", "fixed_grid.py", "adams.py",
-            "event.py", "event_adjoint.py"} <= names
+            "event.py", "event_adjoint.py", "serving.py", "serve.py",
+            "export_model.py", "serve_client.py", "native_serving.py",
+            "deploy_artifact.py", "serve_probe.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"
