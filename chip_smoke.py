@@ -9,7 +9,8 @@ Phases (any failed check exits nonzero and prints no result):
    ``nvcc`` per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (B = 256 for inference, B = 128 for training,
-   7×7×64), the fused step and the backward kernel also at a ragged B = 5;
+   7×7×64, and B = 64 for one rank's rows of ``[parallel]``'s batch), the
+   fused step and the backward kernel also at a ragged B = 5;
    the fused step takes its tolerances as ``(B,)`` arrays, checked at mixed
    values against the plain version and, row by row, bit-identical to
    launches at one float.  The ODEfunc kernel and the fused step (at the
@@ -127,6 +128,16 @@ Phases (any failed check exits nonzero and prints no result):
    ``train --seeds 5,6`` for one epoch at the train CLI's size: two run
    directories, member 0's name, weights, training state and ``log.csv``
    rows (but ``time_s``) bit-identical to the solo ``--seed 5`` run's.
+   ``[parallel]`` (``parallel_phase``): training across devices on the one
+   card: ``dryrun_multichip(1)`` and three steps at one NCCL rank; two gloo
+   ranks sharing the card (``devices=['cuda:0', 'cuda:0']``): two data
+   parallel steps and an evaluation, two steps on a (1, 2) FSDP mesh, a
+   population of seeds 5 and 6 over the ranks, against the solo
+   ``Trainer`` on the card at the JAX bars (members bit-identical); ``train
+   --num-devices 2`` refused, naming the card count; each rank's launches
+   per step by the training rule and ``rk_step`` in its evaluation; the
+   step's time solo, at one NCCL rank and with two ranks on one card, and
+   the bytes summed per backward attempt and per step.
    ``[serve]``: the deployment path.  The ``entry`` model (seed 7) through
    ``export_model export-compiled`` at B = 256 (``rowwise`` must be true),
    then the serving host in its own process (``python -m
@@ -168,6 +179,7 @@ with the tensor cores and ``ffma_bound_ms`` on the CUDA cores), and last
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import dataclasses
@@ -379,6 +391,195 @@ def fused_bounds(hw, c, b, b_bwd):
     }
 
 
+def parallel_phase(smi: str) -> dict:
+    """[parallel]: training across devices on the one card.  (a)
+    ``dryrun_multichip(1)``, one NCCL rank (beside (b)), and three steps
+    at one NCCL rank alone at the JAX ``TrainConfig`` defaults on
+    ``synthetic-cifar10`` (hidden 64, B = 128, tol 1e-3 per sample,
+    augment on); (b) two ranks sharing
+    the card through gloo (``devices=['cuda:0', 'cuda:0']``): two data
+    parallel steps and an evaluation, two FSDP steps on a (1, 2) mesh, and a
+    population of two seeds over the ranks, the steps against the solo
+    ``Trainer`` on the card at the JAX bars (step-1 loss rtol 1e-6 with NFE
+    equal, step-2 loss rtol 3e-4 with NFE equal and nfe_b within 1), each
+    member's weights bit-identical to its solo epoch; (c) ``train
+    --num-devices 2`` on one card exits, naming the count; (d) every rank's
+    launches per step, ``odefunc`` 2 + 6·attempts + 1 with its own forward
+    attempts and ``odefunc_bwd`` NFE-b − 1, and ``rk_step`` in each rank's
+    share of the evaluation.  Prints the step's time solo, at one NCCL rank
+    and with two ranks on one card (which says nothing of scaling), and the
+    bytes summed across ranks per backward attempt and per step.  Returns
+    the ranks' launches by path (summed over the ranks), for the script's
+    check that every kernel of a path ran."""
+    import torch
+
+    from neural_ode_features_tpu_torch import train as train_cli
+    from neural_ode_features_tpu_torch._device import strict_f32
+    from neural_ode_features_tpu_torch.data import load_dataset
+    from neural_ode_features_tpu_torch.entry import (
+        TRAIN_CONFIG,
+        dryrun_multichip,
+    )
+    from neural_ode_features_tpu_torch.parallel import launch
+    from neural_ode_features_tpu_torch.parallel.tasks import (
+        in_turn,
+        population_epoch,
+        train_steps,
+    )
+    from neural_ode_features_tpu_torch.training import Trainer
+    from neural_ode_features_tpu_torch.utils import count_parameters
+
+    t_ph = time.perf_counter()
+    strict_f32("cuda")  # the solo runs here compute as the ranks do
+    card = f"({smi})"
+    cfg = dataclasses.replace(TRAIN_CONFIG, batch_size=B_TRAIN)
+    x, y = load_dataset(cfg.dataset, "train", limit=2 * B_TRAIN)
+    y = y.astype(np.int64)
+    xt, yt = load_dataset(cfg.dataset, "test", limit=2 * B_TRAIN)
+    batches = [(x[:B_TRAIN], y[:B_TRAIN]), (x[B_TRAIN:], y[B_TRAIN:])]
+    timing = batches + batches[:1]
+
+    # (a) One NCCL rank: the step's time, alone on the card.
+    nccl = launch(train_steps, 1, cfg, timing, devices=["cuda:0"],
+                  device="cuda", timeout=300)[0]
+    print(f"[parallel] one NCCL rank: 3 steps at B={B_TRAIN} by "
+          f"{time.perf_counter() - t_ph:.1f} s")
+
+    # (b) Two ranks on the one card (gloo), while dryrun_multichip(1) runs
+    # its one NCCL rank beside them (neither's time is read).
+    shared = ["cuda:0", "cuda:0"]
+    dp_cfg = dataclasses.replace(cfg, num_devices=2)
+    jobs = [(train_steps, (dp_cfg, batches),
+             {"device": "cuda", "evaluate": (xt, yt)}),
+            (train_steps, (dataclasses.replace(dp_cfg, model_shards=2),
+                           batches), {"device": "cuda"}),
+            (population_epoch, (dp_cfg, [5, 6], x, y), {"device": "cuda"})]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        dry_f = pool.submit(dryrun_multichip, 1)
+        ranks = launch(in_turn, 2, jobs, devices=shared, timeout=300)
+        dry = dry_f.result()
+    if not np.isfinite(dry["loss"]):
+        fail("[parallel] dryrun_multichip(1) loss is not finite")
+    dp, fsdp, pop = ([r[i] for r in ranks] for i in range(3))
+    print(f"[parallel] two gloo ranks on the card (data parallel, FSDP, the "
+          f"population) and dryrun_multichip(1) by "
+          f"{time.perf_counter() - t_ph:.1f} s")
+
+    solo = Trainer(cfg, steps_per_epoch=4, device="cuda")
+    want, solo_s = [], []
+    for b in timing:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want.append(solo.train_batch(*b))
+        torch.cuda.synchronize()
+        solo_s.append(time.perf_counter() - t0)
+    want = want[:2]
+
+    def bars(got):
+        return (abs(got[0]["loss"] - want[0]["loss"])
+                <= 1e-6 * abs(want[0]["loss"])
+                and got[0]["nfe"] == want[0]["nfe"]
+                and abs(got[1]["loss"] - want[1]["loss"])
+                <= 3e-4 * abs(want[1]["loss"])
+                and got[1]["nfe"] == want[1]["nfe"]
+                and abs(got[1]["nfe_b"] - want[1]["nfe_b"]) <= 1.0)
+
+    for name, rs in (("2 ranks data parallel", dp),
+                     ("(1, 2) FSDP", fsdp)):
+        print(f"[parallel] {name} on one card (gloo): " + " | ".join(
+            f"step {i}: loss {m['loss']:.7f} nfe {m['nfe']} nfe_b "
+            f"{m['nfe_b']}" for i, m in enumerate(rs[0]["metrics"]))
+            + f"; solo: " + " | ".join(
+                f"loss {m['loss']:.7f} nfe {m['nfe']} nfe_b {m['nfe_b']}"
+                for m in want))
+        if not all(r["metrics"] == rs[0]["metrics"] for r in rs):
+            fail(f"[parallel] {name}: the ranks report other metrics")
+        if not bars(rs[0]["metrics"]):
+            fail(f"[parallel] {name} misses the JAX bars against the solo "
+                 "Trainer on the card")
+    if not any(tuple(loc) != tuple(whole)
+               for loc, whole in fsdp[0]["shapes"]):
+        fail("[parallel] FSDP: no parameter leaf is sharded")
+
+    seeds_same = []
+    for i, seed in enumerate((5, 6)):
+        member = Trainer(dataclasses.replace(cfg, seed=seed),
+                         steps_per_epoch=2, device="cuda")
+        member.train_epoch(x, y, 0)
+        got = {j: p for r in pop for j, p in r["params"].items()}[i]
+        seeds_same.append(max(
+            float((a.detach().cpu() - b).abs().max()) for a, b in zip(
+                leaves(member.params), leaves(got))) == 0.0)
+    print(f"[parallel] population of seeds 5, 6 over 2 ranks (owned "
+          f"{[r['owned'] for r in pop]}): each member's weights after one "
+          f"epoch bit-identical to its solo run on the card: {seeds_same}")
+    if not all(seeds_same):
+        fail("[parallel] a population member differs from its solo run")
+
+    # (c) More ranks than cards.
+    with tempfile.TemporaryDirectory() as runs_tmp:
+        try:
+            train_cli.main(["--dataset", "synthetic-cifar10",
+                            "--num-devices", "2", "--epochs", "1",
+                            "--limit", "256", "--runs-dir", runs_tmp])
+            fail("[parallel] train --num-devices 2 ran on one card")
+        except SystemExit as e:
+            msg = str(e)
+            print(f"[parallel] train --num-devices 2 on one card exits: "
+                  f"{msg}")
+            if "--num-devices 2: 1 CUDA device" not in msg:
+                fail("[parallel] the exit does not name the card count")
+
+    # (d) Each rank's launches.
+    for name, rs in (("dp", dp), ("fsdp", fsdp)):
+        for r in rs:
+            for i, (got, att, m) in enumerate(zip(
+                    r["launches"], r["attempts"], r["metrics"])):
+                exp = {"odefunc": 2 + 6 * att + 1,
+                       "odefunc_bwd": int(m["nfe_b"]) - 1, "rk_step": 0}
+                if got != exp:
+                    fail(f"[parallel] {name} rank {r['rank']} step {i}: "
+                         f"launches {got}, expected {exp}")
+            print(f"[parallel] {name} rank {r['rank']}: launches per step "
+                  f"{r['launches']}, own forward attempts {r['attempts']}")
+    for r in dp:
+        ev = r["eval_launches"]
+        print(f"[parallel] dp rank {r['rank']}: evaluation launches {ev}; "
+              f"test top-1 {r['eval']['acc']:.4f}")
+        if ev["rk_step"] < 1 or ev["odefunc_bwd"] != 0:
+            fail(f"[parallel] dp rank {r['rank']} evaluation launches {ev}")
+
+    # Times and bytes.
+    med = statistics.median
+    odefunc_n = count_parameters(solo.full_params()["odefunc"])
+    n_all = count_parameters(solo.full_params())
+    per_attempt = 4 * (3 * (odefunc_n + 1) + 1)
+    per_step = 4 * (n_all + 3)
+    print(f"[parallel] train step B={B_TRAIN} {card}: solo "
+          f"{1e3 * med(solo_s[1:]):.2f} ms (median of {solo_s[1:]}); one "
+          f"NCCL rank {1e3 * med(nccl['step_s'][1:]):.2f} ms (median of "
+          f"{nccl['step_s'][1:]}); two ranks on one card through gloo "
+          f"{1e3 * dp[0]['step_s'][1]:.2f} ms (step 2; step 1, with the "
+          f"first launches, {1e3 * dp[0]['step_s'][0]:.2f} ms; two processes "
+          f"share one card and sum through the host: this says nothing of "
+          f"scaling)")
+    print(f"[parallel] bytes summed across the data ranks {card}: per "
+          f"backward attempt {per_attempt:,} (y0, y1, err of a_theta and "
+          f"a_t, {odefunc_n + 1:,} floats each, and the row terms), per "
+          f"step {per_step:,} (the gradient of {n_all:,} parameters and 3 "
+          f"metrics), plus 16 bytes per solve for the counts and "
+          f"{4 * (2 * (odefunc_n + 1) + 2) + 4 * (odefunc_n + 2):,} for the "
+          f"initial step; FSDP gathers {4 * n_all:,} bytes of weights per "
+          f"step over 'model'")
+    total = {k: sum(r["launches"][i][k] for r in dp + fsdp
+                    for i in range(2)) for k in ("odefunc", "odefunc_bwd",
+                                                 "rk_step")}
+    ev_total = {k: sum(r["eval_launches"][k] for r in dp)
+                for k in total}
+    print(f"[parallel] phase took {time.perf_counter() - t_ph:.1f} s")
+    return {"parallel": total, "parallel_eval": ev_total}
+
+
 def main() -> int:
     import torch
 
@@ -526,6 +727,13 @@ def main() -> int:
     t = torch.from_numpy(rng.uniform(0, 1, B).astype(np.float32)).to(dev)
     err_k1 = close("odefunc", odefunc(w, t, h, groups=G),
                    odefunc_plain(w, t, h, G), **STATE_TOL)
+    # The training batch, and one rank's rows of it under [parallel]'s two
+    # data ranks.
+    for nb in (B_TRAIN, B_TRAIN // 2):
+        hn, tn = h[:nb].contiguous(), t[:nb].contiguous()
+        err_k1 = max(err_k1, close(f"odefunc B={nb}",
+                                   odefunc(w, tn, hn, groups=G),
+                                   odefunc_plain(w, tn, hn, G), **STATE_TOL))
 
     t0 = torch.from_numpy(rng.uniform(0, 0.5, B).astype(np.float32)).to(dev)
     dt = torch.from_numpy(rng.uniform(0.05, 0.2, B).astype(np.float32)).to(dev)
@@ -535,7 +743,9 @@ def main() -> int:
     tol_rows = torch.full((B,), TOL, device=dev)
     step_kw = dict(hw=(HH, WW), groups=G, rtol=tol_rows, atol=tol_rows)
     err_k2 = 0.0
-    for nb in (B, 5):  # 5: a ragged batch
+    # B_TRAIN // 2: one rank's rows of an evaluation batch under
+    # [parallel]'s two data ranks; 5: a ragged batch.
+    for nb in (B, B_TRAIN // 2, 5):
         kw_nb = dict(step_kw, rtol=tol_rows[:nb], atol=tol_rows[:nb])
         got = dopri5_step(w, DOPRI5, t0[:nb], dt[:nb], y0[:nb].contiguous(),
                           f0[:nb].contiguous(), **kw_nb)
@@ -567,8 +777,9 @@ def main() -> int:
     print(f"[check] rk_step with (B,) tolerances {SWEEP_TOLS}: within "
           f"tolerance of the plain version; rows bit-identical to launches "
           f"at one float")
-    print(f"[check] odefunc max abs err {err_k1:.3e}; rk_step max abs err "
-          f"{err_k2:.3e} (B={B} and B=5)")
+    print(f"[check] odefunc max abs err {err_k1:.3e} (B={B}, {B_TRAIN} and "
+          f"{B_TRAIN // 2}); rk_step max abs err {err_k2:.3e} (B={B}, "
+          f"{B_TRAIN // 2} and 5)")
 
     # The backward kernel against its plain version evaluated in float64 on
     # the same (upcast) inputs: in f32 the plain version's cuDNN
@@ -601,14 +812,17 @@ def main() -> int:
         return err_dh
 
     err_k4 = 0.0
-    for nb in (B_TRAIN, 5):  # 5: a ragged batch
+    # B_TRAIN // 2: one rank's rows under [parallel]'s two data ranks; 5: a
+    # ragged batch.
+    for nb in (B_TRAIN, B_TRAIN // 2, 5):
         err_k4 = max(err_k4, check_bwd(
             w, (tb[:nb].contiguous(), hb[:nb].contiguous(),
                 gb[:nb].contiguous()), f"B={nb}"))
     torch.cuda.synchronize()
     print(f"[check] odefunc_bwd dh max abs err {err_k4:.3e}; dt and dθ "
           f"within tolerance; f bit-identical to the ODEfunc kernel's; dθ "
-          f"bit-identical across two launches (B={B_TRAIN} and B=5)")
+          f"bit-identical across two launches (B={B_TRAIN}, {B_TRAIN // 2} "
+          f"and 5)")
 
     # The other shapes that the paths below give the fused kernels: the
     # fused sweep's launch (its grid of tolerances stacked on the batch axis,
@@ -2406,6 +2620,7 @@ def main() -> int:
     width_kernels = width_phase()
     foreign_phase()
     population_phase()
+    cli_launches.update(parallel_phase(smi))
     serve_phase()
     # 8. Times.
     wt = params["odefunc"]
@@ -2687,6 +2902,8 @@ def main() -> int:
                        ("odefunc_bwd", "train_hidden512"),
                        ("rk_step", "parity_run"),
                        ("odefunc_bwd", "population"),
+                       ("odefunc", "parallel"), ("odefunc_bwd", "parallel"),
+                       ("rk_step", "parallel_eval"),
                        ("odefunc", "serve"), ("rk_step", "serve")):
         if by_path[path][name] < 1:
             fail(f"{name} was not launched on the {path} path")

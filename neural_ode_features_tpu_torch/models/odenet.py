@@ -120,14 +120,16 @@ def fused_rk_eligible(cfg: ModelConfig, h0_shape, h0_dtype) -> bool:
 
 
 def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
-                 cfg: ModelConfig, *, tol=None):
+                 cfg: ModelConfig, *, tol=None, batch_sum=None):
     """Run the ODE block over ``ts`` from the stem's output ``h0`` (the JAX
     module's ``_solve``, inference path); returns ((T, B, H, W, C), stats).
 
     ``tol`` overrides ``cfg.tol`` for this call: a float, or a ``(B,)``
     tensor with one tolerance per row (per-sample error control), which is
     how a tolerance grid is stacked on the batch axis and solved at once
-    (``sweep --fused``).  The fused step takes the same per-row tolerance."""
+    (``sweep --fused``).  The fused step takes the same per-row tolerance.
+    ``batch_sum``: ``h0`` is this rank's rows of a batch spread over ranks
+    (``solver.odeint``; only global control reads it)."""
     tol = cfg.tol if tol is None else tol
     if isinstance(tol, torch.Tensor):
         if cfg.error_control != "per_sample":
@@ -150,11 +152,12 @@ def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
             groups=cfg.groups, rtol=tol, atol=tol)
     return odeint(dyn, h0, ts, rtol=tol, atol=tol, method=cfg.method,
                   error_control=cfg.error_control, max_steps=cfg.max_steps,
-                  fused_step=fused_step, controller=cfg.controller)
+                  fused_step=fused_step, controller=cfg.controller,
+                  batch_sum=batch_sum)
 
 
 def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
-                   cfg: ModelConfig, tol: float):
+                   cfg: ModelConfig, tol: float, batch_sum=None):
     """The ODE block under ``odeint_adjoint`` (JAX ``_solve(adjoint=True)``)
     at ``tol``: differentiable in ``params["odefunc"]`` and ``h0``.  The
     forward takes no fused step, as in JAX, so it evaluates f once per stage
@@ -170,18 +173,21 @@ def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
         method=cfg.method, error_control=cfg.error_control,
         max_steps=cfg.max_steps, controller=cfg.controller,
         adjoint_seminorm=cfg.adjoint_seminorm, adjoint_mode=cfg.adjoint_mode,
-        dense_max_steps=min(cfg.max_steps, DENSE_MAX_STEPS), vjp=vjp)
+        dense_max_steps=min(cfg.max_steps, DENSE_MAX_STEPS), vjp=vjp,
+        batch_sum=batch_sum)
 
 
 def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
-                  adjoint: bool | None = None, tol=None
+                  adjoint: bool | None = None, tol=None, batch_sum=None
                   ) -> tuple[torch.Tensor, SolveStats | AdjointStats]:
     """Classification forward: solve h over [0, 1], head on h(1).  ``x``:
     (B, H, W, C_in) NHWC.  ``adjoint`` overrides ``cfg.adjoint``: the
     adjoint path (training) returns :class:`AdjointStats`, whose ``nfe_b``
     ``.backward()`` fills in.  ``tol`` overrides ``cfg.tol``: on the
     inference path a float or a ``(B,)`` tensor (see :func:`odenet_solve`),
-    on the adjoint path one float, as the JAX ``_solve``."""
+    on the adjoint path one float, as the JAX ``_solve``.  ``batch_sum``:
+    ``x`` is this rank's rows of a batch spread over ranks, and every
+    batch-global error norm spans them all (``solver.odeint_adjoint``)."""
     adjoint = cfg.adjoint if adjoint is None else adjoint
     if adjoint:
         check_adjoint_options(cfg.adjoint_seminorm, cfg.adjoint_mode,
@@ -193,9 +199,11 @@ def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
     if adjoint:
         traj, stats = _solve_adjoint(params, h0, ts, cfg,
-                                     float(cfg.tol if tol is None else tol))
+                                     float(cfg.tol if tol is None else tol),
+                                     batch_sum)
     else:
-        traj, stats = odenet_solve(params, h0, ts, cfg, tol=tol)
+        traj, stats = odenet_solve(params, h0, ts, cfg, tol=tol,
+                                   batch_sum=batch_sum)
     return head_apply(params["head"], traj[-1], cfg), stats
 
 

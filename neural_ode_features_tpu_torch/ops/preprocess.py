@@ -10,8 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["normalize", "normalized_black", "augment", "crop_and_flip",
-           "NORM_STATS"]
+__all__ = ["normalize", "normalized_black", "augment", "augment_draws",
+           "crop_and_flip", "NORM_STATS"]
 
 # Channel statistics. MNIST follows the reference's ToTensor-only convention
 # (identity normalisation); CIFAR-10 uses the standard channel stats.
@@ -63,13 +63,21 @@ def crop_and_flip(x: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+def augment_draws(batch: int, generator: torch.Generator, *, pad: int = 4,
+                  flip: bool = True):
+    """The draws of :func:`augment` for ``batch`` samples: ``(offsets (B, 2),
+    flips (B,) or None)``, offsets uniform on [0, 2·pad], flips
+    Bernoulli(0.5), from ``generator`` (a CPU generator).  A rank that holds
+    some rows of a batch draws the whole batch's and keeps its rows."""
+    offsets = torch.randint(0, 2 * pad + 1, (batch, 2), generator=generator)
+    flips = torch.rand((batch,), generator=generator) < 0.5 if flip else None
+    return offsets, flips
+
+
 def augment(x: torch.Tensor, generator: torch.Generator, *, pad: int = 4,
             flip: bool = True, fill=0.0) -> torch.Tensor:
     """Random pad-crop (+ horizontal flip) of float NHWC ``x`` (normalise
-    first; pass ``fill=normalized_black(dataset)``).  Offsets are uniform on
-    [0, 2·pad], flips Bernoulli(0.5), both drawn from ``generator`` (a CPU
-    generator)."""
-    b = x.shape[0]
-    offsets = torch.randint(0, 2 * pad + 1, (b, 2), generator=generator)
-    flips = torch.rand((b,), generator=generator) < 0.5 if flip else None
+    first; pass ``fill=normalized_black(dataset)``), with the draws of
+    :func:`augment_draws`."""
+    offsets, flips = augment_draws(x.shape[0], generator, pad=pad, flip=flip)
     return crop_and_flip(x, offsets, flips, pad=pad, fill=fill)

@@ -43,6 +43,7 @@ from typing import Callable
 import torch
 
 from .runge_kutta import (
+    RankNorm,
     SolveStats,
     _error_ratio,
     _optimal_dt,
@@ -124,10 +125,13 @@ def adams_odeint(
     dfactor: float = 0.2,
     error_mask: torch.Tensor | None = None,
     max_order: int = 8,
+    batch_sum: Callable | None = None,
+    shared: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, SolveStats]:
     """Adaptive ABM solve of ``dy/dt = func(t, y)`` over the monotonic grid
     ``ts``; the contract of :func:`.runge_kutta.adaptive_odeint` (``rtol``,
-    ``atol``: floats or ``(B,)`` tensors; ``error_mask``: seminorm control).
+    ``atol``: floats or ``(B,)`` tensors; ``error_mask``: seminorm control;
+    ``batch_sum``, ``shared``: the norm spans ranks, :class:`RankNorm`).
     ``max_order`` caps the order ramp (2..12).  Returns ``((T, B, N),
     SolveStats)``."""
     if not 2 <= max_order <= _MAX_ORDER_CAP:
@@ -142,6 +146,8 @@ def adams_odeint(
     mask = None
     if error_mask is not None:
         mask = torch.as_tensor(error_mask, device=dev).expand(batch, n) > 0
+    norm = (None if batch_sum is None
+            else RankNorm(batch_sum, shared, mask, n, dev))
     direction = torch.sign(ts[-1] - ts[0])
     t_final = ts[-1]
     ts_tail = ts[1:]
@@ -152,7 +158,8 @@ def adams_odeint(
     if first_step is None:
         # The ramp starts at order 1: size the Hairer step for that, not for
         # the steady-state order (no start-up rejections).
-        dt = _select_initial_step(func, t, y0, f0, direction, rtol, atol, 1)
+        dt = _select_initial_step(func, t, y0, f0, direction, rtol, atol, 1,
+                                  norm)
         nfe = nfe + 1
     else:
         dt = torch.full((batch,), float(first_step), dtype=dtype,
@@ -242,10 +249,11 @@ def adams_odeint(
 
         # Milne error ratios at every order (the per-order predictors and
         # correctors are there already): ratio_all[m-1] at predictor order m.
-        ratio_all = torch.stack([
-            _error_ratio(corr[min(m + 1, kk)] - pred[m], y, y_corr, rtol,
-                         atol, mask)
-            for m in range(1, kk + 1)])  # (K, B)
+        errs = [corr[min(m + 1, kk)] - pred[m] for m in range(1, kk + 1)]
+        ratio_all = (torch.stack([_error_ratio(e, y, y_corr, rtol, atol, mask)
+                                  for e in errs]) if norm is None
+                     else norm.error_ratio(torch.stack(errs), y, y_corr,
+                                           rtol, atol))  # (K, B)
         max_valid = torch.clamp(nhist, max=kk)  # orders with real history
         ratio_all = torch.where(m_idx <= max_valid[None, :], ratio_all, inf)
 

@@ -174,6 +174,14 @@ class _Adjoint(torch.autograd.Function):
             if not ctx.dense:
                 mask["y"] = 1.0
             bwd_kw["error_mask"] = mask
+        if bwd_kw.get("batch_sum") is not None:
+            # Across ranks, a_θ and a_t are each rank's partial sums of one
+            # value (the dynamics never read them, so the parts integrate
+            # apart and add up); y and a_y are this rank's rows.
+            shared = {"a_y": 0.0, "a_p": 1.0, "a_t": 1.0}
+            if not ctx.dense:
+                shared["y"] = 0.0
+            bwd_kw["shared_mask"] = shared
 
         def t_arg(t):
             # The forward's time-argument contract holds in the backward
@@ -250,6 +258,7 @@ def odeint_adjoint(
     dense_max_steps: int = 256,
     steps_per_interval: int = 1,
     vjp: Callable | None = None,
+    batch_sum: Callable | None = None,
 ) -> tuple[torch.Tensor, AdjointStats]:
     """Like :func:`~.odeint.odeint`, differentiable in ``params`` (a tree of
     tensors), ``y0`` (a tensor) and ``ts`` through the augmented reverse-time
@@ -267,6 +276,15 @@ def odeint_adjoint(
     augmented dynamics (``dt`` in ``t``'s shape, ``dparams`` a tree like
     ``params``).
 
+    ``batch_sum`` (data parallelism, one rank per device): ``y0`` holds this
+    rank's rows of a batch whose other rows other ranks hold, and
+    ``batch_sum(t)`` sums ``t`` over those ranks.  The backward solve's
+    batch-global norm (and a ``'global'`` forward's) then spans the whole
+    batch, so every rank takes the one-device solve's steps and ``nfe_b``;
+    each rank integrates its own partial a_θ and a_t with those steps, and
+    the caller sums the parameter gradients once at the end.  A per-sample
+    forward has no collective: its rows are independent.
+
     Returns ``(ys, AdjointStats)``; ``stats.nfe_b`` is filled in by
     ``.backward()``."""
     check_adjoint_options(adjoint_seminorm, adjoint_mode, method)
@@ -278,7 +296,7 @@ def odeint_adjoint(
     leaves = [x for _, x in with_paths]
     fwd_kw = dict(rtol=rtol, atol=atol, method=method,
                   error_control=error_control, max_steps=max_steps,
-                  controller=controller)
+                  controller=controller, batch_sum=batch_sum)
     if adjoint_mode != "interpolated":
         fwd_kw["steps_per_interval"] = steps_per_interval
     # The augmented state couples every sample through the shared a_θ, so
@@ -289,7 +307,8 @@ def odeint_adjoint(
         method=method, error_control="global",
         max_steps=max_steps if adjoint_max_steps is None
         else adjoint_max_steps,
-        controller=controller, steps_per_interval=steps_per_interval)
+        controller=controller, steps_per_interval=steps_per_interval,
+        batch_sum=batch_sum)
     nfe_b = torch.zeros((), dtype=torch.int64, device=y0.device)
     spec = _Spec(func=func, vjp=vjp or _autograd_vjp(func), treedef=treedef,
                  paths=paths, fwd_kw=fwd_kw, bwd_kw=bwd_kw,

@@ -25,6 +25,7 @@ import torch
 
 from .ravel import ravel_batched, ravel_full
 from .runge_kutta import (
+    RankNorm,
     SolveStats,
     _error_ratio,
     _optimal_dt,
@@ -99,6 +100,7 @@ def odeint_dense(
     max_steps: int = 256,
     first_step: float | None = None,
     controller: str = "i",
+    batch_sum: Callable | None = None,
 ) -> tuple[Callable[[Any], Any], SolveStats]:
     """Solve over [t0, t1] once; return ``(y_at, stats)`` where ``y_at(t)``
     evaluates the continuous solution at any scalar-or-vector ``t`` in the
@@ -107,7 +109,9 @@ def odeint_dense(
     :class:`DenseSolution`.
 
     ``max_steps`` bounds the solve's attempts; the coefficient buffer grows
-    with the attempts made (see the module docstring).
+    with the attempts made (see the module docstring).  ``batch_sum``: with
+    global control, the norm spans the rows other ranks hold
+    (``runge_kutta.RankNorm``); per-sample control ignores it.
     """
     if method not in ADAPTIVE_TABLEAUS:
         raise ValueError(
@@ -130,6 +134,8 @@ def odeint_dense(
 
     dtype, dev = flat0.dtype, flat0.device
     batch, n = flat0.shape
+    norm = (RankNorm(batch_sum, None, None, n, dev)
+            if batch_sum is not None and error_control == "global" else None)
     span = torch.tensor([t0, t1], dtype=dtype, device=dev)
     direction = torch.sign(span[1] - span[0])
 
@@ -142,7 +148,7 @@ def odeint_dense(
     nfe = torch.ones((batch,), dtype=torch.int32, device=dev)
     if first_step is None:
         dt = _select_initial_step(flat_func, t, flat0, f, direction, rtol,
-                                  atol, tableau.order - 1)
+                                  atol, tableau.order - 1, norm)
         nfe = nfe + 1
     else:
         dt = torch.full((batch,), float(first_step), dtype=dtype,
@@ -177,7 +183,8 @@ def odeint_dense(
         dt_col = dt[:, None]
         data = ((y, y1, y_mid, dt_col * f, dt_col * f1) if quartic
                 else (y, y1, dt_col * f, dt_col * f1))
-        ratio = _error_ratio(err, y, y1, rtol, atol)
+        ratio = (_error_ratio(err, y, y1, rtol, atol) if norm is None
+                 else norm.error_ratio(err, y, y1, rtol, atol))
         accept = (ratio <= 1.0) & active
         t1_ = t + dt
 

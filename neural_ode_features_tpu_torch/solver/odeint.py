@@ -59,6 +59,8 @@ def odeint(
     max_order: int = 8,
     fused_step: Callable | None = None,
     controller: str = "i",
+    batch_sum: Callable | None = None,
+    shared_mask: Any = None,
 ) -> tuple[Any, SolveStats]:
     """Solve ``dy/dt = func(t, y)`` from ``y0`` over times ``ts``.
 
@@ -72,6 +74,16 @@ def odeint(
     ``max_order``: the order ceiling of ``method='adams'`` (2..12); other
     methods ignore it.  ``fused_step`` (adaptive tableaus only) operates on
     the flat ``(B, N)`` state; see ``runge_kutta.adaptive_odeint``.
+
+    ``batch_sum`` (data parallelism): with ``'global'`` control the state
+    holds this rank's rows of a batch whose other rows other ranks hold;
+    ``batch_sum(t)`` returns ``t`` summed over those ranks, and the error
+    norms then span the whole batch (``runge_kutta.RankNorm``), so that
+    every rank takes the one-device solve's steps.  ``shared_mask``: a
+    state-like tree of 0/1 leaves (scalars broadcast) marking the
+    components that are one value for the whole batch, each rank holding a
+    partial sum of it.  Per-sample control ignores both: its rows are
+    independent.
 
     Returns ``(ys, stats)``: ``ys`` like ``y0`` with a leading time axis,
     ``stats`` per-sample (``(B,)`` for per-sample control, ``(1,)`` for
@@ -125,6 +137,14 @@ def odeint(
                 "sample: that disables error control; keep at least one "
                 "component unmasked per sample")
 
+    if error_control == "per_sample":
+        batch_sum = None
+    shared = None
+    if batch_sum is not None and shared_mask is not None:
+        shared = flatten(_mask_like(y0, shared_mask, flat0.dtype)) > 0
+    rank_kw = ({} if batch_sum is None
+               else dict(batch_sum=batch_sum, shared=shared))
+
     if ts.shape[0] == 1:
         batch, dev = flat0.shape[0], flat0.device
         zeros = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -138,14 +158,15 @@ def odeint(
             flat_func, flat0, ts, rtol, atol, ADAPTIVE_TABLEAUS[method],
             max_steps=max_steps, first_step=first_step,
             error_mask=flat_mask, fused_step=fused_step,
-            controller=controller)
+            controller=controller, **rank_kw)
     elif fused_step is not None:
         raise ValueError("fused_step only applies to adaptive tableau "
                          f"methods, not {method!r}")
     elif method == "adams":
         ys, stats = adams_odeint(flat_func, flat0, ts, rtol, atol,
                                  max_steps=max_steps, first_step=first_step,
-                                 error_mask=flat_mask, max_order=max_order)
+                                 error_mask=flat_mask, max_order=max_order,
+                                 **rank_kw)
     else:
         ys, stats = fixed_grid_odeint(flat_func, flat0, ts, method,
                                       steps_per_interval=steps_per_interval)

@@ -24,7 +24,7 @@ import torch
 
 from .tableau import CUBIC_FIT, QUARTIC_FIT, ButcherTableau
 
-__all__ = ["SolveStats", "adaptive_odeint"]
+__all__ = ["SolveStats", "adaptive_odeint", "RankNorm"]
 
 
 class SolveStats(NamedTuple):
@@ -60,6 +60,25 @@ def _tol_column(tol, batch: int, dtype, device):
     return tol.to(device=device, dtype=dtype)[:, None]
 
 
+def _scaled_error(err, y0, y1, rtol, atol):
+    """err / (atol + rtol · max(|y0|, |y1|)), componentwise."""
+    scale = atol + rtol * torch.maximum(y0.abs(), y1.abs())
+    # atol=0 with exactly-zero state entries gives scale=0: err 0 there means
+    # a perfectly-resolved component (ratio 0), not 0/0 = NaN → reject-forever.
+    pos = scale > 0.0
+    return torch.where(
+        pos,
+        err / torch.where(pos, scale, torch.ones_like(scale)),
+        torch.where(err == 0.0, torch.zeros_like(err),
+                    torch.full_like(err, float("inf"))),
+    )
+
+
+def _finite_or_inf(ratio):
+    return torch.where(torch.isfinite(ratio), ratio,
+                       torch.full_like(ratio, float("inf")))
+
+
 def _error_ratio(err, y0, y1, rtol, atol, mask=None):
     """Mixed-tolerance error norm: RMS of err scaled by
     ``atol + rtol * max(|y0|, |y1|)``, one ratio per sample row.  ``rtol``,
@@ -68,16 +87,7 @@ def _error_ratio(err, y0, y1, rtol, atol, mask=None):
     ``mask`` ((B, N) bool) restricts the norm to a subset of state columns,
     the seminorm of Kidger et al. 2020: the mean runs over the unmasked
     count."""
-    scale = atol + rtol * torch.maximum(y0.abs(), y1.abs())
-    # atol=0 with exactly-zero state entries gives scale=0: err 0 there means
-    # a perfectly-resolved component (ratio 0), not 0/0 = NaN → reject-forever.
-    pos = scale > 0.0
-    r = torch.where(
-        pos,
-        err / torch.where(pos, scale, torch.ones_like(scale)),
-        torch.where(err == 0.0, torch.zeros_like(err),
-                    torch.full_like(err, float("inf"))),
-    )
+    r = _scaled_error(err, y0, y1, rtol, atol)
     if mask is None:
         ratio = _rms(r)
     else:
@@ -86,8 +96,118 @@ def _error_ratio(err, y0, y1, rtol, atol, mask=None):
         # at a zero-scale component) and inf · 0 would poison the sum.
         r_sq = torch.where(mask, r * r, torch.zeros_like(r))
         ratio = torch.sqrt(r_sq.sum(dim=-1) / denom + _tiny(r.dtype))
-    return torch.where(torch.isfinite(ratio), ratio,
-                       torch.full_like(ratio, float("inf")))
+    return _finite_or_inf(ratio)
+
+
+class RankNorm:
+    """The batch-global error norm of a solve whose state holds this rank's
+    rows of a batch that other ranks hold the rest of (data parallelism with
+    ``error_control='global'``): the norm the one-device solve of the whole
+    batch takes, so that every rank takes the same steps.
+
+    ``batch_sum(t)``: ``t`` summed over those ranks, the same on every rank.
+    ``shared``: ``(1, N)`` bool, the components that are one value for the
+    whole batch, each rank holding a partial sum of it (the adjoint's a_θ
+    and a_t); None for none.  ``mask``: the solve's seminorm mask or None.
+
+    Row components enter as their squared terms, summed across the ranks;
+    shared components are summed *before* squaring: y0, y1 and err there are
+    all-reduced, then scaled and squared.  The denominator is the global
+    component count.  One ``batch_sum`` per attempt (y0, y1, err of the
+    shared components and the row terms in one buffer; only the row terms
+    where the mask leaves the shared ones out), one per solve for the
+    counts, two for the initial step."""
+
+    def __init__(self, batch_sum, shared, mask, n: int, device):
+        self.sum = batch_sum
+        sh = (torch.zeros(n, dtype=torch.bool, device=device)
+              if shared is None else shared.reshape(-1).to(device))
+        self.sh = torch.nonzero(sh).reshape(-1)
+        self.row = torch.nonzero(~sh).reshape(-1)
+        self.n_sh = int(self.sh.numel())
+        self.mask_sh = self.mask_row = None
+        n_sh_in, n_row_in = self.n_sh, float(self.row.numel())
+        if mask is not None:
+            m = mask.reshape(-1)
+            self.mask_sh, self.mask_row = m[self.sh], m[self.row]
+            n_sh_in = int(self.mask_sh.sum())
+            n_row_in = float(self.mask_row.sum())
+        # Shared components the mask leaves out need not be summed per
+        # attempt (the seminorm's a_θ, a_t): only the row terms are.
+        self.shared_in_norm = n_sh_in > 0
+        counts = self.sum(torch.tensor([float(self.row.numel()), n_row_in],
+                                       dtype=torch.float64, device=device))
+        self.count_all = counts[0] + self.n_sh
+        self.count = torch.clamp(counts[1] + n_sh_in, min=1)
+
+    def _sq(self, r, mask):
+        sq = r * r
+        return sq if mask is None else torch.where(mask, sq,
+                                                   torch.zeros_like(sq))
+
+    def error_ratio(self, err, y0, y1, rtol, atol):
+        """:func:`_error_ratio` over the whole batch; ``err`` may carry
+        leading axes (``(..., 1, N)``, one ratio each)."""
+        row, sh = self.row, self.sh
+        r_row = _scaled_error(err[..., row], y0[..., row], y1[..., row],
+                              rtol, atol)
+        sq = self._sq(r_row, self.mask_row).sum(dim=-1)
+        if self.shared_in_norm:
+            e_sh = err[..., sh]
+            buf = self.sum(torch.cat([y0[..., sh].reshape(-1),
+                                      y1[..., sh].reshape(-1),
+                                      e_sh.reshape(-1), sq.reshape(-1)]))
+            y0s, y1s, es, sq_g = torch.split(
+                buf, [self.n_sh, self.n_sh, e_sh.numel(), sq.numel()])
+            r_sh = _scaled_error(es.reshape(e_sh.shape),
+                                 y0s.reshape(1, -1), y1s.reshape(1, -1),
+                                 rtol, atol)
+            total = (sq_g.reshape(sq.shape)
+                     + self._sq(r_sh, self.mask_sh).sum(dim=-1))
+        else:
+            total = self.sum(sq)
+        ratio = torch.sqrt(total / self.count.to(total.dtype)
+                           + _tiny(total.dtype))
+        return _finite_or_inf(ratio)
+
+    def initial_norms(self, y0, f0, scale, rtol, atol):
+        """``d0``, ``d1`` of :func:`_select_initial_step` over the whole
+        batch (every component, as there)."""
+        row, sh = self.row, self.sh
+        s_row = scale[..., row]
+        a, b = y0[..., row] / s_row, f0[..., row] / s_row
+        sums = torch.stack([(a * a).sum(dim=-1), (b * b).sum(dim=-1)])
+        if self.n_sh:
+            buf = self.sum(torch.cat([y0[..., sh].reshape(-1),
+                                      f0[..., sh].reshape(-1),
+                                      sums.reshape(-1)]))
+            y0s, f0s, sums_g = torch.split(
+                buf, [self.n_sh, self.n_sh, sums.numel()])
+            scale_s = atol + rtol * y0s.abs()
+            a, b = y0s / scale_s, f0s / scale_s
+            sums = sums_g.reshape(sums.shape) + torch.stack(
+                [(a * a).sum(), (b * b).sum()]).reshape(2, 1)
+            self._first = (f0s, scale_s)
+        else:
+            sums = self.sum(sums)
+        d = torch.sqrt(sums / self.count_all.to(sums.dtype)
+                       + _tiny(sums.dtype))
+        return d[0], d[1]
+
+    def initial_diff_norm(self, f1, f0, scale):
+        """RMS of (f1 − f0) / scale over the whole batch (``d2``'s
+        numerator), after :meth:`initial_norms`."""
+        row, sh = self.row, self.sh
+        c = (f1[..., row] - f0[..., row]) / scale[..., row]
+        s = (c * c).sum(dim=-1)
+        if self.n_sh:
+            f0s, scale_s = self._first
+            buf = self.sum(torch.cat([f1[..., sh].reshape(-1), s]))
+            c = (buf[:self.n_sh] - f0s) / scale_s
+            s = buf[self.n_sh:] + (c * c).sum()
+        else:
+            s = self.sum(s)
+        return torch.sqrt(s / self.count_all.to(s.dtype) + _tiny(s.dtype))
 
 
 def _optimal_dt(dt, ratio, accept, order, safety, ifactor, dfactor):
@@ -118,19 +238,25 @@ def _optimal_dt_pi(dt, ratio, rprev, accept, order, safety, ifactor,
     return dt * factor
 
 
-def _select_initial_step(func, t0, y0, f0, direction, rtol, atol, order):
+def _select_initial_step(func, t0, y0, f0, direction, rtol, atol, order,
+                         norm: RankNorm | None = None):
     """Hairer, Nørsett & Wanner II.4 automatic initial step, per sample.
-    Costs one extra dynamics evaluation."""
+    Costs one extra dynamics evaluation.  ``norm``: the norms span the
+    batch across ranks (:class:`RankNorm`)."""
     scale = atol + rtol * y0.abs()
-    d0 = _rms(y0 / scale)
-    d1 = _rms(f0 / scale)
+    if norm is None:
+        d0 = _rms(y0 / scale)
+        d1 = _rms(f0 / scale)
+    else:
+        d0, d1 = norm.initial_norms(y0, f0, scale, rtol, atol)
     small = (d0 < 1e-5) | (d1 < 1e-5)
     h0 = torch.where(small, torch.full_like(d0, 1e-6),
                      0.01 * d0 / torch.clamp(d1, min=1e-30))
 
     y1 = y0 + (h0 * direction)[:, None] * f0
     f1 = func(t0 + h0 * direction, y1)
-    d2 = _rms((f1 - f0) / scale) / h0
+    d2 = (_rms((f1 - f0) / scale) if norm is None
+          else norm.initial_diff_norm(f1, f0, scale)) / h0
 
     d_max = torch.maximum(d1, d2)
     h1 = torch.where(
@@ -215,6 +341,8 @@ def adaptive_odeint(
     error_mask: torch.Tensor | None = None,
     fused_step: Callable | None = None,
     controller: str = "i",
+    batch_sum: Callable | None = None,
+    shared: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, SolveStats]:
     """Integrate ``dy/dt = func(t, y)`` over the monotonic grid ``ts``.
 
@@ -235,16 +363,22 @@ def adaptive_odeint(
         (``kernels/rk_step.py``).  Requires a quartic-dense FSAL tableau
         and no ``error_mask``; the caller builds it for the same tolerances.
       controller: ``'i'`` (default, reference parity) or ``'pi'``.
+      batch_sum: the state is one row (global control) of a batch whose
+        other rows other ranks hold: the error norms span them all
+        (:class:`RankNorm`; ``shared``, ``(1, N)`` bool, marks the
+        components each rank holds a partial sum of).  Not with
+        ``fused_step``.
 
     Returns:
       ys: (T, B, N) solution at ``ts`` (ys[0] ≡ y0).
       stats: per-sample :class:`SolveStats`.
     """
     if fused_step is not None and (error_mask is not None
+                                   or batch_sum is not None
                                    or tableau.c_mid is None
                                    or not tableau.fsal):
-        raise ValueError("fused_step requires a quartic-dense FSAL tableau "
-                         "and no error_mask")
+        raise ValueError("fused_step requires a quartic-dense FSAL tableau, "
+                         "no error_mask and no batch_sum")
     if controller not in ("i", "pi"):
         raise ValueError(f"unknown controller {controller!r}; 'i' | 'pi'")
     dtype, dev = y0.dtype, y0.device
@@ -255,6 +389,8 @@ def adaptive_odeint(
     mask = None
     if error_mask is not None:
         mask = torch.as_tensor(error_mask, device=dev).expand(batch, n) > 0
+    norm = (None if batch_sum is None
+            else RankNorm(batch_sum, shared, mask, n, dev))
 
     quartic = tableau.c_mid is not None
     fit = torch.tensor(QUARTIC_FIT if quartic else CUBIC_FIT, dtype=dtype,
@@ -267,7 +403,7 @@ def adaptive_odeint(
     nfe = torch.ones((batch,), dtype=torch.int32, device=dev)
     if first_step is None:
         dt = _select_initial_step(func, t, y0, f, direction, rtol, atol,
-                                  tableau.order - 1)
+                                  tableau.order - 1, norm)
         nfe = nfe + 1
     else:
         dt = torch.full((batch,), float(first_step), dtype=dtype,
@@ -292,7 +428,8 @@ def adaptive_odeint(
         else:
             y1, err, f1, new_evals, y_mid = _rk_attempt(tableau, func, t, dt,
                                                        y, f)
-            ratio = _error_ratio(err, y, y1, rtol, atol, mask)
+            ratio = (_error_ratio(err, y, y1, rtol, atol, mask) if norm is None
+                     else norm.error_ratio(err, y, y1, rtol, atol))
         accept = (ratio <= 1.0) & active
         t1 = t + dt
 

@@ -24,21 +24,36 @@ same name, ``params.json``, ``log.csv`` rows, checkpoints and training
 state; ``seeds`` stays out of the identity), resumed when every member left
 a state at the same epoch.
 
-Runs on the card unless ``--cpu`` is given; no card is an error.  Flags
-whose machinery is not ported exit with a message naming their ROADMAP.md
-item before any run directory is made.
+``--num-devices N`` trains on N ranks, one process per card (NCCL), or N
+gloo processes on the CPU with ``--cpu`` (``parallel.launch``); the default
+is every visible card on ``cuda`` (one: the solo path) and one process with
+``--cpu``.  The batch is sharded over the ranks; ``--model-shards M`` adds
+FSDP-style sharding of the parameters and optimizer state over M adjacent
+ranks (``training.py``), and ``--seeds`` shards the population's members
+over the ranks (``multi.py``).  This command makes the run directories,
+then starts the ranks; one rank alone writes a run's ``log.csv``,
+checkpoints and training state (rank 0, or under ``--seeds`` the member's
+owner), in the one-device format, so a run resumes at any number of
+devices.  Neither flag is part of the run identity.
+
+Runs on the card unless ``--cpu`` is given; no card is an error, and so are
+more ranks than cards.  Flags whose machinery is not ported exit with a
+message naming their ROADMAP.md item before any run directory is made.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ._device import strict_f32
 from .data import Batches, load_dataset
+from .parallel import launch, rank_devices
 from .training import TrainConfig, Trainer, epoch_generator
 from .utils import (
     Experiment,
@@ -101,7 +116,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--seeds", default=None, metavar="S0,S1,...",
                    help="population training: one member (and one run "
-                        "directory) per seed, trained in turn on the card")
+                        "directory) per seed, trained in turn on each "
+                        "device, the members sharded over --num-devices")
     p.add_argument("--no-augment", dest="augment", action="store_false",
                    default=True)
     p.add_argument("--max-steps", type=int, default=None,
@@ -111,11 +127,13 @@ def parse_args(argv=None):
                    help="bfloat16 dynamics compute: not ported (ROADMAP.md, "
                         "Queue 2 item 5)")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="data-parallel devices; more than 1 is not ported "
-                        "(ROADMAP.md, Queue 1 item 8)")
+                   help="data-parallel ranks, one process per card (with "
+                        "--cpu: gloo processes on the CPU); default every "
+                        "visible card, one process with --cpu")
     p.add_argument("--model-shards", type=int, default=1,
-                   help="parameter-sharding factor; more than 1 is not "
-                        "ported (ROADMAP.md, Queue 1 item 8)")
+                   help="parameter-sharding factor: params and optimizer "
+                        "state shard FSDP-style over this many adjacent "
+                        "ranks; must divide --num-devices")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--runs-dir", default="runs")
     p.add_argument("--limit", type=int, default=None,
@@ -152,10 +170,6 @@ def _refuse_unported(args) -> None:
     def stop(flag, item):
         raise SystemExit(f"{flag} is not ported yet (ROADMAP.md, {item})")
 
-    if args.num_devices not in (None, 1):
-        stop(f"--num-devices {args.num_devices}", "Queue 1 item 8")
-    if args.model_shards != 1:
-        stop(f"--model-shards {args.model_shards}", "Queue 1 item 8")
     if args.bf16:
         stop("--bf16", "Queue 2 item 5")
     if args.state_format == "orbax":
@@ -164,6 +178,37 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--tensorboard needs clu.metric_writers, which is "
                          "not installed where the port runs; the per-epoch "
                          "scalars are in log.csv")
+
+
+def _num_ranks(args) -> int:
+    """The ranks this command trains on; exits, before a run directory
+    exists, when the cards, the shards or the batch do not fit them."""
+    n = args.num_devices
+    if n is None:
+        n = (1 if args.cpu or not torch.cuda.is_available()
+             else torch.cuda.device_count())
+    if n < 1:
+        raise SystemExit(f"--num-devices {n}: need at least one")
+    if n > 1 and not args.cpu:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > have:
+            raise SystemExit(
+                f"--num-devices {n}: {have} CUDA device(s) visible; a rank "
+                "runs on a card of its own (--cpu runs gloo ranks on the "
+                "CPU)")
+    m = args.model_shards
+    if m < 1 or n % m:
+        raise SystemExit(f"--model-shards {m} does not divide {n} devices")
+    if args.seeds is not None and m > 1:
+        raise SystemExit(
+            "population training composes with data parallelism only; "
+            "FSDP (--model-shards > 1) shards params over 'model' while "
+            "the population shards them over 'data' — pick one")
+    if args.seeds is None and args.batch_size % (n // m):
+        raise SystemExit(
+            f"--batch-size {args.batch_size} does not divide over the "
+            f"{n // m} ranks of the 'data' axis")
+    return n
 
 
 def run_identity(args) -> dict:
@@ -185,9 +230,10 @@ class _Record:
     printed lines."""
 
     def __init__(self, exp: Experiment, exp_params: dict, model: str,
-                 prefix: str = ""):
+                 prefix: str = "", writer: bool = True):
         self.exp, self.exp_params, self.model = exp, exp_params, model
         self.prefix = prefix
+        self.writer = writer  # the one rank that writes and prints
         self.state_path = exp.file("train_state.pt")
         self.loss_m, self.nfe_m = RunningAverageMeter(), RunningAverageMeter()
         self.nfe_b_m = RunningAverageMeter()
@@ -199,6 +245,10 @@ class _Record:
         rows = self.exp.read_log()
         return (int(rows[-1]["epoch"]) + 1) if rows else 0
 
+    def say(self, line: str) -> None:
+        if self.writer:
+            print(self.prefix + line, flush=True)
+
     def resume(self, trainer: Trainer) -> int:
         averages = trainer.load_state(self.state_path)
         for meter, key in ((self.loss_m, "loss_avg"), (self.nfe_m, "nfe_avg")):
@@ -208,8 +258,8 @@ class _Record:
             (float(r["test_acc"]) for r in self.exp.read_log()
              if r.get("test_acc")), default=0.0)
         start = self.logged_epochs()
-        print(f"{self.prefix}resumed {self.state_path} at epoch {start} "
-              f"(best so far {self.best_acc:.4f})")
+        self.say(f"resumed {self.state_path} at epoch {start} "
+                 f"(best so far {self.best_acc:.4f})")
         return start
 
     def begin_epoch(self) -> None:
@@ -235,7 +285,8 @@ class _Record:
     def end_epoch(self, epoch: int, trainer: Trainer, train_time: float,
                   ev: dict | None) -> None:
         """Log the epoch (with its evaluation ``ev`` where there was one),
-        keep the best checkpoint and the training state."""
+        keep the best checkpoint and the training state.  Every rank calls
+        it (the trainer's gathers are collective); the writer writes."""
         # Fixed column schema: the eval columns are always present (blank
         # when the epoch is not evaluated), so log.csv's header holds for
         # any --eval-every.
@@ -256,26 +307,33 @@ class _Record:
                        test_nfe=round(ev["nfe"], 2))
             if ev["acc"] >= self.best_acc:
                 self.best_acc = ev["acc"]
-                save_checkpoint(self.exp.file("ckpt_best.pt"), trainer.params,
-                                trainer.model_cfg,
-                                extra={"epoch": epoch, "test_acc": ev["acc"],
-                                       "train": self.exp_params,
-                                       "model": self.model})
+                params = trainer.full_params()
+                if self.writer:
+                    save_checkpoint(
+                        self.exp.file("ckpt_best.pt"), params,
+                        trainer.model_cfg,
+                        extra={"epoch": epoch, "test_acc": ev["acc"],
+                               "train": self.exp_params,
+                               "model": self.model})
         # State first, log second: a stop between the two runs the epoch
         # again on resume instead of resuming stale weights.
         trainer.save_state(self.state_path, extra={"loss_avg": self.loss_m.avg,
                                                    "nfe_avg": self.nfe_m.avg})
-        self.exp.log(row)
-        print(self.prefix + " | ".join(f"{k}={v}" for k, v in row.items()),
-              flush=True)
+        if self.writer:
+            self.exp.log(row)
+        self.say(" | ".join(f"{k}={v}" for k, v in row.items()))
 
     def finish(self, trainer: Trainer, epochs: int) -> None:
-        save_checkpoint(self.exp.file("ckpt_last.pt"), trainer.params,
-                        trainer.model_cfg,
-                        extra={"epoch": epochs - 1, "test_acc": self.best_acc,
-                               "train": self.exp_params, "model": self.model})
-        print(f"{self.prefix}best test acc: {self.best_acc:.4f}; run dir: "
-              f"{self.exp.path}")
+        params = trainer.full_params()
+        if self.writer:
+            save_checkpoint(self.exp.file("ckpt_last.pt"), params,
+                            trainer.model_cfg,
+                            extra={"epoch": epochs - 1,
+                                   "test_acc": self.best_acc,
+                                   "train": self.exp_params,
+                                   "model": self.model})
+        self.say(f"best test acc: {self.best_acc:.4f}; run dir: "
+                 f"{self.exp.path}")
 
 
 def _datasets(args):
@@ -290,16 +348,8 @@ def _evaluates(args, epoch: int) -> bool:
     return (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.hidden <= 0 or args.hidden % 32 != 0:
-        raise SystemExit(
-            f"--hidden {args.hidden}: must be a positive multiple of 32 "
-            "(GroupNorm groups=32 in the reference architecture)")
-    _refuse_unported(args)
-    device = strict_f32("cpu" if args.cpu else "cuda")
-
-    cfg = TrainConfig(
+def _config(args, n: int) -> TrainConfig:
+    return TrainConfig(
         dataset=args.dataset,
         model=args.model,
         tol=args.tol,
@@ -322,25 +372,66 @@ def main(argv=None):
         lr_decay_gamma=args.lr_decay_gamma,
         seed=args.seed,
         augment=args.augment,
+        num_devices=n,
+        model_shards=args.model_shards,
         max_steps=args.max_steps or (1024 if args.adjoint else 64),
     )
+
+
+def _ranks(fn, n: int, args, *fn_args):
+    """``fn(args, *fn_args, device)`` in this process for one rank, else on
+    ``n`` ranks (``parallel.launch``; the devices are the cards or, with
+    ``--cpu``, the CPU)."""
+    kind = "cpu" if args.cpu else "cuda"
+    if n == 1:
+        return fn(args, *fn_args, strict_f32(kind))
+    launch(_on_rank, n, fn, args, *fn_args,
+           devices=rank_devices(n, kind), timeout=None)
+    return None
+
+
+def _on_rank(fn, args, *fn_args):
+    return fn(args, *fn_args, strict_f32("cpu" if args.cpu else "cuda"))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.hidden <= 0 or args.hidden % 32 != 0:
+        raise SystemExit(
+            f"--hidden {args.hidden}: must be a positive multiple of 32 "
+            "(GroupNorm groups=32 in the reference architecture)")
+    _refuse_unported(args)
+    n = _num_ranks(args)
+    if n == 1:
+        strict_f32("cpu" if args.cpu else "cuda")  # no card is an error
+    cfg = _config(args, n)
     exp_params = run_identity(args)
     if args.seeds is not None:
-        return main_population(args, cfg, exp_params, device)
+        return main_population(args, cfg, exp_params, n)
     exp = Experiment(args.runs_dir, exp_params).create()
     print(f"run dir: {exp.path}")
+    _ranks(_train_solo, n, args, cfg, exp_params, str(exp.path))
+    return exp.path
 
+
+def _train_solo(args, cfg: TrainConfig, exp_params: dict, run_dir: str,
+                device: torch.device) -> None:
+    """The training loop of one model, on every rank of its mesh."""
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    exp = Experiment(Path(run_dir).parent, exp_params,
+                     name=Path(run_dir).name)
     x_train, y_train, x_test, y_test = _datasets(args)
     train_b = Batches(x_train, y_train, args.batch_size, seed=args.seed)
     test_b = Batches(x_test, y_test, args.batch_size, shuffle=False,
                      drop_remainder=False)
-    print(f"train {len(x_train)} / test {len(x_test)} images; "
-          f"{len(train_b)} steps/epoch; device: {device}")
-
     trainer = Trainer(cfg, steps_per_epoch=len(train_b), device=device)
-    print(f"model parameters: {count_parameters(trainer.params):,}")
+    n_params = count_parameters(trainer.full_params())
+    rec = _Record(exp, exp_params, args.model, writer=writer)
+    rec.say(f"train {len(x_train)} / test {len(x_test)} images; "
+            f"{len(train_b)} steps/epoch; device: {device}"
+            + (f"; mesh {trainer.mesh}" if trainer.mesh is not None else ""))
+    rec.say(f"model parameters: {n_params:,}")
 
-    rec = _Record(exp, exp_params, args.model)
     start_epoch = 0
     if args.resume and rec.state_path.exists():
         start_epoch = rec.resume(trainer)
@@ -351,7 +442,7 @@ def main(argv=None):
     train_b.epoch = start_epoch
 
     profiler = None
-    profile_left = args.profile
+    profile_left = args.profile if writer else 0
     step_idx = 0
     use_fused = args.fused_epoch and not args.profile
     for epoch in range(start_epoch, args.epochs):
@@ -385,16 +476,13 @@ def main(argv=None):
     if profiler is not None:  # the run ended before N profiled steps
         _stop_profile(profiler, exp, device)
     rec.finish(trainer, args.epochs)
-    return exp.path
 
 
-def main_population(args, cfg: TrainConfig, exp_params: dict,
-                    device: torch.device):
+def main_population(args, cfg: TrainConfig, exp_params: dict, n: int):
     """``--seeds``: one run directory per seed, each exactly what a solo
-    ``--seed S`` run writes, the members trained in turn on ``device``
-    (``multi.PopulationTrainer``).  Returns the run directories."""
-    from .multi import PopulationTrainer
-
+    ``--seed S`` run writes (``multi.PopulationTrainer``: the members
+    trained in turn on each of ``n`` ranks).  Returns the run
+    directories."""
     if args.profile:
         raise SystemExit("--profile is per-run; use a solo --seed run")
     if not args.fused_epoch:
@@ -406,38 +494,61 @@ def main_population(args, cfg: TrainConfig, exp_params: dict,
     if len(set(seeds)) != len(seeds):
         raise SystemExit(f"duplicate seeds in --seeds {args.seeds}")
 
-    recs = []
+    dirs = []
     for s in seeds:
-        params_s = {**exp_params, "seed": s}
-        exp = Experiment(args.runs_dir, params_s).create()
-        recs.append(_Record(exp, params_s, args.model, prefix=f"seed {s} | "))
+        exp = Experiment(args.runs_dir, {**exp_params, "seed": s}).create()
+        dirs.append(str(exp.path))
         print(f"run dir (seed {s}): {exp.path}")
-
-    x_train, y_train, x_test, y_test = _datasets(args)
-    steps_per_epoch = len(Batches(x_train, y_train, args.batch_size))
-    print(f"train {len(x_train)} / test {len(x_test)} images; "
-          f"{steps_per_epoch} steps/epoch; device: {device}; population: "
-          f"{len(seeds)} seeds")
-    pop = PopulationTrainer(cfg, seeds, steps_per_epoch, device=device)
 
     # Resume only when every member left a state at the same epoch: a mixed
     # population would train its members different step counts.
-    start_epoch = 0
-    have = [r.state_path.exists() for r in recs]
+    resume_at = None
+    have = [(Path(d) / "train_state.pt").exists() for d in dirs]
     if args.resume and any(have):
         if not all(have):
             raise SystemExit(
                 "partial population state: some run dirs have "
                 "train_state.pt and some don't; finish the stragglers with "
                 "solo --seed runs or pass --no-resume")
-        starts = [r.logged_epochs() for r in recs]
+        starts = [_Record(Experiment.from_dir(d), exp_params,
+                          args.model).logged_epochs() for d in dirs]
         if len(set(starts)) != 1:
             raise SystemExit(
                 f"population members resume at different epochs {starts}; "
                 "finish them solo or --no-resume")
-        start_epoch = starts[0]
-        for r, m in zip(recs, pop.members):
-            r.resume(m)
+        resume_at = starts[0]
+    _ranks(_train_population, n, args, cfg, exp_params, seeds, dirs,
+           resume_at)
+    return [Path(d) for d in dirs]
+
+
+def _train_population(args, cfg: TrainConfig, exp_params: dict, seeds, dirs,
+                      resume_at: int | None, device: torch.device) -> None:
+    """The population's loop, on every rank, over the members it owns."""
+    from .multi import PopulationTrainer
+
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    x_train, y_train, x_test, y_test = _datasets(args)
+    steps_per_epoch = len(Batches(x_train, y_train, args.batch_size))
+    if writer:
+        print(f"train {len(x_train)} / test {len(x_test)} images; "
+              f"{steps_per_epoch} steps/epoch; device: {device}; population: "
+              f"{len(seeds)} seeds", flush=True)
+    pop = PopulationTrainer(cfg, seeds, steps_per_epoch, device=device)
+    # A member's run directory is written by the trainer that writes its
+    # state: its owner, or rank 0 where every rank trains every member.
+    recs = {i: _Record(Experiment(Path(dirs[i]).parent,
+                                  {**exp_params, "seed": seeds[i]},
+                                  name=Path(dirs[i]).name),
+                       {**exp_params, "seed": seeds[i]}, args.model,
+                       prefix=f"seed {seeds[i]} | ", writer=m.is_writer)
+            for i, m in pop.members.items()}
+
+    start_epoch = 0
+    if resume_at is not None:
+        for i, r in recs.items():
+            r.resume(pop.members[i])
+        start_epoch = resume_at
 
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
@@ -447,13 +558,12 @@ def main_population(args, cfg: TrainConfig, exp_params: dict,
         train_time = time.time() - t0  # the population's epoch, as in JAX
         evs = (pop.evaluate_fused(x_test, y_test) if _evaluates(args, epoch)
                else [None] * len(seeds))
-        for i, (r, m) in enumerate(zip(recs, pop.members)):
+        for i, r in recs.items():
             r.begin_epoch()
             r.add_epoch({k: v[i] for k, v in em.items()}, args.batch_size)
-            r.end_epoch(epoch, m, train_time, evs[i])
-    for r, m in zip(recs, pop.members):
-        r.finish(m, args.epochs)
-    return [r.exp.path for r in recs]
+            r.end_epoch(epoch, pop.members[i], train_time, evs[i])
+    for i, r in recs.items():
+        r.finish(pop.members[i], args.epochs)
 
 
 def _start_profile(device: torch.device):

@@ -587,3 +587,60 @@ def test_serving_host_on_the_card(dev, tmp_path):
     launches = json.loads(re.search(r" stats (\{.*\})", err).group(1))[
         "launches"]
     assert launches["odefunc"] >= 2 and launches["rk_step"] >= 1
+
+
+# -- training across devices ---------------------------------------------------
+def _parallel_case(devices, **changes):
+    """Two steps of the JAX ``TrainConfig`` defaults on
+    ``synthetic-cifar10`` (B = 32, augment off) on ranks at ``devices``,
+    against the solo ``Trainer`` on the first card, at the JAX bars
+    (tests/test_training.py:73-99), with each rank's launches."""
+    from neural_ode_features_tpu_torch.data import load_dataset
+    from neural_ode_features_tpu_torch.entry import TRAIN_CONFIG
+    from neural_ode_features_tpu_torch.parallel import launch
+    from neural_ode_features_tpu_torch.parallel.tasks import train_steps
+    from neural_ode_features_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(TRAIN_CONFIG, batch_size=32, augment=False)
+    x, y = load_dataset(cfg.dataset, "train", limit=64)
+    batches = [(x[:32], y[:32]), (x[32:], y[32:])]
+    ranks = launch(train_steps, len(devices),
+                   dataclasses.replace(cfg, num_devices=len(devices),
+                                       **changes), batches,
+                   devices=devices, device="cuda", timeout=300)
+    solo = Trainer(cfg, steps_per_epoch=4, device=devices[0])
+    want = [solo.train_batch(*b) for b in batches]
+    got = ranks[0]["metrics"]
+    assert all(r["metrics"] == got for r in ranks)
+    np.testing.assert_allclose(got[0]["loss"], want[0]["loss"], rtol=1e-6)
+    assert got[0]["nfe"] == want[0]["nfe"]
+    np.testing.assert_allclose(got[1]["loss"], want[1]["loss"], rtol=3e-4)
+    assert got[1]["nfe"] == want[1]["nfe"]
+    assert abs(got[1]["nfe_b"] - want[1]["nfe_b"]) <= 1.0
+    for r in ranks:
+        for launches, att, m in zip(r["launches"], r["attempts"],
+                                    r["metrics"]):
+            assert launches == {"odefunc": 2 + 6 * att + 1,
+                                "odefunc_bwd": m["nfe_b"] - 1, "rk_step": 0}
+    return ranks
+
+
+def test_two_ranks_share_one_card_through_gloo(dev):
+    """``devices`` naming one card twice: gloo, sums through the host."""
+    ranks = _parallel_case(["cuda:0", "cuda:0"])
+    assert "data=2" in ranks[0]["mesh"]
+
+
+@pytest.fixture
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (NCCL refuses two ranks on one)")
+    return dev
+
+
+@pytest.mark.parametrize("model_shards", [1, 2])
+def test_nccl_ranks_on_two_cards(two_cards, model_shards):
+    """Data parallel and a (1, 2) FSDP mesh over NCCL, one rank per card."""
+    ranks = _parallel_case(["cuda:0", "cuda:1"], model_shards=model_shards)
+    if model_shards > 1:
+        assert any(tuple(a) != tuple(b) for a, b in ranks[0]["shapes"])

@@ -53,7 +53,10 @@ def test_imports_with_jax_blocked():
                  "kernels.conv3x3", "probes.conv_probe", "utils.checkpoint",
                  "eval_ckpt", "utils.flax_msgpack", "serving", "serve",
                  "export_model", "serve_client", "examples.native_serving",
-                 "examples.deploy_artifact", "probes.serve_probe"):
+                 "examples.deploy_artifact", "probes.serve_probe",
+                 "parallel", "parallel.mesh", "parallel.launch",
+                 "parallel.tasks", "multiseed", "examples.fsdp_training",
+                 "probes.parallel_probe"):
         assert f"{port.__name__}.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -85,7 +88,9 @@ def test_no_jax_references_in_sources():
     assert {"train.py", "sweep.py", "expman.py", "fixed_grid.py", "adams.py",
             "event.py", "event_adjoint.py", "serving.py", "serve.py",
             "export_model.py", "serve_client.py", "native_serving.py",
-            "deploy_artifact.py", "serve_probe.py"} <= names
+            "deploy_artifact.py", "serve_probe.py", "mesh.py", "launch.py",
+            "tasks.py", "multiseed.py", "fsdp_training.py",
+            "parallel_probe.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"

@@ -134,14 +134,15 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--seeds", "0,1", "--num-devices", "2"], "Queue 1 item 8"),
-    (["--num-devices", "2"], "Queue 1 item 8"),
-    (["--model-shards", "2"], "Queue 1 item 8"),
+    (["--num-devices", "0"], "at least one"),
+    (["--num-devices", "3"], "does not divide over the 3 ranks"),
+    (["--model-shards", "2"], "does not divide 1 devices"),
     (["--bf16"], "Queue 2 item 5"),
     (["--state-format", "orbax"], "Queue 1 item 5"),
     (["--tensorboard"], "clu"),
     (["--hidden", "48"], "multiple of 32"),
-    (["--seeds", "0,1", "--model-shards", "2"], "Queue 1 item 8"),
+    (["--seeds", "0,1", "--num-devices", "2", "--model-shards", "2"],
+     "data parallelism only"),
     (["--seeds", "3,3"], "duplicate seeds"),
     (["--seeds", "0,1", "--no-fused-epoch"], "incompatible with --seeds"),
 ])

@@ -147,9 +147,15 @@ def test_schedule_is_optax_piecewise_constant():
 def test_trainer_refusals(change):
     """What is not ported names its ROADMAP.md item; ``model='resnet'``
     trains now (``test_torch_train_cli.py``), an unknown model is an
-    error."""
-    exc, match = ((ValueError, "unknown model") if "model" in change
-                  else (NotImplementedError, "ROADMAP"))
+    error; a mesh (``num_devices`` or ``model_shards`` > 1) needs the ranks
+    of a process group (``parallel.launch``, ``test_torch_parallel.py``),
+    which this test process has not."""
+    if "model" in change:
+        exc, match = ValueError, "unknown model"
+    elif "compute_dtype" in change:
+        exc, match = NotImplementedError, "ROADMAP"
+    else:
+        exc, match = RuntimeError, "parallel.launch"
     with pytest.raises(exc, match=match):
         Trainer(TrainConfig(**change), steps_per_epoch=1, device="cpu")
 
