@@ -166,6 +166,32 @@ Phases (any failed check exits nonzero and prints no result):
    ``[determinism]``: one batch's gradients twice through the trainer's
    step, bit-identical, and the step's time with cuDNN's deterministic
    algorithms and with its default ones, in turns.
+9. This slice's paths, after the timings (so that their hundreds of
+   thousands of small launches come after the profiler's windows).
+   ``[bf16]``: bfloat16 dynamics aimed at the card (``odenet_logits``, the
+   adjoint, ``odenet_trajectory``, ``Trainer``, ``train --bf16`` and
+   ``sweep --bf16`` without ``--cpu``) each refused before any launch,
+   naming ROADMAP Queue 2 item 5, the counters still 0, no file left.
+   ``[straggler]``: ``python -m neural_ode_features_tpu_torch.straggler_bench``
+   at the JAX tool's defaults (its JSON line: host and CUDA-event clocks,
+   lane work, error units) and ``tests/test_straggler.py``'s bars; one
+   batch of each mode under ``torch.profiler`` (the device's busy share);
+   at ``--pool 512 --dim 8`` the lane work equal to the ``--cpu`` run's.
+   ``[examples]``: ``examples.solver_playground`` (γ within 1e-3, no fused
+   kernel launched) and ``examples.continuous_features`` (32 adjoint steps
+   at B = 64 on 6×6×64 maps, then 512 test images at 9 times from one
+   solve: per step 2 + 6·attempts + 1 ``odefunc`` and NFE-b − 1
+   ``odefunc_bwd``, per features solve 2 ``odefunc`` and one ``rk_step``
+   per attempt, 9 finite mAPs), the three kernels held against their plain
+   versions at 6×6×64, B = 64 and 512.  ``[protocol]``:
+   ``reference_protocol`` on fabricated MNIST files, 1 epoch of 512 images,
+   its three steps in their own processes: the JAX tool's verdict keys (of
+   its committed ``runs_protocol/mnist_verdict.json``), ``data:
+   fabricated``, the parity clause held; then the same steps in this
+   process with the launches watched (the rules of ``[train-cli]``; 2
+   ``odefunc`` and one ``rk_step`` per attempt per ``eval_ckpt`` and
+   ``parity_eval`` batch) and the same top-1; the kernels held at
+   ``parity_eval``'s B = 100 and 12 and at B = 512.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel and shape: the conv stage it ran; ``ms``, its device time per
@@ -184,6 +210,7 @@ import contextlib
 import csv
 import dataclasses
 import gzip
+import importlib
 import io
 import itertools
 import json
@@ -195,6 +222,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -596,6 +624,10 @@ def main() -> int:
     from neural_ode_features_tpu_torch import export_model
     from neural_ode_features_tpu_torch import extract as extract_cli
     from neural_ode_features_tpu_torch import parity_eval as parity_cli
+    from neural_ode_features_tpu_torch import (
+        reference_protocol,
+        straggler_bench,
+    )
     from neural_ode_features_tpu_torch import sweep as sweep_cli
     from neural_ode_features_tpu_torch import train as train_cli
     from neural_ode_features_tpu_torch import training as training_mod
@@ -609,6 +641,10 @@ def main() -> int:
         train_entry,
     )
     from neural_ode_features_tpu_torch.evaluation import evaluate_features
+    from neural_ode_features_tpu_torch.examples import (
+        continuous_features,
+        solver_playground,
+    )
     from neural_ode_features_tpu_torch.extract import extract_features
     from neural_ode_features_tpu_torch.features_io import (
         load_features,
@@ -639,6 +675,7 @@ def main() -> int:
     )
     from neural_ode_features_tpu_torch.models import (
         ModelConfig,
+        ODENet,
         block_dynamics,
         head_apply,
         init_odenet,
@@ -2617,6 +2654,327 @@ def main() -> int:
             "attempts_burst4": d_b4["attempts"]}))
         phase_done("serve", t_ph)
 
+    # [bf16]: bfloat16 dynamics aimed at the card.  The CPU runs them
+    # (tests/test_torch_bf16.py); on a CUDA tensor the model, the trainer
+    # and both CLIs refuse before any launch, naming ROADMAP Queue 2 item 5,
+    # and no run directory or sweep file is made.
+    def bf16_phase():
+        t_ph = time.perf_counter()
+        cfg16 = dataclasses.replace(ENTRY_CONFIG, compute_dtype="bfloat16")
+        x16 = x[:8]
+        with tempfile.TemporaryDirectory() as tmp_b:
+            calls = {
+                "odenet_logits": lambda: odenet_logits(params, x16, cfg16),
+                "odenet_logits adjoint": lambda: odenet_logits(
+                    params, x16, cfg16, adjoint=True),
+                "odenet_trajectory": lambda: odenet_trajectory(
+                    params, x16, [0.0, 0.5, 1.0], cfg16),
+                "Trainer": lambda: Trainer(dataclasses.replace(
+                    TRAIN_CONFIG, compute_dtype="bfloat16"),
+                    steps_per_epoch=1, device="cuda"),
+                "train --bf16": lambda: train_cli.main([
+                    "--dataset", "synthetic-mnist", "--bf16", "--epochs",
+                    "1", "--limit", "256", "--runs-dir", f"{tmp_b}/runs"]),
+                "sweep --bf16": lambda: sweep_cli.main([
+                    "--bf16", "--tols", "1e-1", "--output",
+                    f"{tmp_b}/sweep.csv"]),
+            }
+            for name, call in calls.items():
+                odefunc.launches = odefunc_bwd.launches = 0
+                dopri5_step.launches = 0
+                try:
+                    call()
+                    fail(f"[bf16] {name} ran on the card")
+                except (NotImplementedError, SystemExit) as e:
+                    msg = str(e)
+                torch.cuda.synchronize()
+                got = read_counts()
+                print(f"[bf16] {name} on the card refused: {msg}; launches "
+                      f"{got}")
+                if "Queue 2 item 5" not in msg or any(got.values()):
+                    fail(f"[bf16] {name}: not refused before any launch "
+                         "naming Queue 2 item 5")
+            if any(Path(tmp_b).iterdir()):
+                fail("[bf16] a refused CLI left a run directory or a file")
+        phase_done("bf16", t_ph)
+
+    # [straggler]: the straggler bench at the JAX tool's defaults on the
+    # card (pool 4,096, B = 256, dim 64, tol 1e-6, 3 repeats): its JSON
+    # line, tests/test_straggler.py's bars; at --pool 512 --dim 8 the lane
+    # work equal to the port's own --cpu run.
+    def straggler_phase():
+        t_ph = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res, t_b, got = counted(lambda: straggler_bench.main([]))
+        print(f"[straggler] ({smi}) {buf.getvalue().strip()}")
+        print(f"[straggler] the bench took {t_b:.1f} s; launches {got}")
+        if (res["backend"] != "cuda" or any(got.values())
+                or res["device_time_shuffled_ms"] is None):
+            fail(f"[straggler] backend {res['backend']}, launches {got}")
+        if not (res["lane_work_sorted"] < res["lane_work_shuffled"]
+                and res["err_units_global"] > 2 * res["err_units_sorted"]):
+            fail("[straggler] misses tests/test_straggler.py's bars")
+        # The card against the CPU at --pool 512 --dim 8.
+        small = ["--pool", "512", "--dim", "8", "--reps", "1"]
+        lanes = ("nfe_spread", "lane_work_shuffled", "lane_work_sorted",
+                 "lane_work_global", "lane_work_useful")
+        with contextlib.redirect_stdout(io.StringIO()):
+            on_card = straggler_bench.main(small)
+            on_cpu = straggler_bench.main([*small, "--cpu"])
+        both = {k: (on_card[k], on_cpu[k]) for k in lanes}
+        print(f"[straggler] --pool 512 --dim 8, the card against --cpu: "
+              f"{both}")
+        if any(a != b for a, b in both.values()):
+            fail("[straggler] the lane work on the card differs from the "
+                 "CPU's")
+        phase_done("straggler", t_ph)
+        return res
+
+    # The straggler bench's device busy share: the first batch of each
+    # mode's order under torch.profiler, device activity only.
+    def straggler_busy():
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        lam_np, y0_np, rng_s = straggler_bench.make_pool(4096, 256, 64,
+                                                         200.0)
+        lam_s = torch.from_numpy(lam_np).to(dev)
+        y0_s = torch.from_numpy(y0_np).to(dev)
+        shuffled = rng_s.permutation(len(lam_np))
+        probe_nfe = straggler_bench.solve_pool(
+            lam_s, y0_s, np.arange(len(lam_np)), 256, tol=1e-5,
+            error_control="per_sample", controller="i")[0]
+        sorted_ = np.argsort(probe_nfe, kind="stable")
+        for mode, order, control in (("shuffled", shuffled, "per_sample"),
+                                     ("nfe_sorted", sorted_, "per_sample"),
+                                     ("global_shuffled", shuffled, "global")):
+            def one_batch():
+                return straggler_bench.solve_pool(
+                    lam_s, y0_s, order[:256], 256, tol=1e-6,
+                    error_control=control, controller="i")
+            one_batch()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t_s = time.perf_counter()
+                nfe_b = one_batch()[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t_s
+            evs = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+            busy = sum(ev.self_device_time_total for ev in evs) / 1e3
+            print(f"[straggler] {mode}, one batch of 256 (largest NFE "
+                  f"{int(nfe_b.max())}) under torch.profiler: wall "
+                  f"{1e3 * wall:.2f} ms, {sum(ev.count for ev in evs)} device "
+                  f"kernels, device busy {busy:.2f} ms "
+                  f"({100 * busy / (1e3 * wall):.1f}%)")
+
+    def hold_kernels(w_, hw_, tag, odefunc_rows, step_rows, bwd_rows):
+        """The three fused kernels against their plain versions at ``hw_``
+        and these batch sizes (the backward against the f64 plain
+        version)."""
+        for nb in sorted(set(odefunc_rows) | set(step_rows) | set(bwd_rows)):
+            h_ = torch.from_numpy((rng.normal(size=(nb, *hw_, C)) * 0.3)
+                                  .astype(np.float32)).to(dev)
+            t_ = torch.from_numpy(rng.uniform(0, 1, nb)
+                                  .astype(np.float32)).to(dev)
+            shape = f"{hw_[0]}x{hw_[1]}x{C} B={nb}"
+            f_ = odefunc_plain(w_, t_, h_, G)
+            if nb in odefunc_rows:
+                err = close(f"{tag} odefunc {shape}",
+                            odefunc(w_, t_, h_, groups=G), f_, **STATE_TOL)
+                print(f"[check] {tag} odefunc {shape}: max abs err {err:.3e}")
+            if nb in step_rows:
+                dt_ = torch.from_numpy(rng.uniform(0.05, 0.2, nb)
+                                       .astype(np.float32)).to(dev)
+                tol_ = torch.full((nb,), TOL, device=dev)
+                kw_ = dict(hw=hw_, groups=G, rtol=tol_, atol=tol_)
+                y_, f0_ = h_.reshape(nb, -1), f_.reshape(nb, -1)
+                got = dopri5_step(w_, DOPRI5, t_, dt_, y_, f0_, **kw_)
+                want = dopri5_step_plain(w_, DOPRI5, t_, dt_, y_, f0_, **kw_)
+                err = max(close(f"{tag} rk_step {n_} {shape}", g_, r_,
+                                **STATE_TOL)
+                          for n_, g_, r_ in zip(("y1", "f1", "y_mid"),
+                                                got[:3], want[:3]))
+                close(f"{tag} rk_step ratio {shape}", got[3], want[3],
+                      **RATIO_TOL)
+                print(f"[check] {tag} rk_step {shape}: max abs err "
+                      f"{err:.3e}, ratio within tolerance")
+            if nb in bwd_rows:
+                g_ = torch.from_numpy(rng.normal(size=h_.shape)
+                                      .astype(np.float32)).to(dev)
+                check_bwd(w_, (t_, h_, g_), f"{tag} {shape}")
+        torch.cuda.synchronize()
+
+    # [examples]: both examples on the card.  solver_playground (no fused
+    # kernel: it must launch none) fits γ within 1e-3; continuous_features
+    # trains 32 adjoint steps at B = 64 on 6×6×64 maps and extracts 512
+    # test images at 9 times from one solve: per step 2 + 6·attempts + 1
+    # odefunc and NFE-b − 1 odefunc_bwd launches, per features solve 2
+    # odefunc and one rk_step per attempt; 9 finite mAPs.  The kernels are
+    # held against their plain versions at these shapes.
+    def examples_phase():
+        t_ph = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gamma, t_pg, got_pg = counted(lambda: solver_playground.main([]))
+        for line in buf.getvalue().strip().splitlines():
+            print(f"[examples] solver_playground: {line}")
+        print(f"[examples] solver_playground took {t_pg:.1f} s; launches "
+              f"{got_pg}")
+        if abs(gamma - solver_playground.TRUE_GAMMA) >= 1e-3 or any(
+                got_pg.values()):
+            fail(f"[examples] solver_playground: γ {gamma}, launches {got_pg}")
+
+        steps.clear()
+        solves = []
+        plain_features = ODENet.features
+
+        def watched_features(self, *a, **k):
+            before = read_counts()
+            out = plain_features(self, *a, **k)
+            after = read_counts()
+            solves.append({"launches": {n: after[n] - before[n]
+                                        for n in after},
+                           "attempts": batch_attempts(out[1].nfe)})
+            return out
+
+        Trainer.train_batch, ODENet.features = watched_train, watched_features
+        lines = []
+        try:
+            res, t_cf, got_cf = counted(
+                lambda: continuous_features.run(log=lines.append))
+        finally:
+            Trainer.train_batch, ODENet.features = plain_train, plain_features
+        for line in lines:
+            if line.strip():
+                print(f"[examples] continuous_features: {line.strip()}")
+        print(f"[examples] continuous_features took {t_cf:.1f} s; launches "
+              f"{got_cf}; {len(steps)} steps, features solve {solves}")
+        maps = res["maps"]
+        if len(maps) != 9 or not np.all(np.isfinite(maps)):
+            fail(f"[examples] continuous_features mAPs {maps}")
+        if len(steps) != 32 or len(solves) != 1:
+            fail(f"[examples] {len(steps)} steps, {len(solves)} solves")
+        for i, s_ in enumerate(steps):
+            want = {"odefunc": 2 + 6 * s_["attempts"] + 1,
+                    "odefunc_bwd": s_["nfe_b"] - 1, "rk_step": 0}
+            if s_["launches"] != want:
+                fail(f"[examples] step {i}: launches {s_['launches']}, "
+                     f"expected {want}")
+        sv = solves[0]
+        if sv["launches"] != {"odefunc": 2, "odefunc_bwd": 0,
+                              "rk_step": sv["attempts"]}:
+            fail(f"[examples] features solve launches {sv}")
+        total = {n: sum(s_["launches"][n] for s_ in steps)
+                 + sv["launches"][n] for n in got_cf}
+        if total != got_cf:
+            fail(f"[examples] launches {got_cf}, the steps' and the solve's "
+                 f"sum {total}")
+        w_ex = prepare(res["trainer"].full_params()["odefunc"], (6, 6))
+        hold_kernels(w_ex, (6, 6), "[examples]", (64, 512), (512,), (64,))
+        phase_done("examples", t_ph)
+        return {"examples": got_cf}
+
+    # [protocol]: reference_protocol --dataset mnist --fabricate on the
+    # card, 1 epoch of 512 images: the fabricated files, then train,
+    # eval_ckpt and parity_eval each in its own process.  The verdict must
+    # have the JAX tool's keys (those of its committed
+    # runs_protocol/mnist_verdict.json), say data: fabricated and hold the
+    # parity clause.  Then the same protocol with each step's main run in
+    # this process, the launches watched: per train step and evaluation
+    # batch the rules of [train-cli], per eval_ckpt and parity_eval batch 2
+    # odefunc and one rk_step per attempt; its verdict equal to the
+    # subprocesses'.  The kernels are held at the protocol's other shapes
+    # (6×6×64 at B = 512, parity_eval's 100 and 12).
+    def protocol_phase():
+        t_ph = time.perf_counter()
+        jax_keys = list(json.loads((Path(__file__).resolve().parent
+                                    / "runs_protocol" / "mnist_verdict.json")
+                                   .read_text()))
+        args = dict(epochs=1, limit=512, cpu=False, fabricated=True)
+        with tempfile.TemporaryDirectory(prefix="proto") as tmp_p:
+            tmp_p = Path(tmp_p)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                reference_protocol.fabricate("mnist", tmp_p / "data", 512)
+                t_s = time.perf_counter()
+                verdict = reference_protocol.run_protocol(
+                    "mnist", tmp_p / "data", runs_root=tmp_p / "runs",
+                    **args)
+                t_sub = time.perf_counter() - t_s
+            for line in buf.getvalue().strip().splitlines():
+                print(f"[protocol] {line.removeprefix('[protocol] ')}")
+            print(f"[protocol] the three steps in their own processes took "
+                  f"{t_sub:.1f} s")
+            if list(verdict) != jax_keys:
+                fail(f"[protocol] verdict keys {list(verdict)}, the JAX "
+                     f"tool's {jax_keys}")
+            if (verdict["data"] != "fabricated"
+                    or verdict["parity_within_0.2pct"] is not True
+                    or verdict["parity"].get("device") != "cuda"):
+                fail(f"[protocol] verdict {verdict}")
+
+            # The same steps in this process, the launches watched.
+            by_tool = {}
+
+            def in_process(cmd, timeout):
+                tool = cmd[2].rsplit(".", 1)[1]
+                if tool == "train":
+                    run, _, got, st, ev = run_train(cmd[3:])
+                    by_tool[tool] = (got, st, ev)
+                    return types.SimpleNamespace(stdout=f"run dir: {run}\n")
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc_, _, got = counted(lambda: importlib.import_module(
+                        cmd[2]).main(cmd[3:]))
+                if rc_ not in (None, 0) and isinstance(rc_, int):
+                    raise RuntimeError(f"{tool} exited {rc_}")
+                by_tool[tool] = (got, out.getvalue())
+                return types.SimpleNamespace(stdout=out.getvalue())
+
+            sub = reference_protocol._sub
+            reference_protocol._sub = in_process
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    again = reference_protocol.run_protocol(
+                        "mnist", tmp_p / "data", runs_root=tmp_p / "again",
+                        **args)
+            finally:
+                reference_protocol._sub = sub
+        got_t, st, ev = by_tool["train"]
+        for i, s_ in enumerate(st):
+            want = {"odefunc": 2 + 6 * s_["attempts"] + 1,
+                    "odefunc_bwd": s_["nfe_b"] - 1, "rk_step": 0}
+            if s_["launches"] != want:
+                fail(f"[protocol] train step {i}: launches "
+                     f"{s_['launches']}, expected {want}")
+        for i, e_ in enumerate(ev):
+            if (e_["odefunc"] != 2 or e_["odefunc_bwd"] != 0
+                    or e_["rk_step"] < 1):
+                fail(f"[protocol] evaluation batch {i}: launches {e_}")
+        for tool, n_batches in (("eval_ckpt", 1), ("parity_eval", 6)):
+            got_, _ = by_tool[tool]
+            if (got_["odefunc"] != 2 * n_batches or got_["odefunc_bwd"]
+                    or got_["rk_step"] < n_batches):
+                fail(f"[protocol] {tool}: launches {got_} over {n_batches} "
+                     "batches")
+        print(f"[protocol] in this process: train {len(st)} steps and "
+              f"{len(ev)} evaluation batches, launches {got_t}; eval_ckpt "
+              f"{by_tool['eval_ckpt'][0]}; parity_eval "
+              f"{by_tool['parity_eval'][0]}; top-1 {again['top1']} against "
+              f"the subprocesses' {verdict['top1']}; parity "
+              f"{again['parity_within_0.2pct']}")
+        if (len(st) != 4 or again["top1"] != verdict["top1"]
+                or again["parity_within_0.2pct"] is not True):
+            fail("[protocol] the in-process run differs from the "
+                 "subprocesses'")
+        hold_kernels(prepare(params["odefunc"], (6, 6)), (6, 6), "[protocol]", (512, 100, 12),
+                     (512, 100, 12), ())
+        phase_done("protocol", t_ph)
+        return {"protocol": {n: got_t[n] + by_tool["eval_ckpt"][0][n]
+                             + by_tool["parity_eval"][0][n]
+                             for n in got_t}}
+
     width_kernels = width_phase()
     foreign_phase()
     population_phase()
@@ -2843,6 +3201,15 @@ def main() -> int:
           f"(median of {bwd_s}); over the 5 checked steps NFE-f mean "
           f"{statistics.mean(nfe_f):.2f}, NFE-b mean {statistics.mean(nfe_b):.1f}")
 
+    # This slice's paths run last: after their hundreds of thousands of
+    # small launches and their subprocesses, torch.profiler missed every
+    # rk_step launch of the timing windows above in two of three runs.
+    bf16_phase()
+    straggler_phase()
+    straggler_busy()
+    cli_launches.update(examples_phase())
+    cli_launches.update(protocol_phase())
+
     fb = fused_bounds((HH, WW), C, B, B_TRAIN)
     fused_stage = stage((HH, WW), C)
     kernels = [
@@ -2904,7 +3271,10 @@ def main() -> int:
                        ("odefunc_bwd", "population"),
                        ("odefunc", "parallel"), ("odefunc_bwd", "parallel"),
                        ("rk_step", "parallel_eval"),
-                       ("odefunc", "serve"), ("rk_step", "serve")):
+                       ("odefunc", "serve"), ("rk_step", "serve"),
+                       ("odefunc", "examples"), ("odefunc_bwd", "examples"),
+                       ("rk_step", "examples"), ("odefunc", "protocol"),
+                       ("odefunc_bwd", "protocol"), ("rk_step", "protocol")):
         if by_path[path][name] < 1:
             fail(f"{name} was not launched on the {path} path")
     for mode, rows_ in sweep_report.items():

@@ -13,7 +13,8 @@ CLIs: ``--cpu``) to run the plain PyTorch versions of the kernels on the CPU.
 Command lines: ``python -m neural_ode_features_tpu_torch.train``,
 ``.extract``, ``.evaluate``, ``.sweep``, ``.probes.conv_probe``, and for
 deployment ``.export_model`` and ``.serve`` (the serving host; clients:
-``serving.SocketClient`` and ``.serve_client``).  On a CUDA tensor the hand-written kernels in
+``serving.SocketClient`` and ``.serve_client``), and the tools
+``.straggler_bench`` and ``.reference_protocol``.  On a CUDA tensor the hand-written kernels in
 ``kernels/`` (sources in ``csrc/``) always run.
 """
 

@@ -9,6 +9,7 @@ from .common import (
 )
 from .odenet import (
     block_dynamics,
+    check_compute_dtype,
     fused_rk_eligible,
     init_odefunc,
     init_odenet,
@@ -27,6 +28,7 @@ __all__ = [
     "pool_features",
     "stem_apply",
     "block_dynamics",
+    "check_compute_dtype",
     "fused_rk_eligible",
     "init_odefunc",
     "init_odenet",

@@ -13,6 +13,12 @@ solver (``cfg.method``: the
 adaptive RK methods, ``adams``, the fixed-grid ones) runs on that dynamics.
 On a CPU tensor every kernel runs its plain PyTorch version.  The JAX opt-ins
 ``cfg.use_pallas``/``cfg.use_fused_rk`` are not read.
+
+``cfg.compute_dtype='bfloat16'`` runs where the JAX package runs it, on its
+jnp path: on the CPU, the dynamics in bfloat16 with the solver state in
+float32, for inference and for the adjoint (whose VJP is then autograd
+through the same function).  On the card it raises before any launch
+(ROADMAP.md, Queue 2 item 5).
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ from ..solver import (
 from .common import ModelConfig, head_apply, init_head, init_stem, stem_apply
 
 __all__ = ["init_odefunc", "init_odenet", "odefunc_apply", "block_dynamics",
-           "fused_rk_eligible", "odenet_solve", "odenet_logits",
-           "odenet_trajectory"]
+           "check_compute_dtype", "fused_rk_eligible", "odenet_solve",
+           "odenet_logits", "odenet_trajectory"]
 
 # The JAX bound on the interpolated adjoint's dense forward.
 DENSE_MAX_STEPS = 256
@@ -68,14 +74,25 @@ def init_odenet(seed: int, cfg: ModelConfig, *, device="cuda"):
     return tree_to(params, dev)
 
 
+def check_compute_dtype(cfg: ModelConfig, device) -> None:
+    """Raise, before any launch, for reduced-precision dynamics on the card:
+    the kernels compute in float32 only.  On the CPU ``cfg.compute_dtype``
+    runs as the JAX jnp path runs it."""
+    if (cfg.compute_dtype != "float32"
+            and torch.device(device).type == "cuda"):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} on the card is not ported "
+            "yet (ROADMAP.md, Queue 2 item 5): the CUDA kernels compute in "
+            "float32 only; device='cpu' runs it")
+
+
 def odefunc_apply(params, t, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The dynamics f(t, h); ``t`` scalar or (B,).  CUDA: the fused kernel
     (f32 only; raises for bf16 compute or a shape outside its gate).  CPU:
-    the plain path in ``cfg.compute_dtype``, as the JAX jnp path."""
+    the plain path in ``cfg.compute_dtype``, as the JAX jnp path; the state
+    and f stay f32."""
     if h.is_cuda:
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the CUDA ODEfunc kernel computes in float32 only")
+        check_compute_dtype(cfg, h.device)
         return odefunc(params, t, h, groups=cfg.groups)
     g = cfg.groups
     out = h.to(cfg.cdtype)
@@ -130,6 +147,7 @@ def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
     (``sweep --fused``).  The fused step takes the same per-row tolerance.
     ``batch_sum``: ``h0`` is this rank's rows of a batch spread over ranks
     (``solver.odeint``; only global control reads it)."""
+    check_compute_dtype(cfg, h0.device)
     tol = cfg.tol if tol is None else tol
     if isinstance(tol, torch.Tensor):
         if cfg.error_control != "per_sample":
@@ -163,11 +181,17 @@ def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
     forward takes no fused step, as in JAX, so it evaluates f once per stage
     (dopri5) or twice per attempt (adams); the augmented dynamics take f and
     its VJP from :func:`block_dynamics`.  The interpolated adjoint's dense
-    forward has the JAX bound, ``min(cfg.max_steps, 256)`` attempts."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the adjoint path computes in float32 only (ROADMAP.md)")
-    dyn, vjp = block_dynamics(params["odefunc"], h0, cfg)
+    forward has the JAX bound, ``min(cfg.max_steps, 256)`` attempts.
+    Reduced-precision dynamics (CPU only) are :func:`odefunc_apply` in
+    ``cfg.cdtype``, and their VJP is autograd through that function, as
+    JAX's ``jax.vjp`` of its jnp dynamics."""
+    check_compute_dtype(cfg, h0.device)
+    if cfg.compute_dtype == "float32":
+        dyn, vjp = block_dynamics(params["odefunc"], h0, cfg)
+    else:
+        def dyn(p, t, y):
+            return odefunc_apply(p, t, y, cfg)
+        vjp = None
     return odeint_adjoint(
         dyn, params["odefunc"], h0, ts, rtol=tol, atol=tol,
         method=cfg.method, error_control=cfg.error_control,
@@ -195,6 +219,7 @@ def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
         if isinstance(tol, torch.Tensor) and tol.ndim:
             raise ValueError("a per-row tolerance applies to the inference "
                              "path; the adjoint path takes one float tol")
+    check_compute_dtype(cfg, x.device)
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
     if adjoint:
@@ -216,6 +241,7 @@ def odenet_trajectory(params, x: torch.Tensor, ts,
 
     Returns ((T, B, H, W, C) states, stats); pool with
     :func:`..models.common.pool_features` for (T, B, C) features."""
+    check_compute_dtype(cfg, x.device)
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.as_tensor(ts).to(device=h0.device, dtype=h0.dtype)
     return odenet_solve(params, h0, ts, cfg)

@@ -1,5 +1,6 @@
 from .layers import (
     concat_conv2d,
+    concat_time_channel,
     conv2d,
     global_avg_pool,
     group_norm,
@@ -19,6 +20,7 @@ from .preprocess import (
 
 __all__ = [
     "concat_conv2d",
+    "concat_time_channel",
     "conv2d",
     "global_avg_pool",
     "group_norm",

@@ -25,6 +25,7 @@ __all__ = [
     "linear",
     "global_avg_pool",
     "concat_conv2d",
+    "concat_time_channel",
     "time_map",
 ]
 
@@ -150,3 +151,13 @@ def concat_conv2d(params: Params, t, x: torch.Tensor, *,
     m = time_map(kernel, h, w, padding).to(x.dtype)
     t = torch.as_tensor(t, dtype=x.dtype, device=x.device).reshape(-1, 1, 1, 1)
     return out + t * m
+
+
+def concat_time_channel(t, x: torch.Tensor) -> torch.Tensor:
+    """Broadcast scalar-or-per-sample ``t`` to a leading NHWC channel: the
+    reference's ``ConcatConv2d`` input (``concat_conv2d`` computes the same
+    conv without building it).  ``t``: shape ``()`` or ``(B,)``."""
+    b, h, w, _ = x.shape
+    t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+    t = t.reshape(-1, 1, 1, 1).expand(b, h, w, 1)
+    return torch.cat([t, x], dim=-1)

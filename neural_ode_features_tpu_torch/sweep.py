@@ -66,8 +66,8 @@ def parse_args(argv=None):
     p.add_argument("--error-control", default="per_sample",
                    choices=["per_sample", "global"])
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 dynamics compute: not ported (ROADMAP.md, "
-                        "Queue 2 item 5)")
+                   help="bfloat16 dynamics compute: with --cpu only; the "
+                        "card's kernels are f32 (ROADMAP.md, Queue 2 item 5)")
     p.add_argument("--pallas", action="store_true",
                    help="accepted for the JAX CLI's sake and changes "
                         "nothing: on the card the fused ODEfunc kernel "
@@ -244,9 +244,9 @@ def _fused_sweep(args, params, cfg, tols, dataset, images, labels, dev):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.bf16:
-        raise SystemExit("--bf16 is not ported yet (ROADMAP.md, Queue 2 "
-                         "item 5)")
+    if args.bf16 and not args.cpu:
+        raise SystemExit("--bf16 on the card is not ported yet (ROADMAP.md, "
+                         "Queue 2 item 5); --cpu runs it")
     dev = strict_f32("cpu" if args.cpu else "cuda")
 
     if args.run:
@@ -275,9 +275,11 @@ def main(argv=None):
 
     tols = [float(s) for s in args.tols.split(",")]
     # An inference sweep: never through the adjoint path.
-    cfg = dataclasses.replace(cfg0, method=args.method or cfg0.method,
-                              error_control=args.error_control,
-                              adjoint=False)
+    cfg = dataclasses.replace(
+        cfg0, method=args.method or cfg0.method,
+        error_control=args.error_control,
+        compute_dtype="bfloat16" if args.bf16 else cfg0.compute_dtype,
+        adjoint=False)
     sweep = _fused_sweep if args.fused else _loop_sweep
     rows = sweep(args, params, cfg, tols, dataset, images, labels, dev)
 

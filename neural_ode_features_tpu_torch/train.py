@@ -38,7 +38,8 @@ devices.  Neither flag is part of the run identity.
 
 Runs on the card unless ``--cpu`` is given; no card is an error, and so are
 more ranks than cards.  Flags whose machinery is not ported exit with a
-message naming their ROADMAP.md item before any run directory is made.
+message naming their ROADMAP.md item before any run directory is made;
+``--bf16`` is one of them on the card, and runs with ``--cpu``.
 """
 
 from __future__ import annotations
@@ -124,8 +125,9 @@ def parse_args(argv=None):
                    help="solver iteration bound (default: 1024 for the "
                         "adjoint path, 64 for --no-adjoint)")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 dynamics compute: not ported (ROADMAP.md, "
-                        "Queue 2 item 5)")
+                   help="bfloat16 dynamics compute (solver control stays "
+                        "f32): with --cpu only; the card's kernels are f32 "
+                        "(ROADMAP.md, Queue 2 item 5)")
     p.add_argument("--num-devices", type=int, default=None,
                    help="data-parallel ranks, one process per card (with "
                         "--cpu: gloo processes on the CPU); default every "
@@ -170,8 +172,8 @@ def _refuse_unported(args) -> None:
     def stop(flag, item):
         raise SystemExit(f"{flag} is not ported yet (ROADMAP.md, {item})")
 
-    if args.bf16:
-        stop("--bf16", "Queue 2 item 5")
+    if args.bf16 and not args.cpu:
+        stop("--bf16 on the card", "Queue 2 item 5")
     if args.state_format == "orbax":
         stop("--state-format orbax", "Queue 1 item 5")
     if args.tensorboard:
@@ -374,6 +376,7 @@ def _config(args, n: int) -> TrainConfig:
         augment=args.augment,
         num_devices=n,
         model_shards=args.model_shards,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
         max_steps=args.max_steps or (1024 if args.adjoint else 64),
     )
 

@@ -45,9 +45,11 @@ reduction order:
   msgpack holds whole arrays too); :meth:`load_state` reads it on every
   rank and shards it, so a state moves between world sizes.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-bfloat16 compute and the orbax training-state directory.  The training
-state file is a ``torch.save`` of one flat dict of tensors.
+``compute_dtype='bfloat16'`` trains on the CPU (the dynamics in bfloat16,
+as the JAX jnp path); on the card it raises before any launch.  Not ported
+yet (each raises ``NotImplementedError`` naming ROADMAP.md): bfloat16 on the
+card and the orbax training-state directory.  The training state file is a
+``torch.save`` of one flat dict of tensors.
 """
 
 from __future__ import annotations
@@ -67,9 +69,11 @@ from .data import Batches
 from .kernels.odefunc import odefunc_autograd, prepare
 from .models import (
     ModelConfig,
+    check_compute_dtype,
     head_apply,
     init_odenet,
     init_resnet,
+    odefunc_apply,
     odenet_logits,
     resnet_logits,
     stem_apply,
@@ -148,16 +152,22 @@ def _direct_diff_logits(params, x: torch.Tensor, cfg: ModelConfig,
                         batch_sum=None):
     """Gradients by direct backprop through the host-loop adaptive solve
     (the reference's default semantics): autograd records every attempt,
-    and each f goes through the ODEfunc kernel pair.  No fused step.
+    and each f goes through the ODEfunc kernel pair, or, for
+    reduced-precision dynamics (CPU only), through autograd of the plain
+    :func:`odefunc_apply` in ``cfg.cdtype``.  No fused step.
     ``batch_sum``: see ``solver.odeint`` (autograd goes through it)."""
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
-    with torch.no_grad():
-        w = prepare(params["odefunc"], tuple(h0.shape[1:3]))
+    if cfg.compute_dtype == "float32":
+        with torch.no_grad():
+            w = prepare(params["odefunc"], tuple(h0.shape[1:3]))
 
-    def dyn(t, y):
-        return odefunc_autograd(params["odefunc"], t, y, groups=cfg.groups,
-                                weights=w)
+        def dyn(t, y):
+            return odefunc_autograd(params["odefunc"], t, y,
+                                    groups=cfg.groups, weights=w)
+    else:
+        def dyn(t, y):
+            return odefunc_apply(params["odefunc"], t, y, cfg)
 
     traj, stats = odeint(dyn, h0, ts, rtol=cfg.tol, atol=cfg.tol,
                          method=cfg.method, error_control=cfg.error_control,
@@ -221,15 +231,13 @@ class Trainer:
                 f"smaller than batch_size={train_cfg.batch_size}")
         if train_cfg.model not in ("odenet", "resnet"):
             raise ValueError(f"unknown model {train_cfg.model!r}")
-        if train_cfg.compute_dtype != "float32":
-            _not_ported(f"compute_dtype={train_cfg.compute_dtype!r}",
-                        "Queue 2 item 5")
         if train_cfg.optimizer not in ("sgd", "adam"):
             raise ValueError(f"unknown optimizer {train_cfg.optimizer!r}")
         self.cfg = train_cfg
         self.model_cfg = train_cfg.model_config()
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
+        check_compute_dtype(self.model_cfg, self.device)
         self._init_mesh(train_cfg)
 
         if params is None:

@@ -13,13 +13,23 @@ import pytest
 import torch
 
 import neural_ode_features_tpu_torch as port
-from neural_ode_features_tpu_torch import eval_ckpt, evaluate, extract
+from neural_ode_features_tpu_torch import (
+    eval_ckpt,
+    evaluate,
+    extract,
+    reference_protocol,
+    straggler_bench,
+)
 from neural_ode_features_tpu_torch.entry import (
     entry,
     extract_entry,
     train_entry,
 )
 from neural_ode_features_tpu_torch.evaluation import evaluate_features
+from neural_ode_features_tpu_torch.examples import (
+    continuous_features,
+    solver_playground,
+)
 from neural_ode_features_tpu_torch.models import (
     ModelConfig,
     ODENet,
@@ -45,7 +55,7 @@ def _modules():
 
 def test_imports_with_jax_blocked():
     mods = _modules()
-    assert len(mods) >= 44
+    assert len(mods) >= 48
     for name in ("solver.adams", "solver.event", "solver.event_adjoint",
                  "train", "sweep", "utils.expman", "solver.fixed_grid",
                  "extract", "evaluate", "features_io", "solver.dense",
@@ -56,7 +66,9 @@ def test_imports_with_jax_blocked():
                  "examples.deploy_artifact", "probes.serve_probe",
                  "parallel", "parallel.mesh", "parallel.launch",
                  "parallel.tasks", "multiseed", "examples.fsdp_training",
-                 "probes.parallel_probe"):
+                 "probes.parallel_probe", "straggler_bench",
+                 "reference_protocol", "examples.solver_playground",
+                 "examples.continuous_features"):
         assert f"{port.__name__}.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -83,14 +95,15 @@ _FORBIDDEN = re.compile(
 
 def test_no_jax_references_in_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 45
+    assert len(files) >= 49
     names = {f.name for f in files}
     assert {"train.py", "sweep.py", "expman.py", "fixed_grid.py", "adams.py",
             "event.py", "event_adjoint.py", "serving.py", "serve.py",
             "export_model.py", "serve_client.py", "native_serving.py",
             "deploy_artifact.py", "serve_probe.py", "mesh.py", "launch.py",
             "tasks.py", "multiseed.py", "fsdp_training.py",
-            "parallel_probe.py"} <= names
+            "parallel_probe.py", "straggler_bench.py", "reference_protocol.py",
+            "solver_playground.py", "continuous_features.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"
@@ -150,3 +163,29 @@ def test_new_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_tools_and_examples_need_cuda_unless_cpu(monkeypatch, tmp_path):
+    """The straggler bench, the reference protocol and both examples
+    default to the card and raise without one, before they write or
+    compute anything; with ``--cpu`` (or ``device="cpu"``) they run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: straggler_bench.main(["--pool", "8", "--batch-size", "4"]),
+        lambda: straggler_bench.run_bench(pool=8, batch_size=4),
+        lambda: reference_protocol.main(["--fabricate", "--data-dir",
+                                         str(tmp_path)]),
+        lambda: solver_playground.main([]),
+        lambda: solver_playground.pendulums(),
+        lambda: continuous_features.main([]),
+        lambda: continuous_features.run(n_train=8, n_test=8, batch_size=8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not any(tmp_path.iterdir())
+    ys, stats = solver_playground.pendulums("cpu")
+    assert ys.device.type == "cpu" and stats.nfe.shape == (4,)
+    got = straggler_bench.main(["--pool", "4", "--batch-size", "4", "--dim",
+                                "1", "--reps", "1", "--cpu"])
+    assert got["backend"] == "cpu" and got["pool"] == 4

@@ -88,7 +88,8 @@ def test_sweep_matches_jax_per_tolerance(run_dirs, tmp_path):
             == (tmp_path / "j.csv").read_text().splitlines()[0])
 
 
-def test_fused_sweep_equals_the_loop_and_jax(run_dirs, tmp_path):
+def test_fused_sweep_equals_the_loop_and_jax(run_dirs, tmp_path,
+                                             monkeypatch):
     jax_dir, port_dir = run_dirs
     loop = sweep.main(_common(port_dir, tmp_path / "l.csv"))
     fused = sweep.main([*_common(port_dir, tmp_path / "f.csv"), "--fused",
@@ -103,8 +104,19 @@ def test_fused_sweep_equals_the_loop_and_jax(run_dirs, tmp_path):
     with pytest.raises(SystemExit, match="per_sample"):
         sweep.main([*_common(port_dir, tmp_path / "g.csv"), "--fused",
                     "--error-control", "global"])
-    with pytest.raises(SystemExit, match="Queue 2 item 5"):
-        sweep.main([*_common(port_dir, tmp_path / "b.csv"), "--bf16"])
+    # --bf16 runs with --cpu (test_bf16_sweep_matches_jax); aimed at a card
+    # it exits before any device use.
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+
+        def no_device_use(*args, **kwargs):
+            raise AssertionError("the card was used before the exit")
+        m.setattr(sweep, "strict_f32", no_device_use)
+        m.setattr(sweep, "load_checkpoint", no_device_use)
+        with pytest.raises(SystemExit, match="Queue 2 item 5"):
+            sweep.main([a for a in _common(port_dir, tmp_path / "b.csv")
+                        if a != "--cpu"] + ["--bf16"])
+    assert not (tmp_path / "b.csv").exists()
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -167,3 +179,27 @@ def test_per_row_tolerance_through_the_plain_fused_step():
         odenet_logits(params, x, ModelConfig(in_channels=1, hidden=32,
                                              error_control="global"),
                       tol=tols)
+
+
+def test_bf16_sweep_matches_jax(run_dirs, tmp_path, monkeypatch):
+    """``sweep --bf16 --cpu``: the dynamics in bf16 on both sides.  The
+    NFE columns equal per tolerance; top-1 within one image of the 64, as
+    a bf16 rounding (2^-8 of a logit) can flip an argmax whose two largest
+    logits are that close."""
+    jax_dir, port_dir = run_dirs
+    dtypes = set()
+    logits_fn = sweep.odenet_logits
+
+    def recorded(params, x, cfg, **kw):
+        dtypes.add(cfg.compute_dtype)
+        return logits_fn(params, x, cfg, **kw)
+    monkeypatch.setattr(sweep, "odenet_logits", recorded)
+    common = ["--bf16", "--tols", "1e-1,1e-2"]
+    rows_j = jax_sweep.main([*_common(jax_dir, tmp_path / "j.csv"), *common])
+    rows = sweep.main([*_common(port_dir, tmp_path / "p.csv"), *common])
+    assert dtypes == {"bfloat16"}
+    assert [list(r) for r in rows] == [list(r) for r in rows_j]
+    for r, j in zip(rows, rows_j):
+        assert r["tol"] == j["tol"]
+        assert {k: r[k] for k in EXACT[2:]} == {k: j[k] for k in EXACT[2:]}
+        assert abs(r["top1"] - j["top1"]) <= 1 / 64 + 1e-4, (r, j)

@@ -146,10 +146,22 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path, capsys):
     (["--seeds", "3,3"], "duplicate seeds"),
     (["--seeds", "0,1", "--no-fused-epoch"], "incompatible with --seeds"),
 ])
-def test_unported_flags_exit_before_a_run_directory(tmp_path, flags, match):
+def test_unported_flags_exit_before_a_run_directory(tmp_path, flags, match,
+                                                   monkeypatch):
     runs = tmp_path / "runs"
+    argv = SMALL
+    if flags == ["--bf16"]:
+        # bf16 runs with --cpu (tests/test_torch_bf16.py); aimed at a card
+        # it exits before any device use.
+        argv = [a for a in SMALL if a != "--cpu"]
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+        def no_device_use(*args, **kwargs):
+            raise AssertionError("the card was used before the exit")
+        monkeypatch.setattr(torch.cuda, "device_count", no_device_use)
+        monkeypatch.setattr(port_train, "strict_f32", no_device_use)
     with pytest.raises(SystemExit, match=match):
-        port_train.main([*SMALL, "--epochs", "1", "--runs-dir", str(runs),
+        port_train.main([*argv, "--epochs", "1", "--runs-dir", str(runs),
                          *flags])
     assert not runs.exists()
 

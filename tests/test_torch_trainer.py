@@ -144,20 +144,25 @@ def test_schedule_is_optax_piecewise_constant():
 @pytest.mark.parametrize("change", [
     dict(model="densenet"), dict(num_devices=2), dict(model_shards=2),
     dict(compute_dtype="bfloat16")])
-def test_trainer_refusals(change):
+def test_trainer_refusals(change, monkeypatch):
     """What is not ported names its ROADMAP.md item; ``model='resnet'``
     trains now (``test_torch_train_cli.py``), an unknown model is an
     error; a mesh (``num_devices`` or ``model_shards`` > 1) needs the ranks
     of a process group (``parallel.launch``, ``test_torch_parallel.py``),
-    which this test process has not."""
+    which this test process has not.  bfloat16 trains on the CPU
+    (``test_torch_bf16.py``) and is refused on the card, before any
+    launch."""
+    device = "cpu"
     if "model" in change:
         exc, match = ValueError, "unknown model"
     elif "compute_dtype" in change:
-        exc, match = NotImplementedError, "ROADMAP"
+        exc, match = NotImplementedError, "ROADMAP.md, Queue 2 item 5"
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        device = "cuda"
     else:
         exc, match = RuntimeError, "parallel.launch"
     with pytest.raises(exc, match=match):
-        Trainer(TrainConfig(**change), steps_per_epoch=1, device="cpu")
+        Trainer(TrainConfig(**change), steps_per_epoch=1, device=device)
 
 
 def test_state_files_refused():
