@@ -166,7 +166,25 @@ Phases (any failed check exits nonzero and prints no result):
    ``[determinism]``: one batch's gradients twice through the trainer's
    step, bit-identical, and the step's time with cuDNN's deterministic
    algorithms and with its default ones, in turns.
-9. This slice's paths, after the timings (so that their hundreds of
+9. ``[graph]``: every ``'while'`` RK solve above ran its attempts as a
+   replayed CUDA graph (``solver/attempt_graph.py``); this phase holds that
+   route against the private host loop (``runge_kutta._host_loop``) on the
+   card: the entry model at B = 256 and 5, the fused sweep's 4·256 stacked
+   rows with their (B,) tolerances, one extraction batch at T = 11,
+   ``extract_features`` over two full batches and a padded one with
+   ``nfe_sort``, and one adjoint train step at B = 128 (loss, NFE-f, NFE-b,
+   dθ), each bit-identical with equal launch counts and at least one
+   capture; then in alternating turns (median of 5) the solve, the train
+   step's forward and backward and the extraction batch on each route, the
+   captures' own host time, the device's busy share under
+   ``torch.profiler`` on each route (its kernel counts equal to the launch
+   counters, which the graph route takes from the captured graph's kernel
+   nodes), the straggler bench (``--reps 1``) on each, the graph pool's
+   bytes and the reserved memory against the host loop after an extraction
+   batch and a train step, the extraction batch with a pool per solve
+   against the thread's pool, and the reserved memory after 10 and after
+   100 solves (within 1%).
+10. The slice-11 paths, after the timings (so that their hundreds of
    thousands of small launches come after the profiler's windows).
    ``[bf16]``: bfloat16 dynamics aimed at the card (``odenet_logits``, the
    adjoint, ``odenet_trajectory``, ``Trainer``, ``train --bf16`` and
@@ -2805,6 +2823,319 @@ def main() -> int:
                 check_bwd(w_, (t_, h_, g_), f"{tag} {shape}")
         torch.cuda.synchronize()
 
+    # [graph]: the 'while' attempt loop replayed as a CUDA graph (every
+    # phase above ran through it) against the private host loop on the
+    # card: bit-identical results and equal launch counts on every path,
+    # then the times of both in alternating turns, the capture on its own,
+    # the device's busy share, the straggler bench's modes and the reserved
+    # memory over 100 solves.
+    def graph_phase():
+        from neural_ode_features_tpu_torch.solver import (
+            attempt_graph,
+            runge_kutta,
+        )
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        t_ph = time.perf_counter()
+        captures = []  # host seconds of each capture
+        real_capture = attempt_graph._capture
+
+        def timed_capture(*args):
+            t_s = time.perf_counter()
+            real_capture(*args)
+            captures.append(time.perf_counter() - t_s)
+
+        attempt_graph._capture = timed_capture
+
+        @contextlib.contextmanager
+        def host_loop():
+            """Every 'while' solve on the private host loop."""
+            saved = runge_kutta._while_loop
+            runge_kutta._while_loop = (lambda body, carry, n, capturable:
+                                       runge_kutta._host_loop(body, carry, n))
+            try:
+                yield
+            finally:
+                runge_kutta._while_loop = saved
+
+        def equal(a, b):
+            if isinstance(a, torch.Tensor):
+                return torch.equal(a, b)
+            if isinstance(a, np.ndarray):
+                return np.array_equal(a, b)
+            if isinstance(a, dict):
+                return a.keys() == b.keys() and all(equal(a[k], b[k])
+                                                    for k in a)
+            if isinstance(a, (tuple, list)):
+                return len(a) == len(b) and all(map(equal, a, b))
+            return a == b
+
+        def both(tag, fn, want=None):
+            """``fn()`` through the graph route and the host loop, counters
+            from 0 before each: bit-identical results, equal launches (and
+            ``want(result)``'s, where given), at least one capture."""
+            n_cap = len(captures)
+            got_g, t_g, n_g = counted(fn)
+            n_cap = len(captures) - n_cap
+            with host_loop():
+                got_h, t_h, n_h = counted(fn)
+            rule = n_g if want is None else want(got_g)
+            print(f"[graph] {tag}: graph {t_g:.3f} s ({n_cap} capture(s)), "
+                  f"host loop {t_h:.3f} s; launches {n_g} (host loop {n_h}); "
+                  f"bit-identical: {equal(got_g, got_h)}")
+            if not equal(got_g, got_h):
+                fail(f"[graph] {tag}: the graph route differs from the host "
+                     "loop")
+            if n_g != n_h or n_g != rule:
+                fail(f"[graph] {tag}: launches {n_g}, host loop {n_h}, rule "
+                     f"{rule}")
+            if n_cap < 1:
+                fail(f"[graph] {tag}: no capture: the graph route was not "
+                     "taken")
+            return got_g
+
+        def solve_rule(res):
+            st = res[1]
+            return {"odefunc": 2, "odefunc_bwd": 0,
+                    "rk_step": int((st.naccept + st.nreject).max())}
+
+        with torch.no_grad():
+            both(f"entry model B={B}", lambda: odenet_logits(params, x, cfg),
+                 solve_rule)
+            both("entry model B=5",
+                 lambda: odenet_logits(params, x[:5].contiguous(), cfg),
+                 solve_rule)
+            mixed_g = torch.tensor(SWEEP_TOLS, device=dev).repeat_interleave(B)
+            both(f"fused sweep {n_grid}x{B} stacked rows, tolerances "
+                 f"{SWEEP_TOLS}",
+                 lambda: odenet_logits(params, x.repeat(n_grid, 1, 1, 1), cfg,
+                                       tol=mixed_g), solve_rule)
+            efwd, ep, ex = handles[T_OUT]
+            both(f"extraction batch B={B} T={T_OUT}", lambda: efwd(ep, ex),
+                 solve_rule)
+        n_pad = 2 * B + 88  # two full batches and a padded one
+        both(f"extract_features {n_pad} images (last batch padded), "
+             "nfe_sort", lambda: extract_features(
+                 eparams, ecfg, test_images[:n_pad], test_labels[:n_pad],
+                 nfe_sort=True, **ekw))
+        x_g = trainer._preprocess(images, train=False)
+        y_g = trainer._labels(labels)
+
+        def train_grads():
+            loss_, _, nfe_, grads_, nfe_b_ = trainer._grads(
+                trainer.params, x_g, y_g)
+            return loss_, nfe_, nfe_b_, grads_, tuple(trainer.last_stats)
+
+        def train_rule(res):
+            att = int((res[4][1] + res[4][2]).max())
+            return {"odefunc": 2 + 6 * att + 1,
+                    "odefunc_bwd": int(res[4][4]) - 1, "rk_step": 0}
+
+        both(f"adjoint train step B={B_TRAIN} (loss, NFE-f, NFE-b, dθ)",
+             train_grads, train_rule)
+
+        # Times, in alternating turns of the host loop and the graph
+        # (median of 5 after a warm turn), and the captures alone.
+        def clock(fn):
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t_s, out
+
+        def train_split():
+            x_t = trainer._preprocess(images, train=True)
+            y_t = trainer._labels(labels)
+            t_f, (loss_, *_) = clock(lambda: trainer._loss_and_logits(
+                trainer.params, x_t, y_t))
+            t_b, _ = clock(lambda: torch.autograd.grad(loss_,
+                                                       trainer._leaves))
+            return t_f, t_b
+
+        runs = {
+            f"solve B={B}": lambda: (clock(lambda: fwd(params, x))[0],),
+            f"train step B={B_TRAIN} (forward, backward)": train_split,
+            f"extraction batch B={B} T={T_OUT}": lambda: (clock(
+                lambda: handles[T_OUT][0](*handles[T_OUT][1:]))[0],),
+        }
+        times = {k: {"graph": [], "host": []} for k in runs}
+        cap_ms = {k: [] for k in runs}
+        for rep in range(6):
+            for route in ("host", "graph"):
+                for k, fn in runs.items():
+                    n_cap = len(captures)
+                    if route == "host":
+                        with host_loop():
+                            ts_ = fn()
+                    else:
+                        ts_ = fn()
+                    if rep:
+                        times[k][route].append(ts_)
+                        if route == "graph":
+                            cap_ms[k].extend(1e3 * c
+                                             for c in captures[n_cap:])
+        graph_times = {}
+        for k, v in times.items():
+            med_ = {r: [1e3 * statistics.median(part) for part in zip(*v[r])]
+                    for r in v}
+            graph_times[k] = med_
+            print(f"[graph] {k}, ms (median of 5, in turns): host loop "
+                  f"{', '.join(f'{m:.2f}' for m in med_['host'])}; graph "
+                  f"{', '.join(f'{m:.2f}' for m in med_['graph'])}; "
+                  f"captures {len(cap_ms[k]) / 5:g} per call, "
+                  f"{statistics.median(cap_ms[k] or [float('nan')]):.2f} ms "
+                  f"each (median)")
+
+        # The kernel each launch counter counts, by its name on the device.
+        prof_names = {"odefunc": "odefunc_kernel",
+                      "odefunc_bwd": "bwd_sample_kernel",
+                      "rk_step": "rk_step_kernel"}
+
+        def busy(label, fn):
+            """``fn()`` under torch.profiler: the device's busy share, and
+            the kernels the profiler saw held against the launch counters
+            (on the graph route, the replays' kernels)."""
+            fn()
+            odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wall, _ = clock(fn)
+            counters = read_counts()
+            evs = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+            seen = {k: sum(ev.count for ev in evs if name in ev.key)
+                    for k, name in prof_names.items()}
+            dev_busy = sum(ev.self_device_time_total for ev in evs) / 1e3
+            print(f"[graph] {label} under torch.profiler: wall "
+                  f"{1e3 * wall:.2f} ms, {sum(ev.count for ev in evs)} device "
+                  f"kernels, device busy {dev_busy:.2f} ms "
+                  f"({100 * dev_busy / (1e3 * wall):.1f}%); kernels seen "
+                  f"{seen}, counters {counters}")
+            if seen != counters:
+                fail(f"[graph] {label}: the profiler saw {seen} launches, "
+                     f"the counters say {counters}")
+            return dev_busy
+
+        # The busy share also against the unprofiled medians above (the
+        # profiler slows the capture more than the host loop).
+        solve_k, train_k = list(runs)[:2]
+        for route in ("host", "graph"):
+            with host_loop() if route == "host" else contextlib.nullcontext():
+                b_solve = busy(f"{route}: one solve B={B}",
+                               lambda: fwd(params, x))
+                b_train = busy(f"{route}: one train step B={B_TRAIN}",
+                               lambda: trainer._grads(trainer.params, x_g,
+                                                      y_g))
+            print(f"[graph] {route}: device busy against the unprofiled "
+                  f"medians: solve "
+                  f"{100 * b_solve / graph_times[solve_k][route][0]:.1f}%, "
+                  f"train step "
+                  f"{100 * b_train / sum(graph_times[train_k][route]):.1f}%")
+
+        # The straggler bench's three modes, one repetition each, on the
+        # host loop and through the graph (the [straggler] phase below runs
+        # the bench at its defaults through the graph).
+        lanes = {}
+        for route in ("host", "graph"):
+            with host_loop() if route == "host" else contextlib.nullcontext():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res_s = straggler_bench.main(["--reps", "1"])
+            lanes[route] = [res_s[k] for k in res_s if k.startswith("lane_")]
+            print(f"[graph] straggler bench --reps 1, {route}: " + ", ".join(
+                f"{k} {res_s[k]}" for k in (
+                    "time_shuffled_s", "time_nfe_sorted_s",
+                    "time_global_shuffled_s", "probe_s",
+                    "lane_work_shuffled", "lane_work_sorted",
+                    "lane_work_global")))
+        if lanes["host"] != lanes["graph"]:
+            fail("[graph] the straggler bench's lane work differs between "
+                 "the routes")
+
+        # The graph pool's bytes (this thread's, made anew for each path)
+        # and the reserved memory after one call and at its peak, against
+        # the host loop.
+        def pool_bytes():
+            pool = attempt_graph._local.pools[
+                torch.device("cuda", torch.cuda.current_device())][0]
+            return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+        mem_runs = {
+            f"extraction batch B={B} T={T_OUT}": runs[
+                f"extraction batch B={B} T={T_OUT}"],
+            f"train step B={B_TRAIN}": lambda: trainer._grads(
+                trainer.params, x_g, y_g),
+        }
+        for k, fn in mem_runs.items():
+            mem = {}
+            for route in ("host", "graph"):
+                attempt_graph._local.pools.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                with host_loop() if route == "host" else contextlib.nullcontext():
+                    fn()
+                torch.cuda.synchronize()
+                mem[route] = (torch.cuda.memory_reserved(),
+                              torch.cuda.max_memory_reserved())
+            print(f"[graph] memory, {k}: the graph pool holds {pool_bytes()} "
+                  f"B after it; reserved after it {mem['host'][0]} B on the "
+                  f"host loop, {mem['graph'][0]} B on the graph route "
+                  f"({mem['graph'][0] - mem['host'][0]:+d} B); peak "
+                  f"{mem['host'][1]} B and {mem['graph'][1]} B "
+                  f"({mem['graph'][1] - mem['host'][1]:+d} B)")
+
+        # A pool per solve, given back at its end (a MemPool, whose memory
+        # goes back to the device when it is dropped), against the thread's
+        # pool: the extraction batch, median of 5 in turns.
+        ext_k = f"extraction batch B={B} T={T_OUT}"
+        thread_pool = attempt_graph._pool
+        held = []
+
+        def pool_per_solve(device):
+            held.append(torch.cuda.MemPool())
+            return held[-1].id
+
+        per_solve = {"thread": [], "solve": []}
+        for rep in range(6):
+            for kind in ("thread", "solve"):
+                if kind == "solve":
+                    attempt_graph._pool = pool_per_solve
+                torch.cuda.synchronize()
+                t_s = time.perf_counter()
+                try:
+                    handles[T_OUT][0](*handles[T_OUT][1:])
+                    held.clear()  # the pool's memory goes back
+                    torch.cuda.synchronize()
+                finally:
+                    attempt_graph._pool = thread_pool
+                if rep:
+                    per_solve[kind].append(1e3 * (time.perf_counter() - t_s))
+        print(f"[graph] {ext_k}, ms (median of 5, in turns): the thread's "
+              f"pool {statistics.median(per_solve['thread']):.2f}, a pool per "
+              f"solve released at its end "
+              f"{statistics.median(per_solve['solve']):.2f}")
+
+        # No graph pool leaks: the reserved memory after 100 solves within
+        # 1% of its value after 10 (the allocator's cache emptied first, so
+        # that the earlier phases' blocks do not hide a leak).
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            for i in range(100):
+                fwd(params, x)
+                if i == 9:
+                    torch.cuda.synchronize()
+                    reserved_10 = torch.cuda.memory_reserved()
+        torch.cuda.synchronize()
+        reserved_100 = torch.cuda.memory_reserved()
+        print(f"[graph] reserved memory after 10 solves {reserved_10} B, "
+              f"after 100 {reserved_100} B ({reserved_100 - reserved_10:+d} "
+              f"B)")
+        if abs(reserved_100 - reserved_10) > 0.01 * reserved_10:
+            fail("[graph] the reserved memory grows with the solves")
+        attempt_graph._capture = real_capture
+        phase_done("graph", t_ph)
+        return graph_times
+
     # [examples]: both examples on the card.  solver_playground (no fused
     # kernel: it must launch none) fits γ within 1e-3; continuous_features
     # trains 32 adjoint steps at B = 64 on 6×6×64 maps and extracts 512
@@ -3201,6 +3532,7 @@ def main() -> int:
           f"(median of {bwd_s}); over the 5 checked steps NFE-f mean "
           f"{statistics.mean(nfe_f):.2f}, NFE-b mean {statistics.mean(nfe_b):.1f}")
 
+    graph_phase()
     # This slice's paths run last: after their hundreds of thousands of
     # small launches and their subprocesses, torch.profiler missed every
     # rk_step launch of the timing windows above in two of three runs.

@@ -139,7 +139,10 @@ def dopri5_step(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
     ks = torch.empty((_STAGES - 2, b, n), dtype=y0.dtype, device=y0.device)
     y1, f1, y_mid = (torch.empty_like(y0) for _ in range(3))
     ratio = torch.empty((b,), dtype=y0.dtype, device=y0.device)
-    coeffs = _coefficients(tableau)  # host array, read by the C entry point
+    # The tableau stays a host array: the C entry point copies it into the
+    # kernel's by-value ``Tableau`` argument (csrc/rk_step.cu), so a CUDA
+    # graph captures it with the launch and a replay reads no host memory.
+    coeffs = _coefficients(tableau)
     lib = _lib()
     code = lib.rk_step_forward(
         ptr(t0), ptr(dt), ptr(y0), ptr(f0), *weight_pointers(w),
@@ -188,7 +191,10 @@ def make_fused_dopri5_step(
         raise ValueError("the fused step takes a 7-stage FSAL tableau with "
                          "c_mid (dopri5)")
     w = prepare(params, hw)
-    rows = {}  # the tolerances as (B,) tensors, made at the first attempt
+    # The tolerances as (B,) tensors, made at the first attempt: that one
+    # runs eagerly on every route, so a captured attempt (the CUDA graph of
+    # solver/attempt_graph.py) finds them made.
+    rows = {}
 
     def fused_step(t0, dt, y0, f0):
         if not rows:

@@ -17,13 +17,20 @@ The method is the JAX one, operation for operation:
   * order-matched dense output: an output time inside an accepted step is
     evaluated with the corrector's own Lagrange interpolant.
 
-Loop design.  As ``runge_kutta.adaptive_odeint``, the loop over attempts runs
-on the host with one device→host sync per attempt.  The JAX body gates its
+Loop design.  One attempt is ``attempt(carry) -> (carry, dense-write
+inputs)`` and makes no host read.  ``unroll='while'`` (default) runs it in a
+host loop with one device→host sync per attempt.  The JAX body gates its
 dense write on ``lax.cond(any(covered))``; here that flag is read in the same
 sync as ``done.all()``, one attempt late: an attempt keeps what its dense
 write needs, and the next attempt's sync (or the one after the loop) says
 whether to write it.  Each output time is covered by one accepted step per
-sample, so the values are the JAX ones.
+sample, so the values are the JAX ones.  ``'scan'`` and ``'scan_remat'``
+(JAX's) run exactly ``max_steps`` attempts with no host read, each writing
+its dense output under ``torch.where``; ``'scan_remat'`` recomputes each
+attempt in the backward (``torch.utils.checkpoint``).  The same values:
+a done row no longer changes.  History columns not yet filled get distinct
+dummy node positions, so that no Vandermonde system is singular and no NaN
+reaches a scan-mode gradient (JAX ``tests/test_adams.py``).
 
 The weight recurrences, the predictor/corrector combines and the dense-output
 contraction are solver-side contractions, all elementwise (no matmul, so
@@ -41,6 +48,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .runge_kutta import (
     RankNorm,
@@ -49,6 +57,7 @@ from .runge_kutta import (
     _optimal_dt,
     _select_initial_step,
     _tol_column,
+    check_unroll,
 )
 
 __all__ = ["adams_odeint"]
@@ -123,6 +132,7 @@ def adams_odeint(
     safety: float = 0.9,
     ifactor: float = 2.0,  # conservative growth for multistep stability
     dfactor: float = 0.2,
+    unroll: str = "while",
     error_mask: torch.Tensor | None = None,
     max_order: int = 8,
     batch_sum: Callable | None = None,
@@ -131,12 +141,14 @@ def adams_odeint(
     """Adaptive ABM solve of ``dy/dt = func(t, y)`` over the monotonic grid
     ``ts``; the contract of :func:`.runge_kutta.adaptive_odeint` (``rtol``,
     ``atol``: floats or ``(B,)`` tensors; ``error_mask``: seminorm control;
-    ``batch_sum``, ``shared``: the norm spans ranks, :class:`RankNorm`).
-    ``max_order`` caps the order ramp (2..12).  Returns ``((T, B, N),
-    SolveStats)``."""
+    ``batch_sum``, ``shared``: the norm spans ranks, :class:`RankNorm`;
+    ``unroll``: ``'while'``, a host loop here, or ``'scan'``/
+    ``'scan_remat'``).  ``max_order`` caps the order ramp (2..12).  Returns
+    ``((T, B, N), SolveStats)``."""
     if not 2 <= max_order <= _MAX_ORDER_CAP:
         raise ValueError(
             f"max_order must be in [2, {_MAX_ORDER_CAP}], got {max_order}")
+    check_unroll(unroll)
     kk = max_order
     dtype, dev = y0.dtype, y0.device
     batch, n = y0.shape
@@ -152,7 +164,7 @@ def adams_odeint(
     t_final = ts[-1]
     ts_tail = ts[1:]
 
-    t = torch.full((batch,), float(ts[0]), dtype=dtype, device=dev)
+    t = ts[0].expand(batch).contiguous()  # no read on the host
     f0 = func(t, y0)
     nfe = torch.ones((batch,), dtype=torch.int32, device=dev)
     if first_step is None:
@@ -165,19 +177,10 @@ def adams_odeint(
         dt = torch.full((batch,), float(first_step), dtype=dtype,
                         device=dev) * direction
 
-    y = y0
-    hist_t = t[:, None].expand(batch, kk).clone()  # newest first
-    hist_f = [f0] * kk
-    nhist = torch.ones((batch,), dtype=torch.int32, device=dev)
-    order = torch.ones_like(nhist)
-    out = torch.zeros((ts.shape[0] - 1, batch, n), dtype=dtype, device=dev)
-    naccept = torch.zeros_like(nhist)
-    nreject = torch.zeros_like(nhist)
-    done = torch.zeros((batch,), dtype=torch.bool, device=dev)
     col = torch.arange(kk, device=dev)[None, :]
     m_idx = torch.arange(1, kk + 1, device=dev)[:, None]
     inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
-    pending = None  # the last attempt's dense-write inputs
+    ones = torch.ones((batch, 1), dtype=dtype, device=dev)
 
     def dense_write(out, y, t, dt, s_corr, f_nodes, k_corr, covered):
         """The order-matched Lagrange dense output on [t, t + dt], written
@@ -196,19 +199,12 @@ def adams_odeint(
                 (k_corr >= k)[None, :, None], cand, y_int)
         return torch.where(covered[:, :, None], y_int, out)
 
-    for _ in range(max_steps):
-        # The one host sync per attempt: are all samples done, and did the
-        # last attempt cover an output time?
-        if pending is None:
-            finished = bool(done.all())
-        else:
-            finished, write = torch.stack(
-                [done.all(), pending[-1].any()]).tolist()
-            if write:
-                out = dense_write(out, *pending)
-            pending = None
-        if finished:
-            break
+    def attempt(c):
+        """One attempt from the carry ``c`` = ``(t, dt, y, hist_t, nhist,
+        order, nfe, naccept, nreject, done, *hist_f)`` (history newest
+        first): the next carry and this attempt's dense-write inputs."""
+        (t, dt, y, hist_t, nhist, order, nfe, naccept, nreject, done,
+         *hist_f) = c
         active = ~done
         dt_col = dt[:, None]
         t1 = t + dt
@@ -233,8 +229,7 @@ def adams_odeint(
         f_pred = func(t1, y_pred)
 
         # Correct: AM over {t1} and the k-1 newest history nodes.
-        s_corr = torch.cat([torch.ones((batch, 1), dtype=dtype, device=dev),
-                            s_hist[:, :kk - 1]], dim=1)
+        s_corr = torch.cat([ones, s_hist[:, :kk - 1]], dim=1)
         f_nodes = [f_pred] + hist_f[:kk - 1]
         k_corr = torch.clamp(k_pred + 1, max=kk)
         corr = [None] * (kk + 1)
@@ -292,18 +287,52 @@ def adams_odeint(
                   zip([f_new] + hist_f[:kk - 1], hist_f)]
         reached = accept & (direction * (t1 - t_final) >= 0.0)
 
-        t = torch.where(accept, t1, t)
-        dt = new_dt
-        y = torch.where(acc_col, y_corr, y)
-        nhist = torch.where(accept, torch.clamp(nhist + 1, max=kk), nhist)
-        order = new_order
-        nfe = nfe + 2 * active.to(torch.int32)
-        naccept = naccept + accept.to(torch.int32)
-        nreject = nreject + (active & ~accept).to(torch.int32)
-        done = done | reached
+        carry = (torch.where(accept, t1, t), new_dt,
+                 torch.where(acc_col, y_corr, y), hist_t,
+                 torch.where(accept, torch.clamp(nhist + 1, max=kk), nhist),
+                 new_order, nfe + 2 * active.to(torch.int32),
+                 naccept + accept.to(torch.int32),
+                 nreject + (active & ~accept).to(torch.int32),
+                 done | reached, *hist_f)
+        return carry, pending
 
-    if pending is not None and bool(pending[-1].any()):  # max_steps ran out
-        out = dense_write(out, *pending)
+    nhist = torch.ones((batch,), dtype=torch.int32, device=dev)
+    carry = (t, dt, y0, t[:, None].expand(batch, kk).clone(), nhist,
+             torch.ones_like(nhist), nfe, torch.zeros_like(nhist),
+             torch.zeros_like(nhist),
+             torch.zeros((batch,), dtype=torch.bool, device=dev),
+             *([f0] * kk))
+    out = torch.zeros((ts.shape[0] - 1, batch, n), dtype=dtype, device=dev)
+
+    if unroll == "while":
+        pending = None  # the last attempt's dense-write inputs
+        for _ in range(max_steps):
+            # The one host sync per attempt: are all samples done, and did
+            # the last attempt cover an output time?
+            if pending is None:
+                finished = bool(carry[9].all())
+            else:
+                finished, write = torch.stack(
+                    [carry[9].all(), pending[-1].any()]).tolist()
+                if write:
+                    out = dense_write(out, *pending)
+                pending = None
+            if finished:
+                break
+            carry, pending = attempt(carry)
+        if pending is not None and bool(pending[-1].any()):  # max_steps ran out
+            out = dense_write(out, *pending)
+    else:
+        def scan_step(out, *c):
+            c, pending = attempt(c)
+            return (dense_write(out, *pending), *c)
+
+        state = (out, *carry)
+        for _ in range(max_steps):
+            state = (scan_step(*state) if unroll == "scan"
+                     else checkpoint(scan_step, *state, use_reentrant=False))
+        out, *carry = state
+    nfe, naccept, nreject, done = carry[6:10]
     stats = SolveStats(nfe=nfe, naccept=naccept, nreject=nreject,
                        success=done)
     return torch.cat([y0[None], out], dim=0), stats

@@ -132,7 +132,8 @@ class _Adjoint(torch.autograd.Function):
         if ctx.dense:
             # Dense forward: the same solver and tolerances, keeping every
             # accepted step's interpolation record for the backward.
-            kw = {k: v for k, v in spec.fwd_kw.items() if k != "max_steps"}
+            kw = {k: v for k, v in spec.fwd_kw.items()
+                  if k not in ("max_steps", "unroll")}
             y_at, stats = odeint_dense(
                 lambda t, y: spec.func(params, t, y), y0, float(ts[0]),
                 float(ts[-1]), max_steps=spec.dense_max_steps, **kw)
@@ -249,6 +250,7 @@ def odeint_adjoint(
     method: str = "dopri5",
     error_control: str = "global",
     max_steps: int = 2**14,
+    unroll: str = "while",
     controller: str = "i",
     adjoint_rtol: float | None = None,
     adjoint_atol: float | None = None,
@@ -266,8 +268,10 @@ def odeint_adjoint(
 
     ``func(params, t, y)`` must be a pure function of its explicit
     arguments.  ``adjoint_{rtol,atol,max_steps}`` override the backward
-    solve's settings (default: the forward's).  ``controller`` applies to
-    both solves.  ``adjoint_seminorm`` and ``adjoint_mode``: see the module
+    solve's settings (default: the forward's).  ``controller`` and
+    ``unroll`` (see :func:`~.odeint.odeint`; not the interpolated forward,
+    a host loop) apply to both solves: with ``'while'`` on one card each
+    takes the graph route, since neither records autograd.  ``adjoint_seminorm`` and ``adjoint_mode``: see the module
     docstring; ``dense_max_steps`` bounds the interpolated forward's
     attempts (its coefficient buffer grows with the attempts made).  With
     ``error_control='per_sample'`` ``func`` receives t of shape (B,) in the
@@ -296,7 +300,7 @@ def odeint_adjoint(
     leaves = [x for _, x in with_paths]
     fwd_kw = dict(rtol=rtol, atol=atol, method=method,
                   error_control=error_control, max_steps=max_steps,
-                  controller=controller, batch_sum=batch_sum)
+                  unroll=unroll, controller=controller, batch_sum=batch_sum)
     if adjoint_mode != "interpolated":
         fwd_kw["steps_per_interval"] = steps_per_interval
     # The augmented state couples every sample through the shared a_θ, so
@@ -306,7 +310,7 @@ def odeint_adjoint(
         atol=atol if adjoint_atol is None else adjoint_atol,
         method=method, error_control="global",
         max_steps=max_steps if adjoint_max_steps is None
-        else adjoint_max_steps,
+        else adjoint_max_steps, unroll=unroll,
         controller=controller, steps_per_interval=steps_per_interval,
         batch_sum=batch_sum)
     nfe_b = torch.zeros((), dtype=torch.int64, device=y0.device)

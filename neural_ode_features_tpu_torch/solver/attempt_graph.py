@@ -1,0 +1,236 @@
+"""The ``'while'`` attempt loop of ``runge_kutta.adaptive_odeint`` on the
+card: one attempt captured as a CUDA graph and replayed, in place of the
+host loop's some fifty launches from Python per attempt (the counterpart of
+the JAX solve's ``lax.while_loop``, which never leaves the device).
+
+The route (``runge_kutta._while_loop`` decides it from the arguments and the
+first attempt's carry, never from a failure): a CUDA state, ``unroll=
+'while'``, no norm across ranks (``batch_sum``: a gloo or NCCL sum is not
+captured here), and no autograd recording the attempts.  Then:
+
+  * the first attempt runs eagerly, as on the host loop: it is the warm-up
+    (the allocator, the kernels' ``cudaFuncSetAttribute``, library loads);
+  * the carry is copied into static buffers and one attempt is captured
+    over them on a side stream, its results written back into them (the
+    dense output in place, ``torch.where(..., out=)``); the capture runs in
+    ``"thread_local"`` error mode, so that another thread's allocations and
+    copies (the serving host's I/O thread) cannot break it;
+  * each further attempt is one replay on the caller's stream followed by
+    one read of ``done.all()``, the only host read left;
+  * the graph is released at the end of the solve.
+
+Memory.  A capture's intermediates live in a graph memory pool.  One pool
+per device and thread (with one side stream) serves every capture of that
+thread, and stays: it holds the peak intermediates of one attempt of the
+largest solve the thread has run (PERF.md gives its bytes).  A pool per
+solve, given back at its end, would cost each solve the allocation and the
+release of that memory, several ms on the card (``chip_smoke.py``
+``[graph]`` times both).
+
+A failed capture raises; nothing falls back to the host loop.
+
+Launch counts.  The kernel wrappers count launches in Python ints, which a
+capture bumps although nothing ran, and a replay does not bump.  So the
+counts the capture added are taken away, the captured graph's kernel nodes
+are counted by kernel name (through the CUDA driver), and each replay adds
+those node counts.  Where a wrapper's calls and its kernel's nodes differ
+(a launch went to another stream and ran outside the graph), the capture
+raises.  The same kernels run in the same order on the same buffers as on
+the host loop, so the results are bit-identical to it.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import threading
+
+import torch
+
+__all__ = ["replay_attempts", "kernel_nodes"]
+
+_local = threading.local()
+
+
+def _kernel_wrappers() -> tuple:
+    """The wrappers whose ``launches`` counters the route keeps, each with
+    the kernels one call of it launches once (by name in the CUDA sources)."""
+    from ..kernels.conv3x3 import conv3x3
+    from ..kernels.odefunc import odefunc
+    from ..kernels.odefunc_bwd import odefunc_bwd
+    from ..kernels.rk_step import dopri5_step
+
+    return ((odefunc, ("odefunc_kernel",)),
+            (odefunc_bwd, ("bwd_sample_kernel",)),
+            (dopri5_step, ("rk_step_kernel",)),
+            (conv3x3, ("tap9_kernel", "im2col_kernel", "mma_kernel")))
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h``."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+@functools.cache
+def _driver() -> ctypes.CDLL:
+    return ctypes.CDLL("libcuda.so.1")
+
+
+def _cu(name: str, *args) -> None:
+    code = getattr(_driver(), name)(*args)
+    if code:
+        raise RuntimeError(f"{name} failed (CUresult {code})")
+
+
+@functools.cache
+def _name(func: int, kern: int) -> str:
+    """A kernel's (mangled) name from its ``CUfunction`` or ``CUkernel``."""
+    name = ctypes.c_char_p()
+    if func:
+        _cu("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(func))
+    else:
+        _cu("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(kern))
+    return name.value.decode()
+
+
+def kernel_nodes(raw_graph: int) -> collections.Counter:
+    """The kernel nodes of a CUDA graph (``CUDAGraph.raw_cuda_graph()``),
+    counted by kernel name as the driver gives it (mangled)."""
+    graph = ctypes.c_void_p(raw_graph)
+    n = ctypes.c_size_t(0)
+    _cu("cuGraphGetNodes", graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+    names = collections.Counter()
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        _cu("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = _KernelNodeParams()
+        _cu("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+            ctypes.byref(p))
+        names[_name(p.func or 0, p.kern or 0)] += 1
+    return names
+
+
+def _count(nodes: collections.Counter, kernels: tuple) -> int:
+    """Of ``nodes``, those of the kernels named (``odefunc_kernel`` is
+    mangled as ``...14odefunc_kernel...``)."""
+    return sum(c for name, c in nodes.items()
+               if any(name == k or f"{len(k)}{k}" in name for k in kernels))
+
+
+def _stream(device: torch.device) -> torch.cuda.Stream:
+    """This thread's capture stream on ``device``."""
+    streams = _local.__dict__.setdefault("streams", {})
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def _pool(device: torch.device):
+    """This thread's graph memory pool on ``device`` (the current device).
+    A small graph captured into it once, and kept, keeps the pool alive
+    between solves (PyTorch's device and pinned-host allocators both drop a
+    pool when its last graph is reset)."""
+    pools = _local.__dict__.setdefault("pools", {})
+    if device not in pools:
+        handle = torch.cuda.graph_pool_handle()
+        keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(_stream(device)):
+            keeper.capture_begin(pool=handle,
+                                 capture_error_mode="thread_local")
+            torch.zeros(1, device=device)
+            keeper.capture_end()
+        pools[device] = (handle, keeper)
+    return pools[device][0]
+
+
+def _end_allocation(device: torch.device, pool) -> None:
+    """Route the capture stream's allocations back to the caching allocator
+    after a capture that failed: ``capture_end`` skips that step when the
+    capture was invalidated (a private entry point, under either of its
+    names; the card test that plants a failed capture pins it)."""
+    end = (getattr(torch._C, "_cuda_endAllocateToPool", None)
+           or torch._C._cuda_endAllocateCurrentStreamToPool)
+    try:
+        end(device.index, pool)
+    except RuntimeError:  # ``capture_end`` did it
+        pass
+
+
+def _capture(graph, body, static, stream, pool) -> None:
+    """Capture ``body`` over the ``static`` carry into ``graph`` on
+    ``stream``, its intermediates in ``pool``, its results copied back into
+    ``static``.  A failure ends the capture and raises."""
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            new = body(static)
+            for buf, val in zip(static, new):
+                if val is not buf:
+                    buf.copy_(val)
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:  # the capture was invalidated
+                pass
+            _end_allocation(stream.device, pool)
+            raise
+        graph.capture_end()
+
+
+def replay_attempts(body, carry, steps: int):
+    """Up to ``steps`` further attempts of ``body`` (``carry -> carry``,
+    writing the dense output into its input's buffer) from ``carry``: one
+    capture, then one replay per attempt until every row is done.  Returns
+    the final carry (the static buffers)."""
+    if steps < 1 or bool(carry.done.all()):
+        return carry
+    device = carry.done.device
+    wrappers = _kernel_wrappers()
+    with torch.cuda.device(device):
+        static = type(carry)(*(x.clone() for x in carry))
+        side = _stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        pool = _pool(device)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = [w.launches for w, _ in wrappers]
+        try:
+            try:
+                _capture(graph, body, static, side, pool)
+            except BaseException:
+                # The allocator may still count the failed graph as a user
+                # of the pool: this thread's next capture takes a new one.
+                _local.pools.pop(device, None)
+                raise
+            finally:  # a capture launches nothing
+                issued = [w.launches - b
+                          for (w, _), b in zip(wrappers, before)]
+                for (w, _), b in zip(wrappers, before):
+                    w.launches = b
+            nodes = kernel_nodes(graph.raw_cuda_graph())
+            per_replay = [_count(nodes, names) for _, names in wrappers]
+            if per_replay != issued:
+                raise RuntimeError(
+                    f"the captured attempt holds {per_replay} launches of "
+                    f"{[w.__name__ for w, _ in wrappers]}, their wrappers "
+                    f"issued {issued}: a launch ran outside the graph")
+            graph.instantiate()
+            for _ in range(steps):
+                graph.replay()
+                for (w, _), n in zip(wrappers, per_replay):
+                    w.launches += n
+                if bool(static.done.all()):
+                    break
+        finally:
+            graph.reset()
+    return static

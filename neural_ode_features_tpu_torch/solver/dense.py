@@ -32,6 +32,7 @@ from .runge_kutta import (
     _optimal_dt_pi,
     _rk_attempt,
     _select_initial_step,
+    tableau_scalars,
 )
 from .tableau import ADAPTIVE_TABLEAUS, CUBIC_FIT, QUARTIC_FIT
 
@@ -140,6 +141,7 @@ def odeint_dense(
     direction = torch.sign(span[1] - span[0])
 
     quartic = tableau.c_mid is not None
+    scalars = tableau_scalars(tableau, dtype, dev)
     fit = (QUARTIC_FIT if quartic else CUBIC_FIT).tolist()
     n_coef = len(fit)
 
@@ -179,7 +181,7 @@ def odeint_dense(
             slots = grown
         active = ~done
         y1, err, f1, new_evals, y_mid = _rk_attempt(tableau, flat_func, t, dt,
-                                                   y, f)
+                                                   y, f, scalars)
         dt_col = dt[:, None]
         data = ((y, y1, y_mid, dt_col * f, dt_col * f1) if quartic
                 else (y, y1, dt_col * f, dt_col * f1))

@@ -45,6 +45,7 @@ from .runge_kutta import (
     _optimal_dt_pi,
     _rk_attempt,
     _select_initial_step,
+    tableau_scalars,
 )
 from .tableau import ADAPTIVE_TABLEAUS, CUBIC_FIT, QUARTIC_FIT
 
@@ -137,6 +138,7 @@ def odeint_event(
     span_end = torch.tensor(float(t_max), dtype=dtype, device=dev)
     span_dir = torch.sign(span_end - float(t0))
     fit = (QUARTIC_FIT if tableau.c_mid is not None else CUBIC_FIT).tolist()
+    scalars = tableau_scalars(tableau, dtype, dev)
     n_coef = len(fit)
 
     t = torch.full((batch,), float(t0), dtype=dtype, device=dev)
@@ -209,7 +211,7 @@ def odeint_event(
             break
         active = ~done
         y1, err, f1, new_evals, y_mid = _rk_attempt(tableau, flat_func, t,
-                                                   dt, y, f)
+                                                   dt, y, f, scalars)
         ratio = _error_ratio(err, y, y1, rtol, atol)
         accept = (ratio <= 1.0) & active
         t1 = t + dt

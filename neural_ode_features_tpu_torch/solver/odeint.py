@@ -54,6 +54,7 @@ def odeint(
     error_control: str = "global",
     max_steps: int = 2**14,
     first_step: float | None = None,
+    unroll: str = "while",
     steps_per_interval: int = 1,
     error_mask: Any = None,
     max_order: int = 8,
@@ -67,7 +68,13 @@ def odeint(
     With ``error_control='global'`` ``func`` receives a scalar ``t`` and the
     state unchanged; with ``'per_sample'`` it receives ``t`` of shape
     ``(B,)``.  ``rtol``/``atol``: floats, or with ``'per_sample'`` control
-    ``(B,)`` tensors, one tolerance per row.  ``steps_per_interval``:
+    ``(B,)`` tensors, one tolerance per row.  ``unroll`` (the adaptive
+    methods; the fixed-grid ones ignore it, as in JAX): ``'while'`` (early
+    exit; on the card a replayed CUDA graph where autograd records
+    nothing), ``'scan'`` (exactly ``max_steps`` attempts,
+    reverse-differentiable: keep ``max_steps`` small) or ``'scan_remat'``
+    (the same, each attempt recomputed in the backward); see
+    ``runge_kutta``.  ``steps_per_interval``:
     substeps per ``ts`` interval (fixed-grid methods).  ``error_mask``: a
     state-like tree of 0/1 leaves (scalars broadcast) restricting the
     adaptive error norm to the selected entries (seminorm control).
@@ -156,7 +163,7 @@ def odeint(
     if method in ADAPTIVE_TABLEAUS:
         ys, stats = adaptive_odeint(
             flat_func, flat0, ts, rtol, atol, ADAPTIVE_TABLEAUS[method],
-            max_steps=max_steps, first_step=first_step,
+            max_steps=max_steps, first_step=first_step, unroll=unroll,
             error_mask=flat_mask, fused_step=fused_step,
             controller=controller, **rank_kw)
     elif fused_step is not None:
@@ -165,7 +172,8 @@ def odeint(
     elif method == "adams":
         ys, stats = adams_odeint(flat_func, flat0, ts, rtol, atol,
                                  max_steps=max_steps, first_step=first_step,
-                                 error_mask=flat_mask, max_order=max_order,
+                                 unroll=unroll, error_mask=flat_mask,
+                                 max_order=max_order,
                                  **rank_kw)
     else:
         ys, stats = fixed_grid_odeint(flat_func, flat0, ts, method,

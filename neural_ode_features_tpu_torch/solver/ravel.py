@@ -27,17 +27,18 @@ def _leaves(tree: Any) -> list[torch.Tensor]:
     raise TypeError(f"unsupported state node {type(tree).__name__}")
 
 
+def _build(node: Any, it) -> Any:
+    if isinstance(node, torch.Tensor):
+        return next(it)
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return type(node)(_build(v, it) for v in node)
+
+
 def _unflatten(like: Any, leaves: list[torch.Tensor]) -> Any:
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, torch.Tensor):
-            return next(it)
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return type(node)(build(v) for v in node)
-
-    return build(like)
+    # Not a recursive closure: that would be a reference cycle holding the
+    # leaves (a solve's whole trajectory) until the cyclic collector runs.
+    return _build(like, iter(leaves))
 
 
 def _float_dtype(leaves: list[torch.Tensor]) -> torch.dtype:

@@ -1,30 +1,45 @@
 """Adaptive explicit Runge–Kutta integration with per-sample error control
 (port of ``neural_ode_features_tpu/solver/runge_kutta.py``).
 
-Loop design.  The JAX solve is one ``lax.while_loop`` resident on the
-device.  Here the loop over step attempts runs on the host: each attempt
-launches the stage work (or one fused-step kernel) and then reads
-``done.all()``, which costs one device→host sync per attempt (about five
-per solve at tol 1e-3).  The stopping rule is the JAX cond exactly: stop
-when every sample is done or after ``max_steps`` attempts.  Capturing the
-attempt loop in a CUDA graph is later work (ROADMAP.md).
+Loop design, as in JAX: one attempt is ``body(carry) -> carry`` over a
+:class:`_Carry` (t, dt, y, f, the dense output, the counters, done and the
+PI controller's last ratio), and makes no host read.  ``unroll`` picks the
+loop around it:
 
-The per-sample carry ``(t, dt, done)`` and the masked state update are the
-JAX ones: finished samples are frozen with ``torch.where`` while stragglers
-keep stepping.  The dense-output write, gated by ``lax.cond`` in JAX, is an
-unconditional masked ``torch.where`` here: same values, no extra sync.
+  * ``'while'`` (default): stop when every sample is done or after
+    ``max_steps`` attempts (the JAX cond).  On a CPU tensor, and wherever
+    autograd records the attempts or the norm spans ranks (``batch_sum``),
+    this is a host loop that reads ``done.all()`` once per attempt.  On a
+    CUDA tensor otherwise, the first attempt runs eagerly and the rest
+    replay it as one captured CUDA graph (``attempt_graph.py``): one launch
+    and one read of ``done.all()`` per attempt in place of some fifty
+    launches.  The two give bit-identical results.
+  * ``'scan'``: exactly ``max_steps`` attempts, no host read.  A done row
+    no longer changes, so values and stats equal ``'while'``'s; the loop is
+    reverse-differentiable.
+  * ``'scan_remat'``: ``'scan'`` with each attempt under
+    ``torch.utils.checkpoint`` (JAX ``jax.checkpoint``): the backward keeps
+    the carry per attempt and recomputes the rest.
+
+Finished samples are frozen with ``torch.where`` while stragglers keep
+stepping, as in JAX.  The dense-output write, gated by ``lax.cond`` in JAX,
+is an unconditional masked ``torch.where`` here: same values, no sync.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .tableau import CUBIC_FIT, QUARTIC_FIT, ButcherTableau
 
 __all__ = ["SolveStats", "adaptive_odeint", "RankNorm"]
+
+_UNROLLS = ("while", "scan", "scan_remat")
 
 
 class SolveStats(NamedTuple):
@@ -34,6 +49,67 @@ class SolveStats(NamedTuple):
     naccept: torch.Tensor  # (B,) int32 — accepted steps
     nreject: torch.Tensor  # (B,) int32 — rejected steps
     success: torch.Tensor  # (B,) bool — reached ts[-1] within max_steps
+
+
+class _Carry(NamedTuple):
+    """What one attempt hands the next (JAX ``_Carry`` without ``iters``:
+    the loops count attempts themselves)."""
+
+    t: torch.Tensor  # (B,) current time
+    dt: torch.Tensor  # (B,) signed proposed step
+    y: torch.Tensor  # (B, N) current state
+    f: torch.Tensor  # (B, N) dynamics at (t, y)  [FSAL]
+    out: torch.Tensor  # (T-1, B, N) dense output at ts[1:] written so far
+    nfe: torch.Tensor  # (B,) int32
+    naccept: torch.Tensor  # (B,) int32
+    nreject: torch.Tensor  # (B,) int32
+    done: torch.Tensor  # (B,) bool
+    rprev: torch.Tensor  # (B,) last accepted error ratio (PI controller)
+
+
+def check_unroll(unroll: str) -> None:
+    """Raise JAX's error for an unknown ``unroll`` mode."""
+    if unroll not in _UNROLLS:
+        raise ValueError(f"unknown unroll mode {unroll!r}")
+
+
+def _host_loop(body, carry, max_steps: int):
+    """The ``'while'`` loop on the host: one read of ``done.all()`` per
+    attempt (the CPU's loop; on the card the loop that autograd can record,
+    and the reference the graph route is held to)."""
+    for _ in range(max_steps):
+        if bool(carry.done.all()):
+            break
+        carry = body(carry)
+    return carry
+
+
+def _while_loop(body, carry, max_steps: int, capturable: bool):
+    """``'while'``: where ``capturable`` (a CUDA state, no cross-rank norm)
+    and the first attempt's carry records no autograd, the first attempt
+    runs eagerly (the warm-up) and the others replay it as a CUDA graph;
+    else the host loop."""
+    if max_steps < 1 or bool(carry.done.all()):
+        return carry
+    carry = body(carry)
+    if capturable and not (torch.is_grad_enabled()
+                           and any(x.requires_grad for x in carry)):
+        from .attempt_graph import replay_attempts
+        return replay_attempts(functools.partial(body, inplace=True), carry,
+                               max_steps - 1)
+    return _host_loop(body, carry, max_steps - 1)
+
+
+def _scan_loop(body, carry, max_steps: int, remat: bool):
+    """``'scan'``/``'scan_remat'``: exactly ``max_steps`` attempts."""
+    def remat_body(c):
+        return type(c)(*checkpoint(lambda *xs: tuple(body(type(c)(*xs))), *c,
+                                   use_reentrant=False))
+
+    step = remat_body if remat else body
+    for _ in range(max_steps):
+        carry = step(carry)
+    return carry
 
 
 def _tiny(dtype: torch.dtype) -> float:
@@ -267,16 +343,18 @@ def _select_initial_step(func, t0, y0, f0, direction, rtol, atol, order,
     return torch.minimum(100.0 * h0, h1) * direction
 
 
-def _dense_write(fit, parts, ts, t0, t1, dt, direction, accept, out):
+def _dense_write(fit, parts, ts, t0, t1, dt, direction, accept, out,
+                 inplace: bool = False):
     """Fit the dense-output polynomial on this attempt and write every
     requested output time an *accepted* step covers (coverage tested in
     t-space, coordinate clamped to [0, 1], as in JAX).
 
     ``fit``: (D+1, D+1) collocation matrix; ``parts``: the D+1 (B, N) data
     components (y0, y1[, y_mid], dt·f0, dt·f1); ``out``: (T-1, B, N) for
-    ``ts[1:]``.  The polynomial weights are per-sample scalars
-    ``g_d(x) = Σ_c fit[c, d] x^c`` computed with elementwise f32 products
-    (no matmul, so no TF32 on the card)."""
+    ``ts[1:]``, written in place where ``inplace`` (the graph route, where
+    ``out`` is its own buffer), else a new tensor.  The polynomial weights
+    are per-sample scalars ``g_d(x) = Σ_c fit[c, d] x^c`` computed with
+    elementwise f32 products (no matmul, so no TF32 on the card)."""
     ts_tail = ts[1:]
     covered = (
         accept[None, :]
@@ -288,15 +366,32 @@ def _dense_write(fit, parts, ts, t0, t1, dt, direction, accept, out):
     xp = torch.stack([x ** c for c in range(d1)])  # (D+1, T-1, B)
     g = (fit[:, :, None, None] * xp[:, None]).sum(dim=0)  # (D+1, T-1, B)
     vals = sum(g[d][:, :, None] * parts[d][None] for d in range(d1))
+    if inplace:
+        return torch.where(covered[:, :, None], vals, out, out=out)
     return torch.where(covered[:, :, None], vals, out)
 
 
-def _rk_attempt(tableau: ButcherTableau, func, t0, dt, y0, f0):
+def tableau_scalars(tableau: ButcherTableau, dtype,
+                    device) -> dict[float, torch.Tensor]:
+    """Every coefficient of ``tableau`` as a 0-d tensor on ``device``, keyed
+    by its value: made once per solve (one copy to the device), so that an
+    attempt copies nothing from the host and can be captured."""
+    vals = sorted({float(v) for v in np.concatenate(
+        [np.asarray(tableau.a).reshape(-1), tableau.b, tableau.b_err,
+         tableau.c, [] if tableau.c_mid is None else tableau.c_mid])})
+    dev_vals = torch.tensor(vals, dtype=dtype, device=device)
+    return {v: dev_vals[i] for i, v in enumerate(vals)}
+
+
+def _rk_attempt(tableau: ButcherTableau, func, t0, dt, y0, f0,
+                scalars: dict | None = None):
     """One embedded-RK step attempt.  Returns ``(y1, err, f1, new_evals,
     y_mid)``; ``y_mid`` is None for tableaus without ``c_mid``.  Terms with
     a zero coefficient are skipped and the rest summed left to right, as in
-    JAX, so both packages round alike."""
-    dtype = y0.dtype
+    JAX, so both packages round alike.  ``scalars``: the tableau on the
+    device (:func:`tableau_scalars`), made here if None."""
+    if scalars is None:
+        scalars = tableau_scalars(tableau, y0.dtype, y0.device)
     dt_col = dt[:, None]
     tab_a = np.asarray(tableau.a)
 
@@ -305,7 +400,7 @@ def _rk_attempt(tableau: ButcherTableau, func, t0, dt, y0, f0):
         for coef, k in zip(coeffs, ks):
             if float(coef) == 0.0:
                 continue
-            term = torch.tensor(float(coef), dtype=dtype, device=y0.device) * k
+            term = scalars[float(coef)] * k
             acc = term if acc is None else acc + term
         return acc
 
@@ -313,8 +408,7 @@ def _rk_attempt(tableau: ButcherTableau, func, t0, dt, y0, f0):
     for i in range(1, tableau.stages):
         acc = combo(tab_a[i, :i], ks)
         yi = y0 if acc is None else y0 + dt_col * acc
-        ci = torch.tensor(float(tableau.c[i]), dtype=dtype, device=y0.device)
-        ks.append(func(t0 + ci * dt, yi))
+        ks.append(func(t0 + scalars[float(tableau.c[i])] * dt, yi))
 
     y1 = y0 + dt_col * combo(tableau.b, ks)
     err = dt_col * combo(tableau.b_err, ks)
@@ -338,6 +432,7 @@ def adaptive_odeint(
     safety: float = 0.9,
     ifactor: float = 10.0,
     dfactor: float = 0.2,
+    unroll: str = "while",
     error_mask: torch.Tensor | None = None,
     fused_step: Callable | None = None,
     controller: str = "i",
@@ -355,6 +450,10 @@ def adaptive_odeint(
       tableau: embedded RK tableau (dopri5/bosh3/fehlberg2/tsit5).
       max_steps: bound on loop iterations (accept + reject attempts).
       first_step: optional fixed initial step (unsigned); default Hairer.
+      unroll: ``'while'`` (early exit; on the card a replayed CUDA graph
+        where nothing records autograd), ``'scan'`` (exactly ``max_steps``
+        attempts, reverse-differentiable) or ``'scan_remat'`` (the same,
+        each attempt recomputed in the backward); see the module docstring.
       error_mask: optional 0/1 tensor broadcastable to (B, N): error control
         restricted to these state columns (seminorm; see ``_error_ratio``).
         Turned into a bool tensor once per solve, not per attempt.
@@ -381,6 +480,7 @@ def adaptive_odeint(
                          "no error_mask and no batch_sum")
     if controller not in ("i", "pi"):
         raise ValueError(f"unknown controller {controller!r}; 'i' | 'pi'")
+    check_unroll(unroll)
     dtype, dev = y0.dtype, y0.device
     batch, n = y0.shape
     ts = ts.to(device=dev, dtype=dtype)
@@ -395,10 +495,15 @@ def adaptive_odeint(
     quartic = tableau.c_mid is not None
     fit = torch.tensor(QUARTIC_FIT if quartic else CUBIC_FIT, dtype=dtype,
                        device=dev)
+    scalars = (None if fused_step is not None
+               else tableau_scalars(tableau, dtype, dev))
     direction = torch.sign(ts[-1] - ts[0])
     t_final = ts[-1]
+    inf = torch.full((batch,), float("inf"), dtype=dtype, device=dev)
 
-    t = torch.full((batch,), float(ts[0]), dtype=dtype, device=dev)
+    # ts[0] as a (B,) column without a read on the host (ts is in dtype, so
+    # the bits are those of a fill with float(ts[0])).
+    t = ts[0].expand(batch).contiguous()
     f = func(t, y0)
     nfe = torch.ones((batch,), dtype=torch.int32, device=dev)
     if first_step is None:
@@ -409,55 +514,65 @@ def adaptive_odeint(
         dt = torch.full((batch,), float(first_step), dtype=dtype,
                         device=dev) * direction
 
-    y = y0
-    out = torch.zeros((ts.shape[0] - 1, batch, n), dtype=dtype, device=dev)
     naccept = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    nreject = torch.zeros_like(naccept)
-    done = torch.zeros((batch,), dtype=torch.bool, device=dev)
-    rprev = torch.ones((batch,), dtype=dtype, device=dev)
-    inf = torch.full((batch,), float("inf"), dtype=dtype, device=dev)
+    carry0 = _Carry(
+        t=t, dt=dt, y=y0, f=f,
+        out=torch.zeros((ts.shape[0] - 1, batch, n), dtype=dtype, device=dev),
+        nfe=nfe, naccept=naccept, nreject=torch.zeros_like(naccept),
+        done=torch.zeros((batch,), dtype=torch.bool, device=dev),
+        rprev=torch.ones((batch,), dtype=dtype, device=dev))
 
-    for _ in range(max_steps):
-        if bool(done.all()):  # the one host sync per attempt
-            break
-        active = ~done
+    def body(c: _Carry, inplace: bool = False) -> _Carry:
+        """One attempt; no host read.  ``inplace``: write the dense output
+        into ``c.out`` (the graph route's own buffer)."""
+        active = ~c.done
         if fused_step is not None:
-            y1, f1, y_mid, ratio = fused_step(t, dt, y, f)
+            y1, f1, y_mid, ratio = fused_step(c.t, c.dt, c.y, c.f)
             new_evals = tableau.stages - 1
             ratio = torch.where(torch.isfinite(ratio), ratio, inf)
         else:
-            y1, err, f1, new_evals, y_mid = _rk_attempt(tableau, func, t, dt,
-                                                       y, f)
-            ratio = (_error_ratio(err, y, y1, rtol, atol, mask) if norm is None
-                     else norm.error_ratio(err, y, y1, rtol, atol))
+            y1, err, f1, new_evals, y_mid = _rk_attempt(
+                tableau, func, c.t, c.dt, c.y, c.f, scalars)
+            ratio = (_error_ratio(err, c.y, y1, rtol, atol, mask)
+                     if norm is None
+                     else norm.error_ratio(err, c.y, y1, rtol, atol))
         accept = (ratio <= 1.0) & active
-        t1 = t + dt
+        t1 = c.t + c.dt
 
-        dt_col = dt[:, None]
-        parts = ((y, y1, y_mid, dt_col * f, dt_col * f1) if quartic
-                 else (y, y1, dt_col * f, dt_col * f1))
-        out = _dense_write(fit, parts, ts, t, t1, dt, direction, accept, out)
+        dt_col = c.dt[:, None]
+        parts = ((c.y, y1, y_mid, dt_col * c.f, dt_col * f1) if quartic
+                 else (c.y, y1, dt_col * c.f, dt_col * f1))
+        out = _dense_write(fit, parts, ts, c.t, t1, c.dt, direction, accept,
+                           c.out, inplace)
 
+        rprev = c.rprev
         if controller == "pi":
-            proposed = _optimal_dt_pi(dt, ratio, rprev, accept,
+            proposed = _optimal_dt_pi(c.dt, ratio, c.rprev, accept,
                                       tableau.order, safety, ifactor, dfactor)
             rprev = torch.where(accept & active,
-                                torch.clamp(ratio, min=1e-4), rprev)
+                                torch.clamp(ratio, min=1e-4), c.rprev)
         else:
-            proposed = _optimal_dt(dt, ratio, accept, tableau.order, safety,
+            proposed = _optimal_dt(c.dt, ratio, accept, tableau.order, safety,
                                    ifactor, dfactor)
         reached = accept & (direction * (t1 - t_final) >= 0.0)
         acc_col = accept[:, None]
+        return _Carry(
+            t=torch.where(accept, t1, c.t),
+            dt=torch.where(active, proposed, c.dt),
+            y=torch.where(acc_col, y1, c.y),
+            f=torch.where(acc_col, f1, c.f),
+            out=out,
+            nfe=c.nfe + active.to(torch.int32) * new_evals,
+            naccept=c.naccept + accept.to(torch.int32),
+            nreject=c.nreject + (active & ~accept).to(torch.int32),
+            done=c.done | reached,
+            rprev=rprev)
 
-        t = torch.where(accept, t1, t)
-        dt = torch.where(active, proposed, dt)
-        y = torch.where(acc_col, y1, y)
-        f = torch.where(acc_col, f1, f)
-        nfe = nfe + active.to(torch.int32) * new_evals
-        naccept = naccept + accept.to(torch.int32)
-        nreject = nreject + (active & ~accept).to(torch.int32)
-        done = done | reached
-
-    stats = SolveStats(nfe=nfe, naccept=naccept, nreject=nreject,
-                       success=done)
-    return torch.cat([y0[None], out], dim=0), stats
+    if unroll == "while":
+        final = _while_loop(body, carry0, max_steps,
+                            dev.type == "cuda" and norm is None)
+    else:
+        final = _scan_loop(body, carry0, max_steps, unroll == "scan_remat")
+    stats = SolveStats(nfe=final.nfe, naccept=final.naccept,
+                       nreject=final.nreject, success=final.done)
+    return torch.cat([y0[None], final.out], dim=0), stats

@@ -5,6 +5,8 @@ CUDA card and ``nvcc`` and skips without them.  On the card:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py -q
 """
 
+import contextlib
+import ctypes
 import dataclasses
 import os
 import shutil
@@ -644,3 +646,160 @@ def test_nccl_ranks_on_two_cards(two_cards, model_shards):
     ranks = _parallel_case(["cuda:0", "cuda:1"], model_shards=model_shards)
     if model_shards > 1:
         assert any(tuple(a) != tuple(b) for a, b in ranks[0]["shapes"])
+
+
+# -- the attempt loop as a CUDA graph ------------------------------------------
+@pytest.fixture
+def host_loop(monkeypatch):
+    """A context in which every 'while' solve takes the private host loop
+    (``runge_kutta._host_loop``), the graph route's reference."""
+    from neural_ode_features_tpu_torch.solver import runge_kutta
+
+    @contextlib.contextmanager
+    def ctx():
+        with monkeypatch.context() as m:
+            m.setattr(runge_kutta, "_while_loop",
+                      lambda body, carry, n, capturable:
+                      runge_kutta._host_loop(body, carry, n))
+            yield
+    return ctx
+
+
+def test_graph_replays_one_odefunc_launch(dev):
+    """The ctypes-loaded kernel (its own static CUDA runtime) launches onto
+    PyTorch's capturing stream: a captured launch, replayed, gives the
+    eager launch's bits."""
+    params = init_odenet(7, ENTRY_CONFIG, device=dev)["odefunc"]
+    w = prepare(params, (7, 7))
+    h, t, _ = _inputs(dev, 5, 7)
+    want = odefunc(w, t, h, groups=32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        got = odefunc(w, t, h, groups=32)
+        graph.capture_end()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _solve_both(host_loop, solve):
+    """``solve()`` through the graph route and through the host loop, each
+    with the launch counters from 0: ``(result, counts)`` twice."""
+    out = []
+    for ctx in (contextlib.nullcontext(), host_loop()):
+        with ctx:
+            odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+            res = solve()
+            torch.cuda.synchronize()
+            out.append((res, (odefunc.launches, odefunc_bwd.launches,
+                              dopri5_step.launches)))
+    return out
+
+
+@pytest.mark.parametrize("side", [7, 6])
+def test_graph_route_matches_host_loop(dev, host_loop, side):
+    """A per-sample dopri5 solve at B = 5 (7×7×64 and 6×6×64, T = 4):
+    the graph route bit-identical to the host loop in values, NFE, accepts
+    and rejects, with the host loop's launch counts (2 ``odefunc``, one
+    ``rk_step`` per attempt)."""
+    from neural_ode_features_tpu_torch.models import odenet_solve
+
+    cfg = ENTRY_CONFIG
+    params = init_odenet(7, cfg, device=dev)
+    h0 = _inputs(dev, 5, side)[0]
+    ts = torch.linspace(0.0, 1.0, 4, device=dev)
+    (g, g_n), (p, p_n) = _solve_both(
+        host_loop, lambda: odenet_solve(params, h0, ts, cfg))
+    assert torch.equal(g[0], p[0])
+    for a, b in zip(g[1], p[1]):
+        assert torch.equal(a, b)
+    attempts = int((g[1].naccept + g[1].nreject).max())
+    assert attempts > 1 and g_n == p_n == (2, 0, attempts)
+
+
+def test_graph_route_train_step_matches_host_loop(dev, host_loop):
+    """One adjoint train step (B = 8): the forward and the backward solve
+    take the graph route; loss, NFE, NFE-b and every gradient bit-identical
+    to the host loop's, launches by the training rule."""
+    from neural_ode_features_tpu_torch.models import odenet_logits
+    from neural_ode_features_tpu_torch.training import _deterministic_cudnn
+
+    trainer, (images, labels) = train_entry(device="cuda", batch=8)
+    cfg = trainer.model_cfg
+    x = normalize(torch.from_numpy(images).to(dev), trainer.cfg.dataset)
+    y = torch.from_numpy(labels).to(dev)
+
+    def step():
+        # cuDNN's default stem weight gradients vary from run to run; the
+        # trainer's step runs its deterministic algorithms, and so does this.
+        p = torch.utils._pytree.tree_map(
+            lambda v: v.detach().requires_grad_(), trainer.params)
+        with _deterministic_cudnn():
+            logits, st = odenet_logits(p, x, cfg, adjoint=True)
+            loss = torch.nn.functional.cross_entropy(logits, y)
+            grads = torch.autograd.grad(loss,
+                                        torch.utils._pytree.tree_leaves(p))
+        return loss.detach(), st, grads
+
+    (g, g_n), (h, h_n) = _solve_both(host_loop, step)
+    assert torch.equal(g[0], h[0])
+    for a, b in zip(g[1], h[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(g[2], h[2]):
+        assert torch.equal(a, b)
+    attempts = int(((g[1].nfe - 2) // 6).max())
+    assert g_n == h_n == (2 + 6 * attempts + 1, int(g[1].nfe_b) - 1, 0)
+
+
+def test_graph_capture_failure_raises(dev):
+    """Dynamics that read a value on the host cannot be captured: the
+    solve raises, and does not fall back to the host loop.  The capture
+    stream's allocations go back to the caching allocator (the private
+    entry point ``attempt_graph._end_allocation`` calls), and the card works
+    on afterwards."""
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    y0 = torch.ones((4, 8), device=dev)
+    ts = torch.tensor([0.0, 1.0], device=dev)
+
+    def reads(t, y):
+        return -y * float(y.abs().max())
+
+    with pytest.raises(RuntimeError):
+        odeint(reads, y0, ts, rtol=1e-6, atol=1e-8,
+               error_control="per_sample")
+    side = attempt_graph._stream(y0.device)
+    with torch.cuda.stream(side):
+        block = torch.empty(16 << 20, device=dev)  # 64 MiB: its own segment
+    torch.cuda.synchronize()
+    seg = [s for s in torch.cuda.memory_snapshot()
+           if s["address"] <= block.data_ptr() < s["address"]
+           + s["total_size"]]
+    assert len(seg) == 1 and tuple(seg[0]["segment_pool_id"]) == (0, 0)
+    del block
+    ys, st = odeint(lambda t, y: -y, y0, ts, rtol=1e-6, atol=1e-8,
+                    error_control="per_sample")
+    np.testing.assert_allclose(ys[-1].cpu().numpy(), np.exp(-1.0), rtol=1e-5)
+
+
+def test_graph_launch_outside_capture_raises(dev, monkeypatch):
+    """A wrapper whose kernel went to another stream during the capture
+    (it ran once, outside the graph) is caught by counting the graph's
+    kernel nodes: the solve raises."""
+    from neural_ode_features_tpu_torch.kernels import rk_step as rk_mod
+    from neural_ode_features_tpu_torch.models import odenet_solve
+
+    params = init_odenet(7, ENTRY_CONFIG, device=dev)
+    h0 = _inputs(dev, 5, 7)[0]
+    ts = torch.linspace(0.0, 1.0, 4, device=dev)
+    other = torch.cuda.Stream()
+    real = rk_mod.stream
+    monkeypatch.setattr(rk_mod, "stream", lambda: (
+        ctypes.c_void_p(other.cuda_stream)
+        if torch.cuda.is_current_stream_capturing() else real()))
+    with pytest.raises(RuntimeError, match="outside the graph"):
+        odenet_solve(params, h0, ts, ENTRY_CONFIG)
+    torch.cuda.synchronize()
