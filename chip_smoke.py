@@ -167,23 +167,38 @@ Phases (any failed check exits nonzero and prints no result):
    step, bit-identical, and the step's time with cuDNN's deterministic
    algorithms and with its default ones, in turns.
 9. ``[graph]``: every ``'while'`` RK solve above ran its attempts as a
-   replayed CUDA graph (``solver/attempt_graph.py``); this phase holds that
+   replayed CUDA graph (``solver/attempt_graph.py``; the inference solves
+   of ``models.odenet_solve`` through the cache, one capture per shape,
+   the others with a capture per solve); this phase holds that
    route against the private host loop (``runge_kutta._host_loop``) on the
-   card: the entry model at B = 256 and 5, the fused sweep's 4·256 stacked
+   card (from an empty cache): the entry model at B = 256 and 5, the fused sweep's 4·256 stacked
    rows with their (B,) tolerances, one extraction batch at T = 11,
    ``extract_features`` over two full batches and a padded one with
    ``nfe_sort``, and one adjoint train step at B = 128 (loss, NFE-f, NFE-b,
    dθ), each bit-identical with equal launch counts and at least one
-   capture; then in alternating turns (median of 5) the solve, the train
-   step's forward and backward and the extraction batch on each route, the
+   capture; then in alternating turns (median of 5) the solve and the
+   extraction batch on the host loop, a capture per solve and the cache
+   (the cache's median must not be slower than the host loop's), the train
+   step's forward and backward on the host loop and the graph; one
+   capture over 20 same-shape solves; an in-place weight change and another
+   tolerance each a new capture, bit-identical to the host loop (never a
+   stale replay); the
    captures' own host time, the device's busy share under
    ``torch.profiler`` on each route (its kernel counts equal to the launch
    counters, which the graph route takes from the captured graph's kernel
    nodes), the straggler bench (``--reps 1``) on each, the graph pool's
    bytes and the reserved memory against the host loop after an extraction
    batch and a train step, the extraction batch with a pool per solve
-   against the thread's pool, and the reserved memory after 10 and after
-   100 solves (within 1%).
+   against the thread's pool (a capture per solve), and the reserved
+   memory after 10 and after 100 solves (within 1%), with the cache's
+   entries and each one's pool bytes after them.
+   ``[export]``: the code-free program, ``export_model export`` of the
+   entry model at B = 256 on the card and ``run`` against the live model
+   (argmax agreement 1.0, max|diff| <= 1e-3); the program's call with the
+   counters from 0 just before (2 ``odefunc``, one ``rk_step`` per attempt,
+   held against ``torch.profiler``), its img/s beside the live fwd's in
+   alternating turns, its bytes; ``export-mock`` and ``serve --selftest``
+   on the mock artifact.
 10. The slice-11 paths, after the timings (so that their hundreds of
    thousands of small launches come after the profiler's windows).
    ``[bf16]``: bfloat16 dynamics aimed at the card (``odenet_logits``, the
@@ -2852,12 +2867,30 @@ def main() -> int:
         def host_loop():
             """Every 'while' solve on the private host loop."""
             saved = runge_kutta._while_loop
-            runge_kutta._while_loop = (lambda body, carry, n, capturable:
-                                       runge_kutta._host_loop(body, carry, n))
+            runge_kutta._while_loop = (
+                lambda body, carry, n, capturable, key=None:
+                runge_kutta._host_loop(body, carry, n))
             try:
                 yield
             finally:
                 runge_kutta._while_loop = saved
+
+        @contextlib.contextmanager
+        def capture_per_solve():
+            """Every 'while' solve on the graph route without the cache:
+            one capture per solve (no cache key)."""
+            saved = runge_kutta._while_loop
+            runge_kutta._while_loop = (
+                lambda body, carry, n, capturable, key=None:
+                saved(body, carry, n, capturable, None))
+            try:
+                yield
+            finally:
+                runge_kutta._while_loop = saved
+
+        def route(name):
+            return {"host": host_loop, "solve": capture_per_solve,
+                    "graph": contextlib.nullcontext}[name]()
 
         def equal(a, b):
             if isinstance(a, torch.Tensor):
@@ -2872,9 +2905,11 @@ def main() -> int:
             return a == b
 
         def both(tag, fn, want=None):
-            """``fn()`` through the graph route and the host loop, counters
-            from 0 before each: bit-identical results, equal launches (and
-            ``want(result)``'s, where given), at least one capture."""
+            """``fn()`` through the graph route (from an empty cache) and
+            the host loop, counters from 0 before each: bit-identical
+            results, equal launches (and ``want(result)``'s, where given),
+            at least one capture."""
+            attempt_graph.clear_cache()
             n_cap = len(captures)
             got_g, t_g, n_g = counted(fn)
             n_cap = len(captures) - n_cap
@@ -2953,39 +2988,87 @@ def main() -> int:
                                                        trainer._leaves))
             return t_f, t_b
 
+        # The solve and the extraction batch on three routes: the host
+        # loop, a capture per solve (no cache key) and the cache
+        # ("graph": every attempt a replay of the shape's cached graph);
+        # the train step (no cache: its weights change every step) on two.
+        solve_k = f"solve B={B}"
+        train_k = f"train step B={B_TRAIN} (forward, backward)"
+        ext_k = f"extraction batch B={B} T={T_OUT}"
         runs = {
-            f"solve B={B}": lambda: (clock(lambda: fwd(params, x))[0],),
-            f"train step B={B_TRAIN} (forward, backward)": train_split,
-            f"extraction batch B={B} T={T_OUT}": lambda: (clock(
+            solve_k: lambda: (clock(lambda: fwd(params, x))[0],),
+            train_k: train_split,
+            ext_k: lambda: (clock(
                 lambda: handles[T_OUT][0](*handles[T_OUT][1:]))[0],),
         }
-        times = {k: {"graph": [], "host": []} for k in runs}
-        cap_ms = {k: [] for k in runs}
+        routes_of = {solve_k: ("host", "solve", "graph"),
+                     train_k: ("host", "graph"),
+                     ext_k: ("host", "solve", "graph")}
+        times = {k: {r: [] for r in routes_of[k]} for k in runs}
+        cap_ms = {k: {r: [] for r in routes_of[k]} for k in runs}
         for rep in range(6):
-            for route in ("host", "graph"):
+            for r in ("host", "solve", "graph"):
                 for k, fn in runs.items():
+                    if r not in routes_of[k]:
+                        continue
                     n_cap = len(captures)
-                    if route == "host":
-                        with host_loop():
-                            ts_ = fn()
-                    else:
+                    with route(r):
                         ts_ = fn()
                     if rep:
-                        times[k][route].append(ts_)
-                        if route == "graph":
-                            cap_ms[k].extend(1e3 * c
-                                             for c in captures[n_cap:])
+                        times[k][r].append(ts_)
+                        cap_ms[k][r].extend(1e3 * c
+                                            for c in captures[n_cap:])
+        names = {"host": "host loop", "solve": "a capture per solve",
+                 "graph": "the cache"}
         graph_times = {}
         for k, v in times.items():
             med_ = {r: [1e3 * statistics.median(part) for part in zip(*v[r])]
                     for r in v}
             graph_times[k] = med_
-            print(f"[graph] {k}, ms (median of 5, in turns): host loop "
-                  f"{', '.join(f'{m:.2f}' for m in med_['host'])}; graph "
-                  f"{', '.join(f'{m:.2f}' for m in med_['graph'])}; "
-                  f"captures {len(cap_ms[k]) / 5:g} per call, "
-                  f"{statistics.median(cap_ms[k] or [float('nan')]):.2f} ms "
-                  f"each (median)")
+            print(f"[graph] {k}, ms (median of 5, in turns): " + "; ".join(
+                f"{names[r] if k != train_k or r == 'host' else 'graph'} "
+                f"{', '.join(f'{m:.2f}' for m in med_[r])} "
+                f"({len(cap_ms[k][r]) / 5:g} captures per call"
+                + (f", {statistics.median(cap_ms[k][r]):.2f} ms each"
+                   if cap_ms[k][r] else "") + ")" for r in v))
+        for k in (solve_k, ext_k):
+            if graph_times[k]["graph"][0] > graph_times[k]["host"][0]:
+                fail(f"[graph] {k}: the cached route's median "
+                     f"{graph_times[k]['graph'][0]:.2f} ms is slower than "
+                     f"the host loop's {graph_times[k]['host'][0]:.2f} ms")
+
+        # The cache: one capture over 20 solves of one shape; a weight
+        # changed in place (its version counter moves) or another tolerance
+        # misses and captures anew, bit-identical to the host loop.
+        attempt_graph.clear_cache()
+        n_cap = len(captures)
+        with torch.no_grad():
+            for _ in range(20):
+                fwd(params, x)
+        n_20 = len(captures) - n_cap
+        print(f"[graph] cache: {n_20} capture(s) over 20 solves B={B}")
+        if n_20 != 1:
+            fail(f"[graph] {n_20} captures over 20 same-shape solves, not 1")
+        bias = params["odefunc"]["conv2"]["bias"]
+        for tag, change, undo, tol_ in (
+                ("in-place weight change", lambda: bias.add_(0.05),
+                 lambda: bias.sub_(0.05), None),
+                ("tolerance 3e-4", lambda: None, lambda: None, 3e-4)):
+            with torch.no_grad():
+                change()
+                n_cap = len(captures)
+                got_c = odenet_logits(params, x, cfg, tol=tol_)
+                n_miss = len(captures) - n_cap
+                with host_loop():
+                    want_c = odenet_logits(params, x, cfg, tol=tol_)
+                undo()
+            same = (torch.equal(got_c[0], want_c[0])
+                    and torch.equal(got_c[1].nfe, want_c[1].nfe))
+            print(f"[graph] cache after a {tag}: {n_miss} new capture(s), "
+                  f"bit-identical to the host loop: {same}")
+            if n_miss != 1 or not same:
+                fail(f"[graph] the cache after a {tag}: {n_miss} captures, "
+                     f"bit-identical {same}: a stale replay")
 
         # The kernel each launch counter counts, by its name on the device.
         prof_names = {"odefunc": "odefunc_kernel",
@@ -3018,30 +3101,29 @@ def main() -> int:
 
         # The busy share also against the unprofiled medians above (the
         # profiler slows the capture more than the host loop).
-        solve_k, train_k = list(runs)[:2]
-        for route in ("host", "graph"):
-            with host_loop() if route == "host" else contextlib.nullcontext():
-                b_solve = busy(f"{route}: one solve B={B}",
+        for r in ("host", "graph"):
+            with route(r):
+                b_solve = busy(f"{r}: one solve B={B}",
                                lambda: fwd(params, x))
-                b_train = busy(f"{route}: one train step B={B_TRAIN}",
+                b_train = busy(f"{r}: one train step B={B_TRAIN}",
                                lambda: trainer._grads(trainer.params, x_g,
                                                       y_g))
-            print(f"[graph] {route}: device busy against the unprofiled "
+            print(f"[graph] {r}: device busy against the unprofiled "
                   f"medians: solve "
-                  f"{100 * b_solve / graph_times[solve_k][route][0]:.1f}%, "
+                  f"{100 * b_solve / graph_times[solve_k][r][0]:.1f}%, "
                   f"train step "
-                  f"{100 * b_train / sum(graph_times[train_k][route]):.1f}%")
+                  f"{100 * b_train / sum(graph_times[train_k][r]):.1f}%")
 
         # The straggler bench's three modes, one repetition each, on the
         # host loop and through the graph (the [straggler] phase below runs
         # the bench at its defaults through the graph).
         lanes = {}
-        for route in ("host", "graph"):
-            with host_loop() if route == "host" else contextlib.nullcontext():
+        for r in ("host", "graph"):
+            with route(r):
                 with contextlib.redirect_stdout(io.StringIO()):
                     res_s = straggler_bench.main(["--reps", "1"])
-            lanes[route] = [res_s[k] for k in res_s if k.startswith("lane_")]
-            print(f"[graph] straggler bench --reps 1, {route}: " + ", ".join(
+            lanes[r] = [res_s[k] for k in res_s if k.startswith("lane_")]
+            print(f"[graph] straggler bench --reps 1, {r}: " + ", ".join(
                 f"{k} {res_s[k]}" for k in (
                     "time_shuffled_s", "time_nfe_sorted_s",
                     "time_global_shuffled_s", "probe_s",
@@ -3051,43 +3133,47 @@ def main() -> int:
             fail("[graph] the straggler bench's lane work differs between "
                  "the routes")
 
-        # The graph pool's bytes (this thread's, made anew for each path)
+        # The graph pools' bytes (the cache entry's own pool on the
+        # extraction batch; the thread's pool on the train step, made anew)
         # and the reserved memory after one call and at its peak, against
         # the host loop.
-        def pool_bytes():
+        def pool_bytes(k):
+            if k.startswith("extraction"):
+                return sum(e["pool_bytes"] for e in attempt_graph.cache_info())
             pool = attempt_graph._local.pools[
                 torch.device("cuda", torch.cuda.current_device())][0]
             return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                        if tuple(seg["segment_pool_id"]) == tuple(pool))
 
         mem_runs = {
-            f"extraction batch B={B} T={T_OUT}": runs[
-                f"extraction batch B={B} T={T_OUT}"],
+            ext_k: runs[ext_k],
             f"train step B={B_TRAIN}": lambda: trainer._grads(
                 trainer.params, x_g, y_g),
         }
         for k, fn in mem_runs.items():
             mem = {}
-            for route in ("host", "graph"):
+            for r in ("host", "graph"):
                 attempt_graph._local.pools.clear()
+                attempt_graph.clear_cache()
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
-                with host_loop() if route == "host" else contextlib.nullcontext():
+                with route(r):
                     fn()
                 torch.cuda.synchronize()
-                mem[route] = (torch.cuda.memory_reserved(),
-                              torch.cuda.max_memory_reserved())
-            print(f"[graph] memory, {k}: the graph pool holds {pool_bytes()} "
-                  f"B after it; reserved after it {mem['host'][0]} B on the "
+                mem[r] = (torch.cuda.memory_reserved(),
+                          torch.cuda.max_memory_reserved())
+            print(f"[graph] memory, {k}: the graph pool holds "
+                  f"{pool_bytes(k)} B after it; reserved after it "
+                  f"{mem['host'][0]} B on the "
                   f"host loop, {mem['graph'][0]} B on the graph route "
                   f"({mem['graph'][0] - mem['host'][0]:+d} B); peak "
                   f"{mem['host'][1]} B and {mem['graph'][1]} B "
                   f"({mem['graph'][1] - mem['host'][1]:+d} B)")
 
-        # A pool per solve, given back at its end (a MemPool, whose memory
-        # goes back to the device when it is dropped), against the thread's
-        # pool: the extraction batch, median of 5 in turns.
-        ext_k = f"extraction batch B={B} T={T_OUT}"
+        # The route without the cache (a capture per solve): a pool per
+        # solve, given back at its end (a MemPool, whose memory goes back to
+        # the device when it is dropped), against the thread's pool: the
+        # extraction batch, median of 5 in turns.
         thread_pool = attempt_graph._pool
         held = []
 
@@ -3103,7 +3189,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 t_s = time.perf_counter()
                 try:
-                    handles[T_OUT][0](*handles[T_OUT][1:])
+                    with capture_per_solve():
+                        handles[T_OUT][0](*handles[T_OUT][1:])
                     held.clear()  # the pool's memory goes back
                     torch.cuda.synchronize()
                 finally:
@@ -3117,7 +3204,9 @@ def main() -> int:
 
         # No graph pool leaks: the reserved memory after 100 solves within
         # 1% of its value after 10 (the allocator's cache emptied first, so
-        # that the earlier phases' blocks do not hide a leak).
+        # that the earlier phases' blocks do not hide a leak); the cache's
+        # entries after them, each with its pool's bytes.
+        attempt_graph.clear_cache()
         torch.cuda.empty_cache()
         with torch.no_grad():
             for i in range(100):
@@ -3132,9 +3221,161 @@ def main() -> int:
               f"B)")
         if abs(reserved_100 - reserved_10) > 0.01 * reserved_10:
             fail("[graph] the reserved memory grows with the solves")
+        entries = attempt_graph.cache_info()
+        print(f"[graph] cache after them: {len(entries)} entr"
+              f"{'y' if len(entries) == 1 else 'ies'} (bound "
+              f"{attempt_graph.CACHE_ENTRIES} per thread and device): "
+              + "; ".join(f"B={e['batch']}: {e['pool_bytes']} B of pool, "
+                          f"{e['replayed_solves']} solves replayed"
+                          for e in entries))
+        if len(entries) != 1 or entries[0]["replayed_solves"] != 99:
+            fail(f"[graph] the cache after 100 solves of one shape: "
+                 f"{entries}")
+
+        # Misses past the bound: CACHE_ENTRIES + 2 keys (tolerances near
+        # the entry model's, one shape) in turn for 4 rounds, so that every
+        # solve misses, evicts the oldest entry and captures into its pool.
+        # The reserved memory after the last round within 1% of its value
+        # after the first; the ms of a miss (eager first attempt, capture,
+        # replays) beside the routes' medians above.
+        attempt_graph.clear_cache()
+        torch.cuda.empty_cache()
+        n_keys = attempt_graph.CACHE_ENTRIES + 2
+        miss_tols = [1e-3 * (1 + 0.02 * k) for k in range(n_keys)]
+        n_cap = len(captures)
+        miss_ms, reserved_rounds = [], []
+        with torch.no_grad():
+            for _ in range(4):
+                for tol_ in miss_tols:
+                    miss_ms.append(1e3 * clock(lambda: odenet_logits(
+                        params, x, cfg, tol=tol_))[0])
+                reserved_rounds.append(torch.cuda.memory_reserved())
+        n_miss = len(captures) - n_cap
+        print(f"[graph] cache misses: {n_keys} keys in turn, 4 rounds, "
+              f"{n_miss} captures; reserved after round 1 "
+              f"{reserved_rounds[0]} B, after round 4 {reserved_rounds[-1]} "
+              f"B ({reserved_rounds[-1] - reserved_rounds[0]:+d} B); a miss "
+              f"{statistics.median(miss_ms):.2f} ms (median of "
+              f"{len(miss_ms)}) against the solve's host loop "
+              f"{graph_times[solve_k]['host'][0]:.2f}, a capture per solve "
+              f"{graph_times[solve_k]['solve'][0]:.2f} and a hit "
+              f"{graph_times[solve_k]['graph'][0]:.2f}; pools "
+              + ", ".join(str(e["pool_bytes"])
+                          for e in attempt_graph.cache_info()) + " B")
+        if n_miss != 4 * n_keys:
+            fail(f"[graph] {n_miss} captures over {4 * n_keys} solves of "
+                 f"{n_keys} keys in turn, not one each")
+        if (abs(reserved_rounds[-1] - reserved_rounds[0])
+                > 0.01 * reserved_rounds[0]):
+            fail("[graph] the reserved memory grows with the cache's misses")
         attempt_graph._capture = real_capture
         phase_done("graph", t_ph)
         return graph_times
+
+    # [export]: the code-free program.  The entry model (seed 7) through
+    # ``export_model export`` at B = 256 on the card (torch.export: the
+    # kernels as the operators nodef::odefunc and nodef::dopri5_step, the
+    # attempt loop as while_loop), then ``run`` against the live model
+    # (argmax agreement 1.0, max|diff| <= 1e-3).  The program's own call on
+    # the entry input with the counters from 0 just before and read just
+    # after: 2 odefunc and one rk_step per attempt of the live solve, held
+    # against torch.profiler's kernel counts; its logits against the live
+    # fwd's; img/s of the artifact and of the live fwd in alternating turns
+    # (median of 5); the artifact's bytes.  Then ``export-mock`` and the
+    # port's host on it (``serve --selftest`` on the card).
+    def export_phase():
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        t_ph = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="exp") as tmp:
+            tmp = Path(tmp)
+            save_checkpoint(tmp / "run" / "ckpt_best.pt", params, cfg,
+                            {"model": "odenet"})
+            buf = io.StringIO()
+            t_s = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                art = export_model.main(["export", "--run", str(tmp / "run"),
+                                         "--batch", str(B)])
+            t_export = time.perf_counter() - t_s
+            meta = json.loads(Path(f"{art}.json").read_text())
+            if (meta["platforms"] != ["cuda"]
+                    or meta["input_shape"] != [B, 32, 32, 3]
+                    or meta["bytes"] != art.stat().st_size):
+                fail(f"[export] sidecar {meta}")
+            with contextlib.redirect_stdout(buf):
+                res = export_model.main(["run", "--artifact", str(art),
+                                         "--run", str(tmp / "run"), "--reps",
+                                         "3"])
+            for line in buf.getvalue().splitlines():
+                if line.startswith(("exported", "artifact runs", "parity")):
+                    print(f"[export] {line}")
+            if res["agreement"] != 1.0 or res["max_diff"] > 1e-3:
+                fail(f"[export] run: agreement {res['agreement']}, "
+                     f"max|diff| {res['max_diff']}")
+            module, _ = export_model.load_program(art, dev)
+            with torch.no_grad():
+                got_x, _, n_x = counted(lambda: module(x))
+                want_x, nfe_x = fwd(params, x)
+            rule = {"odefunc": 2, "odefunc_bwd": 0,
+                    "rk_step": batch_attempts(nfe_x)}
+            diff_x = float((got_x - want_x).abs().max())
+            agree_x = bool(torch.equal(got_x.argmax(-1), want_x.argmax(-1)))
+            print(f"[export] the program on the entry input: launches {n_x} "
+                  f"(rule {rule}), max|diff| against the live fwd "
+                  f"{diff_x:.3e}, argmax equal {agree_x}; traced and saved "
+                  f"in {t_export:.1f} s, {meta['bytes']} bytes")
+            if n_x != rule or diff_x > 1e-3 or not agree_x:
+                fail("[export] the program's launches or logits")
+            prof_names = {"odefunc": "odefunc_kernel",
+                          "odefunc_bwd": "bwd_sample_kernel",
+                          "rk_step": "rk_step_kernel"}
+            odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+            with torch.no_grad(), profile(
+                    activities=[ProfilerActivity.CUDA]) as prof:
+                module(x)
+                torch.cuda.synchronize()
+            evs = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+            seen = {k: sum(ev.count for ev in evs if name in ev.key)
+                    for k, name in prof_names.items()}
+            print(f"[export] under torch.profiler: kernels seen {seen}, "
+                  f"counters {read_counts()}")
+            if seen != read_counts():
+                fail("[export] the profiler's kernel counts differ from the "
+                     "launch counters")
+            turns = {"artifact": [], "live": []}
+            for rep in range(6):
+                for k, fn_ in (("artifact", lambda: module(x)),
+                               ("live", lambda: fwd(params, x))):
+                    torch.cuda.synchronize()
+                    t_s = time.perf_counter()
+                    with torch.no_grad():
+                        fn_()
+                    torch.cuda.synchronize()
+                    if rep:
+                        turns[k].append(time.perf_counter() - t_s)
+            med_x = {k: statistics.median(v) for k, v in turns.items()}
+            print(f"[export] B={B} in turns (median of 5): the artifact "
+                  f"{B / med_x['artifact']:.1f} img/s "
+                  f"({1e3 * med_x['artifact']:.2f} ms), the live fwd "
+                  f"{B / med_x['live']:.1f} img/s "
+                  f"({1e3 * med_x['live']:.2f} ms)")
+            with contextlib.redirect_stdout(io.StringIO()):
+                mock = export_model.main(["export-mock", "--out",
+                                          str(tmp / "mock.npexec")])
+            host = subprocess.run(
+                [sys.executable, "-m", "neural_ode_features_tpu_torch.serve",
+                 str(mock), "--selftest"], capture_output=True, text=True,
+                timeout=300, cwd=Path(__file__).resolve().parent)
+            print(f"[export] export-mock, the port's host on it: rc "
+                  f"{host.returncode}, {host.stdout.strip()}")
+            if (host.returncode != 0
+                    or "SELFTEST OK" not in host.stdout):
+                fail(f"[export] serve --selftest on the mock artifact: "
+                     f"{host.stderr[-2000:]}")
+        phase_done("export", t_ph)
+        return {"export": n_x}
 
     # [examples]: both examples on the card.  solver_playground (no fused
     # kernel: it must launch none) fits γ within 1e-3; continuous_features
@@ -3333,6 +3574,38 @@ def main() -> int:
                                                                gb, G)),
         "odefunc_bwd_library": time_ms(lambda: library_bwd(hb, tb, wt, gb)),
     }
+    # The operators' dispatch on the host: one wrapper call (the layout,
+    # the gate, torch.ops.nodef.*, then the launch) against the launch
+    # alone, host µs per call over 200 calls queued with no sync.
+    from neural_ode_features_tpu_torch.kernels import odefunc as odefunc_mod
+    from neural_ode_features_tpu_torch.kernels import rk_step as rk_step_mod
+
+    def host_us(fn, n: int = 200) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = 1e6 * (time.perf_counter() - t_s) / n
+        torch.cuda.synchronize()
+        return us
+
+    t_rows = t.contiguous()
+    dispatch_us = {
+        "odefunc": host_us(lambda: odefunc(w, t, h, groups=G)),
+        "odefunc launch": host_us(
+            lambda: odefunc_mod.launch(w, t_rows, h, G)),
+        "rk_step": host_us(lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0,
+                                               **step_kw)),
+        "rk_step launch": host_us(lambda: rk_step_mod.launch(
+            w, t0, dt, y0, f0, tol_rows, tol_rows, (HH, WW), G)),
+    }
+    print("[time] host µs per call (200 queued, no sync): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in dispatch_us.items()) + "; the wrapper "
+        "and its operator cost "
+        f"{dispatch_us['odefunc'] - dispatch_us['odefunc launch']:.1f} and "
+        f"{dispatch_us['rk_step'] - dispatch_us['rk_step launch']:.1f} µs "
+        "above the launch")
     # Device time of each kernel (the events above time the wrapper's
     # calls, which cannot go below the host's cost of a launch): calls
     # queued behind a spin (device_ms), and beside it the mean of the
@@ -3533,6 +3806,7 @@ def main() -> int:
           f"{statistics.mean(nfe_f):.2f}, NFE-b mean {statistics.mean(nfe_b):.1f}")
 
     graph_phase()
+    cli_launches.update(export_phase())
     # This slice's paths run last: after their hundreds of thousands of
     # small launches and their subprocesses, torch.profiler missed every
     # rk_step launch of the timing windows above in two of three runs.
@@ -3606,7 +3880,8 @@ def main() -> int:
                        ("odefunc", "serve"), ("rk_step", "serve"),
                        ("odefunc", "examples"), ("odefunc_bwd", "examples"),
                        ("rk_step", "examples"), ("odefunc", "protocol"),
-                       ("odefunc_bwd", "protocol"), ("rk_step", "protocol")):
+                       ("odefunc_bwd", "protocol"), ("rk_step", "protocol"),
+                       ("odefunc", "export"), ("rk_step", "export")):
         if by_path[path][name] < 1:
             fail(f"{name} was not launched on the {path} path")
     for mode, rows_ in sweep_report.items():

@@ -29,9 +29,11 @@ weight ring drops from three buffers to two: 7×7×512 runs that way.
 PyTorch's own TF32 switches stay off: the kernels' TF32 is explicit and
 compensated, a library's is not.
 
-``odefunc`` is the wrapper: a CPU tensor takes the plain PyTorch version
+``odefunc`` is the wrapper, one call of the operator ``nodef::odefunc``
+(``kernels/ops.py``): a CPU tensor takes the plain PyTorch version
 ``odefunc_plain`` (which the tests hold against the JAX package); a CUDA
-tensor launches the kernel or raises.  ``odefunc.launches`` counts launches.
+tensor launches the kernel (:func:`launch`) or raises.
+``odefunc.launches`` counts launches.
 
 The VJP pair (the counterpart of the JAX ``odefunc_pallas_vjp``):
 ``odefunc_autograd`` is a ``torch.autograd.Function`` whose forward is this
@@ -244,19 +246,27 @@ def ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-def check_cuda_inputs(w: OdefuncWeights, states: dict, hw, c: int,
-                      groups: int) -> None:
-    """Validate what a kernel launch receives (``states``: name → tensor of
-    the per-sample data); raise on anything the kernel does not take — there
-    is no fallback on the card."""
+def check_device(hw, c: int, groups: int, device: torch.device) -> None:
+    """Raise unless the kernels take this shape (:func:`refusal`, naming
+    the clause) on this device (CUDA), from shapes alone: the gate of every
+    launch (:func:`check_cuda_inputs`) and of the operators' fake versions
+    (``kernels/ops.py``), which run while ``torch.export`` traces."""
     why = refusal(hw, c, groups)
     if why is not None:
         raise ValueError(
             f"the CUDA ODEfunc kernels do not take H×W×C = {hw[0]}×{hw[1]}×{c}"
             f" with groups={groups}: {why} (kernels.odefunc.refusal)")
+    if device.type != "cuda":
+        raise ValueError(f"expected CUDA tensors, got {device}")
+
+
+def check_cuda_inputs(w: OdefuncWeights, states: dict, hw, c: int,
+                      groups: int) -> None:
+    """Validate what a kernel launch receives (``states``: name → tensor of
+    the per-sample data); raise on anything the kernel does not take — there
+    is no fallback on the card."""
     dev = next(iter(states.values())).device
-    if dev.type != "cuda":
-        raise ValueError(f"expected CUDA tensors, got {dev}")
+    check_device(hw, c, groups, dev)
     shapes = {"w1": (3, 3, c, c), "w2": (3, 3, c, c),
               "m1": (hw[0], hw[1], c), "m2": (hw[0], hw[1], c)}
     for name, x in [*w._asdict().items(), *states.items()]:
@@ -300,16 +310,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def odefunc(params, t, h: torch.Tensor, *, groups: int = 32) -> torch.Tensor:
-    """f(t, h) for ``h`` (B, H, W, C) float32 NHWC and ``t`` scalar or (B,).
-    ``params``: an ODEfunc param dict or :class:`OdefuncWeights`."""
+def launch(w: OdefuncWeights, t: torch.Tensor, h: torch.Tensor,
+           groups: int) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (the CUDA side of the
+    operator ``nodef::odefunc``, ``kernels/ops.py``): ``t`` (B,) float32,
+    ``h`` (B, H, W, C).  Checks what the kernel takes and raises on anything
+    else; counts the launch in ``odefunc.launches``."""
     b, hh, ww, c = h.shape
-    w = prepare(params, (hh, ww))
-    if h.device.type == "cpu":
-        return odefunc_plain(w, t, h, groups)
     check_cuda_inputs(w, {"h": h}, (hh, ww), c, groups)
-    t = torch.as_tensor(t, dtype=torch.float32, device=h.device)
-    t = t.reshape(-1).expand(b).contiguous()
     out = torch.empty_like(h)
     lib = _lib()
     code = lib.odefunc_forward(
@@ -318,6 +326,19 @@ def odefunc(params, t, h: torch.Tensor, *, groups: int = 32) -> torch.Tensor:
     _build.check(lib, code, "odefunc_forward")
     odefunc.launches += 1
     return out
+
+
+def odefunc(params, t, h: torch.Tensor, *, groups: int = 32) -> torch.Tensor:
+    """f(t, h) for ``h`` (B, H, W, C) float32 NHWC and ``t`` scalar or (B,).
+    ``params``: an ODEfunc param dict or :class:`OdefuncWeights`.  One call
+    of the operator ``nodef::odefunc``: on a CUDA tensor the kernel, on a
+    CPU tensor :func:`odefunc_plain`."""
+    b, hh, ww, _ = h.shape
+    w = prepare(params, (hh, ww))
+    dtype = torch.float32 if h.is_cuda else h.dtype
+    t = torch.as_tensor(t, dtype=dtype, device=h.device)
+    t = t.reshape(-1).expand(b).contiguous()
+    return torch.ops.nodef.odefunc(t, h, list(w), groups)
 
 
 odefunc.launches = 0

@@ -36,21 +36,26 @@ the f32 plain version's; at other shapes as f32 FFMA.  One-pass TF32 or bf16
 products are a later opt-in mode (ROADMAP.md).
 
 ``make_fused_dopri5_step`` builds the ``fused_step`` hook of
-``solver.runge_kutta.adaptive_odeint``.  ``dopri5_step`` is the wrapper: a
-CPU tensor takes the plain PyTorch version ``dopri5_step_plain``; a CUDA
-tensor launches the kernel or raises.  ``dopri5_step.launches`` counts
-launches.
+``solver.runge_kutta.adaptive_odeint``.  ``dopri5_step`` is the wrapper,
+one call of the operator ``nodef::dopri5_step`` (``kernels/ops.py``): a CPU
+tensor takes the plain PyTorch version ``dopri5_step_plain``; a CUDA tensor
+launches the kernel (:func:`launch`) or raises.  ``dopri5_step.launches``
+counts launches.  The plain version runs the solver's own attempt
+(``rk_attempt.py``) with ``tableau.DOPRI5``, two modules that import no
+solver module: the operators load an exported program with the kernels
+alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from ..solver.runge_kutta import _rk_attempt, _rms, _tol_column
-from ..solver.tableau import ButcherTableau
+from ..rk_attempt import _rk_attempt, _rms, _tol_column
+from ..tableau import DOPRI5
 from . import _build
 from .odefunc import (
     OdefuncWeights,
@@ -63,18 +68,26 @@ from .odefunc import (
 )
 
 __all__ = ["make_fused_dopri5_step", "dopri5_step", "dopri5_step_plain",
-           "CONV_STRATEGIES"]
+           "launch", "fold", "CONV_STRATEGIES"]
 
 # The JAX package's conv strategies; all run the one CUDA kernel.
 CONV_STRATEGIES = ("rollS", "roll9", "im2col", "tree9", "fori9")
 _STAGES = 7
 
 
-def dopri5_step_plain(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
+def _check_tableau(tableau) -> None:
+    """Raise unless ``tableau`` is ``tableau.DOPRI5``, the only one the
+    kernel and its operator compute with."""
+    if tableau is not DOPRI5:
+        raise ValueError("the fused step takes the dopri5 tableau "
+                         "(tableau.DOPRI5)")
+
+
+def dopri5_step_plain(w: OdefuncWeights, tableau, t0, dt,
                       y0: torch.Tensor, f0: torch.Tensor, *, hw, groups: int,
                       rtol, atol):
-    """Plain PyTorch version of the kernel: ``_rk_attempt`` with the plain
-    ODEfunc, then the RMS ratio without a zero-scale guard (atol > 0).
+    """Plain PyTorch version of the kernel: the solver's RK attempt with the
+    plain ODEfunc, then the RMS ratio without a zero-scale guard (atol > 0).
     ``rtol``, ``atol``: floats or ``(B,)`` tensors, as the kernel's."""
     b, n = y0.shape
     rtol = _tol_column(rtol, b, y0.dtype, y0.device)
@@ -90,9 +103,12 @@ def dopri5_step_plain(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
     return y1, f1, y_mid, _rms(err / scale)
 
 
-def _coefficients(tableau: ButcherTableau) -> ctypes.Array:
-    vals = np.concatenate([np.asarray(tableau.a).reshape(-1), tableau.b,
-                           tableau.b_err, tableau.c, tableau.c_mid])
+@functools.cache
+def _coefficients() -> ctypes.Array:
+    """dopri5's coefficients as the C entry point's host array (copied into
+    the kernel's by-value ``Tableau`` argument at each launch)."""
+    t = DOPRI5
+    vals = np.concatenate([t.a.reshape(-1), t.b, t.b_err, t.c, t.c_mid])
     return (ctypes.c_float * vals.size)(*vals.astype(np.float32).tolist())
 
 
@@ -116,24 +132,14 @@ def tolerance_rows(tol, like: torch.Tensor) -> torch.Tensor:
     return col[:, 0].contiguous()
 
 
-def dopri5_step(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
-                y0: torch.Tensor, f0: torch.Tensor, *, hw, groups: int,
-                rtol, atol):
-    """One dopri5 attempt for flat NHWC states ``y0``, ``f0`` (B, H·W·C) at
-    per-sample ``t0``, ``dt`` (B,).  ``rtol``, ``atol``: floats or ``(B,)``
-    tensors, one tolerance per row.  Returns ``(y1, f1, y_mid, ratio)``."""
-    if y0.device.type == "cpu":
-        return dopri5_step_plain(w, tableau, t0, dt, y0, f0, hw=hw,
-                                 groups=groups, rtol=rtol, atol=atol)
-    b, n = y0.shape
+def launch(w: OdefuncWeights, t0, dt, y0: torch.Tensor, f0: torch.Tensor,
+           rtol: torch.Tensor, atol: torch.Tensor, hw, groups: int):
+    """One launch of the kernel on CUDA tensors (the CUDA side of the
+    operator ``nodef::dopri5_step``, ``kernels/ops.py``): dopri5, ``rtol``
+    and ``atol`` as ``(B,)`` rows.  Checks what the kernel takes and raises
+    on anything else; counts the launch in ``dopri5_step.launches``."""
+    b, n, c = fold(t0, dt, y0, f0, hw)
     hh, ww = hw
-    c = n // (hh * ww)
-    if c * hh * ww != n or tuple(f0.shape) != (b, n):
-        raise ValueError(f"states {tuple(y0.shape)}, {tuple(f0.shape)} do "
-                         f"not fold to (B, {hh}, {ww}, C)")
-    if tuple(t0.shape) != (b,) or tuple(dt.shape) != (b,):
-        raise ValueError("t0 and dt must have shape (B,)")
-    rtol, atol = tolerance_rows(rtol, y0), tolerance_rows(atol, y0)
     check_cuda_inputs(w, {"t0": t0, "dt": dt, "y0": y0, "f0": f0,
                           "rtol": rtol, "atol": atol}, hw, c, groups)
     ks = torch.empty((_STAGES - 2, b, n), dtype=y0.dtype, device=y0.device)
@@ -142,11 +148,10 @@ def dopri5_step(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
     # The tableau stays a host array: the C entry point copies it into the
     # kernel's by-value ``Tableau`` argument (csrc/rk_step.cu), so a CUDA
     # graph captures it with the launch and a replay reads no host memory.
-    coeffs = _coefficients(tableau)
     lib = _lib()
     code = lib.rk_step_forward(
         ptr(t0), ptr(dt), ptr(y0), ptr(f0), *weight_pointers(w),
-        ctypes.cast(coeffs, ctypes.c_void_p), ptr(rtol), ptr(atol),
+        ctypes.cast(_coefficients(), ctypes.c_void_p), ptr(rtol), ptr(atol),
         ptr(ks), ptr(y1), ptr(f1), ptr(y_mid), ptr(ratio),
         b, hh, ww, c, groups, stream())
     _build.check(lib, code, "rk_step_forward")
@@ -154,11 +159,40 @@ def dopri5_step(w: OdefuncWeights, tableau: ButcherTableau, t0, dt,
     return y1, f1, y_mid, ratio
 
 
+def fold(t0, dt, y0: torch.Tensor, f0: torch.Tensor, hw) -> tuple:
+    """``(B, N, C)`` of a step's states ``y0``, ``f0`` (B, H·W·C) at ``t0``,
+    ``dt`` (B,); raises where they do not fold to (B, H, W, C).  The shape
+    gate of the kernel's launch and of the operator's fake version."""
+    b, n = y0.shape
+    c = n // (hw[0] * hw[1])
+    if c * hw[0] * hw[1] != n or tuple(f0.shape) != (b, n):
+        raise ValueError(f"states {tuple(y0.shape)}, {tuple(f0.shape)} do "
+                         f"not fold to (B, {hw[0]}, {hw[1]}, C)")
+    if tuple(t0.shape) != (b,) or tuple(dt.shape) != (b,):
+        raise ValueError("t0 and dt must have shape (B,)")
+    return b, n, c
+
+
+def dopri5_step(w: OdefuncWeights, tableau, t0, dt,
+                y0: torch.Tensor, f0: torch.Tensor, *, hw, groups: int,
+                rtol, atol):
+    """One dopri5 attempt for flat NHWC states ``y0``, ``f0`` (B, H·W·C) at
+    per-sample ``t0``, ``dt`` (B,).  ``tableau``: ``tableau.DOPRI5``.
+    ``rtol``, ``atol``: floats or ``(B,)`` tensors, one tolerance per row.
+    Returns ``(y1, f1, y_mid, ratio)``: one call of the operator
+    ``nodef::dopri5_step``, the kernel on a CUDA tensor and
+    :func:`dopri5_step_plain` on a CPU tensor."""
+    _check_tableau(tableau)
+    return torch.ops.nodef.dopri5_step(
+        t0, dt, y0, f0, list(w), tolerance_rows(rtol, y0),
+        tolerance_rows(atol, y0), hw[0], hw[1], groups)
+
+
 dopri5_step.launches = 0
 
 
 def make_fused_dopri5_step(
-    params, tableau: ButcherTableau, hw: tuple[int, int], *,
+    params, tableau, hw: tuple[int, int], *,
     groups: int = 32,
     rtol,
     atol,
@@ -177,7 +211,9 @@ def make_fused_dopri5_step(
     ``conv_precision``: None or ``'f32'``: f32-grade, on the tensor cores
     with 3×TF32 error compensation where the shape allows, else f32 FFMA
     (``'bf16'`` convs are later work)."""
-    if not bool(torch.as_tensor(atol > 0.0).all()):
+    positive = (bool((atol > 0.0).all()) if isinstance(atol, torch.Tensor)
+                else atol > 0.0)
+    if not positive:
         raise ValueError("fused RK step requires atol > 0 (the error norm "
                          "has no 0/0 guard)")
     if conv_strategy not in CONV_STRATEGIES:
@@ -186,21 +222,26 @@ def make_fused_dopri5_step(
         raise NotImplementedError(
             f"conv_precision={conv_precision!r}: the CUDA kernel computes "
             "f32-grade convs only (ROADMAP.md, Queue 2 item 5)")
-    if (tableau.c_mid is None or not tableau.fsal
-            or tableau.stages != _STAGES):
-        raise ValueError("the fused step takes a 7-stage FSAL tableau with "
-                         "c_mid (dopri5)")
-    w = prepare(params, hw)
+    _check_tableau(tableau)
+    w = list(prepare(params, hw))
     # The tolerances as (B,) tensors, made at the first attempt: that one
     # runs eagerly on every route, so a captured attempt (the CUDA graph of
-    # solver/attempt_graph.py) finds them made.
-    rows = {}
+    # solver/attempt_graph.py) finds them made.  Under tracing (the
+    # while_loop body of torch.export) the body may change nothing outside
+    # itself, so they are made in the traced attempt.  The step calls the
+    # operator itself: the wrapper's checks and conversions are done here
+    # once.
+    rows = []
 
     def fused_step(t0, dt, y0, f0):
-        if not rows:
-            rows.update(rtol=tolerance_rows(rtol, y0),
-                        atol=tolerance_rows(atol, y0))
-        return dopri5_step(w, tableau, t0, dt, y0, f0, hw=hw, groups=groups,
-                           **rows)
+        if torch.compiler.is_compiling():
+            tols = (tolerance_rows(rtol, y0), tolerance_rows(atol, y0))
+        else:
+            if not rows:
+                rows.extend((tolerance_rows(rtol, y0),
+                             tolerance_rows(atol, y0)))
+            tols = rows
+        return torch.ops.nodef.dopri5_step(t0, dt, y0, f0, w, *tols,
+                                           hw[0], hw[1], groups)
 
     return fused_step

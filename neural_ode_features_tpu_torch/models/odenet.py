@@ -24,6 +24,7 @@ through the same function).  On the card it raises before any launch
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from .._device import resolve_device, tree_to
 from ..kernels.odefunc import aligned, odefunc, odefunc_vjp, prepare
@@ -168,10 +169,18 @@ def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
         fused_step = make_fused_dopri5_step(
             func_params, ADAPTIVE_TABLEAUS["dopri5"], hw,
             groups=cfg.groups, rtol=tol, atol=tol)
+    # The weights stay as they are for the solve: on the card its attempt
+    # graph is cached by them (address and version), the configuration and
+    # the map shape, unless autograd records through them.
+    leaves = tree_leaves(params["odefunc"])
+    graph_key = None
+    if h0.is_cuda and not (torch.is_grad_enabled()
+                           and any(p.requires_grad for p in leaves)):
+        graph_key = ("odenet_solve", cfg, hw, tuple(leaves))
     return odeint(dyn, h0, ts, rtol=tol, atol=tol, method=cfg.method,
                   error_control=cfg.error_control, max_steps=cfg.max_steps,
                   fused_step=fused_step, controller=cfg.controller,
-                  batch_sum=batch_sum)
+                  batch_sum=batch_sum, graph_key=graph_key)
 
 
 def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,

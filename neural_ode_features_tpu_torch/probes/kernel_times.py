@@ -15,6 +15,16 @@ B = 128, each its device ms per launch under ``torch.profiler`` (the mean
 over the launches recorded in ``--reps`` calls; the backward, its three
 kernels summed).  Prints the card's name and power limit, then one JSON line
 per shape.  Needs a CUDA card and ``nvcc``.
+
+``--solves N`` adds one JSON line of host-side times of the same package:
+the ``entry`` model's solve at B = 256 (``odenet_logits``, the median of N)
+on the private host loop and on the package's own route for a ``'while'``
+solve, one step of ``train_entry``'s trainer at B = 128 (the median of N;
+27 or so ``odefunc`` calls on the host loop, its weights changing every
+step), and the host µs of one call of the ``odefunc`` and ``rk_step``
+wrappers (200 calls queued with no sync, then one sync: the host's cost of
+a call, the operator's dispatch included where the package has one).
+``--shapes ''`` skips the kernels.
 """
 
 from __future__ import annotations
@@ -89,11 +99,78 @@ def measure(hh: int, ww: int, c: int, reps: int) -> dict:
     }
 
 
+def solve_times(n: int) -> dict:
+    """Host-side times of this package's inference solve and wrapper calls
+    (see the module docstring)."""
+    import statistics
+
+    from neural_ode_features_tpu_torch.entry import (
+        ENTRY_CONFIG,
+        entry,
+        train_entry,
+    )
+    from neural_ode_features_tpu_torch.models import odenet_logits
+    from neural_ode_features_tpu_torch.solver import runge_kutta
+
+    _, (params, x) = entry(device="cuda", batch=B)
+    own = runge_kutta._while_loop
+
+    def host(body, carry, steps, *args, **kwargs):
+        return runge_kutta._host_loop(body, carry, steps)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t_s)
+
+    out = {}
+    with torch.no_grad():
+        for route, loop in (("host_loop", host), ("own_route", own)):
+            runge_kutta._while_loop = loop
+            try:
+                clock(lambda: odenet_logits(params, x, ENTRY_CONFIG))
+                out[f"solve_{route}_ms"] = statistics.median(
+                    clock(lambda: odenet_logits(params, x, ENTRY_CONFIG))
+                    for _ in range(n))
+            finally:
+                runge_kutta._while_loop = own
+    trainer, (images, labels) = train_entry(device="cuda", batch=B_BWD)
+    clock(lambda: trainer.train_batch(images, labels))
+    out["train_step_ms"] = statistics.median(
+        clock(lambda: trainer.train_batch(images, labels)) for _ in range(n))
+    w = prepare(params["odefunc"], (7, 7))
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy((rng.normal(size=(B, 7, 7, 64)) * 0.3)
+                         .astype(np.float32)).cuda()
+    t0 = torch.full((B,), 0.25, device="cuda")
+    dt = torch.full((B,), 0.1, device="cuda")
+    y0 = h.reshape(B, -1)
+    f0 = odefunc(w, t0, h, groups=G).reshape(B, -1)
+    kw = dict(hw=(7, 7), groups=G, rtol=1e-3, atol=1e-3)
+    for name, fn in (("odefunc", lambda: odefunc(w, t0, h, groups=G)),
+                     ("rk_step", lambda: dopri5_step(w, DOPRI5, t0, dt, y0,
+                                                     f0, **kw))):
+        fn()
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_us = 1e6 * (time.perf_counter() - t_s) / 200
+        torch.cuda.synchronize()
+        out[f"{name}_call_host_us"] = host_us
+    return out
+
+
 def main(argv=None) -> list[dict]:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--shapes", default="7x7x64,6x6x64",
                    help="comma-separated HxWxC")
     p.add_argument("--reps", type=int, default=100)
+    p.add_argument("--solves", type=int, default=0,
+                   help="also time N inference solves and the wrappers' "
+                        "host cost per call")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
@@ -104,9 +181,14 @@ def main(argv=None) -> list[dict]:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"=== kernel_times on {smi} ===")
     rows = []
-    for shape in args.shapes.split(","):
+    for shape in filter(None, args.shapes.split(",")):
         hh, ww, c = (int(v) for v in shape.split("x"))
         rows.append(measure(hh, ww, c, args.reps))
+        print(json.dumps(rows[-1]))
+    if args.solves:
+        import neural_ode_features_tpu_torch as pkg
+
+        rows.append({"package": pkg.__file__, **solve_times(args.solves)})
         print(json.dumps(rows[-1]))
     return rows
 

@@ -13,7 +13,9 @@ model code: the port has no ahead-of-time executable of an adaptive solve,
 whose attempt loop runs on the host.  The artifact
 (``export_model.py``) carries the weights in place of the executable.  On
 the card the ODE-Net runs the kernels (``odefunc``, ``rk_step``) or the host
-exits before ``READY``; ``--cpu`` is the only way onto the plain path.
+exits before ``READY``; ``--cpu`` is the only way onto the plain path.  An
+``export-mock`` artifact (``format: mock-pjrt-descriptor``) is answered
+with the compute of the native host's mock plugin (:func:`mock_fn`).
 
 Modes, in the C++ host's order: the first execution on ``sample_input.npy``
 (or ``--input``) warms the model up; ``--selftest`` compares it with
@@ -66,20 +68,37 @@ import numpy as np
 import torch
 
 from ._device import strict_f32
-from .export_model import load_artifact, logits_fn
+from .export_model import load_artifact, logits_fn, mock_expected
 from .kernels.odefunc import odefunc
 from .kernels.odefunc_bwd import odefunc_bwd
 from .kernels.rk_step import dopri5_step
 
-__all__ = ["main", "read_npy", "Engine", "kernel_counts"]
+__all__ = ["main", "read_npy", "Engine", "kernel_counts", "mock_fn"]
 
 PROTO = "pjrt-serve-socket-1"
+MOCK_FORMAT = "mock-pjrt-descriptor"
 SHUTDOWN = 0xFFFFFFFF
 DEPTH = 2                    # batches in flight: one solving, one staged
 CHUNK = 1 << 16              # a sink read; the drain's bound past B
 MAX_FRAME = 64 << 20         # a longer frame cannot be trusted: close
 SOCK_BUF = 4 << 20           # SO_RCVBUF of accepted sockets
 T0 = time.perf_counter()
+
+
+def mock_fn(meta: dict):
+    """The mock plugin's compute (``native/mock_pjrt_plugin.cc``) for a
+    ``mock-pjrt-descriptor`` artifact, as the native host serves it with
+    that plugin: ``export_model.mock_expected`` on the input's device.  The
+    plugin's ``layout: reversed`` hands back column-major bytes that the
+    native host puts back in row-major order, so the answer does not depend
+    on it."""
+    args = (tuple(meta["outputs"][0]["shape"]), float(meta["scale"]),
+            float(meta["shift"]), meta.get("mode", "flat"))
+
+    @torch.no_grad()
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        return mock_expected(x, *args)
+    return fn
 
 
 def log(msg: str) -> None:
@@ -649,7 +668,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m neural_ode_features_tpu_torch.serve",
         description=__doc__.split("\n\n")[0])
-    p.add_argument("artifact", help="an export-compiled directory")
+    p.add_argument("artifact",
+                   help="an export-compiled or export-mock directory")
     p.add_argument("--selftest", action="store_true")
     p.add_argument("--bench", type=int, default=0)
     p.add_argument("--serve", action="store_true",
@@ -691,7 +711,9 @@ def run(args) -> int:
     art = Path(args.artifact)
     try:
         meta = json.loads((art / "meta.json").read_text())
-        weights = art / meta.get("weights", "weights.pt")
+        mock = meta.get("format") == MOCK_FORMAT
+        weights = art / ("executable.bin" if mock
+                         else meta.get("weights", "weights.pt"))
         in_shape = tuple(meta["inputs"][0]["shape"])
     except OSError:
         raise Fatal(f"cannot open {art / 'meta.json'}") from None
@@ -717,10 +739,15 @@ def run(args) -> int:
     except RuntimeError as e:
         raise Fatal(f"{e} (the host's flag: --cpu)") from None
     watchdog.phase = "model load"
-    params, cfg, model = load_artifact(art, meta, dev)
-    fn = logits_fn(params, cfg, model, chain)
-    log(f"model: {model}, hidden {cfg.hidden}, {cfg.method} "
-        f"{cfg.error_control} tol {cfg.tol:g}, on {dev}")
+    if mock:
+        fn, model = mock_fn(meta), "mock"
+        log(f"model: mock ({meta.get('mode', 'flat')}, scale "
+            f"{meta['scale']}, shift {meta['shift']}), on {dev}")
+    else:
+        params, cfg, model = load_artifact(art, meta, dev)
+        fn = logits_fn(params, cfg, model, chain)
+        log(f"model: {model}, hidden {cfg.hidden}, {cfg.method} "
+            f"{cfg.error_control} tol {cfg.tol:g}, on {dev}")
 
     watchdog.phase = "first execute + output fetch"
     t_first = time.perf_counter()
@@ -730,7 +757,8 @@ def run(args) -> int:
     launched = {k: v - before[k] for k, v in kernel_counts().items()}
     log(f"first execute: {time.perf_counter() - t_first:.3f} s (includes "
         f"the kernels' build and warm-up); launches {launched}")
-    fused = cfg.method == "dopri5" and cfg.error_control == "per_sample"
+    fused = (model == "odenet" and cfg.method == "dopri5"
+             and cfg.error_control == "per_sample")
     if dev.type == "cuda" and model == "odenet" and not (
             launched["odefunc"] and (launched["rk_step"] or not fused)):
         raise Fatal(f"the ODE-Net ran without its kernels on the card "

@@ -50,13 +50,13 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..rk_attempt import _tol_column
 from .runge_kutta import (
     RankNorm,
     SolveStats,
     _error_ratio,
     _optimal_dt,
     _select_initial_step,
-    _tol_column,
     check_unroll,
 )
 

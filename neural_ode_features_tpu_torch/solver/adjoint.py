@@ -38,11 +38,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from ..tableau import ADAPTIVE_TABLEAUS
 from .dense import DenseSolution, odeint_dense
 from .fixed_grid import FIXED_GRID_METHODS
 from .odeint import odeint
 from .ravel import ravel_batched, ravel_full
-from .tableau import ADAPTIVE_TABLEAUS
 
 __all__ = ["odeint_adjoint", "AdjointStats", "check_adjoint_options"]
 

@@ -17,7 +17,7 @@ captured here), and no autograd recording the attempts.  Then:
     copies (the serving host's I/O thread) cannot break it;
   * each further attempt is one replay on the caller's stream followed by
     one read of ``done.all()``, the only host read left;
-  * the graph is released at the end of the solve.
+  * the graph is released at the end of the solve, unless it is cached.
 
 Memory.  A capture's intermediates live in a graph memory pool.  One pool
 per device and thread (with one side stream) serves every capture of that
@@ -26,6 +26,27 @@ largest solve the thread has run (PERF.md gives its bytes).  A pool per
 solve, given back at its end, would cost each solve the allocation and the
 release of that memory, several ms on the card (``chip_smoke.py``
 ``[graph]`` times both).
+
+The cache.  A caller whose weights stay fixed across solves (the inference
+solves of ``models.odenet_solve``: ``entry``'s and ``extract_entry``'s
+``fwd``, the serving host, the sweep, extraction) passes a key
+(:func:`cache_key`: the weights by address and version counter, the
+configuration, the carry's shapes and dtype, the tolerances and ``ts`` by
+value).  The first solve of a key runs its first attempt eagerly, captures
+the next into a new entry with a memory pool of its own, and keeps it; every
+later solve of the key copies its initial carry into the entry's static
+buffers and replays every attempt, the first included.  A replay reads the
+tensors that the capturing solve made (the laid-out weights, the tolerance
+rows, the tableau's scalars, ``ts``): the entry holds them, and holds the
+key's tensors so that no other tensor takes their addresses.  Any change of
+the key (an in-place weight update moves the version counter) captures
+anew: a stale replay is never made.  Each thread keeps at most
+:data:`CACHE_ENTRIES` entries per device, the oldest evicted: the new
+entry's capture takes the evicted entry's pool, whose graph is reset only
+after that, so a run of misses reuses the pools' memory and the cache
+holds at most :data:`CACHE_ENTRIES` pools (PyTorch would keep a pool whose
+last graph is reset reserved until ``torch.cuda.empty_cache()``).  The
+train step, whose weights change every step, captures per solve.
 
 A failed capture raises; nothing falls back to the host loop.
 
@@ -48,7 +69,8 @@ import threading
 
 import torch
 
-__all__ = ["replay_attempts", "kernel_nodes"]
+__all__ = ["replay_attempts", "kernel_nodes", "cache_key", "replay_cached",
+           "capture_cached", "clear_cache", "cache_info", "CACHE_ENTRIES"]
 
 _local = threading.local()
 
@@ -188,6 +210,51 @@ def _capture(graph, body, static, stream, pool) -> None:
         graph.capture_end()
 
 
+def _captured(body, carry, pool):
+    """Capture one attempt of ``body`` over a copy of ``carry`` (its static
+    buffers) into a new graph, its intermediates in ``pool``.  Returns
+    ``(graph, static, per_replay)``, ``per_replay`` the launches of each
+    counted wrapper that one replay makes (the graph's kernel nodes).  The
+    counters are left as they were: a capture launches nothing."""
+    device = carry.done.device
+    wrappers = _kernel_wrappers()
+    static = type(carry)(*(x.clone() for x in carry))
+    side = _stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = [w.launches for w, _ in wrappers]
+    try:
+        try:
+            _capture(graph, body, static, side, pool)
+        finally:  # a capture launches nothing
+            issued = [w.launches - b for (w, _), b in zip(wrappers, before)]
+            for (w, _), b in zip(wrappers, before):
+                w.launches = b
+        nodes = kernel_nodes(graph.raw_cuda_graph())
+        per_replay = [_count(nodes, names) for _, names in wrappers]
+        if per_replay != issued:
+            raise RuntimeError(
+                f"the captured attempt holds {per_replay} launches of "
+                f"{[w.__name__ for w, _ in wrappers]}, their wrappers "
+                f"issued {issued}: a launch ran outside the graph")
+        graph.instantiate()
+    except BaseException:
+        graph.reset()
+        raise
+    return graph, static, per_replay
+
+
+def _replay(graph, static, per_replay, steps: int) -> None:
+    """Up to ``steps`` replays, one read of ``done.all()`` after each."""
+    wrappers = _kernel_wrappers()
+    for _ in range(steps):
+        graph.replay()
+        for (w, _), n in zip(wrappers, per_replay):
+            w.launches += n
+        if bool(static.done.all()):
+            break
+
+
 def replay_attempts(body, carry, steps: int):
     """Up to ``steps`` further attempts of ``body`` (``carry -> carry``,
     writing the dense output into its input's buffer) from ``carry``: one
@@ -196,41 +263,143 @@ def replay_attempts(body, carry, steps: int):
     if steps < 1 or bool(carry.done.all()):
         return carry
     device = carry.done.device
-    wrappers = _kernel_wrappers()
     with torch.cuda.device(device):
-        static = type(carry)(*(x.clone() for x in carry))
-        side = _stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
         pool = _pool(device)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = [w.launches for w, _ in wrappers]
         try:
-            try:
-                _capture(graph, body, static, side, pool)
-            except BaseException:
-                # The allocator may still count the failed graph as a user
-                # of the pool: this thread's next capture takes a new one.
-                _local.pools.pop(device, None)
-                raise
-            finally:  # a capture launches nothing
-                issued = [w.launches - b
-                          for (w, _), b in zip(wrappers, before)]
-                for (w, _), b in zip(wrappers, before):
-                    w.launches = b
-            nodes = kernel_nodes(graph.raw_cuda_graph())
-            per_replay = [_count(nodes, names) for _, names in wrappers]
-            if per_replay != issued:
-                raise RuntimeError(
-                    f"the captured attempt holds {per_replay} launches of "
-                    f"{[w.__name__ for w, _ in wrappers]}, their wrappers "
-                    f"issued {issued}: a launch ran outside the graph")
-            graph.instantiate()
-            for _ in range(steps):
-                graph.replay()
-                for (w, _), n in zip(wrappers, per_replay):
-                    w.launches += n
-                if bool(static.done.all()):
-                    break
+            graph, static, per_replay = _captured(body, carry, pool)
+        except BaseException:
+            # The allocator may still count the failed graph as a user of
+            # the pool: this thread's next capture takes a new one.
+            _local.pools.pop(device, None)
+            raise
+        try:
+            _replay(graph, static, per_replay, steps)
         finally:
             graph.reset()
     return static
+
+
+# -- the cache: one captured attempt per shape for fixed-weight callers ------
+
+CACHE_ENTRIES = 4
+
+
+class _Entry:
+    """A captured attempt kept across solves: the instantiated graph, its
+    static carry, the launches one replay makes, its own memory pool, and
+    what its replays read that the solve which captured it made (``body``:
+    the closure over the laid-out weights, tolerance rows, tableau scalars,
+    ``ts``; ``keep``: the key's tensors, held so that no other tensor can
+    take their addresses)."""
+
+    __slots__ = ("graph", "static", "per_replay", "pool", "body", "keep",
+                 "replays")
+
+    def __init__(self, graph, static, per_replay, pool, body, keep):
+        self.graph, self.static, self.per_replay = graph, static, per_replay
+        self.pool, self.body, self.keep = pool, body, keep
+        self.replays = 0
+
+
+def _entries(device: torch.device) -> collections.OrderedDict:
+    """This thread's cache on ``device``, oldest entry first."""
+    caches = _local.__dict__.setdefault("caches", {})
+    return caches.setdefault(device, collections.OrderedDict())
+
+
+def cache_key(parts) -> tuple:
+    """``(key, keep)``: ``parts`` (nested tuples of hashables and tensors)
+    with each tensor replaced by its address, version counter, shape,
+    strides, dtype and device; ``keep``, those tensors.  An in-place write
+    to a tensor bumps its version (a write through ``.data`` does not, and
+    is not seen)."""
+    keep = []
+
+    def norm(x):
+        if isinstance(x, torch.Tensor):
+            keep.append(x)
+            return ("tensor", x.data_ptr(), x._version, tuple(x.shape),
+                    x.stride(), x.dtype, x.device)
+        if isinstance(x, (tuple, list)):
+            return tuple(norm(v) for v in x)
+        return x
+
+    return norm(parts), keep
+
+
+def replay_cached(carry, steps: int, key):
+    """Up to ``steps`` attempts from ``carry``, every one a replay of this
+    thread's entry for ``key`` (the first included), after copying
+    ``carry`` into its static buffers; None where there is no entry."""
+    device = carry.done.device
+    entries = _entries(device)
+    entry = entries.get(key)
+    if entry is None:
+        return None
+    entries.move_to_end(key)
+    with torch.cuda.device(device):
+        for buf, x in zip(entry.static, carry):
+            buf.copy_(x)
+        _replay(entry.graph, entry.static, entry.per_replay, steps)
+        entry.replays += 1
+    return _copied(entry.static)
+
+
+def capture_cached(body, carry, steps: int, key, keep):
+    """A miss, after the eager first attempt: capture an attempt into a new
+    entry for ``key``, then up to ``steps`` replays.  Below
+    :data:`CACHE_ENTRIES` entries the capture takes a new pool; at the bound
+    it evicts the oldest entry and takes its pool."""
+    if steps < 1 or bool(carry.done.all()):
+        return carry
+    device = carry.done.device
+    entries = _entries(device)
+    with torch.cuda.device(device):
+        evicted = None
+        if len(entries) >= CACHE_ENTRIES:
+            evicted = entries.popitem(last=False)[1]
+            pool = evicted.pool
+            # Its buffers go; its graph keeps the pool until the new one
+            # holds it.
+            evicted.static = evicted.body = evicted.keep = None
+        else:
+            pool = torch.cuda.graph_pool_handle()
+        try:
+            graph, static, per_replay = _captured(body, carry, pool)
+        finally:
+            if evicted is not None:
+                evicted.graph.reset()
+        entries[key] = _Entry(graph, static, per_replay, pool, body, keep)
+        _replay(graph, static, per_replay, steps)
+    return _copied(static)
+
+
+def _copied(static):
+    """A copy of an entry's static carry: the next replay of the entry does
+    not change what a solve returned."""
+    return type(static)(*(x.clone() for x in static))
+
+
+def clear_cache() -> None:
+    """Drop this thread's captured attempts (every device)."""
+    for entries in _local.__dict__.get("caches", {}).values():
+        while entries:
+            entries.popitem(last=False)[1].graph.reset()
+
+
+def cache_info(device=None) -> list[dict]:
+    """This thread's entries on ``device`` (default: the current one),
+    oldest first: the solves each served by replay alone, and the bytes of
+    its pool (the segments the caching allocator keeps for it)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    entries = _entries(device)
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id", ()))
+        pools[pid] = pools.get(pid, 0) + seg["total_size"]
+    return [{"replayed_solves": e.replays,
+             "pool_bytes": pools.get(tuple(e.pool), 0),
+             "batch": int(e.static.done.shape[0])}
+            for e in entries.values()]

@@ -37,17 +37,16 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..rk_attempt import _rk_attempt, tableau_scalars
+from ..tableau import ADAPTIVE_TABLEAUS, CUBIC_FIT, QUARTIC_FIT
 from .ravel import ravel_batched, ravel_full
 from .runge_kutta import (
     SolveStats,
     _error_ratio,
     _optimal_dt,
     _optimal_dt_pi,
-    _rk_attempt,
     _select_initial_step,
-    tableau_scalars,
 )
-from .tableau import ADAPTIVE_TABLEAUS, CUBIC_FIT, QUARTIC_FIT
 
 __all__ = ["odeint_event", "EventSolution"]
 

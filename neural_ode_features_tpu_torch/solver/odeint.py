@@ -17,11 +17,11 @@ from typing import Any, Callable
 
 import torch
 
+from ..tableau import ADAPTIVE_TABLEAUS
 from .adams import adams_odeint
 from .fixed_grid import FIXED_GRID_METHODS, fixed_grid_odeint
 from .ravel import ravel_batched, ravel_full
 from .runge_kutta import SolveStats, adaptive_odeint
-from .tableau import ADAPTIVE_TABLEAUS
 
 __all__ = ["odeint", "SOLVERS", "SolveStats"]
 
@@ -62,6 +62,7 @@ def odeint(
     controller: str = "i",
     batch_sum: Callable | None = None,
     shared_mask: Any = None,
+    graph_key=None,
 ) -> tuple[Any, SolveStats]:
     """Solve ``dy/dt = func(t, y)`` from ``y0`` over times ``ts``.
 
@@ -90,7 +91,10 @@ def odeint(
     state-like tree of 0/1 leaves (scalars broadcast) marking the
     components that are one value for the whole batch, each rank holding a
     partial sum of it.  Per-sample control ignores both: its rows are
-    independent.
+    independent.  ``graph_key`` (adaptive tableaus): ``func``'s weights
+    stay fixed across solves, named by this hashable tuple; a ``'while'``
+    solve on the card then replays a cached CUDA graph
+    (``runge_kutta.adaptive_odeint``).
 
     Returns ``(ys, stats)``: ``ys`` like ``y0`` with a leading time axis,
     ``stats`` per-sample (``(B,)`` for per-sample control, ``(1,)`` for
@@ -104,7 +108,8 @@ def odeint(
     ts = torch.as_tensor(ts)
     if ts.ndim != 1:
         raise ValueError(f"ts must be 1-D, got shape {tuple(ts.shape)}")
-    if ts.shape[0] > 1:
+    # Under tracing ``ts`` has no values to check on the host.
+    if ts.shape[0] > 1 and not torch.compiler.is_compiling():
         diffs = torch.diff(ts.detach().cpu().double())
         if not (bool((diffs > 0).all()) or bool((diffs < 0).all())):
             raise ValueError("ts must be strictly monotonic (either direction)")
@@ -165,7 +170,7 @@ def odeint(
             flat_func, flat0, ts, rtol, atol, ADAPTIVE_TABLEAUS[method],
             max_steps=max_steps, first_step=first_step, unroll=unroll,
             error_mask=flat_mask, fused_step=fused_step,
-            controller=controller, **rank_kw)
+            controller=controller, graph_key=graph_key, **rank_kw)
     elif fused_step is not None:
         raise ValueError("fused_step only applies to adaptive tableau "
                          f"methods, not {method!r}")

@@ -13,7 +13,10 @@ loop around it:
     CUDA tensor otherwise, the first attempt runs eagerly and the rest
     replay it as one captured CUDA graph (``attempt_graph.py``): one launch
     and one read of ``done.all()`` per attempt in place of some fifty
-    launches.  The two give bit-identical results.
+    launches; a caller with fixed weights (``graph_key``) captures once per
+    shape and replays every attempt of its later solves.  The routes give
+    bit-identical results.  Under ``torch.export`` (or ``torch.compile``)
+    the loop is PyTorch's ``while_loop``.
   * ``'scan'``: exactly ``max_steps`` attempts, no host read.  A done row
     no longer changes, so values and stats equal ``'while'``'s; the loop is
     reverse-differentiable.
@@ -31,11 +34,18 @@ from __future__ import annotations
 import functools
 from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .tableau import CUBIC_FIT, QUARTIC_FIT, ButcherTableau
+from ..rk_attempt import (
+    _rk_attempt,
+    _rms,
+    _tiny,
+    _tol_column,
+    tableau_floats,
+    tableau_scalars,
+)
+from ..tableau import CUBIC_FIT, QUARTIC_FIT, ButcherTableau
 
 __all__ = ["SolveStats", "adaptive_odeint", "RankNorm"]
 
@@ -84,19 +94,59 @@ def _host_loop(body, carry, max_steps: int):
     return carry
 
 
-def _while_loop(body, carry, max_steps: int, capturable: bool):
-    """``'while'``: where ``capturable`` (a CUDA state, no cross-rank norm)
-    and the first attempt's carry records no autograd, the first attempt
-    runs eagerly (the warm-up) and the others replay it as a CUDA graph;
-    else the host loop."""
+def _recording(carry) -> bool:
+    """Whether autograd records an attempt on ``carry``."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in carry)
+
+
+def _traced_loop(body, carry, max_steps: int):
+    """``'while'`` under ``torch.compile`` or ``torch.export``: PyTorch's
+    ``while_loop`` over the carry flattened to a tuple and an int32 attempt
+    counter, with the JAX cond, ``(attempt < max_steps) & ~done.all()``; the
+    body is functional (``inplace=False``) and reads nothing on the host."""
+    from torch._higher_order_ops import while_loop
+
+    done = _Carry._fields.index("done")
+
+    def cond(attempt, *c):
+        return (attempt < max_steps) & ~c[done].all()
+
+    def step(attempt, *c):
+        new = body(_Carry(*c))  # a field passed through is copied: no alias
+        return (attempt + 1, *(n.clone() if n is o else n
+                               for n, o in zip(new, c)))
+
+    attempt = torch.zeros((), dtype=torch.int32, device=carry.done.device)
+    return _Carry(*while_loop(cond, step, (attempt, *carry))[1:])
+
+
+def _while_loop(body, carry, max_steps: int, capturable: bool, key=None):
+    """``'while'``.  Under tracing, :func:`_traced_loop`.  Where
+    ``capturable`` (a CUDA state, no cross-rank norm) and autograd records
+    no attempt, the CUDA-graph route: with a cache ``key`` (from
+    ``attempt_graph.cache_key``: fixed weights) every attempt of a solve the
+    thread has seen replays its cached graph, and a new key runs its first
+    attempt eagerly (the warm-up) and captures the next into the cache;
+    without one, the first attempt runs eagerly and the others replay a
+    graph captured for this solve alone.  Else the host loop."""
+    if torch.compiler.is_compiling():
+        return _traced_loop(body, carry, max_steps)
     if max_steps < 1 or bool(carry.done.all()):
         return carry
+    from . import attempt_graph
+
+    cache = capturable and key is not None and not _recording(carry)
+    if cache:
+        final = attempt_graph.replay_cached(carry, max_steps, key[0])
+        if final is not None:
+            return final
     carry = body(carry)
-    if capturable and not (torch.is_grad_enabled()
-                           and any(x.requires_grad for x in carry)):
-        from .attempt_graph import replay_attempts
-        return replay_attempts(functools.partial(body, inplace=True), carry,
-                               max_steps - 1)
+    if capturable and not _recording(carry):
+        inplace = functools.partial(body, inplace=True)
+        if cache:
+            return attempt_graph.capture_cached(inplace, carry, max_steps - 1,
+                                                *key)
+        return attempt_graph.replay_attempts(inplace, carry, max_steps - 1)
     return _host_loop(body, carry, max_steps - 1)
 
 
@@ -112,28 +162,11 @@ def _scan_loop(body, carry, max_steps: int, remat: bool):
     return carry
 
 
-def _tiny(dtype: torch.dtype) -> float:
-    return torch.finfo(dtype).tiny
-
-
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    """Root-mean-square over the state axis: (B, N) → (B,); the ``tiny``
-    inside the sqrt matches the JAX solver (value-neutral)."""
-    return torch.sqrt(torch.mean(x * x, dim=-1) + _tiny(x.dtype))
-
-
-def _tol_column(tol, batch: int, dtype, device):
-    """A tolerance as the solver uses it: a float as it is; a tensor (one
-    tolerance per row, ``(B,)``) as a ``(B, 1)`` column in the state's dtype
-    that broadcasts against ``(B, N)``."""
-    if not isinstance(tol, torch.Tensor):
-        return float(tol)
-    if tol.ndim == 0:
-        tol = tol.expand(batch)
-    if tuple(tol.shape) != (batch,):
-        raise ValueError(f"a per-row tolerance must have shape ({batch},), "
-                         f"got {tuple(tol.shape)}")
-    return tol.to(device=device, dtype=dtype)[:, None]
+def _by_value(x):
+    """A tolerance (a float or a column) or ``ts`` as a hashable value."""
+    if isinstance(x, torch.Tensor):
+        return (x.dtype, tuple(x.shape), tuple(x.reshape(-1).tolist()))
+    return x
 
 
 def _scaled_error(err, y0, y1, rtol, atol):
@@ -371,54 +404,6 @@ def _dense_write(fit, parts, ts, t0, t1, dt, direction, accept, out,
     return torch.where(covered[:, :, None], vals, out)
 
 
-def tableau_scalars(tableau: ButcherTableau, dtype,
-                    device) -> dict[float, torch.Tensor]:
-    """Every coefficient of ``tableau`` as a 0-d tensor on ``device``, keyed
-    by its value: made once per solve (one copy to the device), so that an
-    attempt copies nothing from the host and can be captured."""
-    vals = sorted({float(v) for v in np.concatenate(
-        [np.asarray(tableau.a).reshape(-1), tableau.b, tableau.b_err,
-         tableau.c, [] if tableau.c_mid is None else tableau.c_mid])})
-    dev_vals = torch.tensor(vals, dtype=dtype, device=device)
-    return {v: dev_vals[i] for i, v in enumerate(vals)}
-
-
-def _rk_attempt(tableau: ButcherTableau, func, t0, dt, y0, f0,
-                scalars: dict | None = None):
-    """One embedded-RK step attempt.  Returns ``(y1, err, f1, new_evals,
-    y_mid)``; ``y_mid`` is None for tableaus without ``c_mid``.  Terms with
-    a zero coefficient are skipped and the rest summed left to right, as in
-    JAX, so both packages round alike.  ``scalars``: the tableau on the
-    device (:func:`tableau_scalars`), made here if None."""
-    if scalars is None:
-        scalars = tableau_scalars(tableau, y0.dtype, y0.device)
-    dt_col = dt[:, None]
-    tab_a = np.asarray(tableau.a)
-
-    def combo(coeffs, ks):
-        acc = None
-        for coef, k in zip(coeffs, ks):
-            if float(coef) == 0.0:
-                continue
-            term = scalars[float(coef)] * k
-            acc = term if acc is None else acc + term
-        return acc
-
-    ks = [f0]
-    for i in range(1, tableau.stages):
-        acc = combo(tab_a[i, :i], ks)
-        yi = y0 if acc is None else y0 + dt_col * acc
-        ks.append(func(t0 + scalars[float(tableau.c[i])] * dt, yi))
-
-    y1 = y0 + dt_col * combo(tableau.b, ks)
-    err = dt_col * combo(tableau.b_err, ks)
-    if not tableau.fsal:  # pragma: no cover - all shipped tableaus are FSAL
-        raise NotImplementedError("non-FSAL tableaus")
-    y_mid = (None if tableau.c_mid is None
-             else y0 + dt_col * combo(tableau.c_mid, ks))
-    return y1, err, ks[-1], tableau.stages - 1, y_mid
-
-
 def adaptive_odeint(
     func: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     y0: torch.Tensor,
@@ -438,6 +423,7 @@ def adaptive_odeint(
     controller: str = "i",
     batch_sum: Callable | None = None,
     shared: torch.Tensor | None = None,
+    graph_key=None,
 ) -> tuple[torch.Tensor, SolveStats]:
     """Integrate ``dy/dt = func(t, y)`` over the monotonic grid ``ts``.
 
@@ -467,6 +453,12 @@ def adaptive_odeint(
         (:class:`RankNorm`; ``shared``, ``(1, N)`` bool, marks the
         components each rank holds a partial sum of).  Not with
         ``fused_step``.
+      graph_key: the dynamics' weights stay as they are across solves:
+        a hashable tuple that names ``func`` and ``fused_step`` (tensors in
+        it are taken by address and version counter).  On the card a
+        ``'while'`` solve then replays one cached CUDA graph per shape,
+        tolerance and ``ts`` (``attempt_graph.py``); None captures per
+        solve.  Ignored with ``error_mask`` or ``batch_sum``.
 
     Returns:
       ys: (T, B, N) solution at ``ts`` (ys[0] ≡ y0).
@@ -497,8 +489,9 @@ def adaptive_odeint(
                        device=dev)
     scalars = (None if fused_step is not None
                else tableau_scalars(tableau, dtype, dev))
+    floats = tableau_floats(tableau)
     direction = torch.sign(ts[-1] - ts[0])
-    t_final = ts[-1]
+    t_final = ts[-1].clone()  # not a view of ts: a traced loop's inputs
     inf = torch.full((batch,), float("inf"), dtype=dtype, device=dev)
 
     # ts[0] as a (B,) column without a read on the host (ts is in dtype, so
@@ -532,7 +525,7 @@ def adaptive_odeint(
             ratio = torch.where(torch.isfinite(ratio), ratio, inf)
         else:
             y1, err, f1, new_evals, y_mid = _rk_attempt(
-                tableau, func, c.t, c.dt, c.y, c.f, scalars)
+                tableau, func, c.t, c.dt, c.y, c.f, scalars, floats)
             ratio = (_error_ratio(err, c.y, y1, rtol, atol, mask)
                      if norm is None
                      else norm.error_ratio(err, c.y, y1, rtol, atol))
@@ -569,8 +562,16 @@ def adaptive_odeint(
             rprev=rprev)
 
     if unroll == "while":
+        key = None
+        if (graph_key is not None and dev.type == "cuda" and mask is None
+                and norm is None and not torch.compiler.is_compiling()):
+            from .attempt_graph import cache_key
+            key = cache_key((
+                graph_key, tableau.name, controller, safety, ifactor,
+                dfactor, fused_step is not None, tuple(y0.shape), dtype,
+                _by_value(rtol), _by_value(atol), _by_value(ts)))
         final = _while_loop(body, carry0, max_steps,
-                            dev.type == "cuda" and norm is None)
+                            dev.type == "cuda" and norm is None, key)
     else:
         final = _scan_loop(body, carry0, max_steps, unroll == "scan_remat")
     stats = SolveStats(nfe=final.nfe, naccept=final.naccept,

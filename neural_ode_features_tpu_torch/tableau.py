@@ -3,7 +3,9 @@
 The port's own copy of ``neural_ode_features_tpu/solver/tableau.py`` (numpy
 only; the port imports nothing from the JAX package).  The constants and the
 import-time order checks are identical, so both packages integrate with the
-same coefficients.
+same coefficients.  It sits outside ``solver/`` with ``rk_attempt.py``, so
+that the fused step's operator (``kernels/ops.py``) computes with these
+coefficients and the solver's own attempt without importing the solver.
 
 Design notes:
   * Tableaus are plain numpy constants; the torch solver casts each

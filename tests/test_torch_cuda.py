@@ -659,7 +659,7 @@ def host_loop(monkeypatch):
     def ctx():
         with monkeypatch.context() as m:
             m.setattr(runge_kutta, "_while_loop",
-                      lambda body, carry, n, capturable:
+                      lambda body, carry, n, capturable, key=None:
                       runge_kutta._host_loop(body, carry, n))
             yield
     return ctx
@@ -803,3 +803,127 @@ def test_graph_launch_outside_capture_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="outside the graph"):
         odenet_solve(params, h0, ts, ENTRY_CONFIG)
     torch.cuda.synchronize()
+
+
+# -- the graph cache: one captured attempt per shape -------------------------
+@pytest.fixture
+def captures(monkeypatch):
+    """The captures made while a test runs (a list that grows by one per
+    capture), from an empty cache."""
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    attempt_graph.clear_cache()
+    made = []
+    real = attempt_graph._capture
+
+    def counting(*args):
+        made.append(1)
+        return real(*args)
+    monkeypatch.setattr(attempt_graph, "_capture", counting)
+    yield made
+    attempt_graph.clear_cache()
+
+
+def _entry_solve(dev, batch=5, tol=None):
+    from neural_ode_features_tpu_torch.models import odenet_solve
+
+    params = init_odenet(7, ENTRY_CONFIG, device=dev)
+    h0 = _inputs(dev, batch, 7)[0]
+    ts = torch.linspace(0.0, 1.0, 4, device=dev)
+    return params, lambda: odenet_solve(params, h0, ts, ENTRY_CONFIG,
+                                        tol=tol)
+
+
+def test_graph_cache_hit_matches_host_loop(dev, host_loop, captures):
+    """A fixed-weight solve captures once: the second solve replays every
+    attempt of the cached graph (the first included), bit-identical to the
+    host loop in values and stats, with its launch counts."""
+    _, solve = _entry_solve(dev)
+    (g1, n1), (p, p_n) = _solve_both(host_loop, solve)
+    assert len(captures) == 1
+    (g2, n2), _ = _solve_both(host_loop, solve)
+    assert len(captures) == 1
+    for g, n in ((g1, n1), (g2, n2)):
+        assert torch.equal(g[0], p[0])
+        for a, b in zip(g[1], p[1]):
+            assert torch.equal(a, b)
+        assert n == p_n
+    assert p_n[0] == 2 and p_n[2] == int((p[1].naccept + p[1].nreject).max())
+
+
+@pytest.mark.parametrize("change", ["weight", "tolerance"])
+def test_graph_cache_misses_on_a_change(dev, host_loop, captures, change):
+    """An in-place weight update (its version counter moves) or another
+    tolerance misses the cache and captures anew: never a stale replay."""
+    from neural_ode_features_tpu_torch.models import odenet_solve
+
+    params, solve = _entry_solve(dev)
+    solve()
+    solve()
+    assert len(captures) == 1
+    if change == "weight":
+        with torch.no_grad():
+            params["odefunc"]["conv2"]["bias"].add_(0.05)
+        again = solve
+    else:
+        h0 = _inputs(dev, 5, 7)[0]
+        ts = torch.linspace(0.0, 1.0, 4, device=dev)
+        again = lambda: odenet_solve(params, h0, ts, ENTRY_CONFIG,  # noqa
+                                     tol=3e-4)
+    (g, _), (p, _) = _solve_both(host_loop, again)
+    assert len(captures) == 2
+    assert torch.equal(g[0], p[0])
+    assert torch.equal(g[1].nfe, p[1].nfe)
+
+
+def test_graph_cache_stays_within_its_bound(dev, captures):
+    """Solves of more shapes than the cache holds, in turn for four rounds:
+    every solve misses and captures, the oldest entries are evicted, at
+    most ``CACHE_ENTRIES`` are kept, each with a pool; a miss captures into
+    the evicted entry's pool, so the reserved memory after the last round
+    is that after the first (within 1%)."""
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    n = attempt_graph.CACHE_ENTRIES + 2
+    solves = [_entry_solve(dev, batch)[1] for batch in range(1, n + 1)]
+    reserved = []
+    for _ in range(4):
+        for solve in solves:
+            solve()
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+        info = attempt_graph.cache_info(dev)
+        assert len(info) == attempt_graph.CACHE_ENTRIES
+        assert [e["batch"] for e in info] == list(range(3, n + 1))
+        assert all(e["pool_bytes"] > 0 for e in info)
+    assert len(captures) == 4 * n
+    assert abs(reserved[-1] - reserved[0]) <= 0.01 * reserved[0]
+
+
+def test_exported_program_launches_by_rule(dev, tmp_path):
+    """``export_model export`` on the card: the program runs the kernels as
+    operators, 2 ``odefunc`` and one ``rk_step`` per attempt, and its
+    logits equal the live model's argmax for argmax."""
+    from neural_ode_features_tpu_torch import export_model
+    from neural_ode_features_tpu_torch.models import odenet_logits
+    from neural_ode_features_tpu_torch.utils import save_checkpoint
+
+    params = init_odenet(7, ENTRY_CONFIG, device=dev)
+    save_checkpoint(tmp_path / "ckpt_best.pt", params, ENTRY_CONFIG,
+                    {"model": "odenet"})
+    art = export_model.main(["export", "--run", str(tmp_path), "--batch",
+                             "8"])
+    module, meta = export_model.load_program(art, dev)
+    assert meta["platforms"] == ["cuda"]
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(8, 32, 32, 3)).astype(np.float32)).to(dev)
+    odefunc.launches = dopri5_step.launches = 0
+    with torch.no_grad():
+        got = module(x)
+    torch.cuda.synchronize()
+    counts = (odefunc.launches, dopri5_step.launches)
+    with torch.no_grad():
+        want, st = odenet_logits(params, x, ENTRY_CONFIG)
+    assert counts == (2, int((st.naccept + st.nreject).max()))
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    assert float((got - want).abs().max()) <= 1e-3

@@ -5,9 +5,9 @@ agree with the JAX package's ``odenet_logits`` on the same ``.msgpack``
 weights and the same ``sample_input.npy`` within rtol = atol = 1e-3 (the
 split ConcatConv's f32 reassociation is about 1e-4), with per-sample NFE
 equal.  The row-independence probe says true under per-sample error control
-and false under global control; ``export``, ``run`` and ``export-mock``
-raise, naming ROADMAP Queue 1 item 9.  On the CPU; JAX is imported here
-only."""
+and false under global control.  (``export``, ``run`` and
+``export-mock`` are tested in ``test_torch_export_program.py``.)  On the
+CPU; JAX is imported here only."""
 
 import dataclasses
 import hashlib
@@ -129,12 +129,6 @@ def test_chained_resnet_artifact(tmp_path):
         want = torch.stack([resnet_logits(params, xi, cfg) for xi in x])
     np.testing.assert_array_equal(np.load(art / "expected_logits.npy"),
                                   want.numpy())
-
-
-@pytest.mark.parametrize("mode", ["export", "run", "export-mock"])
-def test_code_free_modes_are_not_ported(mode):
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
-        export_model.main([mode, "--run", str(RUN), "--cpu"])
 
 
 def test_export_needs_cuda_unless_cpu(monkeypatch, tmp_path):

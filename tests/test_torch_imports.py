@@ -16,6 +16,7 @@ import neural_ode_features_tpu_torch as port
 from neural_ode_features_tpu_torch import (
     eval_ckpt,
     evaluate,
+    export_model,
     extract,
     reference_protocol,
     straggler_bench,
@@ -68,7 +69,7 @@ def test_imports_with_jax_blocked():
                  "parallel.tasks", "multiseed", "examples.fsdp_training",
                  "probes.parallel_probe", "straggler_bench",
                  "reference_protocol", "examples.solver_playground",
-                 "examples.continuous_features"):
+                 "examples.continuous_features", "kernels.ops"):
         assert f"{port.__name__}.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -103,7 +104,8 @@ def test_no_jax_references_in_sources():
             "deploy_artifact.py", "serve_probe.py", "mesh.py", "launch.py",
             "tasks.py", "multiseed.py", "fsdp_training.py",
             "parallel_probe.py", "straggler_bench.py", "reference_protocol.py",
-            "solver_playground.py", "continuous_features.py"} <= names
+            "solver_playground.py", "continuous_features.py",
+            "ops.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"
@@ -189,3 +191,26 @@ def test_tools_and_examples_need_cuda_unless_cpu(monkeypatch, tmp_path):
     got = straggler_bench.main(["--pool", "4", "--batch-size", "4", "--dim",
                                 "1", "--reps", "1", "--cpu"])
     assert got["backend"] == "cpu" and got["pool"] == 4
+
+
+def test_code_free_export_needs_cuda_unless_cpu(monkeypatch, tmp_path):
+    """``export_model export`` and ``run`` (the program whose kernels are
+    the operators of ``kernels/ops.py``) default to the card and raise
+    without one, before they write anything; with ``--cpu`` they run, and
+    the operators take their plain versions."""
+    cfg = ModelConfig(in_channels=1, hidden=8, groups=4, tol=1e-2)
+    save_checkpoint(tmp_path / "ckpt_best.pt", init_odenet(0, cfg,
+                                                           device="cpu"),
+                    cfg, {"model": "odenet"})
+    art = tmp_path / "model_b2.nodeexport"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["export", "--run", str(tmp_path), "--batch", "2"],
+                 ["run", "--artifact", str(art)]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            export_model.main(argv)
+    assert not art.exists()
+    assert export_model.main(["export", "--run", str(tmp_path), "--batch",
+                              "2", "--cpu"]) == art
+    res = export_model.main(["run", "--artifact", str(art), "--reps", "1",
+                             "--cpu"])
+    assert res["out_shape"] == (2, 10)

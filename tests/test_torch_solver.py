@@ -12,7 +12,8 @@ from neural_ode_features_tpu.solver import tableau as jax_tableau
 from neural_ode_features_tpu.solver.runge_kutta import (
     adaptive_odeint as jax_adaptive_odeint,
 )
-from neural_ode_features_tpu_torch.solver import odeint, tableau
+from neural_ode_features_tpu_torch import tableau
+from neural_ode_features_tpu_torch.solver import odeint
 from neural_ode_features_tpu_torch.solver.ravel import ravel_batched, ravel_full
 from neural_ode_features_tpu_torch.solver.runge_kutta import (
     _error_ratio,

@@ -384,3 +384,29 @@ def test_attempt_makes_no_host_read(path):
     assert all(x.device.type == "meta" for x in st)
     with pytest.raises(RuntimeError, match="meta"):
         _meta_solve(lambda t, y: -y * float(y.sum()))
+
+
+def test_graph_cache_key_sees_every_weight_update():
+    """The graph cache's key (``attempt_graph.cache_key``) takes a tensor by
+    address and version counter: an optimizer step, an in-place write and a
+    copy into the weights each give a new key (a replay can never read old
+    weights), the same unchanged tensors the same key, and the key holds
+    the tensors it names."""
+    from neural_ode_features_tpu_torch.solver.attempt_graph import cache_key
+
+    w = torch.nn.Parameter(torch.ones(3))
+    opt = torch.optim.SGD([w], lr=0.1, momentum=0.9)
+    keys = [cache_key(("odenet_solve", 1e-3, (w,)))[0]]
+    assert cache_key(("odenet_solve", 1e-3, (w,)))[0] == keys[0]
+    w.grad = torch.ones(3)
+    opt.step()
+    keys.append(cache_key(("odenet_solve", 1e-3, (w,)))[0])
+    with torch.no_grad():
+        w.mul_(2.0)
+    keys.append(cache_key(("odenet_solve", 1e-3, (w,)))[0])
+    with torch.no_grad():
+        w.copy_(torch.zeros(3))
+    key, keep = cache_key(("odenet_solve", 1e-3, (w,)))
+    keys.append(key)
+    assert len(set(keys)) == 4
+    assert keep == [w]
