@@ -29,7 +29,7 @@ Phases (any failed check exits nonzero and prints no result):
    ``mma3``'s error against the f64 plain version is printed beside
    ``tap9``'s.  Then the probe's own path, ``probes.conv_probe.main``, the
    four-strategy race at B = 256 and B = 128, with the conv counter set to
-   0 just before.
+   0 just before (its three bf16 twins race in ``[bf16]``).
 3. The inference path, ``entry(device="cuda", batch=256)`` (CIFAR-10
    ODE-Net, per-sample dopri5 at tol 1e-3, full width, random weights),
    with the launch counters set to 0 just before: the ODEfunc kernel must
@@ -201,10 +201,26 @@ Phases (any failed check exits nonzero and prints no result):
    on the mock artifact.
 10. The slice-11 paths, after the timings (so that their hundreds of
    thousands of small launches come after the profiler's windows).
-   ``[bf16]``: bfloat16 dynamics aimed at the card (``odenet_logits``, the
-   adjoint, ``odenet_trajectory``, ``Trainer``, ``train --bf16`` and
-   ``sweep --bf16`` without ``--cpu``) each refused before any launch,
-   naming ROADMAP Queue 2 item 5, the counters still 0, no file left.
+   ``[bf16]``: bf16 on the card.  The kernels' bf16 builds against their
+   plain versions: the ODEfunc kernel's ``compute_dtype='bfloat16'`` build
+   at every shape the bf16 paths give it (7×7×64 at B = 256, 768 and 5,
+   6×6×64 at B = 256; bf16 values, within 4 u of the plain f's max-norm per
+   row), the fused step's ``conv_precision='bf16'`` (B = 256 and 5, relative
+   L2 per output within 4 times the plain step's own move under one-ulp
+   GroupNorm perturbations, and its error ratio more than 4 u from the f32
+   step's), the probe's ``mma_bf16``, ``tap9_bf16`` and
+   ``im2col_bf16`` (f32 reassociation).  The entry model's bf16 inference
+   (``odenet_logits``, ``odenet_trajectory``) at B = 256 on the host loop
+   and on the cache, bit-identical, 2 + 6·attempts ``odefunc`` launches and
+   no ``rk_step``, against the plain bf16 dynamics on the card (per-sample
+   NFE equal on at least the share the CPU emulation measured, top-1 on at
+   least 99%), its warm time beside the f32 solve's; a bf16 and an f32 solve of one model two cache entries; one
+   solve with the bf16 fused step beside one with the f32 step (per-sample
+   NFE, accepts, rejects side by side); ``sweep --bf16`` at 1e-1..1e-3,
+   loop and ``--fused``; the adjoint, ``Trainer`` and ``train --bf16``
+   refused before any launch naming ROADMAP Queue 2 item 5b, ``export``,
+   ``export-compiled`` and ``serve`` of a bf16 run naming 5c, no file left;
+   the bf16 probe race at B = 256 and 128; each bf16 build timed.
    ``[straggler]``: ``python -m neural_ode_features_tpu_torch.straggler_bench``
    at the JAX tool's defaults (its JSON line: host and CUDA-event clocks,
    lane work, error units) and ``tests/test_straggler.py``'s bars; one
@@ -227,7 +243,9 @@ Phases (any failed check exits nonzero and prints no result):
    ``parity_eval``'s B = 100 and 12 and at B = 512.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(per kernel and shape: the conv stage it ran; ``ms``, its device time per
+(per kernel and shape, the bf16 builds as ``odefunc_bf16``,
+``rk_step_bf16`` and ``conv_probe_bf16`` with their bounds at the bf16
+tensor-core rate: the conv stage it ran; ``ms``, its device time per
 call, CUDA events around calls queued behind a spin kernel (``device_ms``);
 ``profiler_ms``, the mean of the launches ``torch.profiler`` recorded, by
 kernel name; ``call_ms``, CUDA events around back-to-back calls of its
@@ -273,6 +291,7 @@ LOSS_SCALE = 1e3                         # adjoint variants: |a_y| well above at
 SWEEP_TOLS = (1e-1, 1e-2, 1e-3, 1e-4)    # sweep's default --tols
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
 PEAK_TF32_FLOPS = 495e12                 # H100 SXM, TF32 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12                 # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
 # [width]: the shapes beside 7×7×64 and 6×6×64 (H, W, C), the adjoint's
 # and the probe's widths at 7×7.  Every width the JAX kernels take runs on
@@ -283,6 +302,10 @@ WIDTH_SHAPES = ((7, 7, 32), (6, 6, 32), (7, 7, 128), (6, 6, 128), (7, 7, 256),
 ADJOINT_WIDTHS = (128, 256, 512)
 PROBE_WIDTHS = (128, 256, 96, 512)
 F64_CONV_BAR = 1e-6                      # mma3 vs the f64 conv at 96 and 512
+# [bf16]: the bf16 builds against their plain versions in units of u = 2^-8
+# of the compared value's size, each bar held beside the f32 build's
+# distance (neural_ode_features_tpu_torch/probes/bf16_distances.py BARS).
+BF16_NFE_SHARE = 1.0                     # the CPU emulation's measured share
 FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures_torch" / (
     "jax_run_mnist")                     # [foreign]: a JAX run directory
 FIXTURE_EVAL = FIXTURE.with_name("jax_run_mnist.eval.json")
@@ -357,6 +380,21 @@ def device_ms(fn, reps: int = 20) -> float:
                        "the wrapper wait for the card?")
 
 
+@contextlib.contextmanager
+def host_loop():
+    """Every 'while' solve on the private host loop."""
+    from neural_ode_features_tpu_torch.solver import runge_kutta
+
+    saved = runge_kutta._while_loop
+    runge_kutta._while_loop = (
+        lambda body, carry, n, capturable, key=None:
+        runge_kutta._host_loop(body, carry, n))
+    try:
+        yield
+    finally:
+        runge_kutta._while_loop = saved
+
+
 def leaves(tree) -> list:
     """A param tree's leaves in a fixed (sorted-key) order."""
     if isinstance(tree, dict):
@@ -418,12 +456,13 @@ def library_bwd(h, t, wt, g):
                                g)
 
 
-def bounds(flops, nbytes):
+def bounds(flops, nbytes, tensor_peak=PEAK_TF32_FLOPS):
     """The card's least time with the tensor cores (the operations counted
-    once, at the TF32 rate) and on the CUDA cores (f32 FFMA), each the
-    larger of its operations time and the bytes time."""
+    once, at the TF32 rate, or ``tensor_peak``: bf16's for the bf16 builds)
+    and on the CUDA cores (f32 FFMA), each the larger of its operations
+    time and the bytes time."""
     out = {}
-    for key, peak in (("", PEAK_TF32_FLOPS), ("ffma_", PEAK_F32_FLOPS)):
+    for key, peak in (("", tensor_peak), ("ffma_", PEAK_F32_FLOPS)):
         by_ops, by_bytes = flops / peak, nbytes / PEAK_BYTES
         out[key + "bound_ms"] = 1e3 * max(by_ops, by_bytes)
         out[key + "bound_by"] = ("operations" if by_ops >= by_bytes
@@ -431,24 +470,27 @@ def bounds(flops, nbytes):
     return out
 
 
-def fused_bounds(hw, c, b, b_bwd):
+def fused_bounds(hw, c, b, b_bwd, tensor_peak=PEAK_TF32_FLOPS):
     """The fused kernels' bounds at H×W×C = (*hw, c): ``odefunc`` and
-    ``rk_step`` at batch ``b``, the backward at ``b_bwd``."""
+    ``rk_step`` at batch ``b``, the backward at ``b_bwd`` (``bounds``)."""
     n = hw[0] * hw[1] * c
     conv = 2 * hw[0] * hw[1] * 9 * c * c             # one 3×3 conv, a sample
     weight_bytes = 4 * (2 * 9 * c * c + 2 * n + 8 * c)
     return {
         # Two convs per f; h and t in, f out.
-        "odefunc": bounds(2 * conv * b, 4 * (2 * b * n + b) + weight_bytes),
+        "odefunc": bounds(2 * conv * b, 4 * (2 * b * n + b) + weight_bytes,
+                          tensor_peak),
         # Six f; t0, dt, rtol, atol in; y0, f0 in; y1, f1, y_mid, ratio out.
         "rk_step": bounds(12 * conv * b,
-                          4 * (5 * b * n + 5 * b) + weight_bytes),
+                          4 * (5 * b * n + 5 * b) + weight_bytes,
+                          tensor_peak),
         # Six 3×3-conv equivalents per sample (forward recompute, input
         # gradients, weight gradients); reads h, g, t, the laid-out
         # weights, writes f, dh, dt and the raw dθ once each.
         "odefunc_bwd": bounds(6 * conv * b_bwd,
                               4 * (4 * b_bwd * n + 2 * b_bwd) + weight_bytes
-                              + 4 * (2 * 9 * (c + 1) * c + 8 * c)),
+                              + 4 * (2 * 9 * (c + 1) * c + 8 * c),
+                              tensor_peak),
     }
 
 
@@ -744,14 +786,24 @@ def main() -> int:
                 for k, v in conv_probe.device_us(fn, keys, reps).items()}
 
     def read_counts():
+        """The launch counters: the f32 builds' always, a bf16 build's
+        where it launched (so an f32 path's launch rule fails on a bf16
+        launch)."""
+        bf16 = {"odefunc_bf16": odefunc.launches_bf16,
+                "rk_step_bf16": dopri5_step.launches_bf16}
         return {"odefunc": odefunc.launches,
                 "odefunc_bwd": odefunc_bwd.launches,
-                "rk_step": dopri5_step.launches}
+                "rk_step": dopri5_step.launches,
+                **{k: v for k, v in bf16.items() if v}}
+
+    def zero_counts():
+        odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+        odefunc.launches_bf16 = dopri5_step.launches_bf16 = 0
 
     def counted(fn):
         """``fn()`` with every launch counter set to 0 just before and read
         just after: ``(result, seconds, counts)``."""
-        odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t_s = time.perf_counter()
         out = fn()
@@ -981,9 +1033,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # The probe's own path, the four-strategy race at B = 256 and B = 128,
-    # counter from 0.
+    # counter from 0 (the bf16 twins race in [bf16]).
     conv3x3.launches = 0
-    probe = conv_probe.main(["--batch", f"{B},{B_TRAIN}"])
+    probe = conv_probe.main([*STRATEGIES, "--batch", f"{B},{B_TRAIN}"])
     probe_launches = conv3x3.launches
     print(f"[probe] conv3x3 launches {probe_launches}")
     if probe_launches < 2 * 2 * len(STRATEGIES):
@@ -2687,49 +2739,361 @@ def main() -> int:
             "attempts_burst4": d_b4["attempts"]}))
         phase_done("serve", t_ph)
 
-    # [bf16]: bfloat16 dynamics aimed at the card.  The CPU runs them
-    # (tests/test_torch_bf16.py); on a CUDA tensor the model, the trainer
-    # and both CLIs refuse before any launch, naming ROADMAP Queue 2 item 5,
-    # and no run directory or sweep file is made.
+    # [bf16]: bf16 on the card.  The kernels' bf16 builds against their
+    # plain versions at the shapes the bf16 paths give them and at the card
+    # tests' five, each bar beside the f32 build's distance; the entry
+    # model's bf16 inference on the host loop and on the cache, against the
+    # plain bf16 path on the card; the fused step's conv_precision='bf16'
+    # beside the f32 step in one solve each; sweep --bf16; the bf16 probe
+    # race; training, export and serving of a bf16 run refused before any
+    # launch; each bf16 build timed.  Returns the kernels line's entries.
     def bf16_phase():
+        from neural_ode_features_tpu_torch import serve as serve_cli
+        from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+            BF16_STRATEGIES,
+        )
+        from neural_ode_features_tpu_torch.kernels.rk_step import (
+            make_fused_dopri5_step,
+        )
+        from neural_ode_features_tpu_torch.models import odenet_solve
+        from neural_ode_features_tpu_torch.probes import bf16_distances
+        from neural_ode_features_tpu_torch.solver import attempt_graph
+
         t_ph = time.perf_counter()
         cfg16 = dataclasses.replace(ENTRY_CONFIG, compute_dtype="bfloat16")
-        x16 = x[:8]
-        with tempfile.TemporaryDirectory() as tmp_b:
-            calls = {
-                "odenet_logits": lambda: odenet_logits(params, x16, cfg16),
-                "odenet_logits adjoint": lambda: odenet_logits(
-                    params, x16, cfg16, adjoint=True),
-                "odenet_trajectory": lambda: odenet_trajectory(
-                    params, x16, [0.0, 0.5, 1.0], cfg16),
-                "Trainer": lambda: Trainer(dataclasses.replace(
-                    TRAIN_CONFIG, compute_dtype="bfloat16"),
-                    steps_per_epoch=1, device="cuda"),
-                "train --bf16": lambda: train_cli.main([
-                    "--dataset", "synthetic-mnist", "--bf16", "--epochs",
-                    "1", "--limit", "256", "--runs-dir", f"{tmp_b}/runs"]),
-                "sweep --bf16": lambda: sweep_cli.main([
-                    "--bf16", "--tols", "1e-1", "--output",
-                    f"{tmp_b}/sweep.csv"]),
-            }
-            for name, call in calls.items():
-                odefunc.launches = odefunc_bwd.launches = 0
-                dopri5_step.launches = 0
-                try:
-                    call()
+        rng16 = np.random.default_rng(16)
+
+        def arr(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+        def rel(got, want):
+            return float((got.double() - want.double()).norm()
+                         / want.double().norm())
+
+        def refused(name, call, item, exc=(NotImplementedError, SystemExit)):
+            """``call()`` raises naming ``item`` before any launch."""
+            zero_counts()
+            conv3x3.launches = 0
+            err, msg = io.StringIO(), None
+            try:
+                with contextlib.redirect_stderr(err):
+                    rc = call()
+            except exc as e:
+                msg = str(e)
+            if msg is None:  # serve reports and returns 1
+                msg = err.getvalue().strip()
+                if rc != 1:
                     fail(f"[bf16] {name} ran on the card")
-                except (NotImplementedError, SystemExit) as e:
-                    msg = str(e)
-                torch.cuda.synchronize()
-                got = read_counts()
-                print(f"[bf16] {name} on the card refused: {msg}; launches "
-                      f"{got}")
-                if "Queue 2 item 5" not in msg or any(got.values()):
-                    fail(f"[bf16] {name}: not refused before any launch "
-                         "naming Queue 2 item 5")
-            if any(Path(tmp_b).iterdir()):
-                fail("[bf16] a refused CLI left a run directory or a file")
+            torch.cuda.synchronize()
+            got = {**read_counts(), "conv3x3": conv3x3.launches}
+            print(f"[bf16] {name} on the card refused: {msg}; launches {got}")
+            if item not in msg or any(got.values()):
+                fail(f"[bf16] {name}: not refused before any launch naming "
+                     f"{item}")
+
+        def held(label, readings):
+            """Print ``readings`` (probes/bf16_distances.py) and fail if a
+            bar or its f32 control breaks."""
+            print(f"[check] {label}: {json.dumps(readings)}")
+            bad = bf16_distances.check(readings)
+            if bad:
+                fail(f"[bf16] {label}: " + "; ".join(bad))
+            return readings["max_abs_err"]
+
+        # The kernels against their plain versions, beside the f32 builds.
+        # odefunc: the solve's B = 256, the fused sweep's 3·256 rows (three
+        # tolerances), a ragged 5, the MNIST block's 6×6×64; rk_step: the
+        # main path's step inputs at B = 256 and 5.  Then both at B = 32 at
+        # the five shapes of the card tests (7×7×32 to 7×7×512, 6×6×64).
+        err_f16 = err_s16 = err_c16 = 0.0
+        for hw_, nb in (((HH, WW), B), ((HH, WW), 3 * B), ((HH, WW), 5),
+                        ((6, 6), B)):
+            h_ = arr(rng16.normal(size=(nb, *hw_, C)) * 0.3)
+            t_ = arr(rng16.uniform(0, 1, nb))
+            err_f16 = max(err_f16, held(
+                f"odefunc bf16 {hw_[0]}x{hw_[1]}x{C} B={nb}",
+                bf16_distances.odefunc_readings(
+                    prepare(params["odefunc"], hw_), t_, h_, G)))
+        for nb in (B, 5):
+            err_s16 = max(err_s16, held(
+                f"rk_step bf16 {HH}x{WW}x{C} B={nb}",
+                bf16_distances.step_readings(
+                    w, t0[:nb], dt[:nb], y0[:nb].contiguous(),
+                    f0[:nb].contiguous(), hw=(HH, WW), groups=G,
+                    rtol=tol_rows[:nb], atol=tol_rows[:nb])))
+        for hh_, ww_, c_ in ((7, 7, 32), (7, 7, 64), (7, 7, 128), (7, 7, 512),
+                             (6, 6, 64)):
+            r_ = bf16_distances.readings_at(hh_, ww_, c_, 32, dev)
+            held(f"odefunc bf16 {r_['shape']} B=32", r_["odefunc"])
+            held(f"rk_step bf16 {r_['shape']} B=32", r_["rk_step"])
+        # The probe's bf16 twins: their operands round alike, f32
+        # reassociation; the f32 conv lies outside that tolerance.
+        for nb, hw_ in ((B, (HH, WW)), (5, (HH, WW)), (B, (6, 6))):
+            xc_, wc_ = conv_probe.probe_inputs(nb, dev, hw_)
+            plain16 = conv3x3_plain(xc_, wc_, passes="bf16")
+            plain32 = conv3x3_plain(xc_, wc_)
+            for strategy in BF16_STRATEGIES:
+                got_ = conv3x3(xc_, wc_, strategy)
+                e_ = close(f"conv_probe {strategy} B={nb} {hw_}", got_,
+                           plain16, **CONV_TOL)
+                err_c16 = max(err_c16, e_)
+                if torch.allclose(got_, plain32, **CONV_TOL):
+                    fail(f"[bf16] conv_probe {strategy} B={nb} {hw_}: within "
+                         "the tolerance of the f32 conv too")
+            print(f"[check] conv_probe {', '.join(BF16_STRATEGIES)} B={nb} "
+                  f"{hw_[0]}x{hw_[1]}: within rtol {CONV_TOL['rtol']}, atol "
+                  f"{CONV_TOL['atol']} of conv3x3_plain(passes='bf16'), "
+                  f"outside it of the f32 conv, max abs err {err_c16:.3e}")
+
+        # The entry model's bf16 inference: on the host loop and on the
+        # cache (bit-identical, equal launches: 2 + 6·attempts odefunc, no
+        # rk_step), against the plain bf16 dynamics on the card.
+        paths16 = {}
+        results = {}
+        for route, ctx in (("host", host_loop), ("cache",
+                                                 contextlib.nullcontext)):
+            with ctx(), torch.no_grad():
+                results[route] = counted(
+                    lambda: odenet_logits(params, x, cfg16))
+                results[route + " trajectory"] = counted(
+                    lambda: odenet_trajectory(params, x, [0.0, 0.5, 1.0],
+                                              cfg16))
+        (lg16, st16), t16, n16 = results["cache"]
+        att16 = batch_attempts(st16.nfe)
+        for key, ((out_, st_), _, n_) in results.items():
+            if n_ != {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                      "odefunc_bf16": 2 + 6 * att16}:
+                fail(f"[bf16] solve {key}: launches {n_}, not 2 + 6·"
+                     f"{att16} of the bf16 odefunc and nothing else")
+            ref = results[key.replace("host", "cache")][0]
+            if not (torch.equal(out_, ref[0])
+                    and torch.equal(st_.nfe, ref[1].nfe)):
+                fail(f"[bf16] solve {key}: not bit-identical to the cache")
+        paths16 = {"bf16_solve": n16,
+                   "bf16_trajectory": results["cache trajectory"][2]}
+        with torch.no_grad():
+            h016 = stem_apply(params["stem"], x, cfg16)
+            ts01 = torch.tensor([0.0, 1.0], device=dev)
+            traj_p, st_p = odeint(
+                lambda tt, yy: odefunc_plain(w, tt, yy, G, "bf16"),
+                h016, ts01, rtol=TOL, atol=TOL, method="dopri5",
+                error_control="per_sample", max_steps=cfg16.max_steps)
+            lg_p = head_apply(params["head"], traj_p[-1], cfg16)
+        with torch.no_grad():
+            lg32, st32 = odenet_logits(params, x, ENTRY_CONFIG)
+        nfe_share = float((st16.nfe == st_p.nfe).float().mean())
+        top1 = float((lg16.argmax(1) == lg_p.argmax(1)).float().mean())
+        near = {"plain bf16": rel(lg16, lg_p), "f32": rel(lg16, lg32)}
+        print(f"[bf16] solve B={B} tol {TOL} (its first call, a capture): "
+              f"{1e3 * t16:.2f} ms, attempts "
+              f"{att16}, NFE mean {st16.nfe.float().mean():.2f} (f32 entry "
+              f"{st32.nfe.float().mean():.2f}); host loop and cache "
+              f"bit-identical;"
+              f" launches {n16}; against the plain bf16 path: per-sample NFE "
+              f"equal on {nfe_share:.4f} (bar {BF16_NFE_SHARE}), top-1 equal "
+              f"on {top1:.4f}, logits max|diff| "
+              f"{float((lg16 - lg_p).abs().max()):.3e}, rel-L2 "
+              f"{near['plain bf16']:.3e}; against the f32 logits max|diff| "
+              f"{float((lg16 - lg32).abs().max()):.3e}, rel-L2 "
+              f"{near['f32']:.3e}, top-1 equal on "
+              f"{float((lg16.argmax(1) == lg32.argmax(1)).float().mean()):.4f}")
+        # Warm solves on the cache, bf16 and f32 dynamics in turns.
+        warm = {"bf16": [], "f32": []}
+        for _ in range(6):
+            for tag, cfg_ in (("bf16", cfg16), ("f32", ENTRY_CONFIG)):
+                with torch.no_grad():
+                    warm[tag].append(counted(
+                        lambda: odenet_logits(params, x, cfg_))[1])
+        warm = {k: statistics.median(v[1:]) for k, v in warm.items()}
+        print(f"[bf16] warm solve B={B} on the cache, in turns (median of "
+              f"5): bf16 {1e3 * warm['bf16']:.2f} ms ({B / warm['bf16']:.1f} "
+              f"img/s), f32 with the fused step {1e3 * warm['f32']:.2f} ms "
+              f"({B / warm['f32']:.1f} img/s)")
+        if (nfe_share < BF16_NFE_SHARE or top1 < 0.99
+                or not bool(st16.success.all())
+                or near["plain bf16"] >= near["f32"]):
+            fail(f"[bf16] solve: NFE share {nfe_share}, top-1 {top1}, "
+                 f"logits rel-L2 {near} (want nearer the plain bf16 path)")
+        # One cache entry per configuration: a bf16 and an f32 solve of the
+        # same weights are two.
+        attempt_graph.clear_cache()
+        with torch.no_grad():
+            for cfg_ in (cfg16, ENTRY_CONFIG, cfg16, ENTRY_CONFIG):
+                odenet_solve(params, h016, ts01, cfg_)
+        entries = attempt_graph.cache_info(dev)
+        print(f"[bf16] cache after bf16, f32, bf16, f32 solves of one model: "
+              f"{len(entries)} entries")
+        if len(entries) != 2:
+            fail("[bf16] a bf16 and an f32 solve did not get two entries")
+
+        # The fused step's conv_precision='bf16' beside the f32 step: one
+        # solve each of the entry model (f32 dynamics), per-sample NFE,
+        # accepts and rejects side by side.
+        steps = {}
+        for prec in ("f32", "bf16"):
+            step = make_fused_dopri5_step(
+                params["odefunc"], DOPRI5, (HH, WW), groups=G, rtol=TOL,
+                atol=TOL, conv_precision=prec)
+            with torch.no_grad():
+                steps[prec] = counted(lambda: odeint(
+                    lambda tt, yy: odefunc(w, tt, yy, groups=G), h016, ts01,
+                    rtol=TOL, atol=TOL, method="dopri5",
+                    error_control="per_sample",
+                    max_steps=ENTRY_CONFIG.max_steps, fused_step=step))
+        (tr32, s32), _, n32 = steps["f32"]
+        (tr_b, s_b), _, n_b = steps["bf16"]
+        paths16["bf16_step_solve"] = n_b
+        lg_b = head_apply(params["head"], tr_b[-1], ENTRY_CONFIG)
+        lg_32 = head_apply(params["head"], tr32[-1], ENTRY_CONFIG)
+        for prec, st_, n_ in (("f32", s32, n32), ("bf16", s_b, n_b)):
+            print(f"[bf16] {prec} step: NFE mean {st_.nfe.float().mean():.3f}"
+                  f" max {int(st_.nfe.max())}, accepts mean "
+                  f"{st_.naccept.float().mean():.3f}, rejects mean "
+                  f"{st_.nreject.float().mean():.3f} (max "
+                  f"{int(st_.nreject.max())}), all reached t = 1: "
+                  f"{bool(st_.success.all())}; launches {n_}")
+        print(f"[bf16] bf16 step against the f32 step: per-sample NFE equal "
+              f"on {float((s_b.nfe == s32.nfe).float().mean()):.4f}, accepts "
+              f"{float((s_b.naccept == s32.naccept).float().mean()):.4f}, "
+              f"rejects {float((s_b.nreject == s32.nreject).float().mean()):.4f}"
+              f"; logits max|diff| {float((lg_b - lg_32).abs().max()):.3e}, "
+              f"top-1 equal on "
+              f"{float((lg_b.argmax(1) == lg_32.argmax(1)).float().mean()):.4f}")
+        want_b = {"odefunc": 2, "odefunc_bwd": 0, "rk_step": 0,
+                  "rk_step_bf16": batch_attempts(s_b.nfe)}
+        want_32 = {"odefunc": 2, "odefunc_bwd": 0,
+                   "rk_step": batch_attempts(s32.nfe)}
+        if n_b != want_b or n32 != want_32:
+            fail(f"[bf16] the step solves launched {n_b} (bf16 step; want "
+                 f"{want_b}) and {n32} (f32 step; want {want_32})")
+
+        with tempfile.TemporaryDirectory() as tmp_b:
+            # sweep --bf16 on the card at 1e-1..1e-3, loop and --fused.
+            for mode, extra in (("loop", []), ("fused", ["--fused"])):
+                rows_, _, n_ = counted(lambda: sweep_cli.main(
+                    ["--bf16", "--tols", "1e-1,1e-2,1e-3", *extra,
+                     "--output", f"{tmp_b}/sweep_{mode}.csv"]))
+                paths16[f"bf16_sweep_{mode}"] = n_
+                if (n_.get("odefunc_bf16", 0) < 1 or n_["odefunc"]
+                        or n_["rk_step"] or n_["odefunc_bwd"]):
+                    fail(f"[bf16] sweep --bf16 {mode}: launches {n_}")
+                for r in rows_:
+                    print(f"[bf16] sweep --bf16 {mode}: " + " | ".join(
+                        f"{k}={v}" for k, v in r.items()) + f"; launches {n_}")
+
+            # Training, export and serving of a bf16 run: refused.
+            run16 = Path(tmp_b) / "run16"
+            save_checkpoint(run16 / "ckpt_best.pt", params, cfg16,
+                            {"model": "odenet"})
+            art16 = export_model.main([
+                "export-compiled", "--run", str(run16), "--batch", "2",
+                "--cpu", "--out", f"{tmp_b}/a16.npexec"])
+            before = set(Path(tmp_b).iterdir())
+            for name, call, item in (
+                    ("odenet_logits adjoint", lambda: odenet_logits(
+                        params, x[:8], cfg16, adjoint=True), "5b"),
+                    ("Trainer", lambda: Trainer(dataclasses.replace(
+                        TRAIN_CONFIG, compute_dtype="bfloat16"),
+                        steps_per_epoch=1, device="cuda"), "5b"),
+                    ("train --bf16", lambda: train_cli.main([
+                        "--dataset", "synthetic-mnist", "--bf16", "--epochs",
+                        "1", "--limit", "256", "--runs-dir",
+                        f"{tmp_b}/runs"]), "5b"),
+                    ("export-compiled", lambda: export_model.main([
+                        "export-compiled", "--run", str(run16), "--batch",
+                        "8", "--out", f"{tmp_b}/b16.npexec"]), "5c"),
+                    ("export", lambda: export_model.main([
+                        "export", "--run", str(run16), "--batch", "8",
+                        "--out", f"{tmp_b}/p16.nodeexport"]), "5c"),
+                    ("serve", lambda: serve_cli.main([str(art16),
+                                                      "--selftest"]), "5c")):
+                refused(name, call, f"Queue 2 item {item}")
+            if set(Path(tmp_b).iterdir()) != before:
+                fail("[bf16] a refused path left a run directory or a file")
+
+        # The bf16 probe race at B = 256 and 128, the counter from 0.
+        conv3x3.launches = 0
+        probe16 = conv_probe.main([*BF16_STRATEGIES, "--batch",
+                                   f"{B},{B_TRAIN}"])
+        paths16["bf16_probe"] = {"conv3x3": conv3x3.launches}
+        print(f"[probe] bf16 twins: conv3x3 launches {conv3x3.launches}")
+        if conv3x3.launches < 2 * 2 * len(BF16_STRATEGIES):
+            fail(f"the bf16 probe launched the conv kernels "
+                 f"{conv3x3.launches} times")
+
+        # Times: device ms (spin-queued), the wrapper's call, the plain
+        # version, the library call in bf16.
+        wt16 = pytree.tree_map(lambda a: a.bfloat16(), params["odefunc"])
+        h16, t16_ = h.bfloat16(), t.bfloat16()
+        xc, wc = conv_probe.probe_inputs(B, dev)
+        xc16, wc16 = xc.bfloat16(), wc.bfloat16()
+        fn16 = {
+            "odefunc": lambda: odefunc(w, t, h, groups=G,
+                                       compute_dtype=torch.bfloat16),
+            "rk_step": lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0,
+                                           conv_precision="bf16", **step_kw),
+            "conv": lambda: conv3x3(xc, wc, "mma_bf16"),
+        }
+        ms16 = {k: device_ms(fn) for k, fn in fn16.items()}
+        call16 = {k: time_ms(fn) for k, fn in fn16.items()}
+        plain16 = {
+            "odefunc": time_ms(lambda: odefunc_plain(w, t, h, G, "bf16")),
+            "rk_step": time_ms(lambda: dopri5_step_plain(
+                w, DOPRI5, t0, dt, y0, f0, conv_precision="bf16",
+                **step_kw)),
+            "conv": time_ms(lambda: conv3x3_plain(xc, wc, passes="bf16")),
+        }
+        lib16 = {"odefunc": time_ms(lambda: library_f(h16, t16_, wt16)),
+                 "rk_step": None,
+                 "conv": time_ms(lambda: conv_probe.library_conv(xc16, wc16),
+                                 reps=100)}
+        twin_ms = {s_: device_ms(lambda s_=s_: conv3x3(xc, wc, s_), reps=100)
+                   for s_ in BF16_STRATEGIES}
+        print("[time] bf16 builds, ms: " + ", ".join(
+            f"{k} device {ms16[k]:.4f} (call {call16[k]:.4f}, plain "
+            f"{plain16[k]:.4f}, library "
+            f"{'none' if lib16[k] is None else f'{lib16[k]:.4f}'})"
+            for k in ms16) + "; probe twins device ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in twin_ms.items()))
         phase_done("bf16", t_ph)
+
+        fb16 = fused_bounds((HH, WW), C, B, B_TRAIN, PEAK_BF16_FLOPS)
+        common = {"shape": f"{HH}x{WW}x{C}", "route": "cuda",
+                  "precision": "bf16"}
+        return [
+            {"name": "odefunc_bf16", **common,
+             "source": "neural_ode_features_tpu_torch/csrc/odefunc.cu",
+             "replaces": REPLACES["odefunc"],
+             "launches": paths16["bf16_solve"]["odefunc_bf16"],
+             "max_abs_err": err_f16, "ms": ms16["odefunc"],
+             "plain_ms": plain16["odefunc"], **fb16["odefunc"],
+             "library_ms": lib16["odefunc"], "stage": "mma_bf16",
+             "call_ms": call16["odefunc"],
+             "launches_by_path": {k: v["odefunc_bf16"]
+                                  for k, v in paths16.items()
+                                  if "odefunc_bf16" in v}},
+            {"name": "rk_step_bf16", **common,
+             "source": "neural_ode_features_tpu_torch/csrc/rk_step.cu",
+             "replaces": REPLACES["rk_step"],
+             "launches": paths16["bf16_step_solve"]["rk_step_bf16"],
+             "max_abs_err": err_s16, "ms": ms16["rk_step"],
+             "plain_ms": plain16["rk_step"], **fb16["rk_step"],
+             "library_ms": None, "stage": "mma_bf16",
+             "call_ms": call16["rk_step"]},
+            {"name": "conv_probe_bf16", **common,
+             "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
+             "replaces": REPLACES["conv_probe"],
+             "launches": paths16["bf16_probe"]["conv3x3"],
+             "max_abs_err": err_c16, "ms": ms16["conv"],
+             "plain_ms": plain16["conv"],
+             **bounds(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C),
+                      PEAK_BF16_FLOPS),
+             "library_ms": lib16["conv"], "stage": "mma_bf16",
+             "call_ms": call16["conv"], "strategy_ms": twin_ms,
+             "probe_device_us": {s_: probe16[s_]["device_us"]
+                                 for s_ in BF16_STRATEGIES},
+             "probe_library_bf16_us": probe16["library_bf16_us"]},
+        ]
 
     # [straggler]: the straggler bench at the JAX tool's defaults on the
     # card (pool 4,096, B = 256, dim 64, tol 1e-6, 3 repeats): its JSON
@@ -2862,18 +3226,6 @@ def main() -> int:
             captures.append(time.perf_counter() - t_s)
 
         attempt_graph._capture = timed_capture
-
-        @contextlib.contextmanager
-        def host_loop():
-            """Every 'while' solve on the private host loop."""
-            saved = runge_kutta._while_loop
-            runge_kutta._while_loop = (
-                lambda body, carry, n, capturable, key=None:
-                runge_kutta._host_loop(body, carry, n))
-            try:
-                yield
-            finally:
-                runge_kutta._while_loop = saved
 
         @contextlib.contextmanager
         def capture_per_solve():
@@ -3080,7 +3432,7 @@ def main() -> int:
             the kernels the profiler saw held against the launch counters
             (on the graph route, the replays' kernels)."""
             fn()
-            odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+            zero_counts()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 wall, _ = clock(fn)
             counters = read_counts()
@@ -3330,7 +3682,7 @@ def main() -> int:
             prof_names = {"odefunc": "odefunc_kernel",
                           "odefunc_bwd": "bwd_sample_kernel",
                           "rk_step": "rk_step_kernel"}
-            odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
+            zero_counts()
             with torch.no_grad(), profile(
                     activities=[ProfilerActivity.CUDA]) as prof:
                 module(x)
@@ -3810,7 +4162,7 @@ def main() -> int:
     # This slice's paths run last: after their hundreds of thousands of
     # small launches and their subprocesses, torch.profiler missed every
     # rk_step launch of the timing windows above in two of three runs.
-    bf16_phase()
+    bf16_kernels = bf16_phase()
     straggler_phase()
     straggler_busy()
     cli_launches.update(examples_phase())
@@ -3890,7 +4242,7 @@ def main() -> int:
                                                   for k, v in r.items()))
     print(f"[times] done at {time.perf_counter() - t_script:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": kernels + width_kernels}))
+    print(json.dumps({"kernels": kernels + width_kernels + bf16_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,6 +34,19 @@
 //           im2colS and rollS.  The TPU kernels build the patch by rolls and
 //           masks because Mosaic cannot reshape 4D tiles; here it is a gather.
 //
+// The bf16 twins ("bf16 multiplies, f32 accumulation", the TPU probe's
+// *_bf16 strategies: both operands rounded to bf16, products and sums f32):
+//
+//   mma_bf16     nodef::conv3x3_mma<kPassBf16>: one mma.sync.m16n8k16 bf16
+//                pass per 16 channels, operands packed to bf16 as the
+//                fragments are built.  The conv stage of the bf16 builds of
+//                odefunc.cu and rk_step.cu.
+//   tap9_bf16    tap9 on x rounded as it is copied in, the weights rounded
+//                as they are read (nodef::conv3x3<true>): the bf16 builds'
+//                stage at the other shapes.
+//   im2col_bf16  im2col, the patch rounded as it is gathered and the
+//                weights as they are read.
+//
 // Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 // on them, 3.35 TB/s): at B = 256, 7x7x64 the conv is 2*256*49*576*64 =
 // 0.925 GFLOP, 13.8 us of FFMA or 1.9 us of TF32 products, against 6.6 MB
@@ -46,6 +59,7 @@
 
 namespace nodef {
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 tap9_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
             float* __restrict__ y) {
@@ -57,9 +71,10 @@ tap9_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
 
   zero_pad(m, s);
   __syncthreads();
-  for (int e = threadIdx.x; e < n; e += kThreads) m.spad[pad_index(s, e)] = xb[e];
+  for (int e = threadIdx.x; e < n; e += kThreads)
+    m.spad[pad_index(s, e)] = kBf16 ? bf16_round(xb[e]) : xb[e];
   __syncthreads();
-  conv3x3(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
+  conv3x3<kBf16>(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
 }
 
 // kXg: the layout without sx (the state's global home, which this kernel
@@ -99,11 +114,16 @@ inline bool im2col_shape_ok(int H, int W, int C) {
   return (H * W + npg - 1) / npg <= kI2cPix && im2col_smem_bytes(H, W, C) <= kMaxSmem;
 }
 
+__device__ __forceinline__ float4 bf16_round4(float4 v) {
+  return make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
+}
+
 __device__ __forceinline__ void i2c_load_tap(float* dst, const float* __restrict__ src, int cc) {
   for (int i = threadIdx.x * 4; i < cc; i += kI2cThreads * 4) cp_async16(dst + i, src + i);
   cp_async_commit();
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kI2cThreads, 1)
 im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
               float* __restrict__ y) {
@@ -125,6 +145,7 @@ im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (sy >= 0 && sy < s.H && sx >= 0 && sx < s.W)
       v = __ldg(reinterpret_cast<const float4*>(xb + (sy * s.W + sx) * C) + ci4);
+    if (kBf16) v = bf16_round4(v);
     *reinterpret_cast<float4*>(patch + p * ld + tap * C + ci4 * 4) = v;
   }
 
@@ -148,10 +169,16 @@ im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
     const float* wt = sw + (tap & 1) * cc + cg * 4;
     const float* in = patch + tap * C;
     for (int ci = 0; ci < C; ci += 4) {
-      const float4 w0 = *reinterpret_cast<const float4*>(wt + (ci + 0) * C);
-      const float4 w1 = *reinterpret_cast<const float4*>(wt + (ci + 1) * C);
-      const float4 w2 = *reinterpret_cast<const float4*>(wt + (ci + 2) * C);
-      const float4 w3 = *reinterpret_cast<const float4*>(wt + (ci + 3) * C);
+      float4 w0 = *reinterpret_cast<const float4*>(wt + (ci + 0) * C);
+      float4 w1 = *reinterpret_cast<const float4*>(wt + (ci + 1) * C);
+      float4 w2 = *reinterpret_cast<const float4*>(wt + (ci + 2) * C);
+      float4 w3 = *reinterpret_cast<const float4*>(wt + (ci + 3) * C);
+      if (kBf16) {
+        w0 = bf16_round4(w0);
+        w1 = bf16_round4(w1);
+        w2 = bf16_round4(w2);
+        w3 = bf16_round4(w3);
+      }
 #pragma unroll
       for (int k = 0; k < kI2cPix; ++k) {
         if (k < np) {
@@ -188,30 +215,53 @@ im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
 
 }  // namespace nodef
 
-extern "C" int conv_probe_tap9(const float* x, const float* w, float* y,
-                               int B, int H, int W, int C, void* stream) {
+template <bool kBf16>
+static int launch_tap9(const float* x, const float* w, float* y,
+                       int B, int H, int W, int C, void* stream) {
   using namespace nodef;
   const Shape s = ffma_shape(H, W, C, 1);
   if (!layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odefunc_smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(
-      tap9_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      tap9_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tap9_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
+  tap9_kernel<kBf16><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
   return (int)cudaGetLastError();
 }
 
-extern "C" int conv_probe_im2col(const float* x, const float* w, float* y,
-                                 int B, int H, int W, int C, void* stream) {
+template <bool kBf16>
+static int launch_im2col(const float* x, const float* w, float* y,
+                         int B, int H, int W, int C, void* stream) {
   using namespace nodef;
   if (!im2col_shape_ok(H, W, C) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = im2col_smem_bytes(H, W, C);
   cudaError_t err = cudaFuncSetAttribute(
-      im2col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      im2col_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Shape s = ffma_shape(H, W, C, 1);
-  im2col_kernel<<<B, kI2cThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
+  im2col_kernel<kBf16><<<B, kI2cThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, w, s, y);
   return (int)cudaGetLastError();
+}
+
+extern "C" int conv_probe_tap9(const float* x, const float* w, float* y,
+                               int B, int H, int W, int C, void* stream) {
+  return launch_tap9<false>(x, w, y, B, H, W, C, stream);
+}
+
+extern "C" int conv_probe_tap9_bf16(const float* x, const float* w, float* y,
+                                    int B, int H, int W, int C, void* stream) {
+  return launch_tap9<true>(x, w, y, B, H, W, C, stream);
+}
+
+extern "C" int conv_probe_im2col(const float* x, const float* w, float* y,
+                                 int B, int H, int W, int C, void* stream) {
+  return launch_im2col<false>(x, w, y, B, H, W, C, stream);
+}
+
+extern "C" int conv_probe_im2col_bf16(const float* x, const float* w, float* y,
+                                      int B, int H, int W, int C, void* stream) {
+  return launch_im2col<true>(x, w, y, B, H, W, C, stream);
 }
 
 template <int PASSES>
@@ -239,4 +289,9 @@ extern "C" int conv_probe_mma3(const float* x, const float* w, float* y,
 extern "C" int conv_probe_mma1(const float* x, const float* w, float* y,
                                int B, int H, int W, int C, void* stream) {
   return launch_mma<1>(x, w, y, B, H, W, C, stream);
+}
+
+extern "C" int conv_probe_mma_bf16(const float* x, const float* w, float* y,
+                                   int B, int H, int W, int C, void* stream) {
+  return launch_mma<nodef::kPassBf16>(x, w, y, B, H, W, C, stream);
 }

@@ -57,6 +57,28 @@
 //     co = tid % C, pixel group pg = tid / C), at most kMaxPix pixels per
 //     thread, each tap's (C, C) weights double-buffered by cp.async.
 //
+// Each stage has a bf16 build, "bf16 multiplies, f32 accumulation" (the TPU
+// kernels' bf16 modes): conv3x3_mma<kPassBf16> packs both operands to bf16
+// (round to nearest even) as it builds the fragments of one
+// mma.sync.m16n8k16 bf16 pass, and conv3x3<true> rounds the weights as it
+// reads them and takes a conv input that its writer has rounded.  The tap
+// sums and their order are those of the f32 builds.  Which build an
+// evaluation runs is its precision (PREC below):
+//   kF32       every f32 kernel: the conv stage above, the rest f32;
+//   kBf16Conv  the fused step's conv_precision='bf16': the conv input is
+//              rounded where it is written and the convs run the bf16
+//              stage; GroupNorm, bias, time map and stage sums stay f32;
+//   kBf16      compute_dtype='bfloat16' dynamics, the port's plain bf16
+//              path (kernels/odefunc.py odefunc_plain, precision 'bf16'):
+//              h rounded on entry; each GroupNorm's normalised value, its
+//              scale product and its bias sum rounded (statistics in f32);
+//              the bf16 conv stage, then the conv output, its sum with the
+//              bias, t*M (t and M rounded) and the last sum each rounded.
+//              The conv output is rounded before the bias add, as a bf16
+//              conv and a bias add round on the card (cuDNN) and in the JAX
+//              jnp path; the CPU library folds the bias into the conv's one
+//              rounding.  f leaves as f32 holding bf16 values.
+//
 // GroupNorm uses the centred variance, as the JAX package does: per-(pixel
 // group, channel) partial sums in shared memory, then every thread adds up
 // its own group's partials (in the order pixel group, then channel) and
@@ -81,6 +103,11 @@ constexpr int kPadA = 8;       // floats added to spad's row pitch
 constexpr int kPitchB = 68;    // weight row pitch, tap stored (ci, co)
 constexpr int kPitchBT = 72;   // weight row pitch, tap stored (co, ci)
 constexpr int kRing = 3;       // weight buffers in flight (2 where short)
+
+// The precision of one evaluation (see the head of this file), and the
+// conv3x3_mma PASSES value of its one-pass bf16 build.
+constexpr int kF32 = 0, kBf16Conv = 1, kBf16 = 2;
+constexpr int kPassBf16 = 16;
 
 // Parameters of the ODEfunc, device pointers, all f32 and contiguous.
 struct Odefunc {
@@ -273,6 +300,21 @@ __device__ __forceinline__ int div_magic(int q, unsigned magic) {
   return magic ? (int)__umulhi((unsigned)q, magic) : q;
 }
 
+// x rounded to bf16 (to nearest even), as a float.
+__device__ __forceinline__ float bf16_round(float x) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(x), "f"(0.f));
+  return __uint_as_float(r & 0xffff0000u);
+}
+
+// lo and hi rounded to bf16 and packed, lo in the low half (an mma
+// fragment register).
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // The elements e = tid + j*kThreads of one sample in order, with their
 // pixel q(s) = e / C and channel c(s) = e % C.  CDIV: C divides kThreads
 // (s.cdiv), a power of two: both by shifts of e, and c is the thread's
@@ -404,9 +446,20 @@ __device__ Stat gn_stats(const Smem& m, const Shape& s, const float* x,
   return st;
 }
 
+// One GroupNorm output from x, its group's statistics and its channel's
+// scale and bias; kBf16 rounds the normalised value, the scale product and
+// the bias sum (scale and bias rounded too), as the plain bf16 path.
+template <int PREC>
+__device__ __forceinline__ float gn_affine(float x, float mean, float inv, float sc, float bi) {
+  if constexpr (PREC == kBf16)
+    return bf16_round(bf16_round(bf16_round((x - mean) * inv) * bf16_round(sc)) + bf16_round(bi));
+  else
+    return (x - mean) * inv * sc + bi;
+}
+
 // f(w, y) with y = GN(x) (scale, bias) at every element w of the thread,
 // from gn_stats' st (C dividing kThreads) or mean/inv (elsewhere).
-template <bool WIDE, class F>
+template <bool WIDE, int PREC = kF32, class F>
 __device__ __forceinline__ void gn_apply(const Shape& s, Stat st, const float* mean,
                                          const float* inv, const float* __restrict__ scale,
                                          const float* __restrict__ bias, const float* x, F f) {
@@ -414,23 +467,26 @@ __device__ __forceinline__ void gn_apply(const Shape& s, Stat st, const float* m
   if (!WIDE || s.cdiv) {  // every element lies in the channel tid % C
     const int c = threadIdx.x & (s.C - 1);
     const float sc = scale[c], bi = bias[c];
-    for (Walk<true> w(s); w.e < n; w.next(s)) f(w, (x[w.e] - st.mean) * st.inv * sc + bi);
+    for (Walk<true> w(s); w.e < n; w.next(s))
+      f(w, gn_affine<PREC>(x[w.e], st.mean, st.inv, sc, bi));
   } else {
     for (Walk<false> w(s); w.e < n; w.next(s)) {
       const int c = w.c(s), g = div_magic(c, s.gmagic);
-      f(w, (x[w.e] - mean[g]) * inv[g] * scale[c] + bias[c]);
+      f(w, gn_affine<PREC>(x[w.e], mean[g], inv[g], scale[c], bias[c]));
     }
   }
 }
 
 // spad interior = relu(GN(x)), from gn_stats' result.  NaN passes through,
-// as in torch.relu.
-template <bool WIDE>
+// as in torch.relu.  kBf16Conv rounds it to bf16 here, once, for the bf16
+// conv stage (kBf16's GroupNorm output is rounded already).
+template <bool WIDE, int PREC = kF32>
 __device__ void gn_relu_to_pad(const Smem& m, const Shape& s, const float* x, Stat st,
                                const float* __restrict__ scale,
                                const float* __restrict__ bias) {
-  gn_apply<WIDE>(s, st, m.smean, m.sinv, scale, bias, x, [&](const auto& w, float v) {
-    m.spad[pad_at(s, w.q(s), w.c(s))] = v < 0.f ? 0.f : v;
+  gn_apply<WIDE, PREC>(s, st, m.smean, m.sinv, scale, bias, x, [&](const auto& w, float v) {
+    const float r = v < 0.f ? 0.f : v;
+    m.spad[pad_at(s, w.q(s), w.c(s))] = PREC == kBf16Conv ? bf16_round(r) : r;
   });
 }
 
@@ -443,8 +499,10 @@ __device__ __forceinline__ void load_tap(float* dst, const float* __restrict__ s
 
 // 3x3 SAME conv of spad with w (9, C, C); the sum at output pixel p and
 // channel co is handed to epi(p, co, acc).  Caller synchronises before (spad
-// written) and after (whatever epi wrote).
-template <class Epi>
+// written) and after (whatever epi wrote).  BF16: the bf16 twin, each
+// weight rounded to bf16 as it is read, spad rounded by its writer; the
+// products of bf16 values are exact in f32, the sums as in the f32 build.
+template <bool BF16 = false, class Epi>
 __device__ void conv3x3(const Smem& m, const Shape& s, const float* __restrict__ w,
                         Epi epi) {
   const int tid = threadIdx.x, C = s.C, co = tid % C, pg = tid / C;
@@ -469,8 +527,14 @@ __device__ void conv3x3(const Smem& m, const Shape& s, const float* __restrict__
     const float* wt = m.sw + (tap & 1) * cc + co;
     const float* in = m.spad + ((tap / 3) * Wp + tap % 3) * s.P;
     for (int ci = 0; ci < C; ci += 4) {
-      const float w0 = wt[(ci + 0) * C], w1 = wt[(ci + 1) * C];
-      const float w2 = wt[(ci + 2) * C], w3 = wt[(ci + 3) * C];
+      float w0 = wt[(ci + 0) * C], w1 = wt[(ci + 1) * C];
+      float w2 = wt[(ci + 2) * C], w3 = wt[(ci + 3) * C];
+      if (BF16) {
+        w0 = bf16_round(w0);
+        w1 = bf16_round(w1);
+        w2 = bf16_round(w2);
+        w3 = bf16_round(w3);
+      }
 #pragma unroll
       for (int k = 0; k < kMaxPix; ++k) {
         if (k < np) {
@@ -530,6 +594,27 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
 }
 
+// d += a (16x16, row) * b (16x8, col), bf16 in (two k values per register,
+// the lower k in the low half), f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b: the bf16 product onto a zero accumulator.
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const float* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -567,7 +652,9 @@ __device__ __forceinline__ void load_tile_mma(float* dst, const float* __restric
 // with the contract of conv3x3: epi(p, co, sum) once per output pixel p and
 // channel co < C; the caller synchronises before and after.  PASSES = 3:
 // 3xTF32, f32-grade; PASSES = 1: the head product alone (plain TF32; a
-// timing and accuracy reading of the probe, on no path).  BT = false: w is
+// timing and accuracy reading of the probe, on no path); PASSES =
+// kPassBf16: one m16n8k16 bf16 pass per 16 channels, both operands rounded
+// to bf16 as their fragments are packed (BT = false only).  BT = false: w is
 // (9, ci, co), tap order as stored.  BT = true: the taps are read in reverse
 // order and each as (co, ci), i.e. the conv with the tap-flipped, transposed
 // kernel (the input gradient of the conv with w).  WIDE = false: C = 64 is
@@ -581,15 +668,17 @@ __device__ __forceinline__ void load_tile_mma(float* dst, const float* __restric
 // At C = 64 there is one block and the tiles are the nine taps.
 //
 // Order of the sums: the tensor core adds one tile's products (its half of
-// the tile's 64 input channels, tail products first within a k8 step) onto
-// a zero accumulator; that tile sum is added to the running sum by an f32
-// add on the CUDA cores, tiles in order; last, first half + second half.
+// the tile's 64 input channels, tail products first within a k8 step; two
+// k16 steps in the bf16 pass) onto a zero accumulator; that tile sum is
+// added to the running sum by an f32 add on the CUDA cores, tiles in order;
+// last, first half + second half.
 // The tensor core's own accumulation truncates, so a chain over all nine
 // taps would carry a bias of a few 1e-6 of the sum; a chain of one tile (32
 // channels, as at C = 64) does not, at any C.
 template <int PASSES, bool BT, bool WIDE, bool GENERAL, class Epi>
 __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restrict__ w,
                             Epi epi) {
+  static_assert(PASSES != kPassBf16 || !BT, "the bf16 pass has no transposed build");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int kg = warp >> 3, wm = (warp >> 2) & 1, wn = warp & 3;
@@ -636,8 +725,40 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
       const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P + kb * kMmaC);
       const uint32_t b_tap = b_thread + 4u * (buf * stage);
       float acc[2][2][4];
+      if constexpr (PASSES == kPassBf16) {
+        // Two k16 steps over the warp's 32 input channels.  The thread's k
+        // values are 2t, 2t + 1 (fragment register 0) and 2t + 8, 2t + 9
+        // (register 1 of B, 2 of A), as the bf16 fragments lay them out: A
+        // rows g and g + 8 by two 8-byte loads each, B column g from four
+        // weight rows.
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t b16[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t bj = b_tap + 4u * ((16 * ks) * pitch + 8 * j);
+            b16[j][0] = bf16x2(lds(bj), lds(bj + 4u * pitch));
+            b16[j][1] = bf16x2(lds(bj + 4u * (8 * pitch)), lds(bj + 4u * (9 * pitch)));
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const uint32_t ai = a_tap + 4u * ((16 * i) * P + 16 * ks);
+            const float2 r0 = lds2(ai), r1 = lds2(ai + 4u * (8 * P));
+            const float2 r2 = lds2(ai + 4u * 8), r3 = lds2(ai + 4u * (8 * P + 8));
+            const uint32_t a16[4] = {bf16x2(r0.x, r0.y), bf16x2(r1.x, r1.y),
+                                     bf16x2(r2.x, r2.y), bf16x2(r3.x, r3.y)};
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (ks == 0) mma_bf16_zero(acc[i][j], a16, b16[j]);
+              else mma_bf16(acc[i][j], a16, b16[j]);
+            }
+          }
+        }
+      }
+      // The k8 steps of the TF32 passes (none in the bf16 pass).
+      constexpr int kSteps = PASSES == kPassBf16 ? 0 : 4;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
         uint32_t bhi[2][2], blo[2][2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
@@ -744,46 +865,55 @@ __device__ __forceinline__ void mma_stage(const Smem& m, const Shape& s,
 }
 
 // The conv stage of the shape: tensor cores (3xTF32) where make_shape says
-// so, else FFMA.  WIDE: wide_shape(s).
-template <bool WIDE, class Epi>
+// so, else FFMA; each in its bf16 build where PREC is not kF32.  WIDE:
+// wide_shape(s).
+template <bool WIDE, int PREC = kF32, class Epi>
 __device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
                                            const float* __restrict__ w, Epi epi) {
-  if (s.mma) mma_stage<3, false, WIDE>(m, s, w, epi);
-  else conv3x3(m, s, w, epi);
+  if (s.mma) mma_stage<PREC == kF32 ? 3 : kPassBf16, false, WIDE>(m, s, w, epi);
+  else conv3x3<PREC != kF32>(m, s, w, epi);
 }
 
-// sx[p, co] = (conv3x3(spad, w) + bias[co]) + t * M[p, co].
-template <bool WIDE>
+// sx[p, co] = (conv3x3(spad, w) + bias[co]) + t * M[p, co]; kBf16 rounds
+// the conv output, its sum with the bias, t * M and the last sum, with bias
+// and M rounded (t is rounded by the caller).
+template <bool WIDE, int PREC = kF32>
 __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
                                               const float* __restrict__ w,
                                               const float* __restrict__ bias,
                                               const float* __restrict__ tmap, float t) {
   const int C = s.C;
-  conv_stage<WIDE>(m, s, w, [&](int p, int co, float acc) {
-    m.sx[p * C + co] = (acc + bias[co]) + t * tmap[p * C + co];
+  conv_stage<WIDE, PREC>(m, s, w, [&](int p, int co, float acc) {
+    if constexpr (PREC == kBf16)
+      m.sx[p * C + co] = bf16_round(bf16_round(bf16_round(acc) + bf16_round(bias[co])) +
+                                    bf16_round(t * bf16_round(tmap[p * C + co])));
+    else
+      m.sx[p * C + co] = (acc + bias[co]) + t * tmap[p * C + co];
   });
 }
 
-// f(t, sx) for one sample.  sx holds the input state and the caller has
-// synchronised after writing it.  The result is handed to out(e, value) for
-// e = threadIdx.x + j * kThreads, reading sx only at those e, so the caller
-// may overwrite sx[e] at the same e without another barrier.
-template <bool WIDE, class Out>
+// f(t, sx) for one sample at precision PREC.  sx holds the input state
+// (kBf16: rounded to bf16) and the caller has synchronised after writing
+// it.  The result is handed to out(e, value) for e = threadIdx.x + j *
+// kThreads, reading sx only at those e, so the caller may overwrite sx[e]
+// at the same e without another barrier.
+template <bool WIDE, int PREC = kF32, class Out>
 __device__ void odefunc_eval(const Smem& m, const Shape& s, const Odefunc& p,
                              float t, Out out) {
+  if constexpr (PREC == kBf16) t = bf16_round(t);
   Stat st = gn_stats<WIDE>(m, s, m.sx, m.smean, m.sinv);
-  gn_relu_to_pad<WIDE>(m, s, m.sx, st, p.n1s, p.n1b);
+  gn_relu_to_pad<WIDE, PREC>(m, s, m.sx, st, p.n1s, p.n1b);
   __syncthreads();
-  conv3x3_to_sx<WIDE>(m, s, p.w1, p.b1, p.m1, t);
-  __syncthreads();
-  st = gn_stats<WIDE>(m, s, m.sx, m.smean, m.sinv);
-  gn_relu_to_pad<WIDE>(m, s, m.sx, st, p.n2s, p.n2b);
-  __syncthreads();
-  conv3x3_to_sx<WIDE>(m, s, p.w2, p.b2, p.m2, t);
+  conv3x3_to_sx<WIDE, PREC>(m, s, p.w1, p.b1, p.m1, t);
   __syncthreads();
   st = gn_stats<WIDE>(m, s, m.sx, m.smean, m.sinv);
-  gn_apply<WIDE>(s, st, m.smean, m.sinv, p.n3s, p.n3b, m.sx,
-                 [&](const auto& w, float v) { out(w.e, v); });
+  gn_relu_to_pad<WIDE, PREC>(m, s, m.sx, st, p.n2s, p.n2b);
+  __syncthreads();
+  conv3x3_to_sx<WIDE, PREC>(m, s, p.w2, p.b2, p.m2, t);
+  __syncthreads();
+  st = gn_stats<WIDE>(m, s, m.sx, m.smean, m.sinv);
+  gn_apply<WIDE, PREC>(s, st, m.smean, m.sinv, p.n3s, p.n3b, m.sx,
+                       [&](const auto& w, float v) { out(w.e, v); });
 }
 
 }  // namespace nodef

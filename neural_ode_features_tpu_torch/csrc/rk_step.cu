@@ -22,6 +22,10 @@
 // maps mma.sync TF32 products with 3xTF32 error compensation (f32-grade, so
 // the accept/reject decisions follow the f32 plain version's), at other
 // shapes f32 FFMA.  kWide, kXg: the build (odefunc_common.cuh wide_shape).
+// kPrec: rk_step_forward is the f32 kernel; rk_step_forward_bf16 is the
+// fused step's conv_precision='bf16' (kBf16Conv): the twelve convs on the
+// bf16 stage (bf16 operands, f32 accumulation), GroupNorm, bias, time map,
+// stage sums and error ratio f32, as the TPU kernel's mxu_dtype=bf16.
 // Where the stage input y_i does not fit in shared memory (fit_layout, the
 // kXg build), the y1 output is its buffer until the last pass writes y1.
 #include <float.h>
@@ -37,7 +41,7 @@ struct Tableau {  // f32 coefficients, zero where a term is skipped
   float b[kStages], e[kStages], c[kStages], mid[kStages];
 };
 
-template <bool kWide, bool kXg>
+template <bool kWide, bool kXg, int kPrec>
 __global__ void __launch_bounds__(kThreads, min_blocks(kWide))
 rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
                const float* __restrict__ y0, const float* __restrict__ f0,
@@ -91,7 +95,7 @@ rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
     }
     __syncthreads();
     float* ki = kp(i);
-    odefunc_eval<kWide>(m, s, p, tb + st.c[i] * h, [&](int e, float v) { ki[e] = v; });
+    odefunc_eval<kWide, kPrec>(m, s, p, tb + st.c[i] * h, [&](int e, float v) { ki[e] = v; });
   }
 
   float r2 = 0.f;
@@ -129,24 +133,17 @@ rk_step_kernel(const float* __restrict__ t0, const float* __restrict__ dt,
   }
 }
 
-}  // namespace nodef
-
-extern "C" int rk_step_forward(
-    const float* t0, const float* dt, const float* y0, const float* f0,
-    const float* n1s, const float* n1b, const float* w1, const float* b1, const float* m1,
-    const float* n2s, const float* n2b, const float* w2, const float* b2, const float* m2,
-    const float* n3s, const float* n3b,
-    const float* tableau,  // host: a (7x7), b, b_err, c, c_mid (7 each), f32
-    const float* rtol, const float* atol,  // device: (B,) each
-    float* ks, float* y1, float* f1, float* ymid, float* ratio,
-    int B, int H, int W, int C, int G, void* stream) {
-  using namespace nodef;
+template <int kPrec>
+int launch(const float* t0, const float* dt, const float* y0, const float* f0,
+           const Odefunc& p, const float* tableau, const float* rtol, const float* atol,
+           float* ks, float* y1, float* f1, float* ymid, float* ratio,
+           int B, int H, int W, int C, int G, void* stream) {
   if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(H, W, C, G);
   const size_t smem = odefunc_smem_bytes(s);
-  const auto kernel = !wide_shape(s) ? rk_step_kernel<false, false>
-                      : s.xg        ? rk_step_kernel<true, true>
-                                    : rk_step_kernel<true, false>;
+  const auto kernel = !wide_shape(s) ? rk_step_kernel<false, false, kPrec>
+                      : s.xg        ? rk_step_kernel<true, true, kPrec>
+                                    : rk_step_kernel<true, false, kPrec>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -158,8 +155,31 @@ extern "C" int rk_step_forward(
   for (int i = 0; i < kStages; ++i) tab.e[i] = *q++;
   for (int i = 0; i < kStages; ++i) tab.c[i] = *q++;
   for (int i = 0; i < kStages; ++i) tab.mid[i] = *q++;
-  const Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
   kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       t0, dt, y0, f0, p, s, tab, rtol, atol, ks, y1, f1, ymid, ratio);
   return (int)cudaGetLastError();
+}
+
+}  // namespace nodef
+
+// tableau: host, a (7x7), b, b_err, c, c_mid (7 each), f32; rtol, atol:
+// device, (B,) each.
+#define NODEF_RK_STEP_ARGS                                                               \
+  const float *t0, const float *dt, const float *y0, const float *f0, const float *n1s,  \
+      const float *n1b, const float *w1, const float *b1, const float *m1,                \
+      const float *n2s, const float *n2b, const float *w2, const float *b2,               \
+      const float *m2, const float *n3s, const float *n3b, const float *tableau,          \
+      const float *rtol, const float *atol, float *ks, float *y1, float *f1,              \
+      float *ymid, float *ratio, int B, int H, int W, int C, int G, void *stream
+
+extern "C" int rk_step_forward(NODEF_RK_STEP_ARGS) {
+  const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
+  return nodef::launch<nodef::kF32>(t0, dt, y0, f0, p, tableau, rtol, atol, ks, y1, f1,
+                                    ymid, ratio, B, H, W, C, G, stream);
+}
+
+extern "C" int rk_step_forward_bf16(NODEF_RK_STEP_ARGS) {
+  const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
+  return nodef::launch<nodef::kBf16Conv>(t0, dt, y0, f0, p, tableau, rtol, atol, ks, y1,
+                                         f1, ymid, ratio, B, H, W, C, G, stream);
 }

@@ -1,5 +1,5 @@
 """The 3×3 conv probe kernels: ``y = conv3x3_same(x, w)`` alone, in one CUDA
-launch, one CTA per sample, under four strategies.
+launch, one CTA per sample, under four f32 strategies and three bf16 twins.
 
 Replaces the TPU kernels of ``probes/conv_probe.py``: ``pallas_conv_2d``
 (kernels from ``make_roll_kernel``) and ``pallas_conv`` (``make_kernel``,
@@ -31,13 +31,27 @@ time map: x (B, H, W, C) f32 NHWC, w (3, 3, C, C) f32 HWIO.  Strategies:
               thread a 4-channel × 4-pixel register tile (the counterpart of
               ``im2col``/``im2colS``/``rollS``).
 
+The bf16 twins, "bf16 multiplies, f32 accumulation" (the JAX probe's
+``<strategy>_bf16``: both operands cast to bf16, products summed in f32),
+whose plain version is ``conv3x3_plain(x, w, passes="bf16")``:
+
+``'mma_bf16'``    the bf16 conv stage of ``conv3x3_mma``: one
+                  ``mma.sync.m16n8k16`` bf16 pass per 16 channels, operands
+                  rounded to nearest even as the fragments are packed.  The
+                  conv stage of the bf16 builds of ``odefunc.cu`` and
+                  ``rk_step.cu``, with ``mma3``'s gate.
+``'tap9_bf16'``   ``tap9`` on bf16-rounded operands (the bf16 builds' stage
+                  at the FFMA shapes).
+``'im2col_bf16'`` ``im2col`` on bf16-rounded operands.
+
 Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 on them, 3.35 TB/s): at B = 256, 7×7×64 the conv is 0.925 GFLOP, 13.8 µs of
 FFMA or 1.9 µs of TF32 products, against 6.6 MB moved, 2.0 µs.  So ``tap9``
 and ``im2col`` are bound by operations, and with the tensor cores the conv
 is bound by bytes.  ``mma3`` itself forms three products over a 64-row tile
-(49 rows real): 3.6 GFLOP, 7.3 µs at the TF32 peak.  A ``wgmma`` design and
-the ``*_bf16`` strategies are later work (ROADMAP.md, Queue 2 item 5).
+(49 rows real): 3.6 GFLOP, 7.3 µs at the TF32 peak; ``mma_bf16`` one, 1.2
+GFLOP, 1.2 µs at 989 TFLOP/s dense bf16, so it too is bound by bytes.  A
+``wgmma`` design is later work (ROADMAP.md, Queue 2 (g)).
 
 ``conv3x3`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``conv3x3_plain``; a CUDA tensor launches the kernel or raises.
@@ -46,7 +60,8 @@ the ``*_bf16`` strategies are later work (ROADMAP.md, Queue 2 item 5).
 ``tf32_split``, ``conv3x3_plain(passes=3 | 1)`` and ``conv3x3_padded_pitch``
 emulate the tensor-core stage's arithmetic and its row mapping in plain
 PyTorch.  Tests and the probe's error report use them; nothing on a path
-does.
+does.  ``passes="bf16"`` is the bf16 twins' function itself (operands
+rounded, products exact, sums in ``x``'s dtype).
 """
 
 from __future__ import annotations
@@ -58,14 +73,17 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .odefunc import MAX_SMEM, MMA_M, ptr, stage, stream
+from .odefunc import MAX_SMEM, MMA_M, bf16_round, ptr, stage, stream
 from .odefunc import supported as _fused_supported
 
-__all__ = ["STRATEGIES", "conv3x3", "conv3x3_plain", "conv3x3_padded_pitch",
-           "tf32_split", "supported", "smem_bytes", "conv_flops",
-           "conv_bytes"]
+__all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
+           "conv3x3_padded_pitch", "tf32_split", "supported", "smem_bytes",
+           "conv_flops", "conv_bytes"]
 
 STRATEGIES = ("tap9", "im2col", "mma3", "mma1")
+# The bf16 twins; each has its f32 strategy's gate.
+BF16_STRATEGIES = ("mma_bf16", "tap9_bf16", "im2col_bf16")
+_TWIN = {"mma_bf16": "mma3", "tap9_bf16": "tap9", "im2col_bf16": "im2col"}
 
 # Mirrors csrc/conv_probe.cu (kI2cThreads, kI2cPix, kI2cPad).
 _I2C_THREADS = 256
@@ -92,11 +110,15 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _tap_product(a: torch.Tensor, b: torch.Tensor, passes) -> torch.Tensor:
     """One tap's (…, C) @ (C, C) product: plain (``passes=None``), or from
     TF32 heads and tails as the tensor-core stage forms it, the tail
-    products first (3), or the head product alone (1)."""
+    products first (3), or the head product alone (1), or of operands
+    rounded to bf16 (``"bf16"``)."""
     if passes is None:
         return a @ b
+    if passes == "bf16":
+        return bf16_round(a) @ bf16_round(b)
     if passes not in (1, 3):
-        raise ValueError(f"passes must be None, 1 or 3, got {passes!r}")
+        raise ValueError(f"passes must be None, 1, 3 or 'bf16', got "
+                         f"{passes!r}")
     a_hi, a_lo = tf32_split(a)
     b_hi, b_lo = tf32_split(b)
     if passes == 1:
@@ -105,13 +127,16 @@ def _tap_product(a: torch.Tensor, b: torch.Tensor, passes) -> torch.Tensor:
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor,
-                  passes: int | None = None) -> torch.Tensor:
+                  passes: int | str | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernels: nine shifted slices of the
     zero-padded NHWC map, each times its (C, C) tap, summed in tap order
     (the kernels' arithmetic, step by step), in ``x``'s dtype.  ``passes=3``
     and ``passes=1`` (float32 only) form each tap's product from TF32 heads
     and tails as ``mma3`` and ``mma1`` do; they are an emulation for tests
-    and error reports, used by nothing on a path."""
+    and error reports, used by nothing on a path.  ``passes="bf16"``: both
+    operands rounded to bf16 and the products summed in ``x``'s dtype, the
+    plain version of the bf16 strategies (the JAX probe's ``_bf16``
+    arithmetic, bf16 operands with ``preferred_element_type=float32``)."""
     _, hh, ww, _ = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     out = None
@@ -164,7 +189,9 @@ def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
     (``kernels.odefunc.stage``: C a multiple of 32 from 64 to 512 and
     H·(W+2) ≤ 64) and its working set within shared memory
     (``kernels.odefunc.layout``).  7×7×64 and 6×6×64 pass all four, 7×7×96
-    to 7×7×512 the tensor-core two."""
+    to 7×7×512 the tensor-core two.  A bf16 twin has its f32 strategy's
+    gate."""
+    strategy = _TWIN.get(strategy, strategy)
     if strategy in ("mma3", "mma1"):
         return (stage(hw, c) == "mma3"
                 and _fused_supported(hw, c, 1, "mma3"))
@@ -192,7 +219,7 @@ def conv_bytes(b: int, hw: tuple[int, int], c: int) -> int:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_probe")
-    for strategy in STRATEGIES:
+    for strategy in STRATEGIES + BF16_STRATEGIES:
         fn = getattr(lib, f"conv_probe_{strategy}")
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
@@ -204,20 +231,17 @@ def _lib() -> ctypes.CDLL:
 def conv3x3(x: torch.Tensor, w: torch.Tensor,
             strategy: str = "tap9") -> torch.Tensor:
     """3×3 SAME conv C → C of ``x`` (B, H, W, C) float32 NHWC with ``w``
-    (3, 3, C, C) HWIO, no bias."""
-    if strategy.endswith("_bf16"):
-        raise NotImplementedError(
-            f"strategy {strategy!r}: the CUDA conv kernels compute in f32 "
-            "only; bf16 multiplies wait for the tensor-core kernels "
-            "(ROADMAP.md, Queue 2 item 5)")
-    if strategy not in STRATEGIES:
+    (3, 3, C, C) HWIO, no bias.  A bf16 strategy rounds both operands to
+    bf16 and sums the products in f32."""
+    if strategy not in STRATEGIES + BF16_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; available: "
-                         f"{STRATEGIES}")
+                         f"{STRATEGIES + BF16_STRATEGIES}")
     if x.ndim != 4 or tuple(w.shape) != (3, 3, x.shape[-1], x.shape[-1]):
         raise ValueError(f"expected x (B, H, W, C) and w (3, 3, C, C), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.device.type == "cpu":
-        return conv3x3_plain(x, w)
+        return conv3x3_plain(x, w, "bf16" if strategy in BF16_STRATEGIES
+                             else None)
     b, hh, ww, c = x.shape
     if b < 1 or not supported((hh, ww), c, strategy):
         raise ValueError(

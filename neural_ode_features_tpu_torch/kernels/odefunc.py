@@ -29,13 +29,31 @@ weight ring drops from three buffers to two: 7×7×512 runs that way.
 PyTorch's own TF32 switches stay off: the kernels' TF32 is explicit and
 compensated, a library's is not.
 
+``compute_dtype=torch.bfloat16`` runs a second build of the kernel (the
+operator ``nodef::odefunc_bf16``): the port's plain bf16 dynamics (the
+JAX jnp path's, :func:`odefunc_plain` with ``precision='bf16'``), h
+rounded to bf16 on entry, each GroupNorm's normalised value, scale product
+and bias sum rounded (statistics in f32), both convs on the bf16 conv stage
+(``mma.sync.m16n8k16`` bf16 products, f32 accumulation; f32 FFMA on
+bf16-rounded operands at the FFMA shapes), then the conv output, its sum
+with the bias, t·M and the last sum each rounded; f returns as float32
+holding bf16 values.  The conv output is rounded before the bias add, as
+cuDNN's bf16 conv and PyTorch's bias add round on the card and as the JAX
+jnp path rounds; on the CPU the library folds the bias into the conv's one
+rounding, which puts the kernel within a few u of the CPU's plain version
+(``tests/test_torch_bf16_kernels.py``).  It takes
+exactly the shapes and layouts of the f32 build.  Bound at B = 256,
+7×7×64: 1.85 GFLOP at 989 TFLOP/s dense bf16 against 6.4 MB at
+3.35 TB/s, about 1.9 µs, bound by bytes.
+
 ``odefunc`` is the wrapper, one call of the operator ``nodef::odefunc``
 (``kernels/ops.py``): a CPU tensor takes the plain PyTorch version
 ``odefunc_plain`` (which the tests hold against the JAX package); a CUDA
 tensor launches the kernel (:func:`launch`) or raises.
-``odefunc.launches`` counts launches.
+``odefunc.launches`` counts the f32 build's launches,
+``odefunc.launches_bf16`` the bf16 build's.
 
-The VJP pair (the counterpart of the JAX ``odefunc_pallas_vjp``):
+The VJP pair, f32 only (the counterpart of the JAX ``odefunc_pallas_vjp``):
 ``odefunc_autograd`` is a ``torch.autograd.Function`` whose forward is this
 kernel and whose backward is the fused backward kernel
 (``kernels/odefunc_bwd.py``); ``odefunc_vjp`` gives ``(f, dθ, dt, dh)`` in
@@ -55,7 +73,7 @@ from . import _build
 
 __all__ = ["OdefuncWeights", "Layout", "prepare", "supported", "refusal",
            "layout", "smem_bytes", "stage", "odefunc", "odefunc_plain",
-           "odefunc_autograd", "odefunc_vjp"]
+           "odefunc_autograd", "odefunc_vjp", "PRECISIONS", "bf16_round"]
 
 # Mirrors csrc/odefunc_common.cuh (kThreads, kMaxC, kMaxPix, kMaxSmem;
 # kMmaC, kMmaStep, kMmaM, kPadA, kPitchBT, kRing of the tensor-core stage).
@@ -69,6 +87,8 @@ MMA_M = 64
 PAD_A = 8
 PITCH_BT = 72
 RING = 3
+# odefunc_plain's precisions (csrc/odefunc_common.cuh kF32, kBf16Conv, kBf16).
+PRECISIONS = ("f32", "bf16_conv", "bf16")
 
 
 class OdefuncWeights(NamedTuple):
@@ -90,11 +110,17 @@ class OdefuncWeights(NamedTuple):
     n3b: torch.Tensor
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even), in ``x``'s dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def prepare(params, hw: tuple[int, int]) -> OdefuncWeights:
     """Lay out an ODEfunc param dict (``norm1/conv1/norm2/conv2/norm3``,
     conv kernels (3, 3, C+1, C)) for maps of spatial shape ``hw``.  The time
-    maps are computed here once, in strict f32.  Weights already laid out
-    are returned as they are."""
+    maps are computed here once, in strict f32.  Both builds of the kernel
+    take this f32 layout (the bf16 build rounds what it reads, as the plain
+    bf16 path casts).  Weights already laid out are returned as they are."""
     if isinstance(params, OdefuncWeights):
         return params
     hh, ww = hw
@@ -227,18 +253,35 @@ def supported(hw: tuple[int, int], c: int, groups: int,
     return refusal(hw, c, groups, conv_stage) is None
 
 
-def odefunc_plain(w: OdefuncWeights, t, h: torch.Tensor,
-                  groups: int) -> torch.Tensor:
+def odefunc_plain(w: OdefuncWeights, t, h: torch.Tensor, groups: int,
+                  precision: str = "f32") -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function, with the
-    same split ConcatConv (conv + b + t·M)."""
-    t = torch.as_tensor(t, dtype=h.dtype, device=h.device).reshape(-1, 1, 1, 1)
-    out = torch.relu(group_norm({"scale": w.n1s, "bias": w.n1b}, h,
+    same split ConcatConv (conv + b + t·M).  ``precision``: ``'f32'``, in
+    ``h``'s dtype; ``'bf16_conv'``, the fused step's
+    ``conv_precision='bf16'``: each conv's operands rounded to bf16, the
+    products and everything else in ``h``'s dtype; ``'bf16'``, the bf16
+    dynamics (``compute_dtype='bfloat16'``): the whole function in bfloat16
+    as the port's CPU path computes it (``models.odenet.odefunc_apply``,
+    ``ops.layers``), f returned in ``h``'s dtype."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    x = h.to(torch.bfloat16) if precision == "bf16" else h
+    t = torch.as_tensor(t, dtype=x.dtype, device=h.device).reshape(-1, 1, 1, 1)
+    op = bf16_round if precision == "bf16_conv" else (lambda a: a)
+
+    def conv(out, kernel, bias, tmap):
+        out = conv2d({"kernel": op(kernel), "bias": bias}, op(out), padding=1)
+        return out + t * tmap.to(x.dtype)
+
+    out = torch.relu(group_norm({"scale": w.n1s, "bias": w.n1b}, x,
                                 groups=groups))
-    out = conv2d({"kernel": w.w1, "bias": w.b1}, out, padding=1) + t * w.m1
+    out = conv(out, w.w1, w.b1, w.m1)
     out = torch.relu(group_norm({"scale": w.n2s, "bias": w.n2b}, out,
                                 groups=groups))
-    out = conv2d({"kernel": w.w2, "bias": w.b2}, out, padding=1) + t * w.m2
-    return group_norm({"scale": w.n3s, "bias": w.n3b}, out, groups=groups)
+    out = conv(out, w.w2, w.b2, w.m2)
+    out = group_norm({"scale": w.n3s, "bias": w.n3b}, out, groups=groups)
+    return out.to(h.dtype)
 
 
 def ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -300,48 +343,64 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+# The C entry point of each build of the kernel (csrc/odefunc.cu).
+_ENTRY = {"f32": "odefunc_forward", "bf16": "odefunc_forward_bf16"}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("odefunc")
-    fn = lib.odefunc_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 
 def launch(w: OdefuncWeights, t: torch.Tensor, h: torch.Tensor,
-           groups: int) -> torch.Tensor:
+           groups: int, precision: str = "f32") -> torch.Tensor:
     """One launch of the kernel on CUDA tensors (the CUDA side of the
-    operator ``nodef::odefunc``, ``kernels/ops.py``): ``t`` (B,) float32,
-    ``h`` (B, H, W, C).  Checks what the kernel takes and raises on anything
-    else; counts the launch in ``odefunc.launches``."""
+    operators ``nodef::odefunc`` and, ``precision='bf16'``,
+    ``nodef::odefunc_bf16``, ``kernels/ops.py``): ``t`` (B,) float32, ``h``
+    (B, H, W, C).  Checks what the kernel takes and raises on anything
+    else; counts the launch in ``odefunc.launches`` (the f32 build) or
+    ``odefunc.launches_bf16``."""
     b, hh, ww, c = h.shape
     check_cuda_inputs(w, {"h": h}, (hh, ww), c, groups)
     out = torch.empty_like(h)
     lib = _lib()
-    code = lib.odefunc_forward(
+    entry = _ENTRY[precision]
+    code = getattr(lib, entry)(
         ptr(t), ptr(h), *weight_pointers(w), ptr(out),
         b, hh, ww, c, groups, stream())
-    _build.check(lib, code, "odefunc_forward")
-    odefunc.launches += 1
+    _build.check(lib, code, entry)
+    if precision == "bf16":
+        odefunc.launches_bf16 += 1
+    else:
+        odefunc.launches += 1
     return out
 
 
-def odefunc(params, t, h: torch.Tensor, *, groups: int = 32) -> torch.Tensor:
+def odefunc(params, t, h: torch.Tensor, *, groups: int = 32,
+            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """f(t, h) for ``h`` (B, H, W, C) float32 NHWC and ``t`` scalar or (B,).
-    ``params``: an ODEfunc param dict or :class:`OdefuncWeights`.  One call
-    of the operator ``nodef::odefunc``: on a CUDA tensor the kernel, on a
-    CPU tensor :func:`odefunc_plain`."""
+    ``params``: an ODEfunc param dict or :class:`OdefuncWeights`.
+    ``compute_dtype``: float32, or bfloat16 for the bf16 dynamics.  One
+    call of the operator ``nodef::odefunc`` (``nodef::odefunc_bf16``): on a
+    CUDA tensor the kernel's build, on a CPU tensor :func:`odefunc_plain`
+    at that precision."""
     b, hh, ww, _ = h.shape
+    bf16 = compute_dtype == torch.bfloat16
     w = prepare(params, (hh, ww))
     dtype = torch.float32 if h.is_cuda else h.dtype
     t = torch.as_tensor(t, dtype=dtype, device=h.device)
     t = t.reshape(-1).expand(b).contiguous()
-    return torch.ops.nodef.odefunc(t, h, list(w), groups)
+    op = torch.ops.nodef.odefunc_bf16 if bf16 else torch.ops.nodef.odefunc
+    return op(t, h, list(w), groups)
 
 
-odefunc.launches = 0
+odefunc.launches = odefunc.launches_bf16 = 0
 
 
 # The raw ODEfunc parameter leaves, in the order the VJP pair passes them.

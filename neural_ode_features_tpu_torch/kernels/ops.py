@@ -4,6 +4,11 @@
     torch.ops.nodef.dopri5_step(t0, dt, y0, f0, w, rtol, atol, height,
                                 width, groups) -> (y1, f1, y_mid, ratio)
 
+and their bf16 builds under the same schemas, ``nodef::odefunc_bf16`` (the
+``compute_dtype='bfloat16'`` dynamics) and ``nodef::dopri5_step_bf16``
+(``conv_precision='bf16'``); the f32 schemas are those of the programs
+``export_model export`` has written.
+
 ``w`` is the twelve tensors of ``kernels.odefunc.OdefuncWeights`` (the
 ODEfunc weights laid out for the kernels), ``t`` and the tolerances ``(B,)``
 rows.  Each operator has three implementations: CUDA, the kernel's launch
@@ -40,18 +45,27 @@ from . import rk_step as _rk_step
 __all__ = ["LIB"]
 
 LIB = torch.library.Library("nodef", "DEF")
-LIB.define("odefunc(Tensor t, Tensor h, Tensor[] w, int groups) -> Tensor")
-LIB.define("dopri5_step(Tensor t0, Tensor dt, Tensor y0, Tensor f0, "
-           "Tensor[] w, Tensor rtol, Tensor atol, int height, int width, "
-           "int groups) -> (Tensor, Tensor, Tensor, Tensor)")
+_ODEFUNC = "(Tensor t, Tensor h, Tensor[] w, int groups) -> Tensor"
+_STEP = ("(Tensor t0, Tensor dt, Tensor y0, Tensor f0, Tensor[] w, "
+         "Tensor rtol, Tensor atol, int height, int width, int groups) -> "
+         "(Tensor, Tensor, Tensor, Tensor)")
+for _suffix in ("", "_bf16"):
+    LIB.define(f"odefunc{_suffix}{_ODEFUNC}")
+    LIB.define(f"dopri5_step{_suffix}{_STEP}")
 
 
-def _odefunc_cpu(t, h, w, groups):
-    return _odefunc.odefunc_plain(_odefunc.OdefuncWeights(*w), t, h, groups)
+def _odefunc_cpu(precision):
+    def impl(t, h, w, groups):
+        return _odefunc.odefunc_plain(_odefunc.OdefuncWeights(*w), t, h,
+                                      groups, precision)
+    return impl
 
 
-def _odefunc_cuda(t, h, w, groups):
-    return _odefunc.launch(_odefunc.OdefuncWeights(*w), t, h, groups)
+def _odefunc_cuda(precision):
+    def impl(t, h, w, groups):
+        return _odefunc.launch(_odefunc.OdefuncWeights(*w), t, h, groups,
+                               precision)
+    return impl
 
 
 def _gate(hw, c, groups, device):
@@ -65,15 +79,20 @@ def _odefunc_fake(t, h, w, groups):
     return torch.empty_like(h)
 
 
-def _step_cpu(t0, dt, y0, f0, w, rtol, atol, height, width, groups):
-    return _rk_step.dopri5_step_plain(
-        _odefunc.OdefuncWeights(*w), DOPRI5, t0, dt, y0, f0,
-        hw=(height, width), groups=groups, rtol=rtol, atol=atol)
+def _step_cpu(conv_precision):
+    def impl(t0, dt, y0, f0, w, rtol, atol, height, width, groups):
+        return _rk_step.dopri5_step_plain(
+            _odefunc.OdefuncWeights(*w), DOPRI5, t0, dt, y0, f0,
+            hw=(height, width), groups=groups, rtol=rtol, atol=atol,
+            conv_precision=conv_precision)
+    return impl
 
 
-def _step_cuda(t0, dt, y0, f0, w, rtol, atol, height, width, groups):
-    return _rk_step.launch(_odefunc.OdefuncWeights(*w), t0, dt, y0, f0,
-                           rtol, atol, (height, width), groups)
+def _step_cuda(precision):
+    def impl(t0, dt, y0, f0, w, rtol, atol, height, width, groups):
+        return _rk_step.launch(_odefunc.OdefuncWeights(*w), t0, dt, y0, f0,
+                               rtol, atol, (height, width), groups, precision)
+    return impl
 
 
 def _step_fake(t0, dt, y0, f0, w, rtol, atol, height, width, groups):
@@ -84,8 +103,12 @@ def _step_fake(t0, dt, y0, f0, w, rtol, atol, height, width, groups):
 
 
 for _name, _cpu, _cuda, _fake in (
-        ("odefunc", _odefunc_cpu, _odefunc_cuda, _odefunc_fake),
-        ("dopri5_step", _step_cpu, _step_cuda, _step_fake)):
+        ("odefunc", _odefunc_cpu("f32"), _odefunc_cuda("f32"), _odefunc_fake),
+        ("dopri5_step", _step_cpu(None), _step_cuda("f32"), _step_fake),
+        ("odefunc_bf16", _odefunc_cpu("bf16"), _odefunc_cuda("bf16"),
+         _odefunc_fake),
+        ("dopri5_step_bf16", _step_cpu("bf16"), _step_cuda("bf16"),
+         _step_fake)):
     LIB.impl(_name, _cpu, "CPU")
     LIB.impl(_name, _cuda, "CUDA")
     torch.library.register_fake(f"nodef::{_name}", _fake, lib=LIB)

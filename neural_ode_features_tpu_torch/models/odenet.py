@@ -14,11 +14,13 @@ adaptive RK methods, ``adams``, the fixed-grid ones) runs on that dynamics.
 On a CPU tensor every kernel runs its plain PyTorch version.  The JAX opt-ins
 ``cfg.use_pallas``/``cfg.use_fused_rk`` are not read.
 
-``cfg.compute_dtype='bfloat16'`` runs where the JAX package runs it, on its
-jnp path: on the CPU, the dynamics in bfloat16 with the solver state in
-float32, for inference and for the adjoint (whose VJP is then autograd
-through the same function).  On the card it raises before any launch
-(ROADMAP.md, Queue 2 item 5).
+``cfg.compute_dtype='bfloat16'`` runs the JAX jnp path's bf16 dynamics
+with the solver state in float32.  On the CPU, for inference and for the
+adjoint (whose VJP is then autograd through the same function).  On the
+card, for inference (:func:`odenet_solve`, ``odenet_logits(adjoint=False)``,
+:func:`odenet_trajectory`): one launch of the ODEfunc kernel's bf16 build
+per evaluation and no fused step, as JAX's ``fused_rk_eligible`` rules; bf16
+training on the card raises before any launch (ROADMAP.md, Queue 2 item 5b).
 """
 
 from __future__ import annotations
@@ -75,26 +77,30 @@ def init_odenet(seed: int, cfg: ModelConfig, *, device="cuda"):
     return tree_to(params, dev)
 
 
-def check_compute_dtype(cfg: ModelConfig, device) -> None:
-    """Raise, before any launch, for reduced-precision dynamics on the card:
-    the kernels compute in float32 only.  On the CPU ``cfg.compute_dtype``
-    runs as the JAX jnp path runs it."""
-    if (cfg.compute_dtype != "float32"
+def check_compute_dtype(cfg: ModelConfig, device, *,
+                        training: bool = False) -> None:
+    """Raise, before any launch, for what reduced-precision dynamics do not
+    run on the card: training (``training=True``: the adjoint, direct
+    backprop, ``Trainer``), whose VJP needs a bf16 build of the backward
+    kernel.  Inference runs on the card through the ODEfunc kernel's bf16
+    build; on the CPU ``cfg.compute_dtype`` runs everywhere, as the JAX jnp
+    path runs it."""
+    if (training and cfg.compute_dtype != "float32"
             and torch.device(device).type == "cuda"):
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} on the card is not ported "
-            "yet (ROADMAP.md, Queue 2 item 5): the CUDA kernels compute in "
-            "float32 only; device='cpu' runs it")
+            f"compute_dtype={cfg.compute_dtype!r} training on the card is not "
+            "ported yet (ROADMAP.md, Queue 2 item 5b): the backward kernel "
+            "computes in float32 only; device='cpu' runs it")
 
 
 def odefunc_apply(params, t, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The dynamics f(t, h); ``t`` scalar or (B,).  CUDA: the fused kernel
-    (f32 only; raises for bf16 compute or a shape outside its gate).  CPU:
-    the plain path in ``cfg.compute_dtype``, as the JAX jnp path; the state
-    and f stay f32."""
+    """The dynamics f(t, h); ``t`` scalar or (B,).  CUDA: the fused kernel,
+    its bf16 build for ``cfg.compute_dtype='bfloat16'`` (raises for a shape
+    outside its gate).  CPU: the plain path in ``cfg.compute_dtype``, as the
+    JAX jnp path; the state and f stay f32."""
     if h.is_cuda:
-        check_compute_dtype(cfg, h.device)
-        return odefunc(params, t, h, groups=cfg.groups)
+        return odefunc(params, t, h, groups=cfg.groups,
+                       compute_dtype=cfg.cdtype)
     g = cfg.groups
     out = h.to(cfg.cdtype)
     out = torch.relu(group_norm(params["norm1"], out, groups=g))
@@ -148,7 +154,6 @@ def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
     (``sweep --fused``).  The fused step takes the same per-row tolerance.
     ``batch_sum``: ``h0`` is this rank's rows of a batch spread over ranks
     (``solver.odeint``; only global control reads it)."""
-    check_compute_dtype(cfg, h0.device)
     tol = cfg.tol if tol is None else tol
     if isinstance(tol, torch.Tensor):
         if cfg.error_control != "per_sample":
@@ -170,8 +175,9 @@ def odenet_solve(params, h0: torch.Tensor, ts: torch.Tensor,
             func_params, ADAPTIVE_TABLEAUS["dopri5"], hw,
             groups=cfg.groups, rtol=tol, atol=tol)
     # The weights stay as they are for the solve: on the card its attempt
-    # graph is cached by them (address and version), the configuration and
-    # the map shape, unless autograd records through them.
+    # graph is cached by them (address and version), the configuration (so
+    # a bf16 and an f32 solve of one model are two entries) and the map
+    # shape, unless autograd records through them.
     leaves = tree_leaves(params["odefunc"])
     graph_key = None
     if h0.is_cuda and not (torch.is_grad_enabled()
@@ -194,7 +200,7 @@ def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
     Reduced-precision dynamics (CPU only) are :func:`odefunc_apply` in
     ``cfg.cdtype``, and their VJP is autograd through that function, as
     JAX's ``jax.vjp`` of its jnp dynamics."""
-    check_compute_dtype(cfg, h0.device)
+    check_compute_dtype(cfg, h0.device, training=True)
     if cfg.compute_dtype == "float32":
         dyn, vjp = block_dynamics(params["odefunc"], h0, cfg)
     else:
@@ -228,7 +234,7 @@ def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
         if isinstance(tol, torch.Tensor) and tol.ndim:
             raise ValueError("a per-row tolerance applies to the inference "
                              "path; the adjoint path takes one float tol")
-    check_compute_dtype(cfg, x.device)
+    check_compute_dtype(cfg, x.device, training=adjoint)
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
     if adjoint:
@@ -250,7 +256,6 @@ def odenet_trajectory(params, x: torch.Tensor, ts,
 
     Returns ((T, B, H, W, C) states, stats); pool with
     :func:`..models.common.pool_features` for (T, B, C) features."""
-    check_compute_dtype(cfg, x.device)
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.as_tensor(ts).to(device=h0.device, dtype=h0.dtype)
     return odenet_solve(params, h0, ts, cfg)

@@ -1,7 +1,7 @@
 """Race the 3×3-conv strategies of ``kernels/conv3x3.py`` on the card, in
 isolation, against the library conv and the operations bound.
 
-    python -m neural_ode_features_tpu_torch.probes.conv_probe [mma3] [mma1] [tap9] [im2col] [--batch 256,128]
+    python -m neural_ode_features_tpu_torch.probes.conv_probe [mma3] [mma1] [tap9] [im2col] [mma_bf16] [tap9_bf16] [im2col_bf16] [--batch 256,128]
 
 The port of ``probes/conv_probe.py``.  The three fused kernels
 (``odefunc.cu``, ``rk_step.cu``, ``odefunc_bwd.cu``) spend their time in one
@@ -10,12 +10,16 @@ shared device function, the 3×3 conv; this probe times that conv alone:
 C = 64 to 512 (multiples of 32) on 7×7 and 6×6 maps, ``mma1``, the same
 with the error compensation compiled
 out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
-shapes) and ``im2col``, before a fused kernel is touched.  Inputs as in the
-JAX probe: x (B, 7, 7, 64) and w (3, 3, 64, 64) from numpy seed 0, scaled by
-0.1 and 0.05.
+shapes) and ``im2col``, before a fused kernel is touched; and their bf16
+twins ``mma_bf16`` (the bf16 builds' conv stage), ``tap9_bf16`` and
+``im2col_bf16`` (the JAX probe's ``*_bf16``: operands rounded to bf16,
+products summed in f32).  Inputs as in the JAX probe: x (B, 7, 7, 64) and w
+(3, 3, 64, 64) from numpy seed 0, scaled by 0.1 and 0.05.
 
-Each strategy is checked against the plain version ``conv3x3_plain`` and
-against ``F.conv2d`` (TF32 off), its error against the plain version in
+Each strategy is checked against its plain version (``conv3x3_plain``; for
+a bf16 twin ``passes="bf16"``) and against ``F.conv2d`` (TF32 off; for a
+bf16 twin ``F.conv2d`` on bf16 tensors, whose output is rounded to bf16),
+its error against the plain f32 version in
 float64 is printed beside that of the plain emulation of its arithmetic
 (``conv3x3_plain(passes=3 | 1)``), and it is timed at every ``--batch`` in
 turns (all strategies at the first batch, then at the second).  Two times
@@ -27,7 +31,7 @@ are told apart by ``dev`` alone.  The JAX probe chains its calls in a
 ``lax.scan`` and takes the slope between a long and a short chain to cancel
 the cost of a dispatch; the device's own timeline does that job here.
 ``F.conv2d`` is timed as the library reference in place of the JAX probe's
-``xla_conv``.  The JAX probe's ``dotonly``, ``norollS`` and ``nomaskS`` are
+``xla_conv``, in f32 and on bf16 tensors (the bf16 twins' yardstick).  The JAX probe's ``dotonly``, ``norollS`` and ``nomaskS`` are
 wrong-valued timing aids for its patch building; in their place two bounds
 are printed: operations at 67 TFLOP/s (f32 outside the tensor cores), and
 the card's least time with the tensor cores, the larger of operations at
@@ -48,6 +52,7 @@ import torch.nn.functional as F
 
 from .._device import strict_f32
 from ..kernels.conv3x3 import (
+    BF16_STRATEGIES,
     STRATEGIES,
     conv3x3,
     conv3x3_plain,
@@ -66,15 +71,22 @@ CHECK_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 576 products, reordered
 # mma1 alone: plain TF32 keeps 11 bits per operand, about 1e-3 relative per
 # product; over sums of 576 products of mixed sign 2e-3 relative, 2e-4 absolute.
 TF32_TOL = dict(rtol=2e-3, atol=2e-4)
+# A bf16 twin against F.conv2d on bf16 tensors: the library rounds its
+# output to bf16 (2^-9 relative); both round the operands alike.
+BF16_LIB_TOL = dict(rtol=8e-3, atol=1e-3)
 # A substring of each strategy's kernel name in a profile.
-KERNEL_NAMES = {"tap9": "tap9_kernel", "im2col": "im2col_kernel",
-                "mma3": "mma_kernel<3,", "mma1": "mma_kernel<1,"}
+KERNEL_NAMES = {"tap9": "tap9_kernel<false>", "im2col": "im2col_kernel<false>",
+                "mma3": "mma_kernel<3,", "mma1": "mma_kernel<1,",
+                "mma_bf16": "mma_kernel<16,", "tap9_bf16": "tap9_kernel<true>",
+                "im2col_bf16": "im2col_kernel<true>"}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("strategies", nargs="*", default=list(STRATEGIES),
-                   help=f"strategies to race (default: {' '.join(STRATEGIES)})")
+    p.add_argument("strategies", nargs="*",
+                   default=list(STRATEGIES + BF16_STRATEGIES),
+                   help="strategies to race (default: "
+                        f"{' '.join(STRATEGIES + BF16_STRATEGIES)})")
     p.add_argument("--batch", default=[256, 128],
                    type=lambda v: [int(b) for b in v.split(",")],
                    help="batch sizes to race at, in turns, separated by "
@@ -97,7 +109,8 @@ def probe_inputs(batch: int, device, hw=(H, W), c: int = C):
 
 def library_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The same conv through one library call (cuDNN on the card), NHWC in
-    and out.  The yardstick; the port itself never calls it for this."""
+    and out, in ``x``'s dtype (bf16 tensors: the bf16 twins' yardstick).
+    The port itself never calls it for this."""
     return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                     padding=1).permute(0, 2, 3, 1)
 
@@ -186,9 +199,10 @@ def tensor_bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
 def main(argv=None) -> dict:
     """Run the probe; returns, for the first batch size, ``{"bound_us",
     "bound_by", "tensor_bound_us", "tensor_bound_by", "library_us",
-    "<strategy>": {"us", "device_us", "err_plain", "err_library",
-    "err_f64"}}`` (``device_us`` is None on the CPU), and the same dict per
-    batch size under ``"batches"``."""
+    "library_bf16_us", "<strategy>": {"us", "device_us", "err_plain",
+    "err_library", "err_f64"}}`` (``device_us`` is None on the CPU; a bf16
+    twin's errors are against its own plain version and the bf16 library
+    conv), and the same dict per batch size under ``"batches"``."""
     args = parse_args(argv)
     dev = strict_f32("cpu" if args.cpu else "cuda")
     on_card = dev.type == "cuda"
@@ -206,21 +220,33 @@ def main(argv=None) -> dict:
         plain64 = conv3x3_plain(x.double(), w.double())
         lib = library_conv(x, w)
         lib_us = time_us(lambda: library_conv(x, w), dev)
+        x16, w16 = x.bfloat16(), w.bfloat16()
+        lib16 = library_conv(x16, w16).float()
+        lib16_us = time_us(lambda: library_conv(x16, w16), dev)
+        plain16 = conv3x3_plain(x, w, passes="bf16")
         print(f"F.conv2d (library reference): {lib_us:8.1f} us/conv  "
               f"({lib_us / b_us:.2f}x bound); max|diff vs plain| = "
-              f"{float((lib - plain).abs().max()):.2e}")
+              f"{float((lib - plain).abs().max()):.2e}; on bf16 tensors "
+              f"{lib16_us:8.1f} us/conv, max|diff vs the bf16 plain "
+              f"version| = {float((lib16 - plain16).abs().max()):.2e}")
         emulated = {"mma3": conv3x3_plain(x, w, passes=3),
-                    "mma1": conv3x3_plain(x, w, passes=1)}
+                    "mma1": conv3x3_plain(x, w, passes=1),
+                    **dict.fromkeys(BF16_STRATEGIES, plain16)}
         out = {"bound_us": b_us, "bound_by": b_by, "tensor_bound_us": tb_us,
-               "tensor_bound_by": tb_by, "library_us": lib_us}
+               "tensor_bound_by": tb_by, "library_us": lib_us,
+               "library_bf16_us": lib16_us}
         for strategy in args.strategies:
             got = conv3x3(x, w, strategy)
+            bf16 = strategy in BF16_STRATEGIES
             tol = TF32_TOL if strategy == "mma1" else CHECK_TOL
-            err_p = float((got - plain).abs().max())
-            err_l = float((got - lib).abs().max())
+            ref_p, ref_l = (plain16, lib16) if bf16 else (plain, lib)
+            err_p = float((got - ref_p).abs().max())
+            err_l = float((got - ref_l).abs().max())
             err_64 = float((got.double() - plain64).abs().max())
-            for name, ref in (("plain", plain), ("F.conv2d", lib)):
-                if not torch.allclose(got, ref, **tol):
+            for name, ref, tol_ in (
+                    ("plain", ref_p, tol),
+                    ("F.conv2d", ref_l, BF16_LIB_TOL if bf16 else tol)):
+                if not torch.allclose(got, ref, **tol_):
                     raise SystemExit(
                         f"{strategy}: differs from {name}: max abs err "
                         f"{float((got - ref).abs().max()):.3e}")
@@ -236,10 +262,12 @@ def main(argv=None) -> dict:
                                      f"{KERNEL_NAMES[strategy]!r} in the profile")
                 line += (f"dev {d_us:7.1f} us/conv ({d_us / b_us:.2f}x the f32 "
                          f"bound, {d_us / tb_us:.2f}x the tensor-core bound, "
-                         f"{d_us / lib_us:.2f}x F.conv2d), ")
+                         f"{d_us / (lib16_us if bf16 else lib_us):.2f}x "
+                         f"F.conv2d{' bf16' if bf16 else ''}), ")
             line += (f"call {us:7.1f} us ({us / lib_us:.2f}x F.conv2d); "
-                     f"max|diff| vs plain {err_p:.2e}, vs F.conv2d {err_l:.2e}, "
-                     f"vs the f64 plain version {err_64:.2e}")
+                     f"max|diff| vs {'bf16 ' if bf16 else ''}plain "
+                     f"{err_p:.2e}, vs F.conv2d{' bf16' if bf16 else ''} "
+                     f"{err_l:.2e}, vs the f64 plain version {err_64:.2e}")
             if strategy in emulated:
                 emu = float((emulated[strategy].double() - plain64).abs().max())
                 line += f" (its plain emulation's: {emu:.2e})"

@@ -25,11 +25,24 @@ step), and the host µs of one call of the ``odefunc`` and ``rk_step``
 wrappers (200 calls queued with no sync, then one sync: the host's cost of
 a call, the operator's dispatch included where the package has one).
 ``--shapes ''`` skips the kernels.
+
+``--bf16`` adds, per shape, the bf16 builds (``odefunc`` with
+``compute_dtype=bfloat16``, ``rk_step`` with ``conv_precision='bf16'``,
+device ms as above) and the library yardstick of their convs,
+``F.conv2d`` on bf16 tensors at that shape (one conv, B = 256).  It needs a
+package that has the bf16 builds.
+
+``--digest`` prints, per shape, the sha256 of each f32 kernel's outputs on
+the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
+dθ, dt, dh; the conv probe's ``mma3``, ``mma1``, ``tap9`` and ``im2col``
+where the shape takes them), so that two checkouts' kernels can be held bit
+for bit (run once with each package on ``PYTHONPATH``, in one call).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import time
@@ -72,10 +85,9 @@ def device_ms(fn, names, reps: int) -> float:
     return total
 
 
-def measure(hh: int, ww: int, c: int, reps: int) -> dict:
+def _inputs(hh: int, ww: int, c: int):
     dev = torch.device("cuda")
     cfg = ModelConfig(in_channels=3, hidden=c, groups=G)
-    w = prepare(init_odenet(7, cfg, device=dev)["odefunc"], (hh, ww))
     rng = np.random.default_rng(1)
 
     def arr(a):
@@ -83,11 +95,17 @@ def measure(hh: int, ww: int, c: int, reps: int) -> dict:
 
     h = arr(rng.normal(size=(B, hh, ww, c)) * 0.3)
     t0, dt = arr(rng.uniform(0, 0.5, B)), arr(rng.uniform(0.05, 0.2, B))
+    w = prepare(init_odenet(7, cfg, device=dev)["odefunc"], (hh, ww))
     y0, f0 = h.reshape(B, -1), odefunc(w, t0, h, groups=G).reshape(B, -1)
     g = arr(rng.normal(size=(B_BWD, hh, ww, c)))
     hb, tb = h[:B_BWD].contiguous(), t0[:B_BWD].contiguous()
     kw = dict(hw=(hh, ww), groups=G, rtol=1e-3, atol=1e-3)
-    return {
+    return w, h, t0, dt, y0, f0, g, hb, tb, kw
+
+
+def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False) -> dict:
+    w, h, t0, dt, y0, f0, g, hb, tb, kw = _inputs(hh, ww, c)
+    row = {
         "shape": f"{hh}x{ww}x{c}",
         "odefunc_ms": device_ms(lambda: odefunc(w, t0, h, groups=G),
                                 ("odefunc_kernel",), reps),
@@ -97,6 +115,67 @@ def measure(hh: int, ww: int, c: int, reps: int) -> dict:
         "odefunc_bwd_ms": device_ms(
             lambda: odefunc_bwd(w, tb, hb, g, groups=G), BWD_KERNELS, reps),
     }
+    if bf16:
+        import torch.nn.functional as F
+
+        xn = h.permute(0, 3, 1, 2).bfloat16()
+        wn = w.w1.permute(3, 2, 0, 1).bfloat16()
+        row.update({
+            "odefunc_bf16_ms": device_ms(
+                lambda: odefunc(w, t0, h, groups=G,
+                                compute_dtype=torch.bfloat16),
+                ("odefunc_kernel",), reps),
+            "rk_step_bf16_ms": device_ms(
+                lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0,
+                                    conv_precision="bf16", **kw),
+                ("rk_step_kernel",), reps),
+            "conv_library_bf16_ms": _event_ms(
+                lambda: F.conv2d(xn, wn, padding=1), reps),
+        })
+    return row
+
+
+def _event_ms(fn, reps: int) -> float:
+    """ms per call of a library call (whatever its kernels are named), by
+    CUDA events around ``reps`` back-to-back calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def digest(hh: int, ww: int, c: int) -> dict:
+    """sha256 of each f32 kernel's outputs on the seeded inputs."""
+    from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+        conv3x3,
+        supported,
+    )
+    from neural_ode_features_tpu_torch.probes.conv_probe import probe_inputs
+
+    w, h, t0, dt, y0, f0, g, hb, tb, kw = _inputs(hh, ww, c)
+
+    def sha(*tensors):
+        out = hashlib.sha256()
+        for x in tensors:
+            out.update(x.detach().contiguous().cpu().numpy().tobytes())
+        return out.hexdigest()[:16]
+
+    dp, dtk, dh = odefunc_bwd(w, tb, hb, g, groups=G)
+    row = {"shape": f"{hh}x{ww}x{c}",
+           "odefunc": sha(odefunc(w, t0, h, groups=G)),
+           "rk_step": sha(*dopri5_step(w, DOPRI5, t0, dt, y0, f0, **kw)),
+           "odefunc_bwd": sha(*(dp[a][b] for a in sorted(dp)
+                                for b in sorted(dp[a])), dtk, dh)}
+    x, wc = probe_inputs(B, "cuda", (hh, ww), c)
+    for strategy in ("mma3", "mma1", "tap9", "im2col"):
+        if supported((hh, ww), c, strategy):
+            row[f"conv_{strategy}"] = sha(conv3x3(x, wc, strategy))
+    return row
 
 
 def solve_times(n: int) -> dict:
@@ -171,6 +250,11 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--solves", type=int, default=0,
                    help="also time N inference solves and the wrappers' "
                         "host cost per call")
+    p.add_argument("--bf16", action="store_true",
+                   help="also time the bf16 builds and F.conv2d in bf16")
+    p.add_argument("--digest", action="store_true",
+                   help="print the sha256 of the f32 kernels' outputs per "
+                        "shape, in place of their times")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
@@ -183,7 +267,8 @@ def main(argv=None) -> list[dict]:
     rows = []
     for shape in filter(None, args.shapes.split(",")):
         hh, ww, c = (int(v) for v in shape.split("x"))
-        rows.append(measure(hh, ww, c, args.reps))
+        rows.append(digest(hh, ww, c) if args.digest
+                    else measure(hh, ww, c, args.reps, args.bf16))
         print(json.dumps(rows[-1]))
     if args.solves:
         import neural_ode_features_tpu_torch as pkg

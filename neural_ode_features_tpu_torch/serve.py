@@ -744,7 +744,10 @@ def run(args) -> int:
         log(f"model: mock ({meta.get('mode', 'flat')}, scale "
             f"{meta['scale']}, shift {meta['shift']}), on {dev}")
     else:
-        params, cfg, model = load_artifact(art, meta, dev)
+        try:
+            params, cfg, model = load_artifact(art, meta, dev)
+        except SystemExit as e:  # a bf16 run on the card
+            raise Fatal(str(e)) from None
         fn = logits_fn(params, cfg, model, chain)
         log(f"model: {model}, hidden {cfg.hidden}, {cfg.method} "
             f"{cfg.error_control} tol {cfg.tol:g}, on {dev}")

@@ -53,8 +53,9 @@ A failed capture raises; nothing falls back to the host loop.
 Launch counts.  The kernel wrappers count launches in Python ints, which a
 capture bumps although nothing ran, and a replay does not bump.  So the
 counts the capture added are taken away, the captured graph's kernel nodes
-are counted by kernel name (through the CUDA driver), and each replay adds
-those node counts.  Where a wrapper's calls and its kernel's nodes differ
+are counted by kernel name (through the CUDA driver; a bf16 build, counted
+apart, by its precision template argument too), and each replay adds those
+node counts.  Where a wrapper's calls and its kernel's nodes differ
 (a launch went to another stream and ran outside the graph), the capture
 raises.  The same kernels run in the same order on the same buffers as on
 the host loop, so the results are bit-identical to it.
@@ -65,6 +66,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import re
 import threading
 
 import torch
@@ -76,17 +78,23 @@ _local = threading.local()
 
 
 def _kernel_wrappers() -> tuple:
-    """The wrappers whose ``launches`` counters the route keeps, each with
-    the kernels one call of it launches once (by name in the CUDA sources)."""
+    """The launch counters the route keeps, as ``(wrapper, attribute,
+    kernels, build)``: the kernels that one counted launch runs once (by
+    name in the CUDA sources) and, where a wrapper counts its builds apart,
+    the build's precision template argument (``kF32``, ``kBf16Conv``,
+    ``kBf16`` = 0, 1, 2 in ``csrc/odefunc_common.cuh``)."""
     from ..kernels.conv3x3 import conv3x3
     from ..kernels.odefunc import odefunc
     from ..kernels.odefunc_bwd import odefunc_bwd
     from ..kernels.rk_step import dopri5_step
 
-    return ((odefunc, ("odefunc_kernel",)),
-            (odefunc_bwd, ("bwd_sample_kernel",)),
-            (dopri5_step, ("rk_step_kernel",)),
-            (conv3x3, ("tap9_kernel", "im2col_kernel", "mma_kernel")))
+    return ((odefunc, "launches", ("odefunc_kernel",), 0),
+            (odefunc, "launches_bf16", ("odefunc_kernel",), 2),
+            (odefunc_bwd, "launches", ("bwd_sample_kernel",), None),
+            (dopri5_step, "launches", ("rk_step_kernel",), 0),
+            (dopri5_step, "launches_bf16", ("rk_step_kernel",), 1),
+            (conv3x3, "launches", ("tap9_kernel", "im2col_kernel",
+                                   "mma_kernel"), None))
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -143,11 +151,16 @@ def kernel_nodes(raw_graph: int) -> collections.Counter:
     return names
 
 
-def _count(nodes: collections.Counter, kernels: tuple) -> int:
+def _count(nodes: collections.Counter, kernels: tuple, build) -> int:
     """Of ``nodes``, those of the kernels named (``odefunc_kernel`` is
-    mangled as ``...14odefunc_kernel...``)."""
+    mangled as ``...14odefunc_kernel...``) and, where ``build`` is not None,
+    of that build: the last template argument, mangled ``Li<build>EE``."""
+    def of_build(name):
+        m = re.search(r"Li(\d+)EE", name)
+        return build is None or (m is not None and int(m.group(1)) == build)
     return sum(c for name, c in nodes.items()
-               if any(name == k or f"{len(k)}{k}" in name for k in kernels))
+               if any(name == k or f"{len(k)}{k}" in name for k in kernels)
+               and of_build(name))
 
 
 def _stream(device: torch.device) -> torch.cuda.Stream:
@@ -222,21 +235,23 @@ def _captured(body, carry, pool):
     side = _stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    before = [w.launches for w, _ in wrappers]
+    before = [getattr(w, a) for w, a, _, _ in wrappers]
     try:
         try:
             _capture(graph, body, static, side, pool)
         finally:  # a capture launches nothing
-            issued = [w.launches - b for (w, _), b in zip(wrappers, before)]
-            for (w, _), b in zip(wrappers, before):
-                w.launches = b
+            issued = [getattr(w, a) - b
+                      for (w, a, _, _), b in zip(wrappers, before)]
+            for (w, a, _, _), b in zip(wrappers, before):
+                setattr(w, a, b)
         nodes = kernel_nodes(graph.raw_cuda_graph())
-        per_replay = [_count(nodes, names) for _, names in wrappers]
+        per_replay = [_count(nodes, names, build)
+                      for _, _, names, build in wrappers]
         if per_replay != issued:
             raise RuntimeError(
                 f"the captured attempt holds {per_replay} launches of "
-                f"{[w.__name__ for w, _ in wrappers]}, their wrappers "
-                f"issued {issued}: a launch ran outside the graph")
+                f"{[f'{w.__name__}.{a}' for w, a, _, _ in wrappers]}, their "
+                f"wrappers issued {issued}: a launch ran outside the graph")
         graph.instantiate()
     except BaseException:
         graph.reset()
@@ -249,8 +264,8 @@ def _replay(graph, static, per_replay, steps: int) -> None:
     wrappers = _kernel_wrappers()
     for _ in range(steps):
         graph.replay()
-        for (w, _), n in zip(wrappers, per_replay):
-            w.launches += n
+        for (w, a, _, _), n in zip(wrappers, per_replay):
+            setattr(w, a, getattr(w, a) + n)
         if bool(static.done.all()):
             break
 

@@ -66,8 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--error-control", default="per_sample",
                    choices=["per_sample", "global"])
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 dynamics compute: with --cpu only; the "
-                        "card's kernels are f32 (ROADMAP.md, Queue 2 item 5)")
+                   help="bfloat16 dynamics compute (solver control stays "
+                        "f32): on the card the ODEfunc kernel's bf16 build, "
+                        "one launch per evaluation and no fused step")
     p.add_argument("--pallas", action="store_true",
                    help="accepted for the JAX CLI's sake and changes "
                         "nothing: on the card the fused ODEfunc kernel "
@@ -244,9 +245,6 @@ def _fused_sweep(args, params, cfg, tols, dataset, images, labels, dev):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.bf16 and not args.cpu:
-        raise SystemExit("--bf16 on the card is not ported yet (ROADMAP.md, "
-                         "Queue 2 item 5); --cpu runs it")
     dev = strict_f32("cpu" if args.cpu else "cuda")
 
     if args.run:

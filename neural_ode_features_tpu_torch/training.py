@@ -47,8 +47,9 @@ reduction order:
 
 ``compute_dtype='bfloat16'`` trains on the CPU (the dynamics in bfloat16,
 as the JAX jnp path); on the card it raises before any launch.  Not ported
-yet (each raises ``NotImplementedError`` naming ROADMAP.md): bfloat16 on the
-card and the orbax training-state directory.  The training state file is a
+yet (each raises ``NotImplementedError`` naming ROADMAP.md): bfloat16
+training on the card (Queue 2 item 5b) and the orbax training-state
+directory.  The training state file is a
 ``torch.save`` of one flat dict of tensors.
 """
 
@@ -156,6 +157,7 @@ def _direct_diff_logits(params, x: torch.Tensor, cfg: ModelConfig,
     reduced-precision dynamics (CPU only), through autograd of the plain
     :func:`odefunc_apply` in ``cfg.cdtype``.  No fused step.
     ``batch_sum``: see ``solver.odeint`` (autograd goes through it)."""
+    check_compute_dtype(cfg, x.device, training=True)
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
     if cfg.compute_dtype == "float32":
@@ -237,7 +239,7 @@ class Trainer:
         self.model_cfg = train_cfg.model_config()
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
-        check_compute_dtype(self.model_cfg, self.device)
+        check_compute_dtype(self.model_cfg, self.device, training=True)
         self._init_mesh(train_cfg)
 
         if params is None:

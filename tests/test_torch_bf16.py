@@ -1,8 +1,9 @@
 """Port parity, bfloat16 dynamics on the CPU: ``compute_dtype='bfloat16'``
 runs where the JAX package runs it, on its jnp path (the dynamics in bf16,
 the solver state in f32), for inference, the adjoint, direct backprop, the
-``Trainer`` and ``train --bf16 --cpu``; on the card every one of them
-raises before any launch, naming ROADMAP.md Queue 2 item 5.
+``Trainer`` and ``train --bf16 --cpu``.  On the card inference runs the
+ODEfunc kernel's bf16 build (``tests/test_torch_bf16_kernels.py``), and
+training raises before any launch, naming ROADMAP.md Queue 2 item 5b.
 
 The tolerance against the JAX package.  bf16 keeps an 8-bit significand,
 so one rounding is off by up to u = 2^-8 ≈ 3.9e-3 of its value.  The two
@@ -142,16 +143,19 @@ def test_train_bf16_cpu_matches_the_jax_cli(tmp_path, monkeypatch):
 
 
 def test_bf16_on_the_card_raises_before_any_launch(monkeypatch, tmp_path):
-    """A bf16 request aimed at the card raises naming Queue 2 item 5, and
-    neither launch counter moves."""
+    """bf16 training aimed at the card raises naming Queue 2 item 5b, and
+    neither launch counter moves; bf16 inference passes the gate there (it
+    runs the ODEfunc kernel's bf16 build)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    before = odefunc.launches, odefunc_bwd.launches
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        check_compute_dtype(CFG16, torch.device("cuda"))
-    check_compute_dtype(CFG32, "cuda")
-    check_compute_dtype(CFG16, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+    before = odefunc.launches, odefunc.launches_bf16, odefunc_bwd.launches
+    with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
+        check_compute_dtype(CFG16, torch.device("cuda"), training=True)
+    check_compute_dtype(CFG16, torch.device("cuda"))
+    check_compute_dtype(CFG32, "cuda", training=True)
+    check_compute_dtype(CFG16, "cpu", training=True)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
         Trainer(TrainConfig(dataset="synthetic-mnist",
                             compute_dtype="bfloat16"),
                 steps_per_epoch=1, device="cuda")
-    assert (odefunc.launches, odefunc_bwd.launches) == before
+    assert (odefunc.launches, odefunc.launches_bf16,
+            odefunc_bwd.launches) == before

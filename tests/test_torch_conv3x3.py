@@ -11,6 +11,7 @@ from jax import lax
 
 from neural_ode_features_tpu_torch.kernels import conv3x3 as conv_mod
 from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+    BF16_STRATEGIES,
     STRATEGIES,
     conv3x3,
     conv3x3_padded_pitch,
@@ -71,12 +72,17 @@ def test_wrapper_on_cpu_runs_the_plain_version(strategy):
 
 
 def test_wrapper_refusals():
+    """What the wrapper refuses; the bf16 twins, refused before their
+    kernels existed, run their own plain version on the CPU (no launch)."""
     x, w = conv_probe.probe_inputs(2, "cpu")
-    for strategy in ("tap9_bf16", "im2col_bf16"):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
+    before = conv3x3.launches
+    for strategy in BF16_STRATEGIES:
+        assert torch.equal(conv3x3(x, w, strategy),
+                           conv3x3_plain(x, w, passes="bf16"))
+    assert conv3x3.launches == before
+    for strategy in ("rollS", "mma3_bf16", "roll9_bf16"):
+        with pytest.raises(ValueError, match="unknown strategy"):
             conv3x3(x, w, strategy)
-    with pytest.raises(ValueError, match="unknown strategy"):
-        conv3x3(x, w, "rollS")
     with pytest.raises(ValueError, match=r"w \(3, 3, C, C\)"):
         conv3x3(x, w[:, :, :32], "tap9")
     with pytest.raises(ValueError, match="x \\(B, H, W, C\\)"):
@@ -110,8 +116,8 @@ def test_bound_inputs():
 def test_probe_entry_point_on_cpu(capsys):
     out = conv_probe.main(["--cpu", "--batch", "2"])
     assert set(out) == {"bound_us", "bound_by", "tensor_bound_us",
-                        "tensor_bound_by", "library_us", "batches",
-                        *STRATEGIES}
+                        "tensor_bound_by", "library_us", "library_bf16_us",
+                        "batches", *STRATEGIES, *BF16_STRATEGIES}
     assert out["tap9"]["err_plain"] == 0.0 and out["im2col"]["us"] > 0
     # On the CPU there is no device time, and none is reported.
     assert out["mma3"]["device_us"] is None
@@ -125,8 +131,10 @@ def test_probe_entry_point_on_cpu(capsys):
     assert "im2col" not in out["batches"][1]
     out = conv_probe.main(["--cpu", "--batch", "1", "im2col"])
     assert "tap9" not in out and "im2col" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv_probe.main(["--cpu", "--batch", "1", "tap9_bf16"])
+    # A bf16 twin alone, held to its own plain version.
+    out = conv_probe.main(["--cpu", "--batch", "1", "tap9_bf16"])
+    assert set(out) & {*STRATEGIES, *BF16_STRATEGIES} == {"tap9_bf16"}
+    assert out["tap9_bf16"]["err_plain"] == 0.0
 
 
 # ---- the tensor-core stage's arithmetic and row mapping, emulated ----------

@@ -50,6 +50,7 @@ from neural_ode_features_tpu_torch.models import (
     stem_apply,
 )
 from neural_ode_features_tpu_torch.ops import normalize
+from neural_ode_features_tpu_torch.probes import bf16_distances
 from neural_ode_features_tpu_torch.probes.conv_probe import probe_inputs
 from neural_ode_features_tpu_torch.solver import DOPRI5, odeint
 
@@ -927,3 +928,99 @@ def test_exported_program_launches_by_rule(dev, tmp_path):
     assert counts == (2, int((st.naccept + st.nreject).max()))
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     assert float((got - want).abs().max()) <= 1e-3
+
+
+# -- the bf16 builds ------------------------------------------------------------
+# bf16 comparisons are in units of u = 2^-8 of the compared value's size, each
+# bar held beside the f32 build's distance from the same plain version
+# (neural_ode_features_tpu_torch/probes/bf16_distances.py).
+U = bf16_distances.U
+
+
+@pytest.mark.parametrize("c,side", [(32, 7), (64, 7), (128, 7), (512, 7),
+                                    (64, 6)])
+def test_bf16_builds_match_plain(dev, c, side):
+    """Each bf16 build against its plain version on the card, beside its f32
+    build (``probes/bf16_distances.py``: the bars and their f32 controls):
+    the ODEfunc kernel's ``compute_dtype='bfloat16'`` build, the fused
+    step's ``conv_precision='bf16'`` one evaluation at a time from its own
+    stages, each launch on its build's own counter; the probe's bf16 twins
+    (f32 reassociation: their operands round alike), apart from the f32
+    conv."""
+    from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+        BF16_STRATEGIES,
+        supported,
+    )
+
+    counters = (odefunc, "launches"), (odefunc, "launches_bf16"), (
+        dopri5_step, "launches"), (dopri5_step, "launches_bf16")
+    before = [getattr(*c_) for c_ in counters]
+    readings = bf16_distances.readings_at(side, side, c, 32, dev)
+    assert [getattr(*c_) - b for c_, b in zip(counters, before)] == [1] * 4
+    assert bf16_distances.check(readings["odefunc"]) == []
+    assert bf16_distances.check(readings["rk_step"]) == []
+
+    x, wc = probe_inputs(32, dev, (side, side), c)
+    plain = conv3x3_plain(x, wc, passes="bf16")
+    for strategy in BF16_STRATEGIES:
+        if not supported((side, side), c, strategy):
+            continue
+        got = conv3x3(x, wc, strategy)
+        np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                                   **CONV_TOL)
+        assert not torch.allclose(got, conv3x3_plain(x, wc), **CONV_TOL)
+
+
+def test_bf16_inference_runs_the_bf16_build(dev, captures):
+    """``compute_dtype='bfloat16'`` inference on the card: one launch of
+    the ODEfunc kernel's bf16 build per evaluation (2 + 6·attempts), no
+    fused step; per-sample NFE, logits and top-1 against the plain bf16
+    dynamics on the card; the trajectory's end equal to the solve's; a bf16
+    and an f32 solve of the same weights are two entries of the graph
+    cache."""
+    from neural_ode_features_tpu_torch.models import (
+        odenet_logits,
+        odenet_solve,
+    )
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    cfg16 = dataclasses.replace(ENTRY_CONFIG, compute_dtype="bfloat16")
+    params = init_odenet(7, ENTRY_CONFIG, device=dev)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(16, 32, 32, 3)).astype(np.float32)).to(dev)
+    odefunc.launches = dopri5_step.launches = 0
+    odefunc.launches_bf16 = dopri5_step.launches_bf16 = 0
+    with torch.no_grad():
+        logits, stats = odenet_logits(params, x, cfg16)
+    torch.cuda.synchronize()
+    attempts = int((stats.naccept + stats.nreject).max())
+    assert (odefunc.launches_bf16, odefunc.launches, dopri5_step.launches,
+            dopri5_step.launches_bf16) == (2 + 6 * attempts, 0, 0, 0)
+
+    w = prepare(params["odefunc"], (7, 7))
+    h0 = stem_apply(params["stem"], x, cfg16)
+    ts = torch.tensor([0.0, 1.0], device=dev)
+    with torch.no_grad():
+        traj, st_p = odeint(lambda t, y: odefunc_plain(w, t, y, 32, "bf16"),
+                            h0, ts, rtol=TOL, atol=TOL,
+                            error_control="per_sample")
+        want = head_apply(params["head"], traj[-1], cfg16)
+        f32, _ = odenet_logits(params, x, ENTRY_CONFIG)
+    np.testing.assert_array_equal(stats.nfe.cpu().numpy(),
+                                  st_p.nfe.cpu().numpy())
+    assert torch.equal(logits.argmax(1), want.argmax(1))
+    np.testing.assert_allclose(logits.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=4 * U)
+    assert bf16_distances.rel_u(logits, want) < bf16_distances.rel_u(logits,
+                                                                     f32)
+
+    with torch.no_grad():
+        feats, _ = odenet_trajectory(params, x, [0.0, 0.5, 1.0], cfg16)
+        np.testing.assert_allclose(
+            head_apply(params["head"], feats[-1], cfg16).cpu().numpy(),
+            logits.cpu().numpy(), rtol=0, atol=1e-5)
+        attempt_graph.clear_cache()
+        captures.clear()
+        for cfg in (cfg16, ENTRY_CONFIG, cfg16, ENTRY_CONFIG):
+            odenet_solve(params, h0, ts, cfg)
+    assert len(captures) == 2 and len(attempt_graph.cache_info(dev)) == 2

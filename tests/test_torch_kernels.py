@@ -145,9 +145,11 @@ def test_fused_step_builder(odefunc_params):
     cfg, pj, pt = odefunc_params
     with pytest.raises(ValueError, match="atol > 0"):
         make_fused_dopri5_step(pt, DOPRI5, (7, 7), rtol=1e-3, atol=0.0)
-    with pytest.raises(NotImplementedError):
+    # conv_precision='bf16' builds the bf16 step (on the CPU its plain
+    # version, tests/test_torch_bf16_kernels.py); other values are refused.
+    with pytest.raises(ValueError, match="conv_precision"):
         make_fused_dopri5_step(pt, DOPRI5, (7, 7), rtol=1e-3, atol=1e-3,
-                               conv_precision="bf16")
+                               conv_precision="tf32")
     with pytest.raises(ValueError, match="conv strategy"):
         make_fused_dopri5_step(pt, DOPRI5, (7, 7), rtol=1e-3, atol=1e-3,
                                conv_strategy="nope")

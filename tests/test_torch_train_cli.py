@@ -137,7 +137,7 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path, capsys):
     (["--num-devices", "0"], "at least one"),
     (["--num-devices", "3"], "does not divide over the 3 ranks"),
     (["--model-shards", "2"], "does not divide 1 devices"),
-    (["--bf16"], "Queue 2 item 5"),
+    (["--bf16"], "Queue 2 item 5b"),
     (["--state-format", "orbax"], "Queue 1 item 5"),
     (["--tensorboard"], "clu"),
     (["--hidden", "48"], "multiple of 32"),
@@ -151,8 +151,8 @@ def test_unported_flags_exit_before_a_run_directory(tmp_path, flags, match,
     runs = tmp_path / "runs"
     argv = SMALL
     if flags == ["--bf16"]:
-        # bf16 runs with --cpu (tests/test_torch_bf16.py); aimed at a card
-        # it exits before any device use.
+        # bf16 trains with --cpu (tests/test_torch_bf16.py); aimed at a
+        # card it exits before any device use (Queue 2 item 5b).
         argv = [a for a in SMALL if a != "--cpu"]
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
 

@@ -151,12 +151,12 @@ def test_trainer_refusals(change, monkeypatch):
     of a process group (``parallel.launch``, ``test_torch_parallel.py``),
     which this test process has not.  bfloat16 trains on the CPU
     (``test_torch_bf16.py``) and is refused on the card, before any
-    launch."""
+    launch (Queue 2 item 5b)."""
     device = "cpu"
     if "model" in change:
         exc, match = ValueError, "unknown model"
     elif "compute_dtype" in change:
-        exc, match = NotImplementedError, "ROADMAP.md, Queue 2 item 5"
+        exc, match = NotImplementedError, "ROADMAP.md, Queue 2 item 5b"
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         device = "cuda"
     else:
