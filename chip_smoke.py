@@ -208,19 +208,38 @@ Phases (any failed check exits nonzero and prints no result):
    row), the fused step's ``conv_precision='bf16'`` (B = 256 and 5, relative
    L2 per output within 4 times the plain step's own move under one-ulp
    GroupNorm perturbations, and its error ratio more than 4 u from the f32
-   step's), the probe's ``mma_bf16``, ``tap9_bf16`` and
-   ``im2col_bf16`` (f32 reassociation).  The entry model's bf16 inference
+   step's), the backward's bf16 build (``odefunc_backward_bf16``: 7×7×64
+   at B = 128, 64 and 5, 6×6×64 and 7×7×32 at B = 128, 7×7×512 at B = 32,
+   and at B = 32 at the five shapes of the card tests; each output within
+   its bar in u of the plain bf16 VJP, dh, dt and the early leaves below
+   the f32 build's distance; its f bit-equal to the bf16 ODEfunc kernel's;
+   dθ bit-identical over two launches), the probe's ``mma_bf16``,
+   ``tap9_bf16`` and ``im2col_bf16`` (f32 reassociation).  The entry
+   model's bf16 inference
    (``odenet_logits``, ``odenet_trajectory``) at B = 256 on the host loop
    and on the cache, bit-identical, 2 + 6·attempts ``odefunc`` launches and
    no ``rk_step``, against the plain bf16 dynamics on the card (per-sample
    NFE equal on at least the share the CPU emulation measured, top-1 on at
    least 99%), its warm time beside the f32 solve's; a bf16 and an f32 solve of one model two cache entries; one
    solve with the bf16 fused step beside one with the f32 step (per-sample
-   NFE, accepts, rejects side by side); ``sweep --bf16`` at 1e-1..1e-3,
-   loop and ``--fused``; the adjoint, ``Trainer`` and ``train --bf16``
-   refused before any launch naming ROADMAP Queue 2 item 5b, ``export``,
-   ``export-compiled`` and ``serve`` of a bf16 run naming 5c, no file left;
-   the bf16 probe race at B = 256 and 128; each bf16 build timed.
+   NFE, accepts, rejects side by side).  bf16 training at
+   ``train_entry(batch=128)``'s configuration: the ``Trainer``'s step twice
+   on the graph route and once on the host loop from one set of weights
+   (the weights after it bit-identical; 2 + 6·attempts + 1 ``odefunc_bf16``
+   and NFE-b − 1 ``odefunc_bwd_bf16`` launches, no f32 launch), its time
+   and device busy time beside the f32 step's; the gradient step under the
+   reintegrating, seminorm and interpolated adjoints, direct backprop and
+   an Adams adjoint against the plain bf16 path on the card (per-sample
+   NFE-f equal on at least 99% of rows, Adams 95%, gradients nearer it
+   than the f32 step's; the plain path's own move when its stem output
+   moves one ulp beside them) and beside the f32 step; ``sweep --bf16`` at 1e-1..1e-3, loop
+   and ``--fused``; ``train --bf16`` for one epoch at the train CLI's size
+   (every step and evaluation batch by its launch rule in the bf16 builds)
+   and its resume to a second epoch; the bf16 run through
+   ``export-compiled`` and ``serve --selftest`` (2 + 6·attempts
+   ``odefunc_bf16``, no ``rk_step``) and ``export`` and ``run`` against the
+   live model; the bf16 probe race at B = 256 and 128; each bf16 build
+   timed, the backward by kernel beside the f32 build.
    ``[straggler]``: ``python -m neural_ode_features_tpu_torch.straggler_bench``
    at the JAX tool's defaults (its JSON line: host and CUDA-event clocks,
    lane work, error units) and ``tests/test_straggler.py``'s bars; one
@@ -244,8 +263,8 @@ Phases (any failed check exits nonzero and prints no result):
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel and shape, the bf16 builds as ``odefunc_bf16``,
-``rk_step_bf16`` and ``conv_probe_bf16`` with their bounds at the bf16
-tensor-core rate: the conv stage it ran; ``ms``, its device time per
+``rk_step_bf16``, ``odefunc_bwd_bf16`` and ``conv_probe_bf16`` with their
+bounds at the bf16 tensor-core rate: the conv stage it ran; ``ms``, its device time per
 call, CUDA events around calls queued behind a spin kernel (``device_ms``);
 ``profiler_ms``, the mean of the launches ``torch.profiler`` recorded, by
 kernel name; ``call_ms``, CUDA events around back-to-back calls of its
@@ -785,11 +804,23 @@ def main() -> int:
         return {k: v / 1e3
                 for k, v in conv_probe.device_us(fn, keys, reps).items()}
 
+    def profiled_ms(fn, keys):
+        """``device_ms_by_kernel``, or None where torch.profiler recorded no
+        launch of one of the kernels in three windows (it drops launches on
+        this card, the more the later in the script): a reading beside the
+        CUDA-event times, printed as not measured."""
+        try:
+            return device_ms_by_kernel(fn, keys)
+        except RuntimeError as e:
+            print(f"[time] torch.profiler: {e}; not measured")
+            return None
+
     def read_counts():
         """The launch counters: the f32 builds' always, a bf16 build's
         where it launched (so an f32 path's launch rule fails on a bf16
         launch)."""
         bf16 = {"odefunc_bf16": odefunc.launches_bf16,
+                "odefunc_bwd_bf16": odefunc_bwd.launches_bf16,
                 "rk_step_bf16": dopri5_step.launches_bf16}
         return {"odefunc": odefunc.launches,
                 "odefunc_bwd": odefunc_bwd.launches,
@@ -799,6 +830,7 @@ def main() -> int:
     def zero_counts():
         odefunc.launches = odefunc_bwd.launches = dopri5_step.launches = 0
         odefunc.launches_bf16 = dopri5_step.launches_bf16 = 0
+        odefunc_bwd.launches_bf16 = 0
 
     def counted(fn):
         """``fn()`` with every launch counter set to 0 just before and read
@@ -1535,7 +1567,7 @@ def main() -> int:
         stats = self.last_stats
         evals = {"dopri5": 6, "adams": 2}.get(self.cfg.solver)
         steps.append({
-            "launches": {n: after[n] - before[n] for n in after},
+            "launches": {n: after[n] - before.get(n, 0) for n in after},
             "attempts": (None if stats is None or evals is None
                          else batch_attempts(stats.nfe, evals)),
             "nfe_b": int(m["nfe_b"]), "loss": m["loss"]})
@@ -1545,7 +1577,7 @@ def main() -> int:
         before = read_counts()
         m = plain_eval(self, *a, **k)
         after = read_counts()
-        evals.append({n: after[n] - before[n] for n in after})
+        evals.append({n: after[n] - before.get(n, 0) for n in after})
         return m
 
     def run_train(argv):
@@ -2744,9 +2776,11 @@ def main() -> int:
     # tests' five, each bar beside the f32 build's distance; the entry
     # model's bf16 inference on the host loop and on the cache, against the
     # plain bf16 path on the card; the fused step's conv_precision='bf16'
-    # beside the f32 step in one solve each; sweep --bf16; the bf16 probe
-    # race; training, export and serving of a bf16 run refused before any
-    # launch; each bf16 build timed.  Returns the kernels line's entries.
+    # beside the f32 step in one solve each; bf16 training (the Trainer's
+    # step, every adjoint variant, direct backprop, Adams) against the
+    # plain bf16 path and beside the f32 step; sweep --bf16; train --bf16
+    # and its resume; export and serving of the bf16 run; the bf16 probe
+    # race; each bf16 build timed.  Returns the kernels line's entries.
     def bf16_phase():
         from neural_ode_features_tpu_torch import serve as serve_cli
         from neural_ode_features_tpu_torch.kernels.conv3x3 import (
@@ -2758,6 +2792,8 @@ def main() -> int:
         from neural_ode_features_tpu_torch.models import odenet_solve
         from neural_ode_features_tpu_torch.probes import bf16_distances
         from neural_ode_features_tpu_torch.solver import attempt_graph
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
 
         t_ph = time.perf_counter()
         cfg16 = dataclasses.replace(ENTRY_CONFIG, compute_dtype="bfloat16")
@@ -2769,27 +2805,6 @@ def main() -> int:
         def rel(got, want):
             return float((got.double() - want.double()).norm()
                          / want.double().norm())
-
-        def refused(name, call, item, exc=(NotImplementedError, SystemExit)):
-            """``call()`` raises naming ``item`` before any launch."""
-            zero_counts()
-            conv3x3.launches = 0
-            err, msg = io.StringIO(), None
-            try:
-                with contextlib.redirect_stderr(err):
-                    rc = call()
-            except exc as e:
-                msg = str(e)
-            if msg is None:  # serve reports and returns 1
-                msg = err.getvalue().strip()
-                if rc != 1:
-                    fail(f"[bf16] {name} ran on the card")
-            torch.cuda.synchronize()
-            got = {**read_counts(), "conv3x3": conv3x3.launches}
-            print(f"[bf16] {name} on the card refused: {msg}; launches {got}")
-            if item not in msg or any(got.values()):
-                fail(f"[bf16] {name}: not refused before any launch naming "
-                     f"{item}")
 
         def held(label, readings):
             """Print ``readings`` (probes/bf16_distances.py) and fail if a
@@ -2826,6 +2841,31 @@ def main() -> int:
             r_ = bf16_distances.readings_at(hh_, ww_, c_, 32, dev)
             held(f"odefunc bf16 {r_['shape']} B=32", r_["odefunc"])
             held(f"rk_step bf16 {r_['shape']} B=32", r_["rk_step"])
+            held(f"odefunc_bwd bf16 {r_['shape']} B=32", r_["odefunc_bwd"])
+        # The backward's bf16 build against the plain bf16 VJP (autograd
+        # through odefunc_plain in bf16, cuDNN's convs) at the shapes the
+        # paths give it: the train step's B = 128, one rank's 64 and a
+        # ragged 5 at 7×7×64, the MNIST block's 6×6×64, the FFMA stage's
+        # 7×7×32 and the scratch layout's 7×7×512; each output beside the
+        # f32 build's distance, f bit-equal to the bf16 forward kernel's,
+        # dθ bit-identical over two launches (bf16_distances.bwd_readings).
+        t_b = time.perf_counter()
+        err_b16 = 0.0
+        for hh_, ww_, c_, nb in ((HH, WW, C, B_TRAIN), (HH, WW, C, B_TRAIN // 2),
+                                 (HH, WW, C, 5), (6, 6, C, B_TRAIN),
+                                 (7, 7, 32, B_TRAIN), (7, 7, 512, 32)):
+            if (hh_, ww_, c_) == (HH, WW, C):
+                w_, h_, t_ = w, hb[:nb].contiguous(), tb[:nb].contiguous()
+                g_ = gb[:nb].contiguous()
+            else:
+                w_, h_, t_, _ = bf16_distances.shape_inputs(hh_, ww_, c_, nb,
+                                                            dev)
+                g_ = arr(rng16.normal(size=tuple(h_.shape)))
+            err_b16 = max(err_b16, held(
+                f"odefunc_bwd bf16 {hh_}x{ww_}x{c_} B={nb}",
+                bf16_distances.bwd_readings(w_, t_, h_, g_, G)))
+        print(f"[bf16] odefunc_bwd bf16 held at six shapes in "
+              f"{time.perf_counter() - t_b:.1f} s; max abs err {err_b16:.3e}")
         # The probe's bf16 twins: their operands round alike, f32
         # reassociation; the f32 conv lies outside that tolerance.
         for nb, hw_ in ((B, (HH, WW)), (5, (HH, WW)), (B, (6, 6))):
@@ -2967,6 +3007,168 @@ def main() -> int:
             fail(f"[bf16] the step solves launched {n_b} (bf16 step; want "
                  f"{want_b}) and {n32} (f32 step; want {want_32})")
 
+        # The bf16 train step at train_entry(batch=128)'s configuration,
+        # from one set of weights: the Trainer's step twice on the graph
+        # route and once on the host loop (the same weights after it, bit
+        # for bit: dθ is), each with the launch rule of training in the
+        # bf16 builds alone; its time and device busy time beside the f32
+        # step's.
+        t_b = time.perf_counter()
+        trainer32, (images16, labels16) = train_entry(device="cuda",
+                                                      batch=B_TRAIN)
+        p0 = pytree.tree_map(lambda v: v.detach().clone(), trainer32.params)
+        x16 = normalize(torch.from_numpy(images16).to(dev),
+                        trainer32.cfg.dataset)
+        y16 = torch.from_numpy(labels16).to(dev)
+
+        def trainer_of(**change):
+            return Trainer(dataclasses.replace(trainer32.cfg, **change),
+                           steps_per_epoch=trainer32.steps_per_epoch,
+                           device=dev, params=p0)
+
+        def train_rule(st_, nfe_b_, evals=6):
+            return {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                    "odefunc_bf16": 2 + evals * batch_attempts(st_.nfe, evals)
+                    + 1, "odefunc_bwd_bf16": int(nfe_b_) - 1}
+
+        stepped = []
+        for route_, ctx in (("graph", contextlib.nullcontext),
+                            ("graph", contextlib.nullcontext),
+                            ("host", host_loop)):
+            tr_ = trainer_of(compute_dtype="bfloat16")
+            with ctx():
+                m_, t_s, n_ = counted(lambda: tr_.train_batch(images16,
+                                                              labels16))
+            want_ = train_rule(tr_.last_stats, m_["nfe_b"])
+            print(f"[bf16] train step B={B_TRAIN} ({route_}): {t_s:.3f} s, "
+                  f"loss {m_['loss']:.6f}, NFE-f mean {m_['nfe']:.2f}, "
+                  f"NFE-b {int(m_['nfe_b'])}; launches {n_}")
+            if n_ != want_:
+                fail(f"[bf16] train step ({route_}): launches {n_}, want "
+                     f"{want_}")
+            stepped.append((flat(tr_.params), n_, m_))
+        paths16["bf16_train"] = stepped[0][1]
+        if not all(torch.equal(stepped[0][0], s_[0]) for s_ in stepped[1:]):
+            fail("[bf16] two bf16 train steps from one set of weights, or the "
+                 "graph route and the host loop, gave other weights")
+        print("[bf16] train step: the weights after two steps on the graph "
+              "route and one on the host loop bit-identical (so is dθ)")
+        # The step's time and the device's busy time, bf16 and f32 in turns
+        # (median of 3), then one step of each under torch.profiler.
+        tr16, tr32 = trainer_of(compute_dtype="bfloat16"), trainer_of()
+        step_t = {"bf16": [], "f32": []}
+        for _ in range(4):
+            for tag, tr_ in (("bf16", tr16), ("f32", tr32)):
+                step_t[tag].append(counted(
+                    lambda: tr_._grads(tr_.params, x16, y16))[1])
+        step_t = {k: statistics.median(v[1:]) for k, v in step_t.items()}
+        step_busy = {}
+        for tag, tr_ in (("bf16", tr16), ("f32", tr32)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, wall, _ = counted(lambda: tr_._grads(tr_.params, x16, y16))
+            step_busy[tag] = (sum(ev.self_device_time_total
+                                  for ev in prof.key_averages()
+                                  if ev.device_type == DeviceType.CUDA)
+                              / 1e3, 1e3 * wall)
+        print(f"[bf16] train step B={B_TRAIN} (the Trainer's gradient step, "
+              f"graph route), in turns, median of 3: bf16 "
+              f"{1e3 * step_t['bf16']:.2f} ms, f32 {1e3 * step_t['f32']:.2f} "
+              f"ms; under torch.profiler device busy bf16 "
+              f"{step_busy['bf16'][0]:.2f} of {step_busy['bf16'][1]:.2f} ms "
+              f"({100 * step_busy['bf16'][0] / step_busy['bf16'][1]:.1f}%), "
+              f"f32 {step_busy['f32'][0]:.2f} of {step_busy['f32'][1]:.2f} ms "
+              f"({100 * step_busy['f32'][0] / step_busy['f32'][1]:.1f}%)")
+
+        # Each training variant's gradients on the fixed batch (the
+        # Trainer's own gradient step) against the plain bf16 path
+        # (odefunc_plain in bf16 under autograd, cuDNN) and beside the f32
+        # step's: per-sample NFE-f equal to the plain path's on at least
+        # 99% of rows (Adams: 95%, below), the gradients nearer the plain
+        # bf16 path than the f32 step's; the launches of the training rule
+        # in the bf16 builds (direct backprop: bf16 builds only, one
+        # backward per recorded evaluation).  Beside them the plain path's
+        # own floor: the same path with the stem's output moved by one f32
+        # ulp, which flips bf16 roundings as f32 reassociation does.  At
+        # random weights the batch's gradient is a small sum of large
+        # per-sample terms, so a few flipped roundings move it by tens of
+        # percent; Adams' step decisions (Milne ratios of bf16 stages)
+        # follow the flips on a few rows, so its bar is the one the sweep
+        # holds where rounding decides steps.
+        def plain16_grads(cfg_, nudge=False):
+            pp = pytree.tree_map(lambda v: v.detach().requires_grad_(), p0)
+            h0_ = stem_apply(pp["stem"], x16, cfg_)
+            if nudge:
+                h0_ = h0_ + (torch.nextafter(
+                    h0_, torch.full_like(h0_, float("inf"))) - h0_).detach()
+            ts_ = torch.tensor([0.0, 1.0], device=dev)
+
+            def dyn_p(p_, tt, y):
+                return odefunc_plain(prepare(p_, (HH, WW)), tt, y, G, "bf16")
+            kw_ = dict(rtol=cfg_.tol, atol=cfg_.tol, method=cfg_.method,
+                       error_control=cfg_.error_control,
+                       max_steps=cfg_.max_steps, controller=cfg_.controller)
+            with training_mod._deterministic_cudnn():
+                if cfg_.adjoint:
+                    traj_, st_ = odeint_adjoint(
+                        dyn_p, pp["odefunc"], h0_, ts_,
+                        adjoint_seminorm=cfg_.adjoint_seminorm,
+                        adjoint_mode=cfg_.adjoint_mode,
+                        dense_max_steps=min(cfg_.max_steps, 256), **kw_)
+                else:
+                    traj_, st_ = odeint(
+                        lambda tt, y: dyn_p(pp["odefunc"], tt, y), h0_, ts_,
+                        **kw_)
+                loss_ = F.cross_entropy(head_apply(pp["head"], traj_[-1],
+                                                   cfg_), y16)
+                g_ = torch.autograd.grad(loss_, leaves(pp))
+            return (float(loss_), torch.cat([a.reshape(-1) for a in g_]),
+                    st_)
+
+        variants = (("reintegrate", {}), ("seminorm",
+                                          {"adjoint_seminorm": True}),
+                    ("interpolated", {"adjoint_mode": "interpolated"}),
+                    ("direct", {"adjoint": False}),
+                    ("adams", {"solver": "adams"}))
+        for tag, change in variants:
+            tr_ = trainer_of(compute_dtype="bfloat16", **change)
+            (loss_k, _, _, g_k, nfe_b_k), t_k, n_k = counted(
+                lambda: tr_._grads(tr_.params, x16, y16))
+            st_k = tr_.last_stats
+            tr32_ = trainer_of(**change)
+            loss_32, _, _, g_32, _ = tr32_._grads(tr32_.params, x16, y16)
+            loss_p, g_p, st_p = plain16_grads(tr_.model_cfg)
+            _, g_n, st_n = plain16_grads(tr_.model_cfg, nudge=True)
+            g_k, g_32 = flat(g_k), flat(g_32)
+            share = float((st_k.nfe == st_p.nfe).float().mean())
+            floor = (float((st_n.nfe == st_p.nfe).float().mean()),
+                     rel(g_n, g_p))
+            near = {"plain bf16": rel(g_k, g_p), "f32": rel(g_k, g_32)}
+            evals = 2 if tag == "adams" else 6
+            if tag == "direct":
+                ok_n = (n_k.get("odefunc_bf16", 0) >= 1
+                        and n_k.get("odefunc_bwd_bf16", 0) >= 1
+                        and not any(n_k[k] for k in ("odefunc", "odefunc_bwd",
+                                                     "rk_step")))
+            else:
+                ok_n = n_k == train_rule(st_k, nfe_b_k, evals)
+            nb_p = int(getattr(st_p, "nfe_b", torch.zeros(())))
+            print(f"[bf16] {tag} B={B_TRAIN}: {t_k:.3f} s; loss "
+                  f"{float(loss_k):.6f} (plain bf16 {loss_p:.6f}, f32 "
+                  f"{float(loss_32):.6f}); per-sample NFE-f equal to the "
+                  f"plain path's on {share:.4f}, NFE-b {int(nfe_b_k)} (plain "
+                  f"{nb_p}); gradients rel-L2 to the plain bf16 path "
+                  f"{near['plain bf16']:.3e}, to the f32 step's "
+                  f"{near['f32']:.3e}; the plain path with its stem output "
+                  f"one ulp up: NFE-f equal on {floor[0]:.4f}, gradients "
+                  f"rel-L2 {floor[1]:.3e}; launches {n_k}")
+            bar = 0.95 if tag == "adams" else 0.99
+            if not ok_n or share < bar or near["plain bf16"] >= near["f32"]:
+                fail(f"[bf16] {tag}: launches {n_k}, NFE share {share}, "
+                     f"gradients {near} (want nearer the plain bf16 path)")
+            paths16[f"bf16_{tag}"] = n_k
+        print(f"[bf16] the bf16 train step took {time.perf_counter() - t_b:.1f}"
+              f" s")
+
         with tempfile.TemporaryDirectory() as tmp_b:
             # sweep --bf16 on the card at 1e-1..1e-3, loop and --fused.
             for mode, extra in (("loop", []), ("fused", ["--fused"])):
@@ -2981,35 +3183,119 @@ def main() -> int:
                     print(f"[bf16] sweep --bf16 {mode}: " + " | ".join(
                         f"{k}={v}" for k, v in r.items()) + f"; launches {n_}")
 
-            # Training, export and serving of a bf16 run: refused.
-            run16 = Path(tmp_b) / "run16"
-            save_checkpoint(run16 / "ckpt_best.pt", params, cfg16,
-                            {"model": "odenet"})
-            art16 = export_model.main([
-                "export-compiled", "--run", str(run16), "--batch", "2",
-                "--cpu", "--out", f"{tmp_b}/a16.npexec"])
-            before = set(Path(tmp_b).iterdir())
-            for name, call, item in (
-                    ("odenet_logits adjoint", lambda: odenet_logits(
-                        params, x[:8], cfg16, adjoint=True), "5b"),
-                    ("Trainer", lambda: Trainer(dataclasses.replace(
-                        TRAIN_CONFIG, compute_dtype="bfloat16"),
-                        steps_per_epoch=1, device="cuda"), "5b"),
-                    ("train --bf16", lambda: train_cli.main([
-                        "--dataset", "synthetic-mnist", "--bf16", "--epochs",
-                        "1", "--limit", "256", "--runs-dir",
-                        f"{tmp_b}/runs"]), "5b"),
-                    ("export-compiled", lambda: export_model.main([
-                        "export-compiled", "--run", str(run16), "--batch",
-                        "8", "--out", f"{tmp_b}/b16.npexec"]), "5c"),
-                    ("export", lambda: export_model.main([
-                        "export", "--run", str(run16), "--batch", "8",
-                        "--out", f"{tmp_b}/p16.nodeexport"]), "5c"),
-                    ("serve", lambda: serve_cli.main([str(art16),
-                                                      "--selftest"]), "5c")):
-                refused(name, call, f"Queue 2 item {item}")
-            if set(Path(tmp_b).iterdir()) != before:
-                fail("[bf16] a refused path left a run directory or a file")
+            # train --bf16: one epoch at the train CLI's size (each step by
+            # the training rule in the bf16 builds, each evaluation batch
+            # 2 + 6·attempts bf16 odefunc and nothing else), then the same
+            # run stopped there and launched with --epochs 2 (the 2-epoch
+            # identity, as [train-cli] does): it resumes at epoch 1.
+            t_b = time.perf_counter()
+            base16 = ["--dataset", "synthetic-cifar10", "--bf16",
+                      "--batch-size", str(B_TRAIN), "--limit", "1280",
+                      "--runs-dir", f"{tmp_b}/runs"]
+            run1, t_run, got, st, ev = run_train([*base16, "--epochs", "1"])
+            paths16["bf16_train_cli"] = got
+            print(f"[bf16] train --bf16 1 epoch: {len(st)} steps, {len(ev)} "
+                  f"evaluation batches in {t_run:.1f} s; launches {got}; "
+                  f"{run1.name}")
+            for i, s_ in enumerate(st):
+                want_ = {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                         "odefunc_bf16": 2 + 6 * s_["attempts"] + 1,
+                         "odefunc_bwd_bf16": s_["nfe_b"] - 1}
+                if s_["launches"] != want_:
+                    fail(f"[bf16] train --bf16 step {i}: launches "
+                         f"{s_['launches']}, want {want_}")
+            for i, e_ in enumerate(ev):
+                n16_ = e_.get("odefunc_bf16", 0)
+                if (set(k for k, v in e_.items() if v) != {"odefunc_bf16"}
+                        or n16_ < 8 or (n16_ - 2) % 6):
+                    fail(f"[bf16] train --bf16 evaluation batch {i}: "
+                         f"launches {e_}")
+            if (len(st), len(ev)) != (10, 10) or "bf16_True" not in run1.name:
+                fail(f"[bf16] train --bf16: {len(st)} steps, {len(ev)} "
+                     f"evaluation batches, {run1.name}")
+            argv2_16 = [*base16, "--epochs", "2"]
+            ident2 = train_cli.run_identity(train_cli.parse_args(argv2_16))
+            run2 = Path(tmp_b) / "runs" / Experiment.name_from_params(ident2)
+            run1.rename(run2)
+            for name in ("params.json", "ckpt_last.pt", "ckpt_last.pt.json"):
+                (run2 / name).unlink()
+            Experiment(f"{tmp_b}/runs", ident2).create()
+            run, t_run, got, st, ev = run_train(argv2_16)
+            rows = log_rows(run)
+            print(f"[bf16] train --bf16 launched again with --epochs 2: "
+                  f"{len(st)} steps in {t_run:.1f} s; epochs logged "
+                  f"{[r['epoch'] for r in rows]}; train_loss "
+                  f"{[r['train_loss'] for r in rows]}; launches {got}")
+            if (run != run2 or [r["epoch"] for r in rows] != ["0", "1"]
+                    or len(st) != 10 or got.get("odefunc", 0)
+                    or got.get("odefunc_bwd", 0) or got.get("rk_step", 0)):
+                fail("[bf16] train --bf16 did not resume at epoch 1 in the "
+                     "bf16 builds")
+            print(f"[bf16] train --bf16 and its resume took "
+                  f"{time.perf_counter() - t_b:.1f} s")
+
+            # The bf16 run exported and served on the card: export-compiled
+            # and serve --selftest (a dispatch: 2 + 6·attempts bf16 odefunc,
+            # no rk_step), then export (the traced program, the bf16
+            # operator inside the attempt loop) and run against the live
+            # model.
+            t_b = time.perf_counter()
+            art16, t_e, n_e = counted(lambda: export_model.main([
+                "export-compiled", "--run", str(run), "--batch", str(B),
+                "--out", f"{tmp_b}/b16.npexec"]))
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc, t_sv, n_sv = counted(lambda: serve_cli.main(
+                    [str(art16), "--selftest"]))
+            print(f"[bf16] export-compiled B={B}: {t_e:.1f} s, launches "
+                  f"{n_e}; serve --selftest: rc {rc}, {t_sv:.1f} s, launches "
+                  f"{n_sv}; " + " / ".join(
+                      ln.strip() for ln in err.getvalue().splitlines()
+                      if "selftest" in ln or "first execute" in ln))
+            n16_ = n_sv.get("odefunc_bf16", 0)
+            if (rc != 0 or set(k for k, v in n_sv.items() if v)
+                    != {"odefunc_bf16"} or (n16_ - 2) % 6 or n16_ < 8):
+                fail(f"[bf16] serve --selftest of the bf16 run: rc {rc}, "
+                     f"launches {n_sv}")
+            paths16["bf16_serve"] = n_sv
+            prog16 = f"{tmp_b}/p16.nodeexport"
+            _, t_x, n_x = counted(lambda: export_model.main([
+                "export", "--run", str(run), "--batch", str(B),
+                "--out", prog16]))
+            out_r = io.StringIO()
+            with contextlib.redirect_stdout(out_r):
+                res16, t_r, n_r = counted(lambda: export_model.main([
+                    "run", "--artifact", prog16, "--run", str(run)]))
+            print(f"[bf16] export B={B}: {t_x:.1f} s, launches {n_x}; run "
+                  f"against the live model: {t_r:.1f} s, launches {n_r}; "
+                  + " / ".join(out_r.getvalue().split("\n")[-3:]).strip())
+            if (res16["agreement"] != 1.0 or res16["max_diff"] > 1e-3
+                    or set(k for k, v in n_r.items() if v)
+                    != {"odefunc_bf16"}):
+                fail(f"[bf16] run of the bf16 program: agreement "
+                     f"{res16['agreement']}, max|diff| {res16['max_diff']}, "
+                     f"launches {n_r}")
+            # One call of the program, and the live bf16 solve of the same
+            # run on the same input: 2 + 6·attempts bf16 odefunc each.
+            module16, _ = export_model.load_program(Path(prog16), dev)
+            params_r, cfg_r, _ = load_checkpoint(resolve_checkpoint(run),
+                                                 device=dev)
+            with torch.no_grad():
+                got_p, _, n_p = counted(lambda: module16(x))
+                (want_p, st_l), _, n_l = counted(
+                    lambda: odenet_logits(params_r, x, cfg_r))
+            rule16 = {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                      "odefunc_bf16": 2 + 6 * batch_attempts(st_l.nfe)}
+            diff_p = float((got_p - want_p).abs().max())
+            print(f"[bf16] the bf16 program on the entry input: launches "
+                  f"{n_p}, the live bf16 solve {n_l} (rule {rule16}); "
+                  f"max|diff| {diff_p:.3e}")
+            if (n_p != rule16 or n_l != rule16 or diff_p > 1e-3
+                    or not torch.equal(got_p.argmax(-1), want_p.argmax(-1))):
+                fail("[bf16] the bf16 program's launches or logits")
+            paths16["bf16_export_run"] = n_p
+            print(f"[bf16] export and serving took "
+                  f"{time.perf_counter() - t_b:.1f} s")
 
         # The bf16 probe race at B = 256 and 128, the counter from 0.
         conv3x3.launches = 0
@@ -3033,6 +3319,8 @@ def main() -> int:
             "rk_step": lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0,
                                            conv_precision="bf16", **step_kw),
             "conv": lambda: conv3x3(xc, wc, "mma_bf16"),
+            "odefunc_bwd": lambda: odefunc_bwd(w, tb, hb, gb, groups=G,
+                                               precision="bf16"),
         }
         ms16 = {k: device_ms(fn) for k, fn in fn16.items()}
         call16 = {k: time_ms(fn) for k, fn in fn16.items()}
@@ -3042,11 +3330,28 @@ def main() -> int:
                 w, DOPRI5, t0, dt, y0, f0, conv_precision="bf16",
                 **step_kw)),
             "conv": time_ms(lambda: conv3x3_plain(xc, wc, passes="bf16")),
+            "odefunc_bwd": time_ms(lambda: odefunc_bwd_plain(
+                w, tb, hb, gb, G, precision="bf16")),
         }
+        hb16, tb16, gb16 = hb.bfloat16(), tb.bfloat16(), gb.bfloat16()
         lib16 = {"odefunc": time_ms(lambda: library_f(h16, t16_, wt16)),
                  "rk_step": None,
                  "conv": time_ms(lambda: conv_probe.library_conv(xc16, wc16),
-                                 reps=100)}
+                                 reps=100),
+                 "odefunc_bwd": time_ms(lambda: library_bwd(hb16, tb16, wt16,
+                                                            gb16))}
+        # The backward's device time by kernel, beside the f32 build's.
+        split16 = {prec: profiled_ms(
+            lambda prec=prec: odefunc_bwd(w, tb, hb, gb, groups=G,
+                                          precision=prec), bwd_keys)
+            for prec in ("bf16", "f32")}
+        if None not in split16.values():
+            print(f"[split] odefunc_bwd B={B_TRAIN} device ms by kernel, "
+                  "bf16 build against the f32 build: " + ", ".join(
+                      f"{k} {split16['bf16'][k]:.4f} / "
+                      f"{split16['f32'][k]:.4f}" for k in bwd_keys)
+                  + f"; sum {sum(split16['bf16'].values()):.4f} / "
+                  f"{sum(split16['f32'].values()):.4f}")
         twin_ms = {s_: device_ms(lambda s_=s_: conv3x3(xc, wc, s_), reps=100)
                    for s_ in BF16_STRATEGIES}
         print("[time] bf16 builds, ms: " + ", ".join(
@@ -3080,6 +3385,19 @@ def main() -> int:
              "plain_ms": plain16["rk_step"], **fb16["rk_step"],
              "library_ms": None, "stage": "mma_bf16",
              "call_ms": call16["rk_step"]},
+            {"name": "odefunc_bwd_bf16", **common,
+             "source": "neural_ode_features_tpu_torch/csrc/odefunc_bwd.cu",
+             "replaces": REPLACES["odefunc_bwd"],
+             "launches": paths16["bf16_train"]["odefunc_bwd_bf16"],
+             "max_abs_err": err_b16, "ms": ms16["odefunc_bwd"],
+             "plain_ms": plain16["odefunc_bwd"], **fb16["odefunc_bwd"],
+             "library_ms": lib16["odefunc_bwd"], "stage": "mma_bf16",
+             "call_ms": call16["odefunc_bwd"],
+             "ms_by_kernel": split16["bf16"],
+             "f32_ms_by_kernel": split16["f32"],
+             "launches_by_path": {k: v["odefunc_bwd_bf16"]
+                                  for k, v in paths16.items()
+                                  if "odefunc_bwd_bf16" in v}},
             {"name": "conv_probe_bf16", **common,
              "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
              "replaces": REPLACES["conv_probe"],
@@ -3970,8 +4288,9 @@ def main() -> int:
                         bwd_keys),
     }
     dev_ms = {k: device_ms(fn) for k, (fn, _) in runs_k.items()}
-    prof_ms = {k: sum(device_ms_by_kernel(fn, keys).values())
-               for k, (fn, keys) in runs_k.items()}
+    prof_ms = {k: profiled_ms(fn, keys) for k, (fn, keys) in runs_k.items()}
+    prof_ms = {k: None if v is None else sum(v.values())
+               for k, v in prof_ms.items()}
     # The fused step at the fused sweep's size: the grid of len(SWEEP_TOLS)
     # tolerances stacked on the batch axis (every row computes its attempt
     # whether or not its solve is done).
@@ -3986,8 +4305,9 @@ def main() -> int:
           f"{stacked_ms / n_grid:.4f} per {B} rows against "
           f"{dev_ms['rk_step']:.4f} at B={B}")
     print("[time] kernels, ms: " + ", ".join(
-        f"{k} device {dev_ms[k]:.4f} (profiler {prof_ms[k]:.4f}; call "
-        f"{ms[k]:.4f})" for k in dev_ms))
+        f"{k} device {dev_ms[k]:.4f} (profiler "
+        f"{'not measured' if prof_ms[k] is None else f'{prof_ms[k]:.4f}'}; "
+        f"call {ms[k]:.4f})" for k in dev_ms))
     xc, wc = conv_probe.probe_inputs(B, dev)
     conv_dev_ms = {}
     for strategy in STRATEGIES:

@@ -654,10 +654,12 @@ __device__ __forceinline__ void load_tile_mma(float* dst, const float* __restric
 // 3xTF32, f32-grade; PASSES = 1: the head product alone (plain TF32; a
 // timing and accuracy reading of the probe, on no path); PASSES =
 // kPassBf16: one m16n8k16 bf16 pass per 16 channels, both operands rounded
-// to bf16 as their fragments are packed (BT = false only).  BT = false: w is
+// to bf16 as their fragments are packed.  BT = false: w is
 // (9, ci, co), tap order as stored.  BT = true: the taps are read in reverse
 // order and each as (co, ci), i.e. the conv with the tap-flipped, transposed
-// kernel (the input gradient of the conv with w).  WIDE = false: C = 64 is
+// kernel (the input gradient of the conv with w): the buffer holds a tile
+// as (n, k) rows, so a bf16 B register's two k values are one 8-byte load
+// of a row where BT = false packs two rows.  WIDE = false: C = 64 is
 // known.  GENERAL: the last block may be padded and the ring may hold two
 // buffers (both read from s); else the blocks are whole and the ring holds
 // kRing, known at compile time (mma_stage picks).
@@ -678,7 +680,6 @@ __device__ __forceinline__ void load_tile_mma(float* dst, const float* __restric
 template <int PASSES, bool BT, bool WIDE, bool GENERAL, class Epi>
 __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restrict__ w,
                             Epi epi) {
-  static_assert(PASSES != kPassBf16 || !BT, "the bf16 pass has no transposed build");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int kg = warp >> 3, wm = (warp >> 2) & 1, wn = warp & 3;
@@ -730,15 +731,22 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
         // values are 2t, 2t + 1 (fragment register 0) and 2t + 8, 2t + 9
         // (register 1 of B, 2 of A), as the bf16 fragments lay them out: A
         // rows g and g + 8 by two 8-byte loads each, B column g from four
-        // weight rows.
+        // weight rows (BT: two 8-byte loads of weight row n = g).
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
           uint32_t b16[2][2];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const uint32_t bj = b_tap + 4u * ((16 * ks) * pitch + 8 * j);
-            b16[j][0] = bf16x2(lds(bj), lds(bj + 4u * pitch));
-            b16[j][1] = bf16x2(lds(bj + 4u * (8 * pitch)), lds(bj + 4u * (9 * pitch)));
+            if (BT) {
+              const uint32_t bj = b_tap + 4u * ((8 * j) * pitch + 16 * ks);
+              const float2 v0 = lds2(bj), v1 = lds2(bj + 4u * 8);
+              b16[j][0] = bf16x2(v0.x, v0.y);
+              b16[j][1] = bf16x2(v1.x, v1.y);
+            } else {
+              const uint32_t bj = b_tap + 4u * ((16 * ks) * pitch + 8 * j);
+              b16[j][0] = bf16x2(lds(bj), lds(bj + 4u * pitch));
+              b16[j][1] = bf16x2(lds(bj + 4u * (8 * pitch)), lds(bj + 4u * (9 * pitch)));
+            }
           }
 #pragma unroll
           for (int i = 0; i < 2; ++i) {

@@ -57,9 +57,11 @@ the card each sample is one CTA of every kernel); ``error_control='global'``
 does not (the step sequence is a reduction over the batch).
 
 Every mode but ``export-mock`` runs on the card and raises without one;
-``--cpu`` runs on the CPU.  ``export`` and ``export-compiled`` of a bf16 run
-(``compute_dtype='bfloat16'``), and ``serve`` of its artifact, exit on the
-card before any launch (ROADMAP.md, Queue 2 item 5c).
+``--cpu`` runs on the CPU.  A bf16 run (``compute_dtype='bfloat16'``)
+exports and serves as an f32 one does: its program holds
+``nodef::odefunc_bf16`` inside the attempt loop and no fused step, and on
+the card a call launches the ODEfunc kernel's bf16 build 2 + 6·attempts
+times.
 """
 
 from __future__ import annotations
@@ -150,16 +152,6 @@ def rowwise_probe(fn, x: np.ndarray, logits: np.ndarray,
     return True
 
 
-def refuse_bf16_on_card(cfg, dev: torch.device) -> None:
-    """Exit, before any launch, for a bf16 run (``compute_dtype=
-    'bfloat16'``) exported or served on the card: not ported yet."""
-    if cfg.compute_dtype != "float32" and dev.type == "cuda":
-        raise SystemExit(
-            f"compute_dtype={cfg.compute_dtype!r}: exporting or serving a "
-            "bf16 run on the card is not ported yet (ROADMAP.md, Queue 2 "
-            "item 5c)")
-
-
 def do_export_compiled(args) -> Path:
     from .utils.checkpoint import (
         load_checkpoint,
@@ -171,7 +163,6 @@ def do_export_compiled(args) -> Path:
     run = Path(args.run)
     params, cfg, extra = load_checkpoint(resolve_checkpoint(run, args.ckpt),
                                          device=dev)
-    refuse_bf16_on_card(cfg, dev)
     model = extra.get("model", "odenet")
     shape = input_shape(cfg, args.batch, args.chain)
     fn = logits_fn(params, cfg, model, args.chain)
@@ -219,8 +210,7 @@ def do_export_compiled(args) -> Path:
 
 def load_artifact(art: Path, meta: dict, device: torch.device):
     """``(params, cfg, model)`` from an ``export-compiled`` directory whose
-    ``meta.json`` is ``meta``; the weights' sha256 must match it.  A bf16
-    run exits on the card (:func:`refuse_bf16_on_card`)."""
+    ``meta.json`` is ``meta``; the weights' sha256 must match it."""
     from .models import ModelConfig, init_odenet, init_resnet
     from .utils.checkpoint import from_torch_state_dict
 
@@ -228,7 +218,6 @@ def load_artifact(art: Path, meta: dict, device: torch.device):
     if hashlib.sha256(blob).hexdigest() != meta["sha256"]:
         raise ValueError(f"{art}: {WEIGHTS} does not match meta.json sha256")
     cfg = ModelConfig(**meta["config"])
-    refuse_bf16_on_card(cfg, device)
     model = meta.get("model", "odenet")
     init = init_resnet if model == "resnet" else init_odenet
     state = torch.load(io.BytesIO(blob), map_location="cpu", weights_only=True)
@@ -275,7 +264,6 @@ def do_export(args) -> Path:
     run = Path(args.run)
     params, cfg, extra = load_checkpoint(resolve_checkpoint(run, args.ckpt),
                                          device=dev)
-    refuse_bf16_on_card(cfg, dev)
     model = extra.get("model", "odenet")
     shape = input_shape(cfg, args.batch)
     t0 = time.perf_counter()

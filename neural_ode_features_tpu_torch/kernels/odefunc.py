@@ -53,11 +53,13 @@ tensor launches the kernel (:func:`launch`) or raises.
 ``odefunc.launches`` counts the f32 build's launches,
 ``odefunc.launches_bf16`` the bf16 build's.
 
-The VJP pair, f32 only (the counterpart of the JAX ``odefunc_pallas_vjp``):
+The VJP pair (the counterpart of the JAX ``odefunc_pallas_vjp``, and for
+``compute_dtype=torch.bfloat16`` of ``jax.vjp`` of the jnp bf16 dynamics):
 ``odefunc_autograd`` is a ``torch.autograd.Function`` whose forward is this
 kernel and whose backward is the fused backward kernel
-(``kernels/odefunc_bwd.py``); ``odefunc_vjp`` gives ``(f, dθ, dt, dh)`` in
-one call, for the adjoint's augmented dynamics.
+(``kernels/odefunc_bwd.py``), each in the build of ``compute_dtype``;
+``odefunc_vjp`` gives ``(f, dθ, dt, dh)`` in one call, for the adjoint's
+augmented dynamics.
 """
 
 from __future__ import annotations
@@ -419,53 +421,71 @@ def _dt_like(dt_b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return dt_b.reshape(t.shape).to(t.dtype)
 
 
+def _precision(compute_dtype: torch.dtype) -> str:
+    """The kernels' precision name of a compute dtype."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype}")
+    return "bf16" if compute_dtype == torch.bfloat16 else "f32"
+
+
 class _OdefuncVJP(torch.autograd.Function):
     """Forward: the ODEfunc kernel on the laid-out weights ``w``.  Backward:
     the fused backward kernel, which recomputes the forward, so the
-    residuals are only ``(params, t, h)``.  The gradients go to the raw
-    parameter leaves that ``w`` was laid out from."""
+    residuals are only ``(params, t, h)``; both in the build of
+    ``compute_dtype``.  The gradients go to the raw parameter leaves that
+    ``w`` was laid out from."""
 
     @staticmethod
-    def forward(ctx, w, groups, t, h, *leaves):
-        ctx.w, ctx.groups = w, groups
+    def forward(ctx, w, groups, compute_dtype, t, h, *leaves):
+        ctx.w, ctx.groups, ctx.compute_dtype = w, groups, compute_dtype
         ctx.save_for_backward(t, h)
-        return odefunc(w, t, h, groups=groups)
+        return odefunc(w, t, h, groups=groups, compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         from .odefunc_bwd import odefunc_bwd
 
         t, h = ctx.saved_tensors
-        dparams, dt_b, dh = odefunc_bwd(ctx.w, t, h, g.contiguous(),
-                                        groups=ctx.groups)
-        return (None, None, _dt_like(dt_b, t), dh,
+        dparams, dt_b, dh = odefunc_bwd(
+            ctx.w, t, h, g.contiguous(), groups=ctx.groups,
+            precision=_precision(ctx.compute_dtype))
+        return (None, None, None, _dt_like(dt_b, t), dh,
                 *(dparams[a][b] for a, b in PARAM_KEYS))
 
 
 def odefunc_autograd(params, t, h: torch.Tensor, *, groups: int = 32,
-                     weights: OdefuncWeights | None = None) -> torch.Tensor:
+                     weights: OdefuncWeights | None = None,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
     """f(t, h), differentiable in the raw ``params`` (an ODEfunc param
-    dict), ``t`` and ``h`` through the kernel pair.  ``weights``: ``params``
+    dict), ``t`` and ``h`` through the kernel pair in the build of
+    ``compute_dtype`` (float32, or bfloat16 for the bf16 dynamics; on a CPU
+    tensor the plain versions at that precision).  ``weights``: ``params``
     already laid out by :func:`prepare` (once per solve), else laid out
     here."""
+    _precision(compute_dtype)
     if weights is None:
         with torch.no_grad():
             weights = prepare(params, tuple(h.shape[1:3]))
     t = torch.as_tensor(t, dtype=h.dtype, device=h.device)
-    return _OdefuncVJP.apply(weights, groups, t, h,
+    return _OdefuncVJP.apply(weights, groups, compute_dtype, t, h,
                              *(params[a][b] for a, b in PARAM_KEYS))
 
 
 def odefunc_vjp(params, t, h: torch.Tensor, a: torch.Tensor, *,
-                groups: int = 32):
+                groups: int = 32,
+                compute_dtype: torch.dtype = torch.float32):
     """``(f, dparams, dt, dh)``: f(t, h) and its VJP against ``a``, with
-    ``dparams`` in the raw layout and ``dt`` in ``t``'s shape.  One call of
-    the backward kernel on the card, which recomputes the forward and
+    ``dparams`` in the raw layout and ``dt`` in ``t``'s shape, for the
+    dynamics of ``compute_dtype`` (float32 or bfloat16).  One call of the
+    backward kernel's build on the card, which recomputes the forward and
     writes f itself; the ODEfunc kernel is not launched."""
     from .odefunc_bwd import odefunc_bwd
 
     w = prepare(params, tuple(h.shape[1:3]))
     t = torch.as_tensor(t, dtype=h.dtype, device=h.device)
     dparams, dt_b, dh, f = odefunc_bwd(w, t, h, a, groups=groups,
-                                       with_f=True)
+                                       with_f=True,
+                                       precision=_precision(compute_dtype))
     return f, dparams, _dt_like(dt_b, t), dh

@@ -31,12 +31,33 @@ state x to the dh output (``kernels.odefunc.layout``).  The weight-gradient
 contraction is f32 FFMA in 64×64 tiles, 32×32 where C % 64 == 32
 (ROADMAP.md, Queue 2); its scratch is (8, 2, 9, C, C), 151 MB at C = 512.
 
+``precision='bf16'`` runs the kernel's bf16 build (``odefunc_backward_bf16``):
+the VJP of the ``compute_dtype='bfloat16'`` dynamics (the ODEfunc kernel's
+bf16 build, ``odefunc_plain(..., 'bf16')``), whose JAX counterpart is
+``jax.vjp`` of the jnp bf16 dynamics (the TPU kernel computes in f32 only).
+It recomputes the forward as that build does (its f is the bf16 forward's
+bit for bit) and rounds where autograd through the plain bf16 f rounds: the
+cotangent on entry; in each GroupNorm the per-element ``dy·scale`` and
+``dy·bf16(x̂)``, its f32 statistics backward, dx on leaving; each
+input-gradient conv's sum (bf16 operands on the tensor cores,
+``mma.sync.m16n8k16`` with f32 accumulation, the taps reversed and
+transposed in the fragment loads; f32 FFMA on rounded weights at the FFMA
+shapes); the time-map products.  Each sum over the batch (weight, scale and
+bias gradients) is kept in f32 per sample, reduced in the fixed order and
+rounded once, as the plain path rounds it once; the time column, which the
+plain path sums in f32 from per-pixel bf16 values, is not rounded.  f, dh,
+dt and every leaf but the time column hold bf16 values.  Bound at B = 128,
+7×7×64: 2.77 GFLOP at 989 TFLOP/s dense bf16, 2.8 µs, against 1.9 µs of
+bytes: bound by operations (0.0414 ms on the CUDA cores in f32).
+
 ``odefunc_bwd`` is the wrapper: a CPU tensor takes the plain PyTorch version
-``odefunc_bwd_plain`` (``torch.autograd.grad`` of ``odefunc_plain``); a CUDA
-tensor launches the kernel or raises.  ``odefunc_bwd.launches`` counts
-launches.  Both return the parameter gradients in the raw ODEfunc layout
-(conv kernels (3, 3, C+1, C), time channel first): the time column is the
-tap-validity contraction of the time map's cotangent (:func:`tap_contract`).
+``odefunc_bwd_plain`` (``torch.autograd.grad`` of ``odefunc_plain`` at the
+same precision); a CUDA tensor launches the kernel or raises.
+``odefunc_bwd.launches`` counts the f32 build's launches,
+``odefunc_bwd.launches_bf16`` the bf16 build's.  Both return the parameter
+gradients in the raw ODEfunc layout (conv kernels (3, 3, C+1, C), time
+channel first): the time column is the tap-validity contraction of the time
+map's cotangent (:func:`tap_contract`).
 """
 
 from __future__ import annotations
@@ -143,45 +164,60 @@ def _raw_grads(d: OdefuncWeights) -> dict:
 
 
 def odefunc_bwd_plain(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
-                      groups: int, with_f: bool = False):
+                      groups: int, with_f: bool = False,
+                      precision: str = "f32"):
     """Plain PyTorch version of the kernel: ``torch.autograd.grad`` of
-    ``odefunc_plain`` at ``(w, t, h)`` against the cotangent ``g``.  Returns
-    ``(dparams raw, dt (B,), dh)``, and f(t, h) as a fourth value where
-    ``with_f``; ``dt`` is per sample even for a scalar ``t``, as the
-    kernel's."""
+    ``odefunc_plain`` at ``(w, t, h)`` and ``precision`` ('f32' or 'bf16')
+    against the cotangent ``g``.  Returns ``(dparams raw, dt (B,), dh)``,
+    and f(t, h) as a fourth value where ``with_f``; ``dt`` is per sample
+    even for a scalar ``t``, as the kernel's."""
+    if precision not in _ENTRY:
+        raise ValueError(f"precision must be one of {tuple(_ENTRY)}, got "
+                         f"{precision!r}")
     b = h.shape[0]
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in w]
         tb = (torch.as_tensor(t, dtype=h.dtype, device=h.device).detach()
               .reshape(-1).expand(b).clone().requires_grad_())
         hh = h.detach().requires_grad_()
-        out = odefunc_plain(OdefuncWeights(*leaves), tb, hh, groups)
+        out = odefunc_plain(OdefuncWeights(*leaves), tb, hh, groups,
+                            precision)
         grads = torch.autograd.grad(out, [*leaves, tb, hh], g)
     res = (_raw_grads(OdefuncWeights(*grads[:-2])), grads[-2], grads[-1])
     return (*res, out.detach()) if with_f else res
 
 
+# The C entry point of each build of the kernel (csrc/odefunc_bwd.cu).
+_ENTRY = {"f32": "odefunc_backward", "bf16": "odefunc_backward_bf16"}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("odefunc_bwd")
-    fn = lib.odefunc_backward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 
 def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
-                groups: int = 32, with_f: bool = False):
+                groups: int = 32, with_f: bool = False,
+                precision: str = "f32"):
     """VJP of f at ``(params, t, h)`` against ``g`` (B, H, W, C):
     ``(dparams, dt (B,), dh)`` with ``dparams`` in the raw ODEfunc layout,
     and the recomputed f(t, h) as a fourth value where ``with_f``.
     ``params``: an ODEfunc param dict or :class:`OdefuncWeights`; ``t``
-    scalar or (B,)."""
+    scalar or (B,).  ``precision``: 'f32', or 'bf16' for the VJP of the
+    bf16 dynamics (the kernel's bf16 build on the card)."""
     b, hh, ww, c = h.shape
     w = prepare(params, (hh, ww))
     if h.device.type == "cpu":
-        return odefunc_bwd_plain(w, t, h, g, groups, with_f)
+        return odefunc_bwd_plain(w, t, h, g, groups, with_f, precision)
+    if precision not in _ENTRY:
+        raise ValueError(f"precision must be one of {tuple(_ENTRY)}, got "
+                         f"{precision!r}")
     if tuple(g.shape) != tuple(h.shape):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the "
                          f"state {tuple(h.shape)}")
@@ -222,14 +258,18 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     offsets = [4 * sum(sizes[:i]) for i in range(len(sizes))]
     at = lambda base, nbytes: ctypes.c_void_p(base.data_ptr() + nbytes)
     lib = _lib()
-    code = lib.odefunc_backward(
+    entry = _ENTRY[precision]
+    code = getattr(lib, entry)(
         ptr(t), ptr(h), ptr(g), *weight_pointers(w), *wbt_ptrs,
         ptr(f), ptr(dh), at(outs, 4 * (2 * nk + 8 * c)),
         *(at(scratch, o) for o in offsets),
         at(outs, 0), at(outs, 4 * nk), at(outs, 8 * nk),
         b, hh, ww, c, groups, stream())
-    _build.check(lib, code, "odefunc_backward")
-    odefunc_bwd.launches += 1
+    _build.check(lib, code, entry)
+    if precision == "bf16":
+        odefunc_bwd.launches_bf16 += 1
+    else:
+        odefunc_bwd.launches += 1
     dparams = {
         "norm1": {"scale": dvec[0], "bias": dvec[1]},
         "conv1": {"kernel": dk[0], "bias": dvec[6]},
@@ -240,4 +280,4 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     return (dparams, dt, dh, f) if with_f else (dparams, dt, dh)
 
 
-odefunc_bwd.launches = 0
+odefunc_bwd.launches = odefunc_bwd.launches_bf16 = 0

@@ -15,12 +15,12 @@ On a CPU tensor every kernel runs its plain PyTorch version.  The JAX opt-ins
 ``cfg.use_pallas``/``cfg.use_fused_rk`` are not read.
 
 ``cfg.compute_dtype='bfloat16'`` runs the JAX jnp path's bf16 dynamics
-with the solver state in float32.  On the CPU, for inference and for the
-adjoint (whose VJP is then autograd through the same function).  On the
-card, for inference (:func:`odenet_solve`, ``odenet_logits(adjoint=False)``,
-:func:`odenet_trajectory`): one launch of the ODEfunc kernel's bf16 build
-per evaluation and no fused step, as JAX's ``fused_rk_eligible`` rules; bf16
-training on the card raises before any launch (ROADMAP.md, Queue 2 item 5b).
+with the solver state in float32, for inference and training alike.  On
+the card one launch of the ODEfunc kernel's bf16 build per evaluation and
+no fused step, as JAX's ``fused_rk_eligible`` rules; the adjoint's
+augmented dynamics take the backward kernel's bf16 build (the VJP of those
+dynamics, JAX's ``jax.vjp`` of its jnp dynamics).  On the CPU the same
+functions run their plain bf16 versions.
 """
 
 from __future__ import annotations
@@ -43,8 +43,8 @@ from ..solver import (
 from .common import ModelConfig, head_apply, init_head, init_stem, stem_apply
 
 __all__ = ["init_odefunc", "init_odenet", "odefunc_apply", "block_dynamics",
-           "check_compute_dtype", "fused_rk_eligible", "odenet_solve",
-           "odenet_logits", "odenet_trajectory"]
+           "fused_rk_eligible", "odenet_solve", "odenet_logits",
+           "odenet_trajectory"]
 
 # The JAX bound on the interpolated adjoint's dense forward.
 DENSE_MAX_STEPS = 256
@@ -77,22 +77,6 @@ def init_odenet(seed: int, cfg: ModelConfig, *, device="cuda"):
     return tree_to(params, dev)
 
 
-def check_compute_dtype(cfg: ModelConfig, device, *,
-                        training: bool = False) -> None:
-    """Raise, before any launch, for what reduced-precision dynamics do not
-    run on the card: training (``training=True``: the adjoint, direct
-    backprop, ``Trainer``), whose VJP needs a bf16 build of the backward
-    kernel.  Inference runs on the card through the ODEfunc kernel's bf16
-    build; on the CPU ``cfg.compute_dtype`` runs everywhere, as the JAX jnp
-    path runs it."""
-    if (training and cfg.compute_dtype != "float32"
-            and torch.device(device).type == "cuda"):
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} training on the card is not "
-            "ported yet (ROADMAP.md, Queue 2 item 5b): the backward kernel "
-            "computes in float32 only; device='cpu' runs it")
-
-
 def odefunc_apply(params, t, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The dynamics f(t, h); ``t`` scalar or (B,).  CUDA: the fused kernel,
     its bf16 build for ``cfg.compute_dtype='bfloat16'`` (raises for a shape
@@ -114,22 +98,24 @@ def odefunc_apply(params, t, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def block_dynamics(params, h0: torch.Tensor, cfg: ModelConfig):
     """The ODE block as explicit-parameter dynamics for
     ``solver.odeint_adjoint`` and ``solver.odeint_event_adjoint``:
-    ``(dyn(p, t, y), vjp(p, t, y, a))``.  ``params``: the ODEfunc param
-    dict, laid out for the kernels once here, so ``dyn`` and ``vjp`` close
-    over that layout (pass the same dict as the solver's ``params``).  One
-    ``odefunc`` launch per evaluation and one ``odefunc_bwd`` launch per
-    VJP, which writes f itself (on the CPU, the wrappers' plain versions).
-    The states handed to the kernels may be views into a flat solver
-    state, hence ``aligned``."""
-    g = cfg.groups
+    ``(dyn(p, t, y), vjp(p, t, y, a))`` in ``cfg.compute_dtype``.
+    ``params``: the ODEfunc param dict, laid out for the kernels once here,
+    so ``dyn`` and ``vjp`` close over that layout (pass the same dict as the
+    solver's ``params``).  One ``odefunc`` launch per evaluation and one
+    ``odefunc_bwd`` launch per VJP, which writes f itself, each in the
+    build of ``cfg.compute_dtype`` (on the CPU, the wrappers' plain
+    versions at that precision).  The states handed to the kernels may be
+    views into a flat solver state, hence ``aligned``."""
+    g, dtype = cfg.groups, cfg.cdtype
     with torch.no_grad():
         w = prepare(params, tuple(h0.shape[1:3]))
 
     def dyn(p, t, y):
-        return odefunc(w, t, aligned(y), groups=g)
+        return odefunc(w, t, aligned(y), groups=g, compute_dtype=dtype)
 
     def vjp(p, t, y, a):
-        return odefunc_vjp(w, t, aligned(y), aligned(a), groups=g)
+        return odefunc_vjp(w, t, aligned(y), aligned(a), groups=g,
+                           compute_dtype=dtype)
     return dyn, vjp
 
 
@@ -197,16 +183,9 @@ def _solve_adjoint(params, h0: torch.Tensor, ts: torch.Tensor,
     (dopri5) or twice per attempt (adams); the augmented dynamics take f and
     its VJP from :func:`block_dynamics`.  The interpolated adjoint's dense
     forward has the JAX bound, ``min(cfg.max_steps, 256)`` attempts.
-    Reduced-precision dynamics (CPU only) are :func:`odefunc_apply` in
-    ``cfg.cdtype``, and their VJP is autograd through that function, as
-    JAX's ``jax.vjp`` of its jnp dynamics."""
-    check_compute_dtype(cfg, h0.device, training=True)
-    if cfg.compute_dtype == "float32":
-        dyn, vjp = block_dynamics(params["odefunc"], h0, cfg)
-    else:
-        def dyn(p, t, y):
-            return odefunc_apply(p, t, y, cfg)
-        vjp = None
+    bf16 dynamics take the bf16 builds (on the CPU, autograd through the
+    plain bf16 f, as JAX's ``jax.vjp`` of its jnp dynamics)."""
+    dyn, vjp = block_dynamics(params["odefunc"], h0, cfg)
     return odeint_adjoint(
         dyn, params["odefunc"], h0, ts, rtol=tol, atol=tol,
         method=cfg.method, error_control=cfg.error_control,
@@ -234,7 +213,6 @@ def odenet_logits(params, x: torch.Tensor, cfg: ModelConfig, *,
         if isinstance(tol, torch.Tensor) and tol.ndim:
             raise ValueError("a per-row tolerance applies to the inference "
                              "path; the adjoint path takes one float tol")
-    check_compute_dtype(cfg, x.device, training=adjoint)
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
     if adjoint:

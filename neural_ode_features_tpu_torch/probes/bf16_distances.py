@@ -27,11 +27,30 @@ by one such step, so it cannot tell a bf16 build from an f32 one (both read
   build's own earlier stages give (no cascade: one evaluation's flips), and
   ``combined``, y1, y_mid and the ratio against the tableau's combinations
   of those stages (f32 reassociation).
+- ``odefunc_bwd`` with ``precision='bf16'`` against ``odefunc_bwd_plain(...,
+  precision='bf16')`` (autograd through the plain bf16 f): per output (dh,
+  dt and each parameter leaf) the relative L2 of the bf16 build and of the
+  f32 build, in u; and whether the bf16 build's f is the bf16 ODEfunc
+  kernel's bit for bit and two launches give the same bits.  GroupNorm's
+  backward widens a flipped rounding, so the f32 build lies 10–30 u from
+  the plain bf16 VJP on dh, dt and the leaves of GN1, conv1 and GN2's bias
+  (:data:`BWD_EARLY`), where the bar is held beside it; on the late leaves
+  (GN2's scale, conv2, GN3) bf16 and f32 read alike (0.5–2.2 u), and the
+  bar there is absolute.  The bars come from a card run (NVIDIA H100 80GB
+  HBM3, 700 W): the bf16 build read at most 0.77 u at 7×7×64 (B = 2 to
+  128), 6×6×64, 7×7×32 and 7×7×96 and 1.8 u at the widest maps (7×7×128
+  and 7×7×512 at B = 32, 6×6×512 at B = 16) on the early outputs, at most
+  0.62 u on the late leaves; the f32 build read 4.1–19.6 u on the early
+  outputs.  Where each GroupNorm group is one channel (C =
+  groups) the conv biases have no gradient (the GroupNorm after each conv
+  removes a per-channel constant): both sides read rounding noise, and
+  those two outputs are left out.
 
 :func:`check` holds readings to :data:`BARS` and to their f32 controls:
 the bf16 build lies within each bar and the f32 build beyond it (the
-``odefunc`` per-row bar, which both builds meet, excepted), and each output
-of the bf16 step lies nearer to the plain bf16 step than the f32 build's.
+``odefunc`` per-row bar, which both builds meet, and the backward's late
+leaves excepted), and each output of the bf16 step lies nearer to the plain
+bf16 step than the f32 build's.
 Prints the card's name and power limit, then one JSON line per shape and
 batch, with what breaks a bar under ``fails``.  The inputs are seeded (the
 ODEfunc of ``init_odenet`` at each width, seed 11).
@@ -49,7 +68,14 @@ import torch
 from .. import _device
 from ..kernels import odefunc as odefunc_mod
 from ..kernels import rk_step
-from ..kernels.odefunc import bf16_round, odefunc, odefunc_plain, prepare
+from ..kernels.odefunc import (
+    PARAM_KEYS,
+    bf16_round,
+    odefunc,
+    odefunc_plain,
+    prepare,
+)
+from ..kernels.odefunc_bwd import odefunc_bwd, odefunc_bwd_plain
 from ..kernels.rk_step import dopri5_step_plain
 from ..models import ModelConfig, init_odenet
 from ..rk_attempt import _rk_attempt, _rms, _tol_column
@@ -62,7 +88,13 @@ BARS = {
     "f_rel_u": 0.5,       # odefunc: relative L2
     "stage_u": 0.25,      # rk_step: each evaluation given its stage input
     "combined_u": 0.001,  # rk_step: y1, y_mid, ratio given the stages
+    "bwd_u": 2.5,         # odefunc_bwd: relative L2 of dh, dt, early leaves
+    "bwd_late_u": 1.0,    # odefunc_bwd: the late leaves, absolute
 }
+# The backward's outputs where the f32 build lies far from the plain bf16
+# VJP (the module docstring): the bar is held below the f32 build there.
+BWD_EARLY = ("dh", "dt", "norm1.scale", "norm1.bias", "conv1.kernel",
+             "conv1.bias", "norm2.bias")
 
 
 def rel_u(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -176,6 +208,42 @@ def step_readings(w, t0, dt, y0, f0, *, hw, groups: int, rtol,
     return out
 
 
+def _bwd_outputs(res) -> dict:
+    """``odefunc_bwd``'s ``(dparams, dt, dh, f)`` by output name."""
+    dparams, dt, dh, _ = res
+    return {"dh": dh, "dt": dt,
+            **{f"{a}.{b}": dparams[a][b] for a, b in PARAM_KEYS}}
+
+
+def bwd_readings(w, t, h, g, groups: int) -> dict:
+    """The bf16 backward build and the f32 build against the plain bf16
+    VJP at ``(w, t, h)`` and cotangent ``g``, per output in u; ``f_equal``:
+    the bf16 build's f is the bf16 ODEfunc kernel's bit for bit;
+    ``repeatable``: a second launch gives the same bits;
+    ``bf16_values``: f, dh, dt and every leaf but the conv kernels' time
+    column hold bf16 values."""
+    want = _bwd_outputs(odefunc_bwd_plain(w, t, h, g, groups, True, "bf16"))
+    runs = [odefunc_bwd(w, t, h, g, groups=groups, with_f=True,
+                        precision=p) for p in ("bf16", "bf16", "f32")]
+    got, again = _bwd_outputs(runs[0]), _bwd_outputs(runs[1])
+    f32 = _bwd_outputs(runs[2])
+    if h.shape[-1] == groups:  # zero in exact arithmetic (docstring)
+        for k in ("conv1.bias", "conv2.bias"):
+            del want[k], got[k], again[k], f32[k]
+    fwd = odefunc(w, t, h, groups=groups, compute_dtype=torch.bfloat16)
+    values = [runs[0][3], *(v[:, :, 1:] if k.endswith("kernel") else v
+                            for k, v in got.items())]
+    return {"f_equal": bool(torch.equal(runs[0][3], fwd)),
+            "repeatable": all(torch.equal(got[k], again[k]) for k in got)
+            and torch.equal(runs[0][3], runs[1][3]),
+            "bf16_values": all(torch.equal(v, bf16_round(v))
+                               for v in values),
+            "max_abs_err": max(float((got[k] - want[k]).abs().max())
+                               for k in got),
+            "outputs": {k: {"kernel": rel_u(got[k], want[k]),
+                            "f32": rel_u(f32[k], want[k])} for k in got}}
+
+
 def check(readings: dict) -> list[str]:
     """What in ``readings`` (of :func:`odefunc_readings` or
     :func:`step_readings`) breaks :data:`BARS` or its control; empty if
@@ -187,6 +255,17 @@ def check(readings: dict) -> list[str]:
             bad.append(f"{name}: bf16 build {kernel:.4g} u, bar {bar:.4g} u, "
                        f"f32 build {f32:.4g} u (want bf16 <= bar < f32)")
 
+    if "outputs" in readings:
+        for k in ("f_equal", "repeatable", "bf16_values"):
+            if not readings[k]:
+                bad.append(f"odefunc_bwd: {k} is false")
+        for k, r in readings["outputs"].items():
+            if k in BWD_EARLY:
+                hold(f"odefunc_bwd {k}", r["kernel"], BARS["bwd_u"], r["f32"])
+            elif r["kernel"] > BARS["bwd_late_u"]:
+                bad.append(f"odefunc_bwd {k}: bf16 build {r['kernel']:.4g} "
+                           f"u, bar {BARS['bwd_late_u']} u")
+        return bad
     if "kernel_rel_u" in readings:
         if not readings["bf16_values"]:
             bad.append("odefunc: the bf16 build's values are not bf16")
@@ -230,8 +309,11 @@ def readings_at(hh: int, ww: int, c: int, batch: int, device,
     """Both builds' readings at one shape and batch (groups 32)."""
     w, h, t, dt = shape_inputs(hh, ww, c, batch, device)
     f0 = odefunc_plain(w, t, h, 32).reshape(batch, -1)
+    g = torch.from_numpy(np.random.default_rng(12).normal(
+        size=tuple(h.shape)).astype(np.float32)).to(h.device)
     return {"shape": f"{hh}x{ww}x{c}", "batch": batch,
             "odefunc": odefunc_readings(w, t, h, 32),
+            "odefunc_bwd": bwd_readings(w, t, h, g, 32),
             "rk_step": step_readings(w, t, dt, h.reshape(batch, -1), f0,
                                      hw=(hh, ww), groups=32, rtol=tol,
                                      atol=tol)}
@@ -258,7 +340,8 @@ def main(argv=None) -> list[dict]:
         hh, ww, c = (int(v) for v in shape.split("x"))
         for batch in (int(v) for v in args.batch.split(",")):
             row = readings_at(hh, ww, c, batch, dev)
-            row["fails"] = check(row["odefunc"]) + check(row["rk_step"])
+            row["fails"] = (check(row["odefunc"]) + check(row["rk_step"])
+                            + check(row["odefunc_bwd"]))
             rows.append(row)
             print(json.dumps(row))
     return rows

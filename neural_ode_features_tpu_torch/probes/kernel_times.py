@@ -27,10 +27,11 @@ a call, the operator's dispatch included where the package has one).
 ``--shapes ''`` skips the kernels.
 
 ``--bf16`` adds, per shape, the bf16 builds (``odefunc`` with
-``compute_dtype=bfloat16``, ``rk_step`` with ``conv_precision='bf16'``,
-device ms as above) and the library yardstick of their convs,
-``F.conv2d`` on bf16 tensors at that shape (one conv, B = 256).  It needs a
-package that has the bf16 builds.
+``compute_dtype=bfloat16``, ``rk_step`` with ``conv_precision='bf16'``, the
+backward with ``precision='bf16'`` at B = 128, device ms as above; the
+backward's three kernels apart, beside the f32 build's) and the library
+yardstick of their convs, ``F.conv2d`` on bf16 tensors at that shape (one
+conv, B = 256).  It needs a package that has the bf16 builds.
 
 ``--digest`` prints, per shape, the sha256 of each f32 kernel's outputs on
 the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
@@ -64,8 +65,14 @@ BWD_KERNELS = ("bwd_sample_kernel", "bwd_weight_kernel", "bwd_reduce_kernel")
 
 def device_ms(fn, names, reps: int) -> float:
     """Device ms per call: for each of ``names`` the mean over the recorded
-    launches of the kernel so named (one per call), summed.  The window
-    starts with a pause: the profiler can miss the first milliseconds."""
+    launches of the kernel so named (one per call), summed."""
+    return sum(device_split(fn, names, reps).values())
+
+
+def device_split(fn, names, reps: int) -> dict:
+    """Device ms per call of each kernel named in ``names``: the mean over
+    its recorded launches (one per call).  The window starts with a pause:
+    the profiler can miss the first milliseconds."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -74,15 +81,15 @@ def device_ms(fn, names, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    split = {}
     for name in names:
         hits = [ev for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA and name in ev.key]
         count = sum(ev.count for ev in hits)
         if not count:
             raise RuntimeError(f"no launch of {name!r} in the profile")
-        total += sum(ev.self_device_time_total for ev in hits) / count / 1e3
-    return total
+        split[name] = sum(ev.self_device_time_total for ev in hits) / count / 1e3
+    return split
 
 
 def _inputs(hh: int, ww: int, c: int):
@@ -132,6 +139,13 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False) -> dict:
             "conv_library_bf16_ms": _event_ms(
                 lambda: F.conv2d(xn, wn, padding=1), reps),
         })
+        for prec in ("f32", "bf16"):
+            split = device_split(
+                lambda: odefunc_bwd(w, tb, hb, g, groups=G, precision=prec),
+                BWD_KERNELS, reps)
+            row[f"odefunc_bwd_{prec}_split_ms"] = split
+        row["odefunc_bwd_bf16_ms"] = sum(
+            row["odefunc_bwd_bf16_split_ms"].values())
     return row
 
 

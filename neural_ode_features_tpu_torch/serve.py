@@ -12,10 +12,12 @@ This one is a Python process that holds the weights and runs the port's
 model code: the port has no ahead-of-time executable of an adaptive solve,
 whose attempt loop runs on the host.  The artifact
 (``export_model.py``) carries the weights in place of the executable.  On
-the card the ODE-Net runs the kernels (``odefunc``, ``rk_step``) or the host
-exits before ``READY``; ``--cpu`` is the only way onto the plain path.  An
-``export-mock`` artifact (``format: mock-pjrt-descriptor``) is answered
-with the compute of the native host's mock plugin (:func:`mock_fn`).
+the card the ODE-Net runs the kernels (``odefunc``, ``rk_step``; a bf16
+run, ``compute_dtype='bfloat16'``, the ODEfunc kernel's bf16 build and no
+fused step) or the host exits before ``READY``; ``--cpu`` is the only way
+onto the plain path.  An ``export-mock`` artifact (``format:
+mock-pjrt-descriptor``) is answered with the compute of the native host's
+mock plugin (:func:`mock_fn`).
 
 Modes, in the C++ host's order: the first execution on ``sample_input.npy``
 (or ``--input``) warms the model up; ``--selftest`` compares it with
@@ -40,8 +42,8 @@ into one batch, padded to B rows; a partial batch waits while any open
 connection still has unread bytes, and a lone request dispatches at once.
 At shutdown the host prints its totals on one line of stderr: flights,
 requests and rows, the compute thread's solve time, a histogram of attempts
-(``rk_step`` launches) per dispatch and the kernel launch counters (set to 0
-when serving starts).  ``SIGUSR1`` prints the same totals while it serves
+(``rk_step`` launches; a bf16 run's (``odefunc_bf16`` − 2) / 6) per
+dispatch and the kernel launch counters (set to 0 when serving starts).  ``SIGUSR1`` prints the same totals while it serves
 (``listen: stats {...}``), so that a client can read them between phases.
 
 Both loops warm the compute thread's path (side stream, every pinned
@@ -111,12 +113,30 @@ class Fatal(Exception):
 
 
 def kernel_counts() -> dict:
+    """The launch counters: the f32 builds' always, the bf16 ODEfunc
+    build's (a bf16 run's dynamics) where it launched."""
+    bf16 = {"odefunc_bf16": odefunc.launches_bf16}
     return {"odefunc": odefunc.launches, "rk_step": dopri5_step.launches,
-            "odefunc_bwd": odefunc_bwd.launches}
+            "odefunc_bwd": odefunc_bwd.launches,
+            **{k: v for k, v in bf16.items() if v}}
+
+
+def _launched(before: dict) -> dict:
+    """The launches since ``before`` (:func:`kernel_counts`)."""
+    return {k: v - before.get(k, 0) for k, v in kernel_counts().items()}
+
+
+def _attempts(launched: dict) -> int:
+    """The dopri5 attempts of one dispatch: its fused-step launches, or for
+    bf16 dynamics (no fused step) its 2 + 6·attempts ODEfunc launches."""
+    if "odefunc_bf16" in launched:
+        return (launched["odefunc_bf16"] - 2) // 6
+    return launched["rk_step"]
 
 
 def _reset_counts() -> None:
     odefunc.launches = dopri5_step.launches = odefunc_bwd.launches = 0
+    odefunc.launches_bf16 = 0
 
 
 def read_npy(path: str) -> np.ndarray:
@@ -217,8 +237,7 @@ class Engine:
                 before, t0 = kernel_counts(), time.perf_counter()
                 job.out = np.ascontiguousarray(self.fn(job.x).cpu().numpy())
                 job.ms = 1e3 * (time.perf_counter() - t0)
-                job.launches = {k: v - before[k]
-                                for k, v in kernel_counts().items()}
+                job.launches = _launched(before)
             except Exception as e:  # raised in the host's thread by result()
                 job.error = e
             job.x = None
@@ -591,7 +610,7 @@ def serve_socket(fn, dev: torch.device, addr: str, x: np.ndarray,
             job, segs = flights.popleft()
             out = memoryview(result(job)).cast("B")
             stats["solve_ms"] += job.ms
-            n_att = str(job.launches["rk_step"])
+            n_att = str(_attempts(job.launches))
             stats["attempts"][n_att] = stats["attempts"].get(n_att, 0) + 1
             off = 0
             for c, rows in segs:
@@ -744,10 +763,7 @@ def run(args) -> int:
         log(f"model: mock ({meta.get('mode', 'flat')}, scale "
             f"{meta['scale']}, shift {meta['shift']}), on {dev}")
     else:
-        try:
-            params, cfg, model = load_artifact(art, meta, dev)
-        except SystemExit as e:  # a bf16 run on the card
-            raise Fatal(str(e)) from None
+        params, cfg, model = load_artifact(art, meta, dev)
         fn = logits_fn(params, cfg, model, chain)
         log(f"model: {model}, hidden {cfg.hidden}, {cfg.method} "
             f"{cfg.error_control} tol {cfg.tol:g}, on {dev}")
@@ -757,13 +773,15 @@ def run(args) -> int:
     before = kernel_counts()
     xd = torch.from_numpy(x).to(dev)
     y = np.ascontiguousarray(fn(xd).cpu().numpy())
-    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    launched = _launched(before)
     log(f"first execute: {time.perf_counter() - t_first:.3f} s (includes "
         f"the kernels' build and warm-up); launches {launched}")
+    bf16 = model == "odenet" and cfg.compute_dtype == "bfloat16"
     fused = (model == "odenet" and cfg.method == "dopri5"
-             and cfg.error_control == "per_sample")
+             and cfg.error_control == "per_sample" and not bf16)
+    f = launched.get("odefunc_bf16", 0) if bf16 else launched["odefunc"]
     if dev.type == "cuda" and model == "odenet" and not (
-            launched["odefunc"] and (launched["rk_step"] or not fused)):
+            f and (launched["rk_step"] or not fused)):
         raise Fatal(f"the ODE-Net ran without its kernels on the card "
                     f"(launches {launched})")
     watchdog.phase = "post-warmup"

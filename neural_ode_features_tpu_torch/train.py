@@ -38,9 +38,10 @@ devices.  Neither flag is part of the run identity.
 
 Runs on the card unless ``--cpu`` is given; no card is an error, and so are
 more ranks than cards.  Flags whose machinery is not ported exit with a
-message naming their ROADMAP.md item before any run directory is made;
-``--bf16`` is one of them on the card (bf16 training there needs a bf16
-build of the backward kernel, Queue 2 item 5b), and runs with ``--cpu``.
+message naming their ROADMAP.md item before any run directory is made.
+``--bf16`` trains the bf16 dynamics on the card (the bf16 builds of the
+ODEfunc kernel and of its backward) and with ``--cpu`` (their plain
+versions).
 """
 
 from __future__ import annotations
@@ -127,8 +128,8 @@ def parse_args(argv=None):
                         "adjoint path, 64 for --no-adjoint)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 dynamics compute (solver control stays "
-                        "f32): with --cpu only; training in bf16 on the card "
-                        "is not ported (ROADMAP.md, Queue 2 item 5b)")
+                        "f32): on the card through the kernels' bf16 "
+                        "builds, with --cpu through their plain versions")
     p.add_argument("--num-devices", type=int, default=None,
                    help="data-parallel ranks, one process per card (with "
                         "--cpu: gloo processes on the CPU); default every "
@@ -173,8 +174,6 @@ def _refuse_unported(args) -> None:
     def stop(flag, item):
         raise SystemExit(f"{flag} is not ported yet (ROADMAP.md, {item})")
 
-    if args.bf16 and not args.cpu:
-        stop("--bf16 on the card", "Queue 2 item 5b")
     if args.state_format == "orbax":
         stop("--state-format orbax", "Queue 1 item 5")
     if args.tensorboard:

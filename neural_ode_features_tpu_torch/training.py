@@ -45,12 +45,12 @@ reduction order:
   msgpack holds whole arrays too); :meth:`load_state` reads it on every
   rank and shards it, so a state moves between world sizes.
 
-``compute_dtype='bfloat16'`` trains on the CPU (the dynamics in bfloat16,
-as the JAX jnp path); on the card it raises before any launch.  Not ported
-yet (each raises ``NotImplementedError`` naming ROADMAP.md): bfloat16
-training on the card (Queue 2 item 5b) and the orbax training-state
-directory.  The training state file is a
-``torch.save`` of one flat dict of tensors.
+``compute_dtype='bfloat16'`` trains the dynamics in bfloat16, as the JAX
+jnp path: on the card through the bf16 builds of the ODEfunc kernel and of
+its backward (the adjoint and direct backprop alike), on the CPU through
+their plain versions.  Not ported yet (raises ``NotImplementedError``
+naming ROADMAP.md): the orbax training-state directory.  The training state
+file is a ``torch.save`` of one flat dict of tensors.
 """
 
 from __future__ import annotations
@@ -70,11 +70,9 @@ from .data import Batches
 from .kernels.odefunc import odefunc_autograd, prepare
 from .models import (
     ModelConfig,
-    check_compute_dtype,
     head_apply,
     init_odenet,
     init_resnet,
-    odefunc_apply,
     odenet_logits,
     resnet_logits,
     stem_apply,
@@ -153,23 +151,18 @@ def _direct_diff_logits(params, x: torch.Tensor, cfg: ModelConfig,
                         batch_sum=None):
     """Gradients by direct backprop through the host-loop adaptive solve
     (the reference's default semantics): autograd records every attempt,
-    and each f goes through the ODEfunc kernel pair, or, for
-    reduced-precision dynamics (CPU only), through autograd of the plain
-    :func:`odefunc_apply` in ``cfg.cdtype``.  No fused step.
-    ``batch_sum``: see ``solver.odeint`` (autograd goes through it)."""
-    check_compute_dtype(cfg, x.device, training=True)
+    and each f goes through the ODEfunc kernel pair in the build of
+    ``cfg.compute_dtype`` (on the CPU their plain versions).  No fused
+    step.  ``batch_sum``: see ``solver.odeint`` (autograd goes through
+    it)."""
     h0 = stem_apply(params["stem"], x, cfg)
     ts = torch.tensor([0.0, 1.0], dtype=h0.dtype, device=h0.device)
-    if cfg.compute_dtype == "float32":
-        with torch.no_grad():
-            w = prepare(params["odefunc"], tuple(h0.shape[1:3]))
+    with torch.no_grad():
+        w = prepare(params["odefunc"], tuple(h0.shape[1:3]))
 
-        def dyn(t, y):
-            return odefunc_autograd(params["odefunc"], t, y,
-                                    groups=cfg.groups, weights=w)
-    else:
-        def dyn(t, y):
-            return odefunc_apply(params["odefunc"], t, y, cfg)
+    def dyn(t, y):
+        return odefunc_autograd(params["odefunc"], t, y, groups=cfg.groups,
+                                weights=w, compute_dtype=cfg.cdtype)
 
     traj, stats = odeint(dyn, h0, ts, rtol=cfg.tol, atol=cfg.tol,
                          method=cfg.method, error_control=cfg.error_control,
@@ -239,7 +232,6 @@ class Trainer:
         self.model_cfg = train_cfg.model_config()
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
-        check_compute_dtype(self.model_cfg, self.device, training=True)
         self._init_mesh(train_cfg)
 
         if params is None:

@@ -1,9 +1,9 @@
 """Port parity, bfloat16 dynamics on the CPU: ``compute_dtype='bfloat16'``
 runs where the JAX package runs it, on its jnp path (the dynamics in bf16,
 the solver state in f32), for inference, the adjoint, direct backprop, the
-``Trainer`` and ``train --bf16 --cpu``.  On the card inference runs the
-ODEfunc kernel's bf16 build (``tests/test_torch_bf16_kernels.py``), and
-training raises before any launch, naming ROADMAP.md Queue 2 item 5b.
+``Trainer`` and ``train --bf16 --cpu``.  On the card the same calls run
+the bf16 builds of the ODEfunc kernel and of its backward
+(``tests/test_torch_bf16_kernels.py``, ``tests/test_torch_cuda.py``).
 
 The tolerance against the JAX package.  bf16 keeps an 8-bit significand,
 so one rounding is off by up to u = 2^-8 ≈ 3.9e-3 of its value.  The two
@@ -31,12 +31,19 @@ from neural_ode_features_tpu.models import init_odenet as jax_init_odenet
 from neural_ode_features_tpu.models import odenet_logits as jax_odenet_logits
 from neural_ode_features_tpu_torch import train as port_train
 from neural_ode_features_tpu_torch import training
-from neural_ode_features_tpu_torch.kernels.odefunc import odefunc
-from neural_ode_features_tpu_torch.kernels.odefunc_bwd import odefunc_bwd
+from neural_ode_features_tpu_torch.kernels import odefunc as odefunc_mod
+from neural_ode_features_tpu_torch.kernels.odefunc import (
+    odefunc_plain,
+    prepare,
+)
+from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+    odefunc_bwd_plain,
+)
 from neural_ode_features_tpu_torch.models import (
     ModelConfig,
-    check_compute_dtype,
+    block_dynamics,
     init_odenet,
+    odefunc_apply,
     odenet_logits,
 )
 from neural_ode_features_tpu_torch.training import TrainConfig, Trainer
@@ -142,20 +149,65 @@ def test_train_bf16_cpu_matches_the_jax_cli(tmp_path, monkeypatch):
                                                                    want)
 
 
-def test_bf16_on_the_card_raises_before_any_launch(monkeypatch, tmp_path):
-    """bf16 training aimed at the card raises naming Queue 2 item 5b, and
-    neither launch counter moves; bf16 inference passes the gate there (it
-    runs the ODEfunc kernel's bf16 build)."""
+def test_bf16_on_the_card_raises_before_any_launch(monkeypatch):
+    """A bf16 ``Trainer`` step aimed at the card is no longer refused: the
+    trainer takes the card (``torch.cuda.is_available`` patched true, the
+    device then swapped for the CPU, where this machine computes) and its
+    step's every evaluation asks for the ODEfunc kernel's bf16 build, none
+    for the f32 build; the adjoint's VJPs are the backward's bf16 build
+    (``test_block_dynamics_honours_compute_dtype``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    before = odefunc.launches, odefunc.launches_bf16, odefunc_bwd.launches
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
-        check_compute_dtype(CFG16, torch.device("cuda"), training=True)
-    check_compute_dtype(CFG16, torch.device("cuda"))
-    check_compute_dtype(CFG32, "cuda", training=True)
-    check_compute_dtype(CFG16, "cpu", training=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5b"):
-        Trainer(TrainConfig(dataset="synthetic-mnist",
-                            compute_dtype="bfloat16"),
-                steps_per_epoch=1, device="cuda")
-    assert (odefunc.launches, odefunc.launches_bf16,
-            odefunc_bwd.launches) == before
+    asked = []
+    resolve = training.resolve_device
+
+    def resolve_device(device):
+        asked.append(resolve(device).type)
+        return torch.device("cpu")
+
+    monkeypatch.setattr(training, "resolve_device", resolve_device)
+    seen = []
+    plain = odefunc_mod.odefunc_plain
+
+    def forward(w, t, h, groups, precision="f32"):
+        seen.append(precision)
+        return plain(w, t, h, groups, precision)
+
+    monkeypatch.setattr(odefunc_mod, "odefunc_plain", forward)
+    trainer = Trainer(TrainConfig(dataset="synthetic-mnist", hidden=32,
+                                  tol=1e-2, batch_size=4,
+                                  compute_dtype="bfloat16"),
+                      steps_per_epoch=1, device="cuda")
+    m = trainer.train_batch(
+        torch.from_numpy(np.random.default_rng(2).integers(
+            0, 256, (4, 28, 28, 1), dtype=np.uint8)), torch.arange(4))
+    assert asked == ["cuda"] and np.isfinite(float(m["loss"]))
+    assert seen and set(seen) == {"bf16"}
+
+
+def test_block_dynamics_honours_compute_dtype():
+    """``block_dynamics`` (the adjoint's and the event adjoint's dynamics)
+    with a bf16 configuration gives the plain bf16 f and the plain bf16
+    VJP (the bf16 builds' plain versions on the CPU), not f32's."""
+    params = init_odenet(0, CFG16, device="cpu")["odefunc"]
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy((rng.normal(size=(3, 6, 6, 64)) * 0.3).astype(
+        np.float32))
+    a = torch.from_numpy(rng.normal(size=h.shape).astype(np.float32))
+    t = torch.tensor(0.37)
+    w = prepare(params, (6, 6))
+    for cfg, precision in ((CFG16, "bf16"), (CFG32, "f32")):
+        dyn, vjp = block_dynamics(params, h, cfg)
+        f = dyn(params, t, h)
+        assert torch.equal(f, odefunc_apply(params, t, h, cfg))
+        assert torch.equal(f, odefunc_plain(w, t, h, cfg.groups, precision))
+        f2, dp, dt, dh = vjp(params, t, h, a)
+        dp_w, dt_w, dh_w, f_w = odefunc_bwd_plain(w, t, h, a, cfg.groups,
+                                                  True, precision)
+        assert torch.equal(f2, f) and torch.equal(f_w, f)
+        assert torch.equal(dh, dh_w) and torch.equal(dt, dt_w.sum())
+        assert all(torch.equal(dp[k][n], dp_w[k][n]) for k in dp
+                   for n in dp[k])
+        if precision == "bf16":
+            f16, dh16 = f, dh
+    assert float((f16 - f).abs().max()) > 1e-3
+    assert float((dh16 - dh).abs().max()) > 1e-3

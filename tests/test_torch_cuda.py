@@ -944,21 +944,27 @@ def test_bf16_builds_match_plain(dev, c, side):
     build (``probes/bf16_distances.py``: the bars and their f32 controls):
     the ODEfunc kernel's ``compute_dtype='bfloat16'`` build, the fused
     step's ``conv_precision='bf16'`` one evaluation at a time from its own
-    stages, each launch on its build's own counter; the probe's bf16 twins
-    (f32 reassociation: their operands round alike), apart from the f32
-    conv."""
+    stages, the backward's bf16 build per output (its f the bf16 ODEfunc
+    kernel's bit for bit, dθ bit-identical over two launches), each launch
+    on its build's own counter; the probe's bf16 twins (f32 reassociation:
+    their operands round alike), apart from the f32 conv."""
     from neural_ode_features_tpu_torch.kernels.conv3x3 import (
         BF16_STRATEGIES,
         supported,
     )
 
     counters = (odefunc, "launches"), (odefunc, "launches_bf16"), (
-        dopri5_step, "launches"), (dopri5_step, "launches_bf16")
+        dopri5_step, "launches"), (dopri5_step, "launches_bf16"), (
+        odefunc_bwd, "launches"), (odefunc_bwd, "launches_bf16")
     before = [getattr(*c_) for c_ in counters]
     readings = bf16_distances.readings_at(side, side, c, 32, dev)
-    assert [getattr(*c_) - b for c_, b in zip(counters, before)] == [1] * 4
+    # odefunc: the f32 and the bf16 build beside the plain f, then the bf16
+    # build beside the backward's f; the backward: bf16 twice, f32 once.
+    assert [getattr(*c_) - b for c_, b in zip(counters, before)] == [
+        1, 2, 1, 1, 1, 2]
     assert bf16_distances.check(readings["odefunc"]) == []
     assert bf16_distances.check(readings["rk_step"]) == []
+    assert bf16_distances.check(readings["odefunc_bwd"]) == []
 
     x, wc = probe_inputs(32, dev, (side, side), c)
     plain = conv3x3_plain(x, wc, passes="bf16")
@@ -1024,3 +1030,50 @@ def test_bf16_inference_runs_the_bf16_build(dev, captures):
         for cfg in (cfg16, ENTRY_CONFIG, cfg16, ENTRY_CONFIG):
             odenet_solve(params, h0, ts, cfg)
     assert len(captures) == 2 and len(attempt_graph.cache_info(dev)) == 2
+
+
+def test_bf16_adjoint_step_counts_through_the_graph_route(dev, host_loop):
+    """One bf16 adjoint train step (B = 8) on the graph route and on the
+    host loop: loss, NFE, NFE-b and every gradient bit-identical; launches
+    by the training rule in the bf16 builds alone (2 + 6·attempts + 1
+    ``odefunc_bf16``, NFE-b − 1 ``odefunc_bwd_bf16``), the graph route's
+    counted from the captured graph's kernel nodes of the bf16 build
+    (``bwd_sample_kernel``'s last template argument)."""
+    from neural_ode_features_tpu_torch.models import odenet_logits
+    from neural_ode_features_tpu_torch.training import _deterministic_cudnn
+
+    trainer, (images, labels) = train_entry(device="cuda", batch=8)
+    cfg16 = dataclasses.replace(trainer.model_cfg, compute_dtype="bfloat16")
+    x = normalize(torch.from_numpy(images).to(dev), trainer.cfg.dataset)
+    y = torch.from_numpy(labels).to(dev)
+    counters = ((odefunc, "launches_bf16"), (odefunc_bwd, "launches_bf16"),
+                (odefunc, "launches"), (odefunc_bwd, "launches"),
+                (dopri5_step, "launches"), (dopri5_step, "launches_bf16"))
+
+    def step():
+        p = torch.utils._pytree.tree_map(
+            lambda v: v.detach().requires_grad_(), trainer.params)
+        with _deterministic_cudnn():
+            logits, st = odenet_logits(p, x, cfg16, adjoint=True)
+            loss = torch.nn.functional.cross_entropy(logits, y)
+            grads = torch.autograd.grad(loss,
+                                        torch.utils._pytree.tree_leaves(p))
+        return loss.detach(), st, grads
+
+    out = []
+    for ctx in (contextlib.nullcontext(), host_loop()):
+        with ctx:
+            for c_ in counters:
+                setattr(*c_, 0)
+            res = step()
+            torch.cuda.synchronize()
+            out.append((res, tuple(getattr(*c_) for c_ in counters)))
+    (g, g_n), (h, h_n) = out
+    assert torch.equal(g[0], h[0]) and bool(torch.isfinite(g[0]))
+    for a, b in zip(g[1], h[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(g[2], h[2]):
+        assert torch.equal(a, b)
+    attempts = int(((g[1].nfe - 2) // 6).max())
+    assert g_n == h_n == (2 + 6 * attempts + 1, int(g[1].nfe_b) - 1,
+                          0, 0, 0, 0)

@@ -137,7 +137,6 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path, capsys):
     (["--num-devices", "0"], "at least one"),
     (["--num-devices", "3"], "does not divide over the 3 ranks"),
     (["--model-shards", "2"], "does not divide 1 devices"),
-    (["--bf16"], "Queue 2 item 5b"),
     (["--state-format", "orbax"], "Queue 1 item 5"),
     (["--tensorboard"], "clu"),
     (["--hidden", "48"], "multiple of 32"),
@@ -146,24 +145,52 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path, capsys):
     (["--seeds", "3,3"], "duplicate seeds"),
     (["--seeds", "0,1", "--no-fused-epoch"], "incompatible with --seeds"),
 ])
-def test_unported_flags_exit_before_a_run_directory(tmp_path, flags, match,
-                                                   monkeypatch):
+def test_unported_flags_exit_before_a_run_directory(tmp_path, flags, match):
     runs = tmp_path / "runs"
-    argv = SMALL
-    if flags == ["--bf16"]:
-        # bf16 trains with --cpu (tests/test_torch_bf16.py); aimed at a
-        # card it exits before any device use (Queue 2 item 5b).
-        argv = [a for a in SMALL if a != "--cpu"]
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-
-        def no_device_use(*args, **kwargs):
-            raise AssertionError("the card was used before the exit")
-        monkeypatch.setattr(torch.cuda, "device_count", no_device_use)
-        monkeypatch.setattr(port_train, "strict_f32", no_device_use)
     with pytest.raises(SystemExit, match=match):
-        port_train.main([*argv, "--epochs", "1", "--runs-dir", str(runs),
+        port_train.main([*SMALL, "--epochs", "1", "--runs-dir", str(runs),
                          *flags])
     assert not runs.exists()
+
+
+def test_train_bf16_aimed_at_the_card_takes_the_bf16_builds(tmp_path,
+                                                            monkeypatch):
+    """``train --bf16`` without ``--cpu`` no longer exits: it asks for the
+    card (one card here by patching; the device it is given is then the
+    CPU, where this machine computes), trains an epoch and writes the run
+    directory, every evaluation of f in the ODEfunc kernel's bf16 build
+    and every adjoint VJP in the backward's bf16 build, none in an f32
+    build (on the card: ``chip_smoke.py`` ``[bf16]``)."""
+    from neural_ode_features_tpu_torch.kernels import odefunc as odefunc_mod
+    from neural_ode_features_tpu_torch.kernels import odefunc_bwd as bwd_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    asked, seen = [], []
+
+    def strict_f32(kind):
+        asked.append(kind)
+        return torch.device("cpu")
+
+    monkeypatch.setattr(port_train, "strict_f32", strict_f32)
+    plain, bwd_plain = odefunc_mod.odefunc_plain, bwd_mod.odefunc_bwd_plain
+
+    def forward(w, t, h, groups, precision="f32"):
+        seen.append(("odefunc", precision))
+        return plain(w, t, h, groups, precision)
+
+    def backward(w, t, h, g, groups, with_f=False, precision="f32"):
+        seen.append(("odefunc_bwd", precision))
+        return bwd_plain(w, t, h, g, groups, with_f, precision)
+
+    monkeypatch.setattr(odefunc_mod, "odefunc_plain", forward)
+    monkeypatch.setattr(bwd_mod, "odefunc_bwd_plain", backward)
+    argv = [a for a in SMALL if a != "--cpu"]
+    run = Path(port_train.main([*argv, "--bf16", "--epochs", "1",
+                                "--runs-dir", str(tmp_path / "runs")]))
+    assert set(asked) == {"cuda"} and "bf16_True" in run.name
+    assert len(_rows(run)) == 1
+    assert set(seen) == {("odefunc", "bf16"), ("odefunc_bwd", "bf16")}
 
 
 def test_no_card_is_an_error_not_a_cpu_run(tmp_path, monkeypatch):

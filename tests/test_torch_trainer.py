@@ -149,20 +149,28 @@ def test_trainer_refusals(change, monkeypatch):
     trains now (``test_torch_train_cli.py``), an unknown model is an
     error; a mesh (``num_devices`` or ``model_shards`` > 1) needs the ranks
     of a process group (``parallel.launch``, ``test_torch_parallel.py``),
-    which this test process has not.  bfloat16 trains on the CPU
-    (``test_torch_bf16.py``) and is refused on the card, before any
-    launch (Queue 2 item 5b)."""
-    device = "cpu"
+    which this test process has not.  bfloat16 is refused no more: aimed
+    at the card, the trainer takes the card (the device it is given is
+    then the CPU, which this machine has) with the bf16 dynamics, which it
+    trains in the kernels' bf16 builds (``test_torch_bf16.py``)."""
+    if "compute_dtype" in change:
+        from neural_ode_features_tpu_torch import training
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        asked, resolve = [], training.resolve_device
+        monkeypatch.setattr(training, "resolve_device", lambda d: (
+            asked.append(resolve(d).type), torch.device("cpu"))[1])
+        trainer = Trainer(TrainConfig(**change), steps_per_epoch=1,
+                          device="cuda")
+        assert asked == ["cuda"]
+        assert trainer.model_cfg.cdtype == torch.bfloat16
+        return
     if "model" in change:
         exc, match = ValueError, "unknown model"
-    elif "compute_dtype" in change:
-        exc, match = NotImplementedError, "ROADMAP.md, Queue 2 item 5b"
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        device = "cuda"
     else:
         exc, match = RuntimeError, "parallel.launch"
     with pytest.raises(exc, match=match):
-        Trainer(TrainConfig(**change), steps_per_epoch=1, device=device)
+        Trainer(TrainConfig(**change), steps_per_epoch=1, device="cpu")
 
 
 def test_state_files_refused():
