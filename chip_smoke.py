@@ -260,6 +260,19 @@ Phases (any failed check exits nonzero and prints no result):
    ``odefunc`` and one ``rk_step`` per attempt per ``eval_ckpt`` and
    ``parity_eval`` batch) and the same top-1; the kernels held at
    ``parity_eval``'s B = 100 and 12 and at B = 512.
+11. ``[bench]``: the headline bench as a user types it, ``python -m
+   neural_ode_features_tpu_torch.bench --iters 8 --repeats 3 --cpu-batches
+   2``, then with ``--pool 2048 --nfe-sort`` and with ``--bf16``, each in
+   its own process; each record printed, rc 0 and complete, ``backend``
+   "cuda", ``fused_rk`` true (false for ``--bf16``), ``mean_nfe`` that of
+   this process's solves of the same weights and input ([main]'s for the
+   default), ``tflops`` and ``mfu`` (``mfu`` = ``tflops``·1e12 over the bf16
+   peak), ``vs_baseline`` or a ``baseline_note``, the CUDA-event figure
+   within 10% of the host clock's, the launches its stderr line reports
+   held exactly to the inference rule over the attempts that line reports
+   (f32: 2 ``odefunc`` per solve and one ``rk_step`` per attempt; bf16:
+   2 + 6·attempts ``odefunc_bf16`` per solve); ``value`` printed beside
+   ``[time]``'s whole solve.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel and shape, the bf16 builds as ``odefunc_bf16``,
@@ -285,6 +298,7 @@ import io
 import itertools
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -297,6 +311,13 @@ from pathlib import Path
 
 import numpy as np
 
+from neural_ode_features_tpu_torch.utils.flops import (
+    H100_BF16_FLOPS,
+    H100_F32_FLOPS,
+    H100_HBM_BYTES_PER_S,
+    H100_TF32_FLOPS,
+)
+
 B, HH, WW, C, G = 256, 7, 7, 64, 32
 B_TRAIN = 128                            # the JAX TrainConfig batch size
 TOL = 1e-3
@@ -308,10 +329,6 @@ TF32_TOL = dict(rtol=2e-3, atol=2e-4)    # mma1 alone: plain TF32, 11-bit operan
 T_OUT = 11                               # extract's default --timestamps
 LOSS_SCALE = 1e3                         # adjoint variants: |a_y| well above atol
 SWEEP_TOLS = (1e-1, 1e-2, 1e-3, 1e-4)    # sweep's default --tols
-PEAK_F32_FLOPS = 67e12                   # H100 SXM, non-tensor f32
-PEAK_TF32_FLOPS = 495e12                 # H100 SXM, TF32 tensor cores, dense
-PEAK_BF16_FLOPS = 989e12                 # H100 SXM, bf16 tensor cores, dense
-PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
 # [width]: the shapes beside 7×7×64 and 6×6×64 (H, W, C), the adjoint's
 # and the probe's widths at 7×7.  Every width the JAX kernels take runs on
 # the card; these are the powers of two, a padded and a whole-block width
@@ -475,21 +492,21 @@ def library_bwd(h, t, wt, g):
                                g)
 
 
-def bounds(flops, nbytes, tensor_peak=PEAK_TF32_FLOPS):
+def bounds(flops, nbytes, tensor_peak=H100_TF32_FLOPS):
     """The card's least time with the tensor cores (the operations counted
     once, at the TF32 rate, or ``tensor_peak``: bf16's for the bf16 builds)
     and on the CUDA cores (f32 FFMA), each the larger of its operations
     time and the bytes time."""
     out = {}
-    for key, peak in (("", tensor_peak), ("ffma_", PEAK_F32_FLOPS)):
-        by_ops, by_bytes = flops / peak, nbytes / PEAK_BYTES
+    for key, peak in (("", tensor_peak), ("ffma_", H100_F32_FLOPS)):
+        by_ops, by_bytes = flops / peak, nbytes / H100_HBM_BYTES_PER_S
         out[key + "bound_ms"] = 1e3 * max(by_ops, by_bytes)
         out[key + "bound_by"] = ("operations" if by_ops >= by_bytes
                                  else "bytes")
     return out
 
 
-def fused_bounds(hw, c, b, b_bwd, tensor_peak=PEAK_TF32_FLOPS):
+def fused_bounds(hw, c, b, b_bwd, tensor_peak=H100_TF32_FLOPS):
     """The fused kernels' bounds at H×W×C = (*hw, c): ``odefunc`` and
     ``rk_step`` at batch ``b``, the backward at ``b_bwd`` (``bounds``)."""
     n = hw[0] * hw[1] * c
@@ -793,6 +810,7 @@ def main() -> int:
     from neural_ode_features_tpu_torch.utils import (
         Experiment,
         load_checkpoint,
+        peak_flops_per_chip,
         resolve_checkpoint,
         save_checkpoint,
     )
@@ -1122,6 +1140,7 @@ def main() -> int:
     if not torch.allclose(logits[same], logits_p[same], rtol=1e-3, atol=1e-3):
         fail(f"logits differ from the plain path: max abs err {logit_err:.3e}")
     print(f"[main] logits vs plain path: max abs err {logit_err:.3e}")
+    main_mean_nfe = mean_k  # [bench]'s default record must report it
 
     # [adams]: the entry model with the adaptive Adams solver, counters from
     # 0: one ODEfunc launch per dynamics evaluation (f0, the initial-step
@@ -3362,7 +3381,7 @@ def main() -> int:
             f"{k} {v:.4f}" for k, v in twin_ms.items()))
         phase_done("bf16", t_ph)
 
-        fb16 = fused_bounds((HH, WW), C, B, B_TRAIN, PEAK_BF16_FLOPS)
+        fb16 = fused_bounds((HH, WW), C, B, B_TRAIN, H100_BF16_FLOPS)
         common = {"shape": f"{HH}x{WW}x{C}", "route": "cuda",
                   "precision": "bf16"}
         return [
@@ -3405,7 +3424,7 @@ def main() -> int:
              "max_abs_err": err_c16, "ms": ms16["conv"],
              "plain_ms": plain16["conv"],
              **bounds(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C),
-                      PEAK_BF16_FLOPS),
+                      H100_BF16_FLOPS),
              "library_ms": lib16["conv"], "stage": "mma_bf16",
              "call_ms": call16["conv"], "strategy_ms": twin_ms,
              "probe_device_us": {s_: probe16[s_]["device_us"]
@@ -4217,6 +4236,115 @@ def main() -> int:
                              + by_tool["parity_eval"][0][n]
                              for n in got_t}}
 
+    def bench_phase(main_nfe, solve_ips):
+        """[bench]: the headline bench as a user types it, three records
+        (default, ``--pool 2048 --nfe-sort``, ``--bf16``), each in its own
+        process; per record rc 0 and complete, the card's backend, the
+        fused step where it runs, the mean NFE of this process's solves of
+        the same weights and input, the FLOP figures, the baseline, the
+        CUDA-event figure within 10% of the host clock's, and the launches
+        its stderr line reports by the inference rule."""
+        t_ph = time.perf_counter()
+        base = ["--iters", "8", "--repeats", "3", "--cpu-batches", "2"]
+        runs = {"bench": base,
+                "bench_pool": [*base, "--pool", "2048", "--nfe-sort"],
+                "bench_bf16": [*base, "--bf16"]}
+        # The NFE each record must report: [main]'s solve (the same
+        # weights, seed 7, and input, numpy seed 0), and this process's
+        # solves of the bench's pool (drawn next from that generator) and
+        # of the bf16 dynamics.
+        rng_b = np.random.default_rng(0)
+        x_b = torch.from_numpy(rng_b.normal(size=(B, 32, 32, 3))
+                               .astype(np.float32)).to(dev)
+        x_pool = torch.from_numpy(rng_b.normal(size=(2048, 32, 32, 3))
+                                  .astype(np.float32)).to(dev)
+        bcfg = ModelConfig(in_channels=3, tol=TOL,
+                           error_control="per_sample")
+        bparams = init_odenet(7, bcfg, device=dev)
+        with torch.no_grad():
+            pool_nfe = torch.cat([
+                odenet_logits(bparams, xb, bcfg)[1].nfe
+                for xb in x_pool.split(B)]).float().mean()
+            bf16_nfe = odenet_logits(
+                bparams, x_b, dataclasses.replace(
+                    bcfg, compute_dtype="bfloat16"))[1].nfe.float().mean()
+        want_nfe = {"bench": main_nfe, "bench_pool": float(pool_nfe),
+                    "bench_bf16": float(bf16_nfe)}
+        peak = peak_flops_per_chip(torch.cuda.get_device_name(0))
+        out = {}
+        for name, argv in runs.items():
+            t_s = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "neural_ode_features_tpu_torch.bench",
+                 *argv], cwd=str(Path(__file__).resolve().parent),
+                capture_output=True, text=True, timeout=300)
+            took = time.perf_counter() - t_s
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("{")]
+            rec = json.loads(lines[-1]) if lines else {}
+            print(f"[bench] {name} ({' '.join(argv)}): rc {proc.returncode} "
+                  f"in {took:.1f} s: {json.dumps(rec)}")
+            if proc.returncode != 0 or not rec or rec.get("incomplete"):
+                fail(f"[bench] {name}: rc {proc.returncode}, record {rec}; "
+                     f"stderr: {proc.stderr[-3000:]}")
+            bf16 = name == "bench_bf16"
+            if (rec["backend"] != "cuda" or rec["fused_rk"] is bf16
+                    or rec["pallas"] is not True):
+                fail(f"[bench] {name}: backend {rec['backend']}, fused_rk "
+                     f"{rec['fused_rk']}, pallas {rec['pallas']}")
+            if rec["mean_nfe"] != round(want_nfe[name], 1):
+                fail(f"[bench] {name}: mean_nfe {rec['mean_nfe']}, this "
+                     f"process's solves {want_nfe[name]:.3f}")
+            if rec["tflops"] is None or rec["mfu"] is None or peak is None:
+                fail(f"[bench] {name}: tflops {rec['tflops']}, mfu "
+                     f"{rec['mfu']}, peak {peak}")
+            if abs(rec["mfu"] - rec["tflops"] * 1e12 / peak) > 1e-6 + (
+                    5e-4 * 1e12 / peak):  # tflops has 3 decimals
+                fail(f"[bench] {name}: mfu {rec['mfu']} is not tflops "
+                     f"{rec['tflops']} over {peak:.3e}")
+            if rec["vs_baseline"] is None and not rec.get("baseline_note"):
+                fail(f"[bench] {name}: no vs_baseline and no baseline_note")
+            ratio = rec["value_cuda_events"] / rec["value"]
+            if abs(ratio - 1) > 0.10:
+                fail(f"[bench] {name}: CUDA events {rec['value_cuda_events']}"
+                     f" img/s against the host clock's {rec['value']}")
+            if name == "bench_pool" and "pool_ips_sorted_with_probe" not in rec:
+                fail(f"[bench] {name}: no pool keys")
+            # "[bench +  t s] launches in N solves, A attempts: {json}"
+            line = next(ln for ln in proc.stderr.splitlines()
+                        if "launches in" in ln)
+            head, counts = line.split(" attempts: ", 1)
+            solves, attempts = (int(v) for v in re.findall(
+                r"launches in (\d+) solves, (\d+)$", head)[0])
+            got = json.loads(counts)
+            f32, b16 = (("odefunc_bf16", "odefunc") if bf16
+                        else ("odefunc", "odefunc_bf16"))
+            # The inference rule over the record's solves: f32, 2 odefunc
+            # per solve and one rk_step per attempt; bf16, 2 + 6·attempts
+            # odefunc_bf16 per solve and no rk_step; no backward, no
+            # launch of the other precision.
+            ok = (got[b16] == 0 and got["rk_step_bf16"] == 0
+                  and got["odefunc_bwd"] == got["odefunc_bwd_bf16"] == 0
+                  and attempts >= solves
+                  and (got[f32] == 2 * solves + 6 * attempts
+                       and got["rk_step"] == 0
+                       if bf16 else
+                       got[f32] == 2 * solves
+                       and got["rk_step"] == attempts))
+            print(f"[bench] {name}: value {rec['value']} img/s (CUDA events "
+                  f"{rec['value_cuda_events']}, ratio {ratio:.4f}) beside "
+                  f"[time]'s whole solve {solve_ips:.1f} img/s; mean_nfe "
+                  f"{rec['mean_nfe']} (this process: {want_nfe[name]:.3f}); "
+                  f"tflops {rec['tflops']}, mfu {rec['mfu']}, vs_baseline "
+                  f"{rec['vs_baseline']}; launches in {solves} solves, "
+                  f"{attempts} attempts {got}")
+            if not ok:
+                fail(f"[bench] {name}: launches {got} in {solves} solves, "
+                     f"{attempts} attempts")
+            out[name] = got
+        phase_done("bench", t_ph)
+        return out
+
     width_kernels = width_phase()
     foreign_phase()
     population_phase()
@@ -4362,6 +4490,7 @@ def main() -> int:
         plain_forward()
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t_s)
+    solve_ips = B / statistics.median(solve_s)  # printed beside [bench]
     print(f"[time] whole solve B={B}: {B / statistics.median(solve_s):.1f} "
           f"img/s with the kernels (median of {solve_s}), "
           f"{B / statistics.median(plain_s):.1f} img/s plain "
@@ -4487,6 +4616,7 @@ def main() -> int:
     straggler_busy()
     cli_launches.update(examples_phase())
     cli_launches.update(protocol_phase())
+    cli_launches.update(bench_phase(main_mean_nfe, solve_ips))
 
     fb = fused_bounds((HH, WW), C, B, B_TRAIN)
     fused_stage = stage((HH, WW), C)
@@ -4553,7 +4683,10 @@ def main() -> int:
                        ("odefunc", "examples"), ("odefunc_bwd", "examples"),
                        ("rk_step", "examples"), ("odefunc", "protocol"),
                        ("odefunc_bwd", "protocol"), ("rk_step", "protocol"),
-                       ("odefunc", "export"), ("rk_step", "export")):
+                       ("odefunc", "export"), ("rk_step", "export"),
+                       ("odefunc", "bench"), ("rk_step", "bench"),
+                       ("odefunc", "bench_pool"), ("rk_step", "bench_pool"),
+                       ("odefunc_bf16", "bench_bf16")):
         if by_path[path][name] < 1:
             fail(f"{name} was not launched on the {path} path")
     for mode, rows_ in sweep_report.items():

@@ -59,14 +59,16 @@ from ..kernels.conv3x3 import (
     conv_bytes,
     conv_flops,
 )
+from ..utils.flops import (
+    H100_F32_FLOPS,
+    H100_HBM_BYTES_PER_S,
+    H100_TF32_FLOPS,
+)
 
 __all__ = ["main", "probe_inputs", "library_conv", "time_us", "device_us",
            "bound_us", "tensor_bound_us", "KERNEL_NAMES"]
 
 H, W, C = 7, 7, 64
-PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
-PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 CHECK_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 576 products, reordered
 # mma1 alone: plain TF32 keeps 11 bits per operand, about 1e-3 relative per
 # product; over sums of 576 products of mixed sign 2e-3 relative, 2e-4 absolute.
@@ -176,7 +178,7 @@ def device_us(fn, names, reps: int = 100) -> dict:
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float):
-    by_ops, by_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    by_ops, by_bytes = flops / peak_flops, nbytes / H100_HBM_BYTES_PER_S
     return 1e6 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                          else "bytes")
 
@@ -185,7 +187,7 @@ def bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
     """The least time the card could take for one conv on the CUDA cores
     (f32 FFMA), and what binds it."""
     return _bound(conv_flops(batch, hw, c), conv_bytes(batch, hw, c),
-                  PEAK_F32_FLOPS)
+                  H100_F32_FLOPS)
 
 
 def tensor_bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
@@ -193,7 +195,7 @@ def tensor_bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
     cores (the operations counted once, at the TF32 rate), and what binds
     it."""
     return _bound(conv_flops(batch, hw, c), conv_bytes(batch, hw, c),
-                  PEAK_TF32_FLOPS)
+                  H100_TF32_FLOPS)
 
 
 def main(argv=None) -> dict:

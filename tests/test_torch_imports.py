@@ -69,7 +69,8 @@ def test_imports_with_jax_blocked():
                  "parallel.tasks", "multiseed", "examples.fsdp_training",
                  "probes.parallel_probe", "straggler_bench",
                  "reference_protocol", "examples.solver_playground",
-                 "examples.continuous_features", "kernels.ops"):
+                 "examples.continuous_features", "kernels.ops", "bench",
+                 "utils.flops", "oracle", "oracle.torch_ref"):
         assert f"{port.__name__}.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -105,7 +106,7 @@ def test_no_jax_references_in_sources():
             "tasks.py", "multiseed.py", "fsdp_training.py",
             "parallel_probe.py", "straggler_bench.py", "reference_protocol.py",
             "solver_playground.py", "continuous_features.py",
-            "ops.py"} <= names
+            "ops.py", "bench.py", "flops.py", "torch_ref.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f}: references JAX or the JAX package: {hits}"
