@@ -21,9 +21,13 @@ Phases (any failed check exits nonzero and prints no result):
    The backward kernel is held against its plain version in float64 (the
    f32 plain version's cuDNN weight gradients are less exact than the
    kernel), its f output against the ODEfunc kernel's; two backward
-   launches must give bit-identical dθ.  The backward call's device time is
-   split by kernel name.  The four conv probe kernels (``tap9``, ``im2col``
-   and the tensor-core ``mma3``, ``mma1``) are held against
+   launches must give bit-identical dθ.  Both builds' weight gradients
+   (the tensor-core weight-gradient kernel) are held against
+   ``weight_grad_emulated`` on the residuals each launch contracted
+   (B = 128, 64 and 5).  The backward call's device time is split by
+   kernel name, each kernel beside its bound.  The four conv probe
+   kernels (``tap9``, ``im2col`` and the tensor-core ``mma3``, ``mma1``)
+   are held against
    ``conv3x3_plain`` at B = 256, a ragged B = 5 and a 6×6 map, in f32 and in
    float64 (``mma1``, plain TF32, at its own looser tolerance), and
    ``mma3``'s error against the f64 plain version is printed beside
@@ -111,7 +115,11 @@ Phases (any failed check exits nonzero and prints no result):
    7×7 and 6×6 maps, at 7×7×96, 7×7×192 (the tensor-core stage's padded
    and whole blocks beyond the powers of two), 7×7×512 and 6×6×512 (the
    state in global scratch) against their plain versions (the backward in
-   float64, dθ bit-identical across two launches), an inference solve
+   float64, dθ bit-identical across two launches, its dθ error beside the
+   f32 plain version's; both builds' weight gradients against
+   ``weight_grad_emulated`` on the residuals they contracted, within
+   WEIGHT_GRAD_BAR; the bf16 build under ``bf16_distances.BARS``, as at
+   7×7×64, B = 128, 64 and 5 in ``[check]``), an inference solve
    (B = 256) and a train step (B = 128) through the entry points at each
    with the launch rules of phases 3 and 5 and per-sample NFE against the
    plain path; at 7×7×128, 256 and 512 the adjoint gradients against the
@@ -313,9 +321,9 @@ import numpy as np
 
 from neural_ode_features_tpu_torch.utils.flops import (
     H100_BF16_FLOPS,
-    H100_F32_FLOPS,
-    H100_HBM_BYTES_PER_S,
     H100_TF32_FLOPS,
+    bounds,
+    bwd_kernel_bounds,
 )
 
 B, HH, WW, C, G = 256, 7, 7, 64, 32
@@ -324,6 +332,12 @@ TOL = 1e-3
 STATE_TOL = dict(rtol=2e-4, atol=2e-5)   # kernel vs plain: f32 reassociation
 RATIO_TOL = dict(rtol=2e-3, atol=1e-6)   # error ratio: a sum of squares
 DP_TOL = dict(rtol=3e-4, atol=3e-4)      # dθ: sums over B·H·W products
+# The weight-gradient kernel against weight_grad_emulated on its own
+# residuals, in units of the sum of |products| per entry: 3×TF32 and the
+# emulation each within 2.1e-7 of the f64 sum, plus the tensor core's
+# truncating accumulation over a 32-row step (tests/test_torch_cuda.py);
+# bf16 beyond one bf16 ulp of the larger.
+WEIGHT_GRAD_BAR = 2e-6
 CONV_TOL = dict(rtol=1e-4, atol=1e-5)    # one conv: sums of 576 products
 TF32_TOL = dict(rtol=2e-3, atol=2e-4)    # mma1 alone: plain TF32, 11-bit operands
 T_OUT = 11                               # extract's default --timestamps
@@ -490,20 +504,6 @@ def library_bwd(h, t, wt, g):
     hl, tl = h.detach().requires_grad_(), t.detach().requires_grad_()
     return torch.autograd.grad(library_f(hl, tl, wl), [hl, tl] + leaves(wl),
                                g)
-
-
-def bounds(flops, nbytes, tensor_peak=H100_TF32_FLOPS):
-    """The card's least time with the tensor cores (the operations counted
-    once, at the TF32 rate, or ``tensor_peak``: bf16's for the bf16 builds)
-    and on the CUDA cores (f32 FFMA), each the larger of its operations
-    time and the bytes time."""
-    out = {}
-    for key, peak in (("", tensor_peak), ("ffma_", H100_F32_FLOPS)):
-        by_ops, by_bytes = flops / peak, nbytes / H100_HBM_BYTES_PER_S
-        out[key + "bound_ms"] = 1e3 * max(by_ops, by_bytes)
-        out[key + "bound_by"] = ("operations" if by_ops >= by_bytes
-                                 else "bytes")
-    return out
 
 
 def fused_bounds(hw, c, b, b_bwd, tensor_peak=H100_TF32_FLOPS):
@@ -779,6 +779,9 @@ def main() -> int:
     from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
         odefunc_bwd,
         odefunc_bwd_plain,
+        weight_grad_emulated,
+        weight_grad_f64,
+        weight_splits,
     )
     from neural_ode_features_tpu_torch.kernels.rk_step import (
         dopri5_step,
@@ -996,6 +999,51 @@ def main() -> int:
           f"bit-identical across two launches (B={B_TRAIN}, {B_TRAIN // 2} "
           f"and 5)")
 
+    def check_weight_grads(w_, t_, h_, g_, tag):
+        """Both builds' weight gradients (the tensor-core kernel) against
+        ``weight_grad_emulated`` on the residuals each launch contracted:
+        the largest excess over the build's own allowance (bf16: one bf16
+        ulp of the larger), in units of the sum of |products| per entry,
+        held to WEIGHT_GRAD_BAR."""
+        out = {}
+        for prec in ("f32", "bf16"):
+            res = {}
+            dp = odefunc_bwd(w_, t_, h_, g_, groups=G, precision=prec,
+                             residuals=res)[0]
+            worst = 0.0
+            for conv, (r_, g2) in enumerate(((res["r1"], res["gu"]),
+                                             (res["r2"], res["gv"]))):
+                got = dp[f"conv{conv + 1}"]["kernel"][:, :, 1:, :]
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"odefunc_bwd {prec} weight gradients {tag}: conv"
+                         f"{conv + 1} holds values that are not finite")
+                want = weight_grad_emulated(r_, g2, prec)
+                diff = (got - want).abs()
+                if prec == "bf16":
+                    diff = (diff - 2.0 ** -7 * torch.maximum(
+                        got.abs(), want.abs())).clamp_min(0.0)
+                # An entry with no products (a zero scale) is held to its
+                # difference itself; a NaN counts as the worst reading.
+                scale = weight_grad_f64(r_, g2, True)
+                diff = diff.double()
+                ratio = torch.where(scale > 0, diff / scale, diff)
+                worst = max(worst, float(torch.nan_to_num(
+                    ratio, nan=float("inf")).max()))
+            if worst > WEIGHT_GRAD_BAR:
+                fail(f"odefunc_bwd {prec} weight gradients {tag}: "
+                     f"{worst:.3e} of the sum of |products| from "
+                     f"weight_grad_emulated, bar {WEIGHT_GRAD_BAR}")
+            out[prec] = worst
+        print(f"[check] odefunc_bwd weight gradients {tag} (tensor cores, "
+              f"{weight_splits(h_.shape[0], h_.shape[-1])} chunks) against "
+              f"weight_grad_emulated, in sums of |products|: f32 "
+              f"{out['f32']:.3e}, bf16 beyond one ulp {out['bf16']:.3e} "
+              f"(bar {WEIGHT_GRAD_BAR})")
+
+    for nb in (B_TRAIN, B_TRAIN // 2, 5):
+        check_weight_grads(w, tb[:nb].contiguous(), hb[:nb].contiguous(),
+                           gb[:nb].contiguous(), f"{HH}x{WW}x{C} B={nb}")
+
     # The other shapes that the paths below give the fused kernels: the
     # fused sweep's launch (its grid of tolerances stacked on the batch axis,
     # 1,024 rows) at 7×7×64, and the MNIST block's 6×6×64 at B = 128
@@ -1049,8 +1097,12 @@ def main() -> int:
     bwd_split = device_ms_by_kernel(
         lambda: odefunc_bwd(w, tb, hb, gb, groups=G), bwd_keys)
     bwd_dev = sum(bwd_split.values())
+    bwd_kb = bwd_kernel_bounds((HH, WW), C, B_TRAIN,
+                               weight_splits(B_TRAIN, C))
     print(f"[split] odefunc_bwd B={B_TRAIN}: device ms by kernel "
-          + ", ".join(f"{k} {v:.4f} ({100 * v / bwd_dev:.0f}%)"
+          + ", ".join(f"{k} {v:.4f} ({100 * v / bwd_dev:.0f}%; bound "
+                      f"{bwd_kb[k]['bound_ms']:.4f} by {bwd_kb[k]['bound_by']},"
+                      f" f32 FFMA {bwd_kb[k]['ffma_bound_ms']:.4f})"
                       for k, v in bwd_split.items())
           + f"; sum {bwd_dev:.4f}")
 
@@ -2227,6 +2279,8 @@ def main() -> int:
         return masked_bwd(w64_, t64, h64, g64, masks)
 
     def width_phase():
+        from neural_ode_features_tpu_torch.probes import bf16_distances
+
         t_ph = time.perf_counter()
         entries = []
         mnist_x = normalize(torch.from_numpy(load_dataset(
@@ -2284,6 +2338,25 @@ def main() -> int:
             if not torch.equal(flat(dp), flat(odefunc_bwd(
                     ww_, tbx, hbx, gx, groups=G)[0])):
                 fail(f"odefunc_bwd dθ {tag}: two launches differ")
+            # Both builds' weight gradients at this width: against their
+            # emulation, the f32 build's dθ beside the f32 plain version's
+            # distance from f64, the bf16 build under BARS.
+            check_weight_grads(ww_, tbx, hbx, gx, f"{tag} B={B_TRAIN}")
+            err_32 = float((flat(odefunc_bwd_plain(ww_, tbx, hbx, gx, G)[0])
+                            .double() - flat(dp_p)).abs().max())
+            print(f"[width] {tag} odefunc_bwd vs the f64 plain version: dθ "
+                  f"max abs err {err_dp:.3e} (the f32 plain version's: "
+                  f"{err_32:.3e})")
+            r16 = bf16_distances.bwd_readings(ww_, tbx, hbx, gx, G)
+            bad16 = bf16_distances.check(r16)
+            print(f"[width] {tag} odefunc_bwd bf16 B={B_TRAIN} (u of the "
+                  "plain bf16 VJP; bf16 build / f32 build): " + ", ".join(
+                      f"{k} {v['kernel']:.3f} / {v['f32']:.3f}"
+                      for k, v in r16["outputs"].items())
+                  + f"; f_equal {r16['f_equal']}, repeatable "
+                  f"{r16['repeatable']}")
+            if bad16:
+                fail(f"[width] {tag} odefunc_bwd bf16: " + "; ".join(bad16))
             print(f"[width] {tag} ({stage(hw, c)}): odefunc max abs err "
                   f"{err_f:.3e}, rk_step {err_s:.3e} (B={B}); odefunc_bwd "
                   f"B={B_TRAIN} vs the f64 plain version: dh {err_b:.3e}, "
@@ -3365,10 +3438,14 @@ def main() -> int:
                                           precision=prec), bwd_keys)
             for prec in ("bf16", "f32")}
         if None not in split16.values():
+            kb16 = bwd_kernel_bounds((HH, WW), C, B_TRAIN,
+                                     weight_splits(B_TRAIN, C),
+                                     H100_BF16_FLOPS)
             print(f"[split] odefunc_bwd B={B_TRAIN} device ms by kernel, "
                   "bf16 build against the f32 build: " + ", ".join(
                       f"{k} {split16['bf16'][k]:.4f} / "
-                      f"{split16['f32'][k]:.4f}" for k in bwd_keys)
+                      f"{split16['f32'][k]:.4f} (bf16 bound "
+                      f"{kb16[k]['bound_ms']:.4f})" for k in bwd_keys)
                   + f"; sum {sum(split16['bf16'].values()):.4f} / "
                   f"{sum(split16['f32'].values()):.4f}")
         twin_ms = {s_: device_ms(lambda s_=s_: conv3x3(xc, wc, s_), reps=100)
@@ -4648,7 +4725,8 @@ def main() -> int:
          "plain_ms": ms["odefunc_bwd_plain"],
          **fb["odefunc_bwd"],
          "library_ms": ms["odefunc_bwd_library"], "stage": fused_stage,
-         "call_ms": ms["odefunc_bwd"], "ms_by_kernel": bwd_split},
+         "call_ms": ms["odefunc_bwd"], "ms_by_kernel": bwd_split,
+         "bound_ms_by_kernel": {k: v["bound_ms"] for k, v in bwd_kb.items()}},
         {"name": "conv_probe", "shape": f"{HH}x{WW}x{C}", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
          "replaces": REPLACES["conv_probe"],

@@ -38,15 +38,31 @@
 //      state x goes to the dh output, which is written last, at the same
 //      elements (fit_layout).
 //   2. bwd_weight_kernel: dW[conv][k] (C x C per tap) = sum over (b, p) of
-//      r[b, p + off_k] (x) g[b, p]; one CTA per (conv, tap, row chunk, ci
-//      tile, co tile), a TILE x TILE output tile (64, or 32 where C % 64 ==
-//      32) with a 4x4 register tile per thread.  At C = 512 its scratch
-//      wpart is 151 MB, whatever B.  On the wide build's shapes each
-//      32-row step is summed from zero and added to the running sum
-//      (TWO_LEVEL): one chain over a chunk's B*H*W/8 rows (784 at B = 128,
-//      7x7) drifts by up to 8.6e-4 from the f64 sum at 7x7x512, whose 4.7M
-//      entries have more of the tail than 7x7x64's; the narrow shapes keep
-//      one chain (their sums' order, and their time, unchanged).
+//      r[b, p + off_k] (x) g[b, p], per (conv, tap) a GEMM with M = C_in,
+//      N = C_out, K = the B*H*W rows, on the tensor cores (mma.sync
+//      m16n8k8 TF32), as the TPU kernel runs it on its matrix unit (one
+//      (9C x rows).(rows x C) product of its patch scratch).  The nine taps
+//      of a conv read the same g rows and the same r rows shifted, so a CTA
+//      stages each sample's r map once, with a zero border, and g's rows
+//      once, and its warps take the taps: one row of three taps at
+//      64 x 64 tiles (12 warps), all nine at 32 x 32 (C % 64 == 32; 9
+//      warps), a 32 x 32 warp tile each, so no thread holds more than one
+//      tap's accumulators.  Samples stream through two cp.async buffers,
+//      the next sample's copy in flight while this one's products run (a
+//      ring of three measured no faster, PERF.md).  The rows are cut into
+//      ns chunks, the wrapper's choice (kernels/odefunc_bwd.py
+//      weight_splits: 22 at B = 128, C = 64, 132 CTAs; 1 at C = 512, where
+//      the tiles alone give 384), which also sizes the scratch wpart
+//      (ns, 2, 9, C, C): 19 MB at C = 512 (151 MB with the FFMA kernel's
+//      fixed 8).  f32: 3xTF32 products.  Each 32-row step of a
+//      sample is summed from zero on the tensor core (whose accumulation
+//      truncates), the steps of kGroupSamples samples in f32 in registers,
+//      and those group sums in f32 in shared memory: a chunk of 128 samples
+//      is then no chain of 256 adds (which took 7x7x512's dtheta error to
+//      2.1x the FFMA kernel's; measured, PERF.md).  Every
+//      shape the backward takes runs it (any H x W, C a multiple of 32 to
+//      512): the tile, the taps per CTA and the staging follow from the
+//      shape.
 //   3. bwd_reduce_kernel: one thread per output sums the row chunks and the
 //      per-sample partials, and writes dtheta in the raw layout: conv kernels
 //      (3, 3, C+1, C) with the time channel first, and the eight (C,) vectors.
@@ -57,7 +73,19 @@
 // CUDA cores (67 TFLOP/s f32) that is about 41 us; on the tensor cores
 // (495 TFLOP/s TF32, the operations counted once) 5.6 us, against 1.9 us for
 // the 6.4 MB of h, g, f, dh and the weights: bound by operations either way.
-// The weight-gradient contraction (bwd_weight_kernel) is still f32 FFMA.
+// By kernel (utils/flops.py bwd_kernel_work): the per-sample pass has four
+// of the six convs (3.7 us of TF32, against 4.2 us of bytes), the weight
+// gradients two (0.925 GFLOP, 1.9 us of TF32, against 2.0 us for reading
+// r1, r2, gu, gv once and writing one (2, 9, C, C) result), the reduction
+// only bytes (2.3 us): each bound by bytes.  The weight-gradient kernel
+// runs at 13x its bound at 7x7x64 (PERF.md).  Its 22 chunks (6.5 MB, where
+// the result is 0.3 MB) are this design's own traffic, another 1.9 us at
+// HBM's rate; its bf16 build, a third of the products, takes 69% of its
+// time, so the products do not bind it either: the likely limit is the
+// fragments' shared-memory loads (one 8-byte load per two elements, each
+// staged row read by every tap's warps).  The tap
+// reuse keeps its staging to one copy of r and g per tap row (T = 64) or
+// per conv (T = 32) and column tile.
 //
 // Two precisions (kPrec, odefunc_common.cuh).  odefunc_backward is the f32
 // kernel.  odefunc_backward_bf16 is the VJP of compute_dtype='bfloat16'
@@ -77,8 +105,12 @@
 // weight, scale and bias gradients) stays f32 per sample and in the
 // reduction's fixed order and is rounded once, in bwd_reduce_kernel, as the
 // plain path rounds each of those sums once; dtheta stays bit-identical
-// from launch to launch.  r1, r2, gu, gv hold bf16 values, so the FFMA
-// weight-gradient products are exact and that kernel is shared.  Bound
+// from launch to launch.  r1, r2, gu, gv hold bf16 values, which TF32 holds
+// exactly, so the weight-gradient kernel's bf16 build (kExact) takes one
+// TF32 pass of mma.sync per product, each product exact with f32
+// accumulation (a bf16 m16n8k16 pass would form the same exact products but
+// needs each register's two k rows packed from two loads: no fewer loads,
+// more instructions).  Bound
 // at B = 128, 7x7x64: the 2.77 GFLOP at 989 TFLOP/s dense bf16 is 2.8 us,
 // the 6.4 MB 1.9 us: bound by operations.
 #include "odefunc_common.cuh"
@@ -86,11 +118,31 @@
 namespace nodef {
 
 constexpr int kParts = 26;       // per-sample partial rows, see bwd_sample_kernel
-constexpr int kRowTile = 32;     // rows staged per step in the weight-gradient CTA
-constexpr int kSplit = 8;        // row chunks per (conv, tap)
+constexpr int kStepRows = 32;    // weight-gradient rows summed from zero per step
+constexpr int kGroupSamples = 8;  // samples whose steps are added up before the total
+constexpr int kWeightPad = 8;    // floats added to a staged row of T channels
 
-// The weight-gradient output tile (ci and co): 64, or 32 where C is 32.
+// The weight-gradient output tile (ci and co): 64, or 32 where C % 64 == 32;
+// taps per CTA (T = 64: a row of three taps, 12 warps; T = 32: all nine, 9
+// warps) and its warps.
 inline int weight_tile(int C) { return C % 64 == 0 ? 64 : 32; }
+__host__ __device__ constexpr int weight_taps_of(int T) { return T == 64 ? 3 : 9; }
+__host__ __device__ constexpr int weight_warps(int T) {
+  return weight_taps_of(T) * (T / 32) * (T / 32);
+}
+
+// Rows of g staged per sample: H*W, padded with zero rows to a multiple of 8.
+__host__ __device__ inline int weight_rows(const Shape& s) { return (s.H * s.W + 7) & ~7; }
+
+// Dynamic shared memory of bwd_weight_kernel: two buffers, each r's
+// bordered map and g's rows, T + kWeightPad floats a row; then each
+// thread's 32 group sums and the qrow table.
+inline size_t weight_smem_bytes(const Shape& s) {
+  const size_t rows = (size_t)(s.H + 2) * (s.W + 2) + weight_rows(s);
+  const int t = weight_tile(s.C);
+  return sizeof(float) * (2 * rows * (t + kWeightPad) + 32 * 32 * (size_t)weight_warps(t)) +
+         sizeof(int) * weight_rows(s);
+}
 
 // Shared memory of bwd_sample_kernel: the forward's layout (carve), then
 //   su    [H*W*C]   conv1 output u (GN2's input), unless s.ug
@@ -115,7 +167,8 @@ inline Shape bwd_shape(int H, int W, int C, int G) {
 
 inline bool bwd_shape_ok(int H, int W, int C, int G) {
   const Shape s = bwd_shape(H, W, C, G);
-  return layout_ok(s) && C >= 32 && C % weight_tile(C) == 0 && bwd_smem_bytes(s) <= kMaxSmem;
+  return layout_ok(s) && C >= 32 && C % weight_tile(C) == 0 && bwd_smem_bytes(s) <= kMaxSmem &&
+         weight_smem_bytes(s) <= kMaxSmem;
 }
 
 // Normalised value x-hat at element e (channel c) of x, from gn_stats'
@@ -430,85 +483,193 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   if (tid == 0) dt[blockIdx.x] = dt_acc;
 }
 
-// wpart[split][conv][tap][ci][co] = sum over the split's rows (b, p) of
-// r[b, p + off_tap, ci] * g[b, p, co] (zero where the tap leaves the map).
-// (TILE / 4)^2 threads, each a 4x4 register tile of the TILE x TILE block.
-// TWO_LEVEL: the rows in steps of kRowTile, each step's sum from zero.
-template <int TILE, bool TWO_LEVEL>
-__global__ void __launch_bounds__((TILE / 4) * (TILE / 4))
+// wpart[split][conv][tap][ci][co] = sum over the split's samples b and
+// pixels p of r[b, p + off_tap, ci] * g[b, p, co] (zero where the tap leaves
+// the map): per (conv, tap) a GEMM with M = ci, N = co, K = rows (b, p), on
+// the tensor cores (the head of this file).  One CTA per (conv, group of
+// weight_taps_of(T) taps, split, ci tile, co tile) of T x T outputs per tap; warp
+// w takes tap w / WPT and a 32 x 32 quarter (T = 64) or the whole (T = 32)
+// of its tile: 2 m16 x 4 n8 mma tiles.  Per sample the CTA stages r's
+// zero-bordered map ((H+2)*(W+2) rows of T channels) and g's H*W rows
+// (padded with zero rows to a multiple of 8) into one of two buffers by
+// cp.async, the next sample's copy in flight while this one's products
+// run; a tap's A rows are the row qrow[k] + off_tap of the bordered map,
+// qrow[k] = k + 2*(k / W) (0 for the zero rows beyond H*W).  Fragments: A
+// row g / g + 8 of an m16 tile is ci 2g / 2g + 1 (one 8-byte load gives
+// both), column n of the n8 tiles 2p and 2p + 1 is co 2n and 2n + 1 (one
+// 8-byte load gives both); row pitch T + 8 floats, so that each load is
+// free of bank conflicts where its four k rows are consecutive.  Each step
+// of kStepRows rows of a sample is summed from zero on the tensor core and
+// added to a running sum in f32 (registers), which every kGroupSamples
+// samples is added to the thread's total in shared memory (tot): steps,
+// samples and groups in order.
+// kExact (the bf16 build): r and g hold bf16 values, which TF32 holds
+// exactly, so one TF32 pass forms every product exactly; else 3xTF32
+// (tail products first).
+template <int T, bool kExact>
+__global__ void __launch_bounds__(32 * weight_warps(T))
 bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
                   const float* __restrict__ gu, const float* __restrict__ gv, Shape s,
-                  int B, float* __restrict__ wpart) {
-  constexpr int kQ = TILE / 4, kRedThreads = kQ * kQ;
-  __shared__ float4 sr[kRowTile][kQ];
-  __shared__ float4 sg[kRowTile][kQ];
-  const int conv = blockIdx.x / (9 * kSplit), tap = (blockIdx.x / kSplit) % 9;
-  const int split = blockIdx.x % kSplit, C = s.C;
-  const int ci0 = blockIdx.y * TILE, co0 = blockIdx.z * TILE;
+                  int B, int ns, float* __restrict__ wpart) {
+  constexpr int NT = weight_taps_of(T), WPT = (T / 32) * (T / 32);
+  constexpr int kThr = 32 * weight_warps(T), pitch = T + kWeightPad, kChunks = T / 4;
+  extern __shared__ float4 wsmem[];
+  const int C = s.C, H = s.H, W = s.W, hw = H * W, Wp = W + 2;
+  const int nr = (H + 2) * Wp, nk = weight_rows(s);
+  float* sbase = reinterpret_cast<float*>(wsmem);
+  const int stage_floats = (nr + nk) * pitch;
+  float* tot = sbase + 2 * stage_floats;  // [32][kThr]: each thread's group sums
+  int* qrow = reinterpret_cast<int*>(tot + 32 * kThr);
+  constexpr int ngrp = 9 / NT;
+  const int conv = blockIdx.x / (ngrp * ns), grp = (blockIdx.x / ns) % ngrp;
+  const int split = blockIdx.x % ns;
+  const int ci0 = blockIdx.y * T, co0 = blockIdx.z * T;
   const float* r = conv == 0 ? r1 : r2;
   const float* g = conv == 0 ? gu : gv;
-  const int hw = s.H * s.W, dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const long nrows = (long)B * hw;
-  const long lo = nrows * split / kSplit, hi = nrows * (split + 1) / kSplit;
-  const int tid = threadIdx.x, tci = tid / kQ, tco = tid % kQ;
+  const int b0 = (int)((long)B * split / ns), b1 = (int)((long)B * (split + 1) / ns);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int tap = grp * NT + warp / WPT, wt = warp % WPT;
+  const int wci = (wt / (T / 32)) * 32, wco = (wt % (T / 32)) * 32;
+  const int tapoff = (tap / 3) * Wp + tap % 3;
 
-  float acc[4][4];
+  for (int k = tid; k < nk; k += kThr) qrow[k] = k < hw ? k + 2 * div_magic(k, s.wmagic) : 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int v = 0; v < 32; ++v) tot[v * kThr + tid] = 0.f;
 
-  for (long row0 = lo; row0 < hi; row0 += kRowTile) {
-    for (int i = tid; i < kRowTile * kQ; i += kRedThreads) {
-      const int rr = i / kQ, q = i % kQ;
-      const long row = row0 + rr;
-      float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vg = vr;
-      if (row < hi) {
-        const long b = row / hw;
-        const int pix = (int)(row % hw), y = pix / s.W + dy, x = pix % s.W + dx;
-        vg = *reinterpret_cast<const float4*>(g + row * C + co0 + 4 * q);
-        if (y >= 0 && y < s.H && x >= 0 && x < s.W)
-          vr = *reinterpret_cast<const float4*>(r + ((b * hw + y * s.W + x) * C) + ci0 + 4 * q);
-      }
-      sr[rr][q] = vr;
-      sg[rr][q] = vg;
+  // Sample b's r map (bordered) and g rows into buffer buf, zero-filled
+  // outside the map and beyond H*W.
+  auto stage = [&](int b, int buf) {
+    float* sr = sbase + buf * stage_floats;
+    float* sg = sr + nr * pitch;
+    const size_t row0 = (size_t)b * hw;
+    for (int i = tid; i < nr * kChunks; i += kThr) {
+      const int q = i / kChunks, c4 = (i % kChunks) * 4;
+      const int py = div_magic(q, s.pmagic), y = py - 1, x = q - py * Wp - 1;
+      const bool in = y >= 0 && y < H && x >= 0 && x < W;
+      cp_async16_zfill(sr + q * pitch + c4,
+                       in ? r + (row0 + y * W + x) * C + ci0 + c4 : r, in);
     }
-    __syncthreads();
-    auto rows = [&](float (&sum)[4][4]) {
-#pragma unroll 4
-      for (int rr = 0; rr < kRowTile; ++rr) {
-        const float4 a = sr[rr][tci], b = sg[rr][tco];
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    for (int i = tid; i < nk * kChunks; i += kThr) {
+      const int k = i / kChunks, c4 = (i % kChunks) * 4;
+      const bool in = k < hw;
+      cp_async16_zfill(sg + k * pitch + c4, in ? g + (row0 + k) * C + co0 + c4 : g, in);
+    }
+    cp_async_commit();
+  };
+
+  float run[2][4][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sum[i][j] = fmaf(av[i], bv[j], sum[i][j]);
-      }
-    };
-    if (TWO_LEVEL) {
-      float step[4][4];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) step[i][j] = 0.f;
-      rows(step);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += step[i][j];
+      for (int v = 0; v < 4; ++v) run[i][j][v] = 0.f;
+
+  stage(b0, 0);
+  for (int b = b0, buf = 0, in_group = 0; b < b1; ++b, buf ^= 1) {
+    if (b + 1 < b1) {
+      stage(b + 1, buf ^ 1);
+      cp_async_wait_but_one();
     } else {
-      rows(acc);
+      cp_async_wait_all();
     }
-    __syncthreads();
+    __syncthreads();  // sample b visible (and qrow, the first time)
+    const float* sr = sbase + buf * stage_floats;
+    // Byte addresses of this thread's A element (ci wci + 2g, at the tap's
+    // offset; add the row) and B element (k row tq, co wco + 2g).
+    const uint32_t a_thread = smem_addr(sr + tapoff * pitch + wci + 2 * gq);
+    const uint32_t b_thread = smem_addr(sr + (nr + tq) * pitch + wco + 2 * gq);
+    for (int k0 = 0; k0 < nk; k0 += kStepRows) {
+      float acc[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kStepRows; kk += 8) {
+        const int k = k0 + kk;
+        if (k >= nk) break;
+        // B: k rows k + tq (register 0) and k + tq + 4 (register 1); the
+        // n8 tiles 2p and 2p + 1 from one 8-byte load.
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 v = lds2(b_thread + 4u * ((k + 4 * h) * pitch + 16 * p));
+            if (kExact) {
+              bh[2 * p][h] = __float_as_uint(v.x);
+              bh[2 * p + 1][h] = __float_as_uint(v.y);
+            } else {
+              tf32_split(v.x, bh[2 * p][h], bl[2 * p][h]);
+              tf32_split(v.y, bh[2 * p + 1][h], bl[2 * p + 1][h]);
+            }
+          }
+        const int qa = qrow[k + tq], qb = qrow[k + tq + 4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // A: rows g, g + 8 (ci 2g, 2g + 1) at k columns tq, tq + 4.
+          const float2 u0 = lds2(a_thread + 4u * (qa * pitch + 16 * i));
+          const float2 u1 = lds2(a_thread + 4u * (qb * pitch + 16 * i));
+          const float av[4] = {u0.x, u0.y, u1.x, u1.y};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            if (kExact) ah[v] = __float_as_uint(av[v]);
+            else tf32_split(av[v], ah[v], al[v]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (!kExact) {
+              mma_tf32(acc[i][j], al, bh[j]);
+              mma_tf32(acc[i][j], ah, bl[j]);
+            }
+            mma_tf32(acc[i][j], ah, bh[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) run[i][j][v] += acc[i][j][v];
+    }
+    // Every kGroupSamples samples (and at the split's end) the group's sum
+    // goes to the thread's own slots of tot, and run starts again from zero.
+    if (++in_group == kGroupSamples || b + 1 == b1) {
+      in_group = 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            tot[((i * 4 + j) * 4 + v) * kThr + tid] += run[i][j][v];
+            run[i][j][v] = 0.f;
+          }
+    }
+    __syncthreads();  // every warp is done with buffer buf
   }
 
+  // Accumulator (row g, columns 2t, 2t + 1) of n8 tile 2p + e is ci 2g, co
+  // 16p + 4t + e and 16p + 4t + 2 + e; row g + 8 is ci 2g + 1.
+  auto sum = [&](int i, int j, int v) { return tot[((i * 4 + j) * 4 + v) * kThr + tid]; };
   float* out = wpart + (((size_t)split * 2 + conv) * 9 + tap) * C * C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ci = ci0 + 4 * tci + i;
-    *reinterpret_cast<float4*>(out + (size_t)ci * C + co0 + 4 * tco) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int ci = ci0 + wci + 16 * i + 2 * gq + h, co = co0 + wco + 16 * p + 4 * tq;
+        *reinterpret_cast<float4*>(out + (size_t)ci * C + co) =
+            make_float4(sum(i, 2 * p, 2 * h), sum(i, 2 * p + 1, 2 * h),
+                        sum(i, 2 * p, 2 * h + 1), sum(i, 2 * p + 1, 2 * h + 1));
+      }
 }
 
 // dk1, dk2: (9, C+1, C) raw conv-kernel gradients (channel 0: time);
@@ -518,7 +679,7 @@ bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
 // which the plain path sums in f32 from per-pixel bf16 values.
 template <bool kRound>
 __global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
-                                  const float* __restrict__ part, Shape s, int B,
+                                  const float* __restrict__ part, Shape s, int B, int ns,
                                   float* __restrict__ dk1, float* __restrict__ dk2,
                                   float* __restrict__ dvec) {
   const int C = s.C, nk = 9 * (C + 1) * C;
@@ -530,7 +691,7 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
     if (row == 0) {
       for (int b = 0; b < B; ++b) acc += part[((size_t)b * kParts + 8 + 9 * conv + tap) * C + co];
     } else {
-      for (int sp = 0; sp < kSplit; ++sp)
+      for (int sp = 0; sp < ns; ++sp)
         acc += wpart[((((size_t)sp * 2 + conv) * 9 + tap) * C + row - 1) * C + co];
       if (kRound) acc = bf16_round(acc);
     }
@@ -547,8 +708,8 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
              const float* w1bt, const float* w2bt, float* f, float* dh, float* dt,
              float* r1, float* r2, float* gu, float* gv, float* part, float* wpart,
              float* ug, float* dk1, float* dk2, float* dvec, int B, int H, int W, int C,
-             int G, void* stream) {
-  if (!bwd_shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
+             int G, int ns, void* stream) {
+  if (!bwd_shape_ok(H, W, C, G) || B < 1 || ns < 1 || ns > B) return (int)cudaErrorInvalidValue;
   const Shape s = bwd_shape(H, W, C, G);
   if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
   if (s.ug && ug == nullptr) return (int)cudaErrorInvalidValue;
@@ -564,17 +725,18 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
                                     part, s.ug ? ug : nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int tile = weight_tile(C);
-  const dim3 wgrid(2 * 9 * kSplit, C / tile, C / tile);
-  const bool two = wide_shape(s);
-  if (tile == 64)
-    (two ? bwd_weight_kernel<64, true> : bwd_weight_kernel<64, false>)
-        <<<wgrid, 16 * 16, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
-  else
-    (two ? bwd_weight_kernel<32, true> : bwd_weight_kernel<32, false>)
-        <<<wgrid, 8 * 8, 0, st>>>(r1, r2, gu, gv, s, B, wpart);
+  const auto weight = tile == 64 ? bwd_weight_kernel<64, kPrec == kBf16>
+                                 : bwd_weight_kernel<32, kPrec == kBf16>;
+  const size_t wsmem = weight_smem_bytes(s);
+  if ((err = cudaFuncSetAttribute(weight, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)wsmem)) != cudaSuccess)
+    return (int)err;
+  const dim3 wgrid(2 * (9 / weight_taps_of(tile)) * ns, C / tile, C / tile);
+  weight<<<wgrid, 32 * (tile == 64 ? weight_warps(64) : weight_warps(32)), wsmem, st>>>(
+      r1, r2, gu, gv, s, B, ns, wpart);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int total = 2 * 9 * (C + 1) * C + 8 * C;
-  bwd_reduce_kernel<kPrec == kBf16><<<(total + 255) / 256, 256, 0, st>>>(wpart, part, s, B,
+  bwd_reduce_kernel<kPrec == kBf16><<<(total + 255) / 256, 256, 0, st>>>(wpart, part, s, B, ns,
                                                                         dk1, dk2, dvec);
   return (int)cudaGetLastError();
 }
@@ -582,8 +744,10 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
 }  // namespace nodef
 
 // Scratch, allocated by the wrapper: r1, r2, gu, gv (B, H*W*C) each, part
-// (B, 26, C), wpart (8, 2, 9, C, C), and u (B, H*W*C) where bwd_shape's ug
-// (else it may be null).  w1bt, w2bt (the tap-flipped, transposed
+// (B, 26, C), wpart (ns, 2, 9, C, C), and u (B, H*W*C) where bwd_shape's ug
+// (else it may be null).  ns, the weight gradient's row chunks (1 to B),
+// is the wrapper's choice (kernels/odefunc_bwd.py weight_splits), which
+// sizes wpart by it.  w1bt, w2bt (the tap-flipped, transposed
 // kernels) are read only by the FFMA stage and may be null where make_shape
 // picks the tensor-core stage.  odefunc_backward_bf16 takes the same
 // arguments and shapes.
@@ -593,16 +757,18 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
       const float *w2, const float *b2, const float *m2, const float *n3s, const float *n3b, \
       const float *w1bt, const float *w2bt, float *f, float *dh, float *dt, float *r1,       \
       float *r2, float *gu, float *gv, float *part, float *wpart, float *ug, float *dk1,     \
-      float *dk2, float *dvec, int B, int H, int W, int C, int G, void *stream
+      float *dk2, float *dvec, int B, int H, int W, int C, int G, int ns, void *stream
 
 extern "C" int odefunc_backward(NODEF_BACKWARD_ARGS) {
   const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
   return nodef::backward<nodef::kF32>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
-                                      wpart, ug, dk1, dk2, dvec, B, H, W, C, G, stream);
+                                      wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns,
+                                      stream);
 }
 
 extern "C" int odefunc_backward_bf16(NODEF_BACKWARD_ARGS) {
   const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
   return nodef::backward<nodef::kBf16>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
-                                       wpart, ug, dk1, dk2, dvec, B, H, W, C, G, stream);
+                                       wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns,
+                                       stream);
 }

@@ -28,8 +28,15 @@ themselves, taps reversed and transposed in the fragment loads.  The conv1
 output u stays in shared memory where it fits; from 7×7×256 it goes to a
 global scratch beside r1 and r2 (:func:`u_global`), and from 7×7×288 the
 state x to the dh output (``kernels.odefunc.layout``).  The weight-gradient
-contraction is f32 FFMA in 64×64 tiles, 32×32 where C % 64 == 32
-(ROADMAP.md, Queue 2); its scratch is (8, 2, 9, C, C), 151 MB at C = 512.
+contraction runs on the tensor cores at every shape: per (conv, tap) a
+GEMM over the B·H·W rows of the saved activations r1, r2 and cotangents gu,
+gv, ``mma.sync`` 3×TF32, each 32-row step of a sample summed from zero,
+the steps of 8 samples added in f32, then those group sums; a CTA stages a sample's r map and g rows once for a
+row of three taps (64×64 tiles) or all nine (32×32, where C % 64 == 32).
+The rows are cut into :func:`weight_splits` chunks, summed by the
+reduction in order; its scratch is (splits, 2, 9, C, C), 19 MB at C = 512
+and B = 128.  :func:`weight_grad_emulated` repeats that arithmetic in plain
+PyTorch (tests only).
 
 ``precision='bf16'`` runs the kernel's bf16 build (``odefunc_backward_bf16``):
 the VJP of the ``compute_dtype='bfloat16'`` dynamics (the ODEfunc kernel's
@@ -44,8 +51,10 @@ input-gradient conv's sum (bf16 operands on the tensor cores,
 transposed in the fragment loads; f32 FFMA on rounded weights at the FFMA
 shapes); the time-map products.  Each sum over the batch (weight, scale and
 bias gradients) is kept in f32 per sample, reduced in the fixed order and
-rounded once, as the plain path rounds it once; the time column, which the
-plain path sums in f32 from per-pixel bf16 values, is not rounded.  f, dh,
+rounded once, as the plain path rounds it once (the weight gradients: r1,
+r2, gu, gv hold bf16 values, which one TF32 pass of the tensor cores
+multiplies exactly); the time column, which the plain path sums in f32
+from per-pixel bf16 values, is not rounded.  f, dh,
 dt and every leaf but the time column hold bf16 values.  Bound at B = 128,
 7×7×64: 2.77 GFLOP at 989 TFLOP/s dense bf16, 2.8 µs, against 1.9 µs of
 bytes: bound by operations (0.0414 ms on the CUDA cores in f32).
@@ -71,6 +80,7 @@ from . import _build
 from .odefunc import (
     MAX_SMEM,
     OdefuncWeights,
+    bf16_round,
     check_cuda_inputs,
     layout,
     odefunc_plain,
@@ -83,15 +93,63 @@ from .odefunc import (
 )
 
 __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
-           "bwd_refusal", "bwd_smem_bytes", "u_global", "tap_contract"]
+           "bwd_refusal", "bwd_smem_bytes", "u_global", "tap_contract",
+           "weight_splits", "weight_smem_bytes", "bwd_residuals_plain",
+           "weight_grad_emulated", "weight_grad_f64"]
 
-# Mirror csrc/odefunc_bwd.cu (kParts, kSplit, weight_tile).
+# Mirror csrc/odefunc_bwd.cu (kParts, kStepRows, kGroupSamples, kWeightPad,
+# weight_tile, weight_taps_of).
 _PARTS = 26
-_SPLIT = 8
+_STEP_ROWS = 32
+_GROUP_SAMPLES = 8
+_WEIGHT_PAD = 8
+# The split count's search (weight_splits): the CTAs it aims to keep busy
+# (the SMs), the most row chunks, and splits × C² at most (wpart ≤ 151 MB).
+_WEIGHT_SLOTS = 132
+_MAX_SPLIT = 64
+_MAX_SPLIT_FLOATS = 8 * 512 * 512
 
 
 def _weight_tile(c: int) -> int:
     return 64 if c % 64 == 0 else 32
+
+
+def _weight_taps(c: int) -> int:
+    return 3 if _weight_tile(c) == 64 else 9
+
+
+def weight_splits(b: int, c: int) -> int:
+    """Row chunks of the weight-gradient kernel at batch ``b`` and width
+    ``c``: of 1 to min(b, 64, 8·512²/c²), the count that minimises waves ×
+    (samples per CTA + 1), a wave being 132 CTAs (the +1: a CTA's first
+    copy and its stores), the smallest of equals.  22 at B = 128, C = 64
+    (132 CTAs); 1 at C = 512.  The one home of the count: the wrapper
+    passes it to the kernel (which takes any count from 1 to B) and sizes
+    the scratch ``wpart`` (splits, 2, 9, C, C) by it, which so never
+    exceeds the 151 MB of the FFMA kernel's fixed 8 chunks at C = 512.  It
+    depends on (b, c) alone, so a shape's order of sums is fixed."""
+    t = _weight_tile(c)
+    base = 2 * (9 // _weight_taps(c)) * (c // t) ** 2
+    best, best_cost = 1, None
+    for ns in range(1, min(b, _MAX_SPLIT, _MAX_SPLIT_FLOATS // (c * c)) + 1):
+        cost = -(-base * ns // _WEIGHT_SLOTS) * (-(-b // ns) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = ns, cost
+    return best
+
+
+def weight_smem_bytes(hw: tuple[int, int], c: int) -> int:
+    """Dynamic shared memory of the weight-gradient kernel
+    (csrc/odefunc_bwd.cu ``weight_smem_bytes``): two buffers, each a
+    sample's bordered r map and its g rows (H·W padded to a multiple of 8),
+    each row T + 8 floats; then 32 group sums per thread and one int per g
+    row."""
+    hh, ww = hw
+    nk = -(-hh * ww // 8) * 8
+    t = _weight_tile(c)
+    warps = _weight_taps(c) * (t // 32) ** 2
+    return (4 * (2 * ((hh + 2) * (ww + 2) + nk) * (t + _WEIGHT_PAD)
+                 + 32 * 32 * warps) + 4 * nk)
 
 
 def u_global(hw: tuple[int, int], c: int, groups: int) -> bool:
@@ -123,6 +181,9 @@ def bwd_refusal(hw: tuple[int, int], c: int, groups: int) -> str | None:
     if bwd_smem_bytes(hw, c, groups) > MAX_SMEM:
         return (f"the per-sample working set ({bwd_smem_bytes(hw, c, groups)}"
                 f" B) exceeds the {MAX_SMEM} B of shared memory")
+    if weight_smem_bytes(hw, c) > MAX_SMEM:
+        return (f"the weight-gradient staging ({weight_smem_bytes(hw, c)} B) "
+                f"exceeds the {MAX_SMEM} B of shared memory")
     return None
 
 
@@ -187,6 +248,113 @@ def odefunc_bwd_plain(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
     return (*res, out.detach()) if with_f else res
 
 
+def bwd_residuals_plain(w: OdefuncWeights, t, h: torch.Tensor,
+                        g: torch.Tensor, groups: int,
+                        precision: str = "f32") -> tuple[torch.Tensor, ...]:
+    """What the weight gradients contract, from the plain path at
+    ``precision``: ``(r1, r2, gu, gv)``, each (B, H, W, C) in float32 (bf16
+    values where ``precision='bf16'``): r1 = relu(GN1(h)) and r2 =
+    relu(GN2(u)), the two convs' inputs, and gu, gv, the cotangents of the
+    conv outputs u and v (bias and t·M included) under ``g``, by autograd
+    through the same operations as ``odefunc_plain``."""
+    from ..ops.layers import conv2d, group_norm
+
+    if precision not in _ENTRY:
+        raise ValueError(f"precision must be one of {tuple(_ENTRY)}, got "
+                         f"{precision!r}")
+    x = h.to(torch.bfloat16) if precision == "bf16" else h
+    tt = torch.as_tensor(t, dtype=x.dtype, device=h.device).reshape(-1, 1, 1, 1)
+    with torch.enable_grad():
+        r1 = torch.relu(group_norm({"scale": w.n1s, "bias": w.n1b},
+                                   x.detach(), groups=groups))
+        u = (conv2d({"kernel": w.w1, "bias": w.b1}, r1, padding=1)
+             + tt * w.m1.to(x.dtype)).detach().requires_grad_()
+        r2 = torch.relu(group_norm({"scale": w.n2s, "bias": w.n2b}, u,
+                                   groups=groups))
+        v = conv2d({"kernel": w.w2, "bias": w.b2}, r2, padding=1) + (
+            tt * w.m2.to(x.dtype))
+        f = group_norm({"scale": w.n3s, "bias": w.n3b}, v,
+                       groups=groups).to(h.dtype)
+        gu, gv = torch.autograd.grad(f, [u, v], g)
+    return tuple(a.detach().float() for a in (r1, r2, gu, gv))
+
+
+def weight_grad_emulated(r: torch.Tensor, g: torch.Tensor,
+                         precision: str = "f32",
+                         splits: int | None = None) -> torch.Tensor:
+    """The weight-gradient kernel's arithmetic in plain PyTorch: one conv's
+    dW (3, 3, C, C) (tap, input channel, output channel, the time channel
+    left out) = Σ over samples and pixels of r shifted by the tap ⊗ g, from
+    float32 ``r``, ``g`` (B, H, W, C).  As the kernel: the batch cut into
+    ``splits`` chunks (default :func:`weight_splits`), ``B·split/splits``
+    to ``B·(split + 1)/splits``; within a chunk, sample by sample, each
+    32-row step of a sample's H·W rows summed from zero and added to a
+    running sum in f32, which every 8 samples (and at the chunk's end) is
+    added to the chunk's total and starts again from zero; the chunks added
+    in order, and in bf16 the sum rounded once.  A step's products: 'f32', 3×TF32 from
+    :func:`kernels.conv3x3.tf32_split` heads and tails, ``(lo·hi + hi·lo) +
+    hi·hi``; 'bf16', the products of the bf16 values themselves, exact in
+    f32.  The sum within a step is a float32 matrix product, whose order is
+    the library's, not the tensor core's: the emulation agrees with the
+    kernel to f32 rounding of a step, not bit for bit.  For tests; nothing
+    on a path calls it."""
+    from .conv3x3 import tf32_split
+
+    if precision not in _ENTRY:
+        raise ValueError(f"precision must be one of {tuple(_ENTRY)}, got "
+                         f"{precision!r}")
+    if r.dtype != torch.float32 or g.dtype != torch.float32:
+        raise ValueError("weight_grad_emulated takes float32 r and g")
+    b, hh, ww, c = r.shape
+    ns = weight_splits(b, c) if splits is None else splits
+    hw = hh * ww
+    rp = F.pad(r, (0, 0, 1, 1, 1, 1))
+    taps = torch.stack([rp[:, ky:ky + hh, kx:kx + ww].reshape(b, hw, c)
+                        for ky in range(3) for kx in range(3)])
+    gg = g.reshape(b, hw, c)
+
+    def step(a, bb):  # (9, k, C), (k, C) -> (9, C, C)
+        if precision == "bf16":
+            return a.transpose(1, 2) @ bb
+        a_hi, a_lo = tf32_split(a)
+        b_hi, b_lo = tf32_split(bb)
+        return ((a_lo.transpose(1, 2) @ b_hi + a_hi.transpose(1, 2) @ b_lo)
+                + a_hi.transpose(1, 2) @ b_hi)
+
+    total = torch.zeros((9, c, c), dtype=torch.float32, device=r.device)
+    for sp in range(ns):
+        chunk = torch.zeros_like(total)
+        lo, hi = b * sp // ns, b * (sp + 1) // ns
+        for g0 in range(lo, hi, _GROUP_SAMPLES):
+            run = torch.zeros_like(total)
+            for bi in range(g0, min(hi, g0 + _GROUP_SAMPLES)):
+                for k0 in range(0, hw, _STEP_ROWS):
+                    run = run + step(taps[:, bi, k0:k0 + _STEP_ROWS],
+                                     gg[bi, k0:k0 + _STEP_ROWS])
+            chunk = chunk + run
+        total = total + chunk
+    if precision == "bf16":
+        total = bf16_round(total)
+    return total.reshape(3, 3, c, c)
+
+
+def weight_grad_f64(r: torch.Tensor, g: torch.Tensor,
+                    absolute: bool = False) -> torch.Tensor:
+    """One conv's weight-gradient contraction (3, 3, C, C) from (B, H, W, C)
+    ``r``, ``g`` in float64, Σ over the rows of r shifted by the tap times
+    g; ``absolute``: of |r| and |g|, the scale of the rounding of a sum of
+    those products, the unit of the emulation's and the kernel's bounds
+    (tests, ``chip_smoke.py``)."""
+    c = r.shape[-1]
+    op = torch.abs if absolute else (lambda a: a)
+    rp = F.pad(op(r.double()), (0, 0, 1, 1, 1, 1))
+    gg = op(g.double()).reshape(-1, c)
+    hh, ww = r.shape[1:3]
+    return torch.stack([rp[:, ky:ky + hh, kx:kx + ww].reshape(-1, c).T @ gg
+                        for ky in range(3) for kx in range(3)]
+                       ).reshape(3, 3, c, c)
+
+
 # The C entry point of each build of the kernel (csrc/odefunc_bwd.cu).
 _ENTRY = {"f32": "odefunc_backward", "bf16": "odefunc_backward_bf16"}
 
@@ -196,7 +364,7 @@ def _lib() -> ctypes.CDLL:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
@@ -204,13 +372,16 @@ def _lib() -> ctypes.CDLL:
 
 def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
                 groups: int = 32, with_f: bool = False,
-                precision: str = "f32"):
+                precision: str = "f32", residuals: dict | None = None):
     """VJP of f at ``(params, t, h)`` against ``g`` (B, H, W, C):
     ``(dparams, dt (B,), dh)`` with ``dparams`` in the raw ODEfunc layout,
     and the recomputed f(t, h) as a fourth value where ``with_f``.
     ``params``: an ODEfunc param dict or :class:`OdefuncWeights`; ``t``
     scalar or (B,).  ``precision``: 'f32', or 'bf16' for the VJP of the
-    bf16 dynamics (the kernel's bf16 build on the card)."""
+    bf16 dynamics (the kernel's bf16 build on the card).  ``residuals``: a
+    dict that a kernel launch fills with the scratch the weight gradients
+    contracted, ``r1``, ``r2``, ``gu``, ``gv`` (B, H, W, C) (the arguments
+    of :func:`weight_grad_emulated`; tests read them)."""
     b, hh, ww, c = h.shape
     w = prepare(params, (hh, ww))
     if h.device.type == "cpu":
@@ -252,7 +423,8 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     dk = outs[:2 * nk].view(2, 3, 3, c + 1, c)
     dvec = outs[2 * nk:2 * nk + 8 * c].view(8, c)
     dt = outs[2 * nk + 8 * c:]
-    sizes = [b * n] * 4 + [b * _PARTS * c, _SPLIT * 2 * 9 * c * c,
+    ns = weight_splits(b, c)
+    sizes = [b * n] * 4 + [b * _PARTS * c, ns * 2 * 9 * c * c,
                            b * n if u_global((hh, ww), c, groups) else 0]
     scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     offsets = [4 * sum(sizes[:i]) for i in range(len(sizes))]
@@ -264,12 +436,16 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
         ptr(f), ptr(dh), at(outs, 4 * (2 * nk + 8 * c)),
         *(at(scratch, o) for o in offsets),
         at(outs, 0), at(outs, 4 * nk), at(outs, 8 * nk),
-        b, hh, ww, c, groups, stream())
+        b, hh, ww, c, groups, ns, stream())
     _build.check(lib, code, entry)
     if precision == "bf16":
         odefunc_bwd.launches_bf16 += 1
     else:
         odefunc_bwd.launches += 1
+    if residuals is not None:
+        residuals.update(zip(("r1", "r2", "gu", "gv"), (
+            scratch[i * b * n:(i + 1) * b * n].view(b, hh, ww, c)
+            for i in range(4))))
     dparams = {
         "norm1": {"scale": dvec[0], "bias": dvec[1]},
         "conv1": {"kernel": dk[0], "bias": dvec[6]},

@@ -247,7 +247,7 @@ def bwd_readings(w, t, h, g, groups: int) -> dict:
 def check(readings: dict) -> list[str]:
     """What in ``readings`` (of :func:`odefunc_readings` or
     :func:`step_readings`) breaks :data:`BARS` or its control; empty if
-    nothing does."""
+    nothing does.  A NaN reading breaks its bar."""
     bad = []
 
     def hold(name, kernel, bar, f32):
@@ -262,14 +262,14 @@ def check(readings: dict) -> list[str]:
         for k, r in readings["outputs"].items():
             if k in BWD_EARLY:
                 hold(f"odefunc_bwd {k}", r["kernel"], BARS["bwd_u"], r["f32"])
-            elif r["kernel"] > BARS["bwd_late_u"]:
+            elif not r["kernel"] <= BARS["bwd_late_u"]:
                 bad.append(f"odefunc_bwd {k}: bf16 build {r['kernel']:.4g} "
                            f"u, bar {BARS['bwd_late_u']} u")
         return bad
     if "kernel_rel_u" in readings:
         if not readings["bf16_values"]:
             bad.append("odefunc: the bf16 build's values are not bf16")
-        if readings["kernel_u_per_row"] > BARS["f_u_per_row"]:
+        if not readings["kernel_u_per_row"] <= BARS["f_u_per_row"]:
             bad.append(f"odefunc: {readings['kernel_u_per_row']:.4g} u per "
                        f"row, bar {BARS['f_u_per_row']}")
         hold("odefunc rel-L2", readings["kernel_rel_u"], BARS["f_rel_u"],
@@ -278,7 +278,7 @@ def check(readings: dict) -> list[str]:
     st = readings["stages"]
     hold("rk_step stages", max(st["kernel"]), BARS["stage_u"], min(st["f32"]))
     for k, v in readings["combined"].items():
-        if v > BARS["combined_u"]:
+        if not v <= BARS["combined_u"]:
             bad.append(f"rk_step {k}: {v:.4g} u from the combination of its "
                        f"own stages, bar {BARS['combined_u']}")
     for k in STEP_KEYS:

@@ -13,7 +13,11 @@ shape H×W×C (groups 32; the :func:`entry` model's ODEfunc at that width,
 seed 7): ``odefunc`` and ``rk_step`` (tol 1e-3) at B = 256, the backward at
 B = 128, each its device ms per launch under ``torch.profiler`` (the mean
 over the launches recorded in ``--reps`` calls; the backward, its three
-kernels summed).  Prints the card's name and power limit, then one JSON line
+kernels summed, and apart, ``odefunc_bwd_split_ms``, beside each kernel's
+bound, ``odefunc_bwd_bound_ms``: the larger of its operations at the TF32
+tensor-core peak and its bytes at HBM's rate, ``utils/flops.py``
+``bwd_kernel_bounds``, where the package has it).  ``--bwd-only`` times the
+backward alone.  Prints the card's name and power limit, then one JSON line
 per shape.  Needs a CUDA card and ``nvcc``.
 
 ``--solves N`` adds one JSON line of host-side times of the same package:
@@ -35,9 +39,19 @@ conv, B = 256).  It needs a package that has the bf16 builds.
 
 ``--digest`` prints, per shape, the sha256 of each f32 kernel's outputs on
 the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
-dθ, dt, dh; the conv probe's ``mma3``, ``mma1``, ``tap9`` and ``im2col``
-where the shape takes them), so that two checkouts' kernels can be held bit
-for bit (run once with each package on ``PYTHONPATH``, in one call).
+conv-kernel gradients, ``odefunc_bwd_weights``, and the rest of its
+outputs, ``odefunc_bwd_rest``: f, dh, dt, the eight (C,) vectors and the
+conv kernels' time channel; the conv probe's ``mma3``, ``mma1``, ``tap9``
+and ``im2col`` where the shape takes them), so that two checkouts' kernels
+can be held bit for bit (run once with each package on ``PYTHONPATH``, in
+one call).
+
+``--errors`` prints, per shape, the backward's dθ max abs error against its
+plain version in float64 at B = 128, 64 and 5 (the seeded inputs' first
+rows), beside the f32 plain version's (cuDNN, TF32 off), for both builds'
+weight gradients where ``--bf16`` is given too (the bf16 build's distances
+from the plain bf16 VJP, ``probes/bf16_distances.py``), so that two
+checkouts' accuracy can be read on the same inputs.
 """
 
 from __future__ import annotations
@@ -110,19 +124,38 @@ def _inputs(hh: int, ww: int, c: int):
     return w, h, t0, dt, y0, f0, g, hb, tb, kw
 
 
-def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False) -> dict:
+def bwd_bounds(hh: int, ww: int, c: int, bf16: bool = False):
+    """Each backward kernel's bound in ms at B = 128 (the module
+    docstring), or None where the package lacks ``bwd_kernel_bounds`` (a
+    checkout from before it)."""
+    from neural_ode_features_tpu_torch.utils import flops
+
+    if not hasattr(flops, "bwd_kernel_bounds"):
+        return None
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        weight_splits,
+    )
+
+    peak = flops.H100_BF16_FLOPS if bf16 else flops.H100_TF32_FLOPS
+    return {k: v["bound_ms"] for k, v in flops.bwd_kernel_bounds(
+        (hh, ww), c, B_BWD, weight_splits(B_BWD, c), peak).items()}
+
+
+def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
+            bwd_only: bool = False) -> dict:
     w, h, t0, dt, y0, f0, g, hb, tb, kw = _inputs(hh, ww, c)
-    row = {
-        "shape": f"{hh}x{ww}x{c}",
-        "odefunc_ms": device_ms(lambda: odefunc(w, t0, h, groups=G),
-                                ("odefunc_kernel",), reps),
-        "rk_step_ms": device_ms(
+    row = {"shape": f"{hh}x{ww}x{c}"}
+    if not bwd_only:
+        row["odefunc_ms"] = device_ms(lambda: odefunc(w, t0, h, groups=G),
+                                      ("odefunc_kernel",), reps)
+        row["rk_step_ms"] = device_ms(
             lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0, **kw),
-            ("rk_step_kernel",), reps),
-        "odefunc_bwd_ms": device_ms(
-            lambda: odefunc_bwd(w, tb, hb, g, groups=G), BWD_KERNELS, reps),
-    }
-    if bf16:
+            ("rk_step_kernel",), reps)
+    row["odefunc_bwd_split_ms"] = device_split(
+        lambda: odefunc_bwd(w, tb, hb, g, groups=G), BWD_KERNELS, reps)
+    row["odefunc_bwd_ms"] = sum(row["odefunc_bwd_split_ms"].values())
+    row["odefunc_bwd_bound_ms"] = bwd_bounds(hh, ww, c)
+    if bf16 and not bwd_only:
         import torch.nn.functional as F
 
         xn = h.permute(0, 3, 1, 2).bfloat16()
@@ -139,13 +172,47 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False) -> dict:
             "conv_library_bf16_ms": _event_ms(
                 lambda: F.conv2d(xn, wn, padding=1), reps),
         })
-        for prec in ("f32", "bf16"):
-            split = device_split(
-                lambda: odefunc_bwd(w, tb, hb, g, groups=G, precision=prec),
-                BWD_KERNELS, reps)
-            row[f"odefunc_bwd_{prec}_split_ms"] = split
+    if bf16:
+        row["odefunc_bwd_bf16_split_ms"] = device_split(
+            lambda: odefunc_bwd(w, tb, hb, g, groups=G, precision="bf16"),
+            BWD_KERNELS, reps)
         row["odefunc_bwd_bf16_ms"] = sum(
             row["odefunc_bwd_bf16_split_ms"].values())
+        row["odefunc_bwd_bf16_bound_ms"] = bwd_bounds(hh, ww, c, True)
+    return row
+
+
+def bwd_errors(hh: int, ww: int, c: int, bf16: bool = False) -> dict:
+    """The backward's dθ max abs error against the float64 plain version at
+    B = 128, 64, 5, beside the f32 plain version's; with ``bf16`` the bf16
+    build's readings against the plain bf16 VJP (the module docstring)."""
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        odefunc_bwd_plain,
+    )
+
+    w, _, _, _, _, _, g, hb, tb, _ = _inputs(hh, ww, c)
+    w64 = type(w)(*(x.double() for x in w))
+
+    def flat(dp):
+        return torch.cat([dp[a][b].reshape(-1) for a in sorted(dp)
+                          for b in sorted(dp[a])]).double()
+
+    row = {"shape": f"{hh}x{ww}x{c}"}
+    for nb in (B_BWD, B_BWD // 2, 5):
+        args = (tb[:nb].contiguous(), hb[:nb].contiguous(),
+                g[:nb].contiguous())
+        ref = flat(odefunc_bwd_plain(w64, *(a.double() for a in args),
+                                     G)[0])
+        row[f"dtheta_err_b{nb}"] = float(
+            (flat(odefunc_bwd(w, *args, groups=G)[0]) - ref).abs().max())
+        row[f"plain_f32_err_b{nb}"] = float(
+            (flat(odefunc_bwd_plain(w, *args, G)[0]) - ref).abs().max())
+    if bf16:
+        from neural_ode_features_tpu_torch.probes import bf16_distances
+
+        readings = bf16_distances.bwd_readings(w, tb, hb, g, G)
+        row["bf16"] = readings
+        row["bf16_fails"] = bf16_distances.check(readings)
     return row
 
 
@@ -179,12 +246,16 @@ def digest(hh: int, ww: int, c: int) -> dict:
             out.update(x.detach().contiguous().cpu().numpy().tobytes())
         return out.hexdigest()[:16]
 
-    dp, dtk, dh = odefunc_bwd(w, tb, hb, g, groups=G)
+    dp, dtk, dh, fb = odefunc_bwd(w, tb, hb, g, groups=G, with_f=True)
+    kernels = [dp[a]["kernel"] for a in ("conv1", "conv2")]
     row = {"shape": f"{hh}x{ww}x{c}",
            "odefunc": sha(odefunc(w, t0, h, groups=G)),
            "rk_step": sha(*dopri5_step(w, DOPRI5, t0, dt, y0, f0, **kw)),
-           "odefunc_bwd": sha(*(dp[a][b] for a in sorted(dp)
-                                for b in sorted(dp[a])), dtk, dh)}
+           "odefunc_bwd_weights": sha(*(k[:, :, 1:] for k in kernels)),
+           "odefunc_bwd_rest": sha(
+               *(dp[a][b] for a in sorted(dp) for b in sorted(dp[a])
+                 if b != "kernel"), *(k[:, :, :1] for k in kernels),
+               dtk, dh, fb)}
     x, wc = probe_inputs(B, "cuda", (hh, ww), c)
     for strategy in ("mma3", "mma1", "tap9", "im2col"):
         if supported((hh, ww), c, strategy):
@@ -269,6 +340,11 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--digest", action="store_true",
                    help="print the sha256 of the f32 kernels' outputs per "
                         "shape, in place of their times")
+    p.add_argument("--bwd-only", action="store_true",
+                   help="time the backward alone (with --bf16, both builds)")
+    p.add_argument("--errors", action="store_true",
+                   help="print the backward's dθ errors against float64 "
+                        "per shape, in place of times")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
@@ -281,8 +357,13 @@ def main(argv=None) -> list[dict]:
     rows = []
     for shape in filter(None, args.shapes.split(",")):
         hh, ww, c = (int(v) for v in shape.split("x"))
-        rows.append(digest(hh, ww, c) if args.digest
-                    else measure(hh, ww, c, args.reps, args.bf16))
+        if args.digest:
+            rows.append(digest(hh, ww, c))
+        elif args.errors:
+            rows.append(bwd_errors(hh, ww, c, args.bf16))
+        else:
+            rows.append(measure(hh, ww, c, args.reps, args.bf16,
+                                args.bwd_only))
         print(json.dumps(rows[-1]))
     if args.solves:
         import neural_ode_features_tpu_torch as pkg

@@ -15,7 +15,10 @@ power limit) live here, the one home of the card's rates: the bf16 tensor
 cores (:data:`H100_BF16_FLOPS`, the MFU denominator), TF32 on the tensor
 cores (:data:`H100_TF32_FLOPS`), f32 FFMA outside them
 (:data:`H100_F32_FLOPS`) and HBM3 (:data:`H100_HBM_BYTES_PER_S`), which the
-kernels' bounds in ``chip_smoke.py`` and ``probes/conv_probe.py`` use.
+kernels' bounds in ``chip_smoke.py`` and ``probes/conv_probe.py`` use;
+:func:`bounds` turns operations and bytes into a bound, and
+:func:`bwd_kernel_bounds` gives each of the backward kernel's three
+launches its own (:func:`bwd_kernel_work` counts their work).
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ __all__ = [
     "odenet_flops_per_image",
     "odenet_train_flops_per_image",
     "peak_flops_per_chip",
+    "bounds",
+    "bwd_kernel_work",
+    "bwd_kernel_bounds",
     "H100_BF16_FLOPS",
     "H100_TF32_FLOPS",
     "H100_F32_FLOPS",
@@ -155,3 +161,63 @@ def peak_flops_per_chip(device_kind: str) -> float | None:
     if "h100" in kind and "pcie" not in kind and "nvl" not in kind:
         return H100_BF16_FLOPS
     return None
+
+
+def bounds(flops: float, nbytes: float,
+           tensor_peak: float = H100_TF32_FLOPS) -> dict:
+    """The card's least time for ``flops`` operations that move ``nbytes``
+    bytes, with the tensor cores (the operations counted once, at the TF32
+    rate, or ``tensor_peak``: bf16's for the bf16 builds) and on the CUDA
+    cores (f32 FFMA): each the larger of its operations time and the bytes
+    time at HBM's rate.  Returns ``bound_ms``, ``bound_by`` ("operations"
+    or "bytes") and the same two under ``ffma_``."""
+    out = {}
+    for key, peak in (("", tensor_peak), ("ffma_", H100_F32_FLOPS)):
+        by_ops, by_bytes = flops / peak, nbytes / H100_HBM_BYTES_PER_S
+        out[key + "bound_ms"] = 1e3 * max(by_ops, by_bytes)
+        out[key + "bound_by"] = ("operations" if by_ops >= by_bytes
+                                 else "bytes")
+    return out
+
+
+def bwd_kernel_work(hw: tuple[int, int], c: int, b: int,
+                    splits: int) -> dict:
+    """Operations and bytes of each launch of the ODEfunc backward kernel
+    (``csrc/odefunc_bwd.cu``) at H×W×C = (*hw, c) and batch ``b`` (f32
+    storage), each input read once and each output written once, for the
+    launches' bounds (:func:`bwd_kernel_bounds`).  ``bwd_sample_kernel``:
+    four 3×3 convs a sample (the forward's two, the two input gradients);
+    reads h, g, t and the laid-out weights (two (9, C, C) kernels, two
+    (H·W, C) time maps, eight (C,) vectors), writes f, dh, dt, the four
+    (B, H·W·C) residuals r1, r2, gu, gv and the (B, 26, C) partial sums.
+    ``bwd_weight_kernel``: the two weight-gradient contractions (a conv's
+    operations each); reads the residuals and writes one (2, 9, C, C)
+    result: the function's own bytes, not the ``splits`` chunks that this
+    design writes in its place (those are the kernel's distance from its
+    bound).  ``bwd_reduce_kernel``: one add per chunk and per sample's
+    partial; reads the ``splits`` chunks and the partials, writes the raw
+    dθ (two (3, 3, C+1, C) kernels, eight (C,) vectors).  Returns
+    ``{name: (flops, bytes)}``."""
+    n = hw[0] * hw[1] * c
+    conv = 2.0 * hw[0] * hw[1] * 9 * c * c * b
+    weights = 4 * (2 * 9 * c * c + 2 * hw[0] * hw[1] * c + 8 * c)
+    wpart = 4 * splits * 2 * 9 * c * c
+    parts = 4 * b * 26 * c
+    dtheta = 4 * (2 * 9 * (c + 1) * c + 8 * c)
+    return {
+        "bwd_sample_kernel": (4 * conv, 4 * (2 * b * n + b) + weights
+                              + 4 * (2 * b * n + b) + 4 * 4 * b * n + parts),
+        "bwd_weight_kernel": (2 * conv, 4 * 4 * b * n + 4 * 2 * 9 * c * c),
+        "bwd_reduce_kernel": (float(splits * 2 * 9 * c * c + b * 26 * c),
+                              wpart + parts + dtheta),
+    }
+
+
+def bwd_kernel_bounds(hw: tuple[int, int], c: int, b: int, splits: int,
+                      tensor_peak: float = H100_TF32_FLOPS) -> dict:
+    """Each of the backward call's three kernels' :func:`bounds` at H×W×C =
+    (*hw, c), batch ``b`` and ``splits`` weight-gradient chunks (the
+    wrapper's ``kernels.odefunc_bwd.weight_splits``), from
+    :func:`bwd_kernel_work`: ``{name: bounds}``."""
+    return {k: bounds(ops, nbytes, tensor_peak)
+            for k, (ops, nbytes) in bwd_kernel_work(hw, c, b, splits).items()}

@@ -497,6 +497,15 @@ def test_bf16_bars_reject_the_f32_builds(side, c, batch):
     broken = {m.split(":")[0] for m in check(b_as_f32)}
     assert {f"odefunc_bwd {k}" for k in bf16_distances.BWD_EARLY
             if k in b["outputs"]} <= broken
+    # A NaN reading breaks its bar, a late leaf's and the per-row bar's
+    # among them.
+    nan = float("nan")
+    late = next(k for k in b["outputs"] if k not in bf16_distances.BWD_EARLY)
+    b_nan = dict(b, outputs={**b["outputs"], late: {"kernel": nan,
+                                                    "f32": nan}})
+    assert [m.split(":")[0] for m in check(b_nan)] == [f"odefunc_bwd {late}"]
+    assert [m.split(":")[0] for m in check(
+        dict(f, kernel_u_per_row=nan))] == ["odefunc"]
 
 
 # ---- (d) the routes to the bf16 builds ---------------------------------------

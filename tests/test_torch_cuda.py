@@ -173,6 +173,88 @@ def test_backward_kernel_matches_plain(dev, batch, side):
     assert torch.equal(_flat(odefunc_bwd(w, t, h, g, groups=32)[0]), _flat(dp))
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("c,side,batch", [
+    (64, 7, 128), (64, 7, 5), (64, 6, 64), (32, 7, 16), (96, 6, 16),
+    (64, 8, 16), (512, 7, 16)])
+def test_weight_gradients_match_the_emulation(dev, precision, c, side,
+                                              batch):
+    """The weight-gradient kernel (tensor cores) against its arithmetic in
+    plain PyTorch, ``weight_grad_emulated``, on the very r1, r2, gu, gv it
+    contracted (the kernel's scratch), at the tile shapes (64, three taps a
+    CTA; 32, nine: 7×7×32, 6×6×96), an FFMA-stage map (8×8×64), the widest
+    (7×7×512) and B = 128, 64, 5, 16.  f32 (3×TF32): within 2e-6 of the
+    sum of |products| per entry: each lies within 2.1e-7 of it from the f64
+    sum (the emulation, on the CPU), and the tensor core's truncating
+    accumulation over a 32-row step adds at most 12 ulps of the step's
+    partial sums; one plain TF32 pass lies 1e-3 of it away.  bf16 (exact
+    products, the sum rounded once): within one bf16 ulp (2^-7 of the
+    larger), where the two f32 sums straddle a rounding, plus the same 2e-6
+    of the sum of |products| (under cancellation an entry is small beside
+    the sums' f32 rounding).  dθ bit-identical across two launches; one
+    launch on the build's counter."""
+    from neural_ode_features_tpu_torch.kernels.odefunc import bf16_round
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        weight_grad_emulated,
+        weight_grad_f64,
+    )
+
+    cfg = dataclasses.replace(ENTRY_CONFIG, hidden=c)
+    w = prepare(init_odenet(2, cfg, device=dev)["odefunc"], (side, side))
+    rng = np.random.default_rng(c + side + batch)
+    arr = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h = arr(rng.normal(size=(batch, side, side, c)) * 0.3)
+    g = arr(rng.normal(size=h.shape))
+    t = arr(rng.uniform(0.0, 0.5, batch))
+    counter = "launches_bf16" if precision == "bf16" else "launches"
+    before = getattr(odefunc_bwd, counter)
+    res = {}
+    dp = odefunc_bwd(w, t, h, g, groups=32, precision=precision,
+                     residuals=res)[0]
+    assert getattr(odefunc_bwd, counter) == before + 1
+    for conv, (r, gg) in enumerate(((res["r1"], res["gu"]),
+                                    (res["r2"], res["gv"]))):
+        got = dp[f"conv{conv + 1}"]["kernel"][:, :, 1:, :]
+        want = weight_grad_emulated(r, gg, precision)
+        scale = weight_grad_f64(r, gg, True)
+        if precision == "bf16":
+            assert torch.equal(r, bf16_round(r)) and torch.equal(
+                gg, bf16_round(gg))
+            bound = (2.0 ** -7 * torch.maximum(got.abs(), want.abs()).double()
+                     + 2e-6 * scale)
+            assert bool(((got - want).abs().double() <= bound).all())
+        else:
+            err = float(((got.double() - want.double()).abs() / scale).max())
+            assert err <= 2e-6, (conv, err)
+    dp2 = odefunc_bwd(w, t, h, g, groups=32, precision=precision)[0]
+    assert torch.equal(_flat(dp), _flat(dp2))
+    if precision == "f32":
+        w64 = type(w)(*(x.double() for x in w))
+        dp_p = odefunc_bwd_plain(w64, t.double(), h.double(), g.double(),
+                                 32)[0]
+        np.testing.assert_allclose(_flat(dp).cpu().numpy(),
+                                   _flat(dp_p).cpu().numpy(), **DP_TOL)
+
+
+@pytest.mark.parametrize("splits", [0, 6])
+def test_backward_refuses_a_split_count_out_of_range(dev, monkeypatch,
+                                                      splits):
+    """The C entry takes the weight gradient's row chunks from the wrapper
+    and refuses a count outside 1..B (here B = 5) with
+    ``cudaErrorInvalidValue``, before any launch: no chunk of a sample
+    range can be empty, and none is written past the scratch."""
+    from neural_ode_features_tpu_torch.kernels import odefunc_bwd as mod
+
+    w = prepare(init_odenet(2, ENTRY_CONFIG, device=dev)["odefunc"], (7, 7))
+    h, t, _ = _inputs(dev, 5, 7)
+    g = torch.ones_like(h)
+    monkeypatch.setattr(mod, "weight_splits", lambda b, c: splits)
+    before = odefunc_bwd.launches
+    with pytest.raises(RuntimeError, match="odefunc_backward: CUDA error"):
+        odefunc_bwd(w, t, h, g, groups=32)
+    assert odefunc_bwd.launches == before
+
+
 def test_vjp_is_one_backward_call(dev):
     """``odefunc_vjp`` on the card: one call of the backward kernel, which
     writes f itself, and no launch of the ODEfunc kernel."""
