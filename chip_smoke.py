@@ -25,15 +25,16 @@ Phases (any failed check exits nonzero and prints no result):
    (the tensor-core weight-gradient kernel) are held against
    ``weight_grad_emulated`` on the residuals each launch contracted
    (B = 128, 64 and 5).  The backward call's device time is split by
-   kernel name, each kernel beside its bound.  The four conv probe
-   kernels (``tap9``, ``im2col`` and the tensor-core ``mma3``, ``mma1``)
-   are held against
-   ``conv3x3_plain`` at B = 256, a ragged B = 5 and a 6×6 map, in f32 and in
-   float64 (``mma1``, plain TF32, at its own looser tolerance), and
-   ``mma3``'s error against the f64 plain version is printed beside
-   ``tap9``'s.  Then the probe's own path, ``probes.conv_probe.main``, the
-   four-strategy race at B = 256 and B = 128, with the conv counter set to
-   0 just before (its three bf16 twins race in ``[bf16]``).
+   kernel name, each kernel beside its bound.  The five conv probe
+   kernels (``tap9``, ``im2col`` and the tensor-core ``mma3``, ``mma1``
+   and ``wgmma3``) are held against ``conv3x3_plain`` at B = 256, a ragged
+   B = 5 and a 6×6 map, in f32 and in float64 (``mma1``, plain TF32, at
+   its own looser tolerance), and ``wgmma3``'s error against the f64 plain
+   version is printed beside ``mma3``'s (at most ``WGMMA_BAR``, 1.5, times
+   it) and ``tap9``'s.  Then the probe's own path,
+   ``probes.conv_probe.main``, the five-strategy race at B = 256 and B =
+   128, with the conv counter set to 0 just before (its three bf16 twins
+   race in ``[bf16]``).
 3. The inference path, ``entry(device="cuda", batch=256)`` (CIFAR-10
    ODE-Net, per-sample dopri5 at tol 1e-3, full width, random weights),
    with the launch counters set to 0 just before: the ODEfunc kernel must
@@ -1128,13 +1129,18 @@ def main() -> int:
                   f"plain version's: "
                   f"{float((plain.double() - plain64).abs().max()):.3e})")
         print(f"[check] conv B={nb} {hw[0]}x{hw[1]} vs the f64 plain version: "
-              f"mma3 {errs64['mma3']:.3e} beside tap9 {errs64['tap9']:.3e} "
-              f"(both within rtol {CONV_TOL['rtol']}, atol "
-              f"{CONV_TOL['atol']}); mma1 {errs64['mma1']:.3e} (plain TF32, "
-              f"rtol {TF32_TOL['rtol']}, atol {TF32_TOL['atol']})")
+              f"wgmma3 {errs64['wgmma3']:.3e} beside mma3 {errs64['mma3']:.3e} "
+              f"(bar {conv_probe.WGMMA_BAR}x mma3's) and tap9 "
+              f"{errs64['tap9']:.3e} (each within rtol {CONV_TOL['rtol']}, "
+              f"atol {CONV_TOL['atol']}); mma1 {errs64['mma1']:.3e} (plain "
+              f"TF32, rtol {TF32_TOL['rtol']}, atol {TF32_TOL['atol']})")
+        if errs64["wgmma3"] > conv_probe.WGMMA_BAR * errs64["mma3"]:
+            fail(f"conv_probe wgmma3 B={nb} {hw[0]}x{hw[1]}: "
+                 f"{errs64['wgmma3']:.3e} against the f64 conv, over "
+                 f"{conv_probe.WGMMA_BAR} x mma3's {errs64['mma3']:.3e}")
     torch.cuda.synchronize()
 
-    # The probe's own path, the four-strategy race at B = 256 and B = 128,
+    # The probe's own path, the five-strategy race at B = 256 and B = 128,
     # counter from 0 (the bf16 twins race in [bf16]).
     conv3x3.launches = 0
     probe = conv_probe.main([*STRATEGIES, "--batch", f"{B},{B_TRAIN}"])

@@ -1,5 +1,5 @@
 // The 3x3 conv probe: y = conv3x3_same(x, w) alone, one CTA per sample
-// (sm_90a), under four strategies, so that the conv stage of the fused
+// (sm_90a), under five strategies, so that the conv stage of the fused
 // kernels can be timed and redesigned in isolation.
 //
 // Replaces the TPU kernels of probes/conv_probe.py: pallas_conv_2d (kernels
@@ -14,12 +14,20 @@
 //   mma3    nodef::conv3x3_mma<3> of odefunc_common.cuh on a zero-bordered
 //           copy of x in shared memory: the implicit GEMM over padded-pitch
 //           positions on the tensor cores, mma.sync TF32 with 3xTF32 error
-//           compensation (f32-grade).  This is the conv stage of odefunc.cu,
-//           rk_step.cu and odefunc_bwd.cu itself at C = 64 to 512
-//           (multiples of 32) on 7x7 and 6x6 maps, compiled for the same
-//           width (wide_shape), so its time is what those kernels pay per
-//           conv; at C % 64 == 32 it is the check of the padded last block.
-//   mma1    the same kernel with the two tail products compiled out: plain
+//           compensation (f32-grade).  This is the f32 conv stage of
+//           odefunc.cu, rk_step.cu and odefunc_bwd.cu itself at C = 64 to
+//           512 (multiples of 32) on 7x7 and 6x6 maps where wgmma_ok does
+//           not hold, and of the backward's input-gradient convs at all of
+//           them, compiled for the same width (wide_shape), so its time is
+//           what those kernels pay per conv; at C % 64 == 32 it is the
+//           check of the padded last block.
+//   wgmma3  nodef::conv3x3_wgmma of odefunc_common.cuh, the same arithmetic
+//           on wgmma.mma_async (A from registers, B split once per CTA
+//           from a tile that cp.async.bulk brought in): the conv stage of
+//           the f32 builds of odefunc.cu, rk_step.cu and odefunc_bwd.cu's
+//           forward recompute wherever make_shape sets wg (wgmma_ok), under
+//           their layout; it takes exactly those shapes.
+//   mma1    mma3's kernel with the two tail products compiled out: plain
 //           TF32, about three decimal digits.  A reading of what f32-grade
 //           costs; nothing on a path uses it.
 //   tap9    nodef::conv3x3 of odefunc_common.cuh (f32 FFMA): nine shifted
@@ -94,6 +102,24 @@ mma_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
   for (int e = threadIdx.x; e < n; e += kThreads) m.spad[pad_index(s, e)] = xb[e];
   __syncthreads();
   mma_stage<PASSES, false, kWide>(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
+}
+
+// The wgmma3 stage alone, under the f32 kernels' layout (the narrow build:
+// wgmma3 runs at C = 64 only).
+__global__ void __launch_bounds__(kThreads, min_blocks(false))
+wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
+             float* __restrict__ y) {
+  extern __shared__ float4 smem_raw[];
+  const Smem m = carve<false>(reinterpret_cast<float*>(smem_raw), s, nullptr);
+  const int n = s.H * s.W * s.C;
+  const float* xb = x + (size_t)blockIdx.x * n;
+  float* yb = y + (size_t)blockIdx.x * n;
+
+  zero_pad(m, s);
+  __syncthreads();
+  for (int e = threadIdx.x; e < n; e += kThreads) m.spad[pad_index(s, e)] = xb[e];
+  __syncthreads();
+  conv3x3_wgmma(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
 }
 
 constexpr int kI2cThreads = 256;  // threads per CTA of the im2col kernel
@@ -268,7 +294,7 @@ template <int PASSES>
 static int launch_mma(const float* x, const float* w, float* y,
                       int B, int H, int W, int C, void* stream) {
   using namespace nodef;
-  const Shape s = make_shape(H, W, C, 1);
+  const Shape s = make_shape(H, W, C, 1, false);
   if (!s.mma || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? mma_kernel<PASSES, false, false>
@@ -294,4 +320,17 @@ extern "C" int conv_probe_mma1(const float* x, const float* w, float* y,
 extern "C" int conv_probe_mma_bf16(const float* x, const float* w, float* y,
                                    int B, int H, int W, int C, void* stream) {
   return launch_mma<nodef::kPassBf16>(x, w, y, B, H, W, C, stream);
+}
+
+extern "C" int conv_probe_wgmma3(const float* x, const float* w, float* y,
+                                 int B, int H, int W, int C, void* stream) {
+  using namespace nodef;
+  const Shape s = make_shape(H, W, C, 1, true);
+  if (!s.wg || wide_shape(s) || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = odefunc_smem_bytes(s);
+  cudaError_t err =
+      cudaFuncSetAttribute(wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, w, s, y);
+  return (int)cudaGetLastError();
 }

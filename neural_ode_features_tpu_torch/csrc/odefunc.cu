@@ -4,9 +4,10 @@
 // (_odefunc_pallas -> _odefunc_kernel).  Wrapper and plain PyTorch version:
 // kernels/odefunc.py.  The per-sample work is odefunc_eval in
 // odefunc_common.cuh; at C = 64 to 512 (multiples of 32) on 7x7 and 6x6
-// maps its two convs run on the tensor cores (3xTF32, f32-grade), at other
-// shapes as f32 FFMA.  kWide, kXg: the build (odefunc_common.cuh
-// wide_shape).  Where the state does not fit in shared memory beside the
+// maps its two convs run on the tensor cores (3xTF32, f32-grade: wgmma3,
+// Hopper's wgmma.mma_async, where wgmma_ok holds, 7x7x64 and 6x6x64 among
+// those shapes; else mma.sync), at other shapes as f32 FFMA.  kWide, kXg:
+// the build (odefunc_common.cuh wide_shape).  Where the state does not fit in shared memory beside the
 // conv's working set (fit_layout: 7x7 from C = 320), the output tensor is
 // the sample's state buffer: h is copied into it, f overwrites it.
 //
@@ -38,8 +39,8 @@ odefunc_kernel(const float* __restrict__ t, const float* __restrict__ h,
 template <int kPrec>
 int launch(const float* t, const float* h, const Odefunc& p, float* out,
            int B, int H, int W, int C, int G, void* stream) {
-  if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(H, W, C, G);
+  if (!shape_ok(H, W, C, G, kPrec == kF32) || B < 1) return (int)cudaErrorInvalidValue;
+  const Shape s = make_shape(H, W, C, G, kPrec == kF32);
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? odefunc_kernel<false, false, kPrec>
                       : s.xg        ? odefunc_kernel<true, true, kPrec>

@@ -20,9 +20,11 @@
 //      tap-flipped, transposed weights), ReLU2 + GN2 backward, conv1 input
 //      gradient, ReLU1 + GN1 backward.  Its four convs are the conv stage of
 //      odefunc_common.cuh: at C = 64 to 512 (multiples of 32) on 7x7 and 6x6
-//      maps mma.sync TF32 products with 3xTF32 error compensation
-//      (f32-grade);
-//      the input-gradient convs read
+//      maps TF32 products on the tensor cores with 3xTF32 error compensation
+//      (f32-grade).  The forward recompute's two run the forward kernels'
+//      own stage (wgmma3 where make_shape says so, so that f is
+//      odefunc_forward's bit for bit); the input-gradient convs run
+//      mma.sync at every such shape and read
 //      w1, w2 themselves, taps reversed and transposed in the fragment loads
 //      (conv3x3_mma<3, true>).  Other shapes run the f32 FFMA conv3x3, the
 //      input gradients on the wrapper's w1bt, w2bt.  Writes dh, the
@@ -156,17 +158,18 @@ inline size_t bwd_smem_bytes(const Shape& s) {
                           (s.ug ? 0 : (size_t)s.H * s.W * s.C));
 }
 
-// The shape under the backward's layout: fit_layout with u.
-inline Shape bwd_shape(int H, int W, int C, int G) {
-  Shape s = make_shape(H, W, C, G);
+// The shape under the backward's layout: fit_layout with u.  f32: the
+// kF32 build (its forward recompute runs wgmma3 where make_shape says so).
+inline Shape bwd_shape(int H, int W, int C, int G, bool f32) {
+  Shape s = make_shape(H, W, C, G, f32);
   s.xg = 0;
   s.ring = kRing;
   fit_layout(s, true, bwd_smem_bytes);
   return s;
 }
 
-inline bool bwd_shape_ok(int H, int W, int C, int G) {
-  const Shape s = bwd_shape(H, W, C, G);
+inline bool bwd_shape_ok(int H, int W, int C, int G, bool f32) {
+  const Shape s = bwd_shape(H, W, C, G, f32);
   return layout_ok(s) && C >= 32 && C % weight_tile(C) == 0 && bwd_smem_bytes(s) <= kMaxSmem &&
          weight_smem_bytes(s) <= kMaxSmem;
 }
@@ -709,8 +712,10 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
              float* r1, float* r2, float* gu, float* gv, float* part, float* wpart,
              float* ug, float* dk1, float* dk2, float* dvec, int B, int H, int W, int C,
              int G, int ns, void* stream) {
-  if (!bwd_shape_ok(H, W, C, G) || B < 1 || ns < 1 || ns > B) return (int)cudaErrorInvalidValue;
-  const Shape s = bwd_shape(H, W, C, G);
+  constexpr bool kF = kPrec == kF32;
+  if (!bwd_shape_ok(H, W, C, G, kF) || B < 1 || ns < 1 || ns > B)
+    return (int)cudaErrorInvalidValue;
+  const Shape s = bwd_shape(H, W, C, G, kF);
   if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
   if (s.ug && ug == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(s);

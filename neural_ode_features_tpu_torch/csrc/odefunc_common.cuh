@@ -18,9 +18,15 @@
 // they all lie in the channel tid % C, elsewhere (C = 96, 160, ...) the
 // channel steps along with j (Walk).
 //
-// The conv has two stages; which one a kernel runs is decided from the shape
-// alone (make_shape, mirrored by kernels/odefunc.py `stage`):
+// The conv has three stages; which one a kernel runs is decided from the
+// shape and the precision alone (make_shape, mirrored by kernels/odefunc.py
+// `stage`):
 //
+//   * conv3x3_wgmma ("wgmma3"; the kF32 evaluations at the shapes of
+//     wgmma_ok, among them 7x7x64 and 6x6x64): the arithmetic of
+//     conv3x3_mma<3> below on Hopper's warpgroup products,
+//     wgmma.mma_async.m64n32k8 TF32 with A from registers and B from shared
+//     memory; see its note.
 //   * conv3x3_mma (C a multiple of 32 from 64 to 512 and H*(W+2) <= 64: 7x7
 //     and 6x6 maps): an implicit GEMM on the tensor cores, mma.sync.m16n8k8
 //     TF32 with f32 accumulation
@@ -103,6 +109,11 @@ constexpr int kPadA = 8;       // floats added to spad's row pitch
 constexpr int kPitchB = 68;    // weight row pitch, tap stored (ci, co)
 constexpr int kPitchBT = 72;   // weight row pitch, tap stored (co, ci)
 constexpr int kRing = 3;       // weight buffers in flight (2 where short)
+constexpr int kWgN = 32;       // wgmma3: output channels of one warpgroup's product
+constexpr int kTileF = kMmaC * kMmaC;  // floats of one (64, 64) weight tile
+// wgmma3's weight area: the TF32 head and tail tiles in the order the
+// tensor cores read, the f32 tile as copied, its two mbarriers (16 bytes).
+constexpr int kWgFloats = 3 * kTileF + 4;
 
 // The precision of one evaluation (see the head of this file), and the
 // conv3x3_mma PASSES value of its one-pass bf16 build.
@@ -120,7 +131,8 @@ struct Odefunc {
   const float* n3s; const float* n3b;
 };
 
-// P: spad's row pitch in floats, R: its rows, mma: the conv stage, nblk: its
+// P: spad's row pitch in floats, R: its rows, mma: the conv stage (0 FFMA,
+// 1 tensor cores), wg: the kF32 evaluation's convs run wgmma3, nblk: its
 // 64-channel blocks (ceil(C / 64)).  npg = kThreads / C (floor) pixel
 // groups of C threads each; gs = C / G channels per group; cdiv: C divides
 // kThreads (a power of two, as is gs then), with lc = log2 C and
@@ -132,7 +144,7 @@ struct Odefunc {
 // ceil(2^32 / d) for d = C, gs, W, W+2 and nblk, which turn the divisions
 // by them into a multiply (div_magic).
 struct Shape {
-  int H, W, C, G, P, R, mma, nblk;
+  int H, W, C, G, P, R, mma, wg, nblk;
   int npg, gs, cdiv, dc, lc, lgs;
   int ring, xg, ug;
   unsigned cmagic, gmagic, wmagic, pmagic, bmagic;
@@ -157,11 +169,22 @@ inline bool mma_ok(int H, int W, int C) {
          H * (W + 2) <= kMmaM;
 }
 
+// The shapes whose kF32 convs run wgmma3 in place of conv3x3_mma<3>: the
+// tensor-core shapes of C = 64 (the main path's 7x7x64, the MNIST block's
+// 6x6x64).  At C = 96 to 448 the chip read wgmma3 2.1 to 2.4 times slower
+// than mma3 per conv (one CTA an SM there, so nothing overlaps its
+// per-tile copy, split and barriers; PERF.md, PR 18), and from 480 its
+// backward does not fit.  kernels/odefunc.py (stage, WGMMA_C) is the same
+// gate.
+inline bool wgmma_ok(int H, int W, int C) {
+  return mma_ok(H, W, C) && C == kMmaC;
+}
+
 // spad of the tensor-core stage has slack rows at its end: the last M-tile
 // rows read up to row kMmaM - 1 + 2*(W+2) + 2.
 inline Shape ffma_shape(int H, int W, int C, int G) {
   const int c = C > 0 ? C : 1, gs = G > 0 && C >= G ? C / G : 1;
-  return Shape{H, W, C, G, C, (H + 2) * (W + 2), 0, 1,
+  return Shape{H, W, C, G, C, (H + 2) * (W + 2), 0, 0, 1,
                kThreads / c, gs, kThreads % c == 0, kThreads % c,
                log2_floor(c), log2_floor(gs), kRing, 0, 0,
                magic_of(c), magic_of(gs), magic_of(W), magic_of(W + 2), 0u};
@@ -169,9 +192,13 @@ inline Shape ffma_shape(int H, int W, int C, int G) {
 
 // Floats of the weight buffers: the ring of the tensor-core stage (which
 // also holds the 64x64 partial sums of the second k half), or the FFMA
-// stage's double buffer.
-inline size_t weight_floats(const Shape& s) {
-  return s.mma ? (size_t)s.ring * kMmaC * kPitchBT : 2 * (size_t)s.C * s.C;
+// stage's double buffer.  Where wg, the area holds wgmma3's tiles too (the
+// kernels that run wgmma3 run the ring's stage in their other convs: the
+// backward's input gradients).
+__host__ __device__ inline int weight_floats(const Shape& s) {
+  if (!s.mma) return 2 * s.C * s.C;
+  const int ring = s.ring * kMmaC * kPitchBT;
+  return s.wg && kWgFloats > ring ? kWgFloats : ring;
 }
 
 // Dynamic shared memory, in floats, in this order:
@@ -183,7 +210,7 @@ inline size_t weight_floats(const Shape& s) {
 // kernels/odefunc.py (layout) mirrors this formula for the gate.
 inline size_t odefunc_smem_bytes(const Shape& s) {
   return sizeof(float) * ((s.xg ? 0 : (size_t)s.H * s.W * s.C) + (size_t)s.R * s.P +
-                          weight_floats(s) + 2 * kThreads + 2 * (size_t)s.G);
+                          (size_t)weight_floats(s) + 2 * kThreads + 2 * (size_t)s.G);
 }
 
 // The largest dynamic shared memory one CTA may use on sm_90 (227 KB), less
@@ -217,13 +244,16 @@ inline void fit_layout(Shape& s, bool with_u, Bytes bytes) {
   if (bytes(s) > kMaxSmem) s.ring = 2;
 }
 
-inline Shape make_shape(int H, int W, int C, int G) {
+// f32: the kernel's precision is kF32 (where wgmma_ok, its convs run
+// wgmma3; the bf16 builds keep conv3x3_mma's layout).
+inline Shape make_shape(int H, int W, int C, int G, bool f32) {
   Shape s = ffma_shape(H, W, C, G);
   if (mma_ok(H, W, C)) {
     s.nblk = (C + kMmaC - 1) / kMmaC;
     s.P = s.nblk * kMmaC + kPadA;
     s.R = kMmaM + 2 * (W + 2) + 2;
     s.mma = 1;
+    s.wg = f32 && wgmma_ok(H, W, C);
     s.bmagic = magic_of(s.nblk);
   }
   fit_layout(s, false, odefunc_smem_bytes);
@@ -242,7 +272,9 @@ inline bool layout_ok(const Shape& s) {
   return (s.H * s.W + s.npg - 1) / s.npg <= kMaxPix;
 }
 
-inline bool shape_ok(int H, int W, int C, int G) { return layout_ok(make_shape(H, W, C, G)); }
+inline bool shape_ok(int H, int W, int C, int G, bool f32) {
+  return layout_ok(make_shape(H, W, C, G, f32));
+}
 
 struct Smem { float* sx; float* spad; float* sw; float* sred; float* smean; float* sinv; };
 
@@ -260,7 +292,7 @@ __device__ __forceinline__ Smem carve(float* base, const Shape& s, float* xg) {
   }
   m.spad = p;
   m.sw = m.spad + s.R * s.P;
-  m.sred = m.sw + (s.mma ? s.ring * kMmaC * kPitchBT : 2 * s.C * s.C);
+  m.sred = m.sw + weight_floats(s);
   m.smean = m.sred + 2 * kThreads;
   m.sinv = m.smean + s.G;
   return m;
@@ -854,6 +886,260 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
   }
 }
 
+// ---- wgmma3: the f32 stage on warpgroup products --------------------------
+//
+// conv3x3_wgmma is conv3x3_mma<3> (the same M rows, tiles and 3xTF32
+// arithmetic, the same order of sums) on sm_90a's asynchronous warpgroup
+// products.  The four warpgroups of the CTA each own one quarter of a 64x64
+// output block: warpgroup wg takes output channels 32*(wg & 1) .. +31
+// (N = 32) and the k half wg >> 1 of every tap's 64 input channels, as
+// conv3x3_mma's warps take theirs.  Per k8 step it issues
+// wgmma.mma_async.m64n32k8.f32.tf32.tf32 three times, a_lo*b_hi, a_hi*b_lo,
+// a_hi*b_hi, onto one accumulator, and waits for them; a tap's chain (4 k8
+// steps, 12 products) starts from zero (scale-d = 0) and is added to the
+// running sum by an f32 add on the CUDA cores, taps in order; last, first k
+// half + second k half through shared memory.  A thread holds a 16-float
+// accumulator and a 16-float running sum.
+//
+//   A (the conv input rows of a tap) comes from registers: a tap's rows
+//   start at spad row ky*(W+2)+kx, where no shared-memory descriptor can
+//   start, so each thread loads its fragment as conv3x3_mma does (rows g
+//   and g+8 of its warp's 16, one 8-byte load each, physical input channels
+//   2t and 2t+1) and splits it.  The register fragment of the instruction
+//   is that of mma.sync m16n8k8 per warp (CUTLASS GMMA ALayout_64x8): a0,
+//   a2 are k = t and t+4.  So the instruction's k order is the permutation
+//   logical t <- physical 2t, logical t+4 <- physical 2t+1 of each group of
+//   8 input channels, and B is laid out in that order.
+//   B (the weights) comes from shared memory through a descriptor: K-major,
+//   no swizzle, 8x4 core matrices of 128 bytes, the two k halves of a k8
+//   step 128 bytes apart (LBO), 8-row groups of n 2048 bytes apart (SBO)
+//   (wg_tile_offset).  Each tap's (64, 64) f32 tile reaches shared memory
+//   once per CTA by the copy engine (one cp.async.bulk of 16 KB completing
+//   on a "full" mbarrier).  Each warpgroup splits the
+//   quarter of it that its products read into TF32 heads and tails in the
+//   tensor cores' order (fence.proxy.async, then a barrier of its own 128
+//   threads, before its products read them) and arrives on an "empty"
+//   mbarrier; once all four have, one thread starts the next tap's copy.
+//   So within the tap loop the warpgroups meet at no CTA-wide barrier: one
+//   splits while another's products run.  The split lives in
+//   shared memory and is redone from the f32 weights at every launch, so an
+//   in-place weight update reaches the next launch and every graph replay;
+//   nothing is cached.
+//
+// Bound: the same work as conv3x3_mma<3> (three products per pair over 64
+// rows, of which 49 or 36 are real), 3.9 us of TF32 peak per conv per
+// sample on one SM at 7x7x64; A's split twice per element (once per
+// output-channel half) in place of four times, B's once per CTA in place
+// of twice per warp pair.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar's transaction count.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const float* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// This thread's generic-proxy shared-memory accesses, ordered before the
+// async proxy's (the tensor cores' descriptor reads, the copy engine's
+// writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The 128 threads of warpgroup wg meet (named barrier 1 + wg; 0 is
+// __syncthreads').
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins the accumulator's registers at this point of the program (no
+// instruction that touches them moves across).
+__device__ __forceinline__ void wgmma_pin(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a K-major, unswizzled B operand at shared byte address
+// addr: LBO 128 bytes (the next 4 k), SBO 2048 bytes (the next 8 n).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(2048 >> 4) << 32);
+}
+
+// d (+)= a (64x8 TF32, this warpgroup's registers) * b (8x32, descriptor);
+// accumulate = 0 starts d from zero.  d[4j + r]: row 16*warp + g + 8*(r >> 1),
+// column 8j + 2t + (r & 1).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The byte offset, inside a head or tail tile, of output channel n and of
+// the tile's input channel k: core matrix (n / 8, 2*(k / 8) + half) with
+// half = k % 2 (physical 2t+1 is logical t+4), row n % 8, column (k % 8)/2.
+__host__ __device__ constexpr int wg_tile_offset(int n, int k) {
+  return (((n >> 3) * 16 + 2 * (k >> 3) + (k & 1)) * 8 + (n & 7)) * 16 + ((k & 7) >> 1) * 4;
+}
+
+// 3x3 SAME conv of spad on wgmma (the note above) at C = 64 (one block of
+// output and input channels; wgmma_ok), with the contract of conv3x3:
+// epi(p, co, sum) once per output pixel p and channel co; the caller
+// synchronises before and after.  Tile = tap: each tap's (64, 64) weights,
+// one contiguous copy.
+template <class Epi>
+__device__ void conv3x3_wgmma(const Smem& m, const Shape& s, const float* __restrict__ w,
+                              Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wi = warp & 3, nh = (warp >> 2) & 1, kh = warp >> 3;
+  const int wg = warp >> 2, wt = tid & 127;  // the warpgroup, the thread within it
+  const int Wp = s.W + 2, P = s.P;
+  float* head = m.sw;                    // the head tile, then the tail tile (wg_tile_offset)
+  const float* raw = m.sw + 2 * kTileF;  // the f32 tile as copied, (k, n), 64 floats a row
+  // The f32 tile's "full" (copy landed) and "empty" (every warpgroup has
+  // split its quarter) mbarriers.
+  const uint32_t raw_s = smem_addr(raw), full = smem_addr(m.sw + 3 * kTileF), empty = full + 8;
+
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(empty, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_proxy_async();  // the caller's generic accesses to sw come first
+    mbar_expect_tx(full, 4u * kTileF);
+    bulk_copy(raw_s, w, 4u * kTileF, full);
+  }
+  __syncthreads();
+
+  // This thread's first A element (row g of its warp's 16 at tap (0, 0),
+  // physical k column 32*kh + 2t) and the descriptor of its warpgroup's
+  // quarter of the head tile at k8 step 0.
+  const uint32_t a_thread = smem_addr(m.spad + (16 * wi + g) * P + 32 * kh + 2 * t);
+  const uint64_t b_head = wgmma_desc(smem_addr(head) + wg_tile_offset(kWgN * nh, 32 * kh));
+  constexpr uint64_t kTail = (4 * kTileF) >> 4, kStep = 256 >> 4;  // descriptor units
+
+  float acc[16], run[16];  // each tap's chain starts from zero (scale-d = 0)
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = run[i] = 0.f;
+  for (int tap = 0; tap < 9; ++tap) {
+    mbar_wait(full, tap & 1);  // the f32 tile has landed
+    // Each warpgroup splits the quarter of the tile its products read (its
+    // last products, which read those slots, are done): item i = (n = 32nh
+    // + i % 32, 4 k of one core-matrix row), k = 32kh + 8*(c / 2) + (c % 2)
+    // + 2e for chunk c = i / 32, e = 0..3.
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = wt + 128 * j, n = 32 * nh + (i & 31), c = i >> 5;
+      const int k0 = 32 * kh + 8 * (c >> 1) + (c & 1);
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32_split(raw[(k0 + 2 * e) * kMmaC + n], hi[e], lo[e]);
+      const int off = wg_tile_offset(n, k0) >> 2;
+      *reinterpret_cast<uint4*>(head + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(head + kTileF + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    fence_proxy_async();
+    warpgroup_sync(wg);  // its heads and tails are visible to its products
+    if (wt == 0) mbar_arrive(empty);  // its reads of the f32 tile are done
+    // The next tap's tile, once every warpgroup has split this one.
+    if (tid == 0 && tap < 8) {
+      mbar_wait(empty, tap & 1);
+      mbar_expect_tx(full, 4u * kTileF);
+      bulk_copy(raw_s, w + (size_t)(tap + 1) * kTileF, 4u * kTileF, full);
+    }
+
+    const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P);
+    // One k8 step at a time: its A fragment split in registers, then its
+    // three products, waited for before the registers are reused (two or
+    // four steps a group spill the narrow build: slower on the chip).
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const float2 r0 = lds2(a_tap + 4u * (8 * ks));
+      const float2 r1 = lds2(a_tap + 4u * (8 * P + 8 * ks));
+      const float av[4] = {r0.x, r1.x, r0.y, r1.y};
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) tf32_split(av[r], ahi[r], alo[r]);
+      const uint64_t bh = b_head + kStep * ks;
+      wgmma_fence();
+      wgmma_tf32(acc, alo, bh, ks > 0);
+      wgmma_tf32(acc, ahi, bh + kTail, 1);
+      wgmma_tf32(acc, ahi, bh, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      wgmma_pin(acc);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) run[i] += acc[i];
+  }
+
+  // Add the two k halves: the second half's warpgroups park their sums in
+  // the head tile's space, in accumulator order; the first half's add them
+  // and finish.
+  __syncthreads();  // every warpgroup is done with the head and tail tiles
+  float* red = m.sw + ((warp & 7) * 32 + lane);
+  if (kh == 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) red[i * 256] = run[i];
+  }
+  __syncthreads();  // also: every thread has passed its last wait
+  if (tid == 0) {
+    mbar_inval(full);
+    mbar_inval(empty);
+  }
+  if (kh == 0) {
+    const int hq = s.H * Wp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 16 * wi + 8 * h + g, y = div_magic(q, s.pmagic), x = q - y * Wp;
+      if (q >= hq || x >= s.W) continue;  // a border column or a slack row
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int l = 0; l < 2; ++l) {
+          const int r = 4 * j + 2 * h + l;
+          epi(y * s.W + x, kWgN * nh + 8 * j + 2 * t + l, run[r] + red[r * 256]);
+        }
+    }
+  }
+}
+
 // ---- both stages ----------------------------------------------------------
 
 // The tensor-core stage at the shape's block padding and ring depth: the
@@ -872,12 +1158,19 @@ __device__ __forceinline__ void mma_stage(const Smem& m, const Shape& s,
   conv3x3_mma<PASSES, BT, WIDE, false>(m, s, w, epi);
 }
 
-// The conv stage of the shape: tensor cores (3xTF32) where make_shape says
-// so, else FFMA; each in its bf16 build where PREC is not kF32.  WIDE:
+// The conv stage of the shape: wgmma3 where make_shape says so (s.wg, kF32
+// only), else the tensor cores' mma.sync stage (3xTF32) where it says so,
+// else FFMA; each in its bf16 build where PREC is not kF32.  WIDE:
 // wide_shape(s).
 template <bool WIDE, int PREC = kF32, class Epi>
 __device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
                                            const float* __restrict__ w, Epi epi) {
+  if constexpr (PREC == kF32 && !WIDE) {
+    if (s.wg) {
+      conv3x3_wgmma(m, s, w, epi);
+      return;
+    }
+  }
   if (s.mma) mma_stage<PREC == kF32 ? 3 : kPassBf16, false, WIDE>(m, s, w, epi);
   else conv3x3<PREC != kF32>(m, s, w, epi);
 }

@@ -19,9 +19,11 @@
 //
 // The twelve 3x3 convs of an attempt are the conv stage of
 // odefunc_common.cuh: at C = 64 to 512 (multiples of 32) on 7x7 and 6x6
-// maps mma.sync TF32 products with 3xTF32 error compensation (f32-grade, so
-// the accept/reject decisions follow the f32 plain version's), at other
-// shapes f32 FFMA.  kWide, kXg: the build (odefunc_common.cuh wide_shape).
+// maps TF32 products on the tensor cores with 3xTF32 error compensation
+// (f32-grade, so the accept/reject decisions follow the f32 plain
+// version's): wgmma.mma_async (wgmma3) where wgmma_ok holds, 7x7x64 and
+// 6x6x64 among those shapes, else mma.sync; at other shapes f32 FFMA.
+// kWide, kXg: the build (odefunc_common.cuh wide_shape).
 // kPrec: rk_step_forward is the f32 kernel; rk_step_forward_bf16 is the
 // fused step's conv_precision='bf16' (kBf16Conv): the twelve convs on the
 // bf16 stage (bf16 operands, f32 accumulation), GroupNorm, bias, time map,
@@ -138,8 +140,8 @@ int launch(const float* t0, const float* dt, const float* y0, const float* f0,
            const Odefunc& p, const float* tableau, const float* rtol, const float* atol,
            float* ks, float* y1, float* f1, float* ymid, float* ratio,
            int B, int H, int W, int C, int G, void* stream) {
-  if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(H, W, C, G);
+  if (!shape_ok(H, W, C, G, kPrec == kF32) || B < 1) return (int)cudaErrorInvalidValue;
+  const Shape s = make_shape(H, W, C, G, kPrec == kF32);
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? rk_step_kernel<false, false, kPrec>
                       : s.xg        ? rk_step_kernel<true, true, kPrec>

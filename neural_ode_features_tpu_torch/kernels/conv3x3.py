@@ -20,7 +20,18 @@ time map: x (B, H, W, C) f32 NHWC, w (3, 3, C, C) f32 HWIO.  Strategies:
               compensation: every f32 operand is split into a TF32 head and
               tail and each pair contributes ``a_lo·b_hi``, ``a_hi·b_lo`` and
               then ``a_hi·b_hi``.  f32-grade: an error near 2⁻²¹ per product.
-``'mma1'``    the same kernel with the two tail products compiled out: plain
+``'wgmma3'``  the shared device function ``conv3x3_wgmma``: the same 3×TF32
+              arithmetic on Hopper's ``wgmma.mma_async.m64n32k8`` TF32 (A
+              from registers, B from shared memory: each tap's (64, 64) f32
+              weight tile brought in once per CTA by ``cp.async.bulk``
+              behind an mbarrier, each warpgroup splitting its quarter into
+              TF32 heads and tails in the tensor cores' k order).  The conv
+              stage of the f32 fused kernels (and of the backward's forward
+              recompute) wherever ``kernels.odefunc.stage`` gives
+              ``'wgmma3'``: C = 64 on 7×7, 6×6 and other maps with H·(W+2)
+              ≤ 64; it takes exactly those shapes and gives ``mma3``'s
+              bits.
+``'mma1'``    ``mma3``'s kernel with the two tail products compiled out: plain
               TF32, about three decimal digits.  A reading of what f32-grade
               costs; nothing on a path uses it.
 ``'tap9'``    the f32 FFMA ``conv3x3`` of the same header: the fused kernels'
@@ -50,8 +61,8 @@ FFMA or 1.9 µs of TF32 products, against 6.6 MB moved, 2.0 µs.  So ``tap9``
 and ``im2col`` are bound by operations, and with the tensor cores the conv
 is bound by bytes.  ``mma3`` itself forms three products over a 64-row tile
 (49 rows real): 3.6 GFLOP, 7.3 µs at the TF32 peak; ``mma_bf16`` one, 1.2
-GFLOP, 1.2 µs at 989 TFLOP/s dense bf16, so it too is bound by bytes.  A
-``wgmma`` design is later work (ROADMAP.md, Queue 2 (g)).
+GFLOP, 1.2 µs at 989 TFLOP/s dense bf16, so it too is bound by bytes.
+``wgmma3`` forms ``mma3``'s products.
 
 ``conv3x3`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``conv3x3_plain``; a CUDA tensor launches the kernel or raises.
@@ -59,9 +70,13 @@ GFLOP, 1.2 µs at 989 TFLOP/s dense bf16, so it too is bound by bytes.  A
 
 ``tf32_split``, ``conv3x3_plain(passes=3 | 1)`` and ``conv3x3_padded_pitch``
 emulate the tensor-core stage's arithmetic and its row mapping in plain
-PyTorch.  Tests and the probe's error report use them; nothing on a path
-does.  ``passes="bf16"`` is the bf16 twins' function itself (operands
-rounded, products exact, sums in ``x``'s dtype).
+PyTorch; ``conv3x3_wgmma_emulated`` follows ``wgmma3`` step by step (its k
+order, three products per k8 step, each tap's chain from zero, the fixed
+order of the partial sums), and ``wgmma_tile_offset``/``wgmma_pack`` mirror
+where its split weight tiles lie in shared memory.  Tests and the probe's
+error report use them; nothing on a path does. ``passes="bf16"`` is the bf16
+twins' function itself (operands rounded, products exact, sums in ``x``'s
+dtype).
 """
 
 from __future__ import annotations
@@ -77,10 +92,11 @@ from .odefunc import MAX_SMEM, MMA_M, bf16_round, ptr, stage, stream
 from .odefunc import supported as _fused_supported
 
 __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
-           "conv3x3_padded_pitch", "tf32_split", "supported", "smem_bytes",
-           "conv_flops", "conv_bytes"]
+           "conv3x3_padded_pitch", "conv3x3_wgmma_emulated", "wgmma_k_order",
+           "wgmma_tile_offset", "wgmma_pack", "tf32_split", "supported",
+           "smem_bytes", "conv_flops", "conv_bytes"]
 
-STRATEGIES = ("tap9", "im2col", "mma3", "mma1")
+STRATEGIES = ("tap9", "im2col", "mma3", "mma1", "wgmma3")
 # The bf16 twins; each has its f32 strategy's gate.
 BF16_STRATEGIES = ("mma_bf16", "tap9_bf16", "im2col_bf16")
 _TWIN = {"mma_bf16": "mma3", "tap9_bf16": "tap9", "im2col_bf16": "im2col"}
@@ -175,6 +191,89 @@ def conv3x3_padded_pitch(x: torch.Tensor, w: torch.Tensor,
     return out[:, q[q % wp < ww]].reshape(b, hh, ww, c)
 
 
+def wgmma_k_order() -> list[int]:
+    """The physical input channel (within a group of 8) at each of the
+    ``wgmma`` k8 step's logical k positions: the thread of lane t loads
+    channels 2t and 2t+1 of a row as one 8-byte load and hands them to the
+    instruction as its k = t and k = t + 4 (the register fragment of
+    ``m64nNk8`` TF32), so logical k holds physical 2k for k < 4 and
+    2(k − 4) + 1 above."""
+    return [2 * k if k < 4 else 2 * (k - 4) + 1 for k in range(8)]
+
+
+def wgmma_tile_offset(n: int, k: int) -> int:
+    """Byte offset of output channel n, physical input channel k (each in
+    0..63) in a split weight tile of ``wgmma3`` (csrc/odefunc_common.cuh
+    ``wg_tile_offset``): K-major 8×4 core matrices of 128 bytes, the core
+    matrix (n // 8, 2·(k // 8) + k % 2), row n % 8, column (k % 8) // 2."""
+    return ((((n >> 3) * 16 + 2 * (k >> 3) + (k & 1)) * 8 + (n & 7)) * 16
+            + ((k & 7) >> 1) * 4)
+
+
+def wgmma_pack(tile: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One (64, 64) float32 weight tile (input channel k, output channel
+    n) split as ``wgmma3`` splits it in shared memory: the TF32 heads and
+    the f32 tails (``x − hi``, whose TF32 part the tensor cores read), each
+    as 4096 floats in the tensor cores' order (:func:`wgmma_tile_offset`)."""
+    if tile.shape != (64, 64) or tile.dtype != torch.float32:
+        raise ValueError(f"expected a (64, 64) float32 tile, got "
+                         f"{tuple(tile.shape)} {tile.dtype}")
+    bits = tile.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = tile - hi
+    at = torch.tensor([[wgmma_tile_offset(int(nn), int(kk)) // 4
+                        for nn in range(64)] for kk in range(64)])
+    head, tail = torch.empty(4096), torch.empty(4096)
+    head[at.reshape(-1)] = hi.reshape(-1)
+    tail[at.reshape(-1)] = lo.reshape(-1)
+    return head, tail
+
+
+def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``wgmma3``'s arithmetic in plain PyTorch, float32, at C = 64 (its
+    only width; tests and the probe's error report, nothing on a path): the
+    padded-pitch rows of :func:`conv3x3_padded_pitch`; per tap and k half
+    (32 input channels), a chain of four k8 steps from zero, each step
+    ``a_lo·b_hi``, ``a_hi·b_lo``, ``a_hi·b_hi`` (TF32 heads and tails,
+    :func:`tf32_split`) added in that order, each product's eight terms in
+    the instruction's k order (:func:`wgmma_k_order`, exact products summed
+    in float32); each chain added to its half's running sum in float32,
+    taps in order; last, first half + second half.  The tensor cores' own
+    summation order and rounding inside a product are the card's; this
+    follows every order the kernel fixes."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError("conv3x3_wgmma_emulated takes float32")
+    b, hh, ww, c = x.shape
+    wp = ww + 2
+    if c != 64 or hh * wp > MMA_M:
+        raise ValueError(f"wgmma3 takes C = 64 and H·(W+2) <= {MMA_M}, got "
+                         f"{hh}x{ww}x{c}")
+    spad = x.new_zeros((b, MMA_M + 2 * wp + 2, c))
+    spad[:, :(hh + 2) * wp] = F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b, -1, c)
+    order = torch.tensor(wgmma_k_order())
+    halves = []
+    for kh in range(2):
+        run = x.new_zeros((b, MMA_M, c))
+        for tap in range(9):
+            shift = (tap // 3) * wp + tap % 3
+            acc = None
+            for ks in range(4):
+                idx = 32 * kh + 8 * ks + order
+                a_hi, a_lo = tf32_split(spad[:, shift:shift + MMA_M, idx])
+                b_hi, b_lo = tf32_split(w[tap // 3, tap % 3][idx])
+                for pa, pb in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                    terms = pa.unsqueeze(-1) * pb  # (b, M, 8, C), exact
+                    prod = terms[:, :, 0]
+                    for kk in range(1, 8):
+                        prod = prod + terms[:, :, kk]
+                    acc = prod if acc is None else acc + prod
+            run = run + acc
+        halves.append(run)
+    out = halves[0] + halves[1]
+    q = torch.arange(hh * wp)
+    return out[:, q[q % wp < ww]].reshape(b, hh, ww, c)
+
+
 def smem_bytes(hw: tuple[int, int], c: int) -> int:
     """Dynamic shared memory per CTA of the ``im2col`` kernel."""
     return 4 * (hw[0] * hw[1] * (9 * c + _I2C_PAD) + 2 * c * c)
@@ -186,15 +285,19 @@ def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
     ``im2col`` also needs C/4 to divide its 256 threads, at most 4 pixels
     per thread, and the patch matrix within the 227 KB of shared memory.
     ``mma3`` and ``mma1``: the tensor-core stage's gate
-    (``kernels.odefunc.stage``: C a multiple of 32 from 64 to 512 and
-    H·(W+2) ≤ 64) and its working set within shared memory
-    (``kernels.odefunc.layout``).  7×7×64 and 6×6×64 pass all four, 7×7×96
-    to 7×7×512 the tensor-core two.  A bf16 twin has its f32 strategy's
-    gate."""
+    (``kernels.odefunc.stage`` of a bf16 build: C a multiple of 32 from 64
+    to 512 and H·(W+2) ≤ 64) and its working set within shared memory
+    (``kernels.odefunc.layout``).  ``wgmma3``: where the f32 kernels run it
+    (``stage`` gives ``'wgmma3'``), under their layout.  7×7×64 and 6×6×64
+    pass all five, 7×7×96 to 7×7×512 the tensor-core ones.  A bf16 twin has
+    its f32 strategy's gate."""
     strategy = _TWIN.get(strategy, strategy)
     if strategy in ("mma3", "mma1"):
-        return (stage(hw, c) == "mma3"
+        return (stage(hw, c, "bf16") == "mma3"
                 and _fused_supported(hw, c, 1, "mma3"))
+    if strategy == "wgmma3":
+        return (stage(hw, c) == "wgmma3"
+                and _fused_supported(hw, c, 1, "wgmma3"))
     if not _fused_supported(hw, c, 1, "ffma"):
         return False
     if strategy == "tap9":

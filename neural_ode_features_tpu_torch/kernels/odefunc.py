@@ -12,15 +12,19 @@ cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): the two 3×3 convs are
 0.3 MB of weights) are 6.7 MB, about 2 µs.  So it is bound by operations.
 The design keeps the sample in shared memory for the whole chain (state,
 padded conv input, GroupNorm scratch) and streams each conv tap's f32
-weights into shared memory once per CTA (cp.async).  The convs have two
-stages, chosen from the shape alone (:func:`stage`): at C a multiple of 32
-from 64 to 512 with H·(W+2) ≤ 64 (7×7 CIFAR-10 and 6×6 MNIST maps) an
-implicit GEMM on the tensor cores, ``mma.sync`` TF32 with 3×TF32 error
+weights into shared memory once per CTA.  The convs have three stages,
+chosen from the shape and the precision alone (:func:`stage`): at C a
+multiple of 32 from 64 to 512 with H·(W+2) ≤ 64 (7×7 CIFAR-10 and 6×6
+MNIST maps) an implicit GEMM on the tensor cores, TF32 with 3×TF32 error
 compensation (each f32 operand split into a TF32 head and tail, three
 products per pair, f32 accumulation), which is f32-grade, in 64-channel
 blocks of output and input channels (the last one padded with zeros where
-C % 64 == 32); at every other supported shape (C = 32, say) register-tiled
-f32 FFMA.  From C = 96 one CTA fills an SM's shared memory, and the
+C % 64 == 32): ``'wgmma3'``, Hopper's ``wgmma.mma_async`` with each weight
+tile copied in by ``cp.async.bulk`` behind an mbarrier and split once per
+CTA, at the widths of ``WGMMA_C`` (7×7×64 and 6×6×64 among them), and
+``'mma3'``, ``mma.sync`` with weights staged by ``cp.async``, at the
+others; at every other supported shape (C = 32, say) register-tiled f32
+FFMA.  From C = 96 one CTA fills an SM's shared memory, and the
 kernels run a second build of themselves for one CTA per SM (up to 128
 registers a thread); the other shapes keep two CTAs per SM and 64
 registers.  Where a wide shape's working set outgrows the 227 KB
@@ -78,7 +82,8 @@ __all__ = ["OdefuncWeights", "Layout", "prepare", "supported", "refusal",
            "odefunc_autograd", "odefunc_vjp", "PRECISIONS", "bf16_round"]
 
 # Mirrors csrc/odefunc_common.cuh (kThreads, kMaxC, kMaxPix, kMaxSmem;
-# kMmaC, kMmaStep, kMmaM, kPadA, kPitchBT, kRing of the tensor-core stage).
+# kMmaC, kMmaStep, kMmaM, kPadA, kPitchBT, kRing of the tensor-core stage;
+# kWgFloats, wgmma3's weight area; wgmma_ok's widths).
 THREADS = 512
 MAX_C = 512
 MAX_PIX = 8
@@ -89,6 +94,8 @@ MMA_M = 64
 PAD_A = 8
 PITCH_BT = 72
 RING = 3
+WG_FLOATS = 3 * MMA_C * MMA_C + 4
+WGMMA_C = (64,)
 # odefunc_plain's precisions (csrc/odefunc_common.cuh kF32, kBf16Conv, kBf16).
 PRECISIONS = ("f32", "bf16_conv", "bf16")
 
@@ -143,23 +150,28 @@ def prepare(params, hw: tuple[int, int]) -> OdefuncWeights:
         f32(params["norm3"]["scale"]), f32(params["norm3"]["bias"]))
 
 
-def stage(hw: tuple[int, int], c: int) -> str:
-    """The conv stage the fused kernels run at this shape, decided by the
-    shape alone (csrc/odefunc_common.cuh ``mma_ok``): ``'mma3'``, the
-    tensor-core stage, takes C a multiple of 32 from 64 to 512 (64-channel
-    blocks, the last one padded where C % 64 == 32) and maps whose H·(W+2)
-    padded-pitch positions fit its 64-row tile; everything else runs
-    ``'ffma'``."""
+def stage(hw: tuple[int, int], c: int, precision: str = "f32") -> str:
+    """The conv stage the fused kernels' f32 builds (``precision='f32'``)
+    or bf16 builds (any other) run at this shape, decided by the shape and
+    the precision alone (csrc/odefunc_common.cuh ``mma_ok``, ``wgmma_ok``,
+    ``make_shape``).  The tensor cores take C a multiple of 32 from 64 to
+    512 (64-channel blocks, the last one padded where C % 64 == 32) and
+    maps whose H·(W+2) padded-pitch positions fit a 64-row tile: there the
+    f32 builds run ``'wgmma3'`` (``wgmma.mma_async``, 3×TF32) at the widths
+    of ``WGMMA_C`` and ``'mma3'`` (``mma.sync``, 3×TF32) at the others, and
+    the bf16 builds their bf16 pass of ``'mma3'``'s kernel (the backward's
+    input-gradient convs run ``'mma3'`` at every tensor-core shape);
+    everything else runs ``'ffma'``."""
     hh, ww = hw
     if (MMA_C <= c <= MAX_C and c % MMA_STEP == 0 and hh >= 1 and ww >= 1
             and hh * (ww + 2) <= MMA_M):
-        return "mma3"
+        return "wgmma3" if precision == "f32" and c in WGMMA_C else "mma3"
     return "ffma"
 
 
 class Layout(NamedTuple):
     """Where a kernel keeps one sample's working set (csrc/odefunc_common.cuh
-    ``fit_layout``): its conv stage, the weight buffers of the tensor-core
+    ``fit_layout``): its conv stage, the weight buffers of the ``mma3``
     stage (``ring``), whether the state x and, in the backward, the conv1
     output u live in per-sample global scratch in place of shared memory,
     and the dynamic shared memory in bytes."""
@@ -181,26 +193,33 @@ def layout(hw: tuple[int, int], c: int, groups: int,
     tensor-core stage pads to 64·⌈C/64⌉ + 8 floats and of which it keeps
     64 + 2(W+2) + 2 (slack for the last tile's taps); the weights, a ring of
     (64, 72) buffers or the FFMA stage's two (C, C) buffers; 2·512 partial
-    sums and 2·G statistics.  The backward adds 6·G statistics, 4·C channel
-    sums and u unless ``u_global``.  A wide shape (tensor cores, C > 64)
-    that does not fit moves u, then x to global scratch, then drops the
-    ring to two buffers; the values do not depend on the layout."""
+    sums and 2·G statistics.  Under ``'wgmma3'`` the weight area holds the
+    larger of the ring (which the backward's input-gradient convs run in
+    the same area) and that stage's own (``WG_FLOATS``: its TF32 head and
+    tail tiles, its f32 tile and two mbarriers, 3·64·64 + 4 floats, within a
+    ring of three).  The backward adds 6·G statistics, 4·C channel sums and
+    u unless ``u_global``.  A wide shape (tensor cores, C > 64) that does
+    not fit moves u, then x to global scratch, then drops the ring to two
+    buffers; the values do not depend on the layout."""
     hh, ww = hw
     conv_stage = conv_stage or stage(hw, c)
     hwc = hh * ww * c
-    if conv_stage == "mma3":
+    mma = conv_stage in ("mma3", "wgmma3")
+    if mma:
         pad = (MMA_M + 2 * (ww + 2) + 2) * (MMA_C * -(-c // MMA_C) + PAD_A)
     else:
         pad = (hh + 2) * (ww + 2) * c
 
     def nbytes(ring, xg, ug):
-        weights = ring * MMA_C * PITCH_BT if conv_stage == "mma3" else 2 * c * c
+        weights = ring * MMA_C * PITCH_BT if mma else 2 * c * c
+        if conv_stage == "wgmma3":
+            weights = max(weights, WG_FLOATS)
         fwd = (0 if xg else hwc) + pad + weights + 2 * THREADS + 2 * groups
         bwd = 6 * groups + 4 * c + (0 if ug else hwc) if backward else 0
         return 4 * (fwd + bwd)
 
     ring, xg, ug = RING, False, False
-    if conv_stage == "mma3" and c > MMA_C:
+    if mma and c > MMA_C:
         if backward and nbytes(ring, xg, ug) > MAX_SMEM:
             ug = True
         if nbytes(ring, xg, ug) > MAX_SMEM:

@@ -21,9 +21,11 @@ cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): six 3×3-conv equivalents
 sample at 7×7×64, 2.77 GFLOP at B = 128: about 41 µs of FFMA, 5.6 µs of TF32
 products; the bytes are about 6.4 MB, 1.9 µs.  So it is bound by operations.
 The per-sample pass runs its four convs (two of the forward, two input
-gradients) on the conv stage of ``kernels.odefunc.stage``: at C = 64 to 512
-(multiples of 32) on 7×7 and 6×6 maps ``mma.sync`` TF32 with 3×TF32 error
-compensation, f32-grade; the input-gradient convs read ``w1``, ``w2``
+gradients) on the tensor cores at C = 64 to 512 (multiples of 32) on 7×7
+and 6×6 maps, 3×TF32, f32-grade: the recompute's two on the forward
+kernels' stage (``kernels.odefunc.stage``: ``wgmma3`` at the widths of
+``WGMMA_C``, so that f is the ODEfunc kernel's bit for bit), the
+input-gradient convs on ``mma.sync`` (``'mma3'``), reading ``w1``, ``w2``
 themselves, taps reversed and transposed in the fragment loads.  The conv1
 output u stays in shared memory where it fits; from 7×7×256 it goes to a
 global scratch beside r1 and r2 (:func:`u_global`), and from 7×7×288 the
@@ -406,7 +408,7 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     # (C, C) slice transposed and the taps in reverse order.  The
     # tensor-core stage reads w1, w2 that way itself; the FFMA stage takes
     # the rearranged copies.
-    wbt = [] if stage((hh, ww), c) == "mma3" else [
+    wbt = [] if stage((hh, ww), c) != "ffma" else [
         x.reshape(9, c, c).flip(0).transpose(1, 2).contiguous()
         for x in (w.w1, w.w2)]
     wbt_ptrs = [ptr(x) for x in wbt] or [None, None]

@@ -29,8 +29,9 @@ the f32 conv weights tap by tap through shared memory, and keeps the stage
 derivatives k2..k6 in an L2-resident scratch tensor read back by the thread
 that wrote them.  Its twelve convs run on the conv stage of
 ``kernels.odefunc.stage``: at C = 64 to 512 (multiples of 32) on 7×7 and
-6×6 maps on the tensor cores
-(``mma.sync`` TF32) with 3×TF32 error compensation, which is f32-grade (an
+6×6 maps on the tensor cores (``wgmma.mma_async`` TF32, ``'wgmma3'``, at
+the widths of ``kernels.odefunc.WGMMA_C``, 64 among them; ``mma.sync`` TF32
+at the others) with 3×TF32 error compensation, which is f32-grade (an
 error near 2⁻²¹ per product), so that the accept/reject decisions follow
 the f32 plain version's; at other shapes as f32 FFMA.
 

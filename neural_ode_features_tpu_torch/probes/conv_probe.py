@@ -1,15 +1,16 @@
 """Race the 3×3-conv strategies of ``kernels/conv3x3.py`` on the card, in
 isolation, against the library conv and the operations bound.
 
-    python -m neural_ode_features_tpu_torch.probes.conv_probe [mma3] [mma1] [tap9] [im2col] [mma_bf16] [tap9_bf16] [im2col_bf16] [--batch 256,128]
+    python -m neural_ode_features_tpu_torch.probes.conv_probe [mma3] [mma1] [wgmma3] [tap9] [im2col] [mma_bf16] [tap9_bf16] [im2col_bf16] [--batch 256,128]
 
 The port of ``probes/conv_probe.py``.  The three fused kernels
 (``odefunc.cu``, ``rk_step.cu``, ``odefunc_bwd.cu``) spend their time in one
 shared device function, the 3×3 conv; this probe times that conv alone:
-``mma3``, the tensor-core stage (3×TF32) that the fused kernels run at
-C = 64 to 512 (multiples of 32) on 7×7 and 6×6 maps, ``mma1``, the same
-with the error compensation compiled
-out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
+``wgmma3``, the f32 fused kernels' conv stage at 7×7×64 and 6×6×64 (3×TF32
+on ``wgmma.mma_async``), ``mma3``, the tensor-core stage (3×TF32 on
+``mma.sync``) that they run at their other tensor-core shapes and that the
+backward's input-gradient convs run, ``mma1``, ``mma3`` with the error
+compensation compiled out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
 shapes) and ``im2col``, before a fused kernel is touched; and their bf16
 twins ``mma_bf16`` (the bf16 builds' conv stage), ``tap9_bf16`` and
 ``im2col_bf16`` (the JAX probe's ``*_bf16``: operands rounded to bf16,
@@ -31,7 +32,10 @@ are told apart by ``dev`` alone.  The JAX probe chains its calls in a
 ``lax.scan`` and takes the slope between a long and a short chain to cancel
 the cost of a dispatch; the device's own timeline does that job here.
 ``F.conv2d`` is timed as the library reference in place of the JAX probe's
-``xla_conv``, in f32 and on bf16 tensors (the bf16 twins' yardstick).  The JAX probe's ``dotonly``, ``norollS`` and ``nomaskS`` are
+``xla_conv``, in f32 and on bf16 tensors (the bf16 twins' yardstick).
+Where both run, ``wgmma3``'s error against the f64 conv must be at most
+``WGMMA_BAR`` (1.5) times ``mma3``'s in the same run, or the probe exits.
+The JAX probe's ``dotonly``, ``norollS`` and ``nomaskS`` are
 wrong-valued timing aids for its patch building; in their place two bounds
 are printed: operations at 67 TFLOP/s (f32 outside the tensor cores), and
 the card's least time with the tensor cores, the larger of operations at
@@ -56,6 +60,7 @@ from ..kernels.conv3x3 import (
     STRATEGIES,
     conv3x3,
     conv3x3_plain,
+    conv3x3_wgmma_emulated,
     conv_bytes,
     conv_flops,
 )
@@ -66,7 +71,7 @@ from ..utils.flops import (
 )
 
 __all__ = ["main", "probe_inputs", "library_conv", "time_us", "device_us",
-           "bound_us", "tensor_bound_us", "KERNEL_NAMES"]
+           "bound_us", "tensor_bound_us", "KERNEL_NAMES", "WGMMA_BAR"]
 
 H, W, C = 7, 7, 64
 CHECK_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 576 products, reordered
@@ -76,9 +81,13 @@ TF32_TOL = dict(rtol=2e-3, atol=2e-4)
 # A bf16 twin against F.conv2d on bf16 tensors: the library rounds its
 # output to bf16 (2^-9 relative); both round the operands alike.
 BF16_LIB_TOL = dict(rtol=8e-3, atol=1e-3)
+# wgmma3 forms mma3's products on other hardware: its error against the f64
+# conv may be at most this multiple of mma3's on the same inputs.
+WGMMA_BAR = 1.5
 # A substring of each strategy's kernel name in a profile.
 KERNEL_NAMES = {"tap9": "tap9_kernel<false>", "im2col": "im2col_kernel<false>",
                 "mma3": "mma_kernel<3,", "mma1": "mma_kernel<1,",
+                "wgmma3": "wgmma_kernel(",
                 "mma_bf16": "mma_kernel<16,", "tap9_bf16": "tap9_kernel<true>",
                 "im2col_bf16": "im2col_kernel<true>"}
 
@@ -233,6 +242,7 @@ def main(argv=None) -> dict:
               f"version| = {float((lib16 - plain16).abs().max()):.2e}")
         emulated = {"mma3": conv3x3_plain(x, w, passes=3),
                     "mma1": conv3x3_plain(x, w, passes=1),
+                    "wgmma3": conv3x3_wgmma_emulated(x, w),
                     **dict.fromkeys(BF16_STRATEGIES, plain16)}
         out = {"bound_us": b_us, "bound_by": b_by, "tensor_bound_us": tb_us,
                "tensor_bound_by": tb_by, "library_us": lib_us,
@@ -276,6 +286,14 @@ def main(argv=None) -> dict:
             print(line)
             out[strategy] = {"us": us, "device_us": d_us, "err_plain": err_p,
                              "err_library": err_l, "err_f64": err_64}
+        if "wgmma3" in out and "mma3" in out:
+            e_wg, e_mma = out["wgmma3"]["err_f64"], out["mma3"]["err_f64"]
+            print(f"  wgmma3 vs the f64 plain version {e_wg:.2e} beside mma3's "
+                  f"{e_mma:.2e} ({e_wg / e_mma:.2f}x; bar {WGMMA_BAR}x)")
+            if e_wg > WGMMA_BAR * e_mma:
+                raise SystemExit(f"wgmma3: error {e_wg:.3e} against the f64 "
+                                 f"conv exceeds {WGMMA_BAR} x mma3's "
+                                 f"{e_mma:.3e}")
         results[batch] = out
     first = dict(results[args.batch[0]])
     first["batches"] = results

@@ -41,10 +41,13 @@ conv, B = 256).  It needs a package that has the bf16 builds.
 the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
 conv-kernel gradients, ``odefunc_bwd_weights``, and the rest of its
 outputs, ``odefunc_bwd_rest``: f, dh, dt, the eight (C,) vectors and the
-conv kernels' time channel; the conv probe's ``mma3``, ``mma1``, ``tap9``
-and ``im2col`` where the shape takes them), so that two checkouts' kernels
-can be held bit for bit (run once with each package on ``PYTHONPATH``, in
-one call).
+conv kernels' time channel; the residuals of its forward recompute,
+``odefunc_bwd_r``: r1 and r2; the conv probe's strategies where the shape
+takes them) and, where the package has the bf16 builds, of theirs
+(``odefunc_bf16``, ``rk_step_bf16`` at ``conv_precision='bf16'``,
+``odefunc_bwd_bf16``: every output), so that two checkouts' kernels can be
+held bit for bit (run once with each package on ``PYTHONPATH``, in one
+call).
 
 ``--errors`` prints, per shape, the backward's dθ max abs error against its
 plain version in float64 at B = 128, 64 and 5 (the seeded inputs' first
@@ -233,6 +236,7 @@ def _event_ms(fn, reps: int) -> float:
 def digest(hh: int, ww: int, c: int) -> dict:
     """sha256 of each f32 kernel's outputs on the seeded inputs."""
     from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+        STRATEGIES,
         conv3x3,
         supported,
     )
@@ -246,7 +250,9 @@ def digest(hh: int, ww: int, c: int) -> dict:
             out.update(x.detach().contiguous().cpu().numpy().tobytes())
         return out.hexdigest()[:16]
 
-    dp, dtk, dh, fb = odefunc_bwd(w, tb, hb, g, groups=G, with_f=True)
+    res = {}
+    dp, dtk, dh, fb = odefunc_bwd(w, tb, hb, g, groups=G, with_f=True,
+                                  residuals=res)
     kernels = [dp[a]["kernel"] for a in ("conv1", "conv2")]
     row = {"shape": f"{hh}x{ww}x{c}",
            "odefunc": sha(odefunc(w, t0, h, groups=G)),
@@ -255,9 +261,21 @@ def digest(hh: int, ww: int, c: int) -> dict:
            "odefunc_bwd_rest": sha(
                *(dp[a][b] for a in sorted(dp) for b in sorted(dp[a])
                  if b != "kernel"), *(k[:, :, :1] for k in kernels),
-               dtk, dh, fb)}
+               dtk, dh, fb),
+           "odefunc_bwd_r": sha(res["r1"], res["r2"])}
+    if hasattr(dopri5_step, "launches_bf16"):
+        b16 = odefunc_bwd(w, tb, hb, g, groups=G, with_f=True,
+                          precision="bf16")
+        row.update({
+            "odefunc_bf16": sha(odefunc(w, t0, h, groups=G,
+                                        compute_dtype=torch.bfloat16)),
+            "rk_step_bf16": sha(*dopri5_step(w, DOPRI5, t0, dt, y0, f0,
+                                             conv_precision="bf16", **kw)),
+            "odefunc_bwd_bf16": sha(
+                *(b16[0][a][b] for a in sorted(b16[0])
+                  for b in sorted(b16[0][a])), *b16[1:])})
     x, wc = probe_inputs(B, "cuda", (hh, ww), c)
-    for strategy in ("mma3", "mma1", "tap9", "im2col"):
+    for strategy in STRATEGIES:
         if supported((hh, ww), c, strategy):
             row[f"conv_{strategy}"] = sha(conv3x3(x, wc, strategy))
     return row

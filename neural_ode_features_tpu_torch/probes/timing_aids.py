@@ -32,7 +32,8 @@ Conv probe (``mma3``, device µs per conv by kernel name):
 
 Fused step (``rk_step_kernel``, device ms per launch):
 
-``shipped``, ``no_conv`` (no tap loops in its twelve convs) and
+``shipped``, ``no_conv`` (no tap loops in its twelve convs, on either
+tensor-core stage: ``mma3``'s, and ``wgmma3``'s with its first copies) and
 ``no_conv_no_gn`` (also no GroupNorm statistics).
 
 Prints the card's name and power limit and one line per variant; writes no
@@ -107,13 +108,23 @@ VARIANTS = {
               (_TAP_LOOP, _TAP_LOOP.replace("tile < ntile", "tile < 0"))],
 }
 
+# wgmma3 (conv3x3_wgmma): no tile is copied in and no tile loop runs.
+_WG_EMPTY = [
+    ("    mbar_expect_tx(full, 4u * kTileF);\n"
+     "    bulk_copy(raw_s, w, 4u * kTileF, full);\n", ""),
+    ("  for (int tap = 0; tap < 9; ++tap) {\n"
+     "    mbar_wait(full, tap & 1);  // the f32 tile has landed\n",
+     "  for (int tap = 0; tap < 0; ++tap) {\n"
+     "    mbar_wait(full, tap & 1);  // the f32 tile has landed\n"),
+]
+
 _GN_FIRST_PASS = ("  float acc = 0.f;\n"
                   "  if (on)\n"
                   "    for (int p = pg; p < hw; p += npg) acc += x[p * C + c];\n")
 RK_VARIANTS = {
     "shipped": [],
-    "no_conv": VARIANTS["empty"],
-    "no_conv_no_gn": VARIANTS["empty"] + [
+    "no_conv": VARIANTS["empty"] + _WG_EMPTY,
+    "no_conv_no_gn": VARIANTS["empty"] + _WG_EMPTY + [
         (_GN_FIRST_PASS,
          "  float acc = 0.f;\n"
          "  if (hw > 0) { Stat none; none.mean = x[tid] * 0.f; none.inv = 1.f;"

@@ -22,6 +22,7 @@ from neural_ode_features_tpu_torch.kernels.conv3x3 import (
     supported,
     tf32_split,
 )
+from neural_ode_features_tpu_torch.kernels.odefunc import WGMMA_C
 from neural_ode_features_tpu_torch.ops.layers import conv2d
 from neural_ode_features_tpu_torch.probes import conv_probe
 
@@ -229,6 +230,14 @@ def test_tensor_core_stage_gates():
             assert supported((6, 6), c, strategy)
         assert not supported((7, 7), 544, strategy)
         assert not supported((7, 7), 80, strategy)
+    # wgmma3: where the f32 fused kernels run it (kernels.odefunc.stage).
+    assert supported((7, 7), 64, "wgmma3") and supported((6, 6), 64, "wgmma3")
+    assert supported((1, 62), 64, "wgmma3")
+    for hw, c in (((8, 8), 64), ((7, 8), 64), ((7, 7), 32), ((7, 7), 544),
+                  ((7, 7), 80)):
+        assert not supported(hw, c, "wgmma3")
+    for c in range(64, 513, 32):
+        assert supported((7, 7), c, "wgmma3") == (c in WGMMA_C)
     # ... while the FFMA kernels still take those shapes.
     assert supported((8, 8), 64, "tap9") and supported((7, 7), 32, "tap9")
-    assert set(STRATEGIES) == {"tap9", "im2col", "mma3", "mma1"}
+    assert set(STRATEGIES) == {"tap9", "im2col", "mma3", "mma1", "wgmma3"}

@@ -1159,3 +1159,101 @@ def test_bf16_adjoint_step_counts_through_the_graph_route(dev, host_loop):
     attempts = int(((g[1].nfe - 2) // 6).max())
     assert g_n == h_n == (2 + 6 * attempts + 1, int(g[1].nfe_b) - 1,
                           0, 0, 0, 0)
+
+
+# ---- wgmma3: the f32 conv stage on warpgroup products ----------------------
+
+
+@pytest.mark.parametrize("c,side", [(64, 7), (64, 6), (128, 7), (96, 7)])
+def test_wgmma_stage_matches_plain(dev, c, side):
+    """``wgmma3`` alone (the probe's kernel, the f32 fused kernels' stage)
+    at 7×7×64, 6×6×64 and wider: within the conv tolerance of the plain
+    version and of the f64 conv, its error against the f64 conv at most
+    ``WGMMA_BAR`` times ``mma3``'s on the same inputs.  Where the gate
+    gives a width to ``mma3``, ``wgmma3`` refuses it and the fused kernels
+    still run ``mma3`` there (their own tests hold them to the plain
+    version)."""
+    from neural_ode_features_tpu_torch.probes.conv_probe import WGMMA_BAR
+
+    x, w = probe_inputs(64, dev, (side, side), c)
+    if stage((side, side), c) != "wgmma3":
+        assert stage((side, side), c) == "mma3"
+        with pytest.raises(ValueError, match="does not take"):
+            conv3x3(x, w, "wgmma3")
+        return
+    want64 = conv3x3_plain(x.double(), w.double())
+    got = conv3x3(x, w, "wgmma3")
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               conv3x3_plain(x, w).cpu().numpy(), **CONV_TOL)
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want64.cpu().numpy(), **CONV_TOL)
+    err = float((got.double() - want64).abs().max())
+    err_mma = float((conv3x3(x, w, "mma3").double() - want64).abs().max())
+    assert err <= WGMMA_BAR * err_mma, (err, err_mma)
+
+
+@pytest.mark.parametrize("side", [7, 6])
+def test_wgmma_rows_do_not_depend_on_the_batch(dev, side):
+    """One CTA per sample: the rows of a B = 5 launch are bit-identical to
+    the same rows of a B = 256 launch, for the probe's ``wgmma3``, the
+    ODEfunc kernel and the fused step (the served ragged batch's rule)."""
+    assert stage((side, side), 64) == "wgmma3"
+    x, w = probe_inputs(256, dev, (side, side))
+    full = conv3x3(x, w, "wgmma3")
+    assert torch.equal(conv3x3(x[:5].contiguous(), w, "wgmma3"), full[:5])
+    params = init_odenet(1, ENTRY_CONFIG, device=dev)
+    wt = prepare(params["odefunc"], (side, side))
+    h, t0, dt = _inputs(dev, 256, side)
+    f = odefunc(wt, t0, h, groups=32)
+    assert torch.equal(odefunc(wt, t0[:5], h[:5].contiguous(), groups=32),
+                       f[:5])
+    y0, f0 = h.reshape(256, -1), f.reshape(256, -1)
+    kw = dict(hw=(side, side), groups=32, rtol=TOL, atol=TOL)
+    full = dopri5_step(wt, DOPRI5, t0, dt, y0, f0, **kw)
+    part = dopri5_step(wt, DOPRI5, t0[:5], dt[:5], y0[:5].contiguous(),
+                       f0[:5].contiguous(), **kw)
+    for a, b in zip(part, full):
+        assert torch.equal(a, b[:5])
+
+
+def test_wgmma_weights_changed_in_place_reach_the_next_launch(dev):
+    """The stage splits the f32 weights in shared memory at every launch:
+    a weight updated in place (as the optimizer does) changes the next
+    launch's output, on the host loop and on a graph replay, which then
+    equals an eager launch on the new weights bit for bit."""
+    params = init_odenet(1, ENTRY_CONFIG, device=dev)
+    wt = prepare(params["odefunc"], (7, 7))
+    h, t0, dt = _inputs(dev, 16, 7)
+    y0 = h.reshape(16, -1)
+    f0 = odefunc_plain(wt, t0, h, 32).reshape(16, -1)
+    kw = dict(hw=(7, 7), groups=32, rtol=TOL, atol=TOL)
+    launch = {"odefunc": lambda: odefunc(wt, t0, h, groups=32),
+              "rk_step": lambda: dopri5_step(wt, DOPRI5, t0, dt, y0, f0,
+                                             **kw)[0]}
+    for name, fn in launch.items():
+        before = fn().clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            out = fn()
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, before), name
+        for k in (wt.w1, wt.w2):
+            with torch.no_grad():
+                k.mul_(1.25)       # in place: same buffers, new values
+            eager = fn().clone()   # the host loop's next launch
+            assert not torch.equal(eager, before), name
+            np.testing.assert_allclose(
+                eager.cpu().numpy(),
+                (odefunc_plain(wt, t0, h, 32) if name == "odefunc" else
+                 dopri5_step_plain(wt, DOPRI5, t0, dt, y0, f0, **kw)[0])
+                .cpu().numpy(), **STATE_TOL)
+            graph.replay()         # the captured launch, same buffers
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), name
+            before = eager

@@ -29,6 +29,7 @@ from neural_ode_features_tpu_torch.kernels.conv3x3 import conv3x3_plain
 from neural_ode_features_tpu_torch.kernels.odefunc import (
     MAX_SMEM,
     PARAM_KEYS,
+    WGMMA_C,
     odefunc,
     odefunc_plain,
     odefunc_vjp,
@@ -182,27 +183,37 @@ def test_gate():
 
 
 def test_stage_is_decided_by_the_shape():
-    assert stage((7, 7), 64) == "mma3"      # 7 * 9 = 63 padded-pitch positions
-    assert stage((6, 6), 64) == "mma3"      # 48
-    assert stage((1, 62), 64) == "mma3"     # exactly 64
+    # The f32 builds: wgmma3 at C = 64 (and the other widths of WGMMA_C).
+    assert stage((7, 7), 64) == "wgmma3"    # 7 * 9 = 63 padded-pitch positions
+    assert stage((6, 6), 64) == "wgmma3"    # 48
+    assert stage((1, 62), 64) == "wgmma3"   # exactly 64
     assert stage((1, 63), 64) == "ffma"     # 65
     assert stage((8, 8), 64) == "ffma"      # 80
     assert stage((7, 7), 32) == "ffma" and stage((8, 8), 128) == "ffma"
     for c in (96, 128, 192, 256, 288, 512):  # multiples of 32 up to 512
-        assert stage((7, 7), c) == stage((6, 6), c) == stage((5, 5), c) == "mma3"
+        want = "wgmma3" if c in WGMMA_C else "mma3"
+        assert stage((7, 7), c) == stage((6, 6), c) == stage((5, 5), c) == want
+        # The bf16 builds keep the mma.sync stage at every tensor-core shape.
+        assert stage((7, 7), c, "bf16") == stage((6, 6), c, "bf16") == "mma3"
+    assert stage((7, 7), 64, "bf16") == stage((7, 7), 64, "bf16_conv") == "mma3"
     for c in (80, 544):  # not a multiple of 32; over 512
         assert stage((7, 7), c) == "ffma"
 
 
 def test_smem_mirrors_by_hand():
-    # 7×7×64, 32 groups, tensor-core layout, in floats: state 49·64; conv
-    # input (64 + 2·9 + 2 = 84 rows) × (64 + 8); ring 3 × 64 × 72; two
-    # partial-sum buffers of 512; 2 × 32 statistics.
-    assert smem_bytes((7, 7), 64, 32) == 4 * (3136 + 84 * 72 + 3 * 64 * 72
-                                              + 1024 + 64) == 96384
+    # 7×7×64, 32 groups, the mma.sync layout (the bf16 builds'), in floats:
+    # state 49·64; conv input (64 + 2·9 + 2 = 84 rows) × (64 + 8); ring 3 ×
+    # 64 × 72; two partial-sum buffers of 512; 2 × 32 statistics.
+    assert smem_bytes((7, 7), 64, 32, "mma3") == 4 * (
+        3136 + 84 * 72 + 3 * 64 * 72 + 1024 + 64) == 96384
     # 6×6×64: 36·64; (64 + 2·8 + 2 = 82 rows) × 72.
-    assert smem_bytes((6, 6), 64, 32) == 4 * (2304 + 82 * 72 + 13824
-                                              + 1024 + 64) == 92480
+    assert smem_bytes((6, 6), 64, 32, "mma3") == 4 * (
+        2304 + 82 * 72 + 13824 + 1024 + 64) == 92480
+    # The f32 builds' wgmma3 layout: its weight area (two split tiles, an
+    # f32 tile and an mbarrier, 3 · 4096 + 4 floats) fits in the ring's.
+    assert smem_bytes((7, 7), 64, 32) == smem_bytes((7, 7), 64, 32,
+                                                    "mma3") == 96384
+    assert smem_bytes((6, 6), 64, 32) == 92480
     # The FFMA layout at 7×7×64 (the probe's tap9): 81 rows × 64, two
     # (64, 64) weight buffers.
     assert smem_bytes((7, 7), 64, 32, "ffma") == 4 * (3136 + 81 * 64
@@ -231,7 +242,8 @@ def test_gate_mirrors_at_every_width(c):
     for hw in ((7, 7), (6, 6)):
         hh, ww = hw
         hwc = hh * ww * c
-        assert stage(hw, c) == ("ffma" if c == 32 else "mma3")
+        assert stage(hw, c, "bf16") == ("ffma" if c == 32 else "mma3")
+        assert stage(hw, c) in (("ffma",) if c == 32 else ("mma3", "wgmma3"))
         assert supported(hw, c, 32) and bwd_supported(hw, c, 32)
         fwd, bwd = layout(hw, c, 32), layout(hw, c, 32, backward=True)
         assert u_global(hw, c, 32) == bwd.u_global and not fwd.u_global
@@ -241,7 +253,13 @@ def test_gate_mirrors_at_every_width(c):
                                                     fwd.smem)
         else:
             rows, pitch = 64 + 2 * (ww + 2) + 2, 64 * -(-c // 64) + 8
-            conv = rows * pitch + fwd.ring * 64 * 72
+
+            def weights(lay):
+                # wgmma3's area (3 · 4096 + 4) where it outgrows the ring
+                ring = lay.ring * 64 * 72
+                return ring if lay.stage != "wgmma3" else max(ring, 12292)
+
+            conv = rows * pitch + weights(fwd)
 
             def fits(*floats):
                 return 4 * (sum(floats) + 1088) <= MAX_SMEM
@@ -257,7 +275,9 @@ def test_gate_mirrors_at_every_width(c):
                                                 extra))
         assert smem_bytes(hw, c, 32) == 4 * (
             (0 if fwd.x_global else hwc) + conv + 1088) <= MAX_SMEM
-        bconv = conv + 64 * 72 * (bwd.ring - fwd.ring)
+        bconv = conv
+        if stage(hw, c) != "ffma":
+            bconv = rows * pitch + weights(bwd)
         assert bwd_smem_bytes(hw, c, 32) == 4 * (
             (0 if bwd.x_global else hwc) + bconv + 1088 + 192 + 4 * c
             + (0 if bwd.u_global else hwc)) <= MAX_SMEM

@@ -26,6 +26,7 @@ from neural_ode_features_tpu.models.odenet import (
 )
 from neural_ode_features_tpu_torch.entry import ENTRY_CONFIG, entry
 from neural_ode_features_tpu_torch.kernels.odefunc import (
+    WGMMA_C,
     odefunc,
     stage,
     supported,
@@ -145,7 +146,8 @@ def test_widths_outside_the_kernels_gate_are_refused(c):
     6×6 (MNIST) maps with groups 32, ``supported``, ``bwd_supported`` and
     ``stage`` accept exactly the widths JAX ``pallas_supported`` accepts
     (every multiple of 32 up to 512; C = 32 on the FFMA stage, the rest on
-    the tensor cores).  Off the CPU a wrapper launches its kernel or
+    the tensor cores: ``wgmma3`` at the widths of ``WGMMA_C`` in the f32
+    builds, ``mma3`` at the rest and in the bf16 builds).  Off the CPU a wrapper launches its kernel or
     raises; a refused shape raises before anything is launched, naming the
     JAX gate's clause.  Meta tensors stand in for the card's: they get past
     the CPU branch and fail the device check, so only the shape gate can
@@ -154,7 +156,10 @@ def test_widths_outside_the_kernels_gate_are_refused(c):
         ok = jax_pallas_supported(np.zeros((2, *hw, c), np.float32), 32)
         assert ok == (c % 32 == 0 and c <= 512)
         assert supported(hw, c, 32) == bwd_supported(hw, c, 32) == ok
-        assert stage(hw, c) == ("mma3" if ok and c >= 64 else "ffma")
+        tc = ok and c >= 64
+        assert stage(hw, c, "bf16") == ("mma3" if tc else "ffma")
+        assert stage(hw, c) == (("wgmma3" if c in WGMMA_C else "mma3") if tc
+                                else "ffma")
     cfg = ModelConfig(in_channels=3, hidden=c)
     p = init_odenet(0, cfg, device="cpu")["odefunc"]
     p = torch.utils._pytree.tree_map(lambda t: t.to("meta"), p)
