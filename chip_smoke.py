@@ -17,7 +17,11 @@ Phases (any failed check exits nonzero and prints no result):
    sweep's four tolerances, a quarter of the rows each) also at the other
    shapes the paths below give them: 1,024 stacked rows of 7×7×64 (the
    fused sweep's launch) and the MNIST block's 6×6×64 at B = 128, 256 and
-   1,024; the backward kernel also at 6×6×64, B = 128.
+   1,024; the backward kernel at 7×7×64 also at B = 16 (the event
+   adjoint's) and 1, and at 6×6×64, B = 128 (``[examples]`` adds its
+   B = 64).  At these shapes the f32 backward's per-sample pass is the
+   two-CTA cluster (``kernels.odefunc_bwd.sample_pass``); each check reads
+   which pass one call launches from the call captured into a CUDA graph.
    The backward kernel is held against its plain version in float64 (the
    f32 plain version's cuDNN weight gradients are less exact than the
    kernel), its f output against the ODEfunc kernel's; two backward
@@ -25,9 +29,11 @@ Phases (any failed check exits nonzero and prints no result):
    (the tensor-core weight-gradient kernel) are held against
    ``weight_grad_emulated`` on the residuals each launch contracted
    (B = 128, 64 and 5).  The backward call's device time is split by
-   kernel name, each kernel beside its bound.  The five conv probe
-   kernels (``tap9``, ``im2col`` and the tensor-core ``mma3``, ``mma1``
-   and ``wgmma3``) are held against ``conv3x3_plain`` at B = 256, a ragged
+   kernel name, each kernel beside its bound, and the per-sample pass's
+   launch (kernel, grid, block, dynamic shared memory, as the driver
+   records it in a captured call) beside its device ms and bound.  The
+   five conv probe kernels (``tap9``, ``im2col`` and the tensor-core
+   ``mma3``, ``mma1`` and ``wgmma3``) are held against ``conv3x3_plain`` at B = 256, a ragged
    B = 5 and a 6×6 map, in f32 and in float64 (``mma1``, plain TF32, at
    its own looser tolerance), and ``wgmma3``'s error against the f64 plain
    version is printed beside ``mma3``'s (at most ``WGMMA_BAR``, 1.5, times
@@ -780,6 +786,7 @@ def main() -> int:
     from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
         odefunc_bwd,
         odefunc_bwd_plain,
+        sample_pass,
         weight_grad_emulated,
         weight_grad_f64,
         weight_splits,
@@ -825,6 +832,40 @@ def main() -> int:
         ``conv_probe.device_us``)."""
         return {k: v / 1e3
                 for k, v in conv_probe.device_us(fn, keys, reps).items()}
+
+    def ran_sample_pass(fn):
+        """Which per-sample pass one backward call ``fn`` launches, and
+        how: the call captured into a CUDA graph (not run) and the graph's
+        kernel nodes read back from the driver
+        (``attempt_graph.kernel_launches``).  Returns ``(pass, grid, block,
+        shared)``, pass ``'cluster'`` (``bwd_sample_kernel_cluster``) or
+        ``'cta'`` (``bwd_sample_kernel``); fails unless the call launched
+        exactly one of them.  The launch counter is left as it was."""
+        from neural_ode_features_tpu_torch.solver import attempt_graph
+
+        before = odefunc_bwd.launches
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+            ran = [k for k in attempt_graph.kernel_launches(
+                graph.raw_cuda_graph()) if "bwd_sample_kernel" in k[0]]
+        finally:
+            graph.reset()
+            odefunc_bwd.launches = before
+        if len(ran) != 1:
+            fail(f"odefunc_bwd: one call launched the per-sample kernels "
+                 f"{[k[0] for k in ran]}, not one")
+        name, grid, block, shared = ran[0]
+        pass_ = "cluster" if "bwd_sample_kernel_cluster" in name else "cta"
+        return pass_, grid, block, shared
 
     def profiled_ms(fn, keys):
         """``device_ms_by_kernel``, or None where torch.profiler recorded no
@@ -983,22 +1024,30 @@ def main() -> int:
         err_32 = float((flat(dp_32).double() - flat(dp_p)).abs().max())
         if not torch.equal(flat(dp), flat(dp2)):
             fail(f"odefunc_bwd dθ {tag}: two launches differ")
-        print(f"[check] odefunc_bwd {tag} vs the f64 plain version: dθ max "
-              f"abs err {err_dp:.3e} (the f32 plain version's: {err_32:.3e})")
+        gate = sample_pass(tuple(args[1].shape[1:3]), args[1].shape[-1], G)
+        pass_, grid, block, _ = ran_sample_pass(
+            lambda: odefunc_bwd(w_, *args, groups=G))
+        if pass_ != gate:
+            fail(f"odefunc_bwd {tag}: the {pass_} pass launched, the gate "
+                 f"(sample_pass) says {gate}")
+        print(f"[check] odefunc_bwd {tag} ({pass_} pass: {grid[0]} CTAs of "
+              f"{block[0]} threads) vs the f64 plain "
+              f"version: dθ max abs err {err_dp:.3e} (the f32 plain "
+              f"version's: {err_32:.3e})")
         return err_dh
 
     err_k4 = 0.0
-    # B_TRAIN // 2: one rank's rows under [parallel]'s two data ranks; 5: a
-    # ragged batch.
-    for nb in (B_TRAIN, B_TRAIN // 2, 5):
+    # B_TRAIN // 2: one rank's rows under [parallel]'s two data ranks; 16:
+    # [event-adjoint]'s batch; 5: a ragged batch; 1: one sample.
+    bwd_batches = (B_TRAIN, B_TRAIN // 2, 16, 5, 1)
+    for nb in bwd_batches:
         err_k4 = max(err_k4, check_bwd(
             w, (tb[:nb].contiguous(), hb[:nb].contiguous(),
                 gb[:nb].contiguous()), f"B={nb}"))
     torch.cuda.synchronize()
     print(f"[check] odefunc_bwd dh max abs err {err_k4:.3e}; dt and dθ "
           f"within tolerance; f bit-identical to the ODEfunc kernel's; dθ "
-          f"bit-identical across two launches (B={B_TRAIN}, {B_TRAIN // 2} "
-          f"and 5)")
+          f"bit-identical across two launches (B={bwd_batches})")
 
     def check_weight_grads(w_, t_, h_, g_, tag):
         """Both builds' weight gradients (the tensor-core kernel) against
@@ -1106,6 +1155,25 @@ def main() -> int:
                       f" f32 FFMA {bwd_kb[k]['ffma_bound_ms']:.4f})"
                       for k, v in bwd_split.items())
           + f"; sum {bwd_dev:.4f}")
+    # The per-sample pass: which one launched here, how (the driver's
+    # record of the launch in a captured call) and its device ms beside its
+    # bound.
+    bwd_pass, grid, block, shared = ran_sample_pass(
+        lambda: odefunc_bwd(w, tb, hb, gb, groups=G))
+    if bwd_pass != "cluster":
+        fail(f"odefunc_bwd at {HH}x{WW}x{C}: the f32 per-sample pass that "
+             f"launched is {bwd_pass!r}, not the cluster")
+    sample_pass_info = {
+        "pass": bwd_pass, "grid": grid[0], "block": block[0],
+        "smem_bytes": shared, "ms": bwd_split["bwd_sample_kernel"],
+        "bound_ms": bwd_kb["bwd_sample_kernel"]["bound_ms"]}
+    print(f"[split] the per-sample pass at B={B_TRAIN}: "
+          f"bwd_sample_kernel_cluster launched {grid[0]} CTAs of {block[0]} "
+          f"threads and {shared} B of dynamic shared memory (clusters of two "
+          f"by its __cluster_dims__, its convs on wgmma): "
+          f"{sample_pass_info['ms']:.4f} ms, bound "
+          f"{sample_pass_info['bound_ms']:.4f} ms "
+          f"({sample_pass_info['ms'] / sample_pass_info['bound_ms']:.1f}×)")
 
     # The conv probe kernels against the plain version, in f32 and in
     # float64 on the same inputs (upcast).
@@ -4732,6 +4800,7 @@ def main() -> int:
          **fb["odefunc_bwd"],
          "library_ms": ms["odefunc_bwd_library"], "stage": fused_stage,
          "call_ms": ms["odefunc_bwd"], "ms_by_kernel": bwd_split,
+         "sample_pass": sample_pass_info,
          "bound_ms_by_kernel": {k: v["bound_ms"] for k, v in bwd_kb.items()}},
         {"name": "conv_probe", "shape": f"{HH}x{WW}x{C}", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",

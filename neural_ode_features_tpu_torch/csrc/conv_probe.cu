@@ -18,7 +18,8 @@
 //           odefunc.cu, rk_step.cu and odefunc_bwd.cu itself at C = 64 to
 //           512 (multiples of 32) on 7x7 and 6x6 maps where wgmma_ok does
 //           not hold, and of the backward's input-gradient convs at all of
-//           them, compiled for the same width (wide_shape), so its time is
+//           them but its f32 cluster pass (odefunc_bwd.cu), compiled for the
+//           same width (wide_shape), so its time is
 //           what those kernels pay per conv; at C % 64 == 32 it is the
 //           check of the padded last block.
 //   wgmma3  nodef::conv3x3_wgmma of odefunc_common.cuh, the same arithmetic

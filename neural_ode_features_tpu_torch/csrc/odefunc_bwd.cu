@@ -12,7 +12,10 @@
 // and every sum in a fixed order (two launches on the same inputs give
 // bit-identical dtheta):
 //
-//   1. bwd_sample_kernel, one CTA per sample (512 threads): recompute the
+//   1. bwd_sample_kernel, one CTA per sample (512 threads), or, for the
+//      f32 build at C = 64 with an even group count (pair_ok: 7x7x64,
+//      6x6x64), bwd_sample_kernel_cluster, two CTAs of 256 threads per
+//      sample with the same sums in the same order (its note below): recompute the
 //      forward (odefunc_common.cuh helpers: split ConcatConv, centred-variance
 //      GroupNorm) and write f = GN3(v) itself, so that an augmented
 //      evaluation of the adjoint needs no launch of odefunc.cu; then GN3
@@ -24,7 +27,8 @@
 //      (f32-grade).  The forward recompute's two run the forward kernels'
 //      own stage (wgmma3 where make_shape says so, so that f is
 //      odefunc_forward's bit for bit); the input-gradient convs run
-//      mma.sync at every such shape and read
+//      mma.sync at every such shape (the cluster pass: wgmma, with mma.sync's
+//      bits) and read
 //      w1, w2 themselves, taps reversed and transposed in the fragment loads
 //      (conv3x3_mma<3, true>).  Other shapes run the f32 FFMA conv3x3, the
 //      input gradients on the wrapper's w1bt, w2bt.  Writes dh, the
@@ -486,6 +490,407 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   if (tid == 0) dt[blockIdx.x] = dt_acc;
 }
 
+// ---- the f32 per-sample pass at C = 64: a two-CTA cluster per sample -----
+//
+// bwd_sample_kernel_cluster computes what bwd_sample_kernel<false, false,
+// kF32> computes, with the same sums in the same order, as a cluster of two
+// CTAs of 256 threads per sample (Hopper's thread-block clusters).  One CTA
+// per sample put 128 CTAs of 512 threads on 132 SMs at the training batch,
+// one an SM, so nothing filled the gaps of its serial chain (a tap's split
+// and barriers, a GroupNorm reduction, a global write); two CTAs of half
+// the size and half the shared memory give every SM two independent
+// instruction streams, and a small batch (the event adjoint's 16) twice
+// the SMs.
+//
+// Rank r (0 or 1) owns output channels 32r .. 32r+31.  At C = 64 with an
+// even group count a GroupNorm group never has channels in both halves
+// (pair_ok), so each CTA keeps its own half of the state x, of u, of the
+// GroupNorm statistics and of the per-channel partial sums, and runs every
+// sum of the one-CTA pass over its own channels in that pass's order: a
+// thread is (channel 32r + tid % 32, pixel group tid / 32), the pass's 8
+// pixel groups.  Only the convs read every channel: each CTA holds the
+// whole zero-bordered conv input (spad, 64 channels), and wherever it writes
+// relu(GN(.)) or a cotangent into its spad it writes the same value into its
+// peer's through distributed shared memory (mapa, st.shared::cluster); the
+// two meet at a cluster barrier before the conv, and again after it, before
+// either writes the next conv input into the other's spad.  dt, a sum over
+// all channels, is made by rank 0 from both halves' per-channel sums (rank 1
+// stores its 32 into rank 0's dtp), channel by channel in order, as the one-CTA
+// pass adds them: every output, dt included, is that pass's bit for bit.
+// No atomics: two launches give the same bits.
+//
+// The convs (pair_conv) are the forward's wgmma3 conv itself
+// (odefunc_common.cuh wgmma_conv, at two warpgroups) on a CTA's output
+// half: its two warpgroups take the two k halves (32 input channels each) of
+// a tap for the CTA's 32 output channels, one wgmma.mma_async.m64n32k8
+// 3xTF32 chain from zero per tap, the taps added in f32 in order, the first
+// k half + the second last: conv3x3_mma<3>'s order, so the recompute's two
+// convs give odefunc_forward's f and the input-gradient convs the mma.sync
+// stage's bits.  The input gradient is the conv with tap 8 - k's (C, C) tile
+// transposed: its B operand is row n = input channel, column k = output
+// channel of w[8 - k], so a CTA's half is the tile's 32 contiguous rows
+// 32r.., copied (8 KB) as the forward's tap k (16 KB, the CTA's half being
+// columns) is, and the split reads it row-wise and writes the tensor cores'
+// K-major order.  Each CTA brings in its own copy of each tap by
+// cp.async.bulk onto its own "full" mbarrier: a copy multicast to the pair
+// would halve the weights' L2 reads (the forward's whole tile reaches both
+// CTAs), but needs the issuing CTA to wait on the peer's "empty" barrier
+// (a remote arrive every tap), a coupling of the two CTAs' tap loops that
+// this first design leaves out.
+//
+// Shared memory per CTA (pair_smem_bytes): 72,976 bytes at 7x7x64 and
+// 69,072 at 6x6x64 (the one-CTA pass's: 110,720 and 103,488), so two CTAs
+// and their reserved kilobyte fit an SM (three, by shared memory alone); the
+// launch bounds (256 threads, 2 CTAs) give up to 128 registers a thread.
+// Bound as bwd_sample_kernel's (the head of this file: 4.2 us of bytes at
+// B = 128, 7x7x64).
+
+constexpr int kPairThreads = 256;                    // threads per CTA of the cluster
+constexpr int kPairC = kMmaC / 2;                    // output channels a CTA owns
+constexpr int kPairGroups = kPairThreads / kPairC;   // pixel groups, the one-CTA pass's 8
+
+// The shapes whose f32 per-sample pass runs as a cluster: the wgmma3 shapes
+// (C = 64, among them 7x7x64 and 6x6x64) with an even number of GroupNorm
+// groups, so that no group has channels in both halves.  kPrec = kF32 only:
+// the bf16 build keeps the one-CTA pass.  kernels/odefunc_bwd.py
+// (sample_pass) is the same gate in Python.
+inline bool pair_ok(int H, int W, int C, int G) {
+  return wgmma_ok(H, W, C) && G > 0 && C % G == 0 && G % 2 == 0;
+}
+
+// Dynamic shared memory of a CTA of the cluster pass, in floats:
+//   head, tail [kHalfTileF each]  the TF32 heads and tails of its half of a tap
+//   raw   [kTileF]     the f32 tile as copied; then its two mbarriers [4]
+//   spad  [R*P]        the conv input, all C channels, with a zero border
+//   sx, su [H*W*kPairC each]  own channels of x (then v, then an input
+//                      gradient) and of u
+//   sred  [2*kPairThreads]  per-(pixel group, channel) partial sums
+//   st    [3*G]        mean/inv of GN1, GN2, GN3 of its G/2 groups
+//   chan  [4*kPairC]   per-channel sums and group means
+//   dtp   [2*C]        rank 0: every channel's sum of g*M, conv2's then conv1's
+// kernels/odefunc_bwd.py (cluster_smem_bytes) mirrors this formula.
+inline size_t pair_smem_bytes(const Shape& s) {
+  return sizeof(float) * (2 * (size_t)kHalfTileF + kTileF + 4 + (size_t)s.R * s.P +
+                          2 * (size_t)s.H * s.W * kPairC + 2 * kPairThreads + 3 * (size_t)s.G +
+                          4 * kPairC + 2 * (size_t)s.C);
+}
+
+// head: wgmma_conv<2>'s weight area (head, tail, raw, its mbarriers).
+struct PairSmem { float *head, *spad, *sx, *su, *sred, *st, *chan, *dtp; };
+
+__device__ __forceinline__ PairSmem carve_pair(float* base, const Shape& s) {
+  PairSmem m;
+  m.head = base;
+  m.spad = m.head + 2 * kHalfTileF + kTileF + 4;
+  m.sx = m.spad + s.R * s.P;
+  m.su = m.sx + s.H * s.W * kPairC;
+  m.sred = m.su + s.H * s.W * kPairC;
+  m.st = m.sred + 2 * kPairThreads;
+  m.chan = m.st + 3 * s.G;
+  m.dtp = m.chan + 4 * kPairC;
+  return m;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of both CTAs meets here; each CTA's shared-memory writes
+// before it (its own and those into the peer's) are visible to both after
+// it (arrive releases, wait acquires, at cluster scope).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// v stored at the shared-memory location of CTA `rank` that corresponds to
+// this CTA's location p.
+__device__ __forceinline__ void st_peer(const float* p, uint32_t rank, float v) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+
+// A CTA's own element el = q*kPairC + cl is pixel q, channel c0 + cl; a
+// thread visits el = tid + j*kPairThreads, all in its channel cl = tid % 32.
+// x_at: the element of x (channel c0's column, rows `pitch` floats apart).
+__device__ __forceinline__ float x_at(const float* x, int pitch, int el) {
+  return x[(el >> 5) * pitch + (el & (kPairC - 1))];
+}
+
+// gn_stats (narrow) over a CTA's own channels: the same sums in the same
+// order (per (pixel group, channel), then over the pixel groups and the
+// group's channels); writes its groups' mean/inv (local group index).
+// Caller synchronises before; the caller synchronises before anyone reads
+// mean/inv.
+__device__ Stat pair_stats(const PairSmem& m, const Shape& s, const float* x, int pitch,
+                           float* mean, float* inv) {
+  const int tid = threadIdx.x, pg = tid >> 5, cl = tid & (kPairC - 1), hw = s.H * s.W;
+  const int gs = 1 << s.lgs, grp = cl >> s.lgs, g0 = grp << s.lgs;
+  const float n = (float)(hw * gs);
+  float* red2 = m.sred + kPairThreads;
+  float acc = 0.f;
+  for (int p = pg; p < hw; p += kPairGroups) acc += x[p * pitch + cl];
+  m.sred[tid] = acc;
+  __syncthreads();
+  float tot = 0.f;
+  for (int q = 0; q < kPairGroups; ++q)
+    for (int j = 0; j < gs; ++j) tot += m.sred[q * kPairC + g0 + j];
+  Stat st;
+  st.mean = tot / n;
+  acc = 0.f;
+  for (int p = pg; p < hw; p += kPairGroups) {
+    const float d = x[p * pitch + cl] - st.mean;
+    acc = fmaf(d, d, acc);
+  }
+  red2[tid] = acc;
+  __syncthreads();
+  tot = 0.f;
+  for (int q = 0; q < kPairGroups; ++q)
+    for (int j = 0; j < gs; ++j) tot += red2[q * kPairC + g0 + j];
+  st.inv = 1.0f / sqrtf(tot / n + kEps);
+  if (pg == 0 && cl == g0) {
+    mean[grp] = st.mean;
+    inv[grp] = st.inv;
+  }
+  return st;
+}
+
+// f(el, y) with y = GN(x) (scale, bias: the CTA's channels) at the thread's
+// elements, from pair_stats' st.
+template <class F>
+__device__ __forceinline__ void pair_apply(const Shape& s, Stat st, const float* __restrict__ scale,
+                                          const float* __restrict__ bias, const float* x,
+                                          int pitch, F f) {
+  const int n = s.H * s.W * kPairC, cl = threadIdx.x & (kPairC - 1);
+  const float sc = scale[cl], bi = bias[cl];
+  for (int el = threadIdx.x; el < n; el += kPairThreads)
+    f(el, gn_affine<kF32>(x_at(x, pitch, el), st.mean, st.inv, sc, bi));
+}
+
+// gn_positive (f32) at the CTA's element el.
+__device__ __forceinline__ bool pair_positive(const Shape& s, const float* x, int pitch,
+                                              const float* mean, const float* inv,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ bias, int el) {
+  const int cl = el & (kPairC - 1), g = cl >> s.lgs;
+  return (x_at(x, pitch, el) - mean[g]) * inv[g] * scale[cl] + bias[cl] > 0.f;
+}
+
+// gn_backward (f32) over the CTA's channels, in its order: dscale, dbias
+// (the CTA's columns of the partial rows), then dx to out(el, dx).  Caller
+// synchronises before; ends unsynchronised.
+template <class Dy, class Out>
+__device__ void pair_gn_backward(const PairSmem& m, const Shape& s, const float* x, int pitch,
+                                 const float* mean, const float* inv,
+                                 const float* __restrict__ scale, Dy dyf, float* dscale,
+                                 float* dbias, Out out) {
+  const int tid = threadIdx.x, cl = tid & (kPairC - 1), hw = s.H * s.W, n = hw * kPairC;
+  const int gs = 1 << s.lgs, g = cl >> s.lgs;
+  auto xhat = [&](int el) { return (x_at(x, pitch, el) - mean[g]) * inv[g]; };
+  float a1 = 0.f, a2 = 0.f;
+  for (int el = tid; el < n; el += kPairThreads) {
+    const float dy = dyf(el), xh = xhat(el);
+    a1 = fmaf(dy, xh, a1);
+    a2 = a2 + dyf(el);
+  }
+  float* red2 = m.sred + kPairThreads;
+  m.sred[tid] = a1;
+  red2[tid] = a2;
+  __syncthreads();
+  if (tid < kPairC) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int q = 0; q < kPairGroups; ++q) {
+      s1 += m.sred[q * kPairC + tid];
+      s2 += red2[q * kPairC + tid];
+    }
+    m.chan[tid] = s1;
+    m.chan[kPairC + tid] = s2;
+  }
+  __syncthreads();
+  if (tid < kPairC) {
+    dscale[tid] = m.chan[tid];
+    dbias[tid] = m.chan[kPairC + tid];
+  }
+  if (tid < (s.G >> 1)) {  // the group means of this CTA's groups
+    const float nn = (float)(hw * gs);
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < gs; ++j) {
+      const int cc = tid * gs + j;
+      s1 = fmaf(scale[cc], m.chan[cc], s1);
+      s2 = fmaf(scale[cc], m.chan[kPairC + cc], s2);
+    }
+    m.chan[2 * kPairC + tid] = s2 / nn;  // mean_g(dy * scale)
+    m.chan[3 * kPairC + tid] = s1 / nn;  // mean_g(dy * scale * x-hat)
+  }
+  __syncthreads();
+  const float ig = inv[g], m1 = m.chan[2 * kPairC + g], m2 = m.chan[3 * kPairC + g];
+  for (int el = tid; el < n; el += kPairThreads) {
+    const float dx = ig * (dyf(el) * scale[cl] - m1 - xhat(el) * m2);
+    out(el, dx);
+  }
+}
+
+// conv_param_grads (f32) over the CTA's channels, from the cotangent in its
+// spad (its own channels, written by this CTA; caller synchronised): db and
+// dwt (the CTA's columns), and each channel's sum of g*M into rank 0's dtp
+// at slot*C + channel.  Ends unsynchronised.
+__device__ void pair_param_grads(const PairSmem& m, const Shape& s, const float* __restrict__ tmap,
+                                 float t, float* db, float* dwt, uint32_t rank, int slot) {
+  const int tid = threadIdx.x, pg = tid >> 5, cl = tid & (kPairC - 1), C = s.C;
+  const int hw = s.H * s.W, Wp = s.W + 2, c0 = (int)rank * kPairC, c = c0 + cl;
+  float a1 = 0.f, a2 = 0.f;
+  for (int p = pg; p < hw; p += kPairGroups) {
+    const float v = m.spad[pad_at(s, p, c)];
+    a1 += v;
+    a2 = fmaf(v, tmap[p * C + c], a2);
+  }
+  float* red2 = m.sred + kPairThreads;
+  m.sred[tid] = a1;
+  red2[tid] = a2;
+  for (int e = tid; e < 9 * kPairC; e += kPairThreads) {
+    const int k = e >> 5, ce = e & (kPairC - 1);
+    const int ky = k / 3, kx = k % 3;
+    const int y0 = max(0, 1 - ky), y1 = min(s.H, s.H + 1 - ky);
+    const int x0 = max(0, 1 - kx), x1 = min(s.W, s.W + 1 - kx);
+    float acc = 0.f;
+    for (int y = y0; y < y1; ++y)
+      for (int x = x0; x < x1; ++x) acc += m.spad[((y + 1) * Wp + x + 1) * s.P + c0 + ce];
+    dwt[k * C + ce] = t * acc;
+  }
+  __syncthreads();
+  if (tid < kPairC) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int q = 0; q < kPairGroups; ++q) {
+      s1 += m.sred[q * kPairC + tid];
+      s2 += red2[q * kPairC + tid];
+    }
+    db[tid] = s1;
+    float* to = m.dtp + slot * C + c0 + tid;
+    if (rank == 0) *to = s2;
+    else st_peer(to, 0, s2);
+  }
+}
+
+// 3x3 SAME conv of spad (all C = 64 channels) on wgmma for this CTA's 32
+// output channels (wgmma_conv<2>), epi(p, cl, sum) once per output pixel p
+// and own channel cl; the caller synchronises before and after.  BT: the
+// input gradient, the conv with tap 8 - k's tile transposed.
+template <bool BT, class Epi>
+__device__ __forceinline__ void pair_conv(const PairSmem& m, const Shape& s,
+                                          const float* __restrict__ w, uint32_t rank, Epi epi) {
+  wgmma_conv<2, BT>(m.spad, s, m.head, w, (int)rank * kPairC, epi);
+}
+
+// The per-sample pass as a cluster (the note above): block 2b + r is rank r
+// of sample b.  Arguments and outputs as bwd_sample_kernel's (no global
+// scratch: C = 64); the f32 build only.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kPairThreads, 2)
+bwd_sample_kernel_cluster(const float* __restrict__ t, const float* __restrict__ h,
+                          const float* __restrict__ g, Odefunc p, Shape s,
+                          float* __restrict__ fout, float* __restrict__ dh,
+                          float* __restrict__ dt, float* __restrict__ r1,
+                          float* __restrict__ r2, float* __restrict__ gu,
+                          float* __restrict__ gv, float* __restrict__ part) {
+  extern __shared__ float4 smem_raw[];
+  const PairSmem m = carve_pair(reinterpret_cast<float*>(smem_raw), s);
+  const int C = s.C, tid = threadIdx.x, hw = s.H * s.W, n = hw * kPairC, Gh = s.G >> 1;
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
+  const int b = blockIdx.x >> 1, c0 = (int)rank * kPairC;
+  const size_t off = (size_t)b * hw * C + c0;  // (pixel q, channel c0 + cl) at off + q*C + cl
+  const float tb = t[b];
+  const float* hb = h + off;
+  float* pb = part + (size_t)b * kParts * C + c0;
+  float *mean1 = m.st, *inv1 = m.st + Gh, *mean2 = m.st + 2 * Gh, *inv2 = m.st + 3 * Gh;
+  float *mean3 = m.st + 4 * Gh, *inv3 = m.st + 5 * Gh;
+  auto at = [&](int el) { return off + (size_t)(el >> 5) * C + (el & (kPairC - 1)); };
+  // v into both CTAs' spads at the CTA's element el.
+  auto to_pads = [&](int el, float v) {
+    float* d = m.spad + pad_at(s, el >> 5, c0 + (el & (kPairC - 1)));
+    *d = v;
+    st_peer(d, peer, v);
+  };
+
+  // Forward recompute, as bwd_sample_kernel's: r1 = relu(GN1(h)), u =
+  // conv1(r1), r2 = relu(GN2(u)), v = conv2(r2) in sx, f = GN3(v).
+  for (int i = tid; i < s.R * s.P; i += kPairThreads) m.spad[i] = 0.f;
+  for (int el = tid; el < n; el += kPairThreads) m.sx[el] = x_at(hb, C, el);
+  cluster_sync();  // both spads zeroed before either CTA writes into the other's
+  Stat stat = pair_stats(m, s, m.sx, kPairC, mean1, inv1);
+  pair_apply(s, stat, p.n1s + c0, p.n1b + c0, m.sx, kPairC, [&](int el, float v) {
+    const float y = v < 0.f ? 0.f : v;
+    to_pads(el, y);
+    r1[at(el)] = y;
+  });
+  cluster_sync();  // both spads hold r1
+  pair_conv<false>(m, s, p.w1, rank, [&](int q, int cl, float acc) {
+    const int co = c0 + cl;
+    m.su[q * kPairC + cl] = (acc + p.b1[co]) + tb * p.m1[q * C + co];
+  });
+  cluster_sync();  // u visible; the peer has read its spad
+  stat = pair_stats(m, s, m.su, kPairC, mean2, inv2);
+  pair_apply(s, stat, p.n2s + c0, p.n2b + c0, m.su, kPairC, [&](int el, float v) {
+    const float y = v < 0.f ? 0.f : v;
+    to_pads(el, y);
+    r2[at(el)] = y;
+  });
+  cluster_sync();  // both spads hold r2
+  pair_conv<false>(m, s, p.w2, rank, [&](int q, int cl, float acc) {
+    const int co = c0 + cl;
+    m.sx[q * kPairC + cl] = (acc + p.b2[co]) + tb * p.m2[q * C + co];
+  });
+  cluster_sync();  // v visible; the peer has read its spad
+  stat = pair_stats(m, s, m.sx, kPairC, mean3, inv3);
+  pair_apply(s, stat, p.n3s + c0, p.n3b + c0, m.sx, kPairC,
+             [&](int el, float v) { fout[at(el)] = v; });
+  __syncthreads();  // mean3, inv3 visible
+
+  auto to_sx = [&](int q, int cl, float acc) { m.sx[q * kPairC + cl] = acc; };
+  // GN3: gv into both spads.
+  pair_gn_backward(m, s, m.sx, kPairC, mean3, inv3, p.n3s + c0,
+                   [&](int el) { return g[at(el)]; }, pb + 4 * C, pb + 5 * C,
+                   [&](int el, float v) {
+                     gv[at(el)] = v;
+                     to_pads(el, v);
+                   });
+  __syncthreads();
+  pair_param_grads(m, s, p.m2, tb, pb + 7 * C, pb + 17 * C, rank, 0);
+  cluster_sync();  // both spads hold gv; rank 0 holds conv2's g*M sums
+  pair_conv<true>(m, s, p.w2, rank, to_sx);  // conv2 input gradient
+  cluster_sync();  // sx visible; the peer has read its spad
+  // ReLU2 + GN2: gu into both spads.
+  pair_gn_backward(m, s, m.su, kPairC, mean2, inv2, p.n2s + c0,
+                   [&](int el) {
+                     return pair_positive(s, m.su, kPairC, mean2, inv2, p.n2s + c0, p.n2b + c0,
+                                          el)
+                                ? m.sx[el]
+                                : 0.f;
+                   },
+                   pb + 2 * C, pb + 3 * C,
+                   [&](int el, float v) {
+                     gu[at(el)] = v;
+                     to_pads(el, v);
+                   });
+  __syncthreads();
+  pair_param_grads(m, s, p.m1, tb, pb + 6 * C, pb + 8 * C, rank, 1);
+  cluster_sync();  // both spads hold gu; rank 0 holds conv1's g*M sums
+  pair_conv<true>(m, s, p.w1, rank, to_sx);  // conv1 input gradient
+  __syncthreads();
+  // ReLU1 + GN1: dh.
+  pair_gn_backward(m, s, hb, C, mean1, inv1, p.n1s + c0,
+                   [&](int el) {
+                     return pair_positive(s, hb, C, mean1, inv1, p.n1s + c0, p.n1b + c0, el)
+                                ? m.sx[el]
+                                : 0.f;
+                   },
+                   pb, pb + C, [&](int el, float v) { dh[at(el)] = v; });
+  if (rank == 0 && tid == 0) {  // dt: conv2's channels in order, plus conv1's
+    float dv = 0.f, du = 0.f;
+    for (int c = 0; c < C; ++c) dv += m.dtp[c];
+    for (int c = 0; c < C; ++c) du += m.dtp[C + c];
+    dt[b] = dv + du;
+  }
+}
+
 // wpart[split][conv][tap][ci][co] = sum over the split's samples b and
 // pixels p of r[b, p + off_tap, ci] * g[b, p, co] (zero where the tap leaves
 // the map): per (conv, tap) a GEMM with M = ci, N = co, K = rows (b, p), on
@@ -718,16 +1123,26 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
   const Shape s = bwd_shape(H, W, C, G, kF);
   if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
   if (s.ug && ug == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(s);
-  const auto sample = !wide_shape(s) ? bwd_sample_kernel<false, false, kPrec>
-                      : s.xg        ? bwd_sample_kernel<true, true, kPrec>
-                                    : bwd_sample_kernel<true, false, kPrec>;
-  cudaError_t err =
-      cudaFuncSetAttribute(sample, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sample<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, f, dh, dt, r1, r2, gu, gv,
-                                    part, s.ug ? ug : nullptr);
+  cudaError_t err;
+  if (kF && pair_ok(H, W, C, G)) {  // the cluster pass, two CTAs a sample
+    const size_t smem = pair_smem_bytes(s);
+    const auto pass = bwd_sample_kernel_cluster;
+    if ((err = cudaFuncSetAttribute(pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return (int)err;
+    pass<<<2 * B, kPairThreads, smem, st>>>(t, h, g, p, s, f, dh, dt, r1, r2, gu, gv, part);
+  } else {
+    const size_t smem = bwd_smem_bytes(s);
+    const auto sample = !wide_shape(s) ? bwd_sample_kernel<false, false, kPrec>
+                        : s.xg        ? bwd_sample_kernel<true, true, kPrec>
+                                      : bwd_sample_kernel<true, false, kPrec>;
+    if ((err = cudaFuncSetAttribute(sample, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return (int)err;
+    sample<<<B, kThreads, smem, st>>>(t, h, g, p, w1bt, w2bt, s, f, dh, dt, r1, r2, gu, gv,
+                                      part, s.ug ? ug : nullptr);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int tile = weight_tile(C);
   const auto weight = tile == 64 ? bwd_weight_kernel<64, kPrec == kBf16>

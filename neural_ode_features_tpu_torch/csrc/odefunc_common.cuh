@@ -111,6 +111,7 @@ constexpr int kPitchBT = 72;   // weight row pitch, tap stored (co, ci)
 constexpr int kRing = 3;       // weight buffers in flight (2 where short)
 constexpr int kWgN = 32;       // wgmma3: output channels of one warpgroup's product
 constexpr int kTileF = kMmaC * kMmaC;  // floats of one (64, 64) weight tile
+constexpr int kHalfTileF = kTileF / 2;  // floats of half a tile: 32 output channels
 // wgmma3's weight area: the TF32 head and tail tiles in the order the
 // tensor cores read, the f32 tile as copied, its two mbarriers (16 bytes).
 constexpr int kWgFloats = 3 * kTileF + 4;
@@ -925,6 +926,9 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
 //   shared memory and is redone from the f32 weights at every launch, so an
 //   in-place weight update reaches the next launch and every graph replay;
 //   nothing is cached.
+//   A CTA of two warpgroups (wgmma_conv<2>, the backward's cluster pass)
+//   runs the same chain for one output half, c0 .. c0+31, each warpgroup a
+//   k half, and copies and splits only what that half reads.
 //
 // Bound: the same work as conv3x3_mma<3> (three products per pair over 64
 // rows, of which 49 or 36 are real), 3.9 us of TF32 peak per conv per
@@ -1021,58 +1025,99 @@ __host__ __device__ constexpr int wg_tile_offset(int n, int k) {
 
 // 3x3 SAME conv of spad on wgmma (the note above) at C = 64 (one block of
 // output and input channels; wgmma_ok), with the contract of conv3x3:
-// epi(p, co, sum) once per output pixel p and channel co; the caller
-// synchronises before and after.  Tile = tap: each tap's (64, 64) weights,
-// one contiguous copy.
-template <class Epi>
-__device__ void conv3x3_wgmma(const Smem& m, const Shape& s, const float* __restrict__ w,
-                              Epi epi) {
+// epi(p, co, sum) once per output pixel p and output channel co of the
+// CTA's; the caller synchronises before and after.  NWG warpgroups: 4, the
+// whole block (co = 0..63), or 2, the output channels c0 .. c0+31 alone
+// (co = 0..31 counts from c0; a CTA of a cluster that splits the block),
+// warpgroup wg taking the k half wg / (NWG/2).  Tile = tap: tap k's (64, 64)
+// weights w[k], (ci, co), one contiguous copy; BT (NWG = 2 only): the input
+// gradient, the conv with tap 8 - k's tile transposed, whose B operand is
+// row n = input, column k = output channel of w[8 - k]: the CTA copies the
+// tile's 32 contiguous rows c0.. (8 KB) and its split reads them row-wise.
+// At `head`: the TF32 head tile, the tail tile (NWG/2 * kHalfTileF floats
+// each, wg_tile_offset order), the f32 tile as copied (kTileF) and its two
+// mbarriers.
+template <int NWG, bool BT, class Epi>
+__device__ void wgmma_conv(const float* spad, const Shape& s, float* head,
+                           const float* __restrict__ w, int c0, Epi epi) {
+  static_assert(NWG == 4 || NWG == 2, "a CTA's warpgroups: the whole block or one output half");
+  static_assert(!BT || NWG == 2, "the transposed split reads one output half's 32 rows");
+  constexpr int kNH = NWG / 2;                   // output halves of the CTA
+  constexpr int kTileN = kNH * kHalfTileF;       // floats of its head (tail) tile
+  constexpr int kHalfThreads = 128 * kNH;        // threads of one k half
+  constexpr uint32_t kBytes = 4u * (BT ? kHalfTileF : kTileF);  // one tap's copy
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, wi = warp & 3, nh = (warp >> 2) & 1, kh = warp >> 3;
-  const int wg = warp >> 2, wt = tid & 127;  // the warpgroup, the thread within it
+  const int g = lane >> 2, t = lane & 3, wi = warp & 3;
+  const int wg = warp >> 2, nh = wg % kNH, kh = wg / kNH, wt = tid & 127;
   const int Wp = s.W + 2, P = s.P;
-  float* head = m.sw;                    // the head tile, then the tail tile (wg_tile_offset)
-  const float* raw = m.sw + 2 * kTileF;  // the f32 tile as copied, (k, n), 64 floats a row
+  float* tail = head + kTileN;
+  const float* raw = head + 2 * kTileN;  // the f32 tile as copied, 64 floats a row
   // The f32 tile's "full" (copy landed) and "empty" (every warpgroup has
-  // split its quarter) mbarriers.
-  const uint32_t raw_s = smem_addr(raw), full = smem_addr(m.sw + 3 * kTileF), empty = full + 8;
+  // split its part) mbarriers.
+  const uint32_t raw_s = smem_addr(raw), full = smem_addr(raw + kTileF), empty = full + 8;
+  auto tile = [&](int tap) {
+    return BT ? w + (size_t)(8 - tap) * kTileF + (size_t)c0 * kMmaC : w + (size_t)tap * kTileF;
+  };
 
   if (tid == 0) {
     mbar_init(full, 1);
-    mbar_init(empty, 4);
+    mbar_init(empty, NWG);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    fence_proxy_async();  // the caller's generic accesses to sw come first
-    mbar_expect_tx(full, 4u * kTileF);
-    bulk_copy(raw_s, w, 4u * kTileF, full);
+    fence_proxy_async();  // the caller's generic accesses to the tiles come first
+    mbar_expect_tx(full, kBytes);
+    bulk_copy(raw_s, tile(0), kBytes, full);
   }
   __syncthreads();
 
   // This thread's first A element (row g of its warp's 16 at tap (0, 0),
   // physical k column 32*kh + 2t) and the descriptor of its warpgroup's
-  // quarter of the head tile at k8 step 0.
-  const uint32_t a_thread = smem_addr(m.spad + (16 * wi + g) * P + 32 * kh + 2 * t);
+  // part of the head tile at k8 step 0.
+  const uint32_t a_thread = smem_addr(spad + (16 * wi + g) * P + 32 * kh + 2 * t);
   const uint64_t b_head = wgmma_desc(smem_addr(head) + wg_tile_offset(kWgN * nh, 32 * kh));
-  constexpr uint64_t kTail = (4 * kTileF) >> 4, kStep = 256 >> 4;  // descriptor units
+  constexpr uint64_t kTail = (4 * kTileN) >> 4, kStep = 256 >> 4;  // descriptor units
 
   float acc[16], run[16];  // each tap's chain starts from zero (scale-d = 0)
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = run[i] = 0.f;
   for (int tap = 0; tap < 9; ++tap) {
     mbar_wait(full, tap & 1);  // the f32 tile has landed
-    // Each warpgroup splits the quarter of the tile its products read (its
-    // last products, which read those slots, are done): item i = (n = 32nh
-    // + i % 32, 4 k of one core-matrix row), k = 32kh + 8*(c / 2) + (c % 2)
-    // + 2e for chunk c = i / 32, e = 0..3.
+    // Each warpgroup splits the part of the tile its products read (its
+    // last products, which read those slots, are done).
+    if constexpr (BT) {
+      // Item (row n, 8 consecutive k of the k half): two 16-byte loads of
+      // the raw row, the even k into one core-matrix row, the odd into the
+      // next.  A quarter-warp's 8 lanes read 8 distinct 16-byte bank groups
+      // (rotated k octets, either half first) and store 8 consecutive rows.
+      const int l = wt & 7, o = ((wt >> 3) + l) & 3, sw = l >> 2;
+      const int n = 8 * (wt >> 5) + l, k0 = 32 * kh + 8 * o;
+      const float* row = raw + n * kMmaC + k0;
+      const float4 u0 = *reinterpret_cast<const float4*>(row + 4 * sw);
+      const float4 u1 = *reinterpret_cast<const float4*>(row + 4 * (sw ^ 1));
+      const float4 lo4 = sw ? u1 : u0, hi4 = sw ? u0 : u1;
+      const float v[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = wt + 128 * j, n = 32 * nh + (i & 31), c = i >> 5;
-      const int k0 = 32 * kh + 8 * (c >> 1) + (c & 1);
-      uint32_t hi[4], lo[4];
+      for (int odd = 0; odd < 2; ++odd) {
+        uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) tf32_split(raw[(k0 + 2 * e) * kMmaC + n], hi[e], lo[e]);
-      const int off = wg_tile_offset(n, k0) >> 2;
-      *reinterpret_cast<uint4*>(head + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(head + kTileF + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        for (int e = 0; e < 4; ++e) tf32_split(v[odd + 2 * e], hi[e], lo[e]);
+        const int off = wg_tile_offset(n, k0 + odd) >> 2;
+        *reinterpret_cast<uint4*>(head + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(tail + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    } else {
+      // Item i = (n = 32nh + i % 32, 4 k of one core-matrix row), k = 32kh
+      // + 8*(c / 2) + (c % 2) + 2e for chunk c = i / 32, e = 0..3.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = wt + 128 * j, n = 32 * nh + (i & 31), c = i >> 5;
+        const int k0 = 32 * kh + 8 * (c >> 1) + (c & 1);
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(raw[(k0 + 2 * e) * kMmaC + c0 + n], hi[e], lo[e]);
+        const int off = wg_tile_offset(n, k0) >> 2;
+        *reinterpret_cast<uint4*>(head + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(tail + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
     }
     fence_proxy_async();
     warpgroup_sync(wg);  // its heads and tails are visible to its products
@@ -1080,8 +1125,8 @@ __device__ void conv3x3_wgmma(const Smem& m, const Shape& s, const float* __rest
     // The next tap's tile, once every warpgroup has split this one.
     if (tid == 0 && tap < 8) {
       mbar_wait(empty, tap & 1);
-      mbar_expect_tx(full, 4u * kTileF);
-      bulk_copy(raw_s, w + (size_t)(tap + 1) * kTileF, 4u * kTileF, full);
+      mbar_expect_tx(full, kBytes);
+      bulk_copy(raw_s, tile(tap + 1), kBytes, full);
     }
 
     const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P);
@@ -1113,10 +1158,10 @@ __device__ void conv3x3_wgmma(const Smem& m, const Shape& s, const float* __rest
   // the head tile's space, in accumulator order; the first half's add them
   // and finish.
   __syncthreads();  // every warpgroup is done with the head and tail tiles
-  float* red = m.sw + ((warp & 7) * 32 + lane);
+  float* red = head + (tid & (kHalfThreads - 1));
   if (kh == 1) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) red[i * 256] = run[i];
+    for (int i = 0; i < 16; ++i) red[i * kHalfThreads] = run[i];
   }
   __syncthreads();  // also: every thread has passed its last wait
   if (tid == 0) {
@@ -1134,10 +1179,18 @@ __device__ void conv3x3_wgmma(const Smem& m, const Shape& s, const float* __rest
 #pragma unroll
         for (int l = 0; l < 2; ++l) {
           const int r = 4 * j + 2 * h + l;
-          epi(y * s.W + x, kWgN * nh + 8 * j + 2 * t + l, run[r] + red[r * 256]);
+          epi(y * s.W + x, kWgN * nh + 8 * j + 2 * t + l, run[r] + red[r * kHalfThreads]);
         }
     }
   }
+}
+
+// The stage wgmma3 of a 512-thread CTA: the whole block, the weight area at
+// m.sw.
+template <class Epi>
+__device__ __forceinline__ void conv3x3_wgmma(const Smem& m, const Shape& s,
+                                              const float* __restrict__ w, Epi epi) {
+  wgmma_conv<4, false>(m.spad, s, m.sw, w, 0, epi);
 }
 
 // ---- both stages ----------------------------------------------------------

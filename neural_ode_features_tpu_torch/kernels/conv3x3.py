@@ -72,8 +72,10 @@ GFLOP, 1.2 µs at 989 TFLOP/s dense bf16, so it too is bound by bytes.
 emulate the tensor-core stage's arithmetic and its row mapping in plain
 PyTorch; ``conv3x3_wgmma_emulated`` follows ``wgmma3`` step by step (its k
 order, three products per k8 step, each tap's chain from zero, the fixed
-order of the partial sums), and ``wgmma_tile_offset``/``wgmma_pack`` mirror
-where its split weight tiles lie in shared memory.  Tests and the probe's
+order of the partial sums; ``transposed=True``, the backward's
+input-gradient conv on that stage), and ``wgmma_tile_offset``/``wgmma_pack``
+(``wgmma_pack_rows``: the input-gradient conv's half tile) mirror where its
+split weight tiles lie in shared memory.  Tests and the probe's
 error report use them; nothing on a path does. ``passes="bf16"`` is the bf16
 twins' function itself (operands rounded, products exact, sums in ``x``'s
 dtype).
@@ -93,7 +95,8 @@ from .odefunc import supported as _fused_supported
 
 __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
            "conv3x3_padded_pitch", "conv3x3_wgmma_emulated", "wgmma_k_order",
-           "wgmma_tile_offset", "wgmma_pack", "tf32_split", "supported",
+           "wgmma_tile_offset", "wgmma_pack", "wgmma_pack_rows",
+           "wgmma_rows_item", "tf32_split", "supported",
            "smem_bytes", "conv_flops", "conv_bytes"]
 
 STRATEGIES = ("tap9", "im2col", "mma3", "mma1", "wgmma3")
@@ -229,7 +232,45 @@ def wgmma_pack(tile: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return head, tail
 
 
-def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def wgmma_pack_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The input-gradient conv's split of one CTA's half tile, as the
+    cluster pass of ``csrc/odefunc_bwd.cu`` (``pair_conv<true>``) walks it:
+    ``rows`` (32, 64) float32 are rows n (input channels 32r..) of tap
+    8 − k's weights, columns k (output channels).  Each of the two
+    warpgroups (k half kh) takes, per thread wt (0..127), row n = 8·(wt //
+    32) + wt % 8 and the 8 consecutive k of octet o = (wt // 8 + wt % 8) %
+    4 of its half, and writes the even k into one core-matrix row of the
+    heads and tails and the odd k into the next (:func:`wgmma_tile_offset`
+    with n < 32).  Returns the heads and the f32 tails, 2048 floats each."""
+    if rows.shape != (32, 64) or rows.dtype != torch.float32:
+        raise ValueError(f"expected (32, 64) float32 rows, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    bits = rows.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = rows - hi
+    head, tail = torch.full((2048,), float("nan")), torch.full((2048,), float("nan"))
+    for kh in range(2):
+        for wt in range(128):
+            n, o = wgmma_rows_item(wt)
+            k0 = 32 * kh + 8 * o
+            for odd in range(2):
+                at = wgmma_tile_offset(n, k0 + odd) // 4
+                ks = [k0 + odd + 2 * e for e in range(4)]
+                head[at:at + 4] = hi[n, ks]
+                tail[at:at + 4] = lo[n, ks]
+    return head, tail
+
+
+def wgmma_rows_item(wt: int) -> tuple[int, int]:
+    """Row n and k octet o of thread ``wt`` (0..127) of a warpgroup in
+    :func:`wgmma_pack_rows`'s walk; its first 16-byte load is the octet's
+    second half where ``wt % 8 >= 4``."""
+    lane8 = wt & 7
+    return 8 * (wt >> 5) + lane8, ((wt >> 3) + lane8) & 3
+
+
+def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
+                           transposed: bool = False) -> torch.Tensor:
     """``wgmma3``'s arithmetic in plain PyTorch, float32, at C = 64 (its
     only width; tests and the probe's error report, nothing on a path): the
     padded-pitch rows of :func:`conv3x3_padded_pitch`; per tap and k half
@@ -240,7 +281,12 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     in float32); each chain added to its half's running sum in float32,
     taps in order; last, first half + second half.  The tensor cores' own
     summation order and rounding inside a product are the card's; this
-    follows every order the kernel fixes."""
+    follows every order the kernel fixes.  ``transposed``: the backward's
+    input-gradient conv on the same stage (the cluster pass of
+    ``csrc/odefunc_bwd.cu``), ``x`` the cotangent and tap k's B tile the
+    transpose of tap 8 − k's (C, C) weights (row = output channel of the
+    forward conv): the gradient of the conv with ``w`` with respect to its
+    input."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError("conv3x3_wgmma_emulated takes float32")
     b, hh, ww, c = x.shape
@@ -260,7 +306,9 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             for ks in range(4):
                 idx = 32 * kh + 8 * ks + order
                 a_hi, a_lo = tf32_split(spad[:, shift:shift + MMA_M, idx])
-                b_hi, b_lo = tf32_split(w[tap // 3, tap % 3][idx])
+                tile = (w[2 - tap // 3, 2 - tap % 3].T if transposed
+                        else w[tap // 3, tap % 3])
+                b_hi, b_lo = tf32_split(tile[idx].contiguous())
                 for pa, pb in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
                     terms = pa.unsqueeze(-1) * pb  # (b, M, 8, C), exact
                     prod = terms[:, :, 0]

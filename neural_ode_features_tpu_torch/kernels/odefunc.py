@@ -160,7 +160,8 @@ def stage(hw: tuple[int, int], c: int, precision: str = "f32") -> str:
     f32 builds run ``'wgmma3'`` (``wgmma.mma_async``, 3×TF32) at the widths
     of ``WGMMA_C`` and ``'mma3'`` (``mma.sync``, 3×TF32) at the others, and
     the bf16 builds their bf16 pass of ``'mma3'``'s kernel (the backward's
-    input-gradient convs run ``'mma3'`` at every tensor-core shape);
+    input-gradient convs run ``'mma3'`` at every tensor-core shape but in
+    its f32 cluster pass, ``kernels.odefunc_bwd.sample_pass``, on ``wgmma``);
     everything else runs ``'ffma'``."""
     hh, ww = hw
     if (MMA_C <= c <= MAX_C and c % MMA_STEP == 0 and hh >= 1 and ww >= 1

@@ -11,9 +11,18 @@ recomputed f(t, h) (``with_f=True``), so that an augmented evaluation of the
 adjoint is this one call and no launch of the ODEfunc kernel.  The TPU kernel
 summed the parameter gradients over the batch by read-modify-write into
 revisited output blocks, race-free only because a TPU grid runs in order.
-Here a per-sample pass (one CTA per sample) writes dh, dt and per-sample
-partial sums, and two more launches reduce over the batch in a fixed order:
-no atomics, and two calls on the same inputs give bit-identical dθ.
+Here a per-sample pass writes dh, dt and per-sample partial sums, and two
+more launches reduce over the batch in a fixed order: no atomics, and two
+calls on the same inputs give bit-identical dθ.  The per-sample pass
+(:func:`sample_pass`) is one CTA of 512 threads per sample, or, for the f32
+build at C = 64 (7×7×64, 6×6×64: the ``wgmma3`` shapes) with an even group
+count, a cluster of two CTAs of 256 threads per sample
+(``bwd_sample_kernel_cluster``): each CTA owns 32 output channels, so no
+GroupNorm group is split, keeps its half of the state, and writes every
+conv input into its peer's shared memory too (Hopper's distributed shared
+memory); its four convs run ``wgmma.mma_async`` 3×TF32 on its output half,
+the input-gradient convs from tap 8 − k's weights transposed.  Both passes
+give the same bits.
 
 Bound (H100 SXM, 700 W power limit; 67 TFLOP/s f32 outside the tensor
 cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): six 3×3-conv equivalents
@@ -25,8 +34,9 @@ gradients) on the tensor cores at C = 64 to 512 (multiples of 32) on 7×7
 and 6×6 maps, 3×TF32, f32-grade: the recompute's two on the forward
 kernels' stage (``kernels.odefunc.stage``: ``wgmma3`` at the widths of
 ``WGMMA_C``, so that f is the ODEfunc kernel's bit for bit), the
-input-gradient convs on ``mma.sync`` (``'mma3'``), reading ``w1``, ``w2``
-themselves, taps reversed and transposed in the fragment loads.  The conv1
+input-gradient convs on ``mma.sync`` (``'mma3'``; the cluster pass: on
+``wgmma``, with the same bits), reading ``w1``, ``w2`` themselves, taps
+reversed and transposed.  The conv1
 output u stays in shared memory where it fits; from 7×7×256 it goes to a
 global scratch beside r1 and r2 (:func:`u_global`), and from 7×7×288 the
 state x to the dh output (``kernels.odefunc.layout``).  The weight-gradient
@@ -81,6 +91,9 @@ import torch.nn.functional as F
 from . import _build
 from .odefunc import (
     MAX_SMEM,
+    MMA_C,
+    MMA_M,
+    PAD_A,
     OdefuncWeights,
     bf16_round,
     check_cuda_inputs,
@@ -96,6 +109,7 @@ from .odefunc import (
 
 __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
            "bwd_refusal", "bwd_smem_bytes", "u_global", "tap_contract",
+           "sample_pass", "cluster_smem_bytes", "PAIR_THREADS", "PAIR_C",
            "weight_splits", "weight_smem_bytes", "bwd_residuals_plain",
            "weight_grad_emulated", "weight_grad_f64"]
 
@@ -105,6 +119,10 @@ _PARTS = 26
 _STEP_ROWS = 32
 _GROUP_SAMPLES = 8
 _WEIGHT_PAD = 8
+# The cluster pass (kPairThreads, kPairC): threads per CTA, channels a CTA
+# owns.
+PAIR_THREADS = 256
+PAIR_C = 32
 # The split count's search (weight_splits): the CTAs it aims to keep busy
 # (the SMs), the most row chunks, and splits × C² at most (wpart ≤ 151 MB).
 _WEIGHT_SLOTS = 132
@@ -163,10 +181,42 @@ def u_global(hw: tuple[int, int], c: int, groups: int) -> bool:
 
 
 def bwd_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
-    """Dynamic shared memory per CTA of the per-sample pass
-    (csrc/odefunc_bwd.cu ``bwd_smem_bytes``): the forward's, 6·G
+    """Dynamic shared memory per CTA of the one-CTA-per-sample pass
+    (csrc/odefunc_bwd.cu ``bwd_smem_bytes``; the bf16 build's, and the f32
+    build's outside :func:`sample_pass`'s cluster gate): the forward's, 6·G
     statistics, 4·C channel sums and, unless :func:`u_global`, u."""
     return layout(hw, c, groups, backward=True).smem
+
+
+def sample_pass(hw: tuple[int, int], c: int, groups: int,
+                precision: str = "f32") -> str:
+    """Which per-sample pass the backward runs, by the shape and the
+    precision alone (csrc/odefunc_bwd.cu ``pair_ok``): ``'cluster'``, two
+    CTAs of 256 threads per sample, each owning 32 output channels, for
+    the f32 build at the ``wgmma3`` shapes (C = 64: 7×7×64, 6×6×64) where
+    the group count is even, so that no GroupNorm group has channels in
+    both halves; else ``'cta'``, one CTA of 512 threads per sample."""
+    if (precision == "f32" and stage(hw, c) == "wgmma3" and groups > 0
+            and c % groups == 0 and groups % 2 == 0):
+        return "cluster"
+    return "cta"
+
+
+def cluster_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
+    """Dynamic shared memory per CTA of the cluster pass
+    (csrc/odefunc_bwd.cu ``pair_smem_bytes``): the TF32 heads and tails of
+    its half of a tap's weights (2·32·64 floats), the f32 tile as copied
+    (64·64) and its two mbarriers (4), the whole conv input with its zero
+    border (the tensor-core stage's rows and pitch), its halves of x and u
+    (H·W·32 each), 2·256 partial sums, 3·G statistics (its G/2 groups),
+    4·32 channel sums and 2·C t-gradient sums.  72,976 bytes at 7×7×64 and
+    69,072 at 6×6×64."""
+    hh, ww = hw
+    rows = MMA_M + 2 * (ww + 2) + 2
+    pitch = MMA_C * -(-c // MMA_C) + PAD_A
+    return 4 * (2 * PAIR_C * MMA_C + MMA_C * MMA_C + 4 + rows * pitch
+                + 2 * hh * ww * PAIR_C + 2 * PAIR_THREADS + 3 * groups
+                + 4 * PAIR_C + 2 * c)
 
 
 def bwd_refusal(hw: tuple[int, int], c: int, groups: int) -> str | None:

@@ -9,7 +9,8 @@ shared device function, the 3×3 conv; this probe times that conv alone:
 ``wgmma3``, the f32 fused kernels' conv stage at 7×7×64 and 6×6×64 (3×TF32
 on ``wgmma.mma_async``), ``mma3``, the tensor-core stage (3×TF32 on
 ``mma.sync``) that they run at their other tensor-core shapes and that the
-backward's input-gradient convs run, ``mma1``, ``mma3`` with the error
+backward's input-gradient convs run outside its f32 cluster pass, ``mma1``,
+``mma3`` with the error
 compensation compiled out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
 shapes) and ``im2col``, before a fused kernel is touched; and their bf16
 twins ``mma_bf16`` (the bf16 builds' conv stage), ``tap9_bf16`` and

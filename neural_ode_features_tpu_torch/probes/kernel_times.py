@@ -17,7 +17,9 @@ kernels summed, and apart, ``odefunc_bwd_split_ms``, beside each kernel's
 bound, ``odefunc_bwd_bound_ms``: the larger of its operations at the TF32
 tensor-core peak and its bytes at HBM's rate, ``utils/flops.py``
 ``bwd_kernel_bounds``, where the package has it).  ``--bwd-only`` times the
-backward alone.  Prints the card's name and power limit, then one JSON line
+backward alone.  ``--bwd-batch 128,256,16`` times the backward at each
+batch (``odefunc_bwd_b<B>_split_ms`` beside the B = 128 keys; the rows
+beyond 128 from a second numpy seed, at most 256).  Prints the card's name and power limit, then one JSON line
 per shape.  Needs a CUDA card and ``nvcc``.
 
 ``--solves N`` adds one JSON line of host-side times of the same package:
@@ -144,10 +146,27 @@ def bwd_bounds(hh: int, ww: int, c: int, bf16: bool = False):
         (hh, ww), c, B_BWD, weight_splits(B_BWD, c), peak).items()}
 
 
+def _bwd_rows(nb: int, h, t0, g):
+    """The backward's (t, h, g) at batch ``nb`` <= 256: the seeded inputs'
+    first rows, the cotangent's rows beyond B_BWD from numpy seed 2."""
+    if nb > B:
+        raise ValueError(f"--bwd-batch takes batches up to {B}, got {nb}")
+    if nb > B_BWD:
+        extra = np.random.default_rng(2).normal(
+            size=(nb - B_BWD, *g.shape[1:])).astype(np.float32)
+        g = torch.cat([g, torch.from_numpy(extra).to(g.device)])
+    return (t0[:nb].contiguous(), h[:nb].contiguous(), g[:nb].contiguous())
+
+
 def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
-            bwd_only: bool = False) -> dict:
+            bwd_only: bool = False, bwd_batches=()) -> dict:
     w, h, t0, dt, y0, f0, g, hb, tb, kw = _inputs(hh, ww, c)
     row = {"shape": f"{hh}x{ww}x{c}"}
+    for nb in bwd_batches:
+        if nb != B_BWD:
+            args = _bwd_rows(nb, h, t0, g)
+            row[f"odefunc_bwd_b{nb}_split_ms"] = device_split(
+                lambda: odefunc_bwd(w, *args, groups=G), BWD_KERNELS, reps)
     if not bwd_only:
         row["odefunc_ms"] = device_ms(lambda: odefunc(w, t0, h, groups=G),
                                       ("odefunc_kernel",), reps)
@@ -360,6 +379,9 @@ def main(argv=None) -> list[dict]:
                         "shape, in place of their times")
     p.add_argument("--bwd-only", action="store_true",
                    help="time the backward alone (with --bf16, both builds)")
+    p.add_argument("--bwd-batch", default="",
+                   help="comma-separated batches (<= 256) at which to time "
+                        "the backward beside B = 128")
     p.add_argument("--errors", action="store_true",
                    help="print the backward's dθ errors against float64 "
                         "per shape, in place of times")
@@ -380,8 +402,9 @@ def main(argv=None) -> list[dict]:
         elif args.errors:
             rows.append(bwd_errors(hh, ww, c, args.bf16))
         else:
-            rows.append(measure(hh, ww, c, args.reps, args.bf16,
-                                args.bwd_only))
+            rows.append(measure(
+                hh, ww, c, args.reps, args.bf16, args.bwd_only,
+                [int(v) for v in filter(None, args.bwd_batch.split(","))]))
         print(json.dumps(rows[-1]))
     if args.solves:
         import neural_ode_features_tpu_torch as pkg

@@ -36,6 +36,27 @@ Fused step (``rk_step_kernel``, device ms per launch):
 tensor-core stage: ``mma3``'s, and ``wgmma3``'s with its first copies) and
 ``no_conv_no_gn`` (also no GroupNorm statistics).
 
+With ``--bwd-only``, in place of the two above, the backward's per-sample
+pass (f32, 7×7×64, device ms per launch at each ``--bwd-batch``;
+``BWD_VARIANTS``, edits of ``csrc/odefunc_bwd.cu``; 11 builds), each
+variant of the cluster pass (``bwd_sample_kernel_cluster``, what the f32
+build runs there) beside the same variant of the one-CTA pass
+(``bwd_sample_kernel``, the cluster gate switched off):
+
+``shipped``        the pass as it is.
+``no_igrad_conv``  no input-gradient convs (neither tap loop).
+``no_conv``        no conv at all: neither the forward recompute's two nor
+                   the input gradients.
+``no_gn_bwd``      no GroupNorm backward reductions (the per-channel sums
+                   over the pixels and the group means; the elementwise dx
+                   stays).
+``no_writes``      no global stores of the residuals r1, r2, gu, gv.
+``no_remote``      (the cluster pass only) no stores into the peer CTA's
+                   shared memory: each conv reads half its input.
+
+    python -m neural_ode_features_tpu_torch.probes.timing_aids --bwd-only \
+        [--bwd-batch 128,16]
+
 Prints the card's name and power limit and one line per variant; writes no
 file.  Needs a CUDA card and ``nvcc``.
 """
@@ -60,7 +81,8 @@ from ..kernels.odefunc import odefunc_plain, prepare
 from ..solver import DOPRI5
 from .conv_probe import KERNEL_NAMES, device_us, probe_inputs
 
-__all__ = ["VARIANTS", "RK_VARIANTS", "patched_sources", "main"]
+__all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "patched_sources",
+           "main"]
 
 HEADER = "odefunc_common.cuh"
 
@@ -110,8 +132,8 @@ VARIANTS = {
 
 # wgmma3 (conv3x3_wgmma): no tile is copied in and no tile loop runs.
 _WG_EMPTY = [
-    ("    mbar_expect_tx(full, 4u * kTileF);\n"
-     "    bulk_copy(raw_s, w, 4u * kTileF, full);\n", ""),
+    ("    mbar_expect_tx(full, kBytes);\n"
+     "    bulk_copy(raw_s, tile(0), kBytes, full);\n", ""),
     ("  for (int tap = 0; tap < 9; ++tap) {\n"
      "    mbar_wait(full, tap & 1);  // the f32 tile has landed\n",
      "  for (int tap = 0; tap < 0; ++tap) {\n"
@@ -131,18 +153,90 @@ RK_VARIANTS = {
          " return none; }\n")],
 }
 
+# The backward's per-sample pass at 7×7×64 (csrc/odefunc_bwd.cu): the
+# cluster pass, bwd_sample_kernel_cluster, which the f32 build runs there,
+# and the one-CTA pass, bwd_sample_kernel, run there by switching the
+# cluster gate off (its "shipped" is the one-CTA pass that the f32 build ran
+# at C = 64 before the cluster, bit for bit).
+_BWD = "odefunc_bwd.cu"
+_PAIR_IGRAD = [
+    (_BWD, f"  pair_conv<true>(m, s, p.{w}, rank, to_sx);  // conv{w[1]} input "
+           f"gradient\n", "") for w in ("w2", "w1")]
+_PAIR_FWD_CONV = [
+    (_BWD, f"  pair_conv<false>(m, s, p.{w}, rank, [&](int q, int cl, float "
+           f"acc) {{\n",
+     f"  if (false) pair_conv<false>(m, s, p.{w}, rank, [&](int q, int cl, "
+     f"float acc) {{\n") for w in ("w1", "w2")]
+_PAIR_GN = [
+    (_BWD, "  for (int el = tid; el < n; el += kPairThreads) {\n"
+           "    const float dy = dyf(el), xh = xhat(el);\n",
+     "  if (false) for (int el = tid; el < n; el += kPairThreads) {\n"
+     "    const float dy = dyf(el), xh = xhat(el);\n"),
+    (_BWD, "  if (tid < (s.G >> 1)) {  // the group means of this CTA's groups\n",
+     "  if (false) {  // the group means of this CTA's groups\n"),
+]
+_PAIR_WRITES = [
+    *((_BWD, f"    {r}[at(el)] = y;\n", "") for r in ("r1", "r2")),
+    *((_BWD, f"                     {r}[at(el)] = v;\n", "")
+      for r in ("gv", "gu")),
+]
+_CTA = [(_BWD, "  if (kF && pair_ok(H, W, C, G)) {", "  if (false) {")]
+_CTA_IGRAD = [
+    (_BWD, f"  if (s.mma) mma_stage<kB ? kPassBf16 : 3, true, kWide>(m, s, "
+           f"p.{w}, to_sx);\n  else conv3x3<kB>(m, s, {w}bt, to_sx);\n", "")
+    for w in ("w2", "w1")]
+_CTA_FWD_CONV = [
+    (_BWD, "  conv_stage<kWide, kPrec>(m, s, p.w1, [&](int q, int co, float "
+           "acc) {\n",
+     "  if (false) conv_stage<kWide, kPrec>(m, s, p.w1, [&](int q, int co, "
+     "float acc) {\n"),
+    (_BWD, "  conv3x3_to_sx<kWide, kPrec>(m, s, p.w2, p.b2, p.m2, tb);\n", ""),
+]
+_CTA_GN = [
+    (_BWD, "  channel_sums<WIDE>(\n      m, sred2, chan, s,\n",
+     "  if (false) channel_sums<WIDE>(\n      m, sred2, chan, s,\n"),
+    (_BWD, "  if (tid < s.G) {\n    const float n = (float)(hw * gs);\n",
+     "  if (false) {\n    const float n = (float)(hw * gs);\n"),
+]
+_CTA_WRITES = [
+    *((_BWD, f"  each_element<kWide>(s, [&](const auto& w) {{ {r}[off + w.e]"
+             f" = m.spad[pad_at(s, w.q(s), w.c(s))]; }});\n", "")
+      for r in ("r1", "r2")),
+    *((_BWD, f"                              {r}[off + w.e] = v;\n", "")
+      for r in ("gv", "gu")),
+]
+# pass -> variant -> substitutions.
+BWD_VARIANTS = {
+    "cluster": {
+        "shipped": [],
+        "no_igrad_conv": _PAIR_IGRAD,
+        "no_conv": _PAIR_IGRAD + _PAIR_FWD_CONV,
+        "no_gn_bwd": _PAIR_GN,
+        "no_writes": _PAIR_WRITES,
+        "no_remote": [(_BWD, "    st_peer(d, peer, v);\n", "")],
+    },
+    "cta": {
+        "shipped": _CTA,
+        "no_igrad_conv": _CTA + _CTA_IGRAD,
+        "no_conv": _CTA + _CTA_IGRAD + _CTA_FWD_CONV,
+        "no_gn_bwd": _CTA + _CTA_GN,
+        "no_writes": _CTA + _CTA_WRITES,
+    },
+}
+
 
 def patched_sources(edits, dest: Path, csrc: Path = _build.CSRC) -> Path:
-    """Copy ``csrc`` to ``dest`` and apply ``edits`` to the shared header;
-    each ``old`` must occur exactly once."""
+    """Copy ``csrc`` to ``dest`` and apply ``edits``: ``(old, new)`` to the
+    shared header, ``(file, old, new)`` to that file of ``csrc``; each
+    ``old`` must occur exactly once in its file."""
     shutil.copytree(csrc, dest)
-    text = (dest / HEADER).read_text()
-    for old, new in edits:
+    for edit in edits:
+        name, old, new = edit if len(edit) == 3 else (HEADER, *edit)
+        text = (dest / name).read_text()
         if text.count(old) != 1:
             raise ValueError(f"timing aid: expected exactly one occurrence "
-                             f"of {old!r} in {HEADER}")
-        text = text.replace(old, new)
-    (dest / HEADER).write_text(text)
+                             f"of {old!r} in {name}")
+        (dest / name).write_text(text.replace(old, new))
     return dest
 
 
@@ -168,9 +262,55 @@ def _with_library(source: str, lib, fn):
         _build._loaded[source] = shipped
 
 
+def bwd_times(tmp: Path, dev, batches, reps: int = 20) -> dict:
+    """Device ms per launch of the per-sample pass (the kernel named
+    ``bwd_sample_kernel*``) under each of ``BWD_VARIANTS`` at 7×7×64 and
+    each batch of ``batches`` (the entry model's ODEfunc, seed 7;
+    numpy-seeded state and cotangent): ``{pass: {variant: {batch: ms}}}``,
+    the passes in turns variant by variant."""
+    from ..kernels.odefunc_bwd import odefunc_bwd
+    from ..models import ModelConfig, init_odenet
+
+    cfg = ModelConfig(in_channels=3, hidden=64, groups=32)
+    wts = prepare(init_odenet(7, cfg, device=dev)["odefunc"], (7, 7))
+    rng = np.random.default_rng(1)
+    nb = max(batches)
+
+    def arr(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    h = arr(rng.normal(size=(nb, 7, 7, 64)) * 0.3)
+    t = arr(rng.uniform(0, 0.5, nb))
+    g = arr(rng.normal(size=(nb, 7, 7, 64)))
+    out = {name: {} for name in BWD_VARIANTS}
+    for tag in BWD_VARIANTS["cluster"]:
+        for name, variants in BWD_VARIANTS.items():
+            if tag not in variants:
+                continue
+            edits = variants[tag]
+            lib = (_build_variant(edits, "odefunc_bwd", tmp,
+                                  f"bwd_{name}_{tag}") if edits else None)
+            ms = out[name][tag] = {}
+            for b in batches:
+                args = (t[:b].contiguous(), h[:b].contiguous(),
+                        g[:b].contiguous())
+                us = _with_library("odefunc_bwd", lib, lambda: device_us(
+                    lambda: odefunc_bwd(wts, *args, groups=32),
+                    ("bwd_sample_kernel",), reps))["bwd_sample_kernel"]
+                ms[b] = us / 1e3
+            print(f"bwd_sample {name:>7} {tag:>14}: " + ", ".join(
+                f"B={b} {v:.4f} ms" for b, v in ms.items()) + " per launch")
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--bwd-batch", default="128",
+                   help="comma-separated batches of the backward variants")
+    p.add_argument("--bwd-only", action="store_true",
+                   help="time the backward's per-sample pass (BWD_VARIANTS) "
+                        "in place of the probe and rk_step")
     args = p.parse_args(argv)
     dev = strict_f32("cuda")
     smi = subprocess.run(
@@ -181,6 +321,9 @@ def main(argv=None) -> dict:
     out = {"conv_us": {}, "conv_err_f64": {}, "rk_step_ms": {}}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        if args.bwd_only:
+            return {"bwd_sample_ms": bwd_times(
+                tmp, dev, [int(b) for b in args.bwd_batch.split(",")])}
         x, w = probe_inputs(args.batch, dev)
         exact = conv3x3_plain(x.double(), w.double())
         name = KERNEL_NAMES["mma3"]

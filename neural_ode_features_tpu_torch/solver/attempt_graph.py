@@ -71,31 +71,35 @@ import threading
 
 import torch
 
-__all__ = ["replay_attempts", "kernel_nodes", "cache_key", "replay_cached",
-           "capture_cached", "clear_cache", "cache_info", "CACHE_ENTRIES"]
+__all__ = ["replay_attempts", "kernel_nodes", "kernel_launches", "cache_key",
+           "replay_cached", "capture_cached", "clear_cache", "cache_info",
+           "CACHE_ENTRIES"]
 
 _local = threading.local()
 
 
 def _kernel_wrappers() -> tuple:
     """The launch counters the route keeps, as ``(wrapper, attribute,
-    kernels, build)``: the kernels that one counted launch runs once (by
-    name in the CUDA sources) and, where a wrapper counts its builds apart,
-    the build's precision template argument (``kF32``, ``kBf16Conv``,
-    ``kBf16`` = 0, 1, 2 in ``csrc/odefunc_common.cuh``)."""
+    kernels)``: ``kernels`` maps the name in the CUDA sources of each
+    kernel of which one counted launch runs one (the backward's per-sample
+    pass is one of two kernels, ``kernels.odefunc_bwd.sample_pass``) to
+    the build it counts, where the kernel is built for several: its
+    precision template argument (``kF32``, ``kBf16Conv``, ``kBf16`` = 0,
+    1, 2 in ``csrc/odefunc_common.cuh``), else None."""
     from ..kernels.conv3x3 import conv3x3
     from ..kernels.odefunc import odefunc
     from ..kernels.odefunc_bwd import odefunc_bwd
     from ..kernels.rk_step import dopri5_step
 
-    return ((odefunc, "launches", ("odefunc_kernel",), 0),
-            (odefunc, "launches_bf16", ("odefunc_kernel",), 2),
-            (odefunc_bwd, "launches", ("bwd_sample_kernel",), 0),
-            (odefunc_bwd, "launches_bf16", ("bwd_sample_kernel",), 2),
-            (dopri5_step, "launches", ("rk_step_kernel",), 0),
-            (dopri5_step, "launches_bf16", ("rk_step_kernel",), 1),
-            (conv3x3, "launches", ("tap9_kernel", "im2col_kernel",
-                                   "mma_kernel"), None))
+    return ((odefunc, "launches", {"odefunc_kernel": 0}),
+            (odefunc, "launches_bf16", {"odefunc_kernel": 2}),
+            (odefunc_bwd, "launches", {"bwd_sample_kernel": 0,
+                                       "bwd_sample_kernel_cluster": None}),
+            (odefunc_bwd, "launches_bf16", {"bwd_sample_kernel": 2}),
+            (dopri5_step, "launches", {"rk_step_kernel": 0}),
+            (dopri5_step, "launches_bf16", {"rk_step_kernel": 1}),
+            (conv3x3, "launches", dict.fromkeys(
+                ("tap9_kernel", "im2col_kernel", "mma_kernel"))))
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -131,15 +135,17 @@ def _name(func: int, kern: int) -> str:
     return name.value.decode()
 
 
-def kernel_nodes(raw_graph: int) -> collections.Counter:
-    """The kernel nodes of a CUDA graph (``CUDAGraph.raw_cuda_graph()``),
-    counted by kernel name as the driver gives it (mangled)."""
+def kernel_launches(raw_graph: int) -> list:
+    """The kernel nodes of a CUDA graph (``CUDAGraph.raw_cuda_graph()``)
+    in the driver's order, each ``(name, grid, block, shared)``: the kernel's
+    name as the driver gives it (mangled), its grid and block dimensions and
+    its dynamic shared memory in bytes."""
     graph = ctypes.c_void_p(raw_graph)
     n = ctypes.c_size_t(0)
     _cu("cuGraphGetNodes", graph, None, ctypes.byref(n))
     nodes = (ctypes.c_void_p * n.value)()
     _cu("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
-    names = collections.Counter()
+    launches = []
     for node in nodes[:n.value]:
         kind = ctypes.c_int()
         _cu("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
@@ -148,20 +154,29 @@ def kernel_nodes(raw_graph: int) -> collections.Counter:
         p = _KernelNodeParams()
         _cu("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
             ctypes.byref(p))
-        names[_name(p.func or 0, p.kern or 0)] += 1
-    return names
+        launches.append((_name(p.func or 0, p.kern or 0), tuple(p.grid),
+                         tuple(p.block), p.shared_mem_bytes))
+    return launches
 
 
-def _count(nodes: collections.Counter, kernels: tuple, build) -> int:
+def kernel_nodes(raw_graph: int) -> collections.Counter:
+    """The kernel nodes of a CUDA graph (``CUDAGraph.raw_cuda_graph()``),
+    counted by kernel name as the driver gives it (mangled)."""
+    return collections.Counter(name for name, *_ in
+                               kernel_launches(raw_graph))
+
+
+def _count(nodes: collections.Counter, kernels: dict) -> int:
     """Of ``nodes``, those of the kernels named (``odefunc_kernel`` is
-    mangled as ``...14odefunc_kernel...``) and, where ``build`` is not None,
-    of that build: the last template argument, mangled ``Li<build>EE``."""
-    def of_build(name):
+    mangled as ``...14odefunc_kernel...``), each of its build where that is
+    not None: the last template argument, mangled ``Li<build>EE``."""
+    def of_build(name, build):
         m = re.search(r"Li(\d+)EE", name)
         return build is None or (m is not None and int(m.group(1)) == build)
     return sum(c for name, c in nodes.items()
-               if any(name == k or f"{len(k)}{k}" in name for k in kernels)
-               and of_build(name))
+               if any((name == k or f"{len(k)}{k}" in name)
+                      and of_build(name, build)
+                      for k, build in kernels.items()))
 
 
 def _stream(device: torch.device) -> torch.cuda.Stream:
@@ -236,22 +251,21 @@ def _captured(body, carry, pool):
     side = _stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    before = [getattr(w, a) for w, a, _, _ in wrappers]
+    before = [getattr(w, a) for w, a, _ in wrappers]
     try:
         try:
             _capture(graph, body, static, side, pool)
         finally:  # a capture launches nothing
             issued = [getattr(w, a) - b
-                      for (w, a, _, _), b in zip(wrappers, before)]
-            for (w, a, _, _), b in zip(wrappers, before):
+                      for (w, a, _), b in zip(wrappers, before)]
+            for (w, a, _), b in zip(wrappers, before):
                 setattr(w, a, b)
         nodes = kernel_nodes(graph.raw_cuda_graph())
-        per_replay = [_count(nodes, names, build)
-                      for _, _, names, build in wrappers]
+        per_replay = [_count(nodes, names) for _, _, names in wrappers]
         if per_replay != issued:
             raise RuntimeError(
                 f"the captured attempt holds {per_replay} launches of "
-                f"{[f'{w.__name__}.{a}' for w, a, _, _ in wrappers]}, their "
+                f"{[f'{w.__name__}.{a}' for w, a, _ in wrappers]}, their "
                 f"wrappers issued {issued}: a launch ran outside the graph")
         graph.instantiate()
     except BaseException:
@@ -265,7 +279,7 @@ def _replay(graph, static, per_replay, steps: int) -> None:
     wrappers = _kernel_wrappers()
     for _ in range(steps):
         graph.replay()
-        for (w, a, _, _), n in zip(wrappers, per_replay):
+        for (w, a, _), n in zip(wrappers, per_replay):
             setattr(w, a, getattr(w, a) + n)
         if bool(static.done.all()):
             break

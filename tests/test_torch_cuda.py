@@ -35,8 +35,11 @@ from neural_ode_features_tpu_torch.kernels.odefunc import (
     stage,
 )
 from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+    PAIR_THREADS,
+    cluster_smem_bytes,
     odefunc_bwd,
     odefunc_bwd_plain,
+    sample_pass,
 )
 from neural_ode_features_tpu_torch.kernels.rk_step import (
     dopri5_step,
@@ -1257,3 +1260,130 @@ def test_wgmma_weights_changed_in_place_reach_the_next_launch(dev):
             torch.cuda.synchronize()
             assert torch.equal(out, eager), name
             before = eager
+
+
+# ---- the backward's per-sample pass as a two-CTA cluster -------------------
+
+
+def _bwd_inputs(dev, batch, side):
+    h, t, _ = _inputs(dev, batch, side)
+    g = np.random.default_rng(5).normal(size=tuple(h.shape))
+    return t, h, torch.from_numpy(g.astype(np.float32)).to(dev)
+
+
+def _bwd_outputs(w, t, h, g, groups=32):
+    """One backward call's every output: (dθ flat, dt, dh, f, r1, r2, gu,
+    gv)."""
+    res = {}
+    dp, dt, dh, f = odefunc_bwd(w, t, h, g, groups=groups, with_f=True,
+                                residuals=res)
+    return (_flat(dp), dt, dh, f, *(res[k] for k in ("r1", "r2", "gu", "gv")))
+
+
+def _held_to_f64(w, t, h, g, got, groups=32):
+    w64 = type(w)(*(x.double() for x in w))
+    dp_p, dt_p, dh_p = odefunc_bwd_plain(w64, t.double(), h.double(),
+                                         g.double(), groups)
+    np.testing.assert_allclose(got[2].cpu().numpy(), dh_p.cpu().numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(got[1].cpu().numpy(), dt_p.cpu().numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(got[0].cpu().numpy(),
+                               _flat(dp_p).cpu().numpy(), **DP_TOL)
+
+
+@pytest.mark.parametrize("batch,side", [(128, 7), (16, 7), (5, 7), (1, 7),
+                                        (128, 6), (16, 6)])
+def test_cluster_pass_matches_plain(dev, batch, side):
+    """The f32 backward at 7×7×64 and 6×6×64 runs the cluster pass (two
+    CTAs a sample): within the bars of the float64 plain version, f the
+    ODEfunc kernel's bit for bit, every output (dθ, dt, dh, f and the
+    residuals r1, r2, gu, gv) bit-identical from launch to launch, one
+    launch counted per call."""
+    assert sample_pass((side, side), 64, 32) == "cluster"
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], (side, side))
+    t, h, g = _bwd_inputs(dev, batch, side)
+    before = odefunc_bwd.launches
+    got = _bwd_outputs(w, t, h, g)
+    assert odefunc_bwd.launches == before + 1
+    assert torch.equal(got[3], odefunc(w, t, h, groups=32))
+    _held_to_f64(w, t, h, g, got)
+    again = _bwd_outputs(w, t, h, g)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("side", [7, 6])
+def test_cluster_pass_rows_do_not_depend_on_the_batch(dev, side):
+    """A sample's cluster computes its rows alone: the rows of a B = 16, 5
+    and 1 launch (dt, dh, f and the residuals) are bit-identical to the
+    same rows of a B = 128 launch."""
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], (side, side))
+    t, h, g = _bwd_inputs(dev, 128, side)
+    full = _bwd_outputs(w, t, h, g)
+    for nb in (16, 5, 1):
+        part = _bwd_outputs(w, *(a[:nb].contiguous() for a in (t, h, g)))
+        for a, b in zip(part[1:], full[1:]):
+            assert torch.equal(a, b[:nb]), nb
+
+
+@pytest.mark.parametrize("hw,groups", [((5, 5), 32), ((3, 8), 32),
+                                       ((7, 7), 16), ((7, 7), 64),
+                                       ((7, 7), 1)])
+def test_cluster_gate_at_other_maps_and_groups(dev, hw, groups):
+    """The gate's other shapes at C = 64: any map the tensor cores take
+    with an even group count runs the cluster pass, an odd count (G = 1: a
+    group over both halves) the one-CTA pass; each within the bars of the
+    float64 plain version."""
+    want = "cluster" if groups % 2 == 0 else "cta"
+    assert sample_pass(hw, 64, groups) == want
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], hw)
+    rng = np.random.default_rng(6)
+    arr = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h = arr(rng.normal(size=(9, *hw, 64)) * 0.3)
+    t = arr(rng.uniform(0.0, 0.5, 9))
+    g = arr(rng.normal(size=(9, *hw, 64)))
+    _held_to_f64(w, t, h, g, _bwd_outputs(w, t, h, g, groups), groups)
+
+
+def test_graph_counts_the_cluster_pass(dev):
+    """A backward call captured in a CUDA graph: its kernel nodes hold the
+    cluster pass once, launched as two CTAs of ``PAIR_THREADS`` threads a
+    sample with ``cluster_smem_bytes`` of dynamic shared memory, which the
+    graph route counts as one ``odefunc_bwd`` launch of the f32 build (and
+    none of the bf16 build); a replay gives the eager call's bits."""
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], (7, 7))
+    t, h, g = _bwd_inputs(dev, 16, 7)
+    want = _bwd_outputs(w, t, h, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        got = _bwd_outputs(w, t, h, g)
+        graph.capture_end()
+    nodes = attempt_graph.kernel_nodes(graph.raw_cuda_graph())
+    launches = [k[1:] for k in attempt_graph.kernel_launches(
+        graph.raw_cuda_graph()) if "bwd_sample_kernel_cluster" in k[0]]
+    graph.instantiate()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert sum(c for n, c in nodes.items()
+               if "bwd_sample_kernel_cluster" in n) == 1
+    assert launches == [((2 * 16, 1, 1), (PAIR_THREADS, 1, 1),
+                         cluster_smem_bytes((7, 7), 64, 32))]
+    rules = {(fn.__name__, attr): k for fn, attr, k
+             in attempt_graph._kernel_wrappers()}
+    assert attempt_graph._count(nodes, rules[("odefunc_bwd",
+                                              "launches")]) == 1
+    assert attempt_graph._count(nodes, rules[("odefunc_bwd",
+                                              "launches_bf16")]) == 0
