@@ -224,11 +224,17 @@ Phases (any failed check exits nonzero and prints no result):
    L2 per output within 4 times the plain step's own move under one-ulp
    GroupNorm perturbations, and its error ratio more than 4 u from the f32
    step's), the backward's bf16 build (``odefunc_backward_bf16``: 7×7×64
-   at B = 128, 64 and 5, 6×6×64 and 7×7×32 at B = 128, 7×7×512 at B = 32,
-   and at B = 32 at the five shapes of the card tests; each output within
-   its bar in u of the plain bf16 VJP, dh, dt and the early leaves below
-   the f32 build's distance; its f bit-equal to the bf16 ODEfunc kernel's;
-   dθ bit-identical over two launches), the probe's ``mma_bf16``,
+   at B = 128, 64, 16 and 5, 6×6×64 and 7×7×32 at B = 128, 7×7×512 at
+   B = 32, and at B = 32 at the five shapes of the card tests; each output
+   within its bar in u of the plain bf16 VJP, dh, dt and the early leaves
+   below the f32 build's distance; its f bit-equal to the bf16 ODEfunc
+   kernel's; dθ bit-identical over two launches; the per-sample pass each
+   call launched read from the call captured into a CUDA graph, the gate's
+   and, at 7×7×64 B = 128 and 16 and 6×6×64 B = 128, the two-CTA cluster's
+   bf16 build), the bf16 ODEfunc kernel's conv stage at 7×7×64 and 6×6×64
+   from the gate (``'wgmma_bf16'``) and from the build (its machine code,
+   ``cuobjdump -sass``, and the bf16 cluster pass's hold bf16 warpgroup
+   products, the fused step's ``kBf16Conv`` build none), the probe's ``mma_bf16``,
    ``tap9_bf16`` and ``im2col_bf16`` (f32 reassociation).  The entry
    model's bf16 inference
    (``odenet_logits``, ``odenet_trajectory``) at B = 256 on the host loop
@@ -435,6 +441,26 @@ def device_ms(fn, reps: int = 20) -> float:
             return ev[1].elapsed_time(ev[2]) / reps
     raise RuntimeError("the calls' enqueueing outlasted every spin: does "
                        "the wrapper wait for the card?")
+
+
+def kernel_sass(source: str, fragment: str) -> str:
+    """The machine code (``cuobjdump -sass``) of the kernels of the built
+    ``csrc/<source>.cu`` whose mangled name holds ``fragment``; fails where
+    the toolkit's ``cuobjdump`` is missing or no kernel matches."""
+    import shutil
+
+    from neural_ode_features_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        fail("cuobjdump not found: the build's machine code cannot be read")
+    text = subprocess.run([tool, "-sass", str(_build._lib_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    blocks = re.split(r"\n\s*Function : ", text)[1:]
+    hits = [b for b in blocks if fragment in b.split("\n", 1)[0]]
+    if not hits:
+        fail(f"no kernel {fragment!r} in the build of csrc/{source}.cu")
+    return "\n".join(hits)
 
 
 @contextlib.contextmanager
@@ -838,12 +864,13 @@ def main() -> int:
         how: the call captured into a CUDA graph (not run) and the graph's
         kernel nodes read back from the driver
         (``attempt_graph.kernel_launches``).  Returns ``(pass, grid, block,
-        shared)``, pass ``'cluster'`` (``bwd_sample_kernel_cluster``) or
-        ``'cta'`` (``bwd_sample_kernel``); fails unless the call launched
-        exactly one of them.  The launch counter is left as it was."""
+        shared, name)``, pass ``'cluster'`` (``bwd_sample_kernel_cluster``)
+        or ``'cta'`` (``bwd_sample_kernel``), name the kernel's mangled
+        name (its build: ``Li0EE`` f32, ``Li2EE`` bf16); fails unless the call launched
+        exactly one of them.  The launch counters are left as they were."""
         from neural_ode_features_tpu_torch.solver import attempt_graph
 
-        before = odefunc_bwd.launches
+        before = (odefunc_bwd.launches, odefunc_bwd.launches_bf16)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -859,13 +886,13 @@ def main() -> int:
                 graph.raw_cuda_graph()) if "bwd_sample_kernel" in k[0]]
         finally:
             graph.reset()
-            odefunc_bwd.launches = before
+            odefunc_bwd.launches, odefunc_bwd.launches_bf16 = before
         if len(ran) != 1:
             fail(f"odefunc_bwd: one call launched the per-sample kernels "
                  f"{[k[0] for k in ran]}, not one")
         name, grid, block, shared = ran[0]
         pass_ = "cluster" if "bwd_sample_kernel_cluster" in name else "cta"
-        return pass_, grid, block, shared
+        return pass_, grid, block, shared, name
 
     def profiled_ms(fn, keys):
         """``device_ms_by_kernel``, or None where torch.profiler recorded no
@@ -1025,7 +1052,7 @@ def main() -> int:
         if not torch.equal(flat(dp), flat(dp2)):
             fail(f"odefunc_bwd dθ {tag}: two launches differ")
         gate = sample_pass(tuple(args[1].shape[1:3]), args[1].shape[-1], G)
-        pass_, grid, block, _ = ran_sample_pass(
+        pass_, grid, block, *_ = ran_sample_pass(
             lambda: odefunc_bwd(w_, *args, groups=G))
         if pass_ != gate:
             fail(f"odefunc_bwd {tag}: the {pass_} pass launched, the gate "
@@ -1158,7 +1185,7 @@ def main() -> int:
     # The per-sample pass: which one launched here, how (the driver's
     # record of the launch in a captured call) and its device ms beside its
     # bound.
-    bwd_pass, grid, block, shared = ran_sample_pass(
+    bwd_pass, grid, block, shared, _ = ran_sample_pass(
         lambda: odefunc_bwd(w, tb, hb, gb, groups=G))
     if bwd_pass != "cluster":
         fail(f"odefunc_bwd at {HH}x{WW}x{C}: the f32 per-sample pass that "
@@ -3015,11 +3042,17 @@ def main() -> int:
         # 7×7×32 and the scratch layout's 7×7×512; each output beside the
         # f32 build's distance, f bit-equal to the bf16 forward kernel's,
         # dθ bit-identical over two launches (bf16_distances.bwd_readings).
+        # Which per-sample pass each call launched, read from the call
+        # captured into a CUDA graph (its kernel node's name, grid, block
+        # and shared memory): the gate's (sample_pass), and the cluster's
+        # kBf16 build at 7×7×64, B = 128 and 16, and 6×6×64, B = 128.
         t_b = time.perf_counter()
         err_b16 = 0.0
+        bf16_passes = {}
         for hh_, ww_, c_, nb in ((HH, WW, C, B_TRAIN), (HH, WW, C, B_TRAIN // 2),
-                                 (HH, WW, C, 5), (6, 6, C, B_TRAIN),
-                                 (7, 7, 32, B_TRAIN), (7, 7, 512, 32)):
+                                 (HH, WW, C, 16), (HH, WW, C, 5),
+                                 (6, 6, C, B_TRAIN), (7, 7, 32, B_TRAIN),
+                                 (7, 7, 512, 32)):
             if (hh_, ww_, c_) == (HH, WW, C):
                 w_, h_, t_ = w, hb[:nb].contiguous(), tb[:nb].contiguous()
                 g_ = gb[:nb].contiguous()
@@ -3027,11 +3060,54 @@ def main() -> int:
                 w_, h_, t_, _ = bf16_distances.shape_inputs(hh_, ww_, c_, nb,
                                                             dev)
                 g_ = arr(rng16.normal(size=tuple(h_.shape)))
+            tag = f"{hh_}x{ww_}x{c_} B={nb}"
             err_b16 = max(err_b16, held(
-                f"odefunc_bwd bf16 {hh_}x{ww_}x{c_} B={nb}",
+                f"odefunc_bwd bf16 {tag}",
                 bf16_distances.bwd_readings(w_, t_, h_, g_, G)))
-        print(f"[bf16] odefunc_bwd bf16 held at six shapes in "
+            gate = sample_pass((hh_, ww_), c_, G, "bf16")
+            pass_, grid, block, shared, name = ran_sample_pass(
+                lambda: odefunc_bwd(w_, t_, h_, g_, groups=G,
+                                    precision="bf16"))
+            must = (hh_, ww_, c_, nb) in ((HH, WW, C, B_TRAIN),
+                                          (HH, WW, C, 16), (6, 6, C, B_TRAIN))
+            if (pass_ != gate or "Li2EE" not in name
+                    or (must and pass_ != "cluster")):
+                fail(f"[bf16] odefunc_bwd bf16 {tag}: launched {name} (the "
+                     f"{pass_} pass); the gate says {gate}"
+                     + (", the cluster's bf16 build required" if must else ""))
+            bf16_passes[tag] = {"pass": pass_, "grid": grid[0],
+                                "block": block[0], "smem_bytes": shared}
+            print(f"[check] odefunc_bwd bf16 {tag}: the {pass_} pass "
+                  f"({name.split('Ev')[0]}: {grid[0]} CTAs of {block[0]} "
+                  f"threads, {shared} B of dynamic shared memory), as the "
+                  f"gate says")
+        print(f"[bf16] odefunc_bwd bf16 held at seven shapes and batches in "
               f"{time.perf_counter() - t_b:.1f} s; max abs err {err_b16:.3e}")
+        # The bf16 ODEfunc kernel's conv stage at the bf16 paths' maps, from
+        # the gate and from the build: its kBf16 build's machine code holds
+        # bf16 warpgroup products (HGMMA ... BF16), the fused step's
+        # kBf16Conv build none (mma.sync, HMMA).
+        for hw_ in ((HH, WW), (6, 6)):
+            if stage(hw_, C, "bf16") != "wgmma_bf16":
+                fail(f"[bf16] the gate gives the bf16 odefunc at {hw_} "
+                     f"{stage(hw_, C, 'bf16')!r}, not 'wgmma_bf16'")
+        sass16 = {
+            "odefunc kBf16": kernel_sass("odefunc", "odefunc_kernelILb0ELb0ELi2EE"),
+            "odefunc_bwd cluster kBf16": kernel_sass(
+                "odefunc_bwd", "bwd_sample_kernel_clusterILi2EE"),
+            "rk_step kBf16Conv": kernel_sass(
+                "rk_step", "rk_step_kernelILb0ELb0ELi1EE")}
+        hgmma = {k: sum(1 for ln in v.splitlines()
+                        if "HGMMA" in ln and "BF16" in ln)
+                 for k, v in sass16.items()}
+        print(f"[bf16] conv stage: the gate gives 'wgmma_bf16' at {HH}x{WW}x"
+              f"{C} and 6x6x{C}; bf16 HGMMA instructions in the build: "
+              f"{hgmma}")
+        if (not hgmma["odefunc kBf16"] or not hgmma["odefunc_bwd cluster kBf16"]
+                or hgmma["rk_step kBf16Conv"]):
+            fail(f"[bf16] the builds' bf16 warpgroup products {hgmma}: the "
+                 "kBf16 odefunc and cluster pass must hold them, the fused "
+                 "step's kBf16Conv build none")
         # The probe's bf16 twins: their operands round alike, f32
         # reassociation; the f32 conv lies outside that tolerance.
         for nb, hw_ in ((B, (HH, WW)), (5, (HH, WW)), (B, (6, 6))):
@@ -3542,7 +3618,8 @@ def main() -> int:
              "launches": paths16["bf16_solve"]["odefunc_bf16"],
              "max_abs_err": err_f16, "ms": ms16["odefunc"],
              "plain_ms": plain16["odefunc"], **fb16["odefunc"],
-             "library_ms": lib16["odefunc"], "stage": "mma_bf16",
+             "library_ms": lib16["odefunc"],
+             "stage": stage((HH, WW), C, "bf16"),
              "call_ms": call16["odefunc"],
              "launches_by_path": {k: v["odefunc_bf16"]
                                   for k, v in paths16.items()
@@ -3561,8 +3638,16 @@ def main() -> int:
              "launches": paths16["bf16_train"]["odefunc_bwd_bf16"],
              "max_abs_err": err_b16, "ms": ms16["odefunc_bwd"],
              "plain_ms": plain16["odefunc_bwd"], **fb16["odefunc_bwd"],
-             "library_ms": lib16["odefunc_bwd"], "stage": "mma_bf16",
+             "library_ms": lib16["odefunc_bwd"],
+             "stage": stage((HH, WW), C, "bf16"),
              "call_ms": call16["odefunc_bwd"],
+             "sample_pass": {**bf16_passes[f"{HH}x{WW}x{C} B={B_TRAIN}"],
+                             "ms": (split16["bf16"] or {}).get(
+                                 "bwd_sample_kernel"),
+                             "bound_ms": bwd_kernel_bounds(
+                                 (HH, WW), C, B_TRAIN,
+                                 weight_splits(B_TRAIN, C), H100_BF16_FLOPS)[
+                                 "bwd_sample_kernel"]["bound_ms"]},
              "ms_by_kernel": split16["bf16"],
              "f32_ms_by_kernel": split16["f32"],
              "launches_by_path": {k: v["odefunc_bwd_bf16"]

@@ -18,7 +18,7 @@
 //           odefunc.cu, rk_step.cu and odefunc_bwd.cu itself at C = 64 to
 //           512 (multiples of 32) on 7x7 and 6x6 maps where wgmma_ok does
 //           not hold, and of the backward's input-gradient convs at all of
-//           them but its f32 cluster pass (odefunc_bwd.cu), compiled for the
+//           them but its cluster pass (odefunc_bwd.cu), compiled for the
 //           same width (wide_shape), so its time is
 //           what those kernels pay per conv; at C % 64 == 32 it is the
 //           check of the padded last block.
@@ -48,8 +48,10 @@
 //
 //   mma_bf16     nodef::conv3x3_mma<kPassBf16>: one mma.sync.m16n8k16 bf16
 //                pass per 16 channels, operands packed to bf16 as the
-//                fragments are built.  The conv stage of the bf16 builds of
-//                odefunc.cu and rk_step.cu.
+//                fragments are built.  The conv stage of rk_step.cu's bf16
+//                build, of odefunc.cu's where wgmma_ok does not hold (there
+//                it runs wgmma_bf16, which no strategy here races) and of
+//                the bf16 backward's one-CTA pass's input gradients.
 //   tap9_bf16    tap9 on x rounded as it is copied in, the weights rounded
 //                as they are read (nodef::conv3x3<true>): the bf16 builds'
 //                stage at the other shapes.
@@ -120,7 +122,7 @@ wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
   __syncthreads();
   for (int e = threadIdx.x; e < n; e += kThreads) m.spad[pad_index(s, e)] = xb[e];
   __syncthreads();
-  conv3x3_wgmma(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
+  conv3x3_wgmma<kF32>(m, s, w, [&](int p, int co, float acc) { yb[p * s.C + co] = acc; });
 }
 
 constexpr int kI2cThreads = 256;  // threads per CTA of the im2col kernel
@@ -295,7 +297,7 @@ template <int PASSES>
 static int launch_mma(const float* x, const float* w, float* y,
                       int B, int H, int W, int C, void* stream) {
   using namespace nodef;
-  const Shape s = make_shape(H, W, C, 1, false);
+  const Shape s = make_shape(H, W, C, 1, kBf16Conv);  // conv3x3_mma's layout
   if (!s.mma || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? mma_kernel<PASSES, false, false>
@@ -326,7 +328,7 @@ extern "C" int conv_probe_mma_bf16(const float* x, const float* w, float* y,
 extern "C" int conv_probe_wgmma3(const float* x, const float* w, float* y,
                                  int B, int H, int W, int C, void* stream) {
   using namespace nodef;
-  const Shape s = make_shape(H, W, C, 1, true);
+  const Shape s = make_shape(H, W, C, 1, kF32);
   if (!s.wg || wide_shape(s) || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odefunc_smem_bytes(s);
   cudaError_t err =

@@ -13,8 +13,10 @@
 //
 // Two precisions (kPrec, odefunc_common.cuh): odefunc_forward is the f32
 // kernel; odefunc_forward_bf16 computes compute_dtype='bfloat16' dynamics
-// (kBf16: the plain bf16 path's roundings, both convs on the bf16 stage),
-// from and to f32 tensors, with the same shapes, layouts and gate.
+// (kBf16: the plain bf16 path's roundings, both convs on the bf16 stage:
+// wgmma_bf16, bf16 wgmma.mma_async, where wgmma_ok holds, else the bf16
+// mma.sync pass), from and to f32 tensors, with the same shapes, layouts
+// and gate.
 #include "odefunc_common.cuh"
 
 namespace nodef {
@@ -39,8 +41,8 @@ odefunc_kernel(const float* __restrict__ t, const float* __restrict__ h,
 template <int kPrec>
 int launch(const float* t, const float* h, const Odefunc& p, float* out,
            int B, int H, int W, int C, int G, void* stream) {
-  if (!shape_ok(H, W, C, G, kPrec == kF32) || B < 1) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(H, W, C, G, kPrec == kF32);
+  if (!shape_ok(H, W, C, G, kPrec) || B < 1) return (int)cudaErrorInvalidValue;
+  const Shape s = make_shape(H, W, C, G, kPrec);
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? odefunc_kernel<false, false, kPrec>
                       : s.xg        ? odefunc_kernel<true, true, kPrec>

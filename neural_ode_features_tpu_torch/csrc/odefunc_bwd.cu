@@ -12,10 +12,10 @@
 // and every sum in a fixed order (two launches on the same inputs give
 // bit-identical dtheta):
 //
-//   1. bwd_sample_kernel, one CTA per sample (512 threads), or, for the
-//      f32 build at C = 64 with an even group count (pair_ok: 7x7x64,
-//      6x6x64), bwd_sample_kernel_cluster, two CTAs of 256 threads per
-//      sample with the same sums in the same order (its note below): recompute the
+//   1. bwd_sample_kernel, one CTA per sample (512 threads), or, at C = 64
+//      with an even group count (pair_ok: 7x7x64, 6x6x64; both builds),
+//      bwd_sample_kernel_cluster, two CTAs of 256 threads per sample with
+//      the same sums in the same order (its note below): recompute the
 //      forward (odefunc_common.cuh helpers: split ConcatConv, centred-variance
 //      GroupNorm) and write f = GN3(v) itself, so that an augmented
 //      evaluation of the adjoint needs no launch of odefunc.cu; then GN3
@@ -25,10 +25,9 @@
 //      odefunc_common.cuh: at C = 64 to 512 (multiples of 32) on 7x7 and 6x6
 //      maps TF32 products on the tensor cores with 3xTF32 error compensation
 //      (f32-grade).  The forward recompute's two run the forward kernels'
-//      own stage (wgmma3 where make_shape says so, so that f is
-//      odefunc_forward's bit for bit); the input-gradient convs run
-//      mma.sync at every such shape (the cluster pass: wgmma, with mma.sync's
-//      bits) and read
+//      own stage (wgmma3, wgmma_bf16 where make_shape says so, so that f is
+//      the forward kernel's bit for bit); the input-gradient convs run
+//      mma.sync at every such shape (the cluster pass: wgmma) and read
 //      w1, w2 themselves, taps reversed and transposed in the fragment loads
 //      (conv3x3_mma<3, true>).  Other shapes run the f32 FFMA conv3x3, the
 //      input gradients on the wrapper's w1bt, w2bt.  Writes dh, the
@@ -104,8 +103,9 @@
 // each GroupNorm the products dy*scale (per element, scale rounded) and,
 // for dscale, dy*bf16(x-hat), the statistics backward in f32, dx rounded;
 // the ReLU masks from the bf16 GroupNorm outputs; each input-gradient conv
-// on the bf16 conv stage (mma.sync.m16n8k16, f32 accumulation; at the FFMA
-// shapes f32 FFMA on rounded weights) and its sum rounded once; the
+// on the bf16 conv stage (mma.sync.m16n8k16, f32 accumulation; the cluster
+// pass: wgmma_bf16; at the FFMA shapes f32 FFMA on rounded weights) and its
+// sum rounded once; the
 // time-map products g*bf16(M) and g*t rounded per element, each conv's t
 // gradient rounded and their sum rounded.  Every sum over the batch (the
 // weight, scale and bias gradients) stays f32 per sample and in the
@@ -162,45 +162,85 @@ inline size_t bwd_smem_bytes(const Shape& s) {
                           (s.ug ? 0 : (size_t)s.H * s.W * s.C));
 }
 
-// The shape under the backward's layout: fit_layout with u.  f32: the
-// kF32 build (its forward recompute runs wgmma3 where make_shape says so).
-inline Shape bwd_shape(int H, int W, int C, int G, bool f32) {
-  Shape s = make_shape(H, W, C, G, f32);
+// The shape under the backward's layout: fit_layout with u.  prec: the
+// build (its forward recompute runs wgmma_conv where make_shape says so).
+inline Shape bwd_shape(int H, int W, int C, int G, int prec) {
+  Shape s = make_shape(H, W, C, G, prec);
   s.xg = 0;
   s.ring = kRing;
   fit_layout(s, true, bwd_smem_bytes);
   return s;
 }
 
-inline bool bwd_shape_ok(int H, int W, int C, int G, bool f32) {
-  const Shape s = bwd_shape(H, W, C, G, f32);
+inline bool bwd_shape_ok(int H, int W, int C, int G, int prec) {
+  const Shape s = bwd_shape(H, W, C, G, prec);
   return layout_ok(s) && C >= 32 && C % weight_tile(C) == 0 && bwd_smem_bytes(s) <= kMaxSmem &&
          weight_smem_bytes(s) <= kMaxSmem;
 }
 
-// Normalised value x-hat at element e (channel c) of x, from gn_stats'
-// mean/inv.  kBf16: x rounded to bf16 as it is read (the state h; the
-// other GroupNorm inputs hold bf16 values already).
+// Normalised value x-hat of a GroupNorm input x from its group's mean and
+// inv.  kBf16: x rounded to bf16 as it is read (the state h; the other
+// GroupNorm inputs hold bf16 values already).  Both per-sample passes take
+// it.
+template <int PREC>
+__device__ __forceinline__ float gn_hat_of(float x, float mean, float inv) {
+  return ((PREC == kBf16 ? bf16_round(x) : x) - mean) * inv;
+}
+
+// Whether GroupNorm's output y = GN(x) (its channel's scale sc, bias bi) is
+// positive: the ReLU mask, from the statistics the forward used and at its
+// precision.  Both per-sample passes take it.
+template <int PREC>
+__device__ __forceinline__ bool gn_positive_of(float x, float mean, float inv, float sc,
+                                               float bi) {
+  if constexpr (PREC == kBf16)
+    return gn_affine<kBf16>(bf16_round(x), mean, inv, sc, bi) > 0.f;
+  else
+    return gn_hat_of<kF32>(x, mean, inv) * sc + bi > 0.f;
+}
+
+// The plain bf16 VJP's per-element products, in both per-sample passes.
+// dy * scale (kBf16: scale rounded, the product rounded).
+template <int PREC>
+__device__ __forceinline__ float gn_dys(float dy, float sc) {
+  return PREC == kBf16 ? bf16_round(dy * bf16_round(sc)) : dy * sc;
+}
+// a + dy * x-hat, a term of dscale's sum (kBf16: dy * bf16(x-hat) rounded).
+template <int PREC>
+__device__ __forceinline__ float gn_dscale_add(float a, float dy, float xh) {
+  return PREC == kBf16 ? a + bf16_round(dy * bf16_round(xh)) : fmaf(dy, xh, a);
+}
+// a + g * M, a term of the t gradient's sum (kBf16: g * bf16(M) rounded).
+template <int PREC>
+__device__ __forceinline__ float tmap_add(float a, float g, float tm) {
+  return PREC == kBf16 ? a + bf16_round(g * bf16_round(tm)) : fmaf(g, tm, a);
+}
+// g's term of a time-column sum, and the sum's value at t: kBf16 sums the
+// rounded products g * t, the f32 build multiplies the sum of g by t.
+template <int PREC>
+__device__ __forceinline__ float tcol_term(float g, float t) {
+  return PREC == kBf16 ? bf16_round(g * t) : g;
+}
+template <int PREC>
+__device__ __forceinline__ float tcol_value(float sum, float t) {
+  return PREC == kBf16 ? sum : t * sum;
+}
+
+// gn_hat_of at element e (channel c) of x, from gn_stats' mean/inv.
 template <bool WIDE, int PREC = kF32>
 __device__ __forceinline__ float gn_hat(const Shape& s, const float* x, const float* mean,
                                         const float* inv, int e, int c) {
   const int g = group_of<WIDE>(s, c);
-  return ((PREC == kBf16 ? bf16_round(x[e]) : x[e]) - mean[g]) * inv[g];
+  return gn_hat_of<PREC>(x[e], mean[g], inv[g]);
 }
 
-// Whether GroupNorm's output y = GN(x) (scale, bias) at element e is
-// positive: the ReLU mask, from the statistics the forward used and at its
-// precision.
+// gn_positive_of at element e (channel c) of x.
 template <bool WIDE, int PREC>
 __device__ __forceinline__ bool gn_positive(const Shape& s, const float* x, const float* mean,
                                             const float* inv, const float* __restrict__ scale,
                                             const float* __restrict__ bias, int e, int c) {
-  if constexpr (PREC == kBf16) {
-    const int g = group_of<WIDE>(s, c);
-    return gn_affine<kBf16>(bf16_round(x[e]), mean[g], inv[g], scale[c], bias[c]) > 0.f;
-  } else {
-    return gn_hat<WIDE>(s, x, mean, inv, e, c) * scale[c] + bias[c] > 0.f;
-  }
+  const int g = group_of<WIDE>(s, c);
+  return gn_positive_of<PREC>(x[e], mean[g], inv[g], scale[c], bias[c]);
 }
 
 // Per-channel sums of a(e, c) and b(e, c) over the sample's pixels into
@@ -255,16 +295,10 @@ __device__ void gn_backward(const Smem& m, float* sred2, float* chan, const Shap
   constexpr bool kB = PREC == kBf16;
   const int tid = threadIdx.x, C = s.C, hw = s.H * s.W, gs = s.gs;
   auto xhat = [&](int e, int c) { return gn_hat<WIDE, PREC>(s, x, mean, inv, e, c); };
-  // dy * scale at the precision of the build.
-  auto dys = [&](int e, int c) {
-    return kB ? bf16_round(dyf(e, c) * bf16_round(scale[c])) : dyf(e, c) * scale[c];
-  };
+  auto dys = [&](int e, int c) { return gn_dys<PREC>(dyf(e, c), scale[c]); };
   channel_sums<WIDE>(
       m, sred2, chan, s,
-      [&](int e, int c, float a) {
-        const float dy = dyf(e, c), xh = xhat(e, c);
-        return kB ? a + bf16_round(dy * bf16_round(xh)) : fmaf(dy, xh, a);
-      },
+      [&](int e, int c, float a) { return gn_dscale_add<PREC>(a, dyf(e, c), xhat(e, c)); },
       [&](int e, int c, float a) { return a + dyf(e, c); });
   if (tid < C) {
     dscale[tid] = chan[tid];
@@ -330,8 +364,7 @@ __device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, cons
     for (int p = pg; p < hw; p += npg) {
       const float v = m.spad[pad_at(s, p, c)];
       a1 += v;
-      a2 = PREC == kBf16 ? a2 + bf16_round(v * bf16_round(tmap[p * C + c]))
-                         : fmaf(v, tmap[p * C + c], a2);
+      a2 = tmap_add<PREC>(a2, v, tmap[p * C + c]);
     }
   m.sred[tid] = a1;
   sred2[tid] = a2;
@@ -342,11 +375,9 @@ __device__ float conv_param_grads(const Smem& m, float* sred2, float* chan, cons
     const int x0 = max(0, 1 - kx), x1 = min(s.W, s.W + 1 - kx);
     float acc = 0.f;
     for (int y = y0; y < y1; ++y)
-      for (int x = x0; x < x1; ++x) {
-        const float v = m.spad[((y + 1) * Wp + x + 1) * s.P + cc];
-        acc += PREC == kBf16 ? bf16_round(v * t) : v;
-      }
-    dwt[e] = PREC == kBf16 ? acc : t * acc;
+      for (int x = x0; x < x1; ++x)
+        acc += tcol_term<PREC>(m.spad[((y + 1) * Wp + x + 1) * s.P + cc], t);
+    dwt[e] = tcol_value<PREC>(acc, t);
   }
   __syncthreads();
   if (tid < C) {
@@ -415,11 +446,7 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   __syncthreads();
   each_element<kWide>(s, [&](const auto& w) { r1[off + w.e] = m.spad[pad_at(s, w.q(s), w.c(s))]; });
   conv_stage<kWide, kPrec>(m, s, p.w1, [&](int q, int co, float acc) {
-    if constexpr (kB)
-      su[q * C + co] = bf16_round(bf16_round(bf16_round(acc) + bf16_round(p.b1[co])) +
-                                  bf16_round(tb * bf16_round(p.m1[q * C + co])));
-    else
-      su[q * C + co] = (acc + p.b1[co]) + tb * p.m1[q * C + co];
+    su[q * C + co] = concat_out<kPrec>(acc, p.b1[co], tb, p.m1[q * C + co]);
   });
   __syncthreads();
   stat = gn_stats<kWide>(m, s, su, mean2, inv2);
@@ -490,10 +517,11 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
   if (tid == 0) dt[blockIdx.x] = dt_acc;
 }
 
-// ---- the f32 per-sample pass at C = 64: a two-CTA cluster per sample -----
+// ---- the per-sample pass at C = 64: a two-CTA cluster per sample --------
 //
-// bwd_sample_kernel_cluster computes what bwd_sample_kernel<false, false,
-// kF32> computes, with the same sums in the same order, as a cluster of two
+// bwd_sample_kernel_cluster<kPrec> computes what bwd_sample_kernel<false,
+// false, kPrec> computes, with the same sums in the same order and, in the
+// bf16 build, the same rounding points, as a cluster of two
 // CTAs of 256 threads per sample (Hopper's thread-block clusters).  One CTA
 // per sample put 128 CTAs of 512 threads on 132 SMs at the training batch,
 // one an SM, so nothing filled the gaps of its serial chain (a tap's split
@@ -516,17 +544,25 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
 // either writes the next conv input into the other's spad.  dt, a sum over
 // all channels, is made by rank 0 from both halves' per-channel sums (rank 1
 // stores its 32 into rank 0's dtp), channel by channel in order, as the one-CTA
-// pass adds them: every output, dt included, is that pass's bit for bit.
-// No atomics: two launches give the same bits.
+// pass adds them: in both builds every output, dt included, is that pass's
+// bit for bit.  No atomics: two launches give the same bits.
 //
-// The convs (pair_conv) are the forward's wgmma3 conv itself
-// (odefunc_common.cuh wgmma_conv, at two warpgroups) on a CTA's output
-// half: its two warpgroups take the two k halves (32 input channels each) of
-// a tap for the CTA's 32 output channels, one wgmma.mma_async.m64n32k8
-// 3xTF32 chain from zero per tap, the taps added in f32 in order, the first
-// k half + the second last: conv3x3_mma<3>'s order, so the recompute's two
-// convs give odefunc_forward's f and the input-gradient convs the mma.sync
-// stage's bits.  The input gradient is the conv with tap 8 - k's (C, C) tile
+// The bf16 build (kBf16) takes its rounding points from the helpers the
+// one-CTA pass calls (gn_affine, gn_hat_of, gn_positive_of, gn_dys,
+// gn_dscale_add, tmap_add, tcol_term, concat_out; the head of this file
+// lists the points): h, t and the cotangent rounded on
+// entry, each input-gradient conv's sum rounded once, the GroupNorm
+// backward's bf16 products and second sums, dx rounded, the time-map
+// products and the t gradients rounded.
+//
+// The convs (pair_conv) are the forward's conv itself (odefunc_common.cuh
+// wgmma_conv at two warpgroups: wgmma3 in kF32, wgmma_bf16 in kBf16) on a
+// CTA's output half: its two warpgroups take the two k halves (32 input
+// channels each) of a tap for the CTA's 32 output channels, one chain from
+// zero per tap (three m64n32k8 TF32 products per k8 step, or two m64n32k16
+// bf16), the taps added in f32 in order, the first k half + the second
+// last: the mma.sync stage's order, so the recompute's two convs give the
+// forward kernel's f.  The input gradient is the conv with tap 8 - k's (C, C) tile
 // transposed: its B operand is row n = input channel, column k = output
 // channel of w[8 - k], so a CTA's half is the tile's 32 contiguous rows
 // 32r.., copied (8 KB) as the forward's tap k (16 KB, the CTA's half being
@@ -539,28 +575,33 @@ bwd_sample_kernel(const float* __restrict__ t, const float* __restrict__ h,
 // this first design leaves out.
 //
 // Shared memory per CTA (pair_smem_bytes): 72,976 bytes at 7x7x64 and
-// 69,072 at 6x6x64 (the one-CTA pass's: 110,720 and 103,488), so two CTAs
-// and their reserved kilobyte fit an SM (three, by shared memory alone); the
-// launch bounds (256 threads, 2 CTAs) give up to 128 registers a thread.
-// Bound as bwd_sample_kernel's (the head of this file: 4.2 us of bytes at
-// B = 128, 7x7x64).
+// 69,072 at 6x6x64 (bf16: 60,688 and 56,784; the one-CTA pass's: 110,720
+// and 103,488), so two CTAs and their reserved kilobyte fit an SM (three,
+// by shared memory alone); the launch bounds (256 threads, 2 CTAs) give up
+// to 128 registers a thread.  Bound as bwd_sample_kernel's (the head of
+// this file: 4.2 us of bytes at B = 128, 7x7x64).
 
 constexpr int kPairThreads = 256;                    // threads per CTA of the cluster
 constexpr int kPairC = kMmaC / 2;                    // output channels a CTA owns
 constexpr int kPairGroups = kPairThreads / kPairC;   // pixel groups, the one-CTA pass's 8
 
-// The shapes whose f32 per-sample pass runs as a cluster: the wgmma3 shapes
-// (C = 64, among them 7x7x64 and 6x6x64) with an even number of GroupNorm
-// groups, so that no group has channels in both halves.  kPrec = kF32 only:
-// the bf16 build keeps the one-CTA pass.  kernels/odefunc_bwd.py
-// (sample_pass) is the same gate in Python.
+// The shapes whose per-sample pass runs as a cluster, in both builds: the
+// wgmma_conv shapes (C = 64, among them 7x7x64 and 6x6x64) with an even
+// number of GroupNorm groups, so that no group has channels in both
+// halves.  kernels/odefunc_bwd.py (sample_pass) is the same gate in Python.
 inline bool pair_ok(int H, int W, int C, int G) {
   return wgmma_ok(H, W, C) && G > 0 && C % G == 0 && G % 2 == 0;
 }
 
+// Floats of a cluster CTA's weight area in build prec: wgmma_conv<2>'s
+// operand tiles (the TF32 heads and tails of its half of a tap, or its
+// bf16 tile), the f32 tile as copied and its two mbarriers.
+__host__ __device__ constexpr int pair_area_floats(int prec) {
+  return wg_operand_floats(2, prec) + kTileF + 4;
+}
+
 // Dynamic shared memory of a CTA of the cluster pass, in floats:
-//   head, tail [kHalfTileF each]  the TF32 heads and tails of its half of a tap
-//   raw   [kTileF]     the f32 tile as copied; then its two mbarriers [4]
+//   head  [pair_area_floats(prec)]  the weight area (above)
 //   spad  [R*P]        the conv input, all C channels, with a zero border
 //   sx, su [H*W*kPairC each]  own channels of x (then v, then an input
 //                      gradient) and of u
@@ -569,19 +610,19 @@ inline bool pair_ok(int H, int W, int C, int G) {
 //   chan  [4*kPairC]   per-channel sums and group means
 //   dtp   [2*C]        rank 0: every channel's sum of g*M, conv2's then conv1's
 // kernels/odefunc_bwd.py (cluster_smem_bytes) mirrors this formula.
-inline size_t pair_smem_bytes(const Shape& s) {
-  return sizeof(float) * (2 * (size_t)kHalfTileF + kTileF + 4 + (size_t)s.R * s.P +
+inline size_t pair_smem_bytes(const Shape& s, int prec) {
+  return sizeof(float) * ((size_t)pair_area_floats(prec) + (size_t)s.R * s.P +
                           2 * (size_t)s.H * s.W * kPairC + 2 * kPairThreads + 3 * (size_t)s.G +
                           4 * kPairC + 2 * (size_t)s.C);
 }
 
-// head: wgmma_conv<2>'s weight area (head, tail, raw, its mbarriers).
+// head: wgmma_conv<2>'s weight area.
 struct PairSmem { float *head, *spad, *sx, *su, *sred, *st, *chan, *dtp; };
 
-__device__ __forceinline__ PairSmem carve_pair(float* base, const Shape& s) {
+__device__ __forceinline__ PairSmem carve_pair(float* base, const Shape& s, int prec) {
   PairSmem m;
   m.head = base;
-  m.spad = m.head + 2 * kHalfTileF + kTileF + 4;
+  m.spad = m.head + pair_area_floats(prec);
   m.sx = m.spad + s.R * s.P;
   m.su = m.sx + s.H * s.W * kPairC;
   m.sred = m.su + s.H * s.W * kPairC;
@@ -656,68 +697,85 @@ __device__ Stat pair_stats(const PairSmem& m, const Shape& s, const float* x, in
 }
 
 // f(el, y) with y = GN(x) (scale, bias: the CTA's channels) at the thread's
-// elements, from pair_stats' st.
-template <class F>
+// elements, from pair_stats' st, at precision PREC (gn_affine).
+template <int PREC, class F>
 __device__ __forceinline__ void pair_apply(const Shape& s, Stat st, const float* __restrict__ scale,
                                           const float* __restrict__ bias, const float* x,
                                           int pitch, F f) {
   const int n = s.H * s.W * kPairC, cl = threadIdx.x & (kPairC - 1);
   const float sc = scale[cl], bi = bias[cl];
   for (int el = threadIdx.x; el < n; el += kPairThreads)
-    f(el, gn_affine<kF32>(x_at(x, pitch, el), st.mean, st.inv, sc, bi));
+    f(el, gn_affine<PREC>(x_at(x, pitch, el), st.mean, st.inv, sc, bi));
 }
 
-// gn_positive (f32) at the CTA's element el.
+// gn_positive_of at the CTA's element el.
+template <int PREC>
 __device__ __forceinline__ bool pair_positive(const Shape& s, const float* x, int pitch,
                                               const float* mean, const float* inv,
                                               const float* __restrict__ scale,
                                               const float* __restrict__ bias, int el) {
   const int cl = el & (kPairC - 1), g = cl >> s.lgs;
-  return (x_at(x, pitch, el) - mean[g]) * inv[g] * scale[cl] + bias[cl] > 0.f;
+  return gn_positive_of<PREC>(x_at(x, pitch, el), mean[g], inv[g], scale[cl], bias[cl]);
 }
 
-// gn_backward (f32) over the CTA's channels, in its order: dscale, dbias
-// (the CTA's columns of the partial rows), then dx to out(el, dx).  Caller
-// synchronises before; ends unsynchronised.
-template <class Dy, class Out>
+// gn_backward over the CTA's channels, in its order and at its precision:
+// dscale, dbias (the CTA's columns of the partial rows), then dx to
+// out(el, dx).  Caller synchronises before; ends unsynchronised.
+template <int PREC, class Dy, class Out>
 __device__ void pair_gn_backward(const PairSmem& m, const Shape& s, const float* x, int pitch,
                                  const float* mean, const float* inv,
                                  const float* __restrict__ scale, Dy dyf, float* dscale,
                                  float* dbias, Out out) {
+  constexpr bool kB = PREC == kBf16;
   const int tid = threadIdx.x, cl = tid & (kPairC - 1), hw = s.H * s.W, n = hw * kPairC;
   const int gs = 1 << s.lgs, g = cl >> s.lgs;
-  auto xhat = [&](int el) { return (x_at(x, pitch, el) - mean[g]) * inv[g]; };
-  float a1 = 0.f, a2 = 0.f;
-  for (int el = tid; el < n; el += kPairThreads) {
-    const float dy = dyf(el), xh = xhat(el);
-    a1 = fmaf(dy, xh, a1);
-    a2 = a2 + dyf(el);
-  }
-  float* red2 = m.sred + kPairThreads;
-  m.sred[tid] = a1;
-  red2[tid] = a2;
-  __syncthreads();
-  if (tid < kPairC) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int q = 0; q < kPairGroups; ++q) {
-      s1 += m.sred[q * kPairC + tid];
-      s2 += red2[q * kPairC + tid];
+  auto xhat = [&](int el) { return gn_hat_of<PREC>(x_at(x, pitch, el), mean[g], inv[g]); };
+  auto dys = [&](int el) { return gn_dys<PREC>(dyf(el), scale[cl]); };
+  // channel_sums over the CTA's channels: a1(el, acc) and a2(el, acc) per
+  // thread, then over the pixel groups in order, into chan[cl] and
+  // chan[kPairC + cl].  Ends synchronised.
+  auto channel_sums = [&](auto a1f, auto a2f) {
+    float a1 = 0.f, a2 = 0.f;
+    for (int el = tid; el < n; el += kPairThreads) {
+      a1 = a1f(el, a1);
+      a2 = a2f(el, a2);
     }
-    m.chan[tid] = s1;
-    m.chan[kPairC + tid] = s2;
-  }
-  __syncthreads();
+    float* red2 = m.sred + kPairThreads;
+    m.sred[tid] = a1;
+    red2[tid] = a2;
+    __syncthreads();
+    if (tid < kPairC) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int q = 0; q < kPairGroups; ++q) {
+        s1 += m.sred[q * kPairC + tid];
+        s2 += red2[q * kPairC + tid];
+      }
+      m.chan[tid] = s1;
+      m.chan[kPairC + tid] = s2;
+    }
+    __syncthreads();
+  };
+  channel_sums([&](int el, float a) { return gn_dscale_add<PREC>(a, dyf(el), xhat(el)); },
+               [&](int el, float a) { return a + dyf(el); });
   if (tid < kPairC) {
     dscale[tid] = m.chan[tid];
     dbias[tid] = m.chan[kPairC + tid];
   }
+  if constexpr (kB)  // chan = per-channel sums of dy*scale*x-hat, dy*scale
+    channel_sums([&](int el, float a) { return fmaf(dys(el), xhat(el), a); },
+                 [&](int el, float a) { return a + dys(el); });
   if (tid < (s.G >> 1)) {  // the group means of this CTA's groups
     const float nn = (float)(hw * gs);
     float s1 = 0.f, s2 = 0.f;
     for (int j = 0; j < gs; ++j) {
       const int cc = tid * gs + j;
-      s1 = fmaf(scale[cc], m.chan[cc], s1);
-      s2 = fmaf(scale[cc], m.chan[kPairC + cc], s2);
+      if (kB) {
+        s1 += m.chan[cc];
+        s2 += m.chan[kPairC + cc];
+      } else {
+        s1 = fmaf(scale[cc], m.chan[cc], s1);
+        s2 = fmaf(scale[cc], m.chan[kPairC + cc], s2);
+      }
     }
     m.chan[2 * kPairC + tid] = s2 / nn;  // mean_g(dy * scale)
     m.chan[3 * kPairC + tid] = s1 / nn;  // mean_g(dy * scale * x-hat)
@@ -725,15 +783,16 @@ __device__ void pair_gn_backward(const PairSmem& m, const Shape& s, const float*
   __syncthreads();
   const float ig = inv[g], m1 = m.chan[2 * kPairC + g], m2 = m.chan[3 * kPairC + g];
   for (int el = tid; el < n; el += kPairThreads) {
-    const float dx = ig * (dyf(el) * scale[cl] - m1 - xhat(el) * m2);
-    out(el, dx);
+    const float dx = ig * (dys(el) - m1 - xhat(el) * m2);
+    out(el, kB ? bf16_round(dx) : dx);
   }
 }
 
-// conv_param_grads (f32) over the CTA's channels, from the cotangent in its
-// spad (its own channels, written by this CTA; caller synchronised): db and
-// dwt (the CTA's columns), and each channel's sum of g*M into rank 0's dtp
-// at slot*C + channel.  Ends unsynchronised.
+// conv_param_grads over the CTA's channels, at its precision, from the
+// cotangent in its spad (its own channels, written by this CTA; caller
+// synchronised): db and dwt (the CTA's columns), and each channel's sum of
+// g*M into rank 0's dtp at slot*C + channel.  Ends unsynchronised.
+template <int PREC>
 __device__ void pair_param_grads(const PairSmem& m, const Shape& s, const float* __restrict__ tmap,
                                  float t, float* db, float* dwt, uint32_t rank, int slot) {
   const int tid = threadIdx.x, pg = tid >> 5, cl = tid & (kPairC - 1), C = s.C;
@@ -742,7 +801,7 @@ __device__ void pair_param_grads(const PairSmem& m, const Shape& s, const float*
   for (int p = pg; p < hw; p += kPairGroups) {
     const float v = m.spad[pad_at(s, p, c)];
     a1 += v;
-    a2 = fmaf(v, tmap[p * C + c], a2);
+    a2 = tmap_add<PREC>(a2, v, tmap[p * C + c]);
   }
   float* red2 = m.sred + kPairThreads;
   m.sred[tid] = a1;
@@ -754,8 +813,9 @@ __device__ void pair_param_grads(const PairSmem& m, const Shape& s, const float*
     const int x0 = max(0, 1 - kx), x1 = min(s.W, s.W + 1 - kx);
     float acc = 0.f;
     for (int y = y0; y < y1; ++y)
-      for (int x = x0; x < x1; ++x) acc += m.spad[((y + 1) * Wp + x + 1) * s.P + c0 + ce];
-    dwt[k * C + ce] = t * acc;
+      for (int x = x0; x < x1; ++x)
+        acc += tcol_term<PREC>(m.spad[((y + 1) * Wp + x + 1) * s.P + c0 + ce], t);
+    dwt[k * C + ce] = tcol_value<PREC>(acc, t);
   }
   __syncthreads();
   if (tid < kPairC) {
@@ -772,18 +832,19 @@ __device__ void pair_param_grads(const PairSmem& m, const Shape& s, const float*
 }
 
 // 3x3 SAME conv of spad (all C = 64 channels) on wgmma for this CTA's 32
-// output channels (wgmma_conv<2>), epi(p, cl, sum) once per output pixel p
-// and own channel cl; the caller synchronises before and after.  BT: the
-// input gradient, the conv with tap 8 - k's tile transposed.
-template <bool BT, class Epi>
+// output channels (wgmma_conv<2> at precision PREC), epi(p, cl, sum) once
+// per output pixel p and own channel cl; the caller synchronises before and
+// after.  BT: the input gradient, the conv with tap 8 - k's tile transposed.
+template <bool BT, int PREC, class Epi>
 __device__ __forceinline__ void pair_conv(const PairSmem& m, const Shape& s,
                                           const float* __restrict__ w, uint32_t rank, Epi epi) {
-  wgmma_conv<2, BT>(m.spad, s, m.head, w, (int)rank * kPairC, epi);
+  wgmma_conv<2, BT, PREC>(m.spad, s, m.head, w, (int)rank * kPairC, epi);
 }
 
 // The per-sample pass as a cluster (the note above): block 2b + r is rank r
 // of sample b.  Arguments and outputs as bwd_sample_kernel's (no global
-// scratch: C = 64); the f32 build only.
+// scratch: C = 64); kPrec: kF32 or kBf16.
+template <int kPrec>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kPairThreads, 2)
 bwd_sample_kernel_cluster(const float* __restrict__ t, const float* __restrict__ h,
                           const float* __restrict__ g, Odefunc p, Shape s,
@@ -791,13 +852,14 @@ bwd_sample_kernel_cluster(const float* __restrict__ t, const float* __restrict__
                           float* __restrict__ dt, float* __restrict__ r1,
                           float* __restrict__ r2, float* __restrict__ gu,
                           float* __restrict__ gv, float* __restrict__ part) {
+  constexpr bool kB = kPrec == kBf16;
   extern __shared__ float4 smem_raw[];
-  const PairSmem m = carve_pair(reinterpret_cast<float*>(smem_raw), s);
+  const PairSmem m = carve_pair(reinterpret_cast<float*>(smem_raw), s, kPrec);
   const int C = s.C, tid = threadIdx.x, hw = s.H * s.W, n = hw * kPairC, Gh = s.G >> 1;
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
   const int b = blockIdx.x >> 1, c0 = (int)rank * kPairC;
   const size_t off = (size_t)b * hw * C + c0;  // (pixel q, channel c0 + cl) at off + q*C + cl
-  const float tb = t[b];
+  const float tb = kB ? bf16_round(t[b]) : t[b];
   const float* hb = h + off;
   float* pb = part + (size_t)b * kParts * C + c0;
   float *mean1 = m.st, *inv1 = m.st + Gh, *mean2 = m.st + 2 * Gh, *inv2 = m.st + 3 * Gh;
@@ -813,81 +875,87 @@ bwd_sample_kernel_cluster(const float* __restrict__ t, const float* __restrict__
   // Forward recompute, as bwd_sample_kernel's: r1 = relu(GN1(h)), u =
   // conv1(r1), r2 = relu(GN2(u)), v = conv2(r2) in sx, f = GN3(v).
   for (int i = tid; i < s.R * s.P; i += kPairThreads) m.spad[i] = 0.f;
-  for (int el = tid; el < n; el += kPairThreads) m.sx[el] = x_at(hb, C, el);
+  for (int el = tid; el < n; el += kPairThreads)
+    m.sx[el] = kB ? bf16_round(x_at(hb, C, el)) : x_at(hb, C, el);
   cluster_sync();  // both spads zeroed before either CTA writes into the other's
   Stat stat = pair_stats(m, s, m.sx, kPairC, mean1, inv1);
-  pair_apply(s, stat, p.n1s + c0, p.n1b + c0, m.sx, kPairC, [&](int el, float v) {
+  pair_apply<kPrec>(s, stat, p.n1s + c0, p.n1b + c0, m.sx, kPairC, [&](int el, float v) {
     const float y = v < 0.f ? 0.f : v;
     to_pads(el, y);
     r1[at(el)] = y;
   });
   cluster_sync();  // both spads hold r1
-  pair_conv<false>(m, s, p.w1, rank, [&](int q, int cl, float acc) {
+  pair_conv<false, kPrec>(m, s, p.w1, rank, [&](int q, int cl, float acc) {
     const int co = c0 + cl;
-    m.su[q * kPairC + cl] = (acc + p.b1[co]) + tb * p.m1[q * C + co];
+    m.su[q * kPairC + cl] = concat_out<kPrec>(acc, p.b1[co], tb, p.m1[q * C + co]);
   });
   cluster_sync();  // u visible; the peer has read its spad
   stat = pair_stats(m, s, m.su, kPairC, mean2, inv2);
-  pair_apply(s, stat, p.n2s + c0, p.n2b + c0, m.su, kPairC, [&](int el, float v) {
+  pair_apply<kPrec>(s, stat, p.n2s + c0, p.n2b + c0, m.su, kPairC, [&](int el, float v) {
     const float y = v < 0.f ? 0.f : v;
     to_pads(el, y);
     r2[at(el)] = y;
   });
   cluster_sync();  // both spads hold r2
-  pair_conv<false>(m, s, p.w2, rank, [&](int q, int cl, float acc) {
+  pair_conv<false, kPrec>(m, s, p.w2, rank, [&](int q, int cl, float acc) {
     const int co = c0 + cl;
-    m.sx[q * kPairC + cl] = (acc + p.b2[co]) + tb * p.m2[q * C + co];
+    m.sx[q * kPairC + cl] = concat_out<kPrec>(acc, p.b2[co], tb, p.m2[q * C + co]);
   });
   cluster_sync();  // v visible; the peer has read its spad
   stat = pair_stats(m, s, m.sx, kPairC, mean3, inv3);
-  pair_apply(s, stat, p.n3s + c0, p.n3b + c0, m.sx, kPairC,
-             [&](int el, float v) { fout[at(el)] = v; });
+  pair_apply<kPrec>(s, stat, p.n3s + c0, p.n3b + c0, m.sx, kPairC,
+                    [&](int el, float v) { fout[at(el)] = v; });
   __syncthreads();  // mean3, inv3 visible
 
-  auto to_sx = [&](int q, int cl, float acc) { m.sx[q * kPairC + cl] = acc; };
-  // GN3: gv into both spads.
-  pair_gn_backward(m, s, m.sx, kPairC, mean3, inv3, p.n3s + c0,
-                   [&](int el) { return g[at(el)]; }, pb + 4 * C, pb + 5 * C,
-                   [&](int el, float v) {
-                     gv[at(el)] = v;
-                     to_pads(el, v);
-                   });
+  // An input-gradient conv's sum into sx; kBf16 rounds it once.
+  auto to_sx = [&](int q, int cl, float acc) {
+    m.sx[q * kPairC + cl] = kB ? bf16_round(acc) : acc;
+  };
+  // GN3: gv into both spads; kBf16 takes the cotangent rounded.
+  pair_gn_backward<kPrec>(m, s, m.sx, kPairC, mean3, inv3, p.n3s + c0,
+                          [&](int el) { return kB ? bf16_round(g[at(el)]) : g[at(el)]; },
+                          pb + 4 * C, pb + 5 * C,
+                          [&](int el, float v) {
+                            gv[at(el)] = v;
+                            to_pads(el, v);
+                          });
   __syncthreads();
-  pair_param_grads(m, s, p.m2, tb, pb + 7 * C, pb + 17 * C, rank, 0);
+  pair_param_grads<kPrec>(m, s, p.m2, tb, pb + 7 * C, pb + 17 * C, rank, 0);
   cluster_sync();  // both spads hold gv; rank 0 holds conv2's g*M sums
-  pair_conv<true>(m, s, p.w2, rank, to_sx);  // conv2 input gradient
+  pair_conv<true, kPrec>(m, s, p.w2, rank, to_sx);  // conv2 input gradient
   cluster_sync();  // sx visible; the peer has read its spad
   // ReLU2 + GN2: gu into both spads.
-  pair_gn_backward(m, s, m.su, kPairC, mean2, inv2, p.n2s + c0,
-                   [&](int el) {
-                     return pair_positive(s, m.su, kPairC, mean2, inv2, p.n2s + c0, p.n2b + c0,
-                                          el)
-                                ? m.sx[el]
-                                : 0.f;
-                   },
-                   pb + 2 * C, pb + 3 * C,
-                   [&](int el, float v) {
-                     gu[at(el)] = v;
-                     to_pads(el, v);
-                   });
+  pair_gn_backward<kPrec>(m, s, m.su, kPairC, mean2, inv2, p.n2s + c0,
+                          [&](int el) {
+                            return pair_positive<kPrec>(s, m.su, kPairC, mean2, inv2,
+                                                        p.n2s + c0, p.n2b + c0, el)
+                                       ? m.sx[el]
+                                       : 0.f;
+                          },
+                          pb + 2 * C, pb + 3 * C,
+                          [&](int el, float v) {
+                            gu[at(el)] = v;
+                            to_pads(el, v);
+                          });
   __syncthreads();
-  pair_param_grads(m, s, p.m1, tb, pb + 6 * C, pb + 8 * C, rank, 1);
+  pair_param_grads<kPrec>(m, s, p.m1, tb, pb + 6 * C, pb + 8 * C, rank, 1);
   cluster_sync();  // both spads hold gu; rank 0 holds conv1's g*M sums
-  pair_conv<true>(m, s, p.w1, rank, to_sx);  // conv1 input gradient
+  pair_conv<true, kPrec>(m, s, p.w1, rank, to_sx);  // conv1 input gradient
   __syncthreads();
   // ReLU1 + GN1: dh.
-  pair_gn_backward(m, s, hb, C, mean1, inv1, p.n1s + c0,
-                   [&](int el) {
-                     return pair_positive(s, hb, C, mean1, inv1, p.n1s + c0, p.n1b + c0, el)
-                                ? m.sx[el]
-                                : 0.f;
-                   },
-                   pb, pb + C, [&](int el, float v) { dh[at(el)] = v; });
+  pair_gn_backward<kPrec>(m, s, hb, C, mean1, inv1, p.n1s + c0,
+                          [&](int el) {
+                            return pair_positive<kPrec>(s, hb, C, mean1, inv1, p.n1s + c0,
+                                                        p.n1b + c0, el)
+                                       ? m.sx[el]
+                                       : 0.f;
+                          },
+                          pb, pb + C, [&](int el, float v) { dh[at(el)] = v; });
   if (rank == 0 && tid == 0) {  // dt: conv2's channels in order, plus conv1's
     float dv = 0.f, du = 0.f;
     for (int c = 0; c < C; ++c) dv += m.dtp[c];
     for (int c = 0; c < C; ++c) du += m.dtp[C + c];
-    dt[b] = dv + du;
+    dt[b] = kB ? bf16_round(bf16_round(dv) + bf16_round(du)) : dv + du;
   }
 }
 
@@ -1117,17 +1185,16 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
              float* r1, float* r2, float* gu, float* gv, float* part, float* wpart,
              float* ug, float* dk1, float* dk2, float* dvec, int B, int H, int W, int C,
              int G, int ns, void* stream) {
-  constexpr bool kF = kPrec == kF32;
-  if (!bwd_shape_ok(H, W, C, G, kF) || B < 1 || ns < 1 || ns > B)
+  if (!bwd_shape_ok(H, W, C, G, kPrec) || B < 1 || ns < 1 || ns > B)
     return (int)cudaErrorInvalidValue;
-  const Shape s = bwd_shape(H, W, C, G, kF);
+  const Shape s = bwd_shape(H, W, C, G, kPrec);
   if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
   if (s.ug && ug == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (kF && pair_ok(H, W, C, G)) {  // the cluster pass, two CTAs a sample
-    const size_t smem = pair_smem_bytes(s);
-    const auto pass = bwd_sample_kernel_cluster;
+  if (pair_ok(H, W, C, G)) {  // the cluster pass, two CTAs a sample
+    const size_t smem = pair_smem_bytes(s, kPrec);
+    const auto pass = bwd_sample_kernel_cluster<kPrec>;
     if ((err = cudaFuncSetAttribute(pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)smem)) != cudaSuccess)
       return (int)err;

@@ -26,7 +26,9 @@
 //     wgmma_ok, among them 7x7x64 and 6x6x64): the arithmetic of
 //     conv3x3_mma<3> below on Hopper's warpgroup products,
 //     wgmma.mma_async.m64n32k8 TF32 with A from registers and B from shared
-//     memory; see its note.
+//     memory; see its note.  Its bf16 build ("wgmma_bf16"; the kBf16
+//     evaluations at the same shapes) is conv3x3_mma<kPassBf16>'s
+//     arithmetic on wgmma.mma_async.m64n32k16 bf16.
 //   * conv3x3_mma (C a multiple of 32 from 64 to 512 and H*(W+2) <= 64: 7x7
 //     and 6x6 maps): an implicit GEMM on the tensor cores, mma.sync.m16n8k8
 //     TF32 with f32 accumulation
@@ -66,14 +68,17 @@
 // Each stage has a bf16 build, "bf16 multiplies, f32 accumulation" (the TPU
 // kernels' bf16 modes): conv3x3_mma<kPassBf16> packs both operands to bf16
 // (round to nearest even) as it builds the fragments of one
-// mma.sync.m16n8k16 bf16 pass, and conv3x3<true> rounds the weights as it
-// reads them and takes a conv input that its writer has rounded.  The tap
-// sums and their order are those of the f32 builds.  Which build an
-// evaluation runs is its precision (PREC below):
+// mma.sync.m16n8k16 bf16 pass, wgmma_conv<..., kBf16> converts each weight
+// tile to bf16 once per CTA and packs A as conv3x3_mma<kPassBf16> does, and
+// conv3x3<true> rounds the weights as it reads them and takes a conv input
+// that its writer has rounded.  The tap sums and their order are those of
+// the f32 builds.  Which build an evaluation runs is its precision (PREC
+// below):
 //   kF32       every f32 kernel: the conv stage above, the rest f32;
 //   kBf16Conv  the fused step's conv_precision='bf16': the conv input is
 //              rounded where it is written and the convs run the bf16
-//              stage; GroupNorm, bias, time map and stage sums stay f32;
+//              mma.sync stage (never wgmma_bf16); GroupNorm, bias, time map
+//              and stage sums stay f32;
 //   kBf16      compute_dtype='bfloat16' dynamics, the port's plain bf16
 //              path (kernels/odefunc.py odefunc_plain, precision 'bf16'):
 //              h rounded on entry; each GroupNorm's normalised value, its
@@ -133,7 +138,8 @@ struct Odefunc {
 };
 
 // P: spad's row pitch in floats, R: its rows, mma: the conv stage (0 FFMA,
-// 1 tensor cores), wg: the kF32 evaluation's convs run wgmma3, nblk: its
+// 1 tensor cores), wg: the evaluation's convs run wgmma_conv (wgmma3 in
+// kF32, wgmma_bf16 in kBf16), nblk: its
 // 64-channel blocks (ceil(C / 64)).  npg = kThreads / C (floor) pixel
 // groups of C threads each; gs = C / G channels per group; cdiv: C divides
 // kThreads (a power of two, as is gs then), with lc = log2 C and
@@ -170,7 +176,8 @@ inline bool mma_ok(int H, int W, int C) {
          H * (W + 2) <= kMmaM;
 }
 
-// The shapes whose kF32 convs run wgmma3 in place of conv3x3_mma<3>: the
+// The shapes whose kF32 convs run wgmma3 in place of conv3x3_mma<3>, and
+// whose kBf16 convs run wgmma_bf16 in place of conv3x3_mma<kPassBf16>: the
 // tensor-core shapes of C = 64 (the main path's 7x7x64, the MNIST block's
 // 6x6x64).  At C = 96 to 448 the chip read wgmma3 2.1 to 2.4 times slower
 // than mma3 per conv (one CTA an SM there, so nothing overlaps its
@@ -245,16 +252,16 @@ inline void fit_layout(Shape& s, bool with_u, Bytes bytes) {
   if (bytes(s) > kMaxSmem) s.ring = 2;
 }
 
-// f32: the kernel's precision is kF32 (where wgmma_ok, its convs run
-// wgmma3; the bf16 builds keep conv3x3_mma's layout).
-inline Shape make_shape(int H, int W, int C, int G, bool f32) {
+// prec: the kernel's precision.  kF32 and kBf16 run wgmma_conv where
+// wgmma_ok (wgmma3, wgmma_bf16); kBf16Conv keeps conv3x3_mma's stage.
+inline Shape make_shape(int H, int W, int C, int G, int prec) {
   Shape s = ffma_shape(H, W, C, G);
   if (mma_ok(H, W, C)) {
     s.nblk = (C + kMmaC - 1) / kMmaC;
     s.P = s.nblk * kMmaC + kPadA;
     s.R = kMmaM + 2 * (W + 2) + 2;
     s.mma = 1;
-    s.wg = f32 && wgmma_ok(H, W, C);
+    s.wg = prec != kBf16Conv && wgmma_ok(H, W, C);
     s.bmagic = magic_of(s.nblk);
   }
   fit_layout(s, false, odefunc_smem_bytes);
@@ -273,8 +280,8 @@ inline bool layout_ok(const Shape& s) {
   return (s.H * s.W + s.npg - 1) / s.npg <= kMaxPix;
 }
 
-inline bool shape_ok(int H, int W, int C, int G, bool f32) {
-  return layout_ok(make_shape(H, W, C, G, f32));
+inline bool shape_ok(int H, int W, int C, int G, int prec) {
+  return layout_ok(make_shape(H, W, C, G, prec));
 }
 
 struct Smem { float* sx; float* spad; float* sw; float* sred; float* smean; float* sinv; };
@@ -935,6 +942,31 @@ __device__ void conv3x3_mma(const Smem& m, const Shape& s, const float* __restri
 // sample on one SM at 7x7x64; A's split twice per element (once per
 // output-channel half) in place of four times, B's once per CTA in place
 // of twice per warp pair.
+//
+// wgmma_bf16 (PREC = kBf16) is conv3x3_mma<kPassBf16> (one bf16 pass per 16
+// input channels, operands rounded to nearest even) on the same warpgroups,
+// copies and mbarriers.  Per tap and k half: wgmma.mma_async.m64n32k16 bf16
+// from zero, then one accumulating (k16 steps 0 and 1), the chain added to
+// the running sum in f32, taps in order, the k halves last: the mma.sync
+// bf16 stage's order, two instructions where wgmma3 issues twelve.
+//   A comes from registers, packed from spad as conv3x3_mma<kPassBf16>
+//   packs it: the register fragment of the 16-bit m64nNk16 is mma.sync
+//   m16n8k16's per warp (k 2t, 2t+1 in register 0, 2t+8, 2t+9 in register
+//   2), so the k order is the physical one and needs no permutation.
+//   B: each warpgroup converts its part of the f32 tile to bf16 (cvt.rn,
+//   bf16x2's rounding) into one bf16 tile, K-major, no swizzle: core
+//   matrices of 8 rows n x 16 bytes (8 k), the next 8 k 128 bytes on (LBO),
+//   the next 8 n 1024 bytes on (SBO) (wg_bf16_offset).  One 16-byte store a
+//   thread a tap: forward, 8 k of one n read down 8 rows of the (k, n) tile
+//   (consecutive lanes on consecutive n, conflict-free); BT, 8 consecutive
+//   k of row n of the copied rows, by wgmma3's rotated walk.  The 16-bit
+//   types could take the forward's (k, n) tile MN-major through the
+//   instruction's transpose flag with no gather; the K-major tile was taken
+//   for both (BT's rows are K-major as copied): one descriptor layout, the
+//   one wgmma3 proved on the chip, and the gather costs a thread 8 loads
+//   from 8 rows, which neighbouring lanes read without a bank conflict.
+// Bound: a third of wgmma3's tensor-core work at twice the rate; 0.63 us
+// of bf16 peak per conv per sample at 7x7x64 on one SM.
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -994,10 +1026,11 @@ __device__ __forceinline__ void wgmma_pin(float (&d)[16]) {
 }
 
 // Descriptor of a K-major, unswizzled B operand at shared byte address
-// addr: LBO 128 bytes (the next 4 k), SBO 2048 bytes (the next 8 n).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+// addr: LBO 128 bytes (the next core matrix along k: 4 TF32 or 8 bf16 k),
+// SBO `sbo` bytes (the next 8 n: 2048 in a TF32 tile, 1024 in a bf16 one).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(2048 >> 4) << 32);
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 // d (+)= a (64x8 TF32, this warpgroup's registers) * b (8x32, descriptor);
@@ -1016,11 +1049,39 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (+)= a (64x16 bf16, this warpgroup's registers) * b (16x32, K-major
+// descriptor); accumulate = 0 starts d from zero.  d as in wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // The byte offset, inside a head or tail tile, of output channel n and of
 // the tile's input channel k: core matrix (n / 8, 2*(k / 8) + half) with
 // half = k % 2 (physical 2t+1 is logical t+4), row n % 8, column (k % 8)/2.
 __host__ __device__ constexpr int wg_tile_offset(int n, int k) {
   return (((n >> 3) * 16 + 2 * (k >> 3) + (k & 1)) * 8 + (n & 7)) * 16 + ((k & 7) >> 1) * 4;
+}
+
+// The byte offset, inside a bf16 tile of 64 k, of output channel n and
+// input channel k: core matrix (n / 8, k / 8), row n % 8, column k % 8.
+__host__ __device__ constexpr int wg_bf16_offset(int n, int k) {
+  return (((n >> 3) * 8 + (k >> 3)) * 8 + (n & 7)) * 16 + (k & 7) * 2;
+}
+
+// Floats of wgmma_conv<NWG, BT, PREC>'s operand tiles: the TF32 heads and
+// tails (NWG/2 * kHalfTileF floats each), or the one bf16 tile (half as
+// many bytes as a head tile).
+__host__ __device__ constexpr int wg_operand_floats(int nwg, int prec) {
+  return prec == kF32 ? nwg * kHalfTileF : nwg * kHalfTileF / 4;
 }
 
 // 3x3 SAME conv of spad on wgmma (the note above) at C = 64 (one block of
@@ -1034,14 +1095,18 @@ __host__ __device__ constexpr int wg_tile_offset(int n, int k) {
 // gradient, the conv with tap 8 - k's tile transposed, whose B operand is
 // row n = input, column k = output channel of w[8 - k]: the CTA copies the
 // tile's 32 contiguous rows c0.. (8 KB) and its split reads them row-wise.
-// At `head`: the TF32 head tile, the tail tile (NWG/2 * kHalfTileF floats
-// each, wg_tile_offset order), the f32 tile as copied (kTileF) and its two
-// mbarriers.
-template <int NWG, bool BT, class Epi>
+// PREC: kF32 (wgmma3) or kBf16 (wgmma_bf16, the note above).  At `head`:
+// the operand tiles (wg_operand_floats: kF32, the TF32 head tile and the
+// tail tile, NWG/2 * kHalfTileF floats each, wg_tile_offset order; kBf16,
+// the bf16 tile, wg_bf16_offset order), the f32 tile as copied (kTileF)
+// and its two mbarriers.
+template <int NWG, bool BT, int PREC, class Epi>
 __device__ void wgmma_conv(const float* spad, const Shape& s, float* head,
                            const float* __restrict__ w, int c0, Epi epi) {
   static_assert(NWG == 4 || NWG == 2, "a CTA's warpgroups: the whole block or one output half");
   static_assert(!BT || NWG == 2, "the transposed split reads one output half's 32 rows");
+  static_assert(PREC == kF32 || PREC == kBf16, "wgmma3 or wgmma_bf16");
+  constexpr bool kB = PREC == kBf16;
   constexpr int kNH = NWG / 2;                   // output halves of the CTA
   constexpr int kTileN = kNH * kHalfTileF;       // floats of its head (tail) tile
   constexpr int kHalfThreads = 128 * kNH;        // threads of one k half
@@ -1051,7 +1116,8 @@ __device__ void wgmma_conv(const float* spad, const Shape& s, float* head,
   const int wg = warp >> 2, nh = wg % kNH, kh = wg / kNH, wt = tid & 127;
   const int Wp = s.W + 2, P = s.P;
   float* tail = head + kTileN;
-  const float* raw = head + 2 * kTileN;  // the f32 tile as copied, 64 floats a row
+  // the f32 tile as copied, 64 floats a row
+  const float* raw = head + wg_operand_floats(NWG, PREC);
   // The f32 tile's "full" (copy landed) and "empty" (every warpgroup has
   // split its part) mbarriers.
   const uint32_t raw_s = smem_addr(raw), full = smem_addr(raw + kTileF), empty = full + 8;
@@ -1071,9 +1137,11 @@ __device__ void wgmma_conv(const float* spad, const Shape& s, float* head,
 
   // This thread's first A element (row g of its warp's 16 at tap (0, 0),
   // physical k column 32*kh + 2t) and the descriptor of its warpgroup's
-  // part of the head tile at k8 step 0.
+  // part of the head (bf16) tile at k8 (k16) step 0.
   const uint32_t a_thread = smem_addr(spad + (16 * wi + g) * P + 32 * kh + 2 * t);
-  const uint64_t b_head = wgmma_desc(smem_addr(head) + wg_tile_offset(kWgN * nh, 32 * kh));
+  const uint64_t b_head =
+      kB ? wgmma_desc(smem_addr(head) + wg_bf16_offset(kWgN * nh, 32 * kh), 1024)
+         : wgmma_desc(smem_addr(head) + wg_tile_offset(kWgN * nh, 32 * kh), 2048);
   constexpr uint64_t kTail = (4 * kTileN) >> 4, kStep = 256 >> 4;  // descriptor units
 
   float acc[16], run[16];  // each tap's chain starts from zero (scale-d = 0)
@@ -1081,29 +1149,47 @@ __device__ void wgmma_conv(const float* spad, const Shape& s, float* head,
   for (int i = 0; i < 16; ++i) acc[i] = run[i] = 0.f;
   for (int tap = 0; tap < 9; ++tap) {
     mbar_wait(full, tap & 1);  // the f32 tile has landed
-    // Each warpgroup splits the part of the tile its products read (its
-    // last products, which read those slots, are done).
+    // Each warpgroup splits (converts) the part of the tile its products
+    // read (its last products, which read those slots, are done).
     if constexpr (BT) {
       // Item (row n, 8 consecutive k of the k half): two 16-byte loads of
-      // the raw row, the even k into one core-matrix row, the odd into the
-      // next.  A quarter-warp's 8 lanes read 8 distinct 16-byte bank groups
-      // (rotated k octets, either half first) and store 8 consecutive rows.
+      // the raw row; TF32, the even k into one core-matrix row, the odd
+      // into the next; bf16, all eight into one.  A quarter-warp's 8 lanes
+      // read 8 distinct 16-byte bank groups (rotated k octets, either half
+      // first) and store 8 rows of distinct banks.
       const int l = wt & 7, o = ((wt >> 3) + l) & 3, sw = l >> 2;
       const int n = 8 * (wt >> 5) + l, k0 = 32 * kh + 8 * o;
       const float* row = raw + n * kMmaC + k0;
       const float4 u0 = *reinterpret_cast<const float4*>(row + 4 * sw);
       const float4 u1 = *reinterpret_cast<const float4*>(row + 4 * (sw ^ 1));
       const float4 lo4 = sw ? u1 : u0, hi4 = sw ? u0 : u1;
-      const float v[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+      if constexpr (kB) {
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(head) + wg_bf16_offset(n, k0)) =
+            make_uint4(bf16x2(lo4.x, lo4.y), bf16x2(lo4.z, lo4.w), bf16x2(hi4.x, hi4.y),
+                       bf16x2(hi4.z, hi4.w));
+      } else {
+        const float v[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
 #pragma unroll
-      for (int odd = 0; odd < 2; ++odd) {
-        uint32_t hi[4], lo[4];
+        for (int odd = 0; odd < 2; ++odd) {
+          uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) tf32_split(v[odd + 2 * e], hi[e], lo[e]);
-        const int off = wg_tile_offset(n, k0 + odd) >> 2;
-        *reinterpret_cast<uint4*>(head + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(tail + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          for (int e = 0; e < 4; ++e) tf32_split(v[odd + 2 * e], hi[e], lo[e]);
+          const int off = wg_tile_offset(n, k0 + odd) >> 2;
+          *reinterpret_cast<uint4*>(head + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(tail + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
       }
+    } else if constexpr (kB) {
+      // Item wt: n = 32nh + wt % 32, the k octet wt / 32 of the k half,
+      // eight rows of the (k, n) tile (neighbouring lanes on neighbouring n)
+      // into one core-matrix row.
+      const int n = 32 * nh + (wt & 31), k0 = 32 * kh + 8 * (wt >> 5);
+      const float* col = raw + k0 * kMmaC + c0 + n;
+      uint32_t b[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[e] = bf16x2(col[(2 * e) * kMmaC], col[(2 * e + 1) * kMmaC]);
+      *reinterpret_cast<uint4*>(reinterpret_cast<char*>(head) + wg_bf16_offset(n, k0)) =
+          make_uint4(b[0], b[1], b[2], b[3]);
     } else {
       // Item i = (n = 32nh + i % 32, 4 k of one core-matrix row), k = 32kh
       // + 8*(c / 2) + (c % 2) + 2e for chunk c = i / 32, e = 0..3.
@@ -1130,11 +1216,32 @@ __device__ void wgmma_conv(const float* spad, const Shape& s, float* head,
     }
 
     const uint32_t a_tap = a_thread + 4u * (((tap / 3) * Wp + tap % 3) * P);
+    if constexpr (kB) {
+      // Both k16 steps' A fragments (rows g and g + 8, k 2t, 2t+1 and 2t+8,
+      // 2t+9), then the chain: step 0 from zero, step 1 accumulating.
+      uint32_t a16[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const uint32_t ak = a_tap + 4u * (16 * ks);
+        const float2 r0 = lds2(ak), r1 = lds2(ak + 4u * (8 * P));
+        const float2 r2 = lds2(ak + 4u * 8), r3 = lds2(ak + 4u * (8 * P + 8));
+        a16[ks][0] = bf16x2(r0.x, r0.y);
+        a16[ks][1] = bf16x2(r1.x, r1.y);
+        a16[ks][2] = bf16x2(r2.x, r2.y);
+        a16[ks][3] = bf16x2(r3.x, r3.y);
+      }
+      wgmma_fence();
+      wgmma_bf16(acc, a16[0], b_head, 0);
+      wgmma_bf16(acc, a16[1], b_head + kStep, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      wgmma_pin(acc);
+    }
     // One k8 step at a time: its A fragment split in registers, then its
     // three products, waited for before the registers are reused (two or
     // four steps a group spill the narrow build: slower on the chip).
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < (kB ? 0 : 4); ++ks) {
       const float2 r0 = lds2(a_tap + 4u * (8 * ks));
       const float2 r1 = lds2(a_tap + 4u * (8 * P + 8 * ks));
       const float av[4] = {r0.x, r1.x, r0.y, r1.y};
@@ -1185,12 +1292,12 @@ __device__ void wgmma_conv(const float* spad, const Shape& s, float* head,
   }
 }
 
-// The stage wgmma3 of a 512-thread CTA: the whole block, the weight area at
-// m.sw.
-template <class Epi>
+// The stage wgmma3 (PREC = kF32) or wgmma_bf16 (kBf16) of a 512-thread CTA:
+// the whole block, the weight area at m.sw.
+template <int PREC, class Epi>
 __device__ __forceinline__ void conv3x3_wgmma(const Smem& m, const Shape& s,
                                               const float* __restrict__ w, Epi epi) {
-  wgmma_conv<4, false>(m.spad, s, m.sw, w, 0, epi);
+  wgmma_conv<4, false, PREC>(m.spad, s, m.sw, w, 0, epi);
 }
 
 // ---- both stages ----------------------------------------------------------
@@ -1211,16 +1318,16 @@ __device__ __forceinline__ void mma_stage(const Smem& m, const Shape& s,
   conv3x3_mma<PASSES, BT, WIDE, false>(m, s, w, epi);
 }
 
-// The conv stage of the shape: wgmma3 where make_shape says so (s.wg, kF32
-// only), else the tensor cores' mma.sync stage (3xTF32) where it says so,
-// else FFMA; each in its bf16 build where PREC is not kF32.  WIDE:
-// wide_shape(s).
+// The conv stage of the shape: wgmma3 (kF32) or wgmma_bf16 (kBf16) where
+// make_shape says so (s.wg), else the tensor cores' mma.sync stage (3xTF32)
+// where it says so, else FFMA; each in its bf16 build where PREC is not
+// kF32.  WIDE: wide_shape(s).
 template <bool WIDE, int PREC = kF32, class Epi>
 __device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
                                            const float* __restrict__ w, Epi epi) {
-  if constexpr (PREC == kF32 && !WIDE) {
+  if constexpr (PREC != kBf16Conv && !WIDE) {
     if (s.wg) {
-      conv3x3_wgmma(m, s, w, epi);
+      conv3x3_wgmma<PREC>(m, s, w, epi);
       return;
     }
   }
@@ -1228,9 +1335,20 @@ __device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
   else conv3x3<PREC != kF32>(m, s, w, epi);
 }
 
-// sx[p, co] = (conv3x3(spad, w) + bias[co]) + t * M[p, co]; kBf16 rounds
-// the conv output, its sum with the bias, t * M and the last sum, with bias
-// and M rounded (t is rounded by the caller).
+// The split ConcatConv's output (conv + bias) + t * M of one element from
+// the conv's sum acc; kBf16 rounds the conv output, its sum with the bias,
+// t * M and the last sum, with bias and M rounded (t is rounded by the
+// caller).
+template <int PREC>
+__device__ __forceinline__ float concat_out(float acc, float bias, float t, float tm) {
+  if constexpr (PREC == kBf16)
+    return bf16_round(bf16_round(bf16_round(acc) + bf16_round(bias)) +
+                      bf16_round(t * bf16_round(tm)));
+  else
+    return (acc + bias) + t * tm;
+}
+
+// sx[p, co] = concat_out(conv3x3(spad, w), bias[co], t, M[p, co]).
 template <bool WIDE, int PREC = kF32>
 __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
                                               const float* __restrict__ w,
@@ -1238,11 +1356,7 @@ __device__ __forceinline__ void conv3x3_to_sx(const Smem& m, const Shape& s,
                                               const float* __restrict__ tmap, float t) {
   const int C = s.C;
   conv_stage<WIDE, PREC>(m, s, w, [&](int p, int co, float acc) {
-    if constexpr (PREC == kBf16)
-      m.sx[p * C + co] = bf16_round(bf16_round(bf16_round(acc) + bf16_round(bias[co])) +
-                                    bf16_round(t * bf16_round(tmap[p * C + co])));
-    else
-      m.sx[p * C + co] = (acc + bias[co]) + t * tmap[p * C + co];
+    m.sx[p * C + co] = concat_out<PREC>(acc, bias[co], t, tmap[p * C + co]);
   });
 }
 

@@ -140,8 +140,8 @@ int launch(const float* t0, const float* dt, const float* y0, const float* f0,
            const Odefunc& p, const float* tableau, const float* rtol, const float* atol,
            float* ks, float* y1, float* f1, float* ymid, float* ratio,
            int B, int H, int W, int C, int G, void* stream) {
-  if (!shape_ok(H, W, C, G, kPrec == kF32) || B < 1) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(H, W, C, G, kPrec == kF32);
+  if (!shape_ok(H, W, C, G, kPrec) || B < 1) return (int)cudaErrorInvalidValue;
+  const Shape s = make_shape(H, W, C, G, kPrec);
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? rk_step_kernel<false, false, kPrec>
                       : s.xg        ? rk_step_kernel<true, true, kPrec>

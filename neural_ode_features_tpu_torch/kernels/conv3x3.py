@@ -49,8 +49,10 @@ whose plain version is ``conv3x3_plain(x, w, passes="bf16")``:
 ``'mma_bf16'``    the bf16 conv stage of ``conv3x3_mma``: one
                   ``mma.sync.m16n8k16`` bf16 pass per 16 channels, operands
                   rounded to nearest even as the fragments are packed.  The
-                  conv stage of the bf16 builds of ``odefunc.cu`` and
-                  ``rk_step.cu``, with ``mma3``'s gate.
+                  conv stage of ``rk_step.cu``'s bf16 build and of
+                  ``odefunc.cu``'s where ``kernels.odefunc.stage`` does not
+                  give ``'wgmma_bf16'`` (``wgmma_conv``'s bf16 build, which
+                  no strategy here races), with ``mma3``'s gate.
 ``'tap9_bf16'``   ``tap9`` on bf16-rounded operands (the bf16 builds' stage
                   at the FFMA shapes).
 ``'im2col_bf16'`` ``im2col`` on bf16-rounded operands.
@@ -73,9 +75,13 @@ emulate the tensor-core stage's arithmetic and its row mapping in plain
 PyTorch; ``conv3x3_wgmma_emulated`` follows ``wgmma3`` step by step (its k
 order, three products per k8 step, each tap's chain from zero, the fixed
 order of the partial sums; ``transposed=True``, the backward's
-input-gradient conv on that stage), and ``wgmma_tile_offset``/``wgmma_pack``
-(``wgmma_pack_rows``: the input-gradient conv's half tile) mirror where its
-split weight tiles lie in shared memory.  Tests and the probe's
+input-gradient conv on that stage; ``precision='bf16'``, ``wgmma_bf16``:
+two bf16 k16 steps a tap and k half), and
+``wgmma_tile_offset``/``wgmma_pack`` (``wgmma_pack_rows``: the
+input-gradient conv's half tile) and, for ``wgmma_bf16``,
+``wgmma_bf16_offset``/``wgmma_pack_bf16``/``wgmma_pack_rows_bf16`` (its
+conversion ``bf16_bits``) mirror where its weight tiles lie in shared
+memory.  Tests and the probe's
 error report use them; nothing on a path does. ``passes="bf16"`` is the bf16
 twins' function itself (operands rounded, products exact, sums in ``x``'s
 dtype).
@@ -96,7 +102,8 @@ from .odefunc import supported as _fused_supported
 __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
            "conv3x3_padded_pitch", "conv3x3_wgmma_emulated", "wgmma_k_order",
            "wgmma_tile_offset", "wgmma_pack", "wgmma_pack_rows",
-           "wgmma_rows_item", "tf32_split", "supported",
+           "wgmma_rows_item", "wgmma_bf16_offset", "wgmma_pack_bf16",
+           "wgmma_pack_rows_bf16", "bf16_bits", "tf32_split", "supported",
            "smem_bytes", "conv_flops", "conv_bytes"]
 
 STRATEGIES = ("tap9", "im2col", "mma3", "mma1", "wgmma3")
@@ -269,8 +276,73 @@ def wgmma_rows_item(wt: int) -> tuple[int, int]:
     return 8 * (wt >> 5) + lane8, ((wt >> 3) + lane8) & 3
 
 
+def bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """The 16-bit patterns (as int32) of float32 ``x`` rounded to bf16 to
+    nearest, ties to even, in integer arithmetic (``cvt.rn.bf16x2.f32``,
+    csrc/odefunc_common.cuh ``bf16x2``, on finite values): add 0x7FFF and
+    the lowest kept bit to the f32 bits, keep the high half."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"bf16_bits takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).to(torch.int32) & 0xFFFF
+
+
+def wgmma_bf16_offset(n: int, k: int) -> int:
+    """Byte offset of output channel n, input channel k (each in 0..63) in
+    the bf16 weight tile of ``wgmma_bf16`` (csrc/odefunc_common.cuh
+    ``wg_bf16_offset``): K-major core matrices of 128 bytes, 8 rows n of
+    16 bytes (8 k), the core matrix (n // 8, k // 8), row n % 8, column
+    k % 8; so a descriptor's LBO (the next 8 k) is 128 bytes and its SBO
+    (the next 8 n) 1,024."""
+    return ((((n >> 3) * 8 + (k >> 3)) * 8 + (n & 7)) * 16 + (k & 7) * 2)
+
+
+def wgmma_pack_bf16(tile: torch.Tensor) -> torch.Tensor:
+    """One (64, 64) float32 weight tile (input channel k, output channel n)
+    converted as ``wgmma_bf16`` converts it in shared memory: each of the
+    four warpgroups (output half nh, k half kh) takes, per thread wt
+    (0..127), n = 32·nh + wt % 32 and the k octet wt // 32 of its half, the
+    eight values down the tile's column n, rounded (:func:`bf16_bits`) into
+    one 16-byte core-matrix row.  Returns the 4,096 bf16 bit patterns (int32)
+    in the tile's order (:func:`wgmma_bf16_offset`)."""
+    if tile.shape != (64, 64) or tile.dtype != torch.float32:
+        raise ValueError(f"expected a (64, 64) float32 tile, got "
+                         f"{tuple(tile.shape)} {tile.dtype}")
+    bits = bf16_bits(tile)
+    out = torch.full((4096,), -1, dtype=torch.int32)
+    for nh in range(2):
+        for kh in range(2):
+            for wt in range(128):
+                n, k0 = 32 * nh + (wt & 31), 32 * kh + 8 * (wt >> 5)
+                at = wgmma_bf16_offset(n, k0) // 2
+                out[at:at + 8] = bits[k0:k0 + 8, n]
+    return out
+
+
+def wgmma_pack_rows_bf16(rows: torch.Tensor) -> torch.Tensor:
+    """The input-gradient conv's conversion of one CTA's half tile in the
+    bf16 cluster pass: ``rows`` (32, 64) float32 are rows n of tap 8 − k's
+    weights, columns k; each warpgroup (k half kh) takes, per thread wt,
+    the row and k octet of :func:`wgmma_rows_item` and writes the octet's
+    eight values, rounded, into one core-matrix row.  Returns the 2,048
+    bf16 bit patterns (int32) in :func:`wgmma_bf16_offset` order (n < 32)."""
+    if rows.shape != (32, 64) or rows.dtype != torch.float32:
+        raise ValueError(f"expected (32, 64) float32 rows, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    bits = bf16_bits(rows)
+    out = torch.full((2048,), -1, dtype=torch.int32)
+    for kh in range(2):
+        for wt in range(128):
+            n, o = wgmma_rows_item(wt)
+            k0 = 32 * kh + 8 * o
+            at = wgmma_bf16_offset(n, k0) // 2
+            out[at:at + 8] = bits[n, k0:k0 + 8]
+    return out
+
+
 def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
-                           transposed: bool = False) -> torch.Tensor:
+                           transposed: bool = False,
+                           precision: str = "f32") -> torch.Tensor:
     """``wgmma3``'s arithmetic in plain PyTorch, float32, at C = 64 (its
     only width; tests and the probe's error report, nothing on a path): the
     padded-pitch rows of :func:`conv3x3_padded_pitch`; per tap and k half
@@ -286,9 +358,15 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
     ``csrc/odefunc_bwd.cu``), ``x`` the cotangent and tap k's B tile the
     transpose of tap 8 − k's (C, C) weights (row = output channel of the
     forward conv): the gradient of the conv with ``w`` with respect to its
-    input."""
+    input.  ``precision='bf16'``: ``wgmma_bf16``'s arithmetic, both
+    operands rounded to bf16 and per tap and k half a chain of two k16
+    steps from zero, each step's sixteen exact products summed in float32
+    in k order; the same order of sums after it."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError("conv3x3_wgmma_emulated takes float32")
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"precision must be 'f32' or 'bf16', got "
+                         f"{precision!r}")
     b, hh, ww, c = x.shape
     wp = ww + 2
     if c != 64 or hh * wp > MMA_M:
@@ -296,23 +374,29 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
                          f"{hh}x{ww}x{c}")
     spad = x.new_zeros((b, MMA_M + 2 * wp + 2, c))
     spad[:, :(hh + 2) * wp] = F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b, -1, c)
-    order = torch.tensor(wgmma_k_order())
+    bf16 = precision == "bf16"
+    order = torch.arange(16) if bf16 else torch.tensor(wgmma_k_order())
     halves = []
     for kh in range(2):
         run = x.new_zeros((b, MMA_M, c))
         for tap in range(9):
             shift = (tap // 3) * wp + tap % 3
+            tile = (w[2 - tap // 3, 2 - tap % 3].T if transposed
+                    else w[tap // 3, tap % 3])
             acc = None
-            for ks in range(4):
-                idx = 32 * kh + 8 * ks + order
-                a_hi, a_lo = tf32_split(spad[:, shift:shift + MMA_M, idx])
-                tile = (w[2 - tap // 3, 2 - tap % 3].T if transposed
-                        else w[tap // 3, tap % 3])
-                b_hi, b_lo = tf32_split(tile[idx].contiguous())
-                for pa, pb in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
-                    terms = pa.unsqueeze(-1) * pb  # (b, M, 8, C), exact
+            for ks in range(2 if bf16 else 4):
+                idx = 32 * kh + len(order) * ks + order
+                a, bt = spad[:, shift:shift + MMA_M, idx], tile[idx].contiguous()
+                if bf16:
+                    pairs = ((bf16_round(a), bf16_round(bt)),)
+                else:
+                    a_hi, a_lo = tf32_split(a)
+                    b_hi, b_lo = tf32_split(bt)
+                    pairs = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))
+                for pa, pb in pairs:
+                    terms = pa.unsqueeze(-1) * pb  # (b, M, k, C), exact
                     prod = terms[:, :, 0]
-                    for kk in range(1, 8):
+                    for kk in range(1, len(order)):
                         prod = prod + terms[:, :, kk]
                     acc = prod if acc is None else acc + prod
             run = run + acc
@@ -333,15 +417,16 @@ def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
     ``im2col`` also needs C/4 to divide its 256 threads, at most 4 pixels
     per thread, and the patch matrix within the 227 KB of shared memory.
     ``mma3`` and ``mma1``: the tensor-core stage's gate
-    (``kernels.odefunc.stage`` of a bf16 build: C a multiple of 32 from 64
-    to 512 and H·(W+2) ≤ 64) and its working set within shared memory
+    (``kernels.odefunc.stage`` of the fused step's ``'bf16_conv'`` build,
+    which never runs ``wgmma``: C a multiple of 32 from 64 to 512 and
+    H·(W+2) ≤ 64) and its working set within shared memory
     (``kernels.odefunc.layout``).  ``wgmma3``: where the f32 kernels run it
     (``stage`` gives ``'wgmma3'``), under their layout.  7×7×64 and 6×6×64
     pass all five, 7×7×96 to 7×7×512 the tensor-core ones.  A bf16 twin has
     its f32 strategy's gate."""
     strategy = _TWIN.get(strategy, strategy)
     if strategy in ("mma3", "mma1"):
-        return (stage(hw, c, "bf16") == "mma3"
+        return (stage(hw, c, "bf16_conv") == "mma3"
                 and _fused_supported(hw, c, 1, "mma3"))
     if strategy == "wgmma3":
         return (stage(hw, c) == "wgmma3"

@@ -38,8 +38,11 @@ operator ``nodef::odefunc_bf16``): the port's plain bf16 dynamics (the
 JAX jnp path's, :func:`odefunc_plain` with ``precision='bf16'``), h
 rounded to bf16 on entry, each GroupNorm's normalised value, scale product
 and bias sum rounded (statistics in f32), both convs on the bf16 conv stage
-(``mma.sync.m16n8k16`` bf16 products, f32 accumulation; f32 FFMA on
-bf16-rounded operands at the FFMA shapes), then the conv output, its sum
+(bf16 products, f32 accumulation: ``'wgmma_bf16'``, Hopper's
+``wgmma.mma_async`` bf16 with each weight tile converted once per CTA, at
+the widths of ``WGMMA_C``; ``mma.sync.m16n8k16`` at the other tensor-core
+shapes; f32 FFMA on bf16-rounded operands at the FFMA shapes), then the
+conv output, its sum
 with the bias, t·M and the last sum each rounded; f returns as float32
 holding bf16 values.  The conv output is rounded before the bias add, as
 cuDNN's bf16 conv and PyTorch's bias add round on the card and as the JAX
@@ -151,22 +154,30 @@ def prepare(params, hw: tuple[int, int]) -> OdefuncWeights:
 
 
 def stage(hw: tuple[int, int], c: int, precision: str = "f32") -> str:
-    """The conv stage the fused kernels' f32 builds (``precision='f32'``)
-    or bf16 builds (any other) run at this shape, decided by the shape and
-    the precision alone (csrc/odefunc_common.cuh ``mma_ok``, ``wgmma_ok``,
+    """The conv stage the fused kernels' builds of ``precision`` (one of
+    ``PRECISIONS``) run at this shape, decided by the shape and the
+    precision alone (csrc/odefunc_common.cuh ``mma_ok``, ``wgmma_ok``,
     ``make_shape``).  The tensor cores take C a multiple of 32 from 64 to
     512 (64-channel blocks, the last one padded where C % 64 == 32) and
-    maps whose H·(W+2) padded-pitch positions fit a 64-row tile: there the
-    f32 builds run ``'wgmma3'`` (``wgmma.mma_async``, 3×TF32) at the widths
-    of ``WGMMA_C`` and ``'mma3'`` (``mma.sync``, 3×TF32) at the others, and
-    the bf16 builds their bf16 pass of ``'mma3'``'s kernel (the backward's
-    input-gradient convs run ``'mma3'`` at every tensor-core shape but in
-    its f32 cluster pass, ``kernels.odefunc_bwd.sample_pass``, on ``wgmma``);
+    maps whose H·(W+2) padded-pitch positions fit a 64-row tile: there, at
+    the widths of ``WGMMA_C``, the f32 builds run ``'wgmma3'``
+    (``wgmma.mma_async``, 3×TF32) and the bf16 builds (``'bf16'``)
+    ``'wgmma_bf16'`` (``wgmma.mma_async``, one bf16 pass); at the other
+    widths, and for the fused step's ``'bf16_conv'`` at every width,
+    ``'mma3'`` (``mma.sync``: 3×TF32, or its one bf16 pass in the bf16
+    builds).  The backward's input-gradient convs run ``'mma3'`` at every
+    tensor-core shape but in its cluster pass
+    (``kernels.odefunc_bwd.sample_pass``), which runs them on ``wgmma``;
     everything else runs ``'ffma'``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
     hh, ww = hw
     if (MMA_C <= c <= MAX_C and c % MMA_STEP == 0 and hh >= 1 and ww >= 1
             and hh * (ww + 2) <= MMA_M):
-        return "wgmma3" if precision == "f32" and c in WGMMA_C else "mma3"
+        if c in WGMMA_C and precision != "bf16_conv":
+            return "wgmma3" if precision == "f32" else "wgmma_bf16"
+        return "mma3"
     return "ffma"
 
 
@@ -205,7 +216,7 @@ def layout(hw: tuple[int, int], c: int, groups: int,
     hh, ww = hw
     conv_stage = conv_stage or stage(hw, c)
     hwc = hh * ww * c
-    mma = conv_stage in ("mma3", "wgmma3")
+    mma = conv_stage in ("mma3", "wgmma3", "wgmma_bf16")
     if mma:
         pad = (MMA_M + 2 * (ww + 2) + 2) * (MMA_C * -(-c // MMA_C) + PAD_A)
     else:
@@ -213,7 +224,7 @@ def layout(hw: tuple[int, int], c: int, groups: int,
 
     def nbytes(ring, xg, ug):
         weights = ring * MMA_C * PITCH_BT if mma else 2 * c * c
-        if conv_stage == "wgmma3":
+        if conv_stage in ("wgmma3", "wgmma_bf16"):
             weights = max(weights, WG_FLOATS)
         fwd = (0 if xg else hwc) + pad + weights + 2 * THREADS + 2 * groups
         bwd = 6 * groups + 4 * c + (0 if ug else hwc) if backward else 0

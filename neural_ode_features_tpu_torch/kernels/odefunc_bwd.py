@@ -14,15 +14,16 @@ revisited output blocks, race-free only because a TPU grid runs in order.
 Here a per-sample pass writes dh, dt and per-sample partial sums, and two
 more launches reduce over the batch in a fixed order: no atomics, and two
 calls on the same inputs give bit-identical dθ.  The per-sample pass
-(:func:`sample_pass`) is one CTA of 512 threads per sample, or, for the f32
-build at C = 64 (7×7×64, 6×6×64: the ``wgmma3`` shapes) with an even group
-count, a cluster of two CTAs of 256 threads per sample
-(``bwd_sample_kernel_cluster``): each CTA owns 32 output channels, so no
-GroupNorm group is split, keeps its half of the state, and writes every
-conv input into its peer's shared memory too (Hopper's distributed shared
-memory); its four convs run ``wgmma.mma_async`` 3×TF32 on its output half,
-the input-gradient convs from tap 8 − k's weights transposed.  Both passes
-give the same bits.
+(:func:`sample_pass`) is one CTA of 512 threads per sample, or, for both
+builds at C = 64 (7×7×64, 6×6×64: the ``wgmma3`` and ``wgmma_bf16``
+shapes) with an even group count, a cluster of two CTAs of 256 threads per
+sample (``bwd_sample_kernel_cluster``): each CTA owns 32 output channels,
+so no GroupNorm group is split, keeps its half of the state, and writes
+every conv input into its peer's shared memory too (Hopper's distributed
+shared memory); its four convs run ``wgmma.mma_async`` (3×TF32, or one
+bf16 pass in the bf16 build) on its output half, the input-gradient convs
+from tap 8 − k's weights transposed.  In the f32 build both passes give
+the same bits.
 
 Bound (H100 SXM, 700 W power limit; 67 TFLOP/s f32 outside the tensor
 cores, 495 TFLOP/s TF32 on them, 3.35 TB/s): six 3×3-conv equivalents
@@ -60,8 +61,8 @@ cotangent on entry; in each GroupNorm the per-element ``dy·scale`` and
 ``dy·bf16(x̂)``, its f32 statistics backward, dx on leaving; each
 input-gradient conv's sum (bf16 operands on the tensor cores,
 ``mma.sync.m16n8k16`` with f32 accumulation, the taps reversed and
-transposed in the fragment loads; f32 FFMA on rounded weights at the FFMA
-shapes); the time-map products.  Each sum over the batch (weight, scale and
+transposed in the fragment loads; in the cluster pass ``wgmma`` bf16; f32
+FFMA on rounded weights at the FFMA shapes); the time-map products.  Each sum over the batch (weight, scale and
 bias gradients) is kept in f32 per sample, reduced in the fixed order and
 rounded once, as the plain path rounds it once (the weight gradients: r1,
 r2, gu, gv hold bf16 values, which one TF32 pass of the tensor cores
@@ -109,7 +110,8 @@ from .odefunc import (
 
 __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
            "bwd_refusal", "bwd_smem_bytes", "u_global", "tap_contract",
-           "sample_pass", "cluster_smem_bytes", "PAIR_THREADS", "PAIR_C",
+           "sample_pass", "cluster_smem_bytes", "pair_area_floats",
+           "PAIR_THREADS", "PAIR_C",
            "weight_splits", "weight_smem_bytes", "bwd_residuals_plain",
            "weight_grad_emulated", "weight_grad_f64"]
 
@@ -182,41 +184,55 @@ def u_global(hw: tuple[int, int], c: int, groups: int) -> bool:
 
 def bwd_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
     """Dynamic shared memory per CTA of the one-CTA-per-sample pass
-    (csrc/odefunc_bwd.cu ``bwd_smem_bytes``; the bf16 build's, and the f32
-    build's outside :func:`sample_pass`'s cluster gate): the forward's, 6·G
+    (csrc/odefunc_bwd.cu ``bwd_smem_bytes``; either build's outside
+    :func:`sample_pass`'s cluster gate): the forward's, 6·G
     statistics, 4·C channel sums and, unless :func:`u_global`, u."""
     return layout(hw, c, groups, backward=True).smem
 
 
 def sample_pass(hw: tuple[int, int], c: int, groups: int,
                 precision: str = "f32") -> str:
-    """Which per-sample pass the backward runs, by the shape and the
-    precision alone (csrc/odefunc_bwd.cu ``pair_ok``): ``'cluster'``, two
-    CTAs of 256 threads per sample, each owning 32 output channels, for
-    the f32 build at the ``wgmma3`` shapes (C = 64: 7×7×64, 6×6×64) where
-    the group count is even, so that no GroupNorm group has channels in
-    both halves; else ``'cta'``, one CTA of 512 threads per sample."""
-    if (precision == "f32" and stage(hw, c) == "wgmma3" and groups > 0
+    """Which per-sample pass the backward's build of ``precision``
+    (``'f32'`` or ``'bf16'``) runs, by the shape alone (csrc/odefunc_bwd.cu
+    ``pair_ok``): ``'cluster'``, two CTAs of 256 threads per sample, each
+    owning 32 output channels, at the ``wgmma`` shapes (C = 64: 7×7×64,
+    6×6×64; ``wgmma3`` in f32, ``wgmma_bf16`` in bf16) where the group
+    count is even, so that no GroupNorm group has channels in both halves;
+    else ``'cta'``, one CTA of 512 threads per sample."""
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"precision must be 'f32' or 'bf16', got "
+                         f"{precision!r}")
+    if (stage(hw, c, precision) in ("wgmma3", "wgmma_bf16") and groups > 0
             and c % groups == 0 and groups % 2 == 0):
         return "cluster"
     return "cta"
 
 
-def cluster_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
-    """Dynamic shared memory per CTA of the cluster pass
-    (csrc/odefunc_bwd.cu ``pair_smem_bytes``): the TF32 heads and tails of
-    its half of a tap's weights (2·32·64 floats), the f32 tile as copied
-    (64·64) and its two mbarriers (4), the whole conv input with its zero
-    border (the tensor-core stage's rows and pitch), its halves of x and u
-    (H·W·32 each), 2·256 partial sums, 3·G statistics (its G/2 groups),
-    4·32 channel sums and 2·C t-gradient sums.  72,976 bytes at 7×7×64 and
-    69,072 at 6×6×64."""
+def cluster_smem_bytes(hw: tuple[int, int], c: int, groups: int,
+                       precision: str = "f32") -> int:
+    """Dynamic shared memory per CTA of the cluster pass of the build of
+    ``precision`` (csrc/odefunc_bwd.cu ``pair_smem_bytes``): its weight area
+    (:func:`pair_area_floats`), the whole conv input with its zero border
+    (the tensor-core stage's rows and pitch), its halves of x and u (H·W·32
+    each), 2·256 partial sums, 3·G statistics (its G/2 groups), 4·32
+    channel sums and 2·C t-gradient sums.  72,976 bytes at 7×7×64 and
+    69,072 at 6×6×64; the bf16 build 60,688 and 56,784."""
     hh, ww = hw
     rows = MMA_M + 2 * (ww + 2) + 2
     pitch = MMA_C * -(-c // MMA_C) + PAD_A
-    return 4 * (2 * PAIR_C * MMA_C + MMA_C * MMA_C + 4 + rows * pitch
+    return 4 * (pair_area_floats(precision) + rows * pitch
                 + 2 * hh * ww * PAIR_C + 2 * PAIR_THREADS + 3 * groups
                 + 4 * PAIR_C + 2 * c)
+
+
+def pair_area_floats(precision: str = "f32") -> int:
+    """Floats of a cluster CTA's weight area (csrc/odefunc_bwd.cu
+    ``pair_area_floats``): its operand tiles, the TF32 heads and tails of
+    its half of a tap's weights (2·32·64 floats) in f32 or its bf16 tile
+    (32·64 bf16, 1,024 floats) in bf16, then the f32 tile as copied (64·64)
+    and its two mbarriers (4)."""
+    tiles = 2 * PAIR_C * MMA_C if precision == "f32" else PAIR_C * MMA_C // 2
+    return tiles + MMA_C * MMA_C + 4
 
 
 def bwd_refusal(hw: tuple[int, int], c: int, groups: int) -> str | None:

@@ -35,9 +35,12 @@ a call, the operator's dispatch included where the package has one).
 ``--bf16`` adds, per shape, the bf16 builds (``odefunc`` with
 ``compute_dtype=bfloat16``, ``rk_step`` with ``conv_precision='bf16'``, the
 backward with ``precision='bf16'`` at B = 128, device ms as above; the
-backward's three kernels apart, beside the f32 build's) and the library
+backward's three kernels apart, beside the f32 build's, and at each
+``--bwd-batch``, ``odefunc_bwd_bf16_b<B>_split_ms``) and the library
 yardstick of their convs, ``F.conv2d`` on bf16 tensors at that shape (one
-conv, B = 256).  It needs a package that has the bf16 builds.
+conv, B = 256).  It needs a package that has the bf16 builds.  Each row
+names the per-sample pass each build runs (``bwd_pass``, ``bwd_bf16_pass``:
+``kernels.odefunc_bwd.sample_pass``, where the package has it).
 
 ``--digest`` prints, per shape, the sha256 of each f32 kernel's outputs on
 the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
@@ -47,9 +50,11 @@ conv kernels' time channel; the residuals of its forward recompute,
 ``odefunc_bwd_r``: r1 and r2; the conv probe's strategies where the shape
 takes them) and, where the package has the bf16 builds, of theirs
 (``odefunc_bf16``, ``rk_step_bf16`` at ``conv_precision='bf16'``,
-``odefunc_bwd_bf16``: every output), so that two checkouts' kernels can be
-held bit for bit (run once with each package on ``PYTHONPATH``, in one
-call).
+``odefunc_bwd_bf16``: every output; and apart, as the f32 build's,
+``odefunc_bwd_bf16_weights``, ``odefunc_bwd_bf16_rest`` without f,
+``odefunc_bwd_bf16_f`` and ``odefunc_bwd_bf16_r``), so that two
+checkouts' kernels can be held bit for bit (run once with each package on
+``PYTHONPATH``, in one call).
 
 ``--errors`` prints, per shape, the backward's dθ max abs error against its
 plain version in float64 at B = 128, 64 and 5 (the seeded inputs' first
@@ -158,15 +163,33 @@ def _bwd_rows(nb: int, h, t0, g):
     return (t0[:nb].contiguous(), h[:nb].contiguous(), g[:nb].contiguous())
 
 
+def _passes(hh: int, ww: int, c: int, bf16: bool) -> dict:
+    """The per-sample pass of each build timed (``sample_pass``), or {}
+    where the package has no such gate."""
+    from neural_ode_features_tpu_torch.kernels import odefunc_bwd as mod
+
+    if not hasattr(mod, "sample_pass"):
+        return {}
+    out = {"bwd_pass": mod.sample_pass((hh, ww), c, G)}
+    if bf16:
+        out["bwd_bf16_pass"] = mod.sample_pass((hh, ww), c, G, "bf16")
+    return out
+
+
 def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
             bwd_only: bool = False, bwd_batches=()) -> dict:
     w, h, t0, dt, y0, f0, g, hb, tb, kw = _inputs(hh, ww, c)
     row = {"shape": f"{hh}x{ww}x{c}"}
+    row.update(_passes(hh, ww, c, bf16))
     for nb in bwd_batches:
         if nb != B_BWD:
             args = _bwd_rows(nb, h, t0, g)
             row[f"odefunc_bwd_b{nb}_split_ms"] = device_split(
                 lambda: odefunc_bwd(w, *args, groups=G), BWD_KERNELS, reps)
+            if bf16:
+                row[f"odefunc_bwd_bf16_b{nb}_split_ms"] = device_split(
+                    lambda: odefunc_bwd(w, *args, groups=G,
+                                        precision="bf16"), BWD_KERNELS, reps)
     if not bwd_only:
         row["odefunc_ms"] = device_ms(lambda: odefunc(w, t0, h, groups=G),
                                       ("odefunc_kernel",), reps)
@@ -283,8 +306,19 @@ def digest(hh: int, ww: int, c: int) -> dict:
                dtk, dh, fb),
            "odefunc_bwd_r": sha(res["r1"], res["r2"])}
     if hasattr(dopri5_step, "launches_bf16"):
+        res16 = {}
         b16 = odefunc_bwd(w, tb, hb, g, groups=G, with_f=True,
-                          precision="bf16")
+                          precision="bf16", residuals=res16)
+        kernels16 = [b16[0][a]["kernel"] for a in ("conv1", "conv2")]
+        row.update({
+            "odefunc_bwd_bf16_weights": sha(
+                *(k[:, :, 1:] for k in kernels16)),
+            "odefunc_bwd_bf16_rest": sha(
+                *(b16[0][a][b] for a in sorted(b16[0])
+                  for b in sorted(b16[0][a]) if b != "kernel"),
+                *(k[:, :, :1] for k in kernels16), *b16[1:3]),
+            "odefunc_bwd_bf16_f": sha(b16[3]),
+            "odefunc_bwd_bf16_r": sha(*(res16[k] for k in sorted(res16)))})
         row.update({
             "odefunc_bf16": sha(odefunc(w, t0, h, groups=G,
                                         compute_dtype=torch.bfloat16)),

@@ -37,10 +37,11 @@ tensor-core stage: ``mma3``'s, and ``wgmma3``'s with its first copies) and
 ``no_conv_no_gn`` (also no GroupNorm statistics).
 
 With ``--bwd-only``, in place of the two above, the backward's per-sample
-pass (f32, 7×7×64, device ms per launch at each ``--bwd-batch``;
-``BWD_VARIANTS``, edits of ``csrc/odefunc_bwd.cu``; 11 builds), each
-variant of the cluster pass (``bwd_sample_kernel_cluster``, what the f32
-build runs there) beside the same variant of the one-CTA pass
+pass (7×7×64, device ms per launch at each ``--bwd-batch`` and in each
+build of ``--bwd-precision``, ``f32`` and/or ``bf16``; ``BWD_VARIANTS``,
+edits of ``csrc/odefunc_bwd.cu``; 11 builds, each timed in every build),
+each variant of the cluster pass (``bwd_sample_kernel_cluster``, what both
+builds run there) beside the same variant of the one-CTA pass
 (``bwd_sample_kernel``, the cluster gate switched off):
 
 ``shipped``        the pass as it is.
@@ -55,7 +56,7 @@ build runs there) beside the same variant of the one-CTA pass
                    shared memory: each conv reads half its input.
 
     python -m neural_ode_features_tpu_torch.probes.timing_aids --bwd-only \
-        [--bwd-batch 128,16]
+        [--bwd-batch 128,16] [--bwd-precision f32,bf16]
 
 Prints the card's name and power limit and one line per variant; writes no
 file.  Needs a CUDA card and ``nvcc``.
@@ -154,33 +155,33 @@ RK_VARIANTS = {
 }
 
 # The backward's per-sample pass at 7×7×64 (csrc/odefunc_bwd.cu): the
-# cluster pass, bwd_sample_kernel_cluster, which the f32 build runs there,
-# and the one-CTA pass, bwd_sample_kernel, run there by switching the
-# cluster gate off (its "shipped" is the one-CTA pass that the f32 build ran
-# at C = 64 before the cluster, bit for bit).
+# cluster pass, bwd_sample_kernel_cluster, which both builds run there, and
+# the one-CTA pass, bwd_sample_kernel, run there by switching the cluster
+# gate off (its "shipped" is the one-CTA pass that the build ran at C = 64
+# before its cluster: bit for bit in f32).
 _BWD = "odefunc_bwd.cu"
 _PAIR_IGRAD = [
-    (_BWD, f"  pair_conv<true>(m, s, p.{w}, rank, to_sx);  // conv{w[1]} input "
+    (_BWD, f"  pair_conv<true, kPrec>(m, s, p.{w}, rank, to_sx);  // conv{w[1]} input "
            f"gradient\n", "") for w in ("w2", "w1")]
 _PAIR_FWD_CONV = [
-    (_BWD, f"  pair_conv<false>(m, s, p.{w}, rank, [&](int q, int cl, float "
-           f"acc) {{\n",
-     f"  if (false) pair_conv<false>(m, s, p.{w}, rank, [&](int q, int cl, "
-     f"float acc) {{\n") for w in ("w1", "w2")]
+    (_BWD, f"  pair_conv<false, kPrec>(m, s, p.{w}, rank, [&](int q, int cl, "
+           f"float acc) {{\n",
+     f"  if (false) pair_conv<false, kPrec>(m, s, p.{w}, rank, [&](int q, "
+     f"int cl, float acc) {{\n") for w in ("w1", "w2")]
 _PAIR_GN = [
-    (_BWD, "  for (int el = tid; el < n; el += kPairThreads) {\n"
-           "    const float dy = dyf(el), xh = xhat(el);\n",
-     "  if (false) for (int el = tid; el < n; el += kPairThreads) {\n"
-     "    const float dy = dyf(el), xh = xhat(el);\n"),
+    (_BWD, "    for (int el = tid; el < n; el += kPairThreads) {\n"
+           "      a1 = a1f(el, a1);\n",
+     "    if (false) for (int el = tid; el < n; el += kPairThreads) {\n"
+     "      a1 = a1f(el, a1);\n"),
     (_BWD, "  if (tid < (s.G >> 1)) {  // the group means of this CTA's groups\n",
      "  if (false) {  // the group means of this CTA's groups\n"),
 ]
 _PAIR_WRITES = [
     *((_BWD, f"    {r}[at(el)] = y;\n", "") for r in ("r1", "r2")),
-    *((_BWD, f"                     {r}[at(el)] = v;\n", "")
+    *((_BWD, f"                            {r}[at(el)] = v;\n", "")
       for r in ("gv", "gu")),
 ]
-_CTA = [(_BWD, "  if (kF && pair_ok(H, W, C, G)) {", "  if (false) {")]
+_CTA = [(_BWD, "  if (pair_ok(H, W, C, G)) {", "  if (false) {")]
 _CTA_IGRAD = [
     (_BWD, f"  if (s.mma) mma_stage<kB ? kPassBf16 : 3, true, kWide>(m, s, "
            f"p.{w}, to_sx);\n  else conv3x3<kB>(m, s, {w}bt, to_sx);\n", "")
@@ -262,12 +263,15 @@ def _with_library(source: str, lib, fn):
         _build._loaded[source] = shipped
 
 
-def bwd_times(tmp: Path, dev, batches, reps: int = 20) -> dict:
+def bwd_times(tmp: Path, dev, batches, precisions=("f32",),
+              reps: int = 20) -> dict:
     """Device ms per launch of the per-sample pass (the kernel named
-    ``bwd_sample_kernel*``) under each of ``BWD_VARIANTS`` at 7×7×64 and
-    each batch of ``batches`` (the entry model's ODEfunc, seed 7;
-    numpy-seeded state and cotangent): ``{pass: {variant: {batch: ms}}}``,
-    the passes in turns variant by variant."""
+    ``bwd_sample_kernel*``) under each of ``BWD_VARIANTS`` at 7×7×64, each
+    batch of ``batches`` and each build of ``precisions`` (the entry
+    model's ODEfunc, seed 7; numpy-seeded state and cotangent):
+    ``{precision: {pass: {variant: {batch: ms}}}}``, the passes in turns
+    variant by variant, each variant's library built once for every
+    build."""
     from ..kernels.odefunc_bwd import odefunc_bwd
     from ..models import ModelConfig, init_odenet
 
@@ -282,7 +286,7 @@ def bwd_times(tmp: Path, dev, batches, reps: int = 20) -> dict:
     h = arr(rng.normal(size=(nb, 7, 7, 64)) * 0.3)
     t = arr(rng.uniform(0, 0.5, nb))
     g = arr(rng.normal(size=(nb, 7, 7, 64)))
-    out = {name: {} for name in BWD_VARIANTS}
+    out = {prec: {name: {} for name in BWD_VARIANTS} for prec in precisions}
     for tag in BWD_VARIANTS["cluster"]:
         for name, variants in BWD_VARIANTS.items():
             if tag not in variants:
@@ -290,16 +294,19 @@ def bwd_times(tmp: Path, dev, batches, reps: int = 20) -> dict:
             edits = variants[tag]
             lib = (_build_variant(edits, "odefunc_bwd", tmp,
                                   f"bwd_{name}_{tag}") if edits else None)
-            ms = out[name][tag] = {}
-            for b in batches:
-                args = (t[:b].contiguous(), h[:b].contiguous(),
-                        g[:b].contiguous())
-                us = _with_library("odefunc_bwd", lib, lambda: device_us(
-                    lambda: odefunc_bwd(wts, *args, groups=32),
-                    ("bwd_sample_kernel",), reps))["bwd_sample_kernel"]
-                ms[b] = us / 1e3
-            print(f"bwd_sample {name:>7} {tag:>14}: " + ", ".join(
-                f"B={b} {v:.4f} ms" for b, v in ms.items()) + " per launch")
+            for prec in precisions:
+                ms = out[prec][name][tag] = {}
+                for b in batches:
+                    args = (t[:b].contiguous(), h[:b].contiguous(),
+                            g[:b].contiguous())
+                    us = _with_library("odefunc_bwd", lib, lambda: device_us(
+                        lambda: odefunc_bwd(wts, *args, groups=32,
+                                            precision=prec),
+                        ("bwd_sample_kernel",), reps))["bwd_sample_kernel"]
+                    ms[b] = us / 1e3
+                print(f"bwd_sample {prec:>4} {name:>7} {tag:>14}: "
+                      + ", ".join(f"B={b} {v:.4f} ms" for b, v in ms.items())
+                      + " per launch")
     return out
 
 
@@ -311,6 +318,9 @@ def main(argv=None) -> dict:
     p.add_argument("--bwd-only", action="store_true",
                    help="time the backward's per-sample pass (BWD_VARIANTS) "
                         "in place of the probe and rk_step")
+    p.add_argument("--bwd-precision", default="f32",
+                   help="comma-separated builds of the backward variants "
+                        "(f32, bf16)")
     args = p.parse_args(argv)
     dev = strict_f32("cuda")
     smi = subprocess.run(
@@ -323,7 +333,8 @@ def main(argv=None) -> dict:
         tmp = Path(tmp)
         if args.bwd_only:
             return {"bwd_sample_ms": bwd_times(
-                tmp, dev, [int(b) for b in args.bwd_batch.split(",")])}
+                tmp, dev, [int(b) for b in args.bwd_batch.split(",")],
+                args.bwd_precision.split(","))}
         x, w = probe_inputs(args.batch, dev)
         exact = conv3x3_plain(x.double(), w.double())
         name = KERNEL_NAMES["mma3"]

@@ -94,8 +94,9 @@ def _kernel_wrappers() -> tuple:
     return ((odefunc, "launches", {"odefunc_kernel": 0}),
             (odefunc, "launches_bf16", {"odefunc_kernel": 2}),
             (odefunc_bwd, "launches", {"bwd_sample_kernel": 0,
-                                       "bwd_sample_kernel_cluster": None}),
-            (odefunc_bwd, "launches_bf16", {"bwd_sample_kernel": 2}),
+                                       "bwd_sample_kernel_cluster": 0}),
+            (odefunc_bwd, "launches_bf16", {"bwd_sample_kernel": 2,
+                                            "bwd_sample_kernel_cluster": 2}),
             (dopri5_step, "launches", {"rk_step_kernel": 0}),
             (dopri5_step, "launches_bf16", {"rk_step_kernel": 1}),
             (conv3x3, "launches", dict.fromkeys(

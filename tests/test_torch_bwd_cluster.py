@@ -1,14 +1,15 @@
-"""The backward's per-sample pass as a two-CTA cluster (the f32 build at
+"""The backward's per-sample pass as a two-CTA cluster (both builds at
 C = 64, ``csrc/odefunc_bwd.cu`` ``bwd_sample_kernel_cluster``) on the CPU:
 its input-gradient conv on the ``wgmma`` stage, emulated step by step
 (``conv3x3_wgmma_emulated(..., transposed=True)``: tap 8 − k's tile
-transposed, the instruction's k order, three TF32 products per k8 step)
-against the float64 input gradient and ``jax.vjp`` of the JAX package's
-``concat_conv2d``; the split of a CTA's half tile (``wgmma_pack_rows``);
-and the Python gate and shared-memory formula (``sample_pass``,
-``cluster_smem_bytes``) against the C++ ones, read from the source.  The
-kernel itself runs only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``)."""
+transposed, the instruction's k order, three TF32 products per k8 step;
+with ``precision='bf16'``, two bf16 k16 steps) against the float64 input
+gradient and ``jax.vjp`` of the JAX package's ``concat_conv2d`` (in f32,
+and in bf16 for the bf16 build); the split (conversion) of a CTA's half
+tile (``wgmma_pack_rows``, ``wgmma_pack_rows_bf16``); and the Python gate
+and shared-memory formula (``sample_pass``, ``cluster_smem_bytes``)
+against the C++ ones, read from the source.  The kernel itself runs only
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import re
 from pathlib import Path
@@ -23,8 +24,11 @@ from neural_ode_features_tpu.ops import layers as jl
 from neural_ode_features_tpu_torch.kernels.conv3x3 import (
     conv3x3_plain,
     conv3x3_wgmma_emulated,
+    wgmma_bf16_offset,
     wgmma_pack,
+    wgmma_pack_bf16,
     wgmma_pack_rows,
+    wgmma_pack_rows_bf16,
     wgmma_rows_item,
     wgmma_tile_offset,
 )
@@ -40,9 +44,10 @@ from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
     cluster_smem_bytes,
     odefunc_bwd,
     odefunc_bwd_plain,
+    pair_area_floats,
     sample_pass,
 )
-from neural_ode_features_tpu_torch.kernels.odefunc import prepare
+from neural_ode_features_tpu_torch.kernels.odefunc import bf16_round, prepare
 from neural_ode_features_tpu_torch.probes import conv_probe
 
 torch.set_num_threads(2)
@@ -125,6 +130,60 @@ def test_transposed_emulation_against_jax_vjp(hw):
     np.testing.assert_allclose(got.numpy(), want, **JAX_TOL)
 
 
+@pytest.mark.parametrize("batch,hw", [(3, (7, 7)), (3, (6, 6)), (1, (1, 62))])
+def test_bf16_transposed_emulation_matches_the_plain_bf16_input_gradient(
+        batch, hw):
+    """The bf16 cluster pass's input-gradient conv (``wgmma_bf16`` on tap
+    8 − k's tile transposed, two k16 steps per tap and k half): within f32
+    reassociation of the plain bf16 conv with the flipped, transposed
+    weights, f32-grade against the f64 conv of the rounded operands, and
+    the forward bf16 stage on the rearranged weights bit for bit."""
+    g, w = _draw(batch, hw)
+    wbt = _flipped_transposed(w)
+    got = conv3x3_wgmma_emulated(g, w, transposed=True, precision="bf16")
+    np.testing.assert_allclose(
+        got.numpy(), conv3x3_plain(g, wbt, passes="bf16").numpy(), **CONV_TOL)
+    exact = conv3x3_plain(bf16_round(g).double(), bf16_round(wbt).double())
+    assert float((got.double() - exact).abs().max()) < 2e-7
+    assert torch.equal(got, conv3x3_wgmma_emulated(g, wbt, precision="bf16"))
+
+
+@pytest.mark.parametrize("hw", [(7, 7), (6, 6)])
+def test_bf16_transposed_emulation_against_jax_vjp(hw):
+    """The input gradient of the JAX package's ConcatConv in bf16 (``jax.vjp``
+    of ``concat_conv2d`` on bf16 weights, t, input and cotangent, the jnp
+    bf16 dynamics' VJP: its sum rounded once) against the emulation rounded
+    once, as the bf16 cluster pass rounds it (``to_sx``), on the same
+    numpy-seeded weights and cotangent.  Units: u = 2^-8 of each sample's
+    max-norm; the two round alike but where f32 reassociation crosses a
+    rounding boundary, so the bar is 0.25 u, which the f32 VJP breaks."""
+    rng = np.random.default_rng(4)
+    b, c = 3, 64
+    x = rng.normal(size=(b, *hw, c)).astype(np.float32)
+    g = rng.normal(size=(b, *hw, c)).astype(np.float32)
+    t = rng.uniform(0, 1, b).astype(np.float32)
+    p = jl.init_conv(jax.random.PRNGKey(5), 3, 3, c + 1, c)
+
+    def vjp_x(dtype):
+        pp = {k: jnp.asarray(np.array(v), dtype) for k, v in p.items()}
+        _, vjp = jax.vjp(lambda xx: jl.concat_conv2d(pp, jnp.asarray(t, dtype),
+                                                     xx), jnp.asarray(x, dtype))
+        return np.asarray(vjp(jnp.asarray(g, dtype))[0].astype(jnp.float32))
+
+    want, want32 = vjp_x(jnp.bfloat16), vjp_x(jnp.float32)
+    kernel = torch.from_numpy(np.array(p["kernel"]))
+    got = bf16_round(conv3x3_wgmma_emulated(
+        torch.from_numpy(g), kernel[:, :, 1:, :].contiguous(),
+        transposed=True, precision="bf16")).numpy()
+
+    def u_per_row(a):
+        d = np.abs(a - want).reshape(b, -1).max(1)
+        return d / (2.0 ** -8 * np.abs(want).reshape(b, -1).max(1))
+
+    assert float(u_per_row(got).max()) <= 0.25
+    assert float(u_per_row(want32).max()) > 0.25
+
+
 # ---- the split of a CTA's half tile ---------------------------------------
 
 
@@ -160,6 +219,29 @@ def test_half_tile_split_is_the_whole_tiles_half(rank):
     assert torch.equal(tail, full_tail[2048 * rank:2048 * (rank + 1)])
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_bf16_half_tile_conversion_is_the_whole_tiles_half(rank):
+    """The bf16 cluster pass's conversion of its 32 rows of tap 8 − k's
+    weights (``wgmma_pack_rows_bf16``, the rotated walk of the TF32 split,
+    eight k into one core-matrix row) is, slot for slot, the output-channel
+    half ``rank`` of the forward stage's conversion of the transposed tile
+    (``wgmma_pack_bf16``); each quarter-warp stores 8 rows of distinct
+    banks."""
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32))
+    half = wgmma_pack_rows_bf16(w[32 * rank:32 * rank + 32].contiguous())
+    full = wgmma_pack_bf16(w.T.contiguous())
+    assert int(half.min()) >= 0
+    assert torch.equal(half, full[2048 * rank:2048 * (rank + 1)])
+    for kh in range(2):
+        for q0 in range(0, 128, 8):
+            banks = set()
+            for wt in range(q0, q0 + 8):
+                n, o = wgmma_rows_item(wt)
+                banks.add(wgmma_bf16_offset(n, 32 * kh + 8 * o) % 128 // 16)
+            assert len(banks) == 8
+
+
 def test_the_split_walk_is_the_kernels():
     """The walk of ``wgmma_rows_item`` read against the transposed split
     of ``wgmma_conv<2, true>`` (``csrc/odefunc_common.cuh``), which
@@ -170,7 +252,7 @@ def test_the_split_walk_is_the_kernels():
     assert "const int n = 8 * (wt >> 5) + l, k0 = 32 * kh + 8 * o;" in header
     assert "const float* row = raw + n * kMmaC + k0;" in header
     src = " ".join(SOURCE.read_text().split())
-    assert ("wgmma_conv<2, BT>(m.spad, s, m.head, w, (int)rank * kPairC, "
+    assert ("wgmma_conv<2, BT, PREC>(m.spad, s, m.head, w, (int)rank * kPairC, "
             "epi);") in src
 
 
@@ -200,16 +282,25 @@ def _cpp_constant(name, env):
 
 @pytest.mark.parametrize("hw", [(7, 7), (6, 6), (5, 5), (3, 8)])
 def test_sample_pass_follows_pair_ok(hw):
-    """At every C from 32 to 512 and every group count dividing it, the
-    f32 build runs the cluster exactly where ``pair_ok`` (read from the
-    source) holds; the bf16 build never does."""
+    """At every C from 32 to 512 and every group count dividing it, both
+    builds run the cluster exactly where ``pair_ok`` (read from the source,
+    where the launcher takes it for either build) holds: C = 64 with an
+    even group count."""
     for c in range(32, 513, 32):
         for g in (d for d in range(1, c + 1) if c % d == 0):
             cpp = _cpp_pair_ok(*hw, c, g)
             assert (sample_pass(hw, c, g) == "cluster") == cpp, (hw, c, g)
-            assert sample_pass(hw, c, g, "bf16") == "cta"
-    assert sample_pass(hw, 64, 32) == "cluster"
-    assert sample_pass((8, 8), 64, 32) == "cta"  # H·(W+2) > 64
+            assert (sample_pass(hw, c, g, "bf16") == "cluster") == cpp
+    for precision in ("f32", "bf16"):
+        assert sample_pass(hw, 64, 32, precision) == "cluster"
+        assert sample_pass(hw, 64, 1, precision) == "cta"  # odd groups
+        assert sample_pass(hw, 128, 32, precision) == "cta"  # C != 64
+        assert sample_pass((8, 8), 64, 32, precision) == "cta"  # H·(W+2) > 64
+    src = " ".join(SOURCE.read_text().split())
+    assert "if (pair_ok(H, W, C, G)) { // the cluster pass" in src
+    assert "const auto pass = bwd_sample_kernel_cluster<kPrec>;" in src
+    with pytest.raises(ValueError, match="precision"):
+        sample_pass(hw, 64, 32, "bf16_conv")
 
 
 def test_no_group_crosses_the_halves():
@@ -236,32 +327,72 @@ def test_the_constants_are_mirrored():
     assert 512 // 64 == PAIR_THREADS // PAIR_C
 
 
-@pytest.mark.parametrize("hw", [(7, 7), (6, 6), (5, 5)])
-def test_cluster_smem_follows_pair_smem_bytes(hw):
-    """``cluster_smem_bytes`` is ``pair_smem_bytes`` of the source,
-    evaluated on the shape's rows and pitch (the tensor-core stage's)."""
-    expr = _cpp(r"inline size_t pair_smem_bytes\(const Shape& s\) \{\s*"
+def _cpp_ternary(expr, env):
+    """A C++ expression with at most one ``a ? b : c`` at its top, as
+    Python (integer division) evaluated in ``env``."""
+    expr = expr.replace(" / ", " // ")
+    m = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr)
+    py = f"(({m.group(2)}) if ({m.group(1)}) else ({m.group(3)}))" if m else expr
+    return eval(py, {"__builtins__": {}}, env)  # noqa: S307
+
+
+def _cpp_pair_area(prec):
+    """``pair_area_floats(prec)`` of the source (with ``wg_operand_floats``
+    of the header), evaluated at ``prec`` (0 kF32, 2 kBf16)."""
+    consts = {"kHalfTileF": 32 * 64, "kTileF": 64 * 64, "kF32": 0}
+    header = (CSRC / "odefunc_common.cuh").read_text()
+    m = re.search(r"constexpr int wg_operand_floats\(int nwg, int prec\) "
+                  r"\{\s*return (.*?);\s*\}", header, re.S)
+    operand = " ".join(m.group(1).split())
+    expr = _cpp(r"constexpr int pair_area_floats\(int prec\) \{\s*"
                 r"return (.*?);\s*\}")
+    env = dict(consts, prec=prec, wg_operand_floats=lambda nwg, p: (
+        _cpp_ternary(operand, dict(consts, nwg=nwg, prec=p))))
+    return _cpp_ternary(expr, env)
+
+
+@pytest.mark.parametrize("hw,precision", [
+    pytest.param((7, 7), "f32", id="hw0"), pytest.param((6, 6), "f32", id="hw1"),
+    pytest.param((5, 5), "f32", id="hw2"),
+    pytest.param((7, 7), "bf16", id="hw0-bf16"),
+    pytest.param((6, 6), "bf16", id="hw1-bf16")])
+def test_cluster_smem_follows_pair_smem_bytes(hw, precision):
+    """``cluster_smem_bytes`` is ``pair_smem_bytes`` of the source,
+    evaluated on the shape's rows and pitch (the tensor-core stage's) and
+    the build's weight area (``pair_area_floats``: the TF32 heads and tails,
+    or the bf16 tile, beside the f32 tile and two mbarriers)."""
+    expr = _cpp(r"inline size_t pair_smem_bytes\(const Shape& s, int prec\) "
+                r"\{\s*return (.*?);\s*\}")
     py = re.sub(r"\(size_t\)", "", expr).replace("sizeof(float)", "4")
     py = py.replace("s.", "s_")
+    prec = {"f32": 0, "bf16": 2}[precision]
+    area = _cpp_pair_area(prec)
+    assert area == pair_area_floats(precision) == (
+        {"f32": 2 * 2048, "bf16": 1024}[precision] + 4096 + 4)
     hh, ww = hw
     for g in (2, 4, 8, 16, 32, 64):
-        env = {"kHalfTileF": 32 * 64, "kTileF": 64 * 64, "kPairThreads": 256,
-               "kPairC": 32, "s_R": 64 + 2 * (ww + 2) + 2, "s_P": 72,
+        env = {"kPairThreads": 256, "kPairC": 32, "prec": prec,
+               "pair_area_floats": lambda p: _cpp_pair_area(p),
+               "s_R": 64 + 2 * (ww + 2) + 2, "s_P": 72,
                "s_H": hh, "s_W": ww, "s_G": g, "s_C": 64}
         assert eval(py, {"__builtins__": {}}, env) == cluster_smem_bytes(  # noqa: S307
-            hw, 64, g)
+            hw, 64, g, precision)
 
 
 def test_two_or_more_ctas_fit_per_sm():
     """At 7×7×64 and 6×6×64 a cluster CTA's shared memory (72,976 and
-    69,072 bytes, against the one-CTA pass's 110,720 and 103,488) and its
-    reserved kilobyte fit two CTAs in an SM's 228 KB (three by shared
-    memory alone), and the launch bounds ask for two CTAs of 256 threads:
-    at most 128 registers a thread of the SM's 65,536."""
+    69,072 bytes; the bf16 build's 60,688 and 56,784, its weight area a
+    bf16 tile in place of the TF32 heads and tails; against the one-CTA
+    pass's 110,720 and 103,488) and its reserved kilobyte fit two CTAs in an
+    SM's 228 KB (three by shared memory alone), and the launch bounds ask
+    for two CTAs of 256 threads: at most 128 registers a thread of the SM's
+    65,536."""
     sizes = {hw: cluster_smem_bytes(hw, 64, 32) for hw in ((7, 7), (6, 6))}
     assert sizes == {(7, 7): 72976, (6, 6): 69072}
-    for hw, nbytes in sizes.items():
+    sizes16 = {hw: cluster_smem_bytes(hw, 64, 32, "bf16")
+               for hw in ((7, 7), (6, 6))}
+    assert sizes16 == {(7, 7): 60688, (6, 6): 56784}
+    for hw, nbytes in (*sizes.items(), *sizes16.items()):
         assert 3 * (nbytes + 1024) <= 228 * 1024
         assert nbytes <= MAX_SMEM
     assert (bwd_smem_bytes((7, 7), 64, 32), bwd_smem_bytes((6, 6), 64, 32)) == (
@@ -290,18 +421,21 @@ def test_the_cpu_wrapper_runs_the_plain_version():
 def test_graph_route_counts_either_pass():
     """On the graph route a replay counts ``odefunc_bwd`` launches from the
     captured graph's kernel nodes by mangled name and build: one per node
-    of either per-sample pass of the f32 build (the cluster pass, f32 only,
-    has no build argument: ``...25bwd_sample_kernel_clusterEPKf...``), none
-    of the weight and reduction kernels, the bf16 build's apart."""
+    of either per-sample pass, each pass's build read from its precision
+    template argument (``...25bwd_sample_kernel_clusterILi0EE...`` the f32
+    build, ``ILi2EE`` the bf16 build's, counted in ``launches_bf16``), none
+    of the weight and reduction kernels."""
     import collections
 
     from neural_ode_features_tpu_torch.solver import attempt_graph
 
     nodes = collections.Counter({
-        "_ZN5nodef25bwd_sample_kernel_clusterEPKfS1_S1_NS_7OdefuncE": 3,
+        "_ZN5nodef25bwd_sample_kernel_clusterILi0EEEvPKfS2_S2_NS_7OdefuncE": 3,
+        "_ZN5nodef25bwd_sample_kernel_clusterILi2EEEvPKfS2_S2_NS_7OdefuncE": 11,
         "_ZN5nodef17bwd_sample_kernelILb0ELb0ELi0EEEvPKfS2_S2_NS_7OdefuncE": 2,
         "_ZN5nodef17bwd_sample_kernelILb0ELb0ELi2EEEvPKfS2_S2_NS_7OdefuncE": 7,
         "_ZN5nodef17bwd_weight_kernelILi64ELb0EEEvPKfS2_S2_S2_NS_5ShapeEiiPf": 5,
+        "_ZN5nodef17bwd_weight_kernelILi64ELb1EEEvPKfS2_S2_S2_NS_5ShapeEiiPf": 5,
         "_ZN5nodef17bwd_reduce_kernelILb0EEEvPKfS2_NS_5ShapeEiiPfS3_S3_": 5,
     })
     rules = {(w.__name__, attr): kernels for w, attr, kernels
@@ -309,7 +443,7 @@ def test_graph_route_counts_either_pass():
     f32 = rules[("odefunc_bwd", "launches")]
     bf16 = rules[("odefunc_bwd", "launches_bf16")]
     assert attempt_graph._count(nodes, f32) == 5
-    assert attempt_graph._count(nodes, bf16) == 7
+    assert attempt_graph._count(nodes, bf16) == 18
     src = " ".join(SOURCE.read_text().split())
     assert ("__global__ void __cluster_dims__(2, 1, 1) "
             "__launch_bounds__(kPairThreads, 2) bwd_sample_kernel_cluster(") in src

@@ -1271,12 +1271,12 @@ def _bwd_inputs(dev, batch, side):
     return t, h, torch.from_numpy(g.astype(np.float32)).to(dev)
 
 
-def _bwd_outputs(w, t, h, g, groups=32):
+def _bwd_outputs(w, t, h, g, groups=32, precision="f32"):
     """One backward call's every output: (dθ flat, dt, dh, f, r1, r2, gu,
     gv)."""
     res = {}
     dp, dt, dh, f = odefunc_bwd(w, t, h, g, groups=groups, with_f=True,
-                                residuals=res)
+                                residuals=res, precision=precision)
     return (_flat(dp), dt, dh, f, *(res[k] for k in ("r1", "r2", "gu", "gv")))
 
 
@@ -1387,3 +1387,117 @@ def test_graph_counts_the_cluster_pass(dev):
                                               "launches")]) == 1
     assert attempt_graph._count(nodes, rules[("odefunc_bwd",
                                               "launches_bf16")]) == 0
+
+
+# ---- the bf16 build: its per-sample pass as a cluster, its convs on wgmma --
+
+
+def _captured_sample_passes(fn):
+    """The per-sample kernel nodes of ``fn()`` captured into a CUDA graph
+    (not run): ``(mangled name, grid, block, dynamic shared memory)``."""
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        return [k for k in attempt_graph.kernel_launches(
+            graph.raw_cuda_graph()) if "bwd_sample_kernel" in k[0]]
+    finally:
+        graph.reset()
+
+
+@pytest.mark.parametrize("batch,side", [(128, 7), (16, 7), (5, 7), (128, 6)])
+def test_bf16_cluster_pass_matches_plain(dev, batch, side):
+    """The bf16 backward at 7×7×64 and 6×6×64 runs the cluster pass, read
+    from a CUDA-graph kernel node (``bwd_sample_kernel_cluster``'s kBf16
+    build, two CTAs of ``PAIR_THREADS`` a sample with the bf16
+    ``cluster_smem_bytes``): each output within ``bf16_distances.BARS`` of
+    the plain bf16 VJP (dh, dt and the early leaves below the f32 build's
+    distance), f the bf16 ODEfunc kernel's bit for bit, every output and dθ
+    bit-identical over two launches, one ``launches_bf16`` per call."""
+    assert sample_pass((side, side), 64, 32, "bf16") == "cluster"
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], (side, side))
+    t, h, g = _bwd_inputs(dev, batch, side)
+    ran = _captured_sample_passes(
+        lambda: odefunc_bwd(w, t, h, g, groups=32, precision="bf16"))
+    assert [(("bwd_sample_kernel_clusterILi2EE" in k[0]), *k[1:])
+            for k in ran] == [(True, (2 * batch, 1, 1), (PAIR_THREADS, 1, 1),
+                               cluster_smem_bytes((side, side), 64, 32,
+                                                  "bf16"))]
+    before = (odefunc_bwd.launches, odefunc_bwd.launches_bf16)
+    readings = bf16_distances.bwd_readings(w, t, h, g, 32)
+    # bwd_readings: two launches of the bf16 build, one of the f32 build
+    assert (odefunc_bwd.launches, odefunc_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 2)
+    assert readings["f_equal"] and readings["repeatable"], readings
+    assert readings["bf16_values"], readings
+    assert not bf16_distances.check(readings), readings
+    got = _bwd_outputs(w, t, h, g, precision="bf16")
+    again = _bwd_outputs(w, t, h, g, precision="bf16")
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("side", [7, 6])
+def test_bf16_cluster_pass_rows_do_not_depend_on_the_batch(dev, side):
+    """A sample's cluster computes its rows alone in the bf16 build too:
+    the rows of a B = 16, 5 and 1 launch (dt, dh, f and the residuals) are
+    bit-identical to the same rows of a B = 128 launch."""
+    params = init_odenet(2, ENTRY_CONFIG, device=dev)
+    w = prepare(params["odefunc"], (side, side))
+    t, h, g = _bwd_inputs(dev, 128, side)
+    full = _bwd_outputs(w, t, h, g, precision="bf16")
+    for nb in (16, 5, 1):
+        part = _bwd_outputs(w, *(a[:nb].contiguous() for a in (t, h, g)),
+                            precision="bf16")
+        for a, b in zip(part[1:], full[1:]):
+            assert torch.equal(a, b[:nb]), nb
+
+
+@pytest.mark.parametrize("side", [7, 6])
+def test_bf16_odefunc_on_the_wgmma_stage(dev, side):
+    """The bf16 ODEfunc kernel at 7×7×64 and 6×6×64 runs ``wgmma_bf16``
+    (the gate): within ``bf16_distances.BARS`` of the plain bf16 f at
+    B = 256 and 5, its rows independent of the batch, and a weight changed
+    in place reaches the next launch and a graph replay (the stage converts
+    the f32 weights at every launch), bit for bit."""
+    assert stage((side, side), 64, "bf16") == "wgmma_bf16"
+    params = init_odenet(1, ENTRY_CONFIG, device=dev)
+    wt = prepare(params["odefunc"], (side, side))
+    h, t0, _ = _inputs(dev, 256, side)
+    for nb in (256, 5):
+        readings = bf16_distances.odefunc_readings(
+            wt, t0[:nb].contiguous(), h[:nb].contiguous(), 32)
+        assert not bf16_distances.check(readings), readings
+
+    def fn(b=256):
+        return odefunc(wt, t0[:b].contiguous(), h[:b].contiguous(),
+                       groups=32, compute_dtype=torch.bfloat16)
+
+    full = fn()
+    assert torch.equal(fn(5), full[:5])
+    side_s = torch.cuda.Stream()
+    side_s.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side_s):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side_s)
+    with torch.no_grad():
+        wt.w2.mul_(1.25)
+    eager = fn().clone()
+    assert not torch.equal(eager, full)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+

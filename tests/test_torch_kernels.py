@@ -193,9 +193,14 @@ def test_stage_is_decided_by_the_shape():
     for c in (96, 128, 192, 256, 288, 512):  # multiples of 32 up to 512
         want = "wgmma3" if c in WGMMA_C else "mma3"
         assert stage((7, 7), c) == stage((6, 6), c) == stage((5, 5), c) == want
-        # The bf16 builds keep the mma.sync stage at every tensor-core shape.
-        assert stage((7, 7), c, "bf16") == stage((6, 6), c, "bf16") == "mma3"
-    assert stage((7, 7), 64, "bf16") == stage((7, 7), 64, "bf16_conv") == "mma3"
+        # The bf16 builds run wgmma_bf16 at the widths of WGMMA_C and the
+        # mma.sync stage at the others; the fused step's bf16 convs run the
+        # mma.sync stage at every tensor-core width.
+        want16 = "wgmma_bf16" if c in WGMMA_C else "mma3"
+        assert stage((7, 7), c, "bf16") == stage((6, 6), c, "bf16") == want16
+        assert stage((7, 7), c, "bf16_conv") == "mma3"
+    assert stage((7, 7), 64, "bf16") == stage((6, 6), 64, "bf16") == "wgmma_bf16"
+    assert stage((7, 7), 64, "bf16_conv") == stage((6, 6), 64, "bf16_conv") == "mma3"
     for c in (80, 544):  # not a multiple of 32; over 512
         assert stage((7, 7), c) == "ffma"
 
@@ -242,7 +247,9 @@ def test_gate_mirrors_at_every_width(c):
     for hw in ((7, 7), (6, 6)):
         hh, ww = hw
         hwc = hh * ww * c
-        assert stage(hw, c, "bf16") == ("ffma" if c == 32 else "mma3")
+        assert stage(hw, c, "bf16_conv") == ("ffma" if c == 32 else "mma3")
+        assert stage(hw, c, "bf16") in (("ffma",) if c == 32
+                                        else ("mma3", "wgmma_bf16"))
         assert stage(hw, c) in (("ffma",) if c == 32 else ("mma3", "wgmma3"))
         assert supported(hw, c, 32) and bwd_supported(hw, c, 32)
         fwd, bwd = layout(hw, c, 32), layout(hw, c, 32, backward=True)
