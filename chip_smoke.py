@@ -235,7 +235,15 @@ Phases (any failed check exits nonzero and prints no result):
    from the gate (``'wgmma_bf16'``) and from the build (its machine code,
    ``cuobjdump -sass``, and the bf16 cluster pass's hold bf16 warpgroup
    products, the fused step's ``kBf16Conv`` build none), the probe's ``mma_bf16``,
-   ``tap9_bf16`` and ``im2col_bf16`` (f32 reassociation).  The entry
+   ``tap9_bf16``, ``im2col_bf16`` and ``wgmma_bf16`` (f32 reassociation);
+   ``im2col_bf16`` (one bf16 ``wgmma`` GEMM over the rows of every sample,
+   both operands from shared memory) also at every C its gate takes on 7×7
+   (B = 5) and at 7×7×64, 6×6×64, 5×5×128, 9×8×64, 7×7×128, 32×32×4,
+   7×7×36, 14×14×16 and 7×7×100 at B = 256, 128 and 5, its error against
+   the f64 conv of the rounded operands beside ``mma_bf16``'s (at most
+   ``WGMMA_BAR`` times), its 64- and 128-row tiles bit-identical and
+   timed, bf16 ``HGMMA`` in its build and none in the f32 ``im2col``'s
+   (``cuobjdump -sass``).  The entry
    model's bf16 inference
    (``odenet_logits``, ``odenet_trajectory``) at B = 256 on the host loop
    and on the cache, bit-identical, 2 + 6·attempts ``odefunc`` launches and
@@ -259,8 +267,9 @@ Phases (any failed check exits nonzero and prints no result):
    and its resume to a second epoch; the bf16 run through
    ``export-compiled`` and ``serve --selftest`` (2 + 6·attempts
    ``odefunc_bf16``, no ``rk_step``) and ``export`` and ``run`` against the
-   live model; the bf16 probe race at B = 256 and 128; each bf16 build
-   timed, the backward by kernel beside the f32 build.
+   live model; the bf16 probe race at B = 256 and 128 (four strategies,
+   ``F.conv2d`` on bf16 tensors by its call and its device time); each
+   bf16 build timed, the backward by kernel beside the f32 build.
    ``[straggler]``: ``python -m neural_ode_features_tpu_torch.straggler_bench``
    at the JAX tool's defaults (its JSON line: host and CUDA-event clocks,
    lane work, error units) and ``tests/test_straggler.py``'s bars; one
@@ -418,29 +427,12 @@ def time_ms(fn, reps: int = 10, blocks: int = 5) -> float:
 
 def device_ms(fn, reps: int = 20) -> float:
     """Device ms per call of ``fn``: ``reps`` calls enqueued behind a spin
-    kernel, so that the card runs them back to back and the host's cost of
-    each launch is hidden, timed by CUDA events around them.  The spin is
-    lengthened until it outlasts the enqueueing (both measured).  Needs no
-    profiler: ``torch.profiler`` drops some windows' kernels."""
-    import torch
+    kernel, timed by CUDA events around them (``probes.conv_probe.
+    queued_us``).  Needs no profiler: ``torch.profiler`` drops some
+    windows' kernels."""
+    from neural_ode_features_tpu_torch.probes.conv_probe import queued_us
 
-    fn()
-    torch.cuda.synchronize()
-    for spin in (10_000_000 << k for k in range(6)):  # from about 5 ms
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        torch.cuda._sleep(spin)
-        ev[1].record()
-        t_host = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        t_host = 1e3 * (time.perf_counter() - t_host)
-        ev[2].record()
-        torch.cuda.synchronize()
-        if ev[0].elapsed_time(ev[1]) > t_host:
-            return ev[1].elapsed_time(ev[2]) / reps
-    raise RuntimeError("the calls' enqueueing outlasted every spin: does "
-                       "the wrapper wait for the card?")
+    return queued_us(fn, reps) / 1e3
 
 
 def kernel_sass(source: str, fragment: str) -> str:
@@ -2974,6 +2966,88 @@ def main() -> int:
     # plain bf16 path and beside the f32 step; sweep --bf16; train --bf16
     # and its resume; export and serving of the bf16 run; the bf16 probe
     # race; each bf16 build timed.  Returns the kernels line's entries.
+    # The probe's im2col_bf16 (one bf16 wgmma GEMM over the rows of every
+    # sample) at the shapes of its gate: every C it takes (multiples of 4
+    # to 128) on 7x7 at B = 5, and at B = 256, 128 and 5 the main shapes,
+    # the widest, maps beyond the old per-sample patch (5x5x128, 9x8x64,
+    # 32x32x4), a C % 16 != 0 and a C % 8 != 0; each within CONV_TOL of
+    # the plain bf16 conv and outside it of the f32 conv; its error
+    # against the f64 conv of the rounded operands beside mma_bf16's (at
+    # most WGMMA_BAR times); its tile heights bit-identical and timed; its
+    # machine code (bf16 HGMMA, none in the f32 im2col).  Returns the max
+    # abs error.
+    def im2col_bf16_phase():
+        from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+            im2col_tile_rows,
+        )
+        from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+            supported as conv_supported,
+        )
+        from neural_ode_features_tpu_torch.kernels.odefunc import bf16_round
+
+        t_i = time.perf_counter()
+        shapes = [(5, (HH, WW), c) for c in range(4, 129, 4)] + [
+            (nb, hw_, c) for nb in (B, B_TRAIN, 5) for hw_, c in (
+                ((HH, WW), C), ((6, 6), C), ((5, 5), 128), ((9, 8), C),
+                ((HH, WW), 128), ((32, 32), 4), ((HH, WW), 36),
+                ((14, 14), 16), ((HH, WW), 100))]
+        err, ratios = 0.0, {}
+        for nb, hw_, c in shapes:
+            if not conv_supported(hw_, c, "im2col_bf16"):
+                fail(f"[bf16] the im2col_bf16 gate refuses {hw_} x {c}")
+            xc_, wc_ = conv_probe.probe_inputs(nb, dev, hw_, c)
+            tag = f"conv_probe im2col_bf16 B={nb} {hw_[0]}x{hw_[1]}x{c}"
+            got_ = conv3x3(xc_, wc_, "im2col_bf16")
+            err = max(err, close(tag, got_, conv3x3_plain(
+                xc_, wc_, passes="bf16"), **CONV_TOL))
+            if torch.allclose(got_, conv3x3_plain(xc_, wc_), **CONV_TOL):
+                fail(f"[bf16] {tag}: within the tolerance of the f32 conv")
+            if nb != 5 and conv_supported(hw_, c, "mma_bf16"):
+                exact = conv3x3_plain(bf16_round(xc_).double(),
+                                      bf16_round(wc_).double())
+                e_i = float((got_.double() - exact).abs().max())
+                e_m = float((conv3x3(xc_, wc_, "mma_bf16").double()
+                             - exact).abs().max())
+                ratios[tag] = e_i / e_m
+                print(f"[check] {tag} vs the f64 conv of the rounded "
+                      f"operands: {e_i:.3e} beside mma_bf16's {e_m:.3e} "
+                      f"({e_i / e_m:.2f}x; bar {conv_probe.WGMMA_BAR}x)")
+                if e_i > conv_probe.WGMMA_BAR * e_m:
+                    fail(f"[bf16] {tag}: {e_i:.3e} against the f64 conv, "
+                         f"over {conv_probe.WGMMA_BAR} x mma_bf16's")
+        print(f"[check] conv_probe im2col_bf16 at {len(shapes)} shapes and "
+              f"batches: within rtol {CONV_TOL['rtol']}, atol "
+              f"{CONV_TOL['atol']} of conv3x3_plain(passes='bf16'), outside "
+              f"it of the f32 conv, max abs err {err:.3e}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tiles = {}
+        for nb in (B, B_TRAIN):
+            xc_, wc_ = conv_probe.probe_inputs(nb, dev)
+            outs = {r: conv3x3(xc_, wc_, "im2col_bf16", tile_rows=r)
+                    for r in (64, 128)}
+            if not torch.equal(outs[64], outs[128]):
+                fail(f"[bf16] im2col_bf16 B={nb}: 64- and 128-row tiles "
+                     "differ")
+            tiles[nb] = {r: device_ms(lambda r=r: conv3x3(
+                xc_, wc_, "im2col_bf16", tile_rows=r), reps=100)
+                for r in (64, 128, 64, 128)}
+            print(f"[bf16] im2col_bf16 B={nb} {HH}x{WW}x{C}: device ms with "
+                  f"64-row tiles {tiles[nb][64]:.4f}, 128-row "
+                  f"{tiles[nb][128]:.4f} (bit-identical; the wrapper takes "
+                  f"{im2col_tile_rows(nb * HH * WW, sms, C, WW)} on {sms} "
+                  "SMs)")
+        sass = {"im2col_bf16": kernel_sass("conv_probe", "im2col_wgmma_kernel"),
+                "im2col": kernel_sass("conv_probe", "13im2col_kernel")}
+        hgmma = {k: sum(1 for ln in v.splitlines()
+                        if "HGMMA" in ln and "BF16" in ln)
+                 for k, v in sass.items()}
+        print(f"[bf16] im2col_bf16 build: bf16 HGMMA instructions {hgmma}; "
+              f"{time.perf_counter() - t_i:.1f} s")
+        if not hgmma["im2col_bf16"] or hgmma["im2col"]:
+            fail(f"[bf16] bf16 warpgroup products {hgmma}: the im2col_bf16 "
+                 "build must hold them, the f32 im2col none")
+        return err
+
     def bf16_phase():
         from neural_ode_features_tpu_torch import serve as serve_cli
         from neural_ode_features_tpu_torch.kernels.conv3x3 import (
@@ -3126,6 +3200,7 @@ def main() -> int:
                   f"{hw_[0]}x{hw_[1]}: within rtol {CONV_TOL['rtol']}, atol "
                   f"{CONV_TOL['atol']} of conv3x3_plain(passes='bf16'), "
                   f"outside it of the f32 conv, max abs err {err_c16:.3e}")
+        err_c16 = max(err_c16, im2col_bf16_phase())
 
         # The entry model's bf16 inference: on the host loop and on the
         # cache (bit-identical, equal launches: 2 + 6·attempts odefunc, no
@@ -3600,12 +3675,15 @@ def main() -> int:
                   f"{sum(split16['f32'].values()):.4f}")
         twin_ms = {s_: device_ms(lambda s_=s_: conv3x3(xc, wc, s_), reps=100)
                    for s_ in BF16_STRATEGIES}
+        lib16_dev = device_ms(lambda: conv_probe.library_conv(xc16, wc16),
+                              reps=100)
         print("[time] bf16 builds, ms: " + ", ".join(
             f"{k} device {ms16[k]:.4f} (call {call16[k]:.4f}, plain "
             f"{plain16[k]:.4f}, library "
             f"{'none' if lib16[k] is None else f'{lib16[k]:.4f}'})"
             for k in ms16) + "; probe twins device ms: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in twin_ms.items()))
+            f"{k} {v:.4f}" for k, v in twin_ms.items())
+            + f"; F.conv2d on bf16 tensors device {lib16_dev:.4f}")
         phase_done("bf16", t_ph)
 
         fb16 = fused_bounds((HH, WW), C, B, B_TRAIN, H100_BF16_FLOPS)
@@ -3665,7 +3743,20 @@ def main() -> int:
              "call_ms": call16["conv"], "strategy_ms": twin_ms,
              "probe_device_us": {s_: probe16[s_]["device_us"]
                                  for s_ in BF16_STRATEGIES},
-             "probe_library_bf16_us": probe16["library_bf16_us"]},
+             "probe_library_bf16_us": probe16["library_bf16_us"],
+             "probe_library_bf16_device_us":
+                 probe16["library_bf16_device_us"]},
+            {"name": "conv_probe_im2col_bf16", **common,
+             "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
+             "replaces": REPLACES["conv_probe"],
+             "launches": paths16["bf16_probe"]["conv3x3"],
+             "max_abs_err": err_c16, "ms": twin_ms["im2col_bf16"],
+             "plain_ms": plain16["conv"],
+             **bounds(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C),
+                      H100_BF16_FLOPS),
+             "library_ms": lib16_dev, "library_call_ms": lib16["conv"],
+             "stage": "im2col_bf16 (wgmma, both operands from shared "
+                      "memory)"},
         ]
 
     # [straggler]: the straggler bench at the JAX tool's defaults on the

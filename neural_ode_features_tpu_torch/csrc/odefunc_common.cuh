@@ -1077,6 +1077,46 @@ __host__ __device__ constexpr int wg_bf16_offset(int n, int k) {
   return (((n >> 3) * 8 + (k >> 3)) * 8 + (n & 7)) * 16 + (k & 7) * 2;
 }
 
+// Both operands from shared memory under the 128-byte swizzle (the probe's
+// im2col_bf16, csrc/conv_probe.cu): a K-major tile of rows of 64 bf16 k
+// (128 bytes each), 8-row atoms of 1,024 bytes on 1,024-byte boundaries, the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8) of that row.
+//
+// The byte offset of row r (m of A, n of B), element k (0..63) in the tile.
+__host__ __device__ constexpr int sw128_offset(int r, int k) {
+  return r * 128 + (((k >> 3) ^ (r & 7)) << 4) + (k & 7) * 2;
+}
+
+// Descriptor of such a tile from shared byte address addr: SBO 1,024 bytes
+// (the next 8 rows), LBO unused for a swizzled K-major operand (1), layout
+// type 1 (128-byte swizzle).  A k16 step inside the 64 k adds its 32 bytes
+// to addr; the hardware applies the swizzle to the address it forms, so
+// the atoms must start on 1,024-byte boundaries.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= a (64x16 bf16, descriptor) * b (16x64 bf16, descriptor), both
+// K-major; accumulate = 0 starts d from zero.  d[4j + r]: row 16*warp + g +
+// 8*(r >> 1), column 8j + 2t + (r & 1) of the warpgroup's 64x64 block.
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // Floats of wgmma_conv<NWG, BT, PREC>'s operand tiles: the TF32 heads and
 // tails (NWG/2 * kHalfTileF floats each), or the one bf16 tile (half as
 // many bytes as a head tile).

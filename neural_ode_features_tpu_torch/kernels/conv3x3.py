@@ -1,5 +1,5 @@
 """The 3×3 conv probe kernels: ``y = conv3x3_same(x, w)`` alone, in one CUDA
-launch, one CTA per sample, under four f32 strategies and three bf16 twins.
+launch, under five f32 strategies and four bf16 twins.
 
 Replaces the TPU kernels of ``probes/conv_probe.py``: ``pallas_conv_2d``
 (kernels from ``make_roll_kernel``) and ``pallas_conv`` (``make_kernel``,
@@ -51,11 +51,25 @@ whose plain version is ``conv3x3_plain(x, w, passes="bf16")``:
                   rounded to nearest even as the fragments are packed.  The
                   conv stage of ``rk_step.cu``'s bf16 build and of
                   ``odefunc.cu``'s where ``kernels.odefunc.stage`` does not
-                  give ``'wgmma_bf16'`` (``wgmma_conv``'s bf16 build, which
-                  no strategy here races), with ``mma3``'s gate.
+                  give ``'wgmma_bf16'``, with ``mma3``'s gate.
+``'wgmma_bf16'``  ``conv3x3_wgmma``'s bf16 build on x rounded as it is copied
+                  in: the conv stage of the bf16 ``odefunc`` (and of the
+                  bf16 backward's forward recompute) where ``stage`` gives
+                  ``'wgmma_bf16'``, and only there.
 ``'tap9_bf16'``   ``tap9`` on bf16-rounded operands (the bf16 builds' stage
                   at the FFMA shapes).
-``'im2col_bf16'`` ``im2col`` on bf16-rounded operands.
+``'im2col_bf16'`` one GEMM over the rows of every sample, as the TPU kernel's
+                  ``(tb·H·W, 9C) @ (9C, C)`` dot: ``wgmma.mma_async``
+                  m64n64k16 bf16 with both operands from shared memory
+                  under the 128-byte swizzle (:func:`sw128_offset`), M tiled
+                  in 64- or 128-row tiles across sample boundaries
+                  (:func:`im2col_tile_rows`), K = 9C in stages of 64 that a
+                  producer warpgroup builds (the patch, from the CTA's
+                  window of x copied into shared memory as bf16 once; the
+                  weights, converted) while the consumer warpgroups
+                  multiply the stage before, through a ring of mbarriers.
+                  It takes C a multiple of 4 up to 128, at maps whose
+                  window fits (:func:`supported`).
 
 Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 on them, 3.35 TB/s): at B = 256, 7×7×64 the conv is 0.925 GFLOP, 13.8 µs of
@@ -64,7 +78,8 @@ and ``im2col`` are bound by operations, and with the tensor cores the conv
 is bound by bytes.  ``mma3`` itself forms three products over a 64-row tile
 (49 rows real): 3.6 GFLOP, 7.3 µs at the TF32 peak; ``mma_bf16`` one, 1.2
 GFLOP, 1.2 µs at 989 TFLOP/s dense bf16, so it too is bound by bytes.
-``wgmma3`` forms ``mma3``'s products.
+``wgmma3`` forms ``mma3``'s products; ``im2col_bf16`` 0.925 GFLOP of bf16
+products (no padded row at B = 256), 0.94 µs.
 
 ``conv3x3`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``conv3x3_plain``; a CUDA tensor launches the kernel or raises.
@@ -81,7 +96,8 @@ two bf16 k16 steps a tap and k half), and
 input-gradient conv's half tile) and, for ``wgmma_bf16``,
 ``wgmma_bf16_offset``/``wgmma_pack_bf16``/``wgmma_pack_rows_bf16`` (its
 conversion ``bf16_bits``) mirror where its weight tiles lie in shared
-memory.  Tests and the probe's
+memory; ``im2col_patches``, ``im2col_wgmma_emulated`` and ``sw128_offset``
+do the same for ``im2col_bf16``.  Tests and the probe's
 error report use them; nothing on a path does. ``passes="bf16"`` is the bf16
 twins' function itself (operands rounded, products exact, sums in ``x``'s
 dtype).
@@ -104,17 +120,26 @@ __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
            "wgmma_tile_offset", "wgmma_pack", "wgmma_pack_rows",
            "wgmma_rows_item", "wgmma_bf16_offset", "wgmma_pack_bf16",
            "wgmma_pack_rows_bf16", "bf16_bits", "tf32_split", "supported",
-           "smem_bytes", "conv_flops", "conv_bytes"]
+           "smem_bytes", "conv_flops", "conv_bytes", "sw128_offset",
+           "im2col_patches", "im2col_wgmma_emulated", "im2col_tile_rows",
+           "im2col_smem_bytes", "im2col_window_bytes"]
 
 STRATEGIES = ("tap9", "im2col", "mma3", "mma1", "wgmma3")
 # The bf16 twins; each has its f32 strategy's gate.
-BF16_STRATEGIES = ("mma_bf16", "tap9_bf16", "im2col_bf16")
-_TWIN = {"mma_bf16": "mma3", "tap9_bf16": "tap9", "im2col_bf16": "im2col"}
+BF16_STRATEGIES = ("mma_bf16", "tap9_bf16", "im2col_bf16", "wgmma_bf16")
+# The twins with their f32 strategy's gate.
+_TWIN = {"mma_bf16": "mma3", "tap9_bf16": "tap9"}
 
 # Mirrors csrc/conv_probe.cu (kI2cThreads, kI2cPix, kI2cPad).
 _I2C_THREADS = 256
 _I2C_PIX = 4
 _I2C_PAD = 4
+# Mirrors csrc/conv_probe.cu (kI2wK, kI2wStages, kI2wMaxC, kI2wMaxWindow
+# of im2col_bf16).
+I2W_K = 64
+I2W_STAGES = 4
+I2W_MAX_C = 128
+I2W_MAX_WINDOW = 65536
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -406,6 +431,96 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
     return out[:, q[q % wp < ww]].reshape(b, hh, ww, c)
 
 
+def sw128_offset(r: int, k: int) -> int:
+    """Byte offset of row r (a patch row m of A, an output channel n of B)
+    and element k (0..63) in a K-major bf16 tile of ``im2col_bf16`` under
+    the 128-byte swizzle (csrc/odefunc_common.cuh ``sw128_offset``): rows
+    of 128 bytes (64 k), the 16-byte chunk k // 8 of row r at chunk
+    (k // 8) ^ (r % 8), element k % 8 of 2 bytes in it."""
+    return r * 128 + (((k >> 3) ^ (r & 7)) << 4) + (k & 7) * 2
+
+
+def im2col_patches(x: torch.Tensor) -> torch.Tensor:
+    """The patch matrix of a 3×3 SAME conv: x (B, H, W, C) as (B·H·W, 9C),
+    row r = (b·H + y)·W + x, column tap·C + ci (tap = 3·ky + kx), zero
+    where the tap lies off the map."""
+    b, hh, ww, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, ky:ky + hh, kx:kx + ww, :].reshape(-1, c)
+                      for ky in range(3) for kx in range(3)], dim=1)
+
+
+def im2col_window_bytes(tile_rows: int, w: int, c: int) -> int:
+    """Bytes of ``im2col_bf16``'s window of x in shared memory (csrc/
+    conv_probe.cu ``i2w_window_bytes``): the tile's rows and W + 1 rows on
+    either side, C channels of bf16 each, rounded up to 16 bytes."""
+    return -(-(tile_rows + 2 * w + 2) * 2 * c // 16) * 16
+
+
+def im2col_tile_rows(rows: int, sms: int, c: int, w: int) -> int:
+    """The M tile of ``im2col_bf16`` for ``rows`` = B·H·W rows of maps W
+    wide with C channels on a card of ``sms`` SMs: 64 rows (one consumer
+    warpgroup, a CTA an SM) where the 64-row tiles fit one wave of the
+    card, C > 64 (a consumer's running sums of two 64-channel blocks take
+    the registers of one warpgroup of two) or the 128-row tile's window of
+    x does not fit; else 128 (two consumer warpgroups: half the CTAs, each
+    converting the weights once for 128 rows)."""
+    return (64 if -(-rows // 64) <= sms or c > 64
+            or im2col_window_bytes(128, w, c) > I2W_MAX_WINDOW else 128)
+
+
+def im2col_smem_bytes(tile_rows: int, c: int, w: int) -> int:
+    """Dynamic shared memory per CTA of ``im2col_bf16`` (csrc/conv_probe.cu
+    ``i2w_smem_bytes``): 1,024 bytes to align, the ring of stages, each the
+    (tile_rows, 64) patch slice and the (64·⌈C/64⌉, 64) weight slice in
+    bf16, the staging ring of the weights' f32 rows (four stages at C ≤
+    64, else two; rows of C/4 16-byte chunks rounded up to a multiple of
+    8), the window of x (:func:`im2col_window_bytes`) and two
+    mbarriers a stage."""
+    nb = -(-c // 64)
+    depth = 4 if nb == 1 else 2
+    return (1024 + I2W_STAGES * (tile_rows + 64 * nb) * I2W_K * 2
+            + depth * I2W_K * -(-c // 32) * 8 * 16
+            + im2col_window_bytes(tile_rows, w, c) + 16 * I2W_STAGES)
+
+
+def im2col_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
+                          tile_rows: int = 64) -> torch.Tensor:
+    """``im2col_bf16``'s arithmetic in plain PyTorch, float32 (tests and the
+    probe's error report, nothing on a path): the rows of every sample
+    flattened (:func:`im2col_patches`) and padded with zero rows to whole
+    ``tile_rows`` tiles, both operands rounded to bf16, K = 9C padded with
+    zeros to whole stages of 64; per stage and k half (k 0..31 and 32..63
+    of the stage) a chain of two k16 steps from zero, each step's sixteen
+    exact products summed in float32 in k order, added to that half's
+    running sum in float32, stages in order; last, the first half's sum
+    plus the second's.  At C = 64 a stage is a tap: the order of
+    ``mma_bf16`` and ``wgmma_bf16`` (:func:`conv3x3_wgmma_emulated`).  The
+    tensor cores' own order and rounding inside a step are the card's;
+    this follows every order the kernel fixes."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError("im2col_wgmma_emulated takes float32")
+    b, hh, ww, c = x.shape
+    rows, kk = b * hh * ww, 9 * c
+    a = x.new_zeros((-(-rows // tile_rows) * tile_rows,
+                     -(-kk // I2W_K) * I2W_K))
+    a[:rows, :kk] = bf16_round(im2col_patches(x))
+    bw = x.new_zeros((a.shape[1], c))
+    bw[:kk] = bf16_round(w.reshape(kk, c))
+    runs = [a.new_zeros((a.shape[0], c)) for _ in range(2)]
+    for k0 in range(0, a.shape[1], 32):
+        chain = None
+        for ks in (k0, k0 + 16):
+            terms = a[:, ks:ks + 16, None] * bw[ks:ks + 16]  # exact in f32
+            step = terms[:, 0]
+            for kk_ in range(1, 16):
+                step = step + terms[:, kk_]
+            chain = step if chain is None else chain + step
+        half = (k0 // 32) % 2
+        runs[half] = runs[half] + chain
+    return (runs[0] + runs[1])[:rows].reshape(b, hh, ww, c)
+
+
 def smem_bytes(hw: tuple[int, int], c: int) -> int:
     """Dynamic shared memory per CTA of the ``im2col`` kernel."""
     return 4 * (hw[0] * hw[1] * (9 * c + _I2C_PAD) + 2 * c * c)
@@ -421,16 +536,25 @@ def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
     which never runs ``wgmma``: C a multiple of 32 from 64 to 512 and
     H·(W+2) ≤ 64) and its working set within shared memory
     (``kernels.odefunc.layout``).  ``wgmma3``: where the f32 kernels run it
-    (``stage`` gives ``'wgmma3'``), under their layout.  7×7×64 and 6×6×64
-    pass all five, 7×7×96 to 7×7×512 the tensor-core ones.  A bf16 twin has
-    its f32 strategy's gate."""
+    (``stage`` gives ``'wgmma3'``), under their layout; ``wgmma_bf16``
+    where the bf16 kernels run theirs.  ``im2col_bf16`` (csrc/conv_probe.cu
+    ``i2w_shape_ok``): C a multiple of 4 from 4 to 128 on maps up to a
+    width whose window of x fits 64 KB (W ≤ 95 at C = 128, 223 at C = 64;
+    the wrapper also needs B·H·W·C < 2³¹).  7×7×64 and 6×6×64 pass all nine, 7×7×96 to 7×7×512
+    the tensor-core ones.  ``mma_bf16`` and ``tap9_bf16`` have their f32
+    strategy's gate."""
     strategy = _TWIN.get(strategy, strategy)
+    if strategy == "im2col_bf16":
+        return (hw[0] >= 1 and hw[1] >= 1 and 4 <= c <= I2W_MAX_C
+                and c % 4 == 0
+                and im2col_window_bytes(64, hw[1], c) <= I2W_MAX_WINDOW)
     if strategy in ("mma3", "mma1"):
         return (stage(hw, c, "bf16_conv") == "mma3"
                 and _fused_supported(hw, c, 1, "mma3"))
-    if strategy == "wgmma3":
-        return (stage(hw, c) == "wgmma3"
-                and _fused_supported(hw, c, 1, "wgmma3"))
+    if strategy in ("wgmma3", "wgmma_bf16"):
+        precision = "f32" if strategy == "wgmma3" else "bf16"
+        return (stage(hw, c, precision) == strategy
+                and _fused_supported(hw, c, 1, strategy))
     if not _fused_supported(hw, c, 1, "ffma"):
         return False
     if strategy == "tap9":
@@ -459,27 +583,39 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"conv_probe_{strategy}")
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p]
+                           + [ctypes.c_int] * (strategy == "im2col_bf16"))
             fn.restype = ctypes.c_int
     return lib
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor,
-            strategy: str = "tap9") -> torch.Tensor:
+def conv3x3(x: torch.Tensor, w: torch.Tensor, strategy: str = "tap9",
+            tile_rows: int | None = None) -> torch.Tensor:
     """3×3 SAME conv C → C of ``x`` (B, H, W, C) float32 NHWC with ``w``
     (3, 3, C, C) HWIO, no bias.  A bf16 strategy rounds both operands to
-    bf16 and sums the products in f32."""
+    bf16 and sums the products in f32.  ``tile_rows`` (``im2col_bf16``
+    only, 64 or 128): its M tile, in place of :func:`im2col_tile_rows`'
+    choice (the values do not depend on it)."""
     if strategy not in STRATEGIES + BF16_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; available: "
                          f"{STRATEGIES + BF16_STRATEGIES}")
     if x.ndim != 4 or tuple(w.shape) != (3, 3, x.shape[-1], x.shape[-1]):
         raise ValueError(f"expected x (B, H, W, C) and w (3, 3, C, C), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if tile_rows is not None and (
+            strategy != "im2col_bf16" or tile_rows not in (64, 128)
+            or (tile_rows == 128 and (x.shape[-1] > 64 or im2col_window_bytes(
+                128, x.shape[2], x.shape[-1]) > I2W_MAX_WINDOW))):
+        raise ValueError(f"tile_rows (64, or 128 at C <= 64 where its "
+                         f"window fits) is im2col_bf16's alone, got "
+                         f"{tile_rows!r} for {strategy!r} at "
+                         f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, "bf16" if strategy in BF16_STRATEGIES
                              else None)
     b, hh, ww, c = x.shape
-    if b < 1 or not supported((hh, ww), c, strategy):
+    if (b < 1 or not supported((hh, ww), c, strategy)
+            or b * hh * ww * c >= 2 ** 31):
         raise ValueError(
             f"the CUDA conv kernel {strategy!r} does not take B×H×W×C = "
             f"{b}×{hh}×{ww}×{c} (see kernels.conv3x3.supported)")
@@ -493,7 +629,13 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty_like(x)
     lib = _lib()
     fn = getattr(lib, f"conv_probe_{strategy}")
-    code = fn(ptr(x), ptr(w), ptr(y), b, hh, ww, c, stream())
+    args = [ptr(x), ptr(w), ptr(y), b, hh, ww, c, stream()]
+    if strategy == "im2col_bf16":
+        args.append(tile_rows or im2col_tile_rows(
+            b * hh * ww,
+            torch.cuda.get_device_properties(x.device).multi_processor_count,
+            c, ww))
+    code = fn(*args)
     _build.check(lib, code, f"conv_probe_{strategy}")
     conv3x3.launches += 1
     return y

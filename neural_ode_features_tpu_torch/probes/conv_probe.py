@@ -1,7 +1,7 @@
 """Race the 3×3-conv strategies of ``kernels/conv3x3.py`` on the card, in
 isolation, against the library conv and the operations bound.
 
-    python -m neural_ode_features_tpu_torch.probes.conv_probe [mma3] [mma1] [wgmma3] [tap9] [im2col] [mma_bf16] [tap9_bf16] [im2col_bf16] [--batch 256,128]
+    python -m neural_ode_features_tpu_torch.probes.conv_probe [mma3] [mma1] [wgmma3] [tap9] [im2col] [mma_bf16] [tap9_bf16] [im2col_bf16] [wgmma_bf16] [--batch 256,128]
 
 The port of ``probes/conv_probe.py``.  The three fused kernels
 (``odefunc.cu``, ``rk_step.cu``, ``odefunc_bwd.cu``) spend their time in one
@@ -13,9 +13,11 @@ backward's input-gradient convs run outside its f32 cluster pass, ``mma1``,
 ``mma3`` with the error
 compensation compiled out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
 shapes) and ``im2col``, before a fused kernel is touched; and their bf16
-twins ``mma_bf16`` (the bf16 builds' conv stage), ``tap9_bf16`` and
-``im2col_bf16`` (the JAX probe's ``*_bf16``: operands rounded to bf16,
-products summed in f32).  Inputs as in the JAX probe: x (B, 7, 7, 64) and w
+twins (the JAX probe's ``*_bf16``: operands rounded to bf16, products
+summed in f32) ``mma_bf16`` (the fused step's bf16 conv stage),
+``wgmma_bf16`` (the bf16 ``odefunc``'s at 7×7×64 and 6×6×64),
+``tap9_bf16`` and ``im2col_bf16`` (one bf16 ``wgmma`` GEMM over the rows
+of every sample).  Inputs as in the JAX probe: x (B, 7, 7, 64) and w
 (3, 3, 64, 64) from numpy seed 0, scaled by 0.1 and 0.05.
 
 Each strategy is checked against its plain version (``conv3x3_plain``; for
@@ -23,7 +25,10 @@ a bf16 twin ``passes="bf16"``) and against ``F.conv2d`` (TF32 off; for a
 bf16 twin ``F.conv2d`` on bf16 tensors, whose output is rounded to bf16),
 its error against the plain f32 version in
 float64 is printed beside that of the plain emulation of its arithmetic
-(``conv3x3_plain(passes=3 | 1)``), and it is timed at every ``--batch`` in
+(``conv3x3_plain(passes=3 | 1)``, ``conv3x3_wgmma_emulated``,
+``im2col_wgmma_emulated``; a bf16 twin's also against the f64 conv of the
+rounded operands, whose products are exact, so that only its order of
+sums is left), and it is timed at every ``--batch`` in
 turns (all strategies at the first batch, then at the second).  Two times
 per strategy: the device time of its kernel by name under
 ``torch.profiler`` (``dev``), and CUDA events around a few hundred
@@ -33,9 +38,13 @@ are told apart by ``dev`` alone.  The JAX probe chains its calls in a
 ``lax.scan`` and takes the slope between a long and a short chain to cancel
 the cost of a dispatch; the device's own timeline does that job here.
 ``F.conv2d`` is timed as the library reference in place of the JAX probe's
-``xla_conv``, in f32 and on bf16 tensors (the bf16 twins' yardstick).
-Where both run, ``wgmma3``'s error against the f64 conv must be at most
-``WGMMA_BAR`` (1.5) times ``mma3``'s in the same run, or the probe exits.
+``xla_conv``, in f32 and on bf16 tensors (the bf16 twins' yardstick): its
+call as above, and its device time, CUDA events around calls queued behind
+a spin kernel (:func:`queued_us`), so that a kernel is read device time
+against device time.  Where both run, ``wgmma3``'s error against the f64
+conv must be at most ``WGMMA_BAR`` (1.5) times ``mma3``'s in the same run,
+and ``im2col_bf16``'s and ``wgmma_bf16``'s (against the f64 conv of the
+rounded operands) at most that times ``mma_bf16``'s, or the probe exits.
 The JAX probe's ``dotonly``, ``norollS`` and ``nomaskS`` are
 wrong-valued timing aids for its patch building; in their place two bounds
 are printed: operations at 67 TFLOP/s (f32 outside the tensor cores), and
@@ -64,7 +73,9 @@ from ..kernels.conv3x3 import (
     conv3x3_wgmma_emulated,
     conv_bytes,
     conv_flops,
+    im2col_wgmma_emulated,
 )
+from ..kernels.odefunc import bf16_round
 from ..utils.flops import (
     H100_F32_FLOPS,
     H100_HBM_BYTES_PER_S,
@@ -72,7 +83,8 @@ from ..utils.flops import (
 )
 
 __all__ = ["main", "probe_inputs", "library_conv", "time_us", "device_us",
-           "bound_us", "tensor_bound_us", "KERNEL_NAMES", "WGMMA_BAR"]
+           "queued_us", "bound_us", "tensor_bound_us", "KERNEL_NAMES",
+           "WGMMA_BAR"]
 
 H, W, C = 7, 7, 64
 CHECK_TOL = dict(rtol=1e-4, atol=1e-5)  # f32 sums of 576 products, reordered
@@ -83,14 +95,19 @@ TF32_TOL = dict(rtol=2e-3, atol=2e-4)
 # output to bf16 (2^-9 relative); both round the operands alike.
 BF16_LIB_TOL = dict(rtol=8e-3, atol=1e-3)
 # wgmma3 forms mma3's products on other hardware: its error against the f64
-# conv may be at most this multiple of mma3's on the same inputs.
+# conv may be at most this multiple of mma3's on the same inputs; so may
+# im2col_bf16's and wgmma_bf16's against the f64 conv of the rounded
+# operands be of mma_bf16's.
 WGMMA_BAR = 1.5
+# Each strategy held to that bar, and the strategy it is held beside.
+BARRED = {"wgmma3": "mma3", "im2col_bf16": "mma_bf16", "wgmma_bf16": "mma_bf16"}
 # A substring of each strategy's kernel name in a profile.
-KERNEL_NAMES = {"tap9": "tap9_kernel<false>", "im2col": "im2col_kernel<false>",
+KERNEL_NAMES = {"tap9": "tap9_kernel<false>", "im2col": "im2col_kernel(",
                 "mma3": "mma_kernel<3,", "mma1": "mma_kernel<1,",
-                "wgmma3": "wgmma_kernel(",
+                "wgmma3": "wgmma_kernel<0>",
                 "mma_bf16": "mma_kernel<16,", "tap9_bf16": "tap9_kernel<true>",
-                "im2col_bf16": "im2col_kernel<true>"}
+                "im2col_bf16": "im2col_wgmma_kernel<",
+                "wgmma_bf16": "wgmma_kernel<2>"}
 
 
 def parse_args(argv=None):
@@ -187,6 +204,31 @@ def device_us(fn, names, reps: int = 100) -> dict:
     raise RuntimeError(f"no launch of {missing} in three profiles")
 
 
+def queued_us(fn, reps: int = 50) -> float:
+    """Device µs per call of ``fn``: ``reps`` calls enqueued behind a spin
+    kernel, so that the card runs them back to back and the host's cost of
+    each call is hidden, timed by CUDA events around them; the spin is
+    lengthened until it outlasts the enqueueing.  Reads every kernel a call
+    launches, so it times a library call whole."""
+    fn()
+    torch.cuda.synchronize()
+    for spin in (10_000_000 << k for k in range(6)):  # from about 5 ms
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t_host = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t_host = 1e3 * (time.perf_counter() - t_host)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if ev[0].elapsed_time(ev[1]) > t_host:
+            return 1e3 * ev[1].elapsed_time(ev[2]) / reps
+    raise RuntimeError("the calls' enqueueing outlasted every spin: does "
+                       "the call wait for the card?")
+
+
 def _bound(flops: float, nbytes: float, peak_flops: float):
     by_ops, by_bytes = flops / peak_flops, nbytes / H100_HBM_BYTES_PER_S
     return 1e6 * max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
@@ -208,13 +250,19 @@ def tensor_bound_us(batch: int, hw=(H, W), c: int = C) -> tuple[float, str]:
                   H100_TF32_FLOPS)
 
 
+def _us(v) -> str:
+    return "not measured" if v is None else f"{v:8.1f} us/conv"
+
+
 def main(argv=None) -> dict:
     """Run the probe; returns, for the first batch size, ``{"bound_us",
     "bound_by", "tensor_bound_us", "tensor_bound_by", "library_us",
-    "library_bf16_us", "<strategy>": {"us", "device_us", "err_plain",
-    "err_library", "err_f64"}}`` (``device_us`` is None on the CPU; a bf16
-    twin's errors are against its own plain version and the bf16 library
-    conv), and the same dict per batch size under ``"batches"``."""
+    "library_bf16_us", "library_device_us", "library_bf16_device_us",
+    "<strategy>": {"us", "device_us", "err_plain", "err_library",
+    "err_f64"}}`` (the device times are None on the CPU; a bf16 twin's
+    errors are against its own plain version and the bf16 library conv,
+    and it adds ``err_f64_bf16``, against the f64 conv of the rounded
+    operands), and the same dict per batch size under ``"batches"``."""
     args = parse_args(argv)
     dev = strict_f32("cpu" if args.cpu else "cuda")
     on_card = dev.type == "cuda"
@@ -236,18 +284,30 @@ def main(argv=None) -> dict:
         lib16 = library_conv(x16, w16).float()
         lib16_us = time_us(lambda: library_conv(x16, w16), dev)
         plain16 = conv3x3_plain(x, w, passes="bf16")
-        print(f"F.conv2d (library reference): {lib_us:8.1f} us/conv  "
-              f"({lib_us / b_us:.2f}x bound); max|diff vs plain| = "
+        plain64_16 = conv3x3_plain(bf16_round(x).double(),
+                                   bf16_round(w).double())
+        lib_dev = lib16_dev = None
+        if on_card:
+            lib_dev = queued_us(lambda: library_conv(x, w))
+            lib16_dev = queued_us(lambda: library_conv(x16, w16))
+        print(f"F.conv2d (library reference): call {lib_us:8.1f} us/conv  "
+              f"({lib_us / b_us:.2f}x bound), device "
+              f"{_us(lib_dev)}; max|diff vs plain| = "
               f"{float((lib - plain).abs().max()):.2e}; on bf16 tensors "
-              f"{lib16_us:8.1f} us/conv, max|diff vs the bf16 plain "
-              f"version| = {float((lib16 - plain16).abs().max()):.2e}")
+              f"call {lib16_us:8.1f} us/conv, device {_us(lib16_dev)}, "
+              f"max|diff vs the bf16 plain version| = "
+              f"{float((lib16 - plain16).abs().max()):.2e}")
         emulated = {"mma3": conv3x3_plain(x, w, passes=3),
                     "mma1": conv3x3_plain(x, w, passes=1),
                     "wgmma3": conv3x3_wgmma_emulated(x, w),
-                    **dict.fromkeys(BF16_STRATEGIES, plain16)}
+                    **dict.fromkeys(BF16_STRATEGIES, plain16),
+                    "wgmma_bf16": conv3x3_wgmma_emulated(x, w,
+                                                         precision="bf16"),
+                    "im2col_bf16": im2col_wgmma_emulated(x, w)}
         out = {"bound_us": b_us, "bound_by": b_by, "tensor_bound_us": tb_us,
                "tensor_bound_by": tb_by, "library_us": lib_us,
-               "library_bf16_us": lib16_us}
+               "library_bf16_us": lib16_us, "library_device_us": lib_dev,
+               "library_bf16_device_us": lib16_dev}
         for strategy in args.strategies:
             got = conv3x3(x, w, strategy)
             bf16 = strategy in BF16_STRATEGIES
@@ -256,6 +316,7 @@ def main(argv=None) -> dict:
             err_p = float((got - ref_p).abs().max())
             err_l = float((got - ref_l).abs().max())
             err_64 = float((got.double() - plain64).abs().max())
+            exact = plain64_16 if bf16 else plain64
             for name, ref, tol_ in (
                     ("plain", ref_p, tol),
                     ("F.conv2d", ref_l, BF16_LIB_TOL if bf16 else tol)):
@@ -273,28 +334,37 @@ def main(argv=None) -> dict:
                 if d_us <= 0.0:
                     raise SystemExit(f"{strategy}: no device time under "
                                      f"{KERNEL_NAMES[strategy]!r} in the profile")
+                lib_d = lib16_dev if bf16 else lib_dev
                 line += (f"dev {d_us:7.1f} us/conv ({d_us / b_us:.2f}x the f32 "
                          f"bound, {d_us / tb_us:.2f}x the tensor-core bound, "
-                         f"{d_us / (lib16_us if bf16 else lib_us):.2f}x "
-                         f"F.conv2d{' bf16' if bf16 else ''}), ")
+                         f"{d_us / lib_d:.2f}x F.conv2d"
+                         f"{' bf16' if bf16 else ''}'s device time), ")
             line += (f"call {us:7.1f} us ({us / lib_us:.2f}x F.conv2d); "
                      f"max|diff| vs {'bf16 ' if bf16 else ''}plain "
                      f"{err_p:.2e}, vs F.conv2d{' bf16' if bf16 else ''} "
                      f"{err_l:.2e}, vs the f64 plain version {err_64:.2e}")
-            if strategy in emulated:
-                emu = float((emulated[strategy].double() - plain64).abs().max())
-                line += f" (its plain emulation's: {emu:.2e})"
-            print(line)
             out[strategy] = {"us": us, "device_us": d_us, "err_plain": err_p,
                              "err_library": err_l, "err_f64": err_64}
-        if "wgmma3" in out and "mma3" in out:
-            e_wg, e_mma = out["wgmma3"]["err_f64"], out["mma3"]["err_f64"]
-            print(f"  wgmma3 vs the f64 plain version {e_wg:.2e} beside mma3's "
-                  f"{e_mma:.2e} ({e_wg / e_mma:.2f}x; bar {WGMMA_BAR}x)")
-            if e_wg > WGMMA_BAR * e_mma:
-                raise SystemExit(f"wgmma3: error {e_wg:.3e} against the f64 "
-                                 f"conv exceeds {WGMMA_BAR} x mma3's "
-                                 f"{e_mma:.3e}")
+            if bf16:
+                out[strategy]["err_f64_bf16"] = float(
+                    (got.double() - exact).abs().max())
+                line += (f", vs the f64 conv of the rounded operands "
+                         f"{out[strategy]['err_f64_bf16']:.2e}")
+            if strategy in emulated:
+                emu = float((emulated[strategy].double() - exact).abs().max())
+                line += f" (its plain emulation's: {emu:.2e})"
+            print(line)
+        for strategy, beside in BARRED.items():
+            if strategy not in out or beside not in out:
+                continue
+            key = "err_f64_bf16" if strategy in BF16_STRATEGIES else "err_f64"
+            e_s, e_b = out[strategy][key], out[beside][key]
+            print(f"  {strategy} vs the f64 conv {e_s:.2e} beside {beside}'s "
+                  f"{e_b:.2e} ({e_s / e_b:.2f}x; bar {WGMMA_BAR}x)")
+            if e_s > WGMMA_BAR * e_b:
+                raise SystemExit(f"{strategy}: error {e_s:.3e} against the "
+                                 f"f64 conv exceeds {WGMMA_BAR} x {beside}'s "
+                                 f"{e_b:.3e}")
         results[batch] = out
     first = dict(results[args.batch[0]])
     first["batches"] = results

@@ -47,8 +47,9 @@ the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
 conv-kernel gradients, ``odefunc_bwd_weights``, and the rest of its
 outputs, ``odefunc_bwd_rest``: f, dh, dt, the eight (C,) vectors and the
 conv kernels' time channel; the residuals of its forward recompute,
-``odefunc_bwd_r``: r1 and r2; the conv probe's strategies where the shape
-takes them) and, where the package has the bf16 builds, of theirs
+``odefunc_bwd_r``: r1 and r2; the conv probe's strategies, its bf16 twins
+too, where the shape takes them) and, where the package has the bf16
+builds, of theirs
 (``odefunc_bf16``, ``rk_step_bf16`` at ``conv_precision='bf16'``,
 ``odefunc_bwd_bf16``: every output; and apart, as the f32 build's,
 ``odefunc_bwd_bf16_weights``, ``odefunc_bwd_bf16_rest`` without f,
@@ -278,6 +279,7 @@ def _event_ms(fn, reps: int) -> float:
 def digest(hh: int, ww: int, c: int) -> dict:
     """sha256 of each f32 kernel's outputs on the seeded inputs."""
     from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+        BF16_STRATEGIES,
         STRATEGIES,
         conv3x3,
         supported,
@@ -328,7 +330,7 @@ def digest(hh: int, ww: int, c: int) -> dict:
                 *(b16[0][a][b] for a in sorted(b16[0])
                   for b in sorted(b16[0][a])), *b16[1:])})
     x, wc = probe_inputs(B, "cuda", (hh, ww), c)
-    for strategy in STRATEGIES:
+    for strategy in STRATEGIES + BF16_STRATEGIES:
         if supported((hh, ww), c, strategy):
             row[f"conv_{strategy}"] = sha(conv3x3(x, wc, strategy))
     return row

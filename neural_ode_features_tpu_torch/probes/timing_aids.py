@@ -58,6 +58,27 @@ builds run there) beside the same variant of the one-CTA pass
     python -m neural_ode_features_tpu_torch.probes.timing_aids --bwd-only \
         [--bwd-batch 128,16] [--bwd-precision f32,bf16]
 
+With ``--im2col``, in place of all of the above, the probe's
+``im2col_bf16`` (``I2W_VARIANTS``, edits of ``csrc/conv_probe.cu``; device
+µs per conv by CUDA events behind a spin kernel, ``conv_probe.queued_us``,
+at B = 256 in 128-row tiles and B = 128 in 64-row tiles, the tiles the
+wrapper takes there, 7×7×64; each variant's error against the f64 conv of
+the rounded operands at B = 256):
+
+``shipped``      the kernel as it is.
+``chain``        one tensor-core chain over all of K = 9C, no f32 adds
+                 (right values, less exact).
+``no_weights``   the producer's copies of w fetch nothing (zero-filled);
+                 its conversion and stores stay.
+``no_patch``     the consumers' patch slices read nothing from the window
+                 (zeros); their stores stay.
+``no_products``  no ``wgmma``.
+``no_store``     no stores to y.
+``empty``        no stage loop: the window, the first patch slice and the
+                 epilogue.
+
+    python -m neural_ode_features_tpu_torch.probes.timing_aids --im2col
+
 Prints the card's name and power limit and one line per variant; writes no
 file.  Needs a CUDA card and ``nvcc``.
 """
@@ -82,8 +103,8 @@ from ..kernels.odefunc import odefunc_plain, prepare
 from ..solver import DOPRI5
 from .conv_probe import KERNEL_NAMES, device_us, probe_inputs
 
-__all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "patched_sources",
-           "main"]
+__all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "I2W_VARIANTS",
+           "patched_sources", "main"]
 
 HEADER = "odefunc_common.cuh"
 
@@ -226,6 +247,42 @@ BWD_VARIANTS = {
 }
 
 
+# The probe's im2col_bf16 (csrc/conv_probe.cu im2col_wgmma_kernel).
+_I2W = "conv_probe.cu"
+_I2W_PRODUCTS = ("      wgmma_ss_bf16(a0, da, db, 0);\n"
+                 "      wgmma_ss_bf16(a0, da + 2, db + 2, 1);\n"
+                 "      wgmma_ss_bf16(a1, da + 4, db + 4, 0);\n"
+                 "      wgmma_ss_bf16(a1, da + 6, db + 6, 1);\n")
+_I2W_LOOPS = [(_I2W, f"  {ind}for (int kc = 0; kc < nk; ++kc) {{  // the {who} "
+                     f"stages\n",
+               f"  {ind}for (int kc = 0; kc < 0; ++kc) {{  // the {who} "
+               f"stages\n")
+              for ind, who in (("  ", "producer's"), ("", "consumers'"))]
+I2W_VARIANTS = {
+    "shipped": [],
+    "chain": [
+        (_I2W, _I2W_PRODUCTS,
+         _I2W_PRODUCTS.replace("(a0, da, db, 0)", "(a0, da, db, kc > 0)")
+         .replace("(a1, da + 4, db + 4, 0)", "(a0, da + 4, db + 4, 1)")
+         .replace("(a1, da + 6", "(a0, da + 6")),
+        (_I2W, "        run[0][nb][i] += a0[i];\n"
+               "        run[1][nb][i] += a1[i];\n",
+         "        run[0][nb][i] = a0[i];\n")],
+    "no_weights": [(_I2W, "            const bool ok = c_row[m] < rows_left;\n",
+                    "            const bool ok = false;\n")],
+    "no_patch": [(_I2W, "      bit[h] = k < K ? 1u << tap : 0u;\n",
+                  "      bit[h] = 0u;\n")],
+    "no_products": [(_I2W, _I2W_PRODUCTS, "")],
+    "no_store": [(_I2W, "        if (co < C)\n"
+                        "          *reinterpret_cast<float2*>(y + (size_t)r * C"
+                        " + co) =\n",
+                  "        if (co < 0)\n"
+                  "          *reinterpret_cast<float2*>(y + (size_t)r * C"
+                  " + co) =\n")],
+    "empty": _I2W_LOOPS,
+}
+
+
 def patched_sources(edits, dest: Path, csrc: Path = _build.CSRC) -> Path:
     """Copy ``csrc`` to ``dest`` and apply ``edits``: ``(old, new)`` to the
     shared header, ``(file, old, new)`` to that file of ``csrc``; each
@@ -310,6 +367,41 @@ def bwd_times(tmp: Path, dev, batches, precisions=("f32",),
     return out
 
 
+def im2col_times(tmp: Path, dev) -> dict:
+    """Device µs per conv of ``im2col_bf16`` under each of ``I2W_VARIANTS``
+    at 7×7×64 (the probe's inputs), B = 256 in 128-row tiles and B = 128 in
+    64-row tiles, and each variant's max abs error at B = 256 against the
+    f64 conv of the rounded operands: ``{variant: {"us": {batch: us},
+    "err_f64": err}}``."""
+    from ..kernels.odefunc import bf16_round
+    from .conv_probe import queued_us
+
+    cases = {256: probe_inputs(256, dev), 128: probe_inputs(128, dev)}
+    tiles = {256: 128, 128: 64}
+    x, w = cases[256]
+    exact = conv3x3_plain(bf16_round(x).double(), bf16_round(w).double())
+    out = {}
+    for tag, edits in I2W_VARIANTS.items():
+        lib = (_build_variant(edits, "conv_probe", tmp, f"i2w_{tag}")
+               if edits else None)
+
+        def run():
+            err = float((conv3x3(x, w, "im2col_bf16", tile_rows=tiles[256])
+                         .double() - exact).abs().max())
+            us = {b: queued_us(lambda b=b: conv3x3(
+                *cases[b], "im2col_bf16", tile_rows=tiles[b]), reps=100)
+                for b in cases}
+            return err, us
+
+        err, us = _with_library("conv_probe", lib, run)
+        out[tag] = {"us": us, "err_f64": err}
+        print(f"im2col_bf16 {tag:>12}: " + ", ".join(
+            f"B={b} {v:6.2f} us/conv" for b, v in us.items())
+            + f"; max abs err vs the f64 conv of the rounded operands "
+              f"{err:.2e}")
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch", type=int, default=256)
@@ -321,6 +413,9 @@ def main(argv=None) -> dict:
     p.add_argument("--bwd-precision", default="f32",
                    help="comma-separated builds of the backward variants "
                         "(f32, bf16)")
+    p.add_argument("--im2col", action="store_true",
+                   help="time the probe's im2col_bf16 (I2W_VARIANTS) in "
+                        "place of the probe's mma3 and rk_step")
     args = p.parse_args(argv)
     dev = strict_f32("cuda")
     smi = subprocess.run(
@@ -331,6 +426,8 @@ def main(argv=None) -> dict:
     out = {"conv_us": {}, "conv_err_f64": {}, "rk_step_ms": {}}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        if args.im2col:
+            return {"im2col_bf16": im2col_times(tmp, dev)}
         if args.bwd_only:
             return {"bwd_sample_ms": bwd_times(
                 tmp, dev, [int(b) for b in args.bwd_batch.split(",")],

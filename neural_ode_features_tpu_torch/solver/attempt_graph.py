@@ -100,7 +100,8 @@ def _kernel_wrappers() -> tuple:
             (dopri5_step, "launches", {"rk_step_kernel": 0}),
             (dopri5_step, "launches_bf16", {"rk_step_kernel": 1}),
             (conv3x3, "launches", dict.fromkeys(
-                ("tap9_kernel", "im2col_kernel", "mma_kernel"))))
+                ("tap9_kernel", "im2col_kernel", "mma_kernel", "wgmma_kernel",
+                 "im2col_wgmma_kernel"))))
 
 
 class _KernelNodeParams(ctypes.Structure):

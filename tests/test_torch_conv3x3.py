@@ -118,10 +118,15 @@ def test_probe_entry_point_on_cpu(capsys):
     out = conv_probe.main(["--cpu", "--batch", "2"])
     assert set(out) == {"bound_us", "bound_by", "tensor_bound_us",
                         "tensor_bound_by", "library_us", "library_bf16_us",
+                        "library_device_us", "library_bf16_device_us",
                         "batches", *STRATEGIES, *BF16_STRATEGIES}
     assert out["tap9"]["err_plain"] == 0.0 and out["im2col"]["us"] > 0
     # On the CPU there is no device time, and none is reported.
     assert out["mma3"]["device_us"] is None
+    assert out["library_device_us"] is out["library_bf16_device_us"] is None
+    # A bf16 twin is also read against the f64 conv of its rounded operands.
+    assert out["im2col_bf16"]["err_f64_bf16"] < 1e-6 < out["im2col_bf16"][
+        "err_f64"]
     text = capsys.readouterr().out
     assert "bound:" in text and "tap9:" in text and "F.conv2d" in text
     assert "mma3:" in text and "dev " not in text

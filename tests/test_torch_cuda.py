@@ -1501,3 +1501,64 @@ def test_bf16_odefunc_on_the_wgmma_stage(dev, side):
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
 
+
+
+# ---- the probe's im2col_bf16 on bf16 wgmma, and its wgmma_bf16 strategy ----
+
+
+@pytest.mark.parametrize("batch,hh,ww,c", [
+    (256, 7, 7, 64), (128, 7, 7, 64), (5, 7, 7, 64), (256, 6, 6, 64),
+    (5, 6, 6, 64), (5, 5, 5, 128), (5, 9, 8, 64), (5, 7, 7, 36),
+    (3, 7, 7, 4), (3, 32, 32, 4), (5, 7, 7, 96), (2, 14, 14, 16)])
+def test_im2col_bf16_matches_plain(dev, batch, hh, ww, c):
+    """The bf16 ``wgmma`` GEMM over flattened rows against the plain bf16
+    conv (f32 reassociation of exact products), apart from the f32 conv,
+    at shapes of the old gate and beyond it (5×5×128, 9×8×64, C % 16 !=
+    0); against the f64 conv of the rounded operands within the probe's
+    bar of ``mma_bf16``'s where that runs."""
+    from neural_ode_features_tpu_torch.kernels.conv3x3 import supported
+    from neural_ode_features_tpu_torch.kernels.odefunc import bf16_round
+    from neural_ode_features_tpu_torch.probes.conv_probe import WGMMA_BAR
+
+    x, w = probe_inputs(batch, dev, (hh, ww), c)
+    before = conv3x3.launches
+    got = conv3x3(x, w, "im2col_bf16")
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    plain = conv3x3_plain(x, w, passes="bf16")
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               **CONV_TOL)
+    assert not torch.allclose(got, conv3x3_plain(x, w), **CONV_TOL)
+    if supported((hh, ww), c, "mma_bf16"):
+        exact = conv3x3_plain(bf16_round(x).double(), bf16_round(w).double())
+        err = float((got.double() - exact).abs().max())
+        err_mma = float((conv3x3(x, w, "mma_bf16").double() - exact)
+                        .abs().max())
+        assert err <= WGMMA_BAR * err_mma, (err, err_mma)
+
+
+def test_im2col_bf16_rows_do_not_depend_on_the_batch_or_tile(dev):
+    """A row's sums are its own: 64- and 128-row tiles give the same bits,
+    and the first 5 samples alone (a partial last tile) give the B = 256
+    launch's rows, whose tiles cross sample boundaries."""
+    x, w = probe_inputs(256, dev)
+    full = conv3x3(x, w, "im2col_bf16", tile_rows=64)
+    assert torch.equal(conv3x3(x, w, "im2col_bf16", tile_rows=128), full)
+    assert torch.equal(conv3x3(x[:5].contiguous(), w, "im2col_bf16"),
+                       full[:5])
+    assert torch.equal(conv3x3(x[3:9].contiguous(), w, "im2col_bf16"),
+                       full[3:9])
+
+
+@pytest.mark.parametrize("side", [7, 6])
+def test_wgmma_bf16_strategy_matches_plain(dev, side):
+    """The bf16 ``odefunc``'s conv stage alone (x rounded as it is copied
+    in) against the plain bf16 conv; the shapes it refuses raise."""
+    x, w = probe_inputs(256, dev, (side, side))
+    got = conv3x3(x, w, "wgmma_bf16")
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        conv3x3_plain(x, w, passes="bf16").cpu().numpy(), **CONV_TOL)
+    x32, w32 = probe_inputs(2, dev, (7, 7), 32)
+    with pytest.raises(ValueError, match="does not take"):
+        conv3x3(x32, w32, "wgmma_bf16")
