@@ -132,7 +132,9 @@ Phases (any failed check exits nonzero and prints no result):
    plain path; at 7×7×128, 256 and 512 the adjoint gradients against the
    plain path (B = 128, tol 1e-5) and at 7×7×128, 256, 96 and 512 the
    probe's ``mma3``/``mma1`` against the f64 conv beside ``F.conv2d``
-   (``mma3`` within 1e-6 at 96 and 512); one epoch each of ``train
+   (``mma3`` within 1e-6 at 96 and 512), the probe's ``mma_bf16`` beside
+   ``F.conv2d`` on bf16 tensors by device time at every C from 96 to 512
+   (B = 256, 7×7); one epoch each of ``train
    --hidden 128`` and ``--hidden 512``; C = 544 and C = 48 refused before
    any launch, naming the JAX kernels' gate.  ``[foreign]``: CIFAR-10 binary
    batches and MNIST IDX files (labels gzipped) written from the synthetic
@@ -231,19 +233,24 @@ Phases (any failed check exits nonzero and prints no result):
    kernel's; dθ bit-identical over two launches; the per-sample pass each
    call launched read from the call captured into a CUDA graph, the gate's
    and, at 7×7×64 B = 128 and 16 and 6×6×64 B = 128, the two-CTA cluster's
-   bf16 build), the bf16 ODEfunc kernel's conv stage at 7×7×64 and 6×6×64
-   from the gate (``'wgmma_bf16'``) and from the build (its machine code,
-   ``cuobjdump -sass``, and the bf16 cluster pass's hold bf16 warpgroup
-   products, the fused step's ``kBf16Conv`` build none), the probe's ``mma_bf16``,
+   bf16 build), the bf16 ODEfunc kernel's and the fused step's bf16 conv
+   stage at 7×7×64 and 6×6×64 from the gate (``'wgmma_bf16'``) and from
+   the build (the machine code, ``cuobjdump -sass``, of the bf16 ODEfunc
+   kernel, of the bf16 cluster pass and of the fused step's ``kBf16Conv``
+   build holds bf16 warpgroup products), the probe's ``mma_bf16``,
    ``tap9_bf16``, ``im2col_bf16`` and ``wgmma_bf16`` (f32 reassociation);
-   ``im2col_bf16`` (one bf16 ``wgmma`` GEMM over the rows of every sample,
-   both operands from shared memory) also at every C its gate takes on 7×7
-   (B = 5) and at 7×7×64, 6×6×64, 5×5×128, 9×8×64, 7×7×128, 32×32×4,
-   7×7×36, 14×14×16 and 7×7×100 at B = 256, 128 and 5, its error against
-   the f64 conv of the rounded operands beside ``mma_bf16``'s (at most
-   ``WGMMA_BAR`` times), its 64- and 128-row tiles bit-identical and
-   timed, bf16 ``HGMMA`` in its build and none in the f32 ``im2col``'s
-   (``cuobjdump -sass``).  The entry
+   ``im2col_bf16`` and ``tap9_bf16`` (one bf16 ``wgmma`` template over the
+   rows of every sample, both operands from shared memory; a stage 64 k of
+   the patch matrix or one tap's 64 channels) also at every C their gate
+   takes on 7×7 (B = 5) and at 7×7×64, 6×6×64, 5×5×128, 9×8×64, 7×7×128,
+   32×32×4, 7×7×36, 14×14×16, 7×7×100, 7×7×32, 8×8×64 and 4×4×128 at
+   B = 256, 128 and 5, each error against the f64 conv of the rounded
+   operands beside ``mma_bf16``'s (at most ``WGMMA_BAR`` times), the two
+   bit-identical at C = 64 and 128, their 64- and 128-row tiles
+   bit-identical and timed, bf16 ``HGMMA`` in their build and none in the
+   f32 ``im2col``'s (``cuobjdump -sass``); the fused bf16 builds' FFMA
+   stage alone (``probes/timing_aids.py`` ``tap9_ffma_bf16``, what
+   ``tap9_bf16`` was before) against the plain bf16 conv and timed.  The entry
    model's bf16 inference
    (``odenet_logits``, ``odenet_trajectory``) at B = 256 on the host loop
    and on the cache, bit-identical, 2 + 6·attempts ``odefunc`` launches and
@@ -306,7 +313,8 @@ Phases (any failed check exits nonzero and prints no result):
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (per kernel and shape, the bf16 builds as ``odefunc_bf16``,
-``rk_step_bf16``, ``odefunc_bwd_bf16`` and ``conv_probe_bf16`` with their
+``rk_step_bf16``, ``odefunc_bwd_bf16``, ``conv_probe_bf16``,
+``conv_probe_im2col_bf16`` and ``conv_probe_tap9_bf16`` with their
 bounds at the bf16 tensor-core rate: the conv stage it ran; ``ms``, its device time per
 call, CUDA events around calls queued behind a spin kernel (``device_ms``);
 ``profiler_ms``, the mean of the launches ``torch.profiler`` recorded, by
@@ -2615,6 +2623,25 @@ def main() -> int:
                 "library_ms": lib_ms, "stage": "mma3",
                 "mma1_ms": probe_ms["mma1"]})
 
+        # The probe's mma_bf16, the bf16 builds' conv stage at C = 96 to 512
+        # on these maps (mma.sync bf16), beside F.conv2d on bf16 tensors:
+        # device ms by the same clock at every width from 96 to 512, each
+        # checked against the plain bf16 conv first.
+        mma16 = {}
+        for c in range(96, 513, 32):
+            xc_w, wc_w = conv_probe.probe_inputs(B, dev, (HH, WW), c)
+            close(f"conv_probe mma_bf16 {HH}x{WW}x{c}",
+                  conv3x3(xc_w, wc_w, "mma_bf16"),
+                  conv3x3_plain(xc_w, wc_w, passes="bf16"), **CONV_TOL)
+            x16_w, w16_w = xc_w.bfloat16(), wc_w.bfloat16()
+            mma16[c] = (device_ms(lambda: conv3x3(xc_w, wc_w, "mma_bf16")),
+                        device_ms(lambda: conv_probe.library_conv(
+                            x16_w, w16_w)))
+        print(f"[width] conv_probe mma_bf16 B={B} {HH}x{WW}xC device ms "
+              f"beside F.conv2d on bf16 tensors (ratio): " + ", ".join(
+                  f"{c} {m_:.4f} / {l_:.4f} ({m_ / l_:.2f}x)"
+                  for c, (m_, l_) in mma16.items()))
+
         # One epoch of `train --hidden 128` and of `--hidden 512` at the
         # [train-cli] size, the launch rule on every step.
         for hidden in (128, 512):
@@ -2966,87 +2993,126 @@ def main() -> int:
     # plain bf16 path and beside the f32 step; sweep --bf16; train --bf16
     # and its resume; export and serving of the bf16 run; the bf16 probe
     # race; each bf16 build timed.  Returns the kernels line's entries.
-    # The probe's im2col_bf16 (one bf16 wgmma GEMM over the rows of every
-    # sample) at the shapes of its gate: every C it takes (multiples of 4
-    # to 128) on 7x7 at B = 5, and at B = 256, 128 and 5 the main shapes,
-    # the widest, maps beyond the old per-sample patch (5x5x128, 9x8x64,
-    # 32x32x4), a C % 16 != 0 and a C % 8 != 0; each within CONV_TOL of
-    # the plain bf16 conv and outside it of the f32 conv; its error
-    # against the f64 conv of the rounded operands beside mma_bf16's (at
-    # most WGMMA_BAR times); its tile heights bit-identical and timed; its
-    # machine code (bf16 HGMMA, none in the f32 im2col).  Returns the max
-    # abs error.
-    def im2col_bf16_phase():
+    # The probe's two strategies over the rows of every sample (one bf16
+    # wgmma template: im2col_bf16, 64 k of the patch matrix a stage, and
+    # tap9_bf16, one tap's 64 channels a stage) at the shapes of their
+    # gate: every C it takes (multiples of 4 to 128) on 7x7 at B = 5, and
+    # at B = 256, 128 and 5 the main shapes, the widest, maps beyond the
+    # old per-sample patch (5x5x128, 9x8x64, 32x32x4), a C % 16 != 0, a
+    # C % 8 != 0 and the old FFMA gate's 7x7x32, 8x8x64 and 4x4x128; each
+    # within CONV_TOL of the plain bf16 conv and outside it of the f32
+    # conv; its error against the f64 conv of the rounded operands beside
+    # mma_bf16's (at most WGMMA_BAR times); its tile heights bit-identical
+    # and timed; its machine code (bf16 HGMMA, none in the f32 im2col);
+    # the two bit-identical at C = 64 and 128 (the same stages, summed
+    # alike).  Then the fused
+    # bf16 builds' FFMA stage alone (what tap9_bf16 was before; timing aid
+    # tap9_ffma_bf16) against the plain bf16 conv, and timed.  Returns the
+    # max abs error and the FFMA stage's device ms at B = 256.
+    def rows_bf16_phase():
         from neural_ode_features_tpu_torch.kernels.conv3x3 import (
+            ROWS_STRATEGIES,
             im2col_tile_rows,
         )
         from neural_ode_features_tpu_torch.kernels.conv3x3 import (
             supported as conv_supported,
         )
         from neural_ode_features_tpu_torch.kernels.odefunc import bf16_round
+        from neural_ode_features_tpu_torch.probes.timing_aids import (
+            tap9_ffma_bf16,
+        )
 
         t_i = time.perf_counter()
         shapes = [(5, (HH, WW), c) for c in range(4, 129, 4)] + [
             (nb, hw_, c) for nb in (B, B_TRAIN, 5) for hw_, c in (
                 ((HH, WW), C), ((6, 6), C), ((5, 5), 128), ((9, 8), C),
                 ((HH, WW), 128), ((32, 32), 4), ((HH, WW), 36),
-                ((14, 14), 16), ((HH, WW), 100))]
-        err, ratios = 0.0, {}
+                ((14, 14), 16), ((HH, WW), 100), ((HH, WW), 32),
+                ((8, 8), C), ((4, 4), 128))]
+        err, ratios, same = 0.0, {}, {}
         for nb, hw_, c in shapes:
-            if not conv_supported(hw_, c, "im2col_bf16"):
-                fail(f"[bf16] the im2col_bf16 gate refuses {hw_} x {c}")
             xc_, wc_ = conv_probe.probe_inputs(nb, dev, hw_, c)
-            tag = f"conv_probe im2col_bf16 B={nb} {hw_[0]}x{hw_[1]}x{c}"
-            got_ = conv3x3(xc_, wc_, "im2col_bf16")
-            err = max(err, close(tag, got_, conv3x3_plain(
-                xc_, wc_, passes="bf16"), **CONV_TOL))
-            if torch.allclose(got_, conv3x3_plain(xc_, wc_), **CONV_TOL):
-                fail(f"[bf16] {tag}: within the tolerance of the f32 conv")
+            plain16_ = conv3x3_plain(xc_, wc_, passes="bf16")
+            plain32_ = conv3x3_plain(xc_, wc_)
+            exact = e_m = None
             if nb != 5 and conv_supported(hw_, c, "mma_bf16"):
                 exact = conv3x3_plain(bf16_round(xc_).double(),
                                       bf16_round(wc_).double())
-                e_i = float((got_.double() - exact).abs().max())
                 e_m = float((conv3x3(xc_, wc_, "mma_bf16").double()
                              - exact).abs().max())
-                ratios[tag] = e_i / e_m
-                print(f"[check] {tag} vs the f64 conv of the rounded "
-                      f"operands: {e_i:.3e} beside mma_bf16's {e_m:.3e} "
-                      f"({e_i / e_m:.2f}x; bar {conv_probe.WGMMA_BAR}x)")
-                if e_i > conv_probe.WGMMA_BAR * e_m:
-                    fail(f"[bf16] {tag}: {e_i:.3e} against the f64 conv, "
-                         f"over {conv_probe.WGMMA_BAR} x mma_bf16's")
-        print(f"[check] conv_probe im2col_bf16 at {len(shapes)} shapes and "
-              f"batches: within rtol {CONV_TOL['rtol']}, atol "
-              f"{CONV_TOL['atol']} of conv3x3_plain(passes='bf16'), outside "
-              f"it of the f32 conv, max abs err {err:.3e}")
+            outs_ = {}
+            for strategy in ROWS_STRATEGIES:
+                if not conv_supported(hw_, c, strategy):
+                    fail(f"[bf16] the {strategy} gate refuses {hw_} x {c}")
+                tag = (f"conv_probe {strategy} B={nb} "
+                       f"{hw_[0]}x{hw_[1]}x{c}")
+                got_ = outs_[strategy] = conv3x3(xc_, wc_, strategy)
+                err = max(err, close(tag, got_, plain16_, **CONV_TOL))
+                if torch.allclose(got_, plain32_, **CONV_TOL):
+                    fail(f"[bf16] {tag}: within the tolerance of the f32 "
+                         "conv")
+                if exact is not None:
+                    e_i = float((got_.double() - exact).abs().max())
+                    ratios[tag] = e_i / e_m
+                    print(f"[check] {tag} vs the f64 conv of the rounded "
+                          f"operands: {e_i:.3e} beside mma_bf16's {e_m:.3e} "
+                          f"({e_i / e_m:.2f}x; bar {conv_probe.WGMMA_BAR}x)")
+                    if e_i > conv_probe.WGMMA_BAR * e_m:
+                        fail(f"[bf16] {tag}: {e_i:.3e} against the f64 conv,"
+                             f" over {conv_probe.WGMMA_BAR} x mma_bf16's")
+            if c % 64 == 0:
+                same[f"B={nb} {hw_[0]}x{hw_[1]}x{c}"] = torch.equal(
+                    *outs_.values())
+        print(f"[check] conv_probe {' and '.join(ROWS_STRATEGIES)} at "
+              f"{len(shapes)} shapes and batches: within rtol "
+              f"{CONV_TOL['rtol']}, atol {CONV_TOL['atol']} of "
+              f"conv3x3_plain(passes='bf16'), outside it of the f32 conv, "
+              f"max abs err {err:.3e}; the two bit-identical at C % 64 == 0: "
+              f"{same}")
+        if not all(same.values()):
+            fail("[bf16] tap9_bf16 and im2col_bf16 sum a stage alike, yet "
+                 f"differ where C % 64 == 0: {same}")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tiles = {}
-        for nb in (B, B_TRAIN):
-            xc_, wc_ = conv_probe.probe_inputs(nb, dev)
-            outs = {r: conv3x3(xc_, wc_, "im2col_bf16", tile_rows=r)
-                    for r in (64, 128)}
-            if not torch.equal(outs[64], outs[128]):
-                fail(f"[bf16] im2col_bf16 B={nb}: 64- and 128-row tiles "
-                     "differ")
-            tiles[nb] = {r: device_ms(lambda r=r: conv3x3(
-                xc_, wc_, "im2col_bf16", tile_rows=r), reps=100)
-                for r in (64, 128, 64, 128)}
-            print(f"[bf16] im2col_bf16 B={nb} {HH}x{WW}x{C}: device ms with "
-                  f"64-row tiles {tiles[nb][64]:.4f}, 128-row "
-                  f"{tiles[nb][128]:.4f} (bit-identical; the wrapper takes "
-                  f"{im2col_tile_rows(nb * HH * WW, sms, C, WW)} on {sms} "
-                  "SMs)")
+        for strategy in ROWS_STRATEGIES:
+            for nb in (B, B_TRAIN):
+                xc_, wc_ = conv_probe.probe_inputs(nb, dev)
+                outs = {r: conv3x3(xc_, wc_, strategy, tile_rows=r)
+                        for r in (64, 128)}
+                if not torch.equal(outs[64], outs[128]):
+                    fail(f"[bf16] {strategy} B={nb}: 64- and 128-row tiles "
+                         "differ")
+                tiles = {r: device_ms(lambda r=r: conv3x3(
+                    xc_, wc_, strategy, tile_rows=r), reps=100)
+                    for r in (64, 128, 64, 128)}
+                print(f"[bf16] {strategy} B={nb} {HH}x{WW}x{C}: device ms "
+                      f"with 64-row tiles {tiles[64]:.4f}, 128-row "
+                      f"{tiles[128]:.4f} (bit-identical; the wrapper takes "
+                      f"{im2col_tile_rows(nb * HH * WW, sms, C, WW)} on "
+                      f"{sms} SMs)")
         sass = {"im2col_bf16": kernel_sass("conv_probe", "im2col_wgmma_kernel"),
+                "tap9_bf16": kernel_sass("conv_probe", "tap9_wgmma_kernel"),
                 "im2col": kernel_sass("conv_probe", "13im2col_kernel")}
         hgmma = {k: sum(1 for ln in v.splitlines()
                         if "HGMMA" in ln and "BF16" in ln)
                  for k, v in sass.items()}
-        print(f"[bf16] im2col_bf16 build: bf16 HGMMA instructions {hgmma}; "
-              f"{time.perf_counter() - t_i:.1f} s")
-        if not hgmma["im2col_bf16"] or hgmma["im2col"]:
+        print(f"[bf16] im2col_bf16 and tap9_bf16 builds: bf16 HGMMA "
+              f"instructions {hgmma}")
+        if not hgmma["im2col_bf16"] or not hgmma["tap9_bf16"] or hgmma["im2col"]:
             fail(f"[bf16] bf16 warpgroup products {hgmma}: the im2col_bf16 "
-                 "build must hold them, the f32 im2col none")
-        return err
+                 "and tap9_bf16 builds must hold them, the f32 im2col none")
+        ffma_ms = {}
+        for nb, c in ((B, C), (B_TRAIN, C), (B, 32)):
+            xc_, wc_ = conv_probe.probe_inputs(nb, dev, (HH, WW), c)
+            err = max(err, close(
+                f"tap9_ffma_bf16 B={nb} {HH}x{WW}x{c}", tap9_ffma_bf16(
+                    xc_, wc_), conv3x3_plain(xc_, wc_, passes="bf16"),
+                **CONV_TOL))
+            ffma_ms[f"B={nb} {HH}x{WW}x{c}"] = device_ms(
+                lambda: tap9_ffma_bf16(xc_, wc_), reps=100)
+        print(f"[bf16] the fused bf16 builds' FFMA stage alone "
+              f"(tap9_kernel<true>, what tap9_bf16 was before): device ms "
+              f"{ffma_ms}; {time.perf_counter() - t_i:.1f} s")
+        return err, ffma_ms[f"B={B} {HH}x{WW}x{C}"]
 
     def bf16_phase():
         from neural_ode_features_tpu_torch import serve as serve_cli
@@ -3157,14 +3223,15 @@ def main() -> int:
                   f"gate says")
         print(f"[bf16] odefunc_bwd bf16 held at seven shapes and batches in "
               f"{time.perf_counter() - t_b:.1f} s; max abs err {err_b16:.3e}")
-        # The bf16 ODEfunc kernel's conv stage at the bf16 paths' maps, from
-        # the gate and from the build: its kBf16 build's machine code holds
-        # bf16 warpgroup products (HGMMA ... BF16), the fused step's
-        # kBf16Conv build none (mma.sync, HMMA).
+        # The bf16 ODEfunc kernel's and the fused step's bf16 conv stage at
+        # the bf16 paths' maps, from the gate and from the build: the
+        # machine code of the kBf16 build and of the fused step's kBf16Conv
+        # build holds bf16 warpgroup products (HGMMA ... BF16).
         for hw_ in ((HH, WW), (6, 6)):
-            if stage(hw_, C, "bf16") != "wgmma_bf16":
-                fail(f"[bf16] the gate gives the bf16 odefunc at {hw_} "
-                     f"{stage(hw_, C, 'bf16')!r}, not 'wgmma_bf16'")
+            for prec_ in ("bf16", "bf16_conv"):
+                if stage(hw_, C, prec_) != "wgmma_bf16":
+                    fail(f"[bf16] the gate gives the {prec_} build at {hw_} "
+                         f"{stage(hw_, C, prec_)!r}, not 'wgmma_bf16'")
         sass16 = {
             "odefunc kBf16": kernel_sass("odefunc", "odefunc_kernelILb0ELb0ELi2EE"),
             "odefunc_bwd cluster kBf16": kernel_sass(
@@ -3174,14 +3241,13 @@ def main() -> int:
         hgmma = {k: sum(1 for ln in v.splitlines()
                         if "HGMMA" in ln and "BF16" in ln)
                  for k, v in sass16.items()}
-        print(f"[bf16] conv stage: the gate gives 'wgmma_bf16' at {HH}x{WW}x"
-              f"{C} and 6x6x{C}; bf16 HGMMA instructions in the build: "
-              f"{hgmma}")
-        if (not hgmma["odefunc kBf16"] or not hgmma["odefunc_bwd cluster kBf16"]
-                or hgmma["rk_step kBf16Conv"]):
+        print(f"[bf16] conv stage: the gate gives 'wgmma_bf16' to the bf16 "
+              f"odefunc and the fused step's bf16 convs at {HH}x{WW}x{C} and "
+              f"6x6x{C}; bf16 HGMMA instructions in the build: {hgmma}")
+        if not all(hgmma.values()):
             fail(f"[bf16] the builds' bf16 warpgroup products {hgmma}: the "
-                 "kBf16 odefunc and cluster pass must hold them, the fused "
-                 "step's kBf16Conv build none")
+                 "kBf16 odefunc, the cluster pass and the fused step's "
+                 "kBf16Conv build must hold them")
         # The probe's bf16 twins: their operands round alike, f32
         # reassociation; the f32 conv lies outside that tolerance.
         for nb, hw_ in ((B, (HH, WW)), (5, (HH, WW)), (B, (6, 6))):
@@ -3200,7 +3266,8 @@ def main() -> int:
                   f"{hw_[0]}x{hw_[1]}: within rtol {CONV_TOL['rtol']}, atol "
                   f"{CONV_TOL['atol']} of conv3x3_plain(passes='bf16'), "
                   f"outside it of the f32 conv, max abs err {err_c16:.3e}")
-        err_c16 = max(err_c16, im2col_bf16_phase())
+        err_rows, ffma16_ms = rows_bf16_phase()
+        err_c16 = max(err_c16, err_rows)
 
         # The entry model's bf16 inference: on the host loop and on the
         # cache (bit-identical, equal launches: 2 + 6·attempts odefunc, no
@@ -3708,7 +3775,7 @@ def main() -> int:
              "launches": paths16["bf16_step_solve"]["rk_step_bf16"],
              "max_abs_err": err_s16, "ms": ms16["rk_step"],
              "plain_ms": plain16["rk_step"], **fb16["rk_step"],
-             "library_ms": None, "stage": "mma_bf16",
+             "library_ms": None, "stage": stage((HH, WW), C, "bf16_conv"),
              "call_ms": call16["rk_step"]},
             {"name": "odefunc_bwd_bf16", **common,
              "source": "neural_ode_features_tpu_torch/csrc/odefunc_bwd.cu",
@@ -3757,6 +3824,17 @@ def main() -> int:
              "library_ms": lib16_dev, "library_call_ms": lib16["conv"],
              "stage": "im2col_bf16 (wgmma, both operands from shared "
                       "memory)"},
+            {"name": "conv_probe_tap9_bf16", **common,
+             "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
+             "replaces": "probes/conv_probe.py:282",
+             "launches": paths16["bf16_probe"]["conv3x3"],
+             "max_abs_err": err_c16, "ms": twin_ms["tap9_bf16"],
+             "plain_ms": plain16["conv"],
+             **bounds(conv_flops(B, (HH, WW), C), conv_bytes(B, (HH, WW), C),
+                      H100_BF16_FLOPS),
+             "library_ms": lib16_dev, "library_call_ms": lib16["conv"],
+             "stage": "tap9_bf16 (per-tap wgmma over the rows of every "
+                      "sample)", "ffma_stage_ms": ffma16_ms},
         ]
 
     # [straggler]: the straggler bench at the JAX tool's defaults on the

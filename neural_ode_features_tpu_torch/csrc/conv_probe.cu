@@ -1,7 +1,7 @@
 // The 3x3 conv probe: y = conv3x3_same(x, w) alone (sm_90a), under five f32
 // strategies and four bf16 twins, so that the conv stage of the fused
 // kernels can be timed and redesigned in isolation.  One CTA per sample,
-// but im2col_bf16, which tiles the rows of all samples.
+// but im2col_bf16 and tap9_bf16, which tile the rows of all samples.
 //
 // Replaces the TPU kernels of probes/conv_probe.py: pallas_conv_2d (kernels
 // from make_roll_kernel) and pallas_conv (make_kernel, make_scratch_kernel).
@@ -49,20 +49,27 @@
 //
 //   mma_bf16     nodef::conv3x3_mma<kPassBf16>: one mma.sync.m16n8k16 bf16
 //                pass per 16 channels, operands packed to bf16 as the
-//                fragments are built.  The conv stage of rk_step.cu's bf16
-//                build, of odefunc.cu's where wgmma_ok does not hold and of
-//                the bf16 backward's one-CTA pass's input gradients.
+//                fragments are built.  The conv stage of odefunc.cu's and
+//                rk_step.cu's bf16 builds where wgmma_ok does not hold (the
+//                tensor-core shapes of C = 96 to 512) and of the bf16
+//                backward's one-CTA pass's input gradients.
 //   wgmma_bf16   nodef::conv3x3_wgmma<kBf16> on x rounded as it is copied
-//                in: the conv stage of odefunc.cu's bf16 build where
-//                wgmma_ok holds (7x7x64, 6x6x64); it takes exactly those
-//                shapes.
-//   tap9_bf16    tap9 on x rounded as it is copied in, the weights rounded
-//                as they are read (nodef::conv3x3<true>): the bf16 builds'
-//                stage at the other shapes.
+//                in: the conv stage of odefunc.cu's and rk_step.cu's bf16
+//                builds where wgmma_ok holds (7x7x64, 6x6x64); it takes
+//                exactly those shapes.
+//   tap9_bf16    nine per-tap bf16 products on wgmma.mma_async over the
+//                rows of every sample, each tap's 64-channel block in two
+//                k-half chains from zero, the taps added in f32 in order
+//                (the TPU's
+//                seq9_bf16, tree9_bf16, fori9_bf16, roll9_bf16); im2col_bf16's
+//                kernel with a tap as its stage (the note at
+//                rows_wgmma_conv); im2col_bf16's gate.  The fused bf16
+//                builds' FFMA stage (nodef::conv3x3<true>, at C = 32 and on
+//                maps with H*(W+2) > 64) stays readable alone through
+//                conv_probe_tap9_ffma_bf16 (probes/timing_aids.py --tap9).
 //   im2col_bf16  one bf16 GEMM over the rows of every sample on
 //                wgmma.mma_async with both operands from shared memory
-//                (the note at im2col_wgmma_kernel); C a multiple of 4 to
-//                128.
+//                (the note at rows_wgmma_conv); C a multiple of 4 to 128.
 //
 // Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 // on them, 3.35 TB/s): at B = 256, 7x7x64 the conv is 2*256*49*576*64 =
@@ -240,15 +247,19 @@ im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
   }
 }
 
-// ---- im2col_bf16: the patch matrix on bf16 wgmma ---------------------------
+// ---- im2col_bf16 and tap9_bf16: the conv on bf16 wgmma over rows ----------
 //
 // y = conv3x3_same(x, w) as one GEMM over the rows of all samples:
 // patch (B*H*W, 9C) @ w (9C, C), both operands rounded to bf16 (to nearest
 // even), f32 accumulation.  M runs over the flattened rows r = (b*H + y)*W
 // + x, tiled in 64- or 128-row tiles that cross sample boundaries as the TPU
 // kernel's tb samples do (a row's sums do not depend on its tile); K runs
-// over (tap, input channel), tap-major, in stages of kI2wK = 64 (the last
-// padded with zeros); N = C, padded to 64 * NB.
+// over (tap, input channel), tap-major, in stages of kI2wK = 64; N = C,
+// padded to 64 * NB.  The two strategies differ in what a stage is:
+// im2col_bf16's stage kc is k = 64 kc .. 64 kc + 63 of K = 9C (the last
+// padded with zeros; at C < 64 a stage spans taps), tap9_bf16's is input
+// channels 64 (kc % S) .. + 63 of tap kc / S, S = ceil(C / 64) stages a
+// tap (padded with zeros past C: at C = 32 half of each stage is zero).
 //
 // A CTA is one producer warpgroup and MW consumer warpgroups, each
 // consumer 64 rows.  Both operands of the products are K-major tiles in
@@ -282,8 +293,15 @@ im2col_kernel(const float* __restrict__ x, const float* __restrict__ w, Shape s,
 // f32 sum, stages in order; last, first half + second half.  At C = 64 a
 // stage is a tap: the order of conv3x3_mma<kPassBf16> and of wgmma_bf16,
 // and the card gives their bits.  One chain over K = 9C reads further from
-// the f64 conv (probes/timing_aids.py --im2col, "chain").
-// kernels/conv3x3.py im2col_wgmma_emulated follows the order.
+// the f64 conv (probes/timing_aids.py --im2col, "chain").  For tap9_bf16
+// this is the TPU's seq9, acc = acc + dot(patch, w_tap), each tap's dot
+// split in k halves as mma_bf16 splits it: one chain of the four k16 steps
+// a stage read up to 1.52x mma_bf16's error against the f64 conv (H100
+// SXM, B = 5, 7x7x64; probes/timing_aids.py --tap9, "chain"), past the
+// probe's 1.5x bar.  So where C is a multiple of 64 the two strategies give the same
+// bits; at C < 64 tap9_bf16's stage is one tap padded with zeros,
+// im2col_bf16's spans taps.  kernels/conv3x3.py im2col_wgmma_emulated and
+// tap9_wgmma_emulated follow the orders.
 //
 // Bound at B = 256, 7x7x64 (H100 SXM, 3.35 TB/s, 989 TFLOP/s dense bf16):
 // 6.6 MB moved, 2.0 us; 0.925 GFLOP, 0.94 us of bf16 products.  Each CTA
@@ -379,10 +397,13 @@ __device__ __forceinline__ void consumers_sync(int mw) {
   asm volatile("bar.sync 4, %0;\n" ::"r"(128 * mw) : "memory");
 }
 
-template <int MW, int NB>
-__global__ void __launch_bounds__(128 * (MW + 1), 1)
-im2col_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, int rows, int H,
-                    int W, int C, float* __restrict__ y) {
+// The body of both kernels.  kTap: what a stage is (false: 64 k of the
+// patch matrix, im2col_bf16; true: 64 input channels of one tap,
+// tap9_bf16).
+template <bool kTap, int MW, int NB>
+__device__ __forceinline__ void rows_wgmma_conv(const float* __restrict__ x,
+                                                const float* __restrict__ w, int rows, int H,
+                                                int W, int C, float* __restrict__ y) {
   constexpr int kStage = i2w_stage_bytes(MW, NB);  // bytes
   constexpr int kD = i2w_depth(NB);
   extern __shared__ uint8_t i2w_raw[];
@@ -392,7 +413,12 @@ im2col_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, in
   const uint32_t win = stg + kD * slot;                   // the x window (bf16)
   const uint32_t bars = win + i2w_window_bytes(MW, W, C);  // full[s] +8s, empty[s] +8(S+s)
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, K = 9 * C;
-  const int nk = (K + kI2wK - 1) / kI2wK, tile0 = blockIdx.x * 64 * MW;
+  const int S = (C + kI2wK - 1) / kI2wK;  // stages a tap (kTap)
+  const int nk = kTap ? 9 * S : (K + kI2wK - 1) / kI2wK, tile0 = blockIdx.x * 64 * MW;
+  // Stage kc's first row of w as (9C, C), and its rows left (64 or more:
+  // all 64 of the stage; fewer: the rest is zero).
+  auto w_row0 = [&](int kc) { return kTap ? kc / S * C + kc % S * kI2wK : kc * kI2wK; };
+  auto w_rows = [&](int kc) { return kTap ? C - kc % S * kI2wK : K - kc * kI2wK; };
 
   if (tid == 0) {
     for (int s = 0; s < kI2wStages; ++s) {
@@ -424,8 +450,8 @@ im2col_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, in
     auto copy = [&](int kc) {
       if (kc < nk) {
         const uint32_t dst = stg + (kc % kD) * slot;
-        const int rows_left = K - kc * kI2wK;
-        const float* wk = w + (size_t)kc * kI2wK * C;
+        const int rows_left = w_rows(kc);
+        const float* wk = w + (size_t)w_row0(kc) * C;
 #pragma unroll
         for (int m = 0; m < kCh; ++m) {
           if (m < nch) {
@@ -505,18 +531,25 @@ im2col_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, in
       }
     }
   }
-  // The patch slice of stage kc, this warpgroup's rows: k = kc*64 + 8ag +
-  // 4h, h = 0, 1 (4 k of one tap each, C % 4 == 0), from window row
-  // (r - tile0) + W + 1 + the tap's shift.
+  // The patch slice of stage kc, this warpgroup's rows: its k 8ag + 4h,
+  // h = 0, 1 (4 k of one tap each, C % 4 == 0), are patch column kc*64 +
+  // 8ag + 4h (kTap: input channel kc % S * 64 + 8ag + 4h of tap kc / S),
+  // from window row (r - tile0) + W + 1 + the tap's shift.
   auto build_a = [&](int kc) {
     const uint32_t a_s = base + (kc % kI2wStages) * kStage;
     int off[2];
     unsigned bit[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int k = kc * kI2wK + 8 * ag + 4 * h;
-      const int tap = k < K ? k / C : 0, ci = k - tap * C;
-      bit[h] = k < K ? 1u << tap : 0u;
+      int tap, ci;
+      bool live;
+      if constexpr (kTap) {
+        tap = kc / S, ci = kc % S * kI2wK + 8 * ag + 4 * h, live = ci < C;
+      } else {
+        const int k = kc * kI2wK + 8 * ag + 4 * h;
+        live = k < K, tap = live ? k / C : 0, ci = k - tap * C;
+      }
+      bit[h] = live ? 1u << tap : 0u;
       off[h] = 2 * (((tap / 3 - 1) * W + tap % 3 + W) * C + ci);
     }
 #pragma unroll
@@ -590,6 +623,20 @@ im2col_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, in
   }
 }
 
+template <int MW, int NB>
+__global__ void __launch_bounds__(128 * (MW + 1), 1)
+im2col_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, int rows, int H,
+                    int W, int C, float* __restrict__ y) {
+  rows_wgmma_conv<false, MW, NB>(x, w, rows, H, W, C, y);
+}
+
+template <int MW, int NB>
+__global__ void __launch_bounds__(128 * (MW + 1), 1)
+tap9_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, int rows, int H,
+                  int W, int C, float* __restrict__ y) {
+  rows_wgmma_conv<true, MW, NB>(x, w, rows, H, W, C, y);
+}
+
 }  // namespace nodef
 
 template <bool kBf16>
@@ -619,11 +666,11 @@ static int launch_im2col(const float* x, const float* w, float* y,
   return (int)cudaGetLastError();
 }
 
-template <int MW, int NB>
-static int launch_i2w(const float* x, const float* w, float* y, int rows, int H, int W, int C,
-                      cudaStream_t stream) {
+template <bool kTap, int MW, int NB>
+static int launch_rows(const float* x, const float* w, float* y, int rows, int H, int W, int C,
+                       cudaStream_t stream) {
   using namespace nodef;
-  const auto kernel = im2col_wgmma_kernel<MW, NB>;
+  const auto kernel = kTap ? tap9_wgmma_kernel<MW, NB> : im2col_wgmma_kernel<MW, NB>;
   const size_t smem = i2w_smem_bytes(MW, NB, W, C);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -633,13 +680,39 @@ static int launch_i2w(const float* x, const float* w, float* y, int rows, int H,
   return (int)cudaGetLastError();
 }
 
+// im2col_bf16 (kTap false) or tap9_bf16 (true).  tile_rows: 64, or 128 at
+// C <= 64 where that tile's window fits; the caller's choice
+// (kernels/conv3x3.py im2col_tile_rows).
+template <bool kTap>
+static int launch_rows_strategy(const float* x, const float* w, float* y, int B, int H, int W,
+                                int C, void* stream, int tile_rows) {
+  using namespace nodef;
+  const bool tall = tile_rows == 128;
+  if (!i2w_shape_ok(B, H, W, C) || (tile_rows != 64 && !tall) ||
+      (tall && (C > 64 || i2w_window_bytes(2, W, C) > kI2wMaxWindow)))
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * H * W;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 64) return launch_rows<kTap, 1, 2>(x, w, y, rows, H, W, C, st);
+  return tall ? launch_rows<kTap, 2, 1>(x, w, y, rows, H, W, C, st)
+              : launch_rows<kTap, 1, 1>(x, w, y, rows, H, W, C, st);
+}
+
 extern "C" int conv_probe_tap9(const float* x, const float* w, float* y,
                                int B, int H, int W, int C, void* stream) {
   return launch_tap9<false>(x, w, y, B, H, W, C, stream);
 }
 
 extern "C" int conv_probe_tap9_bf16(const float* x, const float* w, float* y,
-                                    int B, int H, int W, int C, void* stream) {
+                                    int B, int H, int W, int C, void* stream,
+                                    int tile_rows) {
+  return launch_rows_strategy<true>(x, w, y, B, H, W, C, stream, tile_rows);
+}
+
+// The fused bf16 builds' FFMA stage alone (tap9_kernel<true>): a reading
+// for probes/timing_aids.py, not a strategy of the probe.
+extern "C" int conv_probe_tap9_ffma_bf16(const float* x, const float* w, float* y,
+                                         int B, int H, int W, int C, void* stream) {
   return launch_tap9<true>(x, w, y, B, H, W, C, stream);
 }
 
@@ -648,28 +721,17 @@ extern "C" int conv_probe_im2col(const float* x, const float* w, float* y,
   return launch_im2col(x, w, y, B, H, W, C, stream);
 }
 
-// tile_rows: 64, or 128 at C <= 64 where that tile's window fits; the
-// caller's choice (kernels/conv3x3.py im2col_tile_rows).
 extern "C" int conv_probe_im2col_bf16(const float* x, const float* w, float* y,
                                       int B, int H, int W, int C, void* stream,
                                       int tile_rows) {
-  using namespace nodef;
-  const bool tall = tile_rows == 128;
-  if (!i2w_shape_ok(B, H, W, C) || (tile_rows != 64 && !tall) ||
-      (tall && (C > 64 || i2w_window_bytes(2, W, C) > kI2wMaxWindow)))
-    return (int)cudaErrorInvalidValue;
-  const int rows = B * H * W;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C > 64) return launch_i2w<1, 2>(x, w, y, rows, H, W, C, st);
-  return tall ? launch_i2w<2, 1>(x, w, y, rows, H, W, C, st)
-              : launch_i2w<1, 1>(x, w, y, rows, H, W, C, st);
+  return launch_rows_strategy<false>(x, w, y, B, H, W, C, stream, tile_rows);
 }
 
 template <int PASSES>
 static int launch_mma(const float* x, const float* w, float* y,
                       int B, int H, int W, int C, void* stream) {
   using namespace nodef;
-  const Shape s = make_shape(H, W, C, 1, kBf16Conv);  // conv3x3_mma's layout
+  const Shape s = make_shape(H, W, C, 1);  // conv3x3_mma's layout
   if (!s.mma || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? mma_kernel<PASSES, false, false>
@@ -701,7 +763,7 @@ template <int PREC>
 static int launch_wgmma(const float* x, const float* w, float* y,
                         int B, int H, int W, int C, void* stream) {
   using namespace nodef;
-  const Shape s = make_shape(H, W, C, 1, PREC);
+  const Shape s = make_shape(H, W, C, 1);
   if (!s.wg || wide_shape(s) || !layout_ok(s) || B < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = odefunc_smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(wgmma_kernel<PREC>,

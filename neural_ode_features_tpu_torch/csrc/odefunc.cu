@@ -41,8 +41,8 @@ odefunc_kernel(const float* __restrict__ t, const float* __restrict__ h,
 template <int kPrec>
 int launch(const float* t, const float* h, const Odefunc& p, float* out,
            int B, int H, int W, int C, int G, void* stream) {
-  if (!shape_ok(H, W, C, G, kPrec) || B < 1) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(H, W, C, G, kPrec);
+  if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
+  const Shape s = make_shape(H, W, C, G);
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? odefunc_kernel<false, false, kPrec>
                       : s.xg        ? odefunc_kernel<true, true, kPrec>

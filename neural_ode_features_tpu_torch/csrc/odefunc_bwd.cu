@@ -162,18 +162,18 @@ inline size_t bwd_smem_bytes(const Shape& s) {
                           (s.ug ? 0 : (size_t)s.H * s.W * s.C));
 }
 
-// The shape under the backward's layout: fit_layout with u.  prec: the
-// build (its forward recompute runs wgmma_conv where make_shape says so).
-inline Shape bwd_shape(int H, int W, int C, int G, int prec) {
-  Shape s = make_shape(H, W, C, G, prec);
+// The shape under the backward's layout: fit_layout with u (its forward
+// recompute runs wgmma_conv where make_shape says so).
+inline Shape bwd_shape(int H, int W, int C, int G) {
+  Shape s = make_shape(H, W, C, G);
   s.xg = 0;
   s.ring = kRing;
   fit_layout(s, true, bwd_smem_bytes);
   return s;
 }
 
-inline bool bwd_shape_ok(int H, int W, int C, int G, int prec) {
-  const Shape s = bwd_shape(H, W, C, G, prec);
+inline bool bwd_shape_ok(int H, int W, int C, int G) {
+  const Shape s = bwd_shape(H, W, C, G);
   return layout_ok(s) && C >= 32 && C % weight_tile(C) == 0 && bwd_smem_bytes(s) <= kMaxSmem &&
          weight_smem_bytes(s) <= kMaxSmem;
 }
@@ -1185,9 +1185,9 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
              float* r1, float* r2, float* gu, float* gv, float* part, float* wpart,
              float* ug, float* dk1, float* dk2, float* dvec, int B, int H, int W, int C,
              int G, int ns, void* stream) {
-  if (!bwd_shape_ok(H, W, C, G, kPrec) || B < 1 || ns < 1 || ns > B)
+  if (!bwd_shape_ok(H, W, C, G) || B < 1 || ns < 1 || ns > B)
     return (int)cudaErrorInvalidValue;
-  const Shape s = bwd_shape(H, W, C, G, kPrec);
+  const Shape s = bwd_shape(H, W, C, G);
   if (!s.mma && (w1bt == nullptr || w2bt == nullptr)) return (int)cudaErrorInvalidValue;
   if (s.ug && ug == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

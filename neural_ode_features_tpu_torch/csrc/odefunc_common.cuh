@@ -26,8 +26,8 @@
 //     wgmma_ok, among them 7x7x64 and 6x6x64): the arithmetic of
 //     conv3x3_mma<3> below on Hopper's warpgroup products,
 //     wgmma.mma_async.m64n32k8 TF32 with A from registers and B from shared
-//     memory; see its note.  Its bf16 build ("wgmma_bf16"; the kBf16
-//     evaluations at the same shapes) is conv3x3_mma<kPassBf16>'s
+//     memory; see its note.  Its bf16 build ("wgmma_bf16"; the kBf16 and
+//     kBf16Conv evaluations at the same shapes) is conv3x3_mma<kPassBf16>'s
 //     arithmetic on wgmma.mma_async.m64n32k16 bf16.
 //   * conv3x3_mma (C a multiple of 32 from 64 to 512 and H*(W+2) <= 64: 7x7
 //     and 6x6 maps): an implicit GEMM on the tensor cores, mma.sync.m16n8k8
@@ -77,8 +77,8 @@
 //   kF32       every f32 kernel: the conv stage above, the rest f32;
 //   kBf16Conv  the fused step's conv_precision='bf16': the conv input is
 //              rounded where it is written and the convs run the bf16
-//              mma.sync stage (never wgmma_bf16); GroupNorm, bias, time map
-//              and stage sums stay f32;
+//              stage (wgmma_bf16 where wgmma_ok, as kBf16); GroupNorm,
+//              bias, time map and stage sums stay f32;
 //   kBf16      compute_dtype='bfloat16' dynamics, the port's plain bf16
 //              path (kernels/odefunc.py odefunc_plain, precision 'bf16'):
 //              h rounded on entry; each GroupNorm's normalised value, its
@@ -252,16 +252,17 @@ inline void fit_layout(Shape& s, bool with_u, Bytes bytes) {
   if (bytes(s) > kMaxSmem) s.ring = 2;
 }
 
-// prec: the kernel's precision.  kF32 and kBf16 run wgmma_conv where
-// wgmma_ok (wgmma3, wgmma_bf16); kBf16Conv keeps conv3x3_mma's stage.
-inline Shape make_shape(int H, int W, int C, int G, int prec) {
+// Every precision runs wgmma_conv where wgmma_ok (conv_stage): wgmma3 in
+// kF32, wgmma_bf16 in kBf16 and in kBf16Conv (the fused step's bf16 convs;
+// mma.sync's bits, as in kBf16).
+inline Shape make_shape(int H, int W, int C, int G) {
   Shape s = ffma_shape(H, W, C, G);
   if (mma_ok(H, W, C)) {
     s.nblk = (C + kMmaC - 1) / kMmaC;
     s.P = s.nblk * kMmaC + kPadA;
     s.R = kMmaM + 2 * (W + 2) + 2;
     s.mma = 1;
-    s.wg = prec != kBf16Conv && wgmma_ok(H, W, C);
+    s.wg = wgmma_ok(H, W, C);
     s.bmagic = magic_of(s.nblk);
   }
   fit_layout(s, false, odefunc_smem_bytes);
@@ -280,8 +281,8 @@ inline bool layout_ok(const Shape& s) {
   return (s.H * s.W + s.npg - 1) / s.npg <= kMaxPix;
 }
 
-inline bool shape_ok(int H, int W, int C, int G, int prec) {
-  return layout_ok(make_shape(H, W, C, G, prec));
+inline bool shape_ok(int H, int W, int C, int G) {
+  return layout_ok(make_shape(H, W, C, G));
 }
 
 struct Smem { float* sx; float* spad; float* sw; float* sred; float* smean; float* sinv; };
@@ -1358,16 +1359,18 @@ __device__ __forceinline__ void mma_stage(const Smem& m, const Shape& s,
   conv3x3_mma<PASSES, BT, WIDE, false>(m, s, w, epi);
 }
 
-// The conv stage of the shape: wgmma3 (kF32) or wgmma_bf16 (kBf16) where
-// make_shape says so (s.wg), else the tensor cores' mma.sync stage (3xTF32)
-// where it says so, else FFMA; each in its bf16 build where PREC is not
-// kF32.  WIDE: wide_shape(s).
+// The conv stage of the shape: wgmma3 (kF32) or wgmma_bf16 (kBf16 and
+// kBf16Conv, whose conv input spad its writer has rounded already, so that
+// wgmma_bf16's rounding of it changes nothing) where make_shape says so
+// (s.wg), else the tensor cores' mma.sync stage (3xTF32) where it says so,
+// else FFMA; each in its bf16 build where PREC is not kF32.  WIDE:
+// wide_shape(s).
 template <bool WIDE, int PREC = kF32, class Epi>
 __device__ __forceinline__ void conv_stage(const Smem& m, const Shape& s,
                                            const float* __restrict__ w, Epi epi) {
-  if constexpr (PREC != kBf16Conv && !WIDE) {
+  if constexpr (!WIDE) {
     if (s.wg) {
-      conv3x3_wgmma<PREC>(m, s, w, epi);
+      conv3x3_wgmma<PREC == kF32 ? kF32 : kBf16>(m, s, w, epi);
       return;
     }
   }

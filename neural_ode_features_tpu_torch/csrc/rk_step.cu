@@ -26,8 +26,10 @@
 // kWide, kXg: the build (odefunc_common.cuh wide_shape).
 // kPrec: rk_step_forward is the f32 kernel; rk_step_forward_bf16 is the
 // fused step's conv_precision='bf16' (kBf16Conv): the twelve convs on the
-// bf16 stage (bf16 operands, f32 accumulation), GroupNorm, bias, time map,
-// stage sums and error ratio f32, as the TPU kernel's mxu_dtype=bf16.
+// bf16 stage (bf16 operands, f32 accumulation: wgmma_bf16 where wgmma_ok
+// holds, else mma.sync bf16; FFMA on rounded operands at other shapes),
+// GroupNorm, bias, time map, stage sums and error ratio f32, as the TPU
+// kernel's mxu_dtype=bf16.
 // Where the stage input y_i does not fit in shared memory (fit_layout, the
 // kXg build), the y1 output is its buffer until the last pass writes y1.
 #include <float.h>
@@ -140,8 +142,8 @@ int launch(const float* t0, const float* dt, const float* y0, const float* f0,
            const Odefunc& p, const float* tableau, const float* rtol, const float* atol,
            float* ks, float* y1, float* f1, float* ymid, float* ratio,
            int B, int H, int W, int C, int G, void* stream) {
-  if (!shape_ok(H, W, C, G, kPrec) || B < 1) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(H, W, C, G, kPrec);
+  if (!shape_ok(H, W, C, G) || B < 1) return (int)cudaErrorInvalidValue;
+  const Shape s = make_shape(H, W, C, G);
   const size_t smem = odefunc_smem_bytes(s);
   const auto kernel = !wide_shape(s) ? rk_step_kernel<false, false, kPrec>
                       : s.xg        ? rk_step_kernel<true, true, kPrec>

@@ -56,8 +56,16 @@ whose plain version is ``conv3x3_plain(x, w, passes="bf16")``:
                   in: the conv stage of the bf16 ``odefunc`` (and of the
                   bf16 backward's forward recompute) where ``stage`` gives
                   ``'wgmma_bf16'``, and only there.
-``'tap9_bf16'``   ``tap9`` on bf16-rounded operands (the bf16 builds' stage
-                  at the FFMA shapes).
+``'tap9_bf16'``   nine per-tap bf16 products over the rows of every sample
+                  (the TPU probe's ``seq9_bf16``, ``tree9_bf16``,
+                  ``fori9_bf16``, ``roll9_bf16``): ``im2col_bf16``'s kernel
+                  with one tap's 64 input channels as its stage (zero past
+                  C), each stage summed as ``im2col_bf16`` sums one (a
+                  tensor-core chain from zero per k half), the taps in f32
+                  in order (:func:`tap9_wgmma_emulated`);
+                  ``im2col_bf16``'s gate and tiles.  The fused bf16 builds'
+                  FFMA stage, which the strategy was before, is read alone
+                  by ``probes/timing_aids.py --tap9``.
 ``'im2col_bf16'`` one GEMM over the rows of every sample, as the TPU kernel's
                   ``(tb·H·W, 9C) @ (9C, C)`` dot: ``wgmma.mma_async``
                   m64n64k16 bf16 with both operands from shared memory
@@ -69,7 +77,9 @@ whose plain version is ``conv3x3_plain(x, w, passes="bf16")``:
                   weights, converted) while the consumer warpgroups
                   multiply the stage before, through a ring of mbarriers.
                   It takes C a multiple of 4 up to 128, at maps whose
-                  window fits (:func:`supported`).
+                  window fits (:func:`supported`).  ``tap9_bf16`` and
+                  ``im2col_bf16`` are one template (``rows_wgmma_conv``) and
+                  give the same bits where C is a multiple of 64.
 
 Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 on them, 3.35 TB/s): at B = 256, 7×7×64 the conv is 0.925 GFLOP, 13.8 µs of
@@ -78,8 +88,8 @@ and ``im2col`` are bound by operations, and with the tensor cores the conv
 is bound by bytes.  ``mma3`` itself forms three products over a 64-row tile
 (49 rows real): 3.6 GFLOP, 7.3 µs at the TF32 peak; ``mma_bf16`` one, 1.2
 GFLOP, 1.2 µs at 989 TFLOP/s dense bf16, so it too is bound by bytes.
-``wgmma3`` forms ``mma3``'s products; ``im2col_bf16`` 0.925 GFLOP of bf16
-products (no padded row at B = 256), 0.94 µs.
+``wgmma3`` forms ``mma3``'s products; ``im2col_bf16`` and ``tap9_bf16``
+0.925 GFLOP of bf16 products (no padded row at B = 256), 0.94 µs.
 
 ``conv3x3`` is the wrapper: a CPU tensor takes the plain PyTorch version
 ``conv3x3_plain``; a CUDA tensor launches the kernel or raises.
@@ -97,7 +107,8 @@ input-gradient conv's half tile) and, for ``wgmma_bf16``,
 ``wgmma_bf16_offset``/``wgmma_pack_bf16``/``wgmma_pack_rows_bf16`` (its
 conversion ``bf16_bits``) mirror where its weight tiles lie in shared
 memory; ``im2col_patches``, ``im2col_wgmma_emulated`` and ``sw128_offset``
-do the same for ``im2col_bf16``.  Tests and the probe's
+do the same for ``im2col_bf16``, ``tap9_wgmma_emulated`` for
+``tap9_bf16``.  Tests and the probe's
 error report use them; nothing on a path does. ``passes="bf16"`` is the bf16
 twins' function itself (operands rounded, products exact, sums in ``x``'s
 dtype).
@@ -112,7 +123,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .odefunc import MAX_SMEM, MMA_M, bf16_round, ptr, stage, stream
+from .odefunc import MAX_SMEM, MMA_M, bf16_round, mma_ok, ptr, stage, stream
 from .odefunc import supported as _fused_supported
 
 __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
@@ -121,14 +132,18 @@ __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
            "wgmma_rows_item", "wgmma_bf16_offset", "wgmma_pack_bf16",
            "wgmma_pack_rows_bf16", "bf16_bits", "tf32_split", "supported",
            "smem_bytes", "conv_flops", "conv_bytes", "sw128_offset",
-           "im2col_patches", "im2col_wgmma_emulated", "im2col_tile_rows",
-           "im2col_smem_bytes", "im2col_window_bytes"]
+           "im2col_patches", "im2col_wgmma_emulated", "tap9_wgmma_emulated",
+           "im2col_tile_rows", "im2col_smem_bytes", "im2col_window_bytes",
+           "ROWS_STRATEGIES"]
 
 STRATEGIES = ("tap9", "im2col", "mma3", "mma1", "wgmma3")
 # The bf16 twins; each has its f32 strategy's gate.
 BF16_STRATEGIES = ("mma_bf16", "tap9_bf16", "im2col_bf16", "wgmma_bf16")
-# The twins with their f32 strategy's gate.
-_TWIN = {"mma_bf16": "mma3", "tap9_bf16": "tap9"}
+# The twin with its f32 strategy's gate.
+_TWIN = {"mma_bf16": "mma3"}
+# The strategies of one kernel over the rows of every sample
+# (csrc/conv_probe.cu rows_wgmma_conv): one gate, a tile_rows argument.
+ROWS_STRATEGIES = ("im2col_bf16", "tap9_bf16")
 
 # Mirrors csrc/conv_probe.cu (kI2cThreads, kI2cPix, kI2cPad).
 _I2C_THREADS = 256
@@ -386,12 +401,14 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
     input.  ``precision='bf16'``: ``wgmma_bf16``'s arithmetic, both
     operands rounded to bf16 and per tap and k half a chain of two k16
     steps from zero, each step's sixteen exact products summed in float32
-    in k order; the same order of sums after it."""
+    in k order; the same order of sums after it.  ``'bf16_conv'``: the
+    fused step's bf16 convs on that stage, whose input its writer has
+    rounded already: the same arithmetic."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError("conv3x3_wgmma_emulated takes float32")
-    if precision not in ("f32", "bf16"):
-        raise ValueError(f"precision must be 'f32' or 'bf16', got "
-                         f"{precision!r}")
+    if precision not in ("f32", "bf16", "bf16_conv"):
+        raise ValueError(f"precision must be 'f32', 'bf16' or 'bf16_conv', "
+                         f"got {precision!r}")
     b, hh, ww, c = x.shape
     wp = ww + 2
     if c != 64 or hh * wp > MMA_M:
@@ -399,7 +416,7 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
                          f"{hh}x{ww}x{c}")
     spad = x.new_zeros((b, MMA_M + 2 * wp + 2, c))
     spad[:, :(hh + 2) * wp] = F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b, -1, c)
-    bf16 = precision == "bf16"
+    bf16 = precision != "f32"
     order = torch.arange(16) if bf16 else torch.tensor(wgmma_k_order())
     halves = []
     for kh in range(2):
@@ -484,17 +501,35 @@ def im2col_smem_bytes(tile_rows: int, c: int, w: int) -> int:
             + im2col_window_bytes(tile_rows, w, c) + 16 * I2W_STAGES)
 
 
+def _stage_sums(a: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
+    """The rows kernel's order of sums over ``a`` (R, K) @ ``bw`` (K, C),
+    both rounded, K whole stages of 64: per stage and k half (k 0..31 and
+    32..63 of the stage) a chain of two k16 steps from zero, each step's
+    sixteen exact products summed in float32 in k order, added to that
+    half's running sum in float32, stages in order; last, the first half's
+    sum plus the second's."""
+    runs = [a.new_zeros((a.shape[0], bw.shape[1])) for _ in range(2)]
+    for k0 in range(0, a.shape[1], 32):
+        chain = None
+        for ks in (k0, k0 + 16):
+            terms = a[:, ks:ks + 16, None] * bw[ks:ks + 16]  # exact in f32
+            step = terms[:, 0]
+            for kk_ in range(1, 16):
+                step = step + terms[:, kk_]
+            chain = step if chain is None else chain + step
+        half = (k0 // 32) % 2
+        runs[half] = runs[half] + chain
+    return runs[0] + runs[1]
+
+
 def im2col_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
                           tile_rows: int = 64) -> torch.Tensor:
     """``im2col_bf16``'s arithmetic in plain PyTorch, float32 (tests and the
     probe's error report, nothing on a path): the rows of every sample
     flattened (:func:`im2col_patches`) and padded with zero rows to whole
     ``tile_rows`` tiles, both operands rounded to bf16, K = 9C padded with
-    zeros to whole stages of 64; per stage and k half (k 0..31 and 32..63
-    of the stage) a chain of two k16 steps from zero, each step's sixteen
-    exact products summed in float32 in k order, added to that half's
-    running sum in float32, stages in order; last, the first half's sum
-    plus the second's.  At C = 64 a stage is a tap: the order of
+    zeros to whole stages of 64, summed in the kernel's order
+    (:func:`_stage_sums`).  At C = 64 a stage is a tap: the order of
     ``mma_bf16`` and ``wgmma_bf16`` (:func:`conv3x3_wgmma_emulated`).  The
     tensor cores' own order and rounding inside a step are the card's;
     this follows every order the kernel fixes."""
@@ -507,18 +542,32 @@ def im2col_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
     a[:rows, :kk] = bf16_round(im2col_patches(x))
     bw = x.new_zeros((a.shape[1], c))
     bw[:kk] = bf16_round(w.reshape(kk, c))
-    runs = [a.new_zeros((a.shape[0], c)) for _ in range(2)]
-    for k0 in range(0, a.shape[1], 32):
-        chain = None
-        for ks in (k0, k0 + 16):
-            terms = a[:, ks:ks + 16, None] * bw[ks:ks + 16]  # exact in f32
-            step = terms[:, 0]
-            for kk_ in range(1, 16):
-                step = step + terms[:, kk_]
-            chain = step if chain is None else chain + step
-        half = (k0 // 32) % 2
-        runs[half] = runs[half] + chain
-    return (runs[0] + runs[1])[:rows].reshape(b, hh, ww, c)
+    return _stage_sums(a, bw)[:rows].reshape(b, hh, ww, c)
+
+
+def tap9_wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``tap9_bf16``'s arithmetic in plain PyTorch, float32 (tests and the
+    probe's error report, nothing on a path): the patch matrix with each
+    tap's C columns padded with zeros to 64·⌈C/64⌉ (a stage: 64 input
+    channels of one tap), both operands rounded to bf16, summed in
+    ``im2col_bf16``'s order of a stage (:func:`_stage_sums`: per k half a
+    chain of two k16 steps from zero), taps in order (the TPU's
+    ``seq9_bf16``: ``acc = acc + dot(patch, w_tap)``, each tap's dot split
+    in k halves).  Where C is a multiple of 64 the stages are
+    ``im2col_bf16``'s: :func:`im2col_wgmma_emulated` bit for bit.  The tile
+    height changes no row's sums."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError("tap9_wgmma_emulated takes float32")
+    b, hh, ww, c = x.shape
+    cp = -(-c // I2W_K) * I2W_K
+    patches = bf16_round(im2col_patches(x))
+    a = x.new_zeros((patches.shape[0], 9 * cp))
+    bw = x.new_zeros((9 * cp, c))
+    wt = bf16_round(w.reshape(9, c, c))
+    for tap in range(9):
+        a[:, tap * cp:tap * cp + c] = patches[:, tap * c:(tap + 1) * c]
+        bw[tap * cp:tap * cp + c] = wt[tap]
+    return _stage_sums(a, bw).reshape(b, hh, ww, c)
 
 
 def smem_bytes(hw: tuple[int, int], c: int) -> int:
@@ -532,25 +581,23 @@ def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
     ``im2col`` also needs C/4 to divide its 256 threads, at most 4 pixels
     per thread, and the patch matrix within the 227 KB of shared memory.
     ``mma3`` and ``mma1``: the tensor-core stage's gate
-    (``kernels.odefunc.stage`` of the fused step's ``'bf16_conv'`` build,
-    which never runs ``wgmma``: C a multiple of 32 from 64 to 512 and
+    (``kernels.odefunc.mma_ok``: C a multiple of 32 from 64 to 512 and
     H·(W+2) ≤ 64) and its working set within shared memory
     (``kernels.odefunc.layout``).  ``wgmma3``: where the f32 kernels run it
     (``stage`` gives ``'wgmma3'``), under their layout; ``wgmma_bf16``
-    where the bf16 kernels run theirs.  ``im2col_bf16`` (csrc/conv_probe.cu
+    where the bf16 kernels run theirs.  ``im2col_bf16`` and ``tap9_bf16`` (csrc/conv_probe.cu
     ``i2w_shape_ok``): C a multiple of 4 from 4 to 128 on maps up to a
     width whose window of x fits 64 KB (W ≤ 95 at C = 128, 223 at C = 64;
-    the wrapper also needs B·H·W·C < 2³¹).  7×7×64 and 6×6×64 pass all nine, 7×7×96 to 7×7×512
-    the tensor-core ones.  ``mma_bf16`` and ``tap9_bf16`` have their f32
-    strategy's gate."""
+    the wrapper also needs B·H·W·C < 2³¹), every shape of ``tap9``'s gate
+    among them.  7×7×64 and 6×6×64 pass all nine, 7×7×96 to 7×7×512
+    the tensor-core ones.  ``mma_bf16`` has its f32 strategy's gate."""
     strategy = _TWIN.get(strategy, strategy)
-    if strategy == "im2col_bf16":
+    if strategy in ROWS_STRATEGIES:
         return (hw[0] >= 1 and hw[1] >= 1 and 4 <= c <= I2W_MAX_C
                 and c % 4 == 0
                 and im2col_window_bytes(64, hw[1], c) <= I2W_MAX_WINDOW)
     if strategy in ("mma3", "mma1"):
-        return (stage(hw, c, "bf16_conv") == "mma3"
-                and _fused_supported(hw, c, 1, "mma3"))
+        return mma_ok(hw, c) and _fused_supported(hw, c, 1, "mma3")
     if strategy in ("wgmma3", "wgmma_bf16"):
         precision = "f32" if strategy == "wgmma3" else "bf16"
         return (stage(hw, c, precision) == strategy
@@ -584,7 +631,7 @@ def _lib() -> ctypes.CDLL:
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p]
-                           + [ctypes.c_int] * (strategy == "im2col_bf16"))
+                           + [ctypes.c_int] * (strategy in ROWS_STRATEGIES))
             fn.restype = ctypes.c_int
     return lib
 
@@ -593,9 +640,9 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, strategy: str = "tap9",
             tile_rows: int | None = None) -> torch.Tensor:
     """3×3 SAME conv C → C of ``x`` (B, H, W, C) float32 NHWC with ``w``
     (3, 3, C, C) HWIO, no bias.  A bf16 strategy rounds both operands to
-    bf16 and sums the products in f32.  ``tile_rows`` (``im2col_bf16``
-    only, 64 or 128): its M tile, in place of :func:`im2col_tile_rows`'
-    choice (the values do not depend on it)."""
+    bf16 and sums the products in f32.  ``tile_rows`` (``im2col_bf16`` and
+    ``tap9_bf16`` only, 64 or 128): their M tile, in place of
+    :func:`im2col_tile_rows`' choice (the values do not depend on it)."""
     if strategy not in STRATEGIES + BF16_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; available: "
                          f"{STRATEGIES + BF16_STRATEGIES}")
@@ -603,11 +650,11 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, strategy: str = "tap9",
         raise ValueError(f"expected x (B, H, W, C) and w (3, 3, C, C), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if tile_rows is not None and (
-            strategy != "im2col_bf16" or tile_rows not in (64, 128)
+            strategy not in ROWS_STRATEGIES or tile_rows not in (64, 128)
             or (tile_rows == 128 and (x.shape[-1] > 64 or im2col_window_bytes(
                 128, x.shape[2], x.shape[-1]) > I2W_MAX_WINDOW))):
         raise ValueError(f"tile_rows (64, or 128 at C <= 64 where its "
-                         f"window fits) is im2col_bf16's alone, got "
+                         f"window fits) is {ROWS_STRATEGIES}' alone, got "
                          f"{tile_rows!r} for {strategy!r} at "
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -630,7 +677,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, strategy: str = "tap9",
     lib = _lib()
     fn = getattr(lib, f"conv_probe_{strategy}")
     args = [ptr(x), ptr(w), ptr(y), b, hh, ww, c, stream()]
-    if strategy == "im2col_bf16":
+    if strategy in ROWS_STRATEGIES:
         args.append(tile_rows or im2col_tile_rows(
             b * hh * ww,
             torch.cuda.get_device_properties(x.device).multi_processor_count,

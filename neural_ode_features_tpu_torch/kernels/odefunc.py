@@ -81,7 +81,7 @@ from ..ops.layers import conv2d, group_norm, time_map
 from . import _build
 
 __all__ = ["OdefuncWeights", "Layout", "prepare", "supported", "refusal",
-           "layout", "smem_bytes", "stage", "odefunc", "odefunc_plain",
+           "layout", "smem_bytes", "mma_ok", "stage", "odefunc", "odefunc_plain",
            "odefunc_autograd", "odefunc_vjp", "PRECISIONS", "bf16_round"]
 
 # Mirrors csrc/odefunc_common.cuh (kThreads, kMaxC, kMaxPix, kMaxSmem;
@@ -153,29 +153,34 @@ def prepare(params, hw: tuple[int, int]) -> OdefuncWeights:
         f32(params["norm3"]["scale"]), f32(params["norm3"]["bias"]))
 
 
+def mma_ok(hw: tuple[int, int], c: int) -> bool:
+    """The shapes the tensor-core stages take (csrc/odefunc_common.cuh
+    ``mma_ok``): C a multiple of 32 from 64 to 512 (64-channel blocks, the
+    last one padded where C % 64 == 32) and maps whose H·(W+2)
+    padded-pitch positions fit a 64-row tile."""
+    hh, ww = hw
+    return (MMA_C <= c <= MAX_C and c % MMA_STEP == 0 and hh >= 1
+            and ww >= 1 and hh * (ww + 2) <= MMA_M)
+
+
 def stage(hw: tuple[int, int], c: int, precision: str = "f32") -> str:
     """The conv stage the fused kernels' builds of ``precision`` (one of
     ``PRECISIONS``) run at this shape, decided by the shape and the
     precision alone (csrc/odefunc_common.cuh ``mma_ok``, ``wgmma_ok``,
-    ``make_shape``).  The tensor cores take C a multiple of 32 from 64 to
-    512 (64-channel blocks, the last one padded where C % 64 == 32) and
-    maps whose H·(W+2) padded-pitch positions fit a 64-row tile: there, at
-    the widths of ``WGMMA_C``, the f32 builds run ``'wgmma3'``
-    (``wgmma.mma_async``, 3×TF32) and the bf16 builds (``'bf16'``)
-    ``'wgmma_bf16'`` (``wgmma.mma_async``, one bf16 pass); at the other
-    widths, and for the fused step's ``'bf16_conv'`` at every width,
-    ``'mma3'`` (``mma.sync``: 3×TF32, or its one bf16 pass in the bf16
-    builds).  The backward's input-gradient convs run ``'mma3'`` at every
-    tensor-core shape but in its cluster pass
-    (``kernels.odefunc_bwd.sample_pass``), which runs them on ``wgmma``;
-    everything else runs ``'ffma'``."""
+    ``make_shape``).  At the tensor-core shapes (:func:`mma_ok`) of the
+    widths of ``WGMMA_C`` the f32 builds run ``'wgmma3'``
+    (``wgmma.mma_async``, 3×TF32) and the bf16 builds (``'bf16'``, and the
+    fused step's ``'bf16_conv'``) ``'wgmma_bf16'`` (``wgmma.mma_async``,
+    one bf16 pass); at the other widths ``'mma3'`` (``mma.sync``: 3×TF32,
+    or its one bf16 pass in the bf16 builds).  The backward's
+    input-gradient convs run ``'mma3'`` at every tensor-core shape but in
+    its cluster pass (``kernels.odefunc_bwd.sample_pass``), which runs them
+    on ``wgmma``; everything else runs ``'ffma'``."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
-    hh, ww = hw
-    if (MMA_C <= c <= MAX_C and c % MMA_STEP == 0 and hh >= 1 and ww >= 1
-            and hh * (ww + 2) <= MMA_M):
-        if c in WGMMA_C and precision != "bf16_conv":
+    if mma_ok(hw, c):
+        if c in WGMMA_C:
             return "wgmma3" if precision == "f32" else "wgmma_bf16"
         return "mma3"
     return "ffma"

@@ -39,8 +39,11 @@ the f32 plain version's; at other shapes as f32 FFMA.
 default on TPU hardware; here an opt-in, never a default) runs a second
 build (the operator ``nodef::dopri5_step_bf16``): the twelve convs on the
 bf16 conv stage, both operands rounded to bf16 and the products summed in
-f32 (``mma.sync.m16n8k16`` bf16; f32 FFMA on rounded operands at the FFMA
-shapes), GroupNorm, bias, time map, stage sums and error ratio in f32.
+f32 (``kernels.odefunc.stage(hw, c, 'bf16_conv')``: ``'wgmma_bf16'``,
+``wgmma.mma_async`` bf16, at the widths of ``WGMMA_C``, the bf16
+``odefunc``'s stage and bits; ``mma.sync.m16n8k16`` bf16 at the other
+tensor-core shapes; f32 FFMA on rounded operands at the FFMA shapes),
+GroupNorm, bias, time map, stage sums and error ratio in f32.
 Bound at B = 256, 7×7×64: 11.1 GFLOP at 989 TFLOP/s dense bf16, about
 11 µs.
 

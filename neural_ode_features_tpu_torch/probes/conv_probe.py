@@ -14,10 +14,11 @@ backward's input-gradient convs run outside its f32 cluster pass, ``mma1``,
 compensation compiled out (a reading only), and the f32 FFMA kernels ``tap9`` (the stage at other
 shapes) and ``im2col``, before a fused kernel is touched; and their bf16
 twins (the JAX probe's ``*_bf16``: operands rounded to bf16, products
-summed in f32) ``mma_bf16`` (the fused step's bf16 conv stage),
-``wgmma_bf16`` (the bf16 ``odefunc``'s at 7×7×64 and 6×6×64),
-``tap9_bf16`` and ``im2col_bf16`` (one bf16 ``wgmma`` GEMM over the rows
-of every sample).  Inputs as in the JAX probe: x (B, 7, 7, 64) and w
+summed in f32) ``mma_bf16`` (the bf16 conv stage at C = 96 to 512),
+``wgmma_bf16`` (the bf16 ``odefunc``'s and the fused step's at 7×7×64 and
+6×6×64), ``tap9_bf16`` (nine per-tap bf16 ``wgmma`` products) and
+``im2col_bf16`` (one bf16 ``wgmma`` GEMM), both over the rows of every
+sample.  Inputs as in the JAX probe: x (B, 7, 7, 64) and w
 (3, 3, 64, 64) from numpy seed 0, scaled by 0.1 and 0.05.
 
 Each strategy is checked against its plain version (``conv3x3_plain``; for
@@ -26,7 +27,8 @@ bf16 twin ``F.conv2d`` on bf16 tensors, whose output is rounded to bf16),
 its error against the plain f32 version in
 float64 is printed beside that of the plain emulation of its arithmetic
 (``conv3x3_plain(passes=3 | 1)``, ``conv3x3_wgmma_emulated``,
-``im2col_wgmma_emulated``; a bf16 twin's also against the f64 conv of the
+``im2col_wgmma_emulated``, ``tap9_wgmma_emulated``; a bf16 twin's also
+against the f64 conv of the
 rounded operands, whose products are exact, so that only its order of
 sums is left), and it is timed at every ``--batch`` in
 turns (all strategies at the first batch, then at the second).  Two times
@@ -43,8 +45,9 @@ call as above, and its device time, CUDA events around calls queued behind
 a spin kernel (:func:`queued_us`), so that a kernel is read device time
 against device time.  Where both run, ``wgmma3``'s error against the f64
 conv must be at most ``WGMMA_BAR`` (1.5) times ``mma3``'s in the same run,
-and ``im2col_bf16``'s and ``wgmma_bf16``'s (against the f64 conv of the
-rounded operands) at most that times ``mma_bf16``'s, or the probe exits.
+and ``im2col_bf16``'s, ``tap9_bf16``'s and ``wgmma_bf16``'s (against the
+f64 conv of the rounded operands) at most that times ``mma_bf16``'s, or the
+probe exits.
 The JAX probe's ``dotonly``, ``norollS`` and ``nomaskS`` are
 wrong-valued timing aids for its patch building; in their place two bounds
 are printed: operations at 67 TFLOP/s (f32 outside the tensor cores), and
@@ -74,6 +77,7 @@ from ..kernels.conv3x3 import (
     conv_bytes,
     conv_flops,
     im2col_wgmma_emulated,
+    tap9_wgmma_emulated,
 )
 from ..kernels.odefunc import bf16_round
 from ..utils.flops import (
@@ -96,16 +100,17 @@ TF32_TOL = dict(rtol=2e-3, atol=2e-4)
 BF16_LIB_TOL = dict(rtol=8e-3, atol=1e-3)
 # wgmma3 forms mma3's products on other hardware: its error against the f64
 # conv may be at most this multiple of mma3's on the same inputs; so may
-# im2col_bf16's and wgmma_bf16's against the f64 conv of the rounded
-# operands be of mma_bf16's.
+# im2col_bf16's, tap9_bf16's and wgmma_bf16's against the f64 conv of the
+# rounded operands be of mma_bf16's.
 WGMMA_BAR = 1.5
 # Each strategy held to that bar, and the strategy it is held beside.
-BARRED = {"wgmma3": "mma3", "im2col_bf16": "mma_bf16", "wgmma_bf16": "mma_bf16"}
+BARRED = {"wgmma3": "mma3", "im2col_bf16": "mma_bf16", "tap9_bf16": "mma_bf16",
+          "wgmma_bf16": "mma_bf16"}
 # A substring of each strategy's kernel name in a profile.
 KERNEL_NAMES = {"tap9": "tap9_kernel<false>", "im2col": "im2col_kernel(",
                 "mma3": "mma_kernel<3,", "mma1": "mma_kernel<1,",
                 "wgmma3": "wgmma_kernel<0>",
-                "mma_bf16": "mma_kernel<16,", "tap9_bf16": "tap9_kernel<true>",
+                "mma_bf16": "mma_kernel<16,", "tap9_bf16": "tap9_wgmma_kernel<",
                 "im2col_bf16": "im2col_wgmma_kernel<",
                 "wgmma_bf16": "wgmma_kernel<2>"}
 
@@ -303,7 +308,8 @@ def main(argv=None) -> dict:
                     **dict.fromkeys(BF16_STRATEGIES, plain16),
                     "wgmma_bf16": conv3x3_wgmma_emulated(x, w,
                                                          precision="bf16"),
-                    "im2col_bf16": im2col_wgmma_emulated(x, w)}
+                    "im2col_bf16": im2col_wgmma_emulated(x, w),
+                    "tap9_bf16": tap9_wgmma_emulated(x, w)}
         out = {"bound_us": b_us, "bound_by": b_by, "tensor_bound_us": tb_us,
                "tensor_bound_by": tb_by, "library_us": lib_us,
                "library_bf16_us": lib16_us, "library_device_us": lib_dev,

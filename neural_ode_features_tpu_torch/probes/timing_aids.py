@@ -79,6 +79,16 @@ the rounded operands at B = 256):
 
     python -m neural_ode_features_tpu_torch.probes.timing_aids --im2col
 
+With ``--tap9``, in place of all of the above, the probe's ``tap9_bf16``
+the same way (``TAP9_VARIANTS``: ``shipped``; ``chain``, one tensor-core
+chain a stage in place of one per k half, right values), beside the fused
+bf16 builds' FFMA conv
+stage alone (``tap9_kernel<true>``, what ``tap9_bf16`` ran before; device
+µs at B = 256 and 128, its error at B = 256) and ``F.conv2d`` on bf16
+tensors (2 builds):
+
+    python -m neural_ode_features_tpu_torch.probes.timing_aids --tap9
+
 Prints the card's name and power limit and one line per variant; writes no
 file.  Needs a CUDA card and ``nvcc``.
 """
@@ -104,7 +114,7 @@ from ..solver import DOPRI5
 from .conv_probe import KERNEL_NAMES, device_us, probe_inputs
 
 __all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "I2W_VARIANTS",
-           "patched_sources", "main"]
+           "TAP9_VARIANTS", "patched_sources", "tap9_ffma_bf16", "main"]
 
 HEADER = "odefunc_common.cuh"
 
@@ -247,12 +257,15 @@ BWD_VARIANTS = {
 }
 
 
-# The probe's im2col_bf16 (csrc/conv_probe.cu im2col_wgmma_kernel).
+# The probe's im2col_bf16 and tap9_bf16 (csrc/conv_probe.cu
+# rows_wgmma_conv, the body of both kernels: every edit edits both).
 _I2W = "conv_probe.cu"
 _I2W_PRODUCTS = ("      wgmma_ss_bf16(a0, da, db, 0);\n"
                  "      wgmma_ss_bf16(a0, da + 2, db + 2, 1);\n"
                  "      wgmma_ss_bf16(a1, da + 4, db + 4, 0);\n"
                  "      wgmma_ss_bf16(a1, da + 6, db + 6, 1);\n")
+_I2W_RUNS = ("        run[0][nb][i] += a0[i];\n"
+             "        run[1][nb][i] += a1[i];\n")
 _I2W_LOOPS = [(_I2W, f"  {ind}for (int kc = 0; kc < nk; ++kc) {{  // the {who} "
                      f"stages\n",
                f"  {ind}for (int kc = 0; kc < 0; ++kc) {{  // the {who} "
@@ -265,12 +278,10 @@ I2W_VARIANTS = {
          _I2W_PRODUCTS.replace("(a0, da, db, 0)", "(a0, da, db, kc > 0)")
          .replace("(a1, da + 4, db + 4, 0)", "(a0, da + 4, db + 4, 1)")
          .replace("(a1, da + 6", "(a0, da + 6")),
-        (_I2W, "        run[0][nb][i] += a0[i];\n"
-               "        run[1][nb][i] += a1[i];\n",
-         "        run[0][nb][i] = a0[i];\n")],
+        (_I2W, _I2W_RUNS, "        run[0][nb][i] = a0[i];\n")],
     "no_weights": [(_I2W, "            const bool ok = c_row[m] < rows_left;\n",
                     "            const bool ok = false;\n")],
-    "no_patch": [(_I2W, "      bit[h] = k < K ? 1u << tap : 0u;\n",
+    "no_patch": [(_I2W, "      bit[h] = live ? 1u << tap : 0u;\n",
                   "      bit[h] = 0u;\n")],
     "no_products": [(_I2W, _I2W_PRODUCTS, "")],
     "no_store": [(_I2W, "        if (co < C)\n"
@@ -280,6 +291,18 @@ I2W_VARIANTS = {
                   "          *reinterpret_cast<float2*>(y + (size_t)r * C"
                   " + co) =\n")],
     "empty": _I2W_LOOPS,
+}
+# tap9_bf16: the kernel as it is (per stage and k half a chain of two k16
+# steps), and one chain of the four k16 steps a stage (a tap's block of 64
+# channels) into one running sum (right values).
+TAP9_VARIANTS = {
+    "shipped": [],
+    "chain": [
+        (_I2W, _I2W_PRODUCTS,
+         _I2W_PRODUCTS.replace("(a1, da + 4, db + 4, 0)",
+                               "(a0, da + 4, db + 4, 1)")
+         .replace("(a1, da + 6", "(a0, da + 6")),
+        (_I2W, _I2W_RUNS, "        run[0][nb][i] += a0[i];\n")],
 }
 
 
@@ -367,12 +390,13 @@ def bwd_times(tmp: Path, dev, batches, precisions=("f32",),
     return out
 
 
-def im2col_times(tmp: Path, dev) -> dict:
-    """Device µs per conv of ``im2col_bf16`` under each of ``I2W_VARIANTS``
-    at 7×7×64 (the probe's inputs), B = 256 in 128-row tiles and B = 128 in
-    64-row tiles, and each variant's max abs error at B = 256 against the
-    f64 conv of the rounded operands: ``{variant: {"us": {batch: us},
-    "err_f64": err}}``."""
+def rows_times(tmp: Path, dev, strategy: str = "im2col_bf16",
+               variants: dict = I2W_VARIANTS) -> dict:
+    """Device µs per conv of ``strategy`` (``im2col_bf16`` or
+    ``tap9_bf16``) under each of ``variants`` at 7×7×64 (the probe's
+    inputs), B = 256 in 128-row tiles and B = 128 in 64-row tiles, and each
+    variant's max abs error at B = 256 against the f64 conv of the rounded
+    operands: ``{variant: {"us": {batch: us}, "err_f64": err}}``."""
     from ..kernels.odefunc import bf16_round
     from .conv_probe import queued_us
 
@@ -381,24 +405,79 @@ def im2col_times(tmp: Path, dev) -> dict:
     x, w = cases[256]
     exact = conv3x3_plain(bf16_round(x).double(), bf16_round(w).double())
     out = {}
-    for tag, edits in I2W_VARIANTS.items():
-        lib = (_build_variant(edits, "conv_probe", tmp, f"i2w_{tag}")
+    for tag, edits in variants.items():
+        lib = (_build_variant(edits, "conv_probe", tmp, f"{strategy}_{tag}")
                if edits else None)
 
         def run():
-            err = float((conv3x3(x, w, "im2col_bf16", tile_rows=tiles[256])
+            err = float((conv3x3(x, w, strategy, tile_rows=tiles[256])
                          .double() - exact).abs().max())
             us = {b: queued_us(lambda b=b: conv3x3(
-                *cases[b], "im2col_bf16", tile_rows=tiles[b]), reps=100)
+                *cases[b], strategy, tile_rows=tiles[b]), reps=100)
                 for b in cases}
             return err, us
 
         err, us = _with_library("conv_probe", lib, run)
         out[tag] = {"us": us, "err_f64": err}
-        print(f"im2col_bf16 {tag:>12}: " + ", ".join(
+        print(f"{strategy} {tag:>12}: " + ", ".join(
             f"B={b} {v:6.2f} us/conv" for b, v in us.items())
             + f"; max abs err vs the f64 conv of the rounded operands "
               f"{err:.2e}")
+    return out
+
+
+def tap9_ffma_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The fused bf16 builds' FFMA conv stage alone (``conv3x3<true>`` of
+    ``csrc/odefunc_common.cuh``, one CTA per sample: ``tap9_kernel<true>``,
+    the C entry ``conv_probe_tap9_ffma_bf16``) on CUDA tensors x (B, H, W,
+    C) and w (3, 3, C, C) f32, at the shapes of ``tap9``'s gate.  A reading
+    of that stage, which the fused bf16 kernels run at C = 32 and on maps
+    with H·(W+2) > 64; no strategy of the probe, no launch counter."""
+    from ..kernels.conv3x3 import supported
+    from ..kernels.odefunc import ptr, stream
+
+    b, hh, ww, c = x.shape
+    if not (x.is_cuda and supported((hh, ww), c, "tap9")
+            and x.is_contiguous() and w.is_contiguous()
+            and tuple(w.shape) == (3, 3, c, c)):
+        raise ValueError(f"tap9_ffma_bf16 takes contiguous CUDA tensors of "
+                         f"tap9's gate, got {tuple(x.shape)} on {x.device}")
+    lib = _build.load("conv_probe")
+    fn = lib.conv_probe_tap9_ffma_bf16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = torch.empty_like(x)
+    _build.check(lib, fn(ptr(x), ptr(w), ptr(y), b, hh, ww, c, stream()),
+                 "conv_probe_tap9_ffma_bf16")
+    return y
+
+
+def tap9_times(tmp: Path, dev) -> dict:
+    """``tap9_bf16`` under each of ``TAP9_VARIANTS`` (:func:`rows_times`),
+    beside the fused bf16 builds' FFMA stage, which the strategy was before
+    (:func:`tap9_ffma_bf16`: device µs by CUDA events behind a spin kernel
+    at B = 256 and 128, and its error at B = 256), and ``F.conv2d`` on bf16
+    tensors, timed the same way."""
+    from ..kernels.odefunc import bf16_round
+    from .conv_probe import library_conv, queued_us
+
+    out = rows_times(tmp, dev, "tap9_bf16", TAP9_VARIANTS)
+    x, w = probe_inputs(256, dev)
+    exact = conv3x3_plain(bf16_round(x).double(), bf16_round(w).double())
+    ffma = {"err_f64": float((tap9_ffma_bf16(x, w).double() - exact)
+                             .abs().max()), "us": {}}
+    lib = {}
+    for b in (256, 128):
+        xb, wb = probe_inputs(b, dev)
+        ffma["us"][b] = queued_us(lambda: tap9_ffma_bf16(xb, wb), reps=100)
+        x16, w16 = xb.bfloat16(), wb.bfloat16()
+        lib[b] = queued_us(lambda: library_conv(x16, w16), reps=100)
+    out["ffma_stage"] = ffma
+    out["library_bf16_us"] = lib
+    print("tap9_bf16's old FFMA stage (tap9_kernel<true>): " + ", ".join(
+        f"B={b} {v:6.2f} us/conv" for b, v in ffma["us"].items())
+        + f"; max abs err {ffma['err_f64']:.2e}; F.conv2d bf16: "
+        + ", ".join(f"B={b} {v:6.2f} us/conv" for b, v in lib.items()))
     return out
 
 
@@ -416,6 +495,10 @@ def main(argv=None) -> dict:
     p.add_argument("--im2col", action="store_true",
                    help="time the probe's im2col_bf16 (I2W_VARIANTS) in "
                         "place of the probe's mma3 and rk_step")
+    p.add_argument("--tap9", action="store_true",
+                   help="time the probe's tap9_bf16 (TAP9_VARIANTS) and the "
+                        "fused bf16 builds' FFMA stage in place of the "
+                        "probe's mma3 and rk_step")
     args = p.parse_args(argv)
     dev = strict_f32("cuda")
     smi = subprocess.run(
@@ -427,7 +510,9 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         if args.im2col:
-            return {"im2col_bf16": im2col_times(tmp, dev)}
+            return {"im2col_bf16": rows_times(tmp, dev)}
+        if args.tap9:
+            return {"tap9_bf16": tap9_times(tmp, dev)}
         if args.bwd_only:
             return {"bwd_sample_ms": bwd_times(
                 tmp, dev, [int(b) for b in args.bwd_batch.split(",")],

@@ -237,14 +237,14 @@ def test_the_header_constants_are_mirrored():
 def test_stage_layout_and_refusal_follow_the_cpp_gate(hw):
     """At every C from 32 to 512 on 7×7 and 6×6 maps: ``stage`` gives
     ``'wgmma3'`` to the f32 builds and ``'wgmma_bf16'`` to the bf16 builds
-    exactly where ``wgmma_ok`` (read from the header, with ``make_shape``'s
-    precision clause) holds, ``'mma3'`` to the fused step's
-    ``'bf16_conv'`` at every tensor-core shape; the layout holds the larger
+    and the fused step's ``'bf16_conv'`` exactly where ``wgmma_ok`` (read
+    from the header, as ``make_shape`` sets it for every precision) holds,
+    ``'mma3'`` at the other tensor-core shapes; the layout holds the larger
     of wgmma3's area and the ring; every width is taken, forward and
     backward, under that layout."""
     hh, ww = hw
     header = " ".join(HEADER.read_text().split())
-    assert "s.wg = prec != kBf16Conv && wgmma_ok(H, W, C);" in header
+    assert "s.wg = wgmma_ok(H, W, C);" in header
     for c in range(32, 513, 32):
         cpp = _cpp_wgmma_ok(hh, ww, c)
         assert (stage(hw, c) == "wgmma3") == cpp
@@ -252,7 +252,7 @@ def test_stage_layout_and_refusal_follow_the_cpp_gate(hw):
         assert (stage(hw, c, "bf16") == "wgmma_bf16") == cpp
         assert stage(hw, c, "bf16") == ("ffma" if c == 32 else
                                         "wgmma_bf16" if cpp else "mma3")
-        assert stage(hw, c, "bf16_conv") == ("ffma" if c == 32 else "mma3")
+        assert stage(hw, c, "bf16_conv") == stage(hw, c, "bf16")
         if stage(hw, c, "bf16") == "wgmma_bf16":
             assert (layout(hw, c, 32, "wgmma_bf16")
                     == layout(hw, c, 32)._replace(stage="wgmma_bf16"))
@@ -387,7 +387,10 @@ def test_bf16_emulation_matches_the_plain_bf16_conv(batch, hw):
     added in f32, the halves last: within f32 reassociation of
     ``conv3x3_plain(passes='bf16')`` (both sum exact products of the same
     rounded operands), f32-grade against the f64 conv of those operands,
-    and outside that tolerance of the f32 conv (the operands are rounded)."""
+    and outside that tolerance of the f32 conv (the operands are rounded).
+    ``precision='bf16_conv'`` (the fused step's bf16 convs on this stage)
+    is the same arithmetic bit for bit, on x and on x rounded already (its
+    conv input, rounded by its writer)."""
     x, w = _draw(batch, hw, 64)
     got = conv3x3_wgmma_emulated(x, w, precision="bf16")
     plain = conv3x3_plain(x, w, passes="bf16")
@@ -397,8 +400,12 @@ def test_bf16_emulation_matches_the_plain_bf16_conv(batch, hw):
                           odefunc_mod.bf16_round(w).double())
     assert float((got.double() - exact).abs().max()) < 2e-7
     assert not torch.allclose(got, conv3x3_plain(x, w), **CONV_TOL)
+    assert torch.equal(conv3x3_wgmma_emulated(x, w, precision="bf16_conv"),
+                       got)
+    assert torch.equal(conv3x3_wgmma_emulated(
+        odefunc_mod.bf16_round(x), w, precision="bf16_conv"), got)
     with pytest.raises(ValueError, match="precision"):
-        conv3x3_wgmma_emulated(x, w, precision="bf16_conv")
+        conv3x3_wgmma_emulated(x, w, precision="fp16")
 
 
 @pytest.mark.parametrize("hw", [(7, 7), (6, 6)])

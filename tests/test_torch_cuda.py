@@ -1562,3 +1562,79 @@ def test_wgmma_bf16_strategy_matches_plain(dev, side):
     x32, w32 = probe_inputs(2, dev, (7, 7), 32)
     with pytest.raises(ValueError, match="does not take"):
         conv3x3(x32, w32, "wgmma_bf16")
+
+
+# ---- the probe's tap9_bf16 on bf16 wgmma, and the fused step's bf16 stage --
+
+
+@pytest.mark.parametrize("batch,hh,ww,c", [
+    (256, 7, 7, 64), (128, 7, 7, 64), (5, 7, 7, 64), (256, 6, 6, 64),
+    (256, 8, 8, 64), (256, 7, 7, 32), (5, 4, 4, 128), (5, 7, 7, 128),
+    (3, 32, 32, 4), (5, 7, 7, 36), (2, 14, 14, 16)])
+def test_tap9_bf16_matches_plain(dev, batch, hh, ww, c):
+    """Nine per-tap bf16 ``wgmma`` products over the rows of every sample
+    against the plain bf16 conv (f32 reassociation of exact products),
+    apart from the f32 conv, at shapes of the old FFMA gate (7×7×32, 8×8×64,
+    4×4×128) and beyond it; against the f64 conv of the rounded operands
+    within the probe's bar of ``mma_bf16``'s where that runs; one launch a
+    call."""
+    from neural_ode_features_tpu_torch.kernels.conv3x3 import supported
+    from neural_ode_features_tpu_torch.kernels.odefunc import bf16_round
+    from neural_ode_features_tpu_torch.probes.conv_probe import WGMMA_BAR
+
+    x, w = probe_inputs(batch, dev, (hh, ww), c)
+    before = conv3x3.launches
+    got = conv3x3(x, w, "tap9_bf16")
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        conv3x3_plain(x, w, passes="bf16").cpu().numpy(), **CONV_TOL)
+    assert not torch.allclose(got, conv3x3_plain(x, w), **CONV_TOL)
+    if supported((hh, ww), c, "mma_bf16"):
+        exact = conv3x3_plain(bf16_round(x).double(), bf16_round(w).double())
+        err = float((got.double() - exact).abs().max())
+        err_mma = float((conv3x3(x, w, "mma_bf16").double() - exact)
+                        .abs().max())
+        assert err <= WGMMA_BAR * err_mma, (err, err_mma)
+
+
+def test_tap9_bf16_rows_do_not_depend_on_the_batch_or_tile(dev):
+    """A row's sums are its own: 64- and 128-row tiles give the same bits,
+    and a slice of the batch gives the B = 256 launch's rows.  At C = 64 a
+    stage is one tap, summed as ``im2col_bf16`` sums one: its bits."""
+    x, w = probe_inputs(256, dev)
+    full = conv3x3(x, w, "tap9_bf16", tile_rows=64)
+    assert torch.equal(conv3x3(x, w, "im2col_bf16"), full)
+    assert torch.equal(conv3x3(x, w, "tap9_bf16", tile_rows=128), full)
+    assert torch.equal(conv3x3(x[3:9].contiguous(), w, "tap9_bf16"),
+                       full[3:9])
+
+
+def test_tap9_ffma_reading_matches_plain(dev):
+    """The fused bf16 builds' FFMA stage alone (``probes/timing_aids.py``
+    ``tap9_ffma_bf16``, no strategy of the probe) against the plain bf16
+    conv at 7×7×64 and 7×7×32; it counts no probe launch."""
+    from neural_ode_features_tpu_torch.probes.timing_aids import (
+        tap9_ffma_bf16,
+    )
+
+    for c in (64, 32):
+        x, w = probe_inputs(64, dev, (7, 7), c)
+        before = conv3x3.launches
+        got = tap9_ffma_bf16(x, w)
+        torch.cuda.synchronize()
+        assert conv3x3.launches == before
+        np.testing.assert_allclose(
+            got.cpu().numpy(),
+            conv3x3_plain(x, w, passes="bf16").cpu().numpy(), **CONV_TOL)
+
+
+@pytest.mark.parametrize("side", [7, 6])
+def test_bf16_step_conv_stage_is_the_bf16_odefunc_stage(dev, side):
+    """At 7×7×64 and 6×6×64 the fused step's bf16 convs run ``wgmma_bf16``
+    (the gate); each of its six evaluations stays within the bars of the
+    plain bf16-conv evaluation at the stage input its own stages give."""
+    assert stage((side, side), 64, "bf16_conv") == "wgmma_bf16"
+    readings = bf16_distances.readings_at(side, side, 64, 32, dev)
+    assert not bf16_distances.check(readings["rk_step"])

@@ -193,14 +193,15 @@ def test_stage_is_decided_by_the_shape():
     for c in (96, 128, 192, 256, 288, 512):  # multiples of 32 up to 512
         want = "wgmma3" if c in WGMMA_C else "mma3"
         assert stage((7, 7), c) == stage((6, 6), c) == stage((5, 5), c) == want
-        # The bf16 builds run wgmma_bf16 at the widths of WGMMA_C and the
-        # mma.sync stage at the others; the fused step's bf16 convs run the
-        # mma.sync stage at every tensor-core width.
+        # The bf16 builds, the fused step's bf16 convs among them, run
+        # wgmma_bf16 at the widths of WGMMA_C and the mma.sync stage at the
+        # others.
         want16 = "wgmma_bf16" if c in WGMMA_C else "mma3"
         assert stage((7, 7), c, "bf16") == stage((6, 6), c, "bf16") == want16
-        assert stage((7, 7), c, "bf16_conv") == "mma3"
+        assert stage((7, 7), c, "bf16_conv") == want16
     assert stage((7, 7), 64, "bf16") == stage((6, 6), 64, "bf16") == "wgmma_bf16"
-    assert stage((7, 7), 64, "bf16_conv") == stage((6, 6), 64, "bf16_conv") == "mma3"
+    assert (stage((7, 7), 64, "bf16_conv") == stage((6, 6), 64, "bf16_conv")
+            == "wgmma_bf16")
     for c in (80, 544):  # not a multiple of 32; over 512
         assert stage((7, 7), c) == "ffma"
 
@@ -247,7 +248,8 @@ def test_gate_mirrors_at_every_width(c):
     for hw in ((7, 7), (6, 6)):
         hh, ww = hw
         hwc = hh * ww * c
-        assert stage(hw, c, "bf16_conv") == ("ffma" if c == 32 else "mma3")
+        assert stage(hw, c, "bf16_conv") == (
+            "ffma" if c == 32 else "wgmma_bf16" if c in WGMMA_C else "mma3")
         assert stage(hw, c, "bf16") in (("ffma",) if c == 32
                                         else ("mma3", "wgmma_bf16"))
         assert stage(hw, c) in (("ffma",) if c == 32 else ("mma3", "wgmma3"))

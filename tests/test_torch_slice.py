@@ -147,8 +147,8 @@ def test_widths_outside_the_kernels_gate_are_refused(c):
     ``stage`` accept exactly the widths JAX ``pallas_supported`` accepts
     (every multiple of 32 up to 512; C = 32 on the FFMA stage, the rest on
     the tensor cores: ``wgmma3`` and ``wgmma_bf16`` at the widths of
-    ``WGMMA_C`` in the f32 and bf16 builds, ``mma3`` at the rest and in the
-    fused step's ``'bf16_conv'``).  Off the CPU a wrapper launches its kernel or
+    ``WGMMA_C`` in the f32 and bf16 builds, the fused step's
+    ``'bf16_conv'`` among them, ``mma3`` at the rest).  Off the CPU a wrapper launches its kernel or
     raises; a refused shape raises before anything is launched, naming the
     JAX gate's clause.  Meta tensors stand in for the card's: they get past
     the CPU branch and fail the device check, so only the shape gate can
@@ -158,7 +158,8 @@ def test_widths_outside_the_kernels_gate_are_refused(c):
         assert ok == (c % 32 == 0 and c <= 512)
         assert supported(hw, c, 32) == bwd_supported(hw, c, 32) == ok
         tc = ok and c >= 64
-        assert stage(hw, c, "bf16_conv") == ("mma3" if tc else "ffma")
+        assert stage(hw, c, "bf16_conv") == (
+            ("wgmma_bf16" if c in WGMMA_C else "mma3") if tc else "ffma")
         assert stage(hw, c, "bf16") == (
             ("wgmma_bf16" if c in WGMMA_C else "mma3") if tc else "ffma")
         assert stage(hw, c) == (("wgmma3" if c in WGMMA_C else "mma3") if tc
