@@ -134,7 +134,20 @@ Phases (any failed check exits nonzero and prints no result):
    probe's ``mma3``/``mma1`` against the f64 conv beside ``F.conv2d``
    (``mma3`` within 1e-6 at 96 and 512), the probe's ``mma_bf16`` beside
    ``F.conv2d`` on bf16 tensors by device time at every C from 96 to 512
-   (B = 256, 7×7); one epoch each of ``train
+   (B = 256, 7×7); at every shape with C ≥ 96 the bf16 ``odefunc``, which
+   runs the rows build there (``stage`` ``'rows_bf16'``, each conv one
+   bf16 ``wgmma`` GEMM over the rows of every sample,
+   ``csrc/rows_conv.cuh``): one launch counted a call, bit for bit the
+   per-sample build it replaced (``probes/timing_aids.py``
+   ``odefunc_cta_bf16``) and the bf16 backward's f, a B = 5 batch's rows
+   those of the B = 256 batch, the plain bf16 f within ``BARS``, a bf16
+   solve through ``odenet_logits`` by the launch rule (at 7×7×512 on the
+   graph cache and the host loop, bit-identical), device ms of the rows
+   build and the per-sample build in turns beside ``F.group_norm`` +
+   ``F.conv2d`` on bf16 tensors; at 7×7 and the probe's widths
+   ``tap9_bf16`` and ``im2col_bf16`` against the plain bf16 conv, bit for
+   bit ``mma_bf16`` (``im2col_bf16`` where C % 64 == 0), raced beside it
+   and ``F.conv2d`` bf16 in turns; one epoch each of ``train
    --hidden 128`` and ``--hidden 512``; C = 544 and C = 48 refused before
    any launch, naming the JAX kernels' gate.  ``[foreign]``: CIFAR-10 binary
    batches and MNIST IDX files (labels gzipped) written from the synthetic
@@ -241,8 +254,9 @@ Phases (any failed check exits nonzero and prints no result):
    ``tap9_bf16``, ``im2col_bf16`` and ``wgmma_bf16`` (f32 reassociation);
    ``im2col_bf16`` and ``tap9_bf16`` (one bf16 ``wgmma`` template over the
    rows of every sample, both operands from shared memory; a stage 64 k of
-   the patch matrix or one tap's 64 channels) also at every C their gate
-   takes on 7×7 (B = 5) and at 7×7×64, 6×6×64, 5×5×128, 9×8×64, 7×7×128,
+   the patch matrix or one tap's 64 channels; from C = 72 at C % 8 == 0
+   the rows kernel of ``csrc/rows_conv.cuh``) also at every C from 4 to
+   128 their gate takes on 7×7 (B = 5) and at 7×7×64, 6×6×64, 5×5×128, 9×8×64, 7×7×128,
    32×32×4, 7×7×36, 14×14×16, 7×7×100, 7×7×32, 8×8×64 and 4×4×128 at
    B = 256, 128 and 5, each error against the f64 conv of the rounded
    operands beside ``mma_bf16``'s (at most ``WGMMA_BAR`` times), the two
@@ -2289,7 +2303,13 @@ def main() -> int:
     # plain path; at 7×7 and the ADJOINT_WIDTHS the adjoint gradients of
     # that trainer's weights against the plain path (B = 128, tol 1e-5,
     # global control), and mma3/mma1 against the f64 conv at the
-    # PROBE_WIDTHS.  Then one epoch of `train --hidden 128` and of
+    # PROBE_WIDTHS.  At C >= 96 the bf16 odefunc's rows build
+    # (width_bf16): bit for bit the per-sample build, row-independent, within
+    # BARS, a bf16 solve by the launch rule (graph cache and host loop
+    # bit-identical at 7×7×512), timed in turns beside the per-sample build
+    # and F.group_norm + F.conv2d in bf16; at the PROBE_WIDTHS the probe's
+    # tap9_bf16 and im2col_bf16 raced beside mma_bf16 and F.conv2d bf16.
+    # Then one epoch of `train --hidden 128` and of
     # `--hidden 512`, and C = 544 and C = 48 refused before any launch,
     # naming the JAX kernels' gate.  Times with few repetitions: each case
     # is one entry of the kernels line.
@@ -2387,6 +2407,109 @@ def main() -> int:
         mnist_x = normalize(torch.from_numpy(load_dataset(
             "synthetic-mnist", "test", limit=B)[0]).to(dev), "synthetic-mnist")
         quick = dict(reps=3, blocks=3)
+
+        def width_bf16(hw, c, tag, wcfg, wparams, ww_, hx, tx, xin, hbx,
+                       tbx, gx):
+            """The bf16 dynamics at a width of the rows build (C >= 96):
+            the stage's name; one call counted (one odefunc_bf16 launch);
+            bit for bit the per-sample build's (timing aid
+            odefunc_cta_bf16) and, at B = 128, the bf16 backward's f; a
+            B = 5 batch's rows those of the B = 256 batch; the plain bf16
+            f within BARS; a bf16 solve through the entry points, counters
+            from 0, by the launch rule (2 + 6 attempts), and at 7x7x512 on
+            the graph cache and on the host loop, bit-identical; device ms
+            of the rows build and the per-sample build in turns, beside
+            F.group_norm and F.conv2d on bf16 tensors.  Returns the
+            kernels-line entry."""
+            from neural_ode_features_tpu_torch.probes.timing_aids import (
+                odefunc_cta_bf16,
+            )
+
+            bf = torch.bfloat16
+            if stage(hw, c, "bf16") != "rows_bf16":
+                fail(f"[width] {tag}: the bf16 stage is "
+                     f"{stage(hw, c, 'bf16')!r}, not the rows build")
+            f16, _, n1 = counted(lambda: odefunc(ww_, tx, hx, groups=G,
+                                                 compute_dtype=bf))
+            if n1 != {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                      "odefunc_bf16": 1}:
+                fail(f"[width] {tag} bf16 odefunc: launches {n1}")
+            same = {
+                "per-sample build": torch.equal(
+                    f16, odefunc_cta_bf16(ww_, tx, hx, G)),
+                "B=5 rows": torch.equal(odefunc(
+                    ww_, tx[:5].contiguous(), hx[:5].contiguous(), groups=G,
+                    compute_dtype=bf), f16[:5]),
+                "backward's f": torch.equal(odefunc_bwd(
+                    ww_, tbx, hbx, gx, groups=G, with_f=True,
+                    precision="bf16")[3], odefunc(ww_, tbx, hbx, groups=G,
+                                                  compute_dtype=bf))}
+            r16 = bf16_distances.odefunc_readings(ww_, tx, hx, G)
+            bad16 = bf16_distances.check(r16)
+            print(f"[width] {tag} bf16 odefunc (rows_bf16) B={B}: bit for "
+                  f"bit {same}; vs the plain bf16 f: "
+                  f"{r16['kernel_u_per_row']:.3f} u per row, rel-L2 "
+                  f"{r16['kernel_rel_u']:.3f} u (the f32 build "
+                  f"{r16['f32_rel_u']:.3f})")
+            if not all(same.values()) or bad16:
+                fail(f"[width] {tag} bf16 odefunc: {same} {bad16}")
+            cfg16 = dataclasses.replace(wcfg, compute_dtype="bfloat16")
+            routes = [("cache", contextlib.nullcontext)]
+            if hw == (HH, WW) and c == 512:
+                routes.append(("host", host_loop))
+            solves = {}
+            for route, ctx in routes:
+                with ctx(), torch.no_grad():
+                    solves[route] = counted(
+                        lambda: odenet_logits(wparams, xin, cfg16))
+            (lg16, st16), t16, n16 = solves["cache"]
+            att16 = batch_attempts(st16.nfe)
+            for route, ((lg_, st_), _, n_) in solves.items():
+                if n_ != {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                          "odefunc_bf16": 2 + 6 * att16}:
+                    fail(f"[width] {tag} bf16 solve on the {route} route: "
+                         f"launches {n_}, not 2 + 6·{att16}")
+                if not (torch.equal(lg_, lg16)
+                        and torch.equal(st_.nfe, st16.nfe)):
+                    fail(f"[width] {tag} bf16 solve: the {route} route is "
+                         "not the cache's bit for bit")
+            if not bool(torch.isfinite(lg16).all()):
+                fail(f"[width] {tag} bf16 solve: logits not finite")
+            print(f"[width] {tag} bf16 solve B={B} on "
+                  f"{[r for r, _ in routes]}: launches {n16}, attempts "
+                  f"{att16}, NFE mean {float(st16.nfe.float().mean()):.2f}"
+                  + (", bit-identical" if len(routes) > 1 else ""))
+            hx16, tx16 = hx.to(bf), tx.to(bf)
+            raw16 = {k: {kk: v.to(bf) for kk, v in d.items()}
+                     for k, d in wparams["odefunc"].items()}
+            turns = [device_ms(fn, reps=10) for fn in (
+                lambda: odefunc_cta_bf16(ww_, tx, hx, G),
+                lambda: odefunc(ww_, tx, hx, groups=G, compute_dtype=bf),
+                lambda: odefunc(ww_, tx, hx, groups=G, compute_dtype=bf),
+                lambda: odefunc_cta_bf16(ww_, tx, hx, G))]
+            lib16 = device_ms(lambda: library_f(hx16, tx16, raw16), reps=10)
+            entry = {
+                "name": "odefunc_bf16", "shape": tag, "route": "cuda",
+                "source": "neural_ode_features_tpu_torch/csrc/odefunc.cu",
+                "replaces": REPLACES["odefunc"],
+                "launches": n16["odefunc_bf16"],
+                "max_abs_err": r16["max_abs_err"],
+                "ms": (turns[1] + turns[2]) / 2,
+                "plain_ms": time_ms(lambda: odefunc_plain(ww_, tx, hx, G,
+                                                          "bf16"), **quick),
+                **fused_bounds(hw, c, B, B_TRAIN, H100_BF16_FLOPS)[
+                    "odefunc"],
+                "library_ms": lib16, "stage": "rows_bf16",
+                "precision": "bf16", "per_sample_ms": (turns[0]
+                                                       + turns[3]) / 2,
+                "turns_ms": turns}
+            print(f"[width] {tag} bf16 odefunc device ms in turns "
+                  f"(per-sample, rows, rows, per-sample): " + ", ".join(
+                      f"{v:.4f}" for v in turns) + f"; F.group_norm + "
+                  f"F.conv2d on bf16 tensors {lib16:.4f}; bound "
+                  f"{entry['bound_ms']:.4f} ({entry['bound_by']})")
+            return entry
+
         for hw_h, hw_w, c in WIDTH_SHAPES:
             t_shape = time.perf_counter()
             hw = (hw_h, hw_w)
@@ -2579,6 +2702,9 @@ def main() -> int:
                 f" f32 FFMA {e_['ffma_bound_ms']:.4f}; plain "
                 f"{e_['plain_ms']:.3f}, library {e_['library_ms']})"
                 for e_ in entries[-3:]))
+            if c >= 96:
+                entries.append(width_bf16(hw, c, tag, wcfg, wparams, ww_, hx,
+                                          tx, xin, hbx, tbx, gx))
             print(f"[width] {tag} took {time.perf_counter() - t_shape:.1f} s")
 
         # The probe's tensor-core kernels at the PROBE_WIDTHS against the
@@ -2610,6 +2736,50 @@ def main() -> int:
                   f"{errs['mma1']:.3e}, F.conv2d {lib_err_w:.3e}; device ms "
                   f"mma3 {probe_ms['mma3']:.4f}, mma1 {probe_ms['mma1']:.4f}; "
                   f"F.conv2d {lib_ms:.4f} ms per call")
+            # The rows strategies at this width (the rows kernel, the bf16
+            # odefunc's conv stage): each against the plain bf16 conv,
+            # tap9_bf16 bit for bit mma_bf16 (im2col_bf16 too at C % 64 ==
+            # 0), raced beside mma_bf16 and F.conv2d on bf16 tensors by
+            # device time, in turns.
+            plain16 = conv3x3_plain(xc_w, wc_w, passes="bf16")
+            m16 = conv3x3(xc_w, wc_w, "mma_bf16")
+            err16 = {}
+            for s_ in ("tap9_bf16", "im2col_bf16"):
+                got_ = conv3x3(xc_w, wc_w, s_)
+                err16[s_] = close(f"conv_probe {s_} {HH}x{WW}x{c}", got_,
+                                  plain16, **CONV_TOL)
+                if (s_ == "tap9_bf16" or c % 64 == 0) and not torch.equal(
+                        got_, m16):
+                    fail(f"[width] conv_probe {s_} {HH}x{WW}x{c}: not "
+                         "mma_bf16's bits")
+            x16_w, w16_w = xc_w.bfloat16(), wc_w.bfloat16()
+            race = {}
+            for s_ in ("mma_bf16", "tap9_bf16", "im2col_bf16", "F.conv2d",
+                       "F.conv2d", "im2col_bf16", "tap9_bf16", "mma_bf16"):
+                fn_ = ((lambda: conv_probe.library_conv(x16_w, w16_w))
+                       if s_ == "F.conv2d"
+                       else (lambda s_=s_: conv3x3(xc_w, wc_w, s_)))
+                race.setdefault(s_, []).append(device_ms(fn_))
+            race = {k: sum(v) / len(v) for k, v in race.items()}
+            print(f"[width] conv_probe bf16 race B={B} {HH}x{WW}x{c}, device "
+                  "ms (in turns, mean of two): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in race.items())
+                  + f"; tap9_bf16 / F.conv2d "
+                  f"{race['tap9_bf16'] / race['F.conv2d']:.2f}x")
+            entries.append({
+                "name": "conv_probe_tap9_bf16", "shape": f"{HH}x{WW}x{c}",
+                "route": "cuda", "precision": "bf16",
+                "source": "neural_ode_features_tpu_torch/csrc/rows_conv.cuh",
+                "replaces": "probes/conv_probe.py:282",
+                "launches": conv3x3.launches, "max_abs_err": err16["tap9_bf16"],
+                "ms": race["tap9_bf16"],
+                "plain_ms": time_ms(lambda: conv3x3_plain(
+                    xc_w, wc_w, passes="bf16"), **quick),
+                **bounds(conv_flops(B, (HH, WW), c),
+                         conv_bytes(B, (HH, WW), c), H100_BF16_FLOPS),
+                "library_ms": race["F.conv2d"],
+                "stage": "tap9_bf16 (the rows kernel)",
+                "strategy_ms": race})
             entries.append({
                 "name": "conv_probe", "shape": f"{HH}x{WW}x{c}", "route": "cuda",
                 "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
@@ -2885,7 +3055,9 @@ def main() -> int:
                     client.close(shutdown_server=True)
                     rc = host.wait(timeout=120)
                 except TimeoutError as e:
-                    fail(f"[serve] {e}")
+                    err_f.seek(0)
+                    fail(f"[serve] {e}; the host's stderr ends: "
+                         f"{err_f.read().decode(errors='replace')[-3000:]}")
                 finally:
                     if host.poll() is None:
                         host.kill()
@@ -3091,15 +3263,20 @@ def main() -> int:
                       f"{sms} SMs)")
         sass = {"im2col_bf16": kernel_sass("conv_probe", "im2col_wgmma_kernel"),
                 "tap9_bf16": kernel_sass("conv_probe", "tap9_wgmma_kernel"),
-                "im2col": kernel_sass("conv_probe", "13im2col_kernel")}
+                "im2col": kernel_sass("conv_probe", "13im2col_kernel"),
+                "rows": kernel_sass("conv_probe", "16rows_conv_kernel"),
+                "odefunc rows": kernel_sass("odefunc", "16rows_conv_kernel")}
         hgmma = {k: sum(1 for ln in v.splitlines()
                         if "HGMMA" in ln and "BF16" in ln)
                  for k, v in sass.items()}
         print(f"[bf16] im2col_bf16 and tap9_bf16 builds: bf16 HGMMA "
               f"instructions {hgmma}")
-        if not hgmma["im2col_bf16"] or not hgmma["tap9_bf16"] or hgmma["im2col"]:
+        if (not hgmma["im2col_bf16"] or not hgmma["tap9_bf16"]
+                or not hgmma["rows"] or not hgmma["odefunc rows"]
+                or hgmma["im2col"]):
             fail(f"[bf16] bf16 warpgroup products {hgmma}: the im2col_bf16 "
-                 "and tap9_bf16 builds must hold them, the f32 im2col none")
+                 "and tap9_bf16 builds and the rows kernel (the probe's and "
+                 "the bf16 odefunc's) must hold them, the f32 im2col none")
         ffma_ms = {}
         for nb, c in ((B, C), (B_TRAIN, C), (B, 32)):
             xc_, wc_ = conv_probe.probe_inputs(nb, dev, (HH, WW), c)

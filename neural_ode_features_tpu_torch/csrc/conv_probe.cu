@@ -49,10 +49,11 @@
 //
 //   mma_bf16     nodef::conv3x3_mma<kPassBf16>: one mma.sync.m16n8k16 bf16
 //                pass per 16 channels, operands packed to bf16 as the
-//                fragments are built.  The conv stage of odefunc.cu's and
-//                rk_step.cu's bf16 builds where wgmma_ok does not hold (the
-//                tensor-core shapes of C = 96 to 512) and of the bf16
-//                backward's one-CTA pass's input gradients.
+//                fragments are built.  The conv stage of rk_step.cu's bf16
+//                build where wgmma_ok does not hold (the tensor-core shapes
+//                of C = 96 to 512), of odefunc.cu's per-sample bf16 kernel
+//                there (which the rows build replaced on the paths) and of
+//                the bf16 backward's one-CTA pass.
 //   wgmma_bf16   nodef::conv3x3_wgmma<kBf16> on x rounded as it is copied
 //                in: the conv stage of odefunc.cu's and rk_step.cu's bf16
 //                builds where wgmma_ok holds (7x7x64, 6x6x64); it takes
@@ -71,6 +72,11 @@
 //                wgmma.mma_async with both operands from shared memory
 //                (the note at rows_wgmma_conv); C a multiple of 4 to 128.
 //
+// From C = 72 to 512 at C % 8 == 0 tap9_bf16 and im2col_bf16 run the rows
+// kernel of rows_conv.cuh in place of rows_wgmma_conv (conv_probe_rows_bf16:
+// x rounded into scratch, then the conv with a store epilogue): the conv
+// stage of the bf16 odefunc there, whose window of x would not fit.
+//
 // Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 // on them, 3.35 TB/s): at B = 256, 7x7x64 the conv is 2*256*49*576*64 =
 // 0.925 GFLOP, 13.8 us of FFMA or 1.9 us of TF32 products, against 6.6 MB
@@ -80,6 +86,7 @@
 // bound by bytes; mma3 itself forms three products over a 64-row tile (49
 // real), 3.6 GFLOP, 7.3 us at the TF32 peak.
 #include "odefunc_common.cuh"
+#include "rows_conv.cuh"
 
 namespace nodef {
 
@@ -343,25 +350,6 @@ inline bool i2w_shape_ok(int B, int H, int W, int C) {
          i2w_window_bytes(1, W, C) <= kI2wMaxWindow && (long long)B * H * W * C < (1LL << 31);
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// 16 bytes from global src to shared dst, or 16 zero bytes where !valid.
-__device__ __forceinline__ void cp_async16_at(uint32_t dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
 __device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
                                        uint32_t d) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
@@ -388,9 +376,6 @@ __device__ __forceinline__ float4 lds128f(uint32_t addr) {
   return make_float4(__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
                      __uint_as_float(v.w));
 }
-
-
-
 
 // The threads of the consumer warpgroups meet (named barrier 4).
 __device__ __forceinline__ void consumers_sync(int mw) {
@@ -637,6 +622,27 @@ tap9_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w, int 
   rows_wgmma_conv<true, MW, NB>(x, w, rows, H, W, C, y);
 }
 
+// xa[i] = bf16(x[i]) for n elements (n % 8 == 0): the probe's conv input.
+__global__ void __launch_bounds__(256)
+rows_round_kernel(const float* __restrict__ x, long long n, uint16_t* __restrict__ xa) {
+  for (long long i = 8 * (blockIdx.x * (long long)blockDim.x + threadIdx.x); i < n;
+       i += 8LL * gridDim.x * blockDim.x) {
+    const float4 a = *reinterpret_cast<const float4*>(x + i);
+    const float4 b = *reinterpret_cast<const float4*>(x + i + 4);
+    *reinterpret_cast<uint4*>(xa + i) =
+        make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w), bf16x2(b.x, b.y), bf16x2(b.z, b.w));
+  }
+}
+
+// The probe's store epilogue of the rows kernel.
+struct StoreEpi {
+  float* y;
+  int C;
+  __device__ __forceinline__ void operator()(int r, int co, float v0, float v1) const {
+    *reinterpret_cast<float2*>(y + (size_t)r * C + co) = make_float2(v0, v1);
+  }
+};
+
 }  // namespace nodef
 
 template <bool kBf16>
@@ -696,6 +702,31 @@ static int launch_rows_strategy(const float* x, const float* w, float* y, int B,
   if (C > 64) return launch_rows<kTap, 1, 2>(x, w, y, rows, H, W, C, st);
   return tall ? launch_rows<kTap, 2, 1>(x, w, y, rows, H, W, C, st)
               : launch_rows<kTap, 1, 1>(x, w, y, rows, H, W, C, st);
+}
+
+// tap9_bf16 (tap = 1) or im2col_bf16 (0) on the rows kernel of
+// rows_conv.cuh, at the widths of rows_ok (kernels/conv3x3.py rows_wide):
+// x rounded to bf16 into scratch, w packed after it (scratch: at least
+// rows_scratch_bytes), then the conv.  tile_rows: 64 or 128, the caller's
+// choice (kernels/conv3x3.py rows_tile_rows).
+extern "C" int conv_probe_rows_bf16(const float* x, const float* w, float* y, int B, int H,
+                                    int W, int C, void* stream, int tile_rows, int tap,
+                                    void* scratch) {
+  using namespace nodef;
+  if (!rows_ok(B, H, W, C) || !scratch || (tile_rows != 64 && tile_rows != 128))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)B * H * W * C;
+  uint16_t* xa = static_cast<uint16_t*>(scratch);
+  uint8_t* wp = static_cast<uint8_t*>(scratch) + rows_scratch_bytes(B, H, W, C, tap) -
+                rows_pack_bytes(tap, C);
+  const long long blocks = (n / 8 + 255) / 256;
+  rows_round_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(x, n, xa);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const StoreEpi epi{y, C};
+  return tap ? rows_conv<true>(xa, w, wp, B * H * W, H, W, C, tile_rows, epi, st)
+             : rows_conv<false>(xa, w, wp, B * H * W, H, W, C, tile_rows, epi, st);
 }
 
 extern "C" int conv_probe_tap9(const float* x, const float* w, float* y,

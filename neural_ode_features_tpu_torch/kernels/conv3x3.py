@@ -50,8 +50,10 @@ whose plain version is ``conv3x3_plain(x, w, passes="bf16")``:
                   ``mma.sync.m16n8k16`` bf16 pass per 16 channels, operands
                   rounded to nearest even as the fragments are packed.  The
                   conv stage of ``rk_step.cu``'s bf16 build and of
-                  ``odefunc.cu``'s where ``kernels.odefunc.stage`` does not
-                  give ``'wgmma_bf16'``, with ``mma3``'s gate.
+                  ``odefunc.cu``'s per-sample bf16 kernel where
+                  ``kernels.odefunc.stage`` does not give ``'wgmma_bf16'``
+                  (at C = 96–512 the paths run the rows build,
+                  ``'rows_bf16'``, in its place), with ``mma3``'s gate.
 ``'wgmma_bf16'``  ``conv3x3_wgmma``'s bf16 build on x rounded as it is copied
                   in: the conv stage of the bf16 ``odefunc`` (and of the
                   bf16 backward's forward recompute) where ``stage`` gives
@@ -79,7 +81,16 @@ whose plain version is ``conv3x3_plain(x, w, passes="bf16")``:
                   It takes C a multiple of 4 up to 128, at maps whose
                   window fits (:func:`supported`).  ``tap9_bf16`` and
                   ``im2col_bf16`` are one template (``rows_wgmma_conv``) and
-                  give the same bits where C is a multiple of 64.
+                  give the same bits where C is a multiple of 64.  From C =
+                  72 to 512 where C % 8 == 0 (:func:`rows_wide`) both run
+                  the rows kernel of ``csrc/rows_conv.cuh`` in its place,
+                  the bf16 ``odefunc``'s conv stage there (``'rows_bf16'``):
+                  x rounded into a bf16 scratch copy, the weights rounded
+                  and laid out once per call, a second grid dimension over
+                  128-channel N tiles, each stage's A slice gathered from
+                  the bf16 copy by ``cp.async`` and its B slice brought in
+                  by one ``cp.async.bulk`` (:func:`rows_wgmma_emulated`;
+                  :func:`rows_tile_rows` picks the M tile).
 
 Bound (H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 495 TFLOP/s TF32
 on them, 3.35 TB/s): at B = 256, 7×7×64 the conv is 0.925 GFLOP, 13.8 µs of
@@ -117,13 +128,29 @@ dtype).
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .odefunc import MAX_SMEM, MMA_M, bf16_round, mma_ok, ptr, stage, stream
+from .odefunc import (
+    MAX_C,
+    MAX_SMEM,
+    MMA_M,
+    ROWS_K,
+    ROWS_NB,
+    ROWS_SLICE,
+    bf16_round,
+    mma_ok,
+    ptr,
+    rows_ntiles,
+    rows_pack_bytes,
+    rows_scratch_bytes,
+    stage,
+    stream,
+)
 from .odefunc import supported as _fused_supported
 
 __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
@@ -134,7 +161,8 @@ __all__ = ["STRATEGIES", "BF16_STRATEGIES", "conv3x3", "conv3x3_plain",
            "smem_bytes", "conv_flops", "conv_bytes", "sw128_offset",
            "im2col_patches", "im2col_wgmma_emulated", "tap9_wgmma_emulated",
            "im2col_tile_rows", "im2col_smem_bytes", "im2col_window_bytes",
-           "ROWS_STRATEGIES"]
+           "ROWS_STRATEGIES", "rows_wide", "rows_tile_rows", "rows_smem_bytes",
+           "rows_pack_bytes", "rows_scratch_bytes", "rows_wgmma_emulated"]
 
 STRATEGIES = ("tap9", "im2col", "mma3", "mma1", "wgmma3")
 # The bf16 twins; each has its f32 strategy's gate.
@@ -155,6 +183,12 @@ I2W_K = 64
 I2W_STAGES = 4
 I2W_MAX_C = 128
 I2W_MAX_WINDOW = 65536
+# Mirrors csrc/rows_conv.cuh (kRowsPerSlot: stages a ring slot holds;
+# rows_ring: the slots of a 64- and a 128-row tile; kRowsK, kRowsNB,
+# kRowsSlice live in kernels/odefunc.py, which sizes the bf16 odefunc's
+# scratch).
+ROWS_PER_SLOT = 2
+ROWS_RING = {64: 2, 128: 3}
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -403,7 +437,11 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
     steps from zero, each step's sixteen exact products summed in float32
     in k order; the same order of sums after it.  ``'bf16_conv'``: the
     fused step's bf16 convs on that stage, whose input its writer has
-    rounded already: the same arithmetic."""
+    rounded already: the same arithmetic.  In bf16 it takes every
+    tensor-core width (:func:`mma_ok`, C a multiple of 32 from 64 to 512):
+    ``mma_bf16``'s order, the conv stage of the bf16 builds' one CTA per
+    sample there (``conv3x3_mma<kPassBf16>``): per k half, tiles (tap,
+    64-channel input block) tap-major, a k half wholly past C skipped."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError("conv3x3_wgmma_emulated takes float32")
     if precision not in ("f32", "bf16", "bf16_conv"):
@@ -411,23 +449,29 @@ def conv3x3_wgmma_emulated(x: torch.Tensor, w: torch.Tensor,
                          f"got {precision!r}")
     b, hh, ww, c = x.shape
     wp = ww + 2
-    if c != 64 or hh * wp > MMA_M:
-        raise ValueError(f"wgmma3 takes C = 64 and H·(W+2) <= {MMA_M}, got "
-                         f"{hh}x{ww}x{c}")
-    spad = x.new_zeros((b, MMA_M + 2 * wp + 2, c))
-    spad[:, :(hh + 2) * wp] = F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b, -1, c)
     bf16 = precision != "f32"
+    if hh * wp > MMA_M or not (c == 64 or bf16 and mma_ok((hh, ww), c)):
+        raise ValueError(f"wgmma3 takes C = 64 (bf16: C a multiple of 32 "
+                         f"from 64 to 512) and H·(W+2) <= {MMA_M}, got "
+                         f"{hh}x{ww}x{c}")
+    cpad = -(-c // 64) * 64
+    spad = x.new_zeros((b, MMA_M + 2 * wp + 2, cpad))
+    spad[:, :(hh + 2) * wp, :c] = F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(
+        b, -1, c)
     order = torch.arange(16) if bf16 else torch.tensor(wgmma_k_order())
     halves = []
     for kh in range(2):
         run = x.new_zeros((b, MMA_M, c))
-        for tap in range(9):
+        for tap, kb in itertools.product(range(9), range(cpad // 64)):
+            if 64 * kb + 32 * kh >= c:  # a k half of zeros: skipped
+                continue
             shift = (tap // 3) * wp + tap % 3
-            tile = (w[2 - tap // 3, 2 - tap % 3].T if transposed
-                    else w[tap // 3, tap % 3])
+            tile = w.new_zeros((cpad, c))
+            tile[:c] = (w[2 - tap // 3, 2 - tap % 3].T if transposed
+                        else w[tap // 3, tap % 3])
             acc = None
             for ks in range(2 if bf16 else 4):
-                idx = 32 * kh + len(order) * ks + order
+                idx = 64 * kb + 32 * kh + len(order) * ks + order
                 a, bt = spad[:, shift:shift + MMA_M, idx], tile[idx].contiguous()
                 if bf16:
                     pairs = ((bf16_round(a), bf16_round(bt)),)
@@ -501,6 +545,32 @@ def im2col_smem_bytes(tile_rows: int, c: int, w: int) -> int:
             + im2col_window_bytes(tile_rows, w, c) + 16 * I2W_STAGES)
 
 
+def rows_wide(c: int) -> bool:
+    """Whether ``im2col_bf16`` and ``tap9_bf16`` run the rows kernel of
+    ``csrc/rows_conv.cuh`` at width ``c`` (C > 64, C % 8 == 0, C ≤ 512;
+    csrc/rows_conv.cuh ``rows_ok``) rather than the window kernel: 16-byte
+    copies of 8 channels of one tap straight from a bf16 copy of x."""
+    return 64 < c <= MAX_C and c % 8 == 0
+
+
+def rows_smem_bytes(tile_rows: int) -> int:
+    """Dynamic shared memory per CTA of the rows kernel (csrc/rows_conv.cuh
+    ``rows_smem_bytes``): 1,024 bytes to align and ``ROWS_RING[tile_rows]``
+    slots, each ``ROWS_PER_SLOT`` stages' (tile_rows, 64) A slices and
+    (128, 64) B slices in bf16 and two mbarriers."""
+    return (1024 + ROWS_RING[tile_rows]
+            * (ROWS_PER_SLOT * (tile_rows // 64 + ROWS_NB) * ROWS_SLICE + 16))
+
+
+def rows_tile_rows(rows: int, sms: int, c: int) -> int:
+    """The rows kernel's M tile for ``rows`` = B·H·W rows of C channels on a
+    card of ``sms`` SMs (csrc/rows_conv.cuh ``rows_tile_rows``): 128 rows
+    (two consumer warpgroups sharing each B slice, three ring slots, one
+    CTA an SM) where the 128-row tiles times the N tiles give at least
+    every other SM a CTA, else 64 (two slots, two CTAs an SM)."""
+    return 128 if 2 * -(-rows // 128) * rows_ntiles(c) >= sms else 64
+
+
 def _stage_sums(a: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
     """The rows kernel's order of sums over ``a`` (R, K) @ ``bw`` (K, C),
     both rounded, K whole stages of 64: per stage and k half (k 0..31 and
@@ -570,6 +640,41 @@ def tap9_wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _stage_sums(a, bw).reshape(b, hh, ww, c)
 
 
+def rows_wgmma_emulated(x: torch.Tensor, w: torch.Tensor, tap: bool = True,
+                        tile_rows: int = 64,
+                        tile_cols: int = 64 * ROWS_NB) -> torch.Tensor:
+    """The rows kernel's arithmetic in plain PyTorch, float32, tile by tile
+    (tests only, nothing on a path): the rows of every sample flattened
+    (:func:`im2col_patches`) and cut into ``tile_rows`` M tiles, the output
+    channels into ``tile_cols`` N tiles (each padded with zeros), both
+    operands rounded to bf16, each tile summed on its own in the kernel's
+    order (:func:`_stage_sums`) over its stages: ``tap`` (``tap9_bf16``,
+    the bf16 ``odefunc``'s ``'rows_bf16'``) one tap's 64 input channels a
+    stage, zero past C; else (``im2col_bf16``) 64 k of K = 9C.  The tiles
+    change no row's and no column's sums: :func:`tap9_wgmma_emulated`'s
+    bits, and at the tensor-core widths
+    ``conv3x3_wgmma_emulated(precision='bf16')``'s (``mma_bf16``'s)."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError("rows_wgmma_emulated takes float32")
+    b, hh, ww, c = x.shape
+    rows = b * hh * ww
+    patches = bf16_round(im2col_patches(x))
+    wt = bf16_round(w.reshape(9, c, c))
+    step = -(-c // ROWS_K) * ROWS_K if tap else c  # K columns a tap
+    kk = -(-9 * step // ROWS_K) * ROWS_K             # whole stages
+    a = x.new_zeros((-(-rows // tile_rows) * tile_rows, kk))
+    bw = x.new_zeros((kk, -(-c // tile_cols) * tile_cols))
+    for t in range(9):
+        a[:rows, t * step:t * step + c] = patches[:, t * c:(t + 1) * c]
+        bw[t * step:t * step + c, :c] = wt[t]
+    out = x.new_empty((a.shape[0], bw.shape[1]))
+    for m0 in range(0, a.shape[0], tile_rows):
+        for n0 in range(0, bw.shape[1], tile_cols):
+            out[m0:m0 + tile_rows, n0:n0 + tile_cols] = _stage_sums(
+                a[m0:m0 + tile_rows], bw[:, n0:n0 + tile_cols])
+    return out[:rows, :c].reshape(b, hh, ww, c)
+
+
 def smem_bytes(hw: tuple[int, int], c: int) -> int:
     """Dynamic shared memory per CTA of the ``im2col`` kernel."""
     return 4 * (hw[0] * hw[1] * (9 * c + _I2C_PAD) + 2 * c * c)
@@ -589,13 +694,15 @@ def supported(hw: tuple[int, int], c: int, strategy: str = "tap9") -> bool:
     ``i2w_shape_ok``): C a multiple of 4 from 4 to 128 on maps up to a
     width whose window of x fits 64 KB (W ≤ 95 at C = 128, 223 at C = 64;
     the wrapper also needs B·H·W·C < 2³¹), every shape of ``tap9``'s gate
-    among them.  7×7×64 and 6×6×64 pass all nine, 7×7×96 to 7×7×512
-    the tensor-core ones.  ``mma_bf16`` has its f32 strategy's gate."""
+    among them; and, on the rows kernel of ``csrc/rows_conv.cuh``
+    (:func:`rows_wide`), C a multiple of 8 from 72 to 512 on any map.
+    7×7×64 and 6×6×64 pass all nine, 7×7×96 to 7×7×512 the tensor-core
+    ones and these two.  ``mma_bf16`` has its f32 strategy's gate."""
     strategy = _TWIN.get(strategy, strategy)
     if strategy in ROWS_STRATEGIES:
-        return (hw[0] >= 1 and hw[1] >= 1 and 4 <= c <= I2W_MAX_C
-                and c % 4 == 0
-                and im2col_window_bytes(64, hw[1], c) <= I2W_MAX_WINDOW)
+        return hw[0] >= 1 and hw[1] >= 1 and (rows_wide(c) or (
+            4 <= c <= I2W_MAX_C and c % 4 == 0
+            and im2col_window_bytes(64, hw[1], c) <= I2W_MAX_WINDOW))
     if strategy in ("mma3", "mma1"):
         return mma_ok(hw, c) and _fused_supported(hw, c, 1, "mma3")
     if strategy in ("wgmma3", "wgmma_bf16"):
@@ -633,6 +740,12 @@ def _lib() -> ctypes.CDLL:
                            + [ctypes.c_void_p]
                            + [ctypes.c_int] * (strategy in ROWS_STRATEGIES))
             fn.restype = ctypes.c_int
+    fn = lib.conv_probe_rows_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -641,22 +754,26 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, strategy: str = "tap9",
     """3×3 SAME conv C → C of ``x`` (B, H, W, C) float32 NHWC with ``w``
     (3, 3, C, C) HWIO, no bias.  A bf16 strategy rounds both operands to
     bf16 and sums the products in f32.  ``tile_rows`` (``im2col_bf16`` and
-    ``tap9_bf16`` only, 64 or 128): their M tile, in place of
-    :func:`im2col_tile_rows`' choice (the values do not depend on it)."""
+    ``tap9_bf16`` only, 64 or 128; 128 at C ≤ 64 where its window fits,
+    or on the rows kernel): their M tile, in place of
+    :func:`im2col_tile_rows`' or :func:`rows_tile_rows`' choice (the
+    values do not depend on it)."""
     if strategy not in STRATEGIES + BF16_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; available: "
                          f"{STRATEGIES + BF16_STRATEGIES}")
     if x.ndim != 4 or tuple(w.shape) != (3, 3, x.shape[-1], x.shape[-1]):
         raise ValueError(f"expected x (B, H, W, C) and w (3, 3, C, C), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
+    wide = rows_wide(x.shape[-1])
     if tile_rows is not None and (
             strategy not in ROWS_STRATEGIES or tile_rows not in (64, 128)
-            or (tile_rows == 128 and (x.shape[-1] > 64 or im2col_window_bytes(
-                128, x.shape[2], x.shape[-1]) > I2W_MAX_WINDOW))):
+            or (tile_rows == 128 and not wide and (
+                x.shape[-1] > 64 or im2col_window_bytes(
+                    128, x.shape[2], x.shape[-1]) > I2W_MAX_WINDOW))):
         raise ValueError(f"tile_rows (64, or 128 at C <= 64 where its "
-                         f"window fits) is {ROWS_STRATEGIES}' alone, got "
-                         f"{tile_rows!r} for {strategy!r} at "
-                         f"{tuple(x.shape)}")
+                         f"window fits and on the rows kernel) is "
+                         f"{ROWS_STRATEGIES}' alone, got {tile_rows!r} for "
+                         f"{strategy!r} at {tuple(x.shape)}")
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, "bf16" if strategy in BF16_STRATEGIES
                              else None)
@@ -675,15 +792,22 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, strategy: str = "tap9",
                              "aligned tensor")
     y = torch.empty_like(x)
     lib = _lib()
-    fn = getattr(lib, f"conv_probe_{strategy}")
+    entry = f"conv_probe_{strategy}"
     args = [ptr(x), ptr(w), ptr(y), b, hh, ww, c, stream()]
     if strategy in ROWS_STRATEGIES:
-        args.append(tile_rows or im2col_tile_rows(
-            b * hh * ww,
-            torch.cuda.get_device_properties(x.device).multi_processor_count,
-            c, ww))
-    code = fn(*args)
-    _build.check(lib, code, f"conv_probe_{strategy}")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        if wide:
+            tap = strategy == "tap9_bf16"
+            scratch = torch.empty(rows_scratch_bytes(b, (hh, ww), c, tap),
+                                  dtype=torch.uint8, device=x.device)
+            entry = "conv_probe_rows_bf16"
+            args += [tile_rows or rows_tile_rows(b * hh * ww, sms, c), tap,
+                     ptr(scratch)]
+        else:
+            args.append(tile_rows or im2col_tile_rows(b * hh * ww, sms, c,
+                                                      ww))
+    code = getattr(lib, entry)(*args)
+    _build.check(lib, code, entry)
     conv3x3.launches += 1
     return y
 

@@ -40,11 +40,21 @@ rounded to bf16 on entry, each GroupNorm's normalised value, scale product
 and bias sum rounded (statistics in f32), both convs on the bf16 conv stage
 (bf16 products, f32 accumulation: ``'wgmma_bf16'``, Hopper's
 ``wgmma.mma_async`` bf16 with each weight tile converted once per CTA, at
-the widths of ``WGMMA_C``; ``mma.sync.m16n8k16`` at the other tensor-core
-shapes; f32 FFMA on bf16-rounded operands at the FFMA shapes), then the
-conv output, its sum
-with the bias, t·M and the last sum each rounded; f returns as float32
-holding bf16 values.  The conv output is rounded before the bias add, as
+the widths of ``WGMMA_C``; f32 FFMA on bf16-rounded operands at the FFMA
+shapes), then the conv output, its sum with the bias, t·M and the last sum
+each rounded; f returns as float32 holding bf16 values.  At the other
+tensor-core shapes (C = 96 to 512, ``'rows_bf16'``) one call is the rows
+build: a fixed sequence of seven launches on the current stream, with no
+atomics (``csrc/odefunc.cu``): per sample GN1 → ReLU into a bf16 scratch
+copy of the conv input; conv1 as one bf16 ``wgmma`` GEMM over the rows of
+every sample (``csrc/rows_conv.cuh``: its weights rounded and laid out once
+per call, 128 output channels a CTA, 64- or 128-row tiles) whose epilogue
+adds bias and t·M; GN2 → ReLU; conv2; GN3.  It gives the per-sample
+build's bits (the same GroupNorm code and thread map, and the convs sum in
+``mma.sync``'s order), which stays readable alone through
+``probes/timing_aids.py`` ``odefunc_cta_bf16``; the scratch
+(:func:`rows_scratch_bytes`) comes from PyTorch's caching allocator on the
+current stream.  The conv output is rounded before the bias add, as
 cuDNN's bf16 conv and PyTorch's bias add round on the card and as the JAX
 jnp path rounds; on the CPU the library folds the bias into the conv's one
 rounding, which puts the kernel within a few u of the CPU's plain version
@@ -82,7 +92,9 @@ from . import _build
 
 __all__ = ["OdefuncWeights", "Layout", "prepare", "supported", "refusal",
            "layout", "smem_bytes", "mma_ok", "stage", "odefunc", "odefunc_plain",
-           "odefunc_autograd", "odefunc_vjp", "PRECISIONS", "bf16_round"]
+           "odefunc_autograd", "odefunc_vjp", "PRECISIONS", "bf16_round",
+           "rows_scratch_bytes", "rows_pack_bytes", "rows_ntiles", "ROWS_K",
+           "ROWS_NB", "ROWS_SLICE"]
 
 # Mirrors csrc/odefunc_common.cuh (kThreads, kMaxC, kMaxPix, kMaxSmem;
 # kMmaC, kMmaStep, kMmaM, kPadA, kPitchBT, kRing of the tensor-core stage;
@@ -172,7 +184,11 @@ def stage(hw: tuple[int, int], c: int, precision: str = "f32") -> str:
     (``wgmma.mma_async``, 3×TF32) and the bf16 builds (``'bf16'``, and the
     fused step's ``'bf16_conv'``) ``'wgmma_bf16'`` (``wgmma.mma_async``,
     one bf16 pass); at the other widths ``'mma3'`` (``mma.sync``: 3×TF32,
-    or its one bf16 pass in the bf16 builds).  The backward's
+    or its one bf16 pass in the fused step's ``'bf16_conv'`` build), except
+    that the ``'bf16'`` dynamics there (C = 96 to 512) run ``'rows_bf16'``:
+    the rows build of ``csrc/odefunc.cu`` (C++ ``rows_build_ok``), each
+    conv one bf16 ``wgmma`` GEMM over the rows of every sample, in place of
+    one CTA per sample on ``mma.sync``.  The backward's
     input-gradient convs run ``'mma3'`` at every tensor-core shape but in
     its cluster pass (``kernels.odefunc_bwd.sample_pass``), which runs them
     on ``wgmma``; everything else runs ``'ffma'``."""
@@ -182,7 +198,7 @@ def stage(hw: tuple[int, int], c: int, precision: str = "f32") -> str:
     if mma_ok(hw, c):
         if c in WGMMA_C:
             return "wgmma3" if precision == "f32" else "wgmma_bf16"
-        return "mma3"
+        return "rows_bf16" if precision == "bf16" else "mma3"
     return "ffma"
 
 
@@ -381,17 +397,51 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-# The C entry point of each build of the kernel (csrc/odefunc.cu).
+# The C entry point of each build of the kernel (csrc/odefunc.cu); the bf16
+# one takes the rows build's scratch last.
 _ENTRY = {"f32": "odefunc_forward", "bf16": "odefunc_forward_bf16"}
+# Mirrors csrc/rows_conv.cuh (kRowsK, kRowsNB, kRowsSlice): the rows
+# conv's stage depth, 64-column blocks of an N tile and bytes of a 64-row
+# slice of a stage.
+ROWS_K = 64
+ROWS_NB = 2
+ROWS_SLICE = 64 * ROWS_K * 2
+
+
+def rows_ntiles(c: int) -> int:
+    """The rows conv's N tiles of ``ROWS_NB`` 64-column blocks at width C
+    (csrc/rows_conv.cuh ``rows_ntiles``)."""
+    return -(-(-(-c // ROWS_K)) // ROWS_NB)
+
+
+def rows_pack_bytes(tap: bool, c: int) -> int:
+    """Bytes of one conv's weights packed for the rows conv (csrc/
+    rows_conv.cuh ``rows_pack_bytes``): every N tile's every stage's (128,
+    64) bf16 slice in shared memory's order; a stage one tap's 64 input
+    channels (``tap``) or 64 k of K = 9C."""
+    stages = 9 * -(-c // ROWS_K) if tap else -(-9 * c // ROWS_K)
+    return rows_ntiles(c) * stages * ROWS_NB * ROWS_SLICE
+
+
+def rows_scratch_bytes(b: int, hw: tuple[int, int], c: int,
+                       tap: bool = True) -> int:
+    """Bytes of a call's scratch for the rows conv (csrc/rows_conv.cuh
+    ``rows_scratch_bytes``): the bf16 conv input of the batch, rounded up to
+    1 KB, and one conv's packed weights (:func:`rows_pack_bytes`; the rows
+    build's stages are one tap's channels, the probe's ``im2col_bf16``'s 64
+    k of K = 9C)."""
+    return (-(-(b * hw[0] * hw[1] * c * 2) // 1024) * 1024
+            + rows_pack_bytes(tap, c))
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("odefunc")
-    for name in _ENTRY.values():
+    for name in (*_ENTRY.values(), "odefunc_forward_bf16_cta"):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p]
+                           + [ctypes.c_void_p] * (name == _ENTRY["bf16"]))
             fn.restype = ctypes.c_int
     return lib
 
@@ -409,9 +459,20 @@ def launch(w: OdefuncWeights, t: torch.Tensor, h: torch.Tensor,
     out = torch.empty_like(h)
     lib = _lib()
     entry = _ENTRY[precision]
+    extra = []
+    if precision == "bf16":
+        scratch = None
+        if stage((hh, ww), c, "bf16") == "rows_bf16":
+            if b * hh * ww * c >= 2 ** 31:
+                raise ValueError(
+                    f"the rows build takes B·H·W·C < 2^31, got "
+                    f"{b}×{hh}×{ww}×{c}")
+            scratch = torch.empty(rows_scratch_bytes(b, (hh, ww), c),
+                                  dtype=torch.uint8, device=h.device)
+        extra = [None if scratch is None else ptr(scratch)]
     code = getattr(lib, entry)(
         ptr(t), ptr(h), *weight_pointers(w), ptr(out),
-        b, hh, ww, c, groups, stream())
+        b, hh, ww, c, groups, stream(), *extra)
     _build.check(lib, code, entry)
     if precision == "bf16":
         odefunc.launches_bf16 += 1

@@ -34,7 +34,12 @@ a call, the operator's dispatch included where the package has one).
 
 ``--bf16`` adds, per shape, the bf16 builds (``odefunc`` with
 ``compute_dtype=bfloat16``, ``rk_step`` with ``conv_precision='bf16'``, the
-backward with ``precision='bf16'`` at B = 128, device ms as above; the
+backward with ``precision='bf16'`` at B = 128, device ms as above; where
+the package runs the bf16 ``odefunc`` as the rows build, its seven
+launches and the per-sample kernel it replaced in turns, per-sample,
+rows, rows, per-sample, ``odefunc_bf16_turns_ms``, device ms by CUDA
+events behind a spin kernel, ``odefunc_bf16_ms`` and
+``odefunc_bf16_cta_ms`` their means; the
 backward's three kernels apart, beside the f32 build's, and at each
 ``--bwd-batch``, ``odefunc_bwd_bf16_b<B>_split_ms``) and the library
 yardstick of their convs, ``F.conv2d`` on bf16 tensors at that shape (one
@@ -53,9 +58,10 @@ builds, of theirs
 (``odefunc_bf16``, ``rk_step_bf16`` at ``conv_precision='bf16'``,
 ``odefunc_bwd_bf16``: every output; and apart, as the f32 build's,
 ``odefunc_bwd_bf16_weights``, ``odefunc_bwd_bf16_rest`` without f,
-``odefunc_bwd_bf16_f`` and ``odefunc_bwd_bf16_r``), so that two
-checkouts' kernels can be held bit for bit (run once with each package on
-``PYTHONPATH``, in one call).
+``odefunc_bwd_bf16_f`` and ``odefunc_bwd_bf16_r``; at the rows build's
+shapes ``odefunc_bf16_cta``, the per-sample kernel's f, which the rows
+build's must equal), so that two checkouts' kernels can be held bit for bit
+(run once with each package on ``PYTHONPATH``, in one call).
 
 ``--errors`` prints, per shape, the backward's dθ max abs error against its
 plain version in float64 at B = 128, 64 and 5 (the seeded inputs' first
@@ -206,11 +212,33 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
 
         xn = h.permute(0, 3, 1, 2).bfloat16()
         wn = w.w1.permute(3, 2, 0, 1).bfloat16()
+
+        def f16():
+            return odefunc(w, t0, h, groups=G, compute_dtype=torch.bfloat16)
+
+        rows_build = _rows_build(hh, ww, c)
+        if rows_build:
+            # The rows build (seven launches a call) and the per-sample
+            # kernel it replaced, in turns: device ms by CUDA events behind
+            # a spin kernel.
+            from neural_ode_features_tpu_torch.probes.conv_probe import (
+                queued_us,
+            )
+            from neural_ode_features_tpu_torch.probes.timing_aids import (
+                odefunc_cta_bf16,
+            )
+
+            def cta():
+                return odefunc_cta_bf16(w, t0, h, G)
+
+            turns = [queued_us(fn, reps) / 1e3 for fn in (cta, f16, f16, cta)]
+            row.update({"odefunc_bf16_turns_ms": turns,
+                        "odefunc_bf16_cta_ms": (turns[0] + turns[3]) / 2})
         row.update({
-            "odefunc_bf16_ms": device_ms(
-                lambda: odefunc(w, t0, h, groups=G,
-                                compute_dtype=torch.bfloat16),
-                ("odefunc_kernel",), reps),
+            "odefunc_bf16_ms": ((row["odefunc_bf16_turns_ms"][1]
+                                 + row["odefunc_bf16_turns_ms"][2]) / 2
+                                if rows_build else device_ms(
+                                    f16, ("odefunc_kernel",), reps)),
             "rk_step_bf16_ms": device_ms(
                 lambda: dopri5_step(w, DOPRI5, t0, dt, y0, f0,
                                     conv_precision="bf16", **kw),
@@ -276,6 +304,14 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _rows_build(hh: int, ww: int, c: int) -> bool:
+    """Whether the package runs the bf16 ``odefunc`` at this shape as the
+    rows build (``kernels.odefunc.stage`` gives ``'rows_bf16'``)."""
+    from neural_ode_features_tpu_torch.kernels.odefunc import stage
+
+    return stage((hh, ww), c, "bf16") == "rows_bf16"
+
+
 def digest(hh: int, ww: int, c: int) -> dict:
     """sha256 of each f32 kernel's outputs on the seeded inputs."""
     from neural_ode_features_tpu_torch.kernels.conv3x3 import (
@@ -329,6 +365,12 @@ def digest(hh: int, ww: int, c: int) -> dict:
             "odefunc_bwd_bf16": sha(
                 *(b16[0][a][b] for a in sorted(b16[0])
                   for b in sorted(b16[0][a])), *b16[1:])})
+        if _rows_build(hh, ww, c):
+            from neural_ode_features_tpu_torch.probes.timing_aids import (
+                odefunc_cta_bf16,
+            )
+
+            row["odefunc_bf16_cta"] = sha(odefunc_cta_bf16(w, t0, h, G))
     x, wc = probe_inputs(B, "cuda", (hh, ww), c)
     for strategy in STRATEGIES + BF16_STRATEGIES:
         if supported((hh, ww), c, strategy):

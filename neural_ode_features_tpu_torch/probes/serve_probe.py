@@ -92,7 +92,10 @@ def host_stats(proc: subprocess.Popen, err_path, timeout: float = 30.0):
     end = time.perf_counter() + timeout
     while len(got := lines()) <= n:
         if time.perf_counter() > end or proc.poll() is not None:
-            raise TimeoutError("the host printed no stats line")
+            raise TimeoutError(
+                f"the host printed no stats line in {timeout} s (host "
+                + ("running" if proc.returncode is None
+                   else f"exited {proc.returncode}") + ")")
         time.sleep(0.002)
     return json.loads(got[n].split(STATS_TAG, 1)[1])
 

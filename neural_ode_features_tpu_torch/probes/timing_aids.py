@@ -114,7 +114,8 @@ from ..solver import DOPRI5
 from .conv_probe import KERNEL_NAMES, device_us, probe_inputs
 
 __all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "I2W_VARIANTS",
-           "TAP9_VARIANTS", "patched_sources", "tap9_ffma_bf16", "main"]
+           "TAP9_VARIANTS", "patched_sources", "tap9_ffma_bf16",
+           "odefunc_cta_bf16", "main"]
 
 HEADER = "odefunc_common.cuh"
 
@@ -450,6 +451,36 @@ def tap9_ffma_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(lib, fn(ptr(x), ptr(w), ptr(y), b, hh, ww, c, stream()),
                  "conv_probe_tap9_ffma_bf16")
     return y
+
+
+def odefunc_cta_bf16(params, t: torch.Tensor, h: torch.Tensor,
+                     groups: int = 32) -> torch.Tensor:
+    """The bf16 dynamics f(t, h) on the per-sample kernel (``odefunc_kernel``
+    with ``kBf16``, one CTA per sample: the C entry
+    ``odefunc_forward_bf16_cta``) on CUDA tensors, at every shape of the
+    kernels' gate.  At C = 96 to 512 on 7×7 and 6×6 maps the path runs the
+    rows build in its place (``kernels.odefunc.stage`` gives
+    ``'rows_bf16'``); this is that build's yardstick, bit for bit and by
+    time.  No launch counter: nothing on a path calls it."""
+    from ..kernels.odefunc import (
+        _lib,
+        check_cuda_inputs,
+        ptr,
+        stream,
+        weight_pointers,
+    )
+
+    w = prepare(params, tuple(h.shape[1:3]))
+    b, hh, ww, c = h.shape
+    check_cuda_inputs(w, {"h": h, "t": t}, (hh, ww), c, groups)
+    if tuple(t.shape) != (b,):
+        raise ValueError(f"t: expected shape ({b},), got {tuple(t.shape)}")
+    lib = _lib()
+    out = torch.empty_like(h)
+    _build.check(lib, lib.odefunc_forward_bf16_cta(
+        ptr(t), ptr(h), *weight_pointers(w), ptr(out), b, hh, ww, c, groups,
+        stream()), "odefunc_forward_bf16_cta")
+    return out
 
 
 def tap9_times(tmp: Path, dev) -> dict:

@@ -467,7 +467,7 @@ def serve_socket(fn, dev: torch.device, addr: str, x: np.ndarray,
 
     conns: list[_Conn] = []
     flights: collections.deque = collections.deque()  # (job, segs)
-    shutdown = report = False
+    shutdown = False
     rr = 0
     # Totals only, so that a long-lived host holds a bounded record:
     # attempts maps the attempts of a dispatch to the dispatches that took
@@ -476,10 +476,17 @@ def serve_socket(fn, dev: torch.device, addr: str, x: np.ndarray,
              "attempts": {}}
     _reset_counts()
 
+    # SIGUSR1 reaches the loop through the interpreter's wakeup pipe, which
+    # the C-level handler writes in whichever thread the OS handed it to: the
+    # Python handler runs only in this thread, and not while it waits in
+    # select() if another thread took the signal.  One byte per signal.
+    sig_r, sig_w = os.pipe()
+    os.set_blocking(sig_r, False)
+    os.set_blocking(sig_w, False)
+    old_wakeup = signal.set_wakeup_fd(sig_w, warn_on_full_buffer=False)
+
     def on_usr1(signum, frame) -> None:
-        nonlocal report
-        report = True
-        os.write(wake_w, b"s")
+        pass  # the byte in sig_r is the report
 
     def totals() -> str:
         return json.dumps({**stats, "solve_ms": round(stats["solve_ms"], 3),
@@ -628,17 +635,21 @@ def serve_socket(fn, dev: torch.device, addr: str, x: np.ndarray,
                     flights[0][0].done.wait()
                     retire()
                 break
-            rlist = [lsock, wake_r] + [c.sock for c in conns
-                                       if c.open and not c.draining]
+            rlist = [lsock, wake_r, sig_r] + [c.sock for c in conns
+                                              if c.open and not c.draining]
             ready = set(select.select(rlist, [], [])[0])
             if wake_r in ready:
                 try:
                     os.read(wake_r, 1 << 12)
                 except BlockingIOError:
                     pass
-            if report:
-                report = False
-                log(f"listen: stats {totals()}")
+            if sig_r in ready:
+                try:
+                    sigs = os.read(sig_r, 1 << 12)
+                except BlockingIOError:
+                    sigs = b""
+                if signal.SIGUSR1 in sigs:
+                    log(f"listen: stats {totals()}")
             if lsock in ready:
                 sock, _ = lsock.accept()
                 try:
@@ -667,12 +678,13 @@ def serve_socket(fn, dev: torch.device, addr: str, x: np.ndarray,
                 log(f"listen: connection closed ({len(conns)} open)")
     finally:
         signal.signal(signal.SIGUSR1, old_usr1)
+        signal.set_wakeup_fd(old_wakeup)
         engine.close()
         for c in conns:
             c.sock.close()
         lsock.close()
-        os.close(wake_r)
-        os.close(wake_w)
+        for fd in (wake_r, wake_w, sig_r, sig_w):
+            os.close(fd)
         if not is_tcp and os.path.exists(addr):
             os.unlink(addr)
     log(f"listen: loop ended{' (shutdown)' if shutdown else ''} — "

@@ -82,7 +82,9 @@ def _kernel_wrappers() -> tuple:
     """The launch counters the route keeps, as ``(wrapper, attribute,
     kernels)``: ``kernels`` maps the name in the CUDA sources of each
     kernel of which one counted launch runs one (the backward's per-sample
-    pass is one of two kernels, ``kernels.odefunc_bwd.sample_pass``) to
+    pass is one of two kernels, ``kernels.odefunc_bwd.sample_pass``; the
+    bf16 ``odefunc``'s rows build launches seven kernels a call, of which
+    its last, ``rows_gn_out_kernel``, stands for the call) to
     the build it counts, where the kernel is built for several: its
     precision template argument (``kF32``, ``kBf16Conv``, ``kBf16`` = 0,
     1, 2 in ``csrc/odefunc_common.cuh``), else None."""
@@ -92,7 +94,8 @@ def _kernel_wrappers() -> tuple:
     from ..kernels.rk_step import dopri5_step
 
     return ((odefunc, "launches", {"odefunc_kernel": 0}),
-            (odefunc, "launches_bf16", {"odefunc_kernel": 2}),
+            (odefunc, "launches_bf16", {"odefunc_kernel": 2,
+                                        "rows_gn_out_kernel": None}),
             (odefunc_bwd, "launches", {"bwd_sample_kernel": 0,
                                        "bwd_sample_kernel_cluster": 0}),
             (odefunc_bwd, "launches_bf16", {"bwd_sample_kernel": 2,

@@ -239,7 +239,8 @@ def test_stage_layout_and_refusal_follow_the_cpp_gate(hw):
     ``'wgmma3'`` to the f32 builds and ``'wgmma_bf16'`` to the bf16 builds
     and the fused step's ``'bf16_conv'`` exactly where ``wgmma_ok`` (read
     from the header, as ``make_shape`` sets it for every precision) holds,
-    ``'mma3'`` at the other tensor-core shapes; the layout holds the larger
+    ``'mma3'`` at the other tensor-core shapes (the bf16 dynamics there:
+    ``'rows_bf16'``, the rows build); the layout holds the larger
     of wgmma3's area and the ring; every width is taken, forward and
     backward, under that layout."""
     hh, ww = hw
@@ -251,8 +252,9 @@ def test_stage_layout_and_refusal_follow_the_cpp_gate(hw):
         assert (c in WGMMA_C) == cpp
         assert (stage(hw, c, "bf16") == "wgmma_bf16") == cpp
         assert stage(hw, c, "bf16") == ("ffma" if c == 32 else
-                                        "wgmma_bf16" if cpp else "mma3")
-        assert stage(hw, c, "bf16_conv") == stage(hw, c, "bf16")
+                                        "wgmma_bf16" if cpp else "rows_bf16")
+        assert stage(hw, c, "bf16_conv") == ("ffma" if c == 32 else
+                                             "wgmma_bf16" if cpp else "mma3")
         if stage(hw, c, "bf16") == "wgmma_bf16":
             assert (layout(hw, c, 32, "wgmma_bf16")
                     == layout(hw, c, 32)._replace(stage="wgmma_bf16"))

@@ -1503,6 +1503,97 @@ def test_bf16_odefunc_on_the_wgmma_stage(dev, side):
 
 
 
+@pytest.mark.parametrize("side,c", [(7, 96), (7, 128), (6, 256), (7, 512)])
+def test_bf16_rows_build_is_the_per_sample_build(dev, side, c):
+    """At C = 96 to 512 the bf16 ODEfunc runs the rows build (``stage``
+    ``'rows_bf16'``: seven launches a call, each conv one bf16 ``wgmma``
+    GEMM over the rows of every sample): bit for bit the per-sample kernel
+    it replaced (``probes/timing_aids.py`` ``odefunc_cta_bf16``) at B = 256
+    and 5, a row independent of its batch, within ``bf16_distances.BARS``
+    of the plain bf16 f, one ``launches_bf16`` a call, and a captured call
+    counted once by the graph route (its last kernel), replayed after an
+    in-place weight change bit for bit the eager call's."""
+    from neural_ode_features_tpu_torch.probes.timing_aids import (
+        odefunc_cta_bf16,
+    )
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    assert stage((side, side), c, "bf16") == "rows_bf16"
+    cfg = dataclasses.replace(ENTRY_CONFIG, hidden=c)
+    params = init_odenet(2, cfg, device=dev)
+    wt = prepare(params["odefunc"], (side, side))
+    rng = np.random.default_rng(c)
+    h = torch.from_numpy((rng.normal(size=(256, side, side, c)) * 0.3)
+                         .astype(np.float32)).to(dev)
+    t0 = torch.from_numpy(rng.uniform(0, 1, 256).astype(np.float32)).to(dev)
+
+    def fn(b=256):
+        return odefunc(wt, t0[:b].contiguous(), h[:b].contiguous(),
+                       groups=32, compute_dtype=torch.bfloat16)
+
+    before = odefunc.launches_bf16
+    full = fn()
+    torch.cuda.synchronize()
+    assert odefunc.launches_bf16 == before + 1
+    assert torch.equal(full, odefunc_cta_bf16(wt, t0, h, 32))
+    assert torch.equal(fn(5), full[:5])
+    assert torch.equal(odefunc_cta_bf16(wt, t0[:5].contiguous(),
+                                        h[:5].contiguous(), 32), full[:5])
+    readings = bf16_distances.odefunc_readings(wt, t0, h, 32)
+    assert not bf16_distances.check(readings), readings
+    side_s = torch.cuda.Stream()
+    side_s.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side_s):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side_s)
+    rules = {(w.__name__, a): k for w, a, k
+             in attempt_graph._kernel_wrappers()}
+    nodes = attempt_graph.kernel_nodes(graph.raw_cuda_graph())
+    assert attempt_graph._count(nodes, rules[("odefunc", "launches_bf16")]) == 1
+    assert attempt_graph._count(nodes, rules[("odefunc", "launches")]) == 0
+    graph.instantiate()
+    with torch.no_grad():
+        wt.w1.mul_(1.25)
+    eager = fn().clone()
+    assert not torch.equal(eager, full)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("batch,hh,ww,c", [
+    (256, 7, 7, 256), (256, 7, 7, 512), (5, 6, 6, 512), (5, 7, 7, 160),
+    (3, 14, 14, 96), (5, 7, 7, 72)])
+def test_rows_kernel_strategies_are_mma_bf16(dev, batch, hh, ww, c):
+    """Past C = 64 at C % 8 == 0 the probe's ``tap9_bf16`` runs the rows
+    kernel (``csrc/rows_conv.cuh``): bit for bit ``mma_bf16`` where that
+    runs, ``im2col_bf16`` too where C % 64 == 0; both tiles alike; a slice
+    of the batch gives the same rows; within the f32 reassociation of the
+    plain bf16 conv; one launch a call."""
+    from neural_ode_features_tpu_torch.kernels.conv3x3 import supported
+
+    x, w = probe_inputs(batch, dev, (hh, ww), c)
+    before = conv3x3.launches
+    got = conv3x3(x, w, "tap9_bf16")
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        conv3x3_plain(x, w, passes="bf16").cpu().numpy(), **CONV_TOL)
+    for rows in (64, 128):
+        assert torch.equal(conv3x3(x, w, "tap9_bf16", tile_rows=rows), got)
+    if supported((hh, ww), c, "mma_bf16"):
+        assert torch.equal(conv3x3(x, w, "mma_bf16"), got)
+    if c % 64 == 0:
+        assert torch.equal(conv3x3(x, w, "im2col_bf16"), got)
+    if batch > 3:
+        assert torch.equal(conv3x3(x[1:4].contiguous(), w, "tap9_bf16"),
+                           got[1:4])
+
+
 # ---- the probe's im2col_bf16 on bf16 wgmma, and its wgmma_bf16 strategy ----
 
 

@@ -281,9 +281,9 @@ def _cpp(name):
     return int(m.group(1))
 
 
-def _cpp_return(signature):
+def _cpp_return(signature, source="conv_probe.cu"):
     m = re.search(re.escape(signature) + r" \{\s*return (.*?);\s*\}",
-                  (CSRC / "conv_probe.cu").read_text(), re.S)
+                  (CSRC / source).read_text(), re.S)
     assert m, f"{signature} not found"
     return (" ".join(m.group(1).split()).replace("&&", " and ")
             .replace("(long long)", "").replace("1LL", "1"))
@@ -297,12 +297,19 @@ def _cpp_window_bytes(mw, w, c):
 
 
 def _cpp_shape_ok(b, hh, ww, c):
+    """The probe's C++ gate of the rows strategies: the window kernel's
+    (``i2w_shape_ok``) or the rows kernel's (csrc/rows_conv.cuh
+    ``rows_ok``)."""
+    env = {"B": b, "H": hh, "W": ww, "C": c}
     expr = _cpp_return("inline bool i2w_shape_ok(int B, int H, int W, int C)")
-    return bool(eval(expr, {"__builtins__": {}},  # noqa: S307
-                     {"B": b, "H": hh, "W": ww, "C": c,
-                      "kI2wMaxC": _cpp("kI2wMaxC"),
-                      "kI2wMaxWindow": _cpp("kI2wMaxWindow"),
-                      "i2w_window_bytes": _cpp_window_bytes}))
+    window = bool(eval(expr, {"__builtins__": {}},  # noqa: S307
+                       {**env, "kI2wMaxC": _cpp("kI2wMaxC"),
+                        "kI2wMaxWindow": _cpp("kI2wMaxWindow"),
+                        "i2w_window_bytes": _cpp_window_bytes}))
+    expr = _cpp_return("inline bool rows_ok(int B, int H, int W, int C)",
+                       "rows_conv.cuh")
+    return window or bool(eval(expr, {"__builtins__": {}},  # noqa: S307
+                               {**env, "kMmaC": 64, "kMaxC": 512}))
 
 
 def test_the_constants_are_mirrored():
@@ -340,13 +347,19 @@ def test_gate_takes_every_old_shape_and_more():
         assert supported(hw, c, "im2col_bf16")
         assert not supported(hw, c, "im2col")
     for hw, c in (((7, 7), 132), ((7, 7), 6), ((7, 7), 0), ((0, 7), 64),
-                  ((7, 7), 256), ((2, 96), 128), ((2, 224), 64)):
+                  ((2, 224), 64), ((2, 300), 124), ((7, 7), 260),
+                  ((7, 7), 520)):
         assert not supported(hw, c, "im2col_bf16")
     assert supported((2, 95), 128, "im2col_bf16")
     assert supported((2, 223), 64, "im2col_bf16")
+    # Past the window, at C % 8 == 0 from 72 to 512, the rows kernel.
+    assert supported((7, 7), 256, "im2col_bf16")
+    assert supported((2, 96), 128, "im2col_bf16")
     for hh, ww, c in [(7, 7, 64), (5, 5, 128), (9, 8, 64), (1, 1, 4),
                       (7, 7, 132), (7, 7, 6), (0, 7, 64), (3, 3, 2),
-                      (2, 95, 128), (2, 96, 128), (1, 1024, 4)]:
+                      (2, 95, 128), (2, 96, 128), (1, 1024, 4),
+                      (2, 300, 124), (7, 7, 256), (7, 7, 512), (7, 7, 520),
+                      (2, 96, 128), (7, 7, 160), (1, 1024, 72)]:
         assert _cpp_shape_ok(1, hh, ww, c) == supported((hh, ww), c,
                                                         "im2col_bf16")
     assert not _cpp_shape_ok(2 ** 20, 64, 64, 64)
@@ -387,9 +400,15 @@ def test_wgmma_bf16_strategy_gate_and_cpu_path():
     for strategy, rows in (("mma_bf16", 64), ("im2col_bf16", 96)):
         with pytest.raises(ValueError, match="tile_rows"):
             conv3x3(x, w, strategy, tile_rows=rows)
-    x128, w128 = _draw(1, (5, 5), 128)
+    # 128-row tiles on the window kernel only at C <= 64 (C = 100: the
+    # window kernel, C % 8 != 0); the rows kernel takes 64 or 128 at any
+    # width.
+    x100, w100 = _draw(1, (5, 5), 100)
     with pytest.raises(ValueError, match="tile_rows"):
-        conv3x3(x128, w128, "im2col_bf16", tile_rows=128)
+        conv3x3(x100, w100, "im2col_bf16", tile_rows=128)
+    x128, w128 = _draw(1, (5, 5), 128)
+    assert torch.equal(conv3x3(x128, w128, "im2col_bf16", tile_rows=128),
+                       conv3x3_plain(x128, w128, passes="bf16"))
 
 
 def test_graph_route_counts_the_probe_kernels():

@@ -194,10 +194,12 @@ def test_stage_is_decided_by_the_shape():
         want = "wgmma3" if c in WGMMA_C else "mma3"
         assert stage((7, 7), c) == stage((6, 6), c) == stage((5, 5), c) == want
         # The bf16 builds, the fused step's bf16 convs among them, run
-        # wgmma_bf16 at the widths of WGMMA_C and the mma.sync stage at the
-        # others.
+        # wgmma_bf16 at the widths of WGMMA_C; at the others the fused
+        # step's run the mma.sync stage and the bf16 dynamics the rows
+        # build.
         want16 = "wgmma_bf16" if c in WGMMA_C else "mma3"
-        assert stage((7, 7), c, "bf16") == stage((6, 6), c, "bf16") == want16
+        assert stage((7, 7), c, "bf16") == stage((6, 6), c, "bf16") == (
+            "wgmma_bf16" if c in WGMMA_C else "rows_bf16")
         assert stage((7, 7), c, "bf16_conv") == want16
     assert stage((7, 7), 64, "bf16") == stage((6, 6), 64, "bf16") == "wgmma_bf16"
     assert (stage((7, 7), 64, "bf16_conv") == stage((6, 6), 64, "bf16_conv")
@@ -251,7 +253,7 @@ def test_gate_mirrors_at_every_width(c):
         assert stage(hw, c, "bf16_conv") == (
             "ffma" if c == 32 else "wgmma_bf16" if c in WGMMA_C else "mma3")
         assert stage(hw, c, "bf16") in (("ffma",) if c == 32
-                                        else ("mma3", "wgmma_bf16"))
+                                        else ("rows_bf16", "wgmma_bf16"))
         assert stage(hw, c) in (("ffma",) if c == 32 else ("mma3", "wgmma3"))
         assert supported(hw, c, 32) and bwd_supported(hw, c, 32)
         fwd, bwd = layout(hw, c, 32), layout(hw, c, 32, backward=True)

@@ -393,6 +393,61 @@ def test_usr1_totals_between_phases(artifact, tmp_path, monkeypatch):
     assert "listen: loop ended" in err_path.read_text()
 
 
+def _tgkill(pid: int, tid: int, sig: int) -> bool:
+    """``sig`` to thread ``tid`` of process ``pid``; False if it has gone."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    return libc.tgkill(pid, tid, sig) == 0
+
+
+def test_usr1_taken_by_another_thread(artifact, tmp_path, monkeypatch):
+    """The totals come also when a thread other than the host's main thread
+    takes ``SIGUSR1`` (the OS may hand a process's signal to any of its
+    threads): the main thread waits in ``select()``, which that signal does
+    not interrupt, so the loop must be woken through a pipe."""
+    import signal
+    import time
+
+    art = artifact[0]
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    addr = serve_probe.short_addr(tmp_path)
+    err_path = tmp_path / "host.err"
+
+    def n_stats():
+        return err_path.read_text().count(serve_probe.STATS_TAG)
+
+    with open(err_path, "wb") as err_f:
+        proc = serve_probe.spawn_host(art, addr, "--cpu", err_file=err_f)
+        try:
+            assert serve_probe.readline_within(proc, WAIT) == f"READY {addr}"
+            tids = sorted(int(t) for t in os.listdir(f"/proc/{proc.pid}/task")
+                          if int(t) != proc.pid)
+            assert tids, "the host runs no thread beside its main thread"
+            sent = 0
+            for tid in tids[:3]:
+                n = n_stats()
+                if not _tgkill(proc.pid, tid, signal.SIGUSR1):
+                    continue
+                sent += 1
+                end = time.perf_counter() + WAIT
+                while n_stats() <= n:
+                    assert time.perf_counter() < end and proc.poll() is None, (
+                        f"no stats line after SIGUSR1 to thread {tid}")
+                    time.sleep(0.01)
+            assert sent
+            s = serve_probe.host_stats(proc, err_path, timeout=WAIT)
+            assert (s["flights"], s["requests"]) == (0, 0)
+            client = SocketClient(addr)
+            client.close(shutdown_server=True)
+            assert proc.wait(timeout=WAIT) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=WAIT)
+    assert n_stats() == sent + 1
+
+
 def test_tcp(artifact):
     _, x, want = artifact
     probe = socket.socket(socket.AF_INET, socket.SOCK_STREAM)

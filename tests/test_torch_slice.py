@@ -148,7 +148,8 @@ def test_widths_outside_the_kernels_gate_are_refused(c):
     (every multiple of 32 up to 512; C = 32 on the FFMA stage, the rest on
     the tensor cores: ``wgmma3`` and ``wgmma_bf16`` at the widths of
     ``WGMMA_C`` in the f32 and bf16 builds, the fused step's
-    ``'bf16_conv'`` among them, ``mma3`` at the rest).  Off the CPU a wrapper launches its kernel or
+    ``'bf16_conv'`` among them, ``mma3`` at the rest, where the bf16
+    dynamics run ``rows_bf16``).  Off the CPU a wrapper launches its kernel or
     raises; a refused shape raises before anything is launched, naming the
     JAX gate's clause.  Meta tensors stand in for the card's: they get past
     the CPU branch and fail the device check, so only the shape gate can
@@ -161,7 +162,7 @@ def test_widths_outside_the_kernels_gate_are_refused(c):
         assert stage(hw, c, "bf16_conv") == (
             ("wgmma_bf16" if c in WGMMA_C else "mma3") if tc else "ffma")
         assert stage(hw, c, "bf16") == (
-            ("wgmma_bf16" if c in WGMMA_C else "mma3") if tc else "ffma")
+            ("wgmma_bf16" if c in WGMMA_C else "rows_bf16") if tc else "ffma")
         assert stage(hw, c) == (("wgmma3" if c in WGMMA_C else "mma3") if tc
                                 else "ffma")
     cfg = ModelConfig(in_channels=3, hidden=c)

@@ -191,7 +191,10 @@ def test_gate_takes_every_old_shape_and_more():
             for c in (4, 36, 64, 100, 128, 132, 256):
                 assert (supported((hh, ww), c, "tap9_bf16")
                         == supported((hh, ww), c, "im2col_bf16"))
-    assert not supported((7, 7), 256, "tap9_bf16")
+    # Past C = 128 the rows kernel (C % 8 == 0, to 512) takes the width.
+    assert supported((7, 7), 256, "tap9_bf16")
+    assert not supported((7, 7), 260, "tap9_bf16")
+    assert not supported((7, 7), 520, "tap9_bf16")
     assert set(ROWS_STRATEGIES) == {"im2col_bf16", "tap9_bf16"}
 
 
