@@ -147,8 +147,19 @@ Phases (any failed check exits nonzero and prints no result):
    ``F.conv2d`` on bf16 tensors; at 7×7 and the probe's widths
    ``tap9_bf16`` and ``im2col_bf16`` against the plain bf16 conv, bit for
    bit ``mma_bf16`` (``im2col_bf16`` where C % 64 == 0), raced beside it
-   and ``F.conv2d`` bf16 in turns; one epoch each of ``train
-   --hidden 128`` and ``--hidden 512``; C = 544 and C = 48 refused before
+   and ``F.conv2d`` bf16 in turns; at every shape with C ≥ 96 the bf16
+   backward, which runs the rows backward there (``sample_pass``
+   ``'rows'``, read from a captured call: its recompute and both
+   input-gradient convs on the rows conv, the last two on its transposed
+   packing): one launch counted a call, dθ, dt, dh and f bit for bit the
+   one-CTA pass it replaced (``probes/timing_aids.py``
+   ``odefunc_bwd_cta_bf16``) at B = 128 and 5 and a second launch's, the
+   plain bf16 VJP within ``BARS``; at 7×7×96 and 7×7×512 a bf16 adjoint
+   train step by the launch rule (NFE-b − 1 ``odefunc_bwd_bf16``) and the
+   call's device ms in turns beside the one-CTA pass and autograd through
+   ``F.group_norm`` + ``F.conv2d`` on bf16 tensors; one epoch each of
+   ``train --hidden 128``, ``--hidden 512`` and ``--bf16 --hidden 512``
+   (each step by its launch rule); C = 544 and C = 48 refused before
    any launch, naming the JAX kernels' gate.  ``[foreign]``: CIFAR-10 binary
    batches and MNIST IDX files (labels gzipped) written from the synthetic
    twins read back through ``load_dataset``; the JAX run directory
@@ -519,38 +530,26 @@ def gradient_bar(name, got, want):
 def library_f(h, t, wt):
     """One f through PyTorch's library calls (``F.group_norm``,
     ``F.conv2d`` on NCHW with the t channel concatenated): the yardstick of
-    the ODEfunc kernel, which the port itself never calls.  ``wt``: the raw
-    ODEfunc params, ``h`` (B, H, W, C), ``t`` (B,)."""
-    import torch
-    import torch.nn.functional as F
+    the ODEfunc kernel, which the port itself never calls
+    (``probes.conv_probe.library_f``).  ``wt``: the raw ODEfunc params,
+    ``h`` (B, H, W, C), ``t`` (B,)."""
+    from neural_ode_features_tpu_torch.probes.conv_probe import (
+        library_f as lib_f,
+    )
 
-    xn = h.permute(0, 3, 1, 2)
-    tmap = t.view(-1, 1, 1, 1).expand(-1, 1, *h.shape[1:3])
-    out = F.relu(F.group_norm(xn, G, wt["norm1"]["scale"],
-                              wt["norm1"]["bias"], 1e-5))
-    out = F.conv2d(torch.cat([tmap, out], 1),
-                   wt["conv1"]["kernel"].permute(3, 2, 0, 1),
-                   wt["conv1"]["bias"], padding=1)
-    out = F.relu(F.group_norm(out, G, wt["norm2"]["scale"],
-                              wt["norm2"]["bias"], 1e-5))
-    out = F.conv2d(torch.cat([tmap, out], 1),
-                   wt["conv2"]["kernel"].permute(3, 2, 0, 1),
-                   wt["conv2"]["bias"], padding=1)
-    return F.group_norm(out, G, wt["norm3"]["scale"], wt["norm3"]["bias"],
-                        1e-5).permute(0, 2, 3, 1)
+    return lib_f(h, t, wt, G)
 
 
 def library_bwd(h, t, wt, g):
     """The backward yardstick: ``torch.autograd.grad`` through
     :func:`library_f` w.r.t. h, t and the raw weights (its forward
-    included, as the backward kernel recomputes it)."""
-    import torch
+    included, as the backward kernel recomputes it;
+    ``probes.conv_probe.library_bwd``)."""
+    from neural_ode_features_tpu_torch.probes.conv_probe import (
+        library_bwd as lib_bwd,
+    )
 
-    wl = {k: {kk: v.detach().requires_grad_() for kk, v in d.items()}
-          for k, d in wt.items()}
-    hl, tl = h.detach().requires_grad_(), t.detach().requires_grad_()
-    return torch.autograd.grad(library_f(hl, tl, wl), [hl, tl] + leaves(wl),
-                               g)
+    return lib_bwd(h, t, wt, g, G)
 
 
 def fused_bounds(hw, c, b, b_bwd, tensor_peak=H100_TF32_FLOPS):
@@ -878,9 +877,12 @@ def main() -> int:
         how: the call captured into a CUDA graph (not run) and the graph's
         kernel nodes read back from the driver
         (``attempt_graph.kernel_launches``).  Returns ``(pass, grid, block,
-        shared, name)``, pass ``'cluster'`` (``bwd_sample_kernel_cluster``)
-        or ``'cta'`` (``bwd_sample_kernel``), name the kernel's mangled
-        name (its build: ``Li0EE`` f32, ``Li2EE`` bf16); fails unless the call launched
+        shared, name)``, pass ``'cluster'`` (``bwd_sample_kernel_cluster``),
+        ``'cta'`` (``bwd_sample_kernel``) or ``'rows'`` (the bf16 rows
+        backward, read from its last per-sample kernel,
+        ``rows_bwd_dh_kernel``), name the kernel's mangled
+        name (its build: ``Li0EE`` f32, ``Li2EE`` bf16; the rows backward
+        is bf16 only); fails unless the call launched
         exactly one of them.  The launch counters are left as they were."""
         from neural_ode_features_tpu_torch.solver import attempt_graph
 
@@ -897,7 +899,8 @@ def main() -> int:
                     graph.capture_end()
             torch.cuda.current_stream().wait_stream(side)
             ran = [k for k in attempt_graph.kernel_launches(
-                graph.raw_cuda_graph()) if "bwd_sample_kernel" in k[0]]
+                graph.raw_cuda_graph()) if "bwd_sample_kernel" in k[0]
+                or "rows_bwd_dh_kernel" in k[0]]
         finally:
             graph.reset()
             odefunc_bwd.launches, odefunc_bwd.launches_bf16 = before
@@ -905,7 +908,8 @@ def main() -> int:
             fail(f"odefunc_bwd: one call launched the per-sample kernels "
                  f"{[k[0] for k in ran]}, not one")
         name, grid, block, shared = ran[0]
-        pass_ = "cluster" if "bwd_sample_kernel_cluster" in name else "cta"
+        pass_ = ("cluster" if "bwd_sample_kernel_cluster" in name
+                 else "rows" if "rows_bwd_dh_kernel" in name else "cta")
         return pass_, grid, block, shared, name
 
     def profiled_ms(fn, keys):
@@ -2409,7 +2413,7 @@ def main() -> int:
         quick = dict(reps=3, blocks=3)
 
         def width_bf16(hw, c, tag, wcfg, wparams, ww_, hx, tx, xin, hbx,
-                       tbx, gx):
+                       tbx, gx, bwd_err):
             """The bf16 dynamics at a width of the rows build (C >= 96):
             the stage's name; one call counted (one odefunc_bf16 launch);
             bit for bit the per-sample build's (timing aid
@@ -2419,8 +2423,9 @@ def main() -> int:
             from 0, by the launch rule (2 + 6 attempts), and at 7x7x512 on
             the graph cache and on the host loop, bit-identical; device ms
             of the rows build and the per-sample build in turns, beside
-            F.group_norm and F.conv2d on bf16 tensors.  Returns the
-            kernels-line entry."""
+            F.group_norm and F.conv2d on bf16 tensors.  Then the bf16
+            backward there, the rows backward (width_bwd_bf16).  Returns
+            the kernels-line entries."""
             from neural_ode_features_tpu_torch.probes.timing_aids import (
                 odefunc_cta_bf16,
             )
@@ -2508,7 +2513,120 @@ def main() -> int:
                       f"{v:.4f}" for v in turns) + f"; F.group_norm + "
                   f"F.conv2d on bf16 tensors {lib16:.4f}; bound "
                   f"{entry['bound_ms']:.4f} ({entry['bound_by']})")
-            return entry
+            return [entry, *width_bwd_bf16(hw, c, tag, ww_, wparams, hbx,
+                                           tbx, gx, bwd_err)]
+
+        def width_bwd_bf16(hw, c, tag, ww_, wparams, hbx, tbx, gx, bwd_err):
+            """The bf16 backward at a width of the rows backward (C >= 96):
+            the gate's pass and the one launched ('rows', read from a
+            captured call); at B = 128 and 5, one call counted (one
+            odefunc_bwd_bf16 launch), every output (dθ, dt, dh, f) bit for
+            bit the one-CTA pass's (timing aid odefunc_bwd_cta_bf16) and a
+            second launch's (BARS: the width's bwd_readings, bwd_err its
+            max abs err).  At 7x7x96 and 7x7x512 a bf16 adjoint train step
+            through the Trainer, counters from 0, by the launch rule
+            (NFE-b - 1 odefunc_bwd_bf16), and the call's device ms in
+            turns (one-CTA, rows, rows, one-CTA) beside autograd through
+            F.group_norm + F.conv2d on bf16 tensors: a kernels-line entry.
+            Returns the entries."""
+            from neural_ode_features_tpu_torch.probes.timing_aids import (
+                odefunc_bwd_cta_bf16,
+            )
+
+            bf = torch.bfloat16
+            gate = sample_pass(hw, c, G, "bf16")
+            pass_, grid, block, shared, _ = ran_sample_pass(
+                lambda: odefunc_bwd(ww_, tbx, hbx, gx, groups=G,
+                                    precision="bf16"))
+            if gate != "rows" or pass_ != "rows":
+                fail(f"[width] {tag} odefunc_bwd bf16: the gate says "
+                     f"{gate!r}, the {pass_} pass launched, not the rows "
+                     "backward")
+
+            def outs(res):
+                dp_, *rest = res
+                return [*(dp_[a][b] for a in sorted(dp_)
+                          for b in sorted(dp_[a])), *rest]
+
+            same = {}
+            for nb in (B_TRAIN, 5):
+                args = (tbx[:nb].contiguous(), hbx[:nb].contiguous(),
+                        gx[:nb].contiguous())
+                got_, _, n_b = counted(lambda: odefunc_bwd(
+                    ww_, *args, groups=G, with_f=True, precision="bf16"))
+                if n_b != {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                           "odefunc_bwd_bf16": 1}:
+                    fail(f"[width] {tag} odefunc_bwd bf16 B={nb}: launches "
+                         f"{n_b}")
+                cta_ = odefunc_bwd_cta_bf16(ww_, *args, G, with_f=True)
+                again_ = odefunc_bwd(ww_, *args, groups=G, with_f=True,
+                                     precision="bf16")
+                same[f"B={nb} one-CTA pass"] = all(
+                    torch.equal(a_, b_) for a_, b_ in zip(outs(got_),
+                                                          outs(cta_)))
+                same[f"B={nb} two launches"] = all(
+                    torch.equal(a_, b_) for a_, b_ in zip(outs(got_),
+                                                          outs(again_)))
+            print(f"[width] {tag} odefunc_bwd bf16 (the rows backward: "
+                  f"{grid[0]} CTAs of {block[0]} threads, {shared} B in its "
+                  f"last per-sample launch): dθ, dt, dh, f bit for bit "
+                  f"{same}; BARS held (max abs err {bwd_err:.3e})")
+            if not all(same.values()):
+                fail(f"[width] {tag} odefunc_bwd bf16: {same}")
+            if hw != (HH, WW) or c not in (96, 512):
+                return []
+            tr16 = Trainer(dataclasses.replace(
+                TRAIN_CONFIG, hidden=c, batch_size=B_TRAIN,
+                compute_dtype="bfloat16", dataset="synthetic-cifar10"),
+                steps_per_epoch=10, device=dev)
+            timg, tlab = load_dataset(tr16.cfg.dataset, "train",
+                                      limit=B_TRAIN)
+            m16, t16s, n16t = counted(lambda: tr16.train_batch(
+                timg, tlab.astype(np.int64)))
+            att16 = batch_attempts(tr16.last_stats.nfe)
+            want16 = {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                      "odefunc_bf16": 2 + 6 * att16 + 1,
+                      "odefunc_bwd_bf16": int(m16["nfe_b"]) - 1}
+            print(f"[width] {tag} bf16 adjoint train step B={B_TRAIN}: "
+                  f"{t16s:.3f} s (first), loss {m16['loss']:.5f}, NFE-b "
+                  f"{int(m16['nfe_b'])}, launches {n16t}")
+            if n16t != want16 or not np.isfinite(m16["loss"]):
+                fail(f"[width] {tag} bf16 train step: launches {n16t}, "
+                     f"want {want16}, or the loss is not finite")
+            raw16 = {k: {kk: v.to(bf) for kk, v in d.items()}
+                     for k, d in wparams["odefunc"].items()}
+            hb16, tb16, gb16 = hbx.to(bf), tbx.to(bf), gx.to(bf)
+
+            def rows_():
+                return odefunc_bwd(ww_, tbx, hbx, gx, groups=G,
+                                   precision="bf16")
+
+            def cta_():
+                return odefunc_bwd_cta_bf16(ww_, tbx, hbx, gx, G)
+
+            turns = [device_ms(fn, reps=10) for fn in (cta_, rows_, rows_,
+                                                       cta_)]
+            lib_b = device_ms(lambda: library_bwd(hb16, tb16, raw16, gb16),
+                              reps=10)
+            entry = {
+                "name": "odefunc_bwd_bf16", "shape": tag, "route": "cuda",
+                "source": "neural_ode_features_tpu_torch/csrc/odefunc_bwd.cu",
+                "replaces": REPLACES["odefunc_bwd"],
+                "launches": n16t["odefunc_bwd_bf16"],
+                "max_abs_err": bwd_err, "ms": (turns[1] + turns[2]) / 2,
+                "plain_ms": time_ms(lambda: odefunc_bwd_plain(
+                    ww_, tbx, hbx, gx, G, precision="bf16"), **quick),
+                **fused_bounds(hw, c, B, B_TRAIN, H100_BF16_FLOPS)[
+                    "odefunc_bwd"],
+                "library_ms": lib_b, "stage": "rows backward",
+                "precision": "bf16", "cta_ms": (turns[0] + turns[3]) / 2,
+                "turns_ms": turns}
+            print(f"[width] {tag} bf16 odefunc_bwd device ms in turns "
+                  f"(one-CTA, rows, rows, one-CTA): " + ", ".join(
+                      f"{v:.4f}" for v in turns) + f"; autograd through "
+                  f"F.group_norm + F.conv2d on bf16 tensors {lib_b:.4f}; "
+                  f"bound {entry['bound_ms']:.4f} ({entry['bound_by']})")
+            return [entry]
 
         for hw_h, hw_w, c in WIDTH_SHAPES:
             t_shape = time.perf_counter()
@@ -2703,8 +2821,9 @@ def main() -> int:
                 f"{e_['plain_ms']:.3f}, library {e_['library_ms']})"
                 for e_ in entries[-3:]))
             if c >= 96:
-                entries.append(width_bf16(hw, c, tag, wcfg, wparams, ww_, hx,
-                                          tx, xin, hbx, tbx, gx))
+                entries.extend(width_bf16(hw, c, tag, wcfg, wparams, ww_, hx,
+                                          tx, xin, hbx, tbx, gx,
+                                          r16["max_abs_err"]))
             print(f"[width] {tag} took {time.perf_counter() - t_shape:.1f} s")
 
         # The probe's tensor-core kernels at the PROBE_WIDTHS against the
@@ -2812,27 +2931,34 @@ def main() -> int:
                   f"{c} {m_:.4f} / {l_:.4f} ({m_ / l_:.2f}x)"
                   for c, (m_, l_) in mma16.items()))
 
-        # One epoch of `train --hidden 128` and of `--hidden 512` at the
-        # [train-cli] size, the launch rule on every step.
-        for hidden in (128, 512):
+        # One epoch of `train --hidden 128`, of `--hidden 512` and of
+        # `--bf16 --hidden 512` (the rows build and the rows backward) at
+        # the [train-cli] size, the launch rule on every step.
+        for hidden, bf16_ in ((128, False), (512, False), (512, True)):
+            flag = " --bf16" if bf16_ else ""
             with tempfile.TemporaryDirectory() as runs_w:
                 run_w, t_run, got, st_, ev_ = run_train([
                     "--dataset", "synthetic-cifar10", "--batch-size",
                     str(B_TRAIN), "--limit", "1280", "--epochs", "1",
-                    "--hidden", str(hidden), "--runs-dir", runs_w])
+                    "--hidden", str(hidden), "--runs-dir", runs_w,
+                    *flag.split()])
                 (row,) = log_rows(run_w)
-            cli_launches[f"train_hidden{hidden}"] = got
-            print(f"[width] train --hidden {hidden}: 1 epoch, {len(st_)} "
-                  f"steps, {len(ev_)} evaluation batches in {t_run:.1f} s; "
-                  f"launches {got}; " + " | ".join(f"{k}={v}"
-                                                   for k, v in row.items()))
-            rule = all(s_["launches"] == {
+            cli_launches[f"train_hidden{hidden}"
+                         + ("_bf16" if bf16_ else "")] = got
+            print(f"[width] train{flag} --hidden {hidden}: 1 epoch, "
+                  f"{len(st_)} steps, {len(ev_)} evaluation batches in "
+                  f"{t_run:.1f} s; launches {got}; " + " | ".join(
+                      f"{k}={v}" for k, v in row.items()))
+            rule = all(s_["launches"] == ({
+                "odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
+                "odefunc_bf16": 2 + 6 * s_["attempts"] + 1,
+                "odefunc_bwd_bf16": s_["nfe_b"] - 1} if bf16_ else {
                 "odefunc": 2 + 6 * s_["attempts"] + 1,
-                "odefunc_bwd": s_["nfe_b"] - 1, "rk_step": 0} for s_ in st_)
+                "odefunc_bwd": s_["nfe_b"] - 1, "rk_step": 0}) for s_ in st_)
             if (len(st_) != 10 or not rule
                     or not np.isfinite(float(row["train_loss"]))):
-                fail(f"[width] train --hidden {hidden}: the epoch or its "
-                     "launches")
+                fail(f"[width] train{flag} --hidden {hidden}: the epoch or "
+                     "its launches")
 
         # Widths the JAX kernels refuse (C > 512; C % groups != 0) are
         # refused before any launch, naming that gate.
@@ -3361,8 +3487,9 @@ def main() -> int:
         # dθ bit-identical over two launches (bf16_distances.bwd_readings).
         # Which per-sample pass each call launched, read from the call
         # captured into a CUDA graph (its kernel node's name, grid, block
-        # and shared memory): the gate's (sample_pass), and the cluster's
-        # kBf16 build at 7×7×64, B = 128 and 16, and 6×6×64, B = 128.
+        # and shared memory): the gate's (sample_pass), the cluster's
+        # kBf16 build at 7×7×64, B = 128 and 16, and 6×6×64, B = 128, and
+        # the rows backward at 7×7×512.
         t_b = time.perf_counter()
         err_b16 = 0.0
         bf16_passes = {}
@@ -3387,7 +3514,7 @@ def main() -> int:
                                     precision="bf16"))
             must = (hh_, ww_, c_, nb) in ((HH, WW, C, B_TRAIN),
                                           (HH, WW, C, 16), (6, 6, C, B_TRAIN))
-            if (pass_ != gate or "Li2EE" not in name
+            if (pass_ != gate or (pass_ != "rows" and "Li2EE" not in name)
                     or (must and pass_ != "cluster")):
                 fail(f"[bf16] odefunc_bwd bf16 {tag}: launched {name} (the "
                      f"{pass_} pass); the gate says {gate}"
@@ -3413,6 +3540,8 @@ def main() -> int:
             "odefunc kBf16": kernel_sass("odefunc", "odefunc_kernelILb0ELb0ELi2EE"),
             "odefunc_bwd cluster kBf16": kernel_sass(
                 "odefunc_bwd", "bwd_sample_kernel_clusterILi2EE"),
+            "odefunc_bwd rows conv": kernel_sass(
+                "odefunc_bwd", "rows_conv_kernel"),
             "rk_step kBf16Conv": kernel_sass(
                 "rk_step", "rk_step_kernelILb0ELb0ELi1EE")}
         hgmma = {k: sum(1 for ln in v.splitlines()
@@ -3423,8 +3552,8 @@ def main() -> int:
               f"6x6x{C}; bf16 HGMMA instructions in the build: {hgmma}")
         if not all(hgmma.values()):
             fail(f"[bf16] the builds' bf16 warpgroup products {hgmma}: the "
-                 "kBf16 odefunc, the cluster pass and the fused step's "
-                 "kBf16Conv build must hold them")
+                 "kBf16 odefunc, the cluster pass, the rows backward's conv "
+                 "and the fused step's kBf16Conv build must hold them")
         # The probe's bf16 twins: their operands round alike, f32
         # reassociation; the f32 conv lies outside that tolerance.
         for nb, hw_ in ((B, (HH, WW)), (5, (HH, WW)), (B, (6, 6))):
@@ -5259,6 +5388,7 @@ def main() -> int:
                        ("odefunc", "sweep_adams_fused"),
                        ("odefunc_bwd", "train_hidden128"),
                        ("odefunc_bwd", "train_hidden512"),
+                       ("odefunc_bwd_bf16", "train_hidden512_bf16"),
                        ("rk_step", "parity_run"),
                        ("odefunc_bwd", "population"),
                        ("odefunc", "parallel"), ("odefunc_bwd", "parallel"),

@@ -31,7 +31,9 @@
 //   rows_conv (w2)        u2 into out;
 //   rows_gn_out_kernel    GN3 of u2 per sample: f, over out.
 // The GroupNorms are gn_stats and gn_apply of the per-sample kernel under
-// the same Shape and thread map, so their sums keep their order, and the
+// the same Shape and thread map (rows_gn; it and the conv epilogue
+// ConcatEpi live in rows_conv.cuh, which the bf16 backward's rows build
+// shares), so their sums keep their order, and the
 // convs sum in mma_bf16's order: the rows build gives the per-sample
 // build's bits (odefunc_forward_bf16_cta, kept for measurement only).  A
 // row's sums do not depend on its tile, so a row does not depend on its
@@ -75,33 +77,6 @@ int launch(const float* t, const float* h, const Odefunc& p, float* out,
   return (int)cudaGetLastError();
 }
 
-// The rows build's GroupNorm of one sample (CTA) from x (B, H*W*C) f32:
-// x rounded to bf16 into shared memory (the bf16 dynamics' entry rounding
-// of h; u1 and u2 hold bf16 values already), gn_stats, then gn_apply<kBf16>
-// in the per-sample kernel's thread map, each value handed to out(e, v).
-template <class Out>
-__device__ __forceinline__ void rows_gn(const float* __restrict__ x,
-                                        const float* __restrict__ scale,
-                                        const float* __restrict__ bias, const Shape& s, Out out) {
-  extern __shared__ float4 smem_raw[];
-  const int n = s.H * s.W * s.C;
-  Smem m{};
-  m.sx = reinterpret_cast<float*>(smem_raw);
-  m.sred = m.sx + n;
-  m.smean = m.sred + 2 * kThreads;
-  m.sinv = m.smean + s.G;
-  const float* xb = x + (size_t)blockIdx.x * n;
-  for (int e = threadIdx.x; e < n; e += kThreads) m.sx[e] = bf16_round(xb[e]);
-  __syncthreads();
-  const Stat st = gn_stats<true>(m, s, m.sx, m.smean, m.sinv);
-  gn_apply<true, kBf16>(s, st, m.smean, m.sinv, scale, bias, m.sx,
-                        [&](const auto& w, float v) { out(w.e, v); });
-}
-
-inline size_t rows_gn_smem_bytes(const Shape& s) {
-  return sizeof(float) * ((size_t)s.H * s.W * s.C + 2 * kThreads + 2 * (size_t)s.G);
-}
-
 // relu(GN(x)) as bf16 bit patterns: the next conv's input (gn_relu_to_pad's
 // values; NaN passes through).
 __global__ void __launch_bounds__(kThreads, 1)
@@ -120,24 +95,6 @@ rows_gn_out_kernel(const float* x, const float* __restrict__ scale,
   float* ob = out + (size_t)blockIdx.x * s.H * s.W * s.C;
   rows_gn(x, scale, bias, s, [&](int e, float v) { ob[e] = v; });
 }
-
-// The conv's epilogue: u[r, co] = concat_out<kBf16>(acc, bias[co], t[b], M[p, co])
-// for row r = b * hw + p, t rounded as odefunc_eval rounds it.
-struct ConcatEpi {
-  const float* bias;
-  const float* tmap;
-  const float* t;
-  float* u;
-  int hw, C;
-  __device__ __forceinline__ void operator()(int r, int co, float v0, float v1) const {
-    const int b = r / hw, p = r - b * hw;
-    const float tb = bf16_round(t[b]);
-    const float* m = tmap + (size_t)p * C + co;
-    *reinterpret_cast<float2*>(u + (size_t)r * C + co) =
-        make_float2(concat_out<kBf16>(v0, bias[co], tb, m[0]),
-                    concat_out<kBf16>(v1, bias[co + 1], tb, m[1]));
-  }
-};
 
 // The shapes of the rows build: the bf16 dynamics' tensor-core shapes past
 // C = 64 (kernels/odefunc.py stage gives 'rows_bf16').

@@ -119,7 +119,54 @@
 // more instructions).  Bound
 // at B = 128, 7x7x64: the 2.77 GFLOP at 989 TFLOP/s dense bf16 is 2.8 us,
 // the 6.4 MB 1.9 us: bound by operations.
+//
+// The rows backward (rows_bwd_ok: the bf16 build at the tensor-core shapes
+// of C = 96 to 512, 7x7 and 6x6 maps).  There one CTA per sample fills an
+// SM and streams all four convs' whole weights from L2 into every sample's
+// CTA, on the per-sample mma.sync stage.  In its place the per-sample pass
+// is a fixed sequence of launches on the caller's stream (launch_rows_bwd),
+// each conv one bf16 GEMM over the rows of every sample (rows_conv.cuh),
+// the per-sample work between them in per-sample launches of kThreads that
+// call bwd_sample_kernel's helpers (gn_stats, gn_apply, gn_backward,
+// gn_positive, conv_param_grads) under the same Shape and thread map, so
+// that every sum keeps its order:
+//   rows_bwd_gn_relu_kernel  h rounded, GN1 -> ReLU: r1, the conv input as
+//                            bf16, GN1's statistics (scratch);
+//   rows_conv (w1)           u = concat_out<kBf16> (ConcatEpi) into ug
+//                            (one epilogue type for the four convs,
+//                            RowsBwdEpi);
+//   rows_bwd_gn_relu_kernel  GN2 -> ReLU of u: r2, conv input, statistics;
+//   rows_conv (w2)           v into dh (dh is written last);
+//   rows_bwd_gv_kernel       GN3 of v: f; its backward under the rounded
+//                            cotangent: gv (and as bf16 the next conv's
+//                            input), conv2's parameter partials, dt's
+//                            conv2 part into dt;
+//   rows_conv (w2, kTrans)   the conv2 input gradient, each sum rounded
+//                            once (the pass's to_sx), into dh;
+//   rows_bwd_gu_kernel       ReLU2 + GN2 backward: gu, conv1's partials,
+//                            dt = bf16(dt + conv1's part);
+//   rows_conv (w1, kTrans)   the conv1 input gradient into dh;
+//   rows_bwd_dh_kernel       ReLU1 + GN1 backward: dh (each element read
+//                            as the conv's sum and written by one thread);
+// then bwd_weight_kernel and bwd_reduce_kernel as the other passes run
+// them.  The convs sum in mma_bf16's order (the transposed packing reads
+// tap 8 - k's tile transposed, as conv3x3_mma<kPassBf16, true> does), so
+// every output is bwd_sample_kernel<..., kBf16>'s bit for bit; that pass
+// stays readable as odefunc_backward_bf16_cta (measurement only).  A
+// sample's bordered cotangent (conv_param_grads' input) is in shared
+// memory in the per-sample launches that take it; the GroupNorm inputs (h,
+// u, v) and the conv sums are read from global memory (L2), as the one-CTA
+// pass reads x and u there from 7x7x288 and 7x7x224.  No atomics: two
+// launches give the same bits, and a row's sums do not depend on its tile.
+// Scratch (the wrapper's, rows_bwd_scratch_bytes): the bf16 conv input,
+// one conv's packed weights, reused by the four convs in turn, and GN1's
+// and GN2's statistics; u takes ug.  Bound at B = 128, 7x7x512
+// (utils/flops.py bwd_kernel_bounds at 989 TFLOP/s dense bf16): the four
+// convs are 4 * 2*49*9*512^2 * 128 = 59.2 GFLOP, 0.060 ms, against the
+// 25.7 MB of h, g, f, dh, r1, r2, gu, gv and the weights, 0.008 ms: bound
+// by operations.
 #include "odefunc_common.cuh"
+#include "rows_conv.cuh"
 
 namespace nodef {
 
@@ -1179,12 +1226,272 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
   }
 }
 
+// ---- the rows backward (the head of this file) ----------------------------
+
+// The per-sample launches' Shape: the forward's (make_shape: the thread
+// map, Walk, the magic divisors), with the conv input's bordered map
+// compact, pitch C and (H+2)*(W+2) rows: only conv_param_grads reads it,
+// through pad_at and the pitch, so no sum depends on its layout.
+inline Shape rows_bwd_shape(int H, int W, int C, int G) {
+  Shape s = make_shape(H, W, C, G);
+  s.P = C;
+  s.R = (H + 2) * (W + 2);
+  return s;
+}
+
+// Dynamic shared memory of the per-sample launches that take the bordered
+// map (rows_bwd_gv_kernel, rows_bwd_gu_kernel; kernels/odefunc_bwd.py
+// mirrors it): the map, 2*kThreads partial sums, 2G statistics and 4C
+// channel sums.  rows_bwd_dh_kernel takes all but the map, the recompute's
+// GroupNorms rows_gn_smem_bytes.
+inline size_t rows_bwd_smem_bytes(int H, int W, int C, int G) {
+  return sizeof(float) *
+         ((size_t)(H + 2) * (W + 2) * C + 2 * kThreads + 2 * (size_t)G + 4 * (size_t)C);
+}
+
+// The shapes of the rows backward (kernels/odefunc_bwd.py sample_pass gives
+// 'rows' for the bf16 build): the backward's gate at the bf16 dynamics'
+// rows-build shapes (the tensor-core shapes past C = 64), where the
+// bordered map fits.
+inline bool rows_bwd_ok(int H, int W, int C, int G) {
+  return bwd_shape_ok(H, W, C, G) && shape_ok(H, W, C, G) &&
+         wide_shape(make_shape(H, W, C, G)) && rows_bwd_smem_bytes(H, W, C, G) <= kMaxSmem;
+}
+
+// Bytes of the rows backward's scratch (kernels/odefunc_bwd.py mirrors
+// it): the rows conv's (the bf16 conv input, one conv's packed weights),
+// then the statistics of GN1 and GN2, (B, 2, 2, G) floats.
+inline size_t rows_bwd_scratch_bytes(int B, int H, int W, int C, int G) {
+  return rows_scratch_bytes(B, H, W, C, true) + sizeof(float) * 4 * (size_t)B * G;
+}
+
+// A per-sample launch's shared memory (rows_bwd_smem_bytes' order): the
+// bordered map where pad, the partial sums (sred, then sred2), mean[G],
+// inv[G] and the channel sums.
+struct RowsBwdSmem {
+  Smem m;
+  float* sred2;
+  float* mean;
+  float* inv;
+  float* chan;
+};
+
+__device__ __forceinline__ RowsBwdSmem rows_bwd_carve(const Shape& s, bool pad) {
+  extern __shared__ float4 smem_raw[];
+  float* p = reinterpret_cast<float*>(smem_raw);
+  RowsBwdSmem b{};
+  if (pad) {
+    b.m.spad = p;
+    p += s.R * s.P;
+  }
+  b.m.sred = p;
+  b.sred2 = p + kThreads;
+  b.mean = p + 2 * kThreads;
+  b.inv = b.mean + s.G;
+  b.chan = b.inv + s.G;
+  return b;
+}
+
+// The statistics of GroupNorm k (0: GN1, 1: GN2) of this CTA's sample from
+// the recompute's scratch into mean, inv.  Ends synchronised.
+__device__ __forceinline__ void rows_bwd_stats(const RowsBwdSmem& b, const Shape& s,
+                                               const float* __restrict__ stats, int k) {
+  const float* src = stats + ((size_t)blockIdx.x * 2 + k) * 2 * s.G;
+  for (int g = threadIdx.x; g < s.G; g += kThreads) {
+    b.mean[g] = src[g];
+    b.inv[g] = src[s.G + g];
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float v) {  // v holds a bf16 value
+  return (uint16_t)(__float_as_uint(v) >> 16);
+}
+
+// The recompute's GroupNorm -> ReLU of one sample (rows_gn, the rows
+// forward's): r = relu(GN(x)) (f32 holding bf16 values, for the weight
+// gradients), the conv input as bf16 into xa, GroupNorm k's statistics
+// into stats.
+__global__ void __launch_bounds__(kThreads, 1)
+rows_bwd_gn_relu_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                        const float* __restrict__ bias, Shape s, float* __restrict__ r,
+                        uint16_t* __restrict__ xa, float* __restrict__ stats, int k) {
+  const size_t off = (size_t)blockIdx.x * s.H * s.W * s.C;
+  rows_gn(
+      x, scale, bias, s,
+      [&](int e, float v) {
+        const float y = v < 0.f ? 0.f : v;
+        r[off + e] = y;
+        xa[off + e] = bf16_bits(y);
+      },
+      stats + ((size_t)blockIdx.x * 2 + k) * 2 * s.G);
+}
+
+// GN3 of v (the conv2 output): f; then the GN3 backward under the rounded
+// cotangent: gv into gv, as bf16 into xa (the conv2 input gradient's
+// input) and into the bordered map, and conv2's parameter partials and dt
+// part (into dt).  bwd_sample_kernel's calls, in its order.
+__global__ void __launch_bounds__(kThreads, 1)
+rows_bwd_gv_kernel(const float* __restrict__ t, const float* __restrict__ g, Odefunc p, Shape s,
+                   const float* __restrict__ v, float* __restrict__ fout,
+                   float* __restrict__ gv, uint16_t* __restrict__ xa, float* __restrict__ part,
+                   float* __restrict__ dt) {
+  const int C = s.C, tid = threadIdx.x;
+  const size_t off = (size_t)blockIdx.x * s.H * s.W * C;
+  const RowsBwdSmem b = rows_bwd_carve(s, true);
+  const Smem& m = b.m;
+  const float tb = bf16_round(t[blockIdx.x]);
+  const float* vb = v + off;
+  const float* gb = g + off;
+  float* pb = part + (size_t)blockIdx.x * kParts * C;
+  zero_pad(m, s);  // gn_stats' barriers order it before the map's writes
+  const Stat stat = gn_stats<true>(m, s, vb, b.mean, b.inv);
+  gn_apply<true, kBf16>(s, stat, b.mean, b.inv, p.n3s, p.n3b, vb,
+                        [&](const auto& w, float y) { fout[off + w.e] = y; });
+  __syncthreads();  // mean, inv visible
+  gn_backward<true, kBf16>(m, b.sred2, b.chan, s, vb, b.mean, b.inv, p.n3s,
+                           [&](int e, int) { return bf16_round(gb[e]); }, pb + 4 * C,
+                           pb + 5 * C, [&](const auto& w, float y) {
+                             gv[off + w.e] = y;
+                             xa[off + w.e] = bf16_bits(y);
+                             m.spad[pad_at(s, w.q(s), w.c(s))] = y;
+                           });
+  __syncthreads();
+  const float dt2 =
+      conv_param_grads<true, kBf16>(m, b.sred2, b.chan, s, p.m2, tb, pb + 7 * C, pb + 17 * C);
+  if (tid == 0) dt[blockIdx.x] = dt2;
+}
+
+// ReLU2 + GN2 backward from the conv2 input gradient sx (rounded sums):
+// gu into gu, as bf16 into xa and into the bordered map; conv1's
+// parameter partials; dt = bf16(dt + conv1's part).
+__global__ void __launch_bounds__(kThreads, 1)
+rows_bwd_gu_kernel(const float* __restrict__ t, Odefunc p, Shape s, const float* __restrict__ u,
+                   const float* __restrict__ sx, const float* __restrict__ stats,
+                   float* __restrict__ gu, uint16_t* __restrict__ xa, float* __restrict__ part,
+                   float* __restrict__ dt) {
+  const int C = s.C, tid = threadIdx.x;
+  const size_t off = (size_t)blockIdx.x * s.H * s.W * C;
+  const RowsBwdSmem b = rows_bwd_carve(s, true);
+  const Smem& m = b.m;
+  const float tb = bf16_round(t[blockIdx.x]);
+  const float* ub = u + off;
+  const float* sxb = sx + off;
+  float* pb = part + (size_t)blockIdx.x * kParts * C;
+  zero_pad(m, s);
+  rows_bwd_stats(b, s, stats, 1);
+  gn_backward<true, kBf16>(
+      m, b.sred2, b.chan, s, ub, b.mean, b.inv, p.n2s,
+      [&](int e, int c) {
+        return gn_positive<true, kBf16>(s, ub, b.mean, b.inv, p.n2s, p.n2b, e, c) ? sxb[e] : 0.f;
+      },
+      pb + 2 * C, pb + 3 * C, [&](const auto& w, float y) {
+        gu[off + w.e] = y;
+        xa[off + w.e] = bf16_bits(y);
+        m.spad[pad_at(s, w.q(s), w.c(s))] = y;
+      });
+  __syncthreads();
+  const float dt1 =
+      conv_param_grads<true, kBf16>(m, b.sred2, b.chan, s, p.m1, tb, pb + 6 * C, pb + 8 * C);
+  if (tid == 0) dt[blockIdx.x] = bf16_round(dt[blockIdx.x] + dt1);
+}
+
+// ReLU1 + GN1 backward: dh, over the conv1 input gradient's rounded sums,
+// which dh holds (gn_backward reads an element's sum before the thread
+// that reads it writes dx there, past its last barrier).
+__global__ void __launch_bounds__(kThreads, 1)
+rows_bwd_dh_kernel(const float* __restrict__ h, Odefunc p, Shape s,
+                   const float* __restrict__ stats, float* __restrict__ part, float* dh) {
+  const int C = s.C;
+  const size_t off = (size_t)blockIdx.x * s.H * s.W * C;
+  const RowsBwdSmem b = rows_bwd_carve(s, false);
+  const float* hb = h + off;
+  float* db = dh + off;
+  float* pb = part + (size_t)blockIdx.x * kParts * C;
+  rows_bwd_stats(b, s, stats, 0);
+  gn_backward<true, kBf16>(
+      b.m, b.sred2, b.chan, s, hb, b.mean, b.inv, p.n1s,
+      [&](int e, int c) {
+        return gn_positive<true, kBf16>(s, hb, b.mean, b.inv, p.n1s, p.n1b, e, c) ? db[e] : 0.f;
+      },
+      pb, pb + C, [&](const auto& w, float y) { db[w.e] = y; });
+}
+
+// The four convs' epilogues as one type, so that one rows_conv_kernel build
+// serves them (each build adds to the source's compile time): the
+// recompute's concat_out<kBf16> (ConcatEpi) into u, or where bias is null an
+// input gradient's sums, each rounded once (the bf16 conv's rounding,
+// bwd_sample_kernel's to_sx), into u (rows, C).
+struct RowsBwdEpi {
+  ConcatEpi e;
+  __device__ __forceinline__ void operator()(int r, int co, float v0, float v1) const {
+    if (e.bias)
+      e(r, co, v0, v1);
+    else
+      *reinterpret_cast<float2*>(e.u + (size_t)r * e.C + co) =
+          make_float2(bf16_round(v0), bf16_round(v1));
+  }
+};
+
+// The rows backward's per-sample pass (the head of this file) on stream st.
+int launch_rows_bwd(const float* t, const float* h, const float* g, const Odefunc& p, float* f,
+                    float* dh, float* dt, float* r1, float* r2, float* gu, float* gv,
+                    float* part, float* ug, int B, int H, int W, int C, int G, void* scratch,
+                    cudaStream_t st) {
+  if (!scratch || !ug || !rows_ok(B, H, W, C)) return (int)cudaErrorInvalidValue;
+  const Shape s = rows_bwd_shape(H, W, C, G);
+  const size_t gsm = rows_gn_smem_bytes(s), bsm = rows_bwd_smem_bytes(H, W, C, G);
+  const size_t dsm = bsm - sizeof(float) * s.R * s.P;
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  uint16_t* xa = reinterpret_cast<uint16_t*>(base);
+  uint8_t* wp = base + rows_scratch_bytes(B, H, W, C, true) - rows_pack_bytes(true, C);
+  float* stats = reinterpret_cast<float*>(base + rows_scratch_bytes(B, H, W, C, true));
+  const int rows = B * H * W, tile = rows_tile_rows(rows, C, rows_sm_count());
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(rows_bwd_gn_relu_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsm)) ||
+      (err = cudaFuncSetAttribute(rows_bwd_gv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bsm)) ||
+      (err = cudaFuncSetAttribute(rows_bwd_gu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bsm)) ||
+      (err = cudaFuncSetAttribute(rows_bwd_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)dsm)))
+    return (int)err;
+  int code;
+  const RowsBwdEpi rounded{{nullptr, nullptr, nullptr, dh, H * W, C}};
+  // The forward recompute: r1, u (in ug), r2, v (in dh).
+  rows_bwd_gn_relu_kernel<<<B, kThreads, gsm, st>>>(h, p.n1s, p.n1b, s, r1, xa, stats, 0);
+  if ((err = cudaGetLastError())) return (int)err;
+  if ((code = rows_conv<true>(xa, p.w1, wp, rows, H, W, C, tile,
+                              RowsBwdEpi{{p.b1, p.m1, t, ug, H * W, C}}, st)))
+    return code;
+  rows_bwd_gn_relu_kernel<<<B, kThreads, gsm, st>>>(ug, p.n2s, p.n2b, s, r2, xa, stats, 1);
+  if ((err = cudaGetLastError())) return (int)err;
+  if ((code = rows_conv<true>(xa, p.w2, wp, rows, H, W, C, tile,
+                              RowsBwdEpi{{p.b2, p.m2, t, dh, H * W, C}}, st)))
+    return code;
+  // f, gv; the conv2 input gradient; gu; the conv1 input gradient; dh.
+  rows_bwd_gv_kernel<<<B, kThreads, bsm, st>>>(t, g, p, s, dh, f, gv, xa, part, dt);
+  if ((err = cudaGetLastError())) return (int)err;
+  if ((code = rows_conv<true, true>(xa, p.w2, wp, rows, H, W, C, tile, rounded, st)))
+    return code;
+  rows_bwd_gu_kernel<<<B, kThreads, bsm, st>>>(t, p, s, ug, dh, stats, gu, xa, part, dt);
+  if ((err = cudaGetLastError())) return (int)err;
+  if ((code = rows_conv<true, true>(xa, p.w1, wp, rows, H, W, C, tile, rounded, st)))
+    return code;
+  rows_bwd_dh_kernel<<<B, kThreads, dsm, st>>>(h, p, s, stats, part, dh);
+  return (int)cudaGetLastError();
+}
+
+// The per-sample pass (the cluster pass where pair_ok, the rows backward
+// where rows, else bwd_sample_kernel), then the weight gradients and the
+// reduction over the batch, on the caller's stream.
 template <int kPrec>
 int backward(const float* t, const float* h, const float* g, const Odefunc& p,
              const float* w1bt, const float* w2bt, float* f, float* dh, float* dt,
              float* r1, float* r2, float* gu, float* gv, float* part, float* wpart,
              float* ug, float* dk1, float* dk2, float* dvec, int B, int H, int W, int C,
-             int G, int ns, void* stream) {
+             int G, int ns, bool rows, void* scratch, void* stream) {
   if (!bwd_shape_ok(H, W, C, G) || B < 1 || ns < 1 || ns > B)
     return (int)cudaErrorInvalidValue;
   const Shape s = bwd_shape(H, W, C, G);
@@ -1199,6 +1506,10 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
                                     (int)smem)) != cudaSuccess)
       return (int)err;
     pass<<<2 * B, kPairThreads, smem, st>>>(t, h, g, p, s, f, dh, dt, r1, r2, gu, gv, part);
+  } else if (rows) {  // the rows backward (bf16, rows_bwd_ok: never pair_ok's C = 64)
+    const int code = launch_rows_bwd(t, h, g, p, f, dh, dt, r1, r2, gu, gv, part, ug, B, H, W,
+                                     C, G, scratch, st);
+    if (code) return code;
   } else {
     const size_t smem = bwd_smem_bytes(s);
     const auto sample = !wide_shape(s) ? bwd_sample_kernel<false, false, kPrec>
@@ -1232,12 +1543,14 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
 
 // Scratch, allocated by the wrapper: r1, r2, gu, gv (B, H*W*C) each, part
 // (B, 26, C), wpart (ns, 2, 9, C, C), and u (B, H*W*C) where bwd_shape's ug
-// (else it may be null).  ns, the weight gradient's row chunks (1 to B),
+// or the rows backward runs (else it may be null).  ns, the weight
+// gradient's row chunks (1 to B),
 // is the wrapper's choice (kernels/odefunc_bwd.py weight_splits), which
 // sizes wpart by it.  w1bt, w2bt (the tap-flipped, transposed
 // kernels) are read only by the FFMA stage and may be null where make_shape
 // picks the tensor-core stage.  odefunc_backward_bf16 takes the same
-// arguments and shapes.
+// arguments and shapes, and last the rows backward's scratch (at least
+// rows_bwd_scratch_bytes where rows_bwd_ok, else unused).
 #define NODEF_BACKWARD_ARGS                                                                 \
   const float *t, const float *h, const float *g, const float *n1s, const float *n1b,       \
       const float *w1, const float *b1, const float *m1, const float *n2s, const float *n2b, \
@@ -1249,13 +1562,25 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
 extern "C" int odefunc_backward(NODEF_BACKWARD_ARGS) {
   const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
   return nodef::backward<nodef::kF32>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
-                                      wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns,
-                                      stream);
+                                      wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns, false,
+                                      nullptr, stream);
 }
 
-extern "C" int odefunc_backward_bf16(NODEF_BACKWARD_ARGS) {
+// The bf16 VJP: the rows backward where rows_bwd_ok, else the cluster or
+// the one-CTA pass.
+extern "C" int odefunc_backward_bf16(NODEF_BACKWARD_ARGS, void* scratch) {
   const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
   return nodef::backward<nodef::kBf16>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
                                        wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns,
-                                       stream);
+                                       nodef::rows_bwd_ok(H, W, C, G), scratch, stream);
+}
+
+// The bf16 VJP on the per-sample passes at every shape they take, the rows
+// backward's shapes too: a reading for measurement (probes/timing_aids.py
+// odefunc_bwd_cta_bf16), on no path.
+extern "C" int odefunc_backward_bf16_cta(NODEF_BACKWARD_ARGS) {
+  const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
+  return nodef::backward<nodef::kBf16>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
+                                       wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns, false,
+                                       nullptr, stream);
 }

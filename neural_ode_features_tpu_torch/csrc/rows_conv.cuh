@@ -64,6 +64,15 @@
 // for A, a producer warp (setmaxnreg: ptxas kept 168 registers, and the
 // running sums spilled) and chains pipelined across stages were each
 // slower; two stages a slot (one round of waits for both) gained 4%.
+//
+// The transposed build (kTrans, with kTap): the input gradient of the conv
+// with w, the bf16 ODEfunc backward's two input-gradient convs at C = 96 to
+// 512 (csrc/odefunc_bwd.cu, the rows backward).  Only the packing differs:
+// stage (tap, 64-channel block) holds tap 8 - tap's (C, C) tile transposed
+// (B row n = the forward's input channel, k = its output channel), so the
+// products and their order are the forward build's, and
+// conv3x3_mma<kPassBf16, true> (mma_bf16 with BT: tiles tap-major, tap 8 -
+// tap transposed, per k half a chain from zero) is summed in the same order.
 #pragma once
 
 #include "odefunc_common.cuh"
@@ -156,10 +165,13 @@ __device__ __forceinline__ void wgmma_ss_bf16_n128(float (&d)[64], uint64_t a, u
 // with row = tap * C + ci of stage kc's k (zero past C, 9C and the last
 // column block): the B slices in shared memory's order, so that a CTA
 // copies each as it is.  One 16-byte chunk (8 k of one n) a thread,
-// neighbouring threads on neighbouring n (coalesced reads of w).
-template <bool kTap>
+// neighbouring threads on neighbouring n (coalesced reads of w).  kTrans
+// (with kTap): bf16(w[8 - tap][128 nt + n][ci]), tap 8 - tap's tile
+// transposed (each thread's 8 k one 32-byte run of w).
+template <bool kTap, bool kTrans = false>
 __global__ void __launch_bounds__(256)
 rows_pack_kernel(const float* __restrict__ w, int C, uint8_t* __restrict__ wp) {
+  static_assert(kTap || !kTrans, "the transposed packing has one tap a stage");
   constexpr int kN = 64 * kRowsNB;
   const int S = (C + kRowsK - 1) / kRowsK, nk = rows_stages(kTap, C);
   const long long total = (long long)rows_ntiles(C) * nk * 8 * kN;
@@ -183,7 +195,12 @@ rows_pack_kernel(const float* __restrict__ w, int C, uint8_t* __restrict__ wp) {
         } else {
           row = kc * kRowsK + kl, ok = row < 9 * C;
         }
-        pair[h] = ok && co < C ? w[(size_t)row * C + co] : 0.f;
+        if (kTrans) {
+          const int tap = kc / S, ci = row - tap * C;
+          pair[h] = ok && co < C ? w[((size_t)(8 - tap) * C + co) * C + ci] : 0.f;
+        } else {
+          pair[h] = ok && co < C ? w[(size_t)row * C + co] : 0.f;
+        }
       }
       v[e] = bf16x2(pair[0], pair[1]);
     }
@@ -333,12 +350,14 @@ rows_conv_kernel(const uint16_t* __restrict__ xa, const uint8_t* __restrict__ wp
 
 // One conv on the caller's stream: w (9, C, C) f32 packed into wp (at least
 // rows_pack_bytes), then the products over xa (rows, C) bf16 into epi.
-// tile_rows: 64 or 128 (rows_tile_rows).  Returns a cudaError_t.
-template <bool kTap, class Epi>
+// tile_rows: 64 or 128 (rows_tile_rows).  kTrans: the conv with w's
+// tap-flipped, transposed taps (the input gradient).  Returns a
+// cudaError_t.
+template <bool kTap, bool kTrans = false, class Epi>
 inline int rows_conv(const uint16_t* xa, const float* w, uint8_t* wp, int rows, int H, int W,
                      int C, int tile_rows, Epi epi, cudaStream_t st) {
   const long long chunks = (long long)rows_ntiles(C) * rows_stages(kTap, C) * 8 * 64 * kRowsNB;
-  rows_pack_kernel<kTap><<<(int)((chunks + 255) / 256), 256, 0, st>>>(w, C, wp);
+  rows_pack_kernel<kTap, kTrans><<<(int)((chunks + 255) / 256), 256, 0, st>>>(w, C, wp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool tall = tile_rows == 128;
@@ -361,5 +380,66 @@ inline int rows_sm_count() {
   }
   return sms;
 }
+
+// ---- the rows builds' per-sample GroupNorm and conv epilogue ------------
+//
+// Shared by the bf16 ODEfunc's rows build (csrc/odefunc.cu) and the bf16
+// backward's rows build (csrc/odefunc_bwd.cu), one CTA of kThreads per
+// sample under the per-sample kernels' Shape and thread map.
+
+// The rows build's GroupNorm of one sample (CTA) from x (B, H*W*C) f32:
+// x rounded to bf16 into shared memory (the bf16 dynamics' entry rounding
+// of h; u1 and u2 hold bf16 values already), gn_stats, then gn_apply<kBf16>
+// in the per-sample kernel's thread map, each value handed to out(e, v).
+// stats: where not null, the groups' mean and inv are written to stats[g]
+// and stats[G + g] at the end.
+template <class Out>
+__device__ __forceinline__ void rows_gn(const float* __restrict__ x,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias, const Shape& s, Out out,
+                                        float* __restrict__ stats = nullptr) {
+  extern __shared__ float4 smem_raw[];
+  const int n = s.H * s.W * s.C;
+  Smem m{};
+  m.sx = reinterpret_cast<float*>(smem_raw);
+  m.sred = m.sx + n;
+  m.smean = m.sred + 2 * kThreads;
+  m.sinv = m.smean + s.G;
+  const float* xb = x + (size_t)blockIdx.x * n;
+  for (int e = threadIdx.x; e < n; e += kThreads) m.sx[e] = bf16_round(xb[e]);
+  __syncthreads();
+  const Stat st = gn_stats<true>(m, s, m.sx, m.smean, m.sinv);
+  gn_apply<true, kBf16>(s, st, m.smean, m.sinv, scale, bias, m.sx,
+                        [&](const auto& w, float v) { out(w.e, v); });
+  if (stats) {
+    __syncthreads();  // gn_stats' mean/inv
+    for (int g = threadIdx.x; g < s.G; g += kThreads) {
+      stats[g] = m.smean[g];
+      stats[s.G + g] = m.sinv[g];
+    }
+  }
+}
+
+inline size_t rows_gn_smem_bytes(const Shape& s) {
+  return sizeof(float) * ((size_t)s.H * s.W * s.C + 2 * kThreads + 2 * (size_t)s.G);
+}
+
+// The conv's epilogue: u[r, co] = concat_out<kBf16>(acc, bias[co], t[b], M[p, co])
+// for row r = b * hw + p, t rounded as odefunc_eval rounds it.
+struct ConcatEpi {
+  const float* bias;
+  const float* tmap;
+  const float* t;
+  float* u;
+  int hw, C;
+  __device__ __forceinline__ void operator()(int r, int co, float v0, float v1) const {
+    const int b = r / hw, p = r - b * hw;
+    const float tb = bf16_round(t[b]);
+    const float* m = tmap + (size_t)p * C + co;
+    *reinterpret_cast<float2*>(u + (size_t)r * C + co) =
+        make_float2(concat_out<kBf16>(v0, bias[co], tb, m[0]),
+                    concat_out<kBf16>(v1, bias[co + 1], tb, m[1]));
+  }
+};
 
 }  // namespace nodef

@@ -642,7 +642,8 @@ def tap9_wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def rows_wgmma_emulated(x: torch.Tensor, w: torch.Tensor, tap: bool = True,
                         tile_rows: int = 64,
-                        tile_cols: int = 64 * ROWS_NB) -> torch.Tensor:
+                        tile_cols: int = 64 * ROWS_NB,
+                        transposed: bool = False) -> torch.Tensor:
     """The rows kernel's arithmetic in plain PyTorch, float32, tile by tile
     (tests only, nothing on a path): the rows of every sample flattened
     (:func:`im2col_patches`) and cut into ``tile_rows`` M tiles, the output
@@ -653,13 +654,23 @@ def rows_wgmma_emulated(x: torch.Tensor, w: torch.Tensor, tap: bool = True,
     stage, zero past C; else (``im2col_bf16``) 64 k of K = 9C.  The tiles
     change no row's and no column's sums: :func:`tap9_wgmma_emulated`'s
     bits, and at the tensor-core widths
-    ``conv3x3_wgmma_emulated(precision='bf16')``'s (``mma_bf16``'s)."""
+    ``conv3x3_wgmma_emulated(precision='bf16')``'s (``mma_bf16``'s).
+    ``transposed`` (with ``tap``): the transposed packing of the bf16
+    backward's rows build, ``x`` the cotangent and tap k's weights the
+    transpose of tap 8 − k's (C, C) slice: the input gradient of the conv
+    with ``w``, ``conv3x3_wgmma_emulated(transposed=True,
+    precision='bf16')``'s bits at the tensor-core widths."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError("rows_wgmma_emulated takes float32")
+    if transposed and not tap:
+        raise ValueError("the transposed packing has one tap a stage")
     b, hh, ww, c = x.shape
     rows = b * hh * ww
     patches = bf16_round(im2col_patches(x))
-    wt = bf16_round(w.reshape(9, c, c))
+    wt = w.reshape(9, c, c)
+    if transposed:
+        wt = wt.flip(0).transpose(1, 2)
+    wt = bf16_round(wt)
     step = -(-c // ROWS_K) * ROWS_K if tap else c  # K columns a tap
     kk = -(-9 * step // ROWS_K) * ROWS_K             # whole stages
     a = x.new_zeros((-(-rows // tile_rows) * tile_rows, kk))

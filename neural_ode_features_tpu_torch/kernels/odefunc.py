@@ -191,7 +191,10 @@ def stage(hw: tuple[int, int], c: int, precision: str = "f32") -> str:
     one CTA per sample on ``mma.sync``.  The backward's
     input-gradient convs run ``'mma3'`` at every tensor-core shape but in
     its cluster pass (``kernels.odefunc_bwd.sample_pass``), which runs them
-    on ``wgmma``; everything else runs ``'ffma'``."""
+    on ``wgmma``, and in the bf16 build's rows backward at the
+    ``'rows_bf16'`` shapes, which runs all four of its convs on the rows
+    conv (the input gradients on its transposed packing); everything else
+    runs ``'ffma'``."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")

@@ -51,6 +51,19 @@ reduction in order; its scratch is (splits, 2, 9, C, C), 19 MB at C = 512
 and B = 128.  :func:`weight_grad_emulated` repeats that arithmetic in plain
 PyTorch (tests only).
 
+At the bf16 build's wide shapes (C = 96 to 512 on 7×7 and 6×6 maps,
+:func:`sample_pass` ``'rows'``) the per-sample pass is the rows backward:
+a fixed sequence of launches on the current stream, each of its four
+convs (the recompute's two, the two input gradients, whose packing reads
+tap 8 − k's weights transposed) one bf16 ``wgmma`` GEMM over the rows of
+every sample (``csrc/rows_conv.cuh``), the GroupNorms, ReLU masks,
+per-sample partials and dt in per-sample launches of the one-CTA pass's
+helpers and thread map between them, so that every output is that pass's
+bit for bit; that pass stays readable as ``probes/timing_aids.py``
+``odefunc_bwd_cta_bf16``.  Its scratch (:func:`rows_bwd_scratch_bytes`,
+and u) comes from the caching allocator on the current stream, so that a
+captured call (the adjoint's graph route) captures it too.
+
 ``precision='bf16'`` runs the kernel's bf16 build (``odefunc_backward_bf16``):
 the VJP of the ``compute_dtype='bfloat16'`` dynamics (the ODEfunc kernel's
 bf16 build, ``odefunc_plain(..., 'bf16')``), whose JAX counterpart is
@@ -95,6 +108,7 @@ from .odefunc import (
     MMA_C,
     MMA_M,
     PAD_A,
+    THREADS,
     OdefuncWeights,
     bf16_round,
     check_cuda_inputs,
@@ -103,8 +117,10 @@ from .odefunc import (
     prepare,
     ptr,
     refusal,
+    rows_scratch_bytes,
     stage,
     stream,
+    supported,
     weight_pointers,
 )
 
@@ -113,7 +129,8 @@ __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
            "sample_pass", "cluster_smem_bytes", "pair_area_floats",
            "PAIR_THREADS", "PAIR_C",
            "weight_splits", "weight_smem_bytes", "bwd_residuals_plain",
-           "weight_grad_emulated", "weight_grad_f64"]
+           "weight_grad_emulated", "weight_grad_f64", "rows_bwd_smem_bytes",
+           "rows_bwd_scratch_bytes"]
 
 # Mirror csrc/odefunc_bwd.cu (kParts, kStepRows, kGroupSamples, kWeightPad,
 # weight_tile, weight_taps_of).
@@ -194,18 +211,46 @@ def sample_pass(hw: tuple[int, int], c: int, groups: int,
                 precision: str = "f32") -> str:
     """Which per-sample pass the backward's build of ``precision``
     (``'f32'`` or ``'bf16'``) runs, by the shape alone (csrc/odefunc_bwd.cu
-    ``pair_ok``): ``'cluster'``, two CTAs of 256 threads per sample, each
-    owning 32 output channels, at the ``wgmma`` shapes (C = 64: 7×7×64,
-    6×6×64; ``wgmma3`` in f32, ``wgmma_bf16`` in bf16) where the group
-    count is even, so that no GroupNorm group has channels in both halves;
-    else ``'cta'``, one CTA of 512 threads per sample."""
+    ``pair_ok``, ``rows_bwd_ok``): ``'cluster'``, two CTAs of 256 threads
+    per sample, each owning 32 output channels, at the ``wgmma`` shapes
+    (C = 64: 7×7×64, 6×6×64; ``wgmma3`` in f32, ``wgmma_bf16`` in bf16)
+    where the group count is even, so that no GroupNorm group has channels
+    in both halves; ``'rows'``, the rows backward, for the bf16 build at
+    the bf16 dynamics' rows-build shapes (``stage`` ``'rows_bf16'``: C = 96
+    to 512 on 7×7 and 6×6 maps) that the backward takes, where a sample's
+    bordered map fits (:func:`rows_bwd_smem_bytes`); else ``'cta'``, one
+    CTA of 512 threads per sample."""
     if precision not in ("f32", "bf16"):
         raise ValueError(f"precision must be 'f32' or 'bf16', got "
                          f"{precision!r}")
     if (stage(hw, c, precision) in ("wgmma3", "wgmma_bf16") and groups > 0
             and c % groups == 0 and groups % 2 == 0):
         return "cluster"
+    if (precision == "bf16" and stage(hw, c, "bf16") == "rows_bf16"
+            and supported(hw, c, groups) and bwd_supported(hw, c, groups)
+            and rows_bwd_smem_bytes(hw, c, groups) <= MAX_SMEM):
+        return "rows"
     return "cta"
+
+
+def rows_bwd_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
+    """Dynamic shared memory per CTA of the rows backward's per-sample
+    launches that take a sample's bordered cotangent (csrc/odefunc_bwd.cu
+    ``rows_bwd_smem_bytes``): the map, (H+2)·(W+2)·C floats, 2·512 partial
+    sums, 2·G statistics and 4·C channel sums.  178,432 bytes at
+    7×7×512."""
+    hh, ww = hw
+    return 4 * ((hh + 2) * (ww + 2) * c + 2 * THREADS + 2 * groups + 4 * c)
+
+
+def rows_bwd_scratch_bytes(b: int, hw: tuple[int, int], c: int,
+                           groups: int) -> int:
+    """Bytes of the rows backward's scratch beside u (csrc/odefunc_bwd.cu
+    ``rows_bwd_scratch_bytes``): the rows conv's (the bf16 conv input of the
+    batch, one conv's packed weights, reused by the four convs in turn,
+    ``kernels.odefunc.rows_scratch_bytes``), then GN1's and GN2's
+    statistics, (B, 2, 2, G) floats."""
+    return rows_scratch_bytes(b, hw, c, True) + 4 * 4 * b * groups
 
 
 def cluster_smem_bytes(hw: tuple[int, int], c: int, groups: int,
@@ -423,17 +468,22 @@ def weight_grad_f64(r: torch.Tensor, g: torch.Tensor,
                        ).reshape(3, 3, c, c)
 
 
-# The C entry point of each build of the kernel (csrc/odefunc_bwd.cu).
+# The C entry point of each build of the kernel (csrc/odefunc_bwd.cu); the
+# bf16 one takes the rows backward's scratch last.  The bf16 build on the
+# per-sample passes alone (odefunc_backward_bf16_cta) is a reading for
+# measurement (probes/timing_aids.py).
 _ENTRY = {"f32": "odefunc_backward", "bf16": "odefunc_backward_bf16"}
+_CTA_BF16 = "odefunc_backward_bf16_cta"
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("odefunc_bwd")
-    for name in _ENTRY.values():
+    for name in (*_ENTRY.values(), _CTA_BF16):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p]
+                           + [ctypes.c_void_p] * (name == _ENTRY["bf16"]))
             fn.restype = ctypes.c_int
     return lib
 
@@ -457,6 +507,21 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     if precision not in _ENTRY:
         raise ValueError(f"precision must be one of {tuple(_ENTRY)}, got "
                          f"{precision!r}")
+    out = launch(w, t, h, g, groups, _ENTRY[precision], residuals)
+    if precision == "bf16":
+        odefunc_bwd.launches_bf16 += 1
+    else:
+        odefunc_bwd.launches += 1
+    return out if with_f else out[:3]
+
+
+def launch(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
+           groups: int, entry: str, residuals: dict | None = None):
+    """One call of the C entry ``entry`` (``_ENTRY``'s, or the bf16 build on
+    the per-sample passes, ``odefunc_backward_bf16_cta``) on CUDA tensors:
+    ``(dparams, dt, dh, f)``.  Checks what the kernel takes and raises on
+    anything else; counts nothing (:func:`odefunc_bwd` counts)."""
+    b, hh, ww, c = h.shape
     if tuple(g.shape) != tuple(h.shape):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the "
                          f"state {tuple(h.shape)}")
@@ -467,6 +532,11 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
             f"{hh}×{ww}×{c} with groups={groups}: {why} "
             "(kernels.odefunc_bwd.bwd_refusal)")
     check_cuda_inputs(w, {"h": h, "g": g}, (hh, ww), c, groups)
+    rows = (entry == _ENTRY["bf16"]
+            and sample_pass((hh, ww), c, groups, "bf16") == "rows")
+    if rows and b * hh * ww * c >= 2 ** 31:
+        raise ValueError(f"the rows backward takes B·H·W·C < 2^31, got "
+                         f"{b}×{hh}×{ww}×{c}")
     dev = h.device
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     t = t.reshape(-1).expand(b).contiguous()
@@ -482,10 +552,11 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     f = torch.empty_like(h)
     dh = torch.empty_like(h)
     # One allocation for the small outputs (dk, dvec, dt) and one for the
-    # scratch (r1, r2, gu, gv, part, wpart and, where it does not fit in
-    # shared memory, u): a step of the adjoint makes dozens of these calls,
-    # and the host launches them.  Every piece is a multiple of four floats
-    # long (C is), so each stays 16-byte aligned.
+    # scratch (r1, r2, gu, gv, part, wpart, u where it does not fit in
+    # shared memory or the rows backward runs, and the rows backward's own):
+    # a step of the adjoint makes dozens of these calls, and the host
+    # launches them.  Every piece is a multiple of four floats long (C is),
+    # so each stays 16-byte aligned.
     nk = 9 * (c + 1) * c
     outs = torch.empty((2 * nk + 8 * c + b,), dtype=torch.float32, device=dev)
     dk = outs[:2 * nk].view(2, 3, 3, c + 1, c)
@@ -493,23 +564,23 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
     dt = outs[2 * nk + 8 * c:]
     ns = weight_splits(b, c)
     sizes = [b * n] * 4 + [b * _PARTS * c, ns * 2 * 9 * c * c,
-                           b * n if u_global((hh, ww), c, groups) else 0]
+                           b * n if rows or u_global((hh, ww), c, groups)
+                           else 0,
+                           rows_bwd_scratch_bytes(b, (hh, ww), c, groups) // 4
+                           if rows else 0]
     scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     offsets = [4 * sum(sizes[:i]) for i in range(len(sizes))]
     at = lambda base, nbytes: ctypes.c_void_p(base.data_ptr() + nbytes)
     lib = _lib()
-    entry = _ENTRY[precision]
+    extra = [at(scratch, offsets[-1]) if rows else None] * (
+        entry == _ENTRY["bf16"])
     code = getattr(lib, entry)(
         ptr(t), ptr(h), ptr(g), *weight_pointers(w), *wbt_ptrs,
         ptr(f), ptr(dh), at(outs, 4 * (2 * nk + 8 * c)),
-        *(at(scratch, o) for o in offsets),
+        *(at(scratch, o) for o in offsets[:-1]),
         at(outs, 0), at(outs, 4 * nk), at(outs, 8 * nk),
-        b, hh, ww, c, groups, ns, stream())
+        b, hh, ww, c, groups, ns, stream(), *extra)
     _build.check(lib, code, entry)
-    if precision == "bf16":
-        odefunc_bwd.launches_bf16 += 1
-    else:
-        odefunc_bwd.launches += 1
     if residuals is not None:
         residuals.update(zip(("r1", "r2", "gu", "gv"), (
             scratch[i * b * n:(i + 1) * b * n].view(b, hh, ww, c)
@@ -521,7 +592,7 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
         "conv2": {"kernel": dk[1], "bias": dvec[7]},
         "norm3": {"scale": dvec[4], "bias": dvec[5]},
     }
-    return (dparams, dt, dh, f) if with_f else (dparams, dt, dh)
+    return dparams, dt, dh, f
 
 
 odefunc_bwd.launches = odefunc_bwd.launches_bf16 = 0

@@ -86,7 +86,8 @@ from ..utils.flops import (
     H100_TF32_FLOPS,
 )
 
-__all__ = ["main", "probe_inputs", "library_conv", "time_us", "device_us",
+__all__ = ["main", "probe_inputs", "library_conv", "library_f",
+           "library_bwd", "time_us", "device_us",
            "queued_us", "bound_us", "tensor_bound_us", "KERNEL_NAMES",
            "WGMMA_BAR"]
 
@@ -147,6 +148,39 @@ def library_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     The port itself never calls it for this."""
     return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                     padding=1).permute(0, 2, 3, 1)
+
+
+def library_f(h: torch.Tensor, t: torch.Tensor, raw: dict,
+              groups: int = 32) -> torch.Tensor:
+    """One f through PyTorch's library calls (``F.group_norm``,
+    ``F.conv2d`` on NCHW with the t channel concatenated), in ``h``'s dtype:
+    the yardstick of the ODEfunc kernel, which the port itself never calls.
+    ``raw``: the raw ODEfunc params, ``h`` (B, H, W, C), ``t`` (B,)."""
+    xn = h.permute(0, 3, 1, 2)
+    tmap = t.view(-1, 1, 1, 1).expand(-1, 1, *h.shape[1:3])
+    out = xn
+    for k in (1, 2):
+        out = F.relu(F.group_norm(out, groups, raw[f"norm{k}"]["scale"],
+                                  raw[f"norm{k}"]["bias"], 1e-5))
+        out = F.conv2d(torch.cat([tmap, out], 1),
+                       raw[f"conv{k}"]["kernel"].permute(3, 2, 0, 1),
+                       raw[f"conv{k}"]["bias"], padding=1)
+    return F.group_norm(out, groups, raw["norm3"]["scale"],
+                        raw["norm3"]["bias"], 1e-5).permute(0, 2, 3, 1)
+
+
+def library_bwd(h: torch.Tensor, t: torch.Tensor, raw: dict, g: torch.Tensor,
+                groups: int = 32) -> tuple:
+    """The backward kernel's yardstick: ``torch.autograd.grad`` through
+    :func:`library_f` with respect to h, t and the raw weights (its forward
+    included, as the backward kernel recomputes it), leaves in sorted-key
+    order after h and t."""
+    wl = {k: {kk: v.detach().requires_grad_() for kk, v in d.items()}
+          for k, d in raw.items()}
+    hl, tl = h.detach().requires_grad_(), t.detach().requires_grad_()
+    leaves = [wl[a][b] for a in sorted(wl) for b in sorted(wl[a])]
+    return torch.autograd.grad(library_f(hl, tl, wl, groups), [hl, tl]
+                               + leaves, g)
 
 
 def time_us(fn, device: torch.device, reps: int = 200,
@@ -217,7 +251,7 @@ def queued_us(fn, reps: int = 50) -> float:
     launches, so it times a library call whole."""
     fn()
     torch.cuda.synchronize()
-    for spin in (10_000_000 << k for k in range(6)):  # from about 5 ms
+    for spin in (10_000_000 << k for k in range(8)):  # from about 5 ms
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         torch.cuda._sleep(spin)

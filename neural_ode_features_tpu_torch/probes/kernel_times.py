@@ -30,7 +30,10 @@ solve, one step of ``train_entry``'s trainer at B = 128 (the median of N;
 step), and the host µs of one call of the ``odefunc`` and ``rk_step``
 wrappers (200 calls queued with no sync, then one sync: the host's cost of
 a call, the operator's dispatch included where the package has one).
-``--shapes ''`` skips the kernels.
+``--shapes ''`` skips the kernels.  Where the package has the bf16
+backward, the host µs of one call of it at 7×7×96, B = 128
+(``odefunc_bwd_bf16_call_host_us``: 50 calls queued, then one sync; the
+rows backward's fifteen launches a call, or the one-CTA build's three).
 
 ``--bf16`` adds, per shape, the bf16 builds (``odefunc`` with
 ``compute_dtype=bfloat16``, ``rk_step`` with ``conv_precision='bf16'``, the
@@ -45,7 +48,20 @@ backward's three kernels apart, beside the f32 build's, and at each
 yardstick of their convs, ``F.conv2d`` on bf16 tensors at that shape (one
 conv, B = 256).  It needs a package that has the bf16 builds.  Each row
 names the per-sample pass each build runs (``bwd_pass``, ``bwd_bf16_pass``:
-``kernels.odefunc_bwd.sample_pass``, where the package has it).
+``kernels.odefunc_bwd.sample_pass``, where the package has it).  Where the
+bf16 backward's pass is the rows backward (``'rows'``), its split is per
+call by part (``rows_conv``, ``rows_pack``, ``rows_per_sample``: its four
+convs, four packings and five per-sample launches, and their sum
+``rows_pass``; ``bwd_weight_kernel``; ``bwd_reduce_kernel``), and the call
+and the
+one-CTA pass it replaced (``probes/timing_aids.py`` ``odefunc_bwd_cta_bf16``,
+split by kernel in ``odefunc_bwd_bf16_cta_split_ms``) are timed in turns,
+one-CTA, rows, rows, one-CTA, ``odefunc_bwd_bf16_turns_ms`` (device ms by
+CUDA events behind a spin kernel).  ``--bwd-only`` with ``--bf16`` also
+times the library yardstick of the backward, ``torch.autograd.grad``
+through ``F.group_norm`` + ``F.conv2d`` on f32 (TF32 off) and on bf16
+tensors at B = 128 (``bwd_library_ms``, ``bwd_library_bf16_ms``, the same
+clock).
 
 ``--digest`` prints, per shape, the sha256 of each f32 kernel's outputs on
 the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
@@ -60,8 +76,11 @@ builds, of theirs
 ``odefunc_bwd_bf16_weights``, ``odefunc_bwd_bf16_rest`` without f,
 ``odefunc_bwd_bf16_f`` and ``odefunc_bwd_bf16_r``; at the rows build's
 shapes ``odefunc_bf16_cta``, the per-sample kernel's f, which the rows
-build's must equal), so that two checkouts' kernels can be held bit for bit
-(run once with each package on ``PYTHONPATH``, in one call).
+build's must equal, and where the package has the rows backward
+``odefunc_bwd_bf16_cta``, every output of the one-CTA pass, which the rows
+backward's ``odefunc_bwd_bf16`` must equal), so that two checkouts' kernels
+can be held bit for bit (run once with each package on ``PYTHONPATH``, in
+one call).
 
 ``--errors`` prints, per shape, the backward's dθ max abs error against its
 plain version in float64 at B = 128, 64 and 5 (the seeded inputs' first
@@ -92,6 +111,16 @@ from neural_ode_features_tpu_torch.solver import DOPRI5
 
 B, B_BWD, G = 256, 128, 32
 BWD_KERNELS = ("bwd_sample_kernel", "bwd_weight_kernel", "bwd_reduce_kernel")
+# The rows backward's parts, each the kernels whose names hold one of its
+# fragments: the per-sample pass (its four convs, four weight packings and
+# five per-sample launches; ``rows_pass`` in a row is their sum), then the
+# weight gradients and the reduction.
+ROWS_PASS_PARTS = {"rows_conv": ("rows_conv_kernel",),
+                   "rows_pack": ("rows_pack_kernel",),
+                   "rows_per_sample": ("rows_bwd_",)}
+ROWS_BWD_PARTS = {**ROWS_PASS_PARTS,
+                  "bwd_weight_kernel": ("bwd_weight_kernel",),
+                  "bwd_reduce_kernel": ("bwd_reduce_kernel",)}
 
 
 def device_ms(fn, names, reps: int) -> float:
@@ -123,6 +152,63 @@ def device_split(fn, names, reps: int) -> dict:
     return split
 
 
+def device_parts(fn, parts: dict, reps: int) -> dict:
+    """Device ms per call of each part of ``parts`` (name -> fragments of
+    kernel names): the recorded time of every kernel whose name holds one
+    of the part's fragments, over ``reps`` calls (a part may launch several
+    kernels a call); with :data:`ROWS_PASS_PARTS`' parts, their sum as
+    ``rows_pass``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, frags in parts.items():
+        hits = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and any(f in ev.key for f in frags)]
+        if not hits:
+            raise RuntimeError(f"no launch of {name!r} in the profile")
+        out[name] = sum(ev.self_device_time_total for ev in hits) / reps / 1e3
+    if set(ROWS_PASS_PARTS) <= set(out):
+        out["rows_pass"] = sum(out[k] for k in ROWS_PASS_PARTS)
+    return out
+
+
+def _rows_bwd(hh: int, ww: int, c: int) -> bool:
+    """Whether the package runs the bf16 backward at this shape as the rows
+    backward (``sample_pass`` gives ``'rows'``)."""
+    from neural_ode_features_tpu_torch.kernels import odefunc_bwd as mod
+
+    return (hasattr(mod, "sample_pass")
+            and mod.sample_pass((hh, ww), c, G, "bf16") == "rows")
+
+
+def _library_bwd_ms(w_raw, hb, tb, g, reps: int) -> dict:
+    """Device ms of the backward's library yardstick on f32 and on bf16
+    tensors (the module docstring); {} where the package lacks it (a
+    checkout from before it: the yardstick does not depend on the
+    package)."""
+    from neural_ode_features_tpu_torch.probes import conv_probe
+
+    if not hasattr(conv_probe, "library_bwd"):
+        return {}
+    library_bwd, queued_us = conv_probe.library_bwd, conv_probe.queued_us
+    out = {}
+    for key, dtype in (("bwd_library_ms", torch.float32),
+                       ("bwd_library_bf16_ms", torch.bfloat16)):
+        raw = {k: {kk: v.to(dtype) for kk, v in d.items()}
+               for k, d in w_raw.items()}
+        args = (hb.to(dtype), tb.to(dtype), raw, g.to(dtype))
+        out[key] = queued_us(lambda: library_bwd(*args, G),
+                             min(reps, 10)) / 1e3
+    return out
+
+
 def _inputs(hh: int, ww: int, c: int):
     dev = torch.device("cuda")
     cfg = ModelConfig(in_channels=3, hidden=c, groups=G)
@@ -133,12 +219,13 @@ def _inputs(hh: int, ww: int, c: int):
 
     h = arr(rng.normal(size=(B, hh, ww, c)) * 0.3)
     t0, dt = arr(rng.uniform(0, 0.5, B)), arr(rng.uniform(0.05, 0.2, B))
-    w = prepare(init_odenet(7, cfg, device=dev)["odefunc"], (hh, ww))
+    raw = init_odenet(7, cfg, device=dev)["odefunc"]
+    w = prepare(raw, (hh, ww))
     y0, f0 = h.reshape(B, -1), odefunc(w, t0, h, groups=G).reshape(B, -1)
     g = arr(rng.normal(size=(B_BWD, hh, ww, c)))
     hb, tb = h[:B_BWD].contiguous(), t0[:B_BWD].contiguous()
     kw = dict(hw=(hh, ww), groups=G, rtol=1e-3, atol=1e-3)
-    return w, h, t0, dt, y0, f0, g, hb, tb, kw
+    return w, h, t0, dt, y0, f0, g, hb, tb, kw, raw
 
 
 def bwd_bounds(hh: int, ww: int, c: int, bf16: bool = False):
@@ -185,7 +272,7 @@ def _passes(hh: int, ww: int, c: int, bf16: bool) -> dict:
 
 def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
             bwd_only: bool = False, bwd_batches=()) -> dict:
-    w, h, t0, dt, y0, f0, g, hb, tb, kw = _inputs(hh, ww, c)
+    w, h, t0, dt, y0, f0, g, hb, tb, kw, raw = _inputs(hh, ww, c)
     row = {"shape": f"{hh}x{ww}x{c}"}
     row.update(_passes(hh, ww, c, bf16))
     for nb in bwd_batches:
@@ -194,9 +281,12 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
             row[f"odefunc_bwd_b{nb}_split_ms"] = device_split(
                 lambda: odefunc_bwd(w, *args, groups=G), BWD_KERNELS, reps)
             if bf16:
-                row[f"odefunc_bwd_bf16_b{nb}_split_ms"] = device_split(
-                    lambda: odefunc_bwd(w, *args, groups=G,
-                                        precision="bf16"), BWD_KERNELS, reps)
+                fn16 = lambda: odefunc_bwd(w, *args, groups=G,  # noqa: E731
+                                           precision="bf16")
+                row[f"odefunc_bwd_bf16_b{nb}_split_ms"] = (
+                    device_parts(fn16, ROWS_BWD_PARTS, reps)
+                    if _rows_bwd(hh, ww, c)
+                    else device_split(fn16, BWD_KERNELS, reps))
     if not bwd_only:
         row["odefunc_ms"] = device_ms(lambda: odefunc(w, t0, h, groups=G),
                                       ("odefunc_kernel",), reps)
@@ -247,12 +337,40 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
                 lambda: F.conv2d(xn, wn, padding=1), reps),
         })
     if bf16:
-        row["odefunc_bwd_bf16_split_ms"] = device_split(
-            lambda: odefunc_bwd(w, tb, hb, g, groups=G, precision="bf16"),
-            BWD_KERNELS, reps)
+        def bwd16():
+            return odefunc_bwd(w, tb, hb, g, groups=G, precision="bf16")
+
+        if _rows_bwd(hh, ww, c):
+            # The rows backward (fifteen launches a call) and the one-CTA
+            # pass it replaced: each split, then the calls in turns.
+            from neural_ode_features_tpu_torch.probes.conv_probe import (
+                queued_us,
+            )
+            from neural_ode_features_tpu_torch.probes.timing_aids import (
+                odefunc_bwd_cta_bf16,
+            )
+
+            def cta():
+                return odefunc_bwd_cta_bf16(w, tb, hb, g, G)
+
+            row["odefunc_bwd_bf16_split_ms"] = device_parts(
+                bwd16, ROWS_BWD_PARTS, reps)
+            row["odefunc_bwd_bf16_cta_split_ms"] = device_split(
+                cta, BWD_KERNELS, reps)
+            turns = [queued_us(fn, reps) / 1e3
+                     for fn in (cta, bwd16, bwd16, cta)]
+            row.update({"odefunc_bwd_bf16_turns_ms": turns,
+                        "odefunc_bwd_bf16_cta_ms": (turns[0] + turns[3]) / 2,
+                        "odefunc_bwd_bf16_rows_ms": (turns[1] + turns[2]) / 2})
+        else:
+            row["odefunc_bwd_bf16_split_ms"] = device_split(
+                bwd16, BWD_KERNELS, reps)
         row["odefunc_bwd_bf16_ms"] = sum(
-            row["odefunc_bwd_bf16_split_ms"].values())
+            v for k, v in row["odefunc_bwd_bf16_split_ms"].items()
+            if k != "rows_pass")
         row["odefunc_bwd_bf16_bound_ms"] = bwd_bounds(hh, ww, c, True)
+        if bwd_only:
+            row.update(_library_bwd_ms(raw, hb, tb, g, reps))
     return row
 
 
@@ -264,7 +382,7 @@ def bwd_errors(hh: int, ww: int, c: int, bf16: bool = False) -> dict:
         odefunc_bwd_plain,
     )
 
-    w, _, _, _, _, _, g, hb, tb, _ = _inputs(hh, ww, c)
+    w, _, _, _, _, _, g, hb, tb, _, _ = _inputs(hh, ww, c)
     w64 = type(w)(*(x.double() for x in w))
 
     def flat(dp):
@@ -322,7 +440,7 @@ def digest(hh: int, ww: int, c: int) -> dict:
     )
     from neural_ode_features_tpu_torch.probes.conv_probe import probe_inputs
 
-    w, h, t0, dt, y0, f0, g, hb, tb, kw = _inputs(hh, ww, c)
+    w, h, t0, dt, y0, f0, g, hb, tb, kw, _ = _inputs(hh, ww, c)
 
     def sha(*tensors):
         out = hashlib.sha256()
@@ -371,6 +489,15 @@ def digest(hh: int, ww: int, c: int) -> dict:
             )
 
             row["odefunc_bf16_cta"] = sha(odefunc_cta_bf16(w, t0, h, G))
+        if _rows_bwd(hh, ww, c):
+            from neural_ode_features_tpu_torch.probes.timing_aids import (
+                odefunc_bwd_cta_bf16,
+            )
+
+            cta = odefunc_bwd_cta_bf16(w, tb, hb, g, G, with_f=True)
+            row["odefunc_bwd_bf16_cta"] = sha(
+                *(cta[0][a][b] for a in sorted(cta[0])
+                  for b in sorted(cta[0][a])), *cta[1:])
     x, wc = probe_inputs(B, "cuda", (hh, ww), c)
     for strategy in STRATEGIES + BF16_STRATEGIES:
         if supported((hh, ww), c, strategy):
@@ -439,6 +566,18 @@ def solve_times(n: int) -> dict:
         host_us = 1e6 * (time.perf_counter() - t_s) / 200
         torch.cuda.synchronize()
         out[f"{name}_call_host_us"] = host_us
+    if hasattr(odefunc_bwd, "launches_bf16"):
+        w96, _, _, _, _, _, g96, hb96, tb96, _, _ = _inputs(7, 7, 96)
+        bwd16 = lambda: odefunc_bwd(w96, tb96, hb96, g96, groups=G,  # noqa: E731
+                                    precision="bf16")
+        bwd16()
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        for _ in range(50):
+            bwd16()
+        out["odefunc_bwd_bf16_call_host_us"] = (
+            1e6 * (time.perf_counter() - t_s) / 50)
+        torch.cuda.synchronize()
     return out
 
 

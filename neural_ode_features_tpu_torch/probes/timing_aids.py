@@ -91,6 +91,12 @@ tensors (2 builds):
 
 Prints the card's name and power limit and one line per variant; writes no
 file.  Needs a CUDA card and ``nvcc``.
+
+Two readings of kept kernels that no path runs any more, each the yardstick
+of what replaced it: :func:`odefunc_cta_bf16` (the bf16 ODEfunc on one CTA
+per sample, replaced by the rows build at C = 96 to 512) and
+:func:`odefunc_bwd_cta_bf16` (the bf16 backward on the per-sample passes,
+replaced by the rows backward there).
 """
 
 from __future__ import annotations
@@ -115,7 +121,7 @@ from .conv_probe import KERNEL_NAMES, device_us, probe_inputs
 
 __all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "I2W_VARIANTS",
            "TAP9_VARIANTS", "patched_sources", "tap9_ffma_bf16",
-           "odefunc_cta_bf16", "main"]
+           "odefunc_cta_bf16", "odefunc_bwd_cta_bf16", "main"]
 
 HEADER = "odefunc_common.cuh"
 
@@ -481,6 +487,28 @@ def odefunc_cta_bf16(params, t: torch.Tensor, h: torch.Tensor,
         ptr(t), ptr(h), *weight_pointers(w), ptr(out), b, hh, ww, c, groups,
         stream()), "odefunc_forward_bf16_cta")
     return out
+
+
+def odefunc_bwd_cta_bf16(params, t, h: torch.Tensor, g: torch.Tensor,
+                         groups: int = 32, with_f: bool = False,
+                         residuals: dict | None = None):
+    """The bf16 VJP on the per-sample passes (the C entry
+    ``odefunc_backward_bf16_cta``: ``bwd_sample_kernel`` with ``kBf16``,
+    or the cluster pass at C = 64) on CUDA tensors, at every shape of the
+    backward's gate: ``(dparams, dt, dh)`` and f where ``with_f``, as
+    ``odefunc_bwd(..., precision='bf16')`` gives them.  At C = 96 to 512 on
+    7×7 and 6×6 maps the path runs the rows backward in its place
+    (``kernels.odefunc_bwd.sample_pass`` gives ``'rows'``); this is that
+    build's yardstick, bit for bit and by time.  No launch counter: nothing
+    on a path calls it."""
+    from ..kernels import odefunc_bwd as bwd_mod
+
+    b, hh, ww, _ = h.shape
+    if h.device.type != "cuda":
+        raise ValueError("odefunc_bwd_cta_bf16 takes CUDA tensors")
+    out = bwd_mod.launch(prepare(params, (hh, ww)), t, h, g, groups,
+                         bwd_mod._CTA_BF16, residuals)
+    return out if with_f else out[:3]
 
 
 def tap9_times(tmp: Path, dev) -> dict:

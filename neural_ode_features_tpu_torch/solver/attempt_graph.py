@@ -82,7 +82,9 @@ def _kernel_wrappers() -> tuple:
     """The launch counters the route keeps, as ``(wrapper, attribute,
     kernels)``: ``kernels`` maps the name in the CUDA sources of each
     kernel of which one counted launch runs one (the backward's per-sample
-    pass is one of two kernels, ``kernels.odefunc_bwd.sample_pass``; the
+    pass is one of two kernels, ``kernels.odefunc_bwd.sample_pass``, or
+    the bf16 build's rows backward, whose last per-sample kernel,
+    ``rows_bwd_dh_kernel``, stands for the call; the
     bf16 ``odefunc``'s rows build launches seven kernels a call, of which
     its last, ``rows_gn_out_kernel``, stands for the call) to
     the build it counts, where the kernel is built for several: its
@@ -99,7 +101,8 @@ def _kernel_wrappers() -> tuple:
             (odefunc_bwd, "launches", {"bwd_sample_kernel": 0,
                                        "bwd_sample_kernel_cluster": 0}),
             (odefunc_bwd, "launches_bf16", {"bwd_sample_kernel": 2,
-                                            "bwd_sample_kernel_cluster": 2}),
+                                            "bwd_sample_kernel_cluster": 2,
+                                            "rows_bwd_dh_kernel": None}),
             (dopri5_step, "launches", {"rk_step_kernel": 0}),
             (dopri5_step, "launches_bf16", {"rk_step_kernel": 1}),
             (conv3x3, "launches", dict.fromkeys(

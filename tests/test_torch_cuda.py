@@ -1564,6 +1564,94 @@ def test_bf16_rows_build_is_the_per_sample_build(dev, side, c):
     assert torch.equal(out, eager)
 
 
+@pytest.mark.parametrize("side,c", [(7, 96), (7, 128), (6, 256), (7, 512),
+                                    (6, 512)])
+def test_bf16_rows_backward_is_the_per_sample_pass(dev, side, c):
+    """At C = 96 to 512 the bf16 backward runs the rows backward
+    (``sample_pass`` ``'rows'``: its four convs ``rows_conv_kernel``
+    launches, two of each packing, and no ``bwd_sample_kernel``, read from
+    a captured call's kernel nodes): every output (dθ, dt, dh, f and the
+    residuals r1, r2, gu, gv) bit for bit the one-CTA pass it replaced
+    (``probes/timing_aids.py`` ``odefunc_bwd_cta_bf16``) at B = 128 and 5,
+    a B = 5 batch's rows those of the B = 128 batch, dθ bit-identical
+    across two launches, within ``bf16_distances.BARS`` of the plain bf16
+    VJP, one ``launches_bf16`` a call, and the captured call counted once by
+    the graph route and, replayed after an in-place weight change, the
+    eager call's bits."""
+    from neural_ode_features_tpu_torch.probes.timing_aids import (
+        odefunc_bwd_cta_bf16,
+    )
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    assert sample_pass((side, side), c, 32, "bf16") == "rows"
+    cfg = dataclasses.replace(ENTRY_CONFIG, hidden=c)
+    wt = prepare(init_odenet(3, cfg, device=dev)["odefunc"], (side, side))
+    rng = np.random.default_rng(c + side)
+    arr = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h = arr(rng.normal(size=(128, side, side, c)) * 0.3)
+    g = arr(rng.normal(size=h.shape))
+    t = arr(rng.uniform(0, 1, 128))
+
+    def outs(res, extra):
+        dp, dt, dh, f = res
+        return [*(dp[a][b] for a in sorted(dp) for b in sorted(dp[a])), dt,
+                dh, f, *(extra[k] for k in sorted(extra))]
+
+    def fn(b=128, residuals=None):
+        return odefunc_bwd(wt, t[:b].contiguous(), h[:b].contiguous(),
+                           g[:b].contiguous(), groups=32, with_f=True,
+                           precision="bf16", residuals=residuals)
+
+    for b in (128, 5):
+        before = odefunc_bwd.launches_bf16, odefunc_bwd.launches
+        res, res_cta = {}, {}
+        got = outs(fn(b, res), res)
+        torch.cuda.synchronize()
+        assert (odefunc_bwd.launches_bf16, odefunc_bwd.launches) == (
+            before[0] + 1, before[1])
+        want = outs(odefunc_bwd_cta_bf16(
+            wt, t[:b].contiguous(), h[:b].contiguous(), g[:b].contiguous(),
+            32, with_f=True, residuals=res_cta), res_cta)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert all(torch.equal(x, y) for x, y in zip(outs(fn(b), {}), got))
+        if b == 128:
+            full = got
+            f128 = got[-5]  # f, before the four residuals
+    assert all(torch.equal(x[:5], y[:5]) for x, y in zip(
+        full[-7:], got[-7:]))  # dt, dh, f and the residuals, per row
+    readings = bf16_distances.bwd_readings(wt, t, h, g, 32)
+    assert not bf16_distances.check(readings), readings
+    side_s = torch.cuda.Stream()
+    side_s.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side_s):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side_s)
+    names = [k[0] for k in attempt_graph.kernel_launches(
+        graph.raw_cuda_graph())]
+    assert sum("rows_conv_kernel" in n for n in names) == 4
+    assert sum("rows_pack_kernelILb1ELb1E" in n for n in names) == 2
+    assert sum("rows_pack_kernelILb1ELb0E" in n for n in names) == 2
+    assert not any("bwd_sample_kernel" in n for n in names)
+    rules = {(w.__name__, a): k for w, a, k
+             in attempt_graph._kernel_wrappers()}
+    nodes = attempt_graph.kernel_nodes(graph.raw_cuda_graph())
+    assert attempt_graph._count(
+        nodes, rules[("odefunc_bwd", "launches_bf16")]) == 1
+    for key in (("odefunc_bwd", "launches"), ("odefunc", "launches_bf16")):
+        assert attempt_graph._count(nodes, rules[key]) == 0
+    graph.instantiate()
+    with torch.no_grad():
+        wt.w2.mul_(1.25)
+    eager = [x.clone() for x in outs(fn(), {})]
+    assert not torch.equal(eager[-1], f128)  # f moved with w2
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(outs(out, {}), eager))
+
+
 @pytest.mark.parametrize("batch,hh,ww,c", [
     (256, 7, 7, 256), (256, 7, 7, 512), (5, 6, 6, 512), (5, 7, 7, 160),
     (3, 14, 14, 96), (5, 7, 7, 72)])
