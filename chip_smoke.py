@@ -126,7 +126,13 @@ Phases (any failed check exits nonzero and prints no result):
    f32 plain version's; both builds' weight gradients against
    ``weight_grad_emulated`` on the residuals they contracted, within
    WEIGHT_GRAD_BAR; the bf16 build under ``bf16_distances.BARS``, as at
-   7×7×64, B = 128, 64 and 5 in ``[check]``), an inference solve
+   7×7×64, B = 128, 64 and 5 in ``[check]``; ``[weights]`` lines: the
+   weight kernel the path runs there, ``bwd_weight_kernel`` on ``wgmma``
+   where C % 64 == 0, and in both builds dθ and the row chunks of
+   ``bwd_weight_kernel`` and of the ``mma.sync`` kernel it replaced bit for
+   bit, the two launched alone in turns beside the bound; at 7×7×64 too,
+   with ``[split]``, whose machine code must hold HGMMA and no HMMA), an
+   inference solve
    (B = 256) and a train step (B = 128) through the entry points at each
    with the launch rules of phases 3 and 5 and per-sample NFE against the
    plain path; at 7×7×128, 256 and 512 the adjoint gradients against the
@@ -1219,6 +1225,79 @@ def main() -> int:
           f"{sample_pass_info['ms']:.4f} ms, bound "
           f"{sample_pass_info['bound_ms']:.4f} ms "
           f"({sample_pass_info['ms'] / sample_pass_info['bound_ms']:.1f}×)")
+
+    # The weight gradients' kernel on its own (the path's at C >= 64,
+    # bwd_weight_kernel on wgmma): its machine code holds warpgroup products
+    # and no mma.sync, and weight_reading below.
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        weight_kernel,
+        wgmma_weights_ok,
+    )
+    from neural_ode_features_tpu_torch.probes.timing_aids import (
+        bwd_weight_partials,
+        odefunc_bwd_mma_weights,
+    )
+
+    wsass = kernel_sass("odefunc_bwd", "17bwd_weight_kernel")
+    if "HGMMA" not in wsass or "HMMA" in wsass:
+        fail("bwd_weight_kernel's machine code: expected HGMMA and no HMMA")
+
+    def weight_reading(w_, t_, h_, g_, tag, reps):
+        """The path's weight kernel at this shape (``weight_kernel``:
+        ``route``) and bwd_weight_kernel (wgmma) against the mma.sync
+        kernel (``bwd_weight_kernel_mma``, what bwd_weight_kernel replaced
+        where C % 64 == 0): in both builds dθ of the call and of the
+        reading with the mma.sync kernel (``odefunc_bwd_mma_weights``) bit
+        for bit, the row chunks of the two kernels launched alone on the
+        same residuals bit for bit, and their device ms in turns
+        (mma.sync, wgmma, wgmma, mma.sync) beside the bound.  Returns the
+        reading."""
+        hw_, c_, nb_ = tuple(h_.shape[1:3]), h_.shape[-1], h_.shape[0]
+        info = {"name": "bwd_weight_kernel", "route": weight_kernel(hw_, c_),
+                "mma_kernel": "bwd_weight_kernel_mma"}
+        # bwd_weight_kernel takes C >= 64; at C = 32 the mma.sync kernel
+        # alone, in all four turns.
+        wg_ = "wgmma" if wgmma_weights_ok(hw_, c_) else "mma"
+        for prec in ("f32", "bf16"):
+            res_w = {}
+            dp_w = odefunc_bwd(w_, t_, h_, g_, groups=G, precision=prec,
+                               residuals=res_w)[0]
+            dm_w = odefunc_bwd_mma_weights(w_, t_, h_, g_, G, prec)[0]
+            part_w = bwd_weight_partials(res_w, prec, wg_)
+            if not (torch.equal(flat(dp_w), flat(dm_w)) and torch.equal(
+                    part_w, bwd_weight_partials(res_w, prec, "mma"))):
+                fail(f"bwd_weight_kernel {prec} {tag}: dθ or the row chunks "
+                     "differ from the mma.sync kernel's")
+            turns_w = [device_ms(lambda k=k: bwd_weight_partials(
+                res_w, prec, k, out=part_w), reps=reps)
+                for k in ("mma", wg_, wg_, "mma")]
+            kbw = bwd_kernel_bounds(
+                hw_, c_, nb_, weight_splits(nb_, c_),
+                H100_BF16_FLOPS if prec == "bf16" else H100_TF32_FLOPS)[
+                    "bwd_weight_kernel"]
+            key = "" if prec == "f32" else "bf16_"
+            info.update({f"{key}ms": (turns_w[1] + turns_w[2]) / 2,
+                         f"{key}mma_ms": (turns_w[0] + turns_w[3]) / 2,
+                         f"{key}turns_ms": turns_w,
+                         f"{key}bound_ms": kbw["bound_ms"],
+                         f"{key}bound_by": kbw["bound_by"]})
+            print(f"[weights] {tag} bwd_weight_kernel {prec} ({info['route']}"
+                  f" on the path) alone, device ms in turns (mma.sync, "
+                  f"wgmma, wgmma, mma.sync): " + ", ".join(f"{v:.4f}" for v in turns_w)
+                  + f"; bound {kbw['bound_ms']:.4f} by {kbw['bound_by']}; dθ"
+                  " and row chunks bit for bit the mma.sync kernel's")
+        return info
+
+    if weight_kernel((HH, WW), C) != "wgmma":
+        fail(f"the weight gradients at {HH}x{WW}x{C} do not run "
+             "bwd_weight_kernel (wgmma)")
+    weight_info = weight_reading(w, tb, hb, gb, f"{HH}x{WW}x{C} B={B_TRAIN}",
+                                 reps=50)
+    print("[split] bwd_weight_kernel: HGMMA in its machine code, no HMMA; "
+          f"{weight_info['ms']:.4f} ms f32, {weight_info['bf16_ms']:.4f} "
+          f"bf16 alone (the mma.sync kernel {weight_info['mma_ms']:.4f}, "
+          f"{weight_info['bf16_mma_ms']:.4f}); bound "
+          f"{weight_info['bound_ms']:.4f}, {weight_info['bf16_bound_ms']:.4f}")
 
     # The conv probe kernels against the plain version, in f32 and in
     # float64 on the same inputs (upcast).
@@ -2820,6 +2899,8 @@ def main() -> int:
                 f" f32 FFMA {e_['ffma_bound_ms']:.4f}; plain "
                 f"{e_['plain_ms']:.3f}, library {e_['library_ms']})"
                 for e_ in entries[-3:]))
+            entries[-1]["weight_kernel"] = weight_reading(
+                ww_, tbx, hbx, gx, f"{tag} B={B_TRAIN}", reps=10)
             if c >= 96:
                 entries.extend(width_bf16(hw, c, tag, wcfg, wparams, ww_, hx,
                                           tx, xin, hbx, tbx, gx,
@@ -5361,7 +5442,8 @@ def main() -> int:
          "library_ms": ms["odefunc_bwd_library"], "stage": fused_stage,
          "call_ms": ms["odefunc_bwd"], "ms_by_kernel": bwd_split,
          "sample_pass": sample_pass_info,
-         "bound_ms_by_kernel": {k: v["bound_ms"] for k, v in bwd_kb.items()}},
+         "bound_ms_by_kernel": {k: v["bound_ms"] for k, v in bwd_kb.items()},
+         "weight_kernel": weight_info},
         {"name": "conv_probe", "shape": f"{HH}x{WW}x{C}", "route": "cuda",
          "source": "neural_ode_features_tpu_torch/csrc/conv_probe.cu",
          "replaces": REPLACES["conv_probe"],

@@ -44,30 +44,36 @@
 //      elements (fit_layout).
 //   2. bwd_weight_kernel: dW[conv][k] (C x C per tap) = sum over (b, p) of
 //      r[b, p + off_k] (x) g[b, p], per (conv, tap) a GEMM with M = C_in,
-//      N = C_out, K = the B*H*W rows, on the tensor cores (mma.sync
-//      m16n8k8 TF32), as the TPU kernel runs it on its matrix unit (one
-//      (9C x rows).(rows x C) product of its patch scratch).  The nine taps
-//      of a conv read the same g rows and the same r rows shifted, so a CTA
-//      stages each sample's r map once, with a zero border, and g's rows
-//      once, and its warps take the taps: one row of three taps at
-//      64 x 64 tiles (12 warps), all nine at 32 x 32 (C % 64 == 32; 9
-//      warps), a 32 x 32 warp tile each, so no thread holds more than one
-//      tap's accumulators.  Samples stream through two cp.async buffers,
-//      the next sample's copy in flight while this one's products run (a
-//      ring of three measured no faster, PERF.md).  The rows are cut into
-//      ns chunks, the wrapper's choice (kernels/odefunc_bwd.py
-//      weight_splits: 22 at B = 128, C = 64, 132 CTAs; 1 at C = 512, where
-//      the tiles alone give 384), which also sizes the scratch wpart
-//      (ns, 2, 9, C, C): 19 MB at C = 512 (151 MB with the FFMA kernel's
-//      fixed 8).  f32: 3xTF32 products.  Each 32-row step of a
-//      sample is summed from zero on the tensor core (whose accumulation
-//      truncates), the steps of kGroupSamples samples in f32 in registers,
-//      and those group sums in f32 in shared memory: a chunk of 128 samples
-//      is then no chain of 256 adds (which took 7x7x512's dtheta error to
-//      2.1x the FFMA kernel's; measured, PERF.md).  Every
-//      shape the backward takes runs it (any H x W, C a multiple of 32 to
-//      512): the tile, the taps per CTA and the staging follow from the
-//      shape.
+//      N = C_out, K = the B*H*W rows, on the tensor cores, as the TPU kernel
+//      runs it on its matrix unit (one (9C x rows).(rows x C) product of its
+//      patch scratch).  The nine taps of a conv read the same g rows and the
+//      same r rows shifted, so a CTA stages each sample's r map once, with a
+//      zero border, and g's rows once, and its warps take the taps.  Where
+//      C % 64 == 0 (wgmma_weights) it runs on Hopper's warpgroup products:
+//      chains of wgmma.mma_async.m64n64k8 TF32, A (r) from registers, B (g,
+//      staged transposed: TF32 takes B K-major only) from shared memory,
+//      three warpgroups a CTA, one tap each of a row of three, 64 x 64
+//      tiles (its note below).  Elsewhere (C = 32, C % 64 == 32) it is
+//      bwd_weight_kernel_mma (mma.sync m16n8k8 TF32): one row of three taps
+//      at 64 x 64 tiles (12 warps) or all nine at 32 x 32 (9 warps), a
+//      32 x 32 warp tile each; at C % 64 == 32 its 32 x 32 tiles waste
+//      nothing and it was the faster (7x7x96: 0.071 ms f32, 0.042 bf16,
+//      against 0.108 and 0.080 on wgmma).  Both kernels sum every output in
+//      one order, so they give the same bits (a wgmma TF32 chain gives
+//      mma.sync's, PERF.md).  Samples stream through two buffers, the next
+//      sample's copy in flight while this one's products run.  The rows are
+//      cut into ns chunks, the wrapper's choice (kernels/odefunc_bwd.py
+//      weight_splits, over the mma.sync kernel's grid: 22 at B = 128,
+//      C = 64, 132 CTAs; 1 at C = 512, where the tiles alone give 384),
+//      which also sizes the scratch wpart (ns, 2, 9, C, C): 19 MB at
+//      C = 512 (151 MB with the FFMA kernel's fixed 8).  f32: 3xTF32
+//      products.  Each 32-row step of a sample is summed from zero on the
+//      tensor core (whose accumulation truncates), the steps of
+//      kGroupSamples samples in f32 in registers, and those group sums in
+//      f32 in shared memory: a chunk of 128 samples is then no chain of 256
+//      adds (which took 7x7x512's dtheta error to 2.1x the FFMA kernel's;
+//      measured, PERF.md).  Every shape the backward takes runs one of the
+//      two (any H x W, C a multiple of 32 to 512).
 //   3. bwd_reduce_kernel: one thread per output sums the row chunks and the
 //      per-sample partials, and writes dtheta in the raw layout: conv kernels
 //      (3, 3, C+1, C) with the time channel first, and the eight (C,) vectors.
@@ -83,14 +89,17 @@
 // gradients two (0.925 GFLOP, 1.9 us of TF32, against 2.0 us for reading
 // r1, r2, gu, gv once and writing one (2, 9, C, C) result), the reduction
 // only bytes (2.3 us): each bound by bytes.  The weight-gradient kernel
-// runs at 13x its bound at 7x7x64 (PERF.md).  Its 22 chunks (6.5 MB, where
-// the result is 0.3 MB) are this design's own traffic, another 1.9 us at
-// HBM's rate; its bf16 build, a third of the products, takes 69% of its
-// time, so the products do not bind it either: the likely limit is the
-// fragments' shared-memory loads (one 8-byte load per two elements, each
-// staged row read by every tap's warps).  The tap
-// reuse keeps its staging to one copy of r and g per tap row (T = 64) or
-// per conv (T = 32) and column tile.
+// runs at 10.6x its bound at 7x7x64 on wgmma (13x on mma.sync; PERF.md).
+// Its 22 chunks (6.5 MB, where the result is 0.3 MB) are this design's own
+// traffic, another 1.9 us at HBM's rate.  At 7x7x512 (bwd_weight_kernel,
+// PERF.md) its staging alone, the products taken out, reads 0.54-0.56 ms:
+// the 384 CTAs' 64-channel tiles read the residuals from L2 24 times over
+// (1.2 GB); its loop without the copies 0.42 ms (bf16) and 0.71 (f32), the
+// f32 build's three times the products adding less than the bf16 loop's
+// own time: a sample's fixed part (barrier, fragment loads, the chains'
+// latency), not the products, binds it.  The tap reuse keeps
+// the staging to one copy of r and g per tap row (or, on mma.sync at
+// T = 32, per conv) and tile.
 //
 // Two precisions (kPrec, odefunc_common.cuh).  odefunc_backward is the f32
 // kernel.  odefunc_backward_bf16 is the VJP of compute_dtype='bfloat16'
@@ -187,14 +196,72 @@ __host__ __device__ constexpr int weight_warps(int T) {
 // Rows of g staged per sample: H*W, padded with zero rows to a multiple of 8.
 __host__ __device__ inline int weight_rows(const Shape& s) { return (s.H * s.W + 7) & ~7; }
 
-// Dynamic shared memory of bwd_weight_kernel: two buffers, each r's
+// Dynamic shared memory of bwd_weight_kernel_mma: two buffers, each r's
 // bordered map and g's rows, T + kWeightPad floats a row; then each
 // thread's 32 group sums and the qrow table.
-inline size_t weight_smem_bytes(const Shape& s) {
+inline size_t mma_weight_smem_bytes(const Shape& s) {
   const size_t rows = (size_t)(s.H + 2) * (s.W + 2) + weight_rows(s);
   const int t = weight_tile(s.C);
   return sizeof(float) * (2 * rows * (t + kWeightPad) + 32 * 32 * (size_t)weight_warps(t)) +
          sizeof(int) * weight_rows(s);
+}
+
+// bwd_weight_kernel (wgmma): a CTA of three warpgroups, one tap each of a
+// row of three, on a 64 x 64 (ci, co) tile; a staged r row is 64 +
+// kWeightPad floats.  g's rows are staged transposed, one tile of TF32
+// core matrices (8 co x 4 k, 128 bytes) a buffer (kExact) or a head and a
+// tail tile (3xTF32): 8 groups of 8 co, each nk/4 core matrices along k
+// and 16 bytes of padding (so that the transposing stores of a warp fall in
+// 32 distinct banks), gt_offset.  A thread holds up to kWgGItems float4 of
+// a later sample's g, which caps nk at kWgMaxRows (every map the forward
+// takes at C >= 64 has H*W <= 64).
+constexpr int kWgThreads = 384;
+constexpr int kWgPitch = 64 + kWeightPad;
+constexpr int kWgGItems = 3;
+constexpr int kWgMaxRows = kWgGItems * kWgThreads / 16;
+__host__ __device__ constexpr int gt_group_floats(int nk) { return 8 * nk + 4; }
+__host__ __device__ constexpr int gt_tile_floats(int nk) { return 8 * gt_group_floats(nk); }
+__host__ __device__ constexpr uint32_t gt_sbo_bytes(int nk) { return 4u * gt_group_floats(nk); }
+// Float offset of (co n, row k) in a transposed g tile of nk rows.
+__host__ __device__ constexpr int gt_offset(int n, int k, int nk) {
+  return (n >> 3) * gt_group_floats(nk) + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// Dynamic shared memory of bwd_weight_kernel: two buffers, each r's
+// bordered map (kWgPitch floats a row) and the transposed g tile (two for
+// 3xTF32); then each thread's 32 group sums and the qrow table.
+inline size_t wgmma_weight_smem_bytes(const Shape& s, bool exact) {
+  const size_t nr = (size_t)(s.H + 2) * (s.W + 2);
+  const size_t gt = (exact ? 1 : 2) * (size_t)gt_tile_floats(weight_rows(s));
+  return sizeof(float) * (2 * (nr * kWgPitch + gt) + 32 * (size_t)kWgThreads) +
+         sizeof(int) * weight_rows(s);
+}
+
+// The shapes bwd_weight_kernel (wgmma) takes: C >= 64 (a 32-channel tail
+// of C % 64 == 32 zero-filled in the last tile) with nk <= kWgMaxRows and
+// its staging within shared memory, which is every map the forward takes
+// at C >= 64.
+inline bool wgmma_weights_ok(const Shape& s) {
+  return s.C >= 64 && weight_rows(s) <= kWgMaxRows &&
+         wgmma_weight_smem_bytes(s, false) <= kMaxSmem;
+}
+// The shapes whose weight gradients the path runs on it: C % 64 == 0.
+// Where C % 64 == 32 the mma.sync kernel's 32 x 32 tiles of nine taps
+// waste nothing and its CTAs are fewer: at 7x7x96 it read 0.071 ms (f32)
+// and 0.042 (bf16) against bwd_weight_kernel's 0.108 and 0.080 (PERF.md),
+// so those widths keep it, as C = 32 does.
+inline bool wgmma_weights(const Shape& s) { return s.C % 64 == 0 && wgmma_weights_ok(s); }
+
+// Which weight kernel launch_weights runs: the path's choice
+// (wgmma_weights), the mma.sync kernel, or bwd_weight_kernel wherever it
+// can run (the two last for measurement).
+enum WeightKernel { kWeightsPath = 0, kWeightsMma = 1, kWeightsWgmma = 2 };
+
+// Dynamic shared memory of the weight-gradient kernel that runs at this
+// shape (its 3xTF32 build, the larger); kernels/odefunc_bwd.py
+// weight_smem_bytes mirrors it.
+inline size_t weight_smem_bytes(const Shape& s) {
+  return wgmma_weights(s) ? wgmma_weight_smem_bytes(s, false) : mma_weight_smem_bytes(s);
 }
 
 // Shared memory of bwd_sample_kernel: the forward's layout (carve), then
@@ -1009,7 +1076,10 @@ bwd_sample_kernel_cluster(const float* __restrict__ t, const float* __restrict__
 // wpart[split][conv][tap][ci][co] = sum over the split's samples b and
 // pixels p of r[b, p + off_tap, ci] * g[b, p, co] (zero where the tap leaves
 // the map): per (conv, tap) a GEMM with M = ci, N = co, K = rows (b, p), on
-// the tensor cores (the head of this file).  One CTA per (conv, group of
+// the tensor cores (the head of this file).  bwd_weight_kernel_mma is the
+// mma.sync kernel: the weight gradients at C = 32, and at every shape
+// through odefunc_backward*_mma_weights and odefunc_bwd_weight_grads
+// (measurement only; bwd_weight_kernel gives its bits).  One CTA per (conv, group of
 // weight_taps_of(T) taps, split, ci tile, co tile) of T x T outputs per tap; warp
 // w takes tap w / WPT and a 32 x 32 quarter (T = 64) or the whole (T = 32)
 // of its tile: 2 m16 x 4 n8 mma tiles.  Per sample the CTA stages r's
@@ -1031,9 +1101,9 @@ bwd_sample_kernel_cluster(const float* __restrict__ t, const float* __restrict__
 // (tail products first).
 template <int T, bool kExact>
 __global__ void __launch_bounds__(32 * weight_warps(T))
-bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
-                  const float* __restrict__ gu, const float* __restrict__ gv, Shape s,
-                  int B, int ns, float* __restrict__ wpart) {
+bwd_weight_kernel_mma(const float* __restrict__ r1, const float* __restrict__ r2,
+                      const float* __restrict__ gu, const float* __restrict__ gv, Shape s,
+                      int B, int ns, float* __restrict__ wpart) {
   constexpr int NT = weight_taps_of(T), WPT = (T / 32) * (T / 32);
   constexpr int kThr = 32 * weight_warps(T), pitch = T + kWeightPad, kChunks = T / 4;
   extern __shared__ float4 wsmem[];
@@ -1193,6 +1263,245 @@ bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
             make_float4(sum(i, 2 * p, 2 * h), sum(i, 2 * p + 1, 2 * h),
                         sum(i, 2 * p, 2 * h + 1), sum(i, 2 * p + 1, 2 * h + 1));
       }
+}
+
+// bwd_weight_kernel: the same wpart, bit for bit, on Hopper's asynchronous
+// warpgroup products (the head of this file).  One CTA per (conv, row of
+// three taps, split, 64-channel ci tile, 64-channel co tile), three
+// warpgroups, warpgroup wg taking tap 3*row + wg: per 32-row step of a
+// sample one chain of wgmma.mma_async.m64n64k8 TF32 (four k8, three past
+// row 32 at 7x7) from zero, M = 64 ci, N = 64 co, K = the step's rows.
+//   A (ci x rows) comes from registers: a tap's rows are the bordered map's
+//   rows qrow[k] + off_tap, where no descriptor can start (a shifted pixel
+//   row), so each thread loads its fragment as the mma.sync kernel does:
+//   row g / g + 8 of warp w's 16 is ci 16w + 2g / 2g + 1 (one 8-byte load
+//   gives both), k columns t and t + 4 (the fragment of mma.sync m16n8k8,
+//   a0 and a2 at k = t and t + 4), so the k order within a k8 is the rows'
+//   own, as in the mma.sync kernel.
+//   B (rows x co) comes from shared memory through a descriptor, K-major,
+//   which TF32 requires (its wgmma has no transpose): g's rows are staged
+//   transposed (gt_offset), once per sample and shared by the three taps.
+//   cp.async cannot transpose, so each thread loads up to kWgGItems float4
+//   (4 co of one row) of a later sample into registers and stores them as
+//   single floats (3xTF32: head and tail tiles, split as the mma.sync
+//   kernel splits B) while this sample's chains run; rows past H*W and
+//   channels past C are stored as zeros.  r's bordered map comes by
+//   cp.async (zero-filled outside the map and past C) a sample ahead.  Two
+//   buffers: a sample's r map and g tiles in one while the next's fill the
+//   other.
+// Order of sums: per k8, 3xTF32 a_lo*b_hi, a_hi*b_lo, a_hi*b_hi onto the
+// chain (kExact: a_hi*b_hi alone), the chain added to run in f32, run to
+// the thread's slots of tot every kGroupSamples samples and at the split's
+// end: the mma.sync kernel's per output, whose bits this gives (a wgmma
+// TF32 chain gives mma.sync's, PERF.md).  kExact issues a sample's two
+// chains (rows 0-31 and 32-63) onto two accumulators before it waits for
+// the first, so two chains a warpgroup are in flight; 3xTF32 issues one at
+// a time (the second's split A fragments and accumulator would pass the
+// 168 registers a thread of three warpgroups has).
+template <bool kExact>
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_weight_kernel(const float* __restrict__ r1, const float* __restrict__ r2,
+                  const float* __restrict__ gu, const float* __restrict__ gv, Shape s, int B,
+                  int ns, float* __restrict__ wpart) {
+  constexpr int kTiles = kExact ? 1 : 2;  // g's transposed tiles: head (and tail)
+  extern __shared__ float4 wsmem[];
+  const int C = s.C, H = s.H, W = s.W, hw = H * W, Wp = W + 2;
+  const int nr = (H + 2) * Wp, nk = weight_rows(s), gtf = gt_tile_floats(nk);
+  const int stage_floats = nr * kWgPitch + kTiles * gtf;
+  float* sbase = reinterpret_cast<float*>(wsmem);
+  float* tot = sbase + 2 * stage_floats;  // [32][kWgThreads]: each thread's group sums
+  int* qrow = reinterpret_cast<int*>(tot + 32 * kWgThreads);
+  const int conv = blockIdx.x / (3 * ns), row3 = (blockIdx.x / ns) % 3;
+  const int split = blockIdx.x % ns;
+  const int ci0 = blockIdx.y * 64, co0 = blockIdx.z * 64;
+  const float* r = conv == 0 ? r1 : r2;
+  const float* g = conv == 0 ? gu : gv;
+  const int b0 = (int)((long)B * split / ns), b1 = (int)((long)B * (split + 1) / ns);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3, wg = warp >> 2, wi = warp & 3;
+  const int tap = 3 * row3 + wg, tapoff = (tap / 3) * Wp + tap % 3;
+
+  for (int k = tid; k < nk; k += kWgThreads)
+    qrow[k] = k < hw ? k + 2 * div_magic(k, s.wmagic) : 0;
+#pragma unroll
+  for (int v = 0; v < 32; ++v) tot[v * kWgThreads + tid] = 0.f;
+
+  // Sample b's r map (bordered) into buffer buf, zero-filled outside the
+  // map and past C.
+  auto stage_r = [&](int b, int buf) {
+    float* sr = sbase + buf * stage_floats;
+    const size_t row0 = (size_t)b * hw;
+    for (int i = tid; i < nr * 16; i += kWgThreads) {
+      const int q = i >> 4, c4 = (i & 15) * 4;
+      const int py = div_magic(q, s.pmagic), y = py - 1, x = q - py * Wp - 1;
+      const bool in = y >= 0 && y < H && x >= 0 && x < W && ci0 + c4 < C;
+      cp_async16_zfill(sr + q * kWgPitch + c4, in ? r + (row0 + y * W + x) * C + ci0 + c4 : r,
+                       in);
+    }
+    cp_async_commit();
+  };
+  // Item i of a sample's g tile: row 4*(i / 64) + i % 4, co quad
+  // 8*((i / 32) % 2) + (i % 32) / 4, so that a warp's stores of one of a
+  // quad's four co fall in 32 distinct banks.
+  float4 gnext[kWgGItems];
+  auto load_g = [&](int b) {
+    const size_t row0 = (size_t)b * hw;
+#pragma unroll
+    for (int j = 0; j < kWgGItems; ++j) {
+      const int i = tid + j * kWgThreads;
+      const int k = 4 * (i >> 6) + (i & 3), co = 4 * (8 * ((i >> 5) & 1) + ((i & 31) >> 2));
+      gnext[j] = i < nk * 16 && k < hw && co0 + co < C
+                     ? __ldg(reinterpret_cast<const float4*>(g + (row0 + k) * C + co0 + co))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_g = [&](int buf) {
+    float* head = sbase + buf * stage_floats + nr * kWgPitch;
+#pragma unroll
+    for (int j = 0; j < kWgGItems; ++j) {
+      const int i = tid + j * kWgThreads;
+      if (i >= nk * 16) break;
+      const int k = 4 * (i >> 6) + (i & 3), co = 4 * (8 * ((i >> 5) & 1) + ((i & 31) >> 2));
+      const float v[4] = {gnext[j].x, gnext[j].y, gnext[j].z, gnext[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = gt_offset(co + e, k, nk);
+        if (kExact) {
+          head[off] = v[e];
+        } else {
+          uint32_t hi, lo;
+          tf32_split(v[e], hi, lo);
+          head[off] = __uint_as_float(hi);
+          head[gtf + off] = __uint_as_float(lo);
+        }
+      }
+    }
+  };
+  // While this sample's chains run: sample b + 1's tiles, then the loads
+  // of sample b + 2's.
+  auto next_g = [&](int b, int buf) {
+    if (b + 1 < b1) {
+      store_g(buf ^ 1);
+      if (b + 2 < b1) load_g(b + 2);
+    }
+  };
+  // The A fragments of the step at row k0 (split for 3xTF32).
+  auto load_a = [&](uint32_t a_thread, int k0, uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int k = k0 + 8 * ks;
+      if (k >= nk) break;
+      const int qa = qrow[k + tq], qb = qrow[k + tq + 4];
+      const float2 u0 = lds2(a_thread + 4u * (qa * kWgPitch));
+      const float2 u1 = lds2(a_thread + 4u * (qb * kWgPitch));
+      const float av[4] = {u0.x, u0.y, u1.x, u1.y};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        if (kExact) ah[ks][v] = __float_as_uint(av[v]);
+        else tf32_split(av[v], ah[ks][v], al[ks][v]);
+      }
+    }
+  };
+  // The step's chain onto acc, from zero.
+  auto chain = [&](float (&acc)[32], int k0, uint64_t d_hi, uint64_t d_lo,
+                   const uint32_t (&ah)[4][4], const uint32_t (&al)[4][4]) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int k = k0 + 8 * ks;
+      if (k >= nk) break;
+      const uint64_t step = (uint64_t)(2 * k);  // k rows of 32 bytes, in 16-byte units
+      if (!kExact) {
+        wgmma_tf32_n64(acc, al[ks], d_hi + step, ks > 0);
+        wgmma_tf32_n64(acc, ah[ks], d_lo + step, 1);
+      }
+      wgmma_tf32_n64(acc, ah[ks], d_hi + step, kExact ? ks > 0 : 1);
+    }
+    wgmma_commit();
+  };
+
+  float run[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) run[v] = 0.f;
+
+  stage_r(b0, 0);
+  load_g(b0);
+  store_g(0);
+  if (b0 + 1 < b1) load_g(b0 + 1);
+  const uint32_t sbo = gt_sbo_bytes(nk);
+  for (int b = b0, buf = 0, in_group = 0; b < b1; ++b, buf ^= 1) {
+    cp_async_wait_all();
+    fence_proxy_async();  // this thread's g stores, before the products read them
+    __syncthreads();      // sample b visible (and qrow, the first time)
+    if (b + 1 < b1) stage_r(b + 1, buf ^ 1);
+    const float* sr = sbase + buf * stage_floats;
+    const float* head = sr + nr * kWgPitch;
+    // This thread's A element (ci 16wi + 2g at the tap's offset; add the
+    // row) and the descriptors of the head and tail tiles at row 0.
+    const uint32_t a_thread = smem_addr(sr + tapoff * kWgPitch + 16 * wi + 2 * gq);
+    const uint64_t d_hi = wgmma_desc(smem_addr(head), sbo);
+    const uint64_t d_lo = wgmma_desc(smem_addr(head + (kExact ? 0 : gtf)), sbo);
+    if constexpr (kExact) {
+      // Two steps at a time: both chains in flight, added in order.
+      for (int k0 = 0; k0 < nk; k0 += 2 * kStepRows) {
+        const bool two = k0 + kStepRows < nk;
+        uint32_t ah0[4][4], ah1[4][4];
+        load_a(a_thread, k0, ah0, ah0);
+        if (two) load_a(a_thread, k0 + kStepRows, ah1, ah1);
+        float acc0[32], acc1[32];
+        wgmma_fence();
+        chain(acc0, k0, d_hi, d_lo, ah0, ah0);
+        if (two) chain(acc1, k0 + kStepRows, d_hi, d_lo, ah1, ah1);
+        if (k0 == 0) next_g(b, buf);
+        if (two) wgmma_wait_but_one();
+        else wgmma_wait_all();
+        wgmma_pin(acc0);
+#pragma unroll
+        for (int v = 0; v < 32; ++v) run[v] += acc0[v];
+        if (two) {
+          wgmma_wait_all();
+          wgmma_pin(acc1);
+#pragma unroll
+          for (int v = 0; v < 32; ++v) run[v] += acc1[v];
+        }
+      }
+    } else {
+      for (int k0 = 0; k0 < nk; k0 += kStepRows) {
+        uint32_t ah[4][4], al[4][4];
+        load_a(a_thread, k0, ah, al);
+        float acc[32];
+        wgmma_fence();
+        chain(acc, k0, d_hi, d_lo, ah, al);
+        if (k0 == 0) next_g(b, buf);
+        wgmma_wait_all();
+        wgmma_pin(acc);
+#pragma unroll
+        for (int v = 0; v < 32; ++v) run[v] += acc[v];
+      }
+    }
+    // Every kGroupSamples samples (and at the split's end) the group's sum
+    // goes to the thread's own slots of tot, and run starts again from zero.
+    if (++in_group == kGroupSamples || b + 1 == b1) {
+      in_group = 0;
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        tot[v * kWgThreads + tid] += run[v];
+        run[v] = 0.f;
+      }
+    }
+  }
+
+  // Accumulator 4j + 2h + e: ci 16wi + 2g + h, co 8j + 2t + e.
+  float* out = wpart + (((size_t)split * 2 + conv) * 9 + tap) * C * C;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ci = ci0 + 16 * wi + 2 * gq + h, co = co0 + 8 * j + 2 * tq;
+      if (ci < C && co < C)
+        *reinterpret_cast<float2*>(out + (size_t)ci * C + co) =
+            make_float2(tot[(4 * j + 2 * h) * kWgThreads + tid],
+                        tot[(4 * j + 2 * h + 1) * kWgThreads + tid]);
+    }
 }
 
 // dk1, dk2: (9, C+1, C) raw conv-kernel gradients (channel 0: time);
@@ -1483,15 +1792,49 @@ int launch_rows_bwd(const float* t, const float* h, const float* g, const Odefun
   return (int)cudaGetLastError();
 }
 
+// The weight gradients into wpart (ns, 2, 9, C, C): bwd_weight_kernel
+// or bwd_weight_kernel_mma, as `which` says (WeightKernel).
+template <bool kExact>
+cudaError_t launch_weights(const float* r1, const float* r2, const float* gu, const float* gv,
+                           const Shape& s, int B, int ns, float* wpart, int which,
+                           cudaStream_t st) {
+  const int C = s.C;
+  cudaError_t err;
+  if (which == kWeightsWgmma && !wgmma_weights_ok(s)) return cudaErrorInvalidValue;
+  if (which == kWeightsWgmma || (which == kWeightsPath && wgmma_weights(s))) {
+    const auto weight = bwd_weight_kernel<kExact>;
+    const size_t wsmem = wgmma_weight_smem_bytes(s, kExact);
+    if ((err = cudaFuncSetAttribute(weight, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)wsmem)) != cudaSuccess)
+      return err;
+    const int tiles = (C + 63) / 64;
+    weight<<<dim3(2 * 3 * ns, tiles, tiles), kWgThreads, wsmem, st>>>(r1, r2, gu, gv, s, B, ns,
+                                                                      wpart);
+    return cudaGetLastError();
+  }
+  const int tile = weight_tile(C);
+  const auto weight = tile == 64 ? bwd_weight_kernel_mma<64, kExact>
+                                 : bwd_weight_kernel_mma<32, kExact>;
+  const size_t wsmem = mma_weight_smem_bytes(s);
+  if ((err = cudaFuncSetAttribute(weight, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)wsmem)) != cudaSuccess)
+    return err;
+  const dim3 wgrid(2 * (9 / weight_taps_of(tile)) * ns, C / tile, C / tile);
+  weight<<<wgrid, 32 * (tile == 64 ? weight_warps(64) : weight_warps(32)), wsmem, st>>>(
+      r1, r2, gu, gv, s, B, ns, wpart);
+  return cudaGetLastError();
+}
+
 // The per-sample pass (the cluster pass where pair_ok, the rows backward
-// where rows, else bwd_sample_kernel), then the weight gradients and the
+// where rows, else bwd_sample_kernel), then the weight gradients
+// (launch_weights; mma_weights: the mma.sync kernel at every shape) and the
 // reduction over the batch, on the caller's stream.
 template <int kPrec>
 int backward(const float* t, const float* h, const float* g, const Odefunc& p,
              const float* w1bt, const float* w2bt, float* f, float* dh, float* dt,
              float* r1, float* r2, float* gu, float* gv, float* part, float* wpart,
              float* ug, float* dk1, float* dk2, float* dvec, int B, int H, int W, int C,
-             int G, int ns, bool rows, void* scratch, void* stream) {
+             int G, int ns, bool rows, void* scratch, void* stream, bool mma_weights = false) {
   if (!bwd_shape_ok(H, W, C, G) || B < 1 || ns < 1 || ns > B)
     return (int)cudaErrorInvalidValue;
   const Shape s = bwd_shape(H, W, C, G);
@@ -1522,17 +1865,9 @@ int backward(const float* t, const float* h, const float* g, const Odefunc& p,
                                       part, s.ug ? ug : nullptr);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int tile = weight_tile(C);
-  const auto weight = tile == 64 ? bwd_weight_kernel<64, kPrec == kBf16>
-                                 : bwd_weight_kernel<32, kPrec == kBf16>;
-  const size_t wsmem = weight_smem_bytes(s);
-  if ((err = cudaFuncSetAttribute(weight, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)wsmem)) != cudaSuccess)
+  if ((err = launch_weights<kPrec == kBf16>(r1, r2, gu, gv, s, B, ns, wpart,
+                                            mma_weights ? kWeightsMma : kWeightsPath, st)))
     return (int)err;
-  const dim3 wgrid(2 * (9 / weight_taps_of(tile)) * ns, C / tile, C / tile);
-  weight<<<wgrid, 32 * (tile == 64 ? weight_warps(64) : weight_warps(32)), wsmem, st>>>(
-      r1, r2, gu, gv, s, B, ns, wpart);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int total = 2 * 9 * (C + 1) * C + 8 * C;
   bwd_reduce_kernel<kPrec == kBf16><<<(total + 255) / 256, 256, 0, st>>>(wpart, part, s, B, ns,
                                                                         dk1, dk2, dvec);
@@ -1583,4 +1918,40 @@ extern "C" int odefunc_backward_bf16_cta(NODEF_BACKWARD_ARGS) {
   return nodef::backward<nodef::kBf16>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
                                        wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns, false,
                                        nullptr, stream);
+}
+
+// Both builds with the weight gradients on the mma.sync kernel at every
+// shape (bwd_weight_kernel_mma, what bwd_weight_kernel replaced where
+// C % 64 == 0):
+// readings for measurement (probes/timing_aids.py odefunc_bwd_mma_weights),
+// on no path.
+extern "C" int odefunc_backward_mma_weights(NODEF_BACKWARD_ARGS) {
+  const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
+  return nodef::backward<nodef::kF32>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
+                                      wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns, false,
+                                      nullptr, stream, true);
+}
+extern "C" int odefunc_backward_bf16_mma_weights(NODEF_BACKWARD_ARGS, void* scratch) {
+  const nodef::Odefunc p{n1s, n1b, w1, b1, m1, n2s, n2b, w2, b2, m2, n3s, n3b};
+  return nodef::backward<nodef::kBf16>(t, h, g, p, w1bt, w2bt, f, dh, dt, r1, r2, gu, gv, part,
+                                       wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns,
+                                       nodef::rows_bwd_ok(H, W, C, G), scratch, stream, true);
+}
+
+// The weight-gradient launch alone, on the residuals of a backward call
+// (r1, r2, gu, gv, (B, H*W*C) each), into wpart (ns, 2, 9, C, C): exact
+// (the bf16 build's one TF32 pass) or 3xTF32, on the kernel `which` names
+// (nodef::WeightKernel: 0 the path's, 1 the mma.sync kernel, 2
+// bwd_weight_kernel wherever it can run): the two kernels' bits and device
+// time in turns (probes/timing_aids.py bwd_weight_partials), on no path.
+extern "C" int odefunc_bwd_weight_grads(const float* r1, const float* r2, const float* gu,
+                                        const float* gv, float* wpart, int B, int H, int W,
+                                        int C, int G, int ns, int exact, int which,
+                                        void* stream) {
+  if (!nodef::bwd_shape_ok(H, W, C, G) || B < 1 || ns < 1 || ns > B || which < 0 || which > 2)
+    return (int)cudaErrorInvalidValue;
+  const nodef::Shape s = nodef::bwd_shape(H, W, C, G);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(exact ? nodef::launch_weights<true>(r1, r2, gu, gv, s, B, ns, wpart, which, st)
+                     : nodef::launch_weights<false>(r1, r2, gu, gv, s, B, ns, wpart, which, st));
 }

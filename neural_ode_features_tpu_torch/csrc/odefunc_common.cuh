@@ -1019,16 +1019,23 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most one committed group of this warpgroup is pending.
+__device__ __forceinline__ void wgmma_wait_but_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // Pins the accumulator's registers at this point of the program (no
 // instruction that touches them moves across).
-__device__ __forceinline__ void wgmma_pin(float (&d)[16]) {
+template <int N>
+__device__ __forceinline__ void wgmma_pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Descriptor of a K-major, unswizzled B operand at shared byte address
 // addr: LBO 128 bytes (the next core matrix along k: 4 TF32 or 8 bf16 k),
-// SBO `sbo` bytes (the next 8 n: 2048 in a TF32 tile, 1024 in a bf16 one).
+// SBO `sbo` bytes (the next 8 n: 2048 in a TF32 tile, 1024 in a bf16 one;
+// in the weight gradients' transposed g tile of nk rows, odefunc_bwd.cu
+// gt_offset, 32*nk + 16: gt_sbo_bytes).
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
@@ -1047,6 +1054,27 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The same product at N = 64 (the backward's weight gradients, odefunc_bwd.cu
+// bwd_weight_kernel): d (+)= a (64x8 TF32) * b (8x64, a K-major descriptor
+// of wgmma_desc's form, whose SBO the caller's tile sets); d[4j + r]: row
+// 16*warp + g + 8*(r >> 1), column 8j + 2t + (r & 1), j = 0..7.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

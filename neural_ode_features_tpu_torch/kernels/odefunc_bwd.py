@@ -43,10 +43,16 @@ global scratch beside r1 and r2 (:func:`u_global`), and from 7×7×288 the
 state x to the dh output (``kernels.odefunc.layout``).  The weight-gradient
 contraction runs on the tensor cores at every shape: per (conv, tap) a
 GEMM over the B·H·W rows of the saved activations r1, r2 and cotangents gu,
-gv, ``mma.sync`` 3×TF32, each 32-row step of a sample summed from zero,
-the steps of 8 samples added in f32, then those group sums; a CTA stages a sample's r map and g rows once for a
-row of three taps (64×64 tiles) or all nine (32×32, where C % 64 == 32).
-The rows are cut into :func:`weight_splits` chunks, summed by the
+gv, 3×TF32 (one exact pass in bf16), each 32-row step of a sample summed
+from zero, the steps of 8 samples added in f32, then those group sums.
+Where C % 64 == 0 (:func:`weight_kernel`) it is ``bwd_weight_kernel``,
+chains of ``wgmma.mma_async.m64n64k8`` TF32 with B (g's rows, staged
+transposed) from shared memory: a CTA of three warpgroups, one tap each of
+a row of three, on a 64×64 tile; elsewhere (C = 32, C % 64 == 32)
+``bwd_weight_kernel_mma`` (``mma.sync``), which the readings of
+``probes/timing_aids.py`` also run at every shape: both sum every output in
+the same order, so they give the same bits.  The rows are cut into
+:func:`weight_splits` chunks, summed by the
 reduction in order; its scratch is (splits, 2, 9, C, C), 19 MB at C = 512
 and B = 128.  :func:`weight_grad_emulated` repeats that arithmetic in plain
 PyTorch (tests only).
@@ -128,16 +134,22 @@ __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
            "bwd_refusal", "bwd_smem_bytes", "u_global", "tap_contract",
            "sample_pass", "cluster_smem_bytes", "pair_area_floats",
            "PAIR_THREADS", "PAIR_C",
-           "weight_splits", "weight_smem_bytes", "bwd_residuals_plain",
+           "weight_splits", "weight_smem_bytes", "weight_kernel",
+           "wgmma_weights_ok",
+           "mma_weight_smem_bytes", "wgmma_weight_smem_bytes",
+           "bwd_residuals_plain",
            "weight_grad_emulated", "weight_grad_f64", "rows_bwd_smem_bytes",
            "rows_bwd_scratch_bytes"]
 
 # Mirror csrc/odefunc_bwd.cu (kParts, kStepRows, kGroupSamples, kWeightPad,
-# weight_tile, weight_taps_of).
+# weight_tile, weight_taps_of; the wgmma weight kernel's kWgThreads,
+# kWgMaxRows).
 _PARTS = 26
 _STEP_ROWS = 32
 _GROUP_SAMPLES = 8
 _WEIGHT_PAD = 8
+_WG_THREADS = 384
+_WG_MAX_ROWS = 3 * _WG_THREADS // 16
 # The cluster pass (kPairThreads, kPairC): threads per CTA, channels a CTA
 # owns.
 PAIR_THREADS = 256
@@ -150,23 +162,31 @@ _MAX_SPLIT_FLOATS = 8 * 512 * 512
 
 
 def _weight_tile(c: int) -> int:
+    """The ``mma.sync`` weight kernel's tile (csrc ``weight_tile``)."""
     return 64 if c % 64 == 0 else 32
 
 
 def _weight_taps(c: int) -> int:
+    """The ``mma.sync`` weight kernel's taps a CTA (``weight_taps_of``)."""
     return 3 if _weight_tile(c) == 64 else 9
 
 
 def weight_splits(b: int, c: int) -> int:
-    """Row chunks of the weight-gradient kernel at batch ``b`` and width
+    """Row chunks of the weight-gradient kernels at batch ``b`` and width
     ``c``: of 1 to min(b, 64, 8·512²/c²), the count that minimises waves ×
     (samples per CTA + 1), a wave being 132 CTAs (the +1: a CTA's first
-    copy and its stores), the smallest of equals.  22 at B = 128, C = 64
-    (132 CTAs); 1 at C = 512.  The one home of the count: the wrapper
-    passes it to the kernel (which takes any count from 1 to B) and sizes
-    the scratch ``wpart`` (splits, 2, 9, C, C) by it, which so never
-    exceeds the 151 MB of the FFMA kernel's fixed 8 chunks at C = 512.  It
-    depends on (b, c) alone, so a shape's order of sums is fixed."""
+    copy and its stores), the smallest of equals, over the grid of the
+    ``mma.sync`` kernel (``bwd_weight_kernel_mma``: 64×64 tiles of three
+    taps, or 32×32 of nine where C % 64 == 32).  22 at B = 128, C = 64
+    (132 CTAs); 1 at C = 512.  The ``wgmma`` kernel (``bwd_weight_kernel``,
+    C ≥ 64: 64×64 tiles of three taps, the last tile zero-filled where
+    C % 64 == 32) takes the same count, so both kernels sum every output in
+    the same order; its grid is not an input of the search.  The one home
+    of the count: the wrapper passes it to the kernel (which takes any
+    count from 1 to B) and sizes the scratch ``wpart`` (splits, 2, 9, C, C)
+    by it, which so never exceeds the 151 MB of the FFMA kernel's fixed 8
+    chunks at C = 512.  It depends on (b, c) alone, so a shape's order of
+    sums is fixed."""
     t = _weight_tile(c)
     base = 2 * (9 // _weight_taps(c)) * (c // t) ** 2
     best, best_cost = 1, None
@@ -177,9 +197,31 @@ def weight_splits(b: int, c: int) -> int:
     return best
 
 
-def weight_smem_bytes(hw: tuple[int, int], c: int) -> int:
-    """Dynamic shared memory of the weight-gradient kernel
-    (csrc/odefunc_bwd.cu ``weight_smem_bytes``): two buffers, each a
+def wgmma_weights_ok(hw: tuple[int, int], c: int) -> bool:
+    """Whether ``bwd_weight_kernel`` (``wgmma``) can run at this shape
+    (csrc/odefunc_bwd.cu ``wgmma_weights_ok``): C ≥ 64, a sample's H·W
+    rows, padded to a multiple of 8, at most 72, and its staging
+    (:func:`wgmma_weight_smem_bytes`) within shared memory: every map the
+    forward takes at C ≥ 64."""
+    hh, ww = hw
+    nk = -(-hh * ww // 8) * 8
+    return (c >= 64 and nk <= _WG_MAX_ROWS
+            and wgmma_weight_smem_bytes(hw, c) <= MAX_SMEM)
+
+
+def weight_kernel(hw: tuple[int, int], c: int) -> str:
+    """Which weight-gradient kernel the backward runs at this shape
+    (csrc/odefunc_bwd.cu ``wgmma_weights``): ``'wgmma'``
+    (``bwd_weight_kernel``, ``wgmma.mma_async`` TF32) where C % 64 == 0 and
+    :func:`wgmma_weights_ok`; else ``'mma'`` (``bwd_weight_kernel_mma``,
+    ``mma.sync``: C = 32, and C % 64 == 32, where its 32×32 tiles of nine
+    taps were the faster, PERF.md)."""
+    return "wgmma" if c % 64 == 0 and wgmma_weights_ok(hw, c) else "mma"
+
+
+def mma_weight_smem_bytes(hw: tuple[int, int], c: int) -> int:
+    """Dynamic shared memory of the ``mma.sync`` weight kernel
+    (csrc/odefunc_bwd.cu ``mma_weight_smem_bytes``): two buffers, each a
     sample's bordered r map and its g rows (H·W padded to a multiple of 8),
     each row T + 8 floats; then 32 group sums per thread and one int per g
     row."""
@@ -189,6 +231,32 @@ def weight_smem_bytes(hw: tuple[int, int], c: int) -> int:
     warps = _weight_taps(c) * (t // 32) ** 2
     return (4 * (2 * ((hh + 2) * (ww + 2) + nk) * (t + _WEIGHT_PAD)
                  + 32 * 32 * warps) + 4 * nk)
+
+
+def wgmma_weight_smem_bytes(hw: tuple[int, int], c: int,
+                            exact: bool = False) -> int:
+    """Dynamic shared memory of the ``wgmma`` weight kernel
+    (csrc/odefunc_bwd.cu ``wgmma_weight_smem_bytes``; ``exact``: the bf16
+    build, one transposed g tile): two buffers, each a sample's bordered r
+    map, 64 + 8 floats a row, and g's rows transposed, a tile of
+    8·(8·nk + 4) floats (nk = H·W padded to a multiple of 8), two (head and
+    tail) in 3×TF32; then 32 group sums per thread of 384 and one int per
+    g row.  153,888 bytes at 7×7 in f32, 124,960 in bf16."""
+    hh, ww = hw
+    nk = -(-hh * ww // 8) * 8
+    gt = (1 if exact else 2) * 8 * (8 * nk + 4)
+    return (4 * (2 * ((hh + 2) * (ww + 2) * (64 + _WEIGHT_PAD) + gt)
+                 + 32 * _WG_THREADS) + 4 * nk)
+
+
+def weight_smem_bytes(hw: tuple[int, int], c: int) -> int:
+    """Dynamic shared memory of the weight-gradient kernel that runs at
+    this shape (csrc/odefunc_bwd.cu ``weight_smem_bytes``): the ``wgmma``
+    kernel's 3×TF32 build where :func:`weight_kernel` gives ``'wgmma'``,
+    else the ``mma.sync`` kernel's."""
+    if weight_kernel(hw, c) == "wgmma":
+        return wgmma_weight_smem_bytes(hw, c)
+    return mma_weight_smem_bytes(hw, c)
 
 
 def u_global(hw: tuple[int, int], c: int, groups: int) -> bool:
@@ -395,7 +463,9 @@ def bwd_residuals_plain(w: OdefuncWeights, t, h: torch.Tensor,
 def weight_grad_emulated(r: torch.Tensor, g: torch.Tensor,
                          precision: str = "f32",
                          splits: int | None = None) -> torch.Tensor:
-    """The weight-gradient kernel's arithmetic in plain PyTorch: one conv's
+    """The weight-gradient kernels' arithmetic in plain PyTorch (both
+    ``bwd_weight_kernel`` on ``wgmma`` and ``bwd_weight_kernel_mma`` on
+    ``mma.sync``, which sum in the same order): one conv's
     dW (3, 3, C, C) (tap, input channel, output channel, the time channel
     left out) = Σ over samples and pixels of r shifted by the tap ⊗ g, from
     float32 ``r``, ``g`` (B, H, W, C).  As the kernel: the batch cut into
@@ -469,22 +539,34 @@ def weight_grad_f64(r: torch.Tensor, g: torch.Tensor,
 
 
 # The C entry point of each build of the kernel (csrc/odefunc_bwd.cu); the
-# bf16 one takes the rows backward's scratch last.  The bf16 build on the
-# per-sample passes alone (odefunc_backward_bf16_cta) is a reading for
-# measurement (probes/timing_aids.py).
+# bf16 one takes the rows backward's scratch last.  Readings for
+# measurement (probes/timing_aids.py), on no path: the bf16 build on the
+# per-sample passes alone (odefunc_backward_bf16_cta), each build with its
+# weight gradients on the mma.sync kernel at every shape (_MMA_WEIGHTS; the
+# bf16 one takes the scratch too) and the weight-gradient launch alone
+# (odefunc_bwd_weight_grads).
 _ENTRY = {"f32": "odefunc_backward", "bf16": "odefunc_backward_bf16"}
 _CTA_BF16 = "odefunc_backward_bf16_cta"
+_MMA_WEIGHTS = {"f32": "odefunc_backward_mma_weights",
+                "bf16": "odefunc_backward_bf16_mma_weights"}
+_WITH_SCRATCH = (_ENTRY["bf16"], _MMA_WEIGHTS["bf16"])
+_WEIGHT_GRADS = "odefunc_bwd_weight_grads"
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("odefunc_bwd")
-    for name in (*_ENTRY.values(), _CTA_BF16):
+    for name in (*_ENTRY.values(), _CTA_BF16, *_MMA_WEIGHTS.values()):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p]
-                           + [ctypes.c_void_p] * (name == _ENTRY["bf16"]))
+                           + [ctypes.c_void_p] * (name in _WITH_SCRATCH))
             fn.restype = ctypes.c_int
+    fn = getattr(lib, _WEIGHT_GRADS)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -517,8 +599,10 @@ def odefunc_bwd(params, t, h: torch.Tensor, g: torch.Tensor, *,
 
 def launch(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
            groups: int, entry: str, residuals: dict | None = None):
-    """One call of the C entry ``entry`` (``_ENTRY``'s, or the bf16 build on
-    the per-sample passes, ``odefunc_backward_bf16_cta``) on CUDA tensors:
+    """One call of the C entry ``entry`` (``_ENTRY``'s, or a reading's:
+    the bf16 build on the per-sample passes, ``odefunc_backward_bf16_cta``;
+    either build with the ``mma.sync`` weight kernel, ``_MMA_WEIGHTS``) on
+    CUDA tensors:
     ``(dparams, dt, dh, f)``.  Checks what the kernel takes and raises on
     anything else; counts nothing (:func:`odefunc_bwd` counts)."""
     b, hh, ww, c = h.shape
@@ -532,7 +616,7 @@ def launch(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
             f"{hh}×{ww}×{c} with groups={groups}: {why} "
             "(kernels.odefunc_bwd.bwd_refusal)")
     check_cuda_inputs(w, {"h": h, "g": g}, (hh, ww), c, groups)
-    rows = (entry == _ENTRY["bf16"]
+    rows = (entry in _WITH_SCRATCH
             and sample_pass((hh, ww), c, groups, "bf16") == "rows")
     if rows and b * hh * ww * c >= 2 ** 31:
         raise ValueError(f"the rows backward takes B·H·W·C < 2^31, got "
@@ -573,7 +657,7 @@ def launch(w: OdefuncWeights, t, h: torch.Tensor, g: torch.Tensor,
     at = lambda base, nbytes: ctypes.c_void_p(base.data_ptr() + nbytes)
     lib = _lib()
     extra = [at(scratch, offsets[-1]) if rows else None] * (
-        entry == _ENTRY["bf16"])
+        entry in _WITH_SCRATCH)
     code = getattr(lib, entry)(
         ptr(t), ptr(h), ptr(g), *weight_pointers(w), *wbt_ptrs,
         ptr(f), ptr(dh), at(outs, 4 * (2 * nk + 8 * c)),

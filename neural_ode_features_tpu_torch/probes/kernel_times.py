@@ -63,6 +63,14 @@ through ``F.group_norm`` + ``F.conv2d`` on f32 (TF32 off) and on bf16
 tensors at B = 128 (``bwd_library_ms``, ``bwd_library_bf16_ms``, the same
 clock).
 
+``--bwd-only`` also times the weight-gradient launch alone in turns, the
+``mma.sync`` kernel beside ``bwd_weight_kernel`` on ``wgmma`` (C ≥ 64; the
+path runs it where C % 64 == 0, ``weight_kernel``): ``weight_turns_ms``
+(``mma.sync``, ``wgmma``, ``wgmma``, ``mma.sync``), ``weight_mma_ms``,
+``weight_ms`` (``wgmma``) and ``weight_bound_ms``, with ``--bf16``
+the same for the bf16 build (``weight_bf16_*``), where the package has
+that reading (``timing_aids.bwd_weight_partials``).
+
 ``--digest`` prints, per shape, the sha256 of each f32 kernel's outputs on
 the seeded inputs (``odefunc``; ``rk_step``'s four outputs; the backward's
 conv-kernel gradients, ``odefunc_bwd_weights``, and the rest of its
@@ -78,7 +86,10 @@ builds, of theirs
 shapes ``odefunc_bf16_cta``, the per-sample kernel's f, which the rows
 build's must equal, and where the package has the rows backward
 ``odefunc_bwd_bf16_cta``, every output of the one-CTA pass, which the rows
-backward's ``odefunc_bwd_bf16`` must equal), so that two checkouts' kernels
+backward's ``odefunc_bwd_bf16`` must equal; where the package has the
+reading, ``odefunc_bwd_weights_mma`` and ``odefunc_bwd_bf16_weights_mma``,
+the weight gradients on the ``mma.sync`` kernel, which ``bwd_weight_kernel``'s
+must equal), so that two checkouts' kernels
 can be held bit for bit (run once with each package on ``PYTHONPATH``, in
 one call).
 
@@ -270,6 +281,51 @@ def _passes(hh: int, ww: int, c: int, bf16: bool) -> dict:
     return out
 
 
+def weight_turns(w, tb, hb, g, bf16: bool, reps: int) -> dict:
+    """The weight-gradient launch alone at B = 128, in turns on the
+    residuals of one backward call: the ``mma.sync`` kernel,
+    ``bwd_weight_kernel`` (``wgmma``, where C ≥ 64), ``wgmma``,
+    ``mma.sync`` (``timing_aids.bwd_weight_partials``;
+    device ms by CUDA events behind a spin kernel), f32 and, with ``bf16``,
+    the bf16 build; the path's kernel (``weight_kernel``) and each build's
+    weight bound beside them.  {} where the package lacks the reading (a
+    checkout from before it: its ``bwd_weight_kernel`` is the ``mma.sync``
+    kernel, read in ``odefunc_bwd_split_ms``)."""
+    from neural_ode_features_tpu_torch.probes import timing_aids
+
+    if not hasattr(timing_aids, "bwd_weight_partials"):
+        return {}
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        weight_kernel,
+        wgmma_weights_ok,
+    )
+    from neural_ode_features_tpu_torch.probes.conv_probe import queued_us
+
+    hh, ww, c = hb.shape[1:]
+    out = {"weight_kernel": weight_kernel((hh, ww), c)}
+    # bwd_weight_kernel takes C >= 64 (at C % 64 == 32 the path keeps the
+    # mma.sync kernel, and the turns show why); at C = 32 mma.sync alone.
+    wg = "wgmma" if wgmma_weights_ok((hh, ww), c) else "mma"
+    for prec in ("f32", "bf16") if bf16 else ("f32",):
+        res = {}
+        odefunc_bwd(w, tb, hb, g, groups=G, precision=prec, residuals=res)
+        part = timing_aids.bwd_weight_partials(res, prec, wg)
+
+        def run(kernel, prec=prec, res=res, part=part):
+            return timing_aids.bwd_weight_partials(res, prec, kernel,
+                                                   out=part)
+
+        turns = [queued_us(lambda k=k: run(k), reps) / 1e3
+                 for k in ("mma", wg, wg, "mma")]
+        key = "weight_bf16" if prec == "bf16" else "weight"
+        bounds = bwd_bounds(hh, ww, c, prec == "bf16")
+        out.update({f"{key}_turns_ms": turns,
+                    f"{key}_mma_ms": (turns[0] + turns[3]) / 2,
+                    f"{key}_ms": (turns[1] + turns[2]) / 2,
+                    f"{key}_bound_ms": bounds and bounds["bwd_weight_kernel"]})
+    return out
+
+
 def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
             bwd_only: bool = False, bwd_batches=()) -> dict:
     w, h, t0, dt, y0, f0, g, hb, tb, kw, raw = _inputs(hh, ww, c)
@@ -371,6 +427,8 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
         row["odefunc_bwd_bf16_bound_ms"] = bwd_bounds(hh, ww, c, True)
         if bwd_only:
             row.update(_library_bwd_ms(raw, hb, tb, g, reps))
+    if bwd_only:
+        row.update(weight_turns(w, tb, hb, g, bf16, reps))
     return row
 
 
@@ -498,6 +556,16 @@ def digest(hh: int, ww: int, c: int) -> dict:
             row["odefunc_bwd_bf16_cta"] = sha(
                 *(cta[0][a][b] for a in sorted(cta[0])
                   for b in sorted(cta[0][a])), *cta[1:])
+    from neural_ode_features_tpu_torch.probes import timing_aids
+
+    if hasattr(timing_aids, "odefunc_bwd_mma_weights"):
+        # The weight gradients on the mma.sync kernel, which the path's
+        # must equal.
+        for key, prec in (("odefunc_bwd_weights_mma", "f32"),
+                          ("odefunc_bwd_bf16_weights_mma", "bf16")):
+            dm = timing_aids.odefunc_bwd_mma_weights(w, tb, hb, g, G, prec)[0]
+            row[key] = sha(*(dm[a]["kernel"][:, :, 1:]
+                             for a in ("conv1", "conv2")))
     x, wc = probe_inputs(B, "cuda", (hh, ww), c)
     for strategy in STRATEGIES + BF16_STRATEGIES:
         if supported((hh, ww), c, strategy):

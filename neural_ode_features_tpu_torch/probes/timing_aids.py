@@ -89,14 +89,32 @@ tensors (2 builds):
 
     python -m neural_ode_features_tpu_torch.probes.timing_aids --tap9
 
+With ``--weights``, in place of all of the above, the backward's
+weight-gradient launch alone (``bwd_weight_kernel``, device ms by CUDA
+events behind a spin kernel, at 7×7×512 and 7×7×64, B = 128, both builds,
+beside the ``mma.sync`` kernel; ``WEIGHT_VARIANTS``, edits of
+``csrc/odefunc_bwd.cu``, built in parallel):
+
+``shipped``       the kernel as it is.
+``no_products``   no ``wgmma`` (the chains' fences, commits and waits stay).
+``no_g_staging``  no loads or transposing stores of g after the first
+                  sample's.
+``no_copies``     neither those nor the copies of r's map.
+
+    python -m neural_ode_features_tpu_torch.probes.timing_aids --weights
+
 Prints the card's name and power limit and one line per variant; writes no
 file.  Needs a CUDA card and ``nvcc``.
 
-Two readings of kept kernels that no path runs any more, each the yardstick
+Readings of kept kernels that no path runs any more, each the yardstick
 of what replaced it: :func:`odefunc_cta_bf16` (the bf16 ODEfunc on one CTA
-per sample, replaced by the rows build at C = 96 to 512) and
+per sample, replaced by the rows build at C = 96 to 512),
 :func:`odefunc_bwd_cta_bf16` (the bf16 backward on the per-sample passes,
-replaced by the rows backward there).
+replaced by the rows backward there), :func:`odefunc_bwd_mma_weights`
+(either build's backward with its weight gradients on the ``mma.sync``
+kernel, replaced by ``bwd_weight_kernel`` on ``wgmma`` at C ≥ 64) and
+:func:`bwd_weight_partials` (either weight kernel alone, for their times
+in turns).
 """
 
 from __future__ import annotations
@@ -120,8 +138,9 @@ from ..solver import DOPRI5
 from .conv_probe import KERNEL_NAMES, device_us, probe_inputs
 
 __all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "I2W_VARIANTS",
-           "TAP9_VARIANTS", "patched_sources", "tap9_ffma_bf16",
-           "odefunc_cta_bf16", "odefunc_bwd_cta_bf16", "main"]
+           "TAP9_VARIANTS", "WEIGHT_VARIANTS", "patched_sources", "tap9_ffma_bf16",
+           "odefunc_cta_bf16", "odefunc_bwd_cta_bf16",
+           "odefunc_bwd_mma_weights", "bwd_weight_partials", "main"]
 
 HEADER = "odefunc_common.cuh"
 
@@ -313,6 +332,22 @@ TAP9_VARIANTS = {
 }
 
 
+# The weight-gradient launch alone (csrc/odefunc_bwd.cu bwd_weight_kernel,
+# wgmma): the parts of a sample's work taken out one at a time.
+_W_CHAIN = ("        wgmma_tf32_n64(acc, al[ks], d_hi + step, ks > 0);\n"
+            "        wgmma_tf32_n64(acc, ah[ks], d_lo + step, 1);\n")
+_W_LAST = ("      wgmma_tf32_n64(acc, ah[ks], d_hi + step, kExact ? ks > 0 : 1);"
+           "\n")
+_W_G = "      store_g(buf ^ 1);\n      if (b + 2 < b1) load_g(b + 2);\n"
+WEIGHT_VARIANTS = {
+    "shipped": [],
+    "no_products": [(_BWD, _W_CHAIN, ""), (_BWD, _W_LAST, "")],
+    "no_g_staging": [(_BWD, _W_G, "")],
+    "no_copies": [(_BWD, _W_G, ""),
+                  (_BWD, "    if (b + 1 < b1) stage_r(b + 1, buf ^ 1);\n", "")],
+}
+
+
 def patched_sources(edits, dest: Path, csrc: Path = _build.CSRC) -> Path:
     """Copy ``csrc`` to ``dest`` and apply ``edits``: ``(old, new)`` to the
     shared header, ``(file, old, new)`` to that file of ``csrc``; each
@@ -394,6 +429,63 @@ def bwd_times(tmp: Path, dev, batches, precisions=("f32",),
                 print(f"bwd_sample {prec:>4} {name:>7} {tag:>14}: "
                       + ", ".join(f"B={b} {v:.4f} ms" for b, v in ms.items())
                       + " per launch")
+    return out
+
+
+def weight_times(tmp: Path, dev, shapes=((7, 7, 512), (7, 7, 64)),
+                 batch: int = 128, reps: int = 20) -> dict:
+    """Device ms of the weight-gradient launch alone (``bwd_weight_kernel``,
+    :func:`bwd_weight_partials`; CUDA events behind a spin kernel) under
+    each of ``WEIGHT_VARIANTS`` at each H×W×C of ``shapes``, B = ``batch``,
+    in both builds, on the residuals of one backward call (the entry
+    model's ODEfunc at that width, seed 7; numpy-seeded state and
+    cotangent), beside the ``mma.sync`` kernel:
+    ``{shape: {precision: {variant: ms}}}``.  The variants' libraries are
+    built in parallel, one ``nvcc`` each."""
+    from ..kernels.odefunc_bwd import odefunc_bwd
+    from ..models import ModelConfig, init_odenet
+    from .conv_probe import queued_us
+
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    jobs = {}
+    for tag, edits in WEIGHT_VARIANTS.items():
+        if edits:
+            src = patched_sources(edits, tmp / f"weight_{tag}")
+            jobs[tag] = (src / "libodefunc_bwd.so", subprocess.Popen(
+                [_build._nvcc(), *flags, "-o", str(src / "libodefunc_bwd.so"),
+                 str(src / "odefunc_bwd.cu")]))
+    libs = {tag: None for tag in WEIGHT_VARIANTS}
+    for tag, (path, proc) in jobs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for the weight variant {tag}")
+        libs[tag] = ctypes.CDLL(str(path))
+        libs[tag].nodef_error_string.argtypes = [ctypes.c_int]
+        libs[tag].nodef_error_string.restype = ctypes.c_char_p
+    out = {}
+    for hh, ww, c in shapes:
+        cfg = ModelConfig(in_channels=3, hidden=c, groups=32)
+        wts = prepare(init_odenet(7, cfg, device=dev)["odefunc"], (hh, ww))
+        rng = np.random.default_rng(1)
+        h = torch.from_numpy((rng.normal(size=(batch, hh, ww, c)) * 0.3)
+                             .astype(np.float32)).to(dev)
+        t = torch.from_numpy(rng.uniform(0, 0.5, batch)
+                             .astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(size=(batch, hh, ww, c))
+                             .astype(np.float32)).to(dev)
+        row = out[f"{hh}x{ww}x{c}"] = {}
+        for prec in ("f32", "bf16"):
+            res = {}
+            odefunc_bwd(wts, t, h, g, groups=32, precision=prec,
+                        residuals=res)
+            part = bwd_weight_partials(res, prec, "wgmma")
+            ms = row[prec] = {"mma": queued_us(lambda: bwd_weight_partials(
+                res, prec, "mma", out=part), reps) / 1e3}
+            for tag, lib in libs.items():
+                ms[tag] = _with_library("odefunc_bwd", lib, lambda: queued_us(
+                    lambda: bwd_weight_partials(res, prec, "wgmma", out=part),
+                    reps)) / 1e3
+            print(f"bwd_weight {hh}x{ww}x{c} {prec:>4}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in ms.items()) + " ms per launch")
     return out
 
 
@@ -511,6 +603,67 @@ def odefunc_bwd_cta_bf16(params, t, h: torch.Tensor, g: torch.Tensor,
     return out if with_f else out[:3]
 
 
+def odefunc_bwd_mma_weights(params, t, h: torch.Tensor, g: torch.Tensor,
+                            groups: int = 32, precision: str = "f32",
+                            with_f: bool = False,
+                            residuals: dict | None = None):
+    """The backward of ``precision`` with its weight gradients on the
+    ``mma.sync`` kernel (``bwd_weight_kernel_mma``; the C entries
+    ``odefunc_backward_mma_weights``, ``odefunc_backward_bf16_mma_weights``)
+    on CUDA tensors, at every shape of the backward's gate:
+    ``(dparams, dt, dh)`` and f where ``with_f``, as ``odefunc_bwd`` gives
+    them.  At C ≥ 64 the path runs ``bwd_weight_kernel`` (``wgmma``) in its
+    place (``kernels.odefunc_bwd.weight_kernel``); this is that kernel's
+    yardstick, bit for bit.  No launch counter: nothing on a path calls
+    it."""
+    from ..kernels import odefunc_bwd as bwd_mod
+
+    b, hh, ww, _ = h.shape
+    if h.device.type != "cuda":
+        raise ValueError("odefunc_bwd_mma_weights takes CUDA tensors")
+    out = bwd_mod.launch(prepare(params, (hh, ww)), t, h, g, groups,
+                         bwd_mod._MMA_WEIGHTS[precision], residuals)
+    return out if with_f else out[:3]
+
+
+_WEIGHT_KERNELS = ("path", "mma", "wgmma")  # csrc nodef::WeightKernel
+
+
+def bwd_weight_partials(res: dict, precision: str = "f32",
+                        kernel: str = "path", groups: int = 32,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """The weight-gradient launch alone (the C entry
+    ``odefunc_bwd_weight_grads``) on the residuals a backward call
+    contracted (``res``: ``r1``, ``r2``, ``gu``, ``gv``, (B, H, W, C) on the
+    card, as ``odefunc_bwd(..., residuals=res)`` fills it): the row chunks'
+    partial sums (splits, 2, 9, C, C), ``weight_splits`` chunks, in the
+    build of ``precision`` ('bf16': one exact TF32 pass) on ``kernel``:
+    ``'path'``, the one the backward runs (``kernels.odefunc_bwd.
+    weight_kernel``), ``'mma'``, ``bwd_weight_kernel_mma``, or ``'wgmma'``,
+    ``bwd_weight_kernel`` wherever it can run (``wgmma_weights_ok``: C ≥ 64,
+    at C % 64 == 32 too, where the path keeps the ``mma.sync`` kernel);
+    into ``out`` where given: the kernels' bits and device time in turns.
+    No launch counter: nothing on a path calls it."""
+    from ..kernels import odefunc_bwd as bwd_mod
+    from ..kernels.odefunc import ptr, stream
+
+    if kernel not in _WEIGHT_KERNELS or precision not in ("f32", "bf16"):
+        raise ValueError(f"kernel one of {_WEIGHT_KERNELS} and precision "
+                         f"'f32' or 'bf16', got {kernel!r}, {precision!r}")
+    r1 = res["r1"]
+    b, hh, ww, c = r1.shape
+    ns = bwd_mod.weight_splits(b, c)
+    if out is None:
+        out = torch.empty((ns, 2, 9, c, c), dtype=torch.float32,
+                          device=r1.device)
+    lib = bwd_mod._lib()
+    _build.check(lib, getattr(lib, bwd_mod._WEIGHT_GRADS)(
+        *(ptr(res[k].contiguous()) for k in ("r1", "r2", "gu", "gv")),
+        ptr(out), b, hh, ww, c, groups, ns, precision == "bf16",
+        _WEIGHT_KERNELS.index(kernel), stream()), bwd_mod._WEIGHT_GRADS)
+    return out
+
+
 def tap9_times(tmp: Path, dev) -> dict:
     """``tap9_bf16`` under each of ``TAP9_VARIANTS`` (:func:`rows_times`),
     beside the fused bf16 builds' FFMA stage, which the strategy was before
@@ -554,6 +707,10 @@ def main(argv=None) -> dict:
     p.add_argument("--im2col", action="store_true",
                    help="time the probe's im2col_bf16 (I2W_VARIANTS) in "
                         "place of the probe's mma3 and rk_step")
+    p.add_argument("--weights", action="store_true",
+                   help="time the backward's weight-gradient launch alone "
+                        "(WEIGHT_VARIANTS) in place of the probe and "
+                        "rk_step")
     p.add_argument("--tap9", action="store_true",
                    help="time the probe's tap9_bf16 (TAP9_VARIANTS) and the "
                         "fused bf16 builds' FFMA stage in place of the "
@@ -572,6 +729,8 @@ def main(argv=None) -> dict:
             return {"im2col_bf16": rows_times(tmp, dev)}
         if args.tap9:
             return {"tap9_bf16": tap9_times(tmp, dev)}
+        if args.weights:
+            return {"bwd_weight_ms": weight_times(tmp, dev)}
         if args.bwd_only:
             return {"bwd_sample_ms": bwd_times(
                 tmp, dev, [int(b) for b in args.bwd_batch.split(",")],

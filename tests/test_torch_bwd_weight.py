@@ -112,7 +112,8 @@ def test_bf16_emulation_rounds_the_exact_sum_once(c, side, batch):
 
 
 @pytest.mark.parametrize("c,side,batch", [(32, 6, 5), (64, 7, 16),
-                                          (64, 6, 16), (32, 7, 5)])
+                                          (64, 6, 16), (32, 7, 5),
+                                          (128, 7, 3)])
 def test_emulation_against_the_jax_kernel(c, side, batch):
     """The JAX fused backward kernel (``odefunc_bwd_rows``, interpret mode,
     its weight gradients one f32 (9C × rows)·(rows × C) product at HIGHEST
@@ -168,6 +169,86 @@ def test_weight_splits():
             ns = weight_splits(b, c)
             assert 1 <= ns <= min(b, 64)
             assert 4 * ns * 2 * 9 * c * c <= 8 * 2 * 9 * 512 * 512 * 4
+
+
+# weight_splits at every (B, C) a path gives it: the training batches
+# (128; 64, one rank's rows of two; 16, the event adjoint's; 5, a ragged
+# batch) at C = 32 to 512.  Both weight kernels sum in these chunks, so a
+# change of any entry changes the bits of dθ.
+SPLITS = {
+    128: (64, 22, 7, 11, 5, 7, 4, 4, 4, 7, 6, 3, 5, 4, 2, 1),
+    64: (64, 22, 7, 5, 5, 2, 4, 4, 4, 5, 1, 3, 5, 4, 2, 1),
+    16: (16, 16, 6, 4, 2, 2, 4, 4, 4, 4, 1, 1, 1, 2, 2, 1),
+    5: (5, 5, 5, 5, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+}
+
+
+@pytest.mark.parametrize("b", sorted(SPLITS))
+def test_weight_splits_are_pinned(b):
+    """The row chunks keep the values the ``mma.sync`` kernel's grid gave
+    them (the search's inputs are that grid, not the ``wgmma`` kernel's):
+    the order of every dθ sum, and so its bits, stays that of the parent
+    kernel at every width."""
+    got = tuple(weight_splits(b, c) for c in range(32, 513, 32))
+    assert got == SPLITS[b]
+
+
+@pytest.mark.parametrize("hw", [(7, 7), (6, 6), (8, 8), (1, 64), (3, 5)])
+@pytest.mark.parametrize("exact", [False, True])
+def test_wgmma_weight_smem_formula(hw, exact):
+    """``wgmma_weight_smem_bytes`` is the C++ formula: two buffers of the
+    bordered r map (72 floats a row) and the transposed g tile(s) (8 groups
+    of 8·nk + 4 floats; head and tail in 3×TF32), 32 group sums for each of
+    384 threads and one int per padded row; 153,888 and 124,960 bytes at
+    7×7.  ``weight_smem_bytes`` is the 3×TF32 build's where the ``wgmma``
+    kernel runs."""
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        weight_kernel,
+        wgmma_weight_smem_bytes,
+    )
+
+    hh, ww = hw
+    nk = -(-hh * ww // 8) * 8
+    tiles = 1 if exact else 2
+    want = 4 * (2 * ((hh + 2) * (ww + 2) * 72 + tiles * 8 * (8 * nk + 4))
+                + 32 * 384) + 4 * nk
+    assert wgmma_weight_smem_bytes(hw, 64, exact) == want
+    if hw == (7, 7):
+        assert want == (124960 if exact else 153888)
+    assert weight_kernel(hw, 64) == "wgmma"
+    assert weight_kernel(hw, 32) == "mma"
+    assert weight_smem_bytes(hw, 64) == wgmma_weight_smem_bytes(hw, 64)
+
+
+def test_weight_kernels_fit_every_shape_the_backward_takes():
+    """At every shape the backward takes with C = 32 to 512 (groups 32) the
+    ``wgmma`` kernel can run exactly where C ≥ 64, the path runs it exactly
+    where C % 64 == 0 (the ``mma.sync`` kernel at C % 64 == 32, where it
+    was the faster), and both kernels' staging fits the 227 KB of shared
+    memory (the ``mma.sync`` kernel's at every shape, which the measurement
+    entries run)."""
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        mma_weight_smem_bytes,
+        weight_kernel,
+        wgmma_weight_smem_bytes,
+        wgmma_weights_ok,
+    )
+
+    taken = 0
+    for c in range(32, 513, 32):
+        for hh in range(1, 17):
+            for ww in range(1, 130):
+                if bwd_refusal((hh, ww), c, 32) is not None:
+                    continue
+                taken += 1
+                kernel = weight_kernel((hh, ww), c)
+                assert kernel == ("wgmma" if c % 64 == 0 else "mma"), (
+                    hh, ww, c)
+                assert wgmma_weights_ok((hh, ww), c) == (c >= 64)
+                assert mma_weight_smem_bytes((hh, ww), c) <= MAX_SMEM
+                if c >= 64:
+                    assert wgmma_weight_smem_bytes((hh, ww), c) <= MAX_SMEM
+    assert taken > 1000
 
 
 def test_weight_stage_fits_every_shape_the_forward_takes():

@@ -179,14 +179,18 @@ def test_backward_kernel_matches_plain(dev, batch, side):
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("c,side,batch", [
     (64, 7, 128), (64, 7, 5), (64, 6, 64), (32, 7, 16), (96, 6, 16),
-    (64, 8, 16), (512, 7, 16)])
+    (64, 8, 16), (512, 7, 16), (128, 7, 128), (256, 6, 128),
+    (512, 7, 128)])
 def test_weight_gradients_match_the_emulation(dev, precision, c, side,
                                               batch):
-    """The weight-gradient kernel (tensor cores) against its arithmetic in
+    """The weight-gradient kernels (tensor cores: ``wgmma`` at C ≥ 64,
+    ``mma.sync`` at C = 32) against their arithmetic in
     plain PyTorch, ``weight_grad_emulated``, on the very r1, r2, gu, gv it
     contracted (the kernel's scratch), at the tile shapes (64, three taps a
-    CTA; 32, nine: 7×7×32, 6×6×96), an FFMA-stage map (8×8×64), the widest
-    (7×7×512) and B = 128, 64, 5, 16.  f32 (3×TF32): within 2e-6 of the
+    CTA; 7×7×32, nine taps of 32×32 on ``mma.sync``; 6×6×96, the last
+    64-channel tile zero-filled), an FFMA-stage map (8×8×64), the widest
+    (7×7×512), the widths' training shapes at B = 128 (7×7×128, 6×6×256,
+    7×7×512) and B = 128, 64, 5, 16.  f32 (3×TF32): within 2e-6 of the
     sum of |products| per entry: each lies within 2.1e-7 of it from the f64
     sum (the emulation, on the CPU), and the tensor core's truncating
     accumulation over a 32-row step adds at most 12 ulps of the step's
@@ -237,6 +241,50 @@ def test_weight_gradients_match_the_emulation(dev, precision, c, side,
                                  32)[0]
         np.testing.assert_allclose(_flat(dp).cpu().numpy(),
                                    _flat(dp_p).cpu().numpy(), **DP_TOL)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("c,side,batch", [(64, 7, 128), (64, 7, 5),
+                                          (96, 6, 128), (512, 7, 128)])
+def test_wgmma_weight_kernel_is_the_mma_kernel(dev, precision, c, side,
+                                               batch):
+    """``bwd_weight_kernel`` (``wgmma.mma_async`` TF32, what the path runs
+    where C % 64 == 0) sums every weight gradient in the ``mma.sync``
+    kernel's order: dθ and every other output equal, bit for bit, those of
+    the reading with the weight gradients on ``bwd_weight_kernel_mma``
+    (``probes.timing_aids.odefunc_bwd_mma_weights``), in both builds, at
+    7×7×64 (B = 128, 5), 6×6×96 and 7×7×512; the weight launch alone
+    (``bwd_weight_partials``) gives each kernel's row chunks bit for bit
+    too, at 6×6×96 (where the path keeps the ``mma.sync`` kernel) the
+    ``wgmma`` kernel's with its last 64-channel tile zero-filled past C."""
+    from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
+        weight_kernel,
+    )
+    from neural_ode_features_tpu_torch.probes.timing_aids import (
+        bwd_weight_partials,
+        odefunc_bwd_mma_weights,
+    )
+
+    assert weight_kernel((side, side), c) == ("wgmma" if c % 64 == 0
+                                              else "mma")
+    cfg = dataclasses.replace(ENTRY_CONFIG, hidden=c)
+    w = prepare(init_odenet(2, cfg, device=dev)["odefunc"], (side, side))
+    rng = np.random.default_rng(c + side + batch + 1)
+    arr = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h = arr(rng.normal(size=(batch, side, side, c)) * 0.3)
+    g = arr(rng.normal(size=h.shape))
+    t = arr(rng.uniform(0.0, 0.5, batch))
+    res = {}
+    got = odefunc_bwd(w, t, h, g, groups=32, precision=precision,
+                      with_f=True, residuals=res)
+    want = odefunc_bwd_mma_weights(w, t, h, g, 32, precision, with_f=True)
+    assert torch.equal(_flat(got[0]), _flat(want[0]))
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    assert torch.isfinite(_flat(got[0])).all()
+    parts = {k: bwd_weight_partials(res, precision, k) for k in ("wgmma",
+                                                                 "mma")}
+    assert torch.equal(parts["wgmma"], parts["mma"])
 
 
 @pytest.mark.parametrize("splits", [0, 6])

@@ -334,7 +334,8 @@ def test_sample_pass_is_the_cpp_gate():
     """``rows_bwd_ok`` in ``csrc/odefunc_bwd.cu`` is the backward's gate, the
     forward's, the rows build's shapes (``wide_shape``: the tensor-core
     shapes past C = 64) and the bordered map's shared memory; the bf16
-    entry runs the rows backward exactly there; ``sample_pass`` gives
+    entries (the path's and the ``mma.sync`` weight kernel's reading) run
+    the rows backward exactly there; ``sample_pass`` gives
     ``'rows'`` for the bf16 build exactly where those four Python mirrors
     hold, at every width from 32 to 544 on five maps, never for f32, and
     the cluster pass keeps C = 64."""
@@ -346,7 +347,11 @@ def test_sample_pass_is_the_cpp_gate():
     src = " ".join((CSRC / "odefunc_bwd.cu").read_text().split())
     assert ("wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns, "
             "nodef::rows_bwd_ok(H, W, C, G), scratch, stream);") in src
-    assert src.count("nodef::rows_bwd_ok(H, W, C, G)") == 1
+    # The other bf16 entry, the reading with the weight gradients on the
+    # mma.sync kernel, runs the same per-sample pass.
+    assert ("wpart, ug, dk1, dk2, dvec, B, H, W, C, G, ns, "
+            "nodef::rows_bwd_ok(H, W, C, G), scratch, stream, true);") in src
+    assert src.count("nodef::rows_bwd_ok(H, W, C, G)") == 2
     assert "} else if (rows) {" in src
     for hw in ((7, 7), (6, 6), (5, 5), (1, 62), (8, 8)):
         for c in range(32, 545, 32):
