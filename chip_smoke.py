@@ -145,8 +145,11 @@ Phases (any failed check exits nonzero and prints no result):
    bf16 ``wgmma`` GEMM over the rows of every sample,
    ``csrc/rows_conv.cuh``): one launch counted a call, bit for bit the
    per-sample build it replaced (``probes/timing_aids.py``
-   ``odefunc_cta_bf16``) and the bf16 backward's f, a B = 5 batch's rows
-   those of the B = 256 batch, the plain bf16 f within ``BARS``, a bf16
+   ``odefunc_cta_bf16``) and the bf16 backward's f, at B = 128, 5 and 1
+   the per-sample build's bits and the B = 256 batch's rows, its three
+   GroupNorm launches as launched (a captured call: a slice of whole groups
+   a CTA, ``rows_slices`` a sample, no cluster) with their device ms and
+   bytes bound, the plain bf16 f within ``BARS``, a bf16
    solve through ``odenet_logits`` by the launch rule (at 7×7×512 on the
    graph cache and the host loop, bit-identical), device ms of the rows
    build and the per-sample build in turns beside ``F.group_norm`` +
@@ -159,8 +162,10 @@ Phases (any failed check exits nonzero and prints no result):
    input-gradient convs on the rows conv, the last two on its transposed
    packing): one launch counted a call, dθ, dt, dh and f bit for bit the
    one-CTA pass it replaced (``probes/timing_aids.py``
-   ``odefunc_bwd_cta_bf16``) at B = 128 and 5 and a second launch's, the
-   plain bf16 VJP within ``BARS``; at 7×7×96 and 7×7×512 a bf16 adjoint
+   ``odefunc_bwd_cta_bf16``) at B = 128, 5 and 1 and a second launch's,
+   its five GroupNorm launches on the slices' grid, the plain bf16 VJP
+   within ``BARS``; at 7×7×96 and 7×7×512 their device ms and bytes bound
+   and a bf16 adjoint
    train step by the launch rule (NFE-b − 1 ``odefunc_bwd_bf16``) and the
    call's device ms in turns beside the one-CTA pass and autograd through
    ``F.group_norm`` + ``F.conv2d`` on bf16 tensors; one epoch each of
@@ -385,6 +390,7 @@ from neural_ode_features_tpu_torch.utils.flops import (
     H100_TF32_FLOPS,
     bounds,
     bwd_kernel_bounds,
+    rows_sample_bounds,
 )
 
 B, HH, WW, C, G = 256, 7, 7, 64, 32
@@ -826,6 +832,8 @@ def main() -> int:
         odefunc_plain,
         odefunc_vjp,
         prepare,
+        rows_slice_threads,
+        rows_slices,
         stage,
     )
     from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
@@ -878,21 +886,16 @@ def main() -> int:
         return {k: v / 1e3
                 for k, v in conv_probe.device_us(fn, keys, reps).items()}
 
-    def ran_sample_pass(fn):
-        """Which per-sample pass one backward call ``fn`` launches, and
-        how: the call captured into a CUDA graph (not run) and the graph's
-        kernel nodes read back from the driver
-        (``attempt_graph.kernel_launches``).  Returns ``(pass, grid, block,
-        shared, name)``, pass ``'cluster'`` (``bwd_sample_kernel_cluster``),
-        ``'cta'`` (``bwd_sample_kernel``) or ``'rows'`` (the bf16 rows
-        backward, read from its last per-sample kernel,
-        ``rows_bwd_dh_kernel``), name the kernel's mangled
-        name (its build: ``Li0EE`` f32, ``Li2EE`` bf16; the rows backward
-        is bf16 only); fails unless the call launched
-        exactly one of them.  The launch counters are left as they were."""
+    def captured_launches(fn):
+        """The kernels one call ``fn`` launches, as launched: the call
+        captured into a CUDA graph (not run) and the graph's kernel nodes
+        read back through libcuda (``attempt_graph.kernel_launches``):
+        ``[(name, grid, block, shared, cluster)]``.  The launch counters
+        are left as they were."""
         from neural_ode_features_tpu_torch.solver import attempt_graph
 
-        before = (odefunc_bwd.launches, odefunc_bwd.launches_bf16)
+        before = (odefunc.launches, odefunc.launches_bf16,
+                  odefunc_bwd.launches, odefunc_bwd.launches_bf16)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -904,19 +907,82 @@ def main() -> int:
                 finally:
                     graph.capture_end()
             torch.cuda.current_stream().wait_stream(side)
-            ran = [k for k in attempt_graph.kernel_launches(
-                graph.raw_cuda_graph()) if "bwd_sample_kernel" in k[0]
-                or "rows_bwd_dh_kernel" in k[0]]
+            return attempt_graph.kernel_launches(graph.raw_cuda_graph(),
+                                                 cluster=True)
         finally:
             graph.reset()
-            odefunc_bwd.launches, odefunc_bwd.launches_bf16 = before
+            (odefunc.launches, odefunc.launches_bf16, odefunc_bwd.launches,
+             odefunc_bwd.launches_bf16) = before
+
+    def ran_sample_pass(fn):
+        """Which per-sample pass one backward call ``fn`` launches, and
+        how, read from the call's captured kernel nodes
+        (``captured_launches``).  Returns ``(pass, grid, block,
+        shared, name)``, pass ``'cluster'`` (``bwd_sample_kernel_cluster``),
+        ``'cta'`` (``bwd_sample_kernel``) or ``'rows'`` (the bf16 rows
+        backward, read from its last per-sample kernel,
+        ``rows_bwd_dh_kernel``), name the kernel's mangled
+        name (its build: ``Li0EE`` f32, ``Li2EE`` bf16; the rows backward
+        is bf16 only); fails unless the call launched
+        exactly one of them, in clusters of two CTAs for the cluster pass
+        and of one otherwise."""
+        ran = [k for k in captured_launches(fn) if "bwd_sample_kernel" in k[0]
+               or "rows_bwd_dh_kernel" in k[0]]
         if len(ran) != 1:
             fail(f"odefunc_bwd: one call launched the per-sample kernels "
                  f"{[k[0] for k in ran]}, not one")
-        name, grid, block, shared = ran[0]
+        name, grid, block, shared, cluster = ran[0]
         pass_ = ("cluster" if "bwd_sample_kernel_cluster" in name
                  else "rows" if "rows_bwd_dh_kernel" in name else "cta")
+        if cluster != ((2, 1, 1) if pass_ == "cluster" else (1, 1, 1)):
+            fail(f"odefunc_bwd: the {pass_} pass {name} launched in "
+                 f"clusters of {cluster}")
         return pass_, grid, block, shared, name
+
+    def per_sample(fn, hw, c, b, key):
+        """The rows builds' per-sample GroupNorm launches of one call
+        ``fn`` (``key`` 'fwd': the bf16 ``odefunc``'s three, 'bwd': the
+        bf16 backward's five), as launched (``captured_launches``): each a
+        slice of whole groups a CTA, so the grid is ``b`` times
+        ``rows_slices`` and a CTA ``rows_slice_threads`` threads, each
+        launch read in clusters of one CTA (no cluster); fails otherwise.
+        With their device ms a call (each kernel's mean per launch under
+        ``torch.profiler`` times its
+        launches; None where the profiler recorded none) and bytes bound
+        (``utils/flops.py`` ``rows_sample_bounds``)."""
+        from neural_ode_features_tpu_torch.probes.kernel_times import (
+            ROWS_GN_BWD,
+            ROWS_GN_FWD,
+        )
+
+        counts = ROWS_GN_FWD if key == "fwd" else ROWS_GN_BWD
+        ran = [k for k in captured_launches(fn)
+               if any(n in k[0] for n in counts)]
+        grid = {n: b * rows_slices(G) for n in counts}
+        name_of = {k[0]: next(n for n in counts if n in k[0]) for k in ran}
+        if (len(ran) != sum(counts.values()) or any(
+                (k[1], k[2], k[4]) != ((grid[name_of[k[0]]], 1, 1),
+                                       (rows_slice_threads(G), 1, 1),
+                                       (1, 1, 1))
+                for k in ran)):
+            fail(f"the rows {key} per-sample launches: "
+                 f"{[(k[0], k[1], k[2], k[4]) for k in ran]}, not "
+                 f"{sum(counts.values())} on grids {grid} of "
+                 f"{rows_slice_threads(G)} threads, no cluster")
+        try:
+            us = conv_probe.device_us(fn, tuple(counts), 20)
+            ms_ = sum(us[k] * n for k, n in counts.items()) / 1e3
+        except RuntimeError as e:
+            print(f"[width] torch.profiler: {e}; not measured")
+            ms_ = None
+        bd = rows_sample_bounds(hw, c, b, G)[key]
+        shared = {name_of[k[0]]: k[3] for k in ran}
+        cluster = {name_of[k[0]]: list(k[4]) for k in ran}
+        return {"kernels": sorted(shared), "grid": grid,
+                "block": [rows_slice_threads(G), 1, 1], "cluster": cluster,
+                "slices": rows_slices(G), "shared_bytes": shared, "ms": ms_,
+                "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                "bytes": bd["bytes"]}
 
     def profiled_ms(fn, keys):
         """``device_ms_by_kernel``, or None where torch.profiler recorded no
@@ -1221,7 +1287,7 @@ def main() -> int:
     print(f"[split] the per-sample pass at B={B_TRAIN}: "
           f"bwd_sample_kernel_cluster launched {grid[0]} CTAs of {block[0]} "
           f"threads and {shared} B of dynamic shared memory (clusters of two "
-          f"by its __cluster_dims__, its convs on wgmma): "
+          f"as read from the captured node, its convs on wgmma): "
           f"{sample_pass_info['ms']:.4f} ms, bound "
           f"{sample_pass_info['bound_ms']:.4f} ms "
           f"({sample_pass_info['ms'] / sample_pass_info['bound_ms']:.1f}×)")
@@ -2496,8 +2562,10 @@ def main() -> int:
             """The bf16 dynamics at a width of the rows build (C >= 96):
             the stage's name; one call counted (one odefunc_bf16 launch);
             bit for bit the per-sample build's (timing aid
-            odefunc_cta_bf16) and, at B = 128, the bf16 backward's f; a
-            B = 5 batch's rows those of the B = 256 batch; the plain bf16
+            odefunc_cta_bf16) and, at B = 128, the bf16 backward's f; at
+            B = 128, 5 and 1 the per-sample build's bits and the B = 256
+            batch's rows; the three GroupNorm launches as launched, their
+            device ms and bytes bound (per_sample); the plain bf16
             f within BARS; a bf16 solve through the entry points, counters
             from 0, by the launch rule (2 + 6 attempts), and at 7x7x512 on
             the graph cache and on the host loop, bit-identical; device ms
@@ -2518,16 +2586,22 @@ def main() -> int:
             if n1 != {"odefunc": 0, "odefunc_bwd": 0, "rk_step": 0,
                       "odefunc_bf16": 1}:
                 fail(f"[width] {tag} bf16 odefunc: launches {n1}")
-            same = {
-                "per-sample build": torch.equal(
-                    f16, odefunc_cta_bf16(ww_, tx, hx, G)),
-                "B=5 rows": torch.equal(odefunc(
-                    ww_, tx[:5].contiguous(), hx[:5].contiguous(), groups=G,
-                    compute_dtype=bf), f16[:5]),
+            same = {"per-sample build": torch.equal(
+                f16, odefunc_cta_bf16(ww_, tx, hx, G))}
+            for nb in (B_TRAIN, 5, 1):  # the one-CTA build and the rows
+                args_ = (tx[:nb].contiguous(), hx[:nb].contiguous())
+                f_nb = odefunc(ww_, *args_, groups=G, compute_dtype=bf)
+                same[f"B={nb} per-sample build"] = torch.equal(
+                    f_nb, odefunc_cta_bf16(ww_, *args_, G))
+                same[f"B={nb} rows"] = torch.equal(f_nb, f16[:nb])
+            same.update({
                 "backward's f": torch.equal(odefunc_bwd(
                     ww_, tbx, hbx, gx, groups=G, with_f=True,
                     precision="bf16")[3], odefunc(ww_, tbx, hbx, groups=G,
-                                                  compute_dtype=bf))}
+                                                  compute_dtype=bf))})
+            ps = per_sample(lambda: odefunc(ww_, tx, hx, groups=G,
+                                            compute_dtype=bf), hw, c, B,
+                            "fwd")
             r16 = bf16_distances.odefunc_readings(ww_, tx, hx, G)
             bad16 = bf16_distances.check(r16)
             print(f"[width] {tag} bf16 odefunc (rows_bf16) B={B}: bit for "
@@ -2586,25 +2660,38 @@ def main() -> int:
                 "library_ms": lib16, "stage": "rows_bf16",
                 "precision": "bf16", "per_sample_ms": (turns[0]
                                                        + turns[3]) / 2,
-                "turns_ms": turns}
+                "turns_ms": turns, "per_sample_launches": ps}
             print(f"[width] {tag} bf16 odefunc device ms in turns "
                   f"(per-sample, rows, rows, per-sample): " + ", ".join(
                       f"{v:.4f}" for v in turns) + f"; F.group_norm + "
                   f"F.conv2d on bf16 tensors {lib16:.4f}; bound "
                   f"{entry['bound_ms']:.4f} ({entry['bound_by']})")
+            print(f"[width] {tag} bf16 odefunc per-sample GroupNorms B={B}: "
+                  + rows_gn_line(ps))
             return [entry, *width_bwd_bf16(hw, c, tag, ww_, wparams, hbx,
                                            tbx, gx, bwd_err)]
+
+        def rows_gn_line(ps):
+            ms_ = "not measured" if ps["ms"] is None else f"{ps['ms']:.4f} ms"
+            return (f"{len(ps['kernels'])} kernels on grids {ps['grid']} of "
+                    f"{ps['block'][0]} threads ({ps['slices']} slices a "
+                    f"sample), clusters {ps['cluster']}, shared bytes "
+                    f"{ps['shared_bytes']}; {ms_} a "
+                    f"call, bytes bound {ps['bound_ms']:.4f} ms "
+                    f"({ps['bytes'] / 1e6:.1f} MB)")
 
         def width_bwd_bf16(hw, c, tag, ww_, wparams, hbx, tbx, gx, bwd_err):
             """The bf16 backward at a width of the rows backward (C >= 96):
             the gate's pass and the one launched ('rows', read from a
-            captured call); at B = 128 and 5, one call counted (one
+            captured call); its GroupNorm launches' grid (per_sample); at
+            B = 128, 5 and 1, one call counted (one
             odefunc_bwd_bf16 launch), every output (dθ, dt, dh, f) bit for
             bit the one-CTA pass's (timing aid odefunc_bwd_cta_bf16) and a
             second launch's (BARS: the width's bwd_readings, bwd_err its
             max abs err).  At 7x7x96 and 7x7x512 a bf16 adjoint train step
             through the Trainer, counters from 0, by the launch rule
-            (NFE-b - 1 odefunc_bwd_bf16), and the call's device ms in
+            (NFE-b - 1 odefunc_bwd_bf16), the GroupNorm launches' device
+            ms and bytes bound, and the call's device ms in
             turns (one-CTA, rows, rows, one-CTA) beside autograd through
             F.group_norm + F.conv2d on bf16 tensors: a kernels-line entry.
             Returns the entries."""
@@ -2628,7 +2715,7 @@ def main() -> int:
                           for b in sorted(dp_[a])), *rest]
 
             same = {}
-            for nb in (B_TRAIN, 5):
+            for nb in (B_TRAIN, 5, 1):
                 args = (tbx[:nb].contiguous(), hbx[:nb].contiguous(),
                         gx[:nb].contiguous())
                 got_, _, n_b = counted(lambda: odefunc_bwd(
@@ -2653,7 +2740,15 @@ def main() -> int:
             if not all(same.values()):
                 fail(f"[width] {tag} odefunc_bwd bf16: {same}")
             if hw != (HH, WW) or c not in (96, 512):
+                per_sample(lambda: odefunc_bwd(ww_, tbx, hbx, gx, groups=G,
+                                               precision="bf16"), hw, c,
+                           B_TRAIN, "bwd")
                 return []
+            ps = per_sample(lambda: odefunc_bwd(ww_, tbx, hbx, gx, groups=G,
+                                                precision="bf16"), hw, c,
+                            B_TRAIN, "bwd")
+            print(f"[width] {tag} bf16 odefunc_bwd per-sample GroupNorms "
+                  f"B={B_TRAIN}: " + rows_gn_line(ps))
             tr16 = Trainer(dataclasses.replace(
                 TRAIN_CONFIG, hidden=c, batch_size=B_TRAIN,
                 compute_dtype="bfloat16", dataset="synthetic-cifar10"),
@@ -2699,7 +2794,7 @@ def main() -> int:
                     "odefunc_bwd"],
                 "library_ms": lib_b, "stage": "rows backward",
                 "precision": "bf16", "cta_ms": (turns[0] + turns[3]) / 2,
-                "turns_ms": turns}
+                "turns_ms": turns, "per_sample_launches": ps}
             print(f"[width] {tag} bf16 odefunc_bwd device ms in turns "
                   f"(one-CTA, rows, rows, one-CTA): " + ", ".join(
                       f"{v:.4f}" for v in turns) + f"; autograd through "

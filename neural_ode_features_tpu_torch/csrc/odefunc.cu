@@ -23,21 +23,22 @@
 // CTA streams each conv's whole weights from L2): the same function as a
 // fixed sequence of launches on the caller's stream, each conv one bf16
 // GEMM over the rows of every sample (rows_conv.cuh):
-//   rows_gn_relu_kernel   per sample: h rounded, GN1 -> ReLU, the conv input
-//                         as bf16 into scratch (exact: kBf16 rounded it);
+//   rows_gn_relu_kernel   a slice of whole groups of a sample a CTA: h
+//                         rounded, GN1 -> ReLU, the conv input as bf16 into
+//                         scratch (exact: kBf16 rounded it);
 //   rows_conv (w1)        its epilogue concat_out<kBf16>(acc, b1, t, M1)
 //                         writes u1 (f32 holding bf16 values) into out;
 //   rows_gn_relu_kernel   GN2 -> ReLU of u1 into the scratch;
 //   rows_conv (w2)        u2 into out;
-//   rows_gn_out_kernel    GN3 of u2 per sample: f, over out.
-// The GroupNorms are gn_stats and gn_apply of the per-sample kernel under
-// the same Shape and thread map (rows_gn; it and the conv epilogue
-// ConcatEpi live in rows_conv.cuh, which the bf16 backward's rows build
-// shares), so their sums keep their order, and the
-// convs sum in mma_bf16's order: the rows build gives the per-sample
-// build's bits (odefunc_forward_bf16_cta, kept for measurement only).  A
-// row's sums do not depend on its tile, so a row does not depend on its
-// batch.  Scratch (the caller's, rows_scratch_bytes): the bf16 conv input
+//   rows_gn_out_kernel    GN3 of u2, a slice a CTA: f, over out.
+// The GroupNorms (rows_gn; it and the conv epilogue ConcatEpi live in
+// rows_conv.cuh, which the bf16 backward's rows build shares) split a
+// sample over rows_slices(G) CTAs, each holding the per-sample kernel's
+// (pixel group, channel) slots for its channels, so that gn_stats' sums
+// keep their order, and the convs sum in mma_bf16's order: the rows build
+// gives the per-sample build's bits (odefunc_forward_bf16_cta, kept for
+// measurement only).  A row's sums do not depend on its tile, so a row
+// does not depend on its batch.  Scratch (the caller's, rows_scratch_bytes): the bf16 conv input
 // and one conv's packed weights.
 #include "odefunc_common.cuh"
 #include "rows_conv.cuh"
@@ -78,22 +79,26 @@ int launch(const float* t, const float* h, const Odefunc& p, float* out,
 }
 
 // relu(GN(x)) as bf16 bit patterns: the next conv's input (gn_relu_to_pad's
-// values; NaN passes through).
-__global__ void __launch_bounds__(kThreads, 1)
-rows_gn_relu_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                    const float* __restrict__ bias, Shape s, uint16_t* __restrict__ xa) {
-  uint16_t* xb = xa + (size_t)blockIdx.x * s.H * s.W * s.C;
-  rows_gn(x, scale, bias, s, [&](int e, float v) {
-    xb[e] = (uint16_t)(__float_as_uint(v < 0.f ? 0.f : v) >> 16);
+// values; NaN passes through).  A slice of whole groups a CTA (rows_conv.cuh
+// rows_gn).
+__global__ void rows_gn_relu_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                                    const float* __restrict__ bias, Shape s,
+                                    uint16_t* __restrict__ xa) {
+  const size_t n = (size_t)s.H * s.W * s.C;
+  rows_gn(x, scale, bias, s, [&](int b, size_t e, float (&y)[4]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) y[k] = y[k] < 0.f ? 0.f : y[k];
+    *reinterpret_cast<uint2*>(xa + b * n + e) = bf16x4_bits(y);
   });
 }
 
-// GN3: f.  x may be out (each CTA reads its sample whole before it writes).
-__global__ void __launch_bounds__(kThreads, 1)
-rows_gn_out_kernel(const float* x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, Shape s, float* out) {
-  float* ob = out + (size_t)blockIdx.x * s.H * s.W * s.C;
-  rows_gn(x, scale, bias, s, [&](int e, float v) { ob[e] = v; });
+// GN3: f.  x may be out (rows_gn reads a slice whole before it writes it).
+__global__ void rows_gn_out_kernel(const float* x, const float* __restrict__ scale,
+                                   const float* __restrict__ bias, Shape s, float* out) {
+  const size_t n = (size_t)s.H * s.W * s.C;
+  rows_gn(x, scale, bias, s, [&](int b, size_t e, float (&y)[4]) {
+    *reinterpret_cast<float4*>(out + b * n + e) = make_float4(y[0], y[1], y[2], y[3]);
+  });
 }
 
 // The shapes of the rows build: the bf16 dynamics' tensor-core shapes past
@@ -108,10 +113,12 @@ int launch_rows(const float* t, const float* h, const Odefunc& p, float* out, in
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Shape s = make_shape(H, W, C, G);
   const size_t gsm = rows_gn_smem_bytes(s);
+  const int rows = B * H * W, sms = rows_sm_count();
+  const int gb = B * rows_slices(G), gt = rows_slice_threads(G);  // a slice a CTA
   uint16_t* xa = static_cast<uint16_t*>(scratch);
   uint8_t* wp = static_cast<uint8_t*>(scratch) + rows_scratch_bytes(B, H, W, C, true) -
                 rows_pack_bytes(true, C);
-  const int rows = B * H * W, tile = rows_tile_rows(rows, C, rows_sm_count());
+  const int tile = rows_tile_rows(rows, C, sms);
   cudaError_t err;
   err = cudaFuncSetAttribute(rows_gn_relu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)gsm);
@@ -124,12 +131,12 @@ int launch_rows(const float* t, const float* h, const Odefunc& p, float* out, in
   const float* ws[2] = {p.w1, p.w2};
   const ConcatEpi epi[2] = {{p.b1, p.m1, t, out, H * W, C}, {p.b2, p.m2, t, out, H * W, C}};
   for (int k = 0; k < 2; ++k) {
-    rows_gn_relu_kernel<<<B, kThreads, gsm, st>>>(k ? out : h, n_s[k], n_b[k], s, xa);
+    rows_gn_relu_kernel<<<gb, gt, gsm, st>>>(k ? out : h, n_s[k], n_b[k], s, xa);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const int code = rows_conv<true>(xa, ws[k], wp, rows, H, W, C, tile, epi[k], st);
     if (code) return code;
   }
-  rows_gn_out_kernel<<<B, kThreads, gsm, st>>>(out, p.n3s, p.n3b, s, out);
+  rows_gn_out_kernel<<<gb, gt, gsm, st>>>(out, p.n3s, p.n3b, s, out);
   return (int)cudaGetLastError();
 }
 

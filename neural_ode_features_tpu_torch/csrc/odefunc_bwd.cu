@@ -135,10 +135,12 @@
 // CTA, on the per-sample mma.sync stage.  In its place the per-sample pass
 // is a fixed sequence of launches on the caller's stream (launch_rows_bwd),
 // each conv one bf16 GEMM over the rows of every sample (rows_conv.cuh),
-// the per-sample work between them in per-sample launches of kThreads that
-// call bwd_sample_kernel's helpers (gn_stats, gn_apply, gn_backward,
-// gn_positive, conv_param_grads) under the same Shape and thread map, so
-// that every sum keeps its order:
+// the per-sample work between them in GroupNorm launches that split each
+// sample over rows_slices(G) CTAs, a slice of whole groups each (the
+// rows_conv.cuh note): a slice's CTA holds bwd_sample_kernel's (pixel
+// group, channel) slots for its channels and adds in its order (gn_stats,
+// channel_sums, gn_backward, conv_param_grads), each sample's slice staged
+// into shared memory first:
 //   rows_bwd_gn_relu_kernel  h rounded, GN1 -> ReLU: r1, the conv input as
 //                            bf16, GN1's statistics (scratch);
 //   rows_conv (w1)           u = concat_out<kBf16> (ConcatEpi) into ug
@@ -148,32 +150,32 @@
 //   rows_conv (w2)           v into dh (dh is written last);
 //   rows_bwd_gv_kernel       GN3 of v: f; its backward under the rounded
 //                            cotangent: gv (and as bf16 the next conv's
-//                            input), conv2's parameter partials, dt's
-//                            conv2 part into dt;
+//                            input), conv2's parameter partials and the t
+//                            gradient's per-channel sums (scratch);
 //   rows_conv (w2, kTrans)   the conv2 input gradient, each sum rounded
 //                            once (the pass's to_sx), into dh;
-//   rows_bwd_gu_kernel       ReLU2 + GN2 backward: gu, conv1's partials,
-//                            dt = bf16(dt + conv1's part);
+//   rows_bwd_gu_kernel       ReLU2 + GN2 backward: gu, conv1's partials and
+//                            t sums; dt = conv2's t gradient, its sums
+//                            added over the channels in order;
 //   rows_conv (w1, kTrans)   the conv1 input gradient into dh;
-//   rows_bwd_dh_kernel       ReLU1 + GN1 backward: dh (each element read
-//                            as the conv's sum and written by one thread);
+//   rows_bwd_dh_kernel       ReLU1 + GN1 backward: dh (a slice staged whole
+//                            before it is written over); dt = bf16(dt +
+//                            conv1's t gradient);
 // then bwd_weight_kernel and bwd_reduce_kernel as the other passes run
 // them.  The convs sum in mma_bf16's order (the transposed packing reads
 // tap 8 - k's tile transposed, as conv3x3_mma<kPassBf16, true> does), so
 // every output is bwd_sample_kernel<..., kBf16>'s bit for bit; that pass
-// stays readable as odefunc_backward_bf16_cta (measurement only).  A
-// sample's bordered cotangent (conv_param_grads' input) is in shared
-// memory in the per-sample launches that take it; the GroupNorm inputs (h,
-// u, v) and the conv sums are read from global memory (L2), as the one-CTA
-// pass reads x and u there from 7x7x288 and 7x7x224.  No atomics: two
-// launches give the same bits, and a row's sums do not depend on its tile.
-// Scratch (the wrapper's, rows_bwd_scratch_bytes): the bf16 conv input,
-// one conv's packed weights, reused by the four convs in turn, and GN1's
-// and GN2's statistics; u takes ug.  Bound at B = 128, 7x7x512
+// stays readable as odefunc_backward_bf16_cta (measurement only).  No
+// atomics: two launches give the same bits, and a row's sums do not depend
+// on its tile or its batch.  Scratch (the wrapper's,
+// rows_bwd_scratch_bytes): the bf16 conv input, one conv's packed weights,
+// reused by the four convs in turn, GN1's and GN2's statistics and the two
+// convs' per-channel t sums; u takes ug.  Bound at B = 128, 7x7x512
 // (utils/flops.py bwd_kernel_bounds at 989 TFLOP/s dense bf16): the four
 // convs are 4 * 2*49*9*512^2 * 128 = 59.2 GFLOP, 0.060 ms, against the
 // 25.7 MB of h, g, f, dh, r1, r2, gu, gv and the weights, 0.008 ms: bound
-// by operations.
+// by operations; the GroupNorm launches alone by their 214 MB, 0.064 ms
+// (rows_sample_bounds).
 #include "odefunc_common.cuh"
 #include "rows_conv.cuh"
 
@@ -1537,22 +1539,13 @@ __global__ void bwd_reduce_kernel(const float* __restrict__ wpart,
 
 // ---- the rows backward (the head of this file) ----------------------------
 
-// The per-sample launches' Shape: the forward's (make_shape: the thread
-// map, Walk, the magic divisors), with the conv input's bordered map
-// compact, pitch C and (H+2)*(W+2) rows: only conv_param_grads reads it,
-// through pad_at and the pitch, so no sum depends on its layout.
-inline Shape rows_bwd_shape(int H, int W, int C, int G) {
-  Shape s = make_shape(H, W, C, G);
-  s.P = C;
-  s.R = (H + 2) * (W + 2);
-  return s;
-}
-
-// Dynamic shared memory of the per-sample launches that take the bordered
-// map (rows_bwd_gv_kernel, rows_bwd_gu_kernel; kernels/odefunc_bwd.py
-// mirrors it): the map, 2*kThreads partial sums, 2G statistics and 4C
-// channel sums.  rows_bwd_dh_kernel takes all but the map, the recompute's
-// GroupNorms rows_gn_smem_bytes.
+// The gate's clause on shared memory (kernels/odefunc_bwd.py mirrors it):
+// a sample's bordered cotangent map, 2*kThreads partial sums, 2G statistics
+// and 4C channel sums, within one CTA's shared memory, as the one-CTA
+// per-sample launches that first ran the rows backward held them.  The
+// sliced launches take far less (rows_bwd_slice_smem_bytes); the clause
+// keeps the set of shapes the rows backward takes (a 1x62 map's stops at
+// C = 192).
 inline size_t rows_bwd_smem_bytes(int H, int W, int C, int G) {
   return sizeof(float) *
          ((size_t)(H + 2) * (W + 2) * C + 2 * kThreads + 2 * (size_t)G + 4 * (size_t)C);
@@ -1569,161 +1562,361 @@ inline bool rows_bwd_ok(int H, int W, int C, int G) {
 
 // Bytes of the rows backward's scratch (kernels/odefunc_bwd.py mirrors
 // it): the rows conv's (the bf16 conv input, one conv's packed weights),
-// then the statistics of GN1 and GN2, (B, 2, 2, G) floats.
+// then the statistics of GN1 and GN2, (B, 2, 2, G) floats, then the t
+// gradient's per-channel sums of conv2 and conv1, (B, 2, C) floats.
 inline size_t rows_bwd_scratch_bytes(int B, int H, int W, int C, int G) {
-  return rows_scratch_bytes(B, H, W, C, true) + sizeof(float) * 4 * (size_t)B * G;
+  return rows_scratch_bytes(B, H, W, C, true) + sizeof(float) * 4 * (size_t)B * G +
+         sizeof(float) * 2 * (size_t)B * C;
 }
 
-// A per-sample launch's shared memory (rows_bwd_smem_bytes' order): the
-// bordered map where pad, the partial sums (sred, then sred2), mean[G],
-// inv[G] and the channel sums.
+// Dynamic shared memory of the sliced GroupNorm backwards (rows_bwd_gv,
+// _gu, _dh; kernels/odefunc_bwd.py mirrors it): two staged slices (the
+// GroupNorm input and the cotangent), 4 partial sums a thread, the groups'
+// statistics and two group means, two channel sums, and a conv's C
+// per-channel t sums (dt's gather).  The recompute's GroupNorms take
+// rows_gn_smem_bytes.
+inline size_t rows_bwd_slice_smem_bytes(int H, int W, int C, int G) {
+  return sizeof(float) * (2 * (size_t)H * W * (C / rows_slices(G)) +
+                          4 * (size_t)rows_slice_threads(G) + 4 * (size_t)(G / rows_slices(G)) +
+                          2 * (size_t)(C / rows_slices(G)) + (size_t)C);
+}
+
+// A sliced GroupNorm backward's shared memory (rows_bwd_slice_smem_bytes'
+// order): xs the GroupNorm input, dy its output's cotangent, red the
+// partial sums, the statistics, the channel sums ch1, ch2 and the group
+// means gm1 = mean_g(dy*scale), gm2 = mean_g(dy*scale*x-hat), and a
+// conv's per-channel t sums dtc.
 struct RowsBwdSmem {
-  Smem m;
-  float* sred2;
+  float* xs;
+  float* dy;
+  float* red;
   float* mean;
   float* inv;
-  float* chan;
+  float* gm1;
+  float* gm2;
+  float* ch1;
+  float* ch2;
+  float* dtc;
 };
 
-__device__ __forceinline__ RowsBwdSmem rows_bwd_carve(const Shape& s, bool pad) {
+__device__ __forceinline__ RowsBwdSmem rows_bwd_carve(const RowsSlice& sl) {
   extern __shared__ float4 smem_raw[];
-  float* p = reinterpret_cast<float*>(smem_raw);
-  RowsBwdSmem b{};
-  if (pad) {
-    b.m.spad = p;
-    p += s.R * s.P;
-  }
-  b.m.sred = p;
-  b.sred2 = p + kThreads;
-  b.mean = p + 2 * kThreads;
-  b.inv = b.mean + s.G;
-  b.chan = b.inv + s.G;
-  return b;
+  RowsBwdSmem m;
+  m.xs = reinterpret_cast<float*>(smem_raw);
+  m.dy = m.xs + sl.hw * sl.cs;
+  m.red = m.dy + sl.hw * sl.cs;
+  m.mean = m.red + 4 * blockDim.x;
+  m.inv = m.mean + sl.ng;
+  m.gm1 = m.inv + sl.ng;
+  m.gm2 = m.gm1 + sl.ng;
+  m.ch1 = m.gm2 + sl.ng;
+  m.ch2 = m.ch1 + sl.cs;
+  m.dtc = m.ch2 + sl.cs;
+  return m;
 }
 
-// The statistics of GroupNorm k (0: GN1, 1: GN2) of this CTA's sample from
-// the recompute's scratch into mean, inv.  Ends synchronised.
-__device__ __forceinline__ void rows_bwd_stats(const RowsBwdSmem& b, const Shape& s,
-                                               const float* __restrict__ stats, int k) {
-  const float* src = stats + ((size_t)blockIdx.x * 2 + k) * 2 * s.G;
-  for (int g = threadIdx.x; g < s.G; g += kThreads) {
-    b.mean[g] = src[g];
-    b.inv[g] = src[s.G + g];
+// Stage x's and dy's slices (dy from dyg) and, where dtc is not null, a
+// conv's C per-channel t sums (the sample's), and read GroupNorm k's
+// statistics (0: GN1, 1: GN2) of the slice's groups from the recompute's
+// scratch (k < 0: none).  Ends synchronised.
+__device__ __forceinline__ void rows_bwd_stage(const RowsSlice& sl, const Shape& s,
+                                               const RowsBwdSmem& m, const float* x,
+                                               const float* dyg, const float* stats, int k,
+                                               const float* dtc = nullptr) {
+  slice_stage(sl, s, x, m.xs);
+  slice_stage(sl, s, dyg, m.dy);
+  if (dtc)
+    for (int i = threadIdx.x; 4 * i < s.C; i += blockDim.x) cp_async16(m.dtc + 4 * i, dtc + 4 * i);
+  cp_async_commit();
+  if (k >= 0) {
+    const float* src = stats + ((size_t)sl.b * 2 + k) * 2 * s.G + sl.g0;
+    for (int g = threadIdx.x; g < sl.ng; g += blockDim.x) {
+      m.mean[g] = src[g];
+      m.inv[g] = src[s.G + g];
+    }
   }
+  cp_async_wait_all();
   __syncthreads();
 }
 
-__device__ __forceinline__ uint16_t bf16_bits(float v) {  // v holds a bf16 value
-  return (uint16_t)(__float_as_uint(v) >> 16);
+// dy = the cotangent of relu(GN(x)) in place: the staged cotangent where
+// GroupNorm's output is positive (gn_positive_of, the forward's
+// statistics), else 0.  Ends synchronised.
+__device__ __forceinline__ void rows_bwd_relu_mask(const RowsSlice& sl, const Shape& s,
+                                                   const RowsBwdSmem& m,
+                                                   const float* __restrict__ scale,
+                                                   const float* __restrict__ bias) {
+  const Col4 k = col4(sl, s, m.mean, m.inv, scale, bias);
+  slice_each4(sl, s, [&](int i, size_t) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (!gn_positive_of<kBf16>(m.xs[i + j], k.mean[j], k.inv[j], k.sc[j], k.bi[j]))
+        m.dy[i + j] = 0.f;
+  });
+  __syncthreads();
 }
 
-// The recompute's GroupNorm -> ReLU of one sample (rows_gn, the rows
-// forward's): r = relu(GN(x)) (f32 holding bf16 values, for the weight
-// gradients), the conv input as bf16 into xa, GroupNorm k's statistics
-// into stats.
-__global__ void __launch_bounds__(kThreads, 1)
-rows_bwd_gn_relu_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                        const float* __restrict__ bias, Shape s, float* __restrict__ r,
-                        uint16_t* __restrict__ xa, float* __restrict__ stats, int k) {
-  const size_t off = (size_t)blockIdx.x * s.H * s.W * s.C;
+// gn_backward<kBf16> of the slice: x = xs (statistics mean, inv), its
+// output's cotangent dyf(i) at staged offset i (bf16 values); dscale,
+// dbias (the sample's part rows) get the slice's channels; dx (rounded),
+// four channels at a time, goes to out(i, e, dx) at the staged offset i,
+// element e.  The per-channel sums of both of gn_backward's passes (dscale
+// and dbias; then dy*scale*x-hat and dy*scale, the bf16 backward's group
+// means) run as four chains of one loop over the slot's pixels, each in
+// channel_sums' order, then over the pixel groups.  Caller synchronises
+// before; ends unsynchronised.
+template <class Dy, class Out>
+__device__ void slice_gn_backward(const RowsSlice& sl, const Shape& s, const RowsBwdSmem& m,
+                                  const float* __restrict__ scale, float* dscale, float* dbias,
+                                  Dy dyf, Out out) {
+  const int tid = threadIdx.x, cs = sl.cs, nt = blockDim.x;
+  float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
+  if (tid < sl.slots) {
+    const int g = div_magic(sl.cl, s.gmagic);
+    const float mu = m.mean[g], iv = m.inv[g], sc = scale[sl.c0 + sl.cl];
+    for (int p = sl.pg; p < sl.hw; p += s.npg) {
+      const int i = p * cs + sl.cl;
+      const float dy = dyf(i), xh = gn_hat_of<kBf16>(m.xs[i], mu, iv);
+      const float dys = gn_dys<kBf16>(dy, sc);
+      a1 = gn_dscale_add<kBf16>(a1, dy, xh);
+      a2 = a2 + dy;
+      b1 = fmaf(dys, xh, b1);
+      b2 = b2 + dys;
+    }
+  }
+  m.red[tid] = a1;
+  m.red[nt + tid] = a2;
+  m.red[2 * nt + tid] = b1;
+  m.red[3 * nt + tid] = b2;
+  __syncthreads();
+  if (tid < cs) {
+    float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
+    for (int q = 0; q < s.npg; ++q) {
+      s1 += m.red[q * cs + tid];
+      s2 += m.red[nt + q * cs + tid];
+      s3 += m.red[2 * nt + q * cs + tid];
+      s4 += m.red[3 * nt + q * cs + tid];
+    }
+    dscale[sl.c0 + tid] = s1;
+    dbias[sl.c0 + tid] = s2;
+    m.ch1[tid] = s3;
+    m.ch2[tid] = s4;
+  }
+  __syncthreads();
+  if (tid < sl.ng) {
+    const float n = (float)(sl.hw * s.gs);
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < s.gs; ++j) {
+      s1 += m.ch1[tid * s.gs + j];
+      s2 += m.ch2[tid * s.gs + j];
+    }
+    m.gm1[tid] = s2 / n;  // mean_g(dy * scale)
+    m.gm2[tid] = s1 / n;  // mean_g(dy * scale * x-hat)
+  }
+  __syncthreads();
+  const int cl = sl.col;
+  float gm1[4], gm2[4];
+  const Col4 k = col4(sl, s, m.mean, m.inv, scale);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int g = div_magic(cl + j, s.gmagic);
+    gm1[j] = m.gm1[g];
+    gm2[j] = m.gm2[g];
+  }
+  slice_each4(sl, s, [&](int i, size_t e) {
+    float dx[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float d = k.inv[j] * (gn_dys<kBf16>(dyf(i + j), k.sc[j]) - gm1[j] -
+                                  gn_hat_of<kBf16>(m.xs[i + j], k.mean[j], k.inv[j]) * gm2[j]);
+      dx[j] = bf16_round(d);
+    }
+    out(i, e, dx);
+  });
+}
+
+// tmap_add<kBf16>'s term of the t gradient, g * bf16(M) rounded, for the
+// staged terms of slice_conv_param_grads.
+__device__ __forceinline__ float tmap_term(float g, float tm) {
+  return bf16_round(g * bf16_round(tm));
+}
+
+// conv_param_grads<kBf16> of the slice from its conv output's cotangent gv
+// (staged, bf16 values) and its time-map terms tmap_term(gv, M) (staged,
+// written by the GroupNorm backward's output pass): db and dwt (the
+// sample's part rows: db[c], dwt[k*C + c]) and the t gradient's
+// per-channel sums chan_t[c] (the sample's), which rows_bwd_dt adds over
+// the channels.  The nine time columns of a channel are nine chains over
+// the pixels in order, each adding the terms of the pixels where its tap
+// reads inside the map.  Caller synchronises before.
+__device__ void slice_conv_param_grads(const RowsSlice& sl, const Shape& s, float* red,
+                                       const float* gv, const float* terms, float t,
+                                       float* db, float* dwt, float* chan_t) {
+  const int tid = threadIdx.x, cs = sl.cs, C = s.C;
+  float a1 = 0.f, a2 = 0.f;
+  if (tid < sl.slots)
+    for (int p = sl.pg; p < sl.hw; p += s.npg) {
+      const float v = gv[p * cs + sl.cl];
+      a1 += v;
+      a2 += terms[p * cs + sl.cl];  // tmap_add<kBf16>
+    }
+  red[tid] = a1;
+  red[blockDim.x + tid] = a2;
+  if (tid < cs) {
+    float acc[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc[k] = 0.f;
+    for (int y = 0; y < s.H; ++y)
+      for (int x = 0; x < s.W; ++x) {
+        const float v = tcol_term<kBf16>(gv[(y * s.W + x) * cs + tid], t);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+          const int ky = k / 3, kx = k % 3;
+          if (y >= 1 - ky && y < s.H + 1 - ky && x >= 1 - kx && x < s.W + 1 - kx) acc[k] += v;
+        }
+      }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) dwt[k * C + sl.c0 + tid] = tcol_value<kBf16>(acc[k], t);
+  }
+  __syncthreads();
+  if (tid < cs) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int q = 0; q < s.npg; ++q) {
+      s1 += red[q * cs + tid];
+      s2 += red[blockDim.x + q * cs + tid];
+    }
+    db[sl.c0 + tid] = s1;
+    chan_t[sl.c0 + tid] = s2;
+  }
+}
+
+// One conv's t gradient, conv_param_grads' (rounded) sum over the channels
+// in order of its per-channel sums (staged in shared memory).
+__device__ __forceinline__ float rows_bwd_dt(const float* chan_t, int C) {
+  float dt = 0.f;
+#pragma unroll 16
+  for (int cc = 0; cc < C; ++cc) dt += chan_t[cc];
+  return bf16_round(dt);
+}
+
+// The GroupNorm backward's output y (four channels, staged offset i) kept
+// for the conv parameter gradients: into dy (the cotangent, read no more)
+// and its time-map terms into xs (the GroupNorm input, read no more), from
+// the time map at tm (four floats).
+__device__ __forceinline__ void rows_bwd_out(const RowsBwdSmem& m, int i, const float (&y)[4],
+                                             const float* __restrict__ tm) {
+  const float4 t4 = *reinterpret_cast<const float4*>(tm);
+  *reinterpret_cast<float4*>(m.dy + i) = make_float4(y[0], y[1], y[2], y[3]);
+  *reinterpret_cast<float4*>(m.xs + i) = make_float4(
+      tmap_term(y[0], t4.x), tmap_term(y[1], t4.y), tmap_term(y[2], t4.z), tmap_term(y[3], t4.w));
+}
+
+// The recompute's GroupNorm -> ReLU (rows_gn, the rows forward's, a slice
+// of whole groups a CTA): r = relu(GN(x)) (f32 holding bf16 values, for
+// the weight gradients), the conv input as bf16 into xa, GroupNorm k's
+// statistics into stats.
+__global__ void rows_bwd_gn_relu_kernel(const float* __restrict__ x,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias, Shape s,
+                                        float* __restrict__ r, uint16_t* __restrict__ xa,
+                                        float* __restrict__ stats, int k) {
+  const size_t n = (size_t)s.H * s.W * s.C;
   rows_gn(
       x, scale, bias, s,
-      [&](int e, float v) {
-        const float y = v < 0.f ? 0.f : v;
-        r[off + e] = y;
-        xa[off + e] = bf16_bits(y);
+      [&](int b, size_t e, float (&y)[4]) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[j] = y[j] < 0.f ? 0.f : y[j];
+        *reinterpret_cast<float4*>(r + b * n + e) = make_float4(y[0], y[1], y[2], y[3]);
+        *reinterpret_cast<uint2*>(xa + b * n + e) = bf16x4_bits(y);
       },
-      stats + ((size_t)blockIdx.x * 2 + k) * 2 * s.G);
+      stats, k);
 }
 
-// GN3 of v (the conv2 output): f; then the GN3 backward under the rounded
-// cotangent: gv into gv, as bf16 into xa (the conv2 input gradient's
-// input) and into the bordered map, and conv2's parameter partials and dt
-// part (into dt).  bwd_sample_kernel's calls, in its order.
-__global__ void __launch_bounds__(kThreads, 1)
-rows_bwd_gv_kernel(const float* __restrict__ t, const float* __restrict__ g, Odefunc p, Shape s,
-                   const float* __restrict__ v, float* __restrict__ fout,
-                   float* __restrict__ gv, uint16_t* __restrict__ xa, float* __restrict__ part,
-                   float* __restrict__ dt) {
-  const int C = s.C, tid = threadIdx.x;
-  const size_t off = (size_t)blockIdx.x * s.H * s.W * C;
-  const RowsBwdSmem b = rows_bwd_carve(s, true);
-  const Smem& m = b.m;
-  const float tb = bf16_round(t[blockIdx.x]);
-  const float* vb = v + off;
-  const float* gb = g + off;
-  float* pb = part + (size_t)blockIdx.x * kParts * C;
-  zero_pad(m, s);  // gn_stats' barriers order it before the map's writes
-  const Stat stat = gn_stats<true>(m, s, vb, b.mean, b.inv);
-  gn_apply<true, kBf16>(s, stat, b.mean, b.inv, p.n3s, p.n3b, vb,
-                        [&](const auto& w, float y) { fout[off + w.e] = y; });
-  __syncthreads();  // mean, inv visible
-  gn_backward<true, kBf16>(m, b.sred2, b.chan, s, vb, b.mean, b.inv, p.n3s,
-                           [&](int e, int) { return bf16_round(gb[e]); }, pb + 4 * C,
-                           pb + 5 * C, [&](const auto& w, float y) {
-                             gv[off + w.e] = y;
-                             xa[off + w.e] = bf16_bits(y);
-                             m.spad[pad_at(s, w.q(s), w.c(s))] = y;
-                           });
-  __syncthreads();
-  const float dt2 =
-      conv_param_grads<true, kBf16>(m, b.sred2, b.chan, s, p.m2, tb, pb + 7 * C, pb + 17 * C);
-  if (tid == 0) dt[blockIdx.x] = dt2;
-}
-
-// ReLU2 + GN2 backward from the conv2 input gradient sx (rounded sums):
-// gu into gu, as bf16 into xa and into the bordered map; conv1's
-// parameter partials; dt = bf16(dt + conv1's part).
-__global__ void __launch_bounds__(kThreads, 1)
-rows_bwd_gu_kernel(const float* __restrict__ t, Odefunc p, Shape s, const float* __restrict__ u,
-                   const float* __restrict__ sx, const float* __restrict__ stats,
-                   float* __restrict__ gu, uint16_t* __restrict__ xa, float* __restrict__ part,
-                   float* __restrict__ dt) {
-  const int C = s.C, tid = threadIdx.x;
-  const size_t off = (size_t)blockIdx.x * s.H * s.W * C;
-  const RowsBwdSmem b = rows_bwd_carve(s, true);
-  const Smem& m = b.m;
-  const float tb = bf16_round(t[blockIdx.x]);
-  const float* ub = u + off;
-  const float* sxb = sx + off;
-  float* pb = part + (size_t)blockIdx.x * kParts * C;
-  zero_pad(m, s);
-  rows_bwd_stats(b, s, stats, 1);
-  gn_backward<true, kBf16>(
-      m, b.sred2, b.chan, s, ub, b.mean, b.inv, p.n2s,
-      [&](int e, int c) {
-        return gn_positive<true, kBf16>(s, ub, b.mean, b.inv, p.n2s, p.n2b, e, c) ? sxb[e] : 0.f;
-      },
-      pb + 2 * C, pb + 3 * C, [&](const auto& w, float y) {
-        gu[off + w.e] = y;
-        xa[off + w.e] = bf16_bits(y);
-        m.spad[pad_at(s, w.q(s), w.c(s))] = y;
+// GN3 of v (the conv2 output) for one slice: f; then the GN3 backward
+// under the rounded cotangent: gv into gv and as bf16 into xa (the conv2
+// input gradient's input), conv2's parameter partials, and the t
+// gradient's per-channel sums into chan_t (B, 2, C) at conv 0.
+__global__ void rows_bwd_gv_kernel(const float* __restrict__ t, const float* __restrict__ g,
+                                   Odefunc p, Shape s, const float* __restrict__ v,
+                                   float* __restrict__ fout, float* __restrict__ gv,
+                                   uint16_t* __restrict__ xa, float* __restrict__ part,
+                                   float* __restrict__ chan_t) {
+  const RowsSlice sl = rows_slice(s, blockIdx.x);
+  const RowsBwdSmem m = rows_bwd_carve(sl);
+  const size_t off = (size_t)sl.b * sl.hw * s.C;
+  float* pb = part + (size_t)sl.b * kParts * s.C;
+  rows_bwd_stage(sl, s, m, v, g, nullptr, -1);
+  slice_stats(sl, s, m.xs, m.red, m.mean, m.inv);
+  const Col4 k = col4(sl, s, m.mean, m.inv, p.n3s, p.n3b);
+  slice_gn_backward(
+      sl, s, m, p.n3s, pb + 4 * s.C, pb + 5 * s.C, [&](int i) { return bf16_round(m.dy[i]); },
+      [&](int i, size_t e, const float (&y)[4]) {
+        float f4[4];  // f = GN3(v), before the time-map terms take v's place
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          f4[j] = gn_affine<kBf16>(m.xs[i + j], k.mean[j], k.inv[j], k.sc[j], k.bi[j]);
+        *reinterpret_cast<float4*>(fout + off + e) = make_float4(f4[0], f4[1], f4[2], f4[3]);
+        rows_bwd_out(m, i, y, p.m2 + e);
+        *reinterpret_cast<float4*>(gv + off + e) = make_float4(y[0], y[1], y[2], y[3]);
+        *reinterpret_cast<uint2*>(xa + off + e) = bf16x4_bits(y);
       });
   __syncthreads();
-  const float dt1 =
-      conv_param_grads<true, kBf16>(m, b.sred2, b.chan, s, p.m1, tb, pb + 6 * C, pb + 8 * C);
-  if (tid == 0) dt[blockIdx.x] = bf16_round(dt[blockIdx.x] + dt1);
+  slice_conv_param_grads(sl, s, m.red, m.dy, m.xs, bf16_round(t[sl.b]), pb + 7 * s.C,
+                         pb + 17 * s.C, chan_t + (size_t)sl.b * 2 * s.C);
 }
 
-// ReLU1 + GN1 backward: dh, over the conv1 input gradient's rounded sums,
-// which dh holds (gn_backward reads an element's sum before the thread
-// that reads it writes dx there, past its last barrier).
-__global__ void __launch_bounds__(kThreads, 1)
-rows_bwd_dh_kernel(const float* __restrict__ h, Odefunc p, Shape s,
-                   const float* __restrict__ stats, float* __restrict__ part, float* dh) {
-  const int C = s.C;
-  const size_t off = (size_t)blockIdx.x * s.H * s.W * C;
-  const RowsBwdSmem b = rows_bwd_carve(s, false);
-  const float* hb = h + off;
-  float* db = dh + off;
-  float* pb = part + (size_t)blockIdx.x * kParts * C;
-  rows_bwd_stats(b, s, stats, 0);
-  gn_backward<true, kBf16>(
-      b.m, b.sred2, b.chan, s, hb, b.mean, b.inv, p.n1s,
-      [&](int e, int c) {
-        return gn_positive<true, kBf16>(s, hb, b.mean, b.inv, p.n1s, p.n1b, e, c) ? db[e] : 0.f;
-      },
-      pb, pb + C, [&](const auto& w, float y) { db[w.e] = y; });
+// ReLU2 + GN2 backward of one slice from the conv2 input gradient sx
+// (rounded sums): gu into gu and as bf16 into xa, conv1's parameter
+// partials and its t gradient's per-channel sums (chan_t, conv 1).  The
+// first slice's thread 0 also sets dt to conv2's t gradient (rows_gv's
+// sums, all channels).
+__global__ void rows_bwd_gu_kernel(const float* __restrict__ t, Odefunc p, Shape s,
+                                   const float* __restrict__ u, const float* __restrict__ sx,
+                                   const float* __restrict__ stats, float* __restrict__ gu,
+                                   uint16_t* __restrict__ xa, float* __restrict__ part,
+                                   float* __restrict__ chan_t, float* __restrict__ dt) {
+  const RowsSlice sl = rows_slice(s, blockIdx.x);
+  const RowsBwdSmem m = rows_bwd_carve(sl);
+  const size_t off = (size_t)sl.b * sl.hw * s.C;
+  float* pb = part + (size_t)sl.b * kParts * s.C;
+  float* cb = chan_t + (size_t)sl.b * 2 * s.C;
+  const bool first = sl.c0 == 0;
+  rows_bwd_stage(sl, s, m, u, sx, stats, 1, first ? cb : nullptr);
+  rows_bwd_relu_mask(sl, s, m, p.n2s, p.n2b);
+  slice_gn_backward(sl, s, m, p.n2s, pb + 2 * s.C, pb + 3 * s.C, [&](int i) { return m.dy[i]; },
+                    [&](int i, size_t e, const float (&y)[4]) {
+                      rows_bwd_out(m, i, y, p.m1 + e);
+                      *reinterpret_cast<float4*>(gu + off + e) =
+                          make_float4(y[0], y[1], y[2], y[3]);
+                      *reinterpret_cast<uint2*>(xa + off + e) = bf16x4_bits(y);
+                    });
+  __syncthreads();
+  slice_conv_param_grads(sl, s, m.red, m.dy, m.xs, bf16_round(t[sl.b]), pb + 6 * s.C,
+                         pb + 8 * s.C, cb + s.C);
+  if (first && threadIdx.x == 0) dt[sl.b] = rows_bwd_dt(m.dtc, s.C);
+}
+
+// ReLU1 + GN1 backward of one slice: dh, over the conv1 input gradient's
+// rounded sums, which dh holds (the slice is staged whole before any of it
+// is written, and no other CTA writes it).  The first slice's thread 0
+// also adds conv1's t gradient to dt: dt = bf16(dt + bf16(its sum)).
+__global__ void rows_bwd_dh_kernel(const float* __restrict__ h, Odefunc p, Shape s,
+                                   const float* __restrict__ stats, float* __restrict__ part,
+                                   const float* __restrict__ chan_t, float* __restrict__ dt,
+                                   float* dh) {
+  const RowsSlice sl = rows_slice(s, blockIdx.x);
+  const RowsBwdSmem m = rows_bwd_carve(sl);
+  float* db = dh + (size_t)sl.b * sl.hw * s.C;
+  float* pb = part + (size_t)sl.b * kParts * s.C;
+  const bool first = sl.c0 == 0;
+  rows_bwd_stage(sl, s, m, h, dh, stats, 0,
+                 first ? chan_t + ((size_t)sl.b * 2 + 1) * s.C : nullptr);
+  rows_bwd_relu_mask(sl, s, m, p.n1s, p.n1b);
+  slice_gn_backward(sl, s, m, p.n1s, pb, pb + s.C, [&](int i) { return m.dy[i]; },
+                    [&](int, size_t e, const float (&y)[4]) {
+    *reinterpret_cast<float4*>(db + e) = make_float4(y[0], y[1], y[2], y[3]);
+  });
+  if (first && threadIdx.x == 0) dt[sl.b] = bf16_round(dt[sl.b] + rows_bwd_dt(m.dtc, s.C));
 }
 
 // The four convs' epilogues as one type, so that one rows_conv_kernel build
@@ -1748,14 +1941,16 @@ int launch_rows_bwd(const float* t, const float* h, const float* g, const Odefun
                     float* part, float* ug, int B, int H, int W, int C, int G, void* scratch,
                     cudaStream_t st) {
   if (!scratch || !ug || !rows_ok(B, H, W, C)) return (int)cudaErrorInvalidValue;
-  const Shape s = rows_bwd_shape(H, W, C, G);
-  const size_t gsm = rows_gn_smem_bytes(s), bsm = rows_bwd_smem_bytes(H, W, C, G);
-  const size_t dsm = bsm - sizeof(float) * s.R * s.P;
+  const Shape s = make_shape(H, W, C, G);
+  const size_t gsm = rows_gn_smem_bytes(s), bsm = rows_bwd_slice_smem_bytes(H, W, C, G);
+  const int rows = B * H * W, sms = rows_sm_count();
+  const int gb = B * rows_slices(G), gt = rows_slice_threads(G);  // a slice a CTA
   uint8_t* base = static_cast<uint8_t*>(scratch);
   uint16_t* xa = reinterpret_cast<uint16_t*>(base);
   uint8_t* wp = base + rows_scratch_bytes(B, H, W, C, true) - rows_pack_bytes(true, C);
   float* stats = reinterpret_cast<float*>(base + rows_scratch_bytes(B, H, W, C, true));
-  const int rows = B * H * W, tile = rows_tile_rows(rows, C, rows_sm_count());
+  float* chan_t = stats + 4 * (size_t)B * G;
+  const int tile = rows_tile_rows(rows, C, sms);
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(rows_bwd_gn_relu_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsm)) ||
@@ -1764,31 +1959,31 @@ int launch_rows_bwd(const float* t, const float* h, const float* g, const Odefun
       (err = cudaFuncSetAttribute(rows_bwd_gu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)bsm)) ||
       (err = cudaFuncSetAttribute(rows_bwd_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)dsm)))
+                                  (int)bsm)))
     return (int)err;
   int code;
   const RowsBwdEpi rounded{{nullptr, nullptr, nullptr, dh, H * W, C}};
   // The forward recompute: r1, u (in ug), r2, v (in dh).
-  rows_bwd_gn_relu_kernel<<<B, kThreads, gsm, st>>>(h, p.n1s, p.n1b, s, r1, xa, stats, 0);
+  rows_bwd_gn_relu_kernel<<<gb, gt, gsm, st>>>(h, p.n1s, p.n1b, s, r1, xa, stats, 0);
   if ((err = cudaGetLastError())) return (int)err;
   if ((code = rows_conv<true>(xa, p.w1, wp, rows, H, W, C, tile,
                               RowsBwdEpi{{p.b1, p.m1, t, ug, H * W, C}}, st)))
     return code;
-  rows_bwd_gn_relu_kernel<<<B, kThreads, gsm, st>>>(ug, p.n2s, p.n2b, s, r2, xa, stats, 1);
+  rows_bwd_gn_relu_kernel<<<gb, gt, gsm, st>>>(ug, p.n2s, p.n2b, s, r2, xa, stats, 1);
   if ((err = cudaGetLastError())) return (int)err;
   if ((code = rows_conv<true>(xa, p.w2, wp, rows, H, W, C, tile,
                               RowsBwdEpi{{p.b2, p.m2, t, dh, H * W, C}}, st)))
     return code;
   // f, gv; the conv2 input gradient; gu; the conv1 input gradient; dh.
-  rows_bwd_gv_kernel<<<B, kThreads, bsm, st>>>(t, g, p, s, dh, f, gv, xa, part, dt);
+  rows_bwd_gv_kernel<<<gb, gt, bsm, st>>>(t, g, p, s, dh, f, gv, xa, part, chan_t);
   if ((err = cudaGetLastError())) return (int)err;
   if ((code = rows_conv<true, true>(xa, p.w2, wp, rows, H, W, C, tile, rounded, st)))
     return code;
-  rows_bwd_gu_kernel<<<B, kThreads, bsm, st>>>(t, p, s, ug, dh, stats, gu, xa, part, dt);
+  rows_bwd_gu_kernel<<<gb, gt, bsm, st>>>(t, p, s, ug, dh, stats, gu, xa, part, chan_t, dt);
   if ((err = cudaGetLastError())) return (int)err;
   if ((code = rows_conv<true, true>(xa, p.w1, wp, rows, H, W, C, tile, rounded, st)))
     return code;
-  rows_bwd_dh_kernel<<<B, kThreads, dsm, st>>>(h, p, s, stats, part, dh);
+  rows_bwd_dh_kernel<<<gb, gt, bsm, st>>>(h, p, s, stats, part, chan_t, dt, dh);
   return (int)cudaGetLastError();
 }
 

@@ -381,47 +381,258 @@ inline int rows_sm_count() {
   return sms;
 }
 
-// ---- the rows builds' per-sample GroupNorm and conv epilogue ------------
+// ---- the rows builds' per-sample GroupNorm launches ----------------------
 //
 // Shared by the bf16 ODEfunc's rows build (csrc/odefunc.cu) and the bf16
-// backward's rows build (csrc/odefunc_bwd.cu), one CTA of kThreads per
-// sample under the per-sample kernels' Shape and thread map.
+// backward's rows build (csrc/odefunc_bwd.cu).  Each sample is split over
+// rows_slices(G) CTAs (grid B * slices, blockIdx.x = b * slices + k), CTA k
+// owning channels k * cs .. k * cs + cs - 1, cs = C / slices: whole
+// GroupNorm groups (groups are contiguous channels), so no statistic
+// crosses a CTA.  Every sum keeps the one-CTA pass's order (gn_stats,
+// gn_apply of odefunc_common.cuh; channel_sums, gn_backward and
+// conv_param_grads of odefunc_bwd.cu): that pass's thread map gives thread
+// (pixel group pg, channel c), pg < npg = kThreads / C (the Shape's npg,
+// also where C does not divide kThreads), the sum over the pixels p = pg,
+// pg + npg, ... in order; then a group's sum runs over (pg, its channels)
+// pg-major, and a channel's over pg.  A slice's CTA holds the same (pg, c)
+// slots for its channels, one a thread (npg * cs <= kThreads / slices, its
+// thread count), and adds in the same order, so every output is the
+// one-CTA pass's bit for bit.  The sample's slice is staged into shared
+// memory (cs floats a pixel) by 16-byte cp.async copies along the NHWC
+// channel axis; the elementwise outputs leave as 16-byte stores (8 bytes
+// of bf16).
+//
+// Bound (H100 SXM, 3.35 TB/s): bytes, these launches do no products; at
+// B = 128, 7x7x512 the backward's five read and write 213.7 MB, 0.064 ms,
+// the forward's three at B = 256 128.5 MB, 0.038 ms (utils/flops.py
+// rows_sample_bounds).  One CTA of 512 threads a sample,
+// holding the whole sample, ran one CTA an SM and read 4.6 times its bound
+// (PERF.md); four slices a sample put several CTAs on an SM, each with all
+// its copies in flight at once.
 
-// The rows build's GroupNorm of one sample (CTA) from x (B, H*W*C) f32:
-// x rounded to bf16 into shared memory (the bf16 dynamics' entry rounding
-// of h; u1 and u2 hold bf16 values already), gn_stats, then gn_apply<kBf16>
-// in the per-sample kernel's thread map, each value handed to out(e, v).
-// stats: where not null, the groups' mean and inv are written to stats[g]
-// and stats[G + g] at the end.
-template <class Out>
-__device__ __forceinline__ void rows_gn(const float* __restrict__ x,
-                                        const float* __restrict__ scale,
-                                        const float* __restrict__ bias, const Shape& s, Out out,
-                                        float* __restrict__ stats = nullptr) {
-  extern __shared__ float4 smem_raw[];
-  const int n = s.H * s.W * s.C;
-  Smem m{};
-  m.sx = reinterpret_cast<float*>(smem_raw);
-  m.sred = m.sx + n;
-  m.smean = m.sred + 2 * kThreads;
-  m.sinv = m.smean + s.G;
-  const float* xb = x + (size_t)blockIdx.x * n;
-  for (int e = threadIdx.x; e < n; e += kThreads) m.sx[e] = bf16_round(xb[e]);
-  __syncthreads();
-  const Stat st = gn_stats<true>(m, s, m.sx, m.smean, m.sinv);
-  gn_apply<true, kBf16>(s, st, m.smean, m.sinv, scale, bias, m.sx,
-                        [&](const auto& w, float v) { out(w.e, v); });
-  if (stats) {
-    __syncthreads();  // gn_stats' mean/inv
-    for (int g = threadIdx.x; g < s.G; g += kThreads) {
-      stats[g] = m.smean[g];
-      stats[s.G + g] = m.sinv[g];
-    }
-  }
+constexpr int kRowsSlices = 4;  // slices a sample, where the group count allows
+
+// The slices of a sample: kRowsSlices, or the largest power of two below it
+// that divides G (whole groups a slice); kernels/odefunc.py rows_slices.
+__host__ __device__ inline int rows_slices(int G) {
+  int n = kRowsSlices;
+  while (n > 1 && G % n) n >>= 1;
+  return n;
+}
+// Threads of a slice's CTA: the one-CTA map's kThreads over the slices,
+// which holds the slice's npg * C / slices slots.
+__host__ __device__ inline int rows_slice_threads(int G) { return kThreads / rows_slices(G); }
+
+// Slice `item` (item = b * slices + k): sample b, channels c0 .. c0 + cs
+// - 1 (q4 16-byte vectors a pixel), groups g0 .. g0 + ng - 1; this thread's
+// slot (pg, cl), live where tid < slots, and its column of the elementwise
+// passes (slice_each4): channels col .. col + 3 at the pixels row0, row0 +
+// rstep, ...  The slice count is a power of two and cs = C / slices, so
+// every quotient is a shift or C's magic divisor (no division).
+struct RowsSlice {
+  int b, c0, cs, q4, g0, ng, hw, slots, pg, cl, col, row0, rstep;
+};
+
+__device__ __forceinline__ RowsSlice rows_slice(const Shape& s, int item) {
+  const int n = rows_slices(s.G), ln = __ffs(n) - 1, k = item & (n - 1);
+  const int tid = threadIdx.x;
+  RowsSlice sl;
+  sl.b = item >> ln;
+  sl.cs = s.C >> ln;
+  sl.c0 = k * sl.cs;
+  sl.q4 = sl.cs >> 2;
+  sl.ng = s.G >> ln;
+  sl.g0 = k * sl.ng;
+  sl.hw = s.H * s.W;
+  sl.slots = s.npg * sl.cs;
+  sl.pg = div_magic(tid << ln, s.cmagic);  // tid / cs
+  sl.cl = tid - sl.pg * sl.cs;
+  sl.row0 = div_magic(tid << (ln + 2), s.cmagic);  // tid / q4
+  sl.col = 4 * (tid - sl.row0 * sl.q4);
+  sl.rstep = div_magic((int)blockDim.x << (ln + 2), s.cmagic);  // whole rows of columns
+  return sl;
 }
 
+// The elementwise passes give each thread one column of four channels of
+// the slice, col .. col + 3, at the pixels row0, row0 + rstep, ... (rstep
+// = blockDim.x / q4 whole rows of columns a pass), so that the column's
+// statistics, scale and bias stay in registers; threads past the last
+// whole row have none.  f(i, e): i the four values' offset in the staged
+// slice, e the first's element in the sample (p * C + c).
+template <class F>
+__device__ __forceinline__ void slice_each4(const RowsSlice& sl, const Shape& s, F f) {
+  if (sl.row0 >= sl.rstep) return;
+  for (int p = sl.row0; p < sl.hw; p += sl.rstep)
+    f(p * sl.cs + sl.col, (size_t)p * s.C + sl.c0 + sl.col);
+}
+
+// The slice of sample b of x (B, H*W*C) into xs (hw x cs, pitch cs), by
+// cp.async, 16 bytes a copy in the elementwise passes' columns: the caller
+// commits and waits.
+__device__ __forceinline__ void slice_stage(const RowsSlice& sl, const Shape& s,
+                                            const float* x, float* xs) {
+  const float* xb = x + (size_t)sl.b * sl.hw * s.C;
+  slice_each4(sl, s, [&](int i, size_t e) { cp_async16(xs + i, xb + e); });
+}
+
+// A column's GroupNorm constants: its four channels' groups' statistics
+// (mean, inv of the slice's groups) and their scale and bias (0 where bias
+// is null).
+struct Col4 {
+  float mean[4], inv[4], sc[4], bi[4];
+};
+__device__ __forceinline__ Col4 col4(const RowsSlice& sl, const Shape& s, const float* mean,
+                                     const float* inv, const float* __restrict__ scale,
+                                     const float* __restrict__ bias = nullptr) {
+  Col4 k;
+  const int cl = sl.col;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int g = div_magic(cl + j, s.gmagic);
+    k.mean[j] = mean[g];
+    k.inv[j] = inv[g];
+    k.sc[j] = scale[sl.c0 + cl + j];
+    k.bi[j] = bias ? bias[sl.c0 + cl + j] : 0.f;
+  }
+  return k;
+}
+
+// The slice's groups' statistics (gn_stats' sums in its order) of the
+// staged xs into mean[ng], inv[ng]; red holds 2 * blockDim.x partial
+// sums.  As gn_stats, every slot's thread adds
+// its own group's partials and keeps the statistics in registers; one
+// thread a group writes them.  Caller synchronises before; ends
+// synchronised.
+__device__ void slice_stats(const RowsSlice& sl, const Shape& s, const float* xs, float* red,
+                            float* mean, float* inv) {
+  const int tid = threadIdx.x, npg = s.npg, cs = sl.cs;
+  const bool on = tid < sl.slots;
+  const int gl = div_magic(sl.cl, s.gmagic), j0 = gl * s.gs;  // the slot's group
+  const float n = (float)(sl.hw * s.gs);
+  float* red2 = red + blockDim.x;
+  float acc = 0.f;
+  if (on)
+    for (int p = sl.pg; p < sl.hw; p += npg) {
+      acc += xs[p * cs + sl.cl];
+    }
+  red[tid] = acc;
+  __syncthreads();
+  float tot = 0.f;
+  if (on)
+    for (int q = 0; q < npg; ++q)
+      for (int j = 0; j < s.gs; ++j) tot += red[q * cs + j0 + j];
+  const float mu = tot / n;
+  acc = 0.f;
+  if (on)
+    for (int p = sl.pg; p < sl.hw; p += npg) {
+      const float d = xs[p * cs + sl.cl] - mu;
+      acc = fmaf(d, d, acc);
+    }
+  red2[tid] = acc;
+  __syncthreads();
+  tot = 0.f;
+  if (on)
+    for (int q = 0; q < npg; ++q)
+      for (int j = 0; j < s.gs; ++j) tot += red2[q * cs + j0 + j];
+  if (on && sl.pg == 0 && sl.cl == j0) {
+    mean[gl] = mu;
+    inv[gl] = 1.0f / sqrtf(tot / n + kEps);
+  }
+  __syncthreads();
+}
+
+// a and b rounded to bf16 (to nearest even) by one conversion of the pair:
+// each half as bf16_round rounds it.
+__device__ __forceinline__ void bf16_round2(float& a, float& b) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(b), "f"(a));
+  a = __uint_as_float(r << 16);
+  b = __uint_as_float(r & 0xffff0000u);
+}
+
+// gn_affine<kBf16> of a column's four values x (bf16 values already), its
+// three roundings a pair at a time (the conversions, not the arithmetic,
+// bind these launches: one per pair in place of one per value).
+__device__ __forceinline__ void gn_affine4_bf16(const float (&x)[4], const Col4& k,
+                                                float (&y)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) y[j] = (x[j] - k.mean[j]) * k.inv[j];
+  bf16_round2(y[0], y[1]);
+  bf16_round2(y[2], y[3]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) y[j] = y[j] * k.sc[j];
+  bf16_round2(y[0], y[1]);
+  bf16_round2(y[2], y[3]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) y[j] = y[j] + k.bi[j];
+  bf16_round2(y[0], y[1]);
+  bf16_round2(y[2], y[3]);
+}
+
+// The rows build's GroupNorm of one slice a CTA (grid B * rows_slices(G))
+// from x (B, H*W*C) f32: the slice staged, then rounded to bf16 in place
+// by the thread that copied it (the bf16 dynamics' entry rounding of h; u1
+// and u2 hold bf16 values already), slice_stats, then gn_affine<kBf16> at
+// every element (gn_affine4_bf16, scale and bias rounded once), four
+// channels at a time handed to out(b, e, y) (b the sample, e the first's
+// element in it, y the four values).  stats: where not null, the groups'
+// mean and inv are written to stats[(b * 2 + k) * 2G + g] and [... + G +
+// g] (GroupNorm k of the rows backward's recompute).  x may be the output
+// of out: the slice is read whole before anything is written, and no
+// other CTA writes it.
+template <class Out>
+__device__ __forceinline__ void rows_gn(const float* x, const float* __restrict__ scale,
+                                        const float* __restrict__ bias, const Shape& s, Out out,
+                                        float* __restrict__ stats = nullptr, int k = 0) {
+  extern __shared__ float4 smem_raw[];
+  const RowsSlice sl = rows_slice(s, blockIdx.x);
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  float* red = xs + sl.hw * sl.cs;
+  float* mean = red + 2 * blockDim.x;
+  float* inv = mean + sl.ng;
+  slice_stage(sl, s, x, xs);
+  cp_async_commit();
+  cp_async_wait_all();  // this thread's copies, which it rounds
+  slice_each4(sl, s, [&](int i, size_t) {
+    float4 v = *reinterpret_cast<const float4*>(xs + i);
+    bf16_round2(v.x, v.y);
+    bf16_round2(v.z, v.w);
+    *reinterpret_cast<float4*>(xs + i) = v;
+  });
+  __syncthreads();
+  slice_stats(sl, s, xs, red, mean, inv);
+  Col4 c4 = col4(sl, s, mean, inv, scale, bias);
+  bf16_round2(c4.sc[0], c4.sc[1]);
+  bf16_round2(c4.sc[2], c4.sc[3]);
+  bf16_round2(c4.bi[0], c4.bi[1]);
+  bf16_round2(c4.bi[2], c4.bi[3]);
+  slice_each4(sl, s, [&](int i, size_t e) {
+    const float4 v = *reinterpret_cast<const float4*>(xs + i);
+    const float xv[4] = {v.x, v.y, v.z, v.w};
+    float y[4];
+    gn_affine4_bf16(xv, c4, y);
+    out(sl.b, e, y);
+  });
+  if (stats)
+    for (int g = threadIdx.x; g < sl.ng; g += blockDim.x) {
+      float* st = stats + ((size_t)sl.b * 2 + k) * 2 * s.G + sl.g0 + g;
+      st[0] = mean[g];
+      st[s.G] = inv[g];
+    }
+}
+
+// Dynamic shared memory of a rows_gn launch: the staged slice, 2 partial
+// sums a thread and its groups' statistics; kernels/odefunc.py mirrors it.
 inline size_t rows_gn_smem_bytes(const Shape& s) {
-  return sizeof(float) * ((size_t)s.H * s.W * s.C + 2 * kThreads + 2 * (size_t)s.G);
+  return sizeof(float) * ((size_t)s.H * s.W * (s.C / rows_slices(s.G)) +
+                          2 * (size_t)rows_slice_threads(s.G) + 2 * (size_t)(s.G / rows_slices(s.G)));
+}
+
+// Four f32 values as bf16 bit patterns (each holds a bf16 value), for one
+// 8-byte store.
+__device__ __forceinline__ uint2 bf16x4_bits(const float (&y)[4]) {
+  return make_uint2((__float_as_uint(y[0]) >> 16) | (__float_as_uint(y[1]) & 0xffff0000u),
+                    (__float_as_uint(y[2]) >> 16) | (__float_as_uint(y[3]) & 0xffff0000u));
 }
 
 // The conv's epilogue: u[r, co] = concat_out<kBf16>(acc, bias[co], t[b], M[p, co])

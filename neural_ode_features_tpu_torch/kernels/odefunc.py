@@ -45,13 +45,17 @@ shapes), then the conv output, its sum with the bias, t·M and the last sum
 each rounded; f returns as float32 holding bf16 values.  At the other
 tensor-core shapes (C = 96 to 512, ``'rows_bf16'``) one call is the rows
 build: a fixed sequence of seven launches on the current stream, with no
-atomics (``csrc/odefunc.cu``): per sample GN1 → ReLU into a bf16 scratch
-copy of the conv input; conv1 as one bf16 ``wgmma`` GEMM over the rows of
-every sample (``csrc/rows_conv.cuh``: its weights rounded and laid out once
-per call, 128 output channels a CTA, 64- or 128-row tiles) whose epilogue
-adds bias and t·M; GN2 → ReLU; conv2; GN3.  It gives the per-sample
-build's bits (the same GroupNorm code and thread map, and the convs sum in
-``mma.sync``'s order), which stays readable alone through
+atomics (``csrc/odefunc.cu``): GN1 → ReLU into a bf16 scratch copy of the
+conv input; conv1 as one bf16 ``wgmma`` GEMM over the rows of every sample
+(``csrc/rows_conv.cuh``: its weights rounded and laid out once per call,
+128 output channels a CTA, 64- or 128-row tiles) whose epilogue adds bias
+and t·M; GN2 → ReLU; conv2; GN3.  Each GroupNorm launch splits a sample
+over :func:`rows_slices` CTAs of :func:`rows_slice_threads` threads, a
+slice of whole groups each, staged into shared memory by 16-byte copies.
+It gives the per-sample build's bits (each slice holds the per-sample
+kernel's (pixel group, channel) slots for its channels and adds in its
+order, and the convs sum in ``mma.sync``'s order), which stays readable
+alone through
 ``probes/timing_aids.py`` ``odefunc_cta_bf16``; the scratch
 (:func:`rows_scratch_bytes`) comes from PyTorch's caching allocator on the
 current stream.  The conv output is rounded before the bias add, as
@@ -94,7 +98,8 @@ __all__ = ["OdefuncWeights", "Layout", "prepare", "supported", "refusal",
            "layout", "smem_bytes", "mma_ok", "stage", "odefunc", "odefunc_plain",
            "odefunc_autograd", "odefunc_vjp", "PRECISIONS", "bf16_round",
            "rows_scratch_bytes", "rows_pack_bytes", "rows_ntiles", "ROWS_K",
-           "ROWS_NB", "ROWS_SLICE"]
+           "ROWS_NB", "ROWS_SLICE", "ROWS_SLICES", "rows_slices",
+           "rows_slice_threads", "rows_gn_smem_bytes"]
 
 # Mirrors csrc/odefunc_common.cuh (kThreads, kMaxC, kMaxPix, kMaxSmem;
 # kMmaC, kMmaStep, kMmaM, kPadA, kPitchBT, kRing of the tensor-core stage;
@@ -435,6 +440,40 @@ def rows_scratch_bytes(b: int, hw: tuple[int, int], c: int,
     k of K = 9C)."""
     return (-(-(b * hw[0] * hw[1] * c * 2) // 1024) * 1024
             + rows_pack_bytes(tap, c))
+
+
+# Mirrors csrc/rows_conv.cuh (kRowsSlices): the slices of a sample in the
+# rows builds' per-sample GroupNorm launches, where the group count allows.
+ROWS_SLICES = 4
+
+
+def rows_slices(groups: int) -> int:
+    """The CTAs a sample's GroupNorm is split over in the rows builds'
+    per-sample launches (csrc/rows_conv.cuh ``rows_slices``):
+    ``ROWS_SLICES``, or the largest power of two below it that divides the
+    group count, so that every slice holds whole groups (groups are
+    contiguous channels).  The launches' grid is B times this."""
+    n = ROWS_SLICES
+    while n > 1 and groups % n:
+        n //= 2
+    return n
+
+
+def rows_slice_threads(groups: int) -> int:
+    """Threads of one slice's CTA (csrc/rows_conv.cuh
+    ``rows_slice_threads``): the one-CTA map's 512 over the slices, which
+    holds the slice's ``(pixel group, channel)`` slots, one a thread."""
+    return THREADS // rows_slices(groups)
+
+
+def rows_gn_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
+    """Dynamic shared memory of a rows-build GroupNorm launch (csrc/
+    rows_conv.cuh ``rows_gn_smem_bytes``): the slice staged (H·W·C/slices
+    floats), two partial sums a thread and its groups' mean and inv.
+    26,176 bytes at 7×7×512 with 32 groups."""
+    n = rows_slices(groups)
+    return 4 * (hw[0] * hw[1] * (c // n) + 2 * (THREADS // n)
+                + 2 * (groups // n))
 
 
 def _lib() -> ctypes.CDLL:

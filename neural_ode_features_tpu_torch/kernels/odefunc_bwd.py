@@ -63,10 +63,13 @@ a fixed sequence of launches on the current stream, each of its four
 convs (the recompute's two, the two input gradients, whose packing reads
 tap 8 − k's weights transposed) one bf16 ``wgmma`` GEMM over the rows of
 every sample (``csrc/rows_conv.cuh``), the GroupNorms, ReLU masks,
-per-sample partials and dt in per-sample launches of the one-CTA pass's
-helpers and thread map between them, so that every output is that pass's
-bit for bit; that pass stays readable as ``probes/timing_aids.py``
-``odefunc_bwd_cta_bf16``.  Its scratch (:func:`rows_bwd_scratch_bytes`,
+per-sample partials and dt in five GroupNorm launches between them, each
+splitting a sample over ``kernels.odefunc.rows_slices`` CTAs, a slice of
+whole groups each, that hold the one-CTA pass's (pixel group, channel)
+slots for their channels and add in its order (dt's sum over the channels
+gathered from the slices' per-channel sums in channel order), so that
+every output is that pass's bit for bit; that pass stays readable as
+``probes/timing_aids.py`` ``odefunc_bwd_cta_bf16``.  Its scratch (:func:`rows_bwd_scratch_bytes`,
 and u) comes from the caching allocator on the current stream, so that a
 captured call (the adjoint's graph route) captures it too.
 
@@ -124,6 +127,7 @@ from .odefunc import (
     ptr,
     refusal,
     rows_scratch_bytes,
+    rows_slices,
     stage,
     stream,
     supported,
@@ -139,7 +143,7 @@ __all__ = ["odefunc_bwd", "odefunc_bwd_plain", "bwd_supported",
            "mma_weight_smem_bytes", "wgmma_weight_smem_bytes",
            "bwd_residuals_plain",
            "weight_grad_emulated", "weight_grad_f64", "rows_bwd_smem_bytes",
-           "rows_bwd_scratch_bytes"]
+           "rows_bwd_scratch_bytes", "rows_bwd_slice_smem_bytes"]
 
 # Mirror csrc/odefunc_bwd.cu (kParts, kStepRows, kGroupSamples, kWeightPad,
 # weight_tile, weight_taps_of; the wgmma weight kernel's kWgThreads,
@@ -302,11 +306,13 @@ def sample_pass(hw: tuple[int, int], c: int, groups: int,
 
 
 def rows_bwd_smem_bytes(hw: tuple[int, int], c: int, groups: int) -> int:
-    """Dynamic shared memory per CTA of the rows backward's per-sample
-    launches that take a sample's bordered cotangent (csrc/odefunc_bwd.cu
-    ``rows_bwd_smem_bytes``): the map, (H+2)·(W+2)·C floats, 2·512 partial
-    sums, 2·G statistics and 4·C channel sums.  178,432 bytes at
-    7×7×512."""
+    """The rows backward gate's clause on shared memory (csrc/odefunc_bwd.cu
+    ``rows_bwd_smem_bytes``): a sample's bordered cotangent map,
+    (H+2)·(W+2)·C floats, 2·512 partial sums, 2·G statistics and 4·C
+    channel sums within one CTA, as the one-CTA per-sample launches that
+    first ran the rows backward held them; the sliced launches take far
+    less (:func:`rows_bwd_slice_smem_bytes`), and the clause keeps the set
+    of shapes.  178,432 bytes at 7×7×512."""
     hh, ww = hw
     return 4 * ((hh + 2) * (ww + 2) * c + 2 * THREADS + 2 * groups + 4 * c)
 
@@ -317,8 +323,23 @@ def rows_bwd_scratch_bytes(b: int, hw: tuple[int, int], c: int,
     ``rows_bwd_scratch_bytes``): the rows conv's (the bf16 conv input of the
     batch, one conv's packed weights, reused by the four convs in turn,
     ``kernels.odefunc.rows_scratch_bytes``), then GN1's and GN2's
-    statistics, (B, 2, 2, G) floats."""
-    return rows_scratch_bytes(b, hw, c, True) + 4 * 4 * b * groups
+    statistics, (B, 2, 2, G) floats, then the t gradient's per-channel
+    sums of conv2 and conv1, (B, 2, C) floats."""
+    return rows_scratch_bytes(b, hw, c, True) + 4 * 4 * b * groups + 4 * 2 * b * c
+
+
+def rows_bwd_slice_smem_bytes(hw: tuple[int, int], c: int,
+                              groups: int) -> int:
+    """Dynamic shared memory of the rows backward's sliced GroupNorm
+    backwards (csrc/odefunc_bwd.cu ``rows_bwd_slice_smem_bytes``): two
+    staged slices (the GroupNorm input and the cotangent, H·W·C/slices
+    floats each, ``kernels.odefunc.rows_slices``), four partial sums a
+    thread, four floats a group of the slice (mean, inv, two group means),
+    two a channel of the slice, and a conv's C per-channel t sums (dt's
+    gather).  55,424 bytes at 7×7×512 with 32 groups."""
+    n = rows_slices(groups)
+    return 4 * (2 * hw[0] * hw[1] * (c // n) + 4 * (THREADS // n)
+                + 4 * (groups // n) + 2 * (c // n) + c)
 
 
 def cluster_smem_bytes(hw: tuple[int, int], c: int, groups: int,

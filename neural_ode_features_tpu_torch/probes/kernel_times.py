@@ -57,7 +57,13 @@ and the
 one-CTA pass it replaced (``probes/timing_aids.py`` ``odefunc_bwd_cta_bf16``,
 split by kernel in ``odefunc_bwd_bf16_cta_split_ms``) are timed in turns,
 one-CTA, rows, rows, one-CTA, ``odefunc_bwd_bf16_turns_ms`` (device ms by
-CUDA events behind a spin kernel).  ``--bwd-only`` with ``--bf16`` also
+CUDA events behind a spin kernel).  Beside each rows build, the per-sample GroupNorm
+launches' device ms a call (each kernel's mean per launch under
+``torch.profiler`` times its launches: the forward's three at B = 256,
+``rows_gn_fwd_ms``, the backward's five at B = 128, ``rows_gn_bwd_ms``)
+and their bytes bound (``rows_gn_fwd_bound_ms``, ``rows_gn_bwd_bound_ms``:
+``utils/flops.py`` ``rows_sample_bounds``).
+``--bwd-only`` with ``--bf16`` also
 times the library yardstick of the backward, ``torch.autograd.grad``
 through ``F.group_norm`` + ``F.conv2d`` on f32 (TF32 off) and on bf16
 tensors at B = 128 (``bwd_library_ms``, ``bwd_library_bf16_ms``, the same
@@ -129,6 +135,11 @@ BWD_KERNELS = ("bwd_sample_kernel", "bwd_weight_kernel", "bwd_reduce_kernel")
 ROWS_PASS_PARTS = {"rows_conv": ("rows_conv_kernel",),
                    "rows_pack": ("rows_pack_kernel",),
                    "rows_per_sample": ("rows_bwd_",)}
+# The rows builds' per-sample GroupNorm launches and their count a call:
+# the forward's three, the backward's five.
+ROWS_GN_FWD = {"rows_gn_relu_kernel": 2, "rows_gn_out_kernel": 1}
+ROWS_GN_BWD = {"rows_bwd_gn_relu_kernel": 2, "rows_bwd_gv_kernel": 1,
+               "rows_bwd_gu_kernel": 1, "rows_bwd_dh_kernel": 1}
 ROWS_BWD_PARTS = {**ROWS_PASS_PARTS,
                   "bwd_weight_kernel": ("bwd_weight_kernel",),
                   "bwd_reduce_kernel": ("bwd_reduce_kernel",)}
@@ -188,6 +199,25 @@ def device_parts(fn, parts: dict, reps: int) -> dict:
     if set(ROWS_PASS_PARTS) <= set(out):
         out["rows_pass"] = sum(out[k] for k in ROWS_PASS_PARTS)
     return out
+
+
+def rows_gn_ms(fn, launches: dict, reps: int) -> float:
+    """Device ms per call of the rows builds' per-sample GroupNorm
+    launches: each kernel's mean per recorded launch under
+    ``torch.profiler`` (``conv_probe.device_us``) times its launches a
+    call, summed."""
+    from neural_ode_features_tpu_torch.probes.conv_probe import device_us
+
+    us = device_us(fn, tuple(launches), reps)
+    return sum(us[k] * n for k, n in launches.items()) / 1e3
+
+
+def rows_gn_bound(hh: int, ww: int, c: int, b: int, key: str):
+    """The per-sample launches' bytes bound (``utils/flops.py``
+    ``rows_sample_bounds``, ``key`` 'fwd' or 'bwd')."""
+    from neural_ode_features_tpu_torch.utils.flops import rows_sample_bounds
+
+    return rows_sample_bounds((hh, ww), c, b, G)[key]["bound_ms"]
 
 
 def _rows_bwd(hh: int, ww: int, c: int) -> bool:
@@ -379,7 +409,10 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
 
             turns = [queued_us(fn, reps) / 1e3 for fn in (cta, f16, f16, cta)]
             row.update({"odefunc_bf16_turns_ms": turns,
-                        "odefunc_bf16_cta_ms": (turns[0] + turns[3]) / 2})
+                        "odefunc_bf16_cta_ms": (turns[0] + turns[3]) / 2,
+                        "rows_gn_fwd_ms": rows_gn_ms(f16, ROWS_GN_FWD, reps),
+                        "rows_gn_fwd_bound_ms": rows_gn_bound(hh, ww, c, B,
+                                                              "fwd")})
         row.update({
             "odefunc_bf16_ms": ((row["odefunc_bf16_turns_ms"][1]
                                  + row["odefunc_bf16_turns_ms"][2]) / 2
@@ -417,7 +450,10 @@ def measure(hh: int, ww: int, c: int, reps: int, bf16: bool = False,
                      for fn in (cta, bwd16, bwd16, cta)]
             row.update({"odefunc_bwd_bf16_turns_ms": turns,
                         "odefunc_bwd_bf16_cta_ms": (turns[0] + turns[3]) / 2,
-                        "odefunc_bwd_bf16_rows_ms": (turns[1] + turns[2]) / 2})
+                        "odefunc_bwd_bf16_rows_ms": (turns[1] + turns[2]) / 2,
+                        "rows_gn_bwd_ms": rows_gn_ms(bwd16, ROWS_GN_BWD, reps),
+                        "rows_gn_bwd_bound_ms": rows_gn_bound(
+                            hh, ww, c, B_BWD, "bwd")})
         else:
             row["odefunc_bwd_bf16_split_ms"] = device_split(
                 bwd16, BWD_KERNELS, reps)

@@ -138,7 +138,8 @@ from ..solver import DOPRI5
 from .conv_probe import KERNEL_NAMES, device_us, probe_inputs
 
 __all__ = ["VARIANTS", "RK_VARIANTS", "BWD_VARIANTS", "I2W_VARIANTS",
-           "TAP9_VARIANTS", "WEIGHT_VARIANTS", "patched_sources", "tap9_ffma_bf16",
+           "TAP9_VARIANTS", "WEIGHT_VARIANTS", "ROWS_GN_VARIANTS",
+           "patched_sources", "tap9_ffma_bf16",
            "odefunc_cta_bf16", "odefunc_bwd_cta_bf16",
            "odefunc_bwd_mma_weights", "bwd_weight_partials", "main"]
 
@@ -348,6 +349,56 @@ WEIGHT_VARIANTS = {
 }
 
 
+# The rows builds' per-sample GroupNorm launches (the forward's
+# rows_gn_relu_kernel, rows_gn_out_kernel; the backward's rows_bwd_*_kernel),
+# several CTAs a sample, each on a slice of whole groups, with each part
+# taken out in turn.  Parts: the staging into shared memory, the statistics
+# (GroupNorm's and the backward's per-channel sums and group means), the
+# apply (the elementwise GroupNorm outputs and dx), the conv parameter
+# gradients (bias, time map, time column) and dt's gather over the
+# channels.
+_RG = "rows_conv.cuh"
+_SLOT_LOOP = "    for (int p = sl.pg; p < sl.hw; p += {}) {{\n      {}"
+_SLOT_EDIT = [(f, _SLOT_LOOP.format(npg, line),
+               _SLOT_LOOP.format(npg, line).replace("p < sl.hw", "p < 0"))
+              for f, npg, line in (
+    (_RG, "npg", "acc += xs[p * cs + sl.cl];"),
+    (_RG, "npg", "const float d = xs[p * cs + sl.cl] - mu;"),
+    (_BWD, "s.npg", "const float v = gv[p * cs + sl.cl];"))]
+_EACH4 = "{}slice_each4(sl, s, [&](int i, size_t{}) {{\n{}"
+_ROWS_GN_PARTS = {
+    "staging": [(_RG, "  slice_stage(sl, s, x, xs);\n", ""),
+                (_BWD, "  slice_stage(sl, s, x, m.xs);\n"
+                       "  slice_stage(sl, s, dyg, m.dy);\n", "")],
+    "stats": _SLOT_EDIT[:2] + [
+        (_BWD, "    for (int p = sl.pg; p < sl.hw; p += s.npg) {\n"
+               "      const int i = p * cs + sl.cl;\n",
+         "    for (int p = sl.pg; p < 0; p += s.npg) {\n"
+         "      const int i = p * cs + sl.cl;\n")],
+    "apply": [(f, _EACH4.format(ind, e, tail), ind + "if (false)\n"
+               + _EACH4.format(ind, e, tail)) for f, ind, e, tail in (
+        (_RG, "  ", " e", "    const float4 v"), (_BWD, "  ", "", ""),
+        (_BWD, "  ", " e", "    float dx[4];"))],
+    "param_grads": _SLOT_EDIT[2:] + [
+        (_BWD, "    for (int y = 0; y < s.H; ++y)\n", "    for (int y = 0; y < 0; ++y)\n")],
+    "dt": [(_BWD, "  for (int cc = 0; cc < C; ++cc) dt += chan_t[cc];\n", "")],
+}
+# variant -> substitutions ("shipped" edits nothing; "none" takes every
+# part out: what is left is the launches, barriers and stores), and the
+# launches at other slice counts and with twice the threads a CTA (right
+# values): "slices_2", "slices_8", "threads_x2".
+ROWS_GN_VARIANTS = {
+    "shipped": [],
+    **{f"no_{k}": v for k, v in _ROWS_GN_PARTS.items()},
+    "none": [e for v in _ROWS_GN_PARTS.values() for e in v],
+    **{f"slices_{n}": [(_RG, "constexpr int kRowsSlices = 4;",
+                        f"constexpr int kRowsSlices = {n};")]
+       for n in (2, 8)},
+    "threads_x2": [(_RG, "return kThreads / rows_slices(G); }",
+                    "return 2 * kThreads / rows_slices(G); }")],
+}
+
+
 def patched_sources(edits, dest: Path, csrc: Path = _build.CSRC) -> Path:
     """Copy ``csrc`` to ``dest`` and apply ``edits``: ``(old, new)`` to the
     shared header, ``(file, old, new)`` to that file of ``csrc``; each
@@ -486,6 +537,94 @@ def weight_times(tmp: Path, dev, shapes=((7, 7, 512), (7, 7, 64)),
                     reps)) / 1e3
             print(f"bwd_weight {hh}x{ww}x{c} {prec:>4}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in ms.items()) + " ms per launch")
+    return out
+
+
+def rows_gn_times(tmp: Path, dev, shapes=((7, 7, 512), (7, 7, 96)),
+                  fwd_batch: int = 256, bwd_batch: int = 128,
+                  reps: int = 20, variants=None) -> dict:
+    """Device ms of the rows builds' per-sample launches under each variant
+    of ``ROWS_GN_VARIANTS`` named in ``variants`` (all where None), at
+    each H×W×C of ``shapes``: the bf16
+    ``odefunc`` at B = ``fwd_batch`` and the bf16 backward at B =
+    ``bwd_batch`` (the entry model's ODEfunc at that width, seed 7;
+    numpy-seeded state and cotangent).  Per build, ``per_sample_ms``: the
+    launches' device ms per call under ``torch.profiler`` (each kernel's
+    mean per launch times its launches a call, ``kernel_times``
+    ``ROWS_GN_FWD``, ``ROWS_GN_BWD``), and ``call_ms``: the whole call by CUDA events behind
+    a spin kernel.  Each variant's two libraries (``odefunc.cu`` where it
+    edits the GroupNorm or the staging, ``odefunc_bwd.cu``) are built in
+    parallel, one ``nvcc`` each:
+    ``{shape: {variant: {"fwd": {...}, "bwd": {...}}}}``."""
+    from ..kernels.odefunc import odefunc
+    from ..kernels.odefunc_bwd import odefunc_bwd
+    from ..models import ModelConfig, init_odenet
+    from .conv_probe import queued_us
+    from .kernel_times import ROWS_GN_BWD, ROWS_GN_FWD
+
+    variants = {k: v for k, v in ROWS_GN_VARIANTS.items()
+                if variants is None or k in variants}
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    jobs = []
+    for tag, edits in variants.items():
+        if not edits:
+            continue
+        src = patched_sources(edits, tmp / f"rows_gn_{tag}")
+        fwd = any(e[0] in (HEADER, _RG) for e in edits)
+        for source in ("odefunc", "odefunc_bwd")[0 if fwd else 1:]:
+            lib = src / f"lib{source}.so"
+            jobs.append((tag, source, lib, subprocess.Popen(
+                [_build._nvcc(), *flags, "-o", str(lib),
+                 str(src / f"{source}.cu")])))
+    libs = {tag: {} for tag in variants}
+    for tag, source, lib, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for the rows_gn variant {tag} "
+                               f"({source})")
+        libs[tag][source] = ctypes.CDLL(str(lib))
+        libs[tag][source].nodef_error_string.argtypes = [ctypes.c_int]
+        libs[tag][source].nodef_error_string.restype = ctypes.c_char_p
+    out = {}
+    bf = torch.bfloat16
+    for hh, ww, c in shapes:
+        cfg = ModelConfig(in_channels=3, hidden=c, groups=32)
+        wts = prepare(init_odenet(7, cfg, device=dev)["odefunc"], (hh, ww))
+        rng = np.random.default_rng(1)
+        nb = max(fwd_batch, bwd_batch)
+        h = torch.from_numpy((rng.normal(size=(nb, hh, ww, c)) * 0.3)
+                             .astype(np.float32)).to(dev)
+        t = torch.from_numpy(rng.uniform(0, 0.5, nb)
+                             .astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.normal(size=(nb, hh, ww, c))
+                             .astype(np.float32)).to(dev)
+        fa = (t[:fwd_batch].contiguous(), h[:fwd_batch].contiguous())
+        ba = (t[:bwd_batch].contiguous(), h[:bwd_batch].contiguous(),
+              g[:bwd_batch].contiguous())
+        cases = {
+            "fwd": ("odefunc", ROWS_GN_FWD, lambda: odefunc(
+                wts, *fa, groups=32, compute_dtype=bf)),
+            "bwd": ("odefunc_bwd", ROWS_GN_BWD, lambda: odefunc_bwd(
+                wts, *ba, groups=32, precision="bf16"))}
+        row = out[f"{hh}x{ww}x{c}"] = {}
+        for tag in variants:
+            row[tag] = {}
+            for key, (source, names, fn) in cases.items():
+                def run(names=names, fn=fn):
+                    us = device_us(fn, tuple(names), reps)
+                    return {"per_sample_ms": sum(
+                                us[k] * n for k, n in names.items()) / 1e3,
+                            "by_kernel_ms": {k: us[k] / 1e3 for k in names},
+                            "call_ms": queued_us(fn, reps) / 1e3}
+                row[tag][key] = _with_library(source, libs[tag].get(source),
+                                              run)
+            print(f"rows_gn {hh}x{ww}x{c} {tag:>15}: per-sample "
+                  f"launches fwd B={fwd_batch} "
+                  f"{row[tag]['fwd']['per_sample_ms']:.4f} ms (call "
+                  f"{row[tag]['fwd']['call_ms']:.4f}), bwd B={bwd_batch} "
+                  f"{row[tag]['bwd']['per_sample_ms']:.4f} ms (call "
+                  f"{row[tag]['bwd']['call_ms']:.4f}); by kernel "
+                  + ", ".join(f"{k} {v:.4f}" for d in row[tag].values()
+                              for k, v in d["by_kernel_ms"].items()))
     return out
 
 
@@ -711,6 +850,15 @@ def main(argv=None) -> dict:
                    help="time the backward's weight-gradient launch alone "
                         "(WEIGHT_VARIANTS) in place of the probe and "
                         "rk_step")
+    p.add_argument("--rows-gn", action="store_true",
+                   help="time the rows builds' per-sample GroupNorm "
+                        "launches (ROWS_GN_VARIANTS) in place of the probe "
+                        "and rk_step")
+    p.add_argument("--rows-gn-shapes", default="7x7x512,7x7x96",
+                   help="comma-separated HxWxC shapes of --rows-gn")
+    p.add_argument("--rows-gn-variants", default=None,
+                   help="comma-separated ROWS_GN_VARIANTS of --rows-gn "
+                        "(all where not given)")
     p.add_argument("--tap9", action="store_true",
                    help="time the probe's tap9_bf16 (TAP9_VARIANTS) and the "
                         "fused bf16 builds' FFMA stage in place of the "
@@ -731,6 +879,12 @@ def main(argv=None) -> dict:
             return {"tap9_bf16": tap9_times(tmp, dev)}
         if args.weights:
             return {"bwd_weight_ms": weight_times(tmp, dev)}
+        if args.rows_gn:
+            return {"rows_gn_ms": rows_gn_times(
+                tmp, dev, [tuple(int(n) for n in shape.split("x"))
+                           for shape in args.rows_gn_shapes.split(",")],
+                variants=(args.rows_gn_variants.split(",")
+                          if args.rows_gn_variants else None))}
         if args.bwd_only:
             return {"bwd_sample_ms": bwd_times(
                 tmp, dev, [int(b) for b in args.bwd_batch.split(",")],

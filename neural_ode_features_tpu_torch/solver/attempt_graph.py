@@ -121,6 +121,17 @@ class _KernelNodeParams(ctypes.Structure):
                 ("ctx", ctypes.c_void_p)]
 
 
+class _ClusterDim(ctypes.Structure):
+    """``CUlaunchAttributeValue`` of ``cuda.h`` (a union of 64 bytes) read
+    as its ``clusterDim``."""
+
+    _fields_ = [("dim", ctypes.c_uint * 3), ("rest", ctypes.c_ubyte * 52)]
+
+
+_CLUSTER_DIMENSION = 4  # CU_LAUNCH_ATTRIBUTE_CLUSTER_DIMENSION
+_REQUIRED_CLUSTER = (11, 12, 13)  # CU_FUNC_ATTRIBUTE_REQUIRED_CLUSTER_*
+
+
 @functools.cache
 def _driver() -> ctypes.CDLL:
     return ctypes.CDLL("libcuda.so.1")
@@ -143,11 +154,36 @@ def _name(func: int, kern: int) -> str:
     return name.value.decode()
 
 
-def kernel_launches(raw_graph: int) -> list:
+def _cluster(node: int, func: int, kern: int) -> tuple:
+    """A kernel node's cluster dimensions as launched: the node's cluster
+    attribute where it is set, else the kernel's compiled ones
+    (``__cluster_dims__``), else ``(1, 1, 1)``: no cluster."""
+    value = _ClusterDim()
+    _cu("cuGraphKernelNodeGetAttribute", ctypes.c_void_p(node),
+        _CLUSTER_DIMENSION, ctypes.byref(value))
+    if any(value.dim):
+        return tuple(value.dim)
+    dims = []
+    for attr in _REQUIRED_CLUSTER:
+        n = ctypes.c_int()
+        if func:
+            _cu("cuFuncGetAttribute", ctypes.byref(n), attr,
+                ctypes.c_void_p(func))
+        else:
+            device = ctypes.c_int()
+            _cu("cuCtxGetDevice", ctypes.byref(device))
+            _cu("cuKernelGetAttribute", ctypes.byref(n), attr,
+                ctypes.c_void_p(kern), device)
+        dims.append(n.value)
+    return tuple(dims) if any(dims) else (1, 1, 1)
+
+
+def kernel_launches(raw_graph: int, cluster: bool = False) -> list:
     """The kernel nodes of a CUDA graph (``CUDAGraph.raw_cuda_graph()``)
     in the driver's order, each ``(name, grid, block, shared)``: the kernel's
     name as the driver gives it (mangled), its grid and block dimensions and
-    its dynamic shared memory in bytes."""
+    its dynamic shared memory in bytes; with ``cluster``, also its cluster
+    dimensions as launched (``(1, 1, 1)`` where it has none)."""
     graph = ctypes.c_void_p(raw_graph)
     n = ctypes.c_size_t(0)
     _cu("cuGraphGetNodes", graph, None, ctypes.byref(n))
@@ -162,8 +198,11 @@ def kernel_launches(raw_graph: int) -> list:
         p = _KernelNodeParams()
         _cu("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
             ctypes.byref(p))
-        launches.append((_name(p.func or 0, p.kern or 0), tuple(p.grid),
-                         tuple(p.block), p.shared_mem_bytes))
+        launch = (_name(p.func or 0, p.kern or 0), tuple(p.grid),
+                  tuple(p.block), p.shared_mem_bytes)
+        if cluster:
+            launch += (_cluster(node, p.func or 0, p.kern or 0),)
+        launches.append(launch)
     return launches
 
 

@@ -18,7 +18,9 @@ cores (:data:`H100_TF32_FLOPS`), f32 FFMA outside them
 kernels' bounds in ``chip_smoke.py`` and ``probes/conv_probe.py`` use;
 :func:`bounds` turns operations and bytes into a bound, and
 :func:`bwd_kernel_bounds` gives each of the backward kernel's three
-launches its own (:func:`bwd_kernel_work` counts their work).
+launches its own (:func:`bwd_kernel_work` counts their work), and
+:func:`rows_sample_bounds` the rows builds' per-sample GroupNorm launches
+theirs (:func:`rows_sample_bytes`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ __all__ = [
     "bounds",
     "bwd_kernel_work",
     "bwd_kernel_bounds",
+    "rows_sample_bytes",
+    "rows_sample_bounds",
     "H100_BF16_FLOPS",
     "H100_TF32_FLOPS",
     "H100_F32_FLOPS",
@@ -221,3 +225,62 @@ def bwd_kernel_bounds(hw: tuple[int, int], c: int, b: int, splits: int,
     :func:`bwd_kernel_work`: ``{name: bounds}``."""
     return {k: bounds(ops, nbytes, tensor_peak)
             for k, (ops, nbytes) in bwd_kernel_work(hw, c, b, splits).items()}
+
+
+def rows_sample_bytes(hw: tuple[int, int], c: int, b: int,
+                      groups: int = 32) -> dict:
+    """Bytes of each per-sample GroupNorm launch of the bf16 rows builds
+    (``csrc/rows_conv.cuh`` ``rows_gn``; ``csrc/odefunc.cu``,
+    ``csrc/odefunc_bwd.cu``) at H×W×C = (*hw, c), batch ``b``: each input
+    read once and each output written once; they do no products, so bytes
+    bind them.  A state-sized tensor is B·H·W·C floats (f32), the bf16 conv
+    input half that.  The backward's five (B = 128 on its path): the
+    recompute's GroupNorm → ReLU of h and of u (read the input, write r and
+    the conv input, the statistics), ``gv`` (read v and g, write f, gv and
+    the conv input, 12 of the 26 partial rows and conv2's per-channel t
+    sums), ``gu`` (read u and the conv2 input gradient, the statistics and
+    those t sums; write gu, the conv input, 12 partial rows, conv1's t sums
+    and dt), ``dh`` (read h, the conv1 input gradient, the statistics,
+    conv1's t sums and dt; write dh, 2 partial rows and dt); each also reads
+    its GroupNorm's scale and bias and, ``gv`` and ``gu``, a time map.  The
+    forward's three (B = 256 on its path): GroupNorm → ReLU of h and of u1
+    (read f32, write the bf16 conv input), GN3 of u2 (read, write f).
+    Returns ``{"bwd": {launch: bytes}, "fwd": {launch: bytes}}``."""
+    n = b * hw[0] * hw[1] * c
+    f32, half = 4 * n, 2 * n
+    gn = 4 * 2 * c                  # a GroupNorm's scale and bias
+    tmap = 4 * hw[0] * hw[1] * c
+    stats, rows, chan = 4 * 2 * b * groups, 4 * b * c, 4 * b * c
+    return {
+        "bwd": {
+            "gn_relu_h": f32 + gn + f32 + half + stats,
+            "gn_relu_u": f32 + gn + f32 + half + stats,
+            "gv": 2 * f32 + 4 * b + gn + tmap + 2 * f32 + half + 12 * rows
+            + chan,
+            "gu": 2 * f32 + stats + 4 * b + gn + tmap + chan + f32 + half
+            + 12 * rows + chan + 4 * b,
+            "dh": 2 * f32 + stats + gn + chan + 4 * b + f32 + 2 * rows + 4 * b,
+        },
+        "fwd": {
+            "gn_relu_h": f32 + gn + half,
+            "gn_relu_u": f32 + gn + half,
+            "gn_out": f32 + gn + f32,
+        },
+    }
+
+
+def rows_sample_bounds(hw: tuple[int, int], c: int, b: int,
+                       groups: int = 32) -> dict:
+    """The least time of the rows builds' per-sample launches by their
+    bytes at HBM's rate (:func:`rows_sample_bytes`), each direction's
+    launches summed: ``{"bwd": {"bytes", "bound_ms", "bound_by"}, "fwd":
+    ...}``.  At B = 128, 7×7×512 the backward's five move 213.7 MB (205.5 MB
+    of state-sized tensors, the rest partial rows, statistics and t sums),
+    0.0638 ms; at B = 256 the forward's three 128.5 MB, 0.0383 ms."""
+    out = {}
+    for key, launches in rows_sample_bytes(hw, c, b, groups).items():
+        nbytes = float(sum(launches.values()))
+        out[key] = {"bytes": nbytes, **{
+            k: v for k, v in bounds(0.0, nbytes).items()
+            if not k.startswith("ffma_")}}
+    return out

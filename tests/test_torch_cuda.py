@@ -32,6 +32,8 @@ from neural_ode_features_tpu_torch.kernels.odefunc import (
     odefunc_plain,
     odefunc_vjp,
     prepare,
+    rows_slice_threads,
+    rows_slices,
     stage,
 )
 from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
@@ -1437,6 +1439,53 @@ def test_graph_counts_the_cluster_pass(dev):
                                               "launches_bf16")]) == 0
 
 
+def test_kernel_launches_read_the_cluster(dev):
+    """``attempt_graph.kernel_launches(..., cluster=True)`` reads each
+    captured kernel node's cluster as launched: the f32 backward at
+    7×7×64 in clusters of two CTAs (``bwd_sample_kernel_cluster``'s
+    ``__cluster_dims__``), the bf16 rows backward's five per-sample
+    launches at 7×7×128 in none (``(1, 1, 1)``); without ``cluster`` the
+    launches are the same, one field shorter."""
+    from neural_ode_features_tpu_torch.solver import attempt_graph
+
+    def captured(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+            raw = graph.raw_cuda_graph()
+            return (attempt_graph.kernel_launches(raw, cluster=True),
+                    attempt_graph.kernel_launches(raw))
+        finally:
+            graph.reset()
+
+    w = prepare(init_odenet(2, ENTRY_CONFIG, device=dev)["odefunc"], (7, 7))
+    t, h, g = _bwd_inputs(dev, 16, 7)
+    with_cluster, plain = captured(lambda: _bwd_outputs(w, t, h, g))
+    assert [k[:4] for k in with_cluster] == plain
+    assert [k[4] for k in with_cluster
+            if "bwd_sample_kernel_cluster" in k[0]] == [(2, 1, 1)]
+    cfg = dataclasses.replace(ENTRY_CONFIG, hidden=128)
+    wt = prepare(init_odenet(3, cfg, device=dev)["odefunc"], (7, 7))
+    rng = np.random.default_rng(5)
+    arr = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    h = arr(rng.normal(size=(16, 7, 7, 128)) * 0.3)
+    g = arr(rng.normal(size=h.shape))
+    t = arr(rng.uniform(0, 1, 16))
+    with_cluster, plain = captured(lambda: odefunc_bwd(
+        wt, t, h, g, groups=32, precision="bf16"))
+    assert [k[:4] for k in with_cluster] == plain
+    rows = [k[4] for k in with_cluster if "rows_bwd_" in k[0]]
+    assert rows == [(1, 1, 1)] * 5
+
+
 # ---- the bf16 build: its per-sample pass as a cluster, its convs on wgmma --
 
 
@@ -1584,9 +1633,10 @@ def test_bf16_rows_build_is_the_per_sample_build(dev, side, c):
     torch.cuda.synchronize()
     assert odefunc.launches_bf16 == before + 1
     assert torch.equal(full, odefunc_cta_bf16(wt, t0, h, 32))
-    assert torch.equal(fn(5), full[:5])
-    assert torch.equal(odefunc_cta_bf16(wt, t0[:5].contiguous(),
-                                        h[:5].contiguous(), 32), full[:5])
+    for b in (128, 5, 1):
+        assert torch.equal(fn(b), full[:b])
+        assert torch.equal(odefunc_cta_bf16(wt, t0[:b].contiguous(),
+                                            h[:b].contiguous(), 32), full[:b])
     readings = bf16_distances.odefunc_readings(wt, t0, h, 32)
     assert not bf16_distances.check(readings), readings
     side_s = torch.cuda.Stream()
@@ -1650,7 +1700,8 @@ def test_bf16_rows_backward_is_the_per_sample_pass(dev, side, c):
                            g[:b].contiguous(), groups=32, with_f=True,
                            precision="bf16", residuals=residuals)
 
-    for b in (128, 5):
+    rows_of = {}
+    for b in (128, 5, 1):
         before = odefunc_bwd.launches_bf16, odefunc_bwd.launches
         res, res_cta = {}, {}
         got = outs(fn(b, res), res)
@@ -1662,11 +1713,12 @@ def test_bf16_rows_backward_is_the_per_sample_pass(dev, side, c):
             32, with_f=True, residuals=res_cta), res_cta)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
         assert all(torch.equal(x, y) for x, y in zip(outs(fn(b), {}), got))
-        if b == 128:
-            full = got
-            f128 = got[-5]  # f, before the four residuals
-    assert all(torch.equal(x[:5], y[:5]) for x, y in zip(
-        full[-7:], got[-7:]))  # dt, dh, f and the residuals, per row
+        rows_of[b] = got
+    full = rows_of[128]
+    f128 = full[-5]  # f, before the four residuals
+    for b in (5, 1):  # dt, dh, f and the residuals, per row
+        assert all(torch.equal(x[:b], y) for x, y in zip(
+            full[-7:], rows_of[b][-7:]))
     readings = bf16_distances.bwd_readings(wt, t, h, g, 32)
     assert not bf16_distances.check(readings), readings
     side_s = torch.cuda.Stream()
@@ -1677,8 +1729,13 @@ def test_bf16_rows_backward_is_the_per_sample_pass(dev, side, c):
         out = fn()
         graph.capture_end()
     torch.cuda.current_stream().wait_stream(side_s)
-    names = [k[0] for k in attempt_graph.kernel_launches(
-        graph.raw_cuda_graph())]
+    launches = attempt_graph.kernel_launches(graph.raw_cuda_graph())
+    names = [k[0] for k in launches]
+    # The five per-sample launches: a slice of whole groups a CTA.
+    per_sample = [k for k in launches if "rows_bwd_" in k[0]]
+    assert len(per_sample) == 5
+    assert all(k[1][0] == 128 * rows_slices(32)
+               and k[2][0] == rows_slice_threads(32) for k in per_sample)
     assert sum("rows_conv_kernel" in n for n in names) == 4
     assert sum("rows_pack_kernelILb1ELb1E" in n for n in names) == 2
     assert sum("rows_pack_kernelILb1ELb0E" in n for n in names) == 2

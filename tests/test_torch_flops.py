@@ -88,3 +88,35 @@ def test_peak_flops_per_chip(kind, peak):
 def test_h100_constants():
     assert (H100_BF16_FLOPS, H100_TF32_FLOPS, H100_F32_FLOPS,
             H100_HBM_BYTES_PER_S) == (989e12, 495e12, 67e12, 3.35e12)
+
+
+def test_rows_sample_bounds_at_7x7x512():
+    """The rows builds' per-sample GroupNorm launches at 7×7×512: at B = 128
+    the backward's five move the state-sized tensors of the table (MB: the
+    recompute's GroupNorms 32.1 each, gv 57.8, gu 45.0, dh 38.5; 205.5 in
+    all, 0.061 ms at 3.35 TB/s) and their partial rows, statistics and t
+    sums, 213.7 MB, 0.0638 ms, bound by bytes; at B = 256 the forward's
+    three 128.5 MB, 0.0383 ms."""
+    from neural_ode_features_tpu_torch.utils.flops import (
+        rows_sample_bounds,
+        rows_sample_bytes,
+    )
+
+    n = 128 * 49 * 512
+    state = {"gn_relu_h": 8 * n + 2 * n, "gn_relu_u": 8 * n + 2 * n,
+             "gv": 16 * n + 2 * n, "gu": 12 * n + 2 * n, "dh": 12 * n}
+    assert [round(v / 1e6, 1) for v in state.values()] == [
+        32.1, 32.1, 57.8, 45.0, 38.5]
+    assert round(sum(state.values()) / 1e6, 1) == 205.5
+    got = rows_sample_bytes((7, 7), 512, 128)["bwd"]
+    assert list(got) == list(state)
+    for k, v in got.items():  # plus the small outputs and inputs
+        assert state[k] <= v <= state[k] + 5e6, k
+    bwd = rows_sample_bounds((7, 7), 512, 128)["bwd"]
+    assert round(bwd["bytes"] / 1e6, 1) == 213.7
+    assert bwd["bound_by"] == "bytes"
+    assert round(bwd["bound_ms"], 4) == 0.0638
+    assert bwd["bound_ms"] == 1e3 * (bwd["bytes"] / H100_HBM_BYTES_PER_S)
+    fwd = rows_sample_bounds((7, 7), 512, 256)["fwd"]
+    assert round(fwd["bytes"] / 1e6, 1) == 128.5
+    assert round(fwd["bound_ms"], 4) == 0.0383

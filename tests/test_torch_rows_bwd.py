@@ -39,6 +39,8 @@ from neural_ode_features_tpu_torch.kernels.odefunc import (
     bf16_round,
     prepare,
     rows_scratch_bytes,
+    rows_slice_threads,
+    rows_slices,
     stage,
     supported,
 )
@@ -48,6 +50,7 @@ from neural_ode_features_tpu_torch.kernels.odefunc_bwd import (
     odefunc_bwd,
     odefunc_bwd_plain,
     rows_bwd_scratch_bytes,
+    rows_bwd_slice_smem_bytes,
     rows_bwd_smem_bytes,
     sample_pass,
 )
@@ -407,7 +410,12 @@ def test_the_launch_sequence_in_the_source():
     """The rows backward's launches in order: two recompute GroupNorms and
     forward convs, then per conv in reverse its GroupNorm backward and its
     transposed input-gradient conv, then GN1's backward; the transposed
-    convs round each sum once (``RowsBwdEpi`` without a bias), into dh."""
+    convs round each sum once (``RowsBwdEpi`` without a bias), into dh.
+    The five per-sample launches run a slice of whole groups a CTA (grid B
+    times ``rows_slices``, ``rows_slice_threads`` threads), the
+    recompute's on ``rows_gn_smem_bytes``, the backwards on
+    ``rows_bwd_slice_smem_bytes``; dt's per-channel sums sit after GN1's
+    and GN2's statistics in the scratch."""
     src = (CSRC / "odefunc_bwd.cu").read_text()
     body = src[src.index("int launch_rows_bwd("):]
     body = body[:body.index("\n}\n")]
@@ -417,10 +425,235 @@ def test_the_launch_sequence_in_the_source():
         "rows_bwd_gn_relu_kernel", "true", "rows_bwd_gn_relu_kernel", "true",
         "rows_bwd_gv_kernel", "true, true", "rows_bwd_gu_kernel",
         "true, true", "rows_bwd_dh_kernel"]
+    flat = " ".join(body.split())
+    assert ("const int gb = B * rows_slices(G), gt = rows_slice_threads(G);"
+            in flat)
+    grids = re.findall(r"(rows_bwd_\w+_kernel)<<<([^>]*)>>>", flat)
+    assert grids == [(k, "gb, gt, gsm, st") for k in (
+        "rows_bwd_gn_relu_kernel",) * 2] + [(k, "gb, gt, bsm, st") for k in (
+            "rows_bwd_gv_kernel", "rows_bwd_gu_kernel", "rows_bwd_dh_kernel")]
+    assert ("const size_t gsm = rows_gn_smem_bytes(s), bsm = "
+            "rows_bwd_slice_smem_bytes(H, W, C, G);") in flat
+    assert "float* chan_t = stats + 4 * (size_t)B * G;" in flat
     assert body.count(", rounded, st)") == 2
     assert ("const RowsBwdEpi rounded{{nullptr, nullptr, nullptr, dh, H * W, "
             "C}};") in body
     assert "make_float2(bf16_round(v0), bf16_round(v1))" in src
+
+
+def test_slice_shared_memory_is_mirrored():
+    """``rows_bwd_slice_smem_bytes`` (the sliced GroupNorm backwards) from
+    the C++ source against the Python mirror at every rows shape and
+    several group counts; a CTA's share at 7x7x512 lets four share an
+    SM."""
+    smem = eval("lambda H, W, C, G: " + _as_python(_cpp_return(  # noqa: S307
+        "odefunc_bwd.cu", "inline size_t rows_bwd_slice_smem_bytes(int H, "
+        "int W, int C, int G)")), {"rows_slices": rows_slices,
+                                   "rows_slice_threads": rows_slice_threads})
+    for c in range(96, 513, 32):
+        for hw in ((7, 7), (6, 6)):
+            for groups in (32, 16, c // 32):
+                assert smem(*hw, c, groups) == rows_bwd_slice_smem_bytes(
+                    hw, c, groups)
+    assert rows_bwd_slice_smem_bytes((7, 7), 512, 32) == 55_424
+    assert 4 * (55_424 + 1024) <= 228 * 1024
+
+
+def _bf16(x):
+    """x rounded to bf16 (to nearest even), as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _fma(a, b, c):
+    """fmaf in numpy: a·b exact in float64, the sum rounded to float32
+    (both orders below take the same function)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _chain(step, pg, ch, npg, hw):
+    """Per slot (pg, ch) ``acc = step(acc, p, ch)`` over the pixels p = pg,
+    pg + npg, ... in order, from 0 (float32)."""
+    acc = np.zeros(len(pg), np.float32)
+    for k in range(-(-hw // npg)):
+        p = pg + k * npg
+        m = p < hw
+        acc[m] = step(acc[m], p[m], ch[m])
+    return acc
+
+
+def _bwd_sums(x, dy, gv, tmap, t, hw, c, groups, order):
+    """The rows backward's sums of one sample, emulated in float32: the
+    GroupNorm backward's channel sums (dscale, dbias, then the bf16 pass's
+    dy·scale·x-hat and dy·scale) and group means, one ConcatConv's bias
+    gradient, time-map sums, time columns and its t gradient, dt = bf16(dt2
+    + dt1) of two such convs (``gv`` (2, H*W, C)).  ``order`` 'cta': the
+    one-CTA map (thread pg*C + c, partials at q*C + c, dt by thread 0 over
+    the channels, each time column a loop over its tap's window); 'sliced':
+    each slice's CTA (thread j = pg*cs + cl, partials at q*cs + cl; the
+    time columns nine chains over the pixels; dt gathered over the
+    slices' per-channel sums in channel order)."""
+    (hh, ww), gs = hw, c // groups
+    npix, npg = hh * ww, odefunc_mod.THREADS // c
+    n = np.float32(npix * gs)
+    mean, inv, scale = (x.mean(0).reshape(groups, gs).mean(1),
+                        np.float32(1.3) + 0 * x[0, ::gs], x[1] * 0.5 + 1)
+    mean, inv, scale = (np.float32(mean), np.float32(inv), _bf16(scale))
+    xh = (_bf16(x) - mean[np.arange(c) // gs]) * inv[np.arange(c) // gs]
+    dys = _bf16(dy * scale)
+    parts = [(0, c)] if order == "cta" else [
+        (k * (c // rows_slices(groups)), c // rows_slices(groups))
+        for k in range(rows_slices(groups))]
+    out = {k: np.zeros(c, np.float32) for k in
+           ("dscale", "dbias", "sb1", "sb2", "db")}
+    out.update(gm1=np.zeros(groups, np.float32),
+               gm2=np.zeros(groups, np.float32),
+               tsum=np.zeros((2, c), np.float32),
+               dwt=np.zeros((2, 9, c), np.float32))
+    for c0, cs in parts:
+        j = np.arange(npg * cs)
+        pg, ch = j // cs, c0 + j % cs
+        cl = np.arange(cs)
+
+        def per_channel(red):  # over the pixel groups, per channel
+            acc = np.zeros(cs, np.float32)
+            for q in range(npg):
+                acc = acc + red[q * cs + cl]
+            return acc
+
+        sl = slice(c0, c0 + cs)
+        out["dscale"][sl] = per_channel(_chain(
+            lambda a, p, cc: a + _bf16(dy[p, cc] * _bf16(xh[p, cc])),
+            pg, ch, npg, npix))
+        out["dbias"][sl] = per_channel(_chain(
+            lambda a, p, cc: a + dy[p, cc], pg, ch, npg, npix))
+        out["sb1"][sl] = per_channel(_chain(
+            lambda a, p, cc: _fma(dys[p, cc], xh[p, cc], a), pg, ch, npg,
+            npix))
+        out["sb2"][sl] = per_channel(_chain(
+            lambda a, p, cc: a + dys[p, cc], pg, ch, npg, npix))
+        for gl in range(cs // gs):
+            g = c0 // gs + gl
+            s1 = s2 = np.float32(0)
+            for jj in range(gs):
+                s1 = s1 + out["sb1"][g * gs + jj]
+                s2 = s2 + out["sb2"][g * gs + jj]
+            out["gm1"][g], out["gm2"][g] = s2 / n, s1 / n
+        for conv in range(2):
+            v = gv[conv]
+            if conv == 0:
+                out["db"][sl] = per_channel(_chain(
+                    lambda a, p, cc: a + v[p, cc], pg, ch, npg, npix))
+            out["tsum"][conv, sl] = per_channel(_chain(
+                lambda a, p, cc: a + _bf16(v[p, cc] * _bf16(tmap[p, cc])),
+                pg, ch, npg, npix))
+            term = _bf16(v * t).reshape(hh, ww, c)
+            for k in range(9):
+                ky, kx = divmod(k, 3)
+                acc = np.zeros(cs, np.float32)
+                if order == "cta":  # its window, y-major
+                    for y in range(max(0, 1 - ky), min(hh, hh + 1 - ky)):
+                        for xx in range(max(0, 1 - kx), min(ww, ww + 1 - kx)):
+                            acc = acc + term[y, xx, sl]
+                else:  # every pixel in order, the window's added
+                    for y in range(hh):
+                        for xx in range(ww):
+                            if 1 - ky <= y < hh + 1 - ky and (
+                                    1 - kx <= xx < ww + 1 - kx):
+                                acc = acc + term[y, xx, sl]
+                out["dwt"][conv, k, sl] = acc
+    # dt: each conv's per-channel sums added over the channels in order, by
+    # one thread (the one-CTA pass) or gathered from the slices' scratch.
+    dts = []
+    for conv in range(2):
+        acc = np.float32(0)
+        for cc in range(c):
+            acc = acc + out["tsum"][conv, cc]
+        dts.append(_bf16(acc))
+    out["dt"] = _bf16(dts[0] + dts[1])
+    return out
+
+
+def _body(source: str, start: str) -> str:
+    """The text of ``source`` from ``start`` to the end of that function."""
+    text = (CSRC / source).read_text()
+    body = text[text.index(start):]
+    return body[:body.index("\n}\n")]
+
+
+def test_the_emulated_backward_order_is_the_sources():
+    """The order ``_bwd_sums`` emulates is the one the sources hold, so that
+    a kernel edit that changes it fails here.  One-CTA
+    (``odefunc_bwd.cu``): ``channel_sums`` and ``conv_param_grads`` chain
+    a slot's pixels and add the pixel groups q in order at ``q * C +
+    tid``, the time columns over their tap's window y-major, dt by one
+    thread over the channels in order.  Slices: ``slice_gn_backward``
+    and ``slice_conv_param_grads`` chain the slot's pixels with the full
+    map's npg and add q in order at ``q * cs + tid``, the group means
+    over the group's channels in order, the time columns over every
+    pixel y-major; ``rows_bwd_dt`` adds the gathered per-channel sums in
+    channel order and the dx launch adds conv1's to conv2's."""
+    cs_ = _body("odefunc_bwd.cu", "__device__ __forceinline__ void "
+                "channel_sums(")
+    assert "    for (int p = pg; p < hw; p += npg) {\n" in cs_
+    assert ("    for (int q = 0; q < npg; ++q) {\n"
+            "      s1 += m.sred[q * C + tid];\n"
+            "      s2 += sred2[q * C + tid];\n") in cs_
+    cpg = _body("odefunc_bwd.cu", "__device__ float conv_param_grads(")
+    assert ("    for (int y = y0; y < y1; ++y)\n"
+            "      for (int x = x0; x < x1; ++x)\n") in cpg
+    assert ("  if (tid == 0)\n"
+            "    for (int cc = 0; cc < C; ++cc) dt += chan[cc];\n") in cpg
+    gnb = _body("odefunc_bwd.cu", "__device__ void slice_gn_backward(")
+    assert "    for (int p = sl.pg; p < sl.hw; p += s.npg) {\n" in gnb
+    assert "".join(f"      s{k + 1} += m.red[{pre}q * cs + tid];\n"
+                   for k, pre in enumerate(
+                       ("", "nt + ", "2 * nt + ", "3 * nt + "))) in gnb
+    assert ("    for (int j = 0; j < s.gs; ++j) {\n"
+            "      s1 += m.ch1[tid * s.gs + j];\n"
+            "      s2 += m.ch2[tid * s.gs + j];\n") in gnb
+    spg = _body("odefunc_bwd.cu", "__device__ void slice_conv_param_grads(")
+    assert "    for (int p = sl.pg; p < sl.hw; p += s.npg) {\n" in spg
+    assert ("      s1 += red[q * cs + tid];\n"
+            "      s2 += red[blockDim.x + q * cs + tid];\n") in spg
+    assert ("    for (int y = 0; y < s.H; ++y)\n"
+            "      for (int x = 0; x < s.W; ++x) {\n") in spg
+    dt = _body("odefunc_bwd.cu", "__device__ __forceinline__ float "
+               "rows_bwd_dt(")
+    assert "  for (int cc = 0; cc < C; ++cc) dt += chan_t[cc];\n" in dt
+    src = (CSRC / "odefunc_bwd.cu").read_text()
+    assert ("dt[sl.b] = bf16_round(dt[sl.b] + rows_bwd_dt(m.dtc, s.C));"
+            in src)
+
+
+@pytest.mark.parametrize("hw,c", [((7, 7), 96), ((7, 7), 160),
+                                  ((6, 6), 224), ((7, 7), 320),
+                                  ((7, 7), 512)])
+def test_sliced_backward_sums_are_the_one_cta_order(hw, c):
+    """A numpy float32 emulation of the rows backward's per-sample sums
+    (``rows_bwd_gv``, ``_gu``, ``_dh``: the GroupNorm backward's channel
+    sums and group means, the conv parameter gradients and dt's gather):
+    the slices' order equals the one-CTA pass's bit for bit on seeded
+    inputs, also where C does not divide 512 (96, 160, 224, 320), and dt
+    and dθ's partials lie near float64's."""
+    rng = np.random.default_rng(c + 3 * hw[0])
+    npix = hw[0] * hw[1]
+    x = (rng.normal(size=(npix, c)) * 0.6).astype(np.float32)
+    dy = _bf16(rng.normal(size=(npix, c)))
+    gv = _bf16(rng.normal(size=(2, npix, c)))
+    tmap = rng.normal(size=(npix, c)).astype(np.float32)
+    t = _bf16(np.float32(0.375))
+    want = _bwd_sums(x, dy, gv, tmap, t, hw, c, 32, "cta")
+    got = _bwd_sums(x, dy, gv, tmap, t, hw, c, 32, "sliced")
+    assert list(got) == list(want)
+    for k in want:
+        assert np.array_equal(np.asarray(got[k]).view(np.uint32),
+                              np.asarray(want[k]).view(np.uint32)), k
+    np.testing.assert_allclose(want["dbias"], dy.astype(np.float64).sum(0),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(want["db"], gv[0].astype(np.float64).sum(0),
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_graph_route_counts_one_launch_a_rows_backward():
@@ -440,8 +673,9 @@ def test_graph_route_counts_one_launch_a_rows_backward():
         "_ZN5nodef18rows_bwd_gv_kernelEPKfS1_NS_7OdefuncENS_5ShapeES1_PfS4_"
         "PtS4_S4_": 1,
         "_ZN5nodef18rows_bwd_gu_kernelEPKfNS_7OdefuncENS_5ShapeES1_S1_S1_Pf"
-        "PtS4_S4_": 1,
-        "_ZN5nodef18rows_bwd_dh_kernelEPKfNS_7OdefuncENS_5ShapeES1_PfS4_": 1,
+        "PtS4_S4_S4_": 1,
+        "_ZN5nodef18rows_bwd_dh_kernelEPKfNS_7OdefuncENS_5ShapeES1_PfS1_S4_"
+        "S4_": 1,
         "_ZN5nodef17bwd_weight_kernelILi64ELb1EEEvPKfS2_S2_S2_NS_5ShapeEiiPf":
             1,
         "_ZN5nodef17bwd_reduce_kernelILb1EEEvPKfS2_NS_5ShapeEiiPfS4_S4_": 1,

@@ -44,6 +44,9 @@ from neural_ode_features_tpu_torch.kernels.odefunc import (
     odefunc,
     odefunc_plain,
     prepare,
+    rows_gn_smem_bytes,
+    rows_slice_threads,
+    rows_slices,
     stage,
 )
 from neural_ode_features_tpu_torch.models import ModelConfig, init_odenet
@@ -376,6 +379,189 @@ def test_graph_route_counts_one_launch_a_rows_call():
     assert attempt_graph._count(nodes, rules[("odefunc", "launches")]) == 5
     src = (CSRC / "odefunc.cu").read_text()
     assert src.count("rows_gn_out_kernel<<<") == 1
+
+
+# ---- the per-sample GroupNorm launches, a sample over several CTAs ---------
+
+
+def _rows_shapes():
+    """Every shape of the rows build on 7x7 and 6x6 maps with 32 groups."""
+    return [(hw, c) for hw in ((7, 7), (6, 6)) for c in range(96, 513, 32)
+            if stage(hw, c, "bf16") == "rows_bf16"
+            and odefunc_mod.supported(hw, c, 32)]
+
+
+def test_slices_hold_whole_groups_and_the_one_cta_slots():
+    """At every rows-build shape (7x7 and 6x6, C = 96 to 512, 32 groups)
+    the launches' slices (``rows_slices``: 4 CTAs a sample) each hold whole
+    GroupNorm groups, start on a 16-byte boundary, and give their CTA's
+    threads the one-CTA map's (pixel group, channel) slots restricted to
+    their channels (thread j: ``(j // cs, c0 + j % cs)``), one a thread;
+    the slices cover the channels once."""
+    shapes = _rows_shapes()
+    assert len(shapes) == 2 * 14
+    for hw, c in shapes:
+        n, threads = rows_slices(32), rows_slice_threads(32)
+        assert (n, threads) == (4, 128)
+        cs, gs, npg = c // n, c // 32, odefunc_mod.THREADS // c
+        full = {(t // c, t % c) for t in range(npg * c)}  # pg < npg
+        seen = []
+        for k in range(n):
+            c0 = k * cs
+            assert c0 % gs == 0 and cs % gs == 0  # whole groups
+            assert (4 * c0) % 16 == 0 and cs % 4 == 0  # 16-byte vectors
+            slots = [(j // cs, c0 + j % cs) for j in range(npg * cs)]
+            assert len(slots) <= threads
+            assert set(slots) == {(pg, ch) for pg, ch in full
+                                  if c0 <= ch < c0 + cs}
+            seen += range(c0, c0 + cs)
+        assert seen == list(range(c))
+    # Fewer slices where the group count does not split in four.
+    assert [rows_slices(g) for g in (32, 16, 8, 4, 6, 2, 3, 1)] == [
+        4, 4, 4, 4, 2, 2, 1, 1]
+
+
+def _bf16(x):
+    """x rounded to bf16 (to nearest even), as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) in numpy: a·b exact in float64, the sum rounded to
+    float32 (both orders below take the same function)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _chain(step, pg, ch, npg, hw):
+    """Per slot (pg, ch) the sum ``acc = step(acc, p, ch)`` over the pixels
+    p = pg, pg + npg, ... in order, from 0 (float32)."""
+    acc = np.zeros(len(pg), np.float32)
+    for k in range(-(-hw // npg)):
+        p = pg + k * npg
+        m = p < hw
+        acc[m] = step(acc[m], p[m], ch[m])
+    return acc
+
+
+def _stats(x, c, groups, order):
+    """GroupNorm's mean and inv of one sample x (H*W, C), x rounded to bf16
+    as the launches read it, by gn_stats' sums: ``order`` 'cta', the
+    one-CTA map (thread pg*C + c, partials at q*C + g*gs + j), or 'sliced',
+    each slice's CTA (thread j = pg*cs + cl, partials at q*cs + gl*gs + j)
+    with its groups' results placed by channel."""
+    hw, gs = x.shape[0], c // groups
+    npg, n = odefunc_mod.THREADS // c, np.float32(hw * gs)
+    xb = _bf16(x)
+    parts = [(0, c)] if order == "cta" else [
+        (k * (c // rows_slices(groups)), c // rows_slices(groups))
+        for k in range(rows_slices(groups))]
+    mean = np.zeros(groups, np.float32)
+    inv = np.zeros(groups, np.float32)
+    for c0, cs in parts:
+        j = np.arange(npg * cs)
+        pg, ch = j // cs, c0 + j % cs
+        ng, g0 = cs // gs, c0 // gs
+
+        def tot(red):
+            out = np.zeros(ng, np.float32)
+            for q in range(npg):
+                for jj in range(gs):
+                    out = out + red[q * cs + np.arange(ng) * gs + jj]
+            return out
+
+        red = _chain(lambda a, p, cc: a + xb[p, cc], pg, ch, npg, hw)
+        mu = tot(red) / n
+        red2 = _chain(lambda a, p, cc: _fma(xb[p, cc] - mu[cc // gs - g0],
+                                            xb[p, cc] - mu[cc // gs - g0], a),
+                      pg, ch, npg, hw)
+        iv = np.float32(1) / np.sqrt(tot(red2) / n + np.float32(EPS))
+        mean[g0:g0 + ng], inv[g0:g0 + ng] = mu, iv
+    return mean, inv
+
+
+@pytest.mark.parametrize("hw,c", [((7, 7), 96), ((7, 7), 160), ((6, 6), 192),
+                                  ((7, 7), 320), ((6, 6), 512),
+                                  ((7, 7), 512)])
+def test_sliced_statistics_are_the_one_cta_order(hw, c):
+    """A numpy float32 emulation of the GroupNorm statistics (the rows
+    forward's three launches and the backward's recompute and GN3): the
+    slices' sums equal the one-CTA map's bit for bit on seeded inputs,
+    also where C does not divide 512 (96, 160, 320: npg 5, 3, 1), and lie
+    near float64's."""
+    rng = np.random.default_rng(c + hw[0])
+    x = (rng.normal(size=(hw[0] * hw[1], c)) * 0.7 + 0.2).astype(np.float32)
+    want = _stats(x, c, 32, "cta")
+    got = _stats(x, c, 32, "sliced")
+    for a, b in zip(got, want):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    xg = _bf16(x).astype(np.float64).reshape(-1, 32, c // 32)
+    np.testing.assert_allclose(want[0], xg.mean(axis=(0, 2)), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_the_emulated_statistics_order_is_the_sources():
+    """The order ``_stats`` emulates is the one the sources hold, so that a
+    kernel edit that changes it fails here: the one-CTA ``gn_stats``
+    (``odefunc_common.cuh``: a slot's chain over its pixels at partial
+    ``pg * C + c``, then q-major over the group's channels) and the
+    slices' ``slice_stats`` (``rows_conv.cuh``: the full map's npg, slot
+    ``tid = pg * cs + cl``, the same chain, partials at ``q * cs + j0 +
+    j`` q-major), each for the mean and the variance."""
+    common = (CSRC / "odefunc_common.cuh").read_text()
+    assert ("    for (int p = pg; p < hw; p += npg) acc += x[p * C + c];\n"
+            "  m.sred[tid] = acc;  // tid == pg * C + c\n") in common
+    for red in ("m.sred", "red2"):
+        assert ("    for (int q = 0; q < npg; ++q)\n"
+                f"      for (int j = 0; j < gs; ++j) tot += {red}[q * C + g0"
+                " + j];\n") in common
+    rows = (CSRC / "rows_conv.cuh").read_text()
+    body = rows[rows.index("__device__ void slice_stats("):]
+    body = body[:body.index("\n}\n")]
+    assert "const int tid = threadIdx.x, npg = s.npg, cs = sl.cs;" in body
+    assert ("  sl.pg = div_magic(tid << ln, s.cmagic);  // tid / cs\n"
+            "  sl.cl = tid - sl.pg * sl.cs;\n") in rows
+    assert "const int gl = div_magic(sl.cl, s.gmagic), j0 = gl * s.gs;" in body
+    assert body.count("    for (int p = sl.pg; p < sl.hw; p += npg) {\n") == 2
+    assert "      acc += xs[p * cs + sl.cl];\n" in body
+    assert "      acc = fmaf(d, d, acc);\n" in body
+    assert "  red[tid] = acc;\n" in body and "  red2[tid] = acc;\n" in body
+    for red in ("red", "red2"):
+        assert ("    for (int q = 0; q < npg; ++q)\n"
+                f"      for (int j = 0; j < s.gs; ++j) tot += {red}[q * cs + "
+                "j0 + j];\n") in body
+
+
+def test_the_slice_launches_are_mirrored():
+    """``csrc/rows_conv.cuh``'s slice count, its rule, the CTA's threads and
+    a GroupNorm launch's shared memory against ``kernels/odefunc.py``; the
+    rows build launches its three GroupNorms on that grid (B times the
+    slices, the slice's threads) and shared memory."""
+    src = (CSRC / "rows_conv.cuh").read_text()
+    assert int(re.search(r"constexpr int kRowsSlices = (\d+);", src)
+               .group(1)) == odefunc_mod.ROWS_SLICES
+    assert ("  int n = kRowsSlices;\n  while (n > 1 && G % n) n >>= 1;\n"
+            "  return n;\n") in src
+    ns = {"kThreads": odefunc_mod.THREADS, "rows_slices": rows_slices}
+    threads = eval("lambda G: " + _cpp_function(  # noqa: S307
+        "rows_conv.cuh", "inline int rows_slice_threads(int G)"), ns)
+    smem = eval("lambda H, W, C, G: " + _cpp_function(  # noqa: S307
+        "rows_conv.cuh", "inline size_t rows_gn_smem_bytes(const Shape& s)")
+        .replace("sizeof(float)", "4").replace("s.", ""),
+        {**ns, "rows_slice_threads": rows_slice_threads})
+    for groups in (32, 16, 6, 3):
+        assert threads(groups) == rows_slice_threads(groups)
+    for hw, c in _rows_shapes():
+        for groups in (32, 16, c // 3 if c % 3 == 0 else 32):
+            assert smem(*hw, c, groups) == rows_gn_smem_bytes(hw, c, groups)
+            assert rows_gn_smem_bytes(hw, c, groups) <= odefunc_mod.MAX_SMEM
+    assert rows_gn_smem_bytes((7, 7), 512, 32) == 26_176
+    assert 8 * (26_176 + 1024) <= 228 * 1024  # eight CTAs an SM
+    body = " ".join((CSRC / "odefunc.cu").read_text().split())
+    assert ("const int gb = B * rows_slices(G), gt = rows_slice_threads(G);"
+            in body)
+    assert body.count("<<<gb, gt, gsm, st>>>") == 2  # in a loop of two, and GN3
 
 
 # ---- against the JAX package ------------------------------------------------

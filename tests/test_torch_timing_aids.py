@@ -3,7 +3,9 @@ text substitutions still apply to the sources they edit
 (``csrc/odefunc_common.cuh``; for the backward's per-sample pass,
 ``csrc/odefunc_bwd.cu``, and for its weight-gradient kernel; for the
 probe's ``im2col_bf16`` and
-``tap9_bf16``, ``csrc/conv_probe.cu``; each pattern exactly once), so the script cannot
+``tap9_bf16``, ``csrc/conv_probe.cu``; for the rows builds' per-sample
+GroupNorm launches, ``csrc/rows_conv.cuh`` and ``csrc/odefunc_bwd.cu``;
+each pattern exactly once), so the script cannot
 rot silently when a source changes.  The variants are built and timed only
 on the card."""
 
@@ -24,7 +26,8 @@ def _edited(edits):
       for k, v in vs.items()),
     *((f"im2col-{k}", v) for k, v in timing_aids.I2W_VARIANTS.items()),
     *((f"tap9-{k}", v) for k, v in timing_aids.TAP9_VARIANTS.items()),
-    *((f"weight-{k}", v) for k, v in timing_aids.WEIGHT_VARIANTS.items())])
+    *((f"weight-{k}", v) for k, v in timing_aids.WEIGHT_VARIANTS.items()),
+    *((f"rows_gn-{k}", v) for k, v in timing_aids.ROWS_GN_VARIANTS.items())])
 def test_variant_applies_to_the_header(tmp_path, name, edits):
     dest = timing_aids.patched_sources(edits, tmp_path / "csrc")
     edited = _edited(edits)
